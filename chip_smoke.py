@@ -3,20 +3,40 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (``nvcc``); it builds the port's kernels
-from ``gossip_glomers_tpu_torch/csrc/`` into ``build/`` and drives the main
-path, the words-major broadcast flood on a 1,048,576-node 4-ary tree:
+from ``gossip_glomers_tpu_torch/csrc/`` into ``build/`` (one ``nvcc`` per
+source, all started together) and drives the main path, the broadcast
+flood at 1,048,576 nodes, on every topology the port runs:
 
 1. ``build``: nvcc build of the kernels, with its seconds.
 2. ``kernel_check``: each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0: bitsets and counts), at small shapes
-   and at the main path's shapes, and each one's median time there.
-3. ``w1_tree``: 32 values (W = 1 word per node), the fixed-trip flood to
-   ``discover_rounds`` timed with CUDA events, then the accounted
-   while-converge run with the server ledger on; both held against the
-   port's plain CPU path at the same size.
+   and at the main path's shapes — the shift kernels in every mode
+   (circulant, ring, line, grid with a ragged last row), the gather
+   kernels with and without an edge mask over -1-padded tables — and
+   each one's median time at the main path's shapes.
+3. ``w1_tree``: the 4-ary tree with 32 values (W = 1 word per node), the
+   fixed-trip flood to ``discover_rounds`` timed with CUDA events, then
+   the accounted while-converge run with the server ledger on; both held
+   against the port's plain CPU path at the same size.
 4. ``w128_tree``: 4,096 values (W = 128), the fixed-trip flood timed the
    same way; its unwrapped closed-form ledger ``msgs64``; a CPU
    cross-check of the same path at 65,536 nodes.
+5. ``w1_circulant``: the degree-8 circulant expander
+   (``expander_strides(2^20, 8, seed=0)``) with 32 values, timed and
+   accounted as ``w1_tree``; held against the CPU path and against the
+   node-major gather path on ``circulant(n, strides)`` on the card.
+6. ``w128_circulant``: the same expander at 4,096 values, timed, with
+   ``msgs64`` and a CPU cross-check at 65,536 nodes.
+7. ``w1_random_regular``: ``random_regular(2^20, 8, seed=0)`` through the
+   node-major gather, 32 values: rounds from a host-stepped run, the
+   fixed-trip runner timed, then an accounted run (server ledger on,
+   sync waves every 4 rounds) held against the CPU path.
+8. ``w1_random_regular_partitioned``: the same graph under one half/half
+   partition window over rounds [2, 24), sync waves every 16 rounds, the
+   server ledger on, run to convergence and held against the CPU path.
+9. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
+   run to convergence with the server ledger on, each held against the
+   CPU path (coverage, not timing).
 
 Each phase prints one JSON line.  Kernel launch counts are zeroed just
 before each main-path phase and read just after.  Then come the card's
@@ -36,6 +56,7 @@ import time
 
 N_NODES = 1 << 20
 BRANCHING = 4
+DEGREE = 8
 W1_VALUES = 32
 W128_VALUES = 4096
 CHECK_NODES = 1 << 16        # the W = 128 CPU cross-check size
@@ -44,9 +65,23 @@ CHECK_SHAPES = [(w, n) for w in (1, 8, 32, 128)
 MAIN_SHAPES = [(1, N_NODES), (W128_VALUES // 32, N_NODES)]
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
-SOURCE = "gossip_glomers_tpu_torch/csrc/tree_flood.cu"
-# the fused 4-ary tree inbox Pallas kernel (never lowered by Mosaic)
-PALLAS_KERNEL = "benchmarks/pallas_tree_probe.py:74"
+CSRC = "gossip_glomers_tpu_torch/csrc/"
+JAX_PKG = "gossip_glomers_tpu/tpu_sim/"
+# per kernel: (source, what it replaces — the fused 4-ary tree inbox Pallas
+# kernel, never lowered by Mosaic, or the XLA code of the reference)
+KERNELS = {
+    "tree_exchange": ("tree_flood.cu", "benchmarks/pallas_tree_probe.py:74"),
+    "tree_flood_round": ("tree_flood.cu",
+                         "benchmarks/pallas_tree_probe.py:74"),
+    "col_popcount": ("tree_flood.cu", JAX_PKG + "broadcast.py:305"),
+    "col_popcount_nm": ("gather_flood.cu", JAX_PKG + "broadcast.py:464"),
+    "shift_exchange": ("shift_flood.cu", JAX_PKG + "structured.py:170"),
+    "shift_flood_round": ("shift_flood.cu", JAX_PKG + "broadcast.py:288"),
+    "gather_or": ("gather_flood.cu", JAX_PKG + "broadcast.py:185"),
+    "sync_diff_pc": ("gather_flood.cu", JAX_PKG + "broadcast.py:247"),
+}
+# the gather kernels' main shape is node-major (N, W) = (2^20, 1)
+GATHER_MAIN = (1, N_NODES)
 
 
 def emit(obj: dict) -> None:
@@ -73,10 +108,21 @@ def cuda_ms(fn, samples: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def _device_spans(prof) -> list[float]:
+    """Device time (µs) of every kernel a finished profile saw.  Raises
+    if it saw no device work."""
+    import torch
+
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("the profiler recorded no device time")
+    return spans
+
+
 def device_ms(fn, calls: int = 1) -> float:
     """Mean device time (ms) of one kernel launch during ``calls`` calls
-    of ``fn``, from torch.profiler's CUDA activity.  Raises if the
-    profiler saw no device work."""
+    of ``fn``, from torch.profiler's CUDA activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -85,30 +131,80 @@ def device_ms(fn, calls: int = 1) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        raise AssertionError("the profiler recorded no device time")
+    spans = _device_spans(prof)
     return sum(spans) / len(spans) / 1e3
+
+
+def device_busy_ms(make_run) -> float:
+    """Total device time (ms) of every kernel one run launched.
+    ``make_run()`` stages a run off the profiler and returns it as a
+    zero-argument call.  Two runs are staged: the first runs in the
+    profiler's warm-up step, whose events are dropped (the launches right
+    after the profiler starts can go unrecorded), the second is
+    measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    runs = [make_run(), make_run()]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for run in runs:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    return sum(_device_spans(prof)) / 1e3
 
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def bound(w: int, n: int, bitsets: float, extra_bytes: int,
-          ops_per_word: int) -> tuple[float, str]:
-    """(least ms, "bytes" | "operations") for work that moves ``bitsets``
-    (W, N) int32 bitsets plus ``extra_bytes`` and does ``ops_per_word``
-    integer operations per word."""
-    by = (bitsets * w * n * 4 + extra_bytes) / HBM_BYTES_PER_S * 1e3
-    op = ops_per_word * w * n / OPS_PER_S * 1e3
+def bound(moved_bytes: float, ops: float) -> tuple[float, str]:
+    """(least ms, "bytes" | "operations") for work that moves
+    ``moved_bytes`` and does ``ops`` integer operations."""
+    by = moved_bytes / HBM_BYTES_PER_S * 1e3
+    op = ops / OPS_PER_S * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
 
 
-def check_kernels(kernels, device) -> dict:
-    """Every kernel against its plain version on the card; returns the
-    per-kernel max |kernel - plain| over all shapes (must be 0)."""
+def ragged_cols(n: int, grid_cols) -> int:
+    """A grid width whose last row is ragged (for n > 2)."""
+    return max(1, grid_cols(n) - 1)
+
+
+def shift_modes(n: int, topology) -> list:
+    """The shift kernels' modes at n nodes: (name, topology, kw)."""
+    return [("circulant", "circulant",
+             {"strides": topology.expander_strides(n, DEGREE, seed=0)}),
+            ("ring", "ring", {}), ("line", "line", {}),
+            ("grid", "grid", {"cols": ragged_cols(n, topology.grid_cols)})]
+
+
+def gather_inputs(w: int, n: int, seed: int, device, topology):
+    """Node-major payload and receiver bitsets, a -1-padded degree-8
+    table and an edge mask, made from ``seed``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nbrs = topology.random_regular(n, DEGREE, seed=seed)
+    nbrs[rng.random(nbrs.shape) < 0.1] = -1
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def bits(shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                             device=device, generator=gen)
+
+    return (bits((n, w)), bits((n, w)), torch.from_numpy(nbrs).to(device),
+            torch.from_numpy(rng.random(nbrs.shape) < 0.7).to(device))
+
+
+def check_kernels(kernels, structured, topology, device) -> dict:
+    """Every kernel, in every mode, against its plain version on the card;
+    returns the per-kernel max |kernel - plain| over all shapes (must be
+    0)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -117,22 +213,46 @@ def check_kernels(kernels, device) -> dict:
         return torch.randint(-(1 << 31), 1 << 31, (w, n), dtype=torch.int32,
                              device=device, generator=gen)
 
-    err = {"tree_exchange": 0, "tree_flood_round": 0, "col_popcount": 0}
+    err = {name: 0 for name in KERNELS}
+
+    def note(name, *pairs):
+        err[name] = max(err[name], *(max_abs_err(a, b) for a, b in pairs))
+
     for w, n in CHECK_SHAPES + MAIN_SHAPES:
         rec, fr = bits(w, n), bits(w, n)
-        err["tree_exchange"] = max(err["tree_exchange"], max_abs_err(
-            kernels.tree_exchange(fr, BRANCHING),
-            kernels.tree_exchange_plain(fr, BRANCHING)))
+        note("tree_exchange", (kernels.tree_exchange(fr, BRANCHING),
+                               kernels.tree_exchange_plain(fr, BRANCHING)))
         rk, nk = rec.clone(), torch.empty_like(fr)
         kernels.tree_flood_round(rk, fr, nk, BRANCHING)
         rp, np_ = rec.clone(), torch.empty_like(fr)
         kernels.tree_flood_round_plain(rp, fr, np_, BRANCHING)
-        err["tree_flood_round"] = max(err["tree_flood_round"],
-                                      max_abs_err(rk, rp),
-                                      max_abs_err(nk, np_))
-        err["col_popcount"] = max(err["col_popcount"], max_abs_err(
-            kernels.col_popcount(rec), kernels.col_popcount_plain(rec)))
+        note("tree_flood_round", (rk, rp), (nk, np_))
+        note("col_popcount", (kernels.col_popcount(rec),
+                              kernels.col_popcount_plain(rec)))
+        for _, topo, kw in shift_modes(n, topology):
+            dirs = structured.shift_dirs(topo, n, **kw)
+            note("shift_exchange", (kernels.shift_exchange(fr, dirs),
+                                    kernels.shift_exchange_plain(fr, dirs)))
+            rk, nk = rec.clone(), torch.empty_like(fr)
+            kernels.shift_flood_round(rk, fr, nk, dirs)
+            rp, np_ = rec.clone(), torch.empty_like(fr)
+            kernels.shift_flood_round_plain(rp, fr, np_, dirs)
+            note("shift_flood_round", (rk, rp), (nk, np_))
+        del rec, fr, rk, nk, rp, np_
+        payload, recv, nbrs, live = gather_inputs(w, n, n + w, device,
+                                                  topology)
+        for lv in (None, live):
+            note("gather_or", (kernels.gather_or(payload, nbrs, lv),
+                               kernels.gather_or_plain(payload, nbrs, lv)))
+            note("sync_diff_pc", (
+                kernels.sync_diff_pc(payload, recv, nbrs, lv),
+                kernels.sync_diff_pc_plain(payload, recv, nbrs, lv)))
+        note("col_popcount_nm", (
+            kernels.col_popcount(payload, node_major=True),
+            kernels.col_popcount_plain(payload, node_major=True)))
+        del payload, recv, nbrs, live
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -140,44 +260,85 @@ def check_kernels(kernels, device) -> dict:
     return err
 
 
-def time_kernels(kernels, device) -> dict:
+def _timed(kern, plain, bound_ms_by) -> dict:
+    b_ms, b_by = bound_ms_by
+    return {"ms": cuda_ms(kern), "device_ms": device_ms(kern, calls=10),
+            "plain_ms": cuda_ms(plain, inner=3), "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def time_kernels(kernels, structured, topology, device) -> dict:
     """{kernel: {(w, n): {ms, device_ms, plain_ms, bound_ms, bound_by}}}
     at the main path's shapes.  ``ms`` is the CUDA-event time of
     back-to-back calls (the host's launch path included), ``device_ms``
-    the profiler's device time of one launch."""
+    the profiler's device time of one launch.  Bounds count each input
+    read once and each output written once."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(1)
     k = BRANCHING
-    out = {"tree_exchange": {}, "tree_flood_round": {}, "col_popcount": {}}
+    out = {name: {} for name in KERNELS}
     for w, n in MAIN_SHAPES:
         rec = torch.randint(-(1 << 31), 1 << 31, (w, n), dtype=torch.int32,
                             device=device, generator=gen)
         fr = torch.randint(-(1 << 31), 1 << 31, (w, n), dtype=torch.int32,
                            device=device, generator=gen)
         nxt = torch.empty_like(fr)
+        words = w * n
+        dirs = structured.shift_dirs(
+            "circulant", n,
+            strides=topology.expander_strides(n, DEGREE, seed=0))
+        n_dirs = len(dirs.offs)
         runs = {
             "tree_exchange": (
                 lambda: kernels.tree_exchange(fr, k),
                 lambda: kernels.tree_exchange_plain(fr, k),
-                bound(w, n, 2, 0, k)),
+                bound(2 * 4 * words, k * words)),
             # received is updated in place: every call does the same work
             "tree_flood_round": (
                 lambda: kernels.tree_flood_round(rec, fr, nxt, k),
                 lambda: kernels.tree_flood_round_plain(rec, fr, nxt, k),
-                bound(w, n, 4, 0, k + 3)),
+                bound(4 * 4 * words, (k + 3) * words)),
             "col_popcount": (
                 lambda: kernels.col_popcount(fr),
                 lambda: kernels.col_popcount_plain(fr),
-                bound(w, n, 1, 4 * n, 2)),
+                bound(4 * words + 4 * n, 2 * words)),
+            "shift_exchange": (
+                lambda: kernels.shift_exchange(fr, dirs),
+                lambda: kernels.shift_exchange_plain(fr, dirs),
+                bound(2 * 4 * words, n_dirs * words)),
+            "shift_flood_round": (
+                lambda: kernels.shift_flood_round(rec, fr, nxt, dirs),
+                lambda: kernels.shift_flood_round_plain(rec, fr, nxt, dirs),
+                bound(4 * 4 * words, (n_dirs + 3) * words)),
         }
-        for name, (kern, plain, (b_ms, b_by)) in runs.items():
-            out[name][(w, n)] = {"ms": cuda_ms(kern),
-                                 "device_ms": device_ms(kern, calls=10),
-                                 "plain_ms": cuda_ms(plain, inner=3),
-                                 "bound_ms": b_ms, "bound_by": b_by}
+        for name, (kern, plain, b) in runs.items():
+            out[name][(w, n)] = _timed(kern, plain, b)
         del rec, fr, nxt
         torch.cuda.empty_cache()
+    # the gather kernels at the main path's node-major (2^20, 1), degree
+    # 8, fault-free (no edge mask: every index >= 0 delivers)
+    w, n = GATHER_MAIN
+    payload, recv, _, _ = gather_inputs(w, n, 2, device, topology)
+    nbrs = torch.from_numpy(topology.random_regular(n, DEGREE, seed=0)).to(
+        device)
+    edges = n * DEGREE
+    runs = {
+        "gather_or": (
+            lambda: kernels.gather_or(payload, nbrs),
+            lambda: kernels.gather_or_plain(payload, nbrs),
+            bound(4 * n * w + 4 * edges + 4 * n * w, 2 * edges * w)),
+        "sync_diff_pc": (
+            lambda: kernels.sync_diff_pc(payload, recv, nbrs),
+            lambda: kernels.sync_diff_pc_plain(payload, recv, nbrs),
+            bound(2 * 4 * n * w + 4 * edges + 4, 4 * edges * w)),
+        "col_popcount_nm": (
+            lambda: kernels.col_popcount(payload, node_major=True),
+            lambda: kernels.col_popcount_plain(payload, node_major=True),
+            bound(4 * n * w + 4 * n, 2 * n * w)),
+    }
+    for name, (kern, plain, b) in runs.items():
+        out[name][(w, n)] = _timed(kern, plain, b)
     return out
 
 
@@ -188,30 +349,55 @@ def same_state(a, b) -> bool:
             and (a.srv_msgs is None or int(a.srv_msgs) == int(b.srv_msgs)))
 
 
-def fixed_run(timing, broadcast, n: int, n_values: int, device: str):
-    sim = timing.structured_sim("tree", n, n_values, branching=BRANCHING,
-                                device=device)
-    rounds = timing.discover_rounds("tree", n, n_values, branching=BRANCHING)
+def fixed_run(timing, broadcast, topology: str, n: int, n_values: int,
+              device: str, **kw):
+    sim = timing.structured_sim(topology, n, n_values, device=device, **kw)
+    rounds = timing.discover_rounds(topology, n, n_values, **kw)
     state0, target = sim.stage(broadcast.make_inject(n, n_values))
     final = sim.run_staged_fixed(state0, rounds)
     if not sim.converged(final, target):
-        raise AssertionError(f"{device} fixed run at n={n} did not converge")
+        raise AssertionError(f"{device} {topology} fixed run at n={n} did "
+                             "not converge")
     return final
 
 
-def timed_phase(name: str, n_values: int, want_rounds: int, timing,
-                broadcast, device) -> tuple[dict, object]:
+class Launches:
+    """Per-phase kernel launch counts, summed over the main-path phases."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.total = {name: 0 for name in kernels.LAUNCHES}
+
+    def start(self) -> None:
+        import torch
+
+        self.kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+
+    def stop(self, rec: dict, expect: tuple) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        counts = dict(self.kernels.LAUNCHES)
+        rec["launches"] = {k: v for k, v in counts.items() if v}
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        for name, count in counts.items():
+            self.total[name] += count
+        missing = [name for name in expect if counts[name] == 0]
+        if missing:
+            raise AssertionError(f"{rec['phase']}: kernels {missing} were "
+                                 "never launched")
+
+
+def timed_phase(name: str, topo: str, n_values: int, kw: dict, n_dirs: int,
+                timing, broadcast, device) -> tuple[dict, object]:
     """The timed fixed-trip flood of one main-path entry; returns its
     JSON record and final state."""
     import torch
 
     res = timing.bench_structured(
-        N_NODES, [(name, "tree", n_values, {"branching": BRANCHING},
-                   BRANCHING + 1)], device=device)[name]
+        N_NODES, [(name, topo, n_values, kw, n_dirs)], device=device)[name]
     state = res["_state"]
-    if res["rounds"] != want_rounds:
-        raise AssertionError(f"{name}: {res['rounds']} rounds, expected "
-                             f"{want_rounds}")
     if state.t != res["rounds"]:
         raise AssertionError(f"{name}: t = {state.t}")
     if int(state.msgs) != res["msgs64"] % (1 << 32):
@@ -219,13 +405,17 @@ def timed_phase(name: str, n_values: int, want_rounds: int, timing,
                              f"closed form {res['msgs64']} mod 2^32")
     # one more run of the loop under the profiler: the device's busy time
     # against the timed wall gives its idle share
-    sim = timing.structured_sim("tree", N_NODES, n_values,
-                                branching=BRANCHING, device=device)
+    sim = timing.structured_sim(topo, N_NODES, n_values, device=device,
+                                **kw)
     loop_fn, _ = sim.build_fixed(res["rounds"], donate=True)
-    state0, _ = sim.stage(broadcast.make_inject(N_NODES, n_values))
-    busy_ms = device_ms(lambda: loop_fn(state0.received,
-                                        state0.frontier)) * res["rounds"]
-    del sim, state0
+    inject = broadcast.make_inject(N_NODES, n_values)
+
+    def staged():
+        state0, _ = sim.stage(inject)
+        return lambda: loop_fn(state0.received, state0.frontier)
+
+    busy_ms = device_busy_ms(staged)
+    del sim
     torch.cuda.synchronize()
     record = {"phase": name, "n": N_NODES, "n_values": n_values,
               "rounds": res["rounds"], "wall_ms": res["wall_s"] * 1e3,
@@ -238,107 +428,269 @@ def timed_phase(name: str, n_values: int, want_rounds: int, timing,
     return record, state
 
 
+def w1_structured(name: str, topo: str, kw: dict, n_dirs: int, expect,
+                  modules, device, launches: Launches,
+                  want_rounds: int | None = None, gather_nbrs=None) -> None:
+    """A W = 1 structured phase: the timed flood, the accounted run with
+    the server ledger on, the CPU path at the same size, and (given
+    ``gather_nbrs``) the node-major gather path on the same graph."""
+    import torch
+
+    broadcast, timing = modules
+    launches.start()
+    rec, state = timed_phase(name, topo, W1_VALUES, kw, n_dirs, timing,
+                             broadcast, device)
+    if want_rounds is not None and rec["rounds"] != want_rounds:
+        raise AssertionError(f"{name}: {rec['rounds']} rounds, expected "
+                             f"{want_rounds}")
+    acct = timing.structured_sim(topo, N_NODES, W1_VALUES, srv_ledger=True,
+                                 device=device, **kw)
+    inject = broadcast.make_inject(N_NODES, W1_VALUES)
+    state_a, rounds_a = acct.run_fused(inject)
+    if rounds_a != rec["rounds"] or int(state_a.msgs) != rec["msgs"]:
+        raise AssertionError(f"{name} accounted run: {rounds_a} rounds, "
+                             f"msgs {int(state_a.msgs)}; fixed run: "
+                             f"{rec['rounds']}, {rec['msgs']}")
+    if gather_nbrs is not None:
+        gsim = broadcast.BroadcastSim(gather_nbrs, n_values=W1_VALUES,
+                                      sync_every=acct.sync_every,
+                                      device=device)
+        state_g, rounds_g = gsim.run_fused(inject)
+        if not (rounds_g == rounds_a and int(state_g.msgs) == rec["msgs"]
+                and int(state_g.srv_msgs) == int(state_a.srv_msgs)
+                and (gsim.received_node_major(state_g)
+                     == acct.received_node_major(state_a)).all()):
+            raise AssertionError(f"{name}: the gather path on the same "
+                                 "graph differs from the structured path")
+        rec["gather_rounds"] = rounds_g
+        del state_g, gsim
+    launches.stop(rec, expect)
+    # the port's plain CPU path at the same size, bit for bit
+    cpu_fixed = fixed_run(timing, broadcast, topo, N_NODES, W1_VALUES,
+                          "cpu", **kw)
+    cpu_acct = timing.structured_sim(topo, N_NODES, W1_VALUES,
+                                     srv_ledger=True, device="cpu", **kw)
+    cpu_state_a, cpu_rounds_a = cpu_acct.run_fused(inject)
+    if not (same_state(state, cpu_fixed) and cpu_rounds_a == rounds_a
+            and same_state(state_a, cpu_state_a)):
+        raise AssertionError(f"{name}: GPU run differs from the CPU path")
+    rec.update({"srv_msgs": acct.server_msgs(state_a),
+                "accounted_rounds": rounds_a, "cpu_match": True})
+    emit(rec)
+    del state, state_a, acct, cpu_fixed, cpu_state_a
+    torch.cuda.empty_cache()
+
+
+def w128_structured(name: str, topo: str, kw_for, n_dirs: int, expect,
+                    modules, device, launches: Launches,
+                    want_rounds: int | None = None) -> None:
+    """A W = 128 structured phase: the timed flood and its unwrapped
+    ledger, then the GPU path against the CPU path at CHECK_NODES."""
+    import torch
+
+    broadcast, timing = modules
+    launches.start()
+    rec, state = timed_phase(name, topo, W128_VALUES, kw_for(N_NODES),
+                             n_dirs, timing, broadcast, device)
+    if want_rounds is not None and rec["rounds"] != want_rounds:
+        raise AssertionError(f"{name}: {rec['rounds']} rounds, expected "
+                             f"{want_rounds}")
+    launches.stop(rec, expect)
+    del state
+    torch.cuda.empty_cache()
+    kw = kw_for(CHECK_NODES)
+    gpu_small = fixed_run(timing, broadcast, topo, CHECK_NODES, W128_VALUES,
+                          device, **kw)
+    cpu_small = fixed_run(timing, broadcast, topo, CHECK_NODES, W128_VALUES,
+                          "cpu", **kw)
+    if not same_state(gpu_small, cpu_small):
+        raise AssertionError(f"{name}: GPU run differs from the CPU path "
+                             f"at n={CHECK_NODES}")
+    rec.update({"cpu_check_n": CHECK_NODES, "cpu_match": True})
+    emit(rec)
+
+
+def gather_phases(modules, topology, device, launches: Launches) -> None:
+    """Config 4b, the uniform random-regular epidemic through the
+    node-major gather: fault-free (timed, then accounted) and under one
+    half/half partition window."""
+    import numpy as np
+    import torch
+
+    broadcast, timing = modules
+    nbrs = topology.random_regular(N_NODES, DEGREE, seed=0)
+    inject = broadcast.make_inject(N_NODES, W1_VALUES)
+
+    def sim(device, **kw):
+        return broadcast.BroadcastSim(nbrs, n_values=W1_VALUES,
+                                      device=device, **kw)
+
+    launches.start()
+    fast = sim(device, sync_every=1 << 20, srv_ledger=False)
+    _, rounds = fast.run(inject)                # host-stepped discovery
+    tr = timing.TimedRun(fast, inject, rounds)
+    tr.prepare()
+    tr.sample(3)
+    wall_s, _, state = tr.finish()
+
+    def staged():
+        state0, _ = fast.stage(inject)
+        return lambda: fast.run_staged_fixed(state0, rounds, donate=True)
+
+    busy_ms = device_busy_ms(staged)
+    rec = {"phase": "w1_random_regular", "n": N_NODES, "degree": DEGREE,
+           "n_values": W1_VALUES, "rounds": rounds, "wall_ms": wall_s * 1e3,
+           "samples_ms": [s * 1e3 for s in tr.samples],
+           "ms_per_round": wall_s / rounds * 1e3, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / (wall_s * 1e3),
+           "msgs": int(state.msgs)}
+    acct = sim(device, sync_every=4)
+    state_a, rounds_a = acct.run_fused(inject)
+    launches.stop(rec, ("gather_or", "col_popcount_nm", "sync_diff_pc"))
+    cpu_a, cpu_rounds_a = sim("cpu", sync_every=4).run_fused(inject)
+    if not (cpu_rounds_a == rounds_a and same_state(state_a, cpu_a)):
+        raise AssertionError("w1_random_regular: GPU accounted run differs "
+                             "from the CPU path")
+    rec.update({"accounted_sync_every": 4, "accounted_rounds": rounds_a,
+                "accounted_msgs": int(state_a.msgs),
+                "srv_msgs": acct.server_msgs(state_a), "cpu_match": True})
+    emit(rec)
+    del fast, tr, state, acct, state_a, cpu_a
+    torch.cuda.empty_cache()
+
+    group = np.random.default_rng(7).integers(0, 2, N_NODES).astype(
+        np.int8)[None, :]
+    parts = broadcast.Partitions.from_numpy([2], [24], group)
+    launches.start()
+    part = sim(device, sync_every=16, parts=parts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_p, rounds_p = part.run_fused(inject)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if not part.converged(state_p, part.target_bits(inject)) \
+            or rounds_p <= 24:
+        raise AssertionError(f"w1_random_regular_partitioned: {rounds_p} "
+                             "rounds, not converged after the window")
+    rec = {"phase": "w1_random_regular_partitioned", "n": N_NODES,
+           "n_values": W1_VALUES, "window": [2, 24], "sync_every": 16,
+           "rounds": rounds_p, "run_ms_host_clock": run_s * 1e3,
+           "msgs": int(state_p.msgs), "srv_msgs": part.server_msgs(state_p)}
+    launches.stop(rec, ("gather_or", "col_popcount_nm", "sync_diff_pc"))
+    cpu_p, cpu_rounds_p = sim("cpu", sync_every=16,
+                              parts=parts).run_fused(inject)
+    if not (cpu_rounds_p == rounds_p and same_state(state_p, cpu_p)):
+        raise AssertionError("w1_random_regular_partitioned: GPU run "
+                             "differs from the CPU path")
+    rec["cpu_match"] = True
+    emit(rec)
+    del part, state_p, cpu_p
+    torch.cuda.empty_cache()
+
+
+def small_floods(modules, device, launches: Launches) -> None:
+    """Grid, ring and line floods run to convergence with the server
+    ledger on, on the card and on the CPU (coverage, not timing)."""
+    broadcast, timing = modules
+    launches.start()
+    rec = {"phase": "small_floods", "runs": {}}
+    for topo, n in (("grid", 1 << 16), ("ring", 4099), ("line", 4099)):
+        inject = broadcast.make_inject(n, W1_VALUES)
+        states = []
+        for dev in (device, "cpu"):
+            sim = timing.structured_sim(topo, n, W1_VALUES, srv_ledger=True,
+                                        device=dev)
+            states.append(sim.run_fused(inject))
+        (gpu, rounds), (cpu, cpu_rounds) = states
+        want = timing.discover_rounds(topo, n, W1_VALUES)
+        if not (rounds == cpu_rounds == want and same_state(gpu, cpu)):
+            raise AssertionError(f"small_floods {topo}: GPU run differs "
+                                 "from the CPU path")
+        rec["runs"][topo] = {"n": n, "rounds": rounds, "msgs": int(gpu.msgs),
+                             "srv_msgs": int(gpu.srv_msgs),
+                             "cpu_match": True}
+    launches.stop(rec, ("shift_exchange", "col_popcount"))
+    emit(rec)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from gossip_glomers_tpu_torch.tpu_sim import broadcast, kernels, timing
+    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, kernels,
+                                                  structured, timing)
 
     device = torch.device("cuda")
+    modules = (broadcast, timing)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
 
     t0 = time.perf_counter()
-    lib = kernels.build()
-    kernels._lib()
-    log = lib.with_suffix(".log").read_text().splitlines()
+    libs = kernels.build()
+    for name in libs:
+        kernels._lib(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(lib.parents[2])),
-          "ptxas": [ln.strip() for ln in log if "registers" in ln
-                    or "Compiling entry" in ln]})
+          "libraries": {name: str(lib.relative_to(lib.parents[2]))
+                        for name, lib in libs.items()},
+          "ptxas": {name: [ln.strip() for ln in
+                           lib.with_suffix(".log").read_text().splitlines()
+                           if "registers" in ln or "Compiling entry" in ln]
+                    for name, lib in libs.items()}})
 
-    errs = check_kernels(kernels, device)
-    times = time_kernels(kernels, device)
+    errs = check_kernels(kernels, structured, topology, device)
+    times = time_kernels(kernels, structured, topology, device)
     emit({"phase": "kernel_check", "tolerance": 0, "max_abs_err": errs,
           "shapes": [list(s) for s in CHECK_SHAPES + MAIN_SHAPES],
+          "shift_modes": [m[0] for m in shift_modes(N_NODES, topology)],
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
                     for k, t in times.items()}})
 
-    # -- w1_tree: timed flood, then the accounted run ------------------
-    launches = {k: 0 for k in kernels.LAUNCHES}
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    rec, state = timed_phase("w1_tree", W1_VALUES, 13, timing, broadcast,
-                             device)
-    acct = timing.structured_sim("tree", N_NODES, W1_VALUES,
-                                 branching=BRANCHING, srv_ledger=True,
-                                 device=device)
-    inject = broadcast.make_inject(N_NODES, W1_VALUES)
-    state_a, rounds_a = acct.run_fused(inject)
-    srv_msgs = acct.server_msgs(state_a)
-    torch.cuda.synchronize()
-    rec["launches"] = dict(kernels.LAUNCHES)
-    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    for k, v in kernels.LAUNCHES.items():
-        launches[k] += v
-    if rounds_a != rec["rounds"] or int(state_a.msgs) != rec["msgs"]:
-        raise AssertionError(f"accounted run: {rounds_a} rounds, msgs "
-                             f"{int(state_a.msgs)}; fixed run: "
-                             f"{rec['rounds']}, {rec['msgs']}")
-    # the port's plain CPU path at the same size, bit for bit
-    cpu_fixed = fixed_run(timing, broadcast, N_NODES, W1_VALUES, "cpu")
-    cpu_acct = timing.structured_sim("tree", N_NODES, W1_VALUES,
-                                     branching=BRANCHING, srv_ledger=True,
-                                     device="cpu")
-    cpu_state_a, cpu_rounds_a = cpu_acct.run_fused(inject)
-    if not (same_state(state, cpu_fixed) and cpu_rounds_a == rounds_a
-            and same_state(state_a, cpu_state_a)):
-        raise AssertionError("w1_tree: GPU run differs from the CPU path")
-    rec.update({"srv_msgs": srv_msgs, "accounted_rounds": rounds_a,
-                "cpu_match": True})
-    emit(rec)
-    del state, state_a, acct, cpu_fixed, cpu_state_a
-    torch.cuda.empty_cache()
+    launches = Launches(kernels)
+    tree_kw = {"branching": BRANCHING}
+    w1_structured("w1_tree", "tree", tree_kw, BRANCHING + 1,
+                  ("tree_flood_round", "tree_exchange", "col_popcount"),
+                  modules, device, launches, want_rounds=13)
+    w128_structured("w128_tree", "tree", lambda n: tree_kw, BRANCHING + 1,
+                    ("tree_flood_round", "col_popcount"), modules, device,
+                    launches, want_rounds=16)
 
-    # -- w128_tree: timed flood at 4,096 values ------------------------
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    rec, state = timed_phase("w128_tree", W128_VALUES, 16, timing,
-                             broadcast, device)
-    torch.cuda.synchronize()
-    rec["launches"] = dict(kernels.LAUNCHES)
-    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    for k, v in kernels.LAUNCHES.items():
-        launches[k] += v
-    del state
-    torch.cuda.empty_cache()
-    gpu_small = fixed_run(timing, broadcast, CHECK_NODES, W128_VALUES,
-                          "cuda")
-    cpu_small = fixed_run(timing, broadcast, CHECK_NODES, W128_VALUES, "cpu")
-    if not same_state(gpu_small, cpu_small):
-        raise AssertionError("w128_tree: GPU run differs from the CPU path "
-                             f"at n={CHECK_NODES}")
-    rec.update({"cpu_check_n": CHECK_NODES, "cpu_match": True})
-    emit(rec)
+    def circ_kw(n):
+        return {"strides": topology.expander_strides(n, DEGREE, seed=0)}
 
-    for name, count in launches.items():
+    w1_structured("w1_circulant", "circulant", circ_kw(N_NODES), DEGREE,
+                  ("shift_flood_round", "shift_exchange", "col_popcount",
+                   "gather_or", "col_popcount_nm"),
+                  modules, device, launches,
+                  gather_nbrs=topology.circulant(
+                      N_NODES, circ_kw(N_NODES)["strides"]))
+    w128_structured("w128_circulant", "circulant", circ_kw, DEGREE,
+                    ("shift_flood_round", "col_popcount"), modules, device,
+                    launches)
+    gather_phases(modules, topology, device, launches)
+    small_floods(modules, device, launches)
+
+    for name, count in launches.total.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "main path")
     print(smi, flush=True)
-    big = MAIN_SHAPES[1]
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": (PALLAS_KERNEL if name != "col_popcount" else
-                      "gossip_glomers_tpu/tpu_sim/broadcast.py:305"),
-         "launches": launches[name], "max_abs_err": errs[name],
-         **times[name][big], "library_ms": None, "at": list(big),
-         "w1": times[name][MAIN_SHAPES[0]]}
-        for name in kernels.LAUNCHES]})
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        shapes = times[name]
+        big = max(shapes, key=lambda s: s[0] * s[1])
+        entry = {"name": name, "route": "cuda", "source": CSRC + source,
+                 "replaces": replaces, "launches": launches.total[name],
+                 "max_abs_err": errs[name], **shapes[big],
+                 "library_ms": None, "at": list(big)}
+        if len(shapes) > 1:
+            entry["w1"] = shapes[MAIN_SHAPES[0]]
+        entries.append(entry)
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,27 +1,34 @@
-"""Broadcast (challenge 3) on PyTorch: the words-major flood simulator.
+"""Broadcast (challenge 3) on PyTorch: the flood simulator.
 
-The port of gossip_glomers_tpu/tpu_sim/broadcast.py's words-major,
-single-device path.  Each node keeps a ``received`` bitset and a
-``frontier`` bitset (the values learned last round); one round delivers
-every node's frontier to its topology neighbors and keeps what is new:
+The port of gossip_glomers_tpu/tpu_sim/broadcast.py's single-device
+paths.  Each node keeps a ``received`` bitset and a ``frontier`` bitset
+(the values learned last round); one round delivers every node's
+frontier to its topology neighbors and keeps what is new:
 
     new = exchange(frontier) & ~received
     received |= new
     frontier  = new
 
 and every ``sync_every`` rounds the payload is the full received set (the
-reference's push-pull anti-entropy).
+reference's push-pull anti-entropy).  Two layouts, as in the reference:
 
-State layout: ``received`` and ``frontier`` are (W, N) ``torch.int32``,
-bit-identical to the reference's uint32 words (torch's uint32 lacks
-``~``, ``>>`` and comparisons on the CPU).  The ledgers ``msgs`` and
-``srv_msgs`` are () int64 tensors holding uint32 values: every add is
-masked to 32 bits, so they wrap exactly where the reference's uint32
-ledgers wrap.  ``t`` is a host int: the round schedule (sync waves, the
-t == 0 ledger coefficient) is host control flow in eager PyTorch.
+- **words-major (W, N)** with a structured exchange (tree, grid, ring,
+  line, circulant: :mod:`.structured`) — the main path;
+- **node-major (N, W)** with the adjacency gather over a padded (N, D)
+  neighbor table — any topology, under a partition schedule
+  (:class:`Partitions`).
 
-Modes not ported yet raise: the node-major gather path (``exchange=None``),
-meshes, partitions and every fault or delay mode (ROADMAP.md Queue A).
+State: ``received`` and ``frontier`` are int32, bit-identical to the
+reference's uint32 words (torch's uint32 lacks ``~``, ``>>`` and
+comparisons on the CPU).  The ledgers ``msgs`` and ``srv_msgs`` are ()
+int64 tensors holding uint32 values: every add is masked to 32 bits, so
+they wrap exactly where the reference's uint32 ledgers wrap.  ``t`` is a
+host int: the round schedule (sync waves, the t == 0 ledger coefficient,
+which partition windows are active) is host control flow in eager
+PyTorch.
+
+Modes not ported yet raise: meshes, partitions on the structured path,
+and every fault or delay mode (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -33,14 +40,20 @@ import numpy as np
 import torch
 
 from . import kernels
-from .engine import fori_rounds, stepwise_converge, while_converge
-from .structured import MASK32
+from .engine import (active_windows, fori_rounds, stepwise_converge,
+                     while_converge, windows_fold)
+from .kernels import MASK32
 
 WORD = 32
 
-_UNPORTED = ("mesh", "parts", "faulted", "delays", "delayed", "edge_delayed",
+_UNPORTED = ("mesh", "faulted", "delays", "delayed", "edge_delayed",
              "fault_plan", "nemesis", "union_block", "dcn_mode",
              "sharded_exchange", "sharded_sync_diff")
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet "
+                               "(ROADMAP.md Queue A)")
 
 
 def num_words(n_values: int) -> int:
@@ -72,10 +85,51 @@ def _dot32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return wrap32(wrap32(a.to(torch.int64) * b).sum())
 
 
+@dataclasses.dataclass(frozen=True)
+class Partitions:
+    """Partition schedule as data: window w is active for rounds
+    [starts[w], ends[w]); while active, edges between nodes of different
+    ``group[w]`` ids drop.  ``starts`` / ``ends`` are host ints (the
+    round counter is one), ``group`` a (P, N) int8 tensor."""
+
+    starts: tuple[int, ...]
+    ends: tuple[int, ...]
+    group: torch.Tensor
+
+    @staticmethod
+    def none(n_nodes: int) -> "Partitions":
+        return Partitions((), (), torch.zeros((0, n_nodes),
+                                              dtype=torch.int8))
+
+    @staticmethod
+    def from_numpy(starts, ends, group) -> "Partitions":
+        """From the reference's arrays: (P,) starts and ends, (P, N)
+        group ids."""
+        group = np.asarray(group, dtype=np.int8)
+        starts = tuple(int(v) for v in np.asarray(starts).reshape(-1))
+        ends = tuple(int(v) for v in np.asarray(ends).reshape(-1))
+        if group.ndim != 2 or not (len(starts) == len(ends)
+                                   == group.shape[0]):
+            raise ValueError(
+                f"Partitions need (P,) starts and ends and a (P, N) group; "
+                f"got {len(starts)}, {len(ends)} and {group.shape}")
+        return Partitions(starts, ends, torch.from_numpy(group.copy()))
+
+    @property
+    def n_windows(self) -> int:
+        return len(self.starts)
+
+    def active(self, t: int) -> list[int]:
+        return active_windows(self.starts, self.ends, t)
+
+    def to(self, device: str | torch.device) -> "Partitions":
+        return dataclasses.replace(self, group=self.group.to(device))
+
+
 @dataclasses.dataclass
 class BroadcastState:
-    received: torch.Tensor            # (W, N) int32
-    frontier: torch.Tensor            # (W, N) int32
+    received: torch.Tensor            # (W, N) or (N, W) int32
+    frontier: torch.Tensor            # same layout
     t: int                            # round counter
     msgs: torch.Tensor                # () int64, uint32 value-message ledger
     # reference-accounted server-message ledger (() int64 holding a
@@ -83,21 +137,29 @@ class BroadcastState:
     srv_msgs: torch.Tensor | None = None
 
 
-def _words_major(a: np.ndarray) -> torch.Tensor:
-    """(N, W) uint32 numpy -> a fresh (W, N) int32 CPU tensor (always a
-    copy: the loops update received in place)."""
+def _bits_from_numpy(a: np.ndarray, words_major: bool) -> torch.Tensor:
+    """(N, W) uint32 numpy -> a fresh int32 CPU tensor in the layout
+    (always a copy: the loops update received in place)."""
+    a = np.asarray(a, np.uint32)
     return torch.from_numpy(
-        np.array(np.asarray(a, np.uint32).T, order="C").view(np.int32))
+        np.array(a.T if words_major else a, order="C").view(np.int32))
+
+
+def _bits_to_numpy(x: torch.Tensor, words_major: bool) -> np.ndarray:
+    """An int32 bitset in the layout -> (N, W) uint32 numpy."""
+    a = x.cpu().numpy().view(np.uint32)
+    return np.ascontiguousarray(a.T if words_major else a)
 
 
 def state_from_numpy(received: np.ndarray, frontier: np.ndarray, t: int,
                      msgs: int, srv_msgs: int | None,
-                     device: str | torch.device) -> BroadcastState:
+                     device: str | torch.device, *,
+                     words_major: bool = True) -> BroadcastState:
     """A port state from the reference's values as numpy: node-major
     (N, W) uint32 bitsets (the JAX words-major arrays transposed) and
-    integer ledgers."""
+    integer ledgers; ``words_major`` picks the port state's layout."""
     def bits(a: np.ndarray) -> torch.Tensor:
-        return _words_major(a).to(device)
+        return _bits_from_numpy(a, words_major).to(device)
 
     def ledger(v: int) -> torch.Tensor:
         return torch.tensor(int(v) & MASK32, dtype=torch.int64,
@@ -109,16 +171,110 @@ def state_from_numpy(received: np.ndarray, frontier: np.ndarray, t: int,
                           else ledger(srv_msgs))
 
 
-def state_to_numpy(state: BroadcastState):
+def state_to_numpy(state: BroadcastState, *, words_major: bool = True):
     """(received, frontier, t, msgs, srv_msgs) with node-major (N, W)
     uint32 bitsets and int ledgers — the inverse of
-    :func:`state_from_numpy`."""
-    def bits(x: torch.Tensor) -> np.ndarray:
-        return np.ascontiguousarray(x.cpu().numpy().view(np.uint32).T)
-
-    return (bits(state.received), bits(state.frontier), state.t,
+    :func:`state_from_numpy` for a state in the given layout."""
+    return (_bits_to_numpy(state.received, words_major),
+            _bits_to_numpy(state.frontier, words_major), state.t,
             int(state.msgs),
             None if state.srv_msgs is None else int(state.srv_msgs))
+
+
+# -- the node-major gather path -----------------------------------------
+
+
+def _edge_live(t: int, row_ids: torch.Tensor, nbrs: torch.Tensor,
+               nbr_mask: torch.Tensor, parts: Partitions) -> torch.Tensor:
+    """(rows, D) bool — which edges deliver this round (pad edges never,
+    partitioned edges not while a window covering them is active).
+    ``nbr_mask`` itself when no window is active at ``t``."""
+    def body(w: int, live: torch.Tensor) -> torch.Tensor:
+        g = parts.group[w]
+        src = nbrs.clamp(0, g.shape[0] - 1).to(torch.int64)
+        return live & (g[row_ids][:, None] == g[src])
+
+    return windows_fold(parts.starts, parts.ends, t, body, nbr_mask)
+
+
+def _gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
+               live: torch.Tensor | None) -> torch.Tensor:
+    """inbox[i] = OR over delivering edges d of payload[nbrs[i, d]]
+    (``live=None``: the edges with ``nbrs >= 0``)."""
+    return kernels.gather_or(payload, nbrs, live)
+
+
+def _sync_diff_pc(payload_full: torch.Tensor, recv_local: torch.Tensor,
+                  nbrs: torch.Tensor,
+                  live: torch.Tensor | None) -> torch.Tensor:
+    """() int64 holding a uint32 — the total targeted-push volume of one
+    sync wave: sum over delivering neighbor pairs (j, i) of
+    |recv_j \\ recv_i|, computed at each destination i."""
+    return kernels.sync_diff_pc(payload_full, recv_local, nbrs, live)
+
+
+def _round(state: BroadcastState, *, row_ids: torch.Tensor,
+           nbrs: torch.Tensor, nbr_mask: torch.Tensor, parts: Partitions,
+           sync_every: int,
+           deg: torch.Tensor | None = None) -> BroadcastState:
+    """One node-major (adjacency-gather) round — the reference's
+    ``_round`` with no fault plan, delays, slab blocking or provenance,
+    on one device.  ``deg`` is the topology degree ``nbr_mask.sum(1)``
+    (int64; computed when not given).  On a round with no active
+    partition window the edge mask is never built: the kernels deliver
+    exactly the edges with ``nbrs >= 0``.  The sync diff runs on sync
+    rounds only (``t`` is a host int), which leaves the ledger as the
+    reference's every-round diff masked off elsewhere."""
+    t = state.t
+    is_sync = t % sync_every == 0 and t > 0
+    rec0, fr0 = state.received, state.frontier
+    # frontier ⊆ received, so the anti-entropy payload is just `received`
+    payload = rec0 if is_sync else fr0
+    live = (_edge_live(t, row_ids, nbrs, nbr_mask, parts)
+            if parts.active(t) else None)
+    deg_topo = nbr_mask.sum(dim=1) if deg is None else deg
+    live_deg = deg_topo if live is None else live.sum(dim=1)
+    pc = kernels.col_popcount(payload, node_major=True)
+    # one value-message per (value, live edge)
+    sent = _dot32(pc, live_deg)
+    srv = None
+    if state.srv_msgs is not None:
+        # floods charge `broadcast` to every topology neighbor minus the
+        # sender (t == 0 rows are client-injected origins) plus one
+        # `broadcast_ok` per live delivery; sync rounds add
+        # read-per-topo-neighbor + read_ok-per-live-neighbor + the
+        # targeted diff pushes and their acks
+        pcf = kernels.col_popcount(fr0, node_major=True) if is_sync else pc
+        d2 = deg_topo + live_deg
+        coef = d2 if t == 0 else (d2 - 2).clamp(min=0)
+        srv = state.srv_msgs + _dot32(pcf, coef)
+        if is_sync:
+            srv = (srv + wrap32(d2.sum())
+                   + 2 * _sync_diff_pc(payload, rec0, nbrs, live))
+        srv = wrap32(srv)
+    new = _gather_or(payload, nbrs, live) & ~rec0
+    return BroadcastState(received=rec0 | new, frontier=new, t=t + 1,
+                          msgs=wrap32(state.msgs + sent), srv_msgs=srv)
+
+
+def flood_step(state: BroadcastState, *, nbrs: torch.Tensor,
+               nbr_mask: torch.Tensor, parts: Partitions, sync_every: int,
+               delays=None, delay_set: tuple = (), plan=None,
+               dup_on: bool = False, union_block=None,
+               prov=None) -> BroadcastState:
+    """Single-device node-major round.  The reference's fault, delay,
+    blocking and provenance modes raise (ROADMAP.md Queue A)."""
+    for name, value in (("delays", delays), ("delay_set", delay_set),
+                        ("plan", plan), ("dup_on", dup_on),
+                        ("union_block", union_block), ("prov", prov)):
+        if value:
+            raise _unported(f"flood_step({name}=...)")
+    row_ids = torch.arange(nbrs.shape[0], device=nbrs.device)
+    return _round(state, row_ids=row_ids, nbrs=nbrs, nbr_mask=nbr_mask,
+                  parts=parts, sync_every=sync_every)
+
+
+# -- the words-major structured path ------------------------------------
 
 
 def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
@@ -201,53 +357,83 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 class BroadcastSim:
-    """Round-synchronous words-major broadcast simulator on one device
-    (the single-device, fault-free subset of the reference's
-    ``BroadcastSim`` with a structured ``exchange``)."""
+    """Round-synchronous broadcast simulator on one device (the
+    single-device, fault-free subset of the reference's ``BroadcastSim``
+    plus partition schedules on the gather path).
+
+    - **words-major (W, N)** with a structured ``exchange`` from
+      :func:`.structured.make_exchange`: gather-free delivery for the
+      named topologies, with the fused flood-round kernels on its
+      fixed-trip path;
+    - **node-major (N, W)** with ``exchange=None``: the adjacency gather
+      over ``nbrs`` (any topology), under an optional partition schedule
+      ``parts``.
+    """
 
     def __init__(self, nbrs: np.ndarray, *, n_values: int,
-                 sync_every: int = 8, exchange=None,
+                 sync_every: int = 8, parts: Partitions | None = None,
+                 exchange=None,
                  sync_diff: Callable[[torch.Tensor], torch.Tensor]
                  | None = None,
                  srv_ledger: bool = True,
                  device: str | torch.device | None = None,
                  **unported) -> None:
-        """``exchange``: a structured exchange from
+        """``nbrs``: (N, D) int32 neighbor table padded with -1
+        (parallel/topology.py).  ``exchange``: a structured exchange from
         :func:`.structured.make_exchange` (it carries the fused flood
-        round).  ``sync_diff``: the matching
-        :func:`.structured.make_sync_diff` closure, needed for the
-        server ledger.  ``device``: where the state lives (default CUDA;
-        raises if there is none).  Reference modes not ported yet
-        (``mesh``, ``parts``, faults, delays, ...) raise when given."""
+        round), or None for the node-major gather path.  ``sync_diff``:
+        the matching :func:`.structured.make_sync_diff` closure, which
+        the words-major server ledger needs (the gather path computes
+        its own).  ``parts``: a partition schedule, gather path only
+        here (on the structured path it needs the faults slice's masked
+        exchanges and raises).  ``device``: where the state lives
+        (default CUDA; raises if there is none).  Reference modes not
+        ported yet (``mesh``, faults, delays, ...) raise when given."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
             if value is not None:
-                raise NotImplementedError(
-                    f"BroadcastSim({name}=...) is not ported to PyTorch "
-                    "yet (ROADMAP.md Queue A)")
-        if exchange is None:
-            raise NotImplementedError(
-                "the node-major adjacency-gather path (exchange=None) is "
-                "not ported yet (ROADMAP.md Queue A item 5): pass a "
-                "structured exchange")
-        if not hasattr(exchange, "flood_round"):
+                raise _unported(f"BroadcastSim({name}=...)")
+        if exchange is not None and not hasattr(exchange, "flood_round"):
             raise TypeError("exchange must come from "
                             "structured.make_exchange")
+        n = nbrs.shape[0]
+        parts = Partitions.none(n) if parts is None else parts
+        if exchange is not None and parts.n_windows:
+            raise _unported("a partition schedule on the words-major "
+                            "structured path (structured.make_faulted)")
+        if parts.group.shape[1:] != (n,):
+            raise ValueError(f"Partitions group {tuple(parts.group.shape)}"
+                             f" is not (P, {n})")
         self.device = resolve_device(device)
+        self.n_nodes = n
         self.n_values = n_values
+        self.n_words = num_words(n_values)
         self.sync_every = sync_every
         self.exchange = exchange
-        self.sync_diff = sync_diff
-        self._srv_on = srv_ledger and sync_diff is not None
+        self.words_major = exchange is not None
+        self.parts = parts.to(self.device)
         self._host_deg = (nbrs >= 0).sum(axis=1).astype(np.int64)
         self.deg = torch.as_tensor(self._host_deg, device=self.device)
+        if self.words_major:
+            self.sync_diff = sync_diff
+            self._srv_on = srv_ledger and sync_diff is not None
+            # the structured path never reads the adjacency on device
+            self.nbrs = self.nbr_mask = self.row_ids = None
+        else:
+            self.sync_diff = None
+            self._srv_on = srv_ledger
+            self.nbrs = torch.as_tensor(np.asarray(nbrs, np.int32),
+                                        device=self.device)
+            self.nbr_mask = self.nbrs >= 0
+            self.row_ids = torch.arange(n, device=self.device)
         self._fixed = {}
 
     # -- construction ----------------------------------------------------
 
     def init_state(self, inject: np.ndarray) -> BroadcastState:
-        received = _words_major(inject).to(self.device)
+        received = _bits_from_numpy(inject, self.words_major).to(
+            self.device)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         return BroadcastState(received=received, frontier=received.clone(),
                               t=0, msgs=zero,
@@ -268,13 +454,20 @@ class BroadcastSim:
     # -- drivers ---------------------------------------------------------
 
     def step(self, state: BroadcastState) -> BroadcastState:
-        return _round_wm(state, deg=self.deg, sync_every=self.sync_every,
-                         exchange=self.exchange,
-                         sync_diff=self.sync_diff if self._srv_on else None)
+        if self.words_major:
+            return _round_wm(state, deg=self.deg,
+                             sync_every=self.sync_every,
+                             exchange=self.exchange,
+                             sync_diff=self.sync_diff if self._srv_on
+                             else None)
+        return _round(state, row_ids=self.row_ids, nbrs=self.nbrs,
+                      nbr_mask=self.nbr_mask, parts=self.parts,
+                      sync_every=self.sync_every, deg=self.deg)
 
     def converged(self, state: BroadcastState,
                   target: torch.Tensor) -> bool:
-        return bool((state.received == target[:, None]).all())
+        t = target[:, None] if self.words_major else target[None, :]
+        return bool((state.received == t).all())
 
     def run(self, inject: np.ndarray, *, max_rounds: int = 1 << 16,
             check_every: int = 1) -> tuple[BroadcastState, int]:
@@ -299,10 +492,12 @@ class BroadcastSim:
     def _build_fixed(self, rounds: int, donate: bool):
         """(runner, flood parts | None) for exactly ``rounds`` rounds.
         The pure-flood specialization (kernel loop + closed-form ledger)
-        applies when no sync wave fires within the trip count and the
-        server ledger is off — the reference's ``flood_ok`` gate with
-        every fault mode absent."""
-        flood_ok = not self._srv_on and 0 < rounds <= self.sync_every
+        applies on the words-major path when no sync wave fires within
+        the trip count and the server ledger is off — the reference's
+        ``flood_ok`` gate with every fault mode absent.  The gather path
+        has none (the reference's gate needs the words-major layout)."""
+        flood_ok = (self.words_major and not self._srv_on
+                    and 0 < rounds <= self.sync_every)
         if not flood_ok:
             def run(state: BroadcastState) -> BroadcastState:
                 return fori_rounds(self.step, state, rounds)
@@ -348,12 +543,13 @@ class BroadcastSim:
 
     def received_node_major(self, state: BroadcastState) -> np.ndarray:
         """(N, W) uint32 received bitset."""
-        return state.received.cpu().numpy().view(np.uint32).T
+        return _bits_to_numpy(state.received, self.words_major)
 
     def server_msgs(self, state: BroadcastState) -> int:
         """Reference-accounted server-to-server message total."""
         if state.srv_msgs is None:
             raise ValueError(
-                "server-message ledger is off: srv_ledger=False or no "
-                "sync_diff closure (structured.make_sync_diff)")
+                "server-message ledger is off: srv_ledger=False or, on "
+                "the words-major path, no sync_diff closure "
+                "(structured.make_sync_diff)")
         return int(state.srv_msgs)

@@ -1,11 +1,12 @@
 """Round drivers: the port of gossip_glomers_tpu/tpu_sim/engine.py's loop
 combinators (``fori_rounds``, ``while_converge``, ``stepwise_converge``)
 as Python loops — PyTorch runs eagerly, so each round is a few kernel
-launches and the loop itself stays on the host."""
+launches and the loop itself stays on the host — and of its
+windows-as-data fault schedule fold (``windows_fold``)."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 
 def fori_rounds(round_fn: Callable, state, rounds: int):
@@ -40,3 +41,24 @@ def stepwise_converge(step: Callable, converged: Callable, state,
         if converged(state):
             break
     return state, rounds
+
+
+def active_windows(starts: Sequence[int], ends: Sequence[int],
+                   t: int) -> list[int]:
+    """The windows ``w`` with ``starts[w] <= t < ends[w]``."""
+    return [w for w, (lo, hi) in enumerate(zip(starts, ends))
+            if lo <= t < hi]
+
+
+def windows_fold(starts: Sequence[int], ends: Sequence[int], t: int,
+                 body: Callable, init):
+    """Fold a windows-as-data fault schedule at round ``t``: ``carry =
+    body(w, carry)`` for every window active at ``t``, in window order.
+    The reference folds every window with a traced ``active`` flag
+    (``body(w, active, carry)``); here ``t`` is a host int, so the active
+    set is computed on the host and an inactive window costs nothing.
+    No active window returns ``init`` itself."""
+    carry = init
+    for w in active_windows(starts, ends, t):
+        carry = body(w, carry)
+    return carry

@@ -1,31 +1,40 @@
-"""Hand-written CUDA kernels of the tree flood, their wrappers and their
-plain PyTorch versions.
+"""Hand-written CUDA kernels of the broadcast floods, their wrappers and
+their plain PyTorch versions.
 
-Three kernels live in ``csrc/tree_flood.cu`` (its header notes what each
-replaces, what bounds it on an H100 and what the design does about it):
+Three sources in ``csrc/`` (each header notes what its kernels replace,
+what bounds them on an H100 and what the design does about it):
 
-- :func:`tree_exchange` — the k-ary tree inbox of a (W, N) payload, the
-  port of the Pallas kernel in benchmarks/pallas_tree_probe.py;
-- :func:`tree_flood_round` — one fused pure-flood round,
-  ``new = exchange(frontier) & ~received; received |= new;
-  frontier_next = new``;
-- :func:`col_popcount` — per-node popcount sums ``sum_w popc(x[w, i])``.
+- ``tree_flood.cu``, the words-major k-ary tree:
+  :func:`tree_exchange` (the port of the Pallas kernel in
+  benchmarks/pallas_tree_probe.py), :func:`tree_flood_round` (one fused
+  pure-flood round, ``new = exchange(frontier) & ~received;
+  received |= new; frontier_next = new``) and :func:`col_popcount`
+  (per-node popcount sums ``sum_w popc(x[w, i])``);
+- ``shift_flood.cu``, the words-major shift topologies (circulant, ring,
+  line, grid): :func:`shift_exchange` and :func:`shift_flood_round`, both
+  driven by a :class:`ShiftDirs` direction table;
+- ``gather_flood.cu``, the node-major adjacency gather:
+  :func:`gather_or`, :func:`sync_diff_pc` and the node-major mode of
+  :func:`col_popcount`.
 
-Bitsets are ``torch.int32`` (W, N) tensors holding the reference's uint32
-words bit for bit.  A wrapper takes its plain version only when its tensor
-lies on the CPU; on a CUDA tensor it launches the kernel or raises.  The
-kernels are compiled with ``nvcc`` on first CUDA use (never at import, so
-this module imports on machines without a toolkit) into
-``build/gossip_glomers_tpu_torch/`` beside the package, keyed by a hash of
-the source and flags, and loaded with ``ctypes``.
+Bitsets are ``torch.int32`` tensors holding the reference's uint32 words
+bit for bit: (W, N) words-major, (N, W) node-major.  A wrapper takes its
+plain version only when its tensors lie on the CPU; on CUDA tensors it
+launches the kernel or raises.  Each source is compiled with ``nvcc`` on
+first CUDA use (never at import, so this module imports on machines
+without a toolkit) into ``build/gossip_glomers_tpu_torch/`` beside the
+package, keyed by a hash of that source and the flags, and loaded with
+``ctypes``; :func:`build` compiles every source at once, one ``nvcc``
+process each.
 
-:data:`LAUNCHES` counts kernel launches per wrapper (CPU calls do not
+:data:`LAUNCHES` counts kernel launches per entry point (CPU calls do not
 count), so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -35,20 +44,41 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tree_flood.cu"
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("tree_flood", "shift_flood", "gather_flood")}
 BUILD_DIR = _PKG.parent / "build" / "gossip_glomers_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_WORDS = 65535            # grid.y carries the word axis
+MAX_WORDS = 65535            # grid.y carries the word axis (words-major)
+MAX_DIRS = 16                # shift_flood.cu's kMaxDirs
+MASK32 = 0xFFFFFFFF
 
-LAUNCHES = {"tree_exchange": 0, "tree_flood_round": 0, "col_popcount": 0}
+# direction flags of a ShiftDirs table (shift_flood.cu)
+WRAP, MASK_LEFT, MASK_RIGHT = 1, 2, 4
 
-_lib_handle = None
+LAUNCHES = {"tree_exchange": 0, "tree_flood_round": 0, "col_popcount": 0,
+            "col_popcount_nm": 0, "shift_exchange": 0,
+            "shift_flood_round": 0, "gather_or": 0, "sync_diff_pc": 0}
+
+_lib_handles: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftDirs:
+    """A shift topology's direction table: node i's inbox is the OR over
+    directions d of ``payload[:, i + offs[d]]`` — mod n where ``flags[d]``
+    has :data:`WRAP` (offsets in [0, n)), else only inside [0, n) — kept
+    only where ``i % cols < cols - 1`` (:data:`MASK_LEFT`) or
+    ``i % cols > 0`` (:data:`MASK_RIGHT`) when those flags are set."""
+
+    offs: tuple[int, ...]
+    flags: tuple[int, ...]
+    cols: int = 0
 
 
 # -- plain versions ------------------------------------------------------
@@ -59,15 +89,16 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     ``lax.population_count`` on uint32), as int32.  SWAR on the words
     widened to int64 and masked to their low 32 bits, so every shift is
     logical and no step overflows."""
-    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = x.to(torch.int64) & MASK32
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
     return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
 
 
-def col_popcount_plain(x: torch.Tensor) -> torch.Tensor:
-    return popcount(x).sum(dim=0, dtype=torch.int32)
+def col_popcount_plain(x: torch.Tensor,
+                       node_major: bool = False) -> torch.Tensor:
+    return popcount(x).sum(dim=1 if node_major else 0, dtype=torch.int32)
 
 
 def tree_exchange_plain(payload: torch.Tensor,
@@ -87,6 +118,71 @@ def tree_flood_round_plain(received: torch.Tensor, frontier: torch.Tensor,
     return frontier_next
 
 
+def _shifted(payload: torch.Tensor, off: int, wrap: bool) -> torch.Tensor:
+    """out[:, i] = payload[:, i + off], mod n or zero-filled outside."""
+    w, n = payload.shape
+    if wrap:
+        return torch.roll(payload, -off, dims=1)
+    k = min(abs(off), n)
+    zeros = payload.new_zeros(w, k)
+    if off >= 0:
+        return torch.cat([payload[:, k:], zeros], dim=1)
+    return torch.cat([zeros, payload[:, :n - k]], dim=1)
+
+
+def shift_exchange_plain(payload: torch.Tensor,
+                         dirs: ShiftDirs) -> torch.Tensor:
+    w, n = payload.shape
+    out = torch.zeros_like(payload)
+    col = None
+    for off, flags in zip(dirs.offs, dirs.flags):
+        term = _shifted(payload, off, bool(flags & WRAP))
+        if flags & (MASK_LEFT | MASK_RIGHT):
+            if col is None:
+                col = torch.arange(n, device=payload.device) % dirs.cols
+            keep = (col < dirs.cols - 1 if flags & MASK_LEFT else col > 0)
+            term = torch.where(keep[None, :], term, 0)
+        out |= term
+    return out
+
+
+def shift_flood_round_plain(received: torch.Tensor, frontier: torch.Tensor,
+                            frontier_next: torch.Tensor,
+                            dirs: ShiftDirs) -> torch.Tensor:
+    new = shift_exchange_plain(frontier, dirs) & ~received
+    received |= new
+    frontier_next.copy_(new)
+    return frontier_next
+
+
+def _edges(nbrs: torch.Tensor, live: torch.Tensor | None, n_src: int):
+    """(per-edge deliver mask, clipped int64 indices): the reference
+    clips every index into [0, n_src) and then masks."""
+    ok = nbrs >= 0 if live is None else live
+    return ok, nbrs.clamp(0, n_src - 1).to(torch.int64)
+
+
+def gather_or_plain(payload: torch.Tensor, nbrs: torch.Tensor,
+                    live: torch.Tensor | None = None) -> torch.Tensor:
+    ok, idx = _edges(nbrs, live, payload.shape[0])
+    out = payload.new_zeros(nbrs.shape[0], payload.shape[1])
+    for d in range(nbrs.shape[1]):
+        out |= torch.where(ok[:, d, None], payload[idx[:, d]], 0)
+    return out
+
+
+def sync_diff_pc_plain(payload: torch.Tensor, recv: torch.Tensor,
+                       nbrs: torch.Tensor,
+                       live: torch.Tensor | None = None) -> torch.Tensor:
+    ok, idx = _edges(nbrs, live, payload.shape[0])
+    total = torch.zeros((), dtype=torch.int64, device=payload.device)
+    for d in range(nbrs.shape[1]):
+        per = popcount(payload[idx[:, d]] & ~recv).sum(dim=1,
+                                                      dtype=torch.int64)
+        total = total + torch.where(ok[:, d], per, 0).sum()
+    return total & MASK32
+
+
 # -- build and load ------------------------------------------------------
 
 
@@ -98,46 +194,79 @@ def _find_nvcc() -> str | None:
     return str(default) if default.exists() else None
 
 
-def build() -> Path:
-    """Compile ``csrc/tree_flood.cu`` into a shared library (once per
-    source and flag hash) and return its path.  Raises if ``nvcc`` is
-    missing or fails."""
-    key = hashlib.sha256(SOURCE.read_bytes()
+def _lib_path(name: str) -> Path:
+    """Where source ``name``'s library is built: keyed by a hash of the
+    source and the flags."""
+    key = hashlib.sha256(SOURCES[name].read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"tree_flood-{key}.so"
-    if lib.exists():
-        return lib
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile the named sources of :data:`SOURCES` (default: all) into
+    shared libraries, those not built yet in parallel, one ``nvcc``
+    each.  Returns {name: library path}; each build's compiler output
+    sits beside its library as ``.log``.  Raises if ``nvcc`` is missing
+    or any build fails."""
+    libs = {name: _lib_path(name) for name in (names or SOURCES)}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
     nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError(
-            "nvcc not found: the tree-flood kernels are built with the CUDA "
+            "nvcc not found: the flood kernels are built with the CUDA "
             "toolkit on first use of a CUDA tensor")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)          # atomic: concurrent builders agree
-    return lib
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        out, err = proc.communicate()
+        lib = todo[name]
+        lib.with_suffix(".log").write_text(out + err)
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n"
+                          f"{err[-4000:]}")
+        else:
+            os.replace(tmp, lib)      # atomic: concurrent builders agree
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return libs
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(str(build()))
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _lib_handles:
+        lib = ctypes.CDLL(str(build([name])[name]))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.gg_tree_exchange.argtypes = [ptr, ptr, i64, i64, i32, ptr]
-        lib.gg_tree_flood_round.argtypes = [ptr, ptr, ptr, i64, i64, i32,
-                                            ptr]
-        lib.gg_col_popcount.argtypes = [ptr, ptr, i64, i64, ptr]
-        for fn in (lib.gg_tree_exchange, lib.gg_tree_flood_round,
-                   lib.gg_col_popcount):
+        argtypes = {
+            "tree_flood": {
+                "gg_tree_exchange": [ptr, ptr, i64, i64, i32, ptr],
+                "gg_tree_flood_round": [ptr, ptr, ptr, i64, i64, i32, ptr],
+                "gg_col_popcount": [ptr, ptr, i64, i64, ptr]},
+            "shift_flood": {
+                "gg_shift_exchange": [ptr, ptr, i64, i64, ptr, ptr, i32,
+                                      i64, ptr],
+                "gg_shift_flood_round": [ptr, ptr, ptr, i64, i64, ptr, ptr,
+                                         i32, i64, ptr]},
+            "gather_flood": {
+                "gg_gather_or": [ptr, ptr, ptr, ptr, i64, i64, i64, i32,
+                                 ptr],
+                "gg_sync_diff_pc": [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                                    i32, ptr],
+                "gg_col_popcount_nm": [ptr, ptr, i64, i64, ptr]},
+        }[name]
+        for fn_name, types in argtypes.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = types
             fn.restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
+        _lib_handles[name] = lib
+    return _lib_handles[name]
 
 
 # -- wrappers ------------------------------------------------------------
@@ -147,8 +276,8 @@ def _check_bitset(name: str, x: torch.Tensor) -> None:
     if x.dtype != torch.int32:
         raise TypeError(f"{name} must be torch.int32, got {x.dtype}")
     if x.dim() != 2:
-        raise ValueError(f"{name} must be (W, N), got shape "
-                         f"{tuple(x.shape)}")
+        raise ValueError(f"{name} must be 2-D ((W, N) or (N, W)), got "
+                         f"shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -163,7 +292,7 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
-        raise ValueError(f"no tree-flood kernel for device {dev}")
+        raise ValueError(f"no flood kernel for device {dev}")
     return False
 
 
@@ -181,35 +310,19 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _check_launch(w: int, branching: int) -> None:
+def _check_words(w: int) -> None:
     if w > MAX_WORDS:
         raise ValueError(f"W = {w} words exceeds the kernels' {MAX_WORDS}")
+
+
+def _check_branching(branching: int) -> None:
     if branching < 1:
         raise ValueError(f"branching must be >= 1, got {branching}")
 
 
-def tree_exchange(payload: torch.Tensor, branching: int = 4) -> torch.Tensor:
-    """inbox[:, i] = payload[:, (i-1)//k] (0 at the root) | OR of
-    payload[:, k*i+1 .. k*i+k] over the children below N."""
-    _check_bitset("payload", payload)
-    if _on_cpu(payload):
-        return tree_exchange_plain(payload, branching)
-    w, n = payload.shape
-    _check_launch(w, branching)
-    inbox = torch.empty_like(payload)
-    if payload.numel():
-        _launch("tree_exchange", _lib().gg_tree_exchange, payload.device,
-                payload.data_ptr(), inbox.data_ptr(), w, n, branching)
-    return inbox
-
-
-def tree_flood_round(received: torch.Tensor, frontier: torch.Tensor,
-                     frontier_next: torch.Tensor,
-                     branching: int = 4) -> torch.Tensor:
-    """One pure-flood round: ``new = tree_exchange(frontier) & ~received``,
-    then ``received |= new`` IN PLACE and ``frontier_next[:] = new``.
-    ``frontier_next`` must be a distinct buffer (column i reads its
-    neighbours' frontier words).  Returns ``frontier_next``."""
+def _check_flood_buffers(received: torch.Tensor, frontier: torch.Tensor,
+                         frontier_next: torch.Tensor) -> bool:
+    """Validate a fused round's three buffers; returns :func:`_on_cpu`."""
     for name, x in (("received", received), ("frontier", frontier),
                     ("frontier_next", frontier_next)):
         _check_bitset(name, x)
@@ -225,27 +338,181 @@ def tree_flood_round(received: torch.Tensor, frontier: torch.Tensor,
                          "buffer")
     if _overlap(received, frontier) or _overlap(received, frontier_next):
         raise ValueError("received must not alias either frontier buffer")
-    if on_cpu:
+    return on_cpu
+
+
+def tree_exchange(payload: torch.Tensor, branching: int = 4) -> torch.Tensor:
+    """inbox[:, i] = payload[:, (i-1)//k] (0 at the root) | OR of
+    payload[:, k*i+1 .. k*i+k] over the children below N."""
+    _check_bitset("payload", payload)
+    if _on_cpu(payload):
+        return tree_exchange_plain(payload, branching)
+    w, n = payload.shape
+    _check_words(w)
+    _check_branching(branching)
+    inbox = torch.empty_like(payload)
+    if payload.numel():
+        _launch("tree_exchange", _lib("tree_flood").gg_tree_exchange,
+                payload.device, payload.data_ptr(), inbox.data_ptr(), w, n,
+                branching)
+    return inbox
+
+
+def tree_flood_round(received: torch.Tensor, frontier: torch.Tensor,
+                     frontier_next: torch.Tensor,
+                     branching: int = 4) -> torch.Tensor:
+    """One pure-flood round: ``new = tree_exchange(frontier) & ~received``,
+    then ``received |= new`` IN PLACE and ``frontier_next[:] = new``.
+    ``frontier_next`` must be a distinct buffer (column i reads its
+    neighbours' frontier words).  Returns ``frontier_next``."""
+    if _check_flood_buffers(received, frontier, frontier_next):
         return tree_flood_round_plain(received, frontier, frontier_next,
                                       branching)
     w, n = received.shape
-    _check_launch(w, branching)
+    _check_words(w)
+    _check_branching(branching)
     if received.numel():
-        _launch("tree_flood_round", _lib().gg_tree_flood_round,
+        _launch("tree_flood_round", _lib("tree_flood").gg_tree_flood_round,
                 received.device, received.data_ptr(), frontier.data_ptr(),
                 frontier_next.data_ptr(), w, n, branching)
     return frontier_next
 
 
-def col_popcount(x: torch.Tensor) -> torch.Tensor:
-    """(N,) int32 per-node popcount sum over the W words."""
+def col_popcount(x: torch.Tensor, node_major: bool = False) -> torch.Tensor:
+    """(N,) int32 per-node popcount sum over the W words of a (W, N)
+    words-major bitset, or of an (N, W) one with ``node_major``."""
     _check_bitset("x", x)
     if _on_cpu(x):
-        return col_popcount_plain(x)
-    w, n = x.shape
+        return col_popcount_plain(x, node_major)
+    n, w = x.shape if node_major else x.shape[::-1]
     if not x.numel():
         return torch.zeros(n, dtype=torch.int32, device=x.device)
     out = torch.empty(n, dtype=torch.int32, device=x.device)
-    _launch("col_popcount", _lib().gg_col_popcount, x.device,
-            x.data_ptr(), out.data_ptr(), w, n)
+    if node_major:
+        _launch("col_popcount_nm", _lib("gather_flood").gg_col_popcount_nm,
+                x.device, x.data_ptr(), out.data_ptr(), n, w)
+    else:
+        _launch("col_popcount", _lib("tree_flood").gg_col_popcount,
+                x.device, x.data_ptr(), out.data_ptr(), w, n)
     return out
+
+
+def _check_dirs(dirs: ShiftDirs, n: int) -> None:
+    if len(dirs.offs) != len(dirs.flags):
+        raise ValueError("ShiftDirs offs and flags differ in length")
+    if len(dirs.offs) > MAX_DIRS:
+        raise ValueError(f"{len(dirs.offs)} directions exceed the shift "
+                         f"kernels' {MAX_DIRS}")
+    for off, flags in zip(dirs.offs, dirs.flags):
+        if flags & WRAP and not 0 <= off < n:
+            raise ValueError(f"wrap offset {off} outside [0, {n})")
+        if flags & (MASK_LEFT | MASK_RIGHT) and dirs.cols < 1:
+            raise ValueError("a column mask needs cols >= 1")
+
+
+def _dir_args(dirs: ShiftDirs):
+    k = len(dirs.offs)
+    return ((ctypes.c_int64 * k)(*dirs.offs),
+            (ctypes.c_int32 * k)(*dirs.flags), k, dirs.cols)
+
+
+def shift_exchange(payload: torch.Tensor, dirs: ShiftDirs) -> torch.Tensor:
+    """inbox[:, i] = OR over the directions of ``dirs`` (see
+    :class:`ShiftDirs`) of the shifted payload."""
+    _check_bitset("payload", payload)
+    if _on_cpu(payload):
+        return shift_exchange_plain(payload, dirs)
+    w, n = payload.shape
+    _check_words(w)
+    _check_dirs(dirs, n)
+    inbox = torch.empty_like(payload)
+    if payload.numel():
+        _launch("shift_exchange", _lib("shift_flood").gg_shift_exchange,
+                payload.device, payload.data_ptr(), inbox.data_ptr(), w, n,
+                *_dir_args(dirs))
+    return inbox
+
+
+def shift_flood_round(received: torch.Tensor, frontier: torch.Tensor,
+                      frontier_next: torch.Tensor,
+                      dirs: ShiftDirs) -> torch.Tensor:
+    """One pure-flood round over a shift topology: ``new =
+    shift_exchange(frontier, dirs) & ~received``, then ``received |=
+    new`` IN PLACE and ``frontier_next[:] = new`` (a distinct buffer).
+    Returns ``frontier_next``."""
+    if _check_flood_buffers(received, frontier, frontier_next):
+        return shift_flood_round_plain(received, frontier, frontier_next,
+                                       dirs)
+    w, n = received.shape
+    _check_words(w)
+    _check_dirs(dirs, n)
+    if received.numel():
+        _launch("shift_flood_round",
+                _lib("shift_flood").gg_shift_flood_round, received.device,
+                received.data_ptr(), frontier.data_ptr(),
+                frontier_next.data_ptr(), w, n, *_dir_args(dirs))
+    return frontier_next
+
+
+def _check_gather(payload: torch.Tensor, nbrs: torch.Tensor,
+                  live: torch.Tensor | None,
+                  recv: torch.Tensor | None = None) -> bool:
+    """Validate a gather's operands; returns :func:`_on_cpu`."""
+    _check_bitset("payload", payload)
+    if nbrs.dtype != torch.int32 or nbrs.dim() != 2 \
+            or not nbrs.is_contiguous():
+        raise ValueError("nbrs must be a contiguous (N, D) torch.int32 "
+                         f"table, got {nbrs.dtype} {tuple(nbrs.shape)}")
+    if payload.shape[0] < 1 or nbrs.shape[1] < 1:
+        raise ValueError("the gather needs at least one payload row and "
+                         "one degree column")
+    if live is not None and (live.dtype != torch.bool
+                             or live.shape != nbrs.shape
+                             or not live.is_contiguous()):
+        raise ValueError("live must be a contiguous bool tensor shaped "
+                         "like nbrs")
+    if recv is not None:
+        _check_bitset("recv", recv)
+        if recv.shape != (nbrs.shape[0], payload.shape[1]):
+            raise ValueError(f"recv {tuple(recv.shape)} must be (N, W) = "
+                             f"({nbrs.shape[0]}, {payload.shape[1]})")
+    xs = [payload, nbrs] + [x for x in (live, recv) if x is not None]
+    return _on_cpu(*xs)
+
+
+def gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
+              live: torch.Tensor | None = None) -> torch.Tensor:
+    """Node-major inbox: ``inbox[i] = OR_d (live[i, d] ?
+    payload[nbrs[i, d]] : 0)``, out of place; ``live=None`` delivers
+    exactly the edges with ``nbrs >= 0``.  Indices are clipped into
+    the payload's rows before the mask applies, as the reference's."""
+    if _check_gather(payload, nbrs, live):
+        return gather_or_plain(payload, nbrs, live)
+    n, d = nbrs.shape
+    w = payload.shape[1]
+    inbox = torch.empty(n, w, dtype=torch.int32, device=payload.device)
+    if inbox.numel():
+        _launch("gather_or", _lib("gather_flood").gg_gather_or,
+                payload.device, payload.data_ptr(), nbrs.data_ptr(),
+                None if live is None else live.data_ptr(),
+                inbox.data_ptr(), n, w, payload.shape[0], d)
+    return inbox
+
+
+def sync_diff_pc(payload: torch.Tensor, recv: torch.Tensor,
+                 nbrs: torch.Tensor,
+                 live: torch.Tensor | None = None) -> torch.Tensor:
+    """() int64 holding a uint32: the sum over delivering edges (i, d) of
+    ``popc(payload[nbrs[i, d]] & ~recv[i])`` mod 2^32 — one sync wave's
+    targeted-push volume."""
+    if _check_gather(payload, nbrs, live, recv):
+        return sync_diff_pc_plain(payload, recv, nbrs, live)
+    n, d = nbrs.shape
+    w = payload.shape[1]
+    out = torch.zeros(1, dtype=torch.int32, device=payload.device)
+    if recv.numel():
+        _launch("sync_diff_pc", _lib("gather_flood").gg_sync_diff_pc,
+                payload.device, payload.data_ptr(), recv.data_ptr(),
+                nbrs.data_ptr(), None if live is None else live.data_ptr(),
+                out.data_ptr(), n, w, payload.shape[0], d)
+    return out[0].to(torch.int64) & MASK32

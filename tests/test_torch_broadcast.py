@@ -1,5 +1,6 @@
-"""The slice as a whole: the port's words-major tree-flood BroadcastSim
-against the JAX reference's, run on the CPU.
+"""The slices as a whole: the port's words-major BroadcastSim — the tree
+flood and the circulant, ring, line and grid floods — against the JAX
+reference's, run on the CPU (the gather path is in test_torch_gather.py).
 
 Both sims take the same ``make_inject`` workload; the JAX sims are built
 with ``mesh=None`` explicitly (conftest forces an 8-device virtual CPU
@@ -12,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from gossip_glomers_tpu.parallel import topology as jtop
 from gossip_glomers_tpu.parallel.topology import to_padded_neighbors, tree
 from gossip_glomers_tpu.tpu_sim import broadcast as jbc
 from gossip_glomers_tpu.tpu_sim import structured as jst
+from gossip_glomers_tpu.tpu_sim import timing as jtiming
 from gossip_glomers_tpu_torch.tpu_sim import broadcast as pbc
 from gossip_glomers_tpu_torch.tpu_sim import kernels
 from gossip_glomers_tpu_torch.tpu_sim import structured as pst
@@ -169,3 +172,46 @@ def test_timed_run_needs_a_cuda_sim():
     sim = ptiming.structured_sim("tree", 16, 8, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         ptiming.TimedRun(sim, pbc.make_inject(16, 8), 3)
+
+
+def _shift_sims(topology, n, nv, sync_every, srv, kw):
+    nbrs = jtiming._nbrs_for(topology, n, **kw)
+    jsim = jbc.BroadcastSim(
+        nbrs, n_values=nv, sync_every=sync_every, mesh=None,
+        exchange=jst.make_exchange(topology, n, **kw),
+        sync_diff=jst.make_sync_diff(topology, n, **kw) if srv else None,
+        srv_ledger=srv)
+    psim = ptiming.structured_sim(topology, n, nv, sync_every=sync_every,
+                                  srv_ledger=srv, device="cpu", **kw)
+    return jsim, psim
+
+
+# (topology, n, n_values, kw): a ragged grid (cols 7 over 50 nodes), the
+# default square grid, a ring and a line of odd length (W = 2), and the
+# degree-8 circulant expander
+SHIFT_CASES = [("grid", 50, 40, {"cols": 7}), ("grid", 64, 32, {}),
+               ("ring", 37, 40, {}), ("line", 30, 32, {}),
+               ("circulant", 200, 40,
+                {"strides": jtop.expander_strides(200, 8, seed=0)})]
+
+
+@pytest.mark.parametrize("srv", (False, True))
+@pytest.mark.parametrize("sync_every", (64, 3))
+@pytest.mark.parametrize("topology,n,nv,kw", SHIFT_CASES,
+                         ids=[c[0] + str(c[1]) for c in SHIFT_CASES])
+def test_shift_topology_sims_match_reference(topology, n, nv, kw,
+                                             sync_every, srv):
+    jsim, psim = _shift_sims(topology, n, nv, sync_every, srv, kw)
+    inject = jbc.make_inject(n, nv)
+    jref, jrounds = jsim.run_fused(inject)
+    pref, prounds = psim.run_fused(inject)
+    assert prounds == jrounds
+    assert jrounds == ptiming.discover_rounds(topology, n, nv, **kw)
+    _assert_states_equal(jsim, jref, psim, pref)
+    assert (psim.build_fixed(jrounds) is None) \
+        == (jsim.build_fixed(jrounds) is None)
+    ps0, _ = psim.stage(inject)
+    pfix = psim.run_staged_fixed(ps0, jrounds)
+    _assert_states_equal(jsim, jref, psim, pfix)
+    if psim.build_fixed(jrounds) is not None:
+        assert int(pfix.msgs) == ptiming.flood_msgs64(psim, pfix) % (1 << 32)

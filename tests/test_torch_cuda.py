@@ -12,7 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from gossip_glomers_tpu_torch.tpu_sim import broadcast, kernels, timing
+from gossip_glomers_tpu_torch.parallel import topology
+from gossip_glomers_tpu_torch.tpu_sim import (broadcast, kernels, structured,
+                                              timing)
+
+SHAPES = [(w, n) for w in (1, 8, 32, 128) for n in (1, 5, 4097, (1 << 16) + 3)]
 
 
 @pytest.fixture
@@ -74,3 +78,126 @@ def test_cuda_sim_matches_cpu_sim(cuda_device, n, nv, sync_every, srv):
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
         assert a[2:] == b[2:]
+
+
+def _shift_modes(n):
+    """K1's modes at n nodes: circulant (4 strides), ring, line, and grids
+    whose last row is ragged."""
+    return [("circulant", {"strides": topology.expander_strides(n, 8, 0)}),
+            ("ring", {}), ("line", {}), ("grid", {}),
+            ("grid", {"cols": max(1, topology.grid_cols(n) - 1)})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n", SHAPES)
+def test_cuda_shift_kernels_match_plain(cuda_device, w, n):
+    rec = _bits((w, n), 3 * n + w, cuda_device)
+    fr = _bits((w, n), 3 * n + w + 1, cuda_device)
+    before = dict(kernels.LAUNCHES)
+    modes = _shift_modes(n)
+    for topo, kw in modes:
+        dirs = structured.shift_dirs(topo, n, **kw)
+        assert torch.equal(kernels.shift_exchange(fr, dirs),
+                           kernels.shift_exchange_plain(fr, dirs)), topo
+        got_rec, got_nxt = rec.clone(), torch.empty_like(fr)
+        kernels.shift_flood_round(got_rec, fr, got_nxt, dirs)
+        want_rec, want_nxt = rec.clone(), torch.empty_like(fr)
+        kernels.shift_flood_round_plain(want_rec, fr, want_nxt, dirs)
+        assert torch.equal(got_rec, want_rec), topo
+        assert torch.equal(got_nxt, want_nxt), topo
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["shift_exchange"] \
+        == before["shift_exchange"] + len(modes)
+    assert kernels.LAUNCHES["shift_flood_round"] \
+        == before["shift_flood_round"] + len(modes)
+
+
+@pytest.mark.cuda
+def test_cuda_shift_kernels_refuse_oversized_tables(cuda_device):
+    fr = _bits((1, 64), 0, cuda_device)
+    dirs = structured.shift_dirs("circulant", 64, strides=list(range(1, 10)))
+    with pytest.raises(ValueError, match="directions"):
+        kernels.shift_exchange(fr, dirs)
+
+
+def _gather_inputs(w, n, seed, device):
+    rng = np.random.default_rng(seed)
+    nbrs = topology.random_regular(n, 8, seed=seed)
+    nbrs[rng.random(nbrs.shape) < 0.1] = -1          # padding
+    live = rng.random(nbrs.shape) < 0.7
+    return (_bits((n, w), seed, device), _bits((n, w), seed + 1, device),
+            torch.from_numpy(nbrs).to(device),
+            torch.from_numpy(live).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n", SHAPES)
+def test_cuda_gather_kernels_match_plain(cuda_device, w, n):
+    payload, recv, nbrs, live = _gather_inputs(w, n, n + w, cuda_device)
+    before = dict(kernels.LAUNCHES)
+    for lv in (None, live):
+        assert torch.equal(kernels.gather_or(payload, nbrs, lv),
+                           kernels.gather_or_plain(payload, nbrs, lv))
+        assert int(kernels.sync_diff_pc(payload, recv, nbrs, lv)) \
+            == int(kernels.sync_diff_pc_plain(payload, recv, nbrs, lv))
+    assert torch.equal(kernels.col_popcount(payload, node_major=True),
+                       kernels.col_popcount_plain(payload, node_major=True))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_or"] == before["gather_or"] + 2
+    assert kernels.LAUNCHES["sync_diff_pc"] == before["sync_diff_pc"] + 2
+    assert kernels.LAUNCHES["col_popcount_nm"] \
+        == before["col_popcount_nm"] + 1
+
+
+def _run_both(make_sim, inject):
+    """(rounds, fused state, fixed state) as numpy on the CPU and the
+    card, for a sim factory taking a device."""
+    out = []
+    for dev in ("cpu", "cuda"):
+        sim = make_sim(dev)
+        fused, rounds = sim.run_fused(inject)
+        state0, _ = sim.stage(inject)
+        fixed = sim.run_staged_fixed(state0, rounds)
+        wm = sim.words_major
+        out.append((rounds,
+                    broadcast.state_to_numpy(fused, words_major=wm),
+                    broadcast.state_to_numpy(fixed, words_major=wm)))
+    return out
+
+
+def _assert_runs_equal(runs):
+    (r_cpu, f_cpu, x_cpu), (r_gpu, f_gpu, x_gpu) = runs
+    assert r_cpu == r_gpu
+    for a, b in ((f_cpu, f_gpu), (x_cpu, x_gpu)):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        assert a[2:] == b[2:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("srv", (False, True))
+@pytest.mark.parametrize("windows", (False, True))
+def test_cuda_gather_sim_matches_cpu_sim(cuda_device, windows, srv):
+    n, nv = 4097, 96
+    nbrs = topology.random_regular(n, 8, seed=0)
+    group = np.random.default_rng(7).integers(0, 2, (1, n))
+    parts = (broadcast.Partitions.from_numpy([2], [9], group) if windows
+             else None)
+    _assert_runs_equal(_run_both(
+        lambda dev: broadcast.BroadcastSim(nbrs, n_values=nv, sync_every=4,
+                                           parts=parts, srv_ledger=srv,
+                                           device=dev),
+        broadcast.make_inject(n, nv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo,n,kw", [
+    ("grid", 4097, {}), ("ring", 301, {}), ("line", 300, {}),
+    ("circulant", 4097, {"strides": [1, 5, 77, 901]})])
+def test_cuda_shift_sims_match_cpu_sim(cuda_device, topo, n, kw):
+    for srv, sync_every in ((False, 1 << 20), (True, 16)):
+        _assert_runs_equal(_run_both(
+            lambda dev: timing.structured_sim(
+                topo, n, 64, sync_every=sync_every, srv_ledger=srv,
+                device=dev, **kw),
+            broadcast.make_inject(n, 64)))

@@ -95,3 +95,95 @@ def test_wrappers_check_dtype_shape_and_device():
     with pytest.raises(ValueError, match="device"):
         kernels.col_popcount(torch.zeros(2, 8, dtype=torch.int32,
                                          device="meta"))
+
+
+@pytest.mark.parametrize("w,n", [(1, 1), (1, 5), (3, 64), (8, 4097)])
+def test_node_major_col_popcount_matches_reference(w, n):
+    x = _u32((n, w), seed=w + 3 * n)
+    before = dict(kernels.LAUNCHES)
+    pc = kernels.col_popcount(_torch(x), node_major=True)
+    assert pc.dtype == torch.int32 and pc.shape == (n,)
+    assert torch.equal(pc, kernels.col_popcount_plain(_torch(x), True))
+    np.testing.assert_array_equal(
+        pc.numpy(), np.asarray(lax.population_count(jnp.asarray(x)).sum(
+            axis=1)))
+    assert kernels.LAUNCHES == before
+
+
+def _shift_cases(n):
+    strides = [1, 3, 7]
+    return [("grid", {"cols": 5}), ("ring", {}), ("line", {}),
+            ("circulant", {"strides": strides})]
+
+
+@pytest.mark.parametrize("w,n", [(1, 1), (1, 2), (2, 23), (3, 4099)])
+def test_shift_kernel_plain_versions_match_reference(w, n):
+    from gossip_glomers_tpu_torch.tpu_sim import structured as pst
+
+    rec, fr = _u32((w, n), seed=n), _u32((w, n), seed=n + 1)
+    for topo, kw in _shift_cases(n):
+        dirs = pst.shift_dirs(topo, n, **kw)
+        want = np.asarray(jst.make_exchange(topo, n, **kw)(jnp.asarray(fr)))
+        got = kernels.shift_exchange(_torch(fr), dirs)
+        assert torch.equal(got, kernels.shift_exchange_plain(_torch(fr),
+                                                             dirs))
+        np.testing.assert_array_equal(_bits(got), want)
+        rec_t, nxt = _torch(rec.copy()), torch.empty_like(_torch(fr))
+        kernels.shift_flood_round(rec_t, _torch(fr), nxt, dirs)
+        np.testing.assert_array_equal(_bits(rec_t), rec | (want & ~rec))
+        np.testing.assert_array_equal(_bits(nxt), want & ~rec)
+
+
+def test_shift_flood_round_rejects_aliased_buffers():
+    from gossip_glomers_tpu_torch.tpu_sim import structured as pst
+
+    dirs = pst.shift_dirs("ring", 16)
+    rec = _torch(_u32((2, 16), seed=3))
+    fr = _torch(_u32((2, 16), seed=4))
+    with pytest.raises(ValueError, match="aliases frontier"):
+        kernels.shift_flood_round(rec, fr, fr, dirs)
+    with pytest.raises(ValueError, match="received"):
+        kernels.shift_flood_round(rec, fr, rec, dirs)
+
+
+@pytest.mark.parametrize("w", (1, 4))
+def test_gather_plain_versions_match_reference(w):
+    n, d = 257, 6
+    rng = np.random.default_rng(w)
+    nbrs = rng.integers(-1, n, (n, d)).astype(np.int32)   # -1 pads
+    live = rng.integers(0, 2, (n, d)).astype(bool)
+    payload, recv = _u32((n, w), seed=5), _u32((n, w), seed=6)
+    nt = torch.from_numpy(nbrs)
+    before = dict(kernels.LAUNCHES)
+    for lv in (None, live, live | (nbrs < 0)):
+        lj = jnp.asarray(nbrs >= 0 if lv is None else lv)
+        lt = None if lv is None else torch.from_numpy(lv)
+        want = np.asarray(jbc._gather_or(jnp.asarray(payload),
+                                         jnp.asarray(nbrs), lj))
+        got = kernels.gather_or(_torch(payload), nt, lt)
+        assert torch.equal(got, kernels.gather_or_plain(_torch(payload), nt,
+                                                        lt))
+        np.testing.assert_array_equal(_bits(got), want)
+        want_d = int(jbc._sync_diff_pc(jnp.asarray(payload),
+                                       jnp.asarray(recv), jnp.asarray(nbrs),
+                                       lj))
+        got_d = kernels.sync_diff_pc(_torch(payload), _torch(recv), nt, lt)
+        assert got_d.dtype == torch.int64 and got_d.shape == ()
+        assert int(got_d) == want_d
+    assert kernels.LAUNCHES == before
+
+
+def test_gather_wrappers_check_their_operands():
+    payload = torch.zeros(8, 2, dtype=torch.int32)
+    nbrs = torch.zeros(8, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="nbrs"):
+        kernels.gather_or(payload, nbrs.long())
+    with pytest.raises(ValueError, match="live"):
+        kernels.gather_or(payload, nbrs, torch.ones(8, 2, dtype=torch.bool))
+    with pytest.raises(ValueError, match="live"):
+        kernels.gather_or(payload, nbrs, torch.ones(8, 3, dtype=torch.int8))
+    with pytest.raises(ValueError, match="recv"):
+        kernels.sync_diff_pc(payload, torch.zeros(8, 3, dtype=torch.int32),
+                             nbrs)
+    with pytest.raises(ValueError, match="device"):
+        kernels.gather_or(payload.to("meta"), nbrs.to("meta"))

@@ -54,14 +54,23 @@ def test_no_silent_cpu_default(monkeypatch):
                                exchange=structured.make_exchange("tree", 8))
     with pytest.raises(RuntimeError, match="CUDA"):
         timing.structured_sim("tree", 8, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        broadcast.BroadcastSim(nbrs, n_values=4)        # the gather path
 
 
 def test_unported_modes_raise():
     nbrs = to_padded_neighbors(tree(8))
     ex = structured.make_exchange("tree", 8)
-    with pytest.raises(NotImplementedError, match="gather"):
-        broadcast.BroadcastSim(nbrs, n_values=4, device="cpu")
-    for mode in ("mesh", "parts", "faulted", "delays", "delayed",
+    # the node-major gather path (exchange=None) constructs now; a
+    # partition schedule on the structured path still raises
+    assert not broadcast.BroadcastSim(nbrs, n_values=4,
+                                      device="cpu").words_major
+    parts = broadcast.Partitions.from_numpy(np.array([1]), np.array([3]),
+                                            np.zeros((1, 8), np.int8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
+                               parts=parts)
+    for mode in ("mesh", "faulted", "delays", "delayed",
                  "edge_delayed", "fault_plan", "nemesis", "union_block",
                  "dcn_mode"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -83,7 +92,7 @@ def test_unported_modes_raise():
 def test_wrappers_import_and_run_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", "")
     mod = importlib.reload(kernels)
-    assert mod._lib_handle is None          # nothing built at import
+    assert mod._lib_handles == {}           # nothing built at import
     x = torch.from_numpy(np.arange(12, dtype=np.int32).reshape(3, 4))
     assert torch.equal(mod.col_popcount(x), mod.col_popcount_plain(x))
     # a CUDA call would build first; without a toolkit that raises

@@ -71,11 +71,19 @@ def test_tree_exchange_single_node_is_zero():
 
 @pytest.mark.parametrize("topology", ["grid", "ring", "line", "circulant"])
 def test_other_topologies_raise_naming_roadmap(topology):
-    for make in (pst.make_exchange, pst.make_sync_diff):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(topology, 16, strides=[1, 3])
+    # every named topology has a structured exchange now; what still
+    # raises is a partition schedule on the structured path (the faults
+    # slice's masked exchanges, structured.make_faulted)
+    kw = {"strides": [1, 3]} if topology == "circulant" else {}
+    parts = pbc.Partitions.from_numpy(np.array([1]), np.array([3]),
+                                      np.zeros((1, 16), np.int8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptiming.discover_rounds(topology, 16, 4)
+        ptiming.structured_sim(topology, 16, 4, parts=parts, device="cpu",
+                               **kw)
+    assert pst.make_exchange(topology, 16, **kw) is not None
+    assert pst.make_sync_diff(topology, 16, **kw) is not None
+    assert ptiming.discover_rounds(topology, 16, 4, **kw) \
+        == jtiming.discover_rounds(topology, 16, 4, **kw)
 
 
 @pytest.mark.parametrize("n", (1, 2, 6, 7, 64, 341))
