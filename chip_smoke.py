@@ -11,9 +11,12 @@ flood at 1,048,576 nodes, on every topology the port runs:
 2. ``kernel_check``: each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0: bitsets and counts), at small shapes
    and at the main path's shapes — the shift kernels in every mode
-   (circulant, ring, line, grid with a ragged last row), the gather
+   (circulant, ring, line, grid with a ragged last row), also at rows one
+   node short of, at, one over and two and a bit times their tile, and
+   on views that start 4 bytes into their allocation; the gather
    kernels with and without an edge mask over -1-padded tables — and
-   each one's median time at the main path's shapes.
+   each one's median time at the main path's shapes, with its bound and
+   the share of it reached (``bound_share`` = bound / device time).
 3. ``w1_tree``: the 4-ary tree with 32 values (W = 1 word per node), the
    fixed-trip flood to ``discover_rounds`` timed with CUDA events, then
    the accounted while-converge run with the server ledger on; both held
@@ -38,10 +41,17 @@ flood at 1,048,576 nodes, on every topology the port runs:
    run to convergence with the server ledger on, each held against the
    CPU path (coverage, not timing).
 
+Device times (``device_ms``, ``device_busy_ms``) come from
+torch.profiler and count only when it saw every port kernel launch of
+the profiled run; after three incomplete profiles they are null (not
+measured), and stderr says what each profile missed.
+
 Each phase prints one JSON line.  Kernel launch counts are zeroed just
 before each main-path phase and read just after.  Then come the card's
-name and power limit (``nvidia-smi``), one ``{"kernels": [...]}`` line and
-last ``{"ok": true, "device": {...}}``.  Any failure raises: the script
+name and power limit (``nvidia-smi``), one ``{"kernels": [...]}`` line
+(the shift kernels' launches also split by path: the 1M-node floods at
+W = 128 and at W = 1, and the small floods) and last
+``{"ok": true, "device": {...}}``.  Any failure raises: the script
 then exits non-zero and prints no result.  Without a CUDA card it exits
 with status 2.
 """
@@ -49,6 +59,7 @@ with status 2.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +93,11 @@ KERNELS = {
 }
 # the gather kernels' main shape is node-major (N, W) = (2^20, 1)
 GATHER_MAIN = (1, N_NODES)
+# the profiler's names of the port's kernels (csrc/*.cu __global__s)
+PORT_KERNEL = re.compile(r"(tree_exchange|tree_flood_round|col_popcount|"
+                         r"col_popcount_nm|shift_tiles|gather_or|"
+                         r"sync_diff_pc)_kernel")
+LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 
 
 def emit(obj: dict) -> None:
@@ -108,57 +124,86 @@ def cuda_ms(fn, samples: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def _device_spans(prof) -> list[float]:
-    """Device time (µs) of every kernel a finished profile saw.  Raises
-    if it saw no device work."""
+def device_spans(make_run, attempts: int = 3) -> list[dict] | None:
+    """Device spans of one staged run, from torch.profiler's CUDA
+    activity: ``[{"name", "us"}]`` for every kernel, copy and set it
+    launched.  ``make_run()`` stages a run off the profiler and returns
+    it as a zero-argument call.
+
+    The profiler can drop kernels that run just after it starts (or
+    all of a short run's), so each attempt stages two runs: the first
+    runs in the warm-up step, whose events are dropped, the second in
+    the active step behind a ~1 ms spin kernel, so that its first
+    kernel starts well inside the recorded window.  An attempt counts
+    only if the profiler saw every launch of the port's kernels that
+    the wrappers counted in the measured run; after ``attempts``
+    incomplete profiles the result is None (not measured)."""
     import torch
-
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        raise AssertionError("the profiler recorded no device time")
-    return spans
-
-
-def device_ms(fn, calls: int = 1) -> float:
-    """Mean device time (ms) of one kernel launch during ``calls`` calls
-    of ``fn``, from torch.profiler's CUDA activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = _device_spans(prof)
-    return sum(spans) / len(spans) / 1e3
-
-
-def device_busy_ms(make_run) -> float:
-    """Total device time (ms) of every kernel one run launched.
-    ``make_run()`` stages a run off the profiler and returns it as a
-    zero-argument call.  Two runs are staged: the first runs in the
-    profiler's warm-up step, whose events are dropped (the launches right
-    after the profiler starts can go unrecorded), the second is
-    measured."""
-    import torch
+    from gossip_glomers_tpu_torch.tpu_sim import kernels
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    runs = [make_run(), make_run()]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for run in runs:
-            run()
+    for attempt in range(1, attempts + 1):
+        runs = [make_run(), make_run()]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            runs[0]()
             torch.cuda.synchronize()
             prof.step()
-    return sum(_device_spans(prof)) / 1e3
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+            before = sum(kernels.LAUNCHES.values())
+            runs[1]()
+            torch.cuda.synchronize()
+            launched = sum(kernels.LAUNCHES.values()) - before
+            prof.step()
+        spans = [{"name": e.name, "us": e.time_range.end - e.time_range.start}
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
+        seen = sum(1 for s in spans if PORT_KERNEL.search(s["name"]))
+        if spans and seen == launched:
+            return spans
+        print(f"chip_smoke: profile {attempt} of {attempts} saw {seen} of "
+              f"{launched} port kernel launches ({len(spans)} device "
+              "spans)", file=sys.stderr, flush=True)
+    return None
+
+
+def device_ms(fn, calls: int = 1) -> float | None:
+    """Mean device time (ms) of one kernel launch during ``calls`` calls
+    of ``fn`` (None: not measured)."""
+    def staged():
+        def run():
+            for _ in range(calls):
+                fn()
+        return run
+
+    spans = device_spans(staged)
+    return None if spans is None else (
+        sum(s["us"] for s in spans) / len(spans) / 1e3)
+
+
+def device_busy_ms(make_run) -> float | None:
+    """Total device time (ms) of everything one staged run launched
+    (None: not measured)."""
+    spans = device_spans(make_run)
+    return None if spans is None else sum(s["us"] for s in spans) / 1e3
 
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def at_offset(x, offset: int):
+    """A contiguous copy of x starting ``offset`` words into its
+    allocation (1: 4 bytes, off the 16-byte grid)."""
+    import torch
+
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def bound(moved_bytes: float, ops: float) -> tuple[float, str]:
@@ -167,6 +212,13 @@ def bound(moved_bytes: float, ops: float) -> tuple[float, str]:
     by = moved_bytes / HBM_BYTES_PER_S * 1e3
     op = ops / OPS_PER_S * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
+
+
+def shift_edges(tile: int) -> list:
+    """The shift kernels' edge shapes for their tile: a row one node
+    short of a tile, one tile, one over, and a ragged third at W = 128
+    (odd n)."""
+    return [(1, tile - 1), (8, tile), (1, tile + 1), (128, 2 * tile + 3)]
 
 
 def ragged_cols(n: int, grid_cols) -> int:
@@ -218,6 +270,22 @@ def check_kernels(kernels, structured, topology, device) -> dict:
     def note(name, *pairs):
         err[name] = max(err[name], *(max_abs_err(a, b) for a, b in pairs))
 
+    def check_shift(rec, fr, n, offset=0):
+        for _, topo, kw in shift_modes(n, topology):
+            dirs = structured.shift_dirs(topo, n, **kw)
+            note("shift_exchange", (kernels.shift_exchange(fr, dirs),
+                                    kernels.shift_exchange_plain(fr, dirs)))
+            rk = at_offset(rec, offset)
+            nk = at_offset(torch.empty_like(fr), offset)
+            kernels.shift_flood_round(rk, fr, nk, dirs)
+            rp, np_ = rec.clone(), torch.empty_like(fr)
+            kernels.shift_flood_round_plain(rp, fr, np_, dirs)
+            note("shift_flood_round", (rk, rp), (nk, np_))
+
+    for w, n in shift_edges(kernels.SHIFT_TILE):
+        for offset in (0, 1):
+            check_shift(at_offset(bits(w, n), offset),
+                        at_offset(bits(w, n), offset), n, offset)
     for w, n in CHECK_SHAPES + MAIN_SHAPES:
         rec, fr = bits(w, n), bits(w, n)
         note("tree_exchange", (kernels.tree_exchange(fr, BRANCHING),
@@ -229,15 +297,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
         note("tree_flood_round", (rk, rp), (nk, np_))
         note("col_popcount", (kernels.col_popcount(rec),
                               kernels.col_popcount_plain(rec)))
-        for _, topo, kw in shift_modes(n, topology):
-            dirs = structured.shift_dirs(topo, n, **kw)
-            note("shift_exchange", (kernels.shift_exchange(fr, dirs),
-                                    kernels.shift_exchange_plain(fr, dirs)))
-            rk, nk = rec.clone(), torch.empty_like(fr)
-            kernels.shift_flood_round(rk, fr, nk, dirs)
-            rp, np_ = rec.clone(), torch.empty_like(fr)
-            kernels.shift_flood_round_plain(rp, fr, np_, dirs)
-            note("shift_flood_round", (rk, rp), (nk, np_))
+        check_shift(rec, fr, n)
         del rec, fr, rk, nk, rp, np_
         payload, recv, nbrs, live = gather_inputs(w, n, n + w, device,
                                                   topology)
@@ -262,9 +322,15 @@ def check_kernels(kernels, structured, topology, device) -> dict:
 
 def _timed(kern, plain, bound_ms_by) -> dict:
     b_ms, b_by = bound_ms_by
-    return {"ms": cuda_ms(kern), "device_ms": device_ms(kern, calls=10),
+    dev_ms = device_ms(kern, calls=10)
+    return {"ms": cuda_ms(kern), "device_ms": dev_ms,
             "plain_ms": cuda_ms(plain, inner=3), "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by,
+            "bound_share": None if dev_ms is None else b_ms / dev_ms}
+
+
+def idle_share(busy_ms: float | None, wall_ms: float) -> float | None:
+    return None if busy_ms is None else 1 - busy_ms / wall_ms
 
 
 def time_kernels(kernels, structured, topology, device) -> dict:
@@ -362,17 +428,29 @@ def fixed_run(timing, broadcast, topology: str, n: int, n_values: int,
 
 
 class Launches:
-    """Per-phase kernel launch counts, summed over the main-path phases."""
+    """Per-phase kernel launch counts, summed over the main-path phases
+    and kept per phase."""
 
     def __init__(self, kernels):
         self.kernels = kernels
         self.total = {name: 0 for name in kernels.LAUNCHES}
+        self.by_phase: dict[str, dict] = {}
 
     def start(self) -> None:
         import torch
 
         self.kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
+
+    def split(self, name: str) -> dict:
+        """One kernel's launches by path: the 1M-node floods at W = 128
+        and at W = 1 (gather phases included), and the small floods."""
+        out = {"n1m_w128": 0, "n1m_w1": 0, "small_floods": 0}
+        for phase, counts in self.by_phase.items():
+            key = ("small_floods" if phase == "small_floods" else
+                   "n1m_w128" if phase.startswith("w128_") else "n1m_w1")
+            out[key] += counts[name]
+        return out
 
     def stop(self, rec: dict, expect: tuple) -> None:
         import torch
@@ -383,6 +461,7 @@ class Launches:
         rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         for name, count in counts.items():
             self.total[name] += count
+        self.by_phase[rec["phase"]] = counts
         missing = [name for name in expect if counts[name] == 0]
         if missing:
             raise AssertionError(f"{rec['phase']}: kernels {missing} were "
@@ -423,7 +502,7 @@ def timed_phase(name: str, topo: str, n_values: int, kw: dict, n_dirs: int,
               "ms_per_round": res["ms_per_round"],
               "gbytes_per_s_lb": res["gbytes_per_s_lb"],
               "device_busy_ms": busy_ms,
-              "device_idle_share": 1 - busy_ms / (res["wall_s"] * 1e3),
+              "device_idle_share": idle_share(busy_ms, res["wall_s"] * 1e3),
               "msgs": int(state.msgs), "msgs64": res["msgs64"]}
     return record, state
 
@@ -542,7 +621,7 @@ def gather_phases(modules, topology, device, launches: Launches) -> None:
            "n_values": W1_VALUES, "rounds": rounds, "wall_ms": wall_s * 1e3,
            "samples_ms": [s * 1e3 for s in tr.samples],
            "ms_per_round": wall_s / rounds * 1e3, "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / (wall_s * 1e3),
+           "device_idle_share": idle_share(busy_ms, wall_s * 1e3),
            "msgs": int(state.msgs)}
     acct = sim(device, sync_every=4)
     state_a, rounds_a = acct.run_fused(inject)
@@ -646,6 +725,9 @@ def main() -> int:
     times = time_kernels(kernels, structured, topology, device)
     emit({"phase": "kernel_check", "tolerance": 0, "max_abs_err": errs,
           "shapes": [list(s) for s in CHECK_SHAPES + MAIN_SHAPES],
+          "shift_edge_shapes": [list(s) for s in
+                                shift_edges(kernels.SHIFT_TILE)],
+          "shift_view_offsets": [0, 1],
           "shift_modes": [m[0] for m in shift_modes(N_NODES, topology)],
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
                     for k, t in times.items()}})
@@ -689,6 +771,8 @@ def main() -> int:
                  "library_ms": None, "at": list(big)}
         if len(shapes) > 1:
             entry["w1"] = shapes[MAIN_SHAPES[0]]
+        if name.startswith("shift_"):
+            entry["launches_by_path"] = launches.split(name)
         entries.append(entry)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

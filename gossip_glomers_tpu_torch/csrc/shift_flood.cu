@@ -5,14 +5,13 @@
 // Every one of these topologies delivers node i's inbox as the OR over a
 // small table of directions, each a constant node offset:
 //
-//   inbox[w, i] = OR_d  payload[w, j_d(i)]   where j_d(i) = i + off_d
+//   inbox[w, i] = OR_d  payload[w, i + o_d]
 //
-// A direction either wraps (ring and circulant rotations: off is taken
-// mod n on the host, so j < 2n and one subtraction brings it back) or
-// shifts with zero fill (line and grid: j outside [0, n) delivers
-// nothing).  Grid left/right directions also carry a column mask, which
-// kills the row wrap-around: "left" (off +1) only where i % cols <
-// cols - 1, "right" (off -1) only where i % cols > 0.
+// A direction either wraps (ring and circulant rotations: i + o_d is taken
+// mod n) or shifts with zero fill (line and grid: a source outside [0, n)
+// delivers nothing).  Grid left/right directions also carry a column
+// mask, which kills the row wrap-around: "left" (o = +1) only where
+// i % cols < cols - 1, "right" (o = -1) only where i % cols > 0.
 //
 // Replaces: the XLA code of gossip_glomers_tpu/tpu_sim/structured.py
 // grid_terms / grid_exchange, line_terms / line_exchange, ring_exchange
@@ -24,140 +23,543 @@
 // operations per direction against 4 bytes moved; the exchange must read
 // the payload once and write the inbox once (2 bitsets), the fused round
 // reads frontier and received and writes received and the next frontier
-// (4 bitsets).  The design keeps every access coalesced: the offset of a
-// direction is the same for every thread, so a warp's 32 consecutive
-// nodes read 32 consecutive payload words for each direction.  A payload
-// row (4 MiB at N = 2^20) stays in the 50 MB L2 while its blocks run, so
-// device memory sees each payload word about once, but L2 serves it once
-// per direction: the circulant's 8 far-apart rotations read each word 8
-// times from L2 (ring, line and grid offsets are close, and L1 serves
-// most repeats), which is what holds this kernel above its byte bound.
-// The direction table rides in the kernel's parameters (by value, at
-// most kMaxDirs entries), so it costs no memory traffic.  Offsets and
-// indices are 64-bit: W * N passes 2^31 at the main path's W = 128,
-// N = 2^20.  received is updated in place (word i reads and writes only
-// its own received word); the next frontier goes to a second buffer,
-// because word i reads its neighbours' frontier words.
+// (4 bitsets).  Above that bound sits L2: the circulant's rotations lie
+// far apart, so each payload word travels from L2 to the SMs once per
+// window (7 times at 2^20 nodes) whatever the design.  A thread per node
+// with one 4-byte load per direction delivered that traffic at about
+// 2 TB/s; what moves it faster is bytes in flight in large requests.
+//
+// Design: a row is cut into tiles of T consecutive nodes (T <= 2048).
+// The inbox of tile [i0, i0 + T) reads, for each direction, the
+// contiguous source range [i0 + o_d, i0 + o_d + T).  The host merges the
+// directions whose offsets lie within T of each other into one window
+// [i0 + lo, i0 + hi + T) (kernels.shift_windows: the circulant at 2^20
+// has 7 windows, ring and line 1, the grid 1 of T + 2 cols words), and
+// each tile stages its windows, and in the fused round its own received
+// words, into shared memory by 1-D bulk copies (TMA, cp.async.bulk).
+// Persistent blocks, as many as fit on each SM, walk the tiles in
+// row-major order through a ring of stages in dynamic shared memory (up
+// to 227 KB a block).  In each block one producer warp works out a
+// tile's copies, one lane per window, arms the stage's "full" mbarrier
+// with their bytes and issues them, once the eight consumer warps have
+// released the stage on its "empty" mbarrier; a small descriptor tells
+// the consumers where each direction's words landed.  The consumers OR
+// the directions out of shared memory (consecutive threads, consecutive
+// words: no bank conflicts), their count a template parameter (padded to
+// a power of two with copies, which the OR absorbs), and write received
+// and the next frontier with coalesced stores.
+//
+// A bulk copy needs a 16-byte aligned global address and a length in
+// 16-byte units, and a row starts 16-byte aligned only when n % 4 == 0 (a
+// view may also start 4 bytes into its allocation).  So a window is
+// copied as the aligned chunks that cover it and lie inside the tensor,
+// placed at its 16-byte phase in its stage slot (the consumers add the
+// phase); nothing is read past either end of the tensor.  A wrap window
+// that crosses n is two copies when its row starts and ends on the
+// 16-byte grid (the main path's case); otherwise, and for a zero-fill
+// window that leaves the row, the consumers fill it word by word, mod n
+// or with zeros.  That happens to a few tiles per row, and to every tile
+// of a row shorter than T.  All indices are 64-bit: W * N passes 2^31 at
+// the main path's W = 128, N = 2^20.  received is updated in place (a
+// tile reads and writes only its own received words); the next frontier
+// goes to a second buffer, because a tile reads its neighbours' frontier
+// words.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kConsumers = 256;              // 8 warps read the stages
+constexpr int kThreads = kConsumers + 32;    // and one warp fills them
+constexpr int kUnroll = 8;                   // words a consumer thread
+                                             // takes per pass
 constexpr int kMaxDirs = 16;
+constexpr int kMaxStages = 4;
+// dynamic shared memory a block may ask for: the card's 227 KB less room
+// for the static barriers and descriptors
+constexpr int kMaxSmemBytes = 227 * 1024 - 1024;
 
 // direction flags
-constexpr int kWrap = 1;       // rotate mod n (else zero fill)
 constexpr int kMaskLeft = 2;   // only where i % cols < cols - 1
 constexpr int kMaskRight = 4;  // only where i % cols > 0
 
-struct DirTable {
-  int64_t off[kMaxDirs];
-  int32_t flags[kMaxDirs];
-  int32_t count;
-  int64_t cols;
+// The staging plan of one direction table at one n (kernels.py,
+// _shift_plan): windows, where each sits in a stage, and per direction
+// its window's lo and shared-memory offset (so the device never indexes
+// one table by another).  The directions are padded to a power of two
+// with copies of direction 0 (the OR absorbs them).
+struct Plan {
+  int64_t lo[kMaxDirs];     // window k stages [i0 + lo, i0 + lo + span + tl)
+  int64_t dlo[kMaxDirs];    // lo of direction d's window
+  int64_t cols;             // grid width (0: no column masks)
+  int32_t span[kMaxDirs];   // window k: hi - lo
+  int32_t wrap[kMaxDirs];   // window k: 1 = mod n, 0 = zero fill
+  int32_t dwrap[kMaxDirs];  // direction d: its window's wrap
+  int32_t at[kMaxDirs];     // window k: word offset in a stage (x4)
+  int32_t dat[kMaxDirs];    // direction d: its window's offset in a stage
+  int32_t ddelta[kMaxDirs]; // direction d: o_d - lo of its window
+  int32_t dmask[kMaxDirs];  // direction d: column-mask flags
+  int32_t n_win, n_dirs;    // n_dirs padded; 0 when the table is empty
+  int32_t tile;             // nodes per tile, 1 <= tile <= n
+  int32_t stages;           // tiles in flight per block
+  int32_t stage_words;      // words of one stage (x4)
+  int32_t rec_at;           // received's offset in a stage (fused round)
 };
 
-__device__ __forceinline__ uint32_t shift_inbox(
-    const uint32_t* __restrict__ row, int64_t i, int64_t n,
-    const DirTable& t) {
-  const int64_t col = t.cols > 0 ? i % t.cols : 0;
-  uint32_t v = 0u;
-#pragma unroll 4
-  for (int d = 0; d < t.count; ++d) {
-    const int f = t.flags[d];
-    int64_t j = i + t.off[d];
-    if (f & kWrap) {
-      if (j >= n) j -= n;
-    } else if (j < 0 || j >= n) {
-      continue;
+// host layout of the plan (int64 words), mirrored by kernels.py: a head
+// of tile, stages, stage_words, rec_at, cols, n_win, n_dirs, 0; per
+// window lo, span, wrap, at; per direction window, delta, mask
+constexpr int kPlanHead = 8;
+constexpr int kWinWords = 4;
+constexpr int kDirWords = 3;
+
+// What the producer tells the consumers about the tile in one stage.
+struct Desc {
+  int32_t sd[kMaxDirs];  // direction d's first word in the stage
+  int32_t rec;           // received's first word in the stage
+  uint32_t slow;         // bit k: window k to fill word by word; bit 31:
+                         // received
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One staged range of one tile: `len` source words starting at row
+// position s (taken mod n for a wrap window: s + lo lies in (-n, 2n)),
+// i.e. tensor word row_start + s.  `ph` is that word's position in its
+// 16-byte chunk, so the range sits at stage offset at + ph.  `fast` when
+// bulk copies can stage it, `bytes` in all: one copy when it lies inside
+// the row and the aligned chunks covering it inside the tensor; two when
+// a wrap range crosses n of a row that starts and ends on the 16-byte
+// grid ([s, n) of `head` bytes, then [0, s + len - n) from the row's
+// start, which lands 16-byte aligned right after it).
+struct Piece {
+  int64_t s, g;
+  int32_t ph;
+  uint32_t bytes, head;
+  bool fast;
+};
+
+__device__ __forceinline__ Piece piece(const uint32_t* base, int64_t total,
+                                      int64_t row_start, int64_t s,
+                                      int64_t len, int64_t n, bool wrap) {
+  Piece p;
+  if (wrap) s += s < 0 ? n : s >= n ? -n : 0;
+  p.s = s;
+  p.g = row_start + s;
+  const uint64_t base_w = reinterpret_cast<uintptr_t>(base) >> 2;
+  p.ph = static_cast<int32_t>((base_w + static_cast<uint64_t>(p.g)) & 3u);
+  const int64_t words = (p.ph + len + 3) & ~int64_t{3};
+  p.bytes = static_cast<uint32_t>(words * 4);
+  p.head = 0;
+  p.fast = s >= 0 && s + len <= n && p.g - p.ph >= 0
+           && p.g - p.ph + words <= total;
+  if (!p.fast && wrap && len <= n && (n & 3) == 0
+      && ((base_w + static_cast<uint64_t>(row_start)) & 3u) == 0) {
+    p.head = static_cast<uint32_t>((n - s + p.ph) * 4);
+    p.fast = true;
+  }
+  return p;
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t* dst, const uint32_t* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The word-by-word fill of a range the copies could not stage, by the
+// consumers: source positions x in [s, s + len) of the row, mod n or
+// zero outside [0, n).  A wrap range starts in [0, n) and is at most 2n
+// long (span <= tile <= n), so x < 3n.
+__device__ __noinline__ void fill(uint32_t* dst, const uint32_t* row,
+                                  int64_t s, int64_t len, int64_t n,
+                                  bool wrap) {
+  for (int64_t q = threadIdx.x; q < len; q += kConsumers) {
+    int64_t x = s + q;
+    uint32_t v = 0u;
+    if (wrap) {
+      while (x >= n) x -= n;
+      v = row[x];
+    } else if (x >= 0 && x < n) {
+      v = row[x];
     }
-    if ((f & kMaskLeft) && col >= t.cols - 1) continue;
-    if ((f & kMaskRight) && col == 0) continue;
-    v |= __ldg(row + j);
+    dst[q] = v;
   }
-  return v;
 }
 
-__global__ void shift_exchange_kernel(const uint32_t* __restrict__ payload,
-                                      uint32_t* __restrict__ inbox,
-                                      int64_t n, const DirTable t) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
-  inbox[base + i] = shift_inbox(payload + base, i, n, t);
+struct TileAt {
+  int64_t row_start, i0, tl;
+};
+
+__device__ __forceinline__ TileAt tile_at(int64_t tile, int64_t per_row,
+                                          int64_t n, int32_t t) {
+  const int64_t row = tile / per_row;
+  const int64_t i0 = (tile - row * per_row) * t;
+  return {row * n, i0, n - i0 < t ? n - i0 : static_cast<int64_t>(t)};
 }
 
-__global__ void shift_flood_round_kernel(
-    uint32_t* __restrict__ received, const uint32_t* __restrict__ frontier,
-    uint32_t* __restrict__ frontier_next, int64_t n, const DirTable t) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
-  const uint32_t rec = received[base + i];
-  const uint32_t fresh = shift_inbox(frontier + base, i, n, t) & ~rec;
-  received[base + i] = rec | fresh;
-  frontier_next[base + i] = fresh;
+// Tiles are dealt to the persistent blocks round robin in row-major order.
+struct Walk {
+  int64_t per_row, first, step, mine, total;
+};
+
+__device__ __forceinline__ Walk walk(int64_t w, int64_t n, int32_t tile) {
+  Walk k;
+  k.per_row = (n + tile - 1) / tile;
+  const int64_t tiles = w * k.per_row;
+  k.first = blockIdx.x;
+  k.step = gridDim.x;
+  k.mine = k.first < tiles ? (tiles - 1 - k.first) / k.step + 1 : 0;
+  k.total = w * n;
+  return k;
 }
 
-dim3 node_grid(int64_t n, int64_t rows) {
-  return dim3(static_cast<unsigned>((n + kThreads - 1) / kThreads),
-              static_cast<unsigned>(rows));
-}
-
-// Copies the host direction table into the by-value kernel parameter.
-// Returns false when it does not fit.
-bool make_table(const int64_t* off, const int32_t* flags, int count,
-                int64_t cols, DirTable* t) {
-  if (count < 0 || count > kMaxDirs) return false;
-  for (int d = 0; d < kMaxDirs; ++d) {
-    t->off[d] = d < count ? off[d] : 0;
-    t->flags[d] = d < count ? flags[d] : 0;
+// The producer warp: for each of this block's tiles, once its stage is
+// free, lane k works out window k (lane 31 the received tile) and the
+// descriptor, lane 0 arms the stage's full barrier with the bytes the
+// copies will bring, and each lane issues its window's copies.
+template <bool kFused>
+__device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
+                                        uint64_t* empty, Desc* desc,
+                                        const uint32_t* src,
+                                        const uint32_t* received,
+                                        int64_t n, const Walk& wk,
+                                        const Plan& p) {
+  const int lane = threadIdx.x & 31;
+  for (int64_t k = 0; k < wk.mine; ++k) {
+    const int st = static_cast<int>(k % p.stages);
+    const int64_t use = k / p.stages;
+    if (use > 0) bar_wait(&empty[st], static_cast<uint32_t>(use - 1) & 1u);
+    const TileAt at = tile_at(wk.first + k * wk.step, wk.per_row, n, p.tile);
+    Piece pc{};
+    const bool is_win = lane < p.n_win;
+    const bool is_rec = kFused && lane == 31;
+    if (is_win)
+      pc = piece(src, wk.total, at.row_start, at.i0 + p.lo[lane],
+                 p.span[lane] + at.tl, n, p.wrap[lane] != 0);
+    else if (is_rec)
+      pc = piece(received, wk.total, at.row_start, at.i0, at.tl, n, false);
+    const bool copies = (is_win || is_rec) && pc.fast;
+    const uint32_t slow = __ballot_sync(~0u, (is_win || is_rec) && !pc.fast);
+    const uint32_t bytes = __reduce_add_sync(~0u, copies ? pc.bytes : 0u);
+    int sd = 0;
+    if (lane < p.n_dirs)
+      sd = p.dat[lane] + p.ddelta[lane]
+           + piece(src, wk.total, at.row_start, at.i0 + p.dlo[lane], 0, n,
+                   p.dwrap[lane] != 0).ph;
+    const int rec = __shfl_sync(~0u, p.rec_at + pc.ph, 31);
+    for (int d = 0; d < p.n_dirs; ++d) {
+      const int v = __shfl_sync(~0u, sd, d);
+      if (lane == 0) desc[st].sd[d] = v;
+    }
+    if (lane == 0) {
+      desc[st].rec = rec;
+      desc[st].slow = slow;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(smem_u32(&full[st])), "r"(bytes) : "memory");
+    }
+    __syncwarp();
+    if (copies) {
+      // order the consumers' generic-proxy use of the stage (released
+      // through the empty barrier) before this copy's async-proxy writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      uint32_t* dst = smem + st * p.stage_words + (is_rec ? p.rec_at
+                                                          : p.at[lane]);
+      const uint32_t* from = is_rec ? received : src;
+      if (pc.head == 0) {
+        bulk_copy(dst, from + (pc.g - pc.ph), pc.bytes, &full[st]);
+      } else {
+        bulk_copy(dst, from + (pc.g - pc.ph), pc.head, &full[st]);
+        bulk_copy(dst + pc.ph + (n - pc.s), from + at.row_start,
+                  pc.bytes - pc.head, &full[st]);
+      }
+    }
   }
-  t->count = count;
-  t->cols = cols;
-  return true;
+}
+
+// The consumers: for each tile, wait for its stage, fill what the copies
+// could not stage, then OR the N directions out of the stage, word t by
+// thread t % 256, and release the stage.
+template <int N, bool kMasked, bool kFused>
+__device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
+                                        uint64_t* empty, const Desc* desc,
+                                        const uint32_t* src,
+                                        uint32_t* received, uint32_t* out,
+                                        int64_t n, const Walk& wk,
+                                        const Plan& p) {
+  const int tid = threadIdx.x;
+  const bool none = p.n_dirs == 0;
+  for (int64_t k = 0; k < wk.mine; ++k) {
+    const int st = static_cast<int>(k % p.stages);
+    uint32_t* stage = smem + st * p.stage_words;
+    const TileAt at = tile_at(wk.first + k * wk.step, wk.per_row, n, p.tile);
+    bar_wait(&full[st], static_cast<uint32_t>(k / p.stages) & 1u);
+    const Desc& ds = desc[st];
+    const uint32_t slow = ds.slow;
+    if (slow) {
+      for (int win = 0; win < p.n_win; ++win) {
+        if (!(slow >> win & 1u)) continue;
+        const bool wrap = p.wrap[win] != 0;
+        const Piece pc = piece(src, wk.total, at.row_start,
+                               at.i0 + p.lo[win], p.span[win] + at.tl, n,
+                               wrap);
+        fill(stage + p.at[win] + pc.ph, src + at.row_start, pc.s,
+             p.span[win] + at.tl, n, wrap);
+      }
+      if (kFused && slow >> 31)
+        fill(stage + ds.rec, received + at.row_start, at.i0, at.tl, n,
+             false);
+      asm volatile("bar.sync 1, %0;" :: "n"(kConsumers) : "memory");
+    }
+    const uint32_t* q[N];
+#pragma unroll
+    for (int d = 0; d < N; ++d) q[d] = stage + (none ? 0 : ds.sd[d]);
+    const uint32_t* r = stage + ds.rec;
+    const int64_t g0 = at.row_start + at.i0;
+    const int tl = static_cast<int>(at.tl);
+    for (int t0 = tid; t0 < tl; t0 += kConsumers * kUnroll) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const int t = t0 + j * kConsumers;
+        if (t >= tl) break;
+        int64_t col = 0;
+        if (kMasked) col = (at.i0 + t) % p.cols;
+        uint32_t v = 0u;
+#pragma unroll
+        for (int d = 0; d < N; ++d) {
+          if (kMasked) {
+            const int f = p.dmask[d];
+            if ((f & kMaskLeft) && col >= p.cols - 1) continue;
+            if ((f & kMaskRight) && col == 0) continue;
+          }
+          v |= q[d][t];
+        }
+        if (none) v = 0u;
+        if (kFused) {
+          const uint32_t was = r[t];
+          const uint32_t fresh = v & ~was;
+          received[g0 + t] = was | fresh;
+          out[g0 + t] = fresh;
+        } else {
+          out[g0 + t] = v;
+        }
+      }
+    }
+    __syncwarp();
+    if ((tid & 31) == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                   :: "r"(smem_u32(&empty[st])) : "memory");
+  }
+}
+
+// kFused: the pure-flood round (src = frontier, out = frontier_next,
+// received updated in place).  Else the exchange (out = inbox).
+template <int N, bool kMasked, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1) shift_tiles_kernel(
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ received,
+    uint32_t* __restrict__ out, int64_t w, int64_t n, const Plan p) {
+  extern __shared__ __align__(128) uint32_t smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ Desc desc[kMaxStages];
+  const Walk wk = walk(w, n, p.tile);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_u32(&full[s])) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(&empty[s])), "n"(kConsumers / 32)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers)
+    produce<kFused>(smem, full, empty, desc, src, received, n, wk, p);
+  else
+    consume<N, kMasked, kFused>(smem, full, empty, desc, src, received,
+                                out, n, wk, p);
+}
+
+// Unpacks the host's plan words and pads the directions to a power of
+// two; false when they do not fit.
+bool unpack(const int64_t* words, int len, Plan* p) {
+  if (len < kPlanHead) return false;
+  *p = Plan{};
+  p->tile = static_cast<int32_t>(words[0]);
+  p->stages = static_cast<int32_t>(words[1]);
+  p->stage_words = static_cast<int32_t>(words[2]);
+  p->rec_at = static_cast<int32_t>(words[3]);
+  p->cols = words[4];
+  p->n_win = static_cast<int32_t>(words[5]);
+  const int n_dirs = static_cast<int>(words[6]);
+  if (p->n_win < 0 || p->n_win > kMaxDirs || n_dirs < 0
+      || n_dirs > kMaxDirs || p->stages < 1 || p->stages > kMaxStages
+      || p->tile < 1 || (p->stage_words & 3)
+      || (p->rec_at >= 0 && (p->rec_at & 3))
+      || len != kPlanHead + kWinWords * p->n_win + kDirWords * n_dirs)
+    return false;
+  const int64_t* win = words + kPlanHead;
+  for (int k = 0; k < p->n_win; ++k) {
+    p->lo[k] = win[kWinWords * k];
+    p->span[k] = static_cast<int32_t>(win[kWinWords * k + 1]);
+    p->wrap[k] = static_cast<int32_t>(win[kWinWords * k + 2]);
+    p->at[k] = static_cast<int32_t>(win[kWinWords * k + 3]);
+    if (p->at[k] & 3) return false;     // bulk copies land 16-byte aligned
+  }
+  const int64_t* dir = win + kWinWords * p->n_win;
+  p->n_dirs = 0;
+  if (n_dirs > 0) {
+    p->n_dirs = 1;
+    while (p->n_dirs < n_dirs) p->n_dirs *= 2;
+  }
+  for (int d = 0; d < p->n_dirs; ++d) {
+    const int64_t* e = dir + kDirWords * (d < n_dirs ? d : 0);
+    const int k = static_cast<int>(e[0]);
+    if (k < 0 || k >= p->n_win) return false;
+    p->dlo[d] = p->lo[k];
+    p->dwrap[d] = p->wrap[k];
+    p->dat[d] = p->at[k];
+    p->ddelta[d] = static_cast<int32_t>(e[1]);
+    p->dmask[d] = static_cast<int32_t>(e[2]);
+  }
+  return static_cast<int64_t>(p->stages) * p->stage_words * 4
+         <= kMaxSmemBytes;
+}
+
+// Blocks per SM of one kernel at one shared-memory size, cached per
+// device and kernel (a table's plan is the same every round).
+cudaError_t grid_size(const void* kernel, int64_t tiles, size_t smem,
+                      int* blocks) {
+  struct Entry {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    int per_sm, sms;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const Entry* hit = nullptr;
+  for (int e = 0; e < used && e < 64; ++e)
+    if (cache[e].kernel == kernel && cache[e].dev == dev
+        && cache[e].smem == smem)
+      hit = &cache[e];
+  if (hit == nullptr) {
+    Entry e{kernel, dev, smem, 0, 0};
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&e.sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&e.per_sm, kernel,
+                                                          kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (e.per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[used % 64] = e;
+    hit = &cache[used % 64];
+    ++used;
+  }
+  const int64_t most = static_cast<int64_t>(hit->sms) * hit->per_sm;
+  *blocks = static_cast<int>(tiles < most ? tiles : most);
+  return cudaSuccess;
+}
+
+template <int N, bool kMasked, bool kFused>
+int launch_n(const void* src, void* received, void* out, int64_t w,
+             int64_t n, const Plan& p, cudaStream_t stream) {
+  const auto kernel = shift_tiles_kernel<N, kMasked, kFused>;
+  const size_t smem = static_cast<size_t>(p.stages) * p.stage_words * 4;
+  int blocks = 0;
+  const cudaError_t err =
+      grid_size(reinterpret_cast<const void*>(kernel),
+                w * ((n + p.tile - 1) / p.tile), smem, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(received),
+      static_cast<uint32_t*>(out), w, n, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMasked, bool kFused>
+int launch_masked(const void* src, void* received, void* out, int64_t w,
+                  int64_t n, const Plan& p, cudaStream_t stream) {
+  switch (p.n_dirs) {
+    case 0:
+    case 1:
+      return launch_n<1, kMasked, kFused>(src, received, out, w, n, p,
+                                          stream);
+    case 2:
+      return launch_n<2, kMasked, kFused>(src, received, out, w, n, p,
+                                          stream);
+    case 4:
+      return launch_n<4, kMasked, kFused>(src, received, out, w, n, p,
+                                          stream);
+    case 8:
+      return launch_n<8, kMasked, kFused>(src, received, out, w, n, p,
+                                          stream);
+    default:
+      return launch_n<16, kMasked, kFused>(src, received, out, w, n, p,
+                                           stream);
+  }
+}
+
+template <bool kFused>
+int launch(const void* src, void* received, void* out, int64_t w, int64_t n,
+           const int64_t* plan, int plan_len, void* stream) {
+  Plan p;
+  if (!unpack(plan, plan_len, &p) || (kFused && p.rec_at < 0) || p.tile > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool masked = false;
+  for (int d = 0; d < p.n_dirs; ++d) masked = masked || p.dmask[d] != 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return masked ? launch_masked<true, kFused>(src, received, out, w, n, p, s)
+                : launch_masked<false, kFused>(src, received, out, w, n, p,
+                                               s);
 }
 
 }  // namespace
 
 // C entry points, loaded with ctypes.  Each launches on the caller's
 // stream, does not synchronise, and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a table above kMaxDirs) so that a refused
-// launch reaches the caller.  The caller guarantees w, n >= 1,
-// w <= 65535, device pointers to contiguous (w, n) int32 buffers, host
-// pointers `off` and `flags` to `count` entries, wrap offsets in [0, n)
-// and cols >= 1 wherever a column mask is set.
+// cudaErrorInvalidValue for a plan it cannot take) so that a refused
+// launch reaches the caller.  The caller guarantees w, n >= 1, device
+// pointers to contiguous (w, n) int32 buffers, 4-byte aligned, and a
+// host pointer to the `plan_len` words of kernels._shift_plan.
 
 extern "C" int gg_shift_exchange(const void* payload, void* inbox, int64_t w,
-                                 int64_t n, const int64_t* off,
-                                 const int32_t* flags, int count,
-                                 int64_t cols, void* stream) {
-  DirTable t;
-  if (!make_table(off, flags, count, cols, &t))
-    return static_cast<int>(cudaErrorInvalidValue);
-  shift_exchange_kernel<<<node_grid(n, w), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(payload), static_cast<uint32_t*>(inbox),
-      n, t);
-  return static_cast<int>(cudaGetLastError());
+                                 int64_t n, const int64_t* plan,
+                                 int plan_len, void* stream) {
+  return launch<false>(payload, nullptr, inbox, w, n, plan, plan_len,
+                       stream);
 }
 
 extern "C" int gg_shift_flood_round(void* received, const void* frontier,
                                     void* frontier_next, int64_t w,
-                                    int64_t n, const int64_t* off,
-                                    const int32_t* flags, int count,
-                                    int64_t cols, void* stream) {
-  DirTable t;
-  if (!make_table(off, flags, count, cols, &t))
-    return static_cast<int>(cudaErrorInvalidValue);
-  shift_flood_round_kernel<<<node_grid(n, w), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(received),
-      static_cast<const uint32_t*>(frontier),
-      static_cast<uint32_t*>(frontier_next), n, t);
-  return static_cast<int>(cudaGetLastError());
+                                    int64_t n, const int64_t* plan,
+                                    int plan_len, void* stream) {
+  return launch<true>(frontier, received, frontier_next, w, n, plan,
+                      plan_len, stream);
 }

@@ -12,7 +12,8 @@ what bounds them on an H100 and what the design does about it):
   (per-node popcount sums ``sum_w popc(x[w, i])``);
 - ``shift_flood.cu``, the words-major shift topologies (circulant, ring,
   line, grid): :func:`shift_exchange` and :func:`shift_flood_round`, both
-  driven by a :class:`ShiftDirs` direction table;
+  driven by a :class:`ShiftDirs` direction table, whose tiles stage the
+  source windows of :func:`shift_windows` in shared memory;
 - ``gather_flood.cu``, the node-major adjacency gather:
   :func:`gather_or`, :func:`sync_diff_pc` and the node-major mode of
   :func:`col_popcount`.
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -52,6 +54,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_WORDS = 65535            # grid.y carries the word axis (words-major)
 MAX_DIRS = 16                # shift_flood.cu's kMaxDirs
 MASK32 = 0xFFFFFFFF
+# shift_flood.cu's tiles: nodes per tile at most, tiles in flight per
+# block (2 measured faster than 3 for the circulant's fused round on an
+# H100; PERF.md), and the dynamic shared memory a block may take
+# (kMaxSmemBytes)
+SHIFT_TILE = 2048
+SHIFT_STAGES = 2
+SHIFT_SMEM_BYTES = 227 * 1024 - 1024
 
 # direction flags of a ShiftDirs table (shift_flood.cu)
 WRAP, MASK_LEFT, MASK_RIGHT = 1, 2, 4
@@ -79,6 +88,100 @@ class ShiftDirs:
     offs: tuple[int, ...]
     flags: tuple[int, ...]
     cols: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftWindow:
+    """Source words the shift kernels stage together: for the tile of
+    nodes [i0, i0 + tl) of a row, positions [i0 + lo, i0 + hi + tl) —
+    taken mod n when ``wrap``, else zero outside [0, n).  Direction d of
+    ``dirs`` reads it at ``signed_offset(d) - lo``."""
+
+    lo: int
+    hi: int
+    wrap: bool
+    dirs: tuple[int, ...]
+
+
+def signed_offset(off: int, flags: int, n: int) -> int:
+    """A direction's offset as the windows take it: a wrap offset (in
+    [0, n)) as its representative nearest 0, a zero-fill one as is."""
+    return off - n if flags & WRAP and 2 * off > n else off
+
+
+def shift_windows(dirs: ShiftDirs, n: int,
+                  tile: int) -> tuple[ShiftWindow, ...]:
+    """The shift kernels' windows for tiles of ``tile`` nodes: the
+    directions sorted by signed offset, wrap and zero-fill apart, and
+    every run whose spread is at most ``tile`` merged into one window
+    (one window of ``spread + tile`` words costs no more than two of
+    ``tile``).  The circulant at 2^20 nodes has 7 (its ±1 pair merges),
+    ring and line 1, the 1024-column grid 1."""
+    order = sorted(range(len(dirs.offs)), key=lambda d: (
+        bool(dirs.flags[d] & WRAP),
+        signed_offset(dirs.offs[d], dirs.flags[d], n)))
+    windows: list[ShiftWindow] = []
+    for d in order:
+        wrap = bool(dirs.flags[d] & WRAP)
+        o = signed_offset(dirs.offs[d], dirs.flags[d], n)
+        last = windows[-1] if windows else None
+        if last is not None and last.wrap == wrap and o - last.lo <= tile:
+            windows[-1] = ShiftWindow(last.lo, o, wrap, last.dirs + (d,))
+        else:
+            windows.append(ShiftWindow(o, o, wrap, (d,)))
+    return tuple(windows)
+
+
+def _check_dirs(dirs: ShiftDirs, n: int) -> None:
+    if len(dirs.offs) != len(dirs.flags):
+        raise ValueError("ShiftDirs offs and flags differ in length")
+    if len(dirs.offs) > MAX_DIRS:
+        raise ValueError(f"{len(dirs.offs)} directions exceed the shift "
+                         f"kernels' {MAX_DIRS}")
+    for off, flags in zip(dirs.offs, dirs.flags):
+        if flags & WRAP and not 0 <= off < n:
+            raise ValueError(f"wrap offset {off} outside [0, {n})")
+        if flags & (MASK_LEFT | MASK_RIGHT) and dirs.cols < 1:
+            raise ValueError("a column mask needs cols >= 1")
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+@functools.lru_cache(maxsize=256)
+def _shift_plan(dirs: ShiftDirs, n: int, fused: bool,
+                max_tile: int = SHIFT_TILE):
+    """(ctypes int64 words, count) of shift_flood.cu's Plan for one table
+    at n nodes, checked and built once per (table, n) so that a launch
+    repeats neither; raises ValueError for a table the kernels cannot
+    take.  The tile is the largest (at most ``max_tile``, at most n)
+    whose stage — every window at its 16-byte phase, and the received
+    tile in the fused round — fits :data:`SHIFT_STAGES` times in shared
+    memory.  Layout: tile, stages, stage words, received's offset, cols,
+    windows, directions, 0; per window lo, hi - lo, wrap, offset; per
+    direction window, offset - lo, mask flags."""
+    _check_dirs(dirs, n)
+    tile = min(max_tile, n)
+    while True:
+        windows = shift_windows(dirs, n, tile)
+        sizes = [_round4(w.hi - w.lo + tile + 3) for w in windows]
+        if fused:
+            sizes.append(_round4(tile + 3))
+        if SHIFT_STAGES * 4 * sum(sizes) <= SHIFT_SMEM_BYTES or tile == 1:
+            break
+        tile = (tile + 1) // 2
+    at = [sum(sizes[:k]) for k in range(len(sizes))]
+    words = [tile, SHIFT_STAGES, sum(sizes), at[-1] if fused else -1,
+             dirs.cols, len(windows), len(dirs.offs), 0]
+    for k, win in enumerate(windows):
+        words += [win.lo, win.hi - win.lo, int(win.wrap), at[k]]
+    where = {d: k for k, win in enumerate(windows) for d in win.dirs}
+    for d, (off, flags) in enumerate(zip(dirs.offs, dirs.flags)):
+        k = where[d]
+        words += [k, signed_offset(off, flags, n) - windows[k].lo,
+                  flags & (MASK_LEFT | MASK_RIGHT)]
+    return (ctypes.c_int64 * len(words))(*words), len(words)
 
 
 # -- plain versions ------------------------------------------------------
@@ -250,10 +353,9 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_tree_flood_round": [ptr, ptr, ptr, i64, i64, i32, ptr],
                 "gg_col_popcount": [ptr, ptr, i64, i64, ptr]},
             "shift_flood": {
-                "gg_shift_exchange": [ptr, ptr, i64, i64, ptr, ptr, i32,
-                                      i64, ptr],
-                "gg_shift_flood_round": [ptr, ptr, ptr, i64, i64, ptr, ptr,
-                                         i32, i64, ptr]},
+                "gg_shift_exchange": [ptr, ptr, i64, i64, ptr, i32, ptr],
+                "gg_shift_flood_round": [ptr, ptr, ptr, i64, i64, ptr, i32,
+                                         ptr]},
             "gather_flood": {
                 "gg_gather_or": [ptr, ptr, ptr, ptr, i64, i64, i64, i32,
                                  ptr],
@@ -397,25 +499,6 @@ def col_popcount(x: torch.Tensor, node_major: bool = False) -> torch.Tensor:
     return out
 
 
-def _check_dirs(dirs: ShiftDirs, n: int) -> None:
-    if len(dirs.offs) != len(dirs.flags):
-        raise ValueError("ShiftDirs offs and flags differ in length")
-    if len(dirs.offs) > MAX_DIRS:
-        raise ValueError(f"{len(dirs.offs)} directions exceed the shift "
-                         f"kernels' {MAX_DIRS}")
-    for off, flags in zip(dirs.offs, dirs.flags):
-        if flags & WRAP and not 0 <= off < n:
-            raise ValueError(f"wrap offset {off} outside [0, {n})")
-        if flags & (MASK_LEFT | MASK_RIGHT) and dirs.cols < 1:
-            raise ValueError("a column mask needs cols >= 1")
-
-
-def _dir_args(dirs: ShiftDirs):
-    k = len(dirs.offs)
-    return ((ctypes.c_int64 * k)(*dirs.offs),
-            (ctypes.c_int32 * k)(*dirs.flags), k, dirs.cols)
-
-
 def shift_exchange(payload: torch.Tensor, dirs: ShiftDirs) -> torch.Tensor:
     """inbox[:, i] = OR over the directions of ``dirs`` (see
     :class:`ShiftDirs`) of the shifted payload."""
@@ -424,12 +507,12 @@ def shift_exchange(payload: torch.Tensor, dirs: ShiftDirs) -> torch.Tensor:
         return shift_exchange_plain(payload, dirs)
     w, n = payload.shape
     _check_words(w)
-    _check_dirs(dirs, n)
+    plan = _shift_plan(dirs, n, False)
     inbox = torch.empty_like(payload)
     if payload.numel():
         _launch("shift_exchange", _lib("shift_flood").gg_shift_exchange,
                 payload.device, payload.data_ptr(), inbox.data_ptr(), w, n,
-                *_dir_args(dirs))
+                *plan)
     return inbox
 
 
@@ -445,12 +528,12 @@ def shift_flood_round(received: torch.Tensor, frontier: torch.Tensor,
                                        dirs)
     w, n = received.shape
     _check_words(w)
-    _check_dirs(dirs, n)
+    plan = _shift_plan(dirs, n, True)
     if received.numel():
         _launch("shift_flood_round",
                 _lib("shift_flood").gg_shift_flood_round, received.device,
                 received.data_ptr(), frontier.data_ptr(),
-                frontier_next.data_ptr(), w, n, *_dir_args(dirs))
+                frontier_next.data_ptr(), w, n, *plan)
     return frontier_next
 
 

@@ -17,6 +17,10 @@ from gossip_glomers_tpu_torch.tpu_sim import (broadcast, kernels, structured,
                                               timing)
 
 SHAPES = [(w, n) for w in (1, 8, 32, 128) for n in (1, 5, 4097, (1 << 16) + 3)]
+# the shift kernels' edge cases: a row one node short of a tile, exactly
+# one, one over, two and a ragged third (odd n at W = 128)
+TILE = kernels.SHIFT_TILE
+SHIFT_EDGES = [(1, TILE - 1), (8, TILE), (1, TILE + 1), (128, 2 * TILE + 3)]
 
 
 @pytest.fixture
@@ -81,25 +85,39 @@ def test_cuda_sim_matches_cpu_sim(cuda_device, n, nv, sync_every, srv):
 
 
 def _shift_modes(n):
-    """K1's modes at n nodes: circulant (4 strides), ring, line, and grids
-    whose last row is ragged."""
+    """K1's modes at n nodes: circulant (4 strides), ring, line, grids
+    whose last row is ragged, and a circulant whose +(T/2 + 3) window
+    crosses n in the middle of a tile."""
     return [("circulant", {"strides": topology.expander_strides(n, 8, 0)}),
             ("ring", {}), ("line", {}), ("grid", {}),
-            ("grid", {"cols": max(1, topology.grid_cols(n) - 1)})]
+            ("grid", {"cols": max(1, topology.grid_cols(n) - 1)}),
+            ("circulant", {"strides": [1, TILE // 2 + 3]})]
+
+
+def _at_offset(x, offset):
+    """A contiguous copy of x that starts ``offset`` words into its
+    allocation (offset 1: 4 bytes, off the 16-byte grid)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,n", SHAPES)
-def test_cuda_shift_kernels_match_plain(cuda_device, w, n):
-    rec = _bits((w, n), 3 * n + w, cuda_device)
-    fr = _bits((w, n), 3 * n + w + 1, cuda_device)
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("w,n", SHAPES + SHIFT_EDGES)
+def test_cuda_shift_kernels_match_plain(cuda_device, w, n, offset):
+    rec = _at_offset(_bits((w, n), 3 * n + w, cuda_device), offset)
+    fr = _at_offset(_bits((w, n), 3 * n + w + 1, cuda_device), offset)
+    assert (fr.data_ptr() % 16 == 4) == (offset == 1)
     before = dict(kernels.LAUNCHES)
     modes = _shift_modes(n)
     for topo, kw in modes:
         dirs = structured.shift_dirs(topo, n, **kw)
         assert torch.equal(kernels.shift_exchange(fr, dirs),
                            kernels.shift_exchange_plain(fr, dirs)), topo
-        got_rec, got_nxt = rec.clone(), torch.empty_like(fr)
+        got_rec = _at_offset(rec, offset)
+        got_nxt = _at_offset(torch.empty_like(fr), offset)
         kernels.shift_flood_round(got_rec, fr, got_nxt, dirs)
         want_rec, want_nxt = rec.clone(), torch.empty_like(fr)
         kernels.shift_flood_round_plain(want_rec, fr, want_nxt, dirs)
