@@ -200,7 +200,9 @@ def _edge_live(t: int, row_ids: torch.Tensor, nbrs: torch.Tensor,
 def _gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
                live: torch.Tensor | None) -> torch.Tensor:
     """inbox[i] = OR over delivering edges d of payload[nbrs[i, d]]
-    (``live=None``: the edges with ``nbrs >= 0``)."""
+    (``live=None``: the edges with ``nbrs >= 0``).  The reference's
+    ``_gather_or``; ``_round`` runs the fused ``gather_flood_round``
+    instead, and the faulted rounds' dup and delay paths will call this."""
     return kernels.gather_or(payload, nbrs, live)
 
 
@@ -224,7 +226,9 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
     partition window the edge mask is never built: the kernels deliver
     exactly the edges with ``nbrs >= 0``.  The sync diff runs on sync
     rounds only (``t`` is a host int), which leaves the ledger as the
-    reference's every-round diff masked off elsewhere."""
+    reference's every-round diff masked off elsewhere.  The delivery
+    (``new = gather_or(payload) & ~received``, ``received | new``) is one
+    fused launch, :func:`.kernels.gather_flood_round`."""
     t = state.t
     is_sync = t % sync_every == 0 and t > 0
     rec0, fr0 = state.received, state.frontier
@@ -252,8 +256,8 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
             srv = (srv + wrap32(d2.sum())
                    + 2 * _sync_diff_pc(payload, rec0, nbrs, live))
         srv = wrap32(srv)
-    new = _gather_or(payload, nbrs, live) & ~rec0
-    return BroadcastState(received=rec0 | new, frontier=new, t=t + 1,
+    new, received = kernels.gather_flood_round(payload, rec0, nbrs, live)
+    return BroadcastState(received=received, frontier=new, t=t + 1,
                           msgs=wrap32(state.msgs + sent), srv_msgs=srv)
 
 

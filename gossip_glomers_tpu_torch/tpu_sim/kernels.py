@@ -15,7 +15,9 @@ what bounds them on an H100 and what the design does about it):
   driven by a :class:`ShiftDirs` direction table, whose tiles stage the
   source windows of :func:`shift_windows` in shared memory;
 - ``gather_flood.cu``, the node-major adjacency gather:
-  :func:`gather_or`, :func:`sync_diff_pc` and the node-major mode of
+  :func:`gather_or`, :func:`gather_flood_round` (one fused gather round,
+  ``new = gather_or(payload) & ~rec``, ``rec_next = rec | new``, out of
+  place), :func:`sync_diff_pc` and the node-major mode of
   :func:`col_popcount`.
 
 Bitsets are ``torch.int32`` tensors holding the reference's uint32 words
@@ -61,13 +63,16 @@ MASK32 = 0xFFFFFFFF
 SHIFT_TILE = 2048
 SHIFT_STAGES = 2
 SHIFT_SMEM_BYTES = 227 * 1024 - 1024
+MAX_NODES = (1 << 31) - 1    # gather_flood.cu's node indices are int32
+GATHER_THREADS = 256         # gather_flood.cu's kThreads
 
 # direction flags of a ShiftDirs table (shift_flood.cu)
 WRAP, MASK_LEFT, MASK_RIGHT = 1, 2, 4
 
 LAUNCHES = {"tree_exchange": 0, "tree_flood_round": 0, "col_popcount": 0,
             "col_popcount_nm": 0, "shift_exchange": 0,
-            "shift_flood_round": 0, "gather_or": 0, "sync_diff_pc": 0}
+            "shift_flood_round": 0, "gather_or": 0, "sync_diff_pc": 0,
+            "gather_flood_round": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -274,6 +279,13 @@ def gather_or_plain(payload: torch.Tensor, nbrs: torch.Tensor,
     return out
 
 
+def gather_flood_round_plain(payload: torch.Tensor, rec: torch.Tensor,
+                             nbrs: torch.Tensor,
+                             live: torch.Tensor | None = None):
+    new = gather_or_plain(payload, nbrs, live) & ~rec
+    return new, rec | new
+
+
 def sync_diff_pc_plain(payload: torch.Tensor, recv: torch.Tensor,
                        nbrs: torch.Tensor,
                        live: torch.Tensor | None = None) -> torch.Tensor:
@@ -361,7 +373,10 @@ def _lib(name: str) -> ctypes.CDLL:
                                  ptr],
                 "gg_sync_diff_pc": [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                                     i32, ptr],
-                "gg_col_popcount_nm": [ptr, ptr, i64, i64, ptr]},
+                "gg_gather_flood_round": [ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                                          i64, i64, i32, ptr],
+                "gg_col_popcount_nm": [ptr, ptr, i64, i64, ptr],
+                "gg_gather_nodes_per_block": [i64, i32]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -549,6 +564,8 @@ def _check_gather(payload: torch.Tensor, nbrs: torch.Tensor,
     if payload.shape[0] < 1 or nbrs.shape[1] < 1:
         raise ValueError("the gather needs at least one payload row and "
                          "one degree column")
+    if max(payload.shape[0], nbrs.shape[0]) > MAX_NODES:
+        raise ValueError(f"the gather takes at most {MAX_NODES} nodes")
     if live is not None and (live.dtype != torch.bool
                              or live.shape != nbrs.shape
                              or not live.is_contiguous()):
@@ -561,6 +578,15 @@ def _check_gather(payload: torch.Tensor, nbrs: torch.Tensor,
                              f"({nbrs.shape[0]}, {payload.shape[1]})")
     xs = [payload, nbrs] + [x for x in (live, recv) if x is not None]
     return _on_cpu(*xs)
+
+
+def gather_nodes_per_block(w: int) -> int:
+    """Nodes one block of the gather kernels serves at W words a node on
+    16-byte aligned rows: a lane per 16-byte vector (W % 4 == 0) or per
+    word, up to a warp per node row.  The kernels' launch geometry, which
+    ``gg_gather_nodes_per_block`` reports from the library itself."""
+    units = w // 4 if w % 4 == 0 else w
+    return GATHER_THREADS // min(32, 1 << (units - 1).bit_length())
 
 
 def gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
@@ -582,6 +608,27 @@ def gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
     return inbox
 
 
+def gather_flood_round(payload: torch.Tensor, rec: torch.Tensor,
+                       nbrs: torch.Tensor,
+                       live: torch.Tensor | None = None):
+    """One node-major gather round, fused: ``new = gather_or(payload,
+    nbrs, live) & ~rec`` and ``rec_next = rec | new``, both new tensors
+    (out of place: on sync rounds ``payload`` is ``rec``).  Returns
+    ``(new, rec_next)``."""
+    if _check_gather(payload, nbrs, live, rec):
+        return gather_flood_round_plain(payload, rec, nbrs, live)
+    n, d = nbrs.shape
+    w = payload.shape[1]
+    new, rec_next = torch.empty_like(rec), torch.empty_like(rec)
+    if new.numel():
+        _launch("gather_flood_round",
+                _lib("gather_flood").gg_gather_flood_round, payload.device,
+                payload.data_ptr(), rec.data_ptr(), nbrs.data_ptr(),
+                None if live is None else live.data_ptr(), new.data_ptr(),
+                rec_next.data_ptr(), n, w, payload.shape[0], d)
+    return new, rec_next
+
+
 def sync_diff_pc(payload: torch.Tensor, recv: torch.Tensor,
                  nbrs: torch.Tensor,
                  live: torch.Tensor | None = None) -> torch.Tensor:
@@ -592,10 +639,12 @@ def sync_diff_pc(payload: torch.Tensor, recv: torch.Tensor,
         return sync_diff_pc_plain(payload, recv, nbrs, live)
     n, d = nbrs.shape
     w = payload.shape[1]
-    out = torch.zeros(1, dtype=torch.int32, device=payload.device)
+    # the kernel adds uint32 words into the low half of a zeroed int64
+    # (little-endian), which then holds the sum mod 2^32 as it is
+    out = torch.zeros((), dtype=torch.int64, device=payload.device)
     if recv.numel():
         _launch("sync_diff_pc", _lib("gather_flood").gg_sync_diff_pc,
                 payload.device, payload.data_ptr(), recv.data_ptr(),
                 nbrs.data_ptr(), None if live is None else live.data_ptr(),
                 out.data_ptr(), n, w, payload.shape[0], d)
-    return out[0].to(torch.int64) & MASK32
+    return out

@@ -21,6 +21,8 @@ SHAPES = [(w, n) for w in (1, 8, 32, 128) for n in (1, 5, 4097, (1 << 16) + 3)]
 # one, one over, two and a ragged third (odd n at W = 128)
 TILE = kernels.SHIFT_TILE
 SHIFT_EDGES = [(1, TILE - 1), (8, TILE), (1, TILE + 1), (128, 2 * TILE + 3)]
+# the row widths (words a node) of the gather kernels' block-edge cases
+GATHER_EDGE_WORDS = (1, 3, 8, 32, 128, 256)
 
 
 @pytest.fixture
@@ -158,13 +160,94 @@ def test_cuda_gather_kernels_match_plain(cuda_device, w, n):
                            kernels.gather_or_plain(payload, nbrs, lv))
         assert int(kernels.sync_diff_pc(payload, recv, nbrs, lv)) \
             == int(kernels.sync_diff_pc_plain(payload, recv, nbrs, lv))
+        got = kernels.gather_flood_round(payload, recv, nbrs, lv)
+        want = kernels.gather_flood_round_plain(payload, recv, nbrs, lv)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(kernels.col_popcount(payload, node_major=True),
                        kernels.col_popcount_plain(payload, node_major=True))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["gather_or"] == before["gather_or"] + 2
     assert kernels.LAUNCHES["sync_diff_pc"] == before["sync_diff_pc"] + 2
+    assert kernels.LAUNCHES["gather_flood_round"] \
+        == before["gather_flood_round"] + 2
     assert kernels.LAUNCHES["col_popcount_nm"] \
         == before["col_popcount_nm"] + 1
+
+
+def _gather_edge_cases():
+    """(w, n, d): per W, the gather kernels' block edges — a block's nodes
+    (kernels.gather_nodes_per_block) less one, exactly, one more, and two
+    and a ragged third — at degrees 1, 3 and 8."""
+    cases = []
+    for w in GATHER_EDGE_WORDS:
+        per_block = kernels.gather_nodes_per_block(w)
+        for n in (per_block - 1, per_block, per_block + 1,
+                  2 * per_block + 3):
+            cases += [(w, n, d) for d in (1, 3, 8)]
+    return cases
+
+
+@pytest.mark.cuda
+def test_cuda_gather_geometry_matches_kernel(cuda_device):
+    # the edge cases below sit on the block edges only while the host's
+    # copy of the launch geometry is the library's
+    lib = kernels._lib("gather_flood")
+    for w in GATHER_EDGE_WORDS + (2, 4, 5, 64, 1000):
+        assert lib.gg_gather_nodes_per_block(w, 1) \
+            == kernels.gather_nodes_per_block(w), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("w,n,d", _gather_edge_cases())
+def test_cuda_gather_edges_match_plain(cuda_device, w, n, d, offset):
+    # the three gather kernels at their tile edges, with and without the
+    # mask, with payloads of more and fewer rows than nodes (indices past
+    # them clipped), on views 4 bytes into their allocation (offset 1:
+    # index table, payload, live and recv)
+    before = dict(kernels.LAUNCHES)
+    calls = 0
+    for n_src in (n, n + 37, max(1, n // 2)):
+        rng = np.random.default_rng(n * d + n_src)
+        nbrs = torch.from_numpy(
+            rng.integers(-1, n_src + 3, (n, d)).astype(np.int32)).to(
+                cuda_device)
+        live = torch.from_numpy(rng.random((n, d)) < 0.7).to(cuda_device)
+        payload = _bits((n_src, w), n_src, cuda_device)
+        recv = _bits((n, w), n_src + 1, cuda_device)
+        views = (_at_offset(payload, offset), _at_offset(recv, offset),
+                 _at_offset(nbrs, offset), _at_offset(live, 4 * offset))
+        assert (views[0].data_ptr() % 16 == 4) == (offset == 1)
+        for lv, lk in ((None, None), (live, views[3])):
+            assert torch.equal(kernels.gather_or(views[0], views[2], lk),
+                               kernels.gather_or_plain(payload, nbrs, lv))
+            assert int(kernels.sync_diff_pc(views[0], views[1], views[2],
+                                            lk)) \
+                == int(kernels.sync_diff_pc_plain(payload, recv, nbrs, lv))
+            got = kernels.gather_flood_round(views[0], views[1], views[2], lk)
+            want = kernels.gather_flood_round_plain(payload, recv, nbrs, lv)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(views[1], recv)            # out of place
+            calls += 1
+    torch.cuda.synchronize()
+    for name in ("gather_or", "sync_diff_pc", "gather_flood_round"):
+        assert kernels.LAUNCHES[name] == before[name] + calls
+
+
+@pytest.mark.cuda
+def test_cuda_gather_flood_round_on_sync_rounds_is_one_hop(cuda_device):
+    # payload IS rec on sync rounds: the fused round writes new buffers,
+    # so no bit travels two hops in one launch
+    n = 4097
+    nbrs = torch.from_numpy(topology.random_regular(n, 8, seed=3)).to(
+        cuda_device)
+    rec = _bits((n, 3), 5, cuda_device)
+    snapshot = rec.clone()
+    new, rec_next = kernels.gather_flood_round(rec, rec, nbrs)
+    want = kernels.gather_flood_round_plain(snapshot, snapshot, nbrs)
+    assert torch.equal(new, want[0]) and torch.equal(rec_next, want[1])
+    assert torch.equal(rec, snapshot)
 
 
 def _run_both(make_sim, inject):

@@ -111,6 +111,38 @@ def test_gather_or_and_sync_diff_match_reference(topology, w):
              lj))
 
 
+@pytest.mark.parametrize("n_src", (N, N + 37))
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("w", (1, 3, 8))
+def test_gather_flood_round_matches_reference(w, masked, n_src):
+    # the fused round: new = _gather_or(payload, nbrs, live) & ~rec and
+    # rec | new, on -1-padded tables, with and without an edge mask, and
+    # with a payload covering more rows than nbrs
+    rng = np.random.default_rng(10 * w + masked)
+    nbrs = rng.integers(-1, n_src, (N, 5)).astype(np.int32)
+    live = (rng.integers(0, 2, nbrs.shape).astype(bool) if masked
+            else nbrs >= 0)
+    payload, rec = _u32((n_src, w), 7), _u32((N, w), 8)
+    inbox = np.asarray(jax.jit(jbc._gather_or)(
+        jnp.asarray(payload), jnp.asarray(nbrs), jnp.asarray(live)))
+    want_new = inbox & ~rec
+    before = dict(kernels.LAUNCHES)
+    new, rec_next = kernels.gather_flood_round(
+        _torch(payload), _torch(rec), torch.from_numpy(nbrs),
+        torch.from_numpy(live) if masked else None)
+    np.testing.assert_array_equal(_bits(new), want_new)
+    np.testing.assert_array_equal(_bits(rec_next), rec | want_new)
+    assert kernels.LAUNCHES == before          # the CPU takes the plain one
+    # a sync round's payload is rec itself: out of place, one hop
+    new2, rec2 = kernels.gather_flood_round(
+        _torch(rec), _torch(rec), torch.from_numpy(nbrs[:, :3].copy()))
+    inbox2 = np.asarray(jax.jit(jbc._gather_or)(
+        jnp.asarray(rec), jnp.asarray(nbrs[:, :3]),
+        jnp.asarray(nbrs[:, :3] >= 0)))
+    np.testing.assert_array_equal(_bits(new2), inbox2 & ~rec)
+    np.testing.assert_array_equal(_bits(rec2), rec | (inbox2 & ~rec))
+
+
 def test_sync_diff_wraps_mod_2_32():
     # every edge of an all-ones payload against empty receivers pushes 32
     # bits a word: 3 * 2^13 rows x 32 edges x 256 words x 32 bits =
@@ -123,6 +155,14 @@ def test_sync_diff_wraps_mod_2_32():
     assert int(kernels.sync_diff_pc(payload[:4, :1].contiguous(),
                                     recv[:4, :1].contiguous(),
                                     nbrs[:4, :3].contiguous())) == 4 * 3 * 32
+
+
+@pytest.mark.parametrize("w,per_block", ((1, 256), (3, 64), (8, 128),
+                                         (32, 32), (128, 8), (256, 8)))
+def test_gather_nodes_per_block(w, per_block):
+    # a 256-thread block gives each node row a lane per 16-byte vector
+    # (W % 4 == 0) or per word, rounded up to a power of two, at most 32
+    assert kernels.gather_nodes_per_block(w) == per_block
 
 
 @pytest.mark.parametrize("srv", (False, True))

@@ -63,7 +63,9 @@ def test_flood_round_matches_one_reference_flood_step(w, n):
     loop = jbc._flood_loop(lambda p: jst.tree_exchange(p, 4), 1)
     want_rec, want_fr = loop(jnp.asarray(rec), jnp.asarray(fr))
 
-    rec_t, fr_t = _torch(rec), _torch(fr)
+    # a copy: rec_t is updated in place, and jnp.asarray may alias rec's
+    # buffer for a computation that is still running
+    rec_t, fr_t = _torch(rec.copy()), _torch(fr)
     nxt = torch.empty_like(fr_t)
     out = kernels.tree_flood_round(rec_t, fr_t, nxt)
     assert out is nxt

@@ -4,6 +4,7 @@ run their plain versions) on a machine without a CUDA toolkit."""
 
 import ast
 import importlib
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +88,51 @@ def test_unported_modes_raise():
     state, _ = sim.stage(broadcast.make_inject(8, 4))
     with pytest.raises(ValueError, match="ledger is off"):
         sim.server_msgs(state)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_device_ms_counts_only_the_named_kernel():
+    # a sync_diff_pc call launches a zero fill, the kernel, a cast and a
+    # mask: its device time is the kernel's span alone, not the mean of
+    # the four
+    smoke = _chip_smoke()
+    spans = [
+        {"name": "void at::native::vectorized_elementwise_kernel<4, "
+                 "at::native::FillFunctor<int>>(int, ...)", "us": 2.0},
+        {"name": "void (anonymous namespace)::sync_diff_pc_kernel<false, 8>"
+                 "((anonymous namespace)::Args, (anonymous namespace)::Plan)",
+         "us": 70.0},
+        {"name": "void at::native::unrolled_elementwise_kernel<copy>", "us": 3.0},
+        {"name": "void at::native::vectorized_elementwise_kernel<"
+                 "BitwiseAndFunctor>", "us": 1.0}]
+    assert smoke.kernel_ms(spans, "sync_diff_pc_kernel") == pytest.approx(
+        0.070, abs=1e-12)
+    assert smoke.kernel_ms(spans * 3, "sync_diff_pc_kernel") == \
+        pytest.approx(0.070, abs=1e-12)
+    # whole names: col_popcount_kernel is not col_popcount_nm_kernel
+    pcs = [{"name": "(anonymous namespace)::col_popcount_nm_kernel(...)",
+            "us": 4.0},
+           {"name": "(anonymous namespace)::col_popcount_kernel(...)",
+            "us": 9.0}]
+    assert smoke.kernel_ms(pcs, "col_popcount_kernel") == pytest.approx(
+        0.009, abs=1e-12)
+    with pytest.raises(AssertionError, match="no device span"):
+        smoke.kernel_ms(spans, "gather_or_kernel")
+    # every kernel the smoke times names its own __global__, and the
+    # profile check's pattern knows it
+    for name, (source, _, glob) in smoke.KERNELS.items():
+        assert name in kernels.LAUNCHES
+        assert glob in (ROOT / "gossip_glomers_tpu_torch" / "csrc"
+                        / source).read_text()
+        assert smoke.PORT_KERNEL.search(f"void {glob}<true>(int)")
+    assert set(smoke.KERNELS) == set(kernels.LAUNCHES)
 
 
 def test_wrappers_import_and_run_without_nvcc(monkeypatch, tmp_path):
