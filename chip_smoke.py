@@ -18,7 +18,11 @@ flood at 1,048,576 nodes, on every topology the port runs:
    ``sync_diff_pc``) with and without an edge mask over -1-padded
    tables, at their block edges, at degrees 1, 3 and 8, with more and
    fewer payload rows than nodes and on 4-byte-offset views of every
-   operand — and each one's median time at the main path's shapes, with
+   operand; the fault kernels (``fault_coins``, ``faulted_gather_round``)
+   with every loss/dup stream combination, with and without a partition
+   mask, on whole tables and on slabs of rows off the block grid, on
+   4-byte-offset views, at the same edges and at (2^20, 1) and (2^20,
+   128) — and each one's median time at the main path's shapes, with
    its bound and the share of it reached (``bound_share`` = bound /
    device time).
 3. ``w1_tree``: the 4-ary tree with 32 values (W = 1 word per node), the
@@ -41,9 +45,20 @@ flood at 1,048,576 nodes, on every topology the port runs:
 8. ``w1_random_regular_partitioned``: the same graph under one half/half
    partition window over rounds [2, 24), sync waves every 16 rounds, the
    server ledger on, run to convergence and held against the CPU path.
-9. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
-   run to convergence with the server ledger on, each held against the
-   CPU path (coverage, not timing).
+9. ``w1_random_regular_nemesis``: the same graph under the full
+   Maelstrom nemesis (benchmarks/fault_sweep.py's: a crash window over
+   rounds [2, 12) of every 97th node, loss 0.1 and dup 0.05 until round
+   13, seed 0), sync waves every 4 rounds, server ledger off, through the
+   faulted gather round: run to convergence host-stepped (not before the
+   faults clear), then the fixed-trip runner timed; held against the CPU
+   path bit for bit.
+10. ``w1_random_regular_nemesis_accounted``: crash + loss (no dup, so
+    the server ledger is on) under the partitioned phase's window, sync
+    waves every 16 rounds, run to convergence and held against the CPU
+    path, ``srv_msgs`` included.
+11. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
+    run to convergence with the server ledger on, each held against the
+    CPU path (coverage, not timing).
 
 Device times (``device_ms``, ``device_busy_ms``) come from
 torch.profiler and count only when it saw every port kernel launch of
@@ -110,6 +125,10 @@ KERNELS = {
                      "sync_diff_pc_kernel"),
     "gather_flood_round": ("gather_flood.cu", JAX_PKG + "broadcast.py:579",
                            "gather_flood_round_kernel"),
+    "fault_coins": ("fault_flood.cu", JAX_PKG + "broadcast.py:162",
+                    "fault_coins_kernel"),
+    "faulted_gather_round": ("fault_flood.cu", JAX_PKG + "broadcast.py:557",
+                             "faulted_gather_round_kernel"),
 }
 # kernels the main path does not launch: the gather round runs the fused
 # gather_flood_round; gather_or stays the reference _gather_or's
@@ -121,7 +140,8 @@ GATHER_SHAPES = [(1, N_NODES), (W128_VALUES // 32, N_NODES)]
 # the profiler's names of the port's kernels (csrc/*.cu __global__s)
 PORT_KERNEL = re.compile(r"(tree_exchange|tree_flood_round|col_popcount|"
                          r"col_popcount_nm|shift_tiles|gather_or|"
-                         r"sync_diff_pc|gather_flood_round)_kernel")
+                         r"sync_diff_pc|gather_flood_round|fault_coins|"
+                         r"faulted_gather_round)_kernel")
 LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 
 
@@ -341,6 +361,63 @@ def gather_inputs(w: int, n: int, seed: int, device, topology):
             torch.from_numpy(rng.random(nbrs.shape) < 0.7).to(device))
 
 
+# the fault coins' streams in the checks: (loss, dup) active, and the
+# rates, round and seed their hashes take
+FAULT_STREAMS = ((False, False), (True, False), (False, True), (True, True))
+FAULT_COINS = {"t": 7, "seed": 0x9E3779B9 ^ 12345,
+               "loss_num": int(0.3 * 2**32), "dup_num": int(0.2 * 2**32)}
+
+
+def fault_case(w: int, n: int, d: int, n_src: int, seed: int, device):
+    """A fault-kernel case from ``seed``: :func:`gather_case`'s operands
+    (payload, recv, nbrs, live) and an (n_src, W) received set whose rows
+    the dup edges read, an (n_src,) up vector with a tenth of the nodes
+    down."""
+    import numpy as np
+    import torch
+
+    payload, rec, nbrs, live = gather_case(w, n, d, n_src, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    received = torch.randint(-(1 << 31), 1 << 31, (n_src, w),
+                             dtype=torch.int32, device=device, generator=gen)
+    up = torch.from_numpy(
+        np.random.default_rng(seed + 1).random(n_src) >= 0.1).to(device)
+    return payload, received, rec, nbrs, live, up
+
+
+def check_faults(kernels, note, case, lo: int = 0, hi: int | None = None,
+                 offset: int = 0) -> None:
+    """``fault_coins`` and ``faulted_gather_round`` against their plain
+    versions on one case: every (loss, dup) stream combination, with and
+    without the partition mask, over the destination rows [lo, hi) (the
+    slab's views: rows of the table, node ids from ``lo``), with every
+    operand ``offset`` words (4 bytes) into its allocation."""
+    payload, received, rec, nbrs, live, up = case
+    hi = nbrs.shape[0] if hi is None else hi
+    nb, lv, rc = nbrs[lo:hi], live[lo:hi], rec[lo:hi]
+    views = {name: at_offset(x, offset * (4 if x.element_size() == 1
+                                          else 1))
+             for name, x in (("nb", nb), ("lv", lv), ("rc", rc),
+                             ("up", up), ("payload", payload),
+                             ("received", received))}
+    for loss, dup in FAULT_STREAMS:
+        for masked in (False, True):
+            kw = dict(FAULT_COINS, loss=loss, dup=dup, out_ok=True, row0=lo)
+            flags = kernels.fault_coins(views["nb"], views["up"],
+                                        live=views["lv"] if masked else None,
+                                        **kw)
+            want = kernels.fault_coins_plain(nb, up, live=lv if masked
+                                             else None, **kw)
+            note("fault_coins", (flags, want))
+            fl = at_offset(want, 4 * offset)
+            got = kernels.faulted_gather_round(
+                views["payload"], views["received"] if dup else None,
+                views["rc"], views["nb"], fl)
+            note("faulted_gather_round", *zip(
+                got, kernels.faulted_gather_round_plain(
+                    payload, received if dup else None, rc, nb, want)))
+
+
 def check_kernels(kernels, structured, topology, device) -> dict:
     """Every kernel, in every mode, against its plain version on the card;
     returns the per-kernel max |kernel - plain| over all shapes (must be
@@ -380,10 +457,23 @@ def check_kernels(kernels, structured, topology, device) -> dict:
                 != kernels.gather_nodes_per_block(w):
             raise AssertionError(f"gather geometry at W = {w}: the library "
                                  "and kernels.gather_nodes_per_block differ")
+    flib = kernels._lib("fault_flood")
+    for w in (1, 3, 8, 32, 128, 256):
+        if flib.gg_faulted_nodes_per_block(w, 1) \
+                != kernels.gather_nodes_per_block(w):
+            raise AssertionError(f"faulted_gather_round's geometry at W = "
+                                 f"{w} is not gather_nodes_per_block's")
     for w, n, d, n_src in gather_edges(kernels.gather_nodes_per_block):
         case = gather_case(w, n, d, n_src, n + d, device)
         for offset in (0, 1):
             check_gather(kernels, note, *case, offset=offset)
+        # node ids index up: the faulted round's payload covers every node
+        case = fault_case(w, n, d, max(n, n_src), n + d, device)
+        b = kernels.gather_nodes_per_block(w)
+        lo = min(b // 2 + 1, n - 1)           # a slab off the block grid
+        for lo, hi, offset in ((0, n, 0), (0, n, 1),
+                               (lo, max(n - 3, lo + 1), 1)):
+            check_faults(kernels, note, case, lo, hi, offset)
     for w, n in CHECK_SHAPES + MAIN_SHAPES:
         rec, fr = bits(w, n), bits(w, n)
         note("tree_exchange", (kernels.tree_exchange(fr, BRANCHING),
@@ -404,6 +494,12 @@ def check_kernels(kernels, structured, topology, device) -> dict:
             kernels.col_popcount(payload, node_major=True),
             kernels.col_popcount_plain(payload, node_major=True)))
         del payload, recv, nbrs, live
+        if (w, n) in GATHER_SHAPES:
+            case = fault_case(w, n, DEGREE, n, n + w, device)
+            check_faults(kernels, note, case)
+            if w == 1:          # an unaligned slab of 4-byte-offset views
+                check_faults(kernels, note, case, 1001, n - 77, 1)
+            del case
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     bad = {k: v for k, v in err.items() if v != 0}
@@ -411,6 +507,18 @@ def check_kernels(kernels, structured, topology, device) -> dict:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"(tolerance 0): {bad}")
     return err
+
+
+def nemesis_spec(faults, n: int, dup: bool):
+    """Config 4b's full nemesis (benchmarks/fault_sweep.py's faulted-round
+    spec at this phase's rounds): a crash window over rounds [2, 12) of
+    every 97th node, loss 0.1 and, with ``dup``, dup 0.05 until round 13,
+    seed 0."""
+    kw = dict(n_nodes=n, seed=0, crash=((2, 12, tuple(range(0, n, 97))),),
+              loss_rate=0.1, loss_until=13)
+    if dup:
+        kw.update(dup_rate=0.05, dup_until=13)
+    return faults.NemesisSpec(**kw)
 
 
 def _timed(name, kern, plain, bound_ms_by) -> dict:
@@ -478,8 +586,18 @@ def time_kernels(kernels, structured, topology, device) -> dict:
     # the gather kernels at the main path's node-major (2^20, W), degree
     # 8, fault-free (no edge mask: every index >= 0 delivers), keyed
     # (W, N) like the rest
+    from gossip_glomers_tpu_torch.tpu_sim import broadcast, faults
+
     nbrs = torch.from_numpy(topology.random_regular(N_NODES, DEGREE,
                                                     seed=0)).to(device)
+    # the fault kernels at the nemesis phase's round 5: its crash window
+    # down, loss and dup active, the server ledger off
+    plan = nemesis_spec(faults, N_NODES, dup=True).compile(device)
+    up = faults.node_up(plan, 5, torch.arange(N_NODES, device=device))
+    coins = broadcast._coins(plan, 5, True, out_ok=False)
+    flags = kernels.fault_coins(nbrs, up, **coins)
+    n_send, n_del, n_dup = (int(((flags & bit) != 0).sum()) for bit in (
+        kernels.FLAG_SEND, kernels.FLAG_DEL, kernels.FLAG_DUP))
     for w, n in GATHER_SHAPES:
         payload, recv, _, _ = gather_inputs(w, n, 2, device, topology)
         edges, words = n * DEGREE, n * w
@@ -501,6 +619,25 @@ def time_kernels(kernels, structured, topology, device) -> dict:
                 lambda: kernels.col_popcount(payload, node_major=True),
                 lambda: kernels.col_popcount_plain(payload, node_major=True),
                 bound(4 * words + 4 * n, 2 * words)),
+            # the table, up and the flag bytes; a hash of some 13 integer
+            # operations a drawn coin (loss on every sent edge, dup on
+            # every delivered one) and a few an edge besides.  Its W is
+            # the state's, not its own: the same work at both shapes
+            "fault_coins": (
+                lambda: kernels.fault_coins(nbrs, up, **coins),
+                lambda: kernels.fault_coins_plain(nbrs, up, **coins),
+                bound(4 * edges + n + edges,
+                      13 * (n_send + n_del) + 8 * edges)),
+            # payload and rec0 (also the dup rows), the table, the flags,
+            # new and rec_next: an OR a delivered or duplicated word, a
+            # popcount a duplicated one, and the merge
+            "faulted_gather_round": (
+                lambda: kernels.faulted_gather_round(payload, recv, recv,
+                                                     nbrs, flags),
+                lambda: kernels.faulted_gather_round_plain(
+                    payload, recv, recv, nbrs, flags),
+                bound(2 * 4 * words + 5 * edges + 2 * 4 * words + 8,
+                      (2 * (n_del + n_dup) + n_dup) * w + 3 * n * w)),
         }
         for name, (kern, plain, b) in runs.items():
             out[name][(w, n)] = _timed(name, kern, plain, b)
@@ -771,6 +908,102 @@ def gather_phases(modules, topology, device, launches: Launches) -> None:
     torch.cuda.empty_cache()
 
 
+NEMESIS_EXPECT = ("fault_coins", "faulted_gather_round", "col_popcount_nm")
+
+
+def nemesis_phases(modules, faults, topology, device,
+                   launches: Launches) -> None:
+    """Config 4b's graph under the Maelstrom nemesis through the faulted
+    gather round: crash + loss + dup with the server ledger off (run to
+    convergence host-stepped, then the fixed trip timed), and crash +
+    loss under config 4c's partition window with the ledger on; each
+    held against the CPU path bit for bit."""
+    import numpy as np
+    import torch
+
+    broadcast, timing = modules
+    nbrs = topology.random_regular(N_NODES, DEGREE, seed=0)
+    inject = broadcast.make_inject(N_NODES, W1_VALUES)
+
+    def sim(spec, device, **kw):
+        return broadcast.BroadcastSim(
+            nbrs, n_values=W1_VALUES, fault_plan=spec.compile(device),
+            device=device, **kw)
+
+    spec = nemesis_spec(faults, N_NODES, dup=True)
+    launches.start()
+    nem = sim(spec, device, sync_every=4, srv_ledger=False)
+    state, rounds = nem.run(inject)             # host-stepped discovery
+    # the crashed rows restart empty at round 12: no run converges before
+    # the last faulted round has run
+    if not nem.converged(state, nem.target_bits(inject)) \
+            or rounds < spec.clear_round:
+        raise AssertionError(f"w1_random_regular_nemesis: {rounds} rounds, "
+                             "not converged once the faults cleared at "
+                             f"round {spec.clear_round}")
+    tr = timing.TimedRun(nem, inject, rounds)
+    tr.prepare()
+    tr.sample(3)
+    wall_s, _, fixed = tr.finish()
+
+    def staged():
+        state0, _ = nem.stage(inject)
+        return lambda: nem.run_staged_fixed(state0, rounds, donate=True)
+
+    busy_ms = device_busy_ms(staged)
+    rec = {"phase": "w1_random_regular_nemesis", "n": N_NODES,
+           "degree": DEGREE, "n_values": W1_VALUES, "sync_every": 4,
+           "crash": [2, 12, "range(0, n, 97)"], "loss_rate": 0.1,
+           "dup_rate": 0.05, "until": 13, "clear_round": spec.clear_round,
+           "rounds": rounds, "wall_ms": wall_s * 1e3,
+           "samples_ms": [s * 1e3 for s in tr.samples],
+           "ms_per_round": wall_s / rounds * 1e3, "device_busy_ms": busy_ms,
+           "device_idle_share": idle_share(busy_ms, wall_s * 1e3),
+           "msgs": int(state.msgs)}
+    launches.stop(rec, NEMESIS_EXPECT)
+    cpu, cpu_rounds = sim(spec, "cpu", sync_every=4,
+                          srv_ledger=False).run(inject)
+    if not (cpu_rounds == rounds and same_state(state, cpu)
+            and same_state(fixed, cpu)):
+        raise AssertionError("w1_random_regular_nemesis: GPU run differs "
+                             "from the CPU path")
+    rec["cpu_match"] = True
+    emit(rec)
+    del nem, tr, state, fixed, cpu
+    torch.cuda.empty_cache()
+
+    spec = nemesis_spec(faults, N_NODES, dup=False)
+    group = np.random.default_rng(7).integers(0, 2, N_NODES).astype(
+        np.int8)[None, :]
+    parts = broadcast.Partitions.from_numpy([2], [24], group)
+    launches.start()
+    acct = sim(spec, device, sync_every=16, parts=parts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, rounds = acct.run_fused(inject)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if not acct.converged(state, acct.target_bits(inject)) \
+            or rounds <= max(24, spec.clear_round):
+        raise AssertionError(f"w1_random_regular_nemesis_accounted: {rounds}"
+                             " rounds, not converged after the faults")
+    rec = {"phase": "w1_random_regular_nemesis_accounted", "n": N_NODES,
+           "n_values": W1_VALUES, "sync_every": 16, "window": [2, 24],
+           "crash": [2, 12, "range(0, n, 97)"], "loss_rate": 0.1,
+           "until": 13, "rounds": rounds, "run_ms_host_clock": run_s * 1e3,
+           "msgs": int(state.msgs), "srv_msgs": acct.server_msgs(state)}
+    launches.stop(rec, NEMESIS_EXPECT + ("sync_diff_pc",))
+    cpu, cpu_rounds = sim(spec, "cpu", sync_every=16,
+                          parts=parts).run_fused(inject)
+    if not (cpu_rounds == rounds and same_state(state, cpu)):
+        raise AssertionError("w1_random_regular_nemesis_accounted: GPU run "
+                             "differs from the CPU path")
+    rec["cpu_match"] = True
+    emit(rec)
+    del acct, state, cpu
+    torch.cuda.empty_cache()
+
+
 def small_floods(modules, device, launches: Launches) -> None:
     """Grid, ring and line floods run to convergence with the server
     ledger on, on the card and on the CPU (coverage, not timing)."""
@@ -803,8 +1036,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from gossip_glomers_tpu_torch.parallel import topology
-    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, kernels,
-                                                  structured, timing)
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, faults,
+                                                  kernels, structured,
+                                                  timing)
 
     device = torch.device("cuda")
     modules = (broadcast, timing)
@@ -861,6 +1095,7 @@ def main() -> int:
                     ("shift_flood_round", "col_popcount"), modules, device,
                     launches)
     gather_phases(modules, topology, device, launches)
+    nemesis_phases(modules, faults, topology, device, launches)
     small_floods(modules, device, launches)
 
     for name, count in launches.total.items():

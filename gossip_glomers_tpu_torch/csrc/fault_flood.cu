@@ -1,0 +1,379 @@
+// Hand-written Hopper (sm_90a) kernels of the faulted node-major gather
+// round: the Maelstrom nemesis (crash/restart, lossy links, duplicate
+// delivery, membership) on the general-graph broadcast path.
+//
+// The adjacency is an (n, D) int32 table padded with -1 (a slab of rows of
+// the whole table: row i of the slab is the node row0 + i); bitsets are
+// (N, W) node-major, word c of node i at i * W + c.  One flag byte per edge
+// slot carries the round's per-edge coins from the first kernel to the
+// second:
+//
+//   SEND   = the edge is live (partition mask, else index >= 0) and both
+//            endpoints are up: a send is charged;
+//   DEL    = SEND and the loss coin of src -> dst did not drop it;
+//   DUP    = DEL and the dup coin of src -> dst fired;
+//   OUT_OK = the loss coin of dst -> src did not drop (the reply).
+//
+// - fault_coins:          the flag bytes of the slab's edges.
+//   Replaces: gossip_glomers_tpu/tpu_sim/broadcast.py _live_split
+//   (:162-182) with faults.py edge_drop / edge_dup (:529-554) and the
+//   srv ledger's out_ok (broadcast.py:534-538), XLA elementwise code over
+//   (N, D) masks.
+// - faulted_gather_round: inbox = OR_{DEL} payload[src] | OR_{DUP}
+//   received[src], new = inbox & ~rec, rec_next = rec | new (out of place),
+//   and the dup charge sum_{DUP} popc(received[src]) mod 2^32.
+//   Replaces: broadcast.py :475-483 (the dup ledger charge), :557-560 (the
+//   two masked gathers) and :579 (the merge).
+//
+// The coin is the reference's counter hash: h = mix32(src * 0xC2B2AE35 ^
+// dst * 0x27D4EB2F ^ t * 0x9E3779B9 ^ seed ^ salt), a drop iff h < loss_num
+// (loss salt 0x9E3779B9, dup salt 0x85EBCA6B), in uint32 arithmetic, over
+// the source index clipped into [0, n_src) as the reference clips it.
+//
+// Bound on the card.  fault_coins reads the index table (4 bytes an edge),
+// the mask when given, and writes a byte an edge; its one random access is
+// up[src], a byte per edge from a 1 MiB vector that sits in L2, so at
+// (2^20 nodes, D = 8) the card's random-sector rate, not bytes, sets its
+// floor (the gather kernels' probe: about 0.064 ms for 8.4 M random
+// reads; PERF.md).  faulted_gather_round is a gather round (gather_flood.cu)
+// that also reads the flag bytes and, on DUP edges, a second random row.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W under
+// the nemesis phase's coins: fault_coins 0.064 ms (bound 0.0128),
+// faulted_gather_round 0.068 ms at W = 1 and 1.93 ms at W = 128 (bounds
+// 0.0175 and 0.654).
+//
+// Design.  fault_coins: one thread per edge slot, a grid-stride loop; the
+// hashes are a few dozen integer operations an edge, far below the card's
+// rate.  faulted_gather_round: gather_flood.cu's lane groups and launch
+// geometry (a thread a node at W = 1, a lane per 16-byte vector of the row
+// when W % 4 == 0 and every row is 16-byte aligned, else a lane per word,
+// up to a warp a node), D = 8 a template instance with vector loads of the
+// indices (two 16-byte loads) and flags (one 8-byte load) where aligned,
+// any other D a generic instance four edges at a time, all payload loads
+// of a chunk issued before any OR.  The dup charge is summed per thread in
+// uint32, reduced per warp by shuffles and per block through shared memory,
+// and added by one atomicAdd a block into the low word of a zeroed int64
+// (addition mod 2^32 is order-free).  A simple kernel first: evaluating the
+// coins inside this kernel, so that the flags are never written, is open.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr uint8_t kSend = 1, kDel = 2, kDup = 4, kOutOk = 8;
+constexpr uint32_t kSaltLoss = 0x9E3779B9u, kSaltDup = 0x85EBCA6Bu;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// key = t * 0x9E3779B9 ^ seed ^ salt
+__device__ __forceinline__ uint32_t edge_hash(uint32_t key, uint32_t src,
+                                              uint32_t dst) {
+  return mix32(src * 0xC2B2AE35u ^ dst * 0x27D4EB2Fu ^ key);
+}
+
+struct Coins {
+  const int32_t* nbrs;  // (n, d), the slab
+  const uint8_t* live;  // (n, d), or null: an edge is live iff nbrs >= 0
+  const uint8_t* up;    // (n_src,) node liveness at this round
+  uint8_t* flags;       // (n, d)
+  int64_t edges;        // n * d
+  int32_t d, n_src, row0;
+  uint32_t t, seed, loss_num, dup_num;
+  int32_t loss, dup, out_ok;  // streams active this round
+};
+
+__global__ void __launch_bounds__(kThreads) fault_coins_kernel(const Coins c) {
+  const uint32_t key = c.t * 0x9E3779B9u ^ c.seed;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e < c.edges; e += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int32_t raw = __ldg(c.nbrs + e);
+    const uint32_t dst =
+        static_cast<uint32_t>(c.row0 + static_cast<int32_t>(e / c.d));
+    const uint32_t src = static_cast<uint32_t>(
+        raw < 0 ? 0 : (raw >= c.n_src ? c.n_src - 1 : raw));
+    const bool live = c.live != nullptr ? __ldg(c.live + e) != 0 : raw >= 0;
+    uint8_t f = 0;
+    if (live && __ldg(c.up + dst) != 0 && __ldg(c.up + src) != 0) {
+      f = kSend;
+      if (!c.loss || edge_hash(key ^ kSaltLoss, src, dst) >= c.loss_num) {
+        f |= kDel;
+        if (c.dup && edge_hash(key ^ kSaltDup, src, dst) < c.dup_num)
+          f |= kDup;
+      }
+    }
+    if (c.out_ok
+        && (!c.loss || edge_hash(key ^ kSaltLoss, dst, src) >= c.loss_num))
+      f |= kOutOk;
+    c.flags[e] = f;
+  }
+}
+
+struct Round {
+  const uint32_t* payload;   // (n_src, w)
+  const uint32_t* received;  // (n_src, w): the dup rows, or null (no dup)
+  const uint32_t* rec;       // (n, w), the slab's received
+  const int32_t* nbrs;       // (n, d), the slab
+  const uint8_t* flags;      // (n, d), the slab's
+  uint32_t* new_out;         // (n, w)
+  uint32_t* rec_out;         // (n, w)
+  uint32_t* dup_pc;          // low word of a zeroed int64
+  int32_t n, n_src, d;
+  int32_t units;       // units of a row: W words, or W / 4 vectors
+  int32_t group_log2;  // lanes per node row: 1 << group_log2 (<= 32)
+  bool idx_vec;        // D = 8 index rows 16-byte aligned
+  bool flag_vec;       // D = 8 flag rows 8-byte aligned
+};
+
+template <bool kVec>
+struct UnitOf {
+  using T = uint32_t;
+};
+template <>
+struct UnitOf<true> {
+  using T = uint4;
+};
+
+__device__ __forceinline__ uint32_t zero_unit(uint32_t) { return 0u; }
+__device__ __forceinline__ uint4 zero_unit(uint4) {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+__device__ __forceinline__ uint32_t or_unit(uint32_t x, uint32_t y) {
+  return x | y;
+}
+__device__ __forceinline__ uint4 or_unit(uint4 x, uint4 y) {
+  return make_uint4(x.x | y.x, x.y | y.y, x.z | y.z, x.w | y.w);
+}
+__device__ __forceinline__ uint32_t andnot_unit(uint32_t x, uint32_t y) {
+  return x & ~y;
+}
+__device__ __forceinline__ uint4 andnot_unit(uint4 x, uint4 y) {
+  return make_uint4(x.x & ~y.x, x.y & ~y.y, x.z & ~y.z, x.w & ~y.w);
+}
+__device__ __forceinline__ uint32_t popc_unit(uint32_t x) {
+  return static_cast<uint32_t>(__popc(x));
+}
+__device__ __forceinline__ uint32_t popc_unit(uint4 x) {
+  return static_cast<uint32_t>(__popc(x.x) + __popc(x.y) + __popc(x.z)
+                               + __popc(x.w));
+}
+
+// Edges [e0, e0 + kChunk) of slab row i: clipped source rows and flags
+// (0 past the degree).
+template <int kD, int kChunk>
+__device__ __forceinline__ void edges(const Round& a, int32_t i, int e0,
+                                      int d, int32_t (&j)[kChunk],
+                                      uint32_t (&f)[kChunk]) {
+  const int64_t at = static_cast<int64_t>(i) * d + e0;
+  int32_t raw[kChunk];
+  if (kD == 8 && a.idx_vec) {
+    const int4* v = reinterpret_cast<const int4*>(a.nbrs + at);
+    const int4 lo = __ldg(v), hi = __ldg(v + 1);
+    const int32_t all[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) raw[q] = all[q];
+  } else {
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      raw[q] = (kD > 0 || e0 + q < d) ? __ldg(a.nbrs + at + q) : 0;
+  }
+  if (kD == 8 && a.flag_vec) {
+    const uint2 m = __ldg(reinterpret_cast<const uint2*>(a.flags + at));
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      f[q] = (q < 4 ? m.x >> (8 * q) : m.y >> (8 * (q - 4))) & 0xFFu;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      f[q] = (kD > 0 || e0 + q < d) ? __ldg(a.flags + at + q) : 0u;
+  }
+#pragma unroll
+  for (int q = 0; q < kChunk; ++q)
+    j[q] = raw[q] < 0 ? 0 : (raw[q] >= a.n_src ? a.n_src - 1 : raw[q]);
+}
+
+// The dup charge's block reduction: one atomicAdd a block.
+__device__ __forceinline__ void add_block_sum(uint32_t s, uint32_t* out) {
+  __shared__ uint32_t warp_sums[kThreads / 32];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    s = lane < kThreads / 32 ? warp_sums[lane] : 0u;
+    for (int o = 16; o > 0; o >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0 && s != 0u) atomicAdd(out, s);
+  }
+}
+
+// kOne: W = 1, a thread per node.  The W = 1 instance may hold 42
+// registers a thread (6 blocks an SM), the others 128 (2 blocks): each
+// chunk keeps its payload and its dup rows in flight at once.
+template <bool kVec, bool kOne, int kD>
+__global__ void __launch_bounds__(kThreads, kOne ? 6 : 2)
+    faulted_gather_round_kernel(const Round a) {
+  using U = typename UnitOf<kVec>::T;
+  constexpr int kChunk = kD > 0 ? kD : 4;
+  const int glog = kOne ? 0 : a.group_log2;
+  const int group = 1 << glog;
+  const int lane_g = kOne ? 0 : threadIdx.x & (group - 1);
+  const int per_block = kThreads >> glog;
+  const int32_t units = kOne ? 1 : a.units;
+  const int d = kD > 0 ? kD : a.d;
+  const bool dup = a.received != nullptr;
+  const U* payload = reinterpret_cast<const U*>(a.payload);
+  const U* received = reinterpret_cast<const U*>(a.received);
+  const U* rec = reinterpret_cast<const U*>(a.rec);
+  U* new_out = reinterpret_cast<U*>(a.new_out);
+  U* rec_out = reinterpret_cast<U*>(a.rec_out);
+  uint32_t sum = 0u;
+  for (int64_t node = static_cast<int64_t>(blockIdx.x) * per_block
+                      + (threadIdx.x >> glog);
+       node < a.n; node += static_cast<int64_t>(gridDim.x) * per_block) {
+    const int32_t i = static_cast<int32_t>(node);
+    const int64_t row = static_cast<int64_t>(i) * units;
+    for (int c = lane_g; c < units; c += group) {
+      const U mine = __ldg(rec + row + c);
+      U acc = zero_unit(U{});
+      for (int e0 = 0; e0 < d; e0 += kChunk) {
+        int32_t j[kChunk];
+        uint32_t f[kChunk];
+        edges<kD, kChunk>(a, i, e0, d, j, f);
+        U x[kChunk], y[kChunk];
+#pragma unroll
+        for (int q = 0; q < kChunk; ++q) {
+          const int64_t at = static_cast<int64_t>(j[q]) * units + c;
+          x[q] = (f[q] & kDel) ? __ldg(payload + at) : zero_unit(U{});
+          y[q] = (dup && (f[q] & kDup)) ? __ldg(received + at)
+                                        : zero_unit(U{});
+        }
+#pragma unroll
+        for (int q = 0; q < kChunk; ++q) {
+          acc = or_unit(acc, or_unit(x[q], y[q]));
+          sum += popc_unit(y[q]);
+        }
+      }
+      const U fresh = andnot_unit(acc, mine);
+      new_out[row + c] = fresh;
+      rec_out[row + c] = or_unit(mine, fresh);
+    }
+  }
+  if (dup) add_block_sum(sum, a.dup_pc);  // uniform over the block
+}
+
+using Kernel = void (*)(const Round);
+
+template <int kD>
+Kernel pick_d(bool vec, bool one) {
+  if (vec) return faulted_gather_round_kernel<true, false, kD>;
+  if (one) return faulted_gather_round_kernel<false, true, kD>;
+  return faulted_gather_round_kernel<false, false, kD>;
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// Lanes per node row, as a power of two: one per unit, at most a warp
+// (gather_flood.cu's geometry).
+int group_log2_of(int64_t units) {
+  int g = 0;
+  while ((int64_t{1} << g) < (units < 32 ? units : 32)) ++g;
+  return g;
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes.  Each launches on the caller's
+// stream, does not synchronise, and returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a shape it cannot take).  The caller guarantees
+// device pointers to contiguous buffers: (n, d) int32 nbrs and (n, d) bytes
+// live and flags, (n_src,) bytes up with row0 + n <= n_src; (n_src, w)
+// payload and received, (n, w) rec and outputs, 4-byte aligned; for the
+// round a dup_pc word that it zeroed on the same stream.
+
+extern "C" int gg_fault_coins(const void* nbrs, const void* live,
+                              const void* up, void* flags, int64_t n,
+                              int d, int64_t n_src, int64_t row0,
+                              int64_t t, int64_t seed, int64_t loss_num,
+                              int64_t dup_num, int loss, int dup,
+                              int out_ok, void* stream) {
+  if (n < 1 || d < 1 || n_src < 1 || row0 < 0 || row0 + n > n_src
+      || n_src >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Coins c;
+  c.nbrs = static_cast<const int32_t*>(nbrs);
+  c.live = static_cast<const uint8_t*>(live);
+  c.up = static_cast<const uint8_t*>(up);
+  c.flags = static_cast<uint8_t*>(flags);
+  c.edges = n * d;
+  c.d = d;
+  c.n_src = static_cast<int32_t>(n_src);
+  c.row0 = static_cast<int32_t>(row0);
+  c.t = static_cast<uint32_t>(t);
+  c.seed = static_cast<uint32_t>(seed);
+  c.loss_num = static_cast<uint32_t>(loss_num);
+  c.dup_num = static_cast<uint32_t>(dup_num);
+  c.loss = loss;
+  c.dup = dup;
+  c.out_ok = out_ok;
+  int64_t blocks = (c.edges + kThreads - 1) / kThreads;
+  if (blocks > (int64_t{1} << 30)) blocks = int64_t{1} << 30;
+  fault_coins_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gg_faulted_gather_round(const void* payload,
+                                       const void* received,
+                                       const void* rec, const void* nbrs,
+                                       const void* flags, void* new_out,
+                                       void* rec_out, void* dup_pc,
+                                       int64_t n, int64_t w, int64_t n_src,
+                                       int d, void* stream) {
+  if (n < 1 || n_src < 1 || d < 1 || w < 1 || n >= (int64_t{1} << 31)
+      || n_src >= (int64_t{1} << 31) || w >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Round a;
+  a.payload = static_cast<const uint32_t*>(payload);
+  a.received = static_cast<const uint32_t*>(received);
+  a.rec = static_cast<const uint32_t*>(rec);
+  a.nbrs = static_cast<const int32_t*>(nbrs);
+  a.flags = static_cast<const uint8_t*>(flags);
+  a.new_out = static_cast<uint32_t*>(new_out);
+  a.rec_out = static_cast<uint32_t*>(rec_out);
+  a.dup_pc = static_cast<uint32_t*>(dup_pc);
+  a.n = static_cast<int32_t>(n);
+  a.n_src = static_cast<int32_t>(n_src);
+  a.d = d;
+  const bool vec = w % 4 == 0 && aligned(payload, 16) && aligned(rec, 16)
+                   && aligned(new_out, 16) && aligned(rec_out, 16)
+                   && (received == nullptr || aligned(received, 16));
+  a.units = static_cast<int32_t>(vec ? w / 4 : w);
+  a.group_log2 = group_log2_of(a.units);
+  a.idx_vec = d == 8 && aligned(nbrs, 16);
+  a.flag_vec = d == 8 && aligned(flags, 8);
+  const int per_block = kThreads >> a.group_log2;
+  const int64_t blocks = (n + per_block - 1) / per_block;
+  const bool one = w == 1;
+  const Kernel k = d == 8 ? pick_d<8>(vec, one) : pick_d<0>(vec, one);
+  k<<<static_cast<unsigned>(blocks), kThreads, 0,
+      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Nodes a block of faulted_gather_round serves at W words a node, on rows
+// the vector path takes when `vec` (kernels.gather_nodes_per_block).
+extern "C" int gg_faulted_nodes_per_block(int64_t w, int vec) {
+  return kThreads >> group_log2_of(vec && w % 4 == 0 ? w / 4 : w);
+}

@@ -16,7 +16,9 @@ reference's push-pull anti-entropy).  Two layouts, as in the reference:
   line, circulant: :mod:`.structured`) — the main path;
 - **node-major (N, W)** with the adjacency gather over a padded (N, D)
   neighbor table — any topology, under a partition schedule
-  (:class:`Partitions`).
+  (:class:`Partitions`) and a nemesis :class:`.faults.FaultPlan`
+  (crash/restart with amnesia, loss, duplicate delivery, membership),
+  materialized or streamed over destination slabs (``union_block``).
 
 State: ``received`` and ``frontier`` are int32, bit-identical to the
 reference's uint32 words (torch's uint32 lacks ``~``, ``>>`` and
@@ -27,8 +29,8 @@ host int: the round schedule (sync waves, the t == 0 ledger coefficient,
 which partition windows are active) is host control flow in eager
 PyTorch.
 
-Modes not ported yet raise: meshes, partitions on the structured path,
-and every fault or delay mode (ROADMAP.md Queue A).
+Modes not ported yet raise: meshes, partitions and fault plans on the
+structured path, and the delay and provenance modes (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -39,16 +41,17 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import kernels
-from .engine import (active_windows, fori_rounds, stepwise_converge,
+from . import faults, kernels
+from .engine import (active_windows, fori_rounds, resolve_block,
+                     resolve_device, scan_blocks, stepwise_converge,
                      while_converge, windows_fold)
-from .kernels import MASK32
+from .kernels import FLAG_DEL, FLAG_OUT_OK, FLAG_SEND, MASK32
 
 WORD = 32
 
 _UNPORTED = ("mesh", "faulted", "delays", "delayed", "edge_delayed",
-             "fault_plan", "nemesis", "union_block", "dcn_mode",
-             "sharded_exchange", "sharded_sync_diff")
+             "nemesis", "dcn_mode", "sharded_exchange",
+             "sharded_sync_diff")
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -197,12 +200,35 @@ def _edge_live(t: int, row_ids: torch.Tensor, nbrs: torch.Tensor,
     return windows_fold(parts.starts, parts.ends, t, body, nbr_mask)
 
 
+def _live_split(t: int, row_ids: torch.Tensor, nbrs: torch.Tensor,
+                nbr_mask: torch.Tensor, parts: Partitions,
+                plan: faults.FaultPlan | None, dup_on: bool):
+    """Per-edge (rows, D) masks at send round ``t`` under the full
+    nemesis, the reference's plain composition: ``live_send`` = topology
+    & partition windows & both endpoints up (sends charged);
+    ``live_del`` = live_send minus the loss coins (deliveries); ``dup`` =
+    live_del edges that also re-deliver their source's received set
+    (None without ``dup_on``).  The rounds evaluate the same coins as
+    one kernel, :func:`.kernels.fault_coins`."""
+    live = _edge_live(t, row_ids, nbrs, nbr_mask, parts)
+    if plan is None:
+        return live, live, None
+    src = nbrs.clamp(0, plan.n_nodes - 1).to(torch.int64)
+    live_send = (live & faults.node_up(plan, t, row_ids)[:, None]
+                 & faults.node_up(plan, t, src))
+    live_del = live_send & ~faults.edge_drop(plan, t, src, row_ids[:, None])
+    dup = (live_del & faults.edge_dup(plan, t, src, row_ids[:, None])
+           if dup_on else None)
+    return live_send, live_del, dup
+
+
 def _gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
                live: torch.Tensor | None) -> torch.Tensor:
     """inbox[i] = OR over delivering edges d of payload[nbrs[i, d]]
     (``live=None``: the edges with ``nbrs >= 0``).  The reference's
-    ``_gather_or``; ``_round`` runs the fused ``gather_flood_round``
-    instead, and the faulted rounds' dup and delay paths will call this."""
+    ``_gather_or``; the rounds run the fused ``gather_flood_round`` /
+    ``faulted_gather_round`` instead, and the delay ring will call
+    this."""
     return kernels.gather_or(payload, nbrs, live)
 
 
@@ -215,20 +241,45 @@ def _sync_diff_pc(payload_full: torch.Tensor, recv_local: torch.Tensor,
     return kernels.sync_diff_pc(payload_full, recv_local, nbrs, live)
 
 
+def _srv_ledger(srv_msgs: torch.Tensor, *, t: int, is_sync: bool,
+                pcf: torch.Tensor, req_deg: torch.Tensor,
+                ack_deg: torch.Tensor,
+                diff: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """The reference-accounted server ledger after round ``t``: floods
+    charge `broadcast` to every requesting neighbor (``req_deg``) minus
+    the sender (t == 0 rows are client-injected origins) plus one
+    `broadcast_ok` per acknowledged delivery (``ack_deg``), at the
+    frontier's popcount ``pcf``; sync rounds add read-per-requesting-
+    neighbor + read_ok-per-acknowledging-neighbor + the targeted diff
+    pushes and their acks (``diff()``, evaluated on sync rounds only)."""
+    d2 = req_deg + ack_deg
+    coef = d2 if t == 0 else (d2 - 2).clamp(min=0)
+    srv = srv_msgs + _dot32(pcf, coef)
+    if is_sync:
+        srv = srv + wrap32(d2.sum()) + 2 * diff()
+    return wrap32(srv)
+
+
 def _round(state: BroadcastState, *, row_ids: torch.Tensor,
            nbrs: torch.Tensor, nbr_mask: torch.Tensor, parts: Partitions,
-           sync_every: int,
-           deg: torch.Tensor | None = None) -> BroadcastState:
+           sync_every: int, deg: torch.Tensor | None = None,
+           plan: faults.FaultPlan | None = None, dup_on: bool = False,
+           union_block: int | None = None) -> BroadcastState:
     """One node-major (adjacency-gather) round — the reference's
-    ``_round`` with no fault plan, delays, slab blocking or provenance,
-    on one device.  ``deg`` is the topology degree ``nbr_mask.sum(1)``
-    (int64; computed when not given).  On a round with no active
-    partition window the edge mask is never built: the kernels deliver
-    exactly the edges with ``nbrs >= 0``.  The sync diff runs on sync
-    rounds only (``t`` is a host int), which leaves the ledger as the
-    reference's every-round diff masked off elsewhere.  The delivery
-    (``new = gather_or(payload) & ~received``, ``received | new``) is one
-    fused launch, :func:`.kernels.gather_flood_round`."""
+    ``_round`` without delays or provenance, on one device.  ``deg`` is
+    the topology degree ``nbr_mask.sum(1)`` (int64; computed when not
+    given).  With a ``plan`` the round is :func:`_round_plan`.  On a
+    round with no active partition window the edge mask is never built:
+    the kernels deliver exactly the edges with ``nbrs >= 0``.  The sync
+    diff runs on sync rounds only (``t`` is a host int), which leaves the
+    ledger as the reference's every-round diff masked off elsewhere.  The
+    delivery (``new = gather_or(payload) & ~received``, ``received |
+    new``) is one fused launch, :func:`.kernels.gather_flood_round`."""
+    if plan is not None:
+        return _round_plan(state, row_ids=row_ids, nbrs=nbrs,
+                           nbr_mask=nbr_mask, parts=parts,
+                           sync_every=sync_every, deg=deg, plan=plan,
+                           dup_on=dup_on, union_block=union_block)
     t = state.t
     is_sync = t % sync_every == 0 and t > 0
     rec0, fr0 = state.received, state.frontier
@@ -243,39 +294,131 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
     sent = _dot32(pc, live_deg)
     srv = None
     if state.srv_msgs is not None:
-        # floods charge `broadcast` to every topology neighbor minus the
-        # sender (t == 0 rows are client-injected origins) plus one
-        # `broadcast_ok` per live delivery; sync rounds add
-        # read-per-topo-neighbor + read_ok-per-live-neighbor + the
-        # targeted diff pushes and their acks
-        pcf = kernels.col_popcount(fr0, node_major=True) if is_sync else pc
-        d2 = deg_topo + live_deg
-        coef = d2 if t == 0 else (d2 - 2).clamp(min=0)
-        srv = state.srv_msgs + _dot32(pcf, coef)
-        if is_sync:
-            srv = (srv + wrap32(d2.sum())
-                   + 2 * _sync_diff_pc(payload, rec0, nbrs, live))
-        srv = wrap32(srv)
+        # partitions only: every topology neighbor is asked, every live
+        # edge delivers and acknowledges, and diffs flow over live edges
+        srv = _srv_ledger(
+            state.srv_msgs, t=t, is_sync=is_sync,
+            pcf=kernels.col_popcount(fr0, node_major=True) if is_sync
+            else pc, req_deg=deg_topo, ack_deg=live_deg,
+            diff=lambda: _sync_diff_pc(payload, rec0, nbrs, live))
     new, received = kernels.gather_flood_round(payload, rec0, nbrs, live)
+    return BroadcastState(received=received, frontier=new, t=t + 1,
+                          msgs=wrap32(state.msgs + sent), srv_msgs=srv)
+
+
+def _coins(plan: faults.FaultPlan, t: int, dup_on: bool,
+           out_ok: bool) -> dict:
+    """:func:`.kernels.fault_coins`' scalars at round ``t``: which
+    streams are active (``t`` below their horizon, a non-zero rate)."""
+    return dict(t=t, seed=plan.seed, loss_num=plan.loss_num,
+                dup_num=plan.dup_num,
+                loss=t < plan.loss_until and plan.loss_num > 0,
+                dup=dup_on and t < plan.dup_until and plan.dup_num > 0,
+                out_ok=out_ok)
+
+
+def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
+                nbrs: torch.Tensor, nbr_mask: torch.Tensor,
+                parts: Partitions, sync_every: int,
+                deg: torch.Tensor | None, plan: faults.FaultPlan,
+                dup_on: bool, union_block: int | None) -> BroadcastState:
+    """The faulted gather round (the reference's ``_round`` with a
+    ``plan``).  First the amnesia rows' ``received`` / ``frontier`` are
+    wiped; then :func:`.kernels.fault_coins` gives each edge its flags
+    (sent, delivered, duplicated, reply not lost) and
+    :func:`.kernels.faulted_gather_round` delivers ``payload`` over the
+    delivered edges and the wiped ``received`` set over the dup edges.
+    ``msgs`` charges every sent edge at the payload's popcount (loss
+    counts as sent) and every dup edge at its source's received set.
+
+    The server ledger (the reference's loss/crash accounting): requests
+    charged at send time from up rows only (``req_deg``), replies only
+    where the reply's coin survives (``ack``: sent and OUT_OK), and sync
+    diffs over the edges whose two coins survive (DEL and OUT_OK).
+
+    ``union_block`` with the server ledger off streams the round over
+    destination slabs of that many rows (:func:`.engine.scan_blocks`),
+    one fault_coins + faulted_gather_round pair a slab, so only one
+    slab's flags and partition mask live at a time; the coins are
+    stateless (t, src, dst) hashes, so the result is the materialized
+    round's bit for bit."""
+    t = state.t
+    wipe = faults.amnesia(plan, t, row_ids)[:, None]
+    rec0 = state.received.masked_fill(wipe, 0)
+    fr0 = state.frontier.masked_fill(wipe, 0)
+    is_sync = t % sync_every == 0 and t > 0
+    # frontier ⊆ received, so the anti-entropy payload is just `received`
+    payload = rec0 if is_sync else fr0
+    up = faults.node_up(plan, t, row_ids)
+    srv_on = state.srv_msgs is not None
+    coins = _coins(plan, t, dup_on, out_ok=srv_on)
+    dup_rows = rec0 if coins["dup"] else None
+    pc = kernels.col_popcount(payload, node_major=True)
+    windows = bool(parts.active(t))
+
+    def deliver(lo: int, hi: int):
+        """(flags, new, received, sent) of destination rows [lo, hi)."""
+        nb = nbrs[lo:hi]
+        live = (_edge_live(t, row_ids[lo:hi], nb, nbr_mask[lo:hi], parts)
+                if windows else None)
+        flags = kernels.fault_coins(nb, up, live=live, row0=lo, **coins)
+        new, rec, dup_pc = kernels.faulted_gather_round(
+            payload, dup_rows, rec0[lo:hi], nb, flags)
+        sent = _dot32(pc[lo:hi], (flags & FLAG_SEND).sum(dim=1)) + dup_pc
+        return flags, new, rec, sent
+
+    if union_block is not None and not srv_on:
+        def slab(carry, lo):
+            news, recs, sent = carry
+            _, new, rec, s = deliver(lo, lo + union_block)
+            return news + [new], recs + [rec], wrap32(sent + s)
+
+        news, recs, sent = scan_blocks(slab, ([], [], 0), nbrs.shape[0],
+                                       union_block)
+        return BroadcastState(received=torch.cat(recs),
+                              frontier=torch.cat(news), t=t + 1,
+                              msgs=wrap32(state.msgs + sent), srv_msgs=None)
+    flags, new, received, sent = deliver(0, nbrs.shape[0])
+    srv = None
+    if srv_on:
+        # a down row asks nothing; a reply exists where the request was
+        # sent and the reply's coin survives; a sync pair diffs where
+        # both coins survive
+        deg_topo = nbr_mask.sum(dim=1) if deg is None else deg
+        ack, both = FLAG_SEND | FLAG_OUT_OK, FLAG_DEL | FLAG_OUT_OK
+        srv = _srv_ledger(
+            state.srv_msgs, t=t, is_sync=is_sync,
+            pcf=kernels.col_popcount(fr0, node_major=True) if is_sync
+            else pc, req_deg=torch.where(up, deg_topo, 0),
+            ack_deg=((flags & ack) == ack).sum(dim=1),
+            diff=lambda: _sync_diff_pc(payload, rec0, nbrs,
+                                       (flags & both) == both))
     return BroadcastState(received=received, frontier=new, t=t + 1,
                           msgs=wrap32(state.msgs + sent), srv_msgs=srv)
 
 
 def flood_step(state: BroadcastState, *, nbrs: torch.Tensor,
                nbr_mask: torch.Tensor, parts: Partitions, sync_every: int,
-               delays=None, delay_set: tuple = (), plan=None,
-               dup_on: bool = False, union_block=None,
+               delays=None, delay_set: tuple = (),
+               plan: faults.FaultPlan | None = None, dup_on: bool = False,
+               union_block: int | None = None,
                prov=None) -> BroadcastState:
-    """Single-device node-major round.  The reference's fault, delay,
-    blocking and provenance modes raise (ROADMAP.md Queue A)."""
-    for name, value in (("delays", delays), ("delay_set", delay_set),
-                        ("plan", plan), ("dup_on", dup_on),
-                        ("union_block", union_block), ("prov", prov)):
-        if value:
+    """Single-device node-major round, under an optional fault ``plan``
+    (``dup_on``: its dup stream; ``union_block``: stream the faulted
+    round over destination slabs).  The reference's delay and provenance
+    modes raise (ROADMAP.md Queue A)."""
+    for name, given in (("delays", delays is not None),
+                        ("delay_set", len(delay_set) > 0),
+                        ("prov", prov is not None)):
+        if given:
             raise _unported(f"flood_step({name}=...)")
+    if plan is not None and plan.n_nodes != nbrs.shape[0]:
+        raise ValueError(f"FaultPlan is for {plan.n_nodes} nodes, the "
+                         f"table has {nbrs.shape[0]}")
     row_ids = torch.arange(nbrs.shape[0], device=nbrs.device)
     return _round(state, row_ids=row_ids, nbrs=nbrs, nbr_mask=nbr_mask,
-                  parts=parts, sync_every=sync_every)
+                  parts=parts, sync_every=sync_every, plan=plan,
+                  dup_on=dup_on, union_block=union_block)
 
 
 # -- the words-major structured path ------------------------------------
@@ -348,22 +491,11 @@ def _flood_ledger(state: BroadcastState, rec: torch.Tensor,
                                msgs=wrap32(state.msgs + sent))
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The port's entry points run on CUDA unless the caller passes a
-    device; with none given and no CUDA present they raise."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on a GPU by default; pass "
-                "device='cpu' to run the plain PyTorch versions")
-        device = "cuda"
-    return torch.device(device)
-
-
 class BroadcastSim:
     """Round-synchronous broadcast simulator on one device (the
-    single-device, fault-free subset of the reference's ``BroadcastSim``
-    plus partition schedules on the gather path).
+    reference's single-device ``BroadcastSim``, fault-free on the
+    structured path, under partitions and fault plans on the gather
+    path).
 
     - **words-major (W, N)** with a structured ``exchange`` from
       :func:`.structured.make_exchange`: gather-free delivery for the
@@ -371,7 +503,7 @@ class BroadcastSim:
       fixed-trip path;
     - **node-major (N, W)** with ``exchange=None``: the adjacency gather
       over ``nbrs`` (any topology), under an optional partition schedule
-      ``parts``.
+      ``parts`` and nemesis ``fault_plan``.
     """
 
     def __init__(self, nbrs: np.ndarray, *, n_values: int,
@@ -380,6 +512,8 @@ class BroadcastSim:
                  sync_diff: Callable[[torch.Tensor], torch.Tensor]
                  | None = None,
                  srv_ledger: bool = True,
+                 fault_plan: faults.FaultPlan | None = None,
+                 union_block=None,
                  device: str | torch.device | None = None,
                  **unported) -> None:
         """``nbrs``: (N, D) int32 neighbor table padded with -1
@@ -389,10 +523,17 @@ class BroadcastSim:
         the matching :func:`.structured.make_sync_diff` closure, which
         the words-major server ledger needs (the gather path computes
         its own).  ``parts``: a partition schedule, gather path only
-        here (on the structured path it needs the faults slice's masked
-        exchanges and raises).  ``device``: where the state lives
-        (default CUDA; raises if there is none).  Reference modes not
-        ported yet (``mesh``, faults, delays, ...) raise when given."""
+        here (on the structured path it needs the masked exchanges and
+        raises).  ``fault_plan``: a :class:`.faults.FaultPlan` (crash,
+        loss, dup, membership; gather path only here), its dup stream on
+        when its ``dup_num`` is; a dup stream needs ``srv_ledger=False``.
+        ``union_block``: stream the faulted rounds over destination slabs
+        (:func:`.engine.resolve_block`: an int, ``"auto"``,
+        ``"materialized"``, or None for the ``GG_UNION_BLOCK`` env);
+        blocked rounds keep no server ledger.  ``device``: where the
+        state lives (default CUDA; raises if there is none).  Reference
+        modes not ported yet (``mesh``, ``nemesis``, delays, ...) raise
+        when given."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -409,6 +550,15 @@ class BroadcastSim:
         if parts.group.shape[1:] != (n,):
             raise ValueError(f"Partitions group {tuple(parts.group.shape)}"
                              f" is not (P, {n})")
+        if exchange is not None and fault_plan is not None:
+            raise _unported("a FaultPlan on the words-major structured "
+                            "path (its nemesis= bundle, "
+                            "structured.make_nemesis)")
+        if union_block is not None and exchange is not None:
+            raise ValueError(
+                "union_block streams the GATHER path's 1-hop faulted "
+                "rounds; the words-major path is already gather-free "
+                "and the delays ring keeps the materialized shape")
         self.device = resolve_device(device)
         self.n_nodes = n
         self.n_values = n_values
@@ -431,6 +581,40 @@ class BroadcastSim:
                                         device=self.device)
             self.nbr_mask = self.nbrs >= 0
             self.row_ids = torch.arange(n, device=self.device)
+        self._fp_dup = fault_plan is not None and fault_plan.dup_num > 0
+        self._ub = None
+        self.fault_plan = None
+        if fault_plan is not None:
+            if fault_plan.n_nodes != n:
+                raise ValueError(f"FaultPlan is for {fault_plan.n_nodes} "
+                                 f"nodes, sim has {n}")
+            # loss and crash keep the reference's calibrated accounting;
+            # a dup stream re-delivers whole received sets while the
+            # reference dedups by message id, so it cannot be calibrated
+            if self._fp_dup and self._srv_on:
+                raise ValueError(
+                    "srv ledger under a dup stream: a dup edge "
+                    "re-delivers its source's whole received set "
+                    "while the reference dedups by message id, so "
+                    "the server ledgers cannot be calibrated (the "
+                    "kvstore backend's reject_dup_stream stance) — "
+                    "pass srv_ledger=False and read the `msgs` value "
+                    "ledger instead")
+            self.fault_plan = fault_plan.to(self.device)
+            # per destination row: D edges x (liveness + loss/dup coins +
+            # gather temps), about 16 bytes per edge slot
+            self._ub = resolve_block(n, union_block,
+                                     per_row_bytes=nbrs.shape[1] * 16)
+            if self._ub is not None and self._srv_on:
+                if union_block is not None:
+                    raise ValueError(
+                        "blocked faulted gather rounds keep no srv "
+                        "ledger: pass srv_ledger=False (or "
+                        "union_block='materialized' to keep the "
+                        "loss-only ledger on the materialized path)")
+                # an env-chosen block yields to the ledger the caller
+                # asked for
+                self._ub = None
         self._fixed = {}
 
     # -- construction ----------------------------------------------------
@@ -466,7 +650,9 @@ class BroadcastSim:
                              else None)
         return _round(state, row_ids=self.row_ids, nbrs=self.nbrs,
                       nbr_mask=self.nbr_mask, parts=self.parts,
-                      sync_every=self.sync_every, deg=self.deg)
+                      sync_every=self.sync_every, deg=self.deg,
+                      plan=self.fault_plan, dup_on=self._fp_dup,
+                      union_block=self._ub)
 
     def converged(self, state: BroadcastState,
                   target: torch.Tensor) -> bool:

@@ -1,12 +1,28 @@
 """Round drivers: the port of gossip_glomers_tpu/tpu_sim/engine.py's loop
 combinators (``fori_rounds``, ``while_converge``, ``stepwise_converge``)
 as Python loops — PyTorch runs eagerly, so each round is a few kernel
-launches and the loop itself stays on the host — and of its
-windows-as-data fault schedule fold (``windows_fold``)."""
+launches and the loop itself stays on the host — of its windows-as-data
+fault schedule fold (``windows_fold``), and of its destination-slab
+blocking (``scan_blocks``, ``resolve_block``)."""
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Sequence
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The port's entry points run on CUDA unless the caller passes a
+    device; with none given and no CUDA present they raise."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on a GPU by default; pass "
+                "device='cpu' to run the plain PyTorch versions")
+        device = "cuda"
+    return torch.device(device)
 
 
 def fori_rounds(round_fn: Callable, state, rounds: int):
@@ -62,3 +78,99 @@ def windows_fold(starts: Sequence[int], ends: Sequence[int], t: int,
     for w in active_windows(starts, ends, t):
         carry = body(w, carry)
     return carry
+
+
+def scan_blocks(body: Callable, carry, axis_len: int, block: int):
+    """Destination-axis blocking: ``carry = body(carry, lo)`` for slab
+    starts ``lo = 0, block, 2*block, ...`` — the reference's ``lax.scan``
+    over slabs as a Python loop.  ``block`` must divide ``axis_len`` (use
+    :func:`resolve_block`)."""
+    if axis_len % block != 0:
+        raise ValueError(
+            f"block {block} must divide the destination axis "
+            f"{axis_len}")
+    for lo in range(0, axis_len, block):
+        carry = body(carry, lo)
+    return carry
+
+
+def _divisors(n: int) -> list:
+    out = set()
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            out.add(d)
+            out.add(n // d)
+        d += 1
+    return sorted(out)
+
+
+def _env_int(name: str, raw: str) -> int:
+    """Parse an integer env-var value with an error naming the
+    variable."""
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name}={raw!r} is not an integer (nor a recognized "
+            "keyword)") from None
+
+
+def resolve_block(rows: int, setting=None, *, per_row_bytes: int = 1,
+                  budget_bytes: int | None = None) -> int | None:
+    """Destination-slab size for :func:`scan_blocks`, or None for the
+    materialized whole-axis round (the reference's rules and messages).
+
+    ``setting`` (a sim's ``union_block``; None defers to the
+    ``GG_UNION_BLOCK`` env, default ``"auto"``):
+
+    - ``"materialized"`` -> None;
+    - an int -> that slab size, clamped to the largest divisor of
+      ``rows`` not above it; <= 0 means materialized;
+    - ``"auto"`` -> materialized while ``rows * per_row_bytes`` fits
+      ``budget_bytes`` (default ``GG_UNION_BLOCK_BUDGET_MB``, 512 MB),
+      else the largest divisor of ``rows`` whose slab fits.
+
+    Env values are parsed loudly: one that is neither keyword nor an
+    integer, an integer that does not divide ``rows``, or a negative
+    budget raises a ``ValueError`` naming the variable."""
+    env_src = None
+    if setting is None:
+        env_src = "GG_UNION_BLOCK"
+        setting = os.environ.get(env_src, "auto")
+    if setting == "materialized":
+        return None
+    if setting == "auto":
+        if budget_bytes is None:
+            name = "GG_UNION_BLOCK_BUDGET_MB"
+            mb = _env_int(name, os.environ.get(name, "512"))
+            if mb < 0:
+                raise ValueError(
+                    f"{name}={mb} must be a non-negative slab budget "
+                    "in MB")
+            budget_bytes = mb * 1_000_000
+        if rows * per_row_bytes <= budget_bytes:
+            return None
+        return max((d for d in _divisors(rows)
+                    if d * per_row_bytes <= budget_bytes), default=1)
+    if env_src is not None:
+        b = _env_int(env_src, setting)
+        if 0 < b < rows and rows % b != 0:
+            near = [d for d in _divisors(rows) if d <= b]
+            raise ValueError(
+                f"{env_src}={b} does not divide the {rows}-row "
+                f"destination axis (scan_blocks needs even slabs); "
+                f"use a divisor (e.g. {near[-1] if near else 1}), "
+                f"'auto', or 'materialized'")
+    else:
+        try:
+            b = int(setting)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"union_block setting {setting!r} is not 'auto', "
+                "'materialized', or an integer") from None
+    if b <= 0:
+        return None
+    if b >= rows:
+        return rows
+    return max(d for d in _divisors(rows) if d <= b)

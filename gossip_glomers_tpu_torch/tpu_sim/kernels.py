@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the broadcast floods, their wrappers and
 their plain PyTorch versions.
 
-Three sources in ``csrc/`` (each header notes what its kernels replace,
+Four sources in ``csrc/`` (each header notes what its kernels replace,
 what bounds them on an H100 and what the design does about it):
 
 - ``tree_flood.cu``, the words-major k-ary tree:
@@ -18,7 +18,11 @@ what bounds them on an H100 and what the design does about it):
   :func:`gather_or`, :func:`gather_flood_round` (one fused gather round,
   ``new = gather_or(payload) & ~rec``, ``rec_next = rec | new``, out of
   place), :func:`sync_diff_pc` and the node-major mode of
-  :func:`col_popcount`.
+  :func:`col_popcount`;
+- ``fault_flood.cu``, the faulted gather round under a nemesis plan:
+  :func:`fault_coins` (one flag byte an edge: sent, delivered,
+  duplicated, reply not lost) and :func:`faulted_gather_round` (the
+  gather round over those flags, with the dup ledger charge).
 
 Bitsets are ``torch.int32`` tensors holding the reference's uint32 words
 bit for bit: (W, N) words-major, (N, W) node-major.  A wrapper takes its
@@ -49,7 +53,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("tree_flood", "shift_flood", "gather_flood")}
+           for name in ("tree_flood", "shift_flood", "gather_flood",
+                        "fault_flood")}
 BUILD_DIR = _PKG.parent / "build" / "gossip_glomers_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -68,11 +73,15 @@ GATHER_THREADS = 256         # gather_flood.cu's kThreads
 
 # direction flags of a ShiftDirs table (shift_flood.cu)
 WRAP, MASK_LEFT, MASK_RIGHT = 1, 2, 4
+# the edge flags of fault_coins (fault_flood.cu): a send is charged, the
+# delivery survived the loss coin, the dup coin fired, the reply's coin
+FLAG_SEND, FLAG_DEL, FLAG_DUP, FLAG_OUT_OK = 1, 2, 4, 8
 
 LAUNCHES = {"tree_exchange": 0, "tree_flood_round": 0, "col_popcount": 0,
             "col_popcount_nm": 0, "shift_exchange": 0,
             "shift_flood_round": 0, "gather_or": 0, "sync_diff_pc": 0,
-            "gather_flood_round": 0}
+            "gather_flood_round": 0, "fault_coins": 0,
+            "faulted_gather_round": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -298,6 +307,50 @@ def sync_diff_pc_plain(payload: torch.Tensor, recv: torch.Tensor,
     return total & MASK32
 
 
+def fault_coins_plain(nbrs: torch.Tensor, up: torch.Tensor, *, t: int,
+                      seed: int, loss_num: int, dup_num: int, loss: bool,
+                      dup: bool, out_ok: bool,
+                      live: torch.Tensor | None = None,
+                      row0: int = 0) -> torch.Tensor:
+    # faults imports nothing of this module; its hash is the coins' one
+    from .faults import _SALT_DUP, _SALT_LOSS, _hash32
+
+    ok, src = _edges(nbrs, live, up.shape[0])
+    dst = torch.arange(row0, row0 + nbrs.shape[0],
+                       device=nbrs.device)[:, None]
+    send = ok & up[dst] & up[src]
+    deliver = send
+    if loss:
+        deliver = send & (_hash32(seed, t, src, dst, _SALT_LOSS) >= loss_num)
+    flags = send.to(torch.uint8) * FLAG_SEND + deliver.to(torch.uint8) \
+        * FLAG_DEL
+    if dup:
+        fired = deliver & (_hash32(seed, t, src, dst, _SALT_DUP) < dup_num)
+        flags += fired.to(torch.uint8) * FLAG_DUP
+    if out_ok:
+        reply = (_hash32(seed, t, dst, src, _SALT_LOSS) >= loss_num if loss
+                 else torch.ones_like(send))
+        flags += reply.to(torch.uint8) * FLAG_OUT_OK
+    return flags
+
+
+def faulted_gather_round_plain(payload: torch.Tensor,
+                               received: torch.Tensor | None,
+                               rec: torch.Tensor, nbrs: torch.Tensor,
+                               flags: torch.Tensor):
+    inbox = gather_or_plain(payload, nbrs, (flags & FLAG_DEL) != 0)
+    dup_pc = torch.zeros((), dtype=torch.int64, device=payload.device)
+    if received is not None:
+        dup = (flags & FLAG_DUP) != 0
+        inbox |= gather_or_plain(received, nbrs, dup)
+        pc_src = col_popcount_plain(received, node_major=True)
+        src = nbrs.clamp(0, received.shape[0] - 1).to(torch.int64)
+        dup_pc = torch.where(dup, pc_src[src], 0).sum(dtype=torch.int64) \
+            & MASK32
+    new = inbox & ~rec
+    return new, rec | new, dup_pc
+
+
 # -- build and load ------------------------------------------------------
 
 
@@ -377,6 +430,13 @@ def _lib(name: str) -> ctypes.CDLL:
                                           i64, i64, i32, ptr],
                 "gg_col_popcount_nm": [ptr, ptr, i64, i64, ptr],
                 "gg_gather_nodes_per_block": [i64, i32]},
+            "fault_flood": {
+                "gg_fault_coins": [ptr, ptr, ptr, ptr, i64, i32, i64, i64,
+                                   i64, i64, i64, i64, i32, i32, i32, ptr],
+                "gg_faulted_gather_round": [ptr, ptr, ptr, ptr, ptr, ptr,
+                                            ptr, ptr, i64, i64, i64, i32,
+                                            ptr],
+                "gg_faulted_nodes_per_block": [i64, i32]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -648,3 +708,101 @@ def sync_diff_pc(payload: torch.Tensor, recv: torch.Tensor,
                 nbrs.data_ptr(), None if live is None else live.data_ptr(),
                 out.data_ptr(), n, w, payload.shape[0], d)
     return out
+
+
+def _check_table(nbrs: torch.Tensor, mask: torch.Tensor | None, name: str,
+                 dtype: torch.dtype) -> None:
+    """Validate an (n, D) neighbor table and a per-edge ``mask`` of
+    ``dtype`` shaped like it (or None)."""
+    if nbrs.dtype != torch.int32 or nbrs.dim() != 2 \
+            or not nbrs.is_contiguous() or nbrs.shape[1] < 1:
+        raise ValueError("nbrs must be a contiguous (n, D) torch.int32 "
+                         f"table, D >= 1, got {nbrs.dtype} "
+                         f"{tuple(nbrs.shape)}")
+    if mask is not None and (mask.dtype != dtype
+                             or mask.shape != nbrs.shape
+                             or not mask.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor "
+                         "shaped like nbrs")
+
+
+def fault_coins(nbrs: torch.Tensor, up: torch.Tensor, *, t: int, seed: int,
+                loss_num: int, dup_num: int, loss: bool, dup: bool,
+                out_ok: bool, live: torch.Tensor | None = None,
+                row0: int = 0) -> torch.Tensor:
+    """The round's per-edge coins as one (n, D) uint8 flag byte an edge of
+    the slab ``nbrs`` (node rows ``row0 ..``): :data:`FLAG_SEND` (live —
+    ``live``, else ``nbrs >= 0`` — and both endpoints ``up``),
+    :data:`FLAG_DEL` (sent and not dropped by the loss coin of src ->
+    dst), :data:`FLAG_DUP` (delivered and the dup coin fired) and, with
+    ``out_ok``, :data:`FLAG_OUT_OK` (the loss coin of dst -> src did not
+    drop).  ``loss`` / ``dup``: whether each stream is active this round
+    (``t`` below its horizon); the coins are the reference's
+    ``edge_drop`` / ``edge_dup`` hashes of ``(seed, t, src, dst)`` over
+    the source index clipped into ``up``'s rows."""
+    _check_table(nbrs, live, "live", torch.bool)
+    if up.dtype != torch.bool or up.dim() != 1 or not up.is_contiguous():
+        raise ValueError("up must be a contiguous (N,) bool tensor")
+    n, d = nbrs.shape
+    if not 0 <= row0 <= up.shape[0] - n:
+        raise ValueError(f"rows [{row0}, {row0 + n}) are not node ids of "
+                         f"the {up.shape[0]}-row up vector")
+    args = dict(t=t, seed=seed, loss_num=loss_num, dup_num=dup_num,
+                loss=loss, dup=dup, out_ok=out_ok, live=live, row0=row0)
+    if _on_cpu(*[x for x in (nbrs, up, live) if x is not None]):
+        return fault_coins_plain(nbrs, up, **args)
+    flags = torch.empty(n, d, dtype=torch.uint8, device=nbrs.device)
+    if n:
+        _launch("fault_coins", _lib("fault_flood").gg_fault_coins,
+                nbrs.device, nbrs.data_ptr(),
+                None if live is None else live.data_ptr(), up.data_ptr(),
+                flags.data_ptr(), n, d, up.shape[0], row0, t & MASK32,
+                seed & MASK32, loss_num & MASK32, dup_num & MASK32,
+                int(loss), int(dup), int(out_ok))
+    return flags
+
+
+def faulted_gather_round(payload: torch.Tensor,
+                         received: torch.Tensor | None, rec: torch.Tensor,
+                         nbrs: torch.Tensor, flags: torch.Tensor):
+    """One faulted gather round over the slab ``nbrs`` / ``rec`` / ``flags``
+    (n rows): ``inbox[i] = OR_d (DEL ? payload[nbrs[i, d]] : 0) | (DUP ?
+    received[nbrs[i, d]] : 0)``, ``new = inbox & ~rec``, ``rec_next = rec
+    | new`` (new tensors: on sync rounds ``payload`` is ``received``), and
+    the dup charge ``sum over DUP edges of popc(received[nbrs[i, d]])``
+    mod 2^32 as a () int64.  ``received=None``: no dup stream (the DUP
+    bits are not read).  Indices are clipped into the payload's rows.
+    Returns ``(new, rec_next, dup_pc)``."""
+    _check_bitset("payload", payload)
+    _check_bitset("rec", rec)
+    _check_table(nbrs, flags, "flags", torch.uint8)
+    if received is not None:
+        _check_bitset("received", received)
+        if received.shape != payload.shape:
+            raise ValueError(f"received {tuple(received.shape)} must be "
+                             f"shaped like payload {tuple(payload.shape)}")
+    if payload.shape[0] < 1 or payload.shape[0] > MAX_NODES \
+            or rec.shape[0] > MAX_NODES:
+        raise ValueError(f"the gather takes 1 to {MAX_NODES} nodes")
+    if rec.shape != (nbrs.shape[0], payload.shape[1]):
+        raise ValueError(f"rec {tuple(rec.shape)} must be (n, W) = "
+                         f"({nbrs.shape[0]}, {payload.shape[1]})")
+    xs = [payload, rec, nbrs, flags] + ([] if received is None
+                                        else [received])
+    if _on_cpu(*xs):
+        return faulted_gather_round_plain(payload, received, rec, nbrs,
+                                          flags)
+    n, d = nbrs.shape
+    w = payload.shape[1]
+    new, rec_next = torch.empty_like(rec), torch.empty_like(rec)
+    # the kernel adds uint32 words into the low half of a zeroed int64
+    dup_pc = torch.zeros((), dtype=torch.int64, device=payload.device)
+    if new.numel():
+        _launch("faulted_gather_round",
+                _lib("fault_flood").gg_faulted_gather_round, payload.device,
+                payload.data_ptr(),
+                None if received is None else received.data_ptr(),
+                rec.data_ptr(), nbrs.data_ptr(), flags.data_ptr(),
+                new.data_ptr(), rec_next.data_ptr(), dup_pc.data_ptr(), n, w,
+                payload.shape[0], d)
+    return new, rec_next, dup_pc

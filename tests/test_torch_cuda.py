@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from gossip_glomers_tpu_torch.parallel import topology
-from gossip_glomers_tpu_torch.tpu_sim import (broadcast, kernels, structured,
-                                              timing)
+from gossip_glomers_tpu_torch.tpu_sim import (broadcast, faults, kernels,
+                                              structured, timing)
 
 SHAPES = [(w, n) for w in (1, 8, 32, 128) for n in (1, 5, 4097, (1 << 16) + 3)]
 # the shift kernels' edge cases: a row one node short of a tile, exactly
@@ -302,3 +302,113 @@ def test_cuda_shift_sims_match_cpu_sim(cuda_device, topo, n, kw):
                 topo, n, 64, sync_every=sync_every, srv_ledger=srv,
                 device=dev, **kw),
             broadcast.make_inject(n, 64)))
+
+
+def _fault_inputs(w, n, seed, device):
+    """A -1-padded degree-8 table with indices past the rows (clipped), a
+    partition mask, an up vector with a tenth of the nodes down, the
+    payload, the dup rows and the receivers' bitsets."""
+    rng = np.random.default_rng(seed)
+    nbrs = torch.from_numpy(
+        rng.integers(-1, n + 3, (n, 8)).astype(np.int32)).to(device)
+    live = torch.from_numpy(rng.random((n, 8)) < 0.7).to(device)
+    up = torch.from_numpy(rng.random(n) >= 0.1).to(device)
+    return (nbrs, live, up, _bits((n, w), seed, device),
+            _bits((n, w), seed + 1, device), _bits((n, w), seed + 2, device))
+
+
+FAULT_COINS = dict(t=11, seed=0xC0FFEE, loss_num=int(0.3 * 2**32),
+                   dup_num=int(0.2 * 2**32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("w,n", SHAPES)
+def test_cuda_fault_kernels_match_plain(cuda_device, w, n, offset):
+    # fault_coins and faulted_gather_round against their plain versions:
+    # every (loss, dup) stream, with and without the partition mask, on the
+    # whole table and on a slab [lo, hi) off the block grid, on views 4
+    # bytes into their allocation (offset 1)
+    nbrs, live, up, payload, received, rec = _fault_inputs(
+        w, n, 5 * n + w, cuda_device)
+    lo = min(n - 1, kernels.gather_nodes_per_block(w) // 2 + 1)
+    before = dict(kernels.LAUNCHES)
+    calls = 0
+    for a, b in ((0, n), (lo, max(n - 3, lo + 1))):
+        nb, lv, rc = nbrs[a:b], live[a:b], rec[a:b]
+        v = {k: _at_offset(x, offset * (4 if x.element_size() == 1 else 1))
+             for k, x in (("nb", nb), ("lv", lv), ("rc", rc), ("up", up),
+                          ("payload", payload), ("received", received))}
+        for loss in (False, True):
+            for dup in (False, True):
+                for masked in (False, True):
+                    kw = dict(FAULT_COINS, loss=loss, dup=dup, out_ok=True,
+                              row0=a)
+                    flags = kernels.fault_coins(
+                        v["nb"], v["up"], live=v["lv"] if masked else None,
+                        **kw)
+                    want = kernels.fault_coins_plain(
+                        nb, up, live=lv if masked else None, **kw)
+                    assert torch.equal(flags, want)
+                    got = kernels.faulted_gather_round(
+                        v["payload"], v["received"] if dup else None,
+                        v["rc"], v["nb"], _at_offset(want, 4 * offset))
+                    ref = kernels.faulted_gather_round_plain(
+                        payload, received if dup else None, rc, nb, want)
+                    for g, r in zip(got, ref):
+                        assert torch.equal(g, r)
+                    calls += 1
+    torch.cuda.synchronize()
+    for name in ("fault_coins", "faulted_gather_round"):
+        assert kernels.LAUNCHES[name] == before[name] + calls
+
+
+@pytest.mark.cuda
+def test_cuda_faulted_geometry_matches_kernel(cuda_device):
+    lib = kernels._lib("fault_flood")
+    for w in GATHER_EDGE_WORDS + (2, 4, 5, 64, 1000):
+        assert lib.gg_faulted_nodes_per_block(w, 1) \
+            == kernels.gather_nodes_per_block(w), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("crash_loss_dup", "crash_loss_dup_blocked",
+                                  "crash_loss_srv_windows", "membership"))
+def test_cuda_faulted_gather_sim_matches_cpu_sim(cuda_device, mode):
+    n, nv = 4097, 96
+    nbrs = topology.random_regular(n, 8, seed=0)
+    spec = dict(n_nodes=n, seed=3, crash=((2, 9, tuple(range(0, n, 11))),),
+                loss_rate=0.1, loss_until=10)
+    kw = dict(n_values=nv, sync_every=4, srv_ledger=False)
+    if mode.startswith("crash_loss_dup"):
+        spec.update(dup_rate=0.05, dup_until=10)
+        if mode.endswith("blocked"):
+            kw["union_block"] = 241            # 4097 = 17 x 241
+    elif mode == "crash_loss_srv_windows":
+        group = np.random.default_rng(7).integers(0, 2, (1, n))
+        kw.update(srv_ledger=True, sync_every=3,
+                  parts=broadcast.Partitions.from_numpy([2], [12], group))
+    else:
+        spec.update(join=((3, (5, 6, 7)),), leave=((6, (40,)),))
+    spec = faults.NemesisSpec(**spec)
+    if mode == "membership":                   # the leaver never converges
+        runs = []
+        for dev in ("cpu", cuda_device):
+            sim = broadcast.BroadcastSim(nbrs, fault_plan=spec.compile(dev),
+                                         device=dev, **kw)
+            state, rounds = sim.run_fused(broadcast.make_inject(n, nv),
+                                          max_rounds=20)
+            runs.append((rounds, broadcast.state_to_numpy(
+                state, words_major=False)))
+        assert runs[0][0] == runs[1][0] == 20
+        np.testing.assert_array_equal(runs[0][1][0], runs[1][1][0])
+        assert runs[0][1][2:] == runs[1][1][2:]
+        return
+    before = dict(kernels.LAUNCHES)
+    _assert_runs_equal(_run_both(
+        lambda dev: broadcast.BroadcastSim(
+            nbrs, fault_plan=spec.compile(dev), device=dev, **kw),
+        broadcast.make_inject(n, nv)))
+    assert kernels.LAUNCHES["fault_coins"] > before["fault_coins"]
+    assert kernels.LAUNCHES["faulted_gather_round"] \
+        > before["faulted_gather_round"]

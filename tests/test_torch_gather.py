@@ -200,16 +200,25 @@ def test_flood_step_matches_reference(n_windows, srv):
 
 
 def test_flood_step_unported_modes_raise():
+    # the delay and provenance modes raise; the fault modes run (without
+    # a plan, dup_on and union_block leave the round as it is, as in the
+    # reference)
     nbrs = torch.from_numpy(_nbrs("tree"))
-    state = pbc.state_from_numpy(np.zeros((N, 1), np.uint32),
-                                 np.zeros((N, 1), np.uint32), 0, 0, None,
-                                 "cpu", words_major=False)
-    for kw in ({"delays": object()}, {"plan": object()}, {"dup_on": True},
-               {"union_block": 8}, {"prov": object()}):
+    inject = jbc.make_inject(N, 40)
+    state = pbc.state_from_numpy(inject, inject, 0, 0, None, "cpu",
+                                 words_major=False)
+    kw = dict(nbrs=nbrs, nbr_mask=nbrs >= 0, parts=pbc.Partitions.none(N),
+              sync_every=3)
+    for mode in ({"delays": object()}, {"delay_set": (1, 2)},
+                 {"prov": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pbc.flood_step(state, nbrs=nbrs, nbr_mask=nbrs >= 0,
-                           parts=pbc.Partitions.none(N), sync_every=3,
-                           **kw)
+            pbc.flood_step(state, **kw, **mode)
+    plain = pbc.flood_step(state, **kw)
+    for mode in ({"dup_on": True}, {"union_block": 8},
+                 {"plan": None, "dup_on": True, "union_block": 8}):
+        got = pbc.flood_step(state, **kw, **mode)
+        assert torch.equal(got.received, plain.received)
+        assert int(got.msgs) == int(plain.msgs)
 
 
 def _assert_same(jsim, jstate, psim, pstate):

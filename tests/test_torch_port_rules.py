@@ -13,7 +13,8 @@ import torch
 
 from gossip_glomers_tpu_torch.parallel.topology import (to_padded_neighbors,
                                                         tree)
-from gossip_glomers_tpu_torch.tpu_sim import broadcast, kernels, structured
+from gossip_glomers_tpu_torch.tpu_sim import (broadcast, faults, kernels,
+                                              structured)
 from gossip_glomers_tpu_torch.tpu_sim import timing
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -62,21 +63,32 @@ def test_no_silent_cpu_default(monkeypatch):
 def test_unported_modes_raise():
     nbrs = to_padded_neighbors(tree(8))
     ex = structured.make_exchange("tree", 8)
-    # the node-major gather path (exchange=None) constructs now; a
-    # partition schedule on the structured path still raises
+    # the node-major gather path (exchange=None) constructs, under a
+    # fault plan and slab blocking too; a partition schedule or a fault
+    # plan on the structured path still raises
     assert not broadcast.BroadcastSim(nbrs, n_values=4,
                                       device="cpu").words_major
+    plan = faults.NemesisSpec(n_nodes=8, crash=((1, 3, (2,)),),
+                              loss_rate=0.1).compile(device="cpu")
+    for kw in ({"fault_plan": plan}, {"union_block": 4},
+               {"fault_plan": plan, "union_block": 4, "srv_ledger": False}):
+        sim = broadcast.BroadcastSim(nbrs, n_values=4, device="cpu", **kw)
+        assert not sim.words_major
+        assert sim._ub == (4 if "srv_ledger" in kw else None)
     parts = broadcast.Partitions.from_numpy(np.array([1]), np.array([3]),
                                             np.zeros((1, 8), np.int8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
                                parts=parts)
     for mode in ("mesh", "faulted", "delays", "delayed",
-                 "edge_delayed", "fault_plan", "nemesis", "union_block",
-                 "dcn_mode"):
+                 "edge_delayed", "fault_plan", "nemesis", "dcn_mode"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
                                    device="cpu", **{mode: object()})
+    # the reference's own refusal: slab blocking is the gather path's
+    with pytest.raises(ValueError, match="gather-free"):
+        broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
+                               union_block=object())
     # an explicit None is the reference's default and is accepted
     broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
                            mesh=None)
