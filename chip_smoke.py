@@ -22,8 +22,13 @@ flood at 1,048,576 nodes, on every topology the port runs:
    with every loss/dup stream combination, with and without a partition
    mask, on whole tables and on slabs of rows off the block grid, on
    4-byte-offset views, at the same edges and at (2^20, 1) and (2^20,
-   128) — and each one's median time at the main path's shapes, with
-   its bound and the share of it reached (``bound_share`` = bound /
+   128); the masked structured exchanges (``tree_masked_exchange``,
+   ``shift_masked_exchange`` in every shift mode) and the words-major
+   coins (``wm_fault_coins``, every stream and the ledger mode) under
+   all-live, none-live and random packed rows, on 4-byte-offset views, at
+   the small shapes and at (1, 2^20) with the tree's 2 rows and the
+   circulant's 8 — and each one's median time at the main path's shapes,
+   with its bound and the share of it reached (``bound_share`` = bound /
    device time).
 3. ``w1_tree``: the 4-ary tree with 32 values (W = 1 word per node), the
    fixed-trip flood to ``discover_rounds`` timed with CUDA events, then
@@ -56,7 +61,26 @@ flood at 1,048,576 nodes, on every topology the port runs:
     the server ledger is on) under the partitioned phase's window, sync
     waves every 16 rounds, run to convergence and held against the CPU
     path, ``srv_msgs`` included.
-11. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
+11. ``w1_circulant_partitioned``: benchmarks/run_all.py's ``config4c``
+    on the structured path: the circulant expander under the partitioned
+    phase's window and groups, sync waves every 16 rounds, through the
+    masked shift exchange; run to convergence, the fixed trip timed, then
+    the accounted run (server ledger on), held against the CPU path and
+    the card's gather path on ``circulant(n, strides)`` under the same
+    ``Partitions``.
+12. ``w1_tree_nemesis``: the 4-ary tree under
+    benchmarks/fault_sweep.py's structured plan (every 97th node down over
+    rounds [2, 16), loss 0.1 and dup 0.05 until round 17, seed 5), sync
+    waves every 8 rounds, server ledger off, through the masked tree
+    exchange and the words-major coins; run to convergence host-stepped
+    (not before the faults clear), then the fixed trip timed, with its
+    kernel launches a round; held against the CPU path and the card's
+    gather path on ``to_padded_neighbors(tree(n))`` under the same plan.
+13. ``w1_circulant_nemesis_accounted``: a loss-only plan (loss 0.1 until
+    13, seed 0) composed with ``config4c``'s window on the structured
+    circulant, sync waves every 16 rounds, server ledger on; held against
+    the CPU path and the card's gather path, ``srv_msgs`` included.
+14. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
     run to convergence with the server ledger on, each held against the
     CPU path (coverage, not timing).
 
@@ -108,6 +132,8 @@ JAX_PKG = "gossip_glomers_tpu/tpu_sim/"
 KERNELS = {
     "tree_exchange": ("tree_flood.cu", "benchmarks/pallas_tree_probe.py:74",
                       "tree_exchange_kernel"),
+    "tree_masked_exchange": ("tree_flood.cu", JAX_PKG + "structured.py:662",
+                             "tree_masked_exchange_kernel"),
     "tree_flood_round": ("tree_flood.cu",
                          "benchmarks/pallas_tree_probe.py:74",
                          "tree_flood_round_kernel"),
@@ -119,6 +145,8 @@ KERNELS = {
                        "shift_tiles_kernel"),
     "shift_flood_round": ("shift_flood.cu", JAX_PKG + "broadcast.py:288",
                           "shift_tiles_kernel"),
+    "shift_masked_exchange": ("shift_flood.cu", JAX_PKG + "structured.py:688",
+                              "shift_tiles_kernel"),
     "gather_or": ("gather_flood.cu", JAX_PKG + "broadcast.py:185",
                   "gather_or_kernel"),
     "sync_diff_pc": ("gather_flood.cu", JAX_PKG + "broadcast.py:247",
@@ -129,6 +157,8 @@ KERNELS = {
                     "fault_coins_kernel"),
     "faulted_gather_round": ("fault_flood.cu", JAX_PKG + "broadcast.py:557",
                              "faulted_gather_round_kernel"),
+    "wm_fault_coins": ("fault_flood.cu", JAX_PKG + "faults.py:690",
+                       "wm_fault_coins_kernel"),
 }
 # kernels the main path does not launch: the gather round runs the fused
 # gather_flood_round; gather_or stays the reference _gather_or's
@@ -138,10 +168,11 @@ OFF_MAIN_PATH = ("gather_or",)
 # (2^20, 128), degree 8
 GATHER_SHAPES = [(1, N_NODES), (W128_VALUES // 32, N_NODES)]
 # the profiler's names of the port's kernels (csrc/*.cu __global__s)
-PORT_KERNEL = re.compile(r"(tree_exchange|tree_flood_round|col_popcount|"
-                         r"col_popcount_nm|shift_tiles|gather_or|"
-                         r"sync_diff_pc|gather_flood_round|fault_coins|"
-                         r"faulted_gather_round)_kernel")
+PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
+                         r"tree_flood_round|col_popcount|col_popcount_nm|"
+                         r"shift_tiles|gather_or|sync_diff_pc|"
+                         r"gather_flood_round|fault_coins|"
+                         r"faulted_gather_round|wm_fault_coins)_kernel")
 LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 
 
@@ -245,8 +276,16 @@ def device_ms(fn, kernel: str, calls: int = 1) -> float | None:
 def device_busy_ms(make_run) -> float | None:
     """Total device time (ms) of everything one staged run launched
     (None: not measured)."""
+    return busy_and_spans(make_run)[0]
+
+
+def busy_and_spans(make_run) -> tuple[float | None, int | None]:
+    """(total device ms, device spans) of one staged run: every kernel,
+    copy and set it launched (None, None: not measured)."""
     spans = device_spans(make_run)
-    return None if spans is None else sum(s["us"] for s in spans) / 1e3
+    if spans is None:
+        return None, None
+    return sum(s["us"] for s in spans) / 1e3, len(spans)
 
 
 def max_abs_err(a, b) -> int:
@@ -418,6 +457,70 @@ def check_faults(kernels, note, case, lo: int = 0, hi: int | None = None,
                     payload, received if dup else None, rc, nb, want)))
 
 
+ROW_MODES = ("all", "none", "random")
+
+
+def packed_rows(kernels, d: int, n: int, mode: str, seed: int, device):
+    """(d, ceil(n/32)) packed liveness rows: every node live, none, or
+    random words (the bits past n random too: no kernel may read them)."""
+    import torch
+
+    if mode == "all":
+        return kernels.pack_bits(torch.ones((d, n), dtype=torch.bool,
+                                            device=device))
+    if mode == "none":
+        return torch.zeros((d, kernels.packed_words(n)), dtype=torch.int32,
+                           device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-(1 << 31), 1 << 31, (d, kernels.packed_words(n)),
+                         dtype=torch.int32, device=device, generator=gen)
+
+
+WM_STREAMS = ((False, False, False), (True, False, False),
+              (False, True, False), (True, True, False),
+              (False, False, True), (True, False, True))
+WM_COINS = {"t": 5, "seed": 5, "loss_num": int(0.3 * 2**32),
+            "dup_num": int(0.2 * 2**32)}
+
+
+def check_masked(kernels, structured, topology, note, fr, seed: int,
+                 offset: int = 0) -> None:
+    """The masked exchanges and the words-major coins against their plain
+    versions over one (W, N) payload ``fr``: every row mode, the tree's
+    two rows apart, every shift mode, every coin stream (loss, dup, the
+    ledger mode), each operand ``offset`` words into its allocation."""
+    import torch
+
+    w, n = fr.shape
+    frk = at_offset(fr, offset)
+    for mode in ROW_MODES:
+        rows = packed_rows(kernels, 2, n, mode, seed, fr.device)
+        rk = [at_offset(r, offset) for r in rows]
+        note("tree_masked_exchange", (
+            kernels.tree_masked_exchange(frk, rk[0], rk[1], BRANCHING),
+            kernels.tree_masked_exchange_plain(fr, rows[0], rows[1],
+                                               BRANCHING)))
+        for _, topo, kw in shift_modes(n, topology):
+            dirs = structured.shift_dirs(topo, n, **kw)
+            live = packed_rows(kernels, len(dirs.offs), n, mode, seed + 1,
+                               fr.device)
+            note("shift_masked_exchange", (
+                kernels.shift_masked_exchange(frk, at_offset(live, offset),
+                                              dirs),
+                kernels.shift_masked_exchange_plain(fr, live, dirs)))
+        gen = torch.Generator(device=fr.device).manual_seed(seed + 2)
+        ids = torch.randint(0, n, (2, 3, n), dtype=torch.int32,
+                            device=fr.device, generator=gen)
+        live = packed_rows(kernels, 3, n, mode, seed + 3, fr.device)
+        args = [at_offset(x, offset) for x in (ids[0], ids[1], live)]
+        for loss, dup, srv in WM_STREAMS:
+            kw = dict(WM_COINS, loss=loss, dup=dup, srv=srv)
+            got = kernels.wm_fault_coins(*args, **kw)
+            want = kernels.wm_fault_coins_plain(ids[0], ids[1], live, **kw)
+            note("wm_fault_coins", *((g, x) for g, x in zip(got, want)
+                                     if x is not None))
+
+
 def check_kernels(kernels, structured, topology, device) -> dict:
     """Every kernel, in every mode, against its plain version on the card;
     returns the per-kernel max |kernel - plain| over all shapes (must be
@@ -486,6 +589,10 @@ def check_kernels(kernels, structured, topology, device) -> dict:
         note("col_popcount", (kernels.col_popcount(rec),
                               kernels.col_popcount_plain(rec)))
         check_shift(rec, fr, n)
+        if (w, n) in CHECK_SHAPES + MAIN_SHAPES[:1]:
+            for offset in (0, 1):
+                check_masked(kernels, structured, topology, note, fr,
+                             w + n + offset, offset)
         del rec, fr, rk, nk, rp, np_
         payload, recv, nbrs, live = gather_inputs(w, n, n + w, device,
                                                   topology)
@@ -519,6 +626,26 @@ def nemesis_spec(faults, n: int, dup: bool):
     if dup:
         kw.update(dup_rate=0.05, dup_until=13)
     return faults.NemesisSpec(**kw)
+
+
+def tree_nemesis_spec(faults, n: int):
+    """benchmarks/fault_sweep.py's structured plan (``_faulted_round_row``
+    at 16 rounds): every 97th node down over rounds [2, 16), loss 0.1 and
+    dup 0.05 until round 17, seed 5."""
+    return faults.NemesisSpec(
+        n_nodes=n, seed=5, crash=((2, 16, tuple(range(0, n, 97))),),
+        loss_rate=0.1, loss_until=17, dup_rate=0.05, dup_until=17)
+
+
+def config4c_parts(broadcast, n: int):
+    """run_all.py config4c's schedule: one half/half window over rounds
+    [2, 24), groups ``default_rng(7).integers(0, 2, n)``; returns
+    (Partitions, (1, n) groups)."""
+    import numpy as np
+
+    group = np.random.default_rng(7).integers(0, 2, n).astype(
+        np.int8)[None, :]
+    return broadcast.Partitions.from_numpy([2], [24], group), group
 
 
 def _timed(name, kern, plain, bound_ms_by) -> dict:
@@ -643,6 +770,52 @@ def time_kernels(kernels, structured, topology, device) -> dict:
             out[name][(w, n)] = _timed(name, kern, plain, b)
         del payload, recv
         torch.cuda.empty_cache()
+    del nbrs, flags, plan, up
+    # the masked exchanges and the words-major coins at (1, 2^20), on the
+    # rows of the structured fault phases at round 5: the tree nemesis's
+    # two delivery rows, the circulant's eight under config4c's window
+    n, k = N_NODES, BRANCHING
+    fr = torch.randint(-(1 << 31), 1 << 31, (1, n), dtype=torch.int32,
+                       device=device, generator=gen)
+    spec = tree_nemesis_spec(faults, n)
+    plan = spec.compile(device)
+    arrs = structured.make_nemesis("tree", n, spec, device=device).arrs
+    live = faults.wm_live_rows(plan, 5, arrs, (), ())
+    rows, _ = faults.wm_live_del(plan, 5, arrs, (), (), True)
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    dirs = structured.shift_dirs("circulant", n, strides=strides)
+    exists, same = structured.fault_masks(
+        "circulant", n, config4c_parts(broadcast, n)[1], strides=strides)
+    circ = kernels.pack_bits(torch.from_numpy(exists & same[0])).to(device)
+    coins = dict(t=5, seed=plan.seed, loss_num=plan.loss_num,
+                 dup_num=plan.dup_num, loss=True, dup=True, srv=False)
+    n_live, n_del = (int(kernels.popcount(x).sum()) for x in (live, rows))
+    nw, d_circ, d_tree = kernels.packed_words(n), len(dirs.offs), 2
+    runs = {
+        # the payload, the inbox and the two packed rows; a bit test, a
+        # load and an OR for the parent and each child
+        "tree_masked_exchange": (
+            lambda: kernels.tree_masked_exchange(fr, rows[0], rows[1], k),
+            lambda: kernels.tree_masked_exchange_plain(fr, rows[0],
+                                                       rows[1], k),
+            bound(2 * 4 * n + 2 * 4 * nw, 3 * (k + 1) * n)),
+        "shift_masked_exchange": (
+            lambda: kernels.shift_masked_exchange(fr, circ, dirs),
+            lambda: kernels.shift_masked_exchange_plain(fr, circ, dirs),
+            bound(2 * 4 * n + 4 * d_circ * nw, 3 * d_circ * n)),
+        # the two id rows and the packed rows in, two packed rows out; a
+        # hash of some 13 integer operations a drawn coin (loss on every
+        # live edge, dup on every delivered one) and a few an edge
+        "wm_fault_coins": (
+            lambda: kernels.wm_fault_coins(arrs.src, arrs.dst, live,
+                                           **coins),
+            lambda: kernels.wm_fault_coins_plain(arrs.src, arrs.dst, live,
+                                                 **coins),
+            bound(2 * 4 * d_tree * n + 3 * 4 * d_tree * nw,
+                  13 * (n_live + n_del) + 4 * d_tree * n)),
+    }
+    for name, (kern, plain, b) in runs.items():
+        out[name][(1, n)] = _timed(name, kern, plain, b)
     return out
 
 
@@ -1004,6 +1177,211 @@ def nemesis_phases(modules, faults, topology, device,
     torch.cuda.empty_cache()
 
 
+def launches_of(kernels, run) -> int:
+    """Port-kernel launches of one call of ``run``."""
+    import torch
+
+    before = sum(kernels.LAUNCHES.values())
+    run()
+    torch.cuda.synchronize()
+    return sum(kernels.LAUNCHES.values()) - before
+
+
+def timed_fixed(sim, timing, kernels, inject, rounds: int) -> dict:
+    """The fixed trip of ``rounds`` rounds timed with CUDA events (median
+    of 3), its device busy time and spans under the profiler, and the
+    port-kernel launches of one run; checks that it converges."""
+    tr = timing.TimedRun(sim, inject, rounds)
+    tr.prepare()
+    tr.sample(3)
+    wall_s, _, fixed = tr.finish()
+
+    def staged():
+        state0, _ = sim.stage(inject)
+        return lambda: sim.run_staged_fixed(state0, rounds, donate=True)
+
+    busy_ms, spans = busy_and_spans(staged)
+    port = launches_of(kernels, staged())
+    return {"wall_ms": wall_s * 1e3,
+            "samples_ms": [x * 1e3 for x in tr.samples],
+            "ms_per_round": wall_s / rounds * 1e3,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": idle_share(busy_ms, wall_s * 1e3),
+            "port_launches_per_round": port / rounds,
+            "device_spans_per_round": None if spans is None
+            else spans / rounds}, fixed
+
+
+def same_run(a_sim, a, b_sim, b) -> bool:
+    """Two runs on (possibly) different layouts and devices agree: t,
+    ledgers and the received sets."""
+    return (a.t == b.t and int(a.msgs) == int(b.msgs)
+            and (a.srv_msgs is None) == (b.srv_msgs is None)
+            and (a.srv_msgs is None or int(a.srv_msgs) == int(b.srv_msgs))
+            and bool((a_sim.received_node_major(a)
+                      == b_sim.received_node_major(b)).all()))
+
+
+def structured_fault_phases(modules, faults, structured, kernels, topology,
+                            device, launches: Launches) -> None:
+    """Maelstrom's faults on the structured main path at 2^20 nodes:
+    config4c's partition window on the circulant, fault_sweep.py's
+    structured plan on the tree, and a loss-only plan under config4c's
+    window with the server ledger on; each held against the port's CPU
+    path and the card's gather path on the same graph."""
+    import torch
+
+    broadcast, timing = modules
+    n = N_NODES
+    inject = broadcast.make_inject(n, W1_VALUES)
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    circ_nbrs = topology.circulant(n, strides)
+    parts, group = config4c_parts(broadcast, n)
+
+    # -- w1_circulant_partitioned: config4c ---------------------------
+    def part_sim(dev, srv):
+        return timing.structured_sim("circulant", n, W1_VALUES,
+                                     sync_every=16, parts=parts,
+                                     srv_ledger=srv, device=dev,
+                                     strides=strides)
+
+    launches.start()
+    fast = part_sim(device, False)
+    state, rounds = fast.run_fused(inject)
+    if not fast.converged(state, fast.target_bits(inject)) or rounds <= 24:
+        raise AssertionError(f"w1_circulant_partitioned: {rounds} rounds, "
+                             "not converged after the window")
+    rec = {"phase": "w1_circulant_partitioned", "n": n,
+           "n_values": W1_VALUES, "window": [2, 24], "sync_every": 16,
+           "rounds": rounds}
+    timed, fixed = timed_fixed(fast, timing, kernels, inject, rounds)
+    rec.update(timed)
+    acct = part_sim(device, True)
+    state_a, rounds_a = acct.run_fused(inject)
+    gsim = broadcast.BroadcastSim(circ_nbrs, n_values=W1_VALUES,
+                                  sync_every=16, parts=parts, device=device)
+    state_g, rounds_g = gsim.run_fused(inject)
+    launches.stop(rec, ("shift_masked_exchange", "shift_exchange",
+                        "col_popcount", "gather_flood_round"))
+    if not (rounds_a == rounds_g == rounds and same_run(fast, state, fast,
+                                                        fixed)
+            and int(state_a.msgs) == int(state.msgs)
+            and same_run(acct, state_a, gsim, state_g)):
+        raise AssertionError("w1_circulant_partitioned: the fixed, "
+                             "accounted and gather runs differ")
+    cpu = part_sim("cpu", True)
+    cpu_state, cpu_rounds = cpu.run_fused(inject)
+    if not (cpu_rounds == rounds and same_run(acct, state_a, cpu,
+                                              cpu_state)):
+        raise AssertionError("w1_circulant_partitioned: GPU run differs "
+                             "from the CPU path")
+    rec.update({"msgs": int(state_a.msgs),
+                "srv_msgs": acct.server_msgs(state_a),
+                "gather_rounds": rounds_g, "cpu_match": True})
+    emit(rec)
+    del fast, state, fixed, acct, state_a, gsim, state_g, cpu, cpu_state
+    torch.cuda.empty_cache()
+
+    # -- w1_tree_nemesis: fault_sweep.py --structured ----------------
+    spec = tree_nemesis_spec(faults, n)
+    tree_nbrs = topology.to_padded_neighbors(topology.tree(n, BRANCHING))
+
+    def tree_sim(dev, structured_path):
+        kw = (dict(exchange=structured.make_exchange("tree", n),
+                   nemesis=structured.make_nemesis("tree", n, spec,
+                                                   device=dev))
+              if structured_path else {})
+        return broadcast.BroadcastSim(tree_nbrs, n_values=W1_VALUES,
+                                      sync_every=8, srv_ledger=False,
+                                      fault_plan=spec.compile(dev),
+                                      device=dev, **kw)
+
+    launches.start()
+    nem = tree_sim(device, True)
+    state, rounds = nem.run(inject)            # host-stepped discovery
+    if not nem.converged(state, nem.target_bits(inject)) \
+            or rounds < spec.clear_round:
+        raise AssertionError(f"w1_tree_nemesis: {rounds} rounds, not "
+                             "converged once the faults cleared at round "
+                             f"{spec.clear_round}")
+    rec = {"phase": "w1_tree_nemesis", "n": n, "n_values": W1_VALUES,
+           "sync_every": 8, "crash": [2, 16, "range(0, n, 97)"],
+           "loss_rate": 0.1, "dup_rate": 0.05, "until": 17,
+           "clear_round": spec.clear_round, "rounds": rounds}
+    timed, fixed = timed_fixed(nem, timing, kernels, inject, rounds)
+    rec.update(timed)
+    gsim = tree_sim(device, False)
+    state_g, rounds_g = gsim.run(inject)
+    launches.stop(rec, ("tree_masked_exchange", "wm_fault_coins",
+                        "col_popcount", "fault_coins",
+                        "faulted_gather_round"))
+    if not (rounds_g == rounds and same_run(nem, state, nem, fixed)
+            and same_run(nem, state, gsim, state_g)):
+        raise AssertionError("w1_tree_nemesis: the structured and gather "
+                             "runs differ")
+    cpu = tree_sim("cpu", True)
+    cpu_state, cpu_rounds = cpu.run(inject)
+    if not (cpu_rounds == rounds and same_run(nem, state, cpu, cpu_state)):
+        raise AssertionError("w1_tree_nemesis: GPU run differs from the "
+                             "CPU path")
+    rec.update({"msgs": int(state.msgs), "gather_rounds": rounds_g,
+                "cpu_match": True})
+    emit(rec)
+    del nem, state, fixed, gsim, state_g, cpu, cpu_state
+    torch.cuda.empty_cache()
+
+    # -- w1_circulant_nemesis_accounted: loss-only under config4c -----
+    spec = faults.NemesisSpec(n_nodes=n, seed=0, loss_rate=0.1,
+                              loss_until=13)
+
+    def loss_sim(dev, structured_path):
+        kw = (dict(exchange=structured.make_exchange("circulant", n,
+                                                     strides=strides),
+                   nemesis=structured.make_nemesis(
+                       "circulant", n, spec, groups=group, device=dev,
+                       strides=strides))
+              if structured_path else {})
+        return broadcast.BroadcastSim(circ_nbrs, n_values=W1_VALUES,
+                                      sync_every=16, parts=parts,
+                                      fault_plan=spec.compile(dev),
+                                      device=dev, **kw)
+
+    launches.start()
+    acct = loss_sim(device, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, rounds = acct.run_fused(inject)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if not acct.converged(state, acct.target_bits(inject)) \
+            or rounds <= max(24, spec.clear_round):
+        raise AssertionError(f"w1_circulant_nemesis_accounted: {rounds} "
+                             "rounds, not converged after the faults")
+    rec = {"phase": "w1_circulant_nemesis_accounted", "n": n,
+           "n_values": W1_VALUES, "sync_every": 16, "window": [2, 24],
+           "loss_rate": 0.1, "until": 13, "rounds": rounds,
+           "run_ms_host_clock": run_s * 1e3, "msgs": int(state.msgs),
+           "srv_msgs": acct.server_msgs(state)}
+    gsim = loss_sim(device, False)
+    state_g, rounds_g = gsim.run_fused(inject)
+    launches.stop(rec, ("shift_masked_exchange", "wm_fault_coins",
+                        "col_popcount", "fault_coins",
+                        "faulted_gather_round"))
+    if not (rounds_g == rounds and same_run(acct, state, gsim, state_g)):
+        raise AssertionError("w1_circulant_nemesis_accounted: the "
+                             "structured and gather runs differ")
+    cpu = loss_sim("cpu", True)
+    cpu_state, cpu_rounds = cpu.run_fused(inject)
+    if not (cpu_rounds == rounds and same_run(acct, state, cpu,
+                                              cpu_state)):
+        raise AssertionError("w1_circulant_nemesis_accounted: GPU run "
+                             "differs from the CPU path")
+    rec.update({"gather_rounds": rounds_g, "cpu_match": True})
+    emit(rec)
+    del acct, state, gsim, state_g, cpu, cpu_state
+    torch.cuda.empty_cache()
+
+
 def small_floods(modules, device, launches: Launches) -> None:
     """Grid, ring and line floods run to convergence with the server
     ledger on, on the card and on the CPU (coverage, not timing)."""
@@ -1096,6 +1474,8 @@ def main() -> int:
                     launches)
     gather_phases(modules, topology, device, launches)
     nemesis_phases(modules, faults, topology, device, launches)
+    structured_fault_phases(modules, faults, structured, kernels, topology,
+                            device, launches)
     small_floods(modules, device, launches)
 
     for name, count in launches.total.items():

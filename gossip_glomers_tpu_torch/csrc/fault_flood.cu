@@ -24,6 +24,16 @@
 //   and the dup charge sum_{DUP} popc(received[src]) mod 2^32.
 //   Replaces: broadcast.py :475-483 (the dup ledger charge), :557-560 (the
 //   two masked gathers) and :579 (the merge).
+// - wm_fault_coins:       the words-major (structured) nemesis's coins over
+//   (D, N) sender and receiver id rows and a packed send-liveness row set
+//   (D rows of (N + 31) / 32 int32 words, node i at bit i % 32 of word
+//   i / 32), written as packed rows too.  Delivery mode: out0 = live and
+//   the loss coin of src -> dst did not drop, out1 = out0 and the dup coin
+//   fired.  Ledger mode (srv): out0 = live and the loss coin of dst -> src
+//   (the reply) did not drop, out1 = out0 and the coin of src -> dst did
+//   not either.  Replaces: faults.py wm_live_del (:690) and wm_srv_rows
+//   (:705), XLA elementwise hashes over the (D, N) rows, some 30 int64
+//   torch operations a coin in the plain version.
 //
 // The coin is the reference's counter hash: h = mix32(src * 0xC2B2AE35 ^
 // dst * 0x27D4EB2F ^ t * 0x9E3779B9 ^ seed ^ salt), a drop iff h < loss_num
@@ -42,9 +52,16 @@
 // faulted_gather_round 0.068 ms at W = 1 and 1.93 ms at W = 128 (bounds
 // 0.0175 and 0.654).
 //
-// Design.  fault_coins: one thread per edge slot, a grid-stride loop; the
-// hashes are a few dozen integer operations an edge, far below the card's
-// rate.  faulted_gather_round: gather_flood.cu's lane groups and launch
+// wm_fault_coins reads the two (D, N) id rows once (8 bytes an edge) and
+// its packed rows, and writes one or two packed rows: bytes bound it, 16
+// MiB of ids for the tree's two delivery rows at 2^20 nodes.
+//
+// Design.  wm_fault_coins: a thread a (row, node), a warp 32 consecutive
+// nodes, so that the warp's coins are one packed word: __ballot_sync
+// gathers them and lane 0 stores it; threads past N vote 0.  A node whose
+// liveness bit is clear draws no hash.  fault_coins: one thread per edge
+// slot, a grid-stride loop; the hashes are a few dozen integer operations
+// an edge, far below the card's rate.  faulted_gather_round: gather_flood.cu's lane groups and launch
 // geometry (a thread a node at W = 1, a lane per 16-byte vector of the row
 // when W % 4 == 0 and every row is 16-byte aligned, else a lane per word,
 // up to a warp a node), D = 8 a template instance with vector loads of the
@@ -114,6 +131,46 @@ __global__ void __launch_bounds__(kThreads) fault_coins_kernel(const Coins c) {
         && (!c.loss || edge_hash(key ^ kSaltLoss, dst, src) >= c.loss_num))
       f |= kOutOk;
     c.flags[e] = f;
+  }
+}
+
+struct WmCoins {
+  const int32_t* src;   // (d, n) sender ids of each direction row
+  const int32_t* dst;   // (d, n) receiver ids
+  const uint32_t* live; // (d, nw) packed send liveness
+  uint32_t* out0;       // (d, nw) packed
+  uint32_t* out1;       // (d, nw) packed, or null (delivery mode, no dup)
+  int64_t n, nw;
+  uint32_t t, seed, loss_num, dup_num;
+  int32_t loss, dup, srv;  // streams active this round; ledger mode
+};
+
+__global__ void __launch_bounds__(kThreads) wm_fault_coins_kernel(
+    const WmCoins c) {
+  const int64_t row = blockIdx.y;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;  // == i % 32: blocks start on a word
+  const int64_t word = i >> 5;
+  const uint32_t key = c.t * 0x9E3779B9u ^ c.seed;
+  bool b0 = false, b1 = false;
+  if (i < c.n && ((__ldg(c.live + row * c.nw + word) >> lane) & 1u)) {
+    const uint32_t s = static_cast<uint32_t>(__ldg(c.src + row * c.n + i));
+    const uint32_t r = static_cast<uint32_t>(__ldg(c.dst + row * c.n + i));
+    const bool fwd =
+        !c.loss || edge_hash(key ^ kSaltLoss, s, r) >= c.loss_num;
+    if (c.srv) {
+      b0 = !c.loss || edge_hash(key ^ kSaltLoss, r, s) >= c.loss_num;
+      b1 = b0 && fwd;
+    } else {
+      b0 = fwd;
+      b1 = fwd && c.dup && edge_hash(key ^ kSaltDup, s, r) < c.dup_num;
+    }
+  }
+  const uint32_t w0 = __ballot_sync(0xffffffffu, b0);
+  const uint32_t w1 = __ballot_sync(0xffffffffu, b1);
+  if (lane == 0 && word < c.nw) {
+    c.out0[row * c.nw + word] = w0;
+    if (c.out1 != nullptr) c.out1[row * c.nw + word] = w1;
   }
 }
 
@@ -331,6 +388,38 @@ extern "C" int gg_fault_coins(const void* nbrs, const void* live,
   if (blocks > (int64_t{1} << 30)) blocks = int64_t{1} << 30;
   fault_coins_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src, dst: (d, n) int32 node ids; live, out0 and out1 (null: not
+// written) (d, ceil(n / 32)) int32 packed rows.
+extern "C" int gg_wm_fault_coins(const void* src, const void* dst,
+                                 const void* live, void* out0, void* out1,
+                                 int64_t d, int64_t n, int64_t t,
+                                 int64_t seed, int64_t loss_num,
+                                 int64_t dup_num, int loss, int dup, int srv,
+                                 void* stream) {
+  if (n < 1 || d < 1 || d > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WmCoins c;
+  c.src = static_cast<const int32_t*>(src);
+  c.dst = static_cast<const int32_t*>(dst);
+  c.live = static_cast<const uint32_t*>(live);
+  c.out0 = static_cast<uint32_t*>(out0);
+  c.out1 = static_cast<uint32_t*>(out1);
+  c.n = n;
+  c.nw = (n + 31) / 32;
+  c.t = static_cast<uint32_t>(t);
+  c.seed = static_cast<uint32_t>(seed);
+  c.loss_num = static_cast<uint32_t>(loss_num);
+  c.dup_num = static_cast<uint32_t>(dup_num);
+  c.loss = loss;
+  c.dup = dup;
+  c.srv = srv;
+  const dim3 grid(static_cast<unsigned>((c.nw * 32 + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(d));
+  wm_fault_coins_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(c);
   return static_cast<int>(cudaGetLastError());
 }
 

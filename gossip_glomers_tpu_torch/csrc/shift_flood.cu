@@ -17,7 +17,16 @@
 // grid_terms / grid_exchange, line_terms / line_exchange, ring_exchange
 // and circulant_exchange (:170-222), each a few rolls or shifted
 // concatenations ORed together, and the _flood_loop body over them
-// (broadcast.py:285-289).  No Pallas kernel stood there.
+// (broadcast.py:285-289).  No Pallas kernel stood there.  The masked
+// exchange (gg_shift_masked_exchange) replaces grid_masked_exchange,
+// circulant_masked_exchange and line_masked_exchange (:688-720) and the
+// ring, circulant, grid and line branches of _nem_closures' exchange
+// (:1780-1873): direction d's term at receiver i counts only where bit i
+// of the d-th packed liveness row is set ((N + 31) / 32 int32 words a
+// row, node i at bit i % 32 of word i / 32: the circulant's 8 rows are
+// 1 MiB at 2^20 nodes, a quarter of its W = 1 bitset).  The consumers
+// read the live word of each direction beside the staged source word; a
+// warp's 32 consecutive nodes share one or two of them, which L1 serves.
 //
 // Bound on the card: memory bytes.  A word costs a handful of integer
 // operations per direction against 4 bytes moved; the exchange must read
@@ -100,6 +109,7 @@ struct Plan {
   int32_t dat[kMaxDirs];    // direction d: its window's offset in a stage
   int32_t ddelta[kMaxDirs]; // direction d: o_d - lo of its window
   int32_t dmask[kMaxDirs];  // direction d: column-mask flags
+  int32_t dlive[kMaxDirs];  // direction d: its liveness row (padding: 0)
   int32_t n_win, n_dirs;    // n_dirs padded; 0 when the table is empty
   int32_t tile;             // nodes per tile, 1 <= tile <= n
   int32_t stages;           // tiles in flight per block
@@ -298,14 +308,16 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
 
 // The consumers: for each tile, wait for its stage, fill what the copies
 // could not stage, then OR the N directions out of the stage, word t by
-// thread t % 256, and release the stage.
-template <int N, bool kMasked, bool kFused>
+// thread t % 256 (kLive: each only where its liveness bit is set), and
+// release the stage.
+template <int N, bool kMasked, bool kFused, bool kLive>
 __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
                                         uint64_t* empty, const Desc* desc,
                                         const uint32_t* src,
                                         uint32_t* received, uint32_t* out,
-                                        int64_t n, const Walk& wk,
-                                        const Plan& p) {
+                                        const uint32_t* live, int64_t n,
+                                        const Walk& wk, const Plan& p) {
+  const int64_t live_words = (n + 31) >> 5;
   const int tid = threadIdx.x;
   const bool none = p.n_dirs == 0;
   for (int64_t k = 0; k < wk.mine; ++k) {
@@ -341,8 +353,9 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
       for (int j = 0; j < kUnroll; ++j) {
         const int t = t0 + j * kConsumers;
         if (t >= tl) break;
+        const int64_t x = at.i0 + t;
         int64_t col = 0;
-        if (kMasked) col = (at.i0 + t) % p.cols;
+        if (kMasked) col = x % p.cols;
         uint32_t v = 0u;
 #pragma unroll
         for (int d = 0; d < N; ++d) {
@@ -351,6 +364,10 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
             if ((f & kMaskLeft) && col >= p.cols - 1) continue;
             if ((f & kMaskRight) && col == 0) continue;
           }
+          if (kLive && !none
+              && !((__ldg(live + p.dlive[d] * live_words + (x >> 5))
+                    >> (x & 31)) & 1u))
+            continue;
           v |= q[d][t];
         }
         if (none) v = 0u;
@@ -372,11 +389,13 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
 }
 
 // kFused: the pure-flood round (src = frontier, out = frontier_next,
-// received updated in place).  Else the exchange (out = inbox).
-template <int N, bool kMasked, bool kFused>
+// received updated in place).  Else the exchange (out = inbox), under the
+// packed liveness rows `live` when kLive.
+template <int N, bool kMasked, bool kFused, bool kLive>
 __global__ void __launch_bounds__(kThreads, 1) shift_tiles_kernel(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ received,
-    uint32_t* __restrict__ out, int64_t w, int64_t n, const Plan p) {
+    uint32_t* __restrict__ out, const uint32_t* __restrict__ live, int64_t w,
+    int64_t n, const Plan p) {
   extern __shared__ __align__(128) uint32_t smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
   __shared__ Desc desc[kMaxStages];
@@ -395,8 +414,8 @@ __global__ void __launch_bounds__(kThreads, 1) shift_tiles_kernel(
   if (threadIdx.x >= kConsumers)
     produce<kFused>(smem, full, empty, desc, src, received, n, wk, p);
   else
-    consume<N, kMasked, kFused>(smem, full, empty, desc, src, received,
-                                out, n, wk, p);
+    consume<N, kMasked, kFused, kLive>(smem, full, empty, desc, src,
+                                       received, out, live, n, wk, p);
 }
 
 // Unpacks the host's plan words and pads the directions to a power of
@@ -433,6 +452,7 @@ bool unpack(const int64_t* words, int len, Plan* p) {
   }
   for (int d = 0; d < p->n_dirs; ++d) {
     const int64_t* e = dir + kDirWords * (d < n_dirs ? d : 0);
+    p->dlive[d] = d < n_dirs ? d : 0;
     const int k = static_cast<int>(e[0]);
     if (k < 0 || k >= p->n_win) return false;
     p->dlo[d] = p->lo[k];
@@ -487,10 +507,10 @@ cudaError_t grid_size(const void* kernel, int64_t tiles, size_t smem,
   return cudaSuccess;
 }
 
-template <int N, bool kMasked, bool kFused>
-int launch_n(const void* src, void* received, void* out, int64_t w,
-             int64_t n, const Plan& p, cudaStream_t stream) {
-  const auto kernel = shift_tiles_kernel<N, kMasked, kFused>;
+template <int N, bool kMasked, bool kFused, bool kLive>
+int launch_n(const void* src, void* received, void* out, const void* live,
+             int64_t w, int64_t n, const Plan& p, cudaStream_t stream) {
+  const auto kernel = shift_tiles_kernel<N, kMasked, kFused, kLive>;
   const size_t smem = static_cast<size_t>(p.stages) * p.stage_words * 4;
   int blocks = 0;
   const cudaError_t err =
@@ -499,45 +519,50 @@ int launch_n(const void* src, void* received, void* out, int64_t w,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(src), static_cast<uint32_t*>(received),
-      static_cast<uint32_t*>(out), w, n, p);
+      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(live), w, n,
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMasked, bool kFused>
-int launch_masked(const void* src, void* received, void* out, int64_t w,
-                  int64_t n, const Plan& p, cudaStream_t stream) {
+template <bool kMasked, bool kFused, bool kLive>
+int launch_masked(const void* src, void* received, void* out,
+                  const void* live, int64_t w, int64_t n, const Plan& p,
+                  cudaStream_t stream) {
   switch (p.n_dirs) {
     case 0:
     case 1:
-      return launch_n<1, kMasked, kFused>(src, received, out, w, n, p,
-                                          stream);
+      return launch_n<1, kMasked, kFused, kLive>(src, received, out, live, w,
+                                                 n, p, stream);
     case 2:
-      return launch_n<2, kMasked, kFused>(src, received, out, w, n, p,
-                                          stream);
+      return launch_n<2, kMasked, kFused, kLive>(src, received, out, live, w,
+                                                 n, p, stream);
     case 4:
-      return launch_n<4, kMasked, kFused>(src, received, out, w, n, p,
-                                          stream);
+      return launch_n<4, kMasked, kFused, kLive>(src, received, out, live, w,
+                                                 n, p, stream);
     case 8:
-      return launch_n<8, kMasked, kFused>(src, received, out, w, n, p,
-                                          stream);
+      return launch_n<8, kMasked, kFused, kLive>(src, received, out, live, w,
+                                                 n, p, stream);
     default:
-      return launch_n<16, kMasked, kFused>(src, received, out, w, n, p,
-                                           stream);
+      return launch_n<16, kMasked, kFused, kLive>(src, received, out, live,
+                                                  w, n, p, stream);
   }
 }
 
-template <bool kFused>
-int launch(const void* src, void* received, void* out, int64_t w, int64_t n,
-           const int64_t* plan, int plan_len, void* stream) {
+// kLive only without kFused: the three modes the entry points take.
+template <bool kFused, bool kLive>
+int launch(const void* src, void* received, void* out, const void* live,
+           int64_t w, int64_t n, const int64_t* plan, int plan_len,
+           void* stream) {
   Plan p;
   if (!unpack(plan, plan_len, &p) || (kFused && p.rec_at < 0) || p.tile > n)
     return static_cast<int>(cudaErrorInvalidValue);
   bool masked = false;
   for (int d = 0; d < p.n_dirs; ++d) masked = masked || p.dmask[d] != 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  return masked ? launch_masked<true, kFused>(src, received, out, w, n, p, s)
-                : launch_masked<false, kFused>(src, received, out, w, n, p,
-                                               s);
+  return masked ? launch_masked<true, kFused, kLive>(src, received, out, live,
+                                                     w, n, p, s)
+                : launch_masked<false, kFused, kLive>(src, received, out,
+                                                      live, w, n, p, s);
 }
 
 }  // namespace
@@ -552,14 +577,24 @@ int launch(const void* src, void* received, void* out, int64_t w, int64_t n,
 extern "C" int gg_shift_exchange(const void* payload, void* inbox, int64_t w,
                                  int64_t n, const int64_t* plan,
                                  int plan_len, void* stream) {
-  return launch<false>(payload, nullptr, inbox, w, n, plan, plan_len,
-                       stream);
+  return launch<false, false>(payload, nullptr, inbox, nullptr, w, n, plan,
+                              plan_len, stream);
+}
+
+// live: (directions, ceil(n / 32)) packed liveness rows, int32 words (not
+// read when the table has no direction).
+extern "C" int gg_shift_masked_exchange(const void* payload, const void* live,
+                                        void* inbox, int64_t w, int64_t n,
+                                        const int64_t* plan, int plan_len,
+                                        void* stream) {
+  return launch<false, true>(payload, nullptr, inbox, live, w, n, plan,
+                             plan_len, stream);
 }
 
 extern "C" int gg_shift_flood_round(void* received, const void* frontier,
                                     void* frontier_next, int64_t w,
                                     int64_t n, const int64_t* plan,
                                     int plan_len, void* stream) {
-  return launch<true>(frontier, received, frontier_next, w, n, plan,
-                      plan_len, stream);
+  return launch<true, false>(frontier, received, frontier_next, nullptr, w,
+                             n, plan, plan_len, stream);
 }

@@ -10,6 +10,13 @@
 // `kernel` (the fused 4-ary tree inbox, the form of
 // gossip_glomers_tpu/tpu_sim/structured.py tree_exchange), which Mosaic
 // never lowered: its 4:1 child compress is here a plain strided load.
+// tree_masked_exchange is that inbox under per-edge liveness, the
+// reference's XLA structured.py tree_masked_exchange (:662) and the tree
+// branch of _nem_closures' exchange (:1752-1755): the parent's word is
+// taken where the receiver's bit of the "parent" row is set, and child
+// c's word where c's bit of the "kids" row is set (before the k:1 fold).
+// Both rows are packed bits, (N + 31) / 32 words, node i at bit i % 32 of
+// word i / 32: at W = 1 they move 1/16 of the bytes the bitsets do.
 //
 // Bound on the card: memory bytes.  Each word is a handful of integer
 // operations against 4 bytes moved, far below the card's operation rate,
@@ -17,7 +24,8 @@
 // SXM).  tree_exchange reads the payload once and writes the inbox once
 // (2 bitsets), tree_flood_round reads frontier and received and writes
 // received and the next frontier (4 bitsets), col_popcount reads one
-// bitset and writes N counts.  The design keeps every access coalesced: a
+// bitset and writes N counts; tree_masked_exchange moves the exchange's 2
+// bitsets and the two packed rows (N / 4 bytes).  The design keeps every access coalesced: a
 // warp's 32 consecutive nodes read 32 consecutive received words, a span
 // of 32 * k consecutive child words (the k loads per thread stride by k
 // words, so each load instruction touches the same cache lines its
@@ -53,6 +61,30 @@ __global__ void tree_exchange_kernel(const uint32_t* __restrict__ payload,
   if (i >= n) return;
   const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
   inbox[base + i] = tree_inbox(payload + base, i, n, k);
+}
+
+// Bit i of a packed liveness row.  A warp's 32 consecutive nodes read one
+// or two words of it, which L1 serves to every lane.
+__device__ __forceinline__ bool live_bit(const uint32_t* __restrict__ row,
+                                         int64_t i) {
+  return (__ldg(row + (i >> 5)) >> (i & 31)) & 1u;
+}
+
+__global__ void tree_masked_exchange_kernel(
+    const uint32_t* __restrict__ payload, const uint32_t* __restrict__ live_p,
+    const uint32_t* __restrict__ live_k, uint32_t* __restrict__ inbox,
+    int64_t n, int k) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
+  const uint32_t* row = payload + base;
+  uint32_t v = i > 0 && live_bit(live_p, i) ? __ldg(row + (i - 1) / k) : 0u;
+  int64_t c = static_cast<int64_t>(k) * i + 1;
+  const int64_t end = c + k < n ? c + k : n;
+  for (; c < end; ++c)
+    if (live_bit(live_k, c)) v |= __ldg(row + c);
+  inbox[base + i] = v;
 }
 
 __global__ void tree_flood_round_kernel(uint32_t* __restrict__ received,
@@ -98,6 +130,20 @@ extern "C" int gg_tree_exchange(const void* payload, void* inbox, int64_t w,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(payload), static_cast<uint32_t*>(inbox),
       n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// live_p and live_k: (ceil(n / 32),) packed rows.
+extern "C" int gg_tree_masked_exchange(const void* payload, const void* live_p,
+                                       const void* live_k, void* inbox,
+                                       int64_t w, int64_t n, int k,
+                                       void* stream) {
+  tree_masked_exchange_kernel<<<node_grid(n, w), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(payload),
+      static_cast<const uint32_t*>(live_p),
+      static_cast<const uint32_t*>(live_k), static_cast<uint32_t*>(inbox), n,
+      k);
   return static_cast<int>(cudaGetLastError());
 }
 

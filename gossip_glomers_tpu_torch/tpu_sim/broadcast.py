@@ -13,7 +13,10 @@ and every ``sync_every`` rounds the payload is the full received set (the
 reference's push-pull anti-entropy).  Two layouts, as in the reference:
 
 - **words-major (W, N)** with a structured exchange (tree, grid, ring,
-  line, circulant: :mod:`.structured`) — the main path;
+  line, circulant: :mod:`.structured`) — the main path — under a
+  partition schedule (the masked closures of
+  :func:`.structured.make_faulted`) and the nemesis (the mask bundle of
+  :func:`.structured.make_nemesis` with its :class:`.faults.FaultPlan`);
 - **node-major (N, W)** with the adjacency gather over a padded (N, D)
   neighbor table — any topology, under a partition schedule
   (:class:`Partitions`) and a nemesis :class:`.faults.FaultPlan`
@@ -29,8 +32,8 @@ host int: the round schedule (sync waves, the t == 0 ledger coefficient,
 which partition windows are active) is host control flow in eager
 PyTorch.
 
-Modes not ported yet raise: meshes, partitions and fault plans on the
-structured path, and the delay and provenance modes (ROADMAP.md Queue A).
+Modes not ported yet raise: meshes, and the delay and provenance modes
+(ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -49,9 +52,8 @@ from .kernels import FLAG_DEL, FLAG_OUT_OK, FLAG_SEND, MASK32
 
 WORD = 32
 
-_UNPORTED = ("mesh", "faulted", "delays", "delayed", "edge_delayed",
-             "nemesis", "dcn_mode", "sharded_exchange",
-             "sharded_sync_diff")
+_UNPORTED = ("mesh", "delays", "delayed", "edge_delayed", "dcn_mode",
+             "sharded_exchange", "sharded_sync_diff")
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -427,28 +429,109 @@ def flood_step(state: BroadcastState, *, nbrs: torch.Tensor,
 def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
               exchange: Callable[[torch.Tensor], torch.Tensor],
               sync_diff: Callable[[torch.Tensor], torch.Tensor] | None = None,
+              live: torch.Tensor | None = None, faulted=None,
               ) -> BroadcastState:
-    """Words-major round (plain mode of the reference's ``_round_wm``).
-    ``deg`` is the per-node topology degree (int64); every edge is live,
-    so the live degree equals it."""
+    """Words-major round (the reference's ``_round_wm``, plain and
+    partition modes).  ``deg`` is the per-node topology degree (int64).
+    Under an active partition window ``live`` holds the round's (D,
+    ceil(N/32)) packed per-direction liveness (:meth:`BroadcastSim.
+    _live_rows`) and ``faulted`` the :class:`.structured.StructuredFaults`
+    bundle whose masked closures take it; the ledgers then use the live
+    degree ``live.sum(0)``, the gather path's per-edge accounting.  With
+    no active window every edge is live and the plain closures deliver
+    what the masked ones would under the bare exists rows."""
     t = state.t
     is_sync = t % sync_every == 0 and t > 0
     payload = state.received if is_sync else state.frontier
+    if live is None:
+        live_deg = deg
+        deliver, diff = exchange, sync_diff
+    else:
+        live_deg = kernels.count_rows(live, deg.shape[0])
+        deliver = lambda p: faulted.exchange(p, live)  # noqa: E731
+        diff = lambda r: faulted.sync_diff(r, live)  # noqa: E731
     pc = kernels.col_popcount(payload)
-    sent = _dot32(pc, deg)
+    sent = _dot32(pc, live_deg)
     srv = None
     if state.srv_msgs is not None:
-        pcf = kernels.col_popcount(state.frontier) if is_sync else pc
-        d2 = 2 * deg                          # d + ld
-        coef = d2 if t == 0 else (d2 - 2).clamp(min=0)
-        srv = state.srv_msgs + _dot32(pcf, coef)
-        if is_sync:
-            srv = srv + wrap32(d2.sum()) + 2 * sync_diff(state.received)
-        srv = wrap32(srv)
-    new = exchange(payload) & ~state.received
+        srv = _srv_ledger(
+            state.srv_msgs, t=t, is_sync=is_sync,
+            pcf=kernels.col_popcount(state.frontier) if is_sync else pc,
+            req_deg=deg, ack_deg=live_deg,
+            diff=lambda: diff(state.received))
+    new = deliver(payload) & ~state.received
     return BroadcastState(received=state.received | new, frontier=new,
                           t=t + 1, msgs=wrap32(state.msgs + sent),
                           srv_msgs=srv)
+
+
+def _dup_charge(src_pc: Callable, dup: torch.Tensor,
+                counts: torch.Tensor) -> torch.Tensor:
+    """() int64 holding a uint32: the popcount at the source of every dup
+    edge.  ``counts`` is the (1, N) per-node popcount; ``src_pc`` moves
+    it to each direction's contract positions (a repeat, shift or roll:
+    no gather), where the packed ``dup`` rows select it."""
+    rows = kernels.unpack_bits(dup, counts.shape[1])
+    at = torch.cat([src_pc(d, counts) for d in range(rows.shape[0])])
+    return wrap32(torch.where(rows, at, 0).sum(dtype=torch.int64))
+
+
+def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
+                  parts: Partitions, sync_every: int, dup_on: bool,
+                  deg_topo: torch.Tensor) -> BroadcastState:
+    """Words-major round under the full nemesis (the reference's
+    ``_round_wm_nem`` without ``dir_delays``): a compiled plan (crash /
+    restart amnesia, per-direction loss, duplicate delivery) composed
+    with partition windows, gather-free and bit-exact with the gather
+    path's faulted round.  ``nem`` is the
+    :class:`.structured.StructuredNemesis` bundle and ``arrs`` its
+    operand on the sim's device; ``deg_topo`` the degree contract's
+    topology degree.
+
+    The amnesia columns are wiped at crash entry; ``msgs`` charges the
+    payload against the live SEND degree (partitions and both endpoints
+    up; a lost message was still sent); each direction's term is gated
+    by liveness and its loss coin (:func:`.faults.wm_live_del`), and dup
+    edges re-deliver the source's whole received set, charged at its
+    popcount.  The server ledger runs for loss-only plans (the sim keeps
+    it off otherwise): requests at send time, replies where the reply's
+    coin survives, sync diffs over the pairs whose two coins survive
+    (:func:`.faults.wm_srv_rows`)."""
+    t = state.t
+    rec0, fr0 = state.received, state.frontier
+    wipe = faults.wm_wipe_cols(plan, t, arrs.down_cols)
+    if wipe is not None:
+        rec0 = rec0.masked_fill(wipe[None, :], 0)
+        fr0 = fr0.masked_fill(wipe[None, :], 0)
+    is_sync = t % sync_every == 0 and t > 0
+    payload = rec0 if is_sync else fr0
+    n = deg_topo.shape[0]
+    ps, pe = parts.starts, parts.ends
+    deg_live = faults.wm_live_rows(plan, t, arrs, ps, pe, deg=True)
+    live_deg = (deg_topo if deg_live is arrs.deg_exists
+                else kernels.count_rows(deg_live, n))
+    pc = kernels.col_popcount(payload)
+    sent = _dot32(pc, live_deg)
+    srv = None
+    if state.srv_msgs is not None:
+        _, ack, both = faults.wm_srv_rows(plan, t, arrs, ps, pe,
+                                          live=deg_live)
+        srv = _srv_ledger(
+            state.srv_msgs, t=t, is_sync=is_sync,
+            pcf=kernels.col_popcount(fr0) if is_sync else pc,
+            req_deg=deg_topo,
+            ack_deg=live_deg if ack is deg_live else kernels.count_rows(
+                ack, n),
+            diff=lambda: nem.sync_diff(rec0, both))
+    live_del, dup = faults.wm_live_del(plan, t, arrs, ps, pe, dup_on)
+    inbox = nem.exchange(payload, live_del)
+    if dup is not None:
+        inbox = inbox | nem.exchange(rec0, dup)
+        counts = kernels.col_popcount(rec0)[None, :]
+        sent = sent + _dup_charge(nem.src_pc, dup, counts)
+    new = inbox & ~rec0
+    return BroadcastState(received=rec0 | new, frontier=new, t=t + 1,
+                          msgs=wrap32(state.msgs + sent), srv_msgs=srv)
 
 
 def _degree_masks(np_deg: np.ndarray, device: torch.device):
@@ -493,14 +576,14 @@ def _flood_ledger(state: BroadcastState, rec: torch.Tensor,
 
 class BroadcastSim:
     """Round-synchronous broadcast simulator on one device (the
-    reference's single-device ``BroadcastSim``, fault-free on the
-    structured path, under partitions and fault plans on the gather
-    path).
+    reference's single-device ``BroadcastSim``), under partition
+    schedules and fault plans on both layouts.
 
     - **words-major (W, N)** with a structured ``exchange`` from
       :func:`.structured.make_exchange`: gather-free delivery for the
       named topologies, with the fused flood-round kernels on its
-      fixed-trip path;
+      fixed-trip path; a partition schedule through ``faulted=``, a
+      fault plan through ``nemesis=``;
     - **node-major (N, W)** with ``exchange=None``: the adjacency gather
       over ``nbrs`` (any topology), under an optional partition schedule
       ``parts`` and nemesis ``fault_plan``.
@@ -512,7 +595,9 @@ class BroadcastSim:
                  sync_diff: Callable[[torch.Tensor], torch.Tensor]
                  | None = None,
                  srv_ledger: bool = True,
+                 faulted=None,
                  fault_plan: faults.FaultPlan | None = None,
+                 nemesis=None,
                  union_block=None,
                  device: str | torch.device | None = None,
                  **unported) -> None:
@@ -522,18 +607,23 @@ class BroadcastSim:
         round), or None for the node-major gather path.  ``sync_diff``:
         the matching :func:`.structured.make_sync_diff` closure, which
         the words-major server ledger needs (the gather path computes
-        its own).  ``parts``: a partition schedule, gather path only
-        here (on the structured path it needs the masked exchanges and
-        raises).  ``fault_plan``: a :class:`.faults.FaultPlan` (crash,
-        loss, dup, membership; gather path only here), its dup stream on
-        when its ``dup_num`` is; a dup stream needs ``srv_ledger=False``.
-        ``union_block``: stream the faulted rounds over destination slabs
+        its own).  ``parts``: a partition schedule; on the structured
+        path it needs ``faulted`` (:func:`.structured.make_faulted` over
+        the same groups) or ``nemesis``.  ``fault_plan``: a
+        :class:`.faults.FaultPlan` (crash, loss, dup, membership on the
+        gather path), its dup stream on when its ``dup_num`` is; a dup
+        stream needs ``srv_ledger=False``.  ``nemesis``: the
+        :class:`.structured.StructuredNemesis` bundle of the same spec
+        (:func:`.structured.make_nemesis`, partition groups included),
+        which a plan on the structured path needs; it subsumes
+        ``faulted``, and the server ledger stays on there only for
+        loss-only plans.  ``union_block``: stream the gather path's
+        faulted rounds over destination slabs
         (:func:`.engine.resolve_block`: an int, ``"auto"``,
         ``"materialized"``, or None for the ``GG_UNION_BLOCK`` env);
         blocked rounds keep no server ledger.  ``device``: where the
         state lives (default CUDA; raises if there is none).  Reference
-        modes not ported yet (``mesh``, ``nemesis``, delays, ...) raise
-        when given."""
+        modes not ported yet (``mesh``, delays, ...) raise when given."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -544,17 +634,60 @@ class BroadcastSim:
                             "structured.make_exchange")
         n = nbrs.shape[0]
         parts = Partitions.none(n) if parts is None else parts
-        if exchange is not None and parts.n_windows:
-            raise _unported("a partition schedule on the words-major "
-                            "structured path (structured.make_faulted)")
         if parts.group.shape[1:] != (n,):
             raise ValueError(f"Partitions group {tuple(parts.group.shape)}"
                              f" is not (P, {n})")
-        if exchange is not None and fault_plan is not None:
-            raise _unported("a FaultPlan on the words-major structured "
-                            "path (its nemesis= bundle, "
-                            "structured.make_nemesis)")
-        if union_block is not None and exchange is not None:
+        words_major = exchange is not None
+        n_windows = parts.n_windows
+        self._faulted = faulted if words_major and n_windows else None
+        if words_major and n_windows and faulted is None and nemesis is None:
+            raise ValueError(
+                "a words-major structured run under a partition "
+                "schedule needs the masked closures: pass "
+                "faulted=structured.make_faulted(topology, n, groups)")
+        if self._faulted is not None and (
+                faulted.same.shape[0] != n_windows
+                or faulted.same.shape[-1] != n):
+            raise ValueError(
+                "StructuredFaults masks do not match the partition "
+                f"schedule: same{tuple(faulted.same.shape)} vs "
+                f"{n_windows} windows x {n} nodes")
+        self._nem = nemesis
+        if nemesis is not None:
+            if not words_major:
+                raise ValueError(
+                    "nemesis= is the words-major structured FaultPlan "
+                    "path — it needs a structured exchange (the gather "
+                    "path takes the plan alone)")
+            if fault_plan is None:
+                raise ValueError(
+                    "nemesis= carries the structured masks FOR a "
+                    "FaultPlan — pass fault_plan=spec.compile() too")
+            if faulted is not None:
+                raise ValueError(
+                    "nemesis= subsumes delays/delayed/edge_delayed/"
+                    "faulted: compose partition windows via parts= and "
+                    "per-direction delays via make_nemesis(dir_delays=)")
+            if nemesis.arrs.same.shape[0] != n_windows \
+                    or nemesis.arrs.n_nodes != n:
+                raise ValueError(
+                    "StructuredNemesis masks do not match the "
+                    "partition schedule: "
+                    f"same{tuple(nemesis.arrs.same.shape)} vs "
+                    f"{n_windows} windows x {n} nodes")
+            if nemesis.arrs.down_pair.shape[0] != len(fault_plan.starts):
+                raise ValueError(
+                    "StructuredNemesis crash masks do not match the "
+                    "FaultPlan's crash windows — rebuild the bundle "
+                    "from the same NemesisSpec")
+        if fault_plan is not None and words_major and nemesis is None:
+            raise ValueError(
+                "a FaultPlan on the words-major structured path "
+                "needs the mask bundle: pass "
+                "nemesis=structured.make_nemesis(topology, n, "
+                "spec, ...) — or drop exchange=/sharded_exchange= "
+                "for the gather path")
+        if union_block is not None and words_major:
             raise ValueError(
                 "union_block streams the GATHER path's 1-hop faulted "
                 "rounds; the words-major path is already gather-free "
@@ -565,13 +698,27 @@ class BroadcastSim:
         self.n_words = num_words(n_values)
         self.sync_every = sync_every
         self.exchange = exchange
-        self.words_major = exchange is not None
+        self.words_major = words_major
         self.parts = parts.to(self.device)
         self._host_deg = (nbrs >= 0).sum(axis=1).astype(np.int64)
         self.deg = torch.as_tensor(self._host_deg, device=self.device)
         if self.words_major:
+            f = self._faulted
+            if f is not None:
+                self._fx_exists = kernels.pack_bits(
+                    torch.from_numpy(f.exists)).to(self.device)
+                self._fx_same = kernels.pack_bits(
+                    torch.from_numpy(f.same)).to(self.device)
+            bundle = nemesis if nemesis is not None else f
+            if bundle is not None:
+                self._srv_on = srv_ledger and bundle.sync_diff is not None
+            else:
+                self._srv_on = srv_ledger and sync_diff is not None
+            if f is not None and sync_diff is None:
+                # outside the windows: the bundle's diff under exists
+                def sync_diff(r, f=f, ex=self._fx_exists):
+                    return f.sync_diff(r, ex)
             self.sync_diff = sync_diff
-            self._srv_on = srv_ledger and sync_diff is not None
             # the structured path never reads the adjacency on device
             self.nbrs = self.nbr_mask = self.row_ids = None
         else:
@@ -581,6 +728,9 @@ class BroadcastSim:
                                         device=self.device)
             self.nbr_mask = self.nbrs >= 0
             self.row_ids = torch.arange(n, device=self.device)
+        if nemesis is not None:
+            self._nem_arrs = nemesis.arrs.to(self.device)
+            self._nem_deg = kernels.count_rows(self._nem_arrs.deg_exists, n)
         self._fp_dup = fault_plan is not None and fault_plan.dup_num > 0
         self._ub = None
         self.fault_plan = None
@@ -601,10 +751,16 @@ class BroadcastSim:
                     "pass srv_ledger=False and read the `msgs` value "
                     "ledger instead")
             self.fault_plan = fault_plan.to(self.device)
-            # per destination row: D edges x (liveness + loss/dup coins +
-            # gather temps), about 16 bytes per edge slot
-            self._ub = resolve_block(n, union_block,
-                                     per_row_bytes=nbrs.shape[1] * 16)
+            if self.words_major:
+                # the bundle's degree-contract coin rows have no crash
+                # liveness decomposition: the words-major ledger keeps
+                # the loss-only accounting and goes off for a crash plan
+                self._srv_on = self._srv_on and not fault_plan.starts
+            else:
+                # per destination row: D edges x (liveness + loss/dup
+                # coins + gather temps), about 16 bytes per edge slot
+                self._ub = resolve_block(n, union_block,
+                                         per_row_bytes=nbrs.shape[1] * 16)
             if self._ub is not None and self._srv_on:
                 if union_block is not None:
                     raise ValueError(
@@ -641,13 +797,31 @@ class BroadcastSim:
 
     # -- drivers ---------------------------------------------------------
 
+    def _live_rows(self, t: int) -> torch.Tensor | None:
+        """(D, ceil(N/32)) packed per-direction liveness of round ``t``
+        under the partition schedule: exists AND same-group under every
+        active window (the per-direction form of :func:`_edge_live`);
+        None when no window is active."""
+        if self._faulted is None or not self.parts.active(t):
+            return None
+        same = self._fx_same
+        return windows_fold(self.parts.starts, self.parts.ends, t,
+                            lambda w, lv: lv & same[w], self._fx_exists)
+
     def step(self, state: BroadcastState) -> BroadcastState:
+        if self._nem is not None:
+            return _round_wm_nem(state, nem=self._nem, arrs=self._nem_arrs,
+                                 plan=self.fault_plan, parts=self.parts,
+                                 sync_every=self.sync_every,
+                                 dup_on=self._fp_dup, deg_topo=self._nem_deg)
         if self.words_major:
             return _round_wm(state, deg=self.deg,
                              sync_every=self.sync_every,
                              exchange=self.exchange,
                              sync_diff=self.sync_diff if self._srv_on
-                             else None)
+                             else None,
+                             live=self._live_rows(state.t),
+                             faulted=self._faulted)
         return _round(state, row_ids=self.row_ids, nbrs=self.nbrs,
                       nbr_mask=self.nbr_mask, parts=self.parts,
                       sync_every=self.sync_every, deg=self.deg,
@@ -683,10 +857,12 @@ class BroadcastSim:
         """(runner, flood parts | None) for exactly ``rounds`` rounds.
         The pure-flood specialization (kernel loop + closed-form ledger)
         applies on the words-major path when no sync wave fires within
-        the trip count and the server ledger is off — the reference's
-        ``flood_ok`` gate with every fault mode absent.  The gather path
-        has none (the reference's gate needs the words-major layout)."""
+        the trip count, the server ledger is off and no fault mode is
+        on (no partition bundle, no plan) — the reference's ``flood_ok``
+        gate.  The gather path has none (the reference's gate needs the
+        words-major layout)."""
         flood_ok = (self.words_major and not self._srv_on
+                    and self._faulted is None and self.fault_plan is None
                     and 0 < rounds <= self.sync_every)
         if not flood_ok:
             def run(state: BroadcastState) -> BroadcastState:
@@ -739,7 +915,10 @@ class BroadcastSim:
         """Reference-accounted server-to-server message total."""
         if state.srv_msgs is None:
             raise ValueError(
-                "server-message ledger is off: srv_ledger=False or, on "
-                "the words-major path, no sync_diff closure "
-                "(structured.make_sync_diff)")
+                "server-message ledger is off: srv_ledger=False, a "
+                "words-major run without its sync_diff closure "
+                "(structured.make_sync_diff), or a words-major FaultPlan "
+                "beyond the loss-only regime (the nemesis bundle's coin "
+                "rows have no crash liveness decomposition; dup streams "
+                "reject at construction)")
         return int(state.srv_msgs)

@@ -4,7 +4,9 @@ delivery and membership, compiled, seeded and replayable.
 The port of gossip_glomers_tpu/tpu_sim/faults.py's host side
 (:class:`NemesisSpec`, :func:`random_spec`, the numpy mirrors) and its
 device evaluators (:func:`node_up`, :func:`amnesia`, the loss and dup
-coins), for the node-major gather path:
+coins) for the node-major gather path, and of its words-major mask
+compilation (:class:`WMNemesisArrays`, :func:`crash_down_rows`, the
+``wm_*`` evaluators) for the structured path:
 
 - **crash/restart**: windows of down nodes; a down node sends and receives
   nothing, and on the round its window starts its volatile state is wiped
@@ -37,7 +39,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .engine import resolve_device, windows_fold
+from . import kernels
+from .engine import active_windows, resolve_device, windows_fold
 
 # distinct stream salts: loss and dup draw independent coins from the
 # same (seed, t, src, dst) counter
@@ -454,6 +457,146 @@ def kv_drop(plan: FaultPlan, t: int, ids) -> torch.Tensor:
     """bool, shaped like ``ids``: node i's KV exchange is lost this
     round."""
     return edge_drop(plan, t, ids, KV_DST)
+
+
+# -- words-major (structured-path) mask compilation ----------------------
+#
+# The gather path evaluates crash liveness and the loss/dup coins per
+# adjacency slot.  On the structured path every delivery is a sum of
+# per-DIRECTION terms with a host-known sender map, so
+#
+# - crash liveness becomes a host-precomputed (C, D, N) "either endpoint
+#   down" mask per crash window (``down_pair``), AND-folded at round t
+#   like the partition ``same`` masks;
+# - the loss/dup coins become elementwise hashes over host-precomputed
+#   (D, N) sender/receiver id rows (the stateless stream needs only (t,
+#   src, dst)): :func:`.kernels.wm_fault_coins`;
+# - amnesia rows and receiver liveness become a (C, N) per-column
+#   ``down`` array (:func:`wm_up_cols`).
+#
+# The per-direction masks are packed rows (:func:`.kernels.pack_bits`:
+# (..., D, ceil(N/32)) int32), so every window fold is a word-wise AND.
+
+
+@dataclass(frozen=True)
+class WMNemesisArrays:
+    """The words-major nemesis operand (structured.make_nemesis builds
+    it), the reference's eleven leaves as tensors on one device.
+    Delivery-contract rows (``exists`` / ``same`` / ``down_pair`` /
+    ``src`` / ``dst``) follow structured.nemesis_dir_pairs; degree-
+    contract rows (``deg_*``) follow structured.fault_dir_senders and
+    drive the ledgers.  Masks are packed rows, ids int32."""
+
+    exists: torch.Tensor         # (D, NW) packed: delivery edges
+    same: torch.Tensor           # (P, D, NW) packed: partition same-group
+    down_pair: torch.Tensor      # (C, D, NW) packed: src or dst down
+    src: torch.Tensor            # (D, N) int32: sender ids (coins)
+    dst: torch.Tensor            # (D, N) int32: receiver ids (coins)
+    deg_exists: torch.Tensor     # (Dg, NW) packed: ledger edges
+    deg_same: torch.Tensor       # (P, Dg, NW) packed
+    deg_down_pair: torch.Tensor  # (C, Dg, NW) packed
+    deg_src: torch.Tensor        # (Dg, N) int32: the ledger's coin ids
+    deg_dst: torch.Tensor        # (Dg, N) int32
+    down_cols: torch.Tensor      # (C, N) bool: amnesia / receiver-up
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.src.shape[1])
+
+    def to(self, device: str | torch.device) -> "WMNemesisArrays":
+        return WMNemesisArrays(**{f.name: getattr(self, f.name).to(device)
+                                  for f in dataclasses.fields(self)})
+
+
+def crash_down_rows(spec: NemesisSpec, ids) -> np.ndarray:
+    """(C, *ids.shape) bool: which of the (possibly -1-padded) node
+    ``ids`` are down in each of the spec's crash windows (pad slots read
+    False)."""
+    ids = np.asarray(ids)
+    out = np.zeros((len(spec.crash),) + ids.shape, bool)
+    for c, (_s, _e, nodes) in enumerate(spec.crash):
+        d = np.zeros(spec.n_nodes, bool)
+        d[list(nodes)] = True
+        out[c] = d[np.clip(ids, 0, spec.n_nodes - 1)] & (ids >= 0)
+    return out
+
+
+def wm_up_cols(plan: FaultPlan, t: int,
+               down_cols: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: per-column liveness at round ``t`` from the (C, N)
+    ``down_cols`` rows, the words-major twin of :func:`node_up`."""
+    return windows_fold(plan.starts, plan.ends, t,
+                        lambda c, up: up & ~down_cols[c],
+                        torch.ones(down_cols.shape[1:], dtype=torch.bool,
+                                   device=down_cols.device))
+
+
+def wm_wipe_cols(plan: FaultPlan, t: int,
+                 down_cols: torch.Tensor) -> torch.Tensor | None:
+    """(N,) bool: the amnesia columns of round ``t`` (down now, up at
+    ``t - 1``), or None when no crash window starts a new down set (the
+    windows active at ``t`` are among those active at ``t - 1``)."""
+    now = set(active_windows(plan.starts, plan.ends, t))
+    if now <= set(active_windows(plan.starts, plan.ends, t - 1)):
+        return None
+    return ~wm_up_cols(plan, t, down_cols) & wm_up_cols(plan, t - 1,
+                                                        down_cols)
+
+
+def wm_live_rows(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
+                 pends, *, deg: bool = False) -> torch.Tensor:
+    """(D, NW) packed per-direction SEND liveness at round ``t``: exists
+    AND same-group under every active partition window AND both
+    endpoints up under every active crash window.  ``deg`` picks the
+    degree-contract rows.  The exists rows themselves when no window is
+    active."""
+    exists = arrs.deg_exists if deg else arrs.exists
+    same = arrs.deg_same if deg else arrs.same
+    down_pair = arrs.deg_down_pair if deg else arrs.down_pair
+    lv = windows_fold(pstarts, pends, t, lambda w, lv: lv & same[w], exists)
+    return windows_fold(plan.starts, plan.ends, t,
+                        lambda c, lv: lv & ~down_pair[c], lv)
+
+
+def _loss_on(plan: FaultPlan, t: int) -> bool:
+    return t < plan.loss_until and plan.loss_num > 0
+
+
+def wm_live_del(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
+                pends, dup_on: bool):
+    """``(live_del, dup | None)``, packed delivery-contract rows at send
+    round ``t`` under the full nemesis: the send liveness minus the loss
+    coins, and the delivered edges whose dup coin fired (None where the
+    dup stream is off or past its horizon at ``t``: the reference's
+    all-False rows).  The coins are :func:`.kernels.wm_fault_coins`' over
+    the (D, N) id rows, the gather path's (t, src, dst) streams."""
+    live = wm_live_rows(plan, t, arrs, pstarts, pends)
+    loss = _loss_on(plan, t)
+    dup = dup_on and t < plan.dup_until and plan.dup_num > 0
+    if not (loss or dup):
+        return live, None
+    return kernels.wm_fault_coins(arrs.src, arrs.dst, live, t=t,
+                                  seed=plan.seed, loss_num=plan.loss_num,
+                                  dup_num=plan.dup_num, loss=loss, dup=dup,
+                                  srv=False)
+
+
+def wm_srv_rows(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
+                pends, *, live: torch.Tensor | None = None):
+    """``(live, ack, both)``: the loss-only server ledger's packed rows
+    over the degree contract at round ``t``: the send liveness (requests
+    charged at send time; ``live`` when the caller has it), ``ack`` the
+    edges whose reply coin (dst -> src) also survives, ``both`` those
+    whose two coins survive (the sync-diff pairs)."""
+    if live is None:
+        live = wm_live_rows(plan, t, arrs, pstarts, pends, deg=True)
+    if not _loss_on(plan, t):
+        return live, live, live
+    ack, both = kernels.wm_fault_coins(
+        arrs.deg_src, arrs.deg_dst, live, t=t, seed=plan.seed,
+        loss_num=plan.loss_num, dup_num=plan.dup_num, loss=True, dup=False,
+        srv=True)
+    return live, ack, both
 
 
 # -- host mirrors --------------------------------------------------------

@@ -6,12 +6,15 @@ what bounds them on an H100 and what the design does about it):
 
 - ``tree_flood.cu``, the words-major k-ary tree:
   :func:`tree_exchange` (the port of the Pallas kernel in
-  benchmarks/pallas_tree_probe.py), :func:`tree_flood_round` (one fused
-  pure-flood round, ``new = exchange(frontier) & ~received;
-  received |= new; frontier_next = new``) and :func:`col_popcount`
-  (per-node popcount sums ``sum_w popc(x[w, i])``);
+  benchmarks/pallas_tree_probe.py), its masked form
+  :func:`tree_masked_exchange` (partitions and the nemesis),
+  :func:`tree_flood_round` (one fused pure-flood round, ``new =
+  exchange(frontier) & ~received; received |= new; frontier_next =
+  new``) and :func:`col_popcount` (per-node popcount sums ``sum_w
+  popc(x[w, i])``);
 - ``shift_flood.cu``, the words-major shift topologies (circulant, ring,
-  line, grid): :func:`shift_exchange` and :func:`shift_flood_round`, both
+  line, grid): :func:`shift_exchange`, its masked form
+  :func:`shift_masked_exchange` and :func:`shift_flood_round`, all
   driven by a :class:`ShiftDirs` direction table, whose tiles stage the
   source windows of :func:`shift_windows` in shared memory;
 - ``gather_flood.cu``, the node-major adjacency gather:
@@ -22,7 +25,13 @@ what bounds them on an H100 and what the design does about it):
 - ``fault_flood.cu``, the faulted gather round under a nemesis plan:
   :func:`fault_coins` (one flag byte an edge: sent, delivered,
   duplicated, reply not lost) and :func:`faulted_gather_round` (the
-  gather round over those flags, with the dup ledger charge).
+  gather round over those flags, with the dup ledger charge); and the
+  words-major nemesis's coins, :func:`wm_fault_coins`.
+
+The masked structured exchanges and the words-major coins take their
+per-direction liveness as packed rows (:func:`pack_bits`): (D, ceil(N /
+32)) int32, node i at bit i % 32 of word i // 32 — at W = 1 a bool row
+would move as many bytes as the bitset it gates.
 
 Bitsets are ``torch.int32`` tensors holding the reference's uint32 words
 bit for bit: (W, N) words-major, (N, W) node-major.  A wrapper takes its
@@ -77,11 +86,13 @@ WRAP, MASK_LEFT, MASK_RIGHT = 1, 2, 4
 # delivery survived the loss coin, the dup coin fired, the reply's coin
 FLAG_SEND, FLAG_DEL, FLAG_DUP, FLAG_OUT_OK = 1, 2, 4, 8
 
-LAUNCHES = {"tree_exchange": 0, "tree_flood_round": 0, "col_popcount": 0,
+LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
+            "tree_flood_round": 0, "col_popcount": 0,
             "col_popcount_nm": 0, "shift_exchange": 0,
-            "shift_flood_round": 0, "gather_or": 0, "sync_diff_pc": 0,
-            "gather_flood_round": 0, "fault_coins": 0,
-            "faulted_gather_round": 0}
+            "shift_masked_exchange": 0, "shift_flood_round": 0,
+            "gather_or": 0, "sync_diff_pc": 0, "gather_flood_round": 0,
+            "fault_coins": 0, "faulted_gather_round": 0,
+            "wm_fault_coins": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -198,6 +209,38 @@ def _shift_plan(dirs: ShiftDirs, n: int, fused: bool,
     return (ctypes.c_int64 * len(words))(*words), len(words)
 
 
+# -- packed liveness rows ------------------------------------------------
+
+
+def packed_words(n: int) -> int:
+    """Words of a packed row over ``n`` nodes."""
+    return (n + 31) // 32
+
+
+def pack_bits(rows: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool -> (..., ceil(N/32)) int32: node i at bit i % 32 of
+    word i // 32, the bits past N zero."""
+    n = rows.shape[-1]
+    nw = packed_words(n)
+    pad = rows.new_zeros(rows.shape[:-1] + (nw * 32 - n,))
+    bits = torch.cat([rows, pad], dim=-1).reshape(
+        rows.shape[:-1] + (nw, 32)).to(torch.int64)
+    v = (bits << torch.arange(32, device=rows.device)).sum(dim=-1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., ceil(n/32)) int32 packed rows -> (..., n) bool."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    return ((words[..., None] >> shifts) & 1).flatten(-2)[..., :n].bool()
+
+
+def count_rows(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64: per node, how many of the (D, ceil(n/32)) packed rows
+    hold its bit — a live degree."""
+    return unpack_bits(words, n).sum(dim=0, dtype=torch.int64)
+
+
 # -- plain versions ------------------------------------------------------
 
 
@@ -226,6 +269,17 @@ def tree_exchange_plain(payload: torch.Tensor,
     return plain(payload, branching)
 
 
+def tree_masked_exchange_plain(payload: torch.Tensor,
+                               live_parent: torch.Tensor,
+                               live_kids: torch.Tensor,
+                               branching: int = 4) -> torch.Tensor:
+    from .structured import tree_masked_terms
+
+    n = payload.shape[1]
+    return tree_masked_terms(payload, unpack_bits(live_parent, n),
+                             unpack_bits(live_kids, n), branching)
+
+
 def tree_flood_round_plain(received: torch.Tensor, frontier: torch.Tensor,
                            frontier_next: torch.Tensor,
                            branching: int = 4) -> torch.Tensor:
@@ -247,19 +301,36 @@ def _shifted(payload: torch.Tensor, off: int, wrap: bool) -> torch.Tensor:
     return torch.cat([zeros, payload[:, :n - k]], dim=1)
 
 
+def shift_term_plain(payload: torch.Tensor, dirs: ShiftDirs,
+                     d: int) -> torch.Tensor:
+    """Direction d's term of the shift exchange: ``payload[:, i +
+    offs[d]]`` (mod n or zero-filled), under its column mask.  Any
+    integer (W, N) tensor: the nemesis relocates popcounts with it."""
+    flags = dirs.flags[d]
+    term = _shifted(payload, dirs.offs[d], bool(flags & WRAP))
+    if flags & (MASK_LEFT | MASK_RIGHT):
+        col = torch.arange(payload.shape[1], device=payload.device) \
+            % dirs.cols
+        keep = (col < dirs.cols - 1 if flags & MASK_LEFT else col > 0)
+        term = torch.where(keep[None, :], term, 0)
+    return term
+
+
 def shift_exchange_plain(payload: torch.Tensor,
                          dirs: ShiftDirs) -> torch.Tensor:
-    w, n = payload.shape
     out = torch.zeros_like(payload)
-    col = None
-    for off, flags in zip(dirs.offs, dirs.flags):
-        term = _shifted(payload, off, bool(flags & WRAP))
-        if flags & (MASK_LEFT | MASK_RIGHT):
-            if col is None:
-                col = torch.arange(n, device=payload.device) % dirs.cols
-            keep = (col < dirs.cols - 1 if flags & MASK_LEFT else col > 0)
-            term = torch.where(keep[None, :], term, 0)
-        out |= term
+    for d in range(len(dirs.offs)):
+        out |= shift_term_plain(payload, dirs, d)
+    return out
+
+
+def shift_masked_exchange_plain(payload: torch.Tensor, live: torch.Tensor,
+                                dirs: ShiftDirs) -> torch.Tensor:
+    lv = unpack_bits(live, payload.shape[1])
+    out = torch.zeros_like(payload)
+    for d in range(len(dirs.offs)):
+        out |= torch.where(lv[d][None, :], shift_term_plain(payload, dirs, d),
+                           0)
     return out
 
 
@@ -351,6 +422,29 @@ def faulted_gather_round_plain(payload: torch.Tensor,
     return new, rec | new, dup_pc
 
 
+def wm_fault_coins_plain(src: torch.Tensor, dst: torch.Tensor,
+                        live: torch.Tensor, *, t: int, seed: int,
+                        loss_num: int, dup_num: int, loss: bool, dup: bool,
+                        srv: bool):
+    from .faults import _SALT_DUP, _SALT_LOSS, _hash32
+
+    lv = unpack_bits(live, src.shape[1])
+    s, r = src.to(torch.int64), dst.to(torch.int64)
+
+    def kept(a, b):
+        return (_hash32(seed, t, a, b, _SALT_LOSS) >= loss_num if loss
+                else torch.ones_like(lv))
+
+    if srv:
+        ack = lv & kept(r, s)
+        return pack_bits(ack), pack_bits(ack & kept(s, r))
+    deliver = lv & kept(s, r)
+    if not dup:
+        return pack_bits(deliver), None
+    fired = deliver & (_hash32(seed, t, s, r, _SALT_DUP) < dup_num)
+    return pack_bits(deliver), pack_bits(fired)
+
+
 # -- build and load ------------------------------------------------------
 
 
@@ -415,10 +509,14 @@ def _lib(name: str) -> ctypes.CDLL:
         argtypes = {
             "tree_flood": {
                 "gg_tree_exchange": [ptr, ptr, i64, i64, i32, ptr],
+                "gg_tree_masked_exchange": [ptr, ptr, ptr, ptr, i64, i64,
+                                            i32, ptr],
                 "gg_tree_flood_round": [ptr, ptr, ptr, i64, i64, i32, ptr],
                 "gg_col_popcount": [ptr, ptr, i64, i64, ptr]},
             "shift_flood": {
                 "gg_shift_exchange": [ptr, ptr, i64, i64, ptr, i32, ptr],
+                "gg_shift_masked_exchange": [ptr, ptr, ptr, i64, i64, ptr,
+                                             i32, ptr],
                 "gg_shift_flood_round": [ptr, ptr, ptr, i64, i64, ptr, i32,
                                          ptr]},
             "gather_flood": {
@@ -436,7 +534,9 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_faulted_gather_round": [ptr, ptr, ptr, ptr, ptr, ptr,
                                             ptr, ptr, i64, i64, i64, i32,
                                             ptr],
-                "gg_faulted_nodes_per_block": [i64, i32]},
+                "gg_faulted_nodes_per_block": [i64, i32],
+                "gg_wm_fault_coins": [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                                      i64, i64, i64, i32, i32, i32, ptr]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -535,6 +635,41 @@ def tree_exchange(payload: torch.Tensor, branching: int = 4) -> torch.Tensor:
     return inbox
 
 
+def _check_packed(name: str, rows: torch.Tensor, shape: tuple) -> None:
+    if rows.dtype != torch.int32 or tuple(rows.shape) != shape \
+            or not rows.is_contiguous():
+        raise ValueError(f"{name} must be contiguous packed int32 rows "
+                         f"shaped {shape}, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+
+
+def tree_masked_exchange(payload: torch.Tensor, live_parent: torch.Tensor,
+                         live_kids: torch.Tensor,
+                         branching: int = 4) -> torch.Tensor:
+    """:func:`tree_exchange` under per-edge liveness: ``inbox[:, i] =
+    (P_i ? payload[:, (i-1)//k] : 0) | OR over children c of i (K_c ?
+    payload[:, c] : 0)``, where P (``live_parent``, at receiver
+    positions) and K (``live_kids``, at child positions: masked before
+    the k:1 fold) are (ceil(N/32),) packed rows (:func:`pack_bits`)."""
+    _check_bitset("payload", payload)
+    w, n = payload.shape
+    for name, rows in (("live_parent", live_parent),
+                       ("live_kids", live_kids)):
+        _check_packed(name, rows, (packed_words(n),))
+    if _on_cpu(payload, live_parent, live_kids):
+        return tree_masked_exchange_plain(payload, live_parent, live_kids,
+                                          branching)
+    _check_words(w)
+    _check_branching(branching)
+    inbox = torch.empty_like(payload)
+    if payload.numel():
+        _launch("tree_masked_exchange",
+                _lib("tree_flood").gg_tree_masked_exchange, payload.device,
+                payload.data_ptr(), live_parent.data_ptr(),
+                live_kids.data_ptr(), inbox.data_ptr(), w, n, branching)
+    return inbox
+
+
 def tree_flood_round(received: torch.Tensor, frontier: torch.Tensor,
                      frontier_next: torch.Tensor,
                      branching: int = 4) -> torch.Tensor:
@@ -587,6 +722,28 @@ def shift_exchange(payload: torch.Tensor, dirs: ShiftDirs) -> torch.Tensor:
     if payload.numel():
         _launch("shift_exchange", _lib("shift_flood").gg_shift_exchange,
                 payload.device, payload.data_ptr(), inbox.data_ptr(), w, n,
+                *plan)
+    return inbox
+
+
+def shift_masked_exchange(payload: torch.Tensor, live: torch.Tensor,
+                          dirs: ShiftDirs) -> torch.Tensor:
+    """:func:`shift_exchange` under per-direction liveness: direction d's
+    term counts at receiver i only where i's bit of packed row d of
+    ``live`` ((len(dirs.offs), ceil(N/32)) int32, :func:`pack_bits`) is
+    set; the table's column masks still apply."""
+    _check_bitset("payload", payload)
+    w, n = payload.shape
+    _check_packed("live", live, (len(dirs.offs), packed_words(n)))
+    if _on_cpu(payload, live):
+        return shift_masked_exchange_plain(payload, live, dirs)
+    _check_words(w)
+    plan = _shift_plan(dirs, n, False)
+    inbox = torch.empty_like(payload)
+    if payload.numel():
+        _launch("shift_masked_exchange",
+                _lib("shift_flood").gg_shift_masked_exchange, payload.device,
+                payload.data_ptr(), live.data_ptr(), inbox.data_ptr(), w, n,
                 *plan)
     return inbox
 
@@ -806,3 +963,48 @@ def faulted_gather_round(payload: torch.Tensor,
                 new.data_ptr(), rec_next.data_ptr(), dup_pc.data_ptr(), n, w,
                 payload.shape[0], d)
     return new, rec_next, dup_pc
+
+
+def wm_fault_coins(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
+                   *, t: int, seed: int, loss_num: int, dup_num: int,
+                   loss: bool, dup: bool, srv: bool):
+    """The words-major nemesis's coins over direction rows: ``src`` /
+    ``dst`` (D, N) int32 sender and receiver ids, ``live`` the (D,
+    ceil(N/32)) packed send liveness.  Returns two packed row sets
+    ``(out0, out1)``:
+
+    - delivery (``srv=False``): ``out0`` = live and the loss coin of src
+      -> dst did not drop (``loss``: the stream is active); ``out1`` =
+      out0 and the dup coin of src -> dst fired, or None without
+      ``dup``;
+    - ledger (``srv=True``): ``out0`` = live and the loss coin of dst ->
+      src (the reply) did not drop; ``out1`` = out0 and the coin of src
+      -> dst did not either.
+
+    The coins are the reference's ``edge_drop`` / ``edge_dup`` hashes of
+    ``(seed, t, src, dst)``."""
+    for name, x in (("src", src), ("dst", dst)):
+        if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (D, N) int32 "
+                             f"id table, got {x.dtype} {tuple(x.shape)}")
+    if src.shape != dst.shape:
+        raise ValueError(f"src {tuple(src.shape)} and dst "
+                         f"{tuple(dst.shape)} differ")
+    d, n = src.shape
+    _check_packed("live", live, (d, packed_words(n)))
+    args = dict(t=t, seed=seed, loss_num=loss_num, dup_num=dup_num,
+                loss=loss, dup=dup, srv=srv)
+    if _on_cpu(src, dst, live):
+        return wm_fault_coins_plain(src, dst, live, **args)
+    if d > MAX_WORDS:
+        raise ValueError(f"{d} direction rows exceed the kernel's "
+                         f"{MAX_WORDS}")
+    out0 = torch.empty_like(live)
+    out1 = torch.empty_like(live) if srv or dup else None
+    if live.numel():
+        _launch("wm_fault_coins", _lib("fault_flood").gg_wm_fault_coins,
+                src.device, src.data_ptr(), dst.data_ptr(), live.data_ptr(),
+                out0.data_ptr(), None if out1 is None else out1.data_ptr(),
+                d, n, t & MASK32, seed & MASK32, loss_num & MASK32,
+                dup_num & MASK32, int(loss), int(dup), int(srv))
+    return out0, out1

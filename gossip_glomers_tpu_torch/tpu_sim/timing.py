@@ -20,7 +20,7 @@ from ..parallel.topology import (circulant, expander_strides, grid,
                                  tree)
 from .broadcast import BroadcastSim, make_inject
 from .kernels import col_popcount
-from .structured import make_exchange, make_sync_diff
+from .structured import make_exchange, make_faulted, make_sync_diff
 
 
 def _nbrs_for(topology: str, n: int, **kw) -> np.ndarray:
@@ -44,8 +44,12 @@ def structured_sim(topology: str, n: int, n_values: int, *,
                    **kw) -> BroadcastSim:
     """A words-major structured BroadcastSim on one device, ledger off
     by default (its sync diff is per-round bookkeeping that timed runs
-    keep out).  A partition schedule with windows (``parts``) needs the
-    faults slice's masked exchanges and raises."""
+    keep out).  ``parts`` (a :class:`.broadcast.Partitions`, windows in
+    rounds) runs its schedule on the structured path through the masked
+    closures of :func:`.structured.make_faulted`."""
+    faulted = None
+    if parts is not None and parts.n_windows:
+        faulted = make_faulted(topology, n, parts.group.cpu().numpy(), **kw)
     return BroadcastSim(
         _nbrs_for(topology, n, **kw), n_values=n_values,
         sync_every=sync_every, parts=parts,
@@ -53,7 +57,7 @@ def structured_sim(topology: str, n: int, n_values: int, *,
         srv_ledger=srv_ledger,
         sync_diff=make_sync_diff(topology, n, **kw) if srv_ledger
         else None,
-        device=device)
+        faulted=faulted, device=device)
 
 
 def discover_rounds(topology: str, n: int, n_values: int, **kw) -> int:

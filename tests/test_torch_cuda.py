@@ -412,3 +412,102 @@ def test_cuda_faulted_gather_sim_matches_cpu_sim(cuda_device, mode):
     assert kernels.LAUNCHES["fault_coins"] > before["fault_coins"]
     assert kernels.LAUNCHES["faulted_gather_round"] \
         > before["faulted_gather_round"]
+
+
+def _packed(d, n, mode, seed, device):
+    """(d, ceil(n/32)) packed liveness rows: every node live, none, or
+    random words (the bits past n random too: no kernel may read them)."""
+    if mode == "all":
+        return kernels.pack_bits(torch.ones((d, n), dtype=torch.bool,
+                                            device=device))
+    if mode == "none":
+        return torch.zeros((d, kernels.packed_words(n)), dtype=torch.int32,
+                           device=device)
+    return _bits((d, kernels.packed_words(n)), seed, device)
+
+
+# the words-major coins' modes: (loss, dup, srv)
+WM_STREAMS = ((False, False, False), (True, False, False),
+              (False, True, False), (True, True, False),
+              (False, False, True), (True, False, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("mode", ("all", "none", "random"))
+@pytest.mark.parametrize("w,n", [(w, n) for w in (1, 8)
+                                 for n in (1, 5, 4097, (1 << 16) + 3)])
+def test_cuda_masked_kernels_match_plain(cuda_device, w, n, mode, offset):
+    # tree_masked_exchange (its two rows apart), shift_masked_exchange in
+    # every shift mode and wm_fault_coins in every stream and the ledger
+    # mode, on views 4 bytes into their allocation (offset 1)
+    fr = _bits((w, n), 7 * n + w, cuda_device)
+    frk = _at_offset(fr, offset)
+    before = dict(kernels.LAUNCHES)
+    rows = _packed(2, n, mode, n + 1, cuda_device)
+    for k in (2, 4):
+        got = kernels.tree_masked_exchange(frk, _at_offset(rows[0], offset),
+                                           _at_offset(rows[1], offset), k)
+        assert torch.equal(got, kernels.tree_masked_exchange_plain(
+            fr, rows[0], rows[1], k))
+    modes = _shift_modes(n)
+    for topo, kw in modes:
+        dirs = structured.shift_dirs(topo, n, **kw)
+        live = _packed(len(dirs.offs), n, mode, n + 2, cuda_device)
+        got = kernels.shift_masked_exchange(frk, _at_offset(live, offset),
+                                            dirs)
+        assert torch.equal(got, kernels.shift_masked_exchange_plain(
+            fr, live, dirs)), topo
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    src, dst = torch.randint(0, n, (2, 3, n), dtype=torch.int32,
+                             device=cuda_device, generator=gen)
+    live = _packed(3, n, mode, n + 3, cuda_device)
+    views = [_at_offset(x, offset) for x in (src, dst, live)]
+    for loss, dup, srv in WM_STREAMS:
+        kw = dict(FAULT_COINS, loss=loss, dup=dup, srv=srv)
+        got = kernels.wm_fault_coins(*views, **kw)
+        want = kernels.wm_fault_coins_plain(src, dst, live, **kw)
+        for g, x in zip(got, want):
+            assert (g is None) == (x is None)
+            assert x is None or torch.equal(g, x), (loss, dup, srv)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tree_masked_exchange"] \
+        == before["tree_masked_exchange"] + 2
+    assert kernels.LAUNCHES["shift_masked_exchange"] \
+        == before["shift_masked_exchange"] + len(modes)
+    assert kernels.LAUNCHES["wm_fault_coins"] \
+        == before["wm_fault_coins"] + len(WM_STREAMS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo,kw", [
+    ("tree", {}), ("grid", {}), ("ring", {}), ("line", {}),
+    ("circulant", {"strides": [1, 5, 77, 901]})])
+def test_cuda_structured_faults_match_cpu_sim(cuda_device, topo, kw):
+    # a partition window (ledger on) and the nemesis composed with it
+    # (crash, loss, dup; ledger off), the card against the CPU
+    n, nv = 4097, 64
+    inject = broadcast.make_inject(n, nv)
+    group = np.random.default_rng(7).integers(0, 2, (1, n))
+    parts = broadcast.Partitions.from_numpy([2], [9], group)
+    before = dict(kernels.LAUNCHES)
+    _assert_runs_equal(_run_both(
+        lambda dev: timing.structured_sim(topo, n, nv, sync_every=4,
+                                          parts=parts, srv_ledger=True,
+                                          device=dev, **kw), inject))
+    spec = faults.NemesisSpec(n_nodes=n, seed=3,
+                              crash=((2, 9, tuple(range(0, n, 11))),),
+                              loss_rate=0.1, loss_until=10, dup_rate=0.05,
+                              dup_until=10)
+    nbrs = timing._nbrs_for(topo, n, **kw)
+    _assert_runs_equal(_run_both(
+        lambda dev: broadcast.BroadcastSim(
+            nbrs, n_values=nv, sync_every=4, srv_ledger=False, parts=parts,
+            exchange=structured.make_exchange(topo, n, **kw),
+            nemesis=structured.make_nemesis(topo, n, spec, groups=group,
+                                            device=dev, **kw),
+            fault_plan=spec.compile(dev), device=dev), inject))
+    masked = ("tree_masked_exchange" if topo == "tree"
+              else "shift_masked_exchange")
+    for name in (masked, "wm_fault_coins"):
+        assert kernels.LAUNCHES[name] > before[name], name

@@ -18,6 +18,7 @@ import torch
 
 from gossip_glomers_tpu.parallel import topology as jtop
 from gossip_glomers_tpu.tpu_sim import broadcast as jbc
+from gossip_glomers_tpu.tpu_sim.structured import make_exchange as jex
 from gossip_glomers_tpu_torch.tpu_sim import broadcast as pbc
 from gossip_glomers_tpu_torch.tpu_sim import kernels
 from gossip_glomers_tpu_torch.tpu_sim import structured as pst
@@ -326,11 +327,20 @@ def test_partitions_constructors():
 
 def test_structured_path_with_windows_raises():
     n = 16
-    _, pp = _parts(n, [(1, 3)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pbc.BroadcastSim(jtop.to_padded_neighbors(jtop.ring(n)),
-                         n_values=4, parts=pp, device="cpu",
+    jp, pp = _parts(n, [(1, 3)])
+    # without its masked closures, as the reference words it
+    nbrs = jtop.to_padded_neighbors(jtop.ring(n))
+    with pytest.raises(ValueError, match="masked closures") as want:
+        jbc.BroadcastSim(nbrs, n_values=4, parts=jp, mesh=None,
+                         exchange=jex("ring", n))
+    with pytest.raises(ValueError, match="masked closures") as got:
+        pbc.BroadcastSim(nbrs, n_values=4, parts=pp, device="cpu",
                          exchange=pst.make_exchange("ring", n))
+    assert str(got.value) == str(want.value)
+    pbc.BroadcastSim(nbrs, n_values=4, parts=pp, device="cpu",
+                     exchange=pst.make_exchange("ring", n),
+                     faulted=pst.make_faulted(
+                         "ring", n, pp.group.numpy()))
     # an empty schedule is the reference's default and is accepted
     pbc.BroadcastSim(jtop.to_padded_neighbors(jtop.ring(n)), n_values=4,
                      parts=pbc.Partitions.none(n), device="cpu",

@@ -40,6 +40,41 @@ def test_port_imports_no_jax(path):
     assert not _top_level_imports(path) & FORBIDDEN
 
 
+HOST_COPIES = [(structured, "fault_dir_senders"), (structured, "fault_masks"),
+               (structured, "nemesis_dir_pairs"),
+               (structured, "_same_groups"), (faults, "crash_down_rows")]
+
+
+@pytest.mark.parametrize("module,name", HOST_COPIES,
+                         ids=[name for _, name in HOST_COPIES])
+def test_host_only_copies_are_the_ports_own(module, name):
+    # the host numpy contracts of the structured fault bundles are the
+    # port's own copies (defined in its modules, not imported), equal to
+    # the reference's on a ragged tree and a ragged grid
+    from gossip_glomers_tpu.tpu_sim import faults as jf
+    from gossip_glomers_tpu.tpu_sim import structured as jst
+
+    fn = getattr(module, name)
+    assert fn.__module__ == module.__name__
+    want_mod = {structured: jst, faults: jf}[module]
+    for topo, n in (("tree", 85), ("grid", 60)):
+        src, dst, _ = jst.nemesis_dir_pairs(topo, n)
+        groups = np.random.default_rng(n).integers(0, 2, (2, n))
+        if name == "crash_down_rows":
+            kw = dict(n_nodes=n, crash=((1, 3, (0, 7, n - 1)),))
+            got = fn(faults.NemesisSpec(**kw), src)
+            want = jf.crash_down_rows(jf.NemesisSpec(**kw), src)
+        else:
+            args = {"fault_dir_senders": (topo, n),
+                    "fault_masks": (topo, n, groups),
+                    "nemesis_dir_pairs": (topo, n),
+                    "_same_groups": (groups, src, dst, n)}[name]
+            got, want = fn(*args), getattr(want_mod, name)(*args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_array_equal(g, w)
+
+
 def test_import_scan_compares_exact_names(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import gossip_glomers_tpu_torch.tpu_sim\n"
@@ -64,24 +99,36 @@ def test_unported_modes_raise():
     nbrs = to_padded_neighbors(tree(8))
     ex = structured.make_exchange("tree", 8)
     # the node-major gather path (exchange=None) constructs, under a
-    # fault plan and slab blocking too; a partition schedule or a fault
-    # plan on the structured path still raises
+    # fault plan and slab blocking too; on the structured path a
+    # partition schedule needs its faulted= bundle and a fault plan its
+    # nemesis= bundle, as in the reference
     assert not broadcast.BroadcastSim(nbrs, n_values=4,
                                       device="cpu").words_major
-    plan = faults.NemesisSpec(n_nodes=8, crash=((1, 3, (2,)),),
-                              loss_rate=0.1).compile(device="cpu")
+    spec = faults.NemesisSpec(n_nodes=8, crash=((1, 3, (2,)),),
+                              loss_rate=0.1)
+    plan = spec.compile(device="cpu")
     for kw in ({"fault_plan": plan}, {"union_block": 4},
                {"fault_plan": plan, "union_block": 4, "srv_ledger": False}):
         sim = broadcast.BroadcastSim(nbrs, n_values=4, device="cpu", **kw)
         assert not sim.words_major
         assert sim._ub == (4 if "srv_ledger" in kw else None)
+    group = np.zeros((1, 8), np.int8)
     parts = broadcast.Partitions.from_numpy(np.array([1]), np.array([3]),
-                                            np.zeros((1, 8), np.int8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                            group)
+    with pytest.raises(ValueError, match="faulted=structured.make_faulted"):
         broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
                                parts=parts)
-    for mode in ("mesh", "faulted", "delays", "delayed",
-                 "edge_delayed", "fault_plan", "nemesis", "dcn_mode"):
+    with pytest.raises(ValueError, match="nemesis=structured.make_nemesis"):
+        broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
+                               fault_plan=plan)
+    for kw in ({"parts": parts,
+                "faulted": structured.make_faulted("tree", 8, group)},
+               {"fault_plan": plan, "nemesis": structured.make_nemesis(
+                   "tree", 8, spec, device="cpu")}):
+        assert broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
+                                      device="cpu", **kw).words_major
+    for mode in ("mesh", "delays", "delayed", "edge_delayed", "dcn_mode",
+                 "sharded_exchange", "sharded_sync_diff"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
                                    device="cpu", **{mode: object()})

@@ -71,15 +71,18 @@ def test_tree_exchange_single_node_is_zero():
 
 @pytest.mark.parametrize("topology", ["grid", "ring", "line", "circulant"])
 def test_other_topologies_raise_naming_roadmap(topology):
-    # every named topology has a structured exchange now; what still
-    # raises is a partition schedule on the structured path (the faults
-    # slice's masked exchanges, structured.make_faulted)
+    # every named topology has a structured exchange, and a partition
+    # schedule runs on it through the masked closures that
+    # timing.structured_sim builds (structured.make_faulted); what still
+    # raises naming the ROADMAP is the halo form of those closures
     kw = {"strides": [1, 3]} if topology == "circulant" else {}
-    parts = pbc.Partitions.from_numpy(np.array([1]), np.array([3]),
-                                      np.zeros((1, 16), np.int8))
+    group = np.zeros((1, 16), np.int8)
+    parts = pbc.Partitions.from_numpy(np.array([1]), np.array([3]), group)
+    sim = ptiming.structured_sim(topology, 16, 4, parts=parts, device="cpu",
+                                 **kw)
+    assert sim.words_major and sim._faulted is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptiming.structured_sim(topology, 16, 4, parts=parts, device="cpu",
-                               **kw)
+        pst.make_faulted(topology, 16, group, n_shards=2, **kw)
     assert pst.make_exchange(topology, 16, **kw) is not None
     assert pst.make_sync_diff(topology, 16, **kw) is not None
     assert ptiming.discover_rounds(topology, 16, 4, **kw) \
