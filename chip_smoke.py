@@ -26,10 +26,11 @@ flood at 1,048,576 nodes, on every topology the port runs:
    ``shift_masked_exchange`` in every shift mode) and the words-major
    coins (``wm_fault_coins``, every stream and the ledger mode) under
    all-live, none-live and random packed rows, on 4-byte-offset views, at
-   the small shapes and at (1, 2^20) with the tree's 2 rows and the
-   circulant's 8 — and each one's median time at the main path's shapes,
-   with its bound and the share of it reached (``bound_share`` = bound /
-   device time).
+   the small shapes, the shift kernels' tile edges, (1, 2^20) and (128,
+   2^20) — and each one's median time at the main path's shapes (the
+   masked exchanges at both, on the tree's 2 rows and the circulant's 8,
+   the masked shift kernel also at smaller tile caps), with its bound and
+   the share of it reached (``bound_share`` = bound / device time).
 3. ``w1_tree``: the 4-ary tree with 32 values (W = 1 word per node), the
    fixed-trip flood to ``discover_rounds`` timed with CUDA events, then
    the accounted while-converge run with the server ledger on; both held
@@ -174,6 +175,9 @@ PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
                          r"gather_flood_round|fault_coins|"
                          r"faulted_gather_round|wm_fault_coins)_kernel")
 LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
+# plan tile caps at which shift_masked_exchange is also timed (the
+# wrapper's, kernels.SHIFT_TILE, first)
+MASKED_TILES = (2048, 1024, 512)
 
 
 def emit(obj: dict) -> None:
@@ -552,8 +556,11 @@ def check_kernels(kernels, structured, topology, device) -> dict:
 
     for w, n in shift_edges(kernels.SHIFT_TILE):
         for offset in (0, 1):
+            fr = bits(w, n)
             check_shift(at_offset(bits(w, n), offset),
-                        at_offset(bits(w, n), offset), n, offset)
+                        at_offset(fr, offset), n, offset)
+            check_masked(kernels, structured, topology, note, fr,
+                         w + n + offset, offset)
     lib = kernels._lib("gather_flood")
     for w in (1, 3, 8, 32, 128, 256):
         if lib.gg_gather_nodes_per_block(w, 1) \
@@ -589,7 +596,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
         note("col_popcount", (kernels.col_popcount(rec),
                               kernels.col_popcount_plain(rec)))
         check_shift(rec, fr, n)
-        if (w, n) in CHECK_SHAPES + MAIN_SHAPES[:1]:
+        if (w, n) in CHECK_SHAPES + MAIN_SHAPES:
             for offset in (0, 1):
                 check_masked(kernels, structured, topology, note, fr,
                              w + n + offset, offset)
@@ -771,12 +778,11 @@ def time_kernels(kernels, structured, topology, device) -> dict:
         del payload, recv
         torch.cuda.empty_cache()
     del nbrs, flags, plan, up
-    # the masked exchanges and the words-major coins at (1, 2^20), on the
-    # rows of the structured fault phases at round 5: the tree nemesis's
-    # two delivery rows, the circulant's eight under config4c's window
+    # the masked exchanges and the words-major coins on the rows of the
+    # structured fault phases at round 5: the tree nemesis's two delivery
+    # rows, the circulant's eight under config4c's window; the exchanges
+    # at both main shapes, the coins (their own (D, N) rows) once
     n, k = N_NODES, BRANCHING
-    fr = torch.randint(-(1 << 31), 1 << 31, (1, n), dtype=torch.int32,
-                       device=device, generator=gen)
     spec = tree_nemesis_spec(faults, n)
     plan = spec.compile(device)
     arrs = structured.make_nemesis("tree", n, spec, device=device).arrs
@@ -791,18 +797,36 @@ def time_kernels(kernels, structured, topology, device) -> dict:
                  dup_num=plan.dup_num, loss=True, dup=True, srv=False)
     n_live, n_del = (int(kernels.popcount(x).sum()) for x in (live, rows))
     nw, d_circ, d_tree = kernels.packed_words(n), len(dirs.offs), 2
+    for w, _ in MAIN_SHAPES:
+        fr = torch.randint(-(1 << 31), 1 << 31, (w, n), dtype=torch.int32,
+                           device=device, generator=gen)
+        words = w * n
+        runs = {
+            # the payload, the inbox and the two packed rows; a bit, a
+            # load, an AND and an OR for the parent and each child
+            "tree_masked_exchange": (
+                lambda: kernels.tree_masked_exchange(fr, rows[0], rows[1],
+                                                     k),
+                lambda: kernels.tree_masked_exchange_plain(fr, rows[0],
+                                                           rows[1], k),
+                bound(2 * 4 * words + 2 * 4 * nw, 3 * (k + 1) * words)),
+            "shift_masked_exchange": (
+                lambda: kernels.shift_masked_exchange(fr, circ, dirs),
+                lambda: kernels.shift_masked_exchange_plain(fr, circ, dirs),
+                bound(2 * 4 * words + 4 * d_circ * nw, 3 * d_circ * words)),
+        }
+        for name, (kern, plain, b) in runs.items():
+            out[name][(w, n)] = _timed(name, kern, plain, b)
+        # the masked shift kernel's tile, the design's alternative: smaller
+        # tiles give an SM more blocks (its device ms by tile cap)
+        out["shift_masked_exchange"][(w, n)]["device_ms_by_tile"] = {
+            tile: device_ms(
+                lambda: kernels.shift_masked_exchange(fr, circ, dirs, tile),
+                KERNELS["shift_masked_exchange"][2], calls=10)
+            for tile in MASKED_TILES}
+        del fr
+        torch.cuda.empty_cache()
     runs = {
-        # the payload, the inbox and the two packed rows; a bit test, a
-        # load and an OR for the parent and each child
-        "tree_masked_exchange": (
-            lambda: kernels.tree_masked_exchange(fr, rows[0], rows[1], k),
-            lambda: kernels.tree_masked_exchange_plain(fr, rows[0],
-                                                       rows[1], k),
-            bound(2 * 4 * n + 2 * 4 * nw, 3 * (k + 1) * n)),
-        "shift_masked_exchange": (
-            lambda: kernels.shift_masked_exchange(fr, circ, dirs),
-            lambda: kernels.shift_masked_exchange_plain(fr, circ, dirs),
-            bound(2 * 4 * n + 4 * d_circ * nw, 3 * d_circ * n)),
         # the two id rows and the packed rows in, two packed rows out; a
         # hash of some 13 integer operations a drawn coin (loss on every
         # live edge, dup on every delivered one) and a few an edge

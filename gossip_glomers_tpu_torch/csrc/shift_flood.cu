@@ -24,9 +24,9 @@
 // (:1780-1873): direction d's term at receiver i counts only where bit i
 // of the d-th packed liveness row is set ((N + 31) / 32 int32 words a
 // row, node i at bit i % 32 of word i / 32: the circulant's 8 rows are
-// 1 MiB at 2^20 nodes, a quarter of its W = 1 bitset).  The consumers
-// read the live word of each direction beside the staged source word; a
-// warp's 32 consecutive nodes share one or two of them, which L1 serves.
+// 1 MiB at 2^20 nodes, a quarter of its W = 1 bitset).  Each tile stages
+// its slice of every liveness row beside its windows (see "The masked
+// exchange" below).
 //
 // Bound on the card: memory bytes.  A word costs a handful of integer
 // operations per direction against 4 bytes moved; the exchange must read
@@ -73,6 +73,32 @@
 // tile reads and writes only its own received words); the next frontier
 // goes to a second buffer, because a tile reads its neighbours' frontier
 // words.
+//
+// The masked exchange.  It moves the exchange's 2 bitsets and the D
+// packed rows (D * N / 8 bytes, once: an eighth more bytes than the
+// exchange at W = 1 with 8 rows).  Its first design read each
+// direction's liveness word from global memory beside the staged source
+// word, and skipped the term by a branch when the bit was clear: D
+// dependent loads a word, each holding back its shared-memory load, at
+// an address from a 64-bit multiply.  At
+// (1, 2^20) with the circulant's 8 rows it took 0.0346 ms, 8% of its
+// 0.00282 ms bound and 4.1x the unmasked exchange (0.0084) in the same
+// run (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py).  Now the producer
+// stages each tile's slice of every row — words [i0 / 32, (i0 + tl + 31)
+// / 32), 64 words a row at T = 2048, on the stage's own full barrier —
+// into one slot a row after the windows (the plan's live_at), copied and
+// filled as the windows are, and the consumers AND each term with its
+// bit spread to a mask: the D shared loads of a word go out together.
+// A warp's 32 consecutive nodes take their bits from one or two slice
+// words a direction (two when the tile starts inside a word), which
+// shared memory broadcasts.  At (1, 2^20) it takes 0.0106 ms, 1.24x the
+// unmasked exchange, and at (128, 2^20) 0.935 ms, 1.13-1.20x (the stage
+// grows by 4%).  Rejected, all slower at both shapes: smaller tiles,
+// which give an SM 2-4 blocks (cap 1024: 0.0113 / 1.166 ms; 512: 0.0135
+// / 1.419), and a consumer that took a warp's 8 slice words of a
+// direction in two 16-byte loads, directions outermost (0.0127 / 1.12);
+// a sign-bit shift in place of the bit's shift, AND and negation changed
+// nothing (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py time_kernels).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -115,11 +141,17 @@ struct Plan {
   int32_t stages;           // tiles in flight per block
   int32_t stage_words;      // words of one stage (x4)
   int32_t rec_at;           // received's offset in a stage (fused round)
+  int32_t live_at;          // the liveness slices' offset in a stage (x4;
+                            // -1: the plan stages none)
+  int32_t live_slot;        // words a liveness row's slice slot (x4)
+  int32_t n_live;           // liveness rows staged: the real directions
 };
 
 // host layout of the plan (int64 words), mirrored by kernels.py: a head
-// of tile, stages, stage_words, rec_at, cols, n_win, n_dirs, 0; per
-// window lo, span, wrap, at; per direction window, delta, mask
+// of tile, stages, stage_words, rec_at, cols, n_win, n_dirs, live_at; per
+// window lo, span, wrap, at; per direction window, delta, mask.  The
+// liveness slots fill the stage from live_at to its end, one a real
+// direction.
 constexpr int kPlanHead = 8;
 constexpr int kWinWords = 4;
 constexpr int kDirWords = 3;
@@ -127,9 +159,10 @@ constexpr int kDirWords = 3;
 // What the producer tells the consumers about the tile in one stage.
 struct Desc {
   int32_t sd[kMaxDirs];  // direction d's first word in the stage
+  int32_t sl[kMaxDirs];  // direction d's liveness slice in the stage
   int32_t rec;           // received's first word in the stage
-  uint32_t slow;         // bit k: window k to fill word by word; bit 31:
-                         // received
+  uint32_t slow;         // bit k: window k to fill word by word; bit 16 +
+                         // r: liveness row r; bit 31: received
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -227,6 +260,18 @@ __device__ __forceinline__ TileAt tile_at(int64_t tile, int64_t per_row,
   return {row * n, i0, n - i0 < t ? n - i0 : static_cast<int64_t>(t)};
 }
 
+// The liveness slice of a tile: the packed words [i0 / 32, (i0 + tl + 31)
+// / 32) of each row, which hold the bits of the tile's nodes x = i0 + t
+// (the bit of x, not of a tensor word: every one of the W rows stages the
+// same slice).  Row r starts at r * nw of the (rows, nw) tensor.
+__device__ __forceinline__ Piece live_piece(const uint32_t* live,
+                                           int64_t rows, int64_t nw, int r,
+                                           const TileAt& at) {
+  const int64_t s = at.i0 >> 5;
+  return piece(live, rows * nw, r * nw, s, ((at.i0 + at.tl + 31) >> 5) - s,
+               nw, false);
+}
+
 // Tiles are dealt to the persistent blocks round robin in row-major order.
 struct Walk {
   int64_t per_row, first, step, mine, total;
@@ -244,17 +289,19 @@ __device__ __forceinline__ Walk walk(int64_t w, int64_t n, int32_t tile) {
 }
 
 // The producer warp: for each of this block's tiles, once its stage is
-// free, lane k works out window k (lane 31 the received tile) and the
-// descriptor, lane 0 arms the stage's full barrier with the bytes the
-// copies will bring, and each lane issues its window's copies.
-template <bool kFused>
+// free, lane k works out window k (lane 31 the received tile, lane 16 + r
+// liveness row r's slice) and the descriptor, lane 0 arms the stage's
+// full barrier with the bytes the copies will bring, and each lane starts
+// its copies.
+template <bool kFused, bool kLive>
 __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
                                         uint64_t* empty, Desc* desc,
                                         const uint32_t* src,
                                         const uint32_t* received,
-                                        int64_t n, const Walk& wk,
-                                        const Plan& p) {
+                                        const uint32_t* live, int64_t n,
+                                        const Walk& wk, const Plan& p) {
   const int lane = threadIdx.x & 31;
+  const int64_t nw = (n + 31) >> 5;
   for (int64_t k = 0; k < wk.mine; ++k) {
     const int st = static_cast<int>(k % p.stages);
     const int64_t use = k / p.stages;
@@ -263,23 +310,35 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
     Piece pc{};
     const bool is_win = lane < p.n_win;
     const bool is_rec = kFused && lane == 31;
+    const bool is_live = kLive && lane >= 16 && lane - 16 < p.n_live;
     if (is_win)
       pc = piece(src, wk.total, at.row_start, at.i0 + p.lo[lane],
                  p.span[lane] + at.tl, n, p.wrap[lane] != 0);
     else if (is_rec)
       pc = piece(received, wk.total, at.row_start, at.i0, at.tl, n, false);
-    const bool copies = (is_win || is_rec) && pc.fast;
-    const uint32_t slow = __ballot_sync(~0u, (is_win || is_rec) && !pc.fast);
+    else if (is_live)
+      pc = live_piece(live, p.n_live, nw, lane - 16, at);
+    const bool mine = is_win || is_rec || is_live;
+    const bool copies = mine && pc.fast;
+    const uint32_t slow = __ballot_sync(~0u, mine && !pc.fast);
     const uint32_t bytes = __reduce_add_sync(~0u, copies ? pc.bytes : 0u);
-    int sd = 0;
-    if (lane < p.n_dirs)
+    int sd = 0, sl = 0;
+    if (lane < p.n_dirs) {
       sd = p.dat[lane] + p.ddelta[lane]
            + piece(src, wk.total, at.row_start, at.i0 + p.dlo[lane], 0, n,
                    p.dwrap[lane] != 0).ph;
+      if (kLive)
+        sl = p.live_at + p.dlive[lane] * p.live_slot
+             + live_piece(live, p.n_live, nw, p.dlive[lane], at).ph;
+    }
     const int rec = __shfl_sync(~0u, p.rec_at + pc.ph, 31);
     for (int d = 0; d < p.n_dirs; ++d) {
       const int v = __shfl_sync(~0u, sd, d);
       if (lane == 0) desc[st].sd[d] = v;
+      if (kLive) {
+        const int u = __shfl_sync(~0u, sl, d);
+        if (lane == 0) desc[st].sl[d] = u;
+      }
     }
     if (lane == 0) {
       desc[st].rec = rec;
@@ -292,9 +351,11 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
       // order the consumers' generic-proxy use of the stage (released
       // through the empty barrier) before this copy's async-proxy writes
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      uint32_t* dst = smem + st * p.stage_words + (is_rec ? p.rec_at
-                                                          : p.at[lane]);
-      const uint32_t* from = is_rec ? received : src;
+      uint32_t* dst = smem + st * p.stage_words
+                      + (is_rec    ? p.rec_at
+                         : is_live ? p.live_at + (lane - 16) * p.live_slot
+                                   : p.at[lane]);
+      const uint32_t* from = is_rec ? received : is_live ? live : src;
       if (pc.head == 0) {
         bulk_copy(dst, from + (pc.g - pc.ph), pc.bytes, &full[st]);
       } else {
@@ -308,8 +369,11 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
 
 // The consumers: for each tile, wait for its stage, fill what the copies
 // could not stage, then OR the N directions out of the stage, word t by
-// thread t % 256 (kLive: each only where its liveness bit is set), and
-// release the stage.
+// thread t % 256, and release the stage.  kLive: each term is ANDed with
+// its liveness bit, read from the staged slice and spread to a mask (no
+// branch: the N shared loads of a word go out together).  A warp's
+// 32 consecutive words read one or two slice words a direction, which
+// shared memory broadcasts, at any tile start.
 template <int N, bool kMasked, bool kFused, bool kLive>
 __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
                                         uint64_t* empty, const Desc* desc,
@@ -317,7 +381,7 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
                                         uint32_t* received, uint32_t* out,
                                         const uint32_t* live, int64_t n,
                                         const Walk& wk, const Plan& p) {
-  const int64_t live_words = (n + 31) >> 5;
+  const int64_t nw = (n + 31) >> 5;
   const int tid = threadIdx.x;
   const bool none = p.n_dirs == 0;
   for (int64_t k = 0; k < wk.mine; ++k) {
@@ -340,11 +404,25 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
       if (kFused && slow >> 31)
         fill(stage + ds.rec, received + at.row_start, at.i0, at.tl, n,
              false);
+      if (kLive)
+        for (int row = 0; row < p.n_live; ++row) {
+          if (!(slow >> (16 + row) & 1u)) continue;
+          const Piece pc = live_piece(live, p.n_live, nw, row, at);
+          fill(stage + p.live_at + row * p.live_slot + pc.ph,
+               live + row * nw, pc.s, ((at.i0 + at.tl + 31) >> 5) - pc.s,
+               nw, false);
+        }
       asm volatile("bar.sync 1, %0;" :: "n"(kConsumers) : "memory");
     }
     const uint32_t* q[N];
+    const uint32_t* lv[N];
 #pragma unroll
-    for (int d = 0; d < N; ++d) q[d] = stage + (none ? 0 : ds.sd[d]);
+    for (int d = 0; d < N; ++d) {
+      q[d] = stage + (none ? 0 : ds.sd[d]);
+      if (kLive) lv[d] = stage + (none ? 0 : ds.sl[d]);
+    }
+    const int bit0 = static_cast<int>(at.i0 & 31);  // x's bit in the slice:
+                                                    // bit0 + t
     const uint32_t* r = stage + ds.rec;
     const int64_t g0 = at.row_start + at.i0;
     const int tl = static_cast<int>(at.tl);
@@ -357,18 +435,22 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
         int64_t col = 0;
         if (kMasked) col = x % p.cols;
         uint32_t v = 0u;
+        if (!(kLive && none)) {  // (a table without directions stages no
+                                 // liveness slice)
 #pragma unroll
-        for (int d = 0; d < N; ++d) {
-          if (kMasked) {
-            const int f = p.dmask[d];
-            if ((f & kMaskLeft) && col >= p.cols - 1) continue;
-            if ((f & kMaskRight) && col == 0) continue;
+          for (int d = 0; d < N; ++d) {
+            if (kMasked) {
+              const int f = p.dmask[d];
+              if ((f & kMaskLeft) && col >= p.cols - 1) continue;
+              if ((f & kMaskRight) && col == 0) continue;
+            }
+            if (kLive) {
+              const int u = bit0 + t;
+              v |= q[d][t] & (0u - (lv[d][u >> 5] >> (u & 31) & 1u));
+            } else {
+              v |= q[d][t];
+            }
           }
-          if (kLive && !none
-              && !((__ldg(live + p.dlive[d] * live_words + (x >> 5))
-                    >> (x & 31)) & 1u))
-            continue;
-          v |= q[d][t];
         }
         if (none) v = 0u;
         if (kFused) {
@@ -412,7 +494,8 @@ __global__ void __launch_bounds__(kThreads, 1) shift_tiles_kernel(
   }
   __syncthreads();
   if (threadIdx.x >= kConsumers)
-    produce<kFused>(smem, full, empty, desc, src, received, n, wk, p);
+    produce<kFused, kLive>(smem, full, empty, desc, src, received, live, n,
+                           wk, p);
   else
     consume<N, kMasked, kFused, kLive>(smem, full, empty, desc, src,
                                        received, out, live, n, wk, p);
@@ -430,12 +513,24 @@ bool unpack(const int64_t* words, int len, Plan* p) {
   p->cols = words[4];
   p->n_win = static_cast<int32_t>(words[5]);
   const int n_dirs = static_cast<int>(words[6]);
+  p->live_at = static_cast<int32_t>(words[7]);
   if (p->n_win < 0 || p->n_win > kMaxDirs || n_dirs < 0
       || n_dirs > kMaxDirs || p->stages < 1 || p->stages > kMaxStages
       || p->tile < 1 || (p->stage_words & 3)
       || (p->rec_at >= 0 && (p->rec_at & 3))
+      || (p->live_at >= 0 && (p->live_at & 3))
+      || p->live_at > p->stage_words
       || len != kPlanHead + kWinWords * p->n_win + kDirWords * n_dirs)
     return false;
+  if (p->live_at >= 0 && n_dirs > 0) {
+    // a slot holds a slice of up to (tile + 31) / 32 + 1 words at its
+    // 16-byte phase, in whole 16-byte units
+    p->n_live = n_dirs;
+    p->live_slot = (p->stage_words - p->live_at) / n_dirs;
+    if (p->live_slot * n_dirs != p->stage_words - p->live_at
+        || (p->live_slot & 3) || p->live_slot < (p->tile + 62) / 32 + 3)
+      return false;
+  }
   const int64_t* win = words + kPlanHead;
   for (int k = 0; k < p->n_win; ++k) {
     p->lo[k] = win[kWinWords * k];
@@ -553,8 +648,10 @@ template <bool kFused, bool kLive>
 int launch(const void* src, void* received, void* out, const void* live,
            int64_t w, int64_t n, const int64_t* plan, int plan_len,
            void* stream) {
+  static_assert(!(kFused && kLive), "the fused round takes no liveness");
   Plan p;
-  if (!unpack(plan, plan_len, &p) || (kFused && p.rec_at < 0) || p.tile > n)
+  if (!unpack(plan, plan_len, &p) || (kFused && p.rec_at < 0) || p.tile > n
+      || (kLive && p.n_dirs > 0 && p.n_live == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   bool masked = false;
   for (int d = 0; d < p.n_dirs; ++d) masked = masked || p.dmask[d] != 0;

@@ -25,7 +25,8 @@
 // (2 bitsets), tree_flood_round reads frontier and received and writes
 // received and the next frontier (4 bitsets), col_popcount reads one
 // bitset and writes N counts; tree_masked_exchange moves the exchange's 2
-// bitsets and the two packed rows (N / 4 bytes).  The design keeps every access coalesced: a
+// bitsets and the two packed rows (N / 4 bytes).  The design keeps every
+// access coalesced: a
 // warp's 32 consecutive nodes read 32 consecutive received words, a span
 // of 32 * k consecutive child words (the k loads per thread stride by k
 // words, so each load instruction touches the same cache lines its
@@ -36,6 +37,20 @@
 // reads and writes only its own received word); the frontier is read
 // from one buffer and written to another, because word i reads its
 // neighbours' frontier words, which other blocks would be overwriting.
+//
+// tree_masked_exchange's liveness bits.  Its first design gave each
+// thread a bit test per edge: a global load of the bit's word guarding,
+// through a branch, the payload load it masked (k + 1 of each a thread).
+// At (1, 2^20), k = 4, it took 0.00626 ms against a 0.00258 ms bound, 16%
+// over the unmasked tree_exchange (0.0054) in the same run (NVIDIA H100
+// 80GB HBM3, 700.00 W, chip_smoke.py): every payload load waited for a
+// bit load, and the 32 lanes of a warp loaded the same few words 5 times
+// over.  Now a warp loads its parent word and its k + 1 kids words once,
+// spreads the bits by shuffles, and starts every payload load at once,
+// ANDed with its bit (tree_masked_exchange_kernel); k = 4, the main
+// path's, is a template, so the parent's index is a shift.  It takes
+// 0.0053-0.0056 ms at (1, 2^20), as the unmasked tree_exchange does, and
+// 0.648-0.653 ms at (128, 2^20), 1.05x tree_exchange (same card).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,27 +78,54 @@ __global__ void tree_exchange_kernel(const uint32_t* __restrict__ payload,
   inbox[base + i] = tree_inbox(payload + base, i, n, k);
 }
 
-// Bit i of a packed liveness row.  A warp's 32 consecutive nodes read one
-// or two words of it, which L1 serves to every lane.
-__device__ __forceinline__ bool live_bit(const uint32_t* __restrict__ row,
-                                         int64_t i) {
-  return (__ldg(row + (i >> 5)) >> (i & 31)) & 1u;
-}
-
+// The masked inbox.  Thread i of a warp takes node i = 32m + lane, so the
+// warp's liveness bits lie in few words: its receivers' parent bits in
+// word m of the parent row, its children k*32m + 1 .. k*32m + 32k in
+// words km .. km + k of the kids row.  Lanes 0..k load those k + 1 words
+// in one coalesced instruction and each lane takes its k bits, at bit
+// k*lane + 1 of them, by two shuffles and a funnel shift (k <= 31; a
+// wider node's bits span more words than a warp has lanes, so there each
+// child's word is loaded).  No payload load waits for a liveness load:
+// each is ANDed with its bit spread to a mask.  K > 0 fixes the
+// branching at compile time (the parent's index is then a shift for
+// K = 4); K = 0 reads it from k.
+template <int K>
 __global__ void tree_masked_exchange_kernel(
     const uint32_t* __restrict__ payload, const uint32_t* __restrict__ live_p,
     const uint32_t* __restrict__ live_k, uint32_t* __restrict__ inbox,
-    int64_t n, int k) {
+    int64_t n, int k_arg) {
+  const int k = K > 0 ? K : k_arg;
   const int64_t i =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int64_t m = i >> 5;                 // the same for the whole warp
+  const int64_t nw = (n + 31) >> 5;
+  // every lane of the warp takes part in the shuffles, also past n
+  uint32_t parent = 0u, kids = 0u;
+  if (m < nw) parent = __ldg(live_p + m);   // one request for the warp
+  if (k <= 31) {
+    const int64_t at = static_cast<int64_t>(k) * m + lane;
+    const uint32_t word = lane <= k && at < nw ? __ldg(live_k + at) : 0u;
+    const int off = k * lane + 1;           // bit of child k*i + 1 from
+                                            // bit 32km of the row
+    const uint32_t lo = __shfl_sync(~0u, word, off >> 5);
+    const uint32_t hi = __shfl_sync(~0u, word, (off >> 5) + 1);
+    kids = __funnelshift_r(lo, hi, off & 31);
+  }
   if (i >= n) return;
   const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
   const uint32_t* row = payload + base;
-  uint32_t v = i > 0 && live_bit(live_p, i) ? __ldg(row + (i - 1) / k) : 0u;
-  int64_t c = static_cast<int64_t>(k) * i + 1;
-  const int64_t end = c + k < n ? c + k : n;
-  for (; c < end; ++c)
-    if (live_bit(live_k, c)) v |= __ldg(row + c);
+  uint32_t v = 0u;
+  if (i > 0) v = __ldg(row + (i - 1) / k) & (0u - (parent >> lane & 1u));
+  const int64_t c0 = static_cast<int64_t>(k) * i + 1;
+#pragma unroll
+  for (int j = 0; j < k; ++j) {             // unrolled when K > 0
+    const int64_t c = c0 + j;
+    if (c >= n) break;
+    const uint32_t bit = k <= 31 ? kids >> j & 1u
+                                 : __ldg(live_k + (c >> 5)) >> (c & 31) & 1u;
+    v |= __ldg(row + c) & (0u - bit);
+  }
   inbox[base + i] = v;
 }
 
@@ -138,8 +180,9 @@ extern "C" int gg_tree_masked_exchange(const void* payload, const void* live_p,
                                        const void* live_k, void* inbox,
                                        int64_t w, int64_t n, int k,
                                        void* stream) {
-  tree_masked_exchange_kernel<<<node_grid(n, w), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = k == 4 ? &tree_masked_exchange_kernel<4>
+                             : &tree_masked_exchange_kernel<0>;
+  kernel<<<node_grid(n, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(payload),
       static_cast<const uint32_t*>(live_p),
       static_cast<const uint32_t*>(live_k), static_cast<uint32_t*>(inbox), n,

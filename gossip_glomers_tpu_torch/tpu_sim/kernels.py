@@ -174,18 +174,30 @@ def _round4(x: int) -> int:
     return (x + 3) & ~3
 
 
+def live_slot_words(tile: int) -> int:
+    """Words of one liveness row's slot in a masked plan's stage: a
+    tile's slice of (tile + 31) // 32 + 1 packed words at most (at any
+    tile start), at its 16-byte phase, in whole 16-byte units."""
+    return _round4((tile + 62) // 32 + 3)
+
+
 @functools.lru_cache(maxsize=256)
 def _shift_plan(dirs: ShiftDirs, n: int, fused: bool,
-                max_tile: int = SHIFT_TILE):
+                max_tile: int = SHIFT_TILE, live: bool = False):
     """(ctypes int64 words, count) of shift_flood.cu's Plan for one table
-    at n nodes, checked and built once per (table, n) so that a launch
-    repeats neither; raises ValueError for a table the kernels cannot
-    take.  The tile is the largest (at most ``max_tile``, at most n)
-    whose stage — every window at its 16-byte phase, and the received
-    tile in the fused round — fits :data:`SHIFT_STAGES` times in shared
-    memory.  Layout: tile, stages, stage words, received's offset, cols,
-    windows, directions, 0; per window lo, hi - lo, wrap, offset; per
+    at n nodes, checked and built once per (table, n, mode) so that a
+    launch repeats neither; raises ValueError for a table the kernels
+    cannot take.  The tile is the largest (at most ``max_tile``, at most
+    n) whose stage — every window at its 16-byte phase, then the
+    received tile in the fused round or, with ``live`` (the masked
+    exchange), one :func:`live_slot_words` slot a direction for its
+    liveness slice — fits :data:`SHIFT_STAGES` times in shared memory.
+    Layout: tile, stages, stage words, received's offset, cols, windows,
+    directions, the liveness slots' offset (-1: none; they fill the
+    stage to its end); per window lo, hi - lo, wrap, offset; per
     direction window, offset - lo, mask flags."""
+    if fused and live:
+        raise ValueError("the fused round takes no liveness rows")
     _check_dirs(dirs, n)
     tile = min(max_tile, n)
     while True:
@@ -193,12 +205,15 @@ def _shift_plan(dirs: ShiftDirs, n: int, fused: bool,
         sizes = [_round4(w.hi - w.lo + tile + 3) for w in windows]
         if fused:
             sizes.append(_round4(tile + 3))
+        if live:
+            sizes.append(len(dirs.offs) * live_slot_words(tile))
         if SHIFT_STAGES * 4 * sum(sizes) <= SHIFT_SMEM_BYTES or tile == 1:
             break
         tile = (tile + 1) // 2
     at = [sum(sizes[:k]) for k in range(len(sizes))]
     words = [tile, SHIFT_STAGES, sum(sizes), at[-1] if fused else -1,
-             dirs.cols, len(windows), len(dirs.offs), 0]
+             dirs.cols, len(windows), len(dirs.offs),
+             at[-1] if live else -1]
     for k, win in enumerate(windows):
         words += [win.lo, win.hi - win.lo, int(win.wrap), at[k]]
     where = {d: k for k, win in enumerate(windows) for d in win.dirs}
@@ -727,18 +742,23 @@ def shift_exchange(payload: torch.Tensor, dirs: ShiftDirs) -> torch.Tensor:
 
 
 def shift_masked_exchange(payload: torch.Tensor, live: torch.Tensor,
-                          dirs: ShiftDirs) -> torch.Tensor:
+                          dirs: ShiftDirs,
+                          max_tile: int = SHIFT_TILE) -> torch.Tensor:
     """:func:`shift_exchange` under per-direction liveness: direction d's
     term counts at receiver i only where i's bit of packed row d of
     ``live`` ((len(dirs.offs), ceil(N/32)) int32, :func:`pack_bits`) is
-    set; the table's column masks still apply."""
+    set; the table's column masks still apply.  ``max_tile`` caps the
+    kernel's tile (:func:`_shift_plan`): a smaller one, or one that is no
+    multiple of 32 nodes, gives the same result."""
     _check_bitset("payload", payload)
     w, n = payload.shape
     _check_packed("live", live, (len(dirs.offs), packed_words(n)))
     if _on_cpu(payload, live):
         return shift_masked_exchange_plain(payload, live, dirs)
     _check_words(w)
-    plan = _shift_plan(dirs, n, False)
+    if max_tile < 1:
+        raise ValueError(f"max_tile must be >= 1, got {max_tile}")
+    plan = _shift_plan(dirs, n, False, max_tile, live=True)
     inbox = torch.empty_like(payload)
     if payload.numel():
         _launch("shift_masked_exchange",

@@ -432,32 +432,46 @@ WM_STREAMS = ((False, False, False), (True, False, False),
               (False, False, True), (True, False, True))
 
 
+# the masked kernels' shapes: small and ragged rows, the shift kernels'
+# tile edges, n = 31 (mod 32) (4127; TILE - 1 too) and 1 (mod 32) (4097,
+# TILE + 1), and W = 128 at small n
+MASKED_SHAPES = ([(w, n) for w in (1, 8) for n in (1, 5, 4097, (1 << 16) + 3)]
+                 + SHIFT_EDGES + [(1, 4127), (128, 5), (128, 4097)])
+# the tree's branchings: its warp reads k + 1 kids words (k <= 31), which
+# a lane's bits straddle at k = 3; 32 takes the word-a-child path
+MASKED_BRANCHINGS = (1, 2, 3, 4, 32)
+# shift_masked_exchange also through a plan whose tile (1000 nodes) is no
+# multiple of 32, so that tiles start inside a liveness word
+ODD_TILE = 1000
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", (0, 1))
 @pytest.mark.parametrize("mode", ("all", "none", "random"))
-@pytest.mark.parametrize("w,n", [(w, n) for w in (1, 8)
-                                 for n in (1, 5, 4097, (1 << 16) + 3)])
+@pytest.mark.parametrize("w,n", MASKED_SHAPES)
 def test_cuda_masked_kernels_match_plain(cuda_device, w, n, mode, offset):
-    # tree_masked_exchange (its two rows apart), shift_masked_exchange in
-    # every shift mode and wm_fault_coins in every stream and the ledger
-    # mode, on views 4 bytes into their allocation (offset 1)
+    # tree_masked_exchange (its two rows apart) at every branching,
+    # shift_masked_exchange in every shift mode at the wrapper's tile and
+    # at ODD_TILE, and wm_fault_coins in every stream and the ledger mode,
+    # on views 4 bytes into their allocation (offset 1)
     fr = _bits((w, n), 7 * n + w, cuda_device)
     frk = _at_offset(fr, offset)
     before = dict(kernels.LAUNCHES)
     rows = _packed(2, n, mode, n + 1, cuda_device)
-    for k in (2, 4):
+    for k in MASKED_BRANCHINGS:
         got = kernels.tree_masked_exchange(frk, _at_offset(rows[0], offset),
                                            _at_offset(rows[1], offset), k)
         assert torch.equal(got, kernels.tree_masked_exchange_plain(
-            fr, rows[0], rows[1], k))
+            fr, rows[0], rows[1], k)), k
     modes = _shift_modes(n)
     for topo, kw in modes:
         dirs = structured.shift_dirs(topo, n, **kw)
         live = _packed(len(dirs.offs), n, mode, n + 2, cuda_device)
-        got = kernels.shift_masked_exchange(frk, _at_offset(live, offset),
-                                            dirs)
-        assert torch.equal(got, kernels.shift_masked_exchange_plain(
-            fr, live, dirs)), topo
+        want = kernels.shift_masked_exchange_plain(fr, live, dirs)
+        for tile in (kernels.SHIFT_TILE, ODD_TILE):
+            got = kernels.shift_masked_exchange(
+                frk, _at_offset(live, offset), dirs, max_tile=tile)
+            assert torch.equal(got, want), (topo, tile)
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     src, dst = torch.randint(0, n, (2, 3, n), dtype=torch.int32,
                              device=cuda_device, generator=gen)
@@ -472,9 +486,9 @@ def test_cuda_masked_kernels_match_plain(cuda_device, w, n, mode, offset):
             assert x is None or torch.equal(g, x), (loss, dup, srv)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["tree_masked_exchange"] \
-        == before["tree_masked_exchange"] + 2
+        == before["tree_masked_exchange"] + len(MASKED_BRANCHINGS)
     assert kernels.LAUNCHES["shift_masked_exchange"] \
-        == before["shift_masked_exchange"] + len(modes)
+        == before["shift_masked_exchange"] + 2 * len(modes)
     assert kernels.LAUNCHES["wm_fault_coins"] \
         == before["wm_fault_coins"] + len(WM_STREAMS)
 

@@ -189,3 +189,60 @@ def test_gather_wrappers_check_their_operands():
                              nbrs)
     with pytest.raises(ValueError, match="device"):
         kernels.gather_or(payload.to("meta"), nbrs.to("meta"))
+
+
+def _tree_masked_warp_emulation(x, live_p, live_k, k):
+    """tree_flood.cu's masked inbox, emulated in numpy as its threads
+    compute it: node i = 32m + lane takes its parent bit from word m of
+    the parent row, and (k <= 31) its k kids bits from the k + 1 words
+    km .. km + k of the kids row that lanes 0..k load, at bit k*lane + 1
+    of them, by a funnel shift of the two words there; a wider k loads
+    each child's word.  Payload loads stay inside [0, n)."""
+    w, n = x.shape
+    nw = (n + 31) // 32
+    u64 = np.uint64
+    i = np.arange(n, dtype=np.int64)
+    m, lane = i >> 5, (i & 31).astype(u64)
+    pw, kw = live_p.astype(u64), live_k.astype(u64)
+    parent = (pw[m] >> lane) & u64(1)
+    out = np.where(((i > 0) & (parent == 1))[None, :],
+                   x[:, np.maximum(i - 1, 0) // k], 0).astype(x.dtype)
+    if k <= 31:
+        lanes = np.arange(32)[None, :]
+        at = k * m[:, None] + lanes                 # lane l's word
+        words = np.where((lanes <= k) & (at < nw),
+                         kw[np.minimum(at, nw - 1)], u64(0))
+        off = k * (i & 31) + 1
+        lo = words[np.arange(n), off >> 5]
+        hi = words[np.arange(n), (off >> 5) + 1]
+        kids = (((hi << u64(32)) | lo) >> (off & 31).astype(u64)) \
+            & u64(0xFFFFFFFF)
+    for j in range(k):
+        c = k * i + 1 + j
+        cc = np.minimum(c, n - 1)
+        bit = ((kids >> u64(j)) & u64(1) if k <= 31
+               else (kw[cc >> 5] >> (cc & 31).astype(u64)) & u64(1))
+        out |= np.where(((c < n) & (bit == 1))[None, :], x[:, cc], 0
+                        ).astype(x.dtype)
+    return out
+
+
+@pytest.mark.parametrize("k", (1, 2, 3, 4, 31, 32))
+@pytest.mark.parametrize("w,n", [(1, 1), (2, 5), (1, 33), (3, 4097),
+                                 (1, 4127), (2, 4129)])
+def test_tree_masked_warp_bits_match_plain_and_reference(w, n, k):
+    # n = 4127 and 4129 are 31 and 1 mod 32: the last warp's kids words
+    # run past the row; the words' bits past n are random
+    x = _u32((w, n), seed=n * 31 + k)
+    nw = kernels.packed_words(n)
+    rows = _u32((2, nw), seed=n * 37 + k)
+    rp, rk = _torch(rows[0]), _torch(rows[1])
+    got = _tree_masked_warp_emulation(x, rows[0], rows[1], k)
+    want = kernels.tree_masked_exchange_plain(_torch(x), rp, rk, k)
+    np.testing.assert_array_equal(got, _bits(want))
+    # one row for both edges: the reference's tree_masked_exchange
+    same = _tree_masked_warp_emulation(x, rows[0], rows[0], k)
+    lv = kernels.unpack_bits(rp, n).numpy()[None, :]
+    np.testing.assert_array_equal(
+        same, np.asarray(jst.tree_masked_exchange(jnp.asarray(x),
+                                                  jnp.asarray(lv), k)))
