@@ -23,14 +23,23 @@ flood at 1,048,576 nodes, on every topology the port runs:
    mask, on whole tables and on slabs of rows off the block grid, on
    4-byte-offset views, at the same edges and at (2^20, 1) and (2^20,
    128); the masked structured exchanges (``tree_masked_exchange``,
-   ``shift_masked_exchange`` in every shift mode) and the words-major
-   coins (``wm_fault_coins``, every stream and the ledger mode) under
-   all-live, none-live and random packed rows, on 4-byte-offset views, at
-   the small shapes, the shift kernels' tile edges, (1, 2^20) and (128,
-   2^20) — and each one's median time at the main path's shapes (the
+   ``shift_masked_exchange`` in every shift mode) under all-live,
+   none-live and random packed rows, on 4-byte-offset views, at the small
+   shapes, the shift kernels' tile edges, (1, 2^20) and (128, 2^20); the
+   words-major coins (``wm_fault_coins``, every stream and the ledger
+   mode) on every structured topology's id descriptors (the tree at
+   branchings 1, 2, 3, 4 and 32 in both contracts, a ragged grid, ring,
+   line, circulant) at every n of those shapes; ``tree_exchange`` also
+   at n % 4 in {0, 1, 2, 3}, k = 4 and 3, W = 1 and 128, on 4-byte-offset
+   views — and each one's median time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
-   the masked shift kernel also at smaller tile caps), with its bound and
-   the share of it reached (``bound_share`` = bound / device time).
+   the masked shift kernel also at smaller tile caps; the coins on the
+   tree nemesis's 2 delivery rows and the accounted circulant's 8 ledger
+   rows at round 5), with its bound and the share of it reached
+   (``bound_share`` = bound / device time).  Bounds count each input
+   read once and each output written once over 3.35 TB/s, and the
+   integer operations the function needs at 64 lanes a clock an SM (the
+   coins': :func:`coin_ops`, from the coins the call draws).
 3. ``w1_tree``: the 4-ary tree with 32 values (W = 1 word per node), the
    fixed-trip flood to ``discover_rounds`` timed with CUDA events, then
    the accounted while-converge run with the server ledger on; both held
@@ -93,9 +102,11 @@ measured), and stderr says what each profile missed.  A kernel's
 (``kernel_ms``): a wrapper may launch helpers beside it (sync_diff_pc's
 zero fill and casts).
 
-Each phase prints one JSON line.  Kernel launch counts are zeroed just
-before each main-path phase and read just after.  Then come the card's
-name and power limit (``nvidia-smi``), one ``{"kernels": [...]}`` line
+Each phase prints one JSON line, after a ``card`` line (the card's name,
+power limit, SM clock and the integer rate it gives).  Kernel launch
+counts are zeroed just before each main-path phase and read just after.
+Then come the card's name and power limit (``nvidia-smi``), one
+``{"kernels": [...]}`` line
 (the shift kernels' launches also split by path: the 1M-node floods at
 W = 128 and at W = 1, and the small floods; ``gather_or`` is listed
 with its check and times but the main path no longer launches it: the
@@ -124,7 +135,12 @@ CHECK_SHAPES = [(w, n) for w in (1, 8, 32, 128)
                 for n in (1, 5, 4097, (1 << 16) + 3)]
 MAIN_SHAPES = [(1, N_NODES), (W128_VALUES // 32, N_NODES)]
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
-OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+# 32-bit integer add, multiply-add, shift, compare and logical operations
+# a clock on one SM of compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput); main() sets OPS_PER_S to
+# this x the SMs x the SM clock read from nvidia-smi (clocks.max.sm)
+INT_LANES_PER_CLOCK = 64
+OPS_PER_S: float | None = None
 CSRC = "gossip_glomers_tpu_torch/csrc/"
 JAX_PKG = "gossip_glomers_tpu/tpu_sim/"
 # per kernel: (source, what it replaces — the fused 4-ary tree inbox Pallas
@@ -309,10 +325,33 @@ def at_offset(x, offset: int):
 
 def bound(moved_bytes: float, ops: float) -> tuple[float, str]:
     """(least ms, "bytes" | "operations") for work that moves
-    ``moved_bytes`` and does ``ops`` integer operations."""
+    ``moved_bytes`` and does ``ops`` integer operations (at the card's
+    integer rate, :data:`OPS_PER_S`)."""
     by = moved_bytes / HBM_BYTES_PER_S * 1e3
     op = ops / OPS_PER_S * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
+
+
+# the integer operations of wm_fault_coins' function (fault_flood.cu's
+# hash): a loss coin is the two id products, their xor with the salted
+# key, mix32's 8 and the compare; a dup coin shares the products (the
+# salted key, mix32, the compare)
+OPS_LOSS_COIN, OPS_DUP_COIN = 13, 10
+# a closed-form id by its form (kernels.COIN_*): IDENT none; SHIFT an
+# add, a subtract of n and an unsigned min; PARENT an add and a shift (k
+# a power of two); CHILD a multiply-add
+OPS_ID = (0, 3, 2, 1)
+# a slot's live bit: its test and the AND with the slot's coins
+OPS_LIVE_BIT = 2
+
+
+def coin_ops(dirs, n: int, n_loss: int, n_dup: int) -> int:
+    """Integer operations one ``wm_fault_coins`` call needs: each (row,
+    node) slot's two closed-form ids (``dirs``' forms, :data:`OPS_ID`)
+    and live bit, and the loss and dup coins it draws."""
+    slot = sum(OPS_ID[int(src)] + OPS_ID[int(dst)] + OPS_LIVE_BIT
+               for src, _, dst, _ in dirs.tolist())
+    return slot * n + OPS_LOSS_COIN * n_loss + OPS_DUP_COIN * n_dup
 
 
 def shift_edges(tile: int) -> list:
@@ -489,12 +528,9 @@ WM_COINS = {"t": 5, "seed": 5, "loss_num": int(0.3 * 2**32),
 
 def check_masked(kernels, structured, topology, note, fr, seed: int,
                  offset: int = 0) -> None:
-    """The masked exchanges and the words-major coins against their plain
-    versions over one (W, N) payload ``fr``: every row mode, the tree's
-    two rows apart, every shift mode, every coin stream (loss, dup, the
-    ledger mode), each operand ``offset`` words into its allocation."""
-    import torch
-
+    """The masked exchanges against their plain versions over one (W, N)
+    payload ``fr``: every row mode, the tree's two rows apart, every shift
+    mode, each operand ``offset`` words into its allocation."""
     w, n = fr.shape
     frk = at_offset(fr, offset)
     for mode in ROW_MODES:
@@ -512,17 +548,68 @@ def check_masked(kernels, structured, topology, note, fr, seed: int,
                 kernels.shift_masked_exchange(frk, at_offset(live, offset),
                                               dirs),
                 kernels.shift_masked_exchange_plain(fr, live, dirs)))
-        gen = torch.Generator(device=fr.device).manual_seed(seed + 2)
-        ids = torch.randint(0, n, (2, 3, n), dtype=torch.int32,
-                            device=fr.device, generator=gen)
-        live = packed_rows(kernels, 3, n, mode, seed + 3, fr.device)
-        args = [at_offset(x, offset) for x in (ids[0], ids[1], live)]
-        for loss, dup, srv in WM_STREAMS:
-            kw = dict(WM_COINS, loss=loss, dup=dup, srv=srv)
-            got = kernels.wm_fault_coins(*args, **kw)
-            want = kernels.wm_fault_coins_plain(ids[0], ids[1], live, **kw)
-            note("wm_fault_coins", *((g, x) for g, x in zip(got, want)
-                                     if x is not None))
+
+
+# the tree's branchings in the coin checks (k + 1 words a warp at k = 3
+# straddle, 32 a word a child in the masked exchange; 4 the main path's)
+COIN_BRANCHINGS = (1, 2, 3, 4, 32)
+
+
+def coin_dir_sets(structured, topology, n: int) -> list:
+    """Every structured topology's coin descriptors at n nodes: (name,
+    (D, 4) int64 numpy rows) for the tree at :data:`COIN_BRANCHINGS` in
+    the delivery and the degree contract, a ragged grid, the ring, the
+    line and the circulant expander."""
+    out = [(f"tree{k}_{c}", structured.coin_dirs(
+        "tree", n, degree=c == "deg", branching=k))
+        for k in COIN_BRANCHINGS for c in ("del", "deg")]
+    return out + [(name, structured.coin_dirs(topo, n, **kw))
+                  for name, topo, kw in shift_modes(n, topology)]
+
+
+def check_coins(kernels, structured, topology, note, n: int, seed: int,
+                device, offset: int = 0) -> None:
+    """``wm_fault_coins`` on every topology's descriptors
+    (:func:`coin_dir_sets`) against ``wm_fault_coins_plain`` over their
+    materialized id rows (``kernels.coin_dir_rows``, the kernel's uint32
+    ids also where no edge exists, so that random rows compare): every
+    row mode, every stream of :data:`WM_STREAMS` (loss, dup, the ledger
+    mode), the live rows ``offset`` words into their allocation."""
+    import torch
+
+    for name, rows in coin_dir_sets(structured, topology, n):
+        dirs = torch.from_numpy(rows).to(device)
+        src, dst = kernels.coin_dir_rows(dirs, n)
+        for mode in ROW_MODES:
+            live = packed_rows(kernels, len(rows), n, mode, seed, device)
+            lk = at_offset(live, offset)
+            for loss, dup, srv in WM_STREAMS:
+                kw = dict(WM_COINS, loss=loss, dup=dup, srv=srv)
+                want = kernels.wm_fault_coins_plain(src, dst, live, **kw)
+                got = kernels.wm_fault_coins(dirs, n, lk, **kw)
+                note("wm_fault_coins", *(
+                    (g, x) for g, x in zip(got, want) if x is not None))
+
+
+# tree_exchange's vector-path cases: n % 4 in {0, 1, 2, 3} (a row of the
+# four-nodes-a-thread path, then rows the scalar kernel takes), rows whose
+# last quads' children stop at each vector, k = 4 and k = 3
+TREE_VEC_NS = (4, 20, 44, 4096, 4097, 4098, 4099, 65552)
+
+
+def check_tree(kernels, note, bits) -> None:
+    """``tree_exchange`` against ``tree_exchange_plain`` at
+    :data:`TREE_VEC_NS`, W = 1 and 128, k = 4 and 3, on views at offsets
+    0 and 1 (4 bytes in: the scalar kernel)."""
+    for n in TREE_VEC_NS:
+        for w in (1, 128):
+            fr = bits(w, n)
+            for offset in (0, 1):
+                view = at_offset(fr, offset)
+                for k in (4, 3):
+                    note("tree_exchange", (kernels.tree_exchange(view, k),
+                                           kernels.tree_exchange_plain(fr,
+                                                                       k)))
 
 
 def check_kernels(kernels, structured, topology, device) -> dict:
@@ -561,6 +648,15 @@ def check_kernels(kernels, structured, topology, device) -> dict:
                         at_offset(fr, offset), n, offset)
             check_masked(kernels, structured, topology, note, fr,
                          w + n + offset, offset)
+    # the coins at every n of the shift edges and the shapes, once an n
+    for n in sorted({n for _, n in shift_edges(kernels.SHIFT_TILE)
+                     + CHECK_SHAPES + MAIN_SHAPES}):
+        for offset in (0, 1):
+            check_coins(kernels, structured, topology, note, n, n + offset,
+                        device, offset)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    check_tree(kernels, note, bits)
     lib = kernels._lib("gather_flood")
     for w in (1, 3, 8, 32, 128, 256):
         if lib.gg_gather_nodes_per_block(w, 1) \
@@ -642,6 +738,13 @@ def tree_nemesis_spec(faults, n: int):
     return faults.NemesisSpec(
         n_nodes=n, seed=5, crash=((2, 16, tuple(range(0, n, 97))),),
         loss_rate=0.1, loss_until=17, dup_rate=0.05, dup_until=17)
+
+
+def loss_only_spec(faults, n: int):
+    """The accounted circulant phase's loss-only plan: loss 0.1 until
+    round 13, seed 0."""
+    return faults.NemesisSpec(n_nodes=n, seed=0, loss_rate=0.1,
+                              loss_until=13)
 
 
 def config4c_parts(broadcast, n: int):
@@ -795,7 +898,6 @@ def time_kernels(kernels, structured, topology, device) -> dict:
     circ = kernels.pack_bits(torch.from_numpy(exists & same[0])).to(device)
     coins = dict(t=5, seed=plan.seed, loss_num=plan.loss_num,
                  dup_num=plan.dup_num, loss=True, dup=True, srv=False)
-    n_live, n_del = (int(kernels.popcount(x).sum()) for x in (live, rows))
     nw, d_circ, d_tree = kernels.packed_words(n), len(dirs.offs), 2
     for w, _ in MAIN_SHAPES:
         fr = torch.randint(-(1 << 31), 1 << 31, (w, n), dtype=torch.int32,
@@ -826,20 +928,45 @@ def time_kernels(kernels, structured, topology, device) -> dict:
             for tile in MASKED_TILES}
         del fr
         torch.cuda.empty_cache()
-    runs = {
-        # the two id rows and the packed rows in, two packed rows out; a
-        # hash of some 13 integer operations a drawn coin (loss on every
-        # live edge, dup on every delivered one) and a few an edge
-        "wm_fault_coins": (
-            lambda: kernels.wm_fault_coins(arrs.src, arrs.dst, live,
-                                           **coins),
-            lambda: kernels.wm_fault_coins_plain(arrs.src, arrs.dst, live,
-                                                 **coins),
-            bound(2 * 4 * d_tree * n + 3 * 4 * d_tree * nw,
-                  13 * (n_live + n_del) + 4 * d_tree * n)),
-    }
-    for name, (kern, plain, b) in runs.items():
-        out[name][(1, n)] = _timed(name, kern, plain, b)
+    # the words-major coins, keyed (D, N): the tree nemesis's two delivery
+    # rows at round 5 (loss and dup), and the eight degree rows in ledger
+    # mode of the loss-only plan under config4c's window at round 5 (the
+    # accounted circulant phase's); the packed rows in, one or two out,
+    # and the integer operations the coins drawn need (coin_ops)
+    loss_spec = loss_only_spec(faults, n)
+    loss_plan = loss_spec.compile(device)
+    parts, group = config4c_parts(broadcast, n)
+    carrs = structured.make_nemesis("circulant", n, loss_spec, groups=group,
+                                    device=device, strides=strides).arrs
+    clive = faults.wm_live_rows(loss_plan, 5, carrs, parts.starts,
+                                parts.ends, deg=True)
+    cases = {(d_tree, n): (arrs.coin_dirs, arrs.src, arrs.dst, live, coins),
+             (len(strides) * 2, n): (
+                 carrs.deg_coin_dirs, carrs.deg_src, carrs.deg_dst, clive,
+                 dict(t=5, seed=loss_plan.seed, loss_num=loss_plan.loss_num,
+                      dup_num=loss_plan.dup_num, loss=True, dup=False,
+                      srv=True))}
+    for key, (cdirs, src, dst, lv, kw) in cases.items():
+        d = cdirs.shape[0]
+        # the coins this input draws: delivery, a loss coin a live edge
+        # and a dup coin a delivered one; ledger, a reply coin a live
+        # edge and a forward coin an edge whose reply was kept (out0)
+        n_live = int(kernels.popcount(lv).sum())
+        kept = int(kernels.popcount(
+            kernels.wm_fault_coins(cdirs, n, lv, **kw)[0]).sum())
+        n_loss = (n_live + kept if kw["srv"] else n_live) if kw["loss"] \
+            else 0
+        n_dup = kept if kw["dup"] and not kw["srv"] else 0
+        moved = 4 * d * nw * (2 if kw["srv"] or kw["dup"] else 1) + 4 * d * nw
+        ops = coin_ops(cdirs, n, n_loss, n_dup)
+        out["wm_fault_coins"][key] = _timed(
+            "wm_fault_coins",
+            lambda: kernels.wm_fault_coins(cdirs, n, lv, **kw),
+            lambda: kernels.wm_fault_coins_plain(src, dst, lv, **kw),
+            bound(moved, ops))
+        out["wm_fault_coins"][key].update({
+            "ops": ops, "live_edges": n_live, "loss_coins": n_loss,
+            "dup_coins": n_dup})
     return out
 
 
@@ -1355,8 +1482,7 @@ def structured_fault_phases(modules, faults, structured, kernels, topology,
     torch.cuda.empty_cache()
 
     # -- w1_circulant_nemesis_accounted: loss-only under config4c -----
-    spec = faults.NemesisSpec(n_nodes=n, seed=0, loss_rate=0.1,
-                              loss_until=13)
+    spec = loss_only_spec(faults, n)
 
     def loss_sim(dev, structured_path):
         kw = (dict(exchange=structured.make_exchange("circulant", n,
@@ -1448,6 +1574,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    global OPS_PER_S
+    OPS_PER_S = INT_LANES_PER_CLOCK * sms * float(clock.split()[0]) * 1e6
+    emit({"phase": "card", "name_power_limit": smi, "sm_clock_max": clock,
+          "sms": sms, "int_lanes_per_clock_per_sm": INT_LANES_PER_CLOCK,
+          "int_ops_per_s": OPS_PER_S, "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
     t0 = time.perf_counter()
     libs = kernels.build()
@@ -1472,6 +1608,9 @@ def main() -> int:
               kernels.gather_nodes_per_block)],
           "gather_view_offsets": [0, 1],
           "shift_modes": [m[0] for m in shift_modes(N_NODES, topology)],
+          "tree_vec_ns": list(TREE_VEC_NS),
+          "coin_dir_sets": [name for name, _ in coin_dir_sets(
+              structured, topology, N_NODES)],
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
                     for k, t in times.items()}})
 
@@ -1515,8 +1654,11 @@ def main() -> int:
                  "replaces": replaces, "launches": launches.total[name],
                  "max_abs_err": errs[name], **shapes[big],
                  "library_ms": None, "at": list(big)}
-        if len(shapes) > 1:
+        if MAIN_SHAPES[0] in shapes and big != MAIN_SHAPES[0]:
             entry["w1"] = shapes[MAIN_SHAPES[0]]
+        elif len(shapes) > 1:           # wm_fault_coins: keyed (D, N)
+            entry["also"] = {f"{w}x{n}": v for (w, n), v in shapes.items()
+                             if (w, n) != big}
         if name.startswith("shift_"):
             entry["launches_by_path"] = launches.split(name)
         if name in OFF_MAIN_PATH:

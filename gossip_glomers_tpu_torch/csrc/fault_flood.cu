@@ -25,9 +25,12 @@
 //   Replaces: broadcast.py :475-483 (the dup ledger charge), :557-560 (the
 //   two masked gathers) and :579 (the merge).
 // - wm_fault_coins:       the words-major (structured) nemesis's coins over
-//   (D, N) sender and receiver id rows and a packed send-liveness row set
-//   (D rows of (N + 31) / 32 int32 words, node i at bit i % 32 of word
-//   i / 32), written as packed rows too.  Delivery mode: out0 = live and
+//   D direction rows, each row's sender and receiver ids given as closed
+//   forms of the receiver column i (a (D, 4) int64 descriptor: IDENT i,
+//   SHIFT (i + off) mod n, PARENT (i - 1) / k, CHILD k*i + 1 + j; right
+//   wherever the edge exists, which is where the live bits lie), and a
+//   packed send-liveness row set (D rows of (N + 31) / 32 int32 words,
+//   node i at bit i % 32 of word i / 32), written as packed rows too.  Delivery mode: out0 = live and
 //   the loss coin of src -> dst did not drop, out1 = out0 and the dup coin
 //   fired.  Ledger mode (srv): out0 = live and the loss coin of dst -> src
 //   (the reply) did not drop, out1 = out0 and the coin of src -> dst did
@@ -43,25 +46,46 @@
 // Bound on the card.  fault_coins reads the index table (4 bytes an edge),
 // the mask when given, and writes a byte an edge; its one random access is
 // up[src], a byte per edge from a 1 MiB vector that sits in L2, so at
-// (2^20 nodes, D = 8) the card's random-sector rate, not bytes, sets its
-// floor (the gather kernels' probe: about 0.064 ms for 8.4 M random
-// reads; PERF.md).  faulted_gather_round is a gather round (gather_flood.cu)
-// that also reads the flag bytes and, on DUP edges, a second random row.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W under
-// the nemesis phase's coins: fault_coins 0.064 ms (bound 0.0128),
-// faulted_gather_round 0.068 ms at W = 1 and 1.93 ms at W = 128 (bounds
-// 0.0175 and 0.654).
+// (2^20 nodes, D = 8) the card's random-sector rate, not bytes or its
+// integer operations, sets its floor (the gather kernels' probe: about
+// 0.064 ms for 8.4 M random reads; PERF.md).  faulted_gather_round is a
+// gather round (gather_flood.cu) that also reads the flag bytes and, on
+// DUP edges, a second random row.  Measured by chip_smoke.py on an NVIDIA
+// H100 80GB HBM3 at 700.00 W under the nemesis phase's coins: fault_coins
+// 0.064 ms (bound 0.0161, its operations), faulted_gather_round 0.068 ms
+// at W = 1 and 1.93 ms at W = 128 (bounds 0.0175 and 0.654, bytes).
 //
-// wm_fault_coins reads the two (D, N) id rows once (8 bytes an edge) and
-// its packed rows, and writes one or two packed rows: bytes bound it, 16
-// MiB of ids for the tree's two delivery rows at 2^20 nodes.
+// wm_fault_coins moves only packed rows: its live rows in, one or two
+// out, 0.75 MiB for the tree's two delivery rows at 2^20 nodes (0.23 us
+// at 3.35 TB/s).  Its first design read two (D, N) id rows besides, 16
+// MiB there (0.0110 ms against a 0.0052 ms byte bound).  The integer
+// operations the function needs bound it now, at 64 lanes a clock an SM
+// (132 SMs at 1.98 GHz: 16.7e12 a second): 13 a loss coin (the two id
+// products, their xor with the salted key, mix32's 8, the compare), 10 a
+// dup coin (it shares the products), and a slot's closed-form ids (2 for
+// PARENT, 3 for SHIFT) and live bit (2).  At round 5 that is about 0.0032
+// ms for the tree's 2 delivery rows and 0.0087 ms for the circulant's 8
+// ledger rows (chip_smoke.py counts them from each call's coins).  This
+// design spends more a slot than that: one generic formula an id, the
+// votes and the word selects (open, PERF.md).
 //
-// Design.  wm_fault_coins: a thread a (row, node), a warp 32 consecutive
-// nodes, so that the warp's coins are one packed word: __ballot_sync
-// gathers them and lane 0 stores it; threads past N vote 0.  A node whose
-// liveness bit is clear draws no hash.  fault_coins: one thread per edge
-// slot, a grid-stride loop; the hashes are a few dozen integer operations
-// an edge, far below the card's rate.  faulted_gather_round: gather_flood.cu's lane groups and launch
+// Design.  wm_fault_coins: grid.y is the direction, so that a block's id
+// forms are one; a warp takes 8 consecutive packed words of a row (a lane
+// a node in each), so that each word's coins are one __ballot_sync, and
+// the descriptor decode and the key are paid once for 256 slots.  Every
+// load (the descriptor and the 8 liveness words) is issued first and no
+// branch depends on a slot: each lane hashes and ANDs with its live bit
+// (a branch on the bit made the compiler load the descriptor after it, two
+// memory latencies in a row; a warp's lanes take the hash together
+// anyway).  The coins of an edge share its ids' products.  Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, 2^20 nodes at
+// round 5: the tree's 2 delivery rows 0.0073 ms (from 0.0111 reading
+// ids), the circulant's 8 ledger rows 0.0247 ms (from 0.0489); a word a
+// warp took 0.0137 / 0.0476 ms and 4 words 0.0084 / 0.0277 (same card).
+// fault_coins: one thread per edge slot, a grid-stride loop; its hashes
+// (13 integer operations a coin, 8 more an edge: 0.016 ms at the integer
+// rate) lie below its random-sector floor.  faulted_gather_round:
+// gather_flood.cu's lane groups and launch
 // geometry (a thread a node at W = 1, a lane per 16-byte vector of the row
 // when W % 4 == 0 and every row is 16-byte aligned, else a lane per word,
 // up to a warp a node), D = 8 a template instance with vector loads of the
@@ -134,43 +158,125 @@ __global__ void __launch_bounds__(kThreads) fault_coins_kernel(const Coins c) {
   }
 }
 
+// The id forms of a coin direction (kernels.COIN_*; 0 is IDENT): a
+// descriptor row is (sender form, its argument, receiver form, its
+// argument), int64 each.
+constexpr int kShift = 1, kParent = 2, kChild = 3;
+
+// One id form, decoded to id(i) = ((i + add) >> sh) * mul + off, less
+// wrap where that is >= wrap (wrap 0: none): IDENT i; SHIFT(a) (i + a)
+// mod n, a in [0, n); PARENT(k) (i - 1) / k, a shift for k a power of
+// two, else a division by div; CHILD(k, j) k * i + 1 + j.  The form is
+// the block's own (grid.y is the direction), so div's branch is uniform.
+struct IdForm {
+  uint32_t add, mul, off, wrap, div;
+  int sh;
+};
+
+__device__ __forceinline__ IdForm id_form(long long form, long long arg,
+                                          uint32_t n) {
+  const uint32_t a = static_cast<uint32_t>(arg);
+  const uint32_t j =
+      static_cast<uint32_t>(static_cast<unsigned long long>(arg) >> 32);
+  IdForm f{0u, 1u, 0u, 0u, 0u, 0};
+  if (form == kShift) {
+    f.add = a;
+    f.wrap = n;
+  } else if (form == kParent && (a & (a - 1u)) == 0u) {
+    f.add = 0xFFFFFFFFu;                  // i - 1
+    f.sh = __ffs(a) - 1;
+  } else if (form == kParent) {
+    f.div = a;
+  } else if (form == kChild) {
+    f.mul = a;
+    f.off = 1u + j;
+  }
+  return f;
+}
+
+// The id of node i < n under f, in uint32 arithmetic (kernels.
+// coin_dir_rows computes the same values; i + add < 2n <= 2^32).
+__device__ __forceinline__ uint32_t node_id(const IdForm& f, uint32_t i) {
+  if (f.div != 0u) return (i - 1u) / f.div;
+  const uint32_t v = ((i + f.add) >> f.sh) * f.mul + f.off;
+  return v - (v >= f.wrap ? f.wrap : 0u);
+}
+
 struct WmCoins {
-  const int32_t* src;   // (d, n) sender ids of each direction row
-  const int32_t* dst;   // (d, n) receiver ids
-  const uint32_t* live; // (d, nw) packed send liveness
-  uint32_t* out0;       // (d, nw) packed
-  uint32_t* out1;       // (d, nw) packed, or null (delivery mode, no dup)
-  int64_t n, nw;
-  uint32_t t, seed, loss_num, dup_num;
+  const long long* dirs;  // (d, 4) int64 descriptor rows
+  const uint32_t* live;   // (d, nw) packed send liveness
+  uint32_t* out0;         // (d, nw) packed
+  uint32_t* out1;         // (d, nw) packed, or null (delivery mode, no dup)
+  uint32_t nw, n, t, seed, loss_num, dup_num;
   int32_t loss, dup, srv;  // streams active this round; ledger mode
 };
 
+// A warp takes kWords consecutive packed words of its row (32 nodes a
+// word, a lane a node); each word's coins are one __ballot_sync.  No
+// branch depends on a slot: every lane computes its ids and coins and
+// ANDs them with its live bit, so the row's descriptor and the kWords
+// liveness words are loaded first and together (a branch on the bit made
+// the compiler load the descriptor after it: two memory latencies in a
+// row).  A warp's lanes take their hashes together either way, unless
+// the whole warp is dead.  The coins of one edge share its ids' products
+// (the hash is mix32(src * C1 ^ dst * C2 ^ key ^ salt)).  The decode and
+// the key are paid once for the kWords words, and lane q stores word q
+// (8 words a warp measured 10-11% faster than 4, and 4 about 40% faster
+// than 1, on an H100; PERF.md).
+constexpr int kWords = 8;
+
 __global__ void __launch_bounds__(kThreads) wm_fault_coins_kernel(
     const WmCoins c) {
-  const int64_t row = blockIdx.y;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31;  // == i % 32: blocks start on a word
-  const int64_t word = i >> 5;
+  const uint32_t row = blockIdx.y;
+  const long long* desc = c.dirs + 4 * row;
+  const long long d0 = __ldg(desc), d1 = __ldg(desc + 1);
+  const long long d2 = __ldg(desc + 2), d3 = __ldg(desc + 3);
+  const int lane = threadIdx.x & 31;
+  const uint32_t word0 =
+      (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kWords;
+  const uint32_t* live = c.live + static_cast<int64_t>(row) * c.nw;
+  uint32_t bits[kWords];
+#pragma unroll
+  for (int q = 0; q < kWords; ++q)
+    bits[q] = word0 + q < c.nw ? __ldg(live + word0 + q) : 0u;
+  // decoded after every load is issued: its branches would hold back
+  // the loads behind them
+  const IdForm fs = id_form(d0, d1, c.n), fr = id_form(d2, d3, c.n);
   const uint32_t key = c.t * 0x9E3779B9u ^ c.seed;
-  bool b0 = false, b1 = false;
-  if (i < c.n && ((__ldg(c.live + row * c.nw + word) >> lane) & 1u)) {
-    const uint32_t s = static_cast<uint32_t>(__ldg(c.src + row * c.n + i));
-    const uint32_t r = static_cast<uint32_t>(__ldg(c.dst + row * c.n + i));
-    const bool fwd =
-        !c.loss || edge_hash(key ^ kSaltLoss, s, r) >= c.loss_num;
-    if (c.srv) {
-      b0 = !c.loss || edge_hash(key ^ kSaltLoss, r, s) >= c.loss_num;
-      b1 = b0 && fwd;
+  const uint32_t key_loss = key ^ kSaltLoss, key_dup = key ^ kSaltDup;
+  uint32_t w0[kWords], w1[kWords];
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const uint32_t i = (word0 + q) * 32 + lane;  // >= n past the row
+    // bitwise & and |: a short-circuit would branch on the slot
+    const bool lv = (i < c.n) & ((bits[q] >> lane) & 1u);
+    const uint32_t s = node_id(fs, i), r = node_id(fr, i);
+    const uint32_t x = s * 0xC2B2AE35u ^ r * 0x27D4EB2Fu;
+    const bool fwd = !c.loss | (mix32(x ^ key_loss) >= c.loss_num);
+    bool b0, b1;
+    if (c.srv) {                            // the flags are uniform
+      b0 = lv & (!c.loss
+                 | (mix32(r * 0xC2B2AE35u ^ s * 0x27D4EB2Fu ^ key_loss)
+                    >= c.loss_num));
+      b1 = b0 & fwd;
     } else {
-      b0 = fwd;
-      b1 = fwd && c.dup && edge_hash(key ^ kSaltDup, s, r) < c.dup_num;
+      b0 = lv & fwd;
+      b1 = c.dup ? b0 & (mix32(x ^ key_dup) < c.dup_num) : false;
     }
+    w0[q] = __ballot_sync(0xffffffffu, b0);
+    w1[q] = __ballot_sync(0xffffffffu, b1);
   }
-  const uint32_t w0 = __ballot_sync(0xffffffffu, b0);
-  const uint32_t w1 = __ballot_sync(0xffffffffu, b1);
-  if (lane == 0 && word < c.nw) {
-    c.out0[row * c.nw + word] = w0;
-    if (c.out1 != nullptr) c.out1[row * c.nw + word] = w1;
+  uint32_t v0 = w0[0], v1 = w1[0];
+#pragma unroll
+  for (int q = 1; q < kWords; ++q) {
+    v0 = lane == q ? w0[q] : v0;
+    v1 = lane == q ? w1[q] : v1;
+  }
+  const uint32_t word = word0 + lane;
+  if (lane < kWords && word < c.nw) {
+    const int64_t at = static_cast<int64_t>(row) * c.nw + word;
+    c.out0[at] = v0;
+    if (c.out1 != nullptr) c.out1[at] = v1;
   }
 }
 
@@ -391,24 +497,22 @@ extern "C" int gg_fault_coins(const void* nbrs, const void* live,
   return static_cast<int>(cudaGetLastError());
 }
 
-// src, dst: (d, n) int32 node ids; live, out0 and out1 (null: not
-// written) (d, ceil(n / 32)) int32 packed rows.
-extern "C" int gg_wm_fault_coins(const void* src, const void* dst,
-                                 const void* live, void* out0, void* out1,
-                                 int64_t d, int64_t n, int64_t t,
-                                 int64_t seed, int64_t loss_num,
-                                 int64_t dup_num, int loss, int dup, int srv,
-                                 void* stream) {
-  if (n < 1 || d < 1 || d > 65535)
+// dirs: (d, 4) int64 descriptor rows (kernels.coin_dirs); live, out0 and
+// out1 (null: not written) (d, ceil(n / 32)) int32 packed rows.
+extern "C" int gg_wm_fault_coins(const void* dirs, const void* live,
+                                 void* out0, void* out1, int64_t d,
+                                 int64_t n, int64_t t, int64_t seed,
+                                 int64_t loss_num, int64_t dup_num, int loss,
+                                 int dup, int srv, void* stream) {
+  if (n < 1 || n >= (int64_t{1} << 31) || d < 1 || d > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   WmCoins c;
-  c.src = static_cast<const int32_t*>(src);
-  c.dst = static_cast<const int32_t*>(dst);
+  c.dirs = static_cast<const long long*>(dirs);
   c.live = static_cast<const uint32_t*>(live);
   c.out0 = static_cast<uint32_t*>(out0);
   c.out1 = static_cast<uint32_t*>(out1);
-  c.n = n;
-  c.nw = (n + 31) / 32;
+  c.nw = static_cast<uint32_t>((n + 31) / 32);
+  c.n = static_cast<uint32_t>(n);
   c.t = static_cast<uint32_t>(t);
   c.seed = static_cast<uint32_t>(seed);
   c.loss_num = static_cast<uint32_t>(loss_num);
@@ -416,7 +520,8 @@ extern "C" int gg_wm_fault_coins(const void* src, const void* dst,
   c.loss = loss;
   c.dup = dup;
   c.srv = srv;
-  const dim3 grid(static_cast<unsigned>((c.nw * 32 + kThreads - 1) / kThreads),
+  const int64_t per_block = kThreads / 32 * kWords;
+  const dim3 grid(static_cast<unsigned>((c.nw + per_block - 1) / per_block),
                   static_cast<unsigned>(d));
   wm_fault_coins_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(c);

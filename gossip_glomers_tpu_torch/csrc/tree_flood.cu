@@ -3,8 +3,9 @@
 // Bitsets are (W, N) words-major: word w of node i sits at w * N + i, so
 // the node axis is contiguous.  In the heap-ordered k-ary tree node i's
 // parent is (i - 1) / k and its children are k*i + 1 .. k*i + k (those
-// below N).  Each kernel gives one thread one (w, i) word: grid.x walks
-// the node axis in blocks of kThreads, grid.y the W words.
+// below N).  Each kernel gives one thread one (w, i) word (tree_exchange's
+// k = 4 path four): grid.x walks the node axis in blocks of kThreads,
+// grid.y the W words.
 //
 // Replaces: benchmarks/pallas_tree_probe.py make_pallas_exchange's inner
 // `kernel` (the fused 4-ary tree inbox, the form of
@@ -19,20 +20,21 @@
 // word i / 32: at W = 1 they move 1/16 of the bytes the bitsets do.
 //
 // Bound on the card: memory bytes.  Each word is a handful of integer
-// operations against 4 bytes moved, far below the card's operation rate,
-// so the least time is the bytes over the HBM rate (3.35 TB/s on an H100
-// SXM).  tree_exchange reads the payload once and writes the inbox once
+// operations against 4 bytes moved, far below the card's integer rate (64
+// lanes a clock an SM: 16.7e12 a second on an H100 SXM at 1.98 GHz), so
+// the least time is the bytes over the HBM rate (3.35 TB/s).  tree_exchange reads the payload once and writes the inbox once
 // (2 bitsets), tree_flood_round reads frontier and received and writes
 // received and the next frontier (4 bitsets), col_popcount reads one
 // bitset and writes N counts; tree_masked_exchange moves the exchange's 2
 // bitsets and the two packed rows (N / 4 bytes).  The design keeps every
-// access coalesced: a
-// warp's 32 consecutive nodes read 32 consecutive received words, a span
+// access coalesced: a warp's 32 consecutive nodes read 32 consecutive
+// received words, a span
 // of 32 * k consecutive child words (the k loads per thread stride by k
 // words, so each load instruction touches the same cache lines its
 // neighbours do and L1 serves the repeats), and 32 / k parent words.
 // The children of node i start at k*i + 1, which is not 16-byte aligned,
-// so the loads are scalar.  Offsets are 64-bit: W * N passes 2^31 at the
+// so the loads are scalar, except in tree_exchange's k = 4 path below.
+// Offsets are 64-bit: W * N passes 2^31 at the
 // main path's W = 128, N = 2^20.  received is updated in place (word i
 // reads and writes only its own received word); the frontier is read
 // from one buffer and written to another, because word i reads its
@@ -51,6 +53,18 @@
 // path's, is a template, so the parent's index is a shift.  It takes
 // 0.0053-0.0056 ms at (1, 2^20), as the unmasked tree_exchange does, and
 // 0.648-0.653 ms at (128, 2^20), 1.05x tree_exchange (same card).
+//
+// tree_exchange, four nodes a thread.  A thread a word took 0.0053 ms at
+// (1, 2^20) against a 0.0025 ms bound and 0.617 ms at (128, 2^20) against
+// 0.321 (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py): five scalar
+// loads and a store a word, 4,096 blocks a row, so each thread's and
+// block's own cost set the time, not the bytes.  For k = 4 (the main
+// path's), N % 4 == 0 and 16-byte aligned rows, a thread now writes four
+// inbox words as one 16-byte store from four aligned 16-byte child loads,
+// one child word and two parent words (quads_inbox): 0.0028 ms
+// and 0.353 ms (89% and 91% of the bound, same card).  A grid of resident
+// blocks striding over the quads took 0.0028 and 0.466-0.508 ms: one
+// pass stays.  Any other k, view or N takes the thread-a-word kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,14 +82,47 @@ __device__ __forceinline__ uint32_t tree_inbox(
   return v;
 }
 
-__global__ void tree_exchange_kernel(const uint32_t* __restrict__ payload,
-                                     uint32_t* __restrict__ inbox,
-                                     int64_t n, int k) {
+// The 4-ary inbox, four nodes a thread: thread q of a row writes inbox
+// words 4q .. 4q+3 as one 16-byte store.  Their children are words 16q+1
+// .. 16q+16, read as the aligned vectors at 16q, 16q+4, 16q+8 and 16q+12
+// and the word 16q+16; their parents are words q - 1 (node 4q, q >= 1)
+// and q.  n % 4 == 0 and 16-byte aligned rows (the wrapper's condition),
+// so a vector lies wholly inside or wholly past the row: each load is
+// guarded by its first word.
+__device__ __forceinline__ void quads_inbox(const uint32_t* __restrict__ row,
+                                            uint32_t* __restrict__ out,
+                                            int64_t q, int64_t n) {
+  const uint4* vrow = reinterpret_cast<const uint4*>(row);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int64_t c = 16 * q;               // the first child word, less 1
+  const uint4 v0 = c < n ? __ldg(vrow + 4 * q) : zero;
+  const uint4 v1 = c + 4 < n ? __ldg(vrow + 4 * q + 1) : zero;
+  const uint4 v2 = c + 8 < n ? __ldg(vrow + 4 * q + 2) : zero;
+  const uint4 v3 = c + 12 < n ? __ldg(vrow + 4 * q + 3) : zero;
+  const uint32_t last = c + 16 < n ? __ldg(row + c + 16) : 0u;
+  const uint32_t up = __ldg(row + q);
+  const uint32_t up0 = q > 0 ? __ldg(row + q - 1) : 0u;
+  reinterpret_cast<uint4*>(out)[q] =
+      make_uint4(up0 | v0.y | v0.z | v0.w | v1.x,
+                 up | v1.y | v1.z | v1.w | v2.x,
+                 up | v2.y | v2.z | v2.w | v3.x,
+                 up | v3.y | v3.z | v3.w | last);
+}
+
+// The inbox of one row (gridDim.y rows): a thread a word for any k, or
+// (kQuads) a thread a quad for k = 4 (quads_inbox).
+template <bool kQuads>
+__global__ void __launch_bounds__(kThreads) tree_exchange_kernel(
+    const uint32_t* __restrict__ payload, uint32_t* __restrict__ inbox,
+    int64_t n, int k) {
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
   const int64_t i =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
-  inbox[base + i] = tree_inbox(payload + base, i, n, k);
+  if (!kQuads) {
+    if (i < n) inbox[base + i] = tree_inbox(payload + base, i, n, k);
+  } else if (i < n >> 2) {
+    quads_inbox(payload + base, inbox + base, i, n);
+  }
 }
 
 // The masked inbox.  Thread i of a warp takes node i = 32m + lane, so the
@@ -166,12 +213,22 @@ dim3 node_grid(int64_t n, int64_t rows) {
 // refused launch reaches the caller.  The caller guarantees w, n >= 1,
 // w <= 65535, and device pointers to contiguous (w, n) int32 buffers.
 
+// The scalar kernel for any k, view and n; four nodes a thread for k = 4
+// where n % 4 == 0 and both buffers are 16-byte aligned.
 extern "C" int gg_tree_exchange(const void* payload, void* inbox, int64_t w,
                                 int64_t n, int k, void* stream) {
-  tree_exchange_kernel<<<node_grid(n, w), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(payload), static_cast<uint32_t*>(inbox),
-      n, k);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const uint32_t*>(payload);
+  auto* o = static_cast<uint32_t*>(inbox);
+  if (k != 4 || n % 4 != 0 || (reinterpret_cast<uintptr_t>(p) & 15) != 0
+      || (reinterpret_cast<uintptr_t>(o) & 15) != 0) {
+    tree_exchange_kernel<false><<<node_grid(n, w), kThreads, 0, s>>>(p, o, n,
+                                                                     k);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(static_cast<unsigned>((n / 4 + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(w));
+  tree_exchange_kernel<true><<<grid, kThreads, 0, s>>>(p, o, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -468,9 +468,10 @@ def kv_drop(plan: FaultPlan, t: int, ids) -> torch.Tensor:
 # - crash liveness becomes a host-precomputed (C, D, N) "either endpoint
 #   down" mask per crash window (``down_pair``), AND-folded at round t
 #   like the partition ``same`` masks;
-# - the loss/dup coins become elementwise hashes over host-precomputed
-#   (D, N) sender/receiver id rows (the stateless stream needs only (t,
-#   src, dst)): :func:`.kernels.wm_fault_coins`;
+# - the loss/dup coins become elementwise hashes of each direction's
+#   sender and receiver ids (the stateless stream needs only (t, src,
+#   dst)), closed forms of the receiver column (``coin_dirs``):
+#   :func:`.kernels.wm_fault_coins`;
 # - amnesia rows and receiver liveness become a (C, N) per-column
 #   ``down`` array (:func:`wm_up_cols`).
 #
@@ -485,18 +486,23 @@ class WMNemesisArrays:
     Delivery-contract rows (``exists`` / ``same`` / ``down_pair`` /
     ``src`` / ``dst``) follow structured.nemesis_dir_pairs; degree-
     contract rows (``deg_*``) follow structured.fault_dir_senders and
-    drive the ledgers.  Masks are packed rows, ids int32."""
+    drive the ledgers.  Masks are packed rows, ids int32 (the
+    reference's leaves); the coins take the ids' closed forms instead
+    (``coin_dirs`` / ``deg_coin_dirs``, structured.coin_dirs), right
+    wherever ``exists`` holds."""
 
     exists: torch.Tensor         # (D, NW) packed: delivery edges
     same: torch.Tensor           # (P, D, NW) packed: partition same-group
     down_pair: torch.Tensor      # (C, D, NW) packed: src or dst down
-    src: torch.Tensor            # (D, N) int32: sender ids (coins)
-    dst: torch.Tensor            # (D, N) int32: receiver ids (coins)
+    src: torch.Tensor            # (D, N) int32: sender ids
+    dst: torch.Tensor            # (D, N) int32: receiver ids
+    coin_dirs: torch.Tensor      # (D, 4) int64: the ids' closed forms
     deg_exists: torch.Tensor     # (Dg, NW) packed: ledger edges
     deg_same: torch.Tensor       # (P, Dg, NW) packed
     deg_down_pair: torch.Tensor  # (C, Dg, NW) packed
-    deg_src: torch.Tensor        # (Dg, N) int32: the ledger's coin ids
+    deg_src: torch.Tensor        # (Dg, N) int32: the ledger's ids
     deg_dst: torch.Tensor        # (Dg, N) int32
+    deg_coin_dirs: torch.Tensor  # (Dg, 4) int64
     down_cols: torch.Tensor      # (C, N) bool: amnesia / receiver-up
 
     @property
@@ -569,13 +575,13 @@ def wm_live_del(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
     coins, and the delivered edges whose dup coin fired (None where the
     dup stream is off or past its horizon at ``t``: the reference's
     all-False rows).  The coins are :func:`.kernels.wm_fault_coins`' over
-    the (D, N) id rows, the gather path's (t, src, dst) streams."""
+    the ids' closed forms, the gather path's (t, src, dst) streams."""
     live = wm_live_rows(plan, t, arrs, pstarts, pends)
     loss = _loss_on(plan, t)
     dup = dup_on and t < plan.dup_until and plan.dup_num > 0
     if not (loss or dup):
         return live, None
-    return kernels.wm_fault_coins(arrs.src, arrs.dst, live, t=t,
+    return kernels.wm_fault_coins(arrs.coin_dirs, arrs.n_nodes, live, t=t,
                                   seed=plan.seed, loss_num=plan.loss_num,
                                   dup_num=plan.dup_num, loss=loss, dup=dup,
                                   srv=False)
@@ -593,7 +599,7 @@ def wm_srv_rows(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
     if not _loss_on(plan, t):
         return live, live, live
     ack, both = kernels.wm_fault_coins(
-        arrs.deg_src, arrs.deg_dst, live, t=t, seed=plan.seed,
+        arrs.deg_coin_dirs, arrs.n_nodes, live, t=t, seed=plan.seed,
         loss_num=plan.loss_num, dup_num=plan.dup_num, loss=True, dup=False,
         srv=True)
     return live, ack, both

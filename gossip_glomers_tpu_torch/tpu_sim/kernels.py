@@ -85,6 +85,9 @@ WRAP, MASK_LEFT, MASK_RIGHT = 1, 2, 4
 # the edge flags of fault_coins (fault_flood.cu): a send is charged, the
 # delivery survived the loss coin, the dup coin fired, the reply's coin
 FLAG_SEND, FLAG_DEL, FLAG_DUP, FLAG_OUT_OK = 1, 2, 4, 8
+# the id forms of wm_fault_coins' direction descriptors (fault_flood.cu):
+# i; (i + off) mod n; (i - 1) // k; k * i + 1 + j
+COIN_IDENT, COIN_SHIFT, COIN_PARENT, COIN_CHILD = 0, 1, 2, 3
 
 LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "tree_flood_round": 0, "col_popcount": 0,
@@ -460,6 +463,41 @@ def wm_fault_coins_plain(src: torch.Tensor, dst: torch.Tensor,
     return pack_bits(deliver), pack_bits(fired)
 
 
+def coin_id(form: int, a: int = 0, j: int = 0) -> tuple[int, int]:
+    """One id of a coin descriptor row, ``(form, argument)``: IDENT ``i``;
+    SHIFT(``a`` = off in [0, n)) ``(i + off) mod n``; PARENT(``a`` = k)
+    ``(i - 1) // k``; CHILD(``a`` = k, ``j``) ``k * i + 1 + j``."""
+    return form, a | j << 32
+
+
+def coin_dir_rows(dirs: torch.Tensor,
+                  n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (D, n) int32 sender and receiver id rows of (D, 4) int64
+    descriptor rows ``(src form, arg, dst form, arg)`` (:func:`coin_id`),
+    in the kernel's uint32 arithmetic (so also at positions where no
+    edge exists, where the ids are no node's).  Raises on a form or
+    argument the kernel does not take."""
+    i = torch.arange(n, dtype=torch.int64, device=dirs.device)
+
+    def ids(form: int, arg: int) -> torch.Tensor:
+        a, j = arg & MASK32, arg >> 32
+        if form == COIN_IDENT and arg == 0:
+            v = i
+        elif form == COIN_SHIFT and a < n and j == 0:
+            v = torch.where(i + a >= n, i + a - n, i + a)
+        elif form == COIN_PARENT and a >= 1 and j == 0:
+            v = ((i - 1) & MASK32) // a
+        elif form == COIN_CHILD and a >= 1 and 0 <= j < MASK32:
+            v = (a * i + 1 + j) & MASK32
+        else:
+            raise ValueError(f"no coin id form ({form}, {arg}) at n = {n}")
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+    rows = dirs.tolist()
+    return (torch.stack([ids(f, a) for f, a, _, _ in rows]),
+            torch.stack([ids(f, a) for _, _, f, a in rows]))
+
+
 # -- build and load ------------------------------------------------------
 
 
@@ -550,8 +588,8 @@ def _lib(name: str) -> ctypes.CDLL:
                                             ptr, ptr, i64, i64, i64, i32,
                                             ptr],
                 "gg_faulted_nodes_per_block": [i64, i32],
-                "gg_wm_fault_coins": [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                                      i64, i64, i64, i32, i32, i32, ptr]},
+                "gg_wm_fault_coins": [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                                      i64, i64, i32, i32, i32, ptr]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -635,7 +673,9 @@ def _check_flood_buffers(received: torch.Tensor, frontier: torch.Tensor,
 
 def tree_exchange(payload: torch.Tensor, branching: int = 4) -> torch.Tensor:
     """inbox[:, i] = payload[:, (i-1)//k] (0 at the root) | OR of
-    payload[:, k*i+1 .. k*i+k] over the children below N."""
+    payload[:, k*i+1 .. k*i+k] over the children below N.  On the card,
+    k = 4 with N % 4 == 0 and 16-byte aligned rows takes four nodes a
+    thread."""
     _check_bitset("payload", payload)
     if _on_cpu(payload):
         return tree_exchange_plain(payload, branching)
@@ -985,12 +1025,15 @@ def faulted_gather_round(payload: torch.Tensor,
     return new, rec_next, dup_pc
 
 
-def wm_fault_coins(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
-                   *, t: int, seed: int, loss_num: int, dup_num: int,
+def wm_fault_coins(dirs: torch.Tensor, n: int, live: torch.Tensor, *,
+                   t: int, seed: int, loss_num: int, dup_num: int,
                    loss: bool, dup: bool, srv: bool):
-    """The words-major nemesis's coins over direction rows: ``src`` /
-    ``dst`` (D, N) int32 sender and receiver ids, ``live`` the (D,
-    ceil(N/32)) packed send liveness.  Returns two packed row sets
+    """The words-major nemesis's coins over direction rows: ``dirs`` the
+    (D, 4) int64 descriptors of each row's sender and receiver ids
+    (:func:`coin_id`, built by structured.coin_dirs), ``live`` the (D,
+    ceil(n/32)) packed send liveness.  Precondition: the live bits lie
+    inside the rows' ``exists`` positions, the only ones where the
+    descriptors give the edge's ids.  Returns two packed row sets
     ``(out0, out1)``:
 
     - delivery (``srv=False``): ``out0`` = live and the loss coin of src
@@ -1002,28 +1045,30 @@ def wm_fault_coins(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
       -> dst did not either.
 
     The coins are the reference's ``edge_drop`` / ``edge_dup`` hashes of
-    ``(seed, t, src, dst)``."""
-    for name, x in (("src", src), ("dst", dst)):
-        if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous (D, N) int32 "
-                             f"id table, got {x.dtype} {tuple(x.shape)}")
-    if src.shape != dst.shape:
-        raise ValueError(f"src {tuple(src.shape)} and dst "
-                         f"{tuple(dst.shape)} differ")
-    d, n = src.shape
+    ``(seed, t, src, dst)``; the plain version takes the id rows of
+    :func:`coin_dir_rows`.  On the card the kernel computes the ids in
+    registers."""
+    if dirs.dtype != torch.int64 or dirs.dim() != 2 or dirs.shape[1] != 4 \
+            or not dirs.is_contiguous():
+        raise ValueError(f"dirs must be contiguous (D, 4) int64 descriptor "
+                         f"rows, got {dirs.dtype} {tuple(dirs.shape)}")
+    d = dirs.shape[0]
     _check_packed("live", live, (d, packed_words(n)))
     args = dict(t=t, seed=seed, loss_num=loss_num, dup_num=dup_num,
                 loss=loss, dup=dup, srv=srv)
-    if _on_cpu(src, dst, live):
-        return wm_fault_coins_plain(src, dst, live, **args)
+    if _on_cpu(dirs, live):
+        return wm_fault_coins_plain(*coin_dir_rows(dirs, n), live, **args)
     if d > MAX_WORDS:
         raise ValueError(f"{d} direction rows exceed the kernel's "
                          f"{MAX_WORDS}")
+    if not 1 <= n <= MAX_NODES:
+        raise ValueError(f"n = {n} nodes: the kernel takes 1 .. "
+                         f"{MAX_NODES}")
     out0 = torch.empty_like(live)
     out1 = torch.empty_like(live) if srv or dup else None
     if live.numel():
         _launch("wm_fault_coins", _lib("fault_flood").gg_wm_fault_coins,
-                src.device, src.data_ptr(), dst.data_ptr(), live.data_ptr(),
+                live.device, dirs.data_ptr(), live.data_ptr(),
                 out0.data_ptr(), None if out1 is None else out1.data_ptr(),
                 d, n, t & MASK32, seed & MASK32, loss_num & MASK32,
                 dup_num & MASK32, int(loss), int(dup), int(srv))

@@ -558,6 +558,41 @@ def nemesis_dir_pairs(topology: str, n: int, **kw):
     return snd, dst, snd >= 0
 
 
+def coin_dirs(topology: str, n: int, *, degree: bool = False,
+              **kw) -> np.ndarray | None:
+    """(D, 4) int64: the closed forms of each direction row's sender and
+    receiver ids (:func:`.kernels.coin_id`), equal to
+    :func:`nemesis_dir_pairs`' ids (``degree``: :func:`fault_dir_senders`'
+    senders and the receiver i) at every position where the edge exists.
+    ``wm_fault_coins`` computes its ids from them.  None for unstructured
+    topologies."""
+    ident = kernels.coin_id(kernels.COIN_IDENT)
+
+    def shift(off: int) -> tuple[int, int]:
+        return kernels.coin_id(kernels.COIN_SHIFT, off % n)
+
+    if topology == "tree":
+        k = kw.get("branching", 4)
+        parent = kernels.coin_id(kernels.COIN_PARENT, k)
+        if degree:
+            rows = [parent + ident] + [
+                kernels.coin_id(kernels.COIN_CHILD, k, j) + ident
+                for j in range(k)]
+        else:
+            rows = [parent + ident, ident + parent]
+    elif topology == "grid":
+        cols = kw.get("cols") or grid_cols(n)
+        rows = [shift(o) + ident for o in (cols, -cols, 1, -1)]
+    elif topology in ("ring", "circulant"):
+        strides = [1] if topology == "ring" else list(kw["strides"])
+        rows = [shift(o) + ident for s in strides for o in (-s, s)]
+    elif topology == "line":
+        rows = [shift(1) + ident, shift(-1) + ident]
+    else:
+        return None
+    return np.array(rows, dtype=np.int64).reshape(-1, 4)
+
+
 def _same_groups(groups: np.ndarray, src: np.ndarray, dst: np.ndarray,
                  n: int) -> np.ndarray:
     """(P, D, N) bool: per partition window, the edge's endpoints share a
@@ -681,10 +716,13 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
     arrs = faults.WMNemesisArrays(
         exists=packed(exists), same=packed(_same_groups(g, src, dst, n)),
         down_pair=down_pair(src, dst), src=ids(src), dst=ids(dst),
+        coin_dirs=torch.from_numpy(coin_dirs(topology, n, **kw)).to(device),
         deg_exists=packed(deg_src >= 0),
         deg_same=packed(_same_groups(g, deg_src, deg_dst, n)),
         deg_down_pair=down_pair(deg_src, deg_dst), deg_src=ids(deg_src),
         deg_dst=ids(deg_dst),
+        deg_coin_dirs=torch.from_numpy(
+            coin_dirs(topology, n, degree=True, **kw)).to(device),
         down_cols=torch.from_numpy(faults.crash_down_rows(spec, idx)).to(
             device))
     ex, spc = _nem_closures(topology, n, **kw)

@@ -64,6 +64,24 @@ def test_cuda_kernels_match_plain(cuda_device, w, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("w", (1, 128))
+@pytest.mark.parametrize("n", (4, 20, 44, 4096, 4097, 4098, 4099))
+def test_cuda_tree_exchange_vector_path(cuda_device, n, w, offset):
+    # k = 4 takes four nodes a thread where n % 4 == 0 on 16-byte aligned
+    # rows (offset 0); the scalar kernel takes n % 4 != 0, a view 4 bytes
+    # in (offset 1) and k = 3
+    fr = _bits((w, n), 5 * n + w, cuda_device)
+    view = _at_offset(fr, offset)
+    before = kernels.LAUNCHES["tree_exchange"]
+    for k in (4, 3):
+        got = kernels.tree_exchange(view, k)
+        assert torch.equal(got, kernels.tree_exchange_plain(fr, k)), k
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tree_exchange"] == before + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("srv", (False, True))
 @pytest.mark.parametrize("n,nv,sync_every", [(4097, 96, 64),
                                              (4097, 96, 3)])
@@ -472,25 +490,31 @@ def test_cuda_masked_kernels_match_plain(cuda_device, w, n, mode, offset):
             got = kernels.shift_masked_exchange(
                 frk, _at_offset(live, offset), dirs, max_tile=tile)
             assert torch.equal(got, want), (topo, tile)
-    gen = torch.Generator(device=cuda_device).manual_seed(n)
-    src, dst = torch.randint(0, n, (2, 3, n), dtype=torch.int32,
-                             device=cuda_device, generator=gen)
-    live = _packed(3, n, mode, n + 3, cuda_device)
-    views = [_at_offset(x, offset) for x in (src, dst, live)]
-    for loss, dup, srv in WM_STREAMS:
-        kw = dict(FAULT_COINS, loss=loss, dup=dup, srv=srv)
-        got = kernels.wm_fault_coins(*views, **kw)
-        want = kernels.wm_fault_coins_plain(src, dst, live, **kw)
-        for g, x in zip(got, want):
-            assert (g is None) == (x is None)
-            assert x is None or torch.equal(g, x), (loss, dup, srv)
+    # the coins on every topology's descriptors, against the plain version
+    # over their materialized id rows
+    coin_sets = [structured.coin_dirs("tree", n, degree=deg, branching=k)
+                 for k in MASKED_BRANCHINGS for deg in (False, True)]
+    coin_sets += [structured.coin_dirs(topo, n, **kw) for topo, kw in modes]
+    for rows in coin_sets:
+        dirs = torch.from_numpy(rows).to(cuda_device)
+        src, dst = kernels.coin_dir_rows(dirs, n)
+        live = _packed(len(rows), n, mode, n + 3, cuda_device)
+        lk = _at_offset(live, offset)
+        for loss, dup, srv in WM_STREAMS:
+            kw = dict(FAULT_COINS, loss=loss, dup=dup, srv=srv)
+            want = kernels.wm_fault_coins_plain(src, dst, live, **kw)
+            got = kernels.wm_fault_coins(dirs, n, lk, **kw)
+            for g, x in zip(got, want):
+                assert (g is None) == (x is None)
+                assert x is None or torch.equal(g, x), (
+                    rows.tolist(), loss, dup, srv)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["tree_masked_exchange"] \
         == before["tree_masked_exchange"] + len(MASKED_BRANCHINGS)
     assert kernels.LAUNCHES["shift_masked_exchange"] \
         == before["shift_masked_exchange"] + 2 * len(modes)
     assert kernels.LAUNCHES["wm_fault_coins"] \
-        == before["wm_fault_coins"] + len(WM_STREAMS)
+        == before["wm_fault_coins"] + len(WM_STREAMS) * len(coin_sets)
 
 
 @pytest.mark.cuda
