@@ -31,11 +31,18 @@ flood at 1,048,576 nodes, on every topology the port runs:
    branchings 1, 2, 3, 4 and 32 in both contracts, a ragged grid, ring,
    line, circulant) at every n of those shapes; ``tree_exchange`` also
    at n % 4 in {0, 1, 2, 3}, k = 4 and 3, W = 1 and 128, on 4-byte-offset
-   views — and each one's median time at the main path's shapes (the
+   views; the ring kernels (``tree_ring_exchange``,
+   ``shift_ring_exchange``) on random 3-slot rings and rows, over every
+   table shape the delay modes build (the tree's, every shift mode's,
+   past 16 rows, rows dropped), at the small shapes, n % 4 in {0, 1, 2,
+   3}, the main shapes and 4-byte-offset views — and each one's median
+   time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
    the masked shift kernel also at smaller tile caps; the coins on the
    tree nemesis's 2 delivery rows and the accounted circulant's 8 ledger
-   rows at round 5), with its bound and the share of it reached
+   rows at round 5; the ring kernels on the delay phases' edge-delayed
+   tables at round 5, beside the composition of masked exchanges they
+   replace), with its bound and the share of it reached
    (``bound_share`` = bound / device time).  Bounds count each input
    read once and each output written once over 3.35 TB/s, and the
    integer operations the function needs at 64 lanes a clock an SM (the
@@ -90,7 +97,25 @@ flood at 1,048,576 nodes, on every topology the port runs:
     13, seed 0) composed with ``config4c``'s window on the structured
     circulant, sync waves every 16 rounds, server ledger on; held against
     the CPU path and the card's gather path, ``srv_msgs`` included.
-14. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
+14. ``w1_circulant_delayed``: benchmarks/run_all.py's ``config4d``
+    itself: the circulant expander, 32 values, per-edge delays of 1 or 3
+    rounds (``default_rng(11)``, p = 0.7 / 0.3), three ways — the gather
+    ring over ``gather_delays_from_rows``, per-direction classes
+    (``make_delayed``, the generator's next draw) and per-edge delays on
+    the structured path (``make_edge_delayed``, 16 ring-table rows) —
+    each host-stepped, its fixed trip timed; the edge-delayed run equals
+    the gather ring, also accounted (server ledger on, sync waves every
+    16 rounds); every way held against the CPU path.
+15. ``w1_circulant_edge_delayed_partitioned``: the same delays under
+    ``config4c``'s window and groups, sync waves every 16 rounds, through
+    ``make_edge_delayed_faulted``; equal to the gather ring under the
+    same ``Partitions``, ``srv_msgs`` included.
+16. ``w1_tree_edge_delayed``: the 4-ary tree with per-edge delays of the
+    same law, equal to the gather ring on ``to_padded_neighbors(tree(n))``.
+17. ``w1_tree_nemesis_delayed``: ``w1_tree_nemesis``'s plan with
+    ``dir_delays = (1, 3)``, equal to the gather ring with
+    ``gather_delays_for`` under the same plan.
+18. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
     run to convergence with the server ledger on, each held against the
     CPU path (coverage, not timing).
 
@@ -108,9 +133,8 @@ counts are zeroed just before each main-path phase and read just after.
 Then come the card's name and power limit (``nvidia-smi``), one
 ``{"kernels": [...]}`` line
 (the shift kernels' launches also split by path: the 1M-node floods at
-W = 128 and at W = 1, and the small floods; ``gather_or`` is listed
-with its check and times but the main path no longer launches it: the
-gather round runs the fused ``gather_flood_round``) and last
+W = 128 and at W = 1, and the small floods; ``gather_or`` launches on
+the delay phases' gather ring) and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script
 then exits non-zero and prints no result.  Without a CUDA card it exits
 with status 2.
@@ -176,16 +200,18 @@ KERNELS = {
                              "faulted_gather_round_kernel"),
     "wm_fault_coins": ("fault_flood.cu", JAX_PKG + "faults.py:690",
                        "wm_fault_coins_kernel"),
+    "tree_ring_exchange": ("tree_flood.cu",
+                           "benchmarks/pallas_tree_probe.py:74",
+                           "tree_ring_exchange_kernel"),
+    "shift_ring_exchange": ("shift_flood.cu", JAX_PKG + "structured.py:1038",
+                            "shift_tiles_kernel"),
 }
-# kernels the main path does not launch: the gather round runs the fused
-# gather_flood_round; gather_or stays the reference _gather_or's
-# counterpart for the fault modes still to port
-OFF_MAIN_PATH = ("gather_or",)
 # the gather kernels' main shapes are node-major (N, W) = (2^20, 1) and
 # (2^20, 128), degree 8
 GATHER_SHAPES = [(1, N_NODES), (W128_VALUES // 32, N_NODES)]
 # the profiler's names of the port's kernels (csrc/*.cu __global__s)
 PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
+                         r"tree_ring_exchange|"
                          r"tree_flood_round|col_popcount|col_popcount_nm|"
                          r"shift_tiles|gather_or|sync_diff_pc|"
                          r"gather_flood_round|fault_coins|"
@@ -612,6 +638,67 @@ def check_tree(kernels, note, bits) -> None:
                                                                        k)))
 
 
+def ring_tree_tables(rng, slots: int, rows: int) -> list:
+    """tree_ring_exchange's table shapes: make_delayed's two ungated
+    terms, the nemesis's two gated ones, make_edge_delayed's 2 |V| (|V| =
+    3), a 21-entry random table (two launches) and that table with the
+    entries of slot 1 dropped (as a send round below 0 drops them)."""
+    rand = [(int(rng.integers(0, slots)), int(rng.integers(0, 2)),
+             int(rng.integers(-1, rows))) for _ in range(21)]
+    return [[(0, 0, -1), (2, 1, -1)], [(1, 0, 0), (0, 1, 1)],
+            [(v, kind, 2 * v + kind) for v in range(3) for kind in (0, 1)],
+            rand, [e for e in rand if e[0] != 1]]
+
+
+def check_ring(kernels, structured, topology, note, w: int, n: int,
+               seed: int, device, offset: int = 0) -> None:
+    """Both ring kernels against their twins on one random (3, W, N) ring
+    and random packed rows: the tree's tables (:func:`ring_tree_tables`,
+    k = 4 and 3), every shift mode's directions at once and three times
+    over (past 16 rows), with random slots, with and without rows, and
+    with the rows of slot 1 dropped; ring and rows ``offset`` words into
+    their allocation."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ring = torch.randint(-(1 << 31), 1 << 31, (3, w, n), dtype=torch.int32,
+                         device=device, generator=gen)
+    live = torch.randint(-(1 << 31), 1 << 31, (48, kernels.packed_words(n)),
+                         dtype=torch.int32, device=device, generator=gen)
+    rk = at_offset(ring, offset)
+    for k in (BRANCHING, 3):
+        for table in ring_tree_tables(rng, 3, 6):
+            note("tree_ring_exchange", (
+                kernels.tree_ring_exchange(rk, table,
+                                           at_offset(live[:6], offset), k),
+                kernels.tree_ring_exchange_plain(ring, table, live[:6], k)))
+    for _, topo, kw in shift_modes(n, topology):
+        dirs = structured.shift_dirs(topo, n, **kw)
+        for reps in (1, 3):
+            slots = tuple(int(x) for x in
+                          rng.integers(0, 3, len(dirs.offs) * reps))
+            keep = [d for d, x in enumerate(slots) if x != 1]
+            for sel in (list(range(len(slots))), keep):
+                table = kernels.ShiftDirs(
+                    tuple((dirs.offs * reps)[d] for d in sel),
+                    tuple((dirs.flags * reps)[d] for d in sel), dirs.cols,
+                    tuple(slots[d] for d in sel))
+                rows = live[:len(sel)]
+                for lv in (None, rows):
+                    note("shift_ring_exchange", (
+                        kernels.shift_ring_exchange(
+                            rk, table,
+                            None if lv is None else at_offset(lv, offset)),
+                        kernels.shift_ring_exchange_plain(ring, table, lv)))
+
+
+# the ring kernels' shapes besides CHECK_SHAPES and MAIN_SHAPES: n % 4 in
+# {0, 2} (CHECK_SHAPES' n hold 1 and 3)
+RING_SHAPES = [(1, 4096), (8, 4098)]
+
+
 def check_kernels(kernels, structured, topology, device) -> dict:
     """Every kernel, in every mode, against its plain version on the card;
     returns the per-kernel max |kernel - plain| over all shapes (must be
@@ -657,6 +744,12 @@ def check_kernels(kernels, structured, topology, device) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     check_tree(kernels, note, bits)
+    for w, n in CHECK_SHAPES + RING_SHAPES + MAIN_SHAPES:
+        for offset in (0, 1):
+            check_ring(kernels, structured, topology, note, w, n,
+                       w + n + offset, device, offset)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     lib = kernels._lib("gather_flood")
     for w in (1, 3, 8, 32, 128, 256):
         if lib.gg_gather_nodes_per_block(w, 1) \
@@ -967,7 +1060,132 @@ def time_kernels(kernels, structured, topology, device) -> dict:
         out["wm_fault_coins"][key].update({
             "ops": ops, "live_edges": n_live, "loss_coins": n_loss,
             "dup_coins": n_dup})
+    time_ring_kernels(kernels, structured, out, gen, strides, device)
     return out
+
+
+def delay_rows(d: int, n: int):
+    """run_all.py config4d's law: ``default_rng(11).choice([1, 3], (d,
+    n), p=[0.7, 0.3])``, and the generator, which draws the per-direction
+    delays next."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    return rng.choice([1, 3], (d, n), p=[0.7, 0.3]).astype(np.int32), rng
+
+
+def ring_table(ed, t: int, class_rows):
+    """The ring kernel's operands that an edge-delayed bundle ``ed``
+    builds at round ``t``: (table, packed rows) — the tree's (slot, kind,
+    row) entries or a shift ring table — and, per delay class, the
+    (slot, rows) of the masked exchange that the composition launches."""
+    import torch
+
+    ring = ed.ring
+    terms = [(d, (t - (v - 1)) % ring, j)
+             for j, (d, v) in enumerate(ed.classes) if t - (v - 1) >= 0]
+    per_class = {v: ((t - (v - 1)) % ring, [j for j, (_, u) in
+                                            enumerate(ed.classes) if u == v])
+                 for v in ed.delay_set if t - (v - 1) >= 0}
+    live = class_rows[[j for _, _, j in terms]]
+    return terms, live, per_class
+
+
+def time_ring_kernels(kernels, structured, out, gen, strides, device):
+    """The ring kernels on the delay phases' edge-delayed tables at round
+    5 (classes {1, 3} both in flight, from slots 2 and 0 of a 3-slot
+    ring): the tree's 2 |V| = 4 terms (w1_tree_edge_delayed) and the
+    circulant's 8 directions x 2 classes = 16 rows
+    (w1_circulant_delayed), at both main shapes; beside the composition
+    they replace (per class one masked exchange of its slot, ORed) and
+    its device time (its masked launches).  Bounds: each slot read once,
+    each packed row once, the inbox written once; an AND and an OR a term
+    and word (the tree's kids term k of each)."""
+    import torch
+
+    n, t, k = N_NODES, 5, BRANCHING
+    nw = kernels.packed_words(n)
+    rows_t, _ = delay_rows(2, n)
+    rows_c, _ = delay_rows(2 * len(strides), n)
+    tree_ed = structured.make_edge_delayed("tree", n, rows_t)
+    circ_ed = structured.make_edge_delayed("circulant", n, rows_c,
+                                           strides=strides)
+    dirs = structured.shift_dirs("circulant", n, strides=strides)
+    for w, _ in MAIN_SHAPES:
+        ring = torch.randint(-(1 << 31), 1 << 31, (3, w, n),
+                             dtype=torch.int32, device=device, generator=gen)
+        words = w * n
+        cases = {}
+        # the tree: (slot, kind, row) entries over the class rows
+        cr = tree_ed.class_rows(device)
+        terms, live, per_class = ring_table(tree_ed, t, cr)
+        table = [(slot, kernels.TREE_PARENT if d == 0 else kernels.TREE_KIDS,
+                  j) for j, (d, slot, _) in enumerate(terms)]
+        zero = torch.zeros(nw, dtype=torch.int32, device=device)
+
+        def tree_comp(ring=ring, cr=cr, per_class=per_class):
+            acc = None
+            for slot, js in per_class.values():
+                rows = {tree_ed.classes[j][0]: cr[j] for j in js}
+                term = kernels.tree_masked_exchange(
+                    ring[slot], rows.get(0, zero), rows.get(1, zero), k)
+                acc = term if acc is None else acc | term
+            return acc
+
+        ops = sum(k if kind == kernels.TREE_KIDS else 1
+                  for _, kind, _ in table) * 2 * words
+        cases["tree_ring_exchange"] = (
+            lambda: kernels.tree_ring_exchange(ring, table, live, k),
+            lambda: kernels.tree_ring_exchange_plain(ring, table, live, k),
+            bound(4 * 2 * words + 4 * nw * len(table) + 4 * words, ops),
+            tree_comp, "tree_masked_exchange", len(per_class), len(table))
+        # the circulant: a 16-row ring table
+        cr_c = circ_ed.class_rows(device)
+        terms_c, live_c, per_c = ring_table(circ_ed, t, cr_c)
+        rtable = kernels.ShiftDirs(
+            tuple(dirs.offs[d] for d, _, _ in terms_c),
+            tuple(dirs.flags[d] for d, _, _ in terms_c), dirs.cols,
+            tuple(slot for _, slot, _ in terms_c))
+        # the composition's per-class rows: every direction, its bit where
+        # the class holds the edge
+        comp_rows = {}
+        for v, (slot, js) in per_c.items():
+            rows = torch.zeros((len(dirs.offs), nw), dtype=torch.int32,
+                               device=device)
+            for j in js:
+                rows[circ_ed.classes[j][0]] = cr_c[j]
+            comp_rows[v] = (slot, rows)
+
+        def circ_comp(ring=ring, comp_rows=comp_rows):
+            acc = None
+            for slot, rows in comp_rows.values():
+                term = kernels.shift_masked_exchange(ring[slot], rows, dirs)
+                acc = term if acc is None else acc | term
+            return acc
+
+        cases["shift_ring_exchange"] = (
+            lambda: kernels.shift_ring_exchange(ring, rtable, live_c),
+            lambda: kernels.shift_ring_exchange_plain(ring, rtable, live_c),
+            bound(4 * 2 * words + 4 * nw * len(terms_c) + 4 * words,
+                  2 * len(terms_c) * words),
+            circ_comp, "shift_masked_exchange", len(comp_rows),
+            len(terms_c))
+        for name, (kern, plain, b, comp, masked, launches,
+                   rows) in cases.items():
+            if not torch.equal(kern(), comp()):
+                raise AssertionError(f"{name} differs from the composition "
+                                     "of masked exchanges it replaces")
+            rec = _timed(name, kern, plain, b)
+            masked_ms = device_ms(comp, KERNELS[masked][2], calls=10)
+            rec.update({
+                "table_rows": rows, "slots_read": 2,
+                "composition_ms": cuda_ms(comp),
+                "composition_launches": launches,
+                "composition_device_ms": None if masked_ms is None
+                else launches * masked_ms})
+            out[name][(w, n)] = rec
+        del ring
+        torch.cuda.empty_cache()
 
 
 def same_state(a, b) -> bool:
@@ -1532,6 +1750,220 @@ def structured_fault_phases(modules, faults, structured, kernels, topology,
     torch.cuda.empty_cache()
 
 
+def delayed_way(sim, timing, kernels, inject, want_rounds=None) -> tuple:
+    """One way of a delay phase on the card: host-stepped discovery, then
+    the fixed trip timed (:func:`timed_fixed`), which must equal it.
+    Returns (record, final state)."""
+    state, rounds = sim.run(inject)
+    if not sim.converged(state, sim.target_bits(inject)):
+        raise AssertionError(f"{rounds} rounds, not converged")
+    if want_rounds is not None and rounds != want_rounds:
+        raise AssertionError(f"{rounds} rounds, the gather ring took "
+                             f"{want_rounds}")
+    timed, fixed = timed_fixed(sim, timing, kernels, inject, rounds)
+    if not same_run(sim, state, sim, fixed):
+        raise AssertionError("the fixed trip differs from the host-stepped "
+                             "run")
+    return {"rounds": rounds, **timed, "msgs": int(state.msgs)}, state
+
+
+def check_cpu(make_sim, gpu_sim, gpu_state, inject, fused=False) -> None:
+    """The port's plain CPU path at the same size equals the card's run
+    bit for bit (rounds, received, msgs, srv_msgs)."""
+    cpu = make_sim("cpu")
+    state, rounds = cpu.run_fused(inject) if fused else cpu.run(inject)
+    if not (rounds == gpu_state.t
+            and same_run(gpu_sim, gpu_state, cpu, state)):
+        raise AssertionError("the card's run differs from the CPU path")
+
+
+def delay_phases(modules, faults, structured, kernels, topology, device,
+                 launches: Launches) -> None:
+    """Maelstrom's per-hop latency at 2^20 nodes: run_all.py config4d (the
+    circulant with per-edge delays of 1 or 3 rounds) three ways — the
+    gather ring, per-direction classes and per-edge delays on the
+    structured path — then under config4c's partition window; the tree
+    with per-edge delays of the same law; the tree nemesis with
+    dir_delays (1, 3).  Each way host-stepped, its fixed trip timed, held
+    against the port's CPU path and the gather ring on the same graph."""
+    import torch
+
+    broadcast, timing = modules
+    n = N_NODES
+    inject = broadcast.make_inject(n, W1_VALUES)
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    circ = topology.circulant(n, strides)
+    ckw = {"strides": strides}
+    rows, rng = delay_rows(2 * len(strides), n)
+    dd = tuple(int(x) for x in
+               rng.choice([1, 3], size=2 * len(strides), p=[0.7, 0.3]))
+    gdelays = structured.gather_delays_from_rows("circulant", n, rows, circ,
+                                                 **ckw)
+
+    def circ_sim(way, dev, srv=False, sync_every=1 << 20, parts=None,
+                 group=None):
+        kw = dict(n_values=W1_VALUES, sync_every=sync_every,
+                  srv_ledger=srv, parts=parts, device=dev)
+        if way == "gather":
+            return broadcast.BroadcastSim(circ, delays=gdelays, **kw)
+        ex = structured.make_exchange("circulant", n, **ckw)
+        diff = structured.make_sync_diff("circulant", n, **ckw)
+        if way == "delayed":
+            return broadcast.BroadcastSim(circ, exchange=ex, sync_diff=diff,
+                                          delayed=structured.make_delayed(
+                                              "circulant", n, dd, **ckw),
+                                          **kw)
+        edge = (structured.make_edge_delayed("circulant", n, rows, **ckw)
+                if parts is None else structured.make_edge_delayed_faulted(
+                    "circulant", n, rows, group, **ckw))
+        return broadcast.BroadcastSim(circ, exchange=ex, edge_delayed=edge,
+                                      sync_diff=diff if parts is None
+                                      else None, **kw)
+
+    # -- w1_circulant_delayed: run_all.py config4d -------------------
+    launches.start()
+    rec = {"phase": "w1_circulant_delayed", "n": n, "n_values": W1_VALUES,
+           "delay_values": [1, 3], "dir_delays": list(dd), "ways": {}}
+    runs = {}
+    for way in ("gather", "delayed", "edge"):
+        sim = circ_sim(way, device)
+        want = runs["gather"][1].t if way == "edge" else None
+        rec["ways"][way], state = delayed_way(sim, timing, kernels, inject,
+                                              want)
+        runs[way] = (sim, state)
+    (gsim, gstate), (esim, estate) = runs["gather"], runs["edge"]
+    if not same_run(gsim, gstate, esim, estate):
+        raise AssertionError("w1_circulant_delayed: the edge-delayed "
+                             "structured run differs from the gather ring")
+    # accounted: the server ledger on, sync waves every 16 rounds
+    acct = {}
+    for way in ("gather", "edge"):
+        sim = circ_sim(way, device, srv=True, sync_every=16)
+        acct[way] = (sim, *sim.run_fused(inject))
+    (ga, gas, gar), (ea, eas, ear) = acct["gather"], acct["edge"]
+    if not (gar == ear and same_run(ga, gas, ea, eas)):
+        raise AssertionError("w1_circulant_delayed: the accounted edge "
+                             "run differs from the gather ring's")
+    rec.update({"accounted_sync_every": 16, "accounted_rounds": ear,
+                "accounted_msgs": int(eas.msgs),
+                "srv_msgs": ea.server_msgs(eas)})
+    launches.stop(rec, ("shift_ring_exchange", "gather_or", "col_popcount",
+                        "col_popcount_nm", "sync_diff_pc"))
+    for way, (sim, state) in runs.items():
+        check_cpu(lambda dev, way=way: circ_sim(way, dev), sim, state,
+                  inject)
+    for way, (sim, state, _) in acct.items():
+        check_cpu(lambda dev, way=way: circ_sim(way, dev, srv=True,
+                                                  sync_every=16),
+                  sim, state, inject, fused=True)
+    rec["cpu_match"] = True
+    emit(rec)
+    del runs, acct, gsim, gstate, esim, estate, ga, gas, ea, eas
+    torch.cuda.empty_cache()
+
+    # -- w1_circulant_edge_delayed_partitioned: config4d under 4c -----
+    parts, group = config4c_parts(broadcast, n)
+
+    def part_sim(way, dev):
+        return circ_sim(way, dev, srv=True, sync_every=16, parts=parts,
+                        group=group)
+
+    launches.start()
+    esim = part_sim("edge", device)
+    gsim = part_sim("gather", device)
+    gstate, grounds = gsim.run(inject)
+    timed, estate = delayed_way(esim, timing, kernels, inject, grounds)
+    if not same_run(gsim, gstate, esim, estate) or grounds <= 24:
+        raise AssertionError("w1_circulant_edge_delayed_partitioned: the "
+                             "edge-delayed run differs from the gather "
+                             "ring, or converged inside the window")
+    rec = {"phase": "w1_circulant_edge_delayed_partitioned", "n": n,
+           "n_values": W1_VALUES, "window": [2, 24], "sync_every": 16,
+           "delay_values": [1, 3], **timed,
+           "srv_msgs": esim.server_msgs(estate), "gather_rounds": grounds}
+    launches.stop(rec, ("shift_ring_exchange", "gather_or", "col_popcount",
+                        "sync_diff_pc"))
+    check_cpu(lambda dev: part_sim("edge", dev), esim, estate, inject)
+    check_cpu(lambda dev: part_sim("gather", dev), gsim, gstate, inject)
+    rec["cpu_match"] = True
+    emit(rec)
+    del esim, gsim, gstate, estate
+    torch.cuda.empty_cache()
+
+    # -- w1_tree_edge_delayed: bench.py's tree, config4d's law --------
+    tree_nbrs = topology.to_padded_neighbors(topology.tree(n, BRANCHING))
+    trows, _ = delay_rows(2, n)
+    tdelays = structured.gather_delays_from_rows("tree", n, trows, tree_nbrs)
+
+    def tree_sim(way, dev):
+        kw = dict(n_values=W1_VALUES, sync_every=1 << 20, srv_ledger=False,
+                  device=dev)
+        if way == "gather":
+            return broadcast.BroadcastSim(tree_nbrs, delays=tdelays, **kw)
+        return broadcast.BroadcastSim(
+            tree_nbrs, exchange=structured.make_exchange("tree", n),
+            edge_delayed=structured.make_edge_delayed("tree", n, trows), **kw)
+
+    launches.start()
+    gsim = tree_sim("gather", device)
+    gstate, grounds = gsim.run(inject)
+    esim = tree_sim("edge", device)
+    timed, estate = delayed_way(esim, timing, kernels, inject, grounds)
+    if not same_run(gsim, gstate, esim, estate):
+        raise AssertionError("w1_tree_edge_delayed: the edge-delayed run "
+                             "differs from the gather ring")
+    rec = {"phase": "w1_tree_edge_delayed", "n": n, "n_values": W1_VALUES,
+           "branching": BRANCHING, "delay_values": [1, 3], **timed,
+           "gather_rounds": grounds}
+    launches.stop(rec, ("tree_ring_exchange", "gather_or", "col_popcount",
+                        "col_popcount_nm"))
+    check_cpu(lambda dev: tree_sim("edge", dev), esim, estate, inject)
+    rec["cpu_match"] = True
+    emit(rec)
+    del gsim, gstate, esim, estate
+    torch.cuda.empty_cache()
+
+    # -- w1_tree_nemesis_delayed: fault_sweep.py's plan, dir_delays ---
+    spec = tree_nemesis_spec(faults, n)
+    tdd = (1, 3)
+
+    def nem_sim(structured_path, dev):
+        kw = dict(n_values=W1_VALUES, sync_every=8, srv_ledger=False,
+                  fault_plan=spec.compile(dev), device=dev)
+        if not structured_path:
+            return broadcast.BroadcastSim(
+                tree_nbrs, delays=structured.gather_delays_for(
+                    "tree", n, tdd, tree_nbrs), **kw)
+        return broadcast.BroadcastSim(
+            tree_nbrs, exchange=structured.make_exchange("tree", n),
+            nemesis=structured.make_nemesis("tree", n, spec, dir_delays=tdd,
+                                            device=dev), **kw)
+
+    launches.start()
+    gsim = nem_sim(False, device)
+    gstate, grounds = gsim.run(inject)
+    if grounds < spec.clear_round:
+        raise AssertionError(f"w1_tree_nemesis_delayed: {grounds} rounds, "
+                             "converged before the faults cleared")
+    nsim = nem_sim(True, device)
+    timed, nstate = delayed_way(nsim, timing, kernels, inject, grounds)
+    if not same_run(gsim, gstate, nsim, nstate):
+        raise AssertionError("w1_tree_nemesis_delayed: the structured run "
+                             "differs from the gather ring")
+    rec = {"phase": "w1_tree_nemesis_delayed", "n": n,
+           "n_values": W1_VALUES, "sync_every": 8, "dir_delays": list(tdd),
+           "crash": [2, 16, "range(0, n, 97)"], "loss_rate": 0.1,
+           "dup_rate": 0.05, "until": 17, "clear_round": spec.clear_round,
+           **timed, "gather_rounds": grounds}
+    launches.stop(rec, ("tree_ring_exchange", "wm_fault_coins",
+                        "col_popcount", "gather_or", "fault_coins"))
+    check_cpu(lambda dev: nem_sim(True, dev), nsim, nstate, inject)
+    rec["cpu_match"] = True
+    emit(rec)
+    del gsim, gstate, nsim, nstate
+    torch.cuda.empty_cache()
+
+
 def small_floods(modules, device, launches: Launches) -> None:
     """Grid, ring and line floods run to convergence with the server
     ledger on, on the card and on the CPU (coverage, not timing)."""
@@ -1609,6 +2041,8 @@ def main() -> int:
           "gather_view_offsets": [0, 1],
           "shift_modes": [m[0] for m in shift_modes(N_NODES, topology)],
           "tree_vec_ns": list(TREE_VEC_NS),
+          "ring_shapes": [list(s) for s in
+                          CHECK_SHAPES + RING_SHAPES + MAIN_SHAPES],
           "coin_dir_sets": [name for name, _ in coin_dir_sets(
               structured, topology, N_NODES)],
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
@@ -1639,10 +2073,12 @@ def main() -> int:
     nemesis_phases(modules, faults, topology, device, launches)
     structured_fault_phases(modules, faults, structured, kernels, topology,
                             device, launches)
+    delay_phases(modules, faults, structured, kernels, topology, device,
+                 launches)
     small_floods(modules, device, launches)
 
     for name, count in launches.total.items():
-        if count == 0 and name not in OFF_MAIN_PATH:
+        if count == 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "main path")
     print(smi, flush=True)
@@ -1661,8 +2097,6 @@ def main() -> int:
                              if (w, n) != big}
         if name.startswith("shift_"):
             entry["launches_by_path"] = launches.split(name)
-        if name in OFF_MAIN_PATH:
-            entry["on_main_path"] = False
         entries.append(entry)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -99,6 +99,22 @@
 // direction in two 16-byte loads, directions outermost (0.0127 / 1.12);
 // a sign-bit shift in place of the bit's shift, AND and negation changed
 // nothing (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py time_kernels).
+//
+// The ring mode (gg_shift_ring_exchange, per-hop latency).  Replaces the
+// XLA code of the reference's delayed shift deliveries (structured.py
+// _delayed_impl :1038 and make_edge_delayed :1335, and _round_wm_nem's
+// delayed branch, broadcast.py:858-881): each row of the direction table
+// reads its own slot of the (L, W, N) payload ring (its send round's
+// payload), under its own optional liveness row (a row a (direction,
+// delay class): the circulant's 8 directions x 2 classes are 16 rows).
+// It is the exchange kernel with a source offset a window: the host
+// merges directions into a window only within one slot
+// (kernels.shift_windows keys on (slot, wrap)), and the plan ends with
+// each window's slot; the producer copies window k from slot soff[k].
+// More windows make a larger stage, so _shift_plan halves the tile until
+// the stages fit.  A table of more than 16 rows is split by the wrapper
+// and the inboxes ORed.  Bound: the bytes, each slot read once, each row
+// once, the inbox written once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -145,13 +161,18 @@ struct Plan {
                             // -1: the plan stages none)
   int32_t live_slot;        // words a liveness row's slice slot (x4)
   int32_t n_live;           // liveness rows staged: the real directions
+  // ring mode: window k's source is ring slot k's (W, N) block, at word
+  // soff[k] = slot * W * N of the (L, W, N) ring; 0 for one source
+  int64_t soff[kMaxDirs];
+  int64_t dsoff[kMaxDirs];  // direction d: its window's soff
+  int64_t src_words;        // words of the source tensor (L * W * N)
 };
 
 // host layout of the plan (int64 words), mirrored by kernels.py: a head
 // of tile, stages, stage_words, rec_at, cols, n_win, n_dirs, live_at; per
-// window lo, span, wrap, at; per direction window, delta, mask.  The
-// liveness slots fill the stage from live_at to its end, one a real
-// direction.
+// window lo, span, wrap, at; per direction window, delta, mask; in ring
+// mode then per window its ring slot.  The liveness slots fill the stage
+// from live_at to its end, one a real direction.
 constexpr int kPlanHead = 8;
 constexpr int kWinWords = 4;
 constexpr int kDirWords = 3;
@@ -311,8 +332,11 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
     const bool is_win = lane < p.n_win;
     const bool is_rec = kFused && lane == 31;
     const bool is_live = kLive && lane >= 16 && lane - 16 < p.n_live;
+    // the row start of this lane's range in its tensor (a window's in
+    // its ring slot)
+    const int64_t row0 = at.row_start + (is_win ? p.soff[lane] : 0);
     if (is_win)
-      pc = piece(src, wk.total, at.row_start, at.i0 + p.lo[lane],
+      pc = piece(src, p.src_words, row0, at.i0 + p.lo[lane],
                  p.span[lane] + at.tl, n, p.wrap[lane] != 0);
     else if (is_rec)
       pc = piece(received, wk.total, at.row_start, at.i0, at.tl, n, false);
@@ -325,8 +349,8 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
     int sd = 0, sl = 0;
     if (lane < p.n_dirs) {
       sd = p.dat[lane] + p.ddelta[lane]
-           + piece(src, wk.total, at.row_start, at.i0 + p.dlo[lane], 0, n,
-                   p.dwrap[lane] != 0).ph;
+           + piece(src, p.src_words, at.row_start + p.dsoff[lane],
+                   at.i0 + p.dlo[lane], 0, n, p.dwrap[lane] != 0).ph;
       if (kLive)
         sl = p.live_at + p.dlive[lane] * p.live_slot
              + live_piece(live, p.n_live, nw, p.dlive[lane], at).ph;
@@ -360,7 +384,7 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
         bulk_copy(dst, from + (pc.g - pc.ph), pc.bytes, &full[st]);
       } else {
         bulk_copy(dst, from + (pc.g - pc.ph), pc.head, &full[st]);
-        bulk_copy(dst + pc.ph + (n - pc.s), from + at.row_start,
+        bulk_copy(dst + pc.ph + (n - pc.s), from + row0,
                   pc.bytes - pc.head, &full[st]);
       }
     }
@@ -395,10 +419,10 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
       for (int win = 0; win < p.n_win; ++win) {
         if (!(slow >> win & 1u)) continue;
         const bool wrap = p.wrap[win] != 0;
-        const Piece pc = piece(src, wk.total, at.row_start,
-                               at.i0 + p.lo[win], p.span[win] + at.tl, n,
-                               wrap);
-        fill(stage + p.at[win] + pc.ph, src + at.row_start, pc.s,
+        const int64_t row0 = at.row_start + p.soff[win];
+        const Piece pc = piece(src, p.src_words, row0, at.i0 + p.lo[win],
+                               p.span[win] + at.tl, n, wrap);
+        fill(stage + p.at[win] + pc.ph, src + row0, pc.s,
              p.span[win] + at.tl, n, wrap);
       }
       if (kFused && slow >> 31)
@@ -502,8 +526,11 @@ __global__ void __launch_bounds__(kThreads, 1) shift_tiles_kernel(
 }
 
 // Unpacks the host's plan words and pads the directions to a power of
-// two; false when they do not fit.
-bool unpack(const int64_t* words, int len, Plan* p) {
+// two; false when they do not fit.  `slots` > 0: a ring plan over that
+// many (w, n) slots (its windows' slots after the directions), else one
+// (w, n) source.
+bool unpack(const int64_t* words, int len, int64_t w, int64_t n,
+            int64_t slots, Plan* p) {
   if (len < kPlanHead) return false;
   *p = Plan{};
   p->tile = static_cast<int32_t>(words[0]);
@@ -520,7 +547,8 @@ bool unpack(const int64_t* words, int len, Plan* p) {
       || (p->rec_at >= 0 && (p->rec_at & 3))
       || (p->live_at >= 0 && (p->live_at & 3))
       || p->live_at > p->stage_words
-      || len != kPlanHead + kWinWords * p->n_win + kDirWords * n_dirs)
+      || len != kPlanHead + kWinWords * p->n_win + kDirWords * n_dirs
+                    + (slots > 0 ? p->n_win : 0))
     return false;
   if (p->live_at >= 0 && n_dirs > 0) {
     // a slot holds a slice of up to (tile + 31) / 32 + 1 words at its
@@ -540,6 +568,12 @@ bool unpack(const int64_t* words, int len, Plan* p) {
     if (p->at[k] & 3) return false;     // bulk copies land 16-byte aligned
   }
   const int64_t* dir = win + kWinWords * p->n_win;
+  const int64_t* slot = dir + kDirWords * n_dirs;
+  for (int k = 0; k < p->n_win; ++k) {
+    if (slots > 0 && (slot[k] < 0 || slot[k] >= slots)) return false;
+    p->soff[k] = slots > 0 ? slot[k] * w * n : 0;
+  }
+  p->src_words = (slots > 0 ? slots : 1) * w * n;
   p->n_dirs = 0;
   if (n_dirs > 0) {
     p->n_dirs = 1;
@@ -551,6 +585,7 @@ bool unpack(const int64_t* words, int len, Plan* p) {
     const int k = static_cast<int>(e[0]);
     if (k < 0 || k >= p->n_win) return false;
     p->dlo[d] = p->lo[k];
+    p->dsoff[d] = p->soff[k];
     p->dwrap[d] = p->wrap[k];
     p->dat[d] = p->at[k];
     p->ddelta[d] = static_cast<int32_t>(e[1]);
@@ -643,14 +678,16 @@ int launch_masked(const void* src, void* received, void* out,
   }
 }
 
-// kLive only without kFused: the three modes the entry points take.
+// kLive only without kFused: the three modes the entry points take (a
+// ring plan, `slots` > 0, runs the exchange kernels).
 template <bool kFused, bool kLive>
 int launch(const void* src, void* received, void* out, const void* live,
            int64_t w, int64_t n, const int64_t* plan, int plan_len,
-           void* stream) {
+           void* stream, int64_t slots = 0) {
   static_assert(!(kFused && kLive), "the fused round takes no liveness");
   Plan p;
-  if (!unpack(plan, plan_len, &p) || (kFused && p.rec_at < 0) || p.tile > n
+  if (!unpack(plan, plan_len, w, n, slots, &p) || (kFused && p.rec_at < 0)
+      || p.tile > n
       || (kLive && p.n_dirs > 0 && p.n_live == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   bool masked = false;
@@ -694,4 +731,20 @@ extern "C" int gg_shift_flood_round(void* received, const void* frontier,
                                     int plan_len, void* stream) {
   return launch<true, false>(frontier, received, frontier_next, nullptr, w,
                              n, plan, plan_len, stream);
+}
+
+// The ring mode of the exchange: `ring` is (slots, w, n), and each window
+// of the plan (kernels._shift_plan of a table with ring slots) stages its
+// words from its own slot; `live` as in gg_shift_masked_exchange, or null
+// for none (the plan then stages no liveness slice).
+extern "C" int gg_shift_ring_exchange(const void* ring, const void* live,
+                                      void* inbox, int64_t slots, int64_t w,
+                                      int64_t n, const int64_t* plan,
+                                      int plan_len, void* stream) {
+  if (slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (live == nullptr)
+    return launch<false, false>(ring, nullptr, inbox, nullptr, w, n, plan,
+                                plan_len, stream, slots);
+  return launch<false, true>(ring, nullptr, inbox, live, w, n, plan, plan_len,
+                             stream, slots);
 }

@@ -65,6 +65,22 @@
 // and 0.353 ms (89% and 91% of the bound, same card).  A grid of resident
 // blocks striding over the quads took 0.0028 and 0.466-0.508 ms: one
 // pass stays.  Any other k, view or N takes the thread-a-word kernel.
+//
+// tree_ring_exchange, the ring mode (per-hop latency).  The reference's
+// delayed tree delivery (structured.py _delayed_impl :1038 and
+// make_edge_delayed :1335, and _round_wm_nem's delayed branch,
+// broadcast.py:858-881) ORs one from-parent or from-kids term a table
+// entry, each read from its own slot of the (L, W, N) payload ring (the
+// payload of the entry's send round) and gated by its own packed row:
+// the Pallas kernel's inbox, one slot a term.  Bound: the bytes, each
+// slot read once, each row once, the inbox written once (at (1, 2^20),
+// two slots and four rows: 13 MB).  Design: tree_masked_exchange_kernel's
+// warp-shared liveness words and shuffles, once an entry; the entry loop
+// is uniform across the block, so every lane takes part in each entry's
+// shuffles, and a thread keeps one inbox word in a register over all
+// entries (one store).  One node a thread: the four-nodes-a-thread form
+// is later work.  A table of more than 16 entries is split by the
+// wrapper, the inboxes ORed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -176,6 +192,77 @@ __global__ void tree_masked_exchange_kernel(
   inbox[base + i] = v;
 }
 
+// The ring mode's table: entry e reads ring slot slot[e] (its (W, N)
+// block starts at word off[e]) as a from-parent term (kind 0) or a
+// from-kids term (kind 1), gated by packed liveness row row[e] of `live`
+// (-1: ungated).  At most kMaxEntries entries a launch; the wrapper splits
+// a longer table and ORs the inboxes.
+constexpr int kMaxEntries = 16;
+
+struct RingTable {
+  int64_t off[kMaxEntries];
+  int32_t kind[kMaxEntries];
+  int32_t row[kMaxEntries];
+  int32_t n;
+};
+
+// The ring inbox: tree_masked_exchange_kernel's terms, each from its own
+// ring slot and under its own (or no) liveness row, ORed over the table.
+// The entries are uniform across the block, so every lane of a warp takes
+// part in each entry's shuffles, also past n.
+template <int K>
+__global__ void tree_ring_exchange_kernel(const uint32_t* __restrict__ ring,
+                                          const uint32_t* __restrict__ live,
+                                          uint32_t* __restrict__ inbox,
+                                          int64_t n, int k_arg,
+                                          const RingTable tab) {
+  const int k = K > 0 ? K : k_arg;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int64_t m = i >> 5;                 // the same for the whole warp
+  const int64_t nw = (n + 31) >> 5;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
+  const bool in = i < n;
+  uint32_t v = 0u;
+  for (int e = 0; e < tab.n; ++e) {
+    const uint32_t* row = ring + tab.off[e] + base;
+    const int r = tab.row[e];
+    const uint32_t* lrow = live + static_cast<int64_t>(r < 0 ? 0 : r) * nw;
+    if (tab.kind[e] == 0) {
+      uint32_t keep = ~0u;
+      if (r >= 0) {
+        const uint32_t word = m < nw ? __ldg(lrow + m) : 0u;
+        keep = 0u - (word >> lane & 1u);
+      }
+      if (in && i > 0) v |= __ldg(row + (i - 1) / k) & keep;
+      continue;
+    }
+    uint32_t kids = ~0u;
+    if (r >= 0 && k <= 31) {
+      const int64_t at = static_cast<int64_t>(k) * m + lane;
+      const uint32_t word = lane <= k && at < nw ? __ldg(lrow + at) : 0u;
+      const int off = k * lane + 1;
+      const uint32_t lo = __shfl_sync(~0u, word, off >> 5);
+      const uint32_t hi = __shfl_sync(~0u, word, (off >> 5) + 1);
+      kids = __funnelshift_r(lo, hi, off & 31);
+    }
+    if (!in) continue;
+    const int64_t c0 = static_cast<int64_t>(k) * i + 1;
+#pragma unroll
+    for (int j = 0; j < k; ++j) {           // unrolled when K > 0
+      const int64_t c = c0 + j;
+      if (c >= n) break;
+      const uint32_t bit =
+          r < 0 ? 1u
+          : k <= 31 ? kids >> j & 1u
+                    : __ldg(lrow + (c >> 5)) >> (c & 31) & 1u;
+      v |= __ldg(row + c) & (0u - bit);
+    }
+  }
+  if (in) inbox[base + i] = v;
+}
+
 __global__ void tree_flood_round_kernel(uint32_t* __restrict__ received,
                                         const uint32_t* __restrict__ frontier,
                                         uint32_t* __restrict__ frontier_next,
@@ -244,6 +331,35 @@ extern "C" int gg_tree_masked_exchange(const void* payload, const void* live_p,
       static_cast<const uint32_t*>(live_p),
       static_cast<const uint32_t*>(live_k), static_cast<uint32_t*>(inbox), n,
       k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ring: (slots, w, n); table: n_entries triples (slot, kind, row) as
+// int64 host words (RingTable); live: (rows, ceil(n / 32)) packed rows, or
+// null when no entry has a row.
+extern "C" int gg_tree_ring_exchange(const void* ring, const void* live,
+                                     void* inbox, int64_t slots, int64_t w,
+                                     int64_t n, int k, const int64_t* table,
+                                     int n_entries, void* stream) {
+  if (n_entries < 0 || n_entries > kMaxEntries)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RingTable tab{};
+  tab.n = n_entries;
+  for (int e = 0; e < n_entries; ++e) {
+    const int64_t slot = table[3 * e], kind = table[3 * e + 1],
+                  row = table[3 * e + 2];
+    if (slot < 0 || slot >= slots || (kind != 0 && kind != 1)
+        || (row >= 0 && live == nullptr) || row < -1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    tab.off[e] = slot * w * n;
+    tab.kind[e] = static_cast<int32_t>(kind);
+    tab.row[e] = static_cast<int32_t>(row);
+  }
+  const auto kernel = k == 4 ? &tree_ring_exchange_kernel<4>
+                             : &tree_ring_exchange_kernel<0>;
+  kernel<<<node_grid(n, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ring), static_cast<const uint32_t*>(live),
+      static_cast<uint32_t*>(inbox), n, k, tab);
   return static_cast<int>(cudaGetLastError());
 }
 

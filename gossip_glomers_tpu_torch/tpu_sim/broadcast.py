@@ -15,13 +15,24 @@ reference's push-pull anti-entropy).  Two layouts, as in the reference:
 - **words-major (W, N)** with a structured exchange (tree, grid, ring,
   line, circulant: :mod:`.structured`) — the main path — under a
   partition schedule (the masked closures of
-  :func:`.structured.make_faulted`) and the nemesis (the mask bundle of
-  :func:`.structured.make_nemesis` with its :class:`.faults.FaultPlan`);
+  :func:`.structured.make_faulted`), the nemesis (the mask bundle of
+  :func:`.structured.make_nemesis` with its :class:`.faults.FaultPlan`)
+  and per-hop latency (per-direction delay classes,
+  :func:`.structured.make_delayed`, and random per-edge delays,
+  :func:`.structured.make_edge_delayed`, each also under partitions;
+  the nemesis's ``dir_delays``);
 - **node-major (N, W)** with the adjacency gather over a padded (N, D)
   neighbor table — any topology, under a partition schedule
-  (:class:`Partitions`) and a nemesis :class:`.faults.FaultPlan`
+  (:class:`Partitions`), a nemesis :class:`.faults.FaultPlan`
   (crash/restart with amnesia, loss, duplicate delivery, membership),
-  materialized or streamed over destination slabs (``union_block``).
+  materialized or streamed over destination slabs (``union_block``), and
+  per-edge ``delays``.
+
+A delay mode keeps a ring of the last L payloads in the state
+(``history``, L the largest delay): every round pushes its payload into
+slot ``t % L``, and an edge or direction of delay v delivers the payload
+of round ``t - (v - 1)`` from its slot, with the liveness of that send
+round (drops happen at send time, as in Maelstrom).
 
 State: ``received`` and ``frontier`` are int32, bit-identical to the
 reference's uint32 words (torch's uint32 lacks ``~``, ``>>`` and
@@ -32,8 +43,8 @@ host int: the round schedule (sync waves, the t == 0 ledger coefficient,
 which partition windows are active) is host control flow in eager
 PyTorch.
 
-Modes not ported yet raise: meshes, and the delay and provenance modes
-(ROADMAP.md Queue A).
+Modes not ported yet raise: meshes (ROADMAP.md Queue A item 10) and
+provenance (item 11).
 """
 
 from __future__ import annotations
@@ -46,19 +57,18 @@ import torch
 
 from . import faults, kernels
 from .engine import (active_windows, fori_rounds, resolve_block,
-                     resolve_device, scan_blocks, stepwise_converge,
-                     while_converge, windows_fold)
+                     resolve_device, scan_blocks, send_slot,
+                     stepwise_converge, while_converge, windows_fold)
 from .kernels import FLAG_DEL, FLAG_OUT_OK, FLAG_SEND, MASK32
 
 WORD = 32
 
-_UNPORTED = ("mesh", "delays", "delayed", "edge_delayed", "dcn_mode",
-             "sharded_exchange", "sharded_sync_diff")
+_UNPORTED = ("mesh", "dcn_mode", "sharded_exchange", "sharded_sync_diff")
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               "(ROADMAP.md Queue A)")
+                               "(ROADMAP.md Queue A item 10)")
 
 
 def num_words(n_values: int) -> int:
@@ -140,6 +150,10 @@ class BroadcastState:
     # reference-accounted server-message ledger (() int64 holding a
     # uint32), or None when srv_ledger is off
     srv_msgs: torch.Tensor | None = None
+    # delay modes only: the ring of the last L payloads, (L, W, N)
+    # words-major or (L, N, W) node-major, slot t % L holding round t's;
+    # None when every edge is one hop
+    history: torch.Tensor | None = None
 
 
 def _bits_from_numpy(a: np.ndarray, words_major: bool) -> torch.Tensor:
@@ -159,12 +173,20 @@ def _bits_to_numpy(x: torch.Tensor, words_major: bool) -> np.ndarray:
 def state_from_numpy(received: np.ndarray, frontier: np.ndarray, t: int,
                      msgs: int, srv_msgs: int | None,
                      device: str | torch.device, *,
-                     words_major: bool = True) -> BroadcastState:
+                     words_major: bool = True,
+                     history: np.ndarray | None = None) -> BroadcastState:
     """A port state from the reference's values as numpy: node-major
     (N, W) uint32 bitsets (the JAX words-major arrays transposed) and
-    integer ledgers; ``words_major`` picks the port state's layout."""
+    integer ledgers; ``words_major`` picks the port state's layout.
+    ``history``: a delay mode's ring as (L, N, W) uint32, each slot laid
+    out as ``received`` (the JAX words-major (L, W, N) ring transposed
+    slot by slot)."""
     def bits(a: np.ndarray) -> torch.Tensor:
         return _bits_from_numpy(a, words_major).to(device)
+
+    ring = None
+    if history is not None:
+        ring = torch.stack([bits(h) for h in np.asarray(history, np.uint32)])
 
     def ledger(v: int) -> torch.Tensor:
         return torch.tensor(int(v) & MASK32, dtype=torch.int64,
@@ -173,17 +195,31 @@ def state_from_numpy(received: np.ndarray, frontier: np.ndarray, t: int,
     return BroadcastState(received=bits(received), frontier=bits(frontier),
                           t=int(t), msgs=ledger(msgs),
                           srv_msgs=None if srv_msgs is None
-                          else ledger(srv_msgs))
+                          else ledger(srv_msgs), history=ring)
 
 
 def state_to_numpy(state: BroadcastState, *, words_major: bool = True):
     """(received, frontier, t, msgs, srv_msgs) with node-major (N, W)
     uint32 bitsets and int ledgers — the inverse of
-    :func:`state_from_numpy` for a state in the given layout."""
-    return (_bits_to_numpy(state.received, words_major),
-            _bits_to_numpy(state.frontier, words_major), state.t,
-            int(state.msgs),
-            None if state.srv_msgs is None else int(state.srv_msgs))
+    :func:`state_from_numpy` for a state in the given layout; a state
+    with a delay ring adds it as a sixth element, (L, N, W) uint32."""
+    out = (_bits_to_numpy(state.received, words_major),
+           _bits_to_numpy(state.frontier, words_major), state.t,
+           int(state.msgs),
+           None if state.srv_msgs is None else int(state.srv_msgs))
+    if state.history is None:
+        return out
+    return out + (np.stack([_bits_to_numpy(h, words_major)
+                            for h in state.history]),)
+
+
+def _ring_push(history: torch.Tensor, payload: torch.Tensor,
+               t: int) -> torch.Tensor:
+    """The ring after round ``t`` pushed its payload: a copy (the state
+    it came from keeps its own) with slot ``t % L`` overwritten."""
+    ring = history.clone()
+    ring[t % ring.shape[0]] = payload
+    return ring
 
 
 # -- the node-major gather path -----------------------------------------
@@ -228,10 +264,47 @@ def _gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
                live: torch.Tensor | None) -> torch.Tensor:
     """inbox[i] = OR over delivering edges d of payload[nbrs[i, d]]
     (``live=None``: the edges with ``nbrs >= 0``).  The reference's
-    ``_gather_or``; the rounds run the fused ``gather_flood_round`` /
-    ``faulted_gather_round`` instead, and the delay ring will call
-    this."""
+    ``_gather_or``: the delay ring's delivery; the one-hop rounds run the
+    fused ``gather_flood_round`` / ``faulted_gather_round`` instead."""
     return kernels.gather_or(payload, nbrs, live)
+
+
+def _live_del_at(t: int, row_ids: torch.Tensor, nbrs: torch.Tensor,
+                 nbr_mask: torch.Tensor, parts: Partitions,
+                 plan: faults.FaultPlan | None) -> torch.Tensor:
+    """(N, D) bool: the edges that deliver a message sent at round ``t``:
+    topology and partition windows, and under a ``plan`` both endpoints
+    up and the loss coin kept (:func:`.kernels.fault_coins`' DEL flag;
+    ``_live_split``'s ``live_del``)."""
+    live = _edge_live(t, row_ids, nbrs, nbr_mask, parts)
+    if plan is None:
+        return live
+    flags = kernels.fault_coins(nbrs, faults.node_up(plan, t, row_ids),
+                                live=live, **_coins(plan, t, False, False))
+    return (flags & FLAG_DEL) != 0
+
+
+def _gather_or_delayed(history: torch.Tensor, t: int,
+                       classes: dict[int, torch.Tensor], nbrs: torch.Tensor,
+                       nbr_mask: torch.Tensor, parts: Partitions,
+                       row_ids: torch.Tensor,
+                       plan: faults.FaultPlan | None) -> torch.Tensor:
+    """The latency ring's delivery (the reference's
+    ``_gather_or_delayed``): edge (i, d) of delay v (``classes[v]``, the
+    (N, D) mask ``delays == v``) delivers the payload of send round ``t -
+    (v - 1)`` from its ring slot, if it was live at that round
+    (:func:`_live_del_at`).  One :func:`.kernels.gather_or` a delay
+    class; a class whose send round is below 0 delivers nothing."""
+    out = None
+    for v, cls in classes.items():
+        slot = send_slot(t, v, history.shape[0])
+        if slot is None:
+            continue
+        live = _live_del_at(t - (v - 1), row_ids, nbrs, nbr_mask, parts,
+                            plan) & cls
+        term = _gather_or(history[slot], nbrs, live)
+        out = term if out is None else out | term
+    return torch.zeros_like(history[0]) if out is None else out
 
 
 def _sync_diff_pc(payload_full: torch.Tensor, recv_local: torch.Tensor,
@@ -266,9 +339,11 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
            nbrs: torch.Tensor, nbr_mask: torch.Tensor, parts: Partitions,
            sync_every: int, deg: torch.Tensor | None = None,
            plan: faults.FaultPlan | None = None, dup_on: bool = False,
-           union_block: int | None = None) -> BroadcastState:
+           union_block: int | None = None,
+           classes: dict[int, torch.Tensor] | None = None
+           ) -> BroadcastState:
     """One node-major (adjacency-gather) round — the reference's
-    ``_round`` without delays or provenance, on one device.  ``deg`` is
+    ``_round`` without provenance, on one device.  ``deg`` is
     the topology degree ``nbr_mask.sum(1)`` (int64; computed when not
     given).  With a ``plan`` the round is :func:`_round_plan`.  On a
     round with no active partition window the edge mask is never built:
@@ -276,12 +351,21 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
     diff runs on sync rounds only (``t`` is a host int), which leaves the
     ledger as the reference's every-round diff masked off elsewhere.  The
     delivery (``new = gather_or(payload) & ~received``, ``received |
-    new``) is one fused launch, :func:`.kernels.gather_flood_round`."""
+    new``) is one fused launch, :func:`.kernels.gather_flood_round`.
+
+    With ``classes`` (per distinct edge delay v, the (N, D) mask ``delays
+    == v``) the latency ring delivers instead: the payload is pushed into
+    ring slot ``t % L`` and :func:`_gather_or_delayed` delivers each
+    class from the slot of its send round.  Sends are still charged now,
+    over the edges live at send time, and the server ledger diffs against
+    current (not round-trip stale) state, the reference's documented
+    approximation."""
     if plan is not None:
         return _round_plan(state, row_ids=row_ids, nbrs=nbrs,
                            nbr_mask=nbr_mask, parts=parts,
                            sync_every=sync_every, deg=deg, plan=plan,
-                           dup_on=dup_on, union_block=union_block)
+                           dup_on=dup_on, union_block=union_block,
+                           classes=classes)
     t = state.t
     is_sync = t % sync_every == 0 and t > 0
     rec0, fr0 = state.received, state.frontier
@@ -303,9 +387,17 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
             pcf=kernels.col_popcount(fr0, node_major=True) if is_sync
             else pc, req_deg=deg_topo, ack_deg=live_deg,
             diff=lambda: _sync_diff_pc(payload, rec0, nbrs, live))
-    new, received = kernels.gather_flood_round(payload, rec0, nbrs, live)
+    history = None
+    if classes is None:
+        new, received = kernels.gather_flood_round(payload, rec0, nbrs, live)
+    else:
+        history = _ring_push(state.history, payload, t)
+        new = _gather_or_delayed(history, t, classes, nbrs, nbr_mask, parts,
+                                 row_ids, None) & ~rec0
+        received = rec0 | new
     return BroadcastState(received=received, frontier=new, t=t + 1,
-                          msgs=wrap32(state.msgs + sent), srv_msgs=srv)
+                          msgs=wrap32(state.msgs + sent), srv_msgs=srv,
+                          history=history)
 
 
 def _coins(plan: faults.FaultPlan, t: int, dup_on: bool,
@@ -323,7 +415,9 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
                 nbrs: torch.Tensor, nbr_mask: torch.Tensor,
                 parts: Partitions, sync_every: int,
                 deg: torch.Tensor | None, plan: faults.FaultPlan,
-                dup_on: bool, union_block: int | None) -> BroadcastState:
+                dup_on: bool, union_block: int | None,
+                classes: dict[int, torch.Tensor] | None = None
+                ) -> BroadcastState:
     """The faulted gather round (the reference's ``_round`` with a
     ``plan``).  First the amnesia rows' ``received`` / ``frontier`` are
     wiped; then :func:`.kernels.fault_coins` gives each edge its flags
@@ -343,7 +437,14 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     one fault_coins + faulted_gather_round pair a slab, so only one
     slab's flags and partition mask live at a time; the coins are
     stateless (t, src, dst) hashes, so the result is the materialized
-    round's bit for bit."""
+    round's bit for bit.
+
+    With delay ``classes`` (:func:`_round`) the latency ring delivers
+    what was live at each class's send round, a node down now receives
+    nothing (a message in flight to a crashed process dies with it), and
+    a dup edge re-delivers its in-flight payload, which the dedup absorbs:
+    it is charged at the payload's popcount at its source and delivers
+    nothing new."""
     t = state.t
     wipe = faults.amnesia(plan, t, row_ids)[:, None]
     rec0 = state.received.masked_fill(wipe, 0)
@@ -380,7 +481,24 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
         return BroadcastState(received=torch.cat(recs),
                               frontier=torch.cat(news), t=t + 1,
                               msgs=wrap32(state.msgs + sent), srv_msgs=None)
-    flags, new, received, sent = deliver(0, nbrs.shape[0])
+    history = None
+    if classes is None:
+        flags, new, received, sent = deliver(0, nbrs.shape[0])
+    else:
+        live = _edge_live(t, row_ids, nbrs, nbr_mask, parts) if windows \
+            else None
+        flags = kernels.fault_coins(nbrs, up, live=live, **coins)
+        sent = _dot32(pc, (flags & FLAG_SEND).sum(dim=1))
+        if dup_rows is not None:
+            src = nbrs.clamp(0, nbrs.shape[0] - 1).to(torch.int64)
+            dup = (flags & kernels.FLAG_DUP) != 0
+            sent = wrap32(sent + torch.where(dup, pc[src], 0).sum(
+                dtype=torch.int64))
+        history = _ring_push(state.history, payload, t)
+        inbox = _gather_or_delayed(history, t, classes, nbrs, nbr_mask,
+                                   parts, row_ids, plan)
+        new = inbox.masked_fill(~up[:, None], 0) & ~rec0
+        received = rec0 | new
     srv = None
     if srv_on:
         # a down row asks nothing; a reply exists where the request was
@@ -396,7 +514,17 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
             diff=lambda: _sync_diff_pc(payload, rec0, nbrs,
                                        (flags & both) == both))
     return BroadcastState(received=received, frontier=new, t=t + 1,
-                          msgs=wrap32(state.msgs + sent), srv_msgs=srv)
+                          msgs=wrap32(state.msgs + sent), srv_msgs=srv,
+                          history=history)
+
+
+def delay_classes(delays: torch.Tensor,
+                  delay_set: tuple = ()) -> dict[int, torch.Tensor]:
+    """{v: (N, D) bool ``delays == v``} over the distinct delays
+    (``delay_set``, or those of ``delays`` when empty)."""
+    if not delay_set:
+        delay_set = tuple(int(v) for v in torch.unique(delays.cpu()))
+    return {int(v): delays == int(v) for v in delay_set}
 
 
 def flood_step(state: BroadcastState, *, nbrs: torch.Tensor,
@@ -407,20 +535,30 @@ def flood_step(state: BroadcastState, *, nbrs: torch.Tensor,
                prov=None) -> BroadcastState:
     """Single-device node-major round, under an optional fault ``plan``
     (``dup_on``: its dup stream; ``union_block``: stream the faulted
-    round over destination slabs).  The reference's delay and provenance
-    modes raise (ROADMAP.md Queue A)."""
-    for name, given in (("delays", delays is not None),
-                        ("delay_set", len(delay_set) > 0),
-                        ("prov", prov is not None)):
-        if given:
-            raise _unported(f"flood_step({name}=...)")
+    round over destination slabs) and per-edge ``delays`` ((N, D) int
+    rounds >= 1; ``delay_set`` their distinct values, derived from the
+    tensor when empty; the state then carries its (L, N, W) ring).  The
+    reference's provenance mode raises (ROADMAP.md Queue A item 11)."""
+    if prov is not None:
+        raise NotImplementedError(
+            "flood_step(prov=...) is not ported to PyTorch yet (ROADMAP.md "
+            "Queue A item 11)")
     if plan is not None and plan.n_nodes != nbrs.shape[0]:
         raise ValueError(f"FaultPlan is for {plan.n_nodes} nodes, the "
                          f"table has {nbrs.shape[0]}")
+    classes = None
+    if delays is not None:
+        if state.history is None:
+            raise ValueError("delays need the state's history ring")
+        if union_block is not None:
+            raise ValueError("the delays ring keeps the materialized shape: "
+                             "pass union_block=None")
+        classes = delay_classes(torch.as_tensor(delays, device=nbrs.device),
+                                delay_set)
     row_ids = torch.arange(nbrs.shape[0], device=nbrs.device)
     return _round(state, row_ids=row_ids, nbrs=nbrs, nbr_mask=nbr_mask,
                   parts=parts, sync_every=sync_every, plan=plan,
-                  dup_on=dup_on, union_block=union_block)
+                  dup_on=dup_on, union_block=union_block, classes=classes)
 
 
 # -- the words-major structured path ------------------------------------
@@ -430,16 +568,21 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
               exchange: Callable[[torch.Tensor], torch.Tensor],
               sync_diff: Callable[[torch.Tensor], torch.Tensor] | None = None,
               live: torch.Tensor | None = None, faulted=None,
+              delayed_exchange: Callable | None = None,
               ) -> BroadcastState:
-    """Words-major round (the reference's ``_round_wm``, plain and
-    partition modes).  ``deg`` is the per-node topology degree (int64).
+    """Words-major round (the reference's ``_round_wm``, plain, partition
+    and delay modes).  ``deg`` is the per-node topology degree (int64).
     Under an active partition window ``live`` holds the round's (D,
     ceil(N/32)) packed per-direction liveness (:meth:`BroadcastSim.
     _live_rows`) and ``faulted`` the :class:`.structured.StructuredFaults`
     bundle whose masked closures take it; the ledgers then use the live
     degree ``live.sum(0)``, the gather path's per-edge accounting.  With
     no active window every edge is live and the plain closures deliver
-    what the masked ones would under the bare exists rows."""
+    what the masked ones would under the bare exists rows.  With
+    ``delayed_exchange(history, t)`` the payload goes into the state's
+    ring and that closure delivers from it (per-direction delay classes,
+    random per-edge delays; ``faulted`` then only gives the ledger's
+    masked sync diff)."""
     t = state.t
     is_sync = t % sync_every == 0 and t > 0
     payload = state.received if is_sync else state.frontier
@@ -459,10 +602,16 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
             pcf=kernels.col_popcount(state.frontier) if is_sync else pc,
             req_deg=deg, ack_deg=live_deg,
             diff=lambda: diff(state.received))
-    new = deliver(payload) & ~state.received
+    history = None
+    if delayed_exchange is None:
+        inbox = deliver(payload)
+    else:
+        history = _ring_push(state.history, payload, t)
+        inbox = delayed_exchange(history, t)
+    new = inbox & ~state.received
     return BroadcastState(received=state.received | new, frontier=new,
                           t=t + 1, msgs=wrap32(state.msgs + sent),
-                          srv_msgs=srv)
+                          srv_msgs=srv, history=history)
 
 
 def _dup_charge(src_pc: Callable, dup: torch.Tensor,
@@ -480,7 +629,7 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
                   parts: Partitions, sync_every: int, dup_on: bool,
                   deg_topo: torch.Tensor) -> BroadcastState:
     """Words-major round under the full nemesis (the reference's
-    ``_round_wm_nem`` without ``dir_delays``): a compiled plan (crash /
+    ``_round_wm_nem``): a compiled plan (crash /
     restart amnesia, per-direction loss, duplicate delivery) composed
     with partition windows, gather-free and bit-exact with the gather
     path's faulted round.  ``nem`` is the
@@ -496,7 +645,15 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
     popcount.  The server ledger runs for loss-only plans (the sim keeps
     it off otherwise): requests at send time, replies where the reply's
     coin survives, sync diffs over the pairs whose two coins survive
-    (:func:`.faults.wm_srv_rows`)."""
+    (:func:`.faults.wm_srv_rows`).
+
+    With the bundle's ``dir_delays`` the payload goes into the state's
+    ring and direction d delivers, from the slot of its send round ``t -
+    (dir_delays[d] - 1)``, what the liveness and loss coins of that round
+    let through (one :func:`.faults.wm_live_del` a distinct delay); a
+    column down now receives nothing, and a dup edge re-delivers its
+    in-flight payload: charged at the payload's popcount at its source,
+    nothing new delivered.  The server ledger is off there."""
     t = state.t
     rec0, fr0 = state.received, state.frontier
     wipe = faults.wm_wipe_cols(plan, t, arrs.down_cols)
@@ -523,15 +680,39 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
             ack_deg=live_deg if ack is deg_live else kernels.count_rows(
                 ack, n),
             diff=lambda: nem.sync_diff(rec0, both))
-    live_del, dup = faults.wm_live_del(plan, t, arrs, ps, pe, dup_on)
-    inbox = nem.exchange(payload, live_del)
-    if dup is not None:
-        inbox = inbox | nem.exchange(rec0, dup)
-        counts = kernels.col_popcount(rec0)[None, :]
-        sent = sent + _dup_charge(nem.src_pc, dup, counts)
+    history = None
+    if nem.dir_delays is None:
+        live_del, dup = faults.wm_live_del(plan, t, arrs, ps, pe, dup_on)
+        inbox = nem.exchange(payload, live_del)
+        if dup is not None:
+            inbox = inbox | nem.exchange(rec0, dup)
+            counts = kernels.col_popcount(rec0)[None, :]
+            sent = sent + _dup_charge(nem.src_pc, dup, counts)
+    else:
+        dd = nem.dir_delays
+        history = _ring_push(state.history, payload, t)
+        ring = history.shape[0]
+        # one liveness and coin evaluation a distinct delay, at its send
+        # round, shared by the directions of that delay
+        coins = {v: faults.wm_live_del(plan, t - (v - 1), arrs, ps, pe,
+                                       False)[0]
+                 for v in sorted(set(dd)) if t - (v - 1) >= 0}
+        inbox = nem.ring_exchange(history, [
+            (d, send_slot(t, v, ring), coins[v][d])
+            for d, v in enumerate(dd) if v in coins])
+        if active_windows(plan.starts, plan.ends, t):
+            # a message in flight to a node that crashed before delivery
+            # dies with the process
+            up = faults.wm_up_cols(plan, t, arrs.down_cols)
+            inbox = inbox.masked_fill(~up[None, :], 0)
+        if dup_on:
+            _, dup = faults.wm_live_del(plan, t, arrs, ps, pe, True)
+            if dup is not None:
+                sent = sent + _dup_charge(nem.src_pc, dup, pc[None, :])
     new = inbox & ~rec0
     return BroadcastState(received=rec0 | new, frontier=new, t=t + 1,
-                          msgs=wrap32(state.msgs + sent), srv_msgs=srv)
+                          msgs=wrap32(state.msgs + sent), srv_msgs=srv,
+                          history=history)
 
 
 def _degree_masks(np_deg: np.ndarray, device: torch.device):
@@ -574,6 +755,66 @@ def _flood_ledger(state: BroadcastState, rec: torch.Tensor,
                                msgs=wrap32(state.msgs + sent))
 
 
+def _check_delay_modes(words_major: bool, shape: tuple, n_windows: int, *,
+                       delays, delayed, edge_delayed, faulted, df: bool,
+                       ef: bool) -> None:
+    """The reference's checks of the delay modes' combinations (``df`` /
+    ``ef``: the ``delayed`` / ``edge_delayed`` bundle carries partition
+    masks); ``shape`` is the neighbor table's (N, D)."""
+    n = shape[0]
+    if edge_delayed is not None:
+        if not words_major:
+            raise ValueError("edge_delayed needs a structured exchange")
+        if delays is not None or delayed is not None or faulted is not None:
+            raise ValueError("edge_delayed is mutually exclusive with "
+                             "delays/delayed/faulted")
+        if ef:
+            if n_windows == 0:
+                raise ValueError(
+                    "FaultedEdgeDelays needs a partition schedule; use "
+                    "make_edge_delayed for the window-free case")
+            if edge_delayed.del_same.shape[0] != n_windows \
+                    or edge_delayed.del_same.shape[-1] != n:
+                raise ValueError("FaultedEdgeDelays masks do not match "
+                                 "the partition schedule")
+        elif n_windows > 0:
+            raise ValueError(
+                "composing random per-edge delays with partitions on the "
+                "structured path needs a FaultedEdgeDelays bundle "
+                "(structured.make_edge_delayed_faulted)")
+    if delayed is not None:
+        if not words_major:
+            raise ValueError("delayed needs a structured exchange")
+        if delays is not None:
+            raise ValueError("per-edge `delays` and per-direction "
+                             "`delayed` are mutually exclusive")
+        if df:
+            if faulted is not None:
+                raise ValueError("pass EITHER faulted= or a FaultedDelayed "
+                                 "bundle — the bundle carries its own masks")
+            if n_windows == 0:
+                raise ValueError("FaultedDelayed needs a partition "
+                                 "schedule; use make_delayed for the "
+                                 "fault-free case")
+            if delayed.same.shape[0] != n_windows \
+                    or delayed.same.shape[-1] != n:
+                raise ValueError("FaultedDelayed masks do not match the "
+                                 "partition schedule")
+        elif n_windows > 0 or faulted is not None:
+            raise ValueError(
+                "composing delays with partitions on the structured path "
+                "needs a FaultedDelayed bundle "
+                "(structured.make_delayed_faulted)")
+    if delays is not None:
+        if words_major:
+            raise ValueError("per-edge delays need the gather path")
+        d = np.asarray(delays)
+        if d.shape != tuple(shape):
+            raise ValueError("delays must match nbrs shape")
+        if d.min() < 1:
+            raise ValueError("edge delays are rounds >= 1")
+
+
 class BroadcastSim:
     """Round-synchronous broadcast simulator on one device (the
     reference's single-device ``BroadcastSim``), under partition
@@ -599,6 +840,9 @@ class BroadcastSim:
                  fault_plan: faults.FaultPlan | None = None,
                  nemesis=None,
                  union_block=None,
+                 delays: np.ndarray | None = None,
+                 delayed=None,
+                 edge_delayed=None,
                  device: str | torch.device | None = None,
                  **unported) -> None:
         """``nbrs``: (N, D) int32 neighbor table padded with -1
@@ -621,9 +865,18 @@ class BroadcastSim:
         faulted rounds over destination slabs
         (:func:`.engine.resolve_block`: an int, ``"auto"``,
         ``"materialized"``, or None for the ``GG_UNION_BLOCK`` env);
-        blocked rounds keep no server ledger.  ``device``: where the
+        blocked rounds keep no server ledger.  Per-hop latency, each mode
+        with its ring of past payloads in the state: ``delays``, (N, D)
+        per-edge rounds >= 1 on the gather path (the server ledger goes
+        off under a plan); ``delayed``, per-direction delay classes on the
+        words-major path (:func:`.structured.make_delayed`, or
+        :func:`.structured.make_delayed_faulted` under a partition
+        schedule); ``edge_delayed``, random per-edge delays there
+        (:func:`.structured.make_edge_delayed` /
+        :func:`.structured.make_edge_delayed_faulted`); the nemesis's
+        through ``make_nemesis(dir_delays=)``.  ``device``: where the
         state lives (default CUDA; raises if there is none).  Reference
-        modes not ported yet (``mesh``, delays, ...) raise when given."""
+        modes not ported yet (``mesh``, ...) raise when given."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -639,6 +892,14 @@ class BroadcastSim:
                              f" is not (P, {n})")
         words_major = exchange is not None
         n_windows = parts.n_windows
+        # the delay bundles that carry their own partition masks
+        df = delayed is not None and hasattr(delayed, "same")
+        ef = edge_delayed is not None and hasattr(edge_delayed, "del_same")
+        _check_delay_modes(words_major, nbrs.shape, n_windows, delays=delays,
+                           delayed=delayed, edge_delayed=edge_delayed,
+                           faulted=faulted, df=df, ef=ef)
+        if df or ef:
+            faulted = delayed if df else edge_delayed
         self._faulted = faulted if words_major and n_windows else None
         if words_major and n_windows and faulted is None and nemesis is None:
             raise ValueError(
@@ -663,7 +924,8 @@ class BroadcastSim:
                 raise ValueError(
                     "nemesis= carries the structured masks FOR a "
                     "FaultPlan — pass fault_plan=spec.compile() too")
-            if faulted is not None:
+            if faulted is not None or delays is not None \
+                    or delayed is not None or edge_delayed is not None:
                 raise ValueError(
                     "nemesis= subsumes delays/delayed/edge_delayed/"
                     "faulted: compose partition windows via parts= and "
@@ -687,7 +949,7 @@ class BroadcastSim:
                 "nemesis=structured.make_nemesis(topology, n, "
                 "spec, ...) — or drop exchange=/sharded_exchange= "
                 "for the gather path")
-        if union_block is not None and words_major:
+        if union_block is not None and (words_major or delays is not None):
             raise ValueError(
                 "union_block streams the GATHER path's 1-hop faulted "
                 "rounds; the words-major path is already gather-free "
@@ -731,6 +993,7 @@ class BroadcastSim:
         if nemesis is not None:
             self._nem_arrs = nemesis.arrs.to(self.device)
             self._nem_deg = kernels.count_rows(self._nem_arrs.deg_exists, n)
+        self._setup_delays(delays, delayed, edge_delayed, nemesis)
         self._fp_dup = fault_plan is not None and fault_plan.dup_num > 0
         self._ub = None
         self.fault_plan = None
@@ -754,8 +1017,14 @@ class BroadcastSim:
             if self.words_major:
                 # the bundle's degree-contract coin rows have no crash
                 # liveness decomposition: the words-major ledger keeps
-                # the loss-only accounting and goes off for a crash plan
-                self._srv_on = self._srv_on and not fault_plan.starts
+                # the loss-only accounting and goes off for a crash plan,
+                # and for dir_delays
+                self._srv_on = (self._srv_on and not fault_plan.starts
+                                and nemesis.dir_delays is None)
+            elif delays is not None:
+                # the ring's current-state sync diff holds only per wave:
+                # a delayed run keeps no ledger under a plan
+                self._srv_on = False
             else:
                 # per destination row: D edges x (liveness + loss/dup
                 # coins + gather temps), about 16 bytes per edge slot
@@ -773,16 +1042,57 @@ class BroadcastSim:
                 self._ub = None
         self._fixed = {}
 
+    def _setup_delays(self, delays, delayed, edge_delayed, nemesis) -> None:
+        """The delay mode's ring length, its device operands and its
+        delivery closure ``self._delayed_ex(history, t)`` (None for the
+        gather path's delays and the nemesis, which their rounds take)."""
+        self._classes = None
+        self._delayed_ex = None
+        self.ring = 1
+        if delays is not None:
+            self._classes = delay_classes(torch.as_tensor(
+                np.asarray(delays, np.int32), device=self.device))
+            self.ring = max(self._classes)
+        elif delayed is not None:
+            self.ring = delayed.ring
+            if hasattr(delayed, "same"):
+                self._delayed_ex = lambda h, t: delayed.exchange(
+                    h, t, self._live_at)
+            else:
+                self._delayed_ex = delayed.exchange
+        elif edge_delayed is not None:
+            ed = edge_delayed
+            self.ring = ed.ring
+            rows = ed.class_rows(self.device)
+            if hasattr(ed, "del_same"):
+                dsame = kernels.pack_bits(torch.from_numpy(ed.del_same)).to(
+                    self.device)
+                ps, pe = self.parts.starts, self.parts.ends
+                self._delayed_ex = lambda h, t: ed.exchange(
+                    h, t, rows, ed.live_by_delay(dsame, ps, pe, t))
+            else:
+                self._delayed_ex = lambda h, t: ed.exchange(h, t, rows)
+        elif nemesis is not None and nemesis.dir_delays is not None:
+            self.ring = nemesis.ring
+        self._delay_mode = (delays is not None or delayed is not None
+                            or edge_delayed is not None
+                            or (nemesis is not None
+                                and nemesis.dir_delays is not None))
+
     # -- construction ----------------------------------------------------
 
     def init_state(self, inject: np.ndarray) -> BroadcastState:
         received = _bits_from_numpy(inject, self.words_major).to(
             self.device)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        history = None
+        if self._delay_mode:
+            history = torch.zeros((self.ring,) + tuple(received.shape),
+                                  dtype=torch.int32, device=self.device)
         return BroadcastState(received=received, frontier=received.clone(),
                               t=0, msgs=zero,
                               srv_msgs=zero.clone() if self._srv_on
-                              else None)
+                              else None, history=history)
 
     def target_bits(self, inject: np.ndarray) -> torch.Tensor:
         """(W,) int32 — union of all injected values: the convergence
@@ -804,6 +1114,11 @@ class BroadcastSim:
         None when no window is active."""
         if self._faulted is None or not self.parts.active(t):
             return None
+        return self._live_at(t)
+
+    def _live_at(self, t: int) -> torch.Tensor:
+        """:meth:`_live_rows` of round ``t``, the exists rows themselves
+        when no window is active."""
         same = self._fx_same
         return windows_fold(self.parts.starts, self.parts.ends, t,
                             lambda w, lv: lv & same[w], self._fx_exists)
@@ -821,12 +1136,13 @@ class BroadcastSim:
                              sync_diff=self.sync_diff if self._srv_on
                              else None,
                              live=self._live_rows(state.t),
-                             faulted=self._faulted)
+                             faulted=self._faulted,
+                             delayed_exchange=self._delayed_ex)
         return _round(state, row_ids=self.row_ids, nbrs=self.nbrs,
                       nbr_mask=self.nbr_mask, parts=self.parts,
                       sync_every=self.sync_every, deg=self.deg,
                       plan=self.fault_plan, dup_on=self._fp_dup,
-                      union_block=self._ub)
+                      union_block=self._ub, classes=self._classes)
 
     def converged(self, state: BroadcastState,
                   target: torch.Tensor) -> bool:
@@ -857,12 +1173,13 @@ class BroadcastSim:
         """(runner, flood parts | None) for exactly ``rounds`` rounds.
         The pure-flood specialization (kernel loop + closed-form ledger)
         applies on the words-major path when no sync wave fires within
-        the trip count, the server ledger is off and no fault mode is
-        on (no partition bundle, no plan) — the reference's ``flood_ok``
-        gate.  The gather path has none (the reference's gate needs the
-        words-major layout)."""
+        the trip count, the server ledger is off and no fault or delay
+        mode is on (no partition bundle, no plan, no ring) — the
+        reference's ``flood_ok`` gate.  The gather path has none (the
+        reference's gate needs the words-major layout)."""
         flood_ok = (self.words_major and not self._srv_on
                     and self._faulted is None and self.fault_plan is None
+                    and not self._delay_mode
                     and 0 < rounds <= self.sync_every)
         if not flood_ok:
             def run(state: BroadcastState) -> BroadcastState:

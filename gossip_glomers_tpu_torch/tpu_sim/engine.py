@@ -59,6 +59,15 @@ def stepwise_converge(step: Callable, converged: Callable, state,
     return state, rounds
 
 
+def send_slot(t: int, delay: int, ring: int) -> int | None:
+    """The slot of an L = ``ring`` payload ring that an edge of ``delay``
+    rounds reads at round ``t``: that of its send round ``t - (delay -
+    1)``, or None before round ``delay - 1`` (nothing was in flight
+    yet)."""
+    src_t = t - (delay - 1)
+    return None if src_t < 0 else src_t % ring
+
+
 def active_windows(starts: Sequence[int], ends: Sequence[int],
                    t: int) -> list[int]:
     """The windows ``w`` with ``starts[w] <= t < ends[w]``."""

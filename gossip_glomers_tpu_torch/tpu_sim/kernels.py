@@ -7,16 +7,20 @@ what bounds them on an H100 and what the design does about it):
 - ``tree_flood.cu``, the words-major k-ary tree:
   :func:`tree_exchange` (the port of the Pallas kernel in
   benchmarks/pallas_tree_probe.py), its masked form
-  :func:`tree_masked_exchange` (partitions and the nemesis),
+  :func:`tree_masked_exchange` (partitions and the nemesis), its ring
+  mode :func:`tree_ring_exchange` (per-hop delays: each term from its
+  own slot of the payload history ring),
   :func:`tree_flood_round` (one fused pure-flood round, ``new =
   exchange(frontier) & ~received; received |= new; frontier_next =
   new``) and :func:`col_popcount` (per-node popcount sums ``sum_w
   popc(x[w, i])``);
 - ``shift_flood.cu``, the words-major shift topologies (circulant, ring,
   line, grid): :func:`shift_exchange`, its masked form
-  :func:`shift_masked_exchange` and :func:`shift_flood_round`, all
-  driven by a :class:`ShiftDirs` direction table, whose tiles stage the
-  source windows of :func:`shift_windows` in shared memory;
+  :func:`shift_masked_exchange`, its ring mode
+  :func:`shift_ring_exchange` (each direction from its own slot of the
+  payload history ring) and :func:`shift_flood_round`, all driven by a
+  :class:`ShiftDirs` direction table, whose tiles stage the source
+  windows of :func:`shift_windows` in shared memory;
 - ``gather_flood.cu``, the node-major adjacency gather:
   :func:`gather_or`, :func:`gather_flood_round` (one fused gather round,
   ``new = gather_or(payload) & ~rec``, ``rec_next = rec | new``, out of
@@ -69,6 +73,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_WORDS = 65535            # grid.y carries the word axis (words-major)
 MAX_DIRS = 16                # shift_flood.cu's kMaxDirs
+MAX_RING_ENTRIES = 16        # tree_flood.cu's kMaxEntries
 MASK32 = 0xFFFFFFFF
 # shift_flood.cu's tiles: nodes per tile at most, tiles in flight per
 # block (2 measured faster than 3 for the circulant's fused round on an
@@ -85,6 +90,8 @@ WRAP, MASK_LEFT, MASK_RIGHT = 1, 2, 4
 # the edge flags of fault_coins (fault_flood.cu): a send is charged, the
 # delivery survived the loss coin, the dup coin fired, the reply's coin
 FLAG_SEND, FLAG_DEL, FLAG_DUP, FLAG_OUT_OK = 1, 2, 4, 8
+# the term kinds of a tree_ring_exchange table (tree_flood.cu RingTable)
+TREE_PARENT, TREE_KIDS = 0, 1
 # the id forms of wm_fault_coins' direction descriptors (fault_flood.cu):
 # i; (i + off) mod n; (i - 1) // k; k * i + 1 + j
 COIN_IDENT, COIN_SHIFT, COIN_PARENT, COIN_CHILD = 0, 1, 2, 3
@@ -95,7 +102,8 @@ LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "shift_masked_exchange": 0, "shift_flood_round": 0,
             "gather_or": 0, "sync_diff_pc": 0, "gather_flood_round": 0,
             "fault_coins": 0, "faulted_gather_round": 0,
-            "wm_fault_coins": 0}
+            "wm_fault_coins": 0, "tree_ring_exchange": 0,
+            "shift_ring_exchange": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -111,24 +119,30 @@ class ShiftDirs:
     directions d of ``payload[:, i + offs[d]]`` — mod n where ``flags[d]``
     has :data:`WRAP` (offsets in [0, n)), else only inside [0, n) — kept
     only where ``i % cols < cols - 1`` (:data:`MASK_LEFT`) or
-    ``i % cols > 0`` (:data:`MASK_RIGHT`) when those flags are set."""
+    ``i % cols > 0`` (:data:`MASK_RIGHT`) when those flags are set.
+    ``slots``, a ring table's (:func:`shift_ring_exchange`): the slot of
+    the (L, W, N) payload ring each direction reads; empty for one (W, N)
+    source."""
 
     offs: tuple[int, ...]
     flags: tuple[int, ...]
     cols: int = 0
+    slots: tuple[int, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class ShiftWindow:
     """Source words the shift kernels stage together: for the tile of
     nodes [i0, i0 + tl) of a row, positions [i0 + lo, i0 + hi + tl) —
-    taken mod n when ``wrap``, else zero outside [0, n).  Direction d of
-    ``dirs`` reads it at ``signed_offset(d) - lo``."""
+    taken mod n when ``wrap``, else zero outside [0, n), of ring slot
+    ``slot`` (0 for one source).  Direction d of ``dirs`` reads it at
+    ``signed_offset(d) - lo``."""
 
     lo: int
     hi: int
     wrap: bool
     dirs: tuple[int, ...]
+    slot: int = 0
 
 
 def signed_offset(off: int, flags: int, n: int) -> int:
@@ -140,23 +154,29 @@ def signed_offset(off: int, flags: int, n: int) -> int:
 def shift_windows(dirs: ShiftDirs, n: int,
                   tile: int) -> tuple[ShiftWindow, ...]:
     """The shift kernels' windows for tiles of ``tile`` nodes: the
-    directions sorted by signed offset, wrap and zero-fill apart, and
-    every run whose spread is at most ``tile`` merged into one window
-    (one window of ``spread + tile`` words costs no more than two of
-    ``tile``).  The circulant at 2^20 nodes has 7 (its ±1 pair merges),
-    ring and line 1, the 1024-column grid 1."""
+    directions sorted by signed offset, ring slot, wrap and zero-fill
+    apart, and every run whose spread is at most ``tile`` merged into one
+    window (one window of ``spread + tile`` words costs no more than two
+    of ``tile``).  The circulant at 2^20 nodes has 7 (its ±1 pair merges),
+    ring and line 1, the 1024-column grid 1; a ring table as many again
+    for every slot it reads."""
+    def slot(d: int) -> int:
+        return dirs.slots[d] if dirs.slots else 0
+
     order = sorted(range(len(dirs.offs)), key=lambda d: (
-        bool(dirs.flags[d] & WRAP),
+        slot(d), bool(dirs.flags[d] & WRAP),
         signed_offset(dirs.offs[d], dirs.flags[d], n)))
     windows: list[ShiftWindow] = []
     for d in order:
         wrap = bool(dirs.flags[d] & WRAP)
         o = signed_offset(dirs.offs[d], dirs.flags[d], n)
         last = windows[-1] if windows else None
-        if last is not None and last.wrap == wrap and o - last.lo <= tile:
-            windows[-1] = ShiftWindow(last.lo, o, wrap, last.dirs + (d,))
+        if last is not None and (last.slot, last.wrap) == (slot(d), wrap) \
+                and o - last.lo <= tile:
+            windows[-1] = ShiftWindow(last.lo, o, wrap, last.dirs + (d,),
+                                      last.slot)
         else:
-            windows.append(ShiftWindow(o, o, wrap, (d,)))
+            windows.append(ShiftWindow(o, o, wrap, (d,), slot(d)))
     return tuple(windows)
 
 
@@ -171,6 +191,9 @@ def _check_dirs(dirs: ShiftDirs, n: int) -> None:
             raise ValueError(f"wrap offset {off} outside [0, {n})")
         if flags & (MASK_LEFT | MASK_RIGHT) and dirs.cols < 1:
             raise ValueError("a column mask needs cols >= 1")
+    if dirs.slots and (len(dirs.slots) != len(dirs.offs)
+                       or min(dirs.slots) < 0):
+        raise ValueError("a ring table needs a slot >= 0 a direction")
 
 
 def _round4(x: int) -> int:
@@ -198,7 +221,8 @@ def _shift_plan(dirs: ShiftDirs, n: int, fused: bool,
     Layout: tile, stages, stage words, received's offset, cols, windows,
     directions, the liveness slots' offset (-1: none; they fill the
     stage to its end); per window lo, hi - lo, wrap, offset; per
-    direction window, offset - lo, mask flags."""
+    direction window, offset - lo, mask flags; for a ring table
+    (``dirs.slots``) then per window its slot."""
     if fused and live:
         raise ValueError("the fused round takes no liveness rows")
     _check_dirs(dirs, n)
@@ -224,6 +248,8 @@ def _shift_plan(dirs: ShiftDirs, n: int, fused: bool,
         k = where[d]
         words += [k, signed_offset(off, flags, n) - windows[k].lo,
                   flags & (MASK_LEFT | MASK_RIGHT)]
+    if dirs.slots:
+        words += [win.slot for win in windows]
     return (ctypes.c_int64 * len(words))(*words), len(words)
 
 
@@ -349,6 +375,45 @@ def shift_masked_exchange_plain(payload: torch.Tensor, live: torch.Tensor,
     for d in range(len(dirs.offs)):
         out |= torch.where(lv[d][None, :], shift_term_plain(payload, dirs, d),
                            0)
+    return out
+
+
+def shift_ring_exchange_plain(ring: torch.Tensor, dirs: ShiftDirs,
+                              live: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """The reference's delayed composition: each direction's term of its
+    ring slot (a roll or shift), masked at receivers by its packed row of
+    ``live`` when given, ORed."""
+    lv = None if live is None else unpack_bits(live, ring.shape[2])
+    out = ring.new_zeros(ring.shape[1:])
+    for d, slot in enumerate(dirs.slots):
+        term = shift_term_plain(ring[slot], dirs, d)
+        out |= term if lv is None else torch.where(lv[d][None, :], term, 0)
+    return out
+
+
+def tree_ring_exchange_plain(ring: torch.Tensor, table,
+                             live: torch.Tensor | None = None,
+                             branching: int = 4) -> torch.Tensor:
+    """The reference's delayed composition: per (slot, kind, row) entry,
+    the from-parent repeat of the slot masked at receivers, or the
+    from-kids fold of the slot masked at child positions before the fold
+    (row -1: no mask), ORed."""
+    from .structured import _mask_cols, tree_from_kids, tree_from_parent
+
+    n = ring.shape[2]
+    lv = None if live is None else unpack_bits(live, n)
+    out = ring.new_zeros(ring.shape[1:])
+    if n == 1:
+        return out
+    for slot, kind, row in table:
+        p = ring[slot]
+        if kind == TREE_PARENT:
+            term = tree_from_parent(p, branching)
+            out |= term if row < 0 else _mask_cols(term, lv[row])
+        else:
+            out |= tree_from_kids(p if row < 0 else _mask_cols(p, lv[row]),
+                                  branching)
     return out
 
 
@@ -564,6 +629,8 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_tree_exchange": [ptr, ptr, i64, i64, i32, ptr],
                 "gg_tree_masked_exchange": [ptr, ptr, ptr, ptr, i64, i64,
                                             i32, ptr],
+                "gg_tree_ring_exchange": [ptr, ptr, ptr, i64, i64, i64, i32,
+                                          ptr, i32, ptr],
                 "gg_tree_flood_round": [ptr, ptr, ptr, i64, i64, i32, ptr],
                 "gg_col_popcount": [ptr, ptr, i64, i64, ptr]},
             "shift_flood": {
@@ -571,7 +638,9 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_shift_masked_exchange": [ptr, ptr, ptr, i64, i64, ptr,
                                              i32, ptr],
                 "gg_shift_flood_round": [ptr, ptr, ptr, i64, i64, ptr, i32,
-                                         ptr]},
+                                         ptr],
+                "gg_shift_ring_exchange": [ptr, ptr, ptr, i64, i64, i64, ptr,
+                                           i32, ptr]},
             "gather_flood": {
                 "gg_gather_or": [ptr, ptr, ptr, ptr, i64, i64, i64, i32,
                                  ptr],
@@ -725,6 +794,65 @@ def tree_masked_exchange(payload: torch.Tensor, live_parent: torch.Tensor,
     return inbox
 
 
+def _check_ring(ring: torch.Tensor) -> tuple[int, int, int]:
+    """(L, W, N) of a payload history ring: a contiguous (L, W, N) int32
+    tensor, words-major slots."""
+    if ring.dtype != torch.int32 or ring.dim() != 3 \
+            or not ring.is_contiguous():
+        raise ValueError("ring must be a contiguous (L, W, N) torch.int32 "
+                         f"tensor, got {ring.dtype} {tuple(ring.shape)}")
+    return tuple(ring.shape)
+
+
+def _ring_live(live: torch.Tensor | None, rows: int, n: int) -> list:
+    """The tensors a ring call's device check covers: ``live`` (checked
+    as (rows, ceil(n/32)) packed rows) when given."""
+    if live is None:
+        return []
+    _check_packed("live", live, (rows, packed_words(n)))
+    return [live]
+
+
+def tree_ring_exchange(ring: torch.Tensor, table, live=None,
+                       branching: int = 4) -> torch.Tensor:
+    """The tree inbox of a payload history ring: the OR over ``table``'s
+    ``(slot, kind, row)`` entries of the from-parent term
+    (:data:`TREE_PARENT`) of ring slot ``slot``, gated at receivers by
+    packed row ``row`` of ``live``, or the from-kids term
+    (:data:`TREE_KIDS`) of that slot gated at child positions before the
+    k:1 fold (``row`` -1: ungated).  ``ring`` is (L, W, N), ``live``
+    (R, ceil(N/32)) packed rows or None.  An empty table gives zeros and
+    launches nothing; one longer than :data:`MAX_RING_ENTRIES` runs in
+    launches of that many, ORed."""
+    slots, w, n = _check_ring(ring)
+    table = tuple((int(a), int(b), int(c)) for a, b, c in table)
+    rows = 0 if live is None else live.shape[0]
+    for slot, kind, row in table:
+        if not (0 <= slot < slots and kind in (TREE_PARENT, TREE_KIDS)
+                and -1 <= row < rows):
+            raise ValueError(f"ring table entry {(slot, kind, row)}: a slot "
+                             f"of {slots}, kind 0 or 1, a row of {rows} or -1")
+    if _on_cpu(ring, *_ring_live(live, rows, n)):
+        return tree_ring_exchange_plain(ring, table, live, branching)
+    _check_words(w)
+    _check_branching(branching)
+    inbox = None
+    for at in range(0, len(table), MAX_RING_ENTRIES):
+        part = table[at:at + MAX_RING_ENTRIES]
+        words = [x for entry in part for x in entry]
+        out = torch.empty((w, n), dtype=torch.int32, device=ring.device)
+        if out.numel():
+            _launch("tree_ring_exchange",
+                    _lib("tree_flood").gg_tree_ring_exchange, ring.device,
+                    ring.data_ptr(), None if live is None else live.data_ptr(),
+                    out.data_ptr(), slots, w, n, branching,
+                    (ctypes.c_int64 * len(words))(*words), len(part))
+        inbox = out if inbox is None else inbox | out
+    if inbox is None:
+        return torch.zeros((w, n), dtype=torch.int32, device=ring.device)
+    return inbox
+
+
 def tree_flood_round(received: torch.Tensor, frontier: torch.Tensor,
                      frontier_next: torch.Tensor,
                      branching: int = 4) -> torch.Tensor:
@@ -764,6 +892,12 @@ def col_popcount(x: torch.Tensor, node_major: bool = False) -> torch.Tensor:
     return out
 
 
+def _one_source(dirs: ShiftDirs) -> None:
+    if dirs.slots:
+        raise ValueError("a ring table (ShiftDirs.slots) goes to "
+                         "shift_ring_exchange")
+
+
 def shift_exchange(payload: torch.Tensor, dirs: ShiftDirs) -> torch.Tensor:
     """inbox[:, i] = OR over the directions of ``dirs`` (see
     :class:`ShiftDirs`) of the shifted payload."""
@@ -772,6 +906,7 @@ def shift_exchange(payload: torch.Tensor, dirs: ShiftDirs) -> torch.Tensor:
         return shift_exchange_plain(payload, dirs)
     w, n = payload.shape
     _check_words(w)
+    _one_source(dirs)
     plan = _shift_plan(dirs, n, False)
     inbox = torch.empty_like(payload)
     if payload.numel():
@@ -798,6 +933,7 @@ def shift_masked_exchange(payload: torch.Tensor, live: torch.Tensor,
     _check_words(w)
     if max_tile < 1:
         raise ValueError(f"max_tile must be >= 1, got {max_tile}")
+    _one_source(dirs)
     plan = _shift_plan(dirs, n, False, max_tile, live=True)
     inbox = torch.empty_like(payload)
     if payload.numel():
@@ -805,6 +941,45 @@ def shift_masked_exchange(payload: torch.Tensor, live: torch.Tensor,
                 _lib("shift_flood").gg_shift_masked_exchange, payload.device,
                 payload.data_ptr(), live.data_ptr(), inbox.data_ptr(), w, n,
                 *plan)
+    return inbox
+
+
+def shift_ring_exchange(ring: torch.Tensor, dirs: ShiftDirs, live=None,
+                        max_tile: int = SHIFT_TILE) -> torch.Tensor:
+    """The shift inbox of a payload history ring: the OR over the rows d
+    of the ring table ``dirs`` (its ``slots`` set) of direction d's term
+    of ring slot ``dirs.slots[d]``, gated at receivers by packed row d of
+    ``live`` when given ((len(dirs.offs), ceil(N/32)) int32), under the
+    table's column masks.  ``ring`` is (L, W, N).  An empty table gives
+    zeros and launches nothing; one of more than :data:`MAX_DIRS` rows
+    runs in launches of that many, ORed.  ``max_tile`` as in
+    :func:`shift_masked_exchange`."""
+    slots, w, n = _check_ring(ring)
+    if len(dirs.slots) != len(dirs.offs) or any(
+            not 0 <= s < slots for s in dirs.slots):
+        raise ValueError(f"a ring table names a slot of the {slots}-slot "
+                         "ring for each of its rows")
+    if _on_cpu(ring, *_ring_live(live, len(dirs.offs), n)):
+        return shift_ring_exchange_plain(ring, dirs, live)
+    _check_words(w)
+    if max_tile < 1:
+        raise ValueError(f"max_tile must be >= 1, got {max_tile}")
+    inbox = None
+    for at in range(0, len(dirs.offs), MAX_DIRS):
+        part = slice(at, at + MAX_DIRS)
+        sub = ShiftDirs(dirs.offs[part], dirs.flags[part], dirs.cols,
+                        dirs.slots[part])
+        plan = _shift_plan(sub, n, False, max_tile, live=live is not None)
+        out = torch.empty((w, n), dtype=torch.int32, device=ring.device)
+        if out.numel():
+            _launch("shift_ring_exchange",
+                    _lib("shift_flood").gg_shift_ring_exchange, ring.device,
+                    ring.data_ptr(),
+                    None if live is None else live[part].data_ptr(),
+                    out.data_ptr(), slots, w, n, *plan)
+        inbox = out if inbox is None else inbox | out
+    if inbox is None:
+        return torch.zeros((w, n), dtype=torch.int32, device=ring.device)
     return inbox
 
 
@@ -820,6 +995,7 @@ def shift_flood_round(received: torch.Tensor, frontier: torch.Tensor,
                                        dirs)
     w, n = received.shape
     _check_words(w)
+    _one_source(dirs)
     plan = _shift_plan(dirs, n, True)
     if received.numel():
         _launch("shift_flood_round",

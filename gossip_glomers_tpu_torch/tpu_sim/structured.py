@@ -33,6 +33,15 @@ masked kernels (:func:`.kernels.tree_masked_exchange`,
 ``masked`` calls.  Single device only: the reference's halo closures
 (``sharded_*``) are None here (ROADMAP.md Queue A item 10).
 
+Maelstrom's per-hop latency on this path: :func:`make_delayed`
+(per-direction delay classes), :func:`make_edge_delayed` (random
+per-edge delays over a small value set), their partition-composed forms
+and ``make_nemesis(dir_delays=)`` deliver each direction (or direction
+and delay class) from its own slot of the state's payload ring, one ring
+kernel launch a round (:func:`ring_terms`); :func:`gather_delays_for`
+and :func:`gather_delays_from_rows` give the gather path's equivalent
+per-edge delays.
+
 The reference has two lowerings of ``tree_from_kids`` (a lane-roll fold
 for mid W and a reshape fold otherwise), pinned bit-identical; the port
 keeps the reshape fold only.
@@ -49,7 +58,7 @@ import torch
 
 from . import faults, kernels
 from ..parallel.topology import grid_cols
-from .engine import resolve_device
+from .engine import active_windows, resolve_device, send_slot, windows_fold
 from .kernels import MASK32, MASK_LEFT, MASK_RIGHT, WRAP, ShiftDirs
 
 
@@ -636,13 +645,16 @@ class StructuredNemesis:
     :func:`make_nemesis`):
 
     - ``arrs``: the mask operand (:class:`.faults.WMNemesisArrays`);
-    - ``dir_delays`` / ``ring``: None / 1 (per-direction delays are
-      ROADMAP.md Queue A item 6.3);
+    - ``dir_delays`` / ``ring``: per-direction delays of the delivery
+      contract's rows and the ring length (their largest), or None / 1;
     - ``exchange(payload, lv)`` / ``src_pc(d, pc)``: the delivery and
       count-relocation closures (:func:`_nem_closures`);
     - ``sync_diff(recv, rows)``: the masked per-edge diff over the degree
       contract's packed rows, the loss-only server ledger's sync term;
-    - ``sharded_*``: None (item 10)."""
+    - ``sharded_*``: None (item 10);
+    - ``ring_exchange(hist, terms)``: with ``dir_delays``, the delivery
+      from the payload ring (:func:`ring_terms`: one ring kernel over
+      each direction's slot and coin row)."""
 
     arrs: "faults.WMNemesisArrays"
     dir_delays: tuple | None
@@ -653,6 +665,7 @@ class StructuredNemesis:
     sharded_src_pc: Callable | None
     sync_diff: Callable | None
     sharded_sync_diff: Callable | None
+    ring_exchange: Callable | None = None
 
 
 def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
@@ -664,10 +677,11 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
     decomposition of ``spec`` (a host NemesisSpec: the crash windows must
     be host data to precompute the per-direction masks), composed with an
     optional partition schedule (``groups``: its (P, N) group ids), its
-    tensors on ``device`` (default CUDA, as the port's entry points).
-    Pass it to ``BroadcastSim(nemesis=..., fault_plan=spec.compile())``.
-    None for unstructured topologies.  ``dir_delays`` and ``n_shards``
-    are not ported and raise NotImplementedError."""
+    tensors on ``device`` (default CUDA, as the port's entry points), and
+    with optional per-direction ``dir_delays`` (one a delivery-contract
+    row: the tree's (down, up)).  Pass it to ``BroadcastSim(nemesis=...,
+    fault_plan=spec.compile())``.  None for unstructured topologies.
+    ``n_shards`` is not ported and raises NotImplementedError."""
     _unported_shards(n_shards)
     if spec.n_nodes != n:
         raise ValueError(f"spec is for {spec.n_nodes} nodes, "
@@ -684,6 +698,7 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
     if pairs is None:
         return None
     src, dst, exists = pairs
+    dd, ring = None, 1
     if dir_delays is not None:
         dd = tuple(int(x) for x in dir_delays)
         if len(dd) != src.shape[0]:
@@ -692,9 +707,7 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
                 f"got {len(dd)}")
         if any(d < 1 for d in dd):
             raise ValueError("direction delays are rounds >= 1")
-        raise NotImplementedError(
-            "make_nemesis(dir_delays=...) is not ported to PyTorch yet "
-            "(ROADMAP.md Queue A item 6.3)")
+        ring = max(dd)
     device = resolve_device(device)
     idx = np.arange(n, dtype=np.int64)
     deg_src = fault_dir_senders(topology, n, **kw)
@@ -726,5 +739,415 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
         down_cols=torch.from_numpy(faults.crash_down_rows(spec, idx)).to(
             device))
     ex, spc = _nem_closures(topology, n, **kw)
-    return StructuredNemesis(arrs, None, 1, ex, spc, None, None,
-                             _masked_diffs(topology, n, **kw), None)
+    return StructuredNemesis(arrs, dd, ring, ex, spc, None, None,
+                             _masked_diffs(topology, n, **kw), None,
+                             ring_terms(topology, n, **kw) if dd else None)
+
+
+# -- per-hop latency on the structured path -----------------------------
+#
+# Maelstrom's latency (reference README.md:16) delays every hop.  Here a
+# delay is per direction CLASS (make_delayed: every +s edge of a
+# circulant, the tree's parent->child direction, ...) or random per EDGE
+# over a small static value set (make_edge_delayed): direction d (or the
+# virtual direction (d, v), masked to the receivers whose edge has delay
+# v) delivers the payload flooded v - 1 rounds ago, read from the state's
+# ring of past payloads.  Every such delivery is one launch of a ring
+# kernel (kernels.tree_ring_exchange, kernels.shift_ring_exchange) over a
+# table of (direction, ring slot, liveness row) terms; a term whose send
+# round t - (v - 1) is below 0 is dropped on the host (nothing was in
+# flight yet: the reference's _take_delayed zeros).
+#
+# Direction-class order (shared with gather_delays_for): tree(k): (parent
+# ->child, child->parent); grid: (up, down, left, right); ring: (+1, -1);
+# line: (fwd i <- i+1, bwd i <- i-1); circulant: (+s0, -s0, +s1, ...) —
+# fault_dir_senders' rows, the tree's first two.
+
+
+def _take_delayed(hist: torch.Tensor, t: int, delay: int,
+                  ring: int) -> torch.Tensor:
+    """The payload flooded ``delay - 1`` rounds before ``t`` (zeros before
+    round ``delay - 1``: nothing was in flight yet)."""
+    slot = send_slot(t, delay, ring)
+    return torch.zeros_like(hist[0]) if slot is None else hist[slot]
+
+
+def ring_terms(topology: str, n: int, **kw):
+    """The ring delivery closure ``run(hist, terms) -> inbox`` of a
+    topology: ``terms`` lists ``(d, slot, row)``, direction class d's
+    structured term of ring slot ``slot`` gated at receivers (the tree's
+    child->parent class at child positions, before the fold) by the
+    packed (ceil(N/32),) ``row``, or ungated when every row is None.  One
+    ring-kernel launch (:func:`.kernels.tree_ring_exchange` for the tree,
+    :func:`.kernels.shift_ring_exchange` over the rows of
+    :func:`shift_dirs` else); no term gives zeros.  None for unstructured
+    topologies."""
+    ex = make_exchange(topology, n, **kw)
+    if ex is None:
+        return None
+
+    def rows_of(terms):
+        if not terms or terms[0][2] is None:
+            return None
+        return torch.stack([row for _, _, row in terms])
+
+    if topology == "tree":
+        k = ex.branching
+
+        def run(hist, terms):
+            lv = rows_of(terms)
+            table = [(slot, kernels.TREE_PARENT if d == 0
+                      else kernels.TREE_KIDS, -1 if lv is None else j)
+                     for j, (d, slot, _) in enumerate(terms)]
+            return kernels.tree_ring_exchange(hist, table, lv, k)
+
+        return run
+    dirs = ex.dirs
+
+    def run(hist, terms):
+        sel = [d for d, _, _ in terms]
+        table = kernels.ShiftDirs(tuple(dirs.offs[d] for d in sel),
+                                  tuple(dirs.flags[d] for d in sel),
+                                  dirs.cols,
+                                  tuple(slot for _, slot, _ in terms))
+        return kernels.shift_ring_exchange(hist, table, rows_of(terms))
+
+    return run
+
+
+def _n_classes(topology: str, n: int, **kw) -> int:
+    """Direction classes of the delay contract: the tree's 2, else the
+    fault direction rows'."""
+    if topology == "tree":
+        return 2
+    return fault_dir_senders(topology, n, **kw).shape[0]
+
+
+def _check_dir_delays(topology: str, n: int, dir_delays, **kw) -> tuple:
+    dd = tuple(int(x) for x in dir_delays)
+    if any(d < 1 for d in dd):
+        raise ValueError("direction delays are rounds >= 1")
+    want = _n_classes(topology, n, **kw)
+    if len(dd) != want:
+        raise ValueError(f"{topology} takes {want} direction delays, got "
+                         f"{len(dd)}")
+    return dd
+
+
+def gather_delays_for(topology: str, n: int, dir_delays, nbrs,
+                      **kw) -> np.ndarray:
+    """The (N, D_adj) per-edge delays array (for the gather path)
+    equivalent to per-direction-class ``dir_delays`` — the bridge the
+    equivalence tests and mixed-path runs use.  Pad slots get 1.  Raises
+    when two direction classes alias one physical edge with different
+    delays (a circulant stride with 2s ≡ 0 mod n): no per-edge array can
+    represent that."""
+    snd = fault_dir_senders(topology, n, **kw)
+    if topology == "tree":
+        k = kw.get("branching", 4)
+        if len(dir_delays) != 2:
+            raise ValueError("tree takes (down, up) delays")
+        row_delays = [dir_delays[0]] + [dir_delays[1]] * k
+    else:
+        row_delays = list(dir_delays)
+    if len(row_delays) != snd.shape[0]:
+        raise ValueError(
+            f"{topology} takes {snd.shape[0]} direction delays, got "
+            f"{len(dir_delays)}")
+    return _bridge(snd, [np.full(n, d, np.int32) for d in row_delays], nbrs)
+
+
+def _bridge(snd: np.ndarray, rows_recv, nbrs) -> np.ndarray:
+    """Per-edge delays of an (N, D) table from receiver-side rows (one a
+    fault direction row); raises on an aliased edge with two delays."""
+    nbrs = np.asarray(nbrs)
+    out = np.ones(nbrs.shape, np.int32)
+    assigned = np.zeros(nbrs.shape, bool)
+    for d, vals in enumerate(rows_recv):
+        s = snd[d]
+        mask = (nbrs == s[:, None]) & (s[:, None] >= 0)
+        want = np.broadcast_to(np.asarray(vals, np.int32)[:, None],
+                               nbrs.shape)
+        clash = assigned & mask & (out != want)
+        if clash.any():
+            raise ValueError(
+                "direction classes alias the same edge with different "
+                f"delays (direction row {d}); per-edge delays cannot "
+                "represent this")
+        out = np.where(mask, want, out)
+        assigned |= mask
+    return out
+
+
+def gather_delays_from_rows(topology: str, n: int, delay_rows, nbrs,
+                            **kw) -> np.ndarray:
+    """The (N, D_adj) per-edge delays array (the gather path) equivalent
+    to per-direction-per-receiver ``delay_rows`` (:func:`make_edge_delayed`'s
+    contract).  Pad slots get 1.  Raises when aliased direction classes
+    (circulant 2s ≡ 0 mod n) carry different delays for one edge."""
+    snd = fault_dir_senders(topology, n, **kw)
+    dr = np.asarray(delay_rows, np.int64)
+    if topology == "tree":
+        k = kw.get("branching", 4)
+        if dr.shape != (2, n):
+            raise ValueError("tree takes (2, N) delay rows")
+        # row 0 is receiver-side (the child); fault rows 1..k (child
+        # slot j at PARENT positions) read the up-delay at the child
+        rows_recv = [dr[0]]
+        for j in range(k):
+            c = snd[1 + j]
+            rows_recv.append(np.where(c >= 0, dr[1][np.clip(c, 0, n - 1)],
+                                      1))
+    else:
+        if dr.shape != (snd.shape[0], n):
+            raise ValueError(
+                f"{topology} takes ({snd.shape[0]}, N) delay rows")
+        rows_recv = list(dr)
+    return _bridge(snd, rows_recv, nbrs)
+
+
+@dataclass(frozen=True)
+class StructuredDelays:
+    """Delayed structured delivery (from :func:`make_delayed`):
+    ``dir_delays`` per direction class (rounds >= 1), ``ring`` = the
+    largest, ``exchange(history, t)`` the (W, N) inbox from the (L, W, N)
+    ring; ``sharded_exchange`` None (ROADMAP.md Queue A item 10)."""
+
+    dir_delays: tuple
+    ring: int
+    exchange: Callable
+    sharded_exchange: Callable | None = None
+
+
+def _delayed_impl(topology: str, n: int, dir_delays, n_shards=None, **kw):
+    """The per-direction-class delivery shared by :func:`make_delayed`
+    and :func:`make_delayed_faulted`: ``(dd, ex)``, ``ex(hist, t, lv)``
+    with ``lv`` None (no partitions) or a {delay: (D, ceil(N/32)) packed
+    liveness} dict evaluated at each delay's send round (the fault
+    contract's rows: the tree's row 0 gates both of its classes, at
+    receivers and before the fold).  None for unstructured topologies."""
+    _unported_shards(n_shards)
+    run = ring_terms(topology, n, **kw)
+    if run is None:
+        return None
+    dd = _check_dir_delays(topology, n, dir_delays, **kw)
+    ring = max(dd)
+    mask_row = (lambda d: 0) if topology == "tree" else (lambda d: d)
+
+    def ex(hist, t, lv):
+        terms = []
+        for d, v in enumerate(dd):
+            slot = send_slot(t, v, ring)
+            if slot is not None:
+                terms.append((d, slot, None if lv is None
+                              else lv[v][mask_row(d)]))
+        return run(hist, terms)
+
+    return dd, ex
+
+
+def make_delayed(topology: str, n: int, dir_delays,
+                 n_shards: int | None = None,
+                 **kw) -> StructuredDelays | None:
+    """The :class:`StructuredDelays` bundle.  ``dir_delays`` length: tree
+    2, grid 4, ring / line 2, circulant 2 * len(strides).  None for
+    unstructured topologies.  Two direction classes that are one physical
+    edge (a circulant stride with 2s ≡ 0 mod n) both deliver: the edge
+    carries both delays (:func:`gather_delays_for` raises there)."""
+    impl = _delayed_impl(topology, n, dir_delays, n_shards, **kw)
+    if impl is None:
+        return None
+    dd, ex = impl
+    return StructuredDelays(dd, max(dd), lambda h, t: ex(h, t, None))
+
+
+@dataclass(frozen=True)
+class FaultedDelayed:
+    """Per-direction delay classes under partition windows (from
+    :func:`make_delayed_faulted`): each class delivers its past payload
+    masked by the window liveness AT ITS SEND ROUND.
+    ``exchange(history, t, live_at)`` takes the sim's ``live_at(t') ->
+    (D, ceil(N/32))`` packed rows (exists AND same-group under the
+    windows active at t') and evaluates it once a distinct delay;
+    ``exists`` / ``same`` follow :class:`StructuredFaults`, and
+    ``sync_diff(recv, live)`` is the ledger's masked diff."""
+
+    exists: np.ndarray
+    same: np.ndarray
+    dir_delays: tuple
+    ring: int
+    exchange: Callable
+    sharded_exchange: Callable | None = None
+    sync_diff: Callable | None = None
+    sharded_sync_diff: Callable | None = None
+
+
+def make_delayed_faulted(topology: str, n: int, dir_delays,
+                         groups: np.ndarray, n_shards: int | None = None,
+                         **kw) -> FaultedDelayed | None:
+    """Per-direction delay classes composed with a partition schedule
+    (``groups``: its (P, N) group ids), gather-free; masks follow
+    :func:`fault_masks`, delivery :func:`make_delayed`'s.  None for
+    unstructured topologies."""
+    masks = fault_masks(topology, n, groups, **kw)
+    impl = _delayed_impl(topology, n, dir_delays, n_shards, **kw)
+    if masks is None or impl is None:
+        return None
+    exists, same = masks
+    dd, ex_impl = impl
+
+    def lv_by_delay(live_at, t):
+        # one liveness a distinct delay, at its send round
+        return {v: live_at(t - (v - 1)) for v in sorted(set(dd))
+                if t - (v - 1) >= 0}
+
+    def exchange(hist, t, live_at):
+        return ex_impl(hist, t, lv_by_delay(live_at, t))
+
+    return FaultedDelayed(exists, same, dd, max(dd), exchange,
+                          sync_diff=_masked_diffs(topology, n, **kw))
+
+
+# Per-EDGE random delays.  Delays take values from a small static set, so
+# a random (D, N) per-direction-per-receiver delay matrix splits into one
+# receiver mask ``rows[d] == v`` a (direction, delay) pair: delivery is
+#
+#   inbox = OR over (d, v) of mask_cols(term_d(history @ v), rows[d] == v)
+#
+# — D x |delay set| structured terms a round, no random access, one ring
+# kernel launch (splitting past 16 table rows).  Row contract: grid /
+# ring / line / circulant follow the fault direction rows (receiver
+# side); the tree takes TWO rows, both at CHILD positions: row 0 the
+# parent->child edge's delay (receiver the child), row 1 the child->
+# parent edge's (receiver the parent, masked before the fold).
+
+
+def _ed_mask(rows, wl, d: int, v: int):
+    """The (direction, delay class) receiver mask of the edge-delayed
+    delivery, as packed rows: ``rows`` the bundle's class row of (d, v)
+    (its edges of delay v), ANDed, when a window-liveness dict ``wl``
+    rides along, with direction d's partition liveness at class v's send
+    round (None there: no window active)."""
+    if wl is None or wl.get(v) is None:
+        return rows
+    return rows & wl[v][d]
+
+
+@dataclass(frozen=True)
+class EdgeDelays:
+    """Per-edge random delayed structured delivery (from
+    :func:`make_edge_delayed`): ``delay_rows`` (D, N) int32 (the row
+    contract above), ``delay_set`` its distinct values, ``ring`` the
+    largest, ``classes`` the (d, v) pairs with a receiver (the host-side
+    skip: constant rows cost exactly :func:`make_delayed`), and
+    ``exchange(history, t, class_rows, wl=None)`` over
+    :meth:`class_rows`' packed masks and an optional {delay: packed
+    window liveness | None} dict; ``sharded_exchange`` None (item 10)."""
+
+    delay_rows: np.ndarray
+    delay_set: tuple
+    ring: int
+    classes: tuple
+    exchange: Callable
+    sharded_exchange: Callable | None = None
+
+    def class_rows(self, device) -> torch.Tensor:
+        """(len(classes), ceil(N/32)) packed ``delay_rows[d] == v`` of each
+        (d, v) of :attr:`classes`, on ``device``."""
+        return kernels.pack_bits(torch.from_numpy(np.stack(
+            [self.delay_rows[d] == v for d, v in self.classes]))).to(device)
+
+
+def make_edge_delayed(topology: str, n: int, delay_rows,
+                      n_shards: int | None = None,
+                      **kw) -> EdgeDelays | None:
+    """The :class:`EdgeDelays` bundle for random per-edge delays over a
+    small static value set: ``delay_rows`` (D, N) ints >= 1, D = 2 for
+    the tree, else the fault direction rows' count.  None for
+    unstructured topologies.  Aliased direction classes (circulant 2s ≡ 0
+    mod n) both deliver (:func:`gather_delays_from_rows` raises there)."""
+    _unported_shards(n_shards)
+    run = ring_terms(topology, n, **kw)
+    if run is None:
+        return None
+    dr = np.asarray(delay_rows, np.int32)
+    want = (_n_classes(topology, n, **kw), n)
+    if dr.shape != want:
+        raise ValueError(f"{topology} takes {want} delay rows, got "
+                         f"{dr.shape}")
+    if dr.min() < 1:
+        raise ValueError("edge delays are rounds >= 1")
+    delay_set = tuple(int(v) for v in np.unique(dr))
+    ring = max(delay_set)
+    # host-side presence: a (d, v) pair with no receiver is never a term
+    classes = tuple((d, v) for v in delay_set for d in range(dr.shape[0])
+                    if (dr[d] == v).any())
+
+    def exchange(hist, t, class_rows, wl=None):
+        terms = []
+        for j, (d, v) in enumerate(classes):
+            slot = send_slot(t, v, ring)
+            if slot is not None:
+                terms.append((d, slot, _ed_mask(class_rows[j], wl, d, v)))
+        return run(hist, terms)
+
+    return EdgeDelays(dr, delay_set, ring, classes, exchange)
+
+
+@dataclass(frozen=True)
+class FaultedEdgeDelays(EdgeDelays):
+    """Random per-edge delays composed with partition windows (from
+    :func:`make_edge_delayed_faulted`): Maelstrom's default latency and
+    partitions together (reference README.md:16, 18).  Each (direction,
+    delay class) term is also masked by its direction's window liveness
+    at that class's send round (``live_by_delay(del_same, pstarts, pends,
+    t)``: one evaluation a distinct delay).  ``exists`` / ``same`` follow
+    the fault direction-row contract (the ledger's live degree and masked
+    diff, ``sync_diff``); ``del_same`` (P, D_rows, N) is the delivery
+    rows' twin (the tree's two child-position rows both read the parent
+    edge's window)."""
+
+    exists: np.ndarray | None = None
+    same: np.ndarray | None = None
+    del_same: np.ndarray | None = None
+    live_by_delay: Callable | None = None
+    sync_diff: Callable | None = None
+    sharded_sync_diff: Callable | None = None
+
+
+def make_edge_delayed_faulted(topology: str, n: int, delay_rows,
+                              groups: np.ndarray,
+                              n_shards: int | None = None,
+                              **kw) -> FaultedEdgeDelays | None:
+    """Random per-edge delays composed with a partition schedule
+    (``groups``: its (P, N) group ids), gather-free; delivery follows
+    :func:`make_edge_delayed`, masks :func:`fault_masks`.  None for
+    unstructured topologies."""
+    ed = make_edge_delayed(topology, n, delay_rows, n_shards, **kw)
+    if ed is None:
+        return None
+    exists, same = fault_masks(topology, n, groups, **kw)
+    if topology == "tree":
+        # both delivery rows are the parent edge at child positions
+        del_same = np.concatenate([same[:, :1], same[:, :1]], axis=1)
+    else:
+        del_same = same
+    delay_set = ed.delay_set
+
+    def live_by_delay(dsame, pstarts, pends, t):
+        # one window liveness a distinct delay at its send round, shared
+        # by the directions (None: no window active then)
+        out = {}
+        for v in delay_set:
+            tt = t - (v - 1)
+            if tt >= 0 and active_windows(pstarts, pends, tt):
+                out[v] = windows_fold(pstarts, pends, tt,
+                                      lambda w, lv: lv & dsame[w],
+                                      torch.full_like(dsame[0], -1))
+        return out
+
+    return FaultedEdgeDelays(
+        ed.delay_rows, delay_set, ed.ring, ed.classes, ed.exchange,
+        exists=exists, same=same, del_same=del_same,
+        live_by_delay=live_by_delay,
+        sync_diff=_masked_diffs(topology, n, **kw))

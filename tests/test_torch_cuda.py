@@ -549,3 +549,136 @@ def test_cuda_structured_faults_match_cpu_sim(cuda_device, topo, kw):
               else "shift_masked_exchange")
     for name in (masked, "wm_fault_coins"):
         assert kernels.LAUNCHES[name] > before[name], name
+
+
+# the ring kernels' shapes: small and ragged rows (n % 32 != 0, n % 4 in
+# {0, 1, 2, 3}), the shift tile's edges, and W = 128 at small n
+RING_SHAPES = ([(w, n) for w in (1, 8) for n in (1, 5, 42, 4097, 4099,
+                                                 (1 << 16) + 3)]
+               + SHIFT_EDGES + [(128, 5), (128, 4096)])
+
+
+def _tree_tables(rng, slots, rows):
+    """The table shapes the modes build: make_delayed's two ungated
+    terms, the nemesis's two gated ones, make_edge_delayed's 2 |V| (here
+    |V| = 3), a 21-entry random table (two launches) and one with entries
+    dropped (a subset)."""
+    rand = [(int(rng.integers(0, slots)), int(rng.integers(0, 2)),
+             int(rng.integers(-1, rows))) for _ in range(21)]
+    return [[(0, 0, -1), (2, 1, -1)], [(1, 0, 0), (0, 1, 1)],
+            [(v, kind, 2 * v + kind) for v in range(3) for kind in (0, 1)],
+            rand, [e for e in rand if e[0] != 1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("w,n", RING_SHAPES)
+def test_cuda_ring_kernels_match_plain(cuda_device, w, n, offset):
+    # tree_ring_exchange at every branching over every table shape, and
+    # shift_ring_exchange in every shift mode with and without rows, at
+    # one and three times the directions (more than 16 rows: two or more
+    # launches), at the wrapper's tile and ODD_TILE; ring and rows on
+    # views 4 bytes into their allocation (offset 1)
+    rng = np.random.default_rng(n + w + offset)
+    ring = _bits((3, w, n), 5 * n + w, cuda_device)
+    rk = _at_offset(ring, offset)
+    live = _bits((48, kernels.packed_words(n)), n + 9, cuda_device)
+    before = dict(kernels.LAUNCHES)
+    tree_launches = 0
+    for k in MASKED_BRANCHINGS:
+        for table in _tree_tables(rng, 3, 6):
+            got = kernels.tree_ring_exchange(
+                rk, table, _at_offset(live[:6], offset), k)
+            assert torch.equal(got, kernels.tree_ring_exchange_plain(
+                ring, table, live[:6], k)), (k, table)
+            tree_launches += -(-len(table) // kernels.MAX_RING_ENTRIES)
+    shift_launches = 0
+    for topo, kw in _shift_modes(n):
+        dirs = structured.shift_dirs(topo, n, **kw)
+        for reps in (1, 3):
+            rows = len(dirs.offs) * reps
+            table = kernels.ShiftDirs(
+                dirs.offs * reps, dirs.flags * reps, dirs.cols,
+                tuple(int(s) for s in rng.integers(0, 3, rows)))
+            lv = _at_offset(live[:rows], offset)
+            for rows_on in (False, True):
+                want = kernels.shift_ring_exchange_plain(
+                    ring, table, live[:rows] if rows_on else None)
+                for tile in (kernels.SHIFT_TILE, ODD_TILE):
+                    got = kernels.shift_ring_exchange(
+                        rk, table, lv if rows_on else None, max_tile=tile)
+                    assert torch.equal(got, want), (topo, reps, rows_on,
+                                                    tile)
+                    shift_launches += -(-rows // kernels.MAX_DIRS)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tree_ring_exchange"] \
+        == before["tree_ring_exchange"] + tree_launches
+    assert kernels.LAUNCHES["shift_ring_exchange"] \
+        == before["shift_ring_exchange"] + shift_launches
+    # an empty table gives zeros and launches nothing
+    assert not kernels.tree_ring_exchange(ring, [], None).any()
+    assert not kernels.shift_ring_exchange(
+        ring, kernels.ShiftDirs((), (), 0, ())).any()
+    assert kernels.LAUNCHES["tree_ring_exchange"] \
+        == before["tree_ring_exchange"] + tree_launches
+
+
+def _assert_ring_runs_equal(runs):
+    """:func:`_assert_runs_equal` for delay modes: the states' rings too."""
+    (r_cpu, f_cpu, x_cpu), (r_gpu, f_gpu, x_gpu) = runs
+    assert r_cpu == r_gpu
+    for a, b in ((f_cpu, f_gpu), (x_cpu, x_gpu)):
+        for i in (0, 1, 5):
+            np.testing.assert_array_equal(a[i], b[i])
+        assert a[2:5] == b[2:5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo,kw", [
+    ("tree", {}), ("grid", {}), ("ring", {}), ("line", {}),
+    ("circulant", {"strides": [1, 5, 77, 901]})])
+def test_cuda_delay_modes_match_cpu_sim(cuda_device, topo, kw):
+    # per-direction classes (ledger on), random per-edge delays alone and
+    # under a partition window, the nemesis's dir_delays, and the gather
+    # ring on the same graph: the card against the CPU
+    n, nv = 4097, 64
+    inject = broadcast.make_inject(n, nv)
+    group = np.random.default_rng(7).integers(0, 2, (1, n))
+    parts = broadcast.Partitions.from_numpy([2], [9], group)
+    nbrs = timing._nbrs_for(topo, n, **kw)
+    d = 2 if topo == "tree" else len(structured.shift_dirs(topo, n, **kw).offs)
+    dd = tuple(1 + i % 3 for i in range(d))
+    rows = np.random.default_rng(11).choice([1, 3], (d, n), p=[0.7, 0.3])
+    ex = structured.make_exchange(topo, n, **kw)
+    before = dict(kernels.LAUNCHES)
+    sims = [
+        lambda dev: broadcast.BroadcastSim(
+            nbrs, n_values=nv, sync_every=6, exchange=ex,
+            sync_diff=structured.make_sync_diff(topo, n, **kw),
+            delayed=structured.make_delayed(topo, n, dd, **kw), device=dev),
+        lambda dev: broadcast.BroadcastSim(
+            nbrs, n_values=nv, sync_every=6, exchange=ex,
+            edge_delayed=structured.make_edge_delayed(topo, n, rows, **kw),
+            device=dev),
+        lambda dev: broadcast.BroadcastSim(
+            nbrs, n_values=nv, sync_every=6, exchange=ex, parts=parts,
+            edge_delayed=structured.make_edge_delayed_faulted(
+                topo, n, rows, group, **kw), device=dev),
+        lambda dev: broadcast.BroadcastSim(
+            nbrs, n_values=nv, sync_every=6, parts=parts, device=dev,
+            delays=structured.gather_delays_from_rows(topo, n, rows, nbrs,
+                                                      **kw))]
+    spec = faults.NemesisSpec(n_nodes=n, seed=3,
+                              crash=((2, 9, tuple(range(0, n, 11))),),
+                              loss_rate=0.1, loss_until=10, dup_rate=0.05,
+                              dup_until=10)
+    sims.append(lambda dev: broadcast.BroadcastSim(
+        nbrs, n_values=nv, sync_every=4, srv_ledger=False, parts=parts,
+        exchange=ex, fault_plan=spec.compile(dev), device=dev,
+        nemesis=structured.make_nemesis(topo, n, spec, groups=group,
+                                        dir_delays=dd, device=dev, **kw)))
+    for make in sims:
+        _assert_ring_runs_equal(_run_both(make, inject))
+    ring = "tree_ring_exchange" if topo == "tree" else "shift_ring_exchange"
+    for name in (ring, "gather_or", "wm_fault_coins"):
+        assert kernels.LAUNCHES[name] > before[name], name

@@ -201,23 +201,30 @@ def test_flood_step_matches_reference(n_windows, srv):
 
 
 def test_flood_step_unported_modes_raise():
-    # the delay and provenance modes raise; the fault modes run (without
+    # the provenance mode raises; the fault and delay modes run (without
     # a plan, dup_on and union_block leave the round as it is, as in the
-    # reference)
+    # reference; without delays so does a delay_set, and one-round delays
+    # on a state with its ring deliver what the one-hop round does)
     nbrs = torch.from_numpy(_nbrs("tree"))
     inject = jbc.make_inject(N, 40)
     state = pbc.state_from_numpy(inject, inject, 0, 0, None, "cpu",
                                  words_major=False)
     kw = dict(nbrs=nbrs, nbr_mask=nbrs >= 0, parts=pbc.Partitions.none(N),
               sync_every=3)
-    for mode in ({"delays": object()}, {"delay_set": (1, 2)},
-                 {"prov": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pbc.flood_step(state, **kw, **mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pbc.flood_step(state, **kw, prov=object())
     plain = pbc.flood_step(state, **kw)
-    for mode in ({"dup_on": True}, {"union_block": 8},
-                 {"plan": None, "dup_on": True, "union_block": 8}):
-        got = pbc.flood_step(state, **kw, **mode)
+    ring = pbc.state_from_numpy(inject, inject, 0, 0, None, "cpu",
+                                words_major=False,
+                                history=np.zeros((1,) + inject.shape,
+                                                 np.uint32))
+    for st, mode in ((state, {"dup_on": True}), (state, {"union_block": 8}),
+                     (state, {"plan": None, "dup_on": True,
+                              "union_block": 8}),
+                     (state, {"delay_set": (1, 2)}),
+                     (ring, {"delays": torch.ones(nbrs.shape,
+                                                  dtype=torch.int32)})):
+        got = pbc.flood_step(st, **kw, **mode)
         assert torch.equal(got.received, plain.received)
         assert int(got.msgs) == int(plain.msgs)
 

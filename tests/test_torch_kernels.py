@@ -17,6 +17,7 @@ from jax import lax
 from gossip_glomers_tpu.tpu_sim import broadcast as jbc
 from gossip_glomers_tpu.tpu_sim import structured as jst
 from gossip_glomers_tpu_torch.tpu_sim import kernels
+from gossip_glomers_tpu_torch.tpu_sim import structured as pst
 
 
 def _u32(shape, seed):
@@ -246,3 +247,156 @@ def test_tree_masked_warp_bits_match_plain_and_reference(w, n, k):
     np.testing.assert_array_equal(
         same, np.asarray(jst.tree_masked_exchange(jnp.asarray(x),
                                                   jnp.asarray(lv), k)))
+
+
+# -- the ring modes ------------------------------------------------------
+
+
+def _ring_case(seed: int, slots: int, w: int, n: int, rows: int):
+    """(ring (slots, W, N), packed rows (rows, ceil(N/32))) from ``seed``;
+    the rows' bits past N random too."""
+    return (_torch(_u32((slots, w, n), seed)),
+            _torch(_u32((rows, kernels.packed_words(n)), seed + 1)))
+
+
+def _ones_row(n: int) -> torch.Tensor:
+    return kernels.pack_bits(torch.ones(n, dtype=torch.bool))
+
+
+def _tree_composition(ring, table, live, k):
+    """The tree ring inbox as |V| masked exchanges ORed: each entry one
+    tree_masked_exchange_plain of its slot, the other term's row zero."""
+    n = ring.shape[2]
+    zero = torch.zeros(kernels.packed_words(n), dtype=torch.int32)
+    out = torch.zeros(ring.shape[1:], dtype=torch.int32)
+    for slot, kind, row in table:
+        gate = _ones_row(n) if row < 0 else live[row]
+        parent, kids = ((gate, zero) if kind == kernels.TREE_PARENT
+                        else (zero, gate))
+        out |= kernels.tree_masked_exchange_plain(ring[slot], parent, kids, k)
+    return out
+
+
+def _shift_composition(ring, dirs, live):
+    """The shift ring inbox as one exchange a row, ORed: the masked
+    exchange of its slot over the row's one direction (the unmasked one
+    without rows)."""
+    out = torch.zeros(ring.shape[1:], dtype=torch.int32)
+    for d, slot in enumerate(dirs.slots):
+        one = kernels.ShiftDirs((dirs.offs[d],), (dirs.flags[d],), dirs.cols)
+        out |= (kernels.shift_exchange_plain(ring[slot], one) if live is None
+                else kernels.shift_masked_exchange_plain(
+                    ring[slot], live[d:d + 1].contiguous(), one))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 100, 4097])
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_tree_ring_twin_matches_masked_composition(n, k):
+    rng = np.random.default_rng(n * 31 + k)
+    ring, live = _ring_case(n + k, 3, 2, n, 6)
+    before = dict(kernels.LAUNCHES)
+    # random slots, kinds and rows (-1: ungated); 21 entries run as two
+    # launches on the card
+    table = [(int(rng.integers(0, 3)), int(rng.integers(0, 2)),
+              int(rng.integers(-1, 6))) for _ in range(21)]
+    for tab in (table[:2], table[:5], table):
+        assert torch.equal(kernels.tree_ring_exchange(ring, tab, live, k),
+                           _tree_composition(ring, tab, live, k))
+    # ungated, no live tensor at all
+    bare = [(s, kind, -1) for s, kind, _ in table[:4]]
+    assert torch.equal(kernels.tree_ring_exchange(ring, bare, None, k),
+                       _tree_composition(ring, bare, live, k))
+    # entries dropped on the host (send round below 0) deliver what their
+    # slots would as zeros
+    kept = [e for e in table if e[0] != 1]
+    zeroed = ring.clone()
+    zeroed[1] = 0
+    assert torch.equal(kernels.tree_ring_exchange(ring, kept, live, k),
+                       kernels.tree_ring_exchange(zeroed, table, live, k))
+    empty = kernels.tree_ring_exchange(ring, [], None, k)
+    assert empty.shape == (2, n) and not empty.any()
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [5, 64, 257, 4097])
+@pytest.mark.parametrize("mode", ["circulant", "ring", "line", "grid"])
+def test_shift_ring_twin_matches_masked_composition(mode, n):
+    rng = np.random.default_rng(n + len(mode))
+    kw = {"circulant": {"strides": [1, 2, 7] if n > 14 else [1]},
+          "grid": {"cols": max(1, int(np.sqrt(n)) - 1)}}.get(mode, {})
+    dirs = pst.shift_dirs(mode, n, **kw)
+    before = dict(kernels.LAUNCHES)
+    for reps in (1, 3):       # 18 circulant rows run as two launches
+        rows = len(dirs.offs) * reps
+        ring, live = _ring_case(n + reps, 3, 3, n, rows)
+        table = kernels.ShiftDirs(
+            dirs.offs * reps, dirs.flags * reps, dirs.cols,
+            tuple(int(s) for s in rng.integers(0, 3, rows)))
+        for lv in (None, live):
+            assert torch.equal(kernels.shift_ring_exchange(ring, table, lv),
+                               _shift_composition(ring, table, lv))
+        # rows dropped on the host deliver what their slots would as
+        # zeros
+        keep = [d for d in range(rows) if table.slots[d] != 2]
+        kept = kernels.ShiftDirs(tuple(table.offs[d] for d in keep),
+                                 tuple(table.flags[d] for d in keep),
+                                 table.cols,
+                                 tuple(table.slots[d] for d in keep))
+        zeroed = ring.clone()
+        zeroed[2] = 0
+        assert torch.equal(
+            kernels.shift_ring_exchange(ring, kept, live[keep].contiguous()),
+            kernels.shift_ring_exchange(zeroed, table, live))
+    none = kernels.shift_ring_exchange(
+        ring, kernels.ShiftDirs((), (), dirs.cols, ()))
+    assert none.shape == (3, n) and not none.any()
+    assert kernels.LAUNCHES == before
+
+
+def test_ring_plan_keys_windows_by_slot():
+    # a window belongs to one ring slot: directions within a tile of each
+    # other merge only within a slot, and the plan ends with each
+    # window's slot
+    n = 1 << 20
+    dirs = pst.shift_dirs("ring", n)
+    one = kernels.shift_windows(dirs, n, 2048)
+    assert len(one) == 1 and one[0].slot == 0
+    table = kernels.ShiftDirs(dirs.offs * 2, dirs.flags * 2, dirs.cols,
+                              (0, 0, 1, 2))
+    wins = kernels.shift_windows(table, n, 2048)
+    assert [(w.slot, w.dirs) for w in wins] == [(0, (0, 1)), (1, (2,)),
+                                               (2, (3,))]
+    words, count = kernels._shift_plan(table, n, False, live=True)
+    words = list(words)
+    n_win, n_dirs = words[5], words[6]
+    assert count == 8 + 4 * n_win + 3 * n_dirs + n_win
+    assert words[-n_win:] == [0, 1, 2]
+    # the one-source plan keeps its layout, and its wrappers refuse a ring
+    # table
+    assert kernels._shift_plan(dirs, n, False)[1] == 8 + 4 + 3 * 2
+    with pytest.raises(ValueError, match="shift_ring_exchange"):
+        kernels._one_source(table)
+
+
+def test_ring_wrappers_check_their_operands():
+    ring, live = _ring_case(1, 2, 1, 40, 4)
+    with pytest.raises(ValueError, match="slot"):
+        kernels.tree_ring_exchange(ring, [(2, 0, -1)], live)
+    with pytest.raises(ValueError, match="kind"):
+        kernels.tree_ring_exchange(ring, [(0, 2, -1)], live)
+    with pytest.raises(ValueError, match="row"):
+        kernels.tree_ring_exchange(ring, [(0, 0, 4)], live)
+    with pytest.raises(ValueError, match="packed"):
+        kernels.tree_ring_exchange(ring, [(0, 0, 0)], live[:, :1])
+    with pytest.raises(ValueError, match=r"\(L, W, N\)"):
+        kernels.tree_ring_exchange(ring[0], [(0, 0, -1)])
+    dirs = pst.shift_dirs("line", 40)
+    with pytest.raises(ValueError, match="slot"):
+        kernels.shift_ring_exchange(ring, dirs)
+    with pytest.raises(ValueError, match="slot"):
+        kernels.shift_ring_exchange(ring, kernels.ShiftDirs(
+            dirs.offs, dirs.flags, 0, (0, 5)))
+    with pytest.raises(ValueError, match="packed"):
+        kernels.shift_ring_exchange(ring, kernels.ShiftDirs(
+            dirs.offs, dirs.flags, 0, (0, 1)), live)

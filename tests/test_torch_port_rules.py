@@ -127,11 +127,21 @@ def test_unported_modes_raise():
                    "tree", 8, spec, device="cpu")}):
         assert broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
                                       device="cpu", **kw).words_major
-    for mode in ("mesh", "delays", "delayed", "edge_delayed", "dcn_mode",
-                 "sharded_exchange", "sharded_sync_diff"):
+    for mode in ("mesh", "dcn_mode", "sharded_exchange",
+                 "sharded_sync_diff"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
                                    device="cpu", **{mode: object()})
+    # the delay modes run: per-edge delays on the gather path, the delay
+    # bundles on the structured path
+    assert broadcast.BroadcastSim(
+        nbrs, n_values=4, device="cpu",
+        delays=np.full(nbrs.shape, 2, np.int32)).ring == 2
+    for kw in ({"delayed": structured.make_delayed("tree", 8, (1, 3))},
+               {"edge_delayed": structured.make_edge_delayed(
+                   "tree", 8, np.full((2, 8), 2, np.int32))}):
+        assert broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
+                                      device="cpu", **kw).words_major
     # the reference's own refusal: slab blocking is the gather path's
     with pytest.raises(ValueError, match="gather-free"):
         broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",

@@ -320,11 +320,14 @@ def test_nemesis_error_paths():
     with pytest.raises(ValueError, match="crash masks"):
         pbc.BroadcastSim(nbrs, n_values=8, exchange=pex, device="cpu",
                          nemesis=pnem, fault_plan=crash.compile("cpu"))
-    # not ported: per-direction delays and the halo closures
+    # per-direction delays build their ring bundle; the halo closures
+    # are not ported
     with pytest.raises(ValueError, match="direction delays"):
         pst.make_nemesis("grid", n, pspec, dir_delays=(1, 2), **dev)
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        pst.make_nemesis("grid", n, pspec, dir_delays=(1, 2, 1, 1), **dev)
+    delayed = pst.make_nemesis("grid", n, pspec, dir_delays=(1, 2, 1, 1),
+                               **dev)
+    assert delayed.dir_delays == (1, 2, 1, 1) and delayed.ring == 2
+    assert delayed.ring_exchange is not None
     with pytest.raises(NotImplementedError, match="item 10"):
         pst.make_nemesis("grid", n, pspec, n_shards=2, **dev)
     assert pst.make_nemesis("random", n, pspec, **dev) is None
