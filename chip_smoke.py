@@ -33,9 +33,11 @@ flood at 1,048,576 nodes, on every topology the port runs:
    at n % 4 in {0, 1, 2, 3}, k = 4 and 3, W = 1 and 128, on 4-byte-offset
    views; the ring kernels (``tree_ring_exchange``,
    ``shift_ring_exchange``) on random 3-slot rings and rows, over every
-   table shape the delay modes build (the tree's, every shift mode's,
-   past 16 rows, rows dropped), at the small shapes, n % 4 in {0, 1, 2,
-   3}, the main shapes and 4-byte-offset views — and each one's median
+   table shape the delay modes build (the tree's, every shift mode's as
+   two delay classes and up to 24 rows, rows dropped), at the small
+   shapes, n % 4 in {0, 1, 2, 3} (the tree's four nodes a thread and a
+   node a thread), the main shapes and 4-byte-offset views — and each
+   one's median
    time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
    the masked shift kernel also at smaller tile caps; the coins on the
@@ -128,7 +130,11 @@ measured), and stderr says what each profile missed.  A kernel's
 zero fill and casts).
 
 Each phase prints one JSON line, after a ``card`` line (the card's name,
-power limit, SM clock and the integer rate it gives).  Kernel launch
+power limit, SM clock and the integer rate it gives); the kernels'
+timing adds a ``ring_plan`` line at each main shape (the shift ring
+plan's tile, stages, stage bytes and windows, and its L2-delivery
+floor: windows x slot bytes at L2_BYTES_PER_S, a constant of an earlier
+probe, not a measurement of this run).  Kernel launch
 counts are zeroed just before each main-path phase and read just after.
 Then come the card's name and power limit (``nvidia-smi``), one
 ``{"kernels": [...]}`` line
@@ -220,6 +226,8 @@ LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 # plan tile caps at which shift_masked_exchange is also timed (the
 # wrapper's, kernels.SHIFT_TILE, first)
 MASKED_TILES = (2048, 1024, 512)
+# what the L2 delivered to the SMs in an L2 probe on an H100 (PERF.md)
+L2_BYTES_PER_S = 5.33e12
 
 
 def emit(obj: dict) -> None:
@@ -654,10 +662,12 @@ def check_ring(kernels, structured, topology, note, w: int, n: int,
                seed: int, device, offset: int = 0) -> None:
     """Both ring kernels against their twins on one random (3, W, N) ring
     and random packed rows: the tree's tables (:func:`ring_tree_tables`,
-    k = 4 and 3), every shift mode's directions at once and three times
-    over (past 16 rows), with random slots, with and without rows, and
-    with the rows of slot 1 dropped; ring and rows ``offset`` words into
-    their allocation."""
+    k = 4 and 3: four nodes a thread on an aligned ring with n % 4 == 0,
+    else a node a thread), every shift mode's directions at once, as two
+    delay classes (slots 2 and 0: the edge-delayed table, a group a
+    slot) and three times over (24 rows, one launch), with random slots,
+    with and without rows, and with the rows of slot 1 dropped; ring and
+    rows ``offset`` words into their allocation."""
     import numpy as np
     import torch
 
@@ -676,9 +686,11 @@ def check_ring(kernels, structured, topology, note, w: int, n: int,
                 kernels.tree_ring_exchange_plain(ring, table, live[:6], k)))
     for _, topo, kw in shift_modes(n, topology):
         dirs = structured.shift_dirs(topo, n, **kw)
-        for reps in (1, 3):
-            slots = tuple(int(x) for x in
-                          rng.integers(0, 3, len(dirs.offs) * reps))
+        for reps in (1, 2, 3):
+            slots = (tuple(int(x) for x in
+                           rng.integers(0, 3, len(dirs.offs) * reps))
+                     if reps != 2 else
+                     (2,) * len(dirs.offs) + (0,) * len(dirs.offs))
             keep = [d for d, x in enumerate(slots) if x != 1]
             for sel in (list(range(len(slots))), keep):
                 table = kernels.ShiftDirs(
@@ -695,8 +707,9 @@ def check_ring(kernels, structured, topology, note, w: int, n: int,
 
 
 # the ring kernels' shapes besides CHECK_SHAPES and MAIN_SHAPES: n % 4 in
-# {0, 2} (CHECK_SHAPES' n hold 1 and 3)
-RING_SHAPES = [(1, 4096), (8, 4098)]
+# {0, 2} (CHECK_SHAPES' n hold 1 and 3); n % 4 == 0 takes the tree's four
+# nodes a thread, also where no quad has all its children (n < 16)
+RING_SHAPES = [(1, 4096), (8, 4098), (1, 12), (8, 20), (128, 4), (1, 65540)]
 
 
 def check_kernels(kernels, structured, topology, device) -> dict:
@@ -1184,6 +1197,16 @@ def time_ring_kernels(kernels, structured, out, gen, strides, device):
                 "composition_device_ms": None if masked_ms is None
                 else launches * masked_ms})
             out[name][(w, n)] = rec
+        # the shift ring plan on a line of its own: its tile, stages and
+        # windows; each payload word crosses from L2 to the SMs once a
+        # window (the floor above the bytes bound at the L2 probe's rate)
+        plan = list(kernels._shift_plan(rtable, n, False, kernels.SHIFT_TILE,
+                                        True)[0])
+        emit({"phase": "ring_plan", "kernel": "shift_ring_exchange",
+              "at": [w, n], "table_rows": len(terms_c), "tile": plan[0],
+              "stages": plan[1], "stage_bytes": 4 * plan[2],
+              "windows": plan[5],
+              "l2_floor_ms": plan[5] * 4 * words / L2_BYTES_PER_S * 1e3})
         del ring
         torch.cuda.empty_cache()
 

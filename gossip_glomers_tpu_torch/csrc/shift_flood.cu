@@ -100,21 +100,37 @@
 // a sign-bit shift in place of the bit's shift, AND and negation changed
 // nothing (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py time_kernels).
 //
-// The ring mode (gg_shift_ring_exchange, per-hop latency).  Replaces the
-// XLA code of the reference's delayed shift deliveries (structured.py
-// _delayed_impl :1038 and make_edge_delayed :1335, and _round_wm_nem's
-// delayed branch, broadcast.py:858-881): each row of the direction table
-// reads its own slot of the (L, W, N) payload ring (its send round's
-// payload), under its own optional liveness row (a row a (direction,
-// delay class): the circulant's 8 directions x 2 classes are 16 rows).
-// It is the exchange kernel with a source offset a window: the host
-// merges directions into a window only within one slot
-// (kernels.shift_windows keys on (slot, wrap)), and the plan ends with
-// each window's slot; the producer copies window k from slot soff[k].
-// More windows make a larger stage, so _shift_plan halves the tile until
-// the stages fit.  A table of more than 16 rows is split by the wrapper
-// and the inboxes ORed.  Bound: the bytes, each slot read once, each row
-// once, the inbox written once.
+// The ring mode (gg_shift_ring_exchange, per-hop latency).  Replaces the XLA
+// code of the reference's delayed shift deliveries (structured.py
+// _delayed_impl :1038 and make_edge_delayed :1335, and _round_wm_nem's delayed
+// branch, broadcast.py:858-881): each row of the direction table reads its own
+// slot of the (L, W, N) payload ring (its send round's payload), under its own
+// optional liveness row (a row a (direction, delay class): the circulant's 8
+// directions x 2 classes are 16 rows).  Bound: the bytes, each slot read once,
+// each row once, the inbox written once; above it, L2-to-SM delivery, each
+// slot's payload word once per window of that slot.  A window belongs to one
+// slot (kernels.shift_windows keys on (slot, wrap)), so the 16 rows make 14
+// windows.  The unit of the stage ring is (tile, group): the host groups
+// the rows by slot (kernels.shift_groups, at most 16 a group), each group
+// with its windows and its rows' slices, and the producer stages one group
+// a stage — one slot's masked exchange, 59,648 bytes at the 2048-node tile,
+// so two stages fit and the tile stays 2048 (staging all of a tile's slots
+// at once overflows shared memory at that tile).  The consumers keep the
+// tile's inbox words in registers across its groups, OR each group's terms
+// in, release its stage, and store the words once, with the tile's last
+// group; so the plan caps the tile at one consumer pass (kUnroll 8 x 256
+// consumers: 2048 nodes).  Up to 32 rows run in one launch (the 3-class
+// circulant's 24); the wrapper splits a longer table and ORs the inboxes.
+// A one-source plan is one group, with the same plan words, tile and
+// stages as the ring's one-slot case.  Its kernels are compiled apart
+// (kRing false: the group's indices are constants), and the producer
+// counts its stage and group rather than dividing the unit index: both
+// keep the one-source kernels at their own speed.  The ring kernel takes
+// 0.0187 ms at (1, 2^20) and 1.851 ms at (128, 2^20), 23% and 26% of its
+// bound and 59% and 76% of the L2 floor (14 windows of a slot at the L2
+// probe's 5.33 TB/s: 0.0110 / 1.410 ms); the two masked launches it
+// replaces take 0.0217 / 1.844 ms on the device (NVIDIA H100 80GB HBM3,
+// 700.00 W, chip_smoke.py time_kernels).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -124,8 +140,11 @@ namespace {
 constexpr int kConsumers = 256;              // 8 warps read the stages
 constexpr int kThreads = kConsumers + 32;    // and one warp fills them
 constexpr int kUnroll = 8;                   // words a consumer thread
-                                             // takes per pass
-constexpr int kMaxDirs = 16;
+                                             // takes per tile
+constexpr int kMaxTile = kConsumers * kUnroll;  // one pass covers a tile
+constexpr int kMaxDirs = 16;   // directions of a group (the consumers' N)
+constexpr int kMaxRows = 32;   // directions (ring-table rows) of a plan
+constexpr int kMaxGroups = kMaxRows;
 constexpr int kMaxStages = 4;
 // dynamic shared memory a block may ask for: the card's 227 KB less room
 // for the static barriers and descriptors
@@ -136,54 +155,69 @@ constexpr int kMaskLeft = 2;   // only where i % cols < cols - 1
 constexpr int kMaskRight = 4;  // only where i % cols > 0
 
 // The staging plan of one direction table at one n (kernels.py,
-// _shift_plan): windows, where each sits in a stage, and per direction
-// its window's lo and shared-memory offset (so the device never indexes
-// one table by another).  The directions are padded to a power of two
-// with copies of direction 0 (the OR absorbs them).
+// _shift_plan): windows, where each sits in its group's stage, per
+// direction its window's lo and shared-memory offset (so the device never
+// indexes one table by another), and the groups.  A group is the unit a
+// stage holds: a run of windows of one source (one ring slot) and the
+// directions that read them, at most kMaxDirs; a one-source plan is one
+// group.  The consumers pad a group's directions to a power of two with
+// copies of its first (the OR absorbs them).
 struct Plan {
-  int64_t lo[kMaxDirs];     // window k stages [i0 + lo, i0 + lo + span + tl)
-  int64_t dlo[kMaxDirs];    // lo of direction d's window
+  int64_t lo[kMaxRows];     // window k stages [i0 + lo, i0 + lo + span + tl)
+  int64_t dlo[kMaxRows];    // lo of direction e's window
+  int64_t gsoff[kMaxGroups];  // group g's source: word slot * W * N of the
+                              // (L, W, N) ring (0 for one source)
   int64_t cols;             // grid width (0: no column masks)
-  int32_t span[kMaxDirs];   // window k: hi - lo
-  int32_t wrap[kMaxDirs];   // window k: 1 = mod n, 0 = zero fill
-  int32_t dwrap[kMaxDirs];  // direction d: its window's wrap
-  int32_t at[kMaxDirs];     // window k: word offset in a stage (x4)
-  int32_t dat[kMaxDirs];    // direction d: its window's offset in a stage
-  int32_t ddelta[kMaxDirs]; // direction d: o_d - lo of its window
-  int32_t dmask[kMaxDirs];  // direction d: column-mask flags
-  int32_t dlive[kMaxDirs];  // direction d: its liveness row (padding: 0)
-  int32_t n_win, n_dirs;    // n_dirs padded; 0 when the table is empty
-  int32_t tile;             // nodes per tile, 1 <= tile <= n
-  int32_t stages;           // tiles in flight per block
+  int64_t src_words;        // words of the source tensor (L * W * N)
+  int32_t span[kMaxRows];   // window k: hi - lo
+  int32_t wrap[kMaxRows];   // window k: 1 = mod n, 0 = zero fill
+  int32_t at[kMaxRows];     // window k: word offset in a stage (x4)
+  int32_t dwrap[kMaxRows];  // direction e: its window's wrap
+  int32_t dat[kMaxRows];    // direction e: its window's offset in a stage
+  int32_t ddelta[kMaxRows]; // direction e: o_e - lo of its window
+  int32_t dmask[kMaxRows];  // direction e: column-mask flags
+  int32_t dlive[kMaxRows];  // direction e: its liveness row
+  int32_t gwin[kMaxGroups];   // group g: its first window
+  int32_t gnwin[kMaxGroups];  // group g: its windows
+  int32_t gdir[kMaxGroups];   // group g: its first direction
+  int32_t gndir[kMaxGroups];  // group g: its directions
+  int32_t glive[kMaxGroups];  // group g: its liveness slots' offset in a
+                              // stage (x4; -1: the plan stages none)
+  int32_t n_win, n_rows, n_groups;
+  int32_t n_dirs;           // the largest group's directions, padded to a
+                            // power of two (the template N); 0: no direction
+  int32_t tile;             // nodes per tile, 1 <= tile <= min(n, kMaxTile)
+  int32_t stages;           // (tile, group) units in flight per block
   int32_t stage_words;      // words of one stage (x4)
   int32_t rec_at;           // received's offset in a stage (fused round)
-  int32_t live_at;          // the liveness slices' offset in a stage (x4;
-                            // -1: the plan stages none)
   int32_t live_slot;        // words a liveness row's slice slot (x4)
-  int32_t n_live;           // liveness rows staged: the real directions
-  // ring mode: window k's source is ring slot k's (W, N) block, at word
-  // soff[k] = slot * W * N of the (L, W, N) ring; 0 for one source
-  int64_t soff[kMaxDirs];
-  int64_t dsoff[kMaxDirs];  // direction d: its window's soff
-  int64_t src_words;        // words of the source tensor (L * W * N)
+  int32_t n_live;           // rows of the liveness tensor: the directions
 };
 
 // host layout of the plan (int64 words), mirrored by kernels.py: a head
-// of tile, stages, stage_words, rec_at, cols, n_win, n_dirs, live_at; per
-// window lo, span, wrap, at; per direction window, delta, mask; in ring
-// mode then per window its ring slot.  The liveness slots fill the stage
-// from live_at to its end, one a real direction.
+// of tile, stages, stage_words, rec_at, cols, n_win, n_rows, live_at; per
+// window lo, span, wrap, at; per direction window, delta, mask.  A
+// one-source plan ends there: one group, its liveness slots from live_at
+// to the stage's end, one a direction.  A ring plan goes on with the
+// number of groups, a liveness slot's words (0: none), per group its ring
+// slot, first window, windows, first direction, directions and liveness
+// offset, and per direction its liveness row.
 constexpr int kPlanHead = 8;
 constexpr int kWinWords = 4;
 constexpr int kDirWords = 3;
+constexpr int kGroupWords = 6;
 
-// What the producer tells the consumers about the tile in one stage.
+// What the producer tells the consumers about the (tile, group) unit in
+// one stage: for each of the group's directions, padded to the plan's
+// n_dirs, where its words and its liveness slice landed and its mask flags.
 struct Desc {
   int32_t sd[kMaxDirs];  // direction d's first word in the stage
   int32_t sl[kMaxDirs];  // direction d's liveness slice in the stage
+  int32_t mk[kMaxDirs];  // direction d's column-mask flags
   int32_t rec;           // received's first word in the stage
-  uint32_t slow;         // bit k: window k to fill word by word; bit 16 +
-                         // r: liveness row r; bit 31: received
+  uint32_t slow;         // bit k: the group's window k to fill word by
+                         // word; bit 16 + r: its liveness row r; bit 31:
+                         // received
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -309,12 +343,16 @@ __device__ __forceinline__ Walk walk(int64_t w, int64_t n, int32_t tile) {
   return k;
 }
 
-// The producer warp: for each of this block's tiles, once its stage is
-// free, lane k works out window k (lane 31 the received tile, lane 16 + r
-// liveness row r's slice) and the descriptor, lane 0 arms the stage's
-// full barrier with the bytes the copies will bring, and each lane starts
-// its copies.
-template <bool kFused, bool kLive>
+// The producer warp: for each of this block's (tile, group) units in
+// order (a tile's groups one after another), once its stage is free, lane
+// k works out the group's window k (lane 31 the received tile, lane 16 +
+// r the slice of the liveness row of the group's direction r) and lane d
+// the descriptor of the group's direction d; lane 0 writes the descriptor
+// and arms the stage's full barrier with the bytes the copies will bring,
+// and each lane starts its copies.  The stage and its phase are counted,
+// not divided out of a unit index (a 64-bit division a unit, and the
+// producer's work sits between a stage's release and its next copies).
+template <bool kMasked, bool kFused, bool kLive, bool kRing>
 __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
                                         uint64_t* empty, Desc* desc,
                                         const uint32_t* src,
@@ -323,82 +361,105 @@ __device__ __forceinline__ void produce(uint32_t* smem, uint64_t* full,
                                         const Walk& wk, const Plan& p) {
   const int lane = threadIdx.x & 31;
   const int64_t nw = (n + 31) >> 5;
-  for (int64_t k = 0; k < wk.mine; ++k) {
-    const int st = static_cast<int>(k % p.stages);
-    const int64_t use = k / p.stages;
-    if (use > 0) bar_wait(&empty[st], static_cast<uint32_t>(use - 1) & 1u);
-    const TileAt at = tile_at(wk.first + k * wk.step, wk.per_row, n, p.tile);
-    Piece pc{};
-    const bool is_win = lane < p.n_win;
-    const bool is_rec = kFused && lane == 31;
-    const bool is_live = kLive && lane >= 16 && lane - 16 < p.n_live;
-    // the row start of this lane's range in its tensor (a window's in
-    // its ring slot)
-    const int64_t row0 = at.row_start + (is_win ? p.soff[lane] : 0);
-    if (is_win)
-      pc = piece(src, p.src_words, row0, at.i0 + p.lo[lane],
-                 p.span[lane] + at.tl, n, p.wrap[lane] != 0);
-    else if (is_rec)
-      pc = piece(received, wk.total, at.row_start, at.i0, at.tl, n, false);
-    else if (is_live)
-      pc = live_piece(live, p.n_live, nw, lane - 16, at);
-    const bool mine = is_win || is_rec || is_live;
-    const bool copies = mine && pc.fast;
-    const uint32_t slow = __ballot_sync(~0u, mine && !pc.fast);
-    const uint32_t bytes = __reduce_add_sync(~0u, copies ? pc.bytes : 0u);
-    int sd = 0, sl = 0;
-    if (lane < p.n_dirs) {
-      sd = p.dat[lane] + p.ddelta[lane]
-           + piece(src, p.src_words, at.row_start + p.dsoff[lane],
-                   at.i0 + p.dlo[lane], 0, n, p.dwrap[lane] != 0).ph;
-      if (kLive)
-        sl = p.live_at + p.dlive[lane] * p.live_slot
-             + live_piece(live, p.n_live, nw, p.dlive[lane], at).ph;
-    }
-    const int rec = __shfl_sync(~0u, p.rec_at + pc.ph, 31);
-    for (int d = 0; d < p.n_dirs; ++d) {
-      const int v = __shfl_sync(~0u, sd, d);
-      if (lane == 0) desc[st].sd[d] = v;
-      if (kLive) {
-        const int u = __shfl_sync(~0u, sl, d);
-        if (lane == 0) desc[st].sl[d] = u;
+  const int groups = kRing ? p.n_groups : 1;
+  int st = 0;                               // the next unit's stage
+  uint32_t lap = 0;                         // and how often it was used
+  for (int64_t kt = 0; kt < wk.mine; ++kt) {
+    const TileAt at = tile_at(wk.first + kt * wk.step, wk.per_row, n, p.tile);
+    for (int g = 0; g < groups; ++g) {
+      if (lap > 0) bar_wait(&empty[st], (lap - 1) & 1u);
+      // the group's windows and directions (one source: all of them)
+      const int ndir = kRing ? p.gndir[g] : p.n_rows;
+      const int win0 = kRing ? p.gwin[g] : 0;
+      const int dir0 = kRing ? p.gdir[g] : 0;
+      const int live0 = kRing ? p.glive[g] : p.glive[0];
+      const bool is_win = lane < (kRing ? p.gnwin[g] : p.n_win);
+      const bool is_rec = kFused && lane == 31;
+      const bool is_live = kLive && lane >= 16 && lane - 16 < ndir;
+      const int kw = win0 + (is_win ? lane : 0);  // this lane's window
+      // the row start of the group's source in its tensor (its ring slot)
+      const int64_t row0 = at.row_start + (kRing ? p.gsoff[g] : 0);
+      Piece pc{};
+      if (is_win)
+        pc = piece(src, p.src_words, row0, at.i0 + p.lo[kw],
+                   p.span[kw] + at.tl, n, p.wrap[kw] != 0);
+      else if (is_rec)
+        pc = piece(received, wk.total, at.row_start, at.i0, at.tl, n, false);
+      else if (is_live)
+        pc = live_piece(live, p.n_live, nw, p.dlive[dir0 + lane - 16], at);
+      const bool mine = is_win || is_rec || is_live;
+      const bool copies = mine && pc.fast;
+      const uint32_t slow = __ballot_sync(~0u, mine && !pc.fast);
+      const uint32_t bytes = __reduce_add_sync(~0u, copies ? pc.bytes : 0u);
+      uint32_t* stage = smem + st * p.stage_words;
+      int sd = 0, sl = 0, mk = 0;
+      if (lane < p.n_dirs) {
+        const int r = lane < ndir ? lane : 0;  // padding: the group's first
+        const int e = dir0 + r;
+        sd = p.dat[e] + p.ddelta[e]
+             + piece(src, p.src_words, row0, at.i0 + p.dlo[e], 0, n,
+                     p.dwrap[e] != 0).ph;
+        if (kMasked) mk = p.dmask[e];
+        if (kLive)
+          sl = live0 + r * p.live_slot
+               + live_piece(live, p.n_live, nw, p.dlive[e], at).ph;
       }
-    }
-    if (lane == 0) {
-      desc[st].rec = rec;
-      desc[st].slow = slow;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(smem_u32(&full[st])), "r"(bytes) : "memory");
-    }
-    __syncwarp();
-    if (copies) {
-      // order the consumers' generic-proxy use of the stage (released
-      // through the empty barrier) before this copy's async-proxy writes
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      uint32_t* dst = smem + st * p.stage_words
-                      + (is_rec    ? p.rec_at
-                         : is_live ? p.live_at + (lane - 16) * p.live_slot
-                                   : p.at[lane]);
-      const uint32_t* from = is_rec ? received : is_live ? live : src;
-      if (pc.head == 0) {
-        bulk_copy(dst, from + (pc.g - pc.ph), pc.bytes, &full[st]);
-      } else {
-        bulk_copy(dst, from + (pc.g - pc.ph), pc.head, &full[st]);
-        bulk_copy(dst + pc.ph + (n - pc.s), from + row0,
-                  pc.bytes - pc.head, &full[st]);
+      const int rec = __shfl_sync(~0u, p.rec_at + pc.ph, 31);
+      for (int d = 0; d < p.n_dirs; ++d) {
+        const int v = __shfl_sync(~0u, sd, d);
+        if (lane == 0) desc[st].sd[d] = v;
+        if (kMasked) {
+          const int f = __shfl_sync(~0u, mk, d);
+          if (lane == 0) desc[st].mk[d] = f;
+        }
+        if (kLive) {
+          const int u = __shfl_sync(~0u, sl, d);
+          if (lane == 0) desc[st].sl[d] = u;
+        }
+      }
+      if (lane == 0) {
+        desc[st].rec = rec;
+        desc[st].slow = slow;
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+            :: "r"(smem_u32(&full[st])), "r"(bytes) : "memory");
+      }
+      __syncwarp();
+      if (copies) {
+        // order the consumers' generic-proxy use of the stage (released
+        // through the empty barrier) before this copy's async-proxy writes
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        uint32_t* dst = stage + (is_rec    ? p.rec_at
+                                 : is_live ? live0 + (lane - 16) * p.live_slot
+                                           : p.at[kw]);
+        const uint32_t* from = is_rec ? received : is_live ? live : src;
+        if (pc.head == 0) {
+          bulk_copy(dst, from + (pc.g - pc.ph), pc.bytes, &full[st]);
+        } else {
+          bulk_copy(dst, from + (pc.g - pc.ph), pc.head, &full[st]);
+          bulk_copy(dst + pc.ph + (n - pc.s), from + row0,
+                    pc.bytes - pc.head, &full[st]);
+        }
+      }
+      if (++st == p.stages) {
+        st = 0;
+        ++lap;
       }
     }
   }
 }
 
-// The consumers: for each tile, wait for its stage, fill what the copies
-// could not stage, then OR the N directions out of the stage, word t by
-// thread t % 256, and release the stage.  kLive: each term is ANDed with
-// its liveness bit, read from the staged slice and spread to a mask (no
-// branch: the N shared loads of a word go out together).  A warp's
-// 32 consecutive words read one or two slice words a direction, which
-// shared memory broadcasts, at any tile start.
-template <int N, bool kMasked, bool kFused, bool kLive>
+// The consumers: for each tile, for each of its groups in turn, wait for the
+// group's stage, fill what the copies could not stage, OR the group's N
+// directions out of the stage into the tile's inbox words (word t by thread t
+// % 256, kUnroll words a thread: one pass covers a tile, so the words stay in
+// registers across the groups; the tile's last group stores them as it ORs
+// them) and release the stage.  kLive: each term is ANDed with its liveness
+// bit, read from the staged slice and spread to a mask (no branch: the N
+// shared loads of a word go out together).  A warp's 32 consecutive words read
+// one or two slice words a direction, which shared memory broadcasts, at any
+// tile start.
+template <int N, bool kMasked, bool kFused, bool kLive, bool kRing>
 __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
                                         uint64_t* empty, const Desc* desc,
                                         const uint32_t* src,
@@ -408,65 +469,73 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
   const int64_t nw = (n + 31) >> 5;
   const int tid = threadIdx.x;
   const bool none = p.n_dirs == 0;
-  for (int64_t k = 0; k < wk.mine; ++k) {
-    const int st = static_cast<int>(k % p.stages);
-    uint32_t* stage = smem + st * p.stage_words;
-    const TileAt at = tile_at(wk.first + k * wk.step, wk.per_row, n, p.tile);
-    bar_wait(&full[st], static_cast<uint32_t>(k / p.stages) & 1u);
-    const Desc& ds = desc[st];
-    const uint32_t slow = ds.slow;
-    if (slow) {
-      for (int win = 0; win < p.n_win; ++win) {
-        if (!(slow >> win & 1u)) continue;
-        const bool wrap = p.wrap[win] != 0;
-        const int64_t row0 = at.row_start + p.soff[win];
-        const Piece pc = piece(src, p.src_words, row0, at.i0 + p.lo[win],
-                               p.span[win] + at.tl, n, wrap);
-        fill(stage + p.at[win] + pc.ph, src + row0, pc.s,
-             p.span[win] + at.tl, n, wrap);
-      }
-      if (kFused && slow >> 31)
-        fill(stage + ds.rec, received + at.row_start, at.i0, at.tl, n,
-             false);
-      if (kLive)
-        for (int row = 0; row < p.n_live; ++row) {
-          if (!(slow >> (16 + row) & 1u)) continue;
-          const Piece pc = live_piece(live, p.n_live, nw, row, at);
-          fill(stage + p.live_at + row * p.live_slot + pc.ph,
-               live + row * nw, pc.s, ((at.i0 + at.tl + 31) >> 5) - pc.s,
-               nw, false);
-        }
-      asm volatile("bar.sync 1, %0;" :: "n"(kConsumers) : "memory");
-    }
-    const uint32_t* q[N];
-    const uint32_t* lv[N];
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      q[d] = stage + (none ? 0 : ds.sd[d]);
-      if (kLive) lv[d] = stage + (none ? 0 : ds.sl[d]);
-    }
+  const int groups = kRing ? p.n_groups : 1;
+  int st = 0;                               // the next unit's stage
+  uint32_t lap = 0;                         // and how often it was used
+  for (int64_t kt = 0; kt < wk.mine; ++kt) {
+    const TileAt at = tile_at(wk.first + kt * wk.step, wk.per_row, n, p.tile);
+    const int tl = static_cast<int>(at.tl);
     const int bit0 = static_cast<int>(at.i0 & 31);  // x's bit in the slice:
                                                     // bit0 + t
-    const uint32_t* r = stage + ds.rec;
     const int64_t g0 = at.row_start + at.i0;
-    const int tl = static_cast<int>(at.tl);
-    for (int t0 = tid; t0 < tl; t0 += kConsumers * kUnroll) {
+    uint32_t acc[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) acc[j] = 0u;
+    for (int g = 0; g < groups; ++g) {
+      uint32_t* stage = smem + st * p.stage_words;
+      bar_wait(&full[st], lap & 1u);
+      const Desc& ds = desc[st];
+      const uint32_t slow = ds.slow;
+      if (slow) {
+        const int64_t row0 = at.row_start + p.gsoff[g];
+        for (int win = 0; win < p.gnwin[g]; ++win) {
+          if (!(slow >> win & 1u)) continue;
+          const int kw = p.gwin[g] + win;
+          const bool wrap = p.wrap[kw] != 0;
+          const Piece pc = piece(src, p.src_words, row0, at.i0 + p.lo[kw],
+                                 p.span[kw] + at.tl, n, wrap);
+          fill(stage + p.at[kw] + pc.ph, src + row0, pc.s,
+               p.span[kw] + at.tl, n, wrap);
+        }
+        if (kFused && slow >> 31)
+          fill(stage + ds.rec, received + at.row_start, at.i0, at.tl, n,
+               false);
+        if (kLive)
+          for (int r = 0; r < p.gndir[g]; ++r) {
+            if (!(slow >> (16 + r) & 1u)) continue;
+            const int row = p.dlive[p.gdir[g] + r];
+            const Piece pc = live_piece(live, p.n_live, nw, row, at);
+            fill(stage + p.glive[g] + r * p.live_slot + pc.ph,
+                 live + row * nw, pc.s, ((at.i0 + at.tl + 31) >> 5) - pc.s,
+                 nw, false);
+          }
+        asm volatile("bar.sync 1, %0;" :: "n"(kConsumers) : "memory");
+      }
+      const int last = groups - 1;
+      const uint32_t* r = stage + ds.rec;
+      const uint32_t* q[N];
+      const uint32_t* lv[N];
+      int mk[N];
+#pragma unroll
+      for (int d = 0; d < N; ++d) {
+        q[d] = stage + (none ? 0 : ds.sd[d]);
+        if (kLive) lv[d] = stage + (none ? 0 : ds.sl[d]);
+        mk[d] = kMasked && !none ? ds.mk[d] : 0;
+      }
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
-        const int t = t0 + j * kConsumers;
+        const int t = tid + j * kConsumers;
         if (t >= tl) break;
-        const int64_t x = at.i0 + t;
         int64_t col = 0;
-        if (kMasked) col = x % p.cols;
+        if (kMasked) col = (at.i0 + t) % p.cols;
         uint32_t v = 0u;
         if (!(kLive && none)) {  // (a table without directions stages no
                                  // liveness slice)
 #pragma unroll
           for (int d = 0; d < N; ++d) {
             if (kMasked) {
-              const int f = p.dmask[d];
-              if ((f & kMaskLeft) && col >= p.cols - 1) continue;
-              if ((f & kMaskRight) && col == 0) continue;
+              if ((mk[d] & kMaskLeft) && col >= p.cols - 1) continue;
+              if ((mk[d] & kMaskRight) && col == 0) continue;
             }
             if (kLive) {
               const int u = bit0 + t;
@@ -476,7 +545,11 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
             }
           }
         }
-        if (none) v = 0u;
+        if (g < last) {
+          acc[j] |= v;
+          continue;
+        }
+        v = none ? 0u : v | acc[j];
         if (kFused) {
           const uint32_t was = r[t];
           const uint32_t fresh = v & ~was;
@@ -486,18 +559,23 @@ __device__ __forceinline__ void consume(uint32_t* smem, uint64_t* full,
           out[g0 + t] = v;
         }
       }
+      __syncwarp();
+      if ((tid & 31) == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                     :: "r"(smem_u32(&empty[st])) : "memory");
+      if (++st == p.stages) {
+        st = 0;
+        ++lap;
+      }
     }
-    __syncwarp();
-    if ((tid & 31) == 0)
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-                   :: "r"(smem_u32(&empty[st])) : "memory");
   }
 }
 
 // kFused: the pure-flood round (src = frontier, out = frontier_next,
 // received updated in place).  Else the exchange (out = inbox), under the
-// packed liveness rows `live` when kLive.
-template <int N, bool kMasked, bool kFused, bool kLive>
+// packed liveness rows `live` when kLive; kRing: of a ring plan's groups
+// (else of its one group, whose indices are then constants).
+template <int N, bool kMasked, bool kFused, bool kLive, bool kRing>
 __global__ void __launch_bounds__(kThreads, 1) shift_tiles_kernel(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ received,
     uint32_t* __restrict__ out, const uint32_t* __restrict__ live, int64_t w,
@@ -518,17 +596,17 @@ __global__ void __launch_bounds__(kThreads, 1) shift_tiles_kernel(
   }
   __syncthreads();
   if (threadIdx.x >= kConsumers)
-    produce<kFused, kLive>(smem, full, empty, desc, src, received, live, n,
-                           wk, p);
+    produce<kMasked, kFused, kLive, kRing>(smem, full, empty, desc, src,
+                                           received, live, n, wk, p);
   else
-    consume<N, kMasked, kFused, kLive>(smem, full, empty, desc, src,
-                                       received, out, live, n, wk, p);
+    consume<N, kMasked, kFused, kLive, kRing>(smem, full, empty, desc, src,
+                                              received, out, live, n, wk,
+                                              p);
 }
 
-// Unpacks the host's plan words and pads the directions to a power of
-// two; false when they do not fit.  `slots` > 0: a ring plan over that
-// many (w, n) slots (its windows' slots after the directions), else one
-// (w, n) source.
+// Unpacks the host's plan words; false when they do not fit.  `slots` >
+// 0: a ring plan over that many (w, n) slots, its groups after the
+// directions; else one (w, n) source, one group.
 bool unpack(const int64_t* words, int len, int64_t w, int64_t n,
             int64_t slots, Plan* p) {
   if (len < kPlanHead) return false;
@@ -539,57 +617,100 @@ bool unpack(const int64_t* words, int len, int64_t w, int64_t n,
   p->rec_at = static_cast<int32_t>(words[3]);
   p->cols = words[4];
   p->n_win = static_cast<int32_t>(words[5]);
-  const int n_dirs = static_cast<int>(words[6]);
-  p->live_at = static_cast<int32_t>(words[7]);
-  if (p->n_win < 0 || p->n_win > kMaxDirs || n_dirs < 0
-      || n_dirs > kMaxDirs || p->stages < 1 || p->stages > kMaxStages
-      || p->tile < 1 || (p->stage_words & 3)
-      || (p->rec_at >= 0 && (p->rec_at & 3))
-      || (p->live_at >= 0 && (p->live_at & 3))
-      || p->live_at > p->stage_words
-      || len != kPlanHead + kWinWords * p->n_win + kDirWords * n_dirs
-                    + (slots > 0 ? p->n_win : 0))
+  p->n_rows = static_cast<int32_t>(words[6]);
+  const int64_t live_at = words[7];
+  if (p->n_win < 0 || p->n_win > kMaxRows || p->n_rows < 0
+      || p->n_rows > kMaxRows || p->stages < 1 || p->stages > kMaxStages
+      || p->tile < 1 || p->tile > kMaxTile || p->stage_words < 0
+      || (p->stage_words & 3)
+      || (p->rec_at >= 0 && ((p->rec_at & 3) || p->rec_at > p->stage_words))
+      || live_at < -1 || live_at > p->stage_words
+      || len < kPlanHead + kWinWords * p->n_win + kDirWords * p->n_rows)
     return false;
-  if (p->live_at >= 0 && n_dirs > 0) {
-    // a slot holds a slice of up to (tile + 31) / 32 + 1 words at its
-    // 16-byte phase, in whole 16-byte units
-    p->n_live = n_dirs;
-    p->live_slot = (p->stage_words - p->live_at) / n_dirs;
-    if (p->live_slot * n_dirs != p->stage_words - p->live_at
-        || (p->live_slot & 3) || p->live_slot < (p->tile + 62) / 32 + 3)
-      return false;
-  }
   const int64_t* win = words + kPlanHead;
+  const int64_t* dir = win + kWinWords * p->n_win;
+  const int64_t* tail = dir + kDirWords * p->n_rows;
+  const int64_t rest = len - (tail - words);
+  p->n_live = p->n_rows;
+  if (slots > 0) {
+    if (rest < 2) return false;
+    if (tail[1] < 0 || tail[1] > p->stage_words) return false;
+    p->n_groups = static_cast<int32_t>(tail[0]);
+    p->live_slot = static_cast<int32_t>(tail[1]);
+    if (p->n_groups < 1 || p->n_groups > kMaxGroups
+        || rest != 2 + kGroupWords * p->n_groups + p->n_rows)
+      return false;
+    const int64_t* grp = tail + 2;
+    const int64_t* lrow = grp + kGroupWords * p->n_groups;
+    for (int g = 0; g < p->n_groups; ++g) {
+      const int64_t* e = grp + kGroupWords * g;
+      if (e[0] < 0 || e[0] >= slots) return false;
+      p->gsoff[g] = e[0] * w * n;
+      p->gwin[g] = static_cast<int32_t>(e[1]);
+      p->gnwin[g] = static_cast<int32_t>(e[2]);
+      p->gdir[g] = static_cast<int32_t>(e[3]);
+      p->gndir[g] = static_cast<int32_t>(e[4]);
+      p->glive[g] = static_cast<int32_t>(e[5]);
+    }
+    for (int e = 0; e < p->n_rows; ++e) {
+      if (lrow[e] < 0 || lrow[e] >= p->n_rows) return false;
+      p->dlive[e] = static_cast<int32_t>(lrow[e]);
+    }
+  } else {
+    if (rest != 0) return false;
+    p->n_groups = 1;
+    p->gnwin[0] = p->n_win;
+    p->gndir[0] = p->n_rows;
+    p->glive[0] = static_cast<int32_t>(live_at);
+    if (live_at >= 0 && p->n_rows > 0)     // the slots fill the stage
+      p->live_slot = static_cast<int32_t>((p->stage_words - live_at)
+                                          / p->n_rows);
+    for (int e = 0; e < p->n_rows; ++e) p->dlive[e] = e;
+  }
+  // a slot holds a tile's slice, up to (tile + 62) / 32 words, at its
+  // 16-byte phase, in whole 16-byte units
+  if (p->live_slot < 0 || (p->live_slot & 3)
+      || (p->live_slot > 0 && p->live_slot < (p->tile + 62) / 32 + 3))
+    return false;
+  p->src_words = (slots > 0 ? slots : 1) * w * n;
   for (int k = 0; k < p->n_win; ++k) {
     p->lo[k] = win[kWinWords * k];
     p->span[k] = static_cast<int32_t>(win[kWinWords * k + 1]);
     p->wrap[k] = static_cast<int32_t>(win[kWinWords * k + 2]);
     p->at[k] = static_cast<int32_t>(win[kWinWords * k + 3]);
-    if (p->at[k] & 3) return false;     // bulk copies land 16-byte aligned
+    if ((p->at[k] & 3) || p->at[k] < 0 || p->span[k] < 0   // bulk copies
+        || p->at[k] + p->span[k] + p->tile + 3 > p->stage_words)  // land
+      return false;                                       // 16-byte aligned
   }
-  const int64_t* dir = win + kWinWords * p->n_win;
-  const int64_t* slot = dir + kDirWords * n_dirs;
-  for (int k = 0; k < p->n_win; ++k) {
-    if (slots > 0 && (slot[k] < 0 || slot[k] >= slots)) return false;
-    p->soff[k] = slots > 0 ? slot[k] * w * n : 0;
-  }
-  p->src_words = (slots > 0 ? slots : 1) * w * n;
-  p->n_dirs = 0;
-  if (n_dirs > 0) {
-    p->n_dirs = 1;
-    while (p->n_dirs < n_dirs) p->n_dirs *= 2;
-  }
-  for (int d = 0; d < p->n_dirs; ++d) {
-    const int64_t* e = dir + kDirWords * (d < n_dirs ? d : 0);
-    p->dlive[d] = d < n_dirs ? d : 0;
-    const int k = static_cast<int>(e[0]);
+  for (int e = 0; e < p->n_rows; ++e) {
+    const int k = static_cast<int>(dir[kDirWords * e]);
     if (k < 0 || k >= p->n_win) return false;
-    p->dlo[d] = p->lo[k];
-    p->dsoff[d] = p->soff[k];
-    p->dwrap[d] = p->wrap[k];
-    p->dat[d] = p->at[k];
-    p->ddelta[d] = static_cast<int32_t>(e[1]);
-    p->dmask[d] = static_cast<int32_t>(e[2]);
+    p->dlo[e] = p->lo[k];
+    p->dwrap[e] = p->wrap[k];
+    p->dat[e] = p->at[k];
+    p->ddelta[e] = static_cast<int32_t>(dir[kDirWords * e + 1]);
+    p->dmask[e] = static_cast<int32_t>(dir[kDirWords * e + 2]);
+  }
+  int most = 0;
+  for (int g = 0; g < p->n_groups; ++g) {
+    const int w0 = p->gwin[g], nwin = p->gnwin[g], d0 = p->gdir[g],
+              nd = p->gndir[g];
+    if (w0 < 0 || nwin < 0 || nwin > kMaxDirs || w0 + nwin > p->n_win
+        || d0 < 0 || nd < 0 || nd > kMaxDirs || d0 + nd > p->n_rows
+        || (p->glive[g] >= 0
+            && ((p->glive[g] & 3)
+                || p->glive[g] + nd * p->live_slot > p->stage_words)))
+      return false;
+    for (int e = d0; e < d0 + nd; ++e) {   // a group's windows are staged
+      const int k = static_cast<int>(dir[kDirWords * e]);  // together
+      if (k < w0 || k >= w0 + nwin) return false;
+    }
+    most = nd > most ? nd : most;
+  }
+  p->n_dirs = 0;
+  if (most > 0) {
+    p->n_dirs = 1;
+    while (p->n_dirs < most) p->n_dirs *= 2;
   }
   return static_cast<int64_t>(p->stages) * p->stage_words * 4
          <= kMaxSmemBytes;
@@ -637,10 +758,10 @@ cudaError_t grid_size(const void* kernel, int64_t tiles, size_t smem,
   return cudaSuccess;
 }
 
-template <int N, bool kMasked, bool kFused, bool kLive>
+template <int N, bool kMasked, bool kFused, bool kLive, bool kRing>
 int launch_n(const void* src, void* received, void* out, const void* live,
              int64_t w, int64_t n, const Plan& p, cudaStream_t stream) {
-  const auto kernel = shift_tiles_kernel<N, kMasked, kFused, kLive>;
+  const auto kernel = shift_tiles_kernel<N, kMasked, kFused, kLive, kRing>;
   const size_t smem = static_cast<size_t>(p.stages) * p.stage_words * 4;
   int blocks = 0;
   const cudaError_t err =
@@ -654,49 +775,55 @@ int launch_n(const void* src, void* received, void* out, const void* live,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMasked, bool kFused, bool kLive>
+template <bool kMasked, bool kFused, bool kLive, bool kRing>
 int launch_masked(const void* src, void* received, void* out,
                   const void* live, int64_t w, int64_t n, const Plan& p,
                   cudaStream_t stream) {
   switch (p.n_dirs) {
     case 0:
     case 1:
-      return launch_n<1, kMasked, kFused, kLive>(src, received, out, live, w,
-                                                 n, p, stream);
+      return launch_n<1, kMasked, kFused, kLive, kRing>(src, received, out,
+                                                        live, w, n, p, stream);
     case 2:
-      return launch_n<2, kMasked, kFused, kLive>(src, received, out, live, w,
-                                                 n, p, stream);
+      return launch_n<2, kMasked, kFused, kLive, kRing>(src, received, out,
+                                                        live, w, n, p, stream);
     case 4:
-      return launch_n<4, kMasked, kFused, kLive>(src, received, out, live, w,
-                                                 n, p, stream);
+      return launch_n<4, kMasked, kFused, kLive, kRing>(src, received, out,
+                                                        live, w, n, p, stream);
     case 8:
-      return launch_n<8, kMasked, kFused, kLive>(src, received, out, live, w,
-                                                 n, p, stream);
+      return launch_n<8, kMasked, kFused, kLive, kRing>(src, received, out,
+                                                        live, w, n, p, stream);
     default:
-      return launch_n<16, kMasked, kFused, kLive>(src, received, out, live,
-                                                  w, n, p, stream);
+      return launch_n<16, kMasked, kFused, kLive, kRing>(src, received, out,
+                                                         live, w, n, p,
+                                                         stream);
   }
 }
 
-// kLive only without kFused: the three modes the entry points take (a
-// ring plan, `slots` > 0, runs the exchange kernels).
-template <bool kFused, bool kLive>
+// kLive only without kFused, and kRing (a ring plan, `slots` > 0) only for
+// the exchange: the modes the entry points take.
+template <bool kFused, bool kLive, bool kRing>
 int launch(const void* src, void* received, void* out, const void* live,
            int64_t w, int64_t n, const int64_t* plan, int plan_len,
            void* stream, int64_t slots = 0) {
   static_assert(!(kFused && kLive), "the fused round takes no liveness");
+  static_assert(!(kFused && kRing), "the fused round reads one source");
   Plan p;
-  if (!unpack(plan, plan_len, w, n, slots, &p) || (kFused && p.rec_at < 0)
-      || p.tile > n
-      || (kLive && p.n_dirs > 0 && p.n_live == 0))
+  if (!unpack(plan, plan_len, w, n, kRing ? slots : 0, &p) || p.tile > n)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((kFused && p.rec_at < 0) || (!kRing && p.n_groups != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // with liveness, every group with directions stages their slices
+  for (int g = 0; kLive && g < p.n_groups; ++g)
+    if (p.gndir[g] > 0 && (p.glive[g] < 0 || p.live_slot == 0))
+      return static_cast<int>(cudaErrorInvalidValue);
   bool masked = false;
-  for (int d = 0; d < p.n_dirs; ++d) masked = masked || p.dmask[d] != 0;
+  for (int e = 0; e < p.n_rows; ++e) masked = masked || p.dmask[e] != 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  return masked ? launch_masked<true, kFused, kLive>(src, received, out, live,
-                                                     w, n, p, s)
-                : launch_masked<false, kFused, kLive>(src, received, out,
-                                                      live, w, n, p, s);
+  return masked ? launch_masked<true, kFused, kLive, kRing>(
+                      src, received, out, live, w, n, p, s)
+                : launch_masked<false, kFused, kLive, kRing>(
+                      src, received, out, live, w, n, p, s);
 }
 
 }  // namespace
@@ -711,8 +838,8 @@ int launch(const void* src, void* received, void* out, const void* live,
 extern "C" int gg_shift_exchange(const void* payload, void* inbox, int64_t w,
                                  int64_t n, const int64_t* plan,
                                  int plan_len, void* stream) {
-  return launch<false, false>(payload, nullptr, inbox, nullptr, w, n, plan,
-                              plan_len, stream);
+  return launch<false, false, false>(payload, nullptr, inbox, nullptr, w, n,
+                                     plan, plan_len, stream);
 }
 
 // live: (directions, ceil(n / 32)) packed liveness rows, int32 words (not
@@ -721,30 +848,31 @@ extern "C" int gg_shift_masked_exchange(const void* payload, const void* live,
                                         void* inbox, int64_t w, int64_t n,
                                         const int64_t* plan, int plan_len,
                                         void* stream) {
-  return launch<false, true>(payload, nullptr, inbox, live, w, n, plan,
-                             plan_len, stream);
+  return launch<false, true, false>(payload, nullptr, inbox, live, w, n,
+                                    plan, plan_len, stream);
 }
 
 extern "C" int gg_shift_flood_round(void* received, const void* frontier,
                                     void* frontier_next, int64_t w,
                                     int64_t n, const int64_t* plan,
                                     int plan_len, void* stream) {
-  return launch<true, false>(frontier, received, frontier_next, nullptr, w,
-                             n, plan, plan_len, stream);
+  return launch<true, false, false>(frontier, received, frontier_next,
+                                    nullptr, w, n, plan, plan_len, stream);
 }
 
-// The ring mode of the exchange: `ring` is (slots, w, n), and each window
+// The ring mode of the exchange: `ring` is (slots, w, n), and each group
 // of the plan (kernels._shift_plan of a table with ring slots) stages its
-// words from its own slot; `live` as in gg_shift_masked_exchange, or null
-// for none (the plan then stages no liveness slice).
+// windows from its own slot; `live` as in gg_shift_masked_exchange (a row
+// a table row), or null for none (the plan then stages no liveness
+// slice).
 extern "C" int gg_shift_ring_exchange(const void* ring, const void* live,
                                       void* inbox, int64_t slots, int64_t w,
                                       int64_t n, const int64_t* plan,
                                       int plan_len, void* stream) {
   if (slots < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (live == nullptr)
-    return launch<false, false>(ring, nullptr, inbox, nullptr, w, n, plan,
-                                plan_len, stream, slots);
-  return launch<false, true>(ring, nullptr, inbox, live, w, n, plan, plan_len,
-                             stream, slots);
+    return launch<false, false, true>(ring, nullptr, inbox, nullptr, w, n,
+                                      plan, plan_len, stream, slots);
+  return launch<false, true, true>(ring, nullptr, inbox, live, w, n, plan,
+                                   plan_len, stream, slots);
 }

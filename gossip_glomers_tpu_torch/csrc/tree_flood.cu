@@ -3,8 +3,9 @@
 // Bitsets are (W, N) words-major: word w of node i sits at w * N + i, so
 // the node axis is contiguous.  In the heap-ordered k-ary tree node i's
 // parent is (i - 1) / k and its children are k*i + 1 .. k*i + k (those
-// below N).  Each kernel gives one thread one (w, i) word (tree_exchange's
-// k = 4 path four): grid.x walks the node axis in blocks of kThreads,
+// below N).  Each kernel gives one thread one (w, i) word (the k = 4
+// paths of tree_exchange and tree_ring_exchange four): grid.x walks the
+// node axis in blocks of kThreads,
 // grid.y the W words.
 //
 // Replaces: benchmarks/pallas_tree_probe.py make_pallas_exchange's inner
@@ -74,13 +75,20 @@
 // payload of the entry's send round) and gated by its own packed row:
 // the Pallas kernel's inbox, one slot a term.  Bound: the bytes, each
 // slot read once, each row once, the inbox written once (at (1, 2^20),
-// two slots and four rows: 13 MB).  Design: tree_masked_exchange_kernel's
-// warp-shared liveness words and shuffles, once an entry; the entry loop
-// is uniform across the block, so every lane takes part in each entry's
-// shuffles, and a thread keeps one inbox word in a register over all
-// entries (one store).  One node a thread: the four-nodes-a-thread form
-// is later work.  A table of more than 16 entries is split by the
-// wrapper, the inboxes ORed.
+// two slots and four rows: 13 MB).  For k = 4 on n % 4 == 0 and a
+// 16-byte aligned ring and inbox (the main path's case) a thread takes
+// four nodes (ring_quads): an entry's child words come as quads_inbox's
+// four 16-byte loads and a word, its bits by one funnel shift of two row
+// words, its parent words q - 1 and q under four receiver bits, and the
+// four inbox words stay in registers over the table and go out as one
+// 16-byte store.  At (1, 2^20) it takes 0.00485 ms and at (128, 2^20)
+// 0.585 ms, 81% and 82% of the bound (NVIDIA H100 80GB HBM3, 700.00 W,
+// chip_smoke.py).  Any other k, n or view takes a node a thread (the
+// kernel's first form): tree_masked_exchange_kernel's warp-shared
+// liveness words and shuffles, once an entry, the entry loop uniform
+// across the block (every lane takes part in each entry's shuffles), one
+// inbox word in a register over all entries.  A table of more than 16
+// entries is split by the wrapper, the inboxes ORed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -206,16 +214,93 @@ struct RingTable {
   int32_t n;
 };
 
+// A child's word under its bit: bit j of `bits` spread to a mask.
+__device__ __forceinline__ uint32_t gated(uint32_t word, uint32_t bits,
+                                         int j) {
+  return word & (0u - (bits >> j & 1u));
+}
+
+// The ring inbox for k = 4, four nodes a thread: thread q of a row ORs,
+// over the table, quads_inbox's terms of each entry's slot under the
+// entry's row, and writes inbox words 4q .. 4q+3 as one 16-byte store.
+// A from-parent entry reads parent words q - 1 (node 4q) and q under the
+// receivers' bits 4q .. 4q+3 (four bits of row word q / 8); a from-kids
+// entry reads child words 16q+1 .. 16q+16 (the aligned vectors at 16q,
+// 16q+4, 16q+8 and 16q+12 and the word 16q+16) under the children's bits
+// 16q+1 .. 16q+16, which start at bit 16 (q % 2) + 1 of row word q / 2
+// and come out of words q / 2 and q / 2 + 1 by one funnel shift (a warp
+// reads 17 consecutive row words).  n % 4 == 0 and a 16-byte aligned ring
+// and inbox (the entry point's condition), so every (slot, row) of the
+// ring starts on the 16-byte grid and a vector lies wholly inside or
+// wholly past its row.
+__device__ __forceinline__ void ring_quads(const uint32_t* __restrict__ ring,
+                                           const uint32_t* __restrict__ live,
+                                           uint32_t* __restrict__ inbox,
+                                           int64_t n, const RingTable& tab) {
+  const int64_t q =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (q >= n >> 2) return;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
+  const int64_t nw = (n + 31) >> 5;
+  const int64_t c = 16 * q;                 // the first child word, less 1
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t o0 = 0u, o1 = 0u, o2 = 0u, o3 = 0u;
+  for (int e = 0; e < tab.n; ++e) {
+    const uint32_t* row = ring + tab.off[e] + base;
+    const int r = tab.row[e];
+    const uint32_t* lrow = live + static_cast<int64_t>(r < 0 ? 0 : r) * nw;
+    if (tab.kind[e] == 0) {
+      const uint32_t bits =
+          r < 0 ? 0xFu : __ldg(lrow + (q >> 3)) >> (4 * (q & 7)) & 0xFu;
+      const uint32_t up = __ldg(row + q);
+      const uint32_t up0 = q > 0 ? __ldg(row + q - 1) : 0u;
+      o0 |= gated(up0, bits, 0);
+      o1 |= gated(up, bits, 1);
+      o2 |= gated(up, bits, 2);
+      o3 |= gated(up, bits, 3);
+      continue;
+    }
+    if (c + 1 >= n) continue;               // no child below n
+    uint32_t bits = 0xFFFFu;
+    if (r >= 0) {
+      const int64_t m = q >> 1;
+      const uint32_t lo = __ldg(lrow + m);
+      const uint32_t hi = m + 1 < nw ? __ldg(lrow + m + 1) : 0u;
+      bits = __funnelshift_r(lo, hi, 16 * static_cast<int>(q & 1) + 1);
+    }
+    const uint4* vrow = reinterpret_cast<const uint4*>(row);
+    const uint4 v0 = __ldg(vrow + 4 * q);   // c < n
+    const uint4 v1 = c + 4 < n ? __ldg(vrow + 4 * q + 1) : zero;
+    const uint4 v2 = c + 8 < n ? __ldg(vrow + 4 * q + 2) : zero;
+    const uint4 v3 = c + 12 < n ? __ldg(vrow + 4 * q + 3) : zero;
+    const uint32_t last = c + 16 < n ? __ldg(row + c + 16) : 0u;
+    o0 |= gated(v0.y, bits, 0) | gated(v0.z, bits, 1) | gated(v0.w, bits, 2)
+          | gated(v1.x, bits, 3);
+    o1 |= gated(v1.y, bits, 4) | gated(v1.z, bits, 5) | gated(v1.w, bits, 6)
+          | gated(v2.x, bits, 7);
+    o2 |= gated(v2.y, bits, 8) | gated(v2.z, bits, 9)
+          | gated(v2.w, bits, 10) | gated(v3.x, bits, 11);
+    o3 |= gated(v3.y, bits, 12) | gated(v3.z, bits, 13)
+          | gated(v3.w, bits, 14) | gated(last, bits, 15);
+  }
+  reinterpret_cast<uint4*>(inbox + base)[q] = make_uint4(o0, o1, o2, o3);
+}
+
 // The ring inbox: tree_masked_exchange_kernel's terms, each from its own
-// ring slot and under its own (or no) liveness row, ORed over the table.
-// The entries are uniform across the block, so every lane of a warp takes
-// part in each entry's shuffles, also past n.
-template <int K>
+// ring slot and under its own (or no) liveness row, ORed over the table,
+// a thread a node; or (kQuads, K = 4) ring_quads, a thread four.  In the
+// first form the entries are uniform across the block, so every lane of
+// a warp takes part in each entry's shuffles, also past n.
+template <int K, bool kQuads>
 __global__ void tree_ring_exchange_kernel(const uint32_t* __restrict__ ring,
                                           const uint32_t* __restrict__ live,
                                           uint32_t* __restrict__ inbox,
                                           int64_t n, int k_arg,
                                           const RingTable tab) {
+  if (kQuads) {
+    ring_quads(ring, live, inbox, n, tab);
+    return;
+  }
   const int k = K > 0 ? K : k_arg;
   const int64_t i =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -355,11 +440,21 @@ extern "C" int gg_tree_ring_exchange(const void* ring, const void* live,
     tab.kind[e] = static_cast<int32_t>(kind);
     tab.row[e] = static_cast<int32_t>(row);
   }
-  const auto kernel = k == 4 ? &tree_ring_exchange_kernel<4>
-                             : &tree_ring_exchange_kernel<0>;
-  kernel<<<node_grid(n, w), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ring), static_cast<const uint32_t*>(live),
-      static_cast<uint32_t*>(inbox), n, k, tab);
+  const auto* r = static_cast<const uint32_t*>(ring);
+  const auto* lv = static_cast<const uint32_t*>(live);
+  auto* o = static_cast<uint32_t*>(inbox);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (k == 4 && n % 4 == 0 && (reinterpret_cast<uintptr_t>(r) & 15) == 0
+      && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    const dim3 grid(static_cast<unsigned>((n / 4 + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(w));
+    tree_ring_exchange_kernel<4, true><<<grid, kThreads, 0, s>>>(r, lv, o, n,
+                                                                 k, tab);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const auto kernel = k == 4 ? &tree_ring_exchange_kernel<4, false>
+                             : &tree_ring_exchange_kernel<0, false>;
+  kernel<<<node_grid(n, w), kThreads, 0, s>>>(r, lv, o, n, k, tab);
   return static_cast<int>(cudaGetLastError());
 }
 

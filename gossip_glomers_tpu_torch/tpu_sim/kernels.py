@@ -72,12 +72,14 @@ BUILD_DIR = _PKG.parent / "build" / "gossip_glomers_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_WORDS = 65535            # grid.y carries the word axis (words-major)
-MAX_DIRS = 16                # shift_flood.cu's kMaxDirs
+MAX_DIRS = 16                # shift_flood.cu's kMaxDirs: a group's
+MAX_RING_ROWS = 32           # and kMaxRows: a ring table's rows a launch
 MAX_RING_ENTRIES = 16        # tree_flood.cu's kMaxEntries
 MASK32 = 0xFFFFFFFF
-# shift_flood.cu's tiles: nodes per tile at most, tiles in flight per
+# shift_flood.cu's tiles: nodes per tile at most, stages in flight per
 # block (2 measured faster than 3 for the circulant's fused round on an
-# H100; PERF.md), and the dynamic shared memory a block may take
+# H100, and no slower for the ring's groups; PERF.md), and the dynamic
+# shared memory a block may take
 # (kMaxSmemBytes)
 SHIFT_TILE = 2048
 SHIFT_STAGES = 2
@@ -183,9 +185,10 @@ def shift_windows(dirs: ShiftDirs, n: int,
 def _check_dirs(dirs: ShiftDirs, n: int) -> None:
     if len(dirs.offs) != len(dirs.flags):
         raise ValueError("ShiftDirs offs and flags differ in length")
-    if len(dirs.offs) > MAX_DIRS:
+    most = MAX_RING_ROWS if dirs.slots else MAX_DIRS
+    if len(dirs.offs) > most:
         raise ValueError(f"{len(dirs.offs)} directions exceed the shift "
-                         f"kernels' {MAX_DIRS}")
+                         f"kernels' {most}")
     for off, flags in zip(dirs.offs, dirs.flags):
         if flags & WRAP and not 0 <= off < n:
             raise ValueError(f"wrap offset {off} outside [0, {n})")
@@ -194,6 +197,39 @@ def _check_dirs(dirs: ShiftDirs, n: int) -> None:
     if dirs.slots and (len(dirs.slots) != len(dirs.offs)
                        or min(dirs.slots) < 0):
         raise ValueError("a ring table needs a slot >= 0 a direction")
+
+
+def shift_groups(dirs: ShiftDirs, n: int) -> tuple[tuple[int, ...], ...]:
+    """The directions a stage of the shift kernels holds together: one
+    group of a one-source table (in table order), and for a ring table
+    the directions sorted as :func:`shift_windows` sorts them (slot
+    first), cut at every new slot and after every :data:`MAX_DIRS`."""
+    if not dirs.slots:
+        return (tuple(range(len(dirs.offs))),)
+    order = sorted(range(len(dirs.offs)), key=lambda d: (
+        dirs.slots[d], bool(dirs.flags[d] & WRAP),
+        signed_offset(dirs.offs[d], dirs.flags[d], n)))
+    groups: list[list[int]] = []
+    for d in order:
+        if groups and dirs.slots[groups[-1][0]] == dirs.slots[d] \
+                and len(groups[-1]) < MAX_DIRS:
+            groups[-1].append(d)
+        else:
+            groups.append([d])
+    return tuple(tuple(g) for g in groups)
+
+
+def _group_windows(dirs: ShiftDirs, group: tuple[int, ...], n: int,
+                   tile: int) -> tuple[ShiftWindow, ...]:
+    """:func:`shift_windows` of the group's directions, naming them by
+    their rows of ``dirs``."""
+    sub = ShiftDirs(tuple(dirs.offs[d] for d in group),
+                    tuple(dirs.flags[d] for d in group), dirs.cols,
+                    tuple(dirs.slots[d] for d in group) if dirs.slots
+                    else ())
+    return tuple(dataclasses.replace(win, dirs=tuple(group[j]
+                                                     for j in win.dirs))
+                 for win in shift_windows(sub, n, tile))
 
 
 def _round4(x: int) -> int:
@@ -213,43 +249,64 @@ def _shift_plan(dirs: ShiftDirs, n: int, fused: bool,
     """(ctypes int64 words, count) of shift_flood.cu's Plan for one table
     at n nodes, checked and built once per (table, n, mode) so that a
     launch repeats neither; raises ValueError for a table the kernels
-    cannot take.  The tile is the largest (at most ``max_tile``, at most
-    n) whose stage — every window at its 16-byte phase, then the
-    received tile in the fused round or, with ``live`` (the masked
-    exchange), one :func:`live_slot_words` slot a direction for its
-    liveness slice — fits :data:`SHIFT_STAGES` times in shared memory.
+    cannot take.  A stage holds one group of :func:`shift_groups` — its
+    windows at their 16-byte phase, then the received tile in the fused
+    round or, with ``live`` (the masked exchange), one
+    :func:`live_slot_words` slot a direction of the group for its
+    liveness slice — and is as large as the largest group's.  The tile
+    is the largest (at most ``max_tile``, :data:`SHIFT_TILE` and n) whose
+    stage fits :data:`SHIFT_STAGES` times in shared memory.
     Layout: tile, stages, stage words, received's offset, cols, windows,
-    directions, the liveness slots' offset (-1: none; they fill the
-    stage to its end); per window lo, hi - lo, wrap, offset; per
-    direction window, offset - lo, mask flags; for a ring table
-    (``dirs.slots``) then per window its slot."""
+    directions, the liveness slots' offset (-1: none; a ring plan's first
+    group's); per window lo, hi - lo, wrap, offset in its group's stage;
+    per direction, grouped, window, offset - lo, mask flags.  A ring table
+    (``dirs.slots``) goes on with the number of groups, per group its
+    slot, first window, windows, first direction, directions and liveness
+    offset (-1: none), and per direction its row of the table (its
+    liveness row).  The liveness slot's words are ``(stage words - the
+    liveness offset) / directions`` in a one-source plan and follow the
+    number of groups in a ring plan (0: none)."""
     if fused and live:
         raise ValueError("the fused round takes no liveness rows")
     _check_dirs(dirs, n)
-    tile = min(max_tile, n)
+    groups = shift_groups(dirs, n)
+    tile = min(max_tile, n, SHIFT_TILE)
     while True:
-        windows = shift_windows(dirs, n, tile)
-        sizes = [_round4(w.hi - w.lo + tile + 3) for w in windows]
-        if fused:
-            sizes.append(_round4(tile + 3))
-        if live:
-            sizes.append(len(dirs.offs) * live_slot_words(tile))
-        if SHIFT_STAGES * 4 * sum(sizes) <= SHIFT_SMEM_BYTES or tile == 1:
+        windows = [_group_windows(dirs, g, n, tile) for g in groups]
+        sizes = [[_round4(w.hi - w.lo + tile + 3) for w in wins]
+                 for wins in windows]
+        ends = [sum(sz) for sz in sizes]
+        extra = [(_round4(tile + 3) if fused else 0)
+                 + (len(g) * live_slot_words(tile) if live else 0)
+                 for g in groups]
+        stage = max(e + x for e, x in zip(ends, extra))
+        if SHIFT_STAGES * 4 * stage <= SHIFT_SMEM_BYTES or tile == 1:
             break
         tile = (tile + 1) // 2
-    at = [sum(sizes[:k]) for k in range(len(sizes))]
-    words = [tile, SHIFT_STAGES, sum(sizes), at[-1] if fused else -1,
-             dirs.cols, len(windows), len(dirs.offs),
-             at[-1] if live else -1]
-    for k, win in enumerate(windows):
-        words += [win.lo, win.hi - win.lo, int(win.wrap), at[k]]
-    where = {d: k for k, win in enumerate(windows) for d in win.dirs}
-    for d, (off, flags) in enumerate(zip(dirs.offs, dirs.flags)):
-        k = where[d]
-        words += [k, signed_offset(off, flags, n) - windows[k].lo,
+    live_at = [end if live else -1 for end in ends]
+    words = [tile, SHIFT_STAGES, stage, ends[0] if fused else -1, dirs.cols,
+             sum(len(w) for w in windows), len(dirs.offs), live_at[0]]
+    first = 0
+    where = {}
+    for wins, sz in zip(windows, sizes):
+        for k, win in enumerate(wins):
+            words += [win.lo, win.hi - win.lo, int(win.wrap), sum(sz[:k])]
+            for d in win.dirs:
+                where[d] = (first + k, win.lo)
+        first += len(wins)
+    for d in (d for g in groups for d in g):
+        k, lo = where[d]
+        off, flags = dirs.offs[d], dirs.flags[d]
+        words += [k, signed_offset(off, flags, n) - lo,
                   flags & (MASK_LEFT | MASK_RIGHT)]
     if dirs.slots:
-        words += [win.slot for win in windows]
+        words += [len(groups), live_slot_words(tile) if live else 0]
+        win0 = dir0 = 0
+        for g, wins, at in zip(groups, windows, live_at):
+            words += [dirs.slots[g[0]], win0, len(wins), dir0, len(g), at]
+            win0 += len(wins)
+            dir0 += len(g)
+        words += [d for g in groups for d in g]
     return (ctypes.c_int64 * len(words))(*words), len(words)
 
 
@@ -821,9 +878,10 @@ def tree_ring_exchange(ring: torch.Tensor, table, live=None,
     packed row ``row`` of ``live``, or the from-kids term
     (:data:`TREE_KIDS`) of that slot gated at child positions before the
     k:1 fold (``row`` -1: ungated).  ``ring`` is (L, W, N), ``live``
-    (R, ceil(N/32)) packed rows or None.  An empty table gives zeros and
-    launches nothing; one longer than :data:`MAX_RING_ENTRIES` runs in
-    launches of that many, ORed."""
+    (R, ceil(N/32)) packed rows or None.  On the card, k = 4 with N % 4
+    == 0 and a 16-byte aligned ring takes four nodes a thread.  An empty
+    table gives zeros and launches nothing; one longer than
+    :data:`MAX_RING_ENTRIES` runs in launches of that many, ORed."""
     slots, w, n = _check_ring(ring)
     table = tuple((int(a), int(b), int(c)) for a, b, c in table)
     rows = 0 if live is None else live.shape[0]
@@ -950,9 +1008,11 @@ def shift_ring_exchange(ring: torch.Tensor, dirs: ShiftDirs, live=None,
     of the ring table ``dirs`` (its ``slots`` set) of direction d's term
     of ring slot ``dirs.slots[d]``, gated at receivers by packed row d of
     ``live`` when given ((len(dirs.offs), ceil(N/32)) int32), under the
-    table's column masks.  ``ring`` is (L, W, N).  An empty table gives
-    zeros and launches nothing; one of more than :data:`MAX_DIRS` rows
-    runs in launches of that many, ORed.  ``max_tile`` as in
+    table's column masks.  ``ring`` is (L, W, N).  One launch stages
+    each tile's rows a group (:func:`shift_groups`: a slot's rows) at a
+    time and stores the inbox once.  An empty table gives zeros and
+    launches nothing; one of more than :data:`MAX_RING_ROWS` rows runs in
+    launches of that many, ORed.  ``max_tile`` as in
     :func:`shift_masked_exchange`."""
     slots, w, n = _check_ring(ring)
     if len(dirs.slots) != len(dirs.offs) or any(
@@ -965,11 +1025,11 @@ def shift_ring_exchange(ring: torch.Tensor, dirs: ShiftDirs, live=None,
     if max_tile < 1:
         raise ValueError(f"max_tile must be >= 1, got {max_tile}")
     inbox = None
-    for at in range(0, len(dirs.offs), MAX_DIRS):
-        part = slice(at, at + MAX_DIRS)
+    for at in range(0, len(dirs.offs), MAX_RING_ROWS):
+        part = slice(at, at + MAX_RING_ROWS)
         sub = ShiftDirs(dirs.offs[part], dirs.flags[part], dirs.cols,
                         dirs.slots[part])
-        plan = _shift_plan(sub, n, False, max_tile, live=live is not None)
+        plan = _shift_plan(sub, n, False, max_tile, live is not None)
         out = torch.empty((w, n), dtype=torch.int32, device=ring.device)
         if out.numel():
             _launch("shift_ring_exchange",

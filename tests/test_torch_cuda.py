@@ -552,10 +552,12 @@ def test_cuda_structured_faults_match_cpu_sim(cuda_device, topo, kw):
 
 
 # the ring kernels' shapes: small and ragged rows (n % 32 != 0, n % 4 in
-# {0, 1, 2, 3}), the shift tile's edges, and W = 128 at small n
+# {0, 1, 2, 3}), the shift tile's edges, W = 128 at small n, and rows the
+# tree's four nodes a thread takes (n % 4 == 0, also n < 16)
 RING_SHAPES = ([(w, n) for w in (1, 8) for n in (1, 5, 42, 4097, 4099,
                                                  (1 << 16) + 3)]
-               + SHIFT_EDGES + [(128, 5), (128, 4096)])
+               + SHIFT_EDGES + [(128, 5), (128, 4096), (1, 12), (8, 20),
+                                (1, (1 << 16) + 4)])
 
 
 def _tree_tables(rng, slots, rows):
@@ -574,11 +576,13 @@ def _tree_tables(rng, slots, rows):
 @pytest.mark.parametrize("offset", (0, 1))
 @pytest.mark.parametrize("w,n", RING_SHAPES)
 def test_cuda_ring_kernels_match_plain(cuda_device, w, n, offset):
-    # tree_ring_exchange at every branching over every table shape, and
-    # shift_ring_exchange in every shift mode with and without rows, at
-    # one and three times the directions (more than 16 rows: two or more
-    # launches), at the wrapper's tile and ODD_TILE; ring and rows on
-    # views 4 bytes into their allocation (offset 1)
+    # tree_ring_exchange at every branching over every table shape (k =
+    # 4 on an aligned ring with n % 4 == 0: four nodes a thread; on a
+    # view 4 bytes in, offset 1, a node a thread), and shift_ring_exchange
+    # in every shift mode with and without rows, at one, two (two delay
+    # classes, slots 2 and 0) and three times the directions (up to 24
+    # rows: one launch, a group a slot), at the wrapper's tile and
+    # ODD_TILE; ring and rows on views 4 bytes into their allocation
     rng = np.random.default_rng(n + w + offset)
     ring = _bits((3, w, n), 5 * n + w, cuda_device)
     rk = _at_offset(ring, offset)
@@ -595,11 +599,13 @@ def test_cuda_ring_kernels_match_plain(cuda_device, w, n, offset):
     shift_launches = 0
     for topo, kw in _shift_modes(n):
         dirs = structured.shift_dirs(topo, n, **kw)
-        for reps in (1, 3):
+        for reps in (1, 2, 3):
             rows = len(dirs.offs) * reps
+            slots = (tuple(int(s) for s in rng.integers(0, 3, rows))
+                     if reps != 2 else
+                     (2,) * len(dirs.offs) + (0,) * len(dirs.offs))
             table = kernels.ShiftDirs(
-                dirs.offs * reps, dirs.flags * reps, dirs.cols,
-                tuple(int(s) for s in rng.integers(0, 3, rows)))
+                dirs.offs * reps, dirs.flags * reps, dirs.cols, slots)
             lv = _at_offset(live[:rows], offset)
             for rows_on in (False, True):
                 want = kernels.shift_ring_exchange_plain(
@@ -609,7 +615,7 @@ def test_cuda_ring_kernels_match_plain(cuda_device, w, n, offset):
                         rk, table, lv if rows_on else None, max_tile=tile)
                     assert torch.equal(got, want), (topo, reps, rows_on,
                                                     tile)
-                    shift_launches += -(-rows // kernels.MAX_DIRS)
+                    shift_launches += 1
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["tree_ring_exchange"] \
         == before["tree_ring_exchange"] + tree_launches
@@ -621,6 +627,51 @@ def test_cuda_ring_kernels_match_plain(cuda_device, w, n, offset):
         ring, kernels.ShiftDirs((), (), 0, ())).any()
     assert kernels.LAUNCHES["tree_ring_exchange"] \
         == before["tree_ring_exchange"] + tree_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("w", (1, 8))
+def test_cuda_ring_kernels_on_the_delay_tables(cuda_device, w, offset):
+    # the delay phases' tables at 2^20 nodes, round 5 of a 3-slot ring:
+    # the circulant's edge-delayed 16 rows (8 directions x classes {1,
+    # 3}) and 24 rows (classes {1, 2, 3}), each with its class rows, and
+    # the tree's 4 entries (four nodes a thread on the aligned ring); one
+    # launch each
+    n = 1 << 20
+    strides = topology.expander_strides(n, 8, 0)
+    dirs = structured.shift_dirs("circulant", n, strides=strides)
+    ring = _bits((3, w, n), w + offset, cuda_device)
+    rk = _at_offset(ring, offset)
+    rng = np.random.default_rng(11)
+    before = dict(kernels.LAUNCHES)
+    for values in ((1, 3), (1, 2, 3)):
+        rows = rng.choice(values, (len(dirs.offs), n))
+        ed = structured.make_edge_delayed("circulant", n, rows,
+                                          strides=strides)
+        live = ed.class_rows(cuda_device)
+        table = kernels.ShiftDirs(
+            tuple(dirs.offs[d] for d, _ in ed.classes),
+            tuple(dirs.flags[d] for d, _ in ed.classes), dirs.cols,
+            tuple(structured.send_slot(5, v, 3) for _, v in ed.classes))
+        assert len(table.offs) == 8 * len(values)
+        got = kernels.shift_ring_exchange(rk, table,
+                                          _at_offset(live, offset))
+        assert torch.equal(got, kernels.shift_ring_exchange_plain(
+            ring, table, live)), values
+    rows = rng.choice((1, 3), (2, n))
+    ed = structured.make_edge_delayed("tree", n, rows)
+    live = ed.class_rows(cuda_device)
+    table = [(structured.send_slot(5, v, 3), d, j)
+             for j, (d, v) in enumerate(ed.classes)]
+    got = kernels.tree_ring_exchange(rk, table, _at_offset(live, offset), 4)
+    assert torch.equal(got, kernels.tree_ring_exchange_plain(ring, table,
+                                                             live, 4))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["shift_ring_exchange"] \
+        == before["shift_ring_exchange"] + 2
+    assert kernels.LAUNCHES["tree_ring_exchange"] \
+        == before["tree_ring_exchange"] + 1
 
 
 def _assert_ring_runs_equal(runs):

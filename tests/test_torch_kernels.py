@@ -319,6 +319,116 @@ def test_tree_ring_twin_matches_masked_composition(n, k):
     assert kernels.LAUNCHES == before
 
 
+def _tree_ring_quads_emulation(ring, table, live):
+    """tree_flood.cu's ring_quads (k = 4, N % 4 == 0), modelled in torch
+    as its threads compute it: thread q ORs over the entries, for a
+    from-parent entry, parent words q - 1 (node 4q; none at q = 0) and q
+    under the receivers' bits 4q .. 4q+3, four bits of row word q // 8;
+    for a from-kids entry (only where a child lies below N), the 16-byte
+    child vectors at words 16q, 16q+4, 16q+8, 16q+12 and the word 16q+16,
+    each loaded only where it starts below N, under the children's bits
+    16q+1 .. 16q+16, taken from row words q // 2 and q // 2 + 1 by one
+    funnel shift of 16 (q % 2) + 1.  Every load's index is held inside
+    its row."""
+    _, w, n = ring.shape
+    assert n % 4 == 0
+    nw = kernels.packed_words(n)
+    q = torch.arange(n // 4)
+    c = 16 * q
+    x64 = ring.to(torch.int64) & kernels.MASK32
+    lv = None if live is None else live.to(torch.int64) & kernels.MASK32
+    out = torch.zeros((w, n // 4, 4), dtype=torch.int64)
+
+    def gate(words, bits, j):
+        return torch.where((bits >> j) & 1 == 1, words, 0)
+
+    for slot, kind, row in table:
+        x = x64[slot]
+        if kind == kernels.TREE_PARENT:
+            assert int((q >> 3).max()) < nw
+            bits = (torch.full_like(q, 0xF) if row < 0
+                    else (lv[row][q >> 3] >> (4 * (q & 7))) & 0xF)
+            up = x[:, q]
+            up0 = torch.where(q > 0, x[:, (q - 1).clamp(min=0)], 0)
+            for i, word in enumerate((up0, up, up, up)):
+                out[:, :, i] |= gate(word, bits, i)
+            continue
+        has = c + 1 < n
+        if row < 0:
+            bits = torch.full_like(q, 0xFFFF)
+        else:
+            m = q >> 1
+            assert not has.any() or int(m[has].max()) < nw
+            lo = lv[row][m.clamp(max=nw - 1)]
+            hi = torch.where(m + 1 < nw, lv[row][(m + 1).clamp(max=nw - 1)],
+                             0)
+            bits = (((hi << 32) | lo) >> (16 * (q & 1) + 1)) & kernels.MASK32
+        words = torch.zeros((w, n // 4, 17), dtype=torch.int64)
+        for v in range(4):                   # the 16-byte vectors
+            start = c + 4 * v
+            ok = start < n
+            assert not ok.any() or int((start[ok] + 3).max()) < n
+            idx = (start[:, None] + torch.arange(4)).clamp(max=n - 1)
+            words[:, :, 4 * v:4 * v + 4] = torch.where(ok[:, None], x[:, idx],
+                                                        0)
+        words[:, :, 16] = torch.where(c + 16 < n, x[:, (c + 16).clamp(
+            max=n - 1)], 0)
+        for j in range(16):                  # child 16q + 1 + j
+            out[:, :, j // 4] |= torch.where(has, gate(words[:, :, 1 + j],
+                                                       bits, j), 0)
+    v = out.reshape(w, n)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _jax_tree_terms(hist, table, rows, k):
+    """The reference's tree deliveries (structured.py _delayed_impl's
+    from-parent and from-kids terms, masked as its delayed modes mask
+    them), one a table entry, ORed."""
+    out = None
+    for slot, kind, row in table:
+        p = jnp.asarray(hist[slot])
+        if kind == kernels.TREE_PARENT:
+            term = jst.tree_from_parent(p, k)
+            if row >= 0:
+                term = jst._mask_cols(term, jnp.asarray(rows[row]))
+        else:
+            if row >= 0:
+                p = jst._mask_cols(p, jnp.asarray(rows[row]))
+            term = jst.tree_from_kids(p, k)
+        out = term if out is None else out | term
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("n", [4, 8, 12, 16, 20, 4096, 65540])
+def test_tree_ring_quads_match_plain_and_reference(n):
+    # the four-nodes-a-thread ring kernel's arithmetic, n < 16 included
+    # (no quad has all its children), on random tables of 1-3 slots
+    # (rows -1: ungated) and on make_edge_delayed's table at round 5; the
+    # rows' bits past N random
+    rng = np.random.default_rng(n)
+    hist = _u32((3, 2, n), n)
+    ring = _torch(hist)
+    live = _torch(_u32((6, kernels.packed_words(n)), n + 1))
+    rows = kernels.unpack_bits(live, n).numpy()
+    for slots in (1, 2, 3):
+        table = [(int(rng.integers(0, slots)), int(rng.integers(0, 2)),
+                  int(rng.integers(-1, 6))) for _ in range(3 * slots)]
+        got = _tree_ring_quads_emulation(ring, table, live)
+        assert torch.equal(got, kernels.tree_ring_exchange_plain(
+            ring, table, live, 4)), table
+        np.testing.assert_array_equal(_bits(got), _jax_tree_terms(
+            hist, table, rows, 4))
+    delays = rng.choice([1, 3], (2, n)).astype(np.int32)
+    pe = pst.make_edge_delayed("tree", n, delays)
+    je = jst.make_edge_delayed("tree", n, delays)
+    table = [(pst.send_slot(5, v, pe.ring), d, j)
+             for j, (d, v) in enumerate(pe.classes)]
+    h = hist[:pe.ring]
+    got = _tree_ring_quads_emulation(_torch(h), table, pe.class_rows("cpu"))
+    np.testing.assert_array_equal(_bits(got), np.asarray(je.exchange(
+        jnp.asarray(h), 5, jnp.asarray(delays))))
+
+
 @pytest.mark.parametrize("n", [5, 64, 257, 4097])
 @pytest.mark.parametrize("mode", ["circulant", "ring", "line", "grid"])
 def test_shift_ring_twin_matches_masked_composition(mode, n):
@@ -327,7 +437,7 @@ def test_shift_ring_twin_matches_masked_composition(mode, n):
           "grid": {"cols": max(1, int(np.sqrt(n)) - 1)}}.get(mode, {})
     dirs = pst.shift_dirs(mode, n, **kw)
     before = dict(kernels.LAUNCHES)
-    for reps in (1, 3):       # 18 circulant rows run as two launches
+    for reps in (1, 3):       # 18 circulant rows: one launch
         rows = len(dirs.offs) * reps
         ring, live = _ring_case(n + reps, 3, 3, n, rows)
         table = kernels.ShiftDirs(
@@ -356,22 +466,39 @@ def test_shift_ring_twin_matches_masked_composition(mode, n):
 
 def test_ring_plan_keys_windows_by_slot():
     # a window belongs to one ring slot: directions within a tile of each
-    # other merge only within a slot, and the plan ends with each
-    # window's slot
+    # other merge only within a slot; the plan stages a group (a slot's
+    # windows and directions) at a time, and ends with the groups, the
+    # liveness slot's words and each direction's row
     n = 1 << 20
     dirs = pst.shift_dirs("ring", n)
     one = kernels.shift_windows(dirs, n, 2048)
     assert len(one) == 1 and one[0].slot == 0
     table = kernels.ShiftDirs(dirs.offs * 2, dirs.flags * 2, dirs.cols,
-                              (0, 0, 1, 2))
+                              (2, 0, 1, 0))
     wins = kernels.shift_windows(table, n, 2048)
-    assert [(w.slot, w.dirs) for w in wins] == [(0, (0, 1)), (1, (2,)),
-                                               (2, (3,))]
+    assert [(w.slot, w.dirs) for w in wins] == [(0, (1, 3)), (1, (2,)),
+                                               (2, (0,))]
+    assert kernels.shift_groups(table, n) == ((1, 3), (2,), (0,))
     words, count = kernels._shift_plan(table, n, False, live=True)
     words = list(words)
-    n_win, n_dirs = words[5], words[6]
-    assert count == 8 + 4 * n_win + 3 * n_dirs + n_win
-    assert words[-n_win:] == [0, 1, 2]
+    tile, n_win, n_dirs, live_at = words[0], words[5], words[6], words[7]
+    tail = words[8 + 4 * n_win + 3 * n_dirs:]
+    assert count == 8 + 4 * n_win + 3 * n_dirs + 2 + 6 * 3 + n_dirs
+    slot = kernels.live_slot_words(tile)
+    # (slot, first window, windows, first direction, directions, liveness
+    # offset): each group's windows from the stage's start, its slices
+    # right after them
+    at = [words[8 + 4 * k + 3] for k in range(n_win)]
+    assert at == [0, 0, 0]
+    assert tail[:2] == [3, slot] and tail[2:20] == [
+        0, 0, 1, 0, 2, live_at, 1, 1, 1, 2, 1, live_at,
+        2, 2, 1, 3, 1, live_at]
+    assert tail[20:] == [1, 3, 2, 0]
+    assert words[2] == live_at + 2 * slot          # the largest group's
+    # more than MAX_DIRS rows of one slot split into groups
+    big = kernels.ShiftDirs(dirs.offs * 9, dirs.flags * 9, dirs.cols,
+                            (0,) * 18)
+    assert [len(g) for g in kernels.shift_groups(big, n)] == [16, 2]
     # the one-source plan keeps its layout, and its wrappers refuse a ring
     # table
     assert kernels._shift_plan(dirs, n, False)[1] == 8 + 4 + 3 * 2

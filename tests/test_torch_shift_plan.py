@@ -23,7 +23,14 @@ caps:
   tile start (also tiles that are no multiple of 32 nodes); its
   emulation — the slices staged beside the windows, each term ANDed with
   the bit it reads there — equals ``shift_masked_exchange_plain`` and the
-  JAX masked exchange.
+  JAX masked exchange;
+- a ring plan (a table with ``slots``) stages a (tile, group) unit at a
+  time, a group a slot's rows (at most 16) with its windows and its
+  rows' slices; its emulation — each unit staged from its slot at the
+  phase a bulk copy gives, the groups ORed into one inbox — equals
+  ``shift_ring_exchange_plain`` and the JAX delayed exchanges
+  (``make_edge_delayed``, ``make_delayed``) reading 1-3 slots, and the
+  delay phases' tables at 2^20 nodes keep the 2048-node tile.
 """
 
 import importlib.util
@@ -60,6 +67,12 @@ def _mode(name, n):
 
 
 def _plan(dirs, n, fused, max_tile, live=False):
+    """The plan's words, parsed: (tile, stages, stage words, received's
+    offset, cols, windows, directions, each window's slot end in its
+    group's stage, groups, each direction's liveness row).  A group is
+    (slot, first window, windows, first direction, directions, liveness
+    offset); a one-source plan has one, over every window and
+    direction, and its directions' rows are their own indices."""
     words = list(kernels._shift_plan(dirs, n, fused, max_tile, live)[0])
     tile, stages, stage_words, rec_at, cols, n_win, n_dirs, live_at = \
         words[:8]
@@ -67,9 +80,23 @@ def _plan(dirs, n, fused, max_tile, live=False):
     wins = [tuple(words[8 + 4 * k:12 + 4 * k]) for k in range(n_win)]
     base = 8 + 4 * n_win
     ds = [tuple(words[base + 3 * d:base + 3 * d + 3]) for d in range(n_dirs)]
-    slot_ends = [at for _, _, _, at in wins[1:]] + [
-        rec_at if fused else live_at if live else stage_words]
-    return tile, stages, stage_words, rec_at, cols, wins, ds, slot_ends
+    tail = words[base + 3 * n_dirs:]
+    if dirs.slots:
+        n_groups, live_slot = tail[:2]
+        assert live_slot == (kernels.live_slot_words(tile) if live else 0)
+        groups = [tuple(tail[2 + 6 * g:8 + 6 * g]) for g in range(n_groups)]
+        rows = tail[2 + 6 * n_groups:]
+        assert len(rows) == n_dirs and live_at == groups[0][5]
+    else:
+        assert tail == []
+        groups = [(0, 0, n_win, 0, n_dirs, live_at)]
+        rows = list(range(n_dirs))
+    slot_ends = []
+    for _, w0, nwin, _, _, g_live in groups:
+        slot_ends += [at for _, _, _, at in wins[w0 + 1:w0 + nwin]] + [
+            rec_at if fused else g_live if live else stage_words]
+    return (tile, stages, stage_words, rec_at, cols, wins, ds, slot_ends,
+            groups, rows)
 
 
 @pytest.mark.parametrize("max_tile", TILES)
@@ -100,7 +127,7 @@ def test_windows_cover_every_direction(mode, n, max_tile):
                     assert o == dirs.offs[d]
     # each slot holds its window at any phase 0-3, inside the stage
     for fused in (False, True):
-        _, stages, stage_words, rec_at, _, wins, _, ends = _plan(
+        _, stages, stage_words, rec_at, _, wins, _, ends, *_ = _plan(
             dirs, n, fused, max_tile)
         assert stages * 4 * stage_words <= kernels.SHIFT_SMEM_BYTES
         for (lo, span, _, at), end in zip(wins, ends):
@@ -114,24 +141,32 @@ def test_windows_cover_every_direction(mode, n, max_tile):
 def _stage_and_or(src, received, dirs, max_tile, phase, live=None,
                   live_phase=0):
     """The kernel's staging, emulated: (inbox, new received or None).
-    ``live``: the masked exchange over those packed rows, whose tensor
-    starts at 16-byte phase ``live_phase``."""
-    w, n = src.shape
+    ``src`` is the (W, N) source, or for a ring table (``dirs.slots``)
+    the (L, W, N) ring, whose tensor starts at 16-byte phase ``phase``.
+    Each (tile, group) unit is staged into a fresh stage — the group's
+    windows from its slot, and with ``live`` (packed rows, whose tensor
+    starts at phase ``live_phase``) the slices of its directions' rows —
+    and the group's directions are ORed out of it into the tile's inbox
+    words, which are stored after the tile's last group."""
+    ring = src if dirs.slots else src[None]
+    _, w, n = ring.shape
     fused = received is not None
-    tile, _, stage_words, rec_at, cols, wins, ds, ends = _plan(
-        dirs, n, fused, max_tile, live is not None)
+    tile, _, stage_words, rec_at, cols, wins, ds, ends, groups, rows = \
+        _plan(dirs, n, fused, max_tile, live is not None)
+    assert sorted(rows) == list(range(len(dirs.offs)))
     i0 = torch.arange(0, n, tile)
     tl = (n - i0).clamp(max=tile)
     t = torch.arange(tile)
     valid = t[None, :] < tl[:, None]
     tiles = torch.arange(len(i0))[:, None]
-    inbox = torch.zeros_like(src)
+    inbox = torch.zeros(ring.shape[1:], dtype=torch.int32)
     new_rec = received.clone() if fused else None
 
     def stage_range(stage, words, row, at, s, width, wrap, end):
         """Stage words[x] for x in [s, s + width) of each tile at its
-        16-byte phase (a wrap range's start taken mod n first, as the
-        kernel takes it); returns the phases."""
+        16-byte phase (``row``: the row's index among the tensor's (W,
+        N) rows; a wrap range's start taken mod n first, as the kernel
+        takes it); returns the phases."""
         if wrap:
             s = s % n
         ph = (phase + row * n + s) % 4
@@ -148,54 +183,67 @@ def _stage_and_or(src, received, dirs, max_tile, phase, live=None,
         stage[tiles.expand_as(slot)[inside], slot[inside]] = got[inside]
         return ph
 
-    def stage_slices(stage):
-        """Each liveness row's slice, words [i0 / 32, (i0 + tl + 31) / 32)
-        of the row, in its slot at the phase a bulk copy would give;
-        returns each row's first slice word in the stage."""
+    def stage_slices(stage, live_at, lrows):
+        """Liveness rows ``lrows``' slices, words [i0 / 32, (i0 + tl + 31)
+        / 32) of each, one a slot from ``live_at`` at the phase a bulk
+        copy would give; returns each one's first slice word."""
         nw = live.shape[1]
         slot = kernels.live_slot_words(tile)
-        live_at = ends[-1]
-        assert stage_words == live_at + len(dirs.offs) * slot
+        assert live_at % 4 == 0
+        assert live_at + len(lrows) * slot <= stage_words
         s0 = i0 // 32
         cnt = (i0 + tl + 31) // 32 - s0
         q = torch.arange(int(cnt.max()))
         inside = q[None, :] < cnt[:, None]
         firsts = []
-        for r in range(len(dirs.offs)):
-            ph = (live_phase + r * nw + s0) % 4
+        for r, lrow in enumerate(lrows):
+            ph = (live_phase + lrow * nw + s0) % 4
             assert int((ph + cnt).max()) <= slot, "slice spills out of slot"
-            got = live[r][(s0[:, None] + q[None, :]).clamp(max=nw - 1)]
+            got = live[lrow][(s0[:, None] + q[None, :]).clamp(max=nw - 1)]
             at = live_at + r * slot + ph[:, None] + q[None, :]
             stage[tiles.expand_as(at)[inside], at[inside]] = got[inside]
             firsts.append(live_at + r * slot + ph)
         return firsts
 
+    col = (i0[:, None] + t[None, :]) % cols if cols > 0 else None
+    u = (i0 % 32)[:, None] + t[None, :]         # the bit of node i0 + t
     for row in range(w):
-        stage = torch.full((len(i0), stage_words), SENTINEL,
-                           dtype=torch.int32)
-        ph = [stage_range(stage, src[row], row, at, i0 + lo, span + tl,
-                          wrap, end)
-              for (lo, span, wrap, at), end in zip(wins, ends)]
-        if live is not None:
-            sl = stage_slices(stage)
-            u = (i0 % 32)[:, None] + t[None, :]     # the bit of node i0 + t
         v = torch.zeros(len(i0), tile, dtype=torch.int32)
-        col = (i0[:, None] + t[None, :]) % cols if cols > 0 else None
-        for d, (k, delta, mask) in enumerate(ds):
-            idx = (wins[k][3] + ph[k][:, None] + delta + t[None, :]).clamp(
-                max=stage_words - 1)
-            term = torch.gather(stage, 1, idx)
-            if mask & kernels.MASK_LEFT:
-                term = torch.where(col < cols - 1, term, 0)
-            if mask & kernels.MASK_RIGHT:
-                term = torch.where(col > 0, term, 0)
+        for slot, w0, nwin, d0, nd, live_at in groups:
+            assert nd <= kernels.MAX_DIRS
+            stage = torch.full((len(i0), stage_words), SENTINEL,
+                               dtype=torch.int32)
+            ph = {k: stage_range(stage, ring[slot, row], slot * w + row,
+                                 wins[k][3], i0 + wins[k][0],
+                                 wins[k][1] + tl, wins[k][2], ends[k])
+                  for k in range(w0, w0 + nwin)}
             if live is not None:
-                word = torch.gather(stage, 1, (sl[d][:, None] + u // 32)
-                                    .clamp(max=stage_words - 1))
-                term = torch.where((word >> (u % 32)) & 1 == 1, term, 0)
-            v |= term
+                sl = stage_slices(stage, live_at, rows[d0:d0 + nd])
+            for r, (k, delta, mask) in enumerate(ds[d0:d0 + nd]):
+                d = rows[d0 + r]
+                # the direction reads its own slot through a window of
+                # its group, at its own offset
+                assert k in ph and (not dirs.slots or dirs.slots[d] == slot)
+                assert wins[k][0] + delta == kernels.signed_offset(
+                    dirs.offs[d], dirs.flags[d], n)
+                assert mask == dirs.flags[d] & (kernels.MASK_LEFT
+                                                | kernels.MASK_RIGHT)
+                idx = (wins[k][3] + ph[k][:, None] + delta + t[None, :]
+                       ).clamp(max=stage_words - 1)
+                term = torch.gather(stage, 1, idx)
+                if mask & kernels.MASK_LEFT:
+                    term = torch.where(col < cols - 1, term, 0)
+                if mask & kernels.MASK_RIGHT:
+                    term = torch.where(col > 0, term, 0)
+                if live is not None:
+                    word = torch.gather(stage, 1, (sl[r][:, None] + u // 32)
+                                        .clamp(max=stage_words - 1))
+                    term = torch.where((word >> (u % 32)) & 1 == 1, term, 0)
+                v |= term
         v = v[valid]
         if fused:
+            stage = torch.full((len(i0), stage_words), SENTINEL,
+                               dtype=torch.int32)
             rph = stage_range(stage, received[row], row, rec_at, i0, tl,
                               False, stage_words)
             idx = (rec_at + rph[:, None] + t[None, :]).clamp(
@@ -254,7 +302,7 @@ def test_staged_emulation_matches_plain_and_reference(mode, n, max_tile):
 @pytest.mark.parametrize("mode", MODES)
 def test_masked_plan_places_the_liveness_slices(mode, n, max_tile):
     dirs = pst.shift_dirs(mode, n, **_mode(mode, n))
-    tile, stages, stage_words, rec_at, _, wins, ds, ends = _plan(
+    tile, stages, stage_words, rec_at, _, wins, ds, ends, *_ = _plan(
         dirs, n, False, max_tile, live=True)
     # the slices do not halve the tile: the same tile and windows as the
     # unmasked exchange's plan
@@ -321,3 +369,121 @@ def test_masked_emulation_matches_plain_and_reference(mode, n, max_tile):
         got, _ = _stage_and_or(ft, None, dirs, max_tile, phase, live,
                                live_phase)
         assert torch.equal(got, want), (phase, live_phase)
+
+
+# -- the ring mode: a stage a (tile, group) -----------------------------
+
+# delay-value sets whose classes, at round RING_T of a ring of max(v)
+# slots, read 1, 2 and 3 slots
+RING_VALUES = ((2,), (1, 3), (1, 2, 3))
+RING_T = 5
+
+
+def _ring_dirs(dirs, terms, ring):
+    """The ring table of ``(d, v)`` terms at round RING_T: direction d's
+    row of ``dirs`` reading the slot of its send round."""
+    return kernels.ShiftDirs(
+        tuple(dirs.offs[d] for d, _ in terms),
+        tuple(dirs.flags[d] for d, _ in terms), dirs.cols,
+        tuple(pst.send_slot(RING_T, v, ring) for _, v in terms))
+
+
+@pytest.mark.parametrize("max_tile", TILES)
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("mode", MODES)
+def test_ring_emulation_matches_plain_and_reference(mode, n, max_tile):
+    # per-edge classes (make_edge_delayed: a row a (direction, delay),
+    # gated by its packed class row) and per-direction classes
+    # (make_delayed: ungated) reading 1, 2 and 3 ring slots; the ring at
+    # 16-byte phases 0 and 1, the rows at 3 and 2
+    kw = _mode(mode, n)
+    dirs = pst.shift_dirs(mode, n, **kw)
+    rng = np.random.default_rng(n + len(mode))
+    for values in RING_VALUES:
+        hist = _u32((max(values), 1, n), seed=n + len(values))
+        phase = len(values) % 2
+        rows = rng.choice(values, (len(dirs.offs), n)).astype(np.int32)
+        pe = pst.make_edge_delayed(mode, n, rows, **kw)
+        je = jst.make_edge_delayed(mode, n, rows, **kw)
+        # the bundles' ring: the largest delay present
+        ht = torch.from_numpy(hist[:pe.ring].view(np.int32))
+        table = _ring_dirs(dirs, pe.classes, pe.ring)
+        live = pe.class_rows("cpu")
+        want = kernels.shift_ring_exchange_plain(ht, table, live)
+        np.testing.assert_array_equal(
+            want.numpy().view(np.uint32),
+            np.asarray(je.exchange(jnp.asarray(hist[:je.ring]), RING_T,
+                                   jnp.asarray(rows))))
+        got, _ = _stage_and_or(ht, None, table, max_tile, phase, live,
+                               3 - phase)
+        assert torch.equal(got, want), ("rows", values)
+        dd = tuple(values[d % len(values)] for d in range(len(dirs.offs)))
+        jb = jst.make_delayed(mode, n, dd, **kw)
+        ht = torch.from_numpy(hist[:jb.ring].view(np.int32))
+        table = _ring_dirs(dirs, list(enumerate(dd)), jb.ring)
+        want = kernels.shift_ring_exchange_plain(ht, table)
+        np.testing.assert_array_equal(
+            want.numpy().view(np.uint32),
+            np.asarray(jb.exchange(jnp.asarray(hist[:jb.ring]), RING_T)))
+        got, _ = _stage_and_or(ht, None, table, max_tile, 1 - phase, None,
+                               0)
+        assert torch.equal(got, want), ("no rows", values)
+
+
+@pytest.mark.parametrize("n", (65539, 1 << 20))
+def test_ring_emulation_past_a_group(n):
+    # a slot of more than MAX_DIRS rows (the circulant's 8 directions
+    # three times over, 20 of them in one slot: one window, split into
+    # groups of 16 and 4) and 24 rows over 3 slots, one launch each; ring
+    # and rows off the 16-byte grid
+    dirs = pst.shift_dirs("circulant", n, **_mode("circulant", n))
+    reps = 3 * len(dirs.offs)
+    ring = torch.from_numpy(_u32((3, 1, n), seed=n).view(np.int32))
+    rng = np.random.default_rng(n)
+    live = kernels.pack_bits(torch.from_numpy(rng.random((reps, n)) < 0.7))
+    for slots in ((0,) * 20 + (2,) * 4, tuple(d // 8 for d in range(reps))):
+        table = kernels.ShiftDirs(dirs.offs * 3, dirs.flags * 3, dirs.cols,
+                                  slots)
+        groups = _plan(table, n, False, kernels.SHIFT_TILE, True)[8]
+        assert [nd for *_, nd, _ in groups] == (
+            [16, 4, 4] if slots[0] == slots[19] else [8, 8, 8])
+        for lv in (None, live):
+            want = kernels.shift_ring_exchange_plain(ring, table, lv)
+            got, _ = _stage_and_or(ring, None, table, kernels.SHIFT_TILE, 1,
+                                   lv, 3)
+            assert torch.equal(got, want), lv is None
+
+
+def test_ring_plans_of_the_delay_phases_keep_the_tile():
+    # w1_circulant_delayed's tables at 2^20 nodes and round 5: the
+    # edge-delayed 8 directions x classes {1, 3} (16 rows, 2 slots) with
+    # their class rows, and 3 classes (24 rows); the per-direction table
+    # (8 rows).  Each keeps the 2048-node tile, a group a slot, and a
+    # stage the size of one slot's masked exchange (7 windows, 8 slices),
+    # and runs as one launch
+    n = 1 << 20
+    kw = _mode("circulant", n)
+    dirs = pst.shift_dirs("circulant", n, **kw)
+    rows, gen = chip_smoke.delay_rows(len(dirs.offs), n)
+    masked = _plan(dirs, n, False, kernels.SHIFT_TILE, True)
+    assert masked[0] == 2048 and len(masked[5]) == 7
+    dd = tuple(int(v) for v in gen.choice([1, 3], len(dirs.offs)))
+    rows3 = np.random.default_rng(3).choice([1, 2, 3], rows.shape)
+    for table, live, n_slots in (
+            (_ring_dirs(dirs, pst.make_edge_delayed(
+                "circulant", n, rows, **kw).classes, 3), True, 2),
+            (_ring_dirs(dirs, pst.make_edge_delayed(
+                "circulant", n, rows3, **kw).classes, 3), True, 3),
+            (_ring_dirs(dirs, list(enumerate(dd)), 3), False,
+             len(set(dd)))):
+        assert len(table.offs) <= kernels.MAX_RING_ROWS      # one launch
+        tile, stages, stage_words, *_, groups, _ = _plan(
+            table, n, False, kernels.SHIFT_TILE, live)
+        assert tile == 2048 and len(groups) == n_slots
+        assert sorted(g[0] for g in groups) == sorted(set(table.slots))
+        if live:
+            assert len(table.offs) == 8 * n_slots
+            assert stage_words == masked[2]
+            assert [(g[2], g[4]) for g in groups] == [(7, 8)] * n_slots
+        assert stages == kernels.SHIFT_STAGES
+        assert stages * 4 * stage_words <= kernels.SHIFT_SMEM_BYTES
