@@ -5,7 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (``nvcc``); it builds the port's kernels
 from ``gossip_glomers_tpu_torch/csrc/`` into ``build/`` (one ``nvcc`` per
 source, all started together) and drives the main path, the broadcast
-flood at 1,048,576 nodes, on every topology the port runs:
+flood at 1,048,576 nodes, on every topology the port runs, then the
+g-counter, unique ids and echo:
 
 1. ``build``: nvcc build of the kernels, with its seconds.
 2. ``kernel_check``: each kernel against its plain PyTorch version on the
@@ -36,7 +37,12 @@ flood at 1,048,576 nodes, on every topology the port runs:
    table shape the delay modes build (the tree's, every shift mode's as
    two delay classes and up to 24 rows, rows dropped), at the small
    shapes, n % 4 in {0, 1, 2, 3} (the tree's four nodes a thread and a
-   node a thread), the main shapes and 4-byte-offset views — and each
+   node a thread), the main shapes and 4-byte-offset views; the counter
+   round's kernels (``counter_select``, ``counter_apply``) at 1, 31,
+   2^20 + 3 and 2^24 nodes in every layout (cas packed and wide,
+   allreduce), with and without the gate byte, on poll and other
+   rounds, with and without the stale coin, on 4-byte-offset views and
+   in place — and each
    one's median
    time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
@@ -44,7 +50,8 @@ flood at 1,048,576 nodes, on every topology the port runs:
    tree nemesis's 2 delivery rows and the accounted circulant's 8 ledger
    rows at round 5; the ring kernels on the delay phases' edge-delayed
    tables at round 5, beside the composition of masked exchanges they
-   replace), with its bound and the share of it reached
+   replace; the counter kernels at config3c's 2^24, cas and wide, and
+   config3b's 2^20, allreduce under its gate), with its bound and the share of it reached
    (``bound_share`` = bound / device time).  Bounds count each input
    read once and each output written once over 3.35 TB/s, and the
    integer operations the function needs at 64 lanes a clock an SM (the
@@ -120,6 +127,27 @@ flood at 1,048,576 nodes, on every topology the port runs:
 18. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
     run to convergence with the server ledger on, each held against the
     CPU path (coverage, not timing).
+19. ``counter_1m_partitioned``: benchmarks/run_all.py's ``config3b``
+    (``_counter_bench`` at 2^20 nodes: allreduce, half the nodes off the
+    KV for rounds [0, 8) of 16); ``ok``: the KV and every read equal the
+    sum of the deltas.
+20. ``counter_16m_cas_wide``: ``config3c`` (2^24 nodes, cas, the wide
+    winner layout, 16 rounds); ``ok``: the KV equals the drained deltas
+    and 16 nodes drained; ``run_fused`` equals ``run``.
+21. ``counter_nemesis_device_kv``: benchmarks/fault_sweep.py's large-N
+    counter plan at 2^17 nodes over the device KV: allreduce with the
+    fault gate in ``union_block`` slabs and ``kv_amnesia``, to
+    convergence, then cas with seq-kv stale reads for 32 rounds; ``ok``:
+    the KV plus what is pending plus the deltas lost in amnesia rows is
+    the acknowledged sum, the store holds the KV, allreduce converges.
+22. ``ids_echo``: ``UniqueIdsSim`` at 2^20 nodes, 32 ids a node, 4
+    rounds, every id distinct; ``EchoSim`` at (2^20, 4), ``msgs == 2
+    valid``.
+
+The counter phases are timed as fixed trips of ``run`` (CUDA events),
+with their device busy time, idle share and port launches a round, and
+each equals the port's CPU path in ``pending``, ``cached``, ``kv``,
+``t``, ``msgs`` and the KV rows.
 
 Device times (``device_ms``, ``device_busy_ms``) come from
 torch.profiler and count only when it saw every port kernel launch of
@@ -211,6 +239,10 @@ KERNELS = {
                            "tree_ring_exchange_kernel"),
     "shift_ring_exchange": ("shift_flood.cu", JAX_PKG + "structured.py:1038",
                             "shift_tiles_kernel"),
+    "counter_select": ("counter_round.cu", JAX_PKG + "counter.py:397",
+                       "counter_select_kernel"),
+    "counter_apply": ("counter_round.cu", JAX_PKG + "counter.py:483",
+                      "counter_apply_kernel"),
 }
 # the gather kernels' main shapes are node-major (N, W) = (2^20, 1) and
 # (2^20, 128), degree 8
@@ -221,13 +253,17 @@ PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
                          r"tree_flood_round|col_popcount|col_popcount_nm|"
                          r"shift_tiles|gather_or|sync_diff_pc|"
                          r"gather_flood_round|fault_coins|"
-                         r"faulted_gather_round|wm_fault_coins)_kernel")
+                         r"faulted_gather_round|wm_fault_coins|"
+                         r"counter_select|counter_apply)_kernel")
 LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 # plan tile caps at which shift_masked_exchange is also timed (the
 # wrapper's, kernels.SHIFT_TILE, first)
 MASKED_TILES = (2048, 1024, 512)
 # what the L2 delivered to the SMs in an L2 probe on an H100 (PERF.md)
 L2_BYTES_PER_S = 5.33e12
+# the H100 SXM's L2 (data sheet): operands below it stay there between
+# back-to-back calls
+L2_BYTES = 50 << 20
 
 
 def emit(obj: dict) -> None:
@@ -357,11 +393,13 @@ def at_offset(x, offset: int):
     return view
 
 
-def bound(moved_bytes: float, ops: float) -> tuple[float, str]:
+def bound(moved_bytes: float, ops: float,
+          bytes_per_s: float = HBM_BYTES_PER_S) -> tuple[float, str]:
     """(least ms, "bytes" | "operations") for work that moves
-    ``moved_bytes`` and does ``ops`` integer operations (at the card's
-    integer rate, :data:`OPS_PER_S`)."""
-    by = moved_bytes / HBM_BYTES_PER_S * 1e3
+    ``moved_bytes`` (at ``bytes_per_s``: HBM's rate, or the L2's for
+    operands that stay in it) and does ``ops`` integer operations (at
+    the card's integer rate, :data:`OPS_PER_S`)."""
+    by = moved_bytes / bytes_per_s * 1e3
     op = ops / OPS_PER_S * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
 
@@ -818,6 +856,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
             del case
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    check_counter(kernels, note, device)
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -1074,6 +1113,7 @@ def time_kernels(kernels, structured, topology, device) -> dict:
             "ops": ops, "live_edges": n_live, "loss_coins": n_loss,
             "dup_coins": n_dup})
     time_ring_kernels(kernels, structured, out, gen, strides, device)
+    time_counter(kernels, device, out)
     return out
 
 
@@ -2012,6 +2052,415 @@ def small_floods(modules, device, launches: Launches) -> None:
     emit(rec)
 
 
+# the counter phases' node counts: run_all.py config3b's and config3c's,
+# fault_sweep.py's large-N counter row's, and the ids / echo phase's
+COUNTER_3B_NODES = 1 << 20
+COUNTER_3C_NODES = 1 << 24
+COUNTER_NEMESIS_NODES = 1 << 17
+IDS_ECHO_NODES = 1 << 20
+# the counter kernels' checked shapes: one node, a ragged warp, a million
+# and three (no multiple of 4: the scalar tail), and config3c's 2^24
+COUNTER_NS = (1, 31, (1 << 20) + 3, COUNTER_3C_NODES)
+# the seq-kv stale coin the checks draw: threshold 0.5, round 3, seed 5
+COUNTER_STALE = {"stale_num": 1 << 31, "stale_seed": 5, "t": 3}
+
+
+def counter_case(n: int, seed: int, device, gate: bool):
+    """A counter round's operands from ``seed``: pending in [-3, 10) with
+    one node in 64 near 2^30 (the allreduce sum wraps), cached equal to
+    kv0 at half the nodes (fresh), a gate byte of every kind at a
+    quarter of them, kv0 and msgs random."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, dtype=dtype, device=device,
+                             generator=gen)
+
+    kv0 = ints(-5, 5, ())
+    pending = torch.where(ints(0, 64, (n,)) == 0, ints(1 << 29, 1 << 30,
+                                                       (n,)),
+                          ints(-3, 10, (n,)))
+    cached = torch.where(ints(0, 2, (n,)) == 0, kv0, ints(-5, 5, (n,)))
+    g = ints(0, 16, (n,))
+    gates = torch.where(g < 12, 0, g & 3).to(torch.uint8) if gate else None
+    msgs = ints(0, 1 << 32, (), torch.int64)
+    return pending, cached, gates, kv0, msgs
+
+
+def counter_modes(n: int) -> list:
+    """(cas, wide) of every layout the counter takes at n nodes: cas
+    packed (below 24 row bits), cas wide, allreduce."""
+    row_bits = max(1, (n - 1).bit_length())
+    return ([(True, False)] if row_bits < 24 else []) \
+        + [(True, True), (False, False)]
+
+
+def check_counter(kernels, note, device) -> None:
+    """``counter_select`` and ``counter_apply`` against their plain
+    versions at :data:`COUNTER_NS`: every layout, with and without the
+    gate, poll and no poll, the stale coin on and off (cas), aligned and
+    on 4-byte-offset views (the scalar path), out of place and in
+    place."""
+    import torch
+
+    for n in COUNTER_NS:
+        row_bits = max(1, (n - 1).bit_length())
+        for cas, wide in counter_modes(n):
+            for gate in (False, True):
+                for offset in (0, 1):
+                    case = counter_case(n, n + 2 * gate + offset, device,
+                                        gate)
+                    pending, cached, gates, kv0, msgs = case
+                    poll = bool(offset) != gate
+                    kw = dict(cas=cas, wide=wide, row_bits=row_bits, t=7,
+                              seed=n, poll=poll)
+                    views = [at_offset(x, offset) if x is not None else None
+                             for x in (pending, cached, gates)]
+                    wk, wp = (kernels.counter_work(device) for _ in "kp")
+                    kv_k, m_k = kernels.counter_select(*views, kv0, msgs, wk,
+                                                       **kw)
+                    kv_p, m_p = kernels.counter_select_plain(
+                        pending, cached, gates, kv0, msgs, wp, **kw)
+                    note("counter_select", (kv_k, kv_p), (m_k, m_p),
+                         (wk, wp))
+                    for stale in ({}, COUNTER_STALE) if cas else ({},):
+                        akw = dict(cas=cas, poll=poll, **stale)
+                        got = kernels.counter_apply(*views, kv_k, wk, **akw)
+                        want = kernels.counter_apply_plain(
+                            pending, cached, gates, kv_p, wp, **akw)
+                        note("counter_apply", *zip(got, want))
+                        # in place, as the donated run_fused loop runs it
+                        into = [at_offset(x, offset)
+                                for x in (pending, cached)]
+                        kernels.counter_apply(*into, views[2], kv_k, wk,
+                                              out=into, **akw)
+                        note("counter_apply", *zip(into, want))
+                    del case, views, got, want, into
+            torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def time_counter(kernels, device, out) -> None:
+    """The counter kernels and their plain versions, keyed (1, n), at
+    config3c's 2^24 (cas, the wide layout, no gate, a poll round) and
+    config3b's 2^20 (allreduce under its window: half the nodes
+    blocked).  Bounds: the read pass reads pending and the gate, and in
+    cas mode cached (cas 8 bytes a node, allreduce gated 5), the update
+    pass reads pending, cached and the gate and writes pending and
+    cached (16 or 17); their integer operations a node (the read pass's
+    hash, masks, key and counts: 14 in cas mode, 7 in allreduce; the
+    update pass's masks and selects: 8) lie below those bytes.  Bytes
+    go at HBM's rate, or at the L2's where every operand fits in the L2
+    and so stays there between the timed calls (2^20: 17 MB of 50)."""
+    import torch
+
+    for n, cas, gated in ((COUNTER_3C_NODES, True, False),
+                          (COUNTER_3B_NODES, False, True)):
+        pending, cached, _, kv0, msgs = counter_case(n, 3, device, False)
+        gate = ((torch.arange(n, device=device) < n // 2).to(torch.uint8)
+                * kernels.GATE_BLOCKED if gated else None)
+        kw = dict(cas=cas, wide=cas, row_bits=max(1, (n - 1).bit_length()),
+                  t=4, seed=0, poll=True)
+        wk, wp = kernels.counter_work(device), kernels.counter_work(device)
+        kv, _ = kernels.counter_select(pending, cached, gate, kv0, msgs, wk,
+                                       **kw)
+        kv_p, _ = kernels.counter_select_plain(pending, cached, gate, kv0,
+                                               msgs, wp, **kw)
+        g_bytes = n if gated else 0
+        resident = 16 * n + g_bytes <= L2_BYTES
+        rate = L2_BYTES_PER_S if resident else HBM_BYTES_PER_S
+        out["counter_select"][(1, n)] = _timed(
+            "counter_select",
+            lambda: kernels.counter_select(pending, cached, gate, kv0, msgs,
+                                           wk, **kw),
+            lambda: kernels.counter_select_plain(pending, cached, gate, kv0,
+                                                 msgs, wp, **kw),
+            bound((8 if cas else 4) * n + g_bytes, (14 if cas else 7) * n,
+                  rate))
+        akw = dict(cas=cas, poll=True)
+        out["counter_apply"][(1, n)] = _timed(
+            "counter_apply",
+            lambda: kernels.counter_apply(pending, cached, gate, kv, wk,
+                                          **akw),
+            lambda: kernels.counter_apply_plain(pending, cached, gate, kv_p,
+                                                wp, **akw),
+            bound(16 * n + g_bytes, 8 * n, rate))
+        for name in ("counter_select", "counter_apply"):
+            out[name][(1, n)]["mode"] = "cas-wide" if cas else \
+                "allreduce-gated"
+            out[name][(1, n)]["bound_rate"] = "L2" if resident else "HBM"
+        del pending, cached, gate, kv, kv_p
+        torch.cuda.empty_cache()
+
+
+COUNTER_EXPECT = ("counter_select", "counter_apply")
+
+
+def counter_timed(sim, kernels, state0, rounds: int) -> dict:
+    """``sim.run(state0, rounds)`` (out of place: ``state0`` stays) timed
+    with CUDA events (median of 3 after a warm-up), its device busy time
+    under the profiler and the port-kernel launches of one run."""
+    def run():
+        return sim.run(state0, rounds)
+
+    wall = cuda_ms(run, samples=3, inner=1)
+    busy, spans = busy_and_spans(lambda: run)
+    port = launches_of(kernels, run)
+    return {"rounds": rounds, "wall_ms": wall, "ms_per_round": wall / rounds,
+            "device_busy_ms": busy,
+            "device_idle_share": idle_share(busy, wall),
+            "launches_per_round": port / rounds,
+            "device_spans_per_round": None if spans is None
+            else spans / rounds}
+
+
+def same_counter(a, b) -> bool:
+    """Two counter states agree: t, kv, msgs, the node rows and the KV
+    rows."""
+    import torch
+
+    def eq(x, y):
+        return bool(torch.equal(x.cpu(), y.cpu()))
+
+    return (a.t == b.t and int(a.kv) == int(b.kv)
+            and int(a.msgs) == int(b.msgs) and eq(a.pending, b.pending)
+            and eq(a.cached, b.cached)
+            and (a.rows is None) == (b.rows is None)
+            and (a.rows is None or (eq(a.rows.vals, b.rows.vals)
+                                    and eq(a.rows.vers, b.rows.vers))))
+
+
+def counter_nemesis_spec(faults, n: int):
+    """benchmarks/fault_sweep.py ``_large_n_faulted_rows``'s counter plan
+    at seed 0: ``random_spec(n, seed=1, horizon=12, n_crash_windows=2,
+    loss_rate=0.1)`` with its crash windows and loss horizon moved 4
+    rounds later (``_shift_crash``); no dup stream."""
+    spec = faults.random_spec(n, seed=1, horizon=12, n_crash_windows=2,
+                              loss_rate=0.1)
+    meta = spec.to_meta()
+    meta["crash"] = [[s + 4, e + 4, ns] for s, e, ns in meta["crash"]]
+    meta["loss_until"] += 4
+    return faults.NemesisSpec.from_meta(meta)
+
+
+def counter_phases(counter, faults, kernels, device, launches: Launches,
+                   card: str) -> None:
+    """benchmarks/run_all.py's counter configs on the card (config3b at
+    2^20, config3c at 2^24) and fault_sweep.py's large-N counter plan at
+    2^17 over the device KV, each held to its own ok condition and to the
+    port's CPU path."""
+    import numpy as np
+    import torch
+
+    # config3b: half the nodes cut off the KV for rounds [0, 8) of 16
+    n, rounds = COUNTER_3B_NODES, 16
+    deltas = np.random.default_rng(0).integers(0, 10, n).astype(np.int32)
+    blocked = np.zeros((1, n), bool)
+    blocked[0, : n // 2] = True
+
+    def sim3b(dev):
+        return counter.CounterSim(
+            n, mode="allreduce", poll_every=2, device=dev,
+            kv_sched=counter.KVReach.from_numpy([0], [8], blocked))
+
+    launches.start()
+    sim = sim3b(device)
+    st0 = sim.add(sim.init_state(), deltas)
+    rec = {"phase": "counter_1m_partitioned", "card": card, "n": n,
+           "mode": "allreduce", "window": [0, 8], "poll_every": 2,
+           **counter_timed(sim, kernels, st0, rounds)}
+    st = sim.run(st0, rounds)
+    total = int(deltas.sum())
+    ok = sim.kv_value(st) == total and bool((sim.reads(st) == total).all())
+    rec.update(kv=sim.kv_value(st), msgs=int(st.msgs), ok=ok)
+    launches.stop(rec, COUNTER_EXPECT)
+    cpu = sim3b("cpu")
+    if not (ok and same_counter(st, cpu.run(cpu.add(cpu.init_state(),
+                                                    deltas), rounds))):
+        raise AssertionError(f"counter_1m_partitioned: ok {ok}, or the GPU "
+                             "run differs from the CPU path")
+    rec["cpu_match"] = True
+    emit(rec)
+    del sim, st0, st, cpu
+    torch.cuda.empty_cache()
+
+    # config3c: cas at 2^24 nodes, the wide winner layout, 16 rounds
+    n = COUNTER_3C_NODES
+    deltas = np.random.default_rng(0).integers(1, 10, n).astype(np.int32)
+
+    def sim3c(dev):
+        return counter.CounterSim(n, mode="cas", poll_every=4, device=dev)
+
+    launches.start()
+    sim = sim3c(device)
+    if not sim._wide:
+        raise AssertionError("2^24 nodes must select the wide winner layout")
+    st0 = sim.add(sim.init_state(), deltas)
+    rec = {"phase": "counter_16m_cas_wide", "card": card, "n": n,
+           "mode": "cas", "winner_key": "wide", "poll_every": 4,
+           **counter_timed(sim, kernels, st0, rounds)}
+    st = sim.run(st0, rounds)
+    drained = int((st0.pending - st.pending).sum(dtype=torch.int64))
+    n_drained = int((st.pending == 0).sum())
+    ok = sim.kv_value(st) == drained and n_drained == rounds
+    fused = sim.run_fused(sim.add(sim.init_state(), deltas), rounds)
+    rec.update(kv=sim.kv_value(st), drained=drained, n_drained=n_drained,
+               msgs=int(st.msgs), ok=ok,
+               fused_match=same_counter(st, fused))
+    launches.stop(rec, COUNTER_EXPECT)
+    del fused
+    cpu = sim3c("cpu")
+    if not (ok and rec["fused_match"]
+            and same_counter(st, cpu.run(cpu.add(cpu.init_state(), deltas),
+                                         rounds))):
+        raise AssertionError(f"counter_16m_cas_wide: ok {ok}, or the GPU "
+                             "run differs from run_fused or the CPU path")
+    rec["cpu_match"] = True
+    emit(rec)
+    del sim, st0, st, cpu
+    torch.cuda.empty_cache()
+
+    # fault_sweep.py's counter plan at 2^17 over the device KV: allreduce
+    # with the fault gate swept in slabs and kv_amnesia, run to
+    # convergence; then cas with seq-kv stale reads for a fixed trip
+    n = COUNTER_NEMESIS_NODES
+    spec = counter_nemesis_spec(faults, n)
+    clear = spec.clear_round
+    deltas = np.random.default_rng(0).integers(0, 10, n).astype(np.int32)
+    acked = int(deltas.sum())
+    members = torch.from_numpy(spec.host_members(clear)).to(device)
+    ways = {
+        "allreduce": dict(mode="allreduce", union_block=4096,
+                          kv_amnesia=True),
+        "cas": dict(mode="cas", stale_prob=0.1, stale_until=8)}
+    launches.start()
+    rec = {"phase": "counter_nemesis_device_kv", "card": card, "n": n,
+           "spec": {"crash": [[s, e, len(ns)] for s, e, ns in spec.crash],
+                    "loss_rate": spec.loss_rate,
+                    "loss_until": spec.loss_until, "seed": spec.seed},
+           "clear_round": clear, "ways": {}}
+    finals = {}
+    for way, kw in ways.items():
+        def make(dev, kw=kw):
+            return counter.CounterSim(n, poll_every=2, kv_backend="device",
+                                      fault_plan=spec.compile(dev),
+                                      device=dev, **kw)
+
+        sim = make(device)
+        plan = sim.fault_plan
+        ids = torch.arange(n, device=device)
+        st0 = sim.add(sim.init_state(), deltas)
+        state, wiped, conv = st0, 0, None
+        limit = clear + 64 if way == "allreduce" else clear + 16
+        while state.t < limit:
+            # the acked deltas that die unflushed in an amnesia row
+            wiped += int(state.pending[faults.amnesia(plan, state.t,
+                                                      ids)].sum())
+            state = sim.step(state)
+            if way == "allreduce" and state.t >= clear \
+                    and int(state.pending.sum()) == 0 \
+                    and bool(((state.cached == state.kv)
+                              | ~members).all()):
+                conv = state.t
+                break
+        kv = sim.kv_value(state)
+        left = int(state.pending.sum(dtype=torch.int64))
+        store = int(state.rows.vals[sim._key_at])
+        ok = (kv + left + wiped == acked and store == kv
+              and (way == "cas" or conv is not None))
+        r = {"rounds": state.t, "converged_round": conv, "kv": kv,
+             "pending_left": left, "lost_writes_sum": wiped,
+             "msgs": int(state.msgs), "ok": ok,
+             **{k: v for k, v in kw.items() if k != "mode"},
+             **counter_timed(sim, kernels, st0, state.t)}
+        rec["ways"][way] = r
+        finals[way] = (make, state)
+        if not ok:
+            raise AssertionError(f"counter_nemesis_device_kv {way}: {r}")
+        del sim, st0
+    launches.stop(rec, COUNTER_EXPECT)
+    for way, (make, state) in finals.items():
+        cpu = make("cpu")
+        if not same_counter(state, cpu.run(cpu.add(cpu.init_state(),
+                                                   deltas), state.t)):
+            raise AssertionError(f"counter_nemesis_device_kv {way}: GPU "
+                                 "run differs from the CPU path")
+        rec["ways"][way]["cpu_match"] = True
+    emit(rec)
+    del finals
+    torch.cuda.empty_cache()
+
+
+def ids_echo(unique_ids, echo, device, launches: Launches,
+             card: str) -> None:
+    """Challenges 2 and 1 at 2^20 nodes: ``UniqueIdsSim(max_per_round=32)``
+    for 4 rounds, every id distinct (checked on the card) and equal to
+    the CPU path; ``EchoSim`` with 4 payload slots a node for 3 rounds,
+    ``msgs == 2 valid`` and the replies equal to the CPU path.  No
+    kernel: one pass of torch ops a step."""
+    import numpy as np
+    import torch
+
+    n, g = IDS_ECHO_NODES, 32
+    launches.start()
+    rng = np.random.default_rng(0)
+    sims = [unique_ids.UniqueIdsSim(n, max_per_round=g, device=d)
+            for d in (device, "cpu")]
+    st, cst = (s.init_state() for s in sims)
+    keys, step_ms = [], []
+    for _ in range(4):
+        counts = rng.integers(0, g + 1, n).astype(np.int32)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        st, ids = sims[0].step(st, counts)
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        cst, cids = sims[1].step(cst, counts)
+        if not torch.equal(ids.cpu(), cids):
+            raise AssertionError("ids_echo: GPU ids differ from the CPU "
+                                 "path")
+        valid = ids[..., 0] >= 0
+        ids = ids.long()
+        keys.append(((ids[..., 0] * n + ids[..., 1]) * g
+                     + ids[..., 2])[valid])
+    allk = torch.cat(keys)
+    minted = int(st.minted.sum(dtype=torch.int64))
+    distinct = torch.unique(allk).numel() == allk.numel() == minted
+    sample = sims[0].format_ids(ids[:8].int())
+    rec = {"phase": "ids_echo", "card": card, "n": n,
+           "ids": {"max_per_round": g, "rounds": 4, "minted": minted,
+                   "all_distinct": distinct, "step_ms": step_ms,
+                   "sample": sample[:3]}}
+    del keys, allk, ids, cids
+    b = 4
+    esims = [echo.EchoSim(n, device=d) for d in (device, "cpu")]
+    es, ces = (s.init_state() for s in esims)
+    n_valid = 0
+    for _ in range(3):
+        payload = rng.integers(-2**31, 2**31, (n, b)).astype(np.int32)
+        valid = rng.random((n, b)) < 0.5
+        es, rep = esims[0].step(es, payload, valid)
+        ces, crep = esims[1].step(ces, payload, valid)
+        if not torch.equal(rep.cpu(), crep):
+            raise AssertionError("ids_echo: GPU echo replies differ from "
+                                 "the CPU path")
+        n_valid += int(valid.sum())
+    ok = distinct and int(es.msgs) == 2 * n_valid % (1 << 32) \
+        and int(es.msgs) == int(ces.msgs) and st.t == cst.t == 4
+    rec["echo"] = {"slots": b, "rounds": 3, "msgs": int(es.msgs),
+                   "valid": n_valid}
+    rec["ok"] = ok
+    launches.stop(rec, ())
+    if not ok:
+        raise AssertionError(f"ids_echo: {rec}")
+    rec["cpu_match"] = True
+    emit(rec)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2019,9 +2468,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from gossip_glomers_tpu_torch.parallel import topology
-    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, faults,
-                                                  kernels, structured,
-                                                  timing)
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter, echo,
+                                                  faults, kernels,
+                                                  structured, timing,
+                                                  unique_ids)
 
     device = torch.device("cuda")
     modules = (broadcast, timing)
@@ -2068,6 +2518,7 @@ def main() -> int:
                           CHECK_SHAPES + RING_SHAPES + MAIN_SHAPES],
           "coin_dir_sets": [name for name, _ in coin_dir_sets(
               structured, topology, N_NODES)],
+          "counter_ns": list(COUNTER_NS),
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
                     for k, t in times.items()}})
 
@@ -2099,6 +2550,8 @@ def main() -> int:
     delay_phases(modules, faults, structured, kernels, topology, device,
                  launches)
     small_floods(modules, device, launches)
+    counter_phases(counter, faults, kernels, device, launches, smi)
+    ids_echo(unique_ids, echo, device, launches, smi)
 
     for name, count in launches.total.items():
         if count == 0:
@@ -2113,9 +2566,10 @@ def main() -> int:
                  "replaces": replaces, "launches": launches.total[name],
                  "max_abs_err": errs[name], **shapes[big],
                  "library_ms": None, "at": list(big)}
-        if MAIN_SHAPES[0] in shapes and big != MAIN_SHAPES[0]:
+        if MAIN_SHAPES[0] in shapes and big != MAIN_SHAPES[0] \
+                and not name.startswith("counter_"):
             entry["w1"] = shapes[MAIN_SHAPES[0]]
-        elif len(shapes) > 1:           # wm_fault_coins: keyed (D, N)
+        elif len(shapes) > 1:   # wm_fault_coins (D, N), the counter (1, N)
             entry["also"] = {f"{w}x{n}": v for (w, n), v in shapes.items()
                              if (w, n) != big}
         if name.startswith("shift_"):

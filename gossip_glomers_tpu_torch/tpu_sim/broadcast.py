@@ -335,6 +335,13 @@ def _srv_ledger(srv_msgs: torch.Tensor, *, t: int, is_sync: bool,
     return wrap32(srv)
 
 
+def _is_sync(t: int, sync_every: int) -> bool:
+    """Round ``t`` is a sync wave: every ``sync_every`` rounds after round
+    0, and every round after it at ``sync_every=0`` (the reference's
+    ``t % 0`` is 0)."""
+    return t > 0 and (sync_every == 0 or t % sync_every == 0)
+
+
 def _round(state: BroadcastState, *, row_ids: torch.Tensor,
            nbrs: torch.Tensor, nbr_mask: torch.Tensor, parts: Partitions,
            sync_every: int, deg: torch.Tensor | None = None,
@@ -367,7 +374,7 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
                            dup_on=dup_on, union_block=union_block,
                            classes=classes)
     t = state.t
-    is_sync = t % sync_every == 0 and t > 0
+    is_sync = _is_sync(t, sync_every)
     rec0, fr0 = state.received, state.frontier
     # frontier ⊆ received, so the anti-entropy payload is just `received`
     payload = rec0 if is_sync else fr0
@@ -449,7 +456,7 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     wipe = faults.amnesia(plan, t, row_ids)[:, None]
     rec0 = state.received.masked_fill(wipe, 0)
     fr0 = state.frontier.masked_fill(wipe, 0)
-    is_sync = t % sync_every == 0 and t > 0
+    is_sync = _is_sync(t, sync_every)
     # frontier ⊆ received, so the anti-entropy payload is just `received`
     payload = rec0 if is_sync else fr0
     up = faults.node_up(plan, t, row_ids)
@@ -584,7 +591,7 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
     random per-edge delays; ``faulted`` then only gives the ledger's
     masked sync diff)."""
     t = state.t
-    is_sync = t % sync_every == 0 and t > 0
+    is_sync = _is_sync(t, sync_every)
     payload = state.received if is_sync else state.frontier
     if live is None:
         live_deg = deg
@@ -660,7 +667,7 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
     if wipe is not None:
         rec0 = rec0.masked_fill(wipe[None, :], 0)
         fr0 = fr0.masked_fill(wipe[None, :], 0)
-    is_sync = t % sync_every == 0 and t > 0
+    is_sync = _is_sync(t, sync_every)
     payload = rec0 if is_sync else fr0
     n = deg_topo.shape[0]
     ps, pe = parts.starts, parts.ends

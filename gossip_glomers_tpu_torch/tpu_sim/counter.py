@@ -1,0 +1,349 @@
+"""The grow-only counter (Gossip Glomers challenge 4) on PyTorch: the port
+of gossip_glomers_tpu/tpu_sim/counter.py's single-device ``CounterSim``.
+
+Semantics (the reference node's counter/add.go and main.go): ``add``
+acks before durability, buffering deltas in ``pending``; flushing is
+read-then-CAS against ONE sequentially consistent KV key, losers retry
+with a refreshed read; ``read`` serves each node's ``cached`` view of the
+KV, refreshed by a periodic poll.  Two flush modes:
+
+- **cas**: one CAS winner a round, the least seeded per-round hashed
+  priority among the fresh-read contenders (``cached == kv``), the row id
+  breaking ties; in the ``packed`` key layout (below 2^23 nodes) the
+  priority is the hash's top ``31 - row_bits`` bits, in the ``wide`` one
+  the whole hash (``winner_key="auto"`` picks wide from 24 row bits);
+- **allreduce**: every reachable node's pending is applied at once.
+
+A node reaches the KV unless a ``kv_sched`` window blocks it, or, under a
+:class:`.faults.FaultPlan`, it is down or its KV exchange is lost this
+round; a node restarting this round first loses ``pending`` and
+``cached`` (amnesia).  ``kv_backend="device"`` keeps the key in the
+device store (:mod:`.kvstore`): each round reads it from its row and
+commits the round's one CAS to it, with ``kv_amnesia`` (a restarting
+owner loses its row) and seq-kv stale reads (``stale_prob``).
+
+One round is two kernels, :func:`.kernels.counter_select` (the read pass:
+winner or sum, the new ``kv`` and ``msgs``, finalized on the card) and
+:func:`.kernels.counter_apply` (the update pass), and no host sync; the
+per-node gate byte they read (:data:`.kernels.GATE_BLOCKED` /
+:data:`.kernels.GATE_WIPE`) is folded on the host's schedule from the
+windows and the plan active at round ``t``.  ``t`` is a host int, ``kv``
+a 0-dim int32 device tensor and ``msgs`` a 0-dim int64 holding the
+reference's uint32 ledger.
+
+Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
+item 10); telemetry, provenance and traffic (item 11); the scenario
+batch round (item 12); the program audit (item 14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from . import faults, kernels, kvstore
+from .engine import (active_windows, collectives, fori_rounds,
+                     resolve_block, resolve_device, scan_blocks)
+from .kernels import GATE_BLOCKED, GATE_WIPE
+
+# the reference's methods that this port leaves out, by ROADMAP.md Queue
+# A item
+_UNPORTED_METHODS = {"run_observed": 11, "run_traffic": 11,
+                     "telemetry_state": 11, "provenance_state": 11,
+                     "traffic_state": 11, "audit_run_program": 14,
+                     "audit_traffic_program": 14}
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet "
+                               f"(ROADMAP.md Queue A item {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class KVReach:
+    """Which nodes can reach the KV service: window w is active for rounds
+    [starts[w], ends[w]); while active, the nodes with ``blocked[w, i]``
+    can neither flush nor poll.  Bounds are host ints, ``blocked`` a (P,
+    N) bool tensor."""
+
+    starts: tuple[int, ...]
+    ends: tuple[int, ...]
+    blocked: torch.Tensor
+
+    @staticmethod
+    def none(n_nodes: int, device: str | torch.device = "cpu") -> "KVReach":
+        return KVReach((), (), torch.zeros((0, n_nodes), dtype=torch.bool,
+                                           device=device))
+
+    @staticmethod
+    def from_numpy(starts: Sequence[int], ends: Sequence[int],
+                   blocked: np.ndarray,
+                   device: str | torch.device = "cpu") -> "KVReach":
+        blocked = np.asarray(blocked, bool)
+        starts = tuple(int(v) for v in np.asarray(starts).reshape(-1))
+        ends = tuple(int(v) for v in np.asarray(ends).reshape(-1))
+        if blocked.ndim != 2 or not len(starts) == len(ends) \
+                == blocked.shape[0]:
+            raise ValueError(
+                f"KVReach needs starts (P,), ends (P,), blocked (P, N); "
+                f"got {len(starts)}, {len(ends)} and {blocked.shape}")
+        return KVReach(starts, ends,
+                       torch.from_numpy(blocked.copy()).to(device))
+
+    def to(self, device: str | torch.device) -> "KVReach":
+        return dataclasses.replace(self, blocked=self.blocked.to(device))
+
+
+class CounterState(NamedTuple):
+    pending: torch.Tensor   # (N,) int32 — acked, unflushed deltas
+    cached: torch.Tensor    # (N,) int32 — each node's last-read KV value
+    kv: torch.Tensor        # () int32 — the seq-kv key's value
+    t: int                  # round counter
+    msgs: torch.Tensor      # () int64 — KV messages, a uint32 ledger
+    # kv_backend="device": the store's rows, ``kv`` their one key's view
+    rows: kvstore.KVRows | None = None
+
+
+def _reach(t: int, row_ids: torch.Tensor, sched: KVReach) -> torch.Tensor:
+    """(rows,) bool — who can reach the KV at round ``t``: the windows
+    active at ``t`` (:func:`.engine.active_windows`) folded on the
+    host's schedule."""
+    ok = torch.ones(row_ids.shape, dtype=torch.bool, device=row_ids.device)
+    for w in active_windows(sched.starts, sched.ends, t):
+        ok = ok & ~sched.blocked[w][row_ids.to(torch.int64)]
+    return ok
+
+
+class CounterSim:
+    """Round-synchronous g-counter simulator.  Drive with :meth:`add` and
+    :meth:`step` / :meth:`run`; read with :meth:`reads` (each node's
+    cached value, not the KV)."""
+
+    def __init__(self, n_nodes: int, *, mode: str = "cas",
+                 poll_every: int = 4, kv_sched: KVReach | None = None,
+                 mesh=None, seed: int = 0, winner_key: str = "auto",
+                 fault_plan: faults.FaultPlan | None = None,
+                 union_block: int | str | None = None,
+                 kv_backend: str = "host", kv_amnesia: bool = False,
+                 stale_prob: float = 0.0, stale_until: int = 0,
+                 stale_seed: int | None = None, dcn_mode=None,
+                 device: str | torch.device | None = None) -> None:
+        """The reference's arguments (its docstring has them in full):
+        ``fault_plan`` the crash/loss nemesis (its dup stream has no
+        effect on a read/CAS protocol); ``union_block`` the slab size of
+        the allreduce fault gate's sweep (:func:`.engine.scan_blocks`,
+        the same result at any size); ``kv_backend="device"`` the key in
+        the :mod:`.kvstore` rows, with ``kv_amnesia`` and the
+        ``stale_*`` coins (cas mode; a dup stream is refused).
+        ``device``: where the state lives (default CUDA; raises if there
+        is none).  ``mesh`` and ``dcn_mode`` raise (ROADMAP.md Queue A
+        item 10)."""
+        if mesh is not None:
+            raise _unported("CounterSim(mesh=...)", 10)
+        if dcn_mode is not None:
+            raise _unported("CounterSim(dcn_mode=...)", 10)
+        if mode not in ("cas", "allreduce"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if winner_key not in ("auto", "packed", "wide"):
+            raise ValueError(f"unknown winner_key {winner_key!r}")
+        if kv_backend not in ("host", "device"):
+            raise ValueError(f"unknown kv_backend {kv_backend!r}")
+        if kv_backend != "device" and (kv_amnesia or stale_prob):
+            raise ValueError(
+                "kv_amnesia/stale_prob need kv_backend='device' "
+                "(host-backend staleness lives in harness KVService)")
+        if stale_prob and mode != "cas":
+            raise ValueError("stale_prob models the cas read-retry "
+                             "loop; allreduce has no read path")
+        if kv_backend == "device":
+            kvstore.reject_dup_stream(fault_plan, "CounterSim")
+        self.device = resolve_device(device)
+        self.n_nodes = n_nodes
+        self.mode = mode
+        self.poll_every = poll_every
+        self.seed = seed
+        self.kv_backend = kv_backend
+        self.kv_amnesia = bool(kv_amnesia)
+        self._device_kv = kv_backend == "device"
+        if self._device_kv:
+            # one seq-kv key, routed by the store's stateless hash
+            self._kv_layout = kvstore.make_layout(1, n_nodes, seed=seed)
+            self._slots = kvstore.key_slots(self._kv_layout, self.device)
+            self._key_at = (int(self._kv_layout.owner[0]),
+                            int(self._kv_layout.slot[0]))
+        self._stale_num = (kvstore.stale_num_of(stale_prob)
+                           if stale_prob else 0)
+        self._stale_until = int(stale_until)
+        self._stale_seed = seed if stale_seed is None else stale_seed
+        self._row_bits = max(1, (n_nodes - 1).bit_length())
+        if mode == "cas" and n_nodes >= 2**31:
+            raise ValueError("cas winner keys support n_nodes < 2^31")
+        if winner_key == "packed" and self._row_bits >= 24:
+            raise ValueError(
+                "packed cas winner keys need n_nodes <= 2^23 (24+ row "
+                "bits leave too few priority bits for a randomized "
+                "winner); use winner_key='wide' or 'auto'")
+        self._wide = (winner_key == "wide"
+                      or (winner_key == "auto" and self._row_bits >= 24))
+        self.kv_sched = (KVReach.none(n_nodes, self.device) if kv_sched is None
+                         else kv_sched.to(self.device))
+        if self.kv_sched.blocked.shape[1:] != (n_nodes,):
+            raise ValueError(f"KVReach blocked "
+                             f"{tuple(self.kv_sched.blocked.shape)} is not "
+                             f"(P, {n_nodes})")
+        # each window's gate bytes, made once
+        self._win_gates = [w.to(torch.uint8) * GATE_BLOCKED
+                           for w in self.kv_sched.blocked]
+        if fault_plan is not None and fault_plan.n_nodes != n_nodes:
+            raise ValueError(
+                f"FaultPlan is for {fault_plan.n_nodes} nodes, sim has "
+                f"{n_nodes}")
+        self.fault_plan = (None if fault_plan is None
+                           else fault_plan.to(self.device))
+        # two coin/mask evaluations per node row
+        self._ub = resolve_block(max(1, n_nodes), union_block,
+                                 per_row_bytes=8)
+        # the plan's coins and masks take the node ids
+        self._row_ids = (None if fault_plan is None else
+                         collectives(n_nodes, device=self.device).row_ids)
+        self._work = kernels.counter_work(self.device)
+
+    def __getattr__(self, name: str):
+        if name in _UNPORTED_METHODS:
+            raise _unported(f"CounterSim.{name}", _UNPORTED_METHODS[name])
+        raise AttributeError(name)
+
+    def init_state(self) -> CounterState:
+        def z(shape=(self.n_nodes,)):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+        rows = (kvstore.init_rows(self._kv_layout, self.device)
+                if self._device_kv else None)
+        return CounterState(pending=z(), cached=z(), kv=z(()), t=0,
+                            msgs=torch.zeros((), dtype=torch.int64,
+                                             device=self.device),
+                            rows=rows)
+
+    # -- op injection ----------------------------------------------------
+
+    def add(self, state: CounterState, deltas) -> CounterState:
+        """Buffer acked deltas: ``deltas`` is (N,) per-node int32 (the
+        batched ``add`` handler — the ack precedes durability)."""
+        d = torch.as_tensor(np.asarray(deltas, np.int32)).to(self.device)
+        return state._replace(pending=state.pending + d)
+
+    # -- round -----------------------------------------------------------
+
+    def _gate(self, t: int) -> tuple[torch.Tensor | None,
+                                     torch.Tensor | None]:
+        """(gate bytes or None, amnesia rows or None) of round ``t``: the
+        KV windows active at ``t`` and, under a plan, its amnesia rows,
+        down nodes and lost KV exchanges."""
+        act = active_windows(self.kv_sched.starts, self.kv_sched.ends, t)
+        gate = None
+        for w in act:
+            gate = self._win_gates[w] if gate is None \
+                else gate | self._win_gates[w]
+        plan = self.fault_plan
+        if plan is None:
+            return gate, None
+        row_ids = self._row_ids
+        wipe = faults.amnesia(plan, t, row_ids)
+        if self._ub is not None and self.mode == "allreduce":
+            # the fault gate slab by slab (stateless coins: the same
+            # result at any block size)
+            ub = self._ub
+
+            def gate_blk(carry, lo):
+                ids = row_ids[lo:lo + ub]
+                carry[lo:lo + ub] = (faults.node_up(plan, t, ids)
+                                     & ~faults.kv_drop(plan, t, ids))
+                return carry
+
+            ok = scan_blocks(gate_blk, torch.zeros(
+                self.n_nodes, dtype=torch.bool, device=self.device),
+                self.n_nodes, ub)
+        else:
+            ok = faults.node_up(plan, t, row_ids) \
+                & ~faults.kv_drop(plan, t, row_ids)
+        bits = (~ok).to(torch.uint8) * GATE_BLOCKED \
+            + wipe.to(torch.uint8) * GATE_WIPE
+        return (bits if gate is None else bits | gate), wipe
+
+    def _round(self, state: CounterState, out=None) -> CounterState:
+        """One round: the amnesia rows wiped, the flushes (one CAS winner,
+        or every reachable node's pending), the cache refresh of the
+        contenders, the winner and the polled nodes.  ``out``: the
+        (pending, cached) buffers to write (:meth:`run_fused`'s inputs,
+        whose KV rows the CAS then updates in place too); new tensors
+        when None."""
+        t = state.t
+        gate, wipe = self._gate(t)
+        rows = state.rows
+        if self._device_kv:
+            if wipe is not None and self.kv_amnesia:
+                # the KV rows are node state: a restarting owner loses
+                # its register through the same amnesia coin
+                rows = kvstore.wipe_rows(rows, wipe)
+            # the authoritative value is read from the store
+            kv0 = rows.vals[self._key_at]
+        else:
+            kv0 = state.kv
+        cas = self.mode == "cas"
+        poll = self.poll_every > 0 and t % self.poll_every == 0
+        kv, msgs = kernels.counter_select(
+            state.pending, state.cached, gate, kv0, state.msgs, self._work,
+            cas=cas, wide=self._wide, row_bits=self._row_bits, t=t,
+            seed=self.seed, poll=poll)
+        stale_num = self._stale_num if t < self._stale_until else 0
+        pending, cached = kernels.counter_apply(
+            state.pending, state.cached, gate, kv, self._work, cas=cas,
+            poll=poll, stale_num=stale_num, stale_seed=self._stale_seed,
+            t=t, out=out)
+        if self._device_kv:
+            # commit the round's one linearization step: a CAS from the
+            # value read, so the store and ``kv`` never diverge
+            rows = kvstore.cas_apply_at(rows, self._slots,
+                                        (kv != kv0).reshape(1),
+                                        kv0.reshape(1), kv.reshape(1),
+                                        donate=out is not None)
+        return CounterState(pending=pending, cached=cached, kv=kv, t=t + 1,
+                            msgs=msgs, rows=rows)
+
+    def step(self, state: CounterState) -> CounterState:
+        return self._round(state)
+
+    def run(self, state: CounterState, n_rounds: int) -> CounterState:
+        return fori_rounds(self._round, state, n_rounds)
+
+    def run_fused(self, state: CounterState,
+                  n_rounds: int) -> CounterState:
+        """:meth:`run` with the input state's ``pending``, ``cached`` and
+        KV rows donated: every round updates them in place, so the loop
+        holds one copy of the node rows.  The state passed in must not be
+        used again."""
+        out = (state.pending, state.cached)
+        return fori_rounds(lambda s: self._round(s, out=out), state,
+                           n_rounds)
+
+    # -- reads -----------------------------------------------------------
+
+    def reads(self, state: CounterState) -> np.ndarray:
+        """(N,) int32 — each node's ``read`` reply (its cached value)."""
+        return state.cached.cpu().numpy()
+
+    def kv_value(self, state: CounterState) -> int:
+        return int(state.kv)
+
+
+def _build_batch_round(sim: CounterSim):
+    """The scenario-axis batch round: ROADMAP.md Queue A item 12."""
+    raise _unported("counter._build_batch_round", 12)
+
+
+def _batch_converged(state: CounterState, member=None):
+    """The scenario batch's convergence predicate: Queue A item 12."""
+    raise _unported("counter._batch_converged", 12)

@@ -2,13 +2,14 @@
 combinators (``fori_rounds``, ``while_converge``, ``stepwise_converge``)
 as Python loops — PyTorch runs eagerly, so each round is a few kernel
 launches and the loop itself stays on the host — of its windows-as-data
-fault schedule fold (``windows_fold``), and of its destination-slab
-blocking (``scan_blocks``, ``resolve_block``)."""
+fault schedule fold (``windows_fold``), of its destination-slab
+blocking (``scan_blocks``, ``resolve_block``), and of its off-mesh
+:class:`Collectives` (``collectives``)."""
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -23,6 +24,47 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "device='cpu' to run the plain PyTorch versions")
         device = "cuda"
     return torch.device(device)
+
+
+class Collectives(NamedTuple):
+    """The cross-shard surface a sim round consumes, off-mesh: ``row_ids``
+    the (block,) int32 node indices of the local rows, and the identity
+    for every reduction (``reduce_sum`` / ``max`` / ``min`` / ``or`` /
+    ``and``), for ``widen`` and ``local_cols``; ``exclusive_sum`` (the
+    sum over lower shards) gives zeros.  The mesh forms are ROADMAP.md
+    Queue A item 10."""
+
+    row_ids: torch.Tensor
+    widen: Callable[[torch.Tensor], torch.Tensor]
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor]
+    reduce_max: Callable[[torch.Tensor], torch.Tensor]
+    reduce_min: Callable[[torch.Tensor], torch.Tensor]
+    reduce_or: Callable[[torch.Tensor], torch.Tensor]
+    reduce_and: Callable[[torch.Tensor], torch.Tensor]
+    exclusive_sum: Callable[[torch.Tensor], torch.Tensor]
+    local_cols: Callable[[torch.Tensor], torch.Tensor]
+    axis_name: str | None
+
+
+def collectives(block: int, mesh=None, *,
+                device: str | torch.device | None = None) -> Collectives:
+    """The :class:`Collectives` of a round over ``block`` rows on one
+    device (:func:`resolve_device`: CUDA unless the caller passes one).
+    A ``mesh`` raises (ROADMAP.md Queue A item 10)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "collectives over a mesh are not ported to PyTorch yet "
+            "(ROADMAP.md Queue A item 10)")
+
+    def ident(x):
+        return x
+
+    return Collectives(
+        row_ids=torch.arange(block, dtype=torch.int32,
+                             device=resolve_device(device)),
+        widen=ident, reduce_sum=ident, reduce_max=ident, reduce_min=ident,
+        reduce_or=ident, reduce_and=ident, exclusive_sum=torch.zeros_like,
+        local_cols=ident, axis_name=None)
 
 
 def fori_rounds(round_fn: Callable, state, rounds: int):

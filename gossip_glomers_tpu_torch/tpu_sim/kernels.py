@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the broadcast floods, their wrappers and
 their plain PyTorch versions.
 
-Four sources in ``csrc/`` (each header notes what its kernels replace,
+Five sources in ``csrc/`` (each header notes what its kernels replace,
 what bounds them on an H100 and what the design does about it):
 
 - ``tree_flood.cu``, the words-major k-ary tree:
@@ -30,7 +30,12 @@ what bounds them on an H100 and what the design does about it):
   :func:`fault_coins` (one flag byte an edge: sent, delivered,
   duplicated, reply not lost) and :func:`faulted_gather_round` (the
   gather round over those flags, with the dup ledger charge); and the
-  words-major nemesis's coins, :func:`wm_fault_coins`.
+  words-major nemesis's coins, :func:`wm_fault_coins`;
+- ``counter_round.cu``, the g-counter's round: :func:`counter_select`
+  (the read pass: the CAS winner or the flushed sum, the message count,
+  finalized on the card into the round's new ``kv`` and ``msgs``) and
+  :func:`counter_apply` (the update pass: drain ``pending``, refresh
+  ``cached``).
 
 The masked structured exchanges and the words-major coins take their
 per-direction liveness as packed rows (:func:`pack_bits`): (D, ceil(N /
@@ -67,7 +72,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("tree_flood", "shift_flood", "gather_flood",
-                        "fault_flood")}
+                        "fault_flood", "counter_round")}
 BUILD_DIR = _PKG.parent / "build" / "gossip_glomers_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -97,6 +102,12 @@ TREE_PARENT, TREE_KIDS = 0, 1
 # the id forms of wm_fault_coins' direction descriptors (fault_flood.cu):
 # i; (i + off) mod n; (i - 1) // k; k * i + 1 + j
 COIN_IDENT, COIN_SHIFT, COIN_PARENT, COIN_CHILD = 0, 1, 2, 3
+# the counter round's per-node gate byte (counter_round.cu): the node
+# cannot reach the KV this round; its pending and cached are wiped first
+GATE_BLOCKED, GATE_WIPE = 1, 2
+# the counter round's work words (counter_round.cu Work): the winner key,
+# two pairs of 32-bit counters, and the round's winner row (word 3)
+COUNTER_WORK_WORDS = 4
 
 LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "tree_flood_round": 0, "col_popcount": 0,
@@ -105,7 +116,8 @@ LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "gather_or": 0, "sync_diff_pc": 0, "gather_flood_round": 0,
             "fault_coins": 0, "faulted_gather_round": 0,
             "wm_fault_coins": 0, "tree_ring_exchange": 0,
-            "shift_ring_exchange": 0}
+            "shift_ring_exchange": 0, "counter_select": 0,
+            "counter_apply": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -585,6 +597,115 @@ def wm_fault_coins_plain(src: torch.Tensor, dst: torch.Tensor,
     return pack_bits(deliver), pack_bits(fired)
 
 
+# the counter round's hash (counter.py's winner priority) and the seq-kv
+# stale coin's key terms (kvstore.stale_coin)
+_K_ROW, _K_ROUND = 0x9E3779B9, 0x85EBCA6B
+_K_PRI1 = 0x7FEB352D
+_NO_KEY = (1 << 63) - 1      # the unsigned all-ones key, shifted by 2^63
+
+
+def _gated(pending: torch.Tensor, cached: torch.Tensor,
+           gate: torch.Tensor | None):
+    """(pending, cached, reach) after the gate byte: wiped rows read 0,
+    blocked rows do not reach the KV (None: every row does)."""
+    if gate is None:
+        return pending, cached, None
+    wipe = (gate & GATE_WIPE) != 0
+    return (torch.where(wipe, 0, pending), torch.where(wipe, 0, cached),
+            (gate & GATE_BLOCKED) == 0)
+
+
+def counter_priority(n: int, t: int, seed: int, *, wide: bool,
+                     row_bits: int, device=None) -> torch.Tensor:
+    """(n,) int64: the CAS winner's hashed priority of each row at round
+    ``t``: ``min(x, 2^32 - 2)`` in the wide layout, the top ``31 -
+    row_bits`` bits of x capped at all-ones less one in the packed one."""
+    from .faults import _mul32
+
+    rows = torch.arange(n, dtype=torch.int64, device=device)
+    x = (_mul32(rows, _K_ROW)
+         + ((((t + seed) & MASK32) * _K_ROUND) & MASK32)) & MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, _K_PRI1)
+    x = x ^ (x >> 15)
+    if wide:
+        return x.clamp(max=MASK32 - 1)
+    pri_bits = 31 - row_bits
+    return (x >> (32 - pri_bits)).clamp(max=(1 << pri_bits) - 2)
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32, wrapping mod 2^32 as int32 sums do."""
+    x = x & MASK32
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def counter_select_plain(pending: torch.Tensor, cached: torch.Tensor,
+                         gate: torch.Tensor | None, kv0: torch.Tensor,
+                         msgs: torch.Tensor, work: torch.Tensor, *,
+                         cas: bool, wide: bool, row_bits: int, t: int,
+                         seed: int, poll: bool):
+    n = pending.shape[0]
+    p, c, reach = _gated(pending, cached, gate)
+    if reach is None:
+        reach = torch.ones_like(p, dtype=torch.bool)
+    want = (p > 0) & reach
+    polled = reach if poll else torch.zeros_like(reach)
+    if cas:
+        # the winner: the least (priority, row) among the fresh-read
+        # contenders, as one 64-bit key (priority high, row low) moved
+        # into int64 by subtracting 2^63, which keeps its order
+        rows = torch.arange(n, dtype=torch.int64, device=p.device)
+        pri = counter_priority(n, t, seed, wide=wide, row_bits=row_bits,
+                               device=p.device)
+        key = torch.where(want & (c == kv0), (pri - (1 << 31)) * (1 << 32)
+                          + rows, _NO_KEY)
+        best = key.min() if n else torch.tensor(_NO_KEY, device=p.device)
+        winner = torch.where(best == _NO_KEY, n, best & MASK32)
+        has = winner < n
+        delta = torch.where(has, p[winner.clamp(max=max(n - 1, 0))], 0) \
+            if n else torch.zeros((), dtype=torch.int32, device=p.device)
+        kv = _wrap_i32(kv0.to(torch.int64) + delta)
+        polled_nw = polled.sum() - (has & poll).to(torch.int64)
+        work[3] = winner
+    else:
+        kv = _wrap_i32(kv0.to(torch.int64)
+                       + torch.where(want, p, 0).sum(dtype=torch.int64))
+        polled_nw = (polled & ~want).sum()
+        work[3] = n                 # no single winner
+    inc = 4 * want.sum() + 2 * polled_nw
+    return kv, (msgs + inc) & MASK32
+
+
+def counter_apply_plain(pending: torch.Tensor, cached: torch.Tensor,
+                        gate: torch.Tensor | None, kv: torch.Tensor,
+                        work: torch.Tensor, *, cas: bool, poll: bool,
+                        stale_num: int = 0, stale_seed: int = 0,
+                        t: int = 0, out=None):
+    from .kvstore import stale_coin
+
+    n = pending.shape[0]
+    p, c, reach = _gated(pending, cached, gate)
+    if reach is None:
+        reach = torch.ones_like(p, dtype=torch.bool)
+    want = (p > 0) & reach
+    rows = torch.arange(n, device=p.device)
+    won = rows == work[3] if cas else want
+    refreshed = kv.expand(n)
+    if stale_num:
+        stale = ((stale_coin(stale_seed, t, rows) < stale_num) & ~won
+                 & (c != kv))
+        refreshed = torch.where(stale, c, refreshed)
+    poll_rows = want | won | (reach if poll else False)
+    new_p = torch.where(won, 0, p)
+    new_c = torch.where(poll_rows, refreshed, c)
+    if out is None:
+        return new_p, new_c
+    out[0].copy_(new_p)
+    out[1].copy_(new_c)
+    return out
+
+
 def coin_id(form: int, a: int = 0, j: int = 0) -> tuple[int, int]:
     """One id of a coin descriptor row, ``(form, argument)``: IDENT ``i``;
     SHIFT(``a`` = off in [0, n)) ``(i + off) mod n``; PARENT(``a`` = k)
@@ -716,6 +837,11 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_faulted_nodes_per_block": [i64, i32],
                 "gg_wm_fault_coins": [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                       i64, i64, i32, i32, i32, ptr]},
+            "counter_round": {
+                "gg_counter_select": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                      i64, i64, i32, i32, i32, i32, ptr],
+                "gg_counter_apply": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                                     i32, i32, i64, i64, ptr]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -1309,3 +1435,125 @@ def wm_fault_coins(dirs: torch.Tensor, n: int, live: torch.Tensor, *,
                 d, n, t & MASK32, seed & MASK32, loss_num & MASK32,
                 dup_num & MASK32, int(loss), int(dup), int(srv))
     return out0, out1
+
+
+def counter_work(device) -> torch.Tensor:
+    """A counter round's work words (:data:`COUNTER_WORK_WORDS` int64) in
+    their resting state: the winner key all ones, the counters 0.
+    :func:`counter_select` finalizes the round into word 3 and leaves the
+    rest so again."""
+    work = torch.zeros(COUNTER_WORK_WORDS, dtype=torch.int64, device=device)
+    work[0] = -1
+    return work
+
+
+def _check_counter(pending: torch.Tensor, cached: torch.Tensor,
+                   gate: torch.Tensor | None, work: torch.Tensor,
+                   scalars: dict) -> bool:
+    """Validate a counter round's operands; returns :func:`_on_cpu`."""
+    n = pending.shape[0]
+    for name, x in (("pending", pending), ("cached", cached)):
+        if x.dtype != torch.int32 or x.shape != (n,) \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (N,) int32 "
+                             f"tensor, got {x.dtype} {tuple(x.shape)}")
+    if gate is not None and (gate.dtype != torch.uint8
+                             or gate.shape != (n,)
+                             or not gate.is_contiguous()):
+        raise ValueError("gate must be a contiguous (N,) uint8 tensor")
+    if work.dtype != torch.int64 or work.shape != (COUNTER_WORK_WORDS,) \
+            or not work.is_contiguous():
+        raise ValueError(f"work must be ({COUNTER_WORK_WORDS},) int64 "
+                         "(counter_work)")
+    for name, (x, dtype) in scalars.items():
+        if x.dtype != dtype or x.dim() != 0:
+            raise ValueError(f"{name} must be a 0-dim {dtype} tensor")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows: the counter round takes < 2^31")
+    xs = [pending, cached, work] + [x for x, _ in scalars.values()]
+    return _on_cpu(*xs, *([] if gate is None else [gate]))
+
+
+def counter_select(pending: torch.Tensor, cached: torch.Tensor,
+                   gate: torch.Tensor | None, kv0: torch.Tensor,
+                   msgs: torch.Tensor, work: torch.Tensor, *, cas: bool,
+                   wide: bool, row_bits: int, t: int, seed: int,
+                   poll: bool):
+    """The counter round's read pass (counter.py's ``_round`` up to the
+    new ``kv`` and the message ledger).  Per row, after the ``gate`` byte
+    (:data:`GATE_WIPE` rows read 0, :data:`GATE_BLOCKED` rows do not
+    reach; None: neither): ``want = pending > 0 & reach``.
+
+    - cas: the winner is the least ``(priority, row)`` over the rows that
+      want and read fresh (``cached == kv0``) — :func:`counter_priority`,
+      one 64-bit key, the same winner in both layouts as the reference's
+      packed key and its two-step wide argmin — and ``kv = kv0 +
+      pending[winner]`` (``kv0`` when none wins);
+    - allreduce: ``kv = kv0 + sum of the wanting rows' pending``, both
+      wrapping as int32 sums do; ``cached`` is not read.
+
+    ``msgs + 4 want + 2 (polled and not won)`` mod 2^32, polled = reach
+    on a ``poll`` round.  ``kv0`` (0-dim int32) and ``msgs`` (0-dim
+    int64) are device scalars, never read on the host; returns new ones
+    ``(kv, msgs)`` and leaves the winner row (N: none) in word 3 of
+    ``work`` (:func:`counter_work`) for :func:`counter_apply`.  On the
+    card the last block to finish finalizes them: no host sync."""
+    kw = dict(cas=cas, wide=wide, row_bits=row_bits, t=t, seed=seed,
+              poll=poll)
+    if cas and not wide and not 1 <= row_bits <= 23:
+        raise ValueError(f"packed winner keys take 1..23 row bits, got "
+                         f"{row_bits}")
+    if _check_counter(pending, cached, gate, work,
+                      {"kv0": (kv0, torch.int32),
+                       "msgs": (msgs, torch.int64)}):
+        return counter_select_plain(pending, cached, gate, kv0, msgs, work,
+                                    **kw)
+    kv = torch.empty((), dtype=torch.int32, device=pending.device)
+    msgs_out = torch.empty((), dtype=torch.int64, device=pending.device)
+    _launch("counter_select", _lib("counter_round").gg_counter_select,
+            pending.device, pending.data_ptr(), cached.data_ptr(),
+            None if gate is None else gate.data_ptr(), kv0.data_ptr(),
+            msgs.data_ptr(), work.data_ptr(), kv.data_ptr(),
+            msgs_out.data_ptr(), pending.shape[0], (t + seed) & MASK32,
+            int(cas), int(wide), row_bits, int(poll))
+    return kv, msgs_out
+
+
+def counter_apply(pending: torch.Tensor, cached: torch.Tensor,
+                  gate: torch.Tensor | None, kv: torch.Tensor,
+                  work: torch.Tensor, *, cas: bool, poll: bool,
+                  stale_num: int = 0, stale_seed: int = 0, t: int = 0,
+                  out=None):
+    """The counter round's update pass, after :func:`counter_select` on
+    the same operands: drain the winner row (cas, word 3 of ``work``) or
+    every wanting row (allreduce), and set ``cached`` to the new ``kv``
+    where the row wanted, won or was polled — except, with ``stale_num``
+    (the round's seq-kv stale threshold, 0: off), a row that did not win,
+    is behind and whose :func:`.kvstore.stale_coin` of ``(stale_seed,
+    t)`` is below it keeps its value.  Returns ``(pending, cached)``, new
+    tensors, or ``out``'s pair written in place (which may be the inputs
+    themselves: each row reads and writes only its own words)."""
+    kw = dict(cas=cas, poll=poll, stale_num=stale_num,
+              stale_seed=stale_seed, t=t)
+    on_cpu = _check_counter(pending, cached, gate, work,
+                            {"kv": (kv, torch.int32)})
+    if out is not None:
+        for x in out:
+            if x.dtype != torch.int32 or x.shape != pending.shape \
+                    or not x.is_contiguous() or x.device != pending.device:
+                raise ValueError("out must be two contiguous (N,) int32 "
+                                 "tensors beside pending")
+    if on_cpu:
+        return counter_apply_plain(pending, cached, gate, kv, work,
+                                   out=out, **kw)
+    if out is None:
+        out = (torch.empty_like(pending), torch.empty_like(cached))
+    from .kvstore import stale_key
+
+    _launch("counter_apply", _lib("counter_round").gg_counter_apply,
+            pending.device, pending.data_ptr(), cached.data_ptr(),
+            None if gate is None else gate.data_ptr(), kv.data_ptr(),
+            work.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            pending.shape[0], int(cas), int(poll), stale_num & MASK32,
+            stale_key(stale_seed, t))
+    return out

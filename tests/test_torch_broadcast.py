@@ -215,3 +215,71 @@ def test_shift_topology_sims_match_reference(topology, n, nv, kw,
     _assert_states_equal(jsim, jref, psim, pfix)
     if psim.build_fixed(jrounds) is not None:
         assert int(pfix.msgs) == ptiming.flood_msgs64(psim, pfix) % (1 << 32)
+
+
+def _sync0_sims(layout, mode, sync_every, n=64, nv=40):
+    """(JAX, port) BroadcastSims on the 64-node grid: node-major (the
+    gather) or words-major (the grid's shift exchange), plain, under a
+    crash + loss plan, or in a delay mode (per-edge delays on the gather,
+    per-direction classes on the words-major path)."""
+    from gossip_glomers_tpu.tpu_sim import faults as jf
+    from gossip_glomers_tpu_torch.tpu_sim import faults as pf
+
+    nbrs = to_padded_neighbors(jtop.grid(n))
+    wm = layout == "words_major"
+    jkw, pkw = {}, {"device": "cpu"}
+    if wm:
+        jkw.update(exchange=jst.make_exchange("grid", n),
+                   sync_diff=jst.make_sync_diff("grid", n))
+        pkw.update(exchange=pst.make_exchange("grid", n),
+                   sync_diff=pst.make_sync_diff("grid", n))
+    if mode == "plan":
+        spec = dict(n_nodes=n, seed=3, crash=((2, 6, (1, 9, 30)),),
+                    loss_rate=0.2, loss_until=8)
+        jspec, pspec = jf.NemesisSpec(**spec), pf.NemesisSpec(**spec)
+        jkw["fault_plan"] = jspec.compile()
+        pkw["fault_plan"] = pspec.compile(device="cpu")
+        if wm:
+            jkw["nemesis"] = jst.make_nemesis("grid", n, jspec)
+            pkw["nemesis"] = pst.make_nemesis("grid", n, pspec,
+                                              device="cpu")
+    elif mode == "delay":
+        if wm:
+            jkw["delayed"] = jst.make_delayed("grid", n, (1, 3, 2, 1))
+            pkw["delayed"] = pst.make_delayed("grid", n, (1, 3, 2, 1))
+        else:
+            rng = np.random.default_rng(5)
+            delays = np.where(nbrs >= 0, rng.integers(1, 4, nbrs.shape),
+                              1).astype(np.int32)
+            jkw["delays"] = pkw["delays"] = delays
+    return (jbc.BroadcastSim(nbrs, n_values=nv, sync_every=sync_every,
+                             mesh=None, **jkw),
+            pbc.BroadcastSim(nbrs, n_values=nv, sync_every=sync_every,
+                             **pkw))
+
+
+@pytest.mark.parametrize("mode", ("plain", "plan", "delay"))
+@pytest.mark.parametrize("layout", ("node_major", "words_major"))
+def test_sync_every_zero_matches_reference(layout, mode):
+    # the reference's t % 0 is 0, so at sync_every=0 every round after
+    # round 0 is a sync wave: the same run as sync_every=1
+    n, nv = 64, 40
+    inject = jbc.make_inject(n, nv)
+    jsim, psim = _sync0_sims(layout, mode, 0)
+    jref, jrounds = jsim.run(inject, max_rounds=400)
+    pref, prounds = psim.run(inject, max_rounds=400)
+    assert prounds == jrounds
+    _assert_states_equal(jsim, jref, psim, pref)
+    one, one_rounds = _sync0_sims(layout, mode, 1)[1].run(inject,
+                                                          max_rounds=400)
+    assert one_rounds == prounds and int(one.msgs) == int(pref.msgs)
+    assert (one.srv_msgs is None) == (pref.srv_msgs is None)
+    if one.srv_msgs is not None:
+        assert int(one.srv_msgs) == int(pref.srv_msgs)
+    if mode == "plain":
+        assert (prounds, int(pref.msgs)) == (14, 80_720)
+    # step by step, round for round
+    js, ps = jsim.init_state(inject), psim.init_state(inject)
+    for _ in range(4):
+        js, ps = jsim.step(js), psim.step(ps)
+        _assert_states_equal(jsim, js, psim, ps)

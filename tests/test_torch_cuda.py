@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from gossip_glomers_tpu_torch.parallel import topology
-from gossip_glomers_tpu_torch.tpu_sim import (broadcast, faults, kernels,
-                                              structured, timing)
+from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter, faults,
+                                              kernels, structured, timing)
 
 SHAPES = [(w, n) for w in (1, 8, 32, 128) for n in (1, 5, 4097, (1 << 16) + 3)]
 # the shift kernels' edge cases: a row one node short of a tile, exactly
@@ -733,3 +733,118 @@ def test_cuda_delay_modes_match_cpu_sim(cuda_device, topo, kw):
     ring = "tree_ring_exchange" if topo == "tree" else "shift_ring_exchange"
     for name in (ring, "gather_or", "wm_fault_coins"):
         assert kernels.LAUNCHES[name] > before[name], name
+
+
+def _counter_case(n, seed, device, gate):
+    """A counter round's operands: pending in [-3, 10) with one node in
+    64 near 2^30, cached fresh (== kv0) at half the nodes, a gate byte of
+    every kind at a quarter of them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, dtype=dtype, device=device,
+                             generator=gen)
+
+    kv0 = ints(-5, 5, ())
+    pending = torch.where(ints(0, 64, (n,)) == 0,
+                          ints(1 << 29, 1 << 30, (n,)), ints(-3, 10, (n,)))
+    cached = torch.where(ints(0, 2, (n,)) == 0, kv0, ints(-5, 5, (n,)))
+    g = ints(0, 16, (n,))
+    gates = torch.where(g < 12, 0, g & 3).to(torch.uint8) if gate else None
+    return pending, cached, gates, kv0, ints(0, 1 << 32, (), torch.int64)
+
+
+# the counter kernels' shapes: chip_smoke.py's kernel_check ones
+COUNTER_NS = (1, 31, (1 << 20) + 3, 1 << 24)
+# (n, cas, wide): the packed layout only below 24 row bits
+COUNTER_CASES = [(n, cas, wide) for n in COUNTER_NS
+                 for cas, wide in ((True, False), (True, True),
+                                   (False, False))
+                 if wide or not cas or (n - 1).bit_length() < 24]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("gate", (False, True))
+@pytest.mark.parametrize("n,cas,wide", COUNTER_CASES)
+def test_cuda_counter_kernels_match_plain(cuda_device, n, cas, wide, gate,
+                                          offset):
+    row_bits = max(1, (n - 1).bit_length())
+    pending, cached, gates, kv0, msgs = _counter_case(
+        n, n + 2 * gate + offset, cuda_device, gate)
+    views = [None if x is None else _at_offset(x, offset)
+             for x in (pending, cached, gates)]
+    kw = dict(cas=cas, wide=wide, row_bits=row_bits, t=7, seed=n,
+              poll=bool(offset) != gate)
+    wk, wp = kernels.counter_work(cuda_device), \
+        kernels.counter_work(cuda_device)
+    before = dict(kernels.LAUNCHES)
+    kv, m = kernels.counter_select(*views, kv0, msgs, wk, **kw)
+    kv_p, m_p = kernels.counter_select_plain(pending, cached, gates, kv0,
+                                             msgs, wp, **kw)
+    assert int(kv) == int(kv_p) and int(m) == int(m_p)
+    # the winner, and the work words back at rest
+    assert torch.equal(wk, wp)
+    for stale in ({}, {"stale_num": 1 << 31, "stale_seed": 5, "t": 3}):
+        akw = dict(cas=cas, poll=kw["poll"], **stale)
+        got = kernels.counter_apply(*views, kv, wk, **akw)
+        want = kernels.counter_apply_plain(pending, cached, gates, kv_p, wp,
+                                           **akw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        into = [_at_offset(x, offset) for x in (pending, cached)]
+        kernels.counter_apply(*into, views[2], kv, wk, out=into, **akw)
+        assert all(torch.equal(a, b) for a, b in zip(into, want))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["counter_select"] == \
+        before["counter_select"] + 1
+    assert kernels.LAUNCHES["counter_apply"] == before["counter_apply"] + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cas-packed", "cas-wide", "allreduce-plan",
+                                  "device-kv-stale"])
+def test_cuda_counter_sim_matches_cpu_sim(cuda_device, case):
+    # a CUDA CounterSim round by round against the CPU one: a KV window,
+    # a crash + loss plan with amnesia (the allreduce gate in slabs), the
+    # device KV with kv_amnesia and stale coins
+    n = 4099
+    rng = np.random.default_rng(3)
+    deltas = rng.integers(0, 9, n).astype(np.int32)
+    blocked = rng.random((2, n)) < 0.3
+    spec = faults.NemesisSpec(n_nodes=n, seed=4,
+                              crash=((2, 6, tuple(range(0, n, 7))),),
+                              loss_rate=0.2, loss_until=9)
+    kw = {"cas-packed": dict(mode="cas", winner_key="packed"),
+          "cas-wide": dict(mode="cas", winner_key="wide"),
+          "allreduce-plan": dict(mode="allreduce", union_block=1024),
+          "device-kv-stale": dict(mode="cas", kv_backend="device",
+                                  kv_amnesia=True, stale_prob=0.3,
+                                  stale_until=10)}[case]
+
+    def sim(dev):
+        extra = {}
+        if case in ("allreduce-plan", "device-kv-stale"):
+            extra["fault_plan"] = spec.compile(dev)
+        return counter.CounterSim(
+            n, poll_every=3, seed=5, device=dev,
+            kv_sched=counter.KVReach.from_numpy([1, 4], [5, 12], blocked),
+            **kw, **extra)
+
+    gsim, csim = sim(cuda_device), sim("cpu")
+    gs = gsim.add(gsim.init_state(), deltas)
+    cs = csim.add(csim.init_state(), deltas)
+    before = dict(kernels.LAUNCHES)
+    for r in range(20):
+        gs, cs = gsim.step(gs), csim.step(cs)
+        assert gs.t == cs.t
+        for f in ("pending", "cached", "kv", "msgs"):
+            assert torch.equal(getattr(gs, f).cpu(), getattr(cs, f)), (r, f)
+        if cs.rows is not None:
+            assert torch.equal(gs.rows.vals.cpu(), cs.rows.vals)
+            assert torch.equal(gs.rows.vers.cpu(), cs.rows.vers)
+    torch.cuda.synchronize()
+    for name in ("counter_select", "counter_apply"):
+        assert kernels.LAUNCHES[name] == before[name] + 20
+    fused = gsim.run_fused(gsim.add(gsim.init_state(), deltas), 20)
+    assert int(fused.kv) == int(cs.kv) and int(fused.msgs) == int(cs.msgs)
+    assert torch.equal(fused.pending.cpu(), cs.pending)
