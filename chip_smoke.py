@@ -45,7 +45,10 @@ g-counter, unique ids, echo and Kafka:
    in place; the Kafka round's kernels (``kafka_merge``,
    ``kafka_nem_deliver``, ``kafka_commit_select``,
    ``kafka_commit_apply``) in every mode (:func:`check_kafka`) at odd
-   shapes and the Kafka phases' shapes — and each
+   shapes and the Kafka phases' shapes; ``and_fold`` against
+   ``and_rows`` at every serving phase's shape and ragged ones, both
+   forms, on 4-byte-offset views, over probe bitsets in which a skipped
+   block, head or tail changes the result (:func:`fold_probes`) — and each
    one's median
    time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
@@ -163,6 +166,32 @@ g-counter, unique ids, echo and Kafka:
     (4,096 nodes, commits, the resync every 4 rounds) run to
     convergence in pull and push mode and over the device KV, certified
     as harness/nemesis.py certifies it, each equal to the CPU path.
+28. ``serving_broadcast_64k``, ``serving_counter_64k``,
+    ``serving_kafka_64k``: benchmarks/serving_curve.py's 65,536-node
+    points on one card (:123-128, :142-148, :157-162): the words-major
+    tree (W = 768) at rates 0.1 and 0.5, the allreduce counter and Kafka
+    (64 keys) at 0.1 and 0.3, 512 clients, each rate a certified
+    ``harness.serving.run_serving`` row (latency p50 / p99 / max in
+    rounds, issued, deferred, completed, rounds, wall ms a round,
+    completed ops a second, lost acknowledged writes); the driven phase
+    timed and profiled (device idle share, launches and spans a round,
+    ``no_host_sync``; its one trip must launch the phase's kernels) and,
+    off the launch counts, ``and_fold``'s device ms on its state; then
+    the runs replayed with the telemetry ring and held against the
+    port's CPU path at the same spec (tracker, state and ring; the
+    broadcast at rate 0.1 only, the CPU's W = 768 rounds being the
+    slowest part of the smoke).  ``ok``: every row ``ok`` with no lost
+    write, and the twin equal.
+29. ``serving_overlay_1k``: the three fault overlays of
+    serving_curve.py :169-200 (crash of every fifth node over rounds
+    [16, 32), loss 0.1 until 36, 1,024 nodes, 256 clients at rate 0.2:
+    the structured grid, Kafka with the resync, the allreduce counter)
+    and ``counter_small_1dev``'s cas queueing curve (:132-140); each
+    equal to the CPU path, the overlays' verdicts the CPU runner's.
+30. ``serving_tree_1m``: the main path under load, the 2^20-node 4-ary
+    tree words-major, 512 clients x 16 ops (W = 256), rate 0.25, 32
+    driven rounds, held against the card's node-major gather path on
+    ``to_padded_neighbors(tree(n))`` at the same spec.
 
 The Kafka phases run their staged rounds under torch's sync debug mode
 (no host sync) and report rounds, wall ms, ms a round, device busy ms,
@@ -277,6 +306,9 @@ KERNELS = {
                             "kafka_commit_select_kernel"),
     "kafka_commit_apply": ("kafka_round.cu", JAX_PKG + "kafka.py:773",
                            "kafka_commit_apply_kernel"),
+    # no Pallas kernel: the traffic drivers' XLA AND-fold (and kafka.py:1396)
+    "and_fold": ("traffic_fold.cu", JAX_PKG + "broadcast.py:2559",
+                 "and_fold_kernel"),
 }
 # the gather kernels' main shapes are node-major (N, W) = (2^20, 1) and
 # (2^20, 128), degree 8
@@ -290,7 +322,7 @@ PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
                          r"faulted_gather_round|wm_fault_coins|"
                          r"counter_select|counter_apply|kafka_merge|"
                          r"kafka_nem_deliver|kafka_commit_select|"
-                         r"kafka_commit_apply)_kernel")
+                         r"kafka_commit_apply|and_fold)_kernel")
 LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 # plan tile caps at which shift_masked_exchange is also timed (the
 # wrapper's, kernels.SHIFT_TILE, first)
@@ -899,6 +931,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
         torch.cuda.empty_cache()
     check_counter(kernels, note, device)
     check_kafka(kernels, note, device)
+    check_and_fold(kernels, note, device)
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -1157,6 +1190,7 @@ def time_kernels(kernels, structured, topology, device) -> dict:
     time_ring_kernels(kernels, structured, out, gen, strides, device)
     time_counter(kernels, device, out)
     time_kafka(kernels, device, out)
+    time_and_fold(kernels, device, out)
     return out
 
 
@@ -3512,16 +3546,508 @@ def ids_echo(unique_ids, echo, device, launches: Launches,
     torch.cuda.empty_cache()
 
 
+# -- open-loop serving (the traffic engine, its telemetry ring, the runner)
+
+# benchmarks/serving_curve.py's full-size points on one card (:98-99,
+# :113-200): (phase, workload, TrafficSpec kwargs at the lightest rate,
+# the rates, sim_kw, the rates held to the CPU path)
+SERVING_BIG, SERVING_SMALL = 65536, 1024
+SERVING_TREE_NODES = 1 << 20
+SERVING_PHASES = (
+    ("serving_broadcast_64k", "broadcast",
+     dict(n_nodes=SERVING_BIG, n_clients=512, ops_per_client=48, until=48,
+          rate=0.1, seed=102), (0.1, 0.5),
+     dict(topology="tree", structured=True, sync_every=4), (0.1,)),
+    ("serving_counter_64k", "counter",
+     dict(n_nodes=SERVING_BIG, n_clients=512, ops_per_client=16, until=32,
+          rate=0.1, seed=104), (0.1, 0.3),
+     dict(mode="allreduce", poll_every=2), (0.1, 0.3)),
+    ("serving_kafka_64k", "kafka",
+     dict(n_nodes=SERVING_BIG, n_clients=512, ops_per_client=16, until=32,
+          rate=0.1, seed=106), (0.1, 0.3),
+     dict(n_keys=64, max_sends=4), (0.1, 0.3)),
+)
+# the fault overlay (serving_curve.py :169-200): every fifth node down for
+# the middle third of the 48-round horizon, loss 0.1 until four rounds
+# after; and counter_small_1dev's cas queueing curve (:132-140)
+OVERLAY_TRAFFIC = dict(n_nodes=SERVING_SMALL, n_clients=256,
+                       ops_per_client=48, until=48, rate=0.2, seed=108)
+OVERLAY_FAULT = dict(n_nodes=SERVING_SMALL, seed=107,
+                     crash=((16, 32, tuple(range(0, SERVING_SMALL, 5))),),
+                     loss_rate=0.1, loss_until=36)
+OVERLAY_SIMS = (
+    ("broadcast", dict(topology="grid", structured=True, sync_every=4)),
+    ("kafka", dict(n_keys=64, max_sends=4, resync_every=4)),
+    ("counter", dict(mode="allreduce", poll_every=2)))
+CAS_CURVE_TRAFFIC = dict(n_nodes=SERVING_SMALL, n_clients=SERVING_SMALL,
+                         ops_per_client=4, until=96, rate=0.001, seed=103)
+CAS_CURVE_RATES = tuple(r / SERVING_SMALL for r in (0.5, 1.0, 2.0))
+# the main path under load: the 2^20-node 4-ary tree, words-major, 512
+# clients x 16 ops (8,192 values, W = 256), the expected arrivals half
+# the op slots
+SERVING_TREE = dict(n_nodes=SERVING_TREE_NODES, n_clients=512,
+                    ops_per_client=16, until=32, rate=0.25, seed=101)
+
+
+def and_fold_shape(kind: str, tkw: dict, rate_max: float,
+                   sim_kw: dict) -> tuple:
+    """(node_major, N, C): the bitset a serving sim folds with
+    ``and_fold``, at the widths ``make_serving_sim`` gives it."""
+    from gossip_glomers_tpu_torch.harness import serving
+    from gossip_glomers_tpu_torch.tpu_sim import traffic
+
+    n = tkw["n_nodes"]
+    widths = serving.serving_widths(
+        kind, traffic.TrafficSpec(**tkw).with_rate(rate_max), sim_kw)
+    if kind == "broadcast":
+        return (not sim_kw.get("structured", False), n,
+                -(-widths["n_values"] // 32))
+    return (True, n, widths["n_keys"] * -(-widths["capacity"] // 32))
+
+
+def serving_fold_shapes() -> list:
+    """Every shape the serving phases fold, and ragged ones: words-major
+    W = 1, N not a multiple of 4; node-major one column, odd columns."""
+    shapes = {(False, 5, 1), (False, 4097, 3), (False, 65539, 1),
+              (True, 4097, 1), (True, 1000, 3), (True, 513, 33)}
+    for _, kind, tkw, rates, sim_kw, _ in SERVING_PHASES:
+        if kind != "counter":
+            shapes.add(and_fold_shape(kind, tkw, max(rates), sim_kw))
+    for kind, sim_kw in OVERLAY_SIMS:
+        if kind != "counter":
+            shapes.add(and_fold_shape(kind, OVERLAY_TRAFFIC,
+                                      OVERLAY_TRAFFIC["rate"], sim_kw))
+    tree_kw = dict(topology="tree", structured=True)
+    shapes.add(and_fold_shape("broadcast", SERVING_TREE, 0.25, tree_kw))
+    shapes.add(and_fold_shape("broadcast", SERVING_TREE, 0.25,
+                              dict(topology="tree")))
+    return sorted(shapes)
+
+
+# traffic_fold.cu's launch geometry, mirrored so that the check's probes
+# sit on its blocks' edges
+FOLD_THREADS = 256
+FOLD_ROW_BLOCK_WORDS = FOLD_THREADS * 4 * 4   # four 16-byte loads a thread
+FOLD_COL_BLOCKS, FOLD_COL_MIN_ROWS, FOLD_MAX_GRID_Y = 132 * 16, 32, 65535
+FOLD_PROBE_BITS = 28      # bits a line's probes clear; 4 stay set
+
+
+def fold_ranges(shape: tuple, offset: int = 0) -> list:
+    """Per line of ``shape`` (node_major, N, C) (a word row of the row
+    form, a column of the column form), the node ranges [lo, hi) that
+    ``and_fold``'s blocks read, the bitset laid ``offset`` words into a
+    16-byte aligned allocation: a row's unaligned head and ragged tail
+    are ranges of their own."""
+    node_major, n, c = shape
+    cdiv = lambda a, b: -(-a // b)                              # noqa: E731
+    if node_major and c > 1:
+        tx = 32
+        while tx < 128 and tx < c:
+            tx *= 2
+        ty = FOLD_THREADS // tx
+        rpb = max(cdiv(n, cdiv(FOLD_COL_BLOCKS, cdiv(c, tx))),
+                  FOLD_COL_MIN_ROWS, cdiv(n, FOLD_MAX_GRID_Y))
+        rpb = cdiv(rpb, ty) * ty
+        return [[(lo, min(lo + rpb, n)) for lo in range(0, n, rpb)]] * c
+    out = []
+    for row in range(c):
+        head = min(-(offset + row * n) % 4, n)
+        body = (n - head) // 4 * 4
+        r = [(0, head)] if head else []
+        r += [(head + lo, head + min(lo + FOLD_ROW_BLOCK_WORDS, body))
+              for lo in range(0, body, FOLD_ROW_BLOCK_WORDS)]
+        out.append(r + ([(head + body, n)] if head + body < n else []))
+    return out
+
+
+def fold_probes(shape: tuple, seed: int, offset: int = 0):
+    """(line, node, bit) int64 rows: the nodes at which each line clears
+    one bit of its own.  Every line probes its first four and last four
+    nodes (the head words of an offset view, the ragged tail, the first
+    and last node), then its blocks' first nodes and then their last
+    ones, from a block that moves on by the probes' room a line, then
+    nodes spread over the axis, staggered from line to line, up to
+    :data:`FOLD_PROBE_BITS` nodes.  A node range that the kernel skipped
+    in one line then leaves that line a bit the AND would have cleared;
+    every block index is probed in some line whenever the lines' room
+    holds them all (it does at every shape the checks use:
+    tests/test_torch_kernels.py)."""
+    import numpy as np
+
+    node_major, n, c = shape
+    rng = np.random.default_rng(seed)
+    room = FOLD_PROBE_BITS - 8
+    rows = []
+    for line, ranges in enumerate(fold_ranges(shape, offset)):
+        k = len(ranges)
+        turn = [ranges[(line * room + i) % k] for i in range(k)]
+        spread = [(i * c + line) * n // (room * c) for i in range(room)]
+        want = ([0, 1, 2, 3, n - 4, n - 3, n - 2, n - 1]
+                + [lo for lo, _ in turn] + [hi - 1 for _, hi in turn]
+                + spread)
+        nodes = list(dict.fromkeys(x for x in want if 0 <= x < n))
+        nodes = nodes[:FOLD_PROBE_BITS]
+        bits = rng.permutation(32)[:len(nodes)]
+        rows += [(line, x, b) for x, b in zip(nodes, bits)]
+    return np.asarray(rows, np.int64).reshape(-1, 3)
+
+
+def fold_input(shape: tuple, seed: int, device, offset: int = 0):
+    """A bitset of ``shape`` (node_major, N, C), (N, C) node-major or
+    (C, N) words-major, all ones but for the bits of
+    :func:`fold_probes`."""
+    import torch
+
+    node_major, n, c = shape
+    p = torch.from_numpy(fold_probes(shape, seed, offset)).to(device)
+    x = torch.full((c, n), -1, dtype=torch.int32, device=device)
+    x[p[:, 0], p[:, 1]] = ~(torch.ones_like(p[:, 2], dtype=torch.int32)
+                            << p[:, 2].to(torch.int32))
+    return x.t().contiguous() if node_major else x
+
+
+def check_and_fold(kernels, note, device) -> None:
+    """``and_fold`` against ``and_rows`` at every serving shape
+    (:func:`serving_fold_shapes`), aligned and on 4-byte-offset views."""
+    import torch
+
+    for shape in serving_fold_shapes():
+        for offset in (0, 1):
+            x = fold_input(shape, sum(shape), device, offset)
+            want = kernels.and_rows(x if shape[0] else x.t())
+            view = at_offset(x, offset)
+            note("and_fold", (kernels.and_fold(view, node_major=shape[0]),
+                              want))
+            del x, want, view
+        torch.cuda.empty_cache()
+
+
+def time_and_fold(kernels, device, out) -> None:
+    """``and_fold`` at the serving phases' main shapes: the 64k
+    broadcast's (768, 65536) words-major, the 64k Kafka presence (65536,
+    384) node-major, the 2^20-node tree's (256, 2^20) words-major.  Each
+    reads the state once and writes C words: bytes-bound at HBM's rate
+    (every state is above the L2's 50 MB).  No PyTorch call folds with a
+    bitwise AND (library_ms null)."""
+    import torch
+
+    mains = [and_fold_shape(kind, tkw, max(rates), sim_kw)
+             for _, kind, tkw, rates, sim_kw, _ in SERVING_PHASES
+             if kind != "counter"]
+    mains.append(and_fold_shape("broadcast", SERVING_TREE, 0.25,
+                                dict(structured=True)))
+    for shape in mains:
+        node_major, n, c = shape
+        x = fold_input(shape, n + c, device)
+        moved = 4 * n * c + 4 * c
+        b = bound(moved, n * c, HBM_BYTES_PER_S if moved > L2_BYTES
+                  else L2_BYTES_PER_S)
+        out["and_fold"][(c, n)] = _timed(
+            "and_fold", lambda: kernels.and_fold(x, node_major),
+            lambda: kernels.and_fold_plain(x, node_major), b)
+        out["and_fold"][(c, n)]["layout"] = ("node-major" if node_major
+                                             else "words-major")
+        del x
+        torch.cuda.empty_cache()
+
+
+SERVING_EXPECT = {"broadcast": ("and_fold", "col_popcount"),
+                  "counter": ("counter_select", "counter_apply"),
+                  "kafka": ("and_fold", "kafka_merge")}
+
+
+def fold_of(sim, state) -> tuple:
+    """(node_major, N, C) and the bitset that ``sim``'s traffic driver
+    folds for ``state``."""
+    if hasattr(state, "present"):
+        n = state.present.shape[0]
+        x = state.present.view(n, -1)
+        return (True,) + tuple(x.shape), x
+    x = state.received
+    return ((not sim.words_major,) + tuple(
+        x.shape if not sim.words_major else x.shape[::-1]), x)
+
+
+def serving_row(row: dict) -> dict:
+    """The reported keys of one run_serving row."""
+    wall_ms = row["total_s"] * 1e3
+    return {"rate": row["traffic"]["rate"], "ok": row["ok"],
+            "n_lost_writes": row["n_lost_writes"],
+            "lat_p50": row["lat_p50"], "lat_p99": row["lat_p99"],
+            "lat_max": row["lat_max"], "arrived": row["arrived"],
+            "issued": row["issued"], "deferred": row["deferred"],
+            "completed": row["completed"], "in_flight": row["in_flight"],
+            "conserved": row["conserved"],
+            "offered_per_round": row["offered_per_round"],
+            "sustained_per_round": row["sustained_per_round"],
+            "total_rounds": row["total_rounds"],
+            "recovery_rounds": row["recovery_rounds"],
+            "wall_ms": wall_ms,
+            "wall_ms_per_round": wall_ms / max(1, row["total_rounds"]),
+            "completed_ops_per_s": row["ops_per_sec"],
+            "msgs_total": row["msgs_total"]}
+
+
+def replay(sim, kind: str, serving, telemetry, tspec, rounds: int, tsp):
+    """``rounds`` rounds of ``tspec`` from a fresh state in one
+    ``run_traffic`` call with the ring on: the state a serving run of
+    that many rounds ends in (its drive calls are the same rounds)."""
+    st = serving._fresh_state(kind, sim)
+    return sim.run_traffic(st, sim.traffic_state(tspec), tspec, rounds,
+                           donate=True, tel=telemetry.init_state(
+                               tsp, device=sim.device), tel_spec=tsp)
+
+
+def same_serving(kernels, a, b) -> bool:
+    """Two serving ends (state, tracker, ring) agree, on any devices and
+    layouts: every tracker leaf, the ring, the round, the ledger and the
+    sim's node state (received / pending, cached, kv / the Kafka
+    fields)."""
+    import torch
+
+    (sa, ta, la), (sb, tb, lb) = a, b
+
+    def eq(x, y):
+        return x.shape == y.shape and bool(torch.equal(x.cpu(), y.cpu()))
+
+    ok = (all(eq(x, y) for x, y in zip(ta, tb)) and eq(la.ring, lb.ring)
+          and la.wrote == lb.wrote and sa.t == sb.t
+          and int(sa.msgs) == int(sb.msgs))
+    if not ok:
+        return False
+    if hasattr(sa, "present"):
+        return same_kafka(sa, sb)
+    if hasattr(sa, "pending"):
+        return all(eq(getattr(sa, f), getattr(sb, f))
+                   for f in ("pending", "cached", "kv"))
+    def lay(x):                      # words-major against node-major
+        return x if x.shape == sa.received.shape else x.t()
+
+    return all(bool(torch.equal(getattr(sa, f),
+                                lay(getattr(sb, f)).to(sa.received.device)))
+               for f in ("received", "frontier"))
+
+
+def top_spans(spans: list, rounds: int, k: int = 6) -> list:
+    """The ``k`` device span kinds that took the most time in a run:
+    [name (its first 90 characters), device us a round, spans a round]."""
+    by: dict = {}
+    for x in spans:
+        name = x["name"][:90]
+        us, n = by.get(name, (0.0, 0))
+        by[name] = (us + x["us"], n + 1)
+    return [[name, us / rounds, n / rounds] for name, (us, n) in
+            sorted(by.items(), key=lambda kv: -kv[1][0])[:k]]
+
+
+def serving_timed(kernels, serving, sim, kind: str, tspec) -> dict:
+    """The driven phase (``until`` rounds from a fresh state, no ring) on
+    the card: CUDA-event wall (median of 2 after a warm-up), device busy
+    time and spans under the profiler with the span kinds that took the
+    most of it (:func:`top_spans`), port launches of one trip
+    (:data:`TRIP_LAUNCHES`; ``trip_launches`` by kernel), and whether it
+    runs with no host sync."""
+    def stage():
+        st = serving._fresh_state(kind, sim)
+        ts = sim.traffic_state(tspec)
+        return lambda: sim.run_traffic(st, ts, tspec, tspec.until,
+                                       donate=True)
+
+    rounds = tspec.until
+    wall = statistics.median([event_ms(stage())[1] for _ in range(3)][1:])
+    found = device_spans(stage)
+    busy = spans = top = None
+    if found is not None:
+        busy, spans = sum(x["us"] for x in found) / 1e3, len(found)
+        top = top_spans(found, rounds)
+    before = dict(kernels.LAUNCHES)
+    port = launches_of(kernels, stage())
+    trip = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v > before[k]}
+    try:
+        no_host_sync(stage())
+        sync_free = True
+    except RuntimeError as e:
+        sync_free = False
+        print(f"chip_smoke: {kind} run_traffic syncs with the host: {e}",
+              file=sys.stderr, flush=True)
+    return {"rounds": rounds, "wall_ms": wall, "ms_per_round": wall / rounds,
+            "device_busy_ms": busy,
+            "device_idle_share": idle_share(busy, wall),
+            "launches_per_round": port / rounds, "trip_launches": trip,
+            "device_spans_per_round": None if spans is None
+            else spans / rounds, "top_spans": top,
+            "no_host_sync": sync_free}
+
+
+def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
+                    twin_rates, modules, device, launches: Launches,
+                    card: str, *, nemesis_kw=None, max_recovery_rounds=96,
+                    twin=None) -> dict:
+    """One serving phase: ``run_serving`` on the card at each rate (one
+    sim, built at the heaviest rate, as ``run_serving_curve`` builds it),
+    the driven phase timed and profiled at the first rate (one trip must
+    launch the phase's kernels), each of ``twin_rates`` replayed with the
+    ring on; then, off the launch counts, ``and_fold`` timed on the final
+    state and each replay held against its twin: the port's CPU path at
+    the same spec, or ``twin(device)``'s sim on the card."""
+    import torch
+
+    serving, telemetry, traffic, kernels, faults = modules
+    launches.start()
+    spec0 = traffic.TrafficSpec(**tkw)
+    nem = None if nemesis_kw is None else faults.NemesisSpec(**nemesis_kw)
+    sim, _ = serving.make_serving_sim(
+        kind, spec0.with_rate(float(max(rates))), nemesis=nem,
+        device=device, **dict(sim_kw))
+    rec = {"phase": name, "card": card, "workload": kind,
+           "traffic": spec0.to_meta(), "sim_kw": sim_kw,
+           "nemesis": None if nem is None else {
+               "crash": [[a, b, len(ns)] for a, b, ns in nem.crash],
+               "loss_rate": nem.loss_rate, "loss_until": nem.loss_until,
+               "seed": nem.seed},
+           "max_recovery_rounds": max_recovery_rounds, "rates": []}
+    rows = {}
+    for r in rates:
+        row = serving.run_serving(kind, spec0.with_rate(float(r)),
+                                  nemesis=nem, sim=sim, series=nem is not None,
+                                  max_recovery_rounds=max_recovery_rounds)
+        rows[r] = row
+        rep = serving_row(row)
+        if "cliff" in row:
+            rep["cliff"] = row["cliff"]
+        rec["rates"].append(rep)
+    rec["timed"] = serving_timed(kernels, serving, sim, kind,
+                                 spec0.with_rate(float(rates[0])))
+    missing = [k for k in SERVING_EXPECT[kind]
+               if k not in rec["timed"]["trip_launches"]]
+    if missing:
+        raise AssertionError(f"{name}: one driven trip never launched "
+                             f"{missing}")
+    ends = {}
+    for r in twin_rates:
+        tspec = spec0.with_rate(float(r))
+        tsp = telemetry.TelemetrySpec(kind, rounds=rows[r]["total_rounds"],
+                                      traffic=True)
+        ends[r] = replay(sim, kind, serving, telemetry, tspec,
+                         rows[r]["total_rounds"], tsp)
+        got = traffic.latency_summary(ends[r][1])
+        if any(got[k] != rows[r][k] for k in got):
+            raise AssertionError(f"{name}: the replay of rate {r} ends "
+                                 f"elsewhere than its serving run: {got}")
+    launches.stop(rec, SERVING_EXPECT[kind])
+    # the fold timed on the final state, and the twins, off the counts
+    if kind != "counter":
+        shape, x = fold_of(sim, ends[twin_rates[0]][0])
+        rec["and_fold_shape"] = list(shape)
+        if shape not in serving_fold_shapes():
+            raise AssertionError(f"{name}: kernel_check never held and_fold "
+                                 f"at {shape}")
+        rec["and_fold_device_ms"] = device_ms(
+            lambda: kernels.and_fold(x, shape[0]), "and_fold_kernel",
+            calls=5)
+        del x
+    if twin is None:
+        csim, _ = serving.make_serving_sim(
+            kind, spec0.with_rate(float(max(rates))), nemesis=nem,
+            device="cpu", **dict(sim_kw))
+    else:
+        csim = twin(device)
+    rec["twin"] = "cpu" if twin is None else "card"
+    rec["twin_rates"] = list(twin_rates)
+    matches = []
+    for r in twin_rates:
+        tspec = spec0.with_rate(float(r))
+        tsp = telemetry.TelemetrySpec(kind, rounds=rows[r]["total_rounds"],
+                                      traffic=True)
+        other = replay(csim, kind, serving, telemetry, tspec,
+                       rows[r]["total_rounds"], tsp)
+        matches.append(same_serving(kernels, ends[r], other))
+        del other
+    rec["twin_match"] = all(matches)
+    if twin is None and nem is not None:
+        # the verdict the CPU path's runner reaches at the same spec
+        cpu_rows = [serving.run_serving(
+            kind, spec0.with_rate(float(r)), nemesis=nem, sim=csim,
+            max_recovery_rounds=max_recovery_rounds) for r in twin_rates]
+        rec["cpu_verdicts"] = [[cr["ok"], cr["n_lost_writes"]]
+                               for cr in cpu_rows]
+        rec["verdicts_match"] = all(
+            [cr["ok"], cr["n_lost_writes"]]
+            == [rows[r]["ok"], rows[r]["n_lost_writes"]]
+            for cr, r in zip(cpu_rows, twin_rates))
+    del sim, csim, ends
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serving_phases(modules, topology, structured, broadcast, device,
+                   launches: Launches, card: str) -> None:
+    """benchmarks/serving_curve.py's points on one card and the main path
+    under load (module docstring, phases 28-32)."""
+    for name, kind, tkw, rates, sim_kw, twin_rates in SERVING_PHASES:
+        rec = serve_and_check(name, kind, tkw, rates, sim_kw, twin_rates,
+                              modules, device, launches, card)
+        rec["ok"] = (rec["twin_match"] and all(
+            r["ok"] and r["n_lost_writes"] == 0 for r in rec["rates"]))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"{name}: {rec}")
+    overlay = {"phase": "serving_overlay_1k", "card": card, "runs": []}
+    for kind, sim_kw in OVERLAY_SIMS:
+        rec = serve_and_check(f"overlay_{kind}", kind, OVERLAY_TRAFFIC,
+                              (OVERLAY_TRAFFIC["rate"],), sim_kw,
+                              (OVERLAY_TRAFFIC["rate"],), modules, device,
+                              launches, card, nemesis_kw=OVERLAY_FAULT,
+                              max_recovery_rounds=192)
+        rec["ok"] = rec["twin_match"] and rec["verdicts_match"]
+        overlay["runs"].append(rec)
+    rec = serve_and_check("cas_queueing_curve", "counter", CAS_CURVE_TRAFFIC,
+                          CAS_CURVE_RATES, dict(mode="cas", poll_every=2),
+                          CAS_CURVE_RATES, modules, device, launches, card,
+                          max_recovery_rounds=384)
+    rec["ok"] = rec["twin_match"] and all(
+        r["ok"] and r["n_lost_writes"] == 0 for r in rec["rates"])
+    overlay["runs"].append(rec)
+    overlay["ok"] = all(r["ok"] for r in overlay["runs"])
+    emit(overlay)
+    if not overlay["ok"]:
+        raise AssertionError(f"serving_overlay_1k: {overlay}")
+    # the main path under load, held to the card's gather path
+    n = SERVING_TREE_NODES
+    nbrs = topology.to_padded_neighbors(topology.tree(n))
+
+    def gather_twin(dev):
+        return broadcast.BroadcastSim(
+            nbrs, n_values=SERVING_TREE["n_clients"]
+            * SERVING_TREE["ops_per_client"], sync_every=4,
+            srv_ledger=False, device=dev)
+
+    rec = serve_and_check("serving_tree_1m", "broadcast", SERVING_TREE,
+                          (SERVING_TREE["rate"],),
+                          dict(topology="tree", structured=True,
+                               sync_every=4),
+                          (SERVING_TREE["rate"],), modules, device,
+                          launches, card, twin=gather_twin)
+    rec["ok"] = rec["twin_match"] and all(
+        r["ok"] and r["n_lost_writes"] == 0 for r in rec["rates"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serving_tree_1m: {rec}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from gossip_glomers_tpu_torch.harness import serving
     from gossip_glomers_tpu_torch.parallel import topology
     from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter, echo,
                                                   faults, kafka, kernels,
-                                                  structured, timing,
+                                                  structured, telemetry,
+                                                  timing, traffic,
                                                   unique_ids)
 
     device = torch.device("cuda")
@@ -3575,6 +4101,7 @@ def main() -> int:
           "kafka_shapes_past_memory": [
               list(x) for x in KAFKA_PHASE_SHAPES
               if kafka_past_memory(*x[:3])],
+          "and_fold_shapes": [list(x) for x in serving_fold_shapes()],
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
                     for k, t in times.items()}})
 
@@ -3609,6 +4136,8 @@ def main() -> int:
     counter_phases(counter, faults, kernels, device, launches, smi)
     ids_echo(unique_ids, echo, device, launches, smi)
     kafka_phases(kafka, faults, kernels, device, launches, smi)
+    serving_phases((serving, telemetry, traffic, kernels, faults), topology,
+                   structured, broadcast, device, launches, smi)
 
     for name, count in launches.total.items():
         if count == 0:

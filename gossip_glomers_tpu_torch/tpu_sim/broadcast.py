@@ -55,7 +55,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import faults, kernels
+from . import faults, kernels, telemetry, traffic
 from .engine import (active_windows, fori_rounds, resolve_block,
                      resolve_device, scan_blocks, send_slot,
                      stepwise_converge, while_converge, windows_fold)
@@ -1048,6 +1048,7 @@ class BroadcastSim:
                 # asked for
                 self._ub = None
         self._fixed = {}
+        self._traffic = {}
 
     def _setup_delays(self, delays, delayed, edge_delayed, nemesis) -> None:
         """The delay mode's ring length, its device operands and its
@@ -1228,6 +1229,133 @@ class BroadcastSim:
         ``donate`` the state is consumed."""
         self.build_fixed(rounds, donate=donate)
         return self._fixed[(rounds, donate)][0](state)
+
+    # -- open-loop traffic -----------------------------------------------
+
+    def _traffic_validate(self, tspec) -> None:
+        if self._srv_on:
+            raise ValueError(
+                "traffic drivers keep no server ledger (open-loop "
+                "ops have no reference srv accounting): build the "
+                "sim with srv_ledger=False")
+        need = tspec.n_clients * tspec.ops_per_client
+        if need > self.n_values:
+            raise ValueError(
+                f"value universe too small: n_values={self.n_values} "
+                f"< n_clients*ops_per_client={need} (every op is its "
+                "own value bit)")
+
+    def _traffic_index(self, tspec) -> dict:
+        """The traffic driver's per-spec index tensors
+        (:func:`.traffic.client_index` and each op's value word and bit
+        position), cached by the spec's static key."""
+        key = tspec.program_key
+        if key not in self._traffic:
+            ix = traffic.client_index(tspec, self.n_nodes, self.device)
+            self._traffic_validate(tspec)
+            v = (ix["ids"][:, None] * tspec.ops_per_client
+                 + torch.arange(tspec.ops_per_client,
+                                device=self.device)[None, :])
+            ix.update(v_word=v // WORD, v_shift=(v % WORD).to(torch.int32))
+            self._traffic[key] = ix
+        return self._traffic[key]
+
+    def _traffic_inject(self, state: BroadcastState, ts, tspec, tplan,
+                        ix: dict):
+        """Fold this round's arrivals into the node rows, in place: op
+        (client, k) is value bit ``client * ops_per_client + k``, added at
+        the client's home node to ``received`` and ``frontier`` (a sum of
+        distinct new bits is their OR, whatever order the card adds them
+        in; a deferred arrival adds 0 to word 0).  Deferral classes — home node down, the ``intake`` cap, op
+        slots exhausted — are counted by :func:`.traffic.issue`."""
+        t, node = state.t, ix["node"]
+        arr = traffic.arrive(tplan, t, ix["ids"])
+        plan = self.fault_plan
+        accept = (faults.node_up(plan, t, node) if plan is not None
+                  else torch.ones_like(arr))
+        if tspec.intake is not None:
+            accept = accept & (
+                traffic.intake_rank(arr, tspec.clients_per_node)
+                < tspec.intake)
+        ts, ok, kslot = traffic.issue(ts, arr, accept, t)
+        v = ix["ids"] * tspec.ops_per_client + kslot
+        w = torch.where(ok, v // WORD, 0)
+        bit = kernels._wrap_i32(torch.where(ok, 1 << (v % WORD), 0))
+        at = (w * self.n_nodes + node if self.words_major
+              else node * self.n_words + w)
+        state.received.view(-1).index_add_(0, at, bit)
+        state.frontier.view(-1).index_add_(0, at, bit)
+        return state, ts
+
+    def _traffic_done(self, s2: BroadcastState, ts, tspec, ix: dict):
+        """Per-op visibility: the op's value bit at every node, read from
+        the all-nodes words (:func:`.kernels.and_fold`)."""
+        all_words = kernels.and_fold(s2.received,
+                                     node_major=not self.words_major)
+
+        def bit_fn(lo, block):
+            sl = slice(lo, lo + block)
+            return ((all_words[ix["v_word"][sl]] >> ix["v_shift"][sl])
+                    & 1) > 0
+
+        return traffic.done_scan(ts, bit_fn, s2.t, ix["block"])
+
+    def _popcount(self, x: torch.Tensor) -> torch.Tensor:
+        """() int64: the set bits of a bitset in the sim's layout
+        (:func:`.kernels.col_popcount`)."""
+        return kernels.col_popcount(
+            x, node_major=not self.words_major).sum(dtype=torch.int64)
+
+    def _tel_series(self, t: int, fr0_pc, s1: BroadcastState,
+                    mask) -> tuple:
+        """Round ``t``'s telemetry row (``telemetry.SIM_SERIES
+        ['broadcast']``): liveness, the popcount of the frontier that
+        went out (``fr0_pc``, taken before the round), of the new
+        frontier and of ``received``, the value-message total; only the
+        columns ``mask`` keeps."""
+        live, _fr0, new, known, _msgs = mask
+        return (telemetry.live_count(self.fault_plan, t, self.n_nodes)
+                if live else None, fr0_pc,
+                self._popcount(s1.frontier) if new else None,
+                self._popcount(s1.received) if known else None, s1.msgs)
+
+    def traffic_state(self, tspec) -> "traffic.TrafficState":
+        return traffic.init_state(tspec, device=self.device)
+
+    def run_traffic(self, state: BroadcastState, ts, tspec,
+                    n_rounds: int, *, donate: bool = False,
+                    tel=None, tel_spec=None):
+        """Open-loop serving driver: ``n_rounds`` rounds, each injecting
+        the spec's seeded client arrivals (new values at their home
+        nodes) before the round (:meth:`step`: any layout, fault or delay
+        mode) and advancing the per-op latency tracker after it
+        (:mod:`.traffic`).  With ``donate`` the state, the tracker and
+        the ring are consumed (updated in place); else they are copied
+        first.  ``tel`` / ``tel_spec``: record the per-round telemetry
+        ring too, and return ``(state, ts, tel)``."""
+        telemetry.tel_key(tel, tel_spec, "broadcast")
+        ix = self._traffic_index(tspec)
+        tplan = tspec.compile()
+        if not donate:
+            state = dataclasses.replace(
+                state, received=state.received.clone(),
+                frontier=state.frontier.clone())
+            ts = ts.clone()
+            tel = None if tel is None else tel.clone()
+        mask = None if tel is None else tel_spec.static_mask
+        for _ in range(n_rounds):
+            t = state.t
+            state, ts = self._traffic_inject(state, ts, tspec, tplan, ix)
+            # the frontier this round floods, arrivals included
+            fr0_pc = (self._popcount(state.frontier)
+                      if tel is not None and mask[1] else None)
+            state = self.step(state)
+            ts = self._traffic_done(state, ts, tspec, ix)
+            if tel is not None:
+                vals = (self._tel_series(t, fr0_pc, state, mask[:5])
+                        + traffic.tel_series(ts))
+                tel = telemetry.record(tel, t, vals, mask)
+        return (state, ts) if tel is None else (state, ts, tel)
 
     # -- readout ---------------------------------------------------------
 

@@ -31,8 +31,13 @@ windows and the plan active at round ``t``.  ``t`` is a host int, ``kv``
 a 0-dim int32 device tensor and ``msgs`` a 0-dim int64 holding the
 reference's uint32 ledger.
 
+The open-loop traffic driver (:meth:`CounterSim.run_traffic`, with its
+telemetry ring) injects the seeded client adds of a
+:class:`.traffic.TrafficSpec` before each round and tracks each op until
+every node's cached read covers its flush.
+
 Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); telemetry, provenance and traffic (item 11); the scenario
+item 10); the observed driver and provenance (item 11); the scenario
 batch round (item 12); the program audit (item 14).
 """
 
@@ -44,17 +49,15 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from . import faults, kernels, kvstore
+from . import faults, kernels, kvstore, telemetry, traffic
 from .engine import (active_windows, collectives, fori_rounds,
                      resolve_block, resolve_device, scan_blocks)
 from .kernels import GATE_BLOCKED, GATE_WIPE
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
 # A item
-_UNPORTED_METHODS = {"run_observed": 11, "run_traffic": 11,
-                     "telemetry_state": 11, "provenance_state": 11,
-                     "traffic_state": 11, "audit_run_program": 14,
-                     "audit_traffic_program": 14}
+_UNPORTED_METHODS = {"run_observed": 11, "provenance_state": 11,
+                     "audit_run_program": 14, "audit_traffic_program": 14}
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -210,6 +213,7 @@ class CounterSim:
         self._row_ids = (None if fault_plan is None else
                          collectives(n_nodes, device=self.device).row_ids)
         self._work = kernels.counter_work(self.device)
+        self._traffic = {}
 
     def __getattr__(self, name: str):
         if name in _UNPORTED_METHODS:
@@ -328,6 +332,126 @@ class CounterSim:
         out = (state.pending, state.cached)
         return fori_rounds(lambda s: self._round(s, out=out), state,
                            n_rounds)
+
+    # -- open-loop traffic -----------------------------------------------
+
+    def _traffic_index(self, tspec) -> dict:
+        """The traffic driver's per-spec index tensors
+        (:func:`.traffic.client_index` and every row id), cached by the
+        spec's static key."""
+        key = tspec.program_key
+        if key not in self._traffic:
+            ix = traffic.client_index(tspec, self.n_nodes, self.device)
+            ix["rows"] = torch.arange(self.n_nodes, dtype=torch.int32,
+                                      device=self.device)
+            self._traffic[key] = ix
+        return self._traffic[key]
+
+    def _traffic_round(self, state: CounterState, ts, tspec, tplan,
+                       ix: dict, tel=None, tel_mask=None):
+        """One traffic-injected round (the reference's): classify this
+        round's arrivals (home node down, the ``intake`` cap, op slots
+        exhausted: deferred), add each accepted op's delta 1 to its home
+        node's ``pending`` (the ack precedes durability), run the round,
+        then advance the tracker:
+
+        - a node whose pending drained this round flushes its clients'
+          open ops, each recording ``op_aux = kv`` after the round; ops
+          whose delta dies in this round's amnesia wipe are marked
+          ``op_aux = -2`` first, so no later flush can claim them (they
+          stay in flight: lost acknowledged writes);
+        - an op completes once every node's cached read covers its flush
+          value (``min(cached) >= op_aux``)."""
+        t, node = state.t, ix["node"]
+        plan = self.fault_plan
+        arr = traffic.arrive(tplan, t, ix["ids"])
+        rows = ix["rows"]
+        up_t = faults.node_up(plan, t, rows) if plan is not None else None
+        accept = (faults.node_up(plan, t, node) if plan is not None
+                  else torch.ones_like(arr))
+        if tspec.intake is not None:
+            accept = accept & (
+                traffic.intake_rank(arr, tspec.clients_per_node)
+                < tspec.intake)
+        ts, ok, _k = traffic.issue(ts, arr, accept, t)
+        add = torch.zeros(self.n_nodes, dtype=torch.int32,
+                          device=self.device).index_add_(
+            0, node, ok.to(torch.int32))
+        state = state._replace(pending=state.pending + add)
+        open_ops = (ts.issue_round >= 0) & (ts.done_round < 0)
+        op_aux = ts.op_aux
+        if plan is not None:
+            wiped = faults.amnesia(plan, t, rows)[node]
+            op_aux = torch.where(open_ops & (op_aux == -1) & wiped[:, None],
+                                 -2, op_aux)
+        s2 = self._round(state)
+        flushed = (state.pending > 0) & (s2.pending == 0)
+        if up_t is not None:
+            flushed = flushed & up_t
+        aux = torch.where(open_ops & (op_aux == -1) & flushed[node][:, None],
+                          s2.kv, op_aux)
+        ts = ts._replace(op_aux=aux)
+        min_cached = s2.cached.min()
+
+        def bit_fn(lo, block):
+            a = aux[lo:lo + block]
+            return (a >= 0) & (min_cached >= a)
+
+        ts = traffic.done_scan(ts, bit_fn, s2.t, ix["block"])
+        if tel is None:
+            return s2, ts, None
+        vals = (self._tel_series(state, s2, rows, tel_mask)
+                + traffic.tel_series(ts))
+        return s2, ts, telemetry.record(tel, t, vals, tel_mask)
+
+    def _tel_series(self, s0: CounterState, s1: CounterState,
+                    rows: torch.Tensor, mask) -> tuple:
+        """One round's telemetry row (``telemetry.SIM_SERIES['counter']``)
+        from the round's input and output states: the flush attempts
+        recomputed from the same reach, liveness and coins the round
+        used, the acks among them, the pending and KV totals."""
+        plan = self.fault_plan
+        reach = _reach(s0.t, rows, self.kv_sched)
+        pend0 = s0.pending
+        live = None
+        if plan is not None:
+            live = faults.node_up(plan, s0.t, rows)
+            pend0 = torch.where(faults.amnesia(plan, s0.t, rows), 0, pend0)
+            reach = reach & live & ~faults.kv_drop(plan, s0.t, rows)
+        want = (pend0 > 0) & reach
+        acks = want & (s1.pending == 0)
+        n_want, n_acks = want.sum(dtype=torch.int64), acks.sum(
+            dtype=torch.int64)
+        return (self.n_nodes if live is None else live.sum(dtype=torch.int64),
+                s1.pending.sum(dtype=torch.int64), n_want, n_acks,
+                n_want - n_acks, s1.kv, s1.msgs)
+
+    def telemetry_state(self, tel_spec) -> "telemetry.TelemetryState":
+        return telemetry.init_state(tel_spec, device=self.device)
+
+    def traffic_state(self, tspec) -> "traffic.TrafficState":
+        return traffic.init_state(tspec, device=self.device)
+
+    def run_traffic(self, state: CounterState, ts, tspec, n_rounds: int, *,
+                    donate: bool = False, tel=None, tel_spec=None):
+        """Open-loop serving driver: ``n_rounds`` rounds, each injecting
+        the spec's seeded arrivals before the ordinary flush / poll round
+        and advancing the per-op latency tracker after it.  The rounds
+        make new node rows, so the state passed in is never changed;
+        with ``donate`` the tracker and the ring are updated in place,
+        else copied first.  ``tel`` / ``tel_spec``: record the telemetry
+        ring too, and return ``(state, ts, tel)``."""
+        telemetry.tel_key(tel, tel_spec, "counter")
+        ix = self._traffic_index(tspec)
+        tplan = tspec.compile()
+        if not donate:
+            ts = ts.clone()
+            tel = None if tel is None else tel.clone()
+        mask = None if tel is None else tel_spec.static_mask
+        for _ in range(n_rounds):
+            state, ts, tel = self._traffic_round(state, ts, tspec, tplan,
+                                                 ix, tel, mask)
+        return (state, ts) if tel is None else (state, ts, tel)
 
     # -- reads -----------------------------------------------------------
 

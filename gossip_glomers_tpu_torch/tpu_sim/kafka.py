@@ -36,8 +36,14 @@ anything back to the host.  The kernels update ``present`` and ``local_committed
 :meth:`KafkaSim.run_fused` on the tensors of the state it is given,
 :meth:`KafkaSim.step` and :meth:`KafkaSim.run_rounds` on copies made once.
 
+The open-loop traffic driver (:meth:`KafkaSim.run_traffic`, with its
+telemetry ring) stages the seeded client sends of a
+:class:`.traffic.TrafficSpec` through the send path each round and tracks
+each acked op until its (key, slot) bit is present at every node
+(:func:`.kernels.and_fold` over the presence).
+
 Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); telemetry, provenance and traffic (item 11); the scenario batch
+item 10); the observed driver and provenance (item 11); the scenario batch
 round (item 12); the program audit (item 14).
 """
 
@@ -48,7 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import faults, kernels, kvstore
+from . import faults, kernels, kvstore, telemetry, traffic
 from .counter import KVReach, _reach, _unported
 from .engine import (analytic_peak_bytes, fori_rounds, operand_bytes,
                      resolve_block, resolve_device, scan_blocks)
@@ -56,9 +62,8 @@ from .faults import MASK32
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
 # A item
-_UNPORTED_METHODS = {"run_observed": 11, "run_traffic": 11,
-                     "telemetry_state": 11, "provenance_state": 11,
-                     "traffic_state": 11, "audit_observed_program": 14,
+_UNPORTED_METHODS = {"run_observed": 11, "provenance_state": 11,
+                     "audit_observed_program": 14,
                      "audit_traffic_program": 14}
 
 
@@ -230,6 +235,7 @@ class KafkaSim:
                                  * coin_bytes)
         self._row_ids = torch.arange(n_nodes, dtype=torch.int32,
                                      device=self.device)
+        self._traffic = {}
 
     def __getattr__(self, name: str):
         if name in _UNPORTED_METHODS:
@@ -260,28 +266,37 @@ class KafkaSim:
         return (self._fp_on and t > 0 and (self.resync_every == 0
                                            or t % self.resync_every == 0))
 
+    def _alloc_inputs(self, t: int) -> tuple:
+        """Round ``t``'s allocation operands: every node's KV reach, and
+        its liveness under an active plan (else None).  Down nodes cannot
+        reach the KV; loss eats one round's exchange."""
+        rows = self._row_ids
+        reach = _reach(t, rows, self.kv_sched)
+        if not self._fp_active:
+            return reach, None
+        plan = self.fault_plan
+        up = faults.node_up(plan, t, rows)
+        return reach & up & ~faults.kv_drop(plan, t, rows), up
+
     def _round(self, state: KafkaState, send_key: torch.Tensor,
                send_val: torch.Tensor, commit_req: torch.Tensor | None,
-               repl_ok, repl_mode: str) -> KafkaState:
+               repl_ok, repl_mode: str, alloc=None) -> KafkaState:
         """One round on ``state``, whose ``present``, ``local_committed``
         and ``origin_bits`` it updates in place: allocate, append and
         replicate the (N, S) sends, then run the (N, K) commits (None:
         none).  ``repl_ok``: the (N, N) bool link mask of the matmul path
-        on the sim's device."""
+        on the sim's device.  ``alloc``: this round's :func:`_alloc` of
+        the sends, already evaluated by the caller on the same operands
+        (the traffic driver's; never with the device KV, whose cells the
+        round reads from its rows)."""
         n, k_dim, cap, wc = (self.n_nodes, self.n_keys, self.capacity,
                              self.n_pwords)
         s_dim = send_key.shape[1]
         t = state.t
         row_ids = self._row_ids
         plan = self.fault_plan if self._fp_active else None
-        reach = _reach(t, row_ids, self.kv_sched)
-        up = wipe = None
-        if plan is not None:
-            wipe = faults.amnesia(plan, t, row_ids)
-            up = faults.node_up(plan, t, row_ids)
-            # down nodes cannot reach the KV; loss eats one round's
-            # exchange
-            reach = reach & up & ~faults.kv_drop(plan, t, row_ids)
+        reach, up = self._alloc_inputs(t)
+        wipe = None if plan is None else faults.amnesia(plan, t, row_ids)
         present, lc, origin = (state.present, state.local_committed,
                                state.origin_bits)
         kv_val, rows_kv = state.kv_val, state.rows
@@ -293,8 +308,9 @@ class KafkaSim:
 
         # -- allocation and append
         current = torch.where(kv_val > 0, kv_val, 1)
-        tried, valid, keys_c, rank, slot, ok = _alloc(
-            kv_val, send_key, reach, up, k_dim, cap)
+        tried, valid, keys_c, rank, slot, ok = (
+            _alloc(kv_val, send_key, reach, up, k_dim, cap) if alloc is None
+            else alloc)
         keys64 = keys_c.to(torch.int64)
         log_vals = _append(state.log_vals, ok, keys64, slot,
                            send_val.reshape(-1))
@@ -513,6 +529,144 @@ class KafkaSim:
                                mode)
 
         return fori_rounds(body, state, sks.shape[0])
+
+    # -- open-loop traffic -----------------------------------------------
+
+    def _traffic_index(self, tspec) -> dict:
+        """The traffic driver's per-spec index tensors
+        (:func:`.traffic.client_index` and the op slots), cached by the
+        spec's static key."""
+        key = tspec.program_key
+        if key not in self._traffic:
+            ix = traffic.client_index(tspec, self.n_nodes, self.device)
+            if self._repl_mode(None) == "matmul":
+                raise ValueError(
+                    "traffic drivers ride the origin-union replication "
+                    "paths; repl_fast=False pins the matmul oracle — "
+                    "compare blocked vs materialized via union_block "
+                    "instead")
+            ix["kk"] = torch.arange(tspec.ops_per_client, dtype=torch.int64,
+                                    device=self.device)
+            self._traffic[key] = ix
+        return self._traffic[key]
+
+    def _op_keys(self, seed: int, ids: torch.Tensor,
+                 slots: torch.Tensor) -> torch.Tensor:
+        """int64 key of op (client, slot) (broadcast): a hash of the plan's
+        seed, the client and the slot, mod ``n_keys`` (unsigned)."""
+        kx = faults._mix32(faults._mul32(ids & MASK32, 0xC2B2AE35)
+                           ^ faults._mul32(slots & MASK32, 0x9E3779B9)
+                           ^ seed ^ traffic.SALT_KEY)
+        return kx % self.n_keys
+
+    def _traffic_round(self, state: KafkaState, ts, tspec, tplan, ix: dict,
+                       repl_mode: str, op_keys: torch.Tensor, tel=None,
+                       tel_mask=None):
+        """One traffic-injected round (the reference's): stage this
+        round's arrivals as the send batch (op (client, k) sends its
+        seeded key with its op id as the value), evaluate the round's
+        allocator to learn which sends are acked, run the round on it,
+        then advance the tracker.  Deferrals: home node down, node intake
+        saturated (more arrivals than ``max_sends`` slots, or the spec's
+        tighter ``intake``), op slots exhausted, and the allocation
+        failing (KV unreachable, or the key full).  An op completes when
+        its (key, slot) bit is present at every node."""
+        t, node, ids = state.t, ix["node"], ix["ids"]
+        n, s_dim = self.n_nodes, self.max_sends
+        plan = self.fault_plan if self._fp_active else None
+        arr = traffic.arrive(tplan, t, ids)
+        up_cl = (faults.node_up(plan, t, node) if plan is not None
+                 else torch.ones_like(arr))
+        cap_in = s_dim if tspec.intake is None else min(tspec.intake, s_dim)
+        rank = traffic.intake_rank(arr, tspec.clients_per_node)
+        gate = up_cl & (rank < cap_in)
+        cand = arr & gate & (ts.issued_k < tspec.ops_per_client)
+        kslot = ts.issued_k.to(torch.int64)
+        # the send batch, one dump slot past its end for the others
+        at = torch.where(cand, node * s_dim + rank, n * s_dim)
+        send_key = torch.full((n * s_dim + 1,), -1, dtype=torch.int32,
+                              device=self.device)
+        send_key[at] = self._op_keys(tplan.seed, ids, kslot).to(torch.int32)
+        send_val = torch.zeros_like(send_key)
+        send_val[at] = (ids * tspec.ops_per_client + kslot).to(torch.int32)
+        send_key = send_key[:-1].view(n, s_dim)
+        send_val = send_val[:-1].view(n, s_dim)
+        # the round's allocator, on the operands the round gives it
+        alloc = _alloc(state.kv_val, send_key, *self._alloc_inputs(t),
+                       self.n_keys, self.capacity)
+        slot, ok_flat = alloc[4], alloc[5]
+        fi = torch.where(cand, node * s_dim + rank, 0)
+        ts, ok, kslot = traffic.issue(ts, arr, cand & ok_flat[fi], t)
+        ts = traffic.record_aux(ts, ok, kslot, slot[fi])
+        s2 = self._round(state, send_key, send_val, None, None, repl_mode,
+                         alloc=None if self._device_kv else alloc)
+        k_dim, wc = self.n_keys, self.n_pwords
+        all_pres = kernels.and_fold(s2.present.view(n, k_dim * wc),
+                                    node_major=True)
+        aux = ts.op_aux
+
+        def bit_fn(lo, block):
+            a = aux[lo:lo + block]
+            sl = a.clamp(min=0).to(torch.int64)
+            word = all_pres[op_keys[lo:lo + block] * wc + sl // 32]
+            return (a >= 0) & (((word >> (sl % 32).to(torch.int32)) & 1) > 0)
+
+        ts = traffic.done_scan(ts, bit_fn, s2.t, ix["block"])
+        if tel is None:
+            return s2, ts, None
+        vals = (self._tel_series(state.t, s2, tel_mask)
+                + traffic.tel_series(ts))
+        return s2, ts, telemetry.record(tel, t, vals, tel_mask)
+
+    def _tel_series(self, t: int, s1: KafkaState, mask) -> tuple:
+        """One round's telemetry row (``telemetry.SIM_SERIES['kafka']``):
+        liveness at round ``t``, the slots allocated, the presence
+        popcount at the witness node 0, the full-cluster presence
+        popcount (opt-in), the message total."""
+        plan = self.fault_plan if self._fp_active else None
+
+        def pc(x):
+            return kernels.popcount(x).sum(dtype=torch.int64)
+
+        return (telemetry.live_count(plan, t, self.n_nodes) if mask[0]
+                else None,
+                (s1.log_vals >= 0).sum(dtype=torch.int64) if mask[1]
+                else None,
+                pc(s1.present[0]) if mask[2] else None,
+                pc(s1.present) if mask[3] else None, s1.msgs)
+
+    def telemetry_state(self, tel_spec) -> "telemetry.TelemetryState":
+        return telemetry.init_state(tel_spec, device=self.device)
+
+    def traffic_state(self, tspec) -> "traffic.TrafficState":
+        return traffic.init_state(tspec, device=self.device)
+
+    def run_traffic(self, state: KafkaState, ts, tspec, n_rounds: int, *,
+                    donate: bool = False, tel=None, tel_spec=None):
+        """Open-loop serving driver: ``n_rounds`` rounds, each staging the
+        spec's seeded arrivals through the send path (allocation, append,
+        replication; ``union`` or ``union_nem``, materialized or in
+        ``union_block`` slabs) and advancing the per-op latency tracker.
+        With ``donate`` the state, the tracker and the ring are updated
+        in place; else they are copied first.  ``tel`` / ``tel_spec``:
+        record the telemetry ring too, and return ``(state, ts,
+        tel)``."""
+        telemetry.tel_key(tel, tel_spec, "kafka")
+        ix = self._traffic_index(tspec)
+        tplan = tspec.compile()
+        repl_mode = self._repl_mode(None)
+        op_keys = self._op_keys(tplan.seed, ix["ids"][:, None],
+                                ix["kk"][None, :])
+        if not donate:
+            state = self._copy(state)
+            ts = ts.clone()
+            tel = None if tel is None else tel.clone()
+        mask = None if tel is None else tel_spec.static_mask
+        for _ in range(n_rounds):
+            state, ts, tel = self._traffic_round(state, ts, tspec, tplan, ix,
+                                                 repl_mode, op_keys, tel,
+                                                 mask)
+        return (state, ts) if tel is None else (state, ts, tel)
 
     # -- reads -----------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the broadcast floods, their wrappers and
 their plain PyTorch versions.
 
-Five sources in ``csrc/`` (each header notes what its kernels replace,
+Seven sources in ``csrc/`` (each header notes what its kernels replace,
 what bounds them on an H100 and what the design does about it):
 
 - ``tree_flood.cu``, the words-major k-ary tree:
@@ -43,7 +43,10 @@ what bounds them on an H100 and what the design does about it):
   a slab of destination rows), :func:`kafka_commit_select` (the resync
   take and the commit classification, with the per-key CAS and writer
   winners) and :func:`kafka_commit_apply` (the learned offsets, the new
-  cells and the message ledger).
+  cells and the message ledger);
+- ``traffic_fold.cu``, the open-loop traffic drivers' completion
+  predicate: :func:`and_fold` (the AND over the node axis of a bitset,
+  words-major or node-major).
 
 The masked structured exchanges and the words-major coins take their
 per-direction liveness as packed rows (:func:`pack_bits`): (D, ceil(N /
@@ -75,12 +78,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("tree_flood", "shift_flood", "gather_flood",
-                        "fault_flood", "counter_round", "kafka_round")}
+                        "fault_flood", "counter_round", "kafka_round",
+                        "traffic_fold")}
 BUILD_DIR = _PKG.parent / "build" / "gossip_glomers_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -134,7 +139,8 @@ LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "wm_fault_coins": 0, "tree_ring_exchange": 0,
             "shift_ring_exchange": 0, "counter_select": 0,
             "counter_apply": 0, "kafka_merge": 0, "kafka_nem_deliver": 0,
-            "kafka_commit_select": 0, "kafka_commit_apply": 0}
+            "kafka_commit_select": 0, "kafka_commit_apply": 0,
+            "and_fold": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -376,14 +382,25 @@ def count_rows(words: torch.Tensor, n: int) -> torch.Tensor:
 
 def popcount(x: torch.Tensor) -> torch.Tensor:
     """Elementwise popcount of int32 words (the reference's
-    ``lax.population_count`` on uint32), as int32.  SWAR on the words
-    widened to int64 and masked to their low 32 bits, so every shift is
-    logical and no step overflows."""
-    v = x.to(torch.int64) & MASK32
+    ``lax.population_count`` on uint32), as int32.  On the CPU numpy's
+    ``bitwise_count`` where it has one (numpy 2); else SWAR in int32 on
+    the low 31 bits, so every value stays non-negative (each shift is
+    logical and no step overflows), plus the sign bit."""
+    if x.device.type == "cpu" and hasattr(np, "bitwise_count"):
+        return torch.from_numpy(np.bitwise_count(
+            x.numpy().view(np.uint32))).to(torch.int32)
+    return popcount_swar(x)
+
+
+def popcount_swar(x: torch.Tensor) -> torch.Tensor:
+    """:func:`popcount` by torch ops on any device."""
+    v = x & 0x7FFFFFFF
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return (v & 0x3F) + (x < 0).to(torch.int32)
 
 
 def col_popcount_plain(x: torch.Tensor,
@@ -870,6 +887,9 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_kafka_commit_apply": [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                           ptr, ptr, ptr, ptr, i64, i64, i64,
                                           i64, ptr]},
+            "traffic_fold": {
+                "gg_and_fold_rows": [ptr, ptr, i64, i64, ptr],
+                "gg_and_fold_cols": [ptr, ptr, i64, i64, ptr]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -1614,6 +1634,20 @@ def or_rows(x: torch.Tensor) -> torch.Tensor:
     return x[0]
 
 
+def and_rows(x: torch.Tensor) -> torch.Tensor:
+    """The AND over axis 0 of an int32 bitset tensor, by halving (all
+    ones over no rows)."""
+    if x.shape[0] == 0:
+        return torch.full(x.shape[1:], -1, dtype=x.dtype, device=x.device)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] & x[h:2 * h]
+        if x.shape[0] % 2:
+            y[0] &= x[2 * h]
+        x = y
+    return x[0]
+
+
 def kafka_merge_plain(present: torch.Tensor, lc: torch.Tensor, *,
                       wipe=None, row=None, carry=None, own=None,
                       resync: int = RESYNC_NONE, live=None, origin=None):
@@ -1961,3 +1995,34 @@ def kafka_commit_apply(lc: torch.Tensor, req: torch.Tensor,
             kv_val.data_ptr(), msgs_out.data_ptr(), n, k, kv_retries,
             tally_mult)
     return kv_val, msgs_out
+
+
+# -- the traffic drivers' completion predicate (traffic_fold.cu) ----------
+
+
+def and_fold_plain(x: torch.Tensor, node_major: bool = False) -> torch.Tensor:
+    return and_rows(x if node_major else x.t())
+
+
+def and_fold(x: torch.Tensor, node_major: bool = False) -> torch.Tensor:
+    """(W,) int32: the AND over the node axis of a (W, N) words-major
+    bitset, or of an (N, C) node-major one with ``node_major`` (Kafka's
+    (N, K, Wc) presence viewed as (N, K Wc)): the words every node
+    holds.  All ones over no nodes."""
+    _check_bitset("x", x)
+    if _on_cpu(x):
+        return and_fold_plain(x, node_major)
+    n, c = x.shape if node_major else x.shape[::-1]
+    out = torch.full((c,), -1, dtype=torch.int32, device=x.device)
+    if not n or not c:
+        return out
+    lib = _lib("traffic_fold")
+    if node_major and c > 1:
+        _launch("and_fold", lib.gg_and_fold_cols, x.device, x.data_ptr(),
+                out.data_ptr(), n, c)
+    else:
+        # a node-major single column is one contiguous row of N words
+        _check_words(c)
+        _launch("and_fold", lib.gg_and_fold_rows, x.device, x.data_ptr(),
+                out.data_ptr(), c, n)
+    return out

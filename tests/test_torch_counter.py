@@ -373,10 +373,14 @@ def test_counter_errors_match_reference():
     with pytest.raises(NotImplementedError, match="item 10"):
         pc.CounterSim(8, dcn_mode="pipelined", device="cpu")
     sim = pc.CounterSim(8, device="cpu")
-    for name, item in (("run_observed", 11), ("run_traffic", 11),
-                       ("telemetry_state", 11), ("audit_run_program", 14)):
+    for name, item in (("run_observed", 11), ("provenance_state", 11),
+                       ("audit_run_program", 14),
+                       ("audit_traffic_program", 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(sim, name)
+    # the open-loop traffic driver and its telemetry ring are ported
+    for name in ("run_traffic", "traffic_state", "telemetry_state"):
+        assert callable(getattr(sim, name))
     with pytest.raises(NotImplementedError, match="item 12"):
         pc._build_batch_round(sim)
     for kw in (dict(mode="x"), dict(winner_key="x"), dict(kv_backend="x"),

@@ -1125,3 +1125,132 @@ def test_cuda_kafka_rounds_make_no_host_sync(cuda_device, case):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert st.t == rounds and int(st.kv_val.sum()) > 0
+
+
+# -- the traffic drivers' AND fold -----------------------------------------
+
+# words-major (W, N) and node-major (N, C) shapes: W = 1, ragged N, the
+# column form's block edges, and the serving phases' widths
+AND_FOLD_WM = [(1, 1), (1, 5), (3, 4097), (1, 65539), (768, 1000),
+               (256, 4099)]
+AND_FOLD_NM = [(5, 1), (4097, 1), (1000, 3), (513, 33), (70000, 128),
+               (1000, 384), (3, 257)]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its probe bitsets (``fold_input``)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("shape", AND_FOLD_WM + AND_FOLD_NM)
+def test_cuda_and_fold_matches_and_rows(cuda_device, shape, offset):
+    # chip_smoke's probe bitset: every line clears a bit of its own at
+    # its first and last nodes, the head and tail words of this offset's
+    # view and its blocks' edges, so a skipped node range shows
+    node_major = shape in AND_FOLD_NM
+    n, c = shape if node_major else shape[::-1]
+    x = _chip_smoke().fold_input((node_major, n, c), sum(shape),
+                                 cuda_device, offset)
+    view = _at_offset(x, offset)
+    before = kernels.LAUNCHES["and_fold"]
+    got = kernels.and_fold(view, node_major=node_major)
+    want = kernels.and_rows(x if node_major else x.t())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["and_fold"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), kernels.and_fold(x.cpu(), node_major))
+    assert int(got.ne(0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,c", [(64, 64, 185), (1000, 3, 33), (7, 1, 1)])
+def test_cuda_and_fold_on_kafka_presence(cuda_device, n, k, c):
+    wc = (c + 31) // 32
+    present = _chip_smoke().fold_input((True, n, k * wc), n + k,
+                                       cuda_device).view(n, k, wc)
+    got = kernels.and_fold(present.view(n, k * wc), node_major=True)
+    assert torch.equal(got.view(k, wc),
+                       kernels.and_rows(present.flatten(1)).view(k, wc))
+
+
+def _traffic_pairs(device):
+    """The traffic drivers on the card and on the CPU at one spec."""
+    from gossip_glomers_tpu_torch.tpu_sim import traffic
+
+    n = 256
+    spec = traffic.TrafficSpec(n_nodes=n, n_clients=256, ops_per_client=4,
+                               until=8, rate=0.3, seed=4)
+    nspec = faults.NemesisSpec(n_nodes=n, seed=3, crash=((2, 5, (1, 9)),),
+                               loss_rate=0.2, loss_until=7)
+    nbrs = topology.to_padded_neighbors(topology.tree(n))
+
+    def bc(dev, wm):
+        kw = dict(exchange=structured.make_exchange("tree", n)) if wm else {}
+        return broadcast.BroadcastSim(nbrs, n_values=1024, sync_every=4,
+                                      srv_ledger=False, device=dev, **kw)
+
+    def kf(dev):
+        return kafka.KafkaSim(n, 8, 64, max_sends=2, device=dev,
+                              fault_plan=nspec.compile(dev),
+                              union_block=64)
+
+    def ct(dev):
+        return counter.CounterSim(n, mode="cas", poll_every=2, device=dev,
+                                  fault_plan=nspec.compile(dev))
+
+    # (name, card sim, CPU sim, spec, and_fold launches a round)
+    return [("broadcast_wm", bc(device, True), bc("cpu", True), spec, 1),
+            ("broadcast_gather", bc(device, False), bc("cpu", False), spec,
+             1),
+            ("kafka_union_nem", kf(device), kf("cpu"), spec, 1),
+            ("counter_cas_plan", ct(device), ct("cpu"), spec, 0)]
+
+
+def _fresh(sim):
+    if isinstance(sim, broadcast.BroadcastSim):
+        return sim.init_state(np.zeros((sim.n_nodes, sim.n_words), np.uint32))
+    return sim.init_state()
+
+
+@pytest.mark.cuda
+def test_cuda_run_traffic_goes_through_and_fold(cuda_device, monkeypatch):
+    # every CUDA round of the broadcast and Kafka drivers folds with the
+    # kernel, never with its plain version; every driver makes no host
+    # sync and equals the CPU driver
+    from gossip_glomers_tpu_torch.tpu_sim import traffic
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain AND fold ran on a CUDA run")
+
+    for name, gsim, csim, spec, folds in _traffic_pairs(cuda_device):
+        rounds = 12
+        gst, gts = _fresh(gsim), gsim.traffic_state(spec)
+        with monkeypatch.context() as m:
+            m.setattr(kernels, "and_fold_plain", refuse)
+            m.setattr(kernels, "and_rows", refuse)
+            before = kernels.LAUNCHES["and_fold"]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                gst, gts = gsim.run_traffic(gst, gts, spec, rounds,
+                                            donate=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["and_fold"] == before + folds * rounds, \
+                name
+        cst, cts = csim.run_traffic(_fresh(csim), csim.traffic_state(spec),
+                                    spec, rounds)
+        for a, b in zip(gts, cts):
+            assert torch.equal(a.cpu(), b), name
+        assert traffic.latency_summary(gts)["completed"] > 0, name

@@ -758,3 +758,117 @@ def test_kafka_alloc_matches_reference(m, k):
                             torch.from_numpy(valid)).numpy(),
         np.asarray(jk._rank_within_key(jnp.asarray(keys),
                                        jnp.asarray(valid))))
+
+
+def test_popcount_forms_agree():
+    # the CPU's numpy form and the torch SWAR form (the card's) of the
+    # popcount, on edge words and random ones
+    x = torch.from_numpy(np.concatenate([
+        np.array([0, -1, -2**31, 2**31 - 1, 1, 0x55555555, -0x55555556],
+                 np.int32),
+        np.random.default_rng(3).integers(-2**31, 2**31, 4096).astype(
+            np.int32)]))
+    want = np.array([bin(int(v) & 0xFFFFFFFF).count("1")
+                     for v in x.numpy()], np.int32)
+    assert (kernels.popcount(x).numpy() == want).all()
+    assert (kernels.popcount_swar(x).numpy() == want).all()
+    assert kernels.popcount(x).dtype == kernels.popcount_swar(x).dtype \
+        == torch.int32
+
+
+@pytest.mark.parametrize("node_major", (False, True))
+@pytest.mark.parametrize("n,c", [(1, 1), (5, 3), (64, 24), (4097, 1),
+                                 (513, 33)])
+def test_and_fold_plain_matches_reference_reduce(n, c, node_major):
+    # the traffic drivers' completion fold: the reference's
+    # lax.reduce(..., bitwise_and) over the node axis (broadcast.py
+    # _traffic_done, kafka.py _traffic_round), mostly-set words so that
+    # the AND keeps bits
+    x = _u32((n, c), seed=n * 31 + c) | _u32((1, c), seed=c)
+    if not node_major:
+        x = np.ascontiguousarray(x.T)
+    want = lax.reduce(jnp.asarray(x), np.uint32(0xFFFFFFFF),
+                      lax.bitwise_and, (0 if node_major else 1,))
+    got = kernels.and_fold(_torch(x), node_major)
+    np.testing.assert_array_equal(_bits(got), np.asarray(want))
+    assert _bits(got).any()
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _chip_smoke()
+# every (node_major, N, C) at which the card checks and_fold: the smoke's
+# serving and ragged shapes, and the card tests' (tests/test_torch_cuda.py)
+_CARD_FOLD = ([(False, n, w) for w, n in
+               [(1, 1), (1, 5), (3, 4097), (1, 65539), (768, 1000),
+                (256, 4099)]]
+              + [(True, n, c) for n, c in
+                 [(5, 1), (4097, 1), (1000, 3), (513, 33), (70000, 128),
+                  (1000, 384), (3, 257), (64, 64 * 6), (1000, 3 * 2),
+                  (7, 1)]])
+
+
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("shape", sorted(set(_SMOKE.serving_fold_shapes()
+                                             + _CARD_FOLD)))
+def test_fold_probes_cover_every_block(shape, offset):
+    # the card's and_fold input clears, in each line, a bit of the line's
+    # own at its first and last four nodes, and every block of the
+    # kernel's geometry holds a probe in some line: a kernel that skips a
+    # block, a head or a tail disagrees with and_rows
+    node_major, n, c = shape
+    p = _SMOKE.fold_probes(shape, 7, offset)
+    ranges = _SMOKE.fold_ranges(shape, offset)
+    lines = len(ranges)
+    assert lines == c
+    by_line = [p[p[:, 0] == i] for i in range(lines)]
+    for line, rows in enumerate(by_line):
+        nodes, bits = rows[:, 1], rows[:, 2]
+        assert len(set(bits.tolist())) == len(bits) \
+            <= _SMOKE.FOLD_PROBE_BITS
+        assert len(set(nodes.tolist())) == len(nodes)
+        assert {0, n - 1} <= set(nodes.tolist())
+        assert set(range(min(4, n))) | set(range(max(0, n - 4), n)) \
+            <= set(nodes.tolist())
+        # the ranges tile the line
+        flat = [x for lo, hi in ranges[line] for x in (lo, hi)]
+        assert flat[0] == 0 and flat[-1] == n and flat == sorted(flat)
+    for k in range(max(len(r) for r in ranges)):
+        assert any(k < len(r) and ((rows[:, 1] >= r[k][0])
+                                   & (rows[:, 1] < r[k][1])).any()
+                   for r, rows in zip(ranges, by_line)), (shape, k)
+
+
+@pytest.mark.parametrize("shape", [(False, 4099, 3), (False, 65539, 1),
+                                   (True, 1000, 3), (True, 513, 33),
+                                   (True, 4097, 1)])
+def test_fold_input_catches_skipped_ranges(shape):
+    # a mutation check of the card's input: and_rows over the probe bitset
+    # with one block left out (in every line, or in one line) or one head
+    # / tail word left out differs from the whole fold
+    node_major, n, c = shape
+    for offset in (0, 1):
+        x = _SMOKE.fold_input(shape, 5, "cpu", offset)
+        lines = x.t() if node_major else x          # (C, N)
+        whole = kernels.and_rows(lines.t())
+        ranges = _SMOKE.fold_ranges(shape, offset)
+        for k in range(max(len(r) for r in ranges)):
+            cut = lines.clone()
+            for line, r in enumerate(ranges):
+                if k < len(r):
+                    cut[line, r[k][0]:r[k][1]] = -1
+            assert not torch.equal(kernels.and_rows(cut.t()), whole), k
+        for node in (0, 1, 2, 3, n - 4, n - 3, n - 2, n - 1):
+            cut = lines.clone()
+            cut[c // 2, node] = -1
+            assert not torch.equal(kernels.and_rows(cut.t()), whole), node

@@ -160,18 +160,20 @@ def test_unported_modes_raise():
 
 
 def test_kafka_unported_parts_raise_with_their_items():
-    # meshes and dcn_mode (item 10), the observed and traffic drivers
-    # (item 11), the scenario batch (item 12) and the audit (item 14)
+    # meshes and dcn_mode (item 10), the observed driver and provenance
+    # (item 11), the scenario batch (item 12) and the audit (item 14); the
+    # traffic driver and its telemetry ring are ported
     for kw in ({"mesh": object()}, {"dcn_mode": "sync"}):
         with pytest.raises(NotImplementedError, match="item 10"):
             kafka.KafkaSim(4, 2, 8, device="cpu", **kw)
     sim = kafka.KafkaSim(4, 2, 8, device="cpu")
-    for name, item in (("run_observed", 11), ("telemetry_state", 11),
-                       ("provenance_state", 11), ("traffic_state", 11),
-                       ("run_traffic", 11), ("audit_observed_program", 14),
+    for name, item in (("run_observed", 11), ("provenance_state", 11),
+                       ("audit_observed_program", 14),
                        ("audit_traffic_program", 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(sim, name)
+    for name in ("run_traffic", "traffic_state", "telemetry_state"):
+        assert callable(getattr(sim, name))
     with pytest.raises(AttributeError):
         sim.no_such_method
     for fn, item in ((lambda: kafka._build_batch_round(sim), 12),
