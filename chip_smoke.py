@@ -48,7 +48,9 @@ g-counter, unique ids, echo and Kafka:
    shapes and the Kafka phases' shapes; ``and_fold`` against
    ``and_rows`` at every serving phase's shape and ragged ones, both
    forms, on 4-byte-offset views, over probe bitsets in which a skipped
-   block, head or tail changes the result (:func:`fold_probes`) — and each
+   block, head or tail changes the result (:func:`fold_probes`);
+   ``prov_attribute`` in every attribution mode (:data:`PROV_MODES`) on
+   ragged values and padded directions (:data:`PROV_SHAPES`) — and each
    one's median
    time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
@@ -164,9 +166,30 @@ g-counter, unique ids, echo and Kafka:
     (and the matmul oracle at 1,024) equal field by field.
 27. ``kafka_nemesis_4k``: fault_sweep.py's large-N faulted Kafka row
     (4,096 nodes, commits, the resync every 4 rounds) run to
-    convergence in pull and push mode and over the device KV, certified
-    as harness/nemesis.py certifies it, each equal to the CPU path.
-28. ``serving_broadcast_64k``, ``serving_counter_64k``,
+    convergence: pull and push through the port's
+    ``harness.nemesis.run_kafka_nemesis`` with provenance on, each
+    result equal to the CPU runner's; pull over the device KV through
+    the runner's ``kafka_campaign`` and ``kafka_lost_writes``, equal to
+    its CPU path and to the pull campaign.
+28. ``nemesis_tree_1m_provenance``: the main path's 4-ary tree at 2^20
+    nodes under fault_sweep.py --structured's plan through
+    ``run_broadcast_nemesis`` on the gather path (D = 5, 32 values, sync
+    every 8), telemetry and provenance on, then off: both verdicts, the
+    provenance certificate, the first-delivery edges within the
+    ledger, rounds / ``msgs`` / received equal; both walls, and the
+    campaign's rounds as two fixed trips (observation off and on);
+    ``prov_attribute`` held against its plain version on two captured
+    rounds of the campaign (a faulted flood round and a sync wave) and
+    timed there, its bound from what those inputs need.
+29. ``nemesis_counter_128k_provenance``: fault_sweep.py:590-601's
+    counter row (2^17 nodes, allreduce, the fault gate in 16,384-node
+    slabs) through ``run_counter_nemesis`` with telemetry and provenance
+    on, then off; the verdict and certificate pass, the campaigns agree.
+30. ``kafka_sweep_point_provenance``: telemetry_overhead.py:200-232's
+    point (1,024 nodes, 10,000 keys, 16 sends, ``union_block=256``,
+    crash and loss, 2 rounds): ``run_observed(prov=)`` equals
+    ``run_rounds``, both walls, the record certified.
+31. ``serving_broadcast_64k``, ``serving_counter_64k``,
     ``serving_kafka_64k``: benchmarks/serving_curve.py's 65,536-node
     points on one card (:123-128, :142-148, :157-162): the words-major
     tree (W = 768) at rates 0.1 and 0.5, the allreduce counter and Kafka
@@ -182,13 +205,13 @@ g-counter, unique ids, echo and Kafka:
     broadcast at rate 0.1 only, the CPU's W = 768 rounds being the
     slowest part of the smoke).  ``ok``: every row ``ok`` with no lost
     write, and the twin equal.
-29. ``serving_overlay_1k``: the three fault overlays of
+32. ``serving_overlay_1k``: the three fault overlays of
     serving_curve.py :169-200 (crash of every fifth node over rounds
     [16, 32), loss 0.1 until 36, 1,024 nodes, 256 clients at rate 0.2:
     the structured grid, Kafka with the resync, the allreduce counter)
     and ``counter_small_1dev``'s cas queueing curve (:132-140); each
     equal to the CPU path, the overlays' verdicts the CPU runner's.
-30. ``serving_tree_1m``: the main path under load, the 2^20-node 4-ary
+33. ``serving_tree_1m``: the main path under load, the 2^20-node 4-ary
     tree words-major, 512 clients x 16 ops (W = 256), rate 0.25, 32
     driven rounds, held against the card's node-major gather path on
     ``to_padded_neighbors(tree(n))`` at the same spec.
@@ -309,6 +332,9 @@ KERNELS = {
     # no Pallas kernel: the traffic drivers' XLA AND-fold (and kafka.py:1396)
     "and_fold": ("traffic_fold.cu", JAX_PKG + "broadcast.py:2559",
                  "and_fold_kernel"),
+    # no Pallas kernel: the gather round's XLA provenance attribution
+    "prov_attribute": ("prov_flood.cu", JAX_PKG + "broadcast.py:317",
+                       "prov_attribute_kernel"),
 }
 # the gather kernels' main shapes are node-major (N, W) = (2^20, 1) and
 # (2^20, 128), degree 8
@@ -322,7 +348,8 @@ PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
                          r"faulted_gather_round|wm_fault_coins|"
                          r"counter_select|counter_apply|kafka_merge|"
                          r"kafka_nem_deliver|kafka_commit_select|"
-                         r"kafka_commit_apply|and_fold)_kernel")
+                         r"kafka_commit_apply|and_fold|"
+                         r"prov_attribute)_kernel")
 LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 # plan tile caps at which shift_masked_exchange is also timed (the
 # wrapper's, kernels.SHIFT_TILE, first)
@@ -932,6 +959,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
     check_counter(kernels, note, device)
     check_kafka(kernels, note, device)
     check_and_fold(kernels, note, device)
+    check_prov(kernels, note, device)
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -2493,50 +2521,6 @@ def counter_phases(counter, faults, kernels, device, launches: Launches,
     torch.cuda.empty_cache()
 
 
-def stage_kafka_ops(spec, rounds: int, *, n_keys: int, max_sends: int,
-                    send_prob: float = 0.7, commit_prob: float = 0.2,
-                    workload_seed: int = 0, commits: bool = True,
-                    quiesce: int = 0):
-    """A copy of gossip_glomers_tpu/harness/nemesis.py
-    ``stage_kafka_ops`` (this script imports nothing of the JAX package;
-    tests/test_torch_kafka_faults.py holds the two equal): seeded (R, N,
-    S) send batches and (R, N, K) commit requests (None without
-    ``commits``) at the nodes that are up each round, values globally
-    unique, the same rng calls in the same order."""
-    import numpy as np
-
-    rng = np.random.default_rng(workload_seed)
-    n, s = spec.n_nodes, max_sends
-    lr = spec._membership_rows()[1].astype(np.int64)
-    sks = np.full((rounds, n, s), -1, np.int32)
-    svs = np.zeros((rounds, n, s), np.int32)
-    if not commits:
-        vid = 0
-        for t in range(rounds):
-            up = spec.host_up(t) & (t < lr - quiesce)
-            send = (rng.random(n) < send_prob) & up
-            k = rng.integers(0, n_keys, n).astype(np.int32)
-            sks[t, :, 0] = np.where(send, k, -1)
-            cnt = int(send.sum())
-            svs[t, send, 0] = np.arange(vid, vid + cnt, dtype=np.int32)
-            vid += cnt
-        return sks, svs, None
-    crs = np.full((rounds, n, n_keys), -1, np.int32)
-    vid = 0
-    for t in range(rounds):
-        up = spec.host_up(t) & (t < lr - quiesce)
-        for i in range(n):
-            if not up[i]:
-                continue
-            if rng.random() < send_prob:
-                sks[t, i, 0] = rng.integers(0, n_keys)
-                svs[t, i, 0] = vid
-                vid += 1
-            if rng.random() < commit_prob:
-                crs[t, i, rng.integers(0, n_keys)] = rng.integers(1, 6)
-    return sks, svs, crs
-
-
 # -- Kafka (challenge 5) ---------------------------------------------------
 
 # benchmarks/run_all.py config5_kafka_10k: (nodes, keys, capacity, sends a
@@ -3291,51 +3275,30 @@ def kafka_faulted_1k(kafka, faults, kernels, device, launches: Launches,
         raise AssertionError(f"kafka_faulted_1k: {rec}")
 
 
-def kafka_campaign(sim, sks, svs, crs, clear: int, limit: int = 48):
-    """harness/nemesis.py run_kafka_nemesis's campaign: the staged rounds
-    (``run_fused``; on the card with no host sync), then quiescent rounds
-    until every node's presence equals node 0's (at most ``limit``).
-    Returns (state, converged round or None)."""
-    st = sim.init_state()
-    st = no_host_sync(lambda: sim.run_fused(st, sks, svs, crs)) \
-        if st.present.is_cuda else sim.run_fused(st, sks, svs, crs)
-
-    def converged(s):
-        return bool((s.present == s.present[:1]).all())
-
-    conv = clear if converged(st) else None
-    while conv is None and st.t < clear + limit:
-        st = sim.step(st)
-        if converged(st):
-            conv = st.t
-    return st, conv
-
-
-def kafka_nemesis_4k(kafka, faults, kernels, device, launches: Launches,
-                     card: str) -> None:
-    """benchmarks/fault_sweep.py's large-N faulted Kafka row:
+def kafka_nemesis_4k(kafka, nemesis, faults, kernels, device,
+                     launches: Launches, card: str) -> None:
+    """benchmarks/fault_sweep.py's large-N faulted Kafka row (:336-341):
     ``random_spec(4096, seed=2, horizon=12, n_crash_windows=1,
     loss_rate=0.1)``, 1,024 keys, capacity 128, one send a node, 12
-    driven rounds of :func:`stage_kafka_ops` traffic with commits
-    (``send_prob`` 0.7, ``commit_prob`` 0.2), the resync every 4 rounds,
-    then quiescent rounds until every node's presence agrees (at most
-    48); in pull mode, in push mode, and pull over the device KV.  ``ok``
-    (the reference runner's test, harness/nemesis.py :587-595):
-    converged, every handed-out slot present at some node, no committed
-    cache above its cell.  Each run equals the CPU path, the device-KV
-    run the host backend."""
-    import numpy as np
+    driven rounds of ``stage_kafka_ops`` traffic with commits, the resync
+    every 4 rounds, then quiescent rounds until every node's presence
+    agrees (at most 48).  Pull and push through the port's
+    ``run_kafka_nemesis`` with provenance on, each result equal to the
+    CPU runner's; pull over the device KV through the port's
+    ``kafka_campaign`` and ``kafka_lost_writes`` (the runner takes no
+    ``kv_backend``), equal to its CPU path and to the pull runner's
+    campaign, its staged rounds with no host sync.  ``ok``: every verdict
+    (converged, no lost write, no committed cache above its cell, the
+    provenance certificate) and every twin."""
     import torch
+    from gossip_glomers_tpu_torch.harness.checkers import check_recovery
 
     n, k, cap, s = KAFKA_NEMESIS
     spec = faults.random_spec(n, seed=2, horizon=12, n_crash_windows=1,
                               loss_rate=0.1)
     clear = max(spec.clear_round, 12)
-    sks, svs, crs = stage_kafka_ops(spec, clear, n_keys=k, max_sends=s)
-    staged = [torch.from_numpy(x).to(device) for x in (sks, svs, crs)]
-    ways = {"pull": dict(resync_mode="pull"),
-            "push": dict(resync_mode="push"),
-            "pull_device_kv": dict(resync_mode="pull", kv_backend="device")}
+    kw = dict(n_keys=k, capacity=cap, max_sends=s, rounds=12,
+              provenance=True)
     rec = {"phase": "kafka_nemesis_4k", "card": card, "n": n, "keys": k,
            "capacity": cap, "sends": s, "clear_round": clear,
            "spec": {"crash": [[a, b, len(ns)] for a, b, ns in spec.crash],
@@ -3343,63 +3306,104 @@ def kafka_nemesis_4k(kafka, faults, kernels, device, launches: Launches,
                     "loss_until": spec.loss_until, "seed": spec.seed},
            "ways": {}}
     launches.start()
-    finals = {}
-    for way, kw in ways.items():
-        def make(dev, kw=kw):
-            return kafka.KafkaSim(n, k, cap, max_sends=s, device=dev,
-                                  fault_plan=spec.compile(dev),
-                                  resync_every=4, **kw)
+    results = {}
+    for way in ("pull", "push"):
+        before = dict(kernels.LAUNCHES)
+        res, wall = event_ms(lambda: nemesis.run_kafka_nemesis(
+            spec, resync_mode=way, device=device, **kw))
+        port = add_trip(kernels, before)
+        rounds = (res["converged_round"] if res["converged_round"]
+                  is not None else clear + 48)
+        check = res["provenance"]["check"]
+        rec["ways"][way] = {
+            "rounds": rounds, "converged_round": res["converged_round"],
+            "wall_ms": wall, "ms_per_round": wall / rounds,
+            "launches_per_round": port / rounds,
+            "allocated": res["n_allocated"],
+            "lost_writes": res["n_lost_writes"], "msgs": res["msgs_total"],
+            "provenance_ok": not check["problems"],
+            "n_direct": check["n_direct"], "n_resync": check["n_resync"],
+            "ok": res["ok"]}
+        results[way] = res
+    # the device KV: the runner's campaign and verdict on its own sim
+    sks, svs, crs = nemesis.stage_kafka_ops(spec, clear, n_keys=k,
+                                            max_sends=s)
+    staged = tuple(torch.from_numpy(x).to(device) for x in (sks, svs, crs))
 
-        sim = make(device)
-        (st, conv), wall = event_ms(
-            lambda: kafka_campaign(sim, *staged, clear))
-        pres_any = torch.zeros_like(st.present[0])
-        for lo in range(0, n, 1024):
-            pres_any |= kernels.or_rows(st.present[lo:lo + 1024])
-        c = torch.arange(cap, device=device)
-        held = ((pres_any[:, c // 32] >> (c % 32).to(torch.int32)) & 1) > 0
-        lost = int(((st.log_vals >= 0) & ~held).sum())
-        kv = st.kv_val
-        over = int((st.local_committed
-                    > torch.where(kv > 0, kv, 0)[None]).sum())
-        rounds = st.t
+    def make(dev):
+        return kafka.KafkaSim(n, k, cap, max_sends=s, device=dev,
+                              fault_plan=spec.compile(dev), resync_every=4,
+                              kv_backend="device")
 
-        def stage(sim=sim):
-            return lambda: kafka_campaign(sim, *staged, clear)
+    def campaign(sim, batches):
+        return nemesis.kafka_campaign(sim, spec, batches, clear)
 
-        busy, spans = busy_and_spans(stage)
-        port = launches_of(kernels, stage())
-        r = {"rounds": rounds, "converged_round": conv, "wall_ms": wall,
-             "ms_per_round": wall / rounds, "device_busy_ms": busy,
-             "device_idle_share": idle_share(busy, wall),
-             "launches_per_round": port / rounds,
-             "device_spans_per_round": None if spans is None
-             else spans / rounds,
-             "allocated": allocated(st), "lost_writes": lost,
-             "committed_over_cell": over, "msgs": int(st.msgs),
-             "staged_rounds_no_host_sync": True,
-             "ok": conv is not None and lost == 0 and over == 0}
-        rec["ways"][way] = r
-        finals[way] = (make, st)
-        if not r["ok"]:
-            raise AssertionError(f"kafka_nemesis_4k {way}: {r}")
-        del sim
+    sim = make(device)
+    no_host_sync(lambda: sim.run_fused(sim.init_state(), *staged))
+    (st, _, _, at_clear, conv), wall = event_ms(lambda: campaign(sim,
+                                                                 staged))
+    ok, det = check_recovery(
+        clear_round=clear, converged_round=conv, max_recovery_rounds=48,
+        lost_writes=nemesis.kafka_lost_writes(sim, st,
+                                              spec.host_members(clear)),
+        msgs_at_clear=at_clear, msgs_at_converged=int(st.msgs))
+    rounds = st.t
+
+    def stage():
+        return lambda: campaign(sim, staged)
+
+    busy, spans = busy_and_spans(stage)
+    port = launches_of(kernels, stage())
+    pull = results["pull"]
+    rec["ways"]["pull_device_kv"] = {
+        "rounds": rounds, "converged_round": conv, "wall_ms": wall,
+        "ms_per_round": wall / rounds, "device_busy_ms": busy,
+        "device_idle_share": idle_share(busy, wall),
+        "launches_per_round": port / rounds,
+        "device_spans_per_round": None if spans is None
+        else spans / rounds,
+        "allocated": allocated_slots(st),
+        "lost_writes": det["n_lost_writes"], "msgs": int(st.msgs),
+        "staged_rounds_no_host_sync": True, "ok": ok,
+        "host_kv_match": (conv, int(st.msgs), allocated_slots(st),
+                          det["n_lost_writes"])
+        == (pull["converged_round"], pull["msgs_total"],
+            pull["n_allocated"], pull["n_lost_writes"])}
     launches.stop(rec, ("kafka_merge", "kafka_nem_deliver",
                         "kafka_commit_select", "kafka_commit_apply"))
-    for way, (make, st) in finals.items():
-        cpu = make("cpu")
-        cst, _ = kafka_campaign(cpu, sks, svs, crs, clear)
-        rec["ways"][way]["cpu_match"] = same_kafka(st, cst)
-    rec["ways"]["pull_device_kv"]["host_kv_match"] = same_kafka(
-        finals["pull_device_kv"][1], finals["pull"][1], rows=False)
+    for way, res in results.items():
+        cpu = nemesis.run_kafka_nemesis(spec, resync_mode=way, device="cpu",
+                                        **kw)
+        rec["ways"][way]["cpu_match"] = same_result(res, cpu)
+    cst = campaign(make("cpu"), (sks, svs, crs))[0]
+    rec["ways"]["pull_device_kv"]["cpu_match"] = same_kafka(st, cst)
     rec["ok"] = all(r["ok"] and r["cpu_match"]
                     for r in rec["ways"].values()) \
         and rec["ways"]["pull_device_kv"]["host_kv_match"]
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"kafka_nemesis_4k: {rec}")
-    del finals
+    del sim, st, cst, results
     torch.cuda.empty_cache()
+
+
+def same_result(a: dict, b: dict) -> bool:
+    """Two runner results agree on every field (numpy arrays by value)."""
+    import numpy as np
+
+    if a.keys() != b.keys():
+        return False
+    for key in a:
+        x, y = a[key], b[key]
+        if isinstance(x, dict) and isinstance(y, dict):
+            if not same_result(x, y):
+                return False
+        elif isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                return False
+        elif x != y:
+            return False
+    return True
 
 
 def kafka_device_ops(kafka, faults, kernels, device, card: str) -> None:
@@ -3467,15 +3471,454 @@ def kafka_device_ops(kafka, faults, kernels, device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def kafka_phases(kafka, faults, kernels, device, launches: Launches,
-                 card: str) -> None:
+def kafka_phases(kafka, nemesis, faults, kernels, device,
+                 launches: Launches, card: str) -> None:
     """Challenge 5 on the card: config5, config5b and fault_sweep.py's
     faulted points and large-N row."""
     kafka_device_ops(kafka, faults, kernels, device, card)
     kafka_10k(kafka, kernels, device, launches, card)
     kafka_node_sweep(kafka, kernels, device, launches, card)
     kafka_faulted_1k(kafka, faults, kernels, device, launches, card)
-    kafka_nemesis_4k(kafka, faults, kernels, device, launches, card)
+    kafka_nemesis_4k(kafka, nemesis, faults, kernels, device, launches,
+                     card)
+
+
+# -- causal provenance and the nemesis campaign runners ---------------------
+
+# the attribution modes of prov_attribute (the gather round's): one hop
+# with no flags, partition flags, plan flags, plan flags with dup rows; the
+# delay ring's slot bytes, without and with the receiver's liveness
+PROV_MODES = ("plain", "partitions", "plan", "plan_dup", "delays",
+              "delays_plan")
+# (nodes, words, values, directions): odd and ragged shapes (V not a
+# multiple of 32, spare words); the tree phase's captured rounds add its
+# (2^20, 1, 32, 5)
+PROV_SHAPES = ((1, 1, 1, 1), (5, 1, 7, 3), (37, 3, 70, 7), (4097, 2, 45, 5),
+               ((1 << 16) + 3, 1, 32, 8))
+# fault_sweep.py --structured's plan on the main path's tree: the
+# provenance campaign's rounds whose attribution is captured (a faulted
+# flood round and the first sync wave)
+PROV_CAPTURE_ROUNDS = (5, 8)
+PROV_EXPECT = ("prov_attribute", "fault_coins", "faulted_gather_round",
+               "col_popcount_nm")
+
+
+def prov_case(kernels, mode: str, n: int, w: int, nv: int, d: int,
+              seed: int, device) -> dict:
+    """Seeded :func:`kernels.prov_attribute` arguments in ``mode``: the
+    new bits (none past V), stamps so far, a table with padded (-1)
+    directions, and the mode's payload, flag bytes, dup rows, or ring
+    and slot bytes."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, dtype=torch.int32,
+                             device=device, generator=gen)
+
+    def coin(p, shape):
+        return torch.rand(shape, device=device, generator=gen) < p
+
+    def words(*shape):
+        return ints(-(1 << 31), 1 << 31, shape)
+
+    nbrs = torch.where(coin(0.3, (n, d)), -1, ints(0, n, (n, d)))
+    arrival = torch.where(coin(0.4, (n, nv)), ints(0, 6, (n, nv)), -1)
+    parent = torch.where(arrival > 0, ints(-1, n, (n, nv)), -1)
+    keep = kernels._wrap_i32(torch.tensor(
+        [(1 << min(32, max(0, nv - 32 * c))) - 1 for c in range(w)],
+        dtype=torch.int64, device=device))
+    valid = nbrs >= 0
+    edges = {}
+    if mode.startswith("delays"):
+        src = words(3, n, w)
+        slots = torch.where(valid & coin(0.8, (n, d)), ints(0, 3, (n, d)),
+                            -1).to(torch.int8)
+        if mode == "delays_plan":
+            slots = slots.masked_fill(~coin(0.8, (n,))[:, None], -1)
+        edges["slots"] = slots
+    else:
+        src = words(n, w)
+        live = valid & coin(0.8, (n, d))
+        if mode == "partitions":
+            edges["flags"] = live.to(torch.uint8) * kernels.FLAG_DEL
+        elif mode.startswith("plan"):
+            dele = live & coin(0.8, (n, d))
+            flags = (live.to(torch.uint8) * kernels.FLAG_SEND
+                     + dele.to(torch.uint8) * kernels.FLAG_DEL)
+            if mode == "plan_dup":
+                flags += (dele & coin(0.4, (n, d))).to(torch.uint8) \
+                    * kernels.FLAG_DUP
+                edges["dup"] = words(n, w)
+            edges["flags"] = flags
+    return dict(new=words(n, w) & keep, src=src, nbrs=nbrs.contiguous(),
+                arrival=arrival, parent=parent, t_next=7, edges=edges)
+
+
+def prov_pairs(kernels, case: dict) -> list:
+    """``[(kernel, plain)]`` of the two stamps of one
+    :func:`kernels.prov_attribute` call (in place, on copies of the
+    stamps) and its plain version."""
+    want = kernels.prov_attribute_plain(
+        case["new"], case["src"], case["nbrs"], case["arrival"],
+        case["parent"], t_next=case["t_next"], **case["edges"])
+    arr, par = case["arrival"].clone(), case["parent"].clone()
+    kernels.prov_attribute(case["new"], case["src"], case["nbrs"], arr, par,
+                           t_next=case["t_next"], **case["edges"])
+    return [(arr, want[0]), (par, want[1])]
+
+
+def check_prov(kernels, note, device) -> None:
+    """``prov_attribute`` against its plain version in every mode at
+    :data:`PROV_SHAPES` (the tree phase checks its own captured rounds)."""
+    import torch
+
+    for i, (n, w, nv, d) in enumerate(PROV_SHAPES):
+        for mode in PROV_MODES:
+            note("prov_attribute", *prov_pairs(kernels, prov_case(
+                kernels, mode, n, w, nv, d, 31 * i + len(mode), device)))
+        torch.cuda.empty_cache()
+
+
+def prov_capture(kernels, rounds):
+    """``(wrapped, kept)``: a stand-in for :func:`kernels.prov_attribute`
+    that keeps copies of its arguments at the ``rounds`` it stamps (the
+    stamps before the call) in ``kept``, then calls the kernel."""
+    real = kernels.prov_attribute
+    kept = {}
+
+    def wrapped(new, src, nbrs, arrival, parent, *, t_next, **edges):
+        t = t_next - 1
+        if t in rounds and t not in kept:
+            kept[t] = dict(new=new.clone(), src=src.clone(), nbrs=nbrs,
+                           arrival=arrival.clone(), parent=parent.clone(),
+                           t_next=t_next,
+                           edges={k: None if v is None else v.clone()
+                                  for k, v in edges.items()})
+        return real(new, src, nbrs, arrival, parent, t_next=t_next,
+                    **edges)
+
+    return wrapped, kept
+
+
+def prov_work(kernels, case: dict) -> dict:
+    """What one attribution needs, counted from its inputs the way the
+    kernel walks them: new words read; a thread whose word holds a fresh
+    bit reads its table entry and edge byte for each direction it walks
+    (until every fresh bit is attributed) and one random source word for
+    each delivering one (a 32-byte sector each); the arrival cell of each
+    new bit read, both stamps of each fresh one written."""
+    import torch
+
+    new, nbrs, arr = case["new"], case["nbrs"], case["arrival"]
+    edges = case["edges"]
+    n, w = new.shape
+    nv, d = arr.shape[1], nbrs.shape[1]
+    bits = kernels.unpack_bits(new, nv)
+    fresh = bits & (arr < 0)
+    pad = torch.zeros((n, 32 * w), dtype=torch.bool, device=new.device)
+    pad[:, :nv] = fresh
+    fresh_w = kernels.pack_bits(pad.view(n, w, 32)).view(n, w)
+    remaining = new.clone()
+    walked = reads = 0
+    flags, dup, slots = (edges.get("flags"), edges.get("dup"),
+                         edges.get("slots"))
+    for k in range(d):
+        active = (remaining & fresh_w) != 0
+        walked += int(active.sum())
+        if slots is not None:
+            reads += int((active & (slots[:, k:k + 1] >= 0)).sum())
+        else:
+            f = (nbrs[:, k:k + 1] >= 0).to(torch.uint8) * kernels.FLAG_DEL \
+                if flags is None else flags[:, k:k + 1]
+            reads += int((active & ((f & kernels.FLAG_DEL) != 0)).sum())
+            if dup is not None:
+                reads += int((active & ((f & kernels.FLAG_DUP) != 0)).sum())
+        term = kernels._prov_term(k, case["src"], nbrs, flags, dup, slots)
+        remaining = remaining & ~(term & remaining)
+    n_new, n_fresh = int(bits.sum()), int(fresh.sum())
+    moved = 4 * n * w + 5 * walked + 4 * reads + 4 * n_new + 8 * n_fresh
+    return {"new_bits": n_new, "fresh_bits": n_fresh, "walked": walked,
+            "source_reads": reads, "bytes": moved,
+            "ops": 2 * n * w + 6 * walked + 3 * n_new + 4 * n_fresh}
+
+
+def time_prov(kernels, case: dict) -> dict:
+    """``prov_attribute`` on one captured round: its device time (the
+    profiler's spans of the kernel alone), the CUDA-event time of
+    back-to-back calls less that of the stamps' restoring copies (each
+    call gets the stamps as they were before the round, so each does the
+    round's work), the plain version's time and the bound from
+    :func:`prov_work`: the bytes at HBM's rate or the random source reads
+    at the L2's sector rate, whichever is longer."""
+    arr0, par0 = case["arrival"], case["parent"]
+    arr, par = arr0.clone(), par0.clone()
+    args = (case["new"], case["src"], case["nbrs"])
+
+    def restore():
+        arr.copy_(arr0)
+        par.copy_(par0)
+
+    def kern():
+        restore()
+        kernels.prov_attribute(*args, arr, par, t_next=case["t_next"],
+                               **case["edges"])
+
+    work = prov_work(kernels, case)
+    by = bound(work["bytes"], work["ops"])
+    sector_ms = work["source_reads"] * 32 / L2_BYTES_PER_S * 1e3
+    b_ms, b_by = (sector_ms, "bytes") if sector_ms > by[0] else by
+    dev = device_ms(kern, KERNELS["prov_attribute"][2], calls=10)
+    return {"ms": cuda_ms(kern) - cuda_ms(restore), "device_ms": dev,
+            "plain_ms": cuda_ms(lambda: kernels.prov_attribute_plain(
+                *args, arr0, par0, t_next=case["t_next"], **case["edges"]),
+                inner=3),
+            "bound_ms": b_ms, "bound_by": b_by, "sector_ms": sector_ms,
+            "bytes_ms": by[0] if by[1] == "bytes" else None,
+            "bound_share": None if dev is None else b_ms / dev,
+            "library_ms": None, **work}
+
+
+def tree_prov_sim(broadcast, topology, faults, n: int, device):
+    """The provenance campaign's sim: the 4-ary tree through the gather
+    path (D = 5) under :func:`tree_nemesis_spec`, 32 values, sync waves
+    every 8 rounds, as harness/nemesis.py builds it."""
+    nbrs = topology.to_padded_neighbors(topology.tree(n, branching=BRANCHING))
+    return broadcast.BroadcastSim(
+        nbrs, n_values=W1_VALUES, sync_every=8, srv_ledger=False,
+        fault_plan=tree_nemesis_spec(faults, n).compile(device),
+        device=device)
+
+
+def nemesis_tree_1m_provenance(modules, device, launches: Launches,
+                               card: str, times: dict) -> None:
+    """The main path's topology under fault_sweep.py --structured's plan
+    (:func:`tree_nemesis_spec`) through the port's
+    ``run_broadcast_nemesis(n_values=32, topology="tree", sync_every=8)``
+    on the gather path at 2^20 nodes, with telemetry and provenance on,
+    then with observation off.  ``ok``: both verdicts, the provenance
+    certificate, the tree's first-delivery edges within ``msgs_total``,
+    and the two campaigns' rounds, ``msgs`` and received sets equal (the
+    last from the two fixed trips of the campaign's rounds, each timed
+    with CUDA events and profiled for its device busy time).  Also holds
+    ``prov_attribute`` against its plain version on the rounds of
+    :data:`PROV_CAPTURE_ROUNDS` and times it there."""
+    import torch
+
+    broadcast, nemesis, faults, topology, kernels = modules
+    from gossip_glomers_tpu_torch.tpu_sim import provenance as PV
+    n = N_NODES
+    rec = {"phase": "nemesis_tree_1m_provenance", "card": card, "n": n,
+           "n_values": W1_VALUES, "degree": BRANCHING + 1, "sync_every": 8,
+           "crash": [2, 16, "range(0, n, 97)"], "loss_rate": 0.1,
+           "dup_rate": 0.05, "until": 17}
+    spec = tree_nemesis_spec(faults, n)
+    kw = dict(n_values=W1_VALUES, topology="tree", sync_every=8,
+              device=device)
+    launches.start()
+    before = dict(kernels.LAUNCHES)
+    on, wall_on = event_ms(lambda: nemesis.run_broadcast_nemesis(
+        spec, telemetry=True, provenance=True, **kw))
+    add_trip(kernels, before)
+    launches.stop(rec, PROV_EXPECT)
+    off, wall_off = event_ms(lambda: nemesis.run_broadcast_nemesis(
+        spec, telemetry=False, provenance=False, **kw))
+    check = on["provenance"]["check"]
+    tree = on["provenance"]["tree"]
+    rounds = on["converged_round"]
+    # the campaign's rounds as fixed trips, observation off and on: the
+    # device side of provenance's cost and the received sets
+    sim = tree_prov_sim(broadcast, topology, faults, n, device)
+    inject = broadcast.make_inject(n, W1_VALUES)
+    psp = PV.ProvenanceSpec("broadcast")
+    def trip_off():
+        state0 = sim.init_state(inject)
+        return lambda: sim.run_staged_fixed(state0, rounds, donate=True)
+
+    def trip_on():
+        state0 = sim.init_state(inject)
+        prov0 = sim.provenance_state(psp, inject)
+        return lambda: sim.run_observed(state0, None, None, rounds,
+                                        donate=True, prov=prov0,
+                                        prov_spec=psp)[0]
+
+    plain, ms_off = event_ms(trip_off())
+    obs, ms_on = event_ms(trip_on())
+    same_received = bool(torch.equal(plain.received, obs.received))
+    del plain, obs
+    busy_off, spans_off = busy_and_spans(trip_off)
+    busy_on, spans_on = busy_and_spans(trip_on)
+    rec.update(
+        rounds=rounds, clear_round=on["clear_round"],
+        msgs_total=on["msgs_total"], n_lost_writes=on["n_lost_writes"],
+        recovery_rounds=on["recovery_rounds"],
+        n_arrivals=check["n_arrivals"], n_tree_edges=check["n_tree_edges"],
+        n_origins=check["n_origins"], provenance_ok=not check["problems"],
+        problems=check["problems"][:3],
+        telemetry_ok=not on["telemetry"]["check"]["problems"],
+        max_depth_hops=tree["max_depth_hops"],
+        max_span_rounds=tree["max_span_rounds"],
+        critical_path_hops=tree["critical_path"]["hops"],
+        wall_ms_observed=wall_on, wall_ms_plain=wall_off,
+        trip_ms_observed=ms_on, trip_ms_plain=ms_off,
+        trip_busy_ms_observed=busy_on, trip_busy_ms_plain=busy_off,
+        trip_idle_share_observed=idle_share(busy_on, ms_on),
+        trip_idle_share_plain=idle_share(busy_off, ms_off),
+        trip_spans_observed=spans_on, trip_spans_plain=spans_off,
+        stamp_bytes=2 * n * W1_VALUES * 4,
+        off_rounds=off["converged_round"], off_msgs=off["msgs_total"],
+        same_received=same_received)
+    rec["ok"] = bool(on["ok"] and off["ok"] and rec["provenance_ok"]
+                     and check["n_tree_edges"] <= on["msgs_total"]
+                     and rounds == off["converged_round"]
+                     and on["msgs_total"] == off["msgs_total"]
+                     and same_received)
+    del on, off
+    # the kernel on the campaign's own rounds: captured in a short
+    # observed run of the same sim, held against its plain version, timed
+    wrapped, kept = prov_capture(kernels, PROV_CAPTURE_ROUNDS)
+    real = kernels.prov_attribute
+    kernels.prov_attribute = wrapped
+    try:
+        sim.run_observed(sim.init_state(inject), None, None,
+                         max(PROV_CAPTURE_ROUNDS) + 1, donate=True,
+                         prov=sim.provenance_state(psp, inject),
+                         prov_spec=psp)
+    finally:
+        kernels.prov_attribute = real
+    rec["kernel"] = {}
+    for t, case in sorted(kept.items()):
+        err = max(max_abs_err(a, b) for a, b in prov_pairs(kernels, case))
+        timed = time_prov(kernels, case)
+        timed["max_abs_err"] = err
+        rec["kernel"][f"round_{t}"] = timed
+        if err:
+            rec["ok"] = False
+    # the kernels line's row: the faulted flood round's
+    times["prov_attribute"][(1, n)] = dict(
+        rec["kernel"][f"round_{PROV_CAPTURE_ROUNDS[0]}"])
+    times["prov_attribute"][(1, n)]["also"] = rec["kernel"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"nemesis_tree_1m_provenance: {rec}")
+    del sim, kept
+    torch.cuda.empty_cache()
+
+
+# fault_sweep.py:590-601's large-N counter row: 2^17 nodes, allreduce,
+# default_rng(0) deltas in [0, 10), the fault gate in 16,384-node slabs
+COUNTER_PROV_BLOCK = 16384
+COUNTER_PROV_EXPECT = ("counter_select", "counter_apply")
+
+
+def nemesis_counter_128k_provenance(nemesis, faults, kernels, device,
+                                    launches: Launches, card: str) -> None:
+    """fault_sweep.py:590-601's row through the port's
+    ``run_counter_nemesis``: :func:`counter_nemesis_spec` (``random_spec(
+    2^17, seed=1, horizon=12, 2 windows, loss 0.1)``, crash shifted by 4),
+    allreduce, ``union_block=16384``, telemetry and provenance on, then
+    off.  ``ok``: the verdict and the provenance certificate pass, and the
+    two campaigns agree in rounds, ``kv`` and ``msgs``."""
+    import numpy as np
+
+    n = COUNTER_NEMESIS_NODES
+    spec = counter_nemesis_spec(faults, n)
+    deltas = np.random.default_rng(0).integers(0, 10, n).astype(np.int32)
+    kw = dict(mode="allreduce", deltas=deltas,
+              union_block=COUNTER_PROV_BLOCK, device=device)
+    rec = {"phase": "nemesis_counter_128k_provenance", "card": card, "n": n,
+           "union_block": COUNTER_PROV_BLOCK,
+           "spec": {"crash": [[s, e, len(ns)] for s, e, ns in spec.crash],
+                    "loss_rate": spec.loss_rate,
+                    "loss_until": spec.loss_until, "seed": spec.seed}}
+    launches.start()
+    before = dict(kernels.LAUNCHES)
+    on, wall_on = event_ms(lambda: nemesis.run_counter_nemesis(
+        spec, telemetry=True, provenance=True, **kw))
+    add_trip(kernels, before)
+    launches.stop(rec, COUNTER_PROV_EXPECT)
+    off, wall_off = event_ms(lambda: nemesis.run_counter_nemesis(
+        spec, telemetry=False, provenance=False, **kw))
+    check = on["provenance"]["check"]
+    rec.update(converged_round=on["converged_round"],
+               clear_round=on["clear_round"], kv=on["kv"],
+               acked_sum=on["acked_sum"], msgs_total=on["msgs_total"],
+               n_lost_writes=on["n_lost_writes"],
+               n_flushed=check["n_flushed"], n_visible=check["n_visible"],
+               provenance_ok=not check["problems"],
+               problems=check["problems"][:3],
+               wall_ms_observed=wall_on, wall_ms_plain=wall_off)
+    rec["ok"] = bool(on["ok"] and rec["provenance_ok"]
+                     and (off["converged_round"], off["kv"],
+                          off["msgs_total"])
+                     == (on["converged_round"], on["kv"], on["msgs_total"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"nemesis_counter_128k_provenance: {rec}")
+
+
+def allocated_slots(state) -> int:
+    """The (key, slot) cells the log holds."""
+    return int((state.log_vals >= 0).sum())
+
+
+# telemetry_overhead.py:200-232: the faulted sweep point, provenance on
+KAFKA_PROV_POINT = (1024, 10_000, 128, 16, 256, 2)
+
+
+def kafka_sweep_point_provenance(kafka, nemesis, faults, kernels, device,
+                                 launches: Launches, card: str) -> None:
+    """telemetry_overhead.py:200-232's point: 1,024 nodes, 10,000 keys,
+    capacity 128, 16 sends a node, ``union_block=256``, every 97th node
+    down and loss 0.1 over the 2 rounds, seed 5, a send-only campaign:
+    ``run_observed(prov=)`` against ``run_rounds``, both timed.  ``ok``:
+    the states are equal and slots were allocated.  The record's
+    certificate is reported, not required: two faulted rounds end before
+    the resync, and the witness (node 0) is down in both, so its
+    first-presence stamps stay empty."""
+    import torch
+    from gossip_glomers_tpu_torch.harness.checkers import check_provenance
+    from gossip_glomers_tpu_torch.tpu_sim import provenance as PV
+
+    n, k, cap, s, block, rounds = KAFKA_PROV_POINT
+    spec = faults.NemesisSpec(n_nodes=n, seed=5,
+                              crash=((0, rounds, tuple(range(0, n, 97))),),
+                              loss_rate=0.1, loss_until=rounds)
+    sks, svs, _ = nemesis.stage_kafka_ops(spec, rounds, n_keys=k,
+                                          max_sends=s, workload_seed=0,
+                                          commits=False)
+    sim = kafka.KafkaSim(n, k, cap, max_sends=s, device=device,
+                         fault_plan=spec.compile(device), resync_every=4,
+                         union_block=block)
+    staged = [torch.from_numpy(x).to(device) for x in (sks, svs)]
+    psp = PV.ProvenanceSpec("kafka")
+    launches.start()
+    plain, wall_off = event_ms(lambda: sim.run_rounds(sim.init_state(),
+                                                      *staged))
+    prov0 = sim.provenance_state(psp)
+    (obs, prov), wall_on = event_ms(lambda: sim.run_observed(
+        sim.init_state(), None, None, *staged, prov=prov0, prov_spec=psp))
+    rec = {"phase": "kafka_sweep_point_provenance", "card": card, "n": n,
+           "keys": k, "capacity": cap, "sends": s, "union_block": block,
+           "rounds": rounds, "wall_ms_plain": wall_off,
+           "wall_ms_observed": wall_on, "msgs": int(obs.msgs)}
+    launches.stop(rec, ("kafka_merge", "kafka_nem_deliver"))
+    ok_p, det = check_provenance(
+        "kafka", PV.arrays_of(prov), spec=spec, n_nodes=n,
+        resync_every=4, resync_mode="pull", witness=0)
+    rec.update(same_state=same_kafka(plain, obs), provenance_ok=ok_p,
+               n_allocated=det["n_allocated"],
+               n_alloc_stamps=int((prov.alloc_round >= 1).sum()),
+               n_first_present=int((prov.first_present >= 1).sum()),
+               problems=det["problems"][:3])
+    rec["ok"] = (rec["same_state"] and det["n_allocated"] > 0
+                 and rec["n_alloc_stamps"] == allocated_slots(obs))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"kafka_sweep_point_provenance: {rec}")
+    del sim, plain, obs, prov
+    torch.cuda.empty_cache()
 
 
 def ids_echo(unique_ids, echo, device, launches: Launches,
@@ -4042,7 +4485,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from gossip_glomers_tpu_torch.harness import serving
+    from gossip_glomers_tpu_torch.harness import nemesis, serving
     from gossip_glomers_tpu_torch.parallel import topology
     from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter, echo,
                                                   faults, kafka, kernels,
@@ -4102,6 +4545,8 @@ def main() -> int:
               list(x) for x in KAFKA_PHASE_SHAPES
               if kafka_past_memory(*x[:3])],
           "and_fold_shapes": [list(x) for x in serving_fold_shapes()],
+          "prov_shapes": [list(x) for x in PROV_SHAPES],
+          "prov_modes": list(PROV_MODES),
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
                     for k, t in times.items()}})
 
@@ -4135,7 +4580,13 @@ def main() -> int:
     small_floods(modules, device, launches)
     counter_phases(counter, faults, kernels, device, launches, smi)
     ids_echo(unique_ids, echo, device, launches, smi)
-    kafka_phases(kafka, faults, kernels, device, launches, smi)
+    kafka_phases(kafka, nemesis, faults, kernels, device, launches, smi)
+    nemesis_tree_1m_provenance((broadcast, nemesis, faults, topology,
+                                kernels), device, launches, smi, times)
+    nemesis_counter_128k_provenance(nemesis, faults, kernels, device,
+                                    launches, smi)
+    kafka_sweep_point_provenance(kafka, nemesis, faults, kernels, device,
+                                 launches, smi)
     serving_phases((serving, telemetry, traffic, kernels, faults), topology,
                    structured, broadcast, device, launches, smi)
 

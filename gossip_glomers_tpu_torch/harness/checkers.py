@@ -1,10 +1,14 @@
-"""The serving runner's checkers: a partial copy of
-gossip_glomers_tpu/harness/checkers.py (``check_recovery``,
-``check_op_latency``, ``check_telemetry`` and the helper
-``series_divergence_round`` they need), kept as the reference has them
-(tests/test_torch_serving.py holds each equal to the original on seeded
-inputs).  The rest of that module waits for the port's runners (ROADMAP.md
-Queue A item 13).
+"""The runners' checkers: a partial copy of
+gossip_glomers_tpu/harness/checkers.py, kept as the reference has them —
+``check_recovery``, ``check_op_latency``, ``check_telemetry`` and the
+helper ``series_divergence_round`` (tests/test_torch_serving.py holds
+each equal to the original on seeded inputs), and the causal provenance
+certifier ``check_provenance`` with ``provenance_divergence_round``
+(tests/test_torch_nemesis_runner.py and test_torch_provenance.py).  It
+reads the fault model through the port's :mod:`..tpu_sim.faults` host
+twins (``host_node_up``, ``host_edge_drop``, ``host_kv_ok``).  The
+workload checkers (``check_kafka`` and the rest) wait for the port's
+runners that need them (ROADMAP.md Queue A item 13).
 
 Each checker returns ``(ok, details)``.
 """
@@ -161,6 +165,42 @@ _ROUND_COMPANION = {
 }
 
 
+def provenance_divergence_round(expected: dict, got: dict
+                                ) -> int | None:
+    """First round two provenance stamp records (tpu_sim/provenance.py
+    ``arrays_of``, possibly JSON round-tripped) disagree about, or
+    None when identical.  The round of a differing cell is its
+    ROUND-companion field's value (``_ROUND_COMPANION`` — node-id and
+    KV-value fields borrow the cell's round stamp); the earliest
+    non-negative one (either record's — whichever claims the earlier
+    event first disagrees there) wins; a shape mismatch diverges at
+    round 0."""
+    import numpy as np
+
+    first = None
+    for key in expected:
+        if key not in got:
+            continue
+        a = np.asarray(expected[key], np.int64)
+        b = np.asarray(got[key], np.int64)
+        if a.shape != b.shape:
+            return 0
+        diff = a != b
+        if not diff.any():
+            continue
+        comp = _ROUND_COMPANION.get(key, key)
+        ca = (np.asarray(expected[comp], np.int64)
+              if comp in expected else a)
+        cb = np.asarray(got[comp], np.int64) if comp in got else b
+        if ca.shape != a.shape or cb.shape != b.shape:
+            return 0
+        stamps = np.concatenate([ca[diff], cb[diff]])
+        stamps = stamps[stamps >= 0]
+        cand = int(stamps.min()) if stamps.size else 0
+        first = cand if first is None else min(first, cand)
+    return first
+
+
 def check_telemetry(series: dict, *, msgs_total: int | None = None,
                     traffic: dict | None = None,
                     expected: dict | None = None) -> tuple[bool, dict]:
@@ -254,3 +294,363 @@ def check_telemetry(series: dict, *, msgs_total: int | None = None,
     if expected is not None:
         details["first_divergence_round"] = divergence
     return not problems, details
+
+
+def _parts_cut(parts_meta, t: int, a_ids, b_ids):
+    """Host twin of the partition-window edge gate: True where the
+    (a -> b) edge is CUT at round ``t`` by an active window of the
+    JSON-able Partitions meta ({starts, ends, group})."""
+    import numpy as np
+
+    if parts_meta is None:
+        return np.zeros(np.asarray(a_ids).shape, bool)
+    cut = np.zeros(np.asarray(a_ids).shape, bool)
+    group = np.asarray(parts_meta["group"])
+    for w, (s, e) in enumerate(zip(parts_meta["starts"],
+                                   parts_meta["ends"])):
+        if s <= t < e:
+            cut |= group[w][np.asarray(a_ids)] \
+                != group[w][np.asarray(b_ids)]
+    return cut
+
+
+def check_provenance(workload: str, prov: dict, *, spec=None,
+                     **ctx) -> tuple[bool, dict]:
+    """Causal-provenance certification — the headline checker
+    of the provenance record (tpu_sim/provenance.py), falsifiable
+    *against the fault model itself*: the loss/liveness coins are
+    stateless ``(t, src, dst)`` hashes with exact numpy twins
+    (tpu_sim/faults.py ``host_node_up`` / ``host_edge_drop``), so the
+    host re-evaluates whether each claimed causal edge was actually
+    LIVE and UN-DROPPED at the claimed round.  ``prov`` is the
+    workload's stamp arrays (``provenance.arrays_of``), ``spec`` the
+    run's NemesisSpec (or None fault-free).
+
+    Per workload (all verdicts ANDed):
+
+    - **broadcast** (ctx: ``nbrs``, ``received`` (N, V) bool,
+      ``msgs_total``, optional ``parts`` meta and per-edge ``delays``):
+      *reachability* — every held (node, value) bit has a recorded
+      arrival; *causality* — every non-origin arrival names a parent
+      with ``arrival[parent] < arrival[child]``; *edge validity* —
+      the parent is a topology in-neighbor and the edge was live
+      (both endpoints up, no active partition window cutting it) and
+      un-dropped by the loss coin at the SEND round (``arrival - 1``,
+      or ``arrival - delay(edge)`` under per-edge delays, with the
+      receiver also up at the delivery round); *ledger consistency* —
+      the spanning trees' edge count cannot exceed the value-message
+      ledger (every first delivery consumed at least one send).
+    - **counter** (ctx: ``final_kv``): every flush stamp names a
+      round at which the node could actually reach the KV
+      (``host_kv_ok`` — up and the KV coin un-dropped), flushed into
+      a value the monotone KV actually passed (``1 <= flush_kv <=
+      final_kv``), and visibility never precedes the flush.
+    - **kafka** (ctx: ``n_nodes``, ``resync_every``, ``resync_mode``,
+      ``witness``): every allocated slot's origin was up WITH KV
+      reach at the allocation round; first presence at the witness
+      never precedes allocation; a same-round witness presence
+      required a live, un-dropped (origin -> witness) replicate
+      delivery; a LATER witness presence is only explainable by an
+      anti-entropy resync round (witness live; push mode: origin
+      live too).
+
+    A forged parent on a dropped or dead edge, a causality-violating
+    arrival, and a tree-inconsistent msgs ledger each fail loudly —
+    tests/test_provenance.py proves all three."""
+    import numpy as np
+
+    plan = spec.compile(device="cpu") if spec is not None else None
+    if workload == "broadcast":
+        ok_fn = _check_broadcast_provenance
+    elif workload == "counter":
+        ok_fn = _check_counter_provenance
+    elif workload == "kafka":
+        ok_fn = _check_kafka_provenance
+    else:
+        raise ValueError(f"unknown provenance workload {workload!r}")
+    prov = {k: np.asarray(v) for k, v in prov.items()}
+    return ok_fn(prov, plan, **ctx)
+
+
+def _host_up(plan, t: int):
+    from ..tpu_sim import faults as F
+    return F.host_node_up(plan, t)
+
+
+def _check_broadcast_provenance(prov, plan, *, nbrs, received,
+                                msgs_total=None, parts=None,
+                                delays=None) -> tuple[bool, dict]:
+    import numpy as np
+
+    from ..tpu_sim import faults as F
+
+    arrival, parent = prov["arrival"], prov["parent"]
+    nbrs = np.asarray(nbrs)
+    received = np.asarray(received, bool)
+    problems: list[str] = []
+
+    def say(msg):
+        if len(problems) < 10:
+            problems.append(msg)
+
+    def cells(mask):
+        # cap BEFORE formatting: a systematically broken record at
+        # sweep shapes would otherwise format millions of messages
+        # that say() discards past the first 10
+        ii, vv = np.nonzero(mask)
+        return zip(ii[:10], vv[:10])
+
+    # reachability: every held bit has a recorded arrival
+    miss = received & (arrival < 0)
+    for i, v in cells(miss):
+        say(f"node {i} holds value {v} with no recorded arrival")
+    # tree shape: non-origin arrivals need a parent; origins (arrival
+    # 0) must not claim one
+    child = arrival > 0
+    for i, v in cells(child & (parent < 0)):
+        say(f"({i}, {v}) arrived at round {arrival[i, v]} with no "
+            "parent recorded")
+    for i, v in cells((arrival == 0) & (parent >= 0)):
+        say(f"origin cell ({i}, {v}) claims parent {parent[i, v]}")
+    # causality + edge validity over the claimed parent edges
+    ii, vv = np.nonzero(child & (parent >= 0))
+    pa = parent[ii, vv]
+    if pa.size and (pa >= arrival.shape[0]).any():
+        bad = pa >= arrival.shape[0]
+        for j in np.nonzero(bad)[0][:10]:
+            say(f"({ii[j]}, {vv[j]}) claims out-of-range parent "
+                f"{pa[j]}")
+        keep = ~bad
+        ii, vv, pa = ii[keep], vv[keep], pa[keep]
+    arr_c = arrival[ii, vv]
+    arr_p = arrival[pa, vv]
+    causal = (arr_p >= 0) & (arr_p < arr_c)
+    for j in np.nonzero(~causal)[0][:10]:
+        say(f"causality: ({ii[j]}, {vv[j]}) arrived at {arr_c[j]} "
+            f"from parent {pa[j]} whose own arrival is {arr_p[j]}")
+    # the claimed edge must exist in the topology, with liveness and
+    # the loss coin re-evaluated at its send round; under per-edge
+    # delays the send round is arrival - delay(edge), and the
+    # receiver must also be up at the delivery round
+    matched = np.zeros(ii.shape, bool)
+    n_dirs = nbrs.shape[1]
+    for d in range(n_dirs):
+        cand = (~matched) & (nbrs[ii, d] == pa)
+        if not cand.any():
+            continue
+        dly = (np.ones(ii.shape, np.int64) if delays is None
+               else np.asarray(delays)[ii, d])
+        t_send = arr_c - dly
+        ok_d = cand & (t_send >= 0)
+        for t in np.unique(t_send[ok_d]):
+            sel = ok_d & (t_send == t)
+            a, b = pa[sel], ii[sel]
+            good = ~_parts_cut(parts, int(t), b, a)
+            if plan is not None:
+                up = _host_up(plan, int(t))
+                good &= up[a] & up[b]
+                good &= ~F.host_edge_drop(plan, int(t), a, b)
+            idx = np.nonzero(sel)[0]
+            matched[idx[good]] = True
+    if plan is not None and delays is not None:
+        # receiver up at the delivery round (the gather delayed path
+        # masks a down receiver at delivery time)
+        for t in np.unique(arr_c):
+            sel = matched & (arr_c == t)
+            if not sel.any():
+                continue
+            up = _host_up(plan, int(t) - 1)
+            bad = sel & ~up[ii]
+            matched[bad] = False
+    for j in np.nonzero(~matched)[0][:10]:
+        say(f"edge ({pa[j]} -> {ii[j]}) claimed for value {vv[j]} "
+            f"at round {arr_c[j]} was not a live, un-dropped "
+            "topology edge at its send round (forged parent / dead "
+            "or dropped edge)")
+    # tree/msgs-ledger consistency: every first delivery consumed at
+    # least one value-message send.  ASSUMES the uint32 msgs ledger
+    # has not wrapped (> 2^32 total sends): msgs_total arrives
+    # already reduced mod 2^32, so a wrapped run is not verifiable
+    # host-side — at the repo's feasible shapes (first-delivery edges
+    # <= N*V << 2^32 while sends >= edges) the assumption holds long
+    # before the wrap is reachable
+    n_edges = int(child.sum())
+    if msgs_total is not None and n_edges > msgs_total:
+        say(f"tree has {n_edges} first-delivery edges but the msgs "
+            f"ledger recorded only {msgs_total} sends")
+    return not problems, {
+        "n_arrivals": int((arrival >= 0).sum()),
+        "n_tree_edges": n_edges,
+        "n_origins": int((arrival == 0).sum()),
+        "msgs_total": msgs_total,
+        "problems": problems}
+
+
+def _check_counter_provenance(prov, plan, *,
+                              final_kv=None) -> tuple[bool, dict]:
+    import numpy as np
+
+    from ..tpu_sim import faults as F
+
+    fr = prov["flush_round"]
+    fk = prov["flush_kv"]
+    vr = prov["visible_round"]
+    problems: list[str] = []
+
+    def say(msg):
+        if len(problems) < 10:
+            problems.append(msg)
+
+    flushed = fr >= 0
+    for i in np.nonzero(flushed & (fr < 1))[0]:
+        say(f"node {i} flush_round {fr[i]} precedes round 1")
+    if plan is not None:
+        for t in np.unique(fr[flushed & (fr >= 1)]):
+            kv_ok = F.host_kv_ok(plan, int(t) - 1)
+            sel = flushed & (fr == t) & ~kv_ok
+            for i in np.nonzero(sel)[0]:
+                say(f"node {i} claims a flush at round {t} while "
+                    "down or KV-dropped at its send round (forged "
+                    "flush)")
+    bad_kv = flushed & (fk < 1)
+    for i in np.nonzero(bad_kv)[0]:
+        say(f"node {i} flushed into non-positive KV value {fk[i]}")
+    if final_kv is not None:
+        over = flushed & (fk > int(final_kv))
+        for i in np.nonzero(over)[0]:
+            say(f"node {i} claims flush_kv {fk[i]} > final KV "
+                f"{final_kv} (the KV is monotone)")
+    early = (vr >= 0) & (vr < fr)
+    for i in np.nonzero(early)[0]:
+        say(f"node {i} visible at {vr[i]} before its flush at "
+            f"{fr[i]}")
+    for i in np.nonzero((vr >= 0) & (fr < 0))[0]:
+        say(f"node {i} visible at {vr[i]} with no flush recorded")
+    return not problems, {
+        "n_flushed": int(flushed.sum()),
+        "n_visible": int((vr >= 0).sum()),
+        "final_kv": final_kv,
+        "problems": problems}
+
+
+def _check_kafka_provenance(prov, plan, *, n_nodes,
+                            resync_every=4, resync_mode="pull",
+                            witness=0) -> tuple[bool, dict]:
+    import numpy as np
+
+    from ..tpu_sim import faults as F
+
+    ar = prov["alloc_round"]
+    og = prov["origin"]
+    fp = prov["first_present"]
+    problems: list[str] = []
+
+    def say(msg):
+        if len(problems) < 10:
+            problems.append(msg)
+
+    alloc = ar >= 1
+    for k, c in zip(*np.nonzero((ar == 0) | ((ar < 0) & (og >= 0)))):
+        say(f"slot ({k}, {c}) has inconsistent alloc stamps "
+            f"round={ar[k, c]} origin={og[k, c]}")
+
+    # vectorized over the allocated slots, host coins memoized PER
+    # ROUND (the coins are pure functions of t — a per-slot loop
+    # would re-evaluate the O(N) arrays slots times; at the sweep
+    # shapes that is minutes of checker for a seconds-long run)
+    ks, cs = np.nonzero(alloc)
+    o = og[ks, cs].astype(np.int64)
+    t_all = ar[ks, cs].astype(np.int64)
+    t_fp = fp[ks, cs].astype(np.int64)
+
+    def complain(mask, msg_fn):
+        for i in np.nonzero(mask)[0][:10]:
+            say(msg_fn(int(ks[i]), int(cs[i]), i))
+
+    bad_o = (o < 0) | (o >= n_nodes)
+    complain(bad_o, lambda k, c, i:
+             f"slot ({k}, {c}) claims out-of-range origin {o[i]}")
+    live = ~bad_o
+    oc = np.clip(o, 0, n_nodes - 1)
+    if plan is not None:
+        kv_ok_at = {int(t): F.host_kv_ok(plan, int(t))
+                    for t in np.unique(t_all[live] - 1)}
+        forged = live.copy()
+        for t, kv_ok in kv_ok_at.items():
+            sel = live & (t_all - 1 == t)
+            forged[sel] = ~kv_ok[oc[sel]]
+        forged &= live
+        complain(forged, lambda k, c, i:
+                 f"slot ({k}, {c}) claims allocation by node {o[i]} "
+                 f"at round {t_all[i]} while down or KV-dropped "
+                 "(forged allocation)")
+        live &= ~forged
+    never = live & (t_fp < 0)
+    complain(never, lambda k, c, i:
+             f"allocated slot ({k}, {c}) never became present at "
+             f"witness {witness}")
+    early = live & (t_fp >= 0) & (t_fp < t_all)
+    complain(early, lambda k, c, i:
+             f"slot ({k}, {c}) present at witness round {t_fp[i]} "
+             f"BEFORE its allocation at {t_all[i]}")
+    live &= ~(never | early)
+    at_wit = live & (o == witness)
+    complain(at_wit & (t_fp != t_all), lambda k, c, i:
+             f"slot ({k}, {c}) originated AT the witness but "
+             f"first_present {t_fp[i]} != alloc {t_all[i]}")
+    direct = live & ~at_wit & (t_fp == t_all)
+    resync = live & ~at_wit & (t_fp > t_all)
+    n_direct = int(direct.sum())
+    n_resync = int(resync.sum())
+    if plan is not None and direct.any():
+        bad_dir = np.zeros(direct.shape, bool)
+        for t in np.unique(t_all[direct] - 1):
+            t = int(t)
+            sel = direct & (t_all - 1 == t)
+            up = _host_up(plan, t)
+            # the anti-entropy resync runs INSIDE the round after
+            # delivery, so an alloc at a resync round can reach the
+            # witness the same round even when the direct replicate
+            # coin dropped (pull: the union includes the up origin's
+            # own copy; push: origin_bits gains the append before
+            # the push) — witness must be up
+            same_rs = t > 0 and t % resync_every == 0 and up[witness]
+            if same_rs:
+                continue
+            drop = F.host_edge_drop(
+                plan, t, oc[sel], np.full(int(sel.sum()), witness))
+            bad_dir[np.nonzero(sel)[0]] = ~up[witness] | drop
+        complain(bad_dir, lambda k, c, i:
+                 f"slot ({k}, {c}) claims a direct replicate "
+                 f"({o[i]} -> {witness}) at round {t_all[i]} on a "
+                 "dead or dropped edge (forged delivery)")
+    if resync.any():
+        t2 = t_fp - 1
+        not_rs = resync & ~((t2 > 0) & (t2 % resync_every == 0))
+        complain(not_rs, lambda k, c, i:
+                 f"slot ({k}, {c}) late witness presence at round "
+                 f"{t_fp[i]} is not a resync round (resync_every="
+                 f"{resync_every})")
+        if plan is not None:
+            ok_rs = resync & ~not_rs
+            for t in np.unique(t2[ok_rs]):
+                t = int(t)
+                sel = ok_rs & (t2 == t)
+                up2 = _host_up(plan, t)
+                if not up2[witness]:
+                    complain(sel, lambda k, c, i:
+                             f"slot ({k}, {c}) claims a resync "
+                             f"delivery at round {t_fp[i]} while "
+                             "the witness was down")
+                elif resync_mode == "push":
+                    dead_o = sel & ~up2[oc]
+                    complain(dead_o, lambda k, c, i:
+                             f"slot ({k}, {c}) claims a push-resync "
+                             f"from origin {o[i]} at round "
+                             f"{t_fp[i]} while the origin was down")
+    return not problems, {
+        "n_allocated": int(alloc.sum()),
+        "n_direct": n_direct,
+        "n_resync": n_resync,
+        "witness": witness,
+        "problems": problems}

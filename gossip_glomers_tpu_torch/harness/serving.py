@@ -38,6 +38,7 @@ from ..tpu_sim.engine import resolve_device
 from ..tpu_sim.faults import NemesisSpec
 from ..tpu_sim.kafka import KafkaSim
 from .checkers import check_op_latency, check_recovery, check_telemetry
+from .observe import telemetry_setup
 
 _TOPOLOGIES = {"grid": grid, "tree": tree}
 
@@ -45,29 +46,6 @@ _TOPOLOGIES = {"grid": grid, "tree": tree}
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
                                f"(ROADMAP.md Queue A item {item})")
-
-
-def telemetry_setup(telemetry, workload: str, rounds: int,
-                    traffic: bool = False):
-    """Resolve a runner's ``telemetry=`` to a :class:`..tpu_sim.telemetry.
-    TelemetrySpec` or None (the reference's harness/observe.py one):
-    None consults ``GG_TELEMETRY`` (off unless 1); True / False force
-    the default spec (``GG_TELEMETRY_SERIES``-filtered, ring sized to
-    ``rounds``) or off; a spec is used as it is, once its workload and
-    traffic flag match."""
-    if telemetry is None:
-        telemetry = TM.enabled()
-    if telemetry is False:
-        return None
-    if telemetry is True:
-        return TM.default_spec(workload, rounds, traffic)
-    spec = telemetry
-    if spec.workload != workload or spec.traffic != traffic:
-        raise ValueError(
-            f"TelemetrySpec(workload={spec.workload!r}, "
-            f"traffic={spec.traffic}) does not match this run "
-            f"(workload={workload!r}, traffic={traffic})")
-    return spec
 
 
 def serving_widths(kind: str, tspec: "traffic.TrafficSpec",

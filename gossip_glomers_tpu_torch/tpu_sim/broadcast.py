@@ -43,8 +43,12 @@ host int: the round schedule (sync waves, the t == 0 ledger coefficient,
 which partition windows are active) is host control flow in eager
 PyTorch.
 
-Modes not ported yet raise: meshes (ROADMAP.md Queue A item 10) and
-provenance (item 11).
+The observed driver (:meth:`BroadcastSim.run_observed`) carries the
+telemetry ring and, on the gather path, the causal provenance record
+(:mod:`.provenance`: each delivered bit's arrival round and the neighbour
+that first delivered it, :func:`.kernels.prov_attribute`).
+
+Modes not ported yet raise: meshes (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import faults, kernels, telemetry, traffic
+from . import faults, kernels, provenance, telemetry, traffic
 from .engine import (active_windows, fori_rounds, resolve_block,
                      resolve_device, scan_blocks, send_slot,
                      stepwise_converge, while_converge, windows_fold)
@@ -139,6 +143,21 @@ class Partitions:
 
     def to(self, device: str | torch.device) -> "Partitions":
         return dataclasses.replace(self, group=self.group.to(device))
+
+    def to_meta(self) -> dict:
+        """JSON-able form (the reference's): the runners and checkers
+        carry the schedule as data."""
+        return {"starts": list(self.starts), "ends": list(self.ends),
+                "group": self.group.cpu().numpy().tolist()}
+
+    @staticmethod
+    def from_meta(meta: dict) -> "Partitions":
+        group = np.asarray(meta["group"], dtype=np.int8)
+        if group.ndim != 2:
+            raise ValueError(
+                f"Partitions meta group must be (P, N), got shape "
+                f"{group.shape}")
+        return Partitions.from_numpy(meta["starts"], meta["ends"], group)
 
 
 @dataclasses.dataclass
@@ -284,27 +303,58 @@ def _live_del_at(t: int, row_ids: torch.Tensor, nbrs: torch.Tensor,
     return (flags & FLAG_DEL) != 0
 
 
-def _gather_or_delayed(history: torch.Tensor, t: int,
-                       classes: dict[int, torch.Tensor], nbrs: torch.Tensor,
-                       nbr_mask: torch.Tensor, parts: Partitions,
-                       row_ids: torch.Tensor,
-                       plan: faults.FaultPlan | None) -> torch.Tensor:
-    """The latency ring's delivery (the reference's
-    ``_gather_or_delayed``): edge (i, d) of delay v (``classes[v]``, the
-    (N, D) mask ``delays == v``) delivers the payload of send round ``t -
-    (v - 1)`` from its ring slot, if it was live at that round
-    (:func:`_live_del_at`).  One :func:`.kernels.gather_or` a delay
-    class; a class whose send round is below 0 delivers nothing."""
-    out = None
+def _delay_terms(t: int, ring: int, classes: dict[int, torch.Tensor],
+                 nbrs: torch.Tensor, nbr_mask: torch.Tensor,
+                 parts: Partitions, row_ids: torch.Tensor,
+                 plan: faults.FaultPlan | None) -> list:
+    """[(ring slot, (N, D) delivering edges)] of round ``t``'s delay
+    classes: edge (i, d) of delay v (``classes[v]``, the (N, D) mask
+    ``delays == v``) delivers the payload of send round ``t - (v - 1)``
+    from its slot, if it was live at that round (:func:`_live_del_at`);
+    a class whose send round is below 0 has no term."""
+    out = []
     for v, cls in classes.items():
-        slot = send_slot(t, v, history.shape[0])
-        if slot is None:
-            continue
-        live = _live_del_at(t - (v - 1), row_ids, nbrs, nbr_mask, parts,
-                            plan) & cls
+        slot = send_slot(t, v, ring)
+        if slot is not None:
+            out.append((slot, _live_del_at(t - (v - 1), row_ids, nbrs,
+                                           nbr_mask, parts, plan) & cls))
+    return out
+
+
+def _gather_or_delayed(history: torch.Tensor, terms: list,
+                       nbrs: torch.Tensor) -> torch.Tensor:
+    """The latency ring's delivery (the reference's
+    ``_gather_or_delayed``): one :func:`.kernels.gather_or` a delay
+    class over its :func:`_delay_terms` edges."""
+    out = None
+    for slot, live in terms:
         term = _gather_or(history[slot], nbrs, live)
         out = term if out is None else out | term
     return torch.zeros_like(history[0]) if out is None else out
+
+
+def _slot_table(terms: list, shape, up: torch.Tensor | None,
+                device) -> torch.Tensor:
+    """(N, D) int8: each edge's ring slot among the delay ``terms``
+    (the classes are disjoint), -1 where it delivers nothing or the
+    receiver is down (``up``): :func:`.kernels.prov_attribute`'s slot
+    table."""
+    slots = torch.full(tuple(shape), -1, dtype=torch.int8, device=device)
+    for slot, live in terms:
+        slots = slots.masked_fill(live, slot)
+    if up is not None:
+        slots = slots.masked_fill(~up[:, None], -1)
+    return slots
+
+
+def _stamp(prov, new: torch.Tensor, src: torch.Tensor, nbrs: torch.Tensor,
+           t: int, **edges):
+    """Round ``t``'s provenance stamps, in place on ``prov``
+    (:func:`.kernels.prov_attribute`, the reference's
+    ``_prov_attribute``)."""
+    kernels.prov_attribute(new, src, nbrs, prov.arrival, prov.parent,
+                           t_next=t + 1, **edges)
+    return prov
 
 
 def _sync_diff_pc(payload_full: torch.Tensor, recv_local: torch.Tensor,
@@ -347,10 +397,10 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
            sync_every: int, deg: torch.Tensor | None = None,
            plan: faults.FaultPlan | None = None, dup_on: bool = False,
            union_block: int | None = None,
-           classes: dict[int, torch.Tensor] | None = None
-           ) -> BroadcastState:
+           classes: dict[int, torch.Tensor] | None = None,
+           prov=None):
     """One node-major (adjacency-gather) round — the reference's
-    ``_round`` without provenance, on one device.  ``deg`` is
+    ``_round`` on one device.  ``deg`` is
     the topology degree ``nbr_mask.sum(1)`` (int64; computed when not
     given).  With a ``plan`` the round is :func:`_round_plan`.  On a
     round with no active partition window the edge mask is never built:
@@ -366,13 +416,19 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
     class from the slot of its send round.  Sends are still charged now,
     over the edges live at send time, and the server ledger diffs against
     current (not round-trip stale) state, the reference's documented
-    approximation."""
+    approximation.
+
+    With ``prov`` (a :class:`.provenance.BroadcastProv`) the round also
+    stamps, in place, each new bit's arrival round and the neighbour of
+    the first direction whose delivered word carries it
+    (:func:`.kernels.prov_attribute` over the round's own payload, flag
+    bytes or ring slots), and returns ``(state, prov)``."""
     if plan is not None:
         return _round_plan(state, row_ids=row_ids, nbrs=nbrs,
                            nbr_mask=nbr_mask, parts=parts,
                            sync_every=sync_every, deg=deg, plan=plan,
                            dup_on=dup_on, union_block=union_block,
-                           classes=classes)
+                           classes=classes, prov=prov)
     t = state.t
     is_sync = _is_sync(t, sync_every)
     rec0, fr0 = state.received, state.frontier
@@ -397,14 +453,23 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
     history = None
     if classes is None:
         new, received = kernels.gather_flood_round(payload, rec0, nbrs, live)
+        if prov is not None:
+            prov = _stamp(prov, new, payload, nbrs, t, flags=None
+                          if live is None else live.to(torch.uint8)
+                          * kernels.FLAG_DEL)
     else:
         history = _ring_push(state.history, payload, t)
-        new = _gather_or_delayed(history, t, classes, nbrs, nbr_mask, parts,
-                                 row_ids, None) & ~rec0
+        terms = _delay_terms(t, history.shape[0], classes, nbrs, nbr_mask,
+                             parts, row_ids, None)
+        new = _gather_or_delayed(history, terms, nbrs) & ~rec0
         received = rec0 | new
-    return BroadcastState(received=received, frontier=new, t=t + 1,
-                          msgs=wrap32(state.msgs + sent), srv_msgs=srv,
-                          history=history)
+        if prov is not None:
+            prov = _stamp(prov, new, history, nbrs, t, slots=_slot_table(
+                terms, nbrs.shape, None, nbrs.device))
+    out = BroadcastState(received=received, frontier=new, t=t + 1,
+                         msgs=wrap32(state.msgs + sent), srv_msgs=srv,
+                         history=history)
+    return out if prov is None else (out, prov)
 
 
 def _coins(plan: faults.FaultPlan, t: int, dup_on: bool,
@@ -423,8 +488,7 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
                 parts: Partitions, sync_every: int,
                 deg: torch.Tensor | None, plan: faults.FaultPlan,
                 dup_on: bool, union_block: int | None,
-                classes: dict[int, torch.Tensor] | None = None
-                ) -> BroadcastState:
+                classes: dict[int, torch.Tensor] | None = None, prov=None):
     """The faulted gather round (the reference's ``_round`` with a
     ``plan``).  First the amnesia rows' ``received`` / ``frontier`` are
     wiped; then :func:`.kernels.fault_coins` gives each edge its flags
@@ -451,7 +515,12 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     nothing (a message in flight to a crashed process dies with it), and
     a dup edge re-delivers its in-flight payload, which the dedup absorbs:
     it is charged at the payload's popcount at its source and delivers
-    nothing new."""
+    nothing new.
+
+    ``prov``: :func:`_round`'s provenance stamps, over the flag bytes
+    (one hop: DEL edges deliver the payload, DUP edges the wiped
+    ``received`` rows) or the ring slots of the live edges, a receiver
+    down now getting nothing; the round then runs materialized."""
     t = state.t
     wipe = faults.amnesia(plan, t, row_ids)[:, None]
     rec0 = state.received.masked_fill(wipe, 0)
@@ -477,7 +546,7 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
         sent = _dot32(pc[lo:hi], (flags & FLAG_SEND).sum(dim=1)) + dup_pc
         return flags, new, rec, sent
 
-    if union_block is not None and not srv_on:
+    if union_block is not None and not srv_on and prov is None:
         def slab(carry, lo):
             news, recs, sent = carry
             _, new, rec, s = deliver(lo, lo + union_block)
@@ -491,6 +560,9 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     history = None
     if classes is None:
         flags, new, received, sent = deliver(0, nbrs.shape[0])
+        if prov is not None:
+            prov = _stamp(prov, new, payload, nbrs, t, flags=flags,
+                          dup=dup_rows)
     else:
         live = _edge_live(t, row_ids, nbrs, nbr_mask, parts) if windows \
             else None
@@ -502,10 +574,14 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
             sent = wrap32(sent + torch.where(dup, pc[src], 0).sum(
                 dtype=torch.int64))
         history = _ring_push(state.history, payload, t)
-        inbox = _gather_or_delayed(history, t, classes, nbrs, nbr_mask,
-                                   parts, row_ids, plan)
+        terms = _delay_terms(t, history.shape[0], classes, nbrs, nbr_mask,
+                             parts, row_ids, plan)
+        inbox = _gather_or_delayed(history, terms, nbrs)
         new = inbox.masked_fill(~up[:, None], 0) & ~rec0
         received = rec0 | new
+        if prov is not None:
+            prov = _stamp(prov, new, history, nbrs, t, slots=_slot_table(
+                terms, nbrs.shape, up, nbrs.device))
     srv = None
     if srv_on:
         # a down row asks nothing; a reply exists where the request was
@@ -520,9 +596,10 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
             ack_deg=((flags & ack) == ack).sum(dim=1),
             diff=lambda: _sync_diff_pc(payload, rec0, nbrs,
                                        (flags & both) == both))
-    return BroadcastState(received=received, frontier=new, t=t + 1,
-                          msgs=wrap32(state.msgs + sent), srv_msgs=srv,
-                          history=history)
+    out = BroadcastState(received=received, frontier=new, t=t + 1,
+                         msgs=wrap32(state.msgs + sent), srv_msgs=srv,
+                         history=history)
+    return out if prov is None else (out, prov)
 
 
 def delay_classes(delays: torch.Tensor,
@@ -539,17 +616,19 @@ def flood_step(state: BroadcastState, *, nbrs: torch.Tensor,
                delays=None, delay_set: tuple = (),
                plan: faults.FaultPlan | None = None, dup_on: bool = False,
                union_block: int | None = None,
-               prov=None) -> BroadcastState:
+               prov=None):
     """Single-device node-major round, under an optional fault ``plan``
     (``dup_on``: its dup stream; ``union_block``: stream the faulted
     round over destination slabs) and per-edge ``delays`` ((N, D) int
     rounds >= 1; ``delay_set`` their distinct values, derived from the
-    tensor when empty; the state then carries its (L, N, W) ring).  The
-    reference's provenance mode raises (ROADMAP.md Queue A item 11)."""
-    if prov is not None:
-        raise NotImplementedError(
-            "flood_step(prov=...) is not ported to PyTorch yet (ROADMAP.md "
-            "Queue A item 11)")
+    tensor when empty; the state then carries its (L, N, W) ring).  With
+    ``prov`` (a :class:`.provenance.BroadcastProv`) it stamps the record
+    in place and returns ``(state, prov)``; the faulted round then runs
+    materialized (``union_block`` is ignored, as in the reference)."""
+    if prov is not None and not isinstance(prov, provenance.BroadcastProv):
+        raise TypeError("prov must be a provenance.BroadcastProv "
+                        f"(BroadcastSim.provenance_state), got "
+                        f"{type(prov).__name__}")
     if plan is not None and plan.n_nodes != nbrs.shape[0]:
         raise ValueError(f"FaultPlan is for {plan.n_nodes} nodes, the "
                          f"table has {nbrs.shape[0]}")
@@ -565,7 +644,8 @@ def flood_step(state: BroadcastState, *, nbrs: torch.Tensor,
     row_ids = torch.arange(nbrs.shape[0], device=nbrs.device)
     return _round(state, row_ids=row_ids, nbrs=nbrs, nbr_mask=nbr_mask,
                   parts=parts, sync_every=sync_every, plan=plan,
-                  dup_on=dup_on, union_block=union_block, classes=classes)
+                  dup_on=dup_on, union_block=union_block, classes=classes,
+                  prov=prov)
 
 
 # -- the words-major structured path ------------------------------------
@@ -1356,6 +1436,85 @@ class BroadcastSim:
                         + traffic.tel_series(ts))
                 tel = telemetry.record(tel, t, vals, mask)
         return (state, ts) if tel is None else (state, ts, tel)
+
+    # -- observed runs: the telemetry ring and the provenance record -------
+
+    def telemetry_state(self, tspec) -> "telemetry.TelemetryState":
+        return telemetry.init_state(tspec, device=self.device)
+
+    def provenance_state(self, pspec, inject) -> "provenance.BroadcastProv":
+        """A fresh (N, V) provenance record on the sim's device, the origin
+        cells stamped from the round-0 ``inject`` bitset."""
+        return provenance.init_broadcast(
+            self.n_nodes, self.n_values, np.asarray(inject, np.uint32),
+            device=self.device)
+
+    def _observed_check(self, tspec, pspec) -> None:
+        """The reference's refusals of the observed driver: telemetry
+        rides the gather path (one hop and per-edge delays) and the
+        words-major one-hop path, provenance the gather path only."""
+        if tspec is None and pspec is None:
+            raise ValueError(
+                "observed drivers need a TelemetrySpec and/or a "
+                "ProvenanceSpec")
+        if tspec is not None and (tspec.workload != "broadcast"
+                                  or tspec.traffic):
+            raise ValueError(
+                "run_observed needs a TelemetrySpec(workload="
+                "'broadcast', traffic=False); open-loop runs record "
+                "through run_traffic(tel=...)")
+        if pspec is not None and self.words_major:
+            raise ValueError(
+                "broadcast provenance rides the gather path (the "
+                "structured words-major exchanges fold their direction "
+                "terms internally — see tpu_sim/provenance.py); drop "
+                "exchange= for a provenance-on run")
+        if self.words_major and self._delay_mode:
+            raise ValueError(
+                "observed drivers run the gather (1-hop and per-edge "
+                "delays) and 1-hop words-major paths; words-major "
+                "delay-ring modes are not wired")
+
+    def run_observed(self, state: BroadcastState, tel, tspec, n_rounds: int,
+                     *, donate: bool = False, prov=None, prov_spec=None):
+        """``n_rounds`` rounds of :meth:`step` with the per-round telemetry
+        ring (``tel`` / ``tspec``, a ``TelemetrySpec(traffic=False)``)
+        and / or the provenance record (``prov`` / ``prov_spec``, gather
+        path: the round runs materialized and stamps it) recorded beside
+        the state, which they only read: the state equals the plain
+        drivers' bit for bit.  With ``donate`` the ring and the record
+        are updated in place, else copied first (the rounds never change
+        the state passed in).  Returns ``(state, tel?, prov?)``, the
+        leaves that were passed, in order."""
+        if (tel is None) != (tspec is None):
+            raise ValueError(
+                "pass tel and tel_spec together (build the ring with "
+                "telemetry.init_state(spec))")
+        provenance.prov_key(prov, prov_spec, "broadcast")
+        self._observed_check(tspec, prov_spec)
+        if not donate:
+            tel = None if tel is None else tel.clone()
+            prov = None if prov is None else provenance.BroadcastProv(
+                *(x.clone() for x in prov))
+        mask = None if tel is None else tspec.static_mask
+        for _ in range(n_rounds):
+            t = state.t
+            fr0_pc = (self._popcount(state.frontier)
+                      if tel is not None and mask[1] else None)
+            if prov is None:
+                state = self.step(state)
+            else:
+                state, prov = _round(
+                    state, row_ids=self.row_ids, nbrs=self.nbrs,
+                    nbr_mask=self.nbr_mask, parts=self.parts,
+                    sync_every=self.sync_every, deg=self.deg,
+                    plan=self.fault_plan, dup_on=self._fp_dup,
+                    union_block=None, classes=self._classes, prov=prov)
+            if tel is not None:
+                tel = telemetry.record(
+                    tel, t, self._tel_series(t, fr0_pc, state, mask), mask)
+        return ((state,) + (() if tel is None else (tel,))
+                + (() if prov is None else (prov,)))
 
     # -- readout ---------------------------------------------------------
 

@@ -34,11 +34,15 @@ reference's uint32 ledger.
 The open-loop traffic driver (:meth:`CounterSim.run_traffic`, with its
 telemetry ring) injects the seeded client adds of a
 :class:`.traffic.TrafficSpec` before each round and tracks each op until
-every node's cached read covers its flush.
+every node's cached read covers its flush.  The observed driver
+(:meth:`CounterSim.run_observed`) records the telemetry ring and the
+provenance stamps (:mod:`.provenance`: each node's flush round, the KV
+value it landed in and the round every cache caught up to it) beside the
+ordinary rounds.
 
 Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); the observed driver and provenance (item 11); the scenario
-batch round (item 12); the program audit (item 14).
+item 10); the scenario batch round (item 12); the program audit (item
+14).
 """
 
 from __future__ import annotations
@@ -49,15 +53,15 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from . import faults, kernels, kvstore, telemetry, traffic
+from . import faults, kernels, kvstore, provenance, telemetry, traffic
 from .engine import (active_windows, collectives, fori_rounds,
                      resolve_block, resolve_device, scan_blocks)
 from .kernels import GATE_BLOCKED, GATE_WIPE
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
 # A item
-_UNPORTED_METHODS = {"run_observed": 11, "provenance_state": 11,
-                     "audit_run_program": 14, "audit_traffic_program": 14}
+_UNPORTED_METHODS = {"audit_run_program": 14, "audit_traffic_program": 14,
+                     "audit_observed_program": 14}
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -213,6 +217,8 @@ class CounterSim:
         self._row_ids = (None if fault_plan is None else
                          collectives(n_nodes, device=self.device).row_ids)
         self._work = kernels.counter_work(self.device)
+        self._rows = torch.arange(n_nodes, dtype=torch.int32,
+                                  device=self.device)
         self._traffic = {}
 
     def __getattr__(self, name: str):
@@ -342,8 +348,7 @@ class CounterSim:
         key = tspec.program_key
         if key not in self._traffic:
             ix = traffic.client_index(tspec, self.n_nodes, self.device)
-            ix["rows"] = torch.arange(self.n_nodes, dtype=torch.int32,
-                                      device=self.device)
+            ix["rows"] = self._rows
             self._traffic[key] = ix
         return self._traffic[key]
 
@@ -384,6 +389,7 @@ class CounterSim:
             wiped = faults.amnesia(plan, t, rows)[node]
             op_aux = torch.where(open_ops & (op_aux == -1) & wiped[:, None],
                                  -2, op_aux)
+        gate = None if tel is None else self._flush_gate(state)
         s2 = self._round(state)
         flushed = (state.pending > 0) & (s2.pending == 0)
         if up_t is not None:
@@ -400,17 +406,18 @@ class CounterSim:
         ts = traffic.done_scan(ts, bit_fn, s2.t, ix["block"])
         if tel is None:
             return s2, ts, None
-        vals = (self._tel_series(state, s2, rows, tel_mask)
+        vals = (self._tel_series(gate, s2, tel_mask)
                 + traffic.tel_series(ts))
         return s2, ts, telemetry.record(tel, t, vals, tel_mask)
 
-    def _tel_series(self, s0: CounterState, s1: CounterState,
-                    rows: torch.Tensor, mask) -> tuple:
-        """One round's telemetry row (``telemetry.SIM_SERIES['counter']``)
-        from the round's input and output states: the flush attempts
-        recomputed from the same reach, liveness and coins the round
-        used, the acks among them, the pending and KV totals."""
-        plan = self.fault_plan
+    def _flush_gate(self, s0: CounterState) -> tuple:
+        """``(live, want)`` of the round about to run on ``s0``,
+        recomputed from the same reach, liveness and coins the round uses
+        (stateless, so they cannot drift from it): ``live`` the nodes up
+        (None without a plan), ``want`` the nodes that try to flush (a
+        positive pending after the amnesia wipe, and KV reach).  Taken
+        before the round, which may update ``pending`` in place."""
+        plan, rows = self.fault_plan, self._rows
         reach = _reach(s0.t, rows, self.kv_sched)
         pend0 = s0.pending
         live = None
@@ -418,7 +425,13 @@ class CounterSim:
             live = faults.node_up(plan, s0.t, rows)
             pend0 = torch.where(faults.amnesia(plan, s0.t, rows), 0, pend0)
             reach = reach & live & ~faults.kv_drop(plan, s0.t, rows)
-        want = (pend0 > 0) & reach
+        return live, (pend0 > 0) & reach
+
+    def _tel_series(self, gate: tuple, s1: CounterState, mask) -> tuple:
+        """One round's telemetry row (``telemetry.SIM_SERIES['counter']``)
+        from the round's :meth:`_flush_gate` and output state: the flush
+        attempts, the acks among them, the pending and KV totals."""
+        live, want = gate
         acks = want & (s1.pending == 0)
         n_want, n_acks = want.sum(dtype=torch.int64), acks.sum(
             dtype=torch.int64)
@@ -428,6 +441,69 @@ class CounterSim:
 
     def telemetry_state(self, tel_spec) -> "telemetry.TelemetryState":
         return telemetry.init_state(tel_spec, device=self.device)
+
+    # -- observed runs: the telemetry ring and the provenance record -------
+
+    def provenance_state(self, pspec) -> "provenance.CounterProv":
+        return provenance.init_counter(self.n_nodes, device=self.device)
+
+    def _prov_record(self, gate: tuple, s2: CounterState, prov):
+        """One round's provenance stamps (the reference's), first
+        occurrence only: ``flush_round`` / ``flush_kv`` where a node's
+        positive pending first drained through a reachable flush (an
+        amnesia wipe is no flush: the wiping node is down), the round
+        after and the KV value it landed in; ``visible_round`` once every
+        cache has caught up to that value (``min(cached) >= flush_kv``)."""
+        flushed = gate[1] & (s2.pending == 0)
+        newf = flushed & (prov.flush_round < 0)
+        fr = torch.where(newf, s2.t, prov.flush_round)
+        fk = torch.where(newf, s2.kv, prov.flush_kv)
+        vr = provenance.stamp(prov.visible_round,
+                              (fr >= 0) & (s2.cached.min() >= fk), s2.t)
+        return provenance.CounterProv(flush_round=fr, flush_kv=fk,
+                                      visible_round=vr)
+
+    def run_observed(self, state: CounterState, tel, tspec, n_rounds: int,
+                     *, donate: bool = False, prov=None, prov_spec=None):
+        """:meth:`run` with the per-round telemetry ring (``tel`` /
+        ``tspec``, a ``TelemetrySpec(traffic=False)``) and / or the
+        per-node flush / KV / visibility stamps (``prov`` /
+        ``prov_spec``) recorded beside the state, which they only read:
+        the state equals the plain drivers' bit for bit.  With ``donate``
+        the rounds update the state's ``pending``, ``cached`` and KV rows
+        in place (:meth:`run_fused`) and the ring too; else the state and
+        ring are left as they were.  Returns ``(state, tel?, prov?)``."""
+        if (tel is None) != (tspec is None):
+            raise ValueError(
+                "pass tel and tel_spec together (build the ring with "
+                "telemetry.init_state(spec))")
+        provenance.prov_key(prov, prov_spec, "counter")
+        if tspec is None and prov_spec is None:
+            raise ValueError(
+                "observed drivers need a TelemetrySpec and/or a "
+                "ProvenanceSpec")
+        if tspec is not None and (tspec.workload != "counter"
+                                  or tspec.traffic):
+            raise ValueError(
+                "run_observed needs a TelemetrySpec(workload="
+                "'counter', traffic=False); open-loop runs record "
+                "through run_traffic(tel=...)")
+        out = (state.pending, state.cached) if donate else None
+        if not donate:
+            tel = None if tel is None else tel.clone()
+        mask = None if tel is None else tspec.static_mask
+        for _ in range(n_rounds):
+            gate = self._flush_gate(state)
+            t = state.t
+            state = self._round(state, out=out)
+            if tel is not None:
+                tel = telemetry.record(tel, t,
+                                       self._tel_series(gate, state, mask),
+                                       mask)
+            if prov is not None:
+                prov = self._prov_record(gate, state, prov)
+        return ((state,) + (() if tel is None else (tel,))
+                + (() if prov is None else (prov,)))
 
     def traffic_state(self, tspec) -> "traffic.TrafficState":
         return traffic.init_state(tspec, device=self.device)

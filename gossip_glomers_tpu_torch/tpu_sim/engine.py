@@ -270,3 +270,17 @@ def analytic_peak_bytes(*, state_bytes: int, operand_bytes: int = 0,
             "slab_bytes": slab_bytes,
             "donated": donated,
             "peak_live_bytes": state_term + operand_bytes + slab_bytes}
+
+
+def host_unpack_bits(words, n_bits: int | None = None):
+    """Numpy unpacking of a packed bitset's last axis: ``(..., W)`` uint32
+    words to ``(..., 32 W)`` bool, bit ``b`` of word ``w`` at column ``32 w
+    + b`` (the reference's ``engine.host_unpack_bits``); ``n_bits`` cuts
+    the tail off."""
+    import numpy as np
+
+    w = np.asarray(words, np.uint32)
+    shifts = np.arange(32, dtype=np.uint32)
+    bits = ((w[..., None] >> shifts) & np.uint32(1)).astype(bool)
+    out = bits.reshape(*w.shape[:-1], w.shape[-1] * 32)
+    return out if n_bits is None else out[..., :n_bits]

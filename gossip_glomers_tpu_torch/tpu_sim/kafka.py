@@ -40,11 +40,14 @@ The open-loop traffic driver (:meth:`KafkaSim.run_traffic`, with its
 telemetry ring) stages the seeded client sends of a
 :class:`.traffic.TrafficSpec` through the send path each round and tracks
 each acked op until its (key, slot) bit is present at every node
-(:func:`.kernels.and_fold` over the presence).
+(:func:`.kernels.and_fold` over the presence).  The observed driver
+(:meth:`KafkaSim.run_observed`) records the telemetry ring and the
+provenance stamps (:mod:`.provenance`: each slot's allocation round and
+origin, from the round's own allocator, and its first presence at the
+witness node) beside the staged rounds.
 
 Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); the observed driver and provenance (item 11); the scenario batch
-round (item 12); the program audit (item 14).
+item 10); the scenario batch round (item 12); the program audit (item 14).
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import faults, kernels, kvstore, telemetry, traffic
+from . import faults, kernels, kvstore, provenance, telemetry, traffic
 from .counter import KVReach, _reach, _unported
 from .engine import (analytic_peak_bytes, fori_rounds, operand_bytes,
                      resolve_block, resolve_device, scan_blocks)
@@ -62,8 +65,7 @@ from .faults import MASK32
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
 # A item
-_UNPORTED_METHODS = {"run_observed": 11, "provenance_state": 11,
-                     "audit_observed_program": 14,
+_UNPORTED_METHODS = {"audit_observed_program": 14,
                      "audit_traffic_program": 14}
 
 
@@ -637,6 +639,100 @@ class KafkaSim:
 
     def telemetry_state(self, tel_spec) -> "telemetry.TelemetryState":
         return telemetry.init_state(tel_spec, device=self.device)
+
+    # -- observed runs: the telemetry ring and the provenance record -------
+
+    def provenance_state(self, pspec) -> "provenance.KafkaProv":
+        return provenance.init_kafka(self.n_keys, self.capacity,
+                                     device=self.device)
+
+    def _prov_record(self, alloc: tuple, s2: KafkaState, prov,
+                     witness: int):
+        """One round's provenance stamps (the reference's), first
+        occurrence only: each acked send's (key, slot) gets the round
+        after and its origin node, from the round's own :func:`_alloc`
+        evaluation ``alloc``; each slot newly present at the ``witness``
+        node after the round gets the round after."""
+        _tried, _valid, keys_c, _rank, slot, ok = alloc
+        k_dim, cap = self.n_keys, self.capacity
+        kc = k_dim * cap
+        # offsets are unique per key: the acked sends write distinct
+        # cells, the others a dump cell past the end
+        cell = torch.where(ok, keys_c.to(torch.int64) * cap + slot, kc)
+        origin = self._row_ids.repeat_interleave(
+            ok.shape[0] // self.n_nodes)
+        t1 = s2.t
+        ar = torch.zeros(kc + 1, dtype=torch.int32, device=self.device)
+        ar[cell] = torch.where(ok, t1, 0).to(torch.int32)
+        og = torch.zeros(kc + 1, dtype=torch.int32, device=self.device)
+        og[cell] = torch.where(ok, origin + 1, 0).to(torch.int32)
+        ar, og = ar[:kc].view(k_dim, cap), og[:kc].view(k_dim, cap)
+        new_alloc = (ar > 0) & (prov.alloc_round < 0)
+        return provenance.KafkaProv(
+            alloc_round=torch.where(new_alloc, ar, prov.alloc_round),
+            origin=torch.where(new_alloc, og - 1, prov.origin),
+            first_present=provenance.stamp(
+                prov.first_present,
+                kernels.unpack_bits(s2.present[witness], cap), t1))
+
+    def run_observed(self, state: KafkaState, tel, tspec, send_key,
+                     send_val, commit_req=None, *, donate: bool = False,
+                     prov=None, prov_spec=None):
+        """:meth:`run_rounds` with the per-round telemetry ring (``tel`` /
+        ``tspec``, a ``TelemetrySpec(traffic=False)``) and / or the
+        per-(key, slot) allocation, origin and witness-presence stamps
+        (``prov`` / ``prov_spec``) recorded beside the state, which they
+        only read: the state equals the plain drivers' bit for bit.  The
+        allocator is evaluated once a round and handed to the round (as
+        the traffic driver does; the device KV's round reads its own).
+        With ``donate`` the state and the ring are updated in place, else
+        copied first.  Returns ``(state, tel?, prov?)``."""
+        if (tel is None) != (tspec is None):
+            raise ValueError(
+                "pass tel and tel_spec together (build the ring with "
+                "telemetry.init_state(spec))")
+        provenance.prov_key(prov, prov_spec, "kafka")
+        if tspec is None and prov_spec is None:
+            raise ValueError(
+                "observed drivers need a TelemetrySpec and/or a "
+                "ProvenanceSpec")
+        if tspec is not None and (tspec.workload != "kafka"
+                                  or tspec.traffic):
+            raise ValueError(
+                "run_observed needs a TelemetrySpec(workload='kafka', "
+                "traffic=False); open-loop runs record through "
+                "run_traffic(tel=...)")
+        if prov_spec is not None and prov_spec.witness >= self.n_nodes:
+            raise ValueError(
+                f"provenance witness {prov_spec.witness} out of range "
+                f"for {self.n_nodes} nodes")
+        repl_mode = self._repl_mode(None)
+        if repl_mode == "matmul":
+            raise ValueError(
+                "observed drivers ride the origin-union replication "
+                "paths; repl_fast=False pins the matmul oracle")
+        sks, svs = self._ints(send_key), self._ints(send_val)
+        crs = None if commit_req is None else self._ints(commit_req)
+        if not donate:
+            state = self._copy(state)
+            tel = None if tel is None else tel.clone()
+        mask = None if tel is None else tspec.static_mask
+        for i in range(sks.shape[0]):
+            t = state.t
+            alloc = _alloc(state.kv_val, sks[i], *self._alloc_inputs(t),
+                           self.n_keys, self.capacity)
+            state = self._round(state, sks[i], svs[i],
+                                None if crs is None else crs[i], None,
+                                repl_mode,
+                                alloc=None if self._device_kv else alloc)
+            if tel is not None:
+                tel = telemetry.record(tel, t,
+                                       self._tel_series(t, state, mask), mask)
+            if prov is not None:
+                prov = self._prov_record(alloc, state, prov,
+                                         prov_spec.witness)
+        return ((state,) + (() if tel is None else (tel,))
+                + (() if prov is None else (prov,)))
 
     def traffic_state(self, tspec) -> "traffic.TrafficState":
         return traffic.init_state(tspec, device=self.device)

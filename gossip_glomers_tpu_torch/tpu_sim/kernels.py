@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the broadcast floods, their wrappers and
 their plain PyTorch versions.
 
-Seven sources in ``csrc/`` (each header notes what its kernels replace,
+Eight sources in ``csrc/`` (each header notes what its kernels replace,
 what bounds them on an H100 and what the design does about it):
 
 - ``tree_flood.cu``, the words-major k-ary tree:
@@ -46,7 +46,10 @@ what bounds them on an H100 and what the design does about it):
   cells and the message ledger);
 - ``traffic_fold.cu``, the open-loop traffic drivers' completion
   predicate: :func:`and_fold` (the AND over the node axis of a bitset,
-  words-major or node-major).
+  words-major or node-major);
+- ``prov_flood.cu``, the causal provenance record of the gather round:
+  :func:`prov_attribute` (each newly delivered bit's arrival round and
+  the neighbour whose delivery carried it first, in place).
 
 The masked structured exchanges and the words-major coins take their
 per-direction liveness as packed rows (:func:`pack_bits`): (D, ceil(N /
@@ -85,7 +88,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("tree_flood", "shift_flood", "gather_flood",
                         "fault_flood", "counter_round", "kafka_round",
-                        "traffic_fold")}
+                        "traffic_fold", "prov_flood")}
 BUILD_DIR = _PKG.parent / "build" / "gossip_glomers_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -140,7 +143,7 @@ LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "shift_ring_exchange": 0, "counter_select": 0,
             "counter_apply": 0, "kafka_merge": 0, "kafka_nem_deliver": 0,
             "kafka_commit_select": 0, "kafka_commit_apply": 0,
-            "and_fold": 0}
+            "and_fold": 0, "prov_attribute": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -890,6 +893,10 @@ def _lib(name: str) -> ctypes.CDLL:
             "traffic_fold": {
                 "gg_and_fold_rows": [ptr, ptr, i64, i64, ptr],
                 "gg_and_fold_cols": [ptr, ptr, i64, i64, ptr]},
+            "prov_flood": {
+                "gg_prov_attribute": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                                      i64, i64, i64, i32, i64, i32, i32,
+                                      ptr]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -2026,3 +2033,120 @@ def and_fold(x: torch.Tensor, node_major: bool = False) -> torch.Tensor:
         _launch("and_fold", lib.gg_and_fold_rows, x.device, x.data_ptr(),
                 out.data_ptr(), c, n)
     return out
+
+
+# -- the provenance record of the gather round (prov_flood.cu) ------------
+
+# ring slots a slot table can name (int8 bytes, -1 none)
+PROV_MAX_SLOTS = 127
+
+
+def _prov_term(d: int, src: torch.Tensor, nbrs: torch.Tensor,
+               flags: torch.Tensor | None, dup: torch.Tensor | None,
+               slots: torch.Tensor | None) -> torch.Tensor:
+    """(N, W) int32: direction ``d``'s delivered words (the gather
+    round's inbox term), over indices clipped into the source rows."""
+    n_src = src.shape[-2]
+    idx = nbrs[:, d].clamp(0, n_src - 1).to(torch.int64)
+    if slots is not None:
+        s = slots[:, d].to(torch.int64)
+        return torch.where((s >= 0)[:, None], src[s.clamp(min=0), idx], 0)
+    ok = nbrs[:, d] >= 0 if flags is None else (flags[:, d] & FLAG_DEL) != 0
+    term = torch.where(ok[:, None], src[idx], 0)
+    if dup is not None:
+        term = term | torch.where(((flags[:, d] & FLAG_DUP) != 0)[:, None],
+                                  dup[idx], 0)
+    return term
+
+
+def prov_attribute_plain(new: torch.Tensor, src: torch.Tensor,
+                         nbrs: torch.Tensor, arrival: torch.Tensor,
+                         parent: torch.Tensor, *, t_next: int,
+                         flags: torch.Tensor | None = None,
+                         dup: torch.Tensor | None = None,
+                         slots: torch.Tensor | None = None):
+    """The reference's ``_prov_attribute`` (broadcast.py:317-342): the
+    new ``(arrival, parent)``, out of place."""
+    nv = arrival.shape[1]
+    fresh = unpack_bits(new, nv) & (arrival < 0)
+    remaining = new
+    for d in range(nbrs.shape[1]):
+        hit = _prov_term(d, src, nbrs, flags, dup, slots) & remaining
+        remaining = remaining & ~hit
+        parent = torch.where(unpack_bits(hit, nv) & fresh, nbrs[:, d:d + 1],
+                             parent)
+    return torch.where(fresh, t_next, arrival), parent
+
+
+def prov_attribute(new: torch.Tensor, src: torch.Tensor, nbrs: torch.Tensor,
+                   arrival: torch.Tensor, parent: torch.Tensor, *,
+                   t_next: int, flags: torch.Tensor | None = None,
+                   dup: torch.Tensor | None = None,
+                   slots: torch.Tensor | None = None):
+    """The provenance stamps of one node-major gather round, in place:
+    for each bit of ``new`` ((N, W) int32, the round's newly delivered
+    bits) whose ``arrival`` cell ((N, V) int32, V <= 32 W) is still
+    below 0, ``arrival = t_next`` and ``parent`` = the neighbour
+    ``nbrs[i, d]`` of the first direction d whose delivered word carries
+    the bit.  A direction's word is, one hop, ``src[nbrs[i, d]]`` ((P, W)
+    payload) where the edge's ``flags`` byte has :data:`FLAG_DEL` (no
+    flags: where ``nbrs >= 0``), ORed with ``dup[nbrs[i, d]]`` where it
+    has :data:`FLAG_DUP`; or, under per-edge delays, ``src[slots[i, d],
+    nbrs[i, d]]`` of the (L, P, W) ring where the (N, D) int8 ``slots``
+    byte is >= 0.  Returns ``(arrival, parent)``."""
+    _check_bitset("new", new)
+    _check_table(nbrs, flags, "flags", torch.uint8)
+    _check_table(nbrs, slots, "slots", torch.int8)
+    n, d = nbrs.shape
+    if new.shape[0] != n:
+        raise ValueError(f"new {tuple(new.shape)} must have the table's "
+                         f"{n} rows")
+    w = new.shape[1]
+    for name, x in (("arrival", arrival), ("parent", parent)):
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != n \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (N, V) int32 "
+                             f"tensor with N = {n}")
+    nv = arrival.shape[1]
+    if parent.shape != arrival.shape or nv > 32 * w:
+        raise ValueError(f"parent {tuple(parent.shape)} must match arrival "
+                         f"{tuple(arrival.shape)}, V <= 32 W = {32 * w}")
+    ring = slots is not None
+    if ring and (flags is not None or dup is not None):
+        raise ValueError("slots (the delay ring) take no flags or dup rows")
+    if dup is not None and flags is None:
+        raise ValueError("dup rows need the flag bytes")
+    if src.dtype != torch.int32 or src.dim() != (3 if ring else 2) \
+            or src.shape[-1] != w or src.shape[-2] < 1 \
+            or not src.is_contiguous():
+        raise ValueError(f"src must be a contiguous int32 "
+                         f"{'(L, P, W)' if ring else '(P, W)'} tensor with "
+                         f"W = {w}, got {tuple(src.shape)}")
+    if ring and src.shape[0] > PROV_MAX_SLOTS:
+        raise ValueError(f"the slot bytes name at most {PROV_MAX_SLOTS} "
+                         "ring slots")
+    if dup is not None and (dup.dtype != torch.int32
+                            or dup.shape != src.shape
+                            or not dup.is_contiguous()):
+        raise ValueError("dup must be a contiguous int32 tensor shaped "
+                         "like src")
+    if max(n, src.shape[-2]) > MAX_NODES:
+        raise ValueError(f"the kernel takes at most {MAX_NODES} nodes")
+    xs = [x for x in (new, src, nbrs, arrival, parent, flags, dup, slots)
+          if x is not None]
+    if _on_cpu(*xs):
+        arr, par = prov_attribute_plain(new, src, nbrs, arrival, parent,
+                                        t_next=t_next, flags=flags, dup=dup,
+                                        slots=slots)
+        arrival.copy_(arr)
+        parent.copy_(par)
+        return arrival, parent
+    edge = slots if ring else flags
+    if new.numel() and nv:
+        _launch("prov_attribute", _lib("prov_flood").gg_prov_attribute,
+                new.device, new.data_ptr(), src.data_ptr(),
+                None if dup is None else dup.data_ptr(), nbrs.data_ptr(),
+                None if edge is None else edge.data_ptr(),
+                arrival.data_ptr(), parent.data_ptr(), n, w, src.shape[-2],
+                nv, d, src.shape[-2] * w, int(ring), int(t_next))
+    return arrival, parent

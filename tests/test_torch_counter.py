@@ -373,13 +373,15 @@ def test_counter_errors_match_reference():
     with pytest.raises(NotImplementedError, match="item 10"):
         pc.CounterSim(8, dcn_mode="pipelined", device="cpu")
     sim = pc.CounterSim(8, device="cpu")
-    for name, item in (("run_observed", 11), ("provenance_state", 11),
-                       ("audit_run_program", 14),
-                       ("audit_traffic_program", 14)):
+    for name, item in (("audit_run_program", 14),
+                       ("audit_traffic_program", 14),
+                       ("audit_observed_program", 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(sim, name)
-    # the open-loop traffic driver and its telemetry ring are ported
-    for name in ("run_traffic", "traffic_state", "telemetry_state"):
+    # the open-loop traffic driver, its telemetry ring and the observed
+    # driver with its provenance record are ported
+    for name in ("run_traffic", "traffic_state", "telemetry_state",
+                 "run_observed", "provenance_state"):
         assert callable(getattr(sim, name))
     with pytest.raises(NotImplementedError, match="item 12"):
         pc._build_batch_round(sim)

@@ -1138,7 +1138,8 @@ AND_FOLD_NM = [(5, 1), (4097, 1), (1000, 3), (513, 33), (70000, 128),
 
 
 def _chip_smoke():
-    """chip_smoke.py as a module: its probe bitsets (``fold_input``)."""
+    """chip_smoke.py as a module: its probe bitsets (``fold_input``)
+    and provenance cases (``prov_case``, ``prov_pairs``)."""
     import importlib.util
     from pathlib import Path
 
@@ -1254,3 +1255,94 @@ def test_cuda_run_traffic_goes_through_and_fold(cuda_device, monkeypatch):
         for a, b in zip(gts, cts):
             assert torch.equal(a.cpu(), b), name
         assert traffic.latency_summary(gts)["completed"] > 0, name
+
+
+# -- the provenance record of the gather round (prov_flood.cu) -----------
+
+PROV_CUDA_SHAPES = [(1, 1, 1, 1), (5, 1, 7, 3), (37, 3, 70, 7),
+                    (4097, 2, 45, 5), ((1 << 16) + 3, 1, 32, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROV_CUDA_SHAPES)
+@pytest.mark.parametrize("mode", ("plain", "partitions", "plan", "plan_dup",
+                                  "delays", "delays_plan"))
+def test_cuda_prov_attribute_matches_plain(cuda_device, mode, shape):
+    # chip_smoke's seeded inputs: ragged values (V not a multiple of 32,
+    # spare words), padded directions, every attribution mode
+    smoke = _chip_smoke()
+    n, w, nv, d = shape
+    case = smoke.prov_case(kernels, mode, n, w, nv, d, n + d + len(mode),
+                           cuda_device)
+    before = kernels.LAUNCHES["prov_attribute"]
+    pairs = smoke.prov_pairs(kernels, case)
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["prov_attribute"] == before + 1
+    # the same call on CPU tensors (the plain version) stamps the same
+    cpu = {k: v.cpu() for k, v in case.items()
+           if isinstance(v, torch.Tensor)}
+    arr, par = cpu["arrival"].clone(), cpu["parent"].clone()
+    kernels.prov_attribute(cpu["new"], cpu["src"], cpu["nbrs"], arr, par,
+                           t_next=case["t_next"],
+                           **{k: v.cpu() for k, v in case["edges"].items()})
+    assert torch.equal(pairs[0][0].cpu(), arr)
+    assert torch.equal(pairs[1][0].cpu(), par)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("plan_dup", "delays_plan", "partitions"))
+def test_cuda_run_observed_goes_through_prov_attribute(cuda_device, mode,
+                                                       monkeypatch):
+    # every observed CUDA round stamps with the kernel, never with its
+    # plain version, and the record and state equal the CPU driver's
+    def refuse(*args, **kw):
+        raise AssertionError("the plain attribution ran on a CUDA run")
+
+    n, nv, rounds = 300, 70, 14
+    nbrs = topology.to_padded_neighbors(topology.tree(n))
+    spec = faults.NemesisSpec(n_nodes=n, seed=7, crash=((2, 5, (1, 150)),),
+                              loss_rate=0.15, loss_until=8,
+                              **({"dup_rate": 0.1, "dup_until": 8}
+                                 if mode == "plan_dup" else {}))
+    rng = np.random.default_rng(0)
+    delays = np.where(nbrs >= 0, rng.integers(1, 4, nbrs.shape),
+                      1).astype(np.int32)
+    group = rng.integers(0, 2, (1, n)).astype(np.int8)
+
+    def sim(dev):
+        kw = dict(n_values=nv, sync_every=4, srv_ledger=False, device=dev)
+        if mode == "partitions":
+            kw["parts"] = broadcast.Partitions.from_numpy([2], [7], group)
+        else:
+            kw["fault_plan"] = spec.compile(dev)
+        if mode == "delays_plan":
+            kw["delays"] = delays
+        return broadcast.BroadcastSim(nbrs, **kw)
+
+    from gossip_glomers_tpu_torch.tpu_sim import provenance
+
+    psp = provenance.ProvenanceSpec("broadcast")
+    inject = broadcast.make_inject(n, nv)
+    finals = []
+    for dev in (cuda_device, "cpu"):
+        s = sim(dev)
+        with monkeypatch.context() as m:
+            if dev != "cpu":
+                m.setattr(kernels, "prov_attribute_plain", refuse)
+            before = kernels.LAUNCHES["prov_attribute"]
+            st, prov = s.run_observed(s.init_state(inject), None, None,
+                                      rounds, donate=True,
+                                      prov=s.provenance_state(psp, inject),
+                                      prov_spec=psp)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["prov_attribute"] == before + rounds
+        finals.append((s.received_node_major(st), int(st.msgs),
+                       [x.cpu() for x in prov]))
+    (ga, gm, gp), (ca, cm, cp) = finals
+    np.testing.assert_array_equal(ga, ca)
+    assert gm == cm
+    assert all(torch.equal(x, y) for x, y in zip(gp, cp))
+    assert int((gp[0] > 0).sum()) > 0

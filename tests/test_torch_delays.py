@@ -310,7 +310,9 @@ def test_delay_mode_errors():
                          fault_plan=pf.NemesisSpec(
                              n_nodes=n, seed=0, loss_rate=0.1,
                              loss_until=5).compile("cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the delay ring's provenance mode takes only a BroadcastProv record
+    # (it stamps the ring's deliveries: tests/test_torch_provenance.py)
+    with pytest.raises(TypeError, match="BroadcastProv"):
         state = pbc.BroadcastSim(nbrs, n_values=nv, device="cpu",
                                  delays=delays).init_state(
                                      pbc.make_inject(n, nv))

@@ -21,6 +21,7 @@ from gossip_glomers_tpu.tpu_sim import broadcast as jbc
 from gossip_glomers_tpu.tpu_sim.structured import make_exchange as jex
 from gossip_glomers_tpu_torch.tpu_sim import broadcast as pbc
 from gossip_glomers_tpu_torch.tpu_sim import kernels
+from gossip_glomers_tpu_torch.tpu_sim import provenance as pprov
 from gossip_glomers_tpu_torch.tpu_sim import structured as pst
 from gossip_glomers_tpu_torch.tpu_sim import timing as ptiming
 
@@ -201,19 +202,26 @@ def test_flood_step_matches_reference(n_windows, srv):
 
 
 def test_flood_step_unported_modes_raise():
-    # the provenance mode raises; the fault and delay modes run (without
-    # a plan, dup_on and union_block leave the round as it is, as in the
-    # reference; without delays so does a delay_set, and one-round delays
-    # on a state with its ring deliver what the one-hop round does)
+    # the provenance mode takes only a BroadcastProv record (and stamps
+    # it: tests/test_torch_provenance.py); the fault and delay modes run
+    # (without a plan, dup_on and union_block leave the round as it is,
+    # as in the reference; without delays so does a delay_set, and
+    # one-round delays on a state with its ring deliver what the one-hop
+    # round does)
     nbrs = torch.from_numpy(_nbrs("tree"))
     inject = jbc.make_inject(N, 40)
     state = pbc.state_from_numpy(inject, inject, 0, 0, None, "cpu",
                                  words_major=False)
     kw = dict(nbrs=nbrs, nbr_mask=nbrs >= 0, parts=pbc.Partitions.none(N),
               sync_every=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="BroadcastProv"):
         pbc.flood_step(state, **kw, prov=object())
     plain = pbc.flood_step(state, **kw)
+    prov = pprov.init_broadcast(N, 40, inject, device="cpu")
+    stamped, prov = pbc.flood_step(state, **kw, prov=prov)
+    assert torch.equal(stamped.received, plain.received)
+    assert int((prov.arrival == 1).sum()) == int(
+        kernels.col_popcount(plain.frontier, node_major=True).sum())
     ring = pbc.state_from_numpy(inject, inject, 0, 0, None, "cpu",
                                 words_major=False,
                                 history=np.zeros((1,) + inject.shape,

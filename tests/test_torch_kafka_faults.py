@@ -4,8 +4,9 @@ the CPU, every field at every round: the faulted origin union
 materialized, in ``union_block`` slabs and through the matmul oracle, the
 pull and push resync (``resync_every`` 4 and 0), nemesis campaigns run to
 convergence; the device KV backend against the host one and the
-reference's, with ``kv_amnesia``; the constructor's refusals; and
-chip_smoke.py's copy of the campaign staging against the harness's.
+reference's, with ``kv_amnesia``; the constructor's refusals; and the
+port's campaign staging (which chip_smoke.py uses) against the
+harness's.
 
 Mirrors tests/test_nemesis.py :173-238 and :312-410 and
 tests/test_kvstore.py :274 and :298 off-mesh.  Specs and batches come
@@ -231,16 +232,19 @@ def _smoke():
 
 @pytest.mark.parametrize("commits", (True, False))
 def test_smoke_stage_kafka_ops_is_the_harness_staging(commits):
-    # chip_smoke.py may not import the JAX package: its numpy copy of
-    # harness/nemesis.py stage_kafka_ops stages the same campaign
+    # chip_smoke.py may not import the JAX package: it stages its Kafka
+    # campaigns through the port's harness/nemesis.py, whose
+    # stage_kafka_ops stages the reference's campaign (it keeps no copy)
     smoke = _smoke()
+    assert not hasattr(smoke, "stage_kafka_ops")
+    from gossip_glomers_tpu_torch.harness import nemesis as PN
     for n, seed in ((64, 2), (97, 5)):
         jspec = jf.random_spec(n, seed=seed, horizon=12, n_crash_windows=1,
                                loss_rate=0.1)
         pspec = pf.random_spec(n, seed=seed, horizon=12, n_crash_windows=1,
                                loss_rate=0.1)
         kw = dict(n_keys=16, max_sends=1, commits=commits)
-        got = smoke.stage_kafka_ops(pspec, 12, **kw)
+        got = PN.stage_kafka_ops(pspec, 12, **kw)
         want = H.stage_kafka_ops(jspec, 12, **kw)
         for a, b in zip(got, want):
             assert (a is None) == (b is None)

@@ -160,19 +160,19 @@ def test_unported_modes_raise():
 
 
 def test_kafka_unported_parts_raise_with_their_items():
-    # meshes and dcn_mode (item 10), the observed driver and provenance
-    # (item 11), the scenario batch (item 12) and the audit (item 14); the
-    # traffic driver and its telemetry ring are ported
+    # meshes and dcn_mode (item 10), the scenario batch (item 12) and the
+    # audit (item 14); the traffic driver, its telemetry ring and the
+    # observed driver with its provenance record are ported
     for kw in ({"mesh": object()}, {"dcn_mode": "sync"}):
         with pytest.raises(NotImplementedError, match="item 10"):
             kafka.KafkaSim(4, 2, 8, device="cpu", **kw)
     sim = kafka.KafkaSim(4, 2, 8, device="cpu")
-    for name, item in (("run_observed", 11), ("provenance_state", 11),
-                       ("audit_observed_program", 14),
+    for name, item in (("audit_observed_program", 14),
                        ("audit_traffic_program", 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(sim, name)
-    for name in ("run_traffic", "traffic_state", "telemetry_state"):
+    for name in ("run_traffic", "traffic_state", "telemetry_state",
+                 "run_observed", "provenance_state"):
         assert callable(getattr(sim, name))
     with pytest.raises(AttributeError):
         sim.no_such_method
