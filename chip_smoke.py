@@ -6,7 +6,8 @@ CUDA card and the CUDA toolkit (``nvcc``); it builds the port's kernels
 from ``gossip_glomers_tpu_torch/csrc/`` into ``build/`` (one ``nvcc`` per
 source, all started together) and drives the main path, the broadcast
 flood at 1,048,576 nodes, on every topology the port runs, then the
-g-counter, unique ids, echo and Kafka:
+g-counter, unique ids, echo, Kafka, serving, the nemesis campaigns,
+txn-rw-register and the flight recorder:
 
 1. ``build``: nvcc build of the kernels, with its seconds.
 2. ``kernel_check``: each kernel against its plain PyTorch version on the
@@ -50,8 +51,12 @@ g-counter, unique ids, echo and Kafka:
    forms, on 4-byte-offset views, over probe bitsets in which a skipped
    block, head or tail changes the result (:func:`fold_probes`);
    ``prov_attribute`` in every attribution mode (:data:`PROV_MODES`) on
-   ragged values and padded directions (:data:`PROV_SHAPES`) — and each
-   one's median
+   ragged values and padded directions (:data:`PROV_SHAPES`); the txn
+   round's ``txn_claim`` and ``txn_commit`` at 1, 31, 65,537 and 131,072
+   nodes, 1, 2, 4 and 8 ops a transaction and 1 to 2^18 keys, all, none
+   or some nodes active, issue stamps small and past the int32 wrap with
+   planted colliding priorities (:func:`check_txn`) — and each one's
+   median
    time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
    the masked shift kernel also at smaller tile caps; the coins on the
@@ -215,6 +220,27 @@ g-counter, unique ids, echo and Kafka:
     tree words-major, 512 clients x 16 ops (W = 256), rate 0.25, 32
     driven rounds, held against the card's node-major gather path on
     ``to_padded_neighbors(tree(n))`` at the same spec.
+34. ``txn_64k``: the JAX package's txn/fused-donated contract
+    (gossip_glomers_tpu/tpu_sim/txn.py:535-540: 1,024 nodes, 256 keys, T
+    8, O 2, rate 0.5, until 24) at 65,536 nodes and 16,384 keys, stepped
+    until every offered transaction commits, equal to the port's CPU path
+    after every round, certified by ``check_txn_serializable``; the
+    rounds as a fixed trip timed (CUDA events, profiler, the plain
+    round beside), no host sync; both kernels checked and timed on round
+    4's captured inputs, ``txn_claim`` beside ``scatter_reduce_(amin)``.
+35. ``txn_nemesis_64k``: ``harness.txn.run_txn_nemesis`` at the same size
+    under fault_sweep.py's large-N plan (:func:`counter_nemesis_spec`):
+    certified; with ``kv_amnesia`` and the owner of key 0 crashed it fails
+    naming lost updates and writes its flight bundle, which
+    ``observe.replay_bundle`` replays on the card to the same verdict with
+    ``first_divergence_round`` None; both campaigns equal their rounds on
+    the CPU path.
+36. ``flight_bundles``: a failing small campaign of each runner
+    (broadcast gather with provenance and structured, counter, Kafka,
+    serving) writes its bundle on the card; each replays on the card
+    faithfully and on the CPU to the same verdict, series and stamps;
+    ``run_timeline`` and ``run_manifest`` validate; ``GG_PROFILE_DIR``
+    leaves a ``torch.profiler`` trace.
 
 The Kafka phases run their staged rounds under torch's sync debug mode
 (no host sync) and report rounds, wall ms, ms a round, device busy ms,
@@ -255,6 +281,7 @@ with status 2.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -335,6 +362,11 @@ KERNELS = {
     # no Pallas kernel: the gather round's XLA provenance attribution
     "prov_attribute": ("prov_flood.cu", JAX_PKG + "broadcast.py:317",
                        "prov_attribute_kernel"),
+    # no Pallas kernel: the txn round's XLA claim and commit
+    "txn_claim": ("txn_round.cu", JAX_PKG + "txn.py:264",
+                  "txn_claim_kernel"),
+    "txn_commit": ("txn_round.cu", JAX_PKG + "txn.py:280",
+                   "txn_commit_kernel"),
 }
 # the gather kernels' main shapes are node-major (N, W) = (2^20, 1) and
 # (2^20, 128), degree 8
@@ -349,7 +381,7 @@ PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
                          r"counter_select|counter_apply|kafka_merge|"
                          r"kafka_nem_deliver|kafka_commit_select|"
                          r"kafka_commit_apply|and_fold|"
-                         r"prov_attribute)_kernel")
+                         r"prov_attribute|txn_claim|txn_commit)_kernel")
 LEAD_IN_CYCLES = 2_000_000   # the profiler's lead-in spin, ~1 ms on an H100
 # plan tile caps at which shift_masked_exchange is also timed (the
 # wrapper's, kernels.SHIFT_TILE, first)
@@ -960,6 +992,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
     check_kafka(kernels, note, device)
     check_and_fold(kernels, note, device)
     check_prov(kernels, note, device)
+    check_txn(kernels, note, device)
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -4479,19 +4512,662 @@ def serving_phases(modules, topology, structured, broadcast, device,
         raise AssertionError(f"serving_tree_1m: {rec}")
 
 
+# -- txn-rw-register (txn_round.cu) -----------------------------------------
+
+# the txn kernels' checked cases (kernel_check): nodes (a ragged warp, odd
+# counts whose wrapped priorities can collide, a power of two whose cannot),
+# ops a transaction, keys, and who is active
+TXN_NS = (1, 31, 65_537, 131_072)
+TXN_OS = (1, 2, 4, 8)
+TXN_KS = (1, 5, 4099, 1 << 18)
+TXN_ACTIVE = ("all", "none", "random")
+TXN_CHECK_SLOTS = 3
+# txn_64k: the JAX package's own txn/fused-donated contract
+# (gossip_glomers_tpu/tpu_sim/txn.py:535-540: 1,024 nodes, 256 keys, T 8,
+# O 2, rate 0.5, until 24) at 65,536 nodes, the same key ratio
+TXN_NODES = 1 << 16
+TXN_KEYS = TXN_NODES // 4
+TXN_T, TXN_O, TXN_RATE, TXN_UNTIL = 8, 2, 0.5, 24
+# the txn_64k round whose kernel inputs are captured, checked and timed
+TXN_CAPTURE_ROUND = 4
+# txn_nemesis_64k's recovery budget, from the port's CPU run at this size:
+# the campaign drains its backlog 238 rounds past its clear round (PERF.md)
+TXN_MAX_RECOVERY = 256
+TXN_EXPECT = ("txn_claim", "txn_commit")
+
+
+def txn_case(n: int, o: int, k: int, mode: str, seed: int, device,
+             wrap: bool) -> dict:
+    """A txn round's kernel operands from ``seed`` (numpy, then the card):
+    keys in [0, k), cur in [0, T] (T: past the last slot, clamped), issue
+    -1 (a first attempt) at a quarter of the nodes, else in [0, 64) or,
+    with ``wrap``, where ``issue * n`` passes 2^31; with ``wrap`` and an
+    odd ``n > 1`` up to 8 node pairs share a wrapped priority near
+    -2^31 and their open slot's keys (both can win a key); random rows,
+    records and the store's (owner, slot) of every key."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t_dim = TXN_CHECK_SLOTS
+    keys = rng.integers(0, k, (n, t_dim, o)).astype(np.int32)
+    write = rng.random((n, t_dim, o)) < 0.5
+    wval = rng.integers(-(1 << 31), 1 << 31, (n, t_dim, o)).astype(np.int32)
+    cur = rng.integers(0, t_dim + 1, n).astype(np.int32)
+    lo = min(-(-(1 << 31) // n), (1 << 31) - 2) if wrap and n > 1 else 0
+    hi = (1 << 31) - 1 if wrap and n > 1 else 64
+    issue = rng.integers(lo, hi, n).astype(np.int32)
+    issue[rng.random(n) < 0.25] = -1
+    active = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+              "random": rng.random(n) < 0.5}[mode]
+    pairs = 0
+    if wrap and n % 2 == 1 and n > 1:
+        inv = pow(n, -1, 1 << 32)
+        for j in range(64):
+            if pairs == min(8, n // 2):
+                break
+            a, b = (int(x) for x in rng.choice(n, 2, replace=False))
+            target = (1 << 31) + j           # the int32 priority -2^31 + j
+            ia = (target - a) * inv % (1 << 32)
+            ib = (target - b) * inv % (1 << 32)
+            if ia < 1 << 31 and ib < 1 << 31:
+                issue[a], issue[b] = ia, ib
+                cur[a] = cur[b] = rng.integers(0, t_dim)
+                keys[b, cur[b]] = keys[a, cur[a]]
+                if mode != "none":
+                    active[a] = active[b] = True
+                pairs += 1
+    cap = max(1, -(-k // n) + 1)
+    dev = device
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return {"keys": put(keys), "write": put(write), "wval": put(wval),
+            "cur": put(cur), "issue": put(issue), "active": put(active),
+            "owner": put(rng.integers(0, n, k).astype(np.int64)),
+            "slot": put(rng.integers(0, cap, k).astype(np.int64)),
+            "vals": put(rng.integers(-(1 << 31), 1 << 31, (n, cap))
+                        .astype(np.int32)),
+            "vers": put(rng.integers(-(1 << 31), 1 << 31, (n, cap))
+                        .astype(np.int32)),
+            "op_ver": put(rng.integers(-9, 9, (n, t_dim, o))
+                          .astype(np.int32)),
+            "op_val": put(rng.integers(-9, 9, (n, t_dim, o))
+                          .astype(np.int32)),
+            "commit_round": put(rng.integers(-1, 9, (n, t_dim))
+                                .astype(np.int32)),
+            "issue_round": put(rng.integers(-1, 9, (n, t_dim))
+                               .astype(np.int32)),
+            "t": int(rng.integers(0, 1 << 12)), "n_keys": k,
+            "pairs": pairs}
+
+
+TXN_INPLACE = ("cur", "issue", "op_ver", "op_val", "commit_round",
+               "issue_round")
+TXN_COMMIT_ARGS = ("keys", "write", "wval", "cur", "issue", "active",
+                   "owner", "slot", "vals", "vers", "op_ver", "op_val",
+                   "commit_round", "issue_round")
+
+
+def txn_pairs(kernels, case: dict) -> list:
+    """(kernel, plain) output pairs of both txn kernels on ``case``: best,
+    attempts, the write requests and every in-place tensor (the kernel's
+    on copies)."""
+    c = case
+    claim_args = (c["keys"], c["cur"], c["issue"], c["active"])
+    best, att = kernels.txn_claim(*claim_args, t=c["t"],
+                                  n_keys=c["n_keys"])
+    best_p, att_p = kernels.txn_claim_plain(*claim_args, t=c["t"],
+                                            n_keys=c["n_keys"])
+    mine = {k: (v.clone() if k in TXN_INPLACE else v) for k, v in c.items()}
+    req = kernels.txn_commit(best, *(mine[k] for k in TXN_COMMIT_ARGS),
+                             t=c["t"])
+    want = kernels.txn_commit_plain(best_p, *(c[k] for k in
+                                              TXN_COMMIT_ARGS), t=c["t"])
+    return ([("txn_claim", best, best_p), ("txn_claim", att, att_p),
+             ("txn_commit", req, want[0])]
+            + [("txn_commit", mine[k], w)
+               for k, w in zip(TXN_INPLACE, want[1:])])
+
+
+def check_txn(kernels, note, device) -> None:
+    """``txn_claim`` and ``txn_commit`` against their plain versions at
+    every (:data:`TXN_NS`, :data:`TXN_OS`) with the key counts
+    :data:`TXN_KS` in turn, every :data:`TXN_ACTIVE` mode, issue stamps
+    small and near the wrap (with colliding priority pairs at the odd
+    node counts); the commit on copies of its in-place operands."""
+    import torch
+
+    i = 0
+    planted = 0
+    for n in TXN_NS:
+        for o in TXN_OS:
+            for wrap in (False, True):
+                for k in (TXN_KS[i % 4], TXN_KS[(i + 2) % 4]):
+                    case = txn_case(n, o, k, TXN_ACTIVE[i % 3], i, device,
+                                    wrap)
+                    planted += case["pairs"]
+                    for name, a, b in txn_pairs(kernels, case):
+                        note(name, (a, b))
+                    i += 1
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    if planted == 0:
+        raise AssertionError("check_txn planted no colliding priorities")
+
+
+def txn_work(case: dict, t_dim: int) -> dict:
+    """What the captured round's two kernels need on these inputs: the
+    active nodes, winners, first attempts and winners' write ops; the
+    bytes each must move (each input read once, each output written
+    once) and the random 32-byte sectors it touches."""
+    import torch
+
+    n, _, o = case["keys"].shape
+    k = case["n_keys"]
+    act = case["active"]
+    n_act = int(act.sum())
+    out = txn_pairs_plain(case)
+    cur_new = out[1]
+    win = (cur_new - case["cur"]) > 0
+    n_win = int(win.sum())
+    first = act & (case["issue"] < 0)
+    n_first = int(first.sum())
+    wr = torch.gather(case["write"], 1, case["cur"].clamp(0, t_dim - 1)
+                      .long()[:, None, None].expand(n, 1, o))[:, 0]
+    n_wops = int((wr & win[:, None]).sum())
+    claim_bytes = 9 * n + 4 * o * n_act + 4 * k + 4
+    commit_bytes = (17 * n + 8 * o * n_act + 29 * o * n_win
+                    + 8 * o * n_win + 4 * n_win + 4 * n_first + 12 * k)
+    return {"active": n_act, "winners": n_win, "first": n_first,
+            "write_ops": n_wops, "claim_bytes": claim_bytes,
+            "claim_sectors": o * n_act, "commit_bytes": commit_bytes,
+            "commit_sectors": o * n_act + 4 * o * n_win + 3 * n_wops}
+
+
+def txn_pairs_plain(case: dict):
+    """The plain commit on ``case`` after the plain claim."""
+    from gossip_glomers_tpu_torch.tpu_sim import kernels
+
+    c = case
+    best, _ = kernels.txn_claim_plain(c["keys"], c["cur"], c["issue"],
+                                      c["active"], t=c["t"],
+                                      n_keys=c["n_keys"])
+    return kernels.txn_commit_plain(best, *(c[k] for k in TXN_COMMIT_ARGS),
+                                    t=c["t"])
+
+
+def txn_bound(moved: int, sectors: int) -> tuple[float, str, float]:
+    """(bound ms, "bytes", sector ms): the larger of the bytes at HBM's
+    rate and the random sectors at the L2's rate."""
+    by, _ = bound(moved, 0)
+    sector_ms = sectors * 32 / L2_BYTES_PER_S * 1e3
+    return max(by, sector_ms), "bytes", sector_ms
+
+
+def time_txn(kernels, case: dict, t_dim: int) -> dict:
+    """Both txn kernels on one captured round: device time (the profiler's
+    spans of the kernel alone), CUDA-event time (the commit's less that of
+    the copies restoring its in-place operands before each call), the
+    plain versions' times, the bounds of :func:`txn_work` and, for the
+    claim, ``Tensor.scatter_reduce_(0, idx, src, "amin")`` over the same
+    claims (the library call that computes the per-key minimum)."""
+    import torch
+
+    c = case
+    work = txn_work(c, t_dim)
+    claim_args = (c["keys"], c["cur"], c["issue"], c["active"])
+    best, _ = kernels.txn_claim(*claim_args, t=c["t"], n_keys=c["n_keys"])
+    n, _, o = c["keys"].shape
+    _, prio = kernels._txn_issue_prio(c["issue"], c["active"], c["t"])
+    k_n = kernels._txn_open(c["keys"], c["cur"]).reshape(-1).long()
+    src = torch.where(c["active"][:, None], prio[:, None].expand(n, o),
+                      kernels.TXN_INF).reshape(-1).contiguous()
+    lib_best = torch.empty_like(best)
+
+    def library():
+        lib_best.fill_(kernels.TXN_INF)
+        lib_best.scatter_reduce_(0, k_n, src, "amin")
+
+    library()
+    if not torch.equal(lib_best, best):
+        raise AssertionError("scatter_reduce_ amin disagrees with txn_claim")
+    saved = {k: c[k].clone() for k in TXN_INPLACE}
+    live = {k: c[k].clone() for k in TXN_INPLACE}
+
+    def restore():
+        for k in TXN_INPLACE:
+            live[k].copy_(saved[k])
+
+    def commit():
+        restore()
+        kernels.txn_commit(best, *(live.get(k, c[k])
+                                   for k in TXN_COMMIT_ARGS), t=c["t"])
+
+    def commit_plain():
+        kernels.txn_commit_plain(best, *(c[k] for k in TXN_COMMIT_ARGS),
+                                 t=c["t"])
+
+    out = {}
+    for name, kern, plain, moved, sectors, ms_less in (
+            ("txn_claim",
+             lambda: kernels.txn_claim(*claim_args, t=c["t"],
+                                       n_keys=c["n_keys"]),
+             lambda: kernels.txn_claim_plain(*claim_args, t=c["t"],
+                                             n_keys=c["n_keys"]),
+             work["claim_bytes"], work["claim_sectors"], None),
+            ("txn_commit", commit, commit_plain, work["commit_bytes"],
+             work["commit_sectors"], restore)):
+        b_ms, b_by, sector_ms = txn_bound(moved, sectors)
+        dev = device_ms(kern, KERNELS[name][2], calls=10)
+        ms = cuda_ms(kern) - (cuda_ms(ms_less) if ms_less else 0.0)
+        out[name] = {"ms": ms, "device_ms": dev,
+                     "plain_ms": cuda_ms(plain, inner=3),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "sector_ms": sector_ms,
+                     "bound_share": None if dev is None else b_ms / dev,
+                     "library_ms": (cuda_ms(library) if name == "txn_claim"
+                                    else None), **work}
+    return out
+
+
+def same_txn(a, b) -> bool:
+    """Two txn states agree: t, msgs, the node counters, the records and
+    the KV rows."""
+    import torch
+
+    def eq(x, y):
+        return bool(torch.equal(x.cpu(), y.cpu()))
+
+    return (a.t == b.t and int(a.msgs) == int(b.msgs)
+            and all(eq(getattr(a, f), getattr(b, f))
+                    for f in ("arrived", "cur", "issue", "issue_round",
+                              "commit_round", "op_ver", "op_val"))
+            and eq(a.rows.vals, b.rows.vals)
+            and eq(a.rows.vers, b.rows.vers))
+
+
+class _PlainTxn:
+    """The txn round with the kernels' plain versions in their place (the
+    plain round, timed beside the kernels' own)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def claim(self, *args, **kw):
+        return self.kernels.txn_claim_plain(*args, **kw)
+
+    def commit(self, best, *xs, t):
+        out = self.kernels.txn_commit_plain(best, *xs, t=t)
+        for dst, src in zip((xs[3], xs[4], xs[10], xs[11], xs[12], xs[13]),
+                            out[1:]):
+            dst.copy_(src)
+        return out[0]
+
+    def __enter__(self):
+        self.real = (self.kernels.txn_claim, self.kernels.txn_commit)
+        self.kernels.txn_claim, self.kernels.txn_commit = (self.claim,
+                                                           self.commit)
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.txn_claim, self.kernels.txn_commit = self.real
+
+
+def txn_capture(kernels, rnd: int):
+    """A wrapper of ``kernels.txn_claim`` that keeps clones of round
+    ``rnd``'s claim and commit operands (from the sim's ``_round``)."""
+    kept = {}
+    real_claim, real_commit = kernels.txn_claim, kernels.txn_commit
+
+    def claim(keys, cur, issue, active, *, t, n_keys):
+        if t == rnd:
+            kept.update(keys=keys, cur=cur.clone(), issue=issue.clone(),
+                        active=active.clone(), t=t, n_keys=n_keys)
+        return real_claim(keys, cur, issue, active, t=t, n_keys=n_keys)
+
+    def commit(best, *xs, t):
+        if t == rnd:
+            for k, x in zip(TXN_COMMIT_ARGS, xs):
+                kept.setdefault(k, x.clone())
+        return real_commit(best, *xs, t=t)
+
+    return claim, commit, kept
+
+
+def txn_64k(txn, checkers, kernels, device, launches: Launches, card: str,
+            times: dict) -> None:
+    """The JAX package's txn/fused-donated contract (txn.py:535-540) at
+    65,536 nodes and 16,384 keys, T 8, O 2, rate 0.5, until 24,
+    ``workload_seed=0``: stepped to convergence (every offered transaction
+    committed, at or past ``until``), equal to the port's CPU path after
+    every round; the history certified by ``check_txn_serializable``; the
+    rounds as a fixed trip (``run_fused`` on fresh states) timed with CUDA
+    events, profiled, and with the kernels' plain versions in their
+    place; no host sync; both kernels checked and timed on the captured
+    inputs of round :data:`TXN_CAPTURE_ROUND`."""
+    import torch
+
+    kw = dict(txns_per_node=TXN_T, ops_per_txn=TXN_O, rate=TXN_RATE,
+              until=TXN_UNTIL, workload_seed=0)
+    t0 = time.perf_counter()
+    sim = txn.TxnSim(TXN_NODES, TXN_KEYS, device=device, **kw)
+    stage_s = time.perf_counter() - t0
+    cpu = txn.TxnSim(TXN_NODES, TXN_KEYS, device="cpu", **kw)
+    rec = {"phase": "txn_64k", "card": card, "n": TXN_NODES,
+           "keys": TXN_KEYS, "txns_per_node": TXN_T, "ops_per_txn": TXN_O,
+           "rate": TXN_RATE, "until": TXN_UNTIL, "stage_s": stage_s}
+    launches.start()
+    g, c = sim.init_state(), cpu.init_state()
+    same = True
+    while not (g.t >= TXN_UNTIL and bool((g.cur >= g.arrived).all())) \
+            and g.t < TXN_UNTIL + TXN_MAX_RECOVERY:
+        g, c = sim.run_fused(g, 1), cpu.run_fused(c, 1)
+        same = same and same_txn(g, c)
+    rounds = g.t
+    launches.stop(rec, TXN_EXPECT)
+    hist = txn.history_of(g, sim.ops)
+    ok_ser, det = checkers.check_txn_serializable(
+        hist, final=txn.final_registers(g, sim.layout))
+    committed = det["n_committed"]
+
+    def stage():
+        st = sim.init_state()
+        return lambda: sim.run_fused(st, rounds)
+
+    wall = statistics.median([event_ms(stage())[1] for _ in range(4)][1:])
+    busy, spans = busy_and_spans(stage)
+    port = launches_of(kernels, stage())
+    with _PlainTxn(kernels):
+        plain = statistics.median([event_ms(stage())[1]
+                                   for _ in range(3)][1:])
+    fresh = sim.init_state()
+    no_sync = True
+    try:
+        no_host_sync(lambda: sim.run_fused(fresh, rounds))
+    except RuntimeError as e:
+        no_sync = False
+        rec["host_sync"] = str(e)[:200]
+    claim, commit, kept = txn_capture(kernels, TXN_CAPTURE_ROUND)
+    real = kernels.txn_claim, kernels.txn_commit
+    kernels.txn_claim, kernels.txn_commit = claim, commit
+    try:
+        sim.run_fused(sim.init_state(), TXN_CAPTURE_ROUND + 1)
+    finally:
+        kernels.txn_claim, kernels.txn_commit = real
+    err = max(max_abs_err(a, b) for _, a, b in txn_pairs(kernels, kept))
+    timed = time_txn(kernels, kept, TXN_T)
+    for name in TXN_EXPECT:
+        timed[name]["max_abs_err"] = err
+        times[name][(TXN_O, TXN_NODES)] = timed[name]
+    rec.update(
+        rounds=rounds, committed=committed, offered=int(g.arrived.sum()),
+        msgs=int(g.msgs), serializable=ok_ser, by_kind=det["by_kind"],
+        same_as_cpu=same, wall_ms=wall, ms_per_round=wall / rounds,
+        committed_per_s=committed / (wall / 1e3),
+        device_busy_ms=busy, device_idle_share=idle_share(busy, wall),
+        launches_per_round=port / rounds,
+        device_spans_per_round=None if spans is None else spans / rounds,
+        plain_round_ms=plain / rounds, no_host_sync=no_sync,
+        kernel=timed, kernel_err=err)
+    rec["ok"] = bool(same and ok_ser and no_sync and err == 0
+                     and committed == rec["offered"] > 0)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"txn_64k: {rec}")
+    del sim, cpu, g, c, kept
+    torch.cuda.empty_cache()
+
+
+def txn_nemesis_spec(faults, kvstore, n: int, amnesia: bool):
+    """:func:`counter_nemesis_spec` at ``n`` nodes (txn refuses dup); with
+    ``amnesia`` the owner of key 0 also crashes over rounds [3, 6) (the
+    reference's kv_amnesia test plan, tests/test_txn.py:120-152)."""
+    import numpy as np
+
+    spec = counter_nemesis_spec(faults, n)
+    if not amnesia:
+        return spec
+    own = int(kvstore.host_owner_of(np.zeros(1, np.int32), n, 0)[0])
+    meta = spec.to_meta()
+    meta["crash"] = meta["crash"] + [[3, 6, [own]]]
+    return faults.NemesisSpec.from_meta(meta)
+
+
+def txn_campaign_twin(txn, htxn, spec, kv_amnesia: bool, result: dict):
+    """``run_txn_nemesis``'s rounds on the port's CPU path (the faulted
+    phase to the clear round, then a round at a time to convergence),
+    held against the card's ``result``: the converged round, the ledger,
+    the final registers and the per-transaction stamps (the result's
+    record of the whole state but the per-op records, which the verdict
+    certifies)."""
+    sim = txn.TxnSim(spec.n_nodes, TXN_KEYS, txns_per_node=TXN_T,
+                     ops_per_txn=TXN_O, rate=TXN_RATE, until=TXN_UNTIL,
+                     fault_plan=spec.compile(device="cpu"),
+                     kv_amnesia=kv_amnesia, device="cpu")
+    clear = max(spec.clear_round, TXN_UNTIL)
+    st = sim.run_fused(sim.init_state(), clear)
+    conv = clear if bool((st.cur >= st.arrived).all()) else None
+    while conv is None and st.t < clear + TXN_MAX_RECOVERY:
+        st = sim.run_fused(st, 1)
+        if bool((st.cur >= st.arrived).all()):
+            conv = st.t
+    final = {str(k): list(v)
+             for k, v in txn.final_registers(st, sim.layout).items()}
+    return (conv == result["converged_round"]
+            and int(st.msgs) == result["msgs_total"]
+            and final == result["final_registers"]
+            and htxn.txn_provenance_arrays(st)
+            == result["provenance"]["arrays"])
+
+
+def txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
+                    launches: Launches, card: str) -> None:
+    """``run_txn_nemesis`` at 65,536 nodes, 16,384 keys, T 8, O 2 (rate
+    0.5, until 24) under :func:`txn_nemesis_spec`, three ways: the plain
+    campaign (``ok``, serializable, no lost write); ``kv_amnesia`` with
+    the owner of key 0 crashed (must fail, naming lost updates with their
+    transaction ids, and write its flight bundle into a temporary
+    directory); and that bundle replayed on the card (the same
+    ``by_kind``, ``first_divergence_round`` None).  The first two each
+    equal their rounds on the port's CPU path
+    (:func:`txn_campaign_twin`)."""
+    import tempfile
+
+    kw = dict(n_keys=TXN_KEYS, txns_per_node=TXN_T, ops_per_txn=TXN_O,
+              rate=TXN_RATE, until=TXN_UNTIL,
+              max_recovery_rounds=TXN_MAX_RECOVERY)
+    spec = txn_nemesis_spec(faults, kvstore, TXN_NODES, False)
+    bad_spec = txn_nemesis_spec(faults, kvstore, TXN_NODES, True)
+    rec = {"phase": "txn_nemesis_64k", "card": card, "n": TXN_NODES,
+           "keys": TXN_KEYS, "max_recovery_rounds": TXN_MAX_RECOVERY,
+           "spec": {"crash": [[s, e, len(ns)] for s, e, ns in spec.crash],
+                    "loss_rate": spec.loss_rate,
+                    "loss_until": spec.loss_until, "seed": spec.seed}}
+    with tempfile.TemporaryDirectory() as out:
+        launches.start()
+        good, wall = event_ms(lambda: htxn.run_txn_nemesis(
+            spec, device=device, **kw))
+        bad, wall_bad = event_ms(lambda: htxn.run_txn_nemesis(
+            bad_spec, kv_amnesia=True, observe_dir=out, device=device,
+            **kw))
+        launches.stop(rec, TXN_EXPECT)
+        replay, wall_replay = event_ms(lambda: observe.replay_bundle(
+            bad["flight_bundle"], device=device))
+        lost = [p for p in bad["serializability"]["problems"]
+                if p["kind"] in ("lost-update", "lost-acked-commit")]
+        rec.update(
+            clear_round=good["clear_round"],
+            converged_round=good["converged_round"],
+            recovery_rounds=good["recovery_rounds"],
+            n_committed=good["n_committed"], msgs_total=good["msgs_total"],
+            n_lost_writes=good["n_lost_writes"], wall_ms=wall,
+            amnesia_ok=bad["ok"], amnesia_by_kind=bad["serializability"][
+                "by_kind"], amnesia_lost_named=lost[:2],
+            bundle_bytes=os.path.getsize(bad["flight_bundle"]),
+            wall_ms_amnesia=wall_bad, wall_ms_replay=wall_replay,
+            replay_by_kind=replay["serializability"]["by_kind"],
+            replay_first_divergence_round=replay["first_divergence_round"],
+            same_as_cpu=(txn_campaign_twin(txn, htxn, spec, False, good)
+                         and txn_campaign_twin(txn, htxn, bad_spec, True,
+                                               bad)))
+    rec["ok"] = bool(
+        good["ok"] and good["serializable"] and good["n_lost_writes"] == 0
+        and not bad["ok"] and lost and all(p["txns"] for p in lost)
+        and rec["replay_by_kind"] == rec["amnesia_by_kind"]
+        and not replay["ok"] and replay["first_divergence_round"] is None
+        and rec["same_as_cpu"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"txn_nemesis_64k: {rec}")
+
+
+# flight_bundles: small failing campaigns, one a runner (a recovery budget
+# too small to converge), each with a recorded series or stamps
+BUNDLE_NODES = 64
+
+
+def bundle_cases(faults, traffic):
+    """(name, runner kind, NemesisSpec, kwargs) of the flight_bundles
+    phase."""
+    spec = faults.NemesisSpec(n_nodes=BUNDLE_NODES, seed=5,
+                              crash=((2, 6, (1, 9, 33)),), loss_rate=0.15,
+                              loss_until=8)
+    tspec = traffic.TrafficSpec(n_nodes=BUNDLE_NODES, n_clients=BUNDLE_NODES,
+                                ops_per_client=6, until=10, rate=0.3, seed=9)
+    return (
+        ("broadcast_gather_provenance", "broadcast", spec,
+         dict(topology="grid", telemetry=True, provenance=True,
+              max_recovery_rounds=0)),
+        ("broadcast_structured", "broadcast", spec,
+         dict(topology="tree", structured=True, telemetry=True,
+              max_recovery_rounds=0)),
+        ("counter", "counter", spec,
+         dict(telemetry=True, provenance=True, max_recovery_rounds=0)),
+        ("kafka", "kafka", spec,
+         dict(telemetry=True, provenance=True, max_recovery_rounds=0)),
+        ("serving_counter", "serving", spec,
+         dict(tspec=tspec, sim_kw={"mode": "allreduce"}, telemetry=True,
+              max_recovery_rounds=0)),
+    )
+
+
+def same_replay(a: dict, b: dict) -> bool:
+    """Two replays agree on the verdict and the recorded stamps and
+    series."""
+    def rec(r):
+        out = {k: r.get(k) for k in ("ok", "converged_round",
+                                     "n_lost_writes", "msgs_total",
+                                     "first_divergence_round")}
+        out["series"] = (r.get("telemetry") or {}).get("series")
+        out["stamps"] = (r.get("provenance") or {}).get("arrays")
+        return json.loads(json.dumps(out, default=lambda o: o.tolist()))
+
+    return rec(a) == rec(b)
+
+
+def flight_bundles(nemesis, serving, observe, faults, traffic, device,
+                   launches: Launches, card: str) -> None:
+    """Each runner of the port (``run_broadcast_nemesis`` on the gather
+    path with provenance and on the structured path, ``run_counter_
+    nemesis``, ``run_kafka_nemesis``, ``run_serving``) fails a small
+    campaign on the card and writes its flight bundle; each bundle
+    replays on the card with ``first_divergence_round`` None and on the
+    CPU to the same verdict, series and stamps; ``run_timeline`` and
+    ``run_manifest`` of each result pass their validators; with
+    ``GG_PROFILE_DIR`` set, one serving run leaves a ``torch.profiler``
+    trace there."""
+    import tempfile
+
+    runners = {"broadcast": nemesis.run_broadcast_nemesis,
+               "counter": nemesis.run_counter_nemesis,
+               "kafka": nemesis.run_kafka_nemesis}
+    rec = {"phase": "flight_bundles", "card": card, "n": BUNDLE_NODES,
+           "cases": {}}
+    ok = True
+    with tempfile.TemporaryDirectory() as out:
+        launches.start()
+        results = {}
+        for name, kind, spec, kw in bundle_cases(faults, traffic):
+            kw = dict(kw)
+            if kind == "serving":
+                tspec = kw.pop("tspec")
+                res = serving.run_serving("counter", tspec, nemesis=spec,
+                                          observe_dir=out, device=device,
+                                          **kw)
+            else:
+                res = runners[kind](spec, observe_dir=out, device=device,
+                                    **kw)
+            results[name] = res
+        launches.stop(rec, ("counter_select", "counter_apply",
+                            "kafka_merge", "prov_attribute"))
+        for name, res in results.items():
+            path = res.get("flight_bundle")
+            case = {"ok": res["ok"], "bundle": path is not None}
+            if path is not None:
+                on_card = observe.replay_bundle(path, device=device)
+                on_cpu = observe.replay_bundle(path, device="cpu")
+                case.update(
+                    replay_ok=on_card["ok"],
+                    first_divergence_round=on_card.get(
+                        "first_divergence_round", "missing"),
+                    cpu_first_divergence_round=on_cpu.get(
+                        "first_divergence_round", "missing"),
+                    same_on_cpu=same_replay(on_card, on_cpu))
+            tl = observe.run_timeline(res)
+            observe.validate_timeline(tl)
+            man = observe.run_manifest(res)
+            observe.validate_manifest(man)
+            case.update(timeline_events=len(tl["traceEvents"]),
+                        flows=sum(1 for e in tl["traceEvents"]
+                                  if e["ph"] == "s"),
+                        manifest_env=man["env"])
+            case["pass"] = bool(
+                not res["ok"] and path is not None
+                and not case["replay_ok"]
+                and case["first_divergence_round"] is None
+                and case["cpu_first_divergence_round"] is None
+                and case["same_on_cpu"])
+            ok = ok and case["pass"]
+            rec["cases"][name] = case
+        prof_dir = os.path.join(out, "profile")
+        os.environ["GG_PROFILE_DIR"] = prof_dir
+        try:
+            spec = bundle_cases(faults, traffic)[-1][2]
+            tspec = bundle_cases(faults, traffic)[-1][3]["tspec"]
+            serving.run_serving("counter", tspec, nemesis=spec,
+                                sim_kw={"mode": "allreduce"},
+                                device=device)
+        finally:
+            del os.environ["GG_PROFILE_DIR"]
+        traces = (sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir)
+                  else [])
+        rec["profile_traces"] = traces
+        rec["profile_bytes"] = sum(os.path.getsize(os.path.join(prof_dir, f))
+                                   for f in traces)
+        ok = ok and bool(traces) and rec["profile_bytes"] > 0
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"flight_bundles: {rec}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from gossip_glomers_tpu_torch.harness import nemesis, serving
+    from gossip_glomers_tpu_torch.harness import (checkers, nemesis,
+                                                  observe, serving)
+    from gossip_glomers_tpu_torch.harness import txn as htxn
     from gossip_glomers_tpu_torch.parallel import topology
     from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter, echo,
                                                   faults, kafka, kernels,
-                                                  structured, telemetry,
-                                                  timing, traffic,
-                                                  unique_ids)
+                                                  kvstore, structured,
+                                                  telemetry, timing, traffic,
+                                                  txn, unique_ids)
 
     device = torch.device("cuda")
     modules = (broadcast, timing)
@@ -4547,6 +5223,10 @@ def main() -> int:
           "and_fold_shapes": [list(x) for x in serving_fold_shapes()],
           "prov_shapes": [list(x) for x in PROV_SHAPES],
           "prov_modes": list(PROV_MODES),
+          "txn_cases": {"n": list(TXN_NS), "o": list(TXN_OS),
+                        "k": list(TXN_KS), "active": list(TXN_ACTIVE),
+                        "slots": TXN_CHECK_SLOTS,
+                        "wrap": "issue * N past 2^31, colliding pairs"},
           "times": {k: {f"{w}x{n}": v for (w, n), v in t.items()}
                     for k, t in times.items()}})
 
@@ -4589,6 +5269,11 @@ def main() -> int:
                                  launches, smi)
     serving_phases((serving, telemetry, traffic, kernels, faults), topology,
                    structured, broadcast, device, launches, smi)
+    txn_64k(txn, checkers, kernels, device, launches, smi, times)
+    txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
+                    launches, smi)
+    flight_bundles(nemesis, serving, observe, faults, traffic, device,
+                   launches, smi)
 
     for name, count in launches.total.items():
         if count == 0:
@@ -4603,7 +5288,8 @@ def main() -> int:
                  "replaces": replaces, "launches": launches.total[name],
                  "launches_timed_trips": TRIP_LAUNCHES.get(name, 0),
                  "max_abs_err": errs[name], **shapes[big],
-                 "library_ms": None, "at": list(big)}
+                 "library_ms": shapes[big].get("library_ms"),
+                 "at": list(big)}
         if MAIN_SHAPES[0] in shapes and big != MAIN_SHAPES[0] \
                 and not name.startswith("counter_"):
             entry["w1"] = shapes[MAIN_SHAPES[0]]

@@ -4,16 +4,20 @@ gossip_glomers_tpu/harness/checkers.py, kept as the reference has them —
 helper ``series_divergence_round`` (tests/test_torch_serving.py holds
 each equal to the original on seeded inputs), and the causal provenance
 certifier ``check_provenance`` with ``provenance_divergence_round``
-(tests/test_torch_nemesis_runner.py and test_torch_provenance.py).  It
-reads the fault model through the port's :mod:`..tpu_sim.faults` host
-twins (``host_node_up``, ``host_edge_drop``, ``host_kv_ok``).  The
-workload checkers (``check_kafka`` and the rest) wait for the port's
-runners that need them (ROADMAP.md Queue A item 13).
+(tests/test_torch_nemesis_runner.py and test_torch_provenance.py), and
+the txn-rw-register history's ``check_txn_serializable``
+(tests/test_torch_txn.py).  It reads the fault model through the port's
+:mod:`..tpu_sim.faults` host twins (``host_node_up``,
+``host_edge_drop``, ``host_kv_ok``).  The other workload checkers
+(``check_kafka`` and the rest) wait for the port's runners that need
+them.
 
 Each checker returns ``(ok, details)``.
 """
 
 from __future__ import annotations
+
+import bisect
 
 
 def check_recovery(*, clear_round: int, converged_round: int | None,
@@ -654,3 +658,190 @@ def _check_kafka_provenance(prov, plan, *, n_nodes,
         "n_resync": n_resync,
         "witness": witness,
         "problems": problems}
+
+
+def check_txn_serializable(history: list, *, final: dict | None = None,
+                           max_problems: int = 10
+                           ) -> tuple[bool, dict]:
+    """Serializability certification for a txn-rw-register history
+    (tpu_sim/txn.py ``history_of``) — the host-side cycle check over
+    the device-recorded read/write version graph.
+
+    Each entry: ``{id, status, commit_round, ops: [{kind 'r'/'w',
+    key, ver, val}]}`` where a write op's ``ver`` is the version it
+    INSTALLED and a read op's ``ver``/``val`` are what it observed.
+    The checker is falsifiable by construction (tests plant each
+    anomaly and every verdict names the offending transaction ids):
+
+    - **lost update**: two committed writes install the same
+      ``(key, version)`` — on device this is exactly what
+      ``kv_amnesia`` owner wipes produce (versions reset, a later
+      commit re-installs an already-acked slot).
+    - **G1a aborted read**: a committed read observes a value written
+      by a transaction that never committed.
+    - **G1b intermediate read**: a committed read of ``(key, ver)``
+      observes a value different from what the committed writer of
+      that version installed.
+    - **write cycle**: the ww/wr/rw dependency graph over committed
+      transactions has a cycle — not serializable.
+    - **round-order violation**: a dependency edge runs BACKWARD in
+      commit rounds.  The tentpole's linearization claim is that the
+      serialization order IS the round order ``(commit_round, node)``;
+      any edge ``u -> v`` with ``commit_round(u) > commit_round(v)``
+      falsifies it even before a full cycle closes.
+
+    ``final``: optional ``{key: (value, version)}`` store snapshot
+    (tpu_sim/txn.py ``final_registers``) — the final version of every
+    key must be the maximum committed installed version and carry that
+    writer's value, else an acked commit was lost from the store.
+
+    The reference's result, with the same dependency edges added in the
+    same order; its per-key scan of every reader is done once, grouped by
+    key, and a cycle found once ``max_problems`` problems are listed is
+    counted in ``by_kind`` without being built (the reference builds each
+    and drops it from the list).
+    """
+    problems: list = []
+    by_kind: dict = {}
+
+    def add(kind, txns, **kw):
+        by_kind[kind] = by_kind.get(kind, 0) + 1
+        problems.append(dict(kind=kind, txns=sorted(txns), **kw))
+
+    committed = {h["id"]: h for h in history
+                 if h["status"] == "committed"}
+    # writers[(key, ver)] -> [(txn, val)]; lost update = len > 1
+    writers: dict = {}
+    aborted_writes: dict = {}   # (key, val) -> txn (non-committed)
+    for h in history:
+        for op in h.get("ops", ()):
+            if op["kind"] != "w":
+                continue
+            if h["status"] == "committed":
+                writers.setdefault((op["key"], op["ver"]),
+                                   []).append((h["id"], op["val"]))
+            else:
+                aborted_writes[(op["key"], op["val"])] = h["id"]
+    for (key, ver), ws in sorted(writers.items()):
+        if len(ws) > 1:
+            add("lost-update", [t for t, _ in ws], key=key, ver=ver)
+
+    # read anomalies
+    for h in committed.values():
+        for op in h["ops"]:
+            if op["kind"] != "r":
+                continue
+            key, ver, val = op["key"], op["ver"], op["val"]
+            ws = writers.get((key, ver))
+            if ws is not None:
+                if all(val != wval for _, wval in ws):
+                    add("G1b-intermediate-read",
+                        [h["id"]] + [t for t, _ in ws],
+                        key=key, ver=ver, saw=val,
+                        committed=[wval for _, wval in ws])
+            elif ver > 0 or val != 0:
+                writer = aborted_writes.get((key, val))
+                if writer is not None:
+                    add("G1a-aborted-read", [h["id"], writer],
+                        key=key, ver=ver, val=val)
+                else:
+                    add("dangling-version-read", [h["id"]],
+                        key=key, ver=ver, val=val)
+
+    # dependency graph over committed txns: ww (version order),
+    # wr (writer -> observer), rw (observer -> next writer)
+    by_key_vers: dict = {}
+    for (key, ver), ws in writers.items():
+        by_key_vers.setdefault(key, {})[ver] = ws[0][0]
+    readers: dict = {}          # (key, ver) -> [txn]
+    for h in committed.values():
+        for op in h["ops"]:
+            if op["kind"] == "r":
+                readers.setdefault((op["key"], op["ver"]),
+                                   []).append(h["id"])
+    # each key's read versions, in the readers' order (the reference
+    # scans every reader for each key: quadratic at 2^16 nodes)
+    read_vers: dict = {}
+    for k, v in readers:
+        read_vers.setdefault(k, []).append(v)
+    edges: set = set()
+    for key in {k for k, _ in list(writers) + list(readers)}:
+        vers = by_key_vers.get(key, {})
+        order = sorted(vers)
+        for a, b in zip(order, order[1:]):
+            edges.add((vers[a], vers[b]))                     # ww
+        seen_vers = set(order) | {v for v in read_vers.get(key, ())}
+        for ver in seen_vers:
+            rds = readers.get((key, ver), ())
+            if ver in vers:
+                for r in rds:
+                    edges.add((vers[ver], r))                 # wr
+            nxt = bisect.bisect_right(order, ver)
+            if nxt < len(order) and rds:    # rw: observer -> the next
+                for r in rds:               # writer (incl. reads of
+                    edges.add((r, vers[order[nxt]]))  # the initial v0)
+    edges = {(u, v) for u, v in edges if u != v}
+
+    for u, v in sorted(edges):
+        cu = committed[u]["commit_round"]
+        cv = committed[v]["commit_round"]
+        if cu >= 0 and cv >= 0 and cu > cv:
+            add("round-order-violation", [u, v],
+                rounds=(cu, cv))
+
+    # cycle check (iterative colored DFS; report one cycle's ids)
+    adj: dict = {}
+    for u, v in edges:
+        adj.setdefault(u, []).append(v)
+    color = {t: 0 for t in committed}           # 0 white 1 grey 2 black
+    for root in sorted(committed):
+        if color.get(root, 2) != 0:
+            continue
+        stack = [(root, iter(adj.get(root, ())))]
+        color[root] = 1
+        path = [root]
+        pos = {root: 0}                 # each grey node's place in path
+        while stack:
+            node, it = stack[-1]
+            for nxt in it:
+                if color.get(nxt, 2) == 0:
+                    color[nxt] = 1
+                    pos[nxt] = len(path)
+                    path.append(nxt)
+                    stack.append((nxt, iter(adj.get(nxt, ()))))
+                    break
+                if color.get(nxt) == 1:
+                    if 0 <= max_problems <= len(problems):
+                        # past the reported problems: counted, not built
+                        by_kind["write-cycle"] = \
+                            by_kind.get("write-cycle", 0) + 1
+                    else:
+                        cyc = path[pos[nxt]:] + [nxt]
+                        add("write-cycle", set(cyc), cycle=cyc)
+                    color[nxt] = 2      # report each cycle once
+            else:
+                stack.pop()
+                del pos[path.pop()]
+                color[node] = 2
+
+    # final-state anchor: no acked commit may vanish from the store
+    if final is not None:
+        for key, (fval, fver) in sorted(final.items()):
+            vers = by_key_vers.get(key, {})
+            top = max(vers) if vers else 0
+            if fver != top:
+                add("lost-acked-commit",
+                    [vers[v] for v in vers if v > fver] or
+                    ([vers[top]] if vers else []),
+                    key=key, final_ver=fver, max_committed_ver=top)
+            elif vers:
+                want = next(wval for t, wval in writers[(key, top)]
+                            if t == vers[top])
+                if fval != want:
+                    add("final-value-mismatch", [vers[top]], key=key,
+                        final_val=fval, committed_val=want)
+
+    return not by_kind, {
+        "n_txns": len(history), "n_committed": len(committed),
+        "n_edges": len(edges), "by_kind": by_kind,
+        "problems": problems[:max_problems]}

@@ -24,9 +24,11 @@ Each ``run_*_nemesis`` function:
 
 The result is the reference's dict, field for field
 (tests/test_torch_nemesis_runner.py).  ``traffic=`` hands the campaign
-to :func:`.serving.run_serving`.  Not ported yet, and raising: ``mesh=``
-and ``dcn_mode=`` (ROADMAP.md Queue A item 10) and ``observe_dir=``, the
-flight bundle (item 13).
+to :func:`.serving.run_serving`.  ``observe_dir``: where a failed
+campaign writes its flight bundle (:func:`.observe.write_flight_bundle`,
+the reference's ``runner_kw``, so that either package replays it).  Not
+ported yet, and raising: ``mesh=`` and ``dcn_mode=`` (ROADMAP.md Queue A
+item 10).
 """
 
 from __future__ import annotations
@@ -59,13 +61,11 @@ def _unported(what: str, item: int) -> NotImplementedError:
                                f"(ROADMAP.md Queue A item {item})")
 
 
-def _check_unported(name: str, mesh, dcn_mode, observe_dir) -> None:
+def _check_unported(name: str, mesh, dcn_mode) -> None:
     if mesh is not None:
         raise _unported(f"{name}(mesh=...)", 10)
     if dcn_mode is not None:
         raise _unported(f"{name}(dcn_mode=...)", 10)
-    if observe_dir is not None:
-        raise _unported(f"{name}(observe_dir=...), the flight bundle", 13)
 
 
 def _neighbors(topology: str, n: int) -> np.ndarray:
@@ -114,18 +114,35 @@ def _finish_provenance(ok: bool, details: dict, prov, prov_spec,
 
 
 def _finish_observed(ok: bool, details: dict, tel, tel_spec, *,
-                     msgs_total: int) -> bool:
+                     msgs_total: int, observe_dir, workload: str,
+                     spec: NemesisSpec, runner_kw: dict) -> bool:
     """Put the recorded telemetry series in ``details['telemetry']``,
     cross-checked against the run's ledger
     (:func:`.checkers.check_telemetry`: a broken recorder fails the
-    run)."""
-    if tel is None:
-        return ok
-    series = TM.series_arrays(tel, tel_spec)
-    ok_t, t_det = check_telemetry(series, msgs_total=msgs_total)
-    details["telemetry"] = {"spec": tel_spec.to_meta(), "series": series,
-                            "check": t_det}
-    return ok and ok_t
+    run); on a failure write the flight bundle into ``observe_dir``, with
+    the recorded series and provenance stamps, so that the replay can
+    report its first-divergence round."""
+    series = tel_meta = None
+    if tel is not None:
+        series = TM.series_arrays(tel, tel_spec)
+        ok_t, t_det = check_telemetry(series, msgs_total=msgs_total)
+        details["telemetry"] = {"spec": tel_spec.to_meta(),
+                                "series": series, "check": t_det}
+        tel_meta = tel_spec.to_meta()
+        ok = ok and ok_t
+    if not ok and observe_dir is not None:
+        prov_entry = details.get("provenance") or {}
+        prov_arrays = prov_entry.get("arrays")
+        details["flight_bundle"] = observe.write_flight_bundle(
+            observe_dir, kind="nemesis", workload=workload,
+            nemesis=spec.to_meta(), runner_kw=runner_kw,
+            telemetry_spec=tel_meta, telemetry_series=series,
+            provenance_spec=prov_entry.get("spec"),
+            provenance=(None if prov_arrays is None
+                        else {k: np.asarray(v).tolist()
+                              for k, v in prov_arrays.items()}),
+            failure=_failure_of(details))
+    return ok
 
 
 def _no_traffic_provenance(provenance):
@@ -160,8 +177,9 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
     ``provenance`` (None: the ``GG_TELEMETRY`` / ``GG_PROVENANCE``
     switch; True / False; a spec): run on the observed driver, record
     the ring and / or the arrival and parent stamps (gather path only),
-    certify them, and put them in the result."""
-    _check_unported("run_broadcast_nemesis", mesh, dcn_mode, observe_dir)
+    certify them, and put them in the result.  ``observe_dir``: where a
+    failed campaign writes its flight bundle."""
+    _check_unported("run_broadcast_nemesis", mesh, dcn_mode)
     dev = resolve_device(device)
     n = spec.n_nodes
     nv = n_values if n_values is not None else 2 * n
@@ -196,7 +214,7 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         return serving.run_serving(
             "broadcast", traffic, nemesis=spec,
             max_recovery_rounds=max_recovery_rounds, sim_kw=sim_kw,
-            telemetry=telemetry, device=dev)
+            telemetry=telemetry, observe_dir=observe_dir, device=dev)
     if structured == "auto":
         # membership events ride the gather path (the words-major masks
         # have no join / leave columns)
@@ -293,8 +311,17 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         check_kw=dict(nbrs=nbrs, received=host_unpack_bits(rec, nv),
                       msgs_total=int(state.msgs),
                       parts=None if parts is None else parts.to_meta()))
+    runner_kw = dict(n_values=n_values, topology=topology,
+                     sync_every=sync_every, structured=bool(structured),
+                     max_recovery_rounds=max_recovery_rounds,
+                     parts=None if parts is None else parts.to_meta(),
+                     delays=None if delays is None else delays.tolist(),
+                     dir_delays=(None if dir_delays is None
+                                 else list(dir_delays)))
     ok = _finish_observed(ok, details, tel, tel_spec,
-                          msgs_total=int(state.msgs))
+                          msgs_total=int(state.msgs),
+                          observe_dir=observe_dir, workload="broadcast",
+                          spec=spec, runner_kw=runner_kw)
     return {"ok": ok, **details}
 
 
@@ -320,7 +347,7 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     amnesia rows before they flushed.  ``traffic``: the open-loop
     campaign (``deltas`` ignored).  ``provenance``: the per-node flush,
     KV and visibility stamps (see :func:`run_broadcast_nemesis`)."""
-    _check_unported("run_counter_nemesis", mesh, dcn_mode, observe_dir)
+    _check_unported("run_counter_nemesis", mesh, dcn_mode)
     dev = resolve_device(device)
     if traffic is not None:
         from . import serving
@@ -330,7 +357,7 @@ def run_counter_nemesis(spec: NemesisSpec, *,
             max_recovery_rounds=max_recovery_rounds,
             sim_kw=dict(mode=mode, poll_every=poll_every,
                         union_block=union_block),
-            telemetry=telemetry, device=dev)
+            telemetry=telemetry, observe_dir=observe_dir, device=dev)
     n = spec.n_nodes
     if deltas is None:
         deltas = np.arange(1, n + 1, dtype=np.int32)
@@ -392,8 +419,16 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     ok = _finish_provenance(ok, details, prov, prov_spec, spec,
                             workload="counter",
                             check_kw=dict(final_kv=kv))
+    deltas_kw = (None if np.array_equal(
+        deltas, np.arange(1, n + 1, dtype=np.int32))
+        else [int(d) for d in np.asarray(deltas)])
+    runner_kw = dict(deltas=deltas_kw, mode=mode, poll_every=poll_every,
+                     max_recovery_rounds=max_recovery_rounds,
+                     union_block=union_block)
     ok = _finish_observed(ok, details, tel, tel_spec,
-                          msgs_total=int(state.msgs))
+                          msgs_total=int(state.msgs),
+                          observe_dir=observe_dir, workload="counter",
+                          spec=spec, runner_kw=runner_kw)
     return {"ok": ok, **details}
 
 
@@ -534,7 +569,7 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
     ``traffic``: the open-loop campaign.  ``provenance``: the per-(key,
     slot) allocation, origin and witness-presence stamps (the witness
     from the ``ProvenanceSpec``)."""
-    _check_unported("run_kafka_nemesis", mesh, dcn_mode, observe_dir)
+    _check_unported("run_kafka_nemesis", mesh, dcn_mode)
     dev = resolve_device(device)
     if traffic is not None:
         from . import serving
@@ -545,7 +580,7 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
             sim_kw=dict(n_keys=n_keys, capacity=capacity,
                         max_sends=max_sends, resync_every=resync_every,
                         resync_mode=resync_mode, union_block=union_block),
-            telemetry=telemetry, device=dev)
+            telemetry=telemetry, observe_dir=observe_dir, device=dev)
     n = spec.n_nodes
     clear = max(spec.clear_round, rounds or 0)
     members_c = spec.host_members(clear)
@@ -581,6 +616,14 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
                       resync_mode=resync_mode,
                       witness=(prov_spec.witness
                                if prov_spec is not None else 0)))
+    runner_kw = dict(n_keys=n_keys, capacity=capacity, max_sends=max_sends,
+                     resync_every=resync_every, resync_mode=resync_mode,
+                     workload_seed=workload_seed,
+                     max_recovery_rounds=max_recovery_rounds, rounds=rounds,
+                     repl_fast=repl_fast, union_block=union_block,
+                     commits=commits, send_prob=send_prob)
     ok = _finish_observed(ok, details, tel, tel_spec,
-                          msgs_total=int(state.msgs))
+                          msgs_total=int(state.msgs),
+                          observe_dir=observe_dir, workload="kafka",
+                          spec=spec, runner_kw=runner_kw)
     return {"ok": ok, **details}

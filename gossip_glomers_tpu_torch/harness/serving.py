@@ -15,9 +15,11 @@ with the op latencies p50 / p99 / max in rounds beside it.
 ``run_serving_curve`` sweeps the offered load (the per-client rate) and
 returns one row per load.
 
-Runs go on ``device`` (CUDA unless given).  Not ported yet, and raising:
-meshes (ROADMAP.md Queue A item 10), the flight bundle (``observe_dir=``)
-and the profiler capture (``GG_PROFILE_DIR``) (item 13).
+Runs go on ``device`` (CUDA unless given).  A failed run writes its
+flight bundle into ``observe_dir`` (:func:`.observe.write_flight_bundle`);
+with ``GG_PROFILE_DIR`` set, the driven phase runs under
+:func:`.observe.profiled` and leaves a ``torch.profiler`` Chrome trace
+there.  Not ported yet, and raising: meshes (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..tpu_sim.counter import CounterSim
 from ..tpu_sim.engine import resolve_device
 from ..tpu_sim.faults import NemesisSpec
 from ..tpu_sim.kafka import KafkaSim
+from . import observe
 from .checkers import check_op_latency, check_recovery, check_telemetry
 from .observe import telemetry_setup
 
@@ -177,14 +180,10 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
     ``TelemetrySpec(traffic=True)``) records the ring through every
     phase and cross-checks it (``check_telemetry``); ``latency_bound``
     (``check_op_latency`` kwargs) ANDs a latency bound into the verdict.
-    ``device``: where a sim built here runs (CUDA unless given)."""
+    ``device``: where a sim built here runs (CUDA unless given).
+    ``observe_dir``: where a failed run writes its flight bundle."""
     if mesh is not None:
         raise _unported("run_serving(mesh=...)", 10)
-    if observe_dir is not None:
-        raise _unported("run_serving(observe_dir=...), the flight bundle",
-                        13)
-    if os.environ.get("GG_PROFILE_DIR"):
-        raise _unported("the GG_PROFILE_DIR profiler capture", 13)
     if nemesis is not None and nemesis.has_membership:
         raise ValueError(
             "serving runs do not support membership events yet: the "
@@ -218,8 +217,11 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
             torch.cuda.synchronize(sim.device)
 
     t0 = time.perf_counter()
-    state, ts, tel = drive(state, ts, tel, tspec.until)
-    sync()
+    # the optional profiler capture around the driven phase (a no-op
+    # unless GG_PROFILE_DIR is set)
+    with observe.profiled(os.environ.get("GG_PROFILE_DIR") or None):
+        state, ts, tel = drive(state, ts, tel, tspec.until)
+        sync()
     driven_s = time.perf_counter() - t0
     if clear > tspec.until:
         # faults outlast the traffic horizon: keep the system running
@@ -285,13 +287,30 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
                 "recovery_completions_per_round": (
                     float(after.mean()) if after.size else None),
             }
+    tel_series = tel_meta = None
     if tel is not None:
         tel_series = TM.series_arrays(tel, tel_spec)
         ok_t, t_det = check_telemetry(
             tel_series, msgs_total=int(state.msgs), traffic=summ)
         details["telemetry"] = {"spec": tel_spec.to_meta(),
                                 "series": tel_series, "check": t_det}
+        tel_meta = tel_spec.to_meta()
         ok = ok and ok_t
+    if not ok and observe_dir is not None:
+        failure = {k: details[k] for k in
+                   ("recovery_rounds", "n_lost_writes", "lost_writes",
+                    "conserved", "latency_bound")
+                   if k in details}
+        details["flight_bundle"] = observe.write_flight_bundle(
+            observe_dir, kind="serving", workload=kind,
+            nemesis=(nemesis.to_meta() if nemesis is not None
+                     else None),
+            traffic=tspec.to_meta(), sim_kw=sim_kw or {},
+            runner_kw=dict(max_recovery_rounds=max_recovery_rounds,
+                           drain_every=drain_every,
+                           latency_bound=latency_bound),
+            telemetry_spec=tel_meta, telemetry_series=tel_series,
+            failure=failure)
     return {"ok": ok, **details}
 
 

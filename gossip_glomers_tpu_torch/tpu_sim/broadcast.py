@@ -1247,14 +1247,25 @@ class BroadcastSim:
             self.step, lambda s: self.converged(s, target),
             self.init_state(inject), max_rounds, check_every)
 
+    def run_staged(self, state: BroadcastState, target: torch.Tensor, *,
+                   max_rounds: int = 1 << 16,
+                   donate: bool = False) -> BroadcastState:
+        """The while-converge run on a staged (state, target) pair from
+        :meth:`stage`: convergence is tested before the first round and
+        after each, until ``state.t`` reaches ``max_rounds``.  The rounds
+        are out of place, so the staged state stays reusable whatever
+        ``donate`` (the reference's argument) says."""
+        return while_converge(self.step,
+                              lambda s: self.converged(s, target), state,
+                              max_rounds)
+
     def run_fused(self, inject: np.ndarray, *, max_rounds: int = 1 << 16,
                   ) -> tuple[BroadcastState, int]:
-        """The while-converge runner: convergence is tested before the
-        first round and after each.  Returns (final state, rounds run)."""
+        """:meth:`run_staged` on a freshly staged workload.  Returns
+        (final state, rounds run)."""
         state, target = self.stage(inject)
-        final = while_converge(self.step,
-                               lambda s: self.converged(s, target), state,
-                               max_rounds)
+        final = self.run_staged(state, target, max_rounds=max_rounds,
+                                donate=True)
         return final, final.t
 
     def _build_fixed(self, rounds: int, donate: bool):
@@ -1521,6 +1532,57 @@ class BroadcastSim:
     def received_node_major(self, state: BroadcastState) -> np.ndarray:
         """(N, W) uint32 received bitset."""
         return _bits_to_numpy(state.received, self.words_major)
+
+    def inject_mid(self, state: BroadcastState, node: int,
+                   value: int) -> BroadcastState:
+        """A client broadcast mid-run: ``value`` set at ``node`` (received
+        and frontier), so the next round floods it, out of place.  The
+        server ledger, where it is on, takes the origin's correction: one
+        send and one ack more than the learner the next round charges it
+        as.  The gather path only, as in the reference."""
+        if self.words_major:
+            raise ValueError("inject_mid targets the gather path")
+        w, b = value // WORD, 1 << (value % WORD)
+        bit = b - (1 << 32) if b >= 1 << 31 else b
+        received, frontier = state.received.clone(), state.frontier.clone()
+        received[node, w] |= bit
+        frontier[node, w] |= bit
+        srv = (None if state.srv_msgs is None
+               else (state.srv_msgs + 2) & MASK32)
+        return dataclasses.replace(state, received=received,
+                                   frontier=frontier, srv_msgs=srv)
+
+    def run_stats(self, inject: np.ndarray, *, max_rounds: int = 1 << 16,
+                  ) -> tuple[BroadcastState, int, list[dict]]:
+        """:meth:`run` with a record a round: the round, the bits known
+        over all nodes (a uint32 sum, as the reference's), the messages
+        of the round and in total.  Returns (final state, rounds run,
+        records)."""
+        target = self.target_bits(inject)
+        state = self.init_state(inject)
+        stats: list[dict] = []
+        prev_msgs = 0
+        rounds = 0
+        while rounds < max_rounds:
+            state = self.step(state)
+            rounds += 1
+            known = int(self._popcount(state.received)) & MASK32
+            msgs = int(state.msgs)
+            stats.append({"round": rounds, "known_bits": known,
+                          "msgs_round": msgs - prev_msgs,
+                          "msgs_total": msgs})
+            prev_msgs = msgs
+            if self.converged(state, target):
+                break
+        return state, rounds, stats
+
+    def read(self, state: BroadcastState) -> list[list[int]]:
+        """Each node's sorted value list (the ``read`` handler's reply),
+        on the host."""
+        rec = self.received_node_major(state)
+        bits = np.unpackbits(rec.astype("<u4").view(np.uint8), axis=1,
+                             bitorder="little")
+        return [np.flatnonzero(row).tolist() for row in bits]
 
     def server_msgs(self, state: BroadcastState) -> int:
         """Reference-accounted server-to-server message total."""

@@ -49,7 +49,11 @@ what bounds them on an H100 and what the design does about it):
   words-major or node-major);
 - ``prov_flood.cu``, the causal provenance record of the gather round:
   :func:`prov_attribute` (each newly delivered bit's arrival round and
-  the neighbour whose delivery carried it first, in place).
+  the neighbour whose delivery carried it first, in place);
+- ``txn_round.cu``, the txn-rw-register round's wound-or-die pair:
+  :func:`txn_claim` (each key's best claim priority, and the round's
+  attempts) and :func:`txn_commit` (the winner test, the winners' reads,
+  records and write requests, the node counters, in place).
 
 The masked structured exchanges and the words-major coins take their
 per-direction liveness as packed rows (:func:`pack_bits`): (D, ceil(N /
@@ -88,7 +92,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("tree_flood", "shift_flood", "gather_flood",
                         "fault_flood", "counter_round", "kafka_round",
-                        "traffic_fold", "prov_flood")}
+                        "traffic_fold", "prov_flood", "txn_round")}
 BUILD_DIR = _PKG.parent / "build" / "gossip_glomers_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -143,7 +147,8 @@ LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "shift_ring_exchange": 0, "counter_select": 0,
             "counter_apply": 0, "kafka_merge": 0, "kafka_nem_deliver": 0,
             "kafka_commit_select": 0, "kafka_commit_apply": 0,
-            "and_fold": 0, "prov_attribute": 0}
+            "and_fold": 0, "prov_attribute": 0, "txn_claim": 0,
+            "txn_commit": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -897,6 +902,12 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_prov_attribute": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
                                       i64, i64, i64, i32, i64, i32, i32,
                                       ptr]},
+            "txn_round": {
+                "gg_txn_claim": [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                                 i64, i64, ptr],
+                "gg_txn_commit": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                  ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
+                                  i64, i64, i64, i64, ptr]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -2150,3 +2161,180 @@ def prov_attribute(new: torch.Tensor, src: torch.Tensor, nbrs: torch.Tensor,
                 arrival.data_ptr(), parent.data_ptr(), n, w, src.shape[-2],
                 nv, d, src.shape[-2] * w, int(ring), int(t_next))
     return arrival, parent
+
+
+# -- the txn-rw-register round (txn_round.cu) ------------------------------
+
+# the claim of no one: an unclaimed key's best priority
+TXN_INF = (1 << 31) - 1
+
+
+def _txn_issue_prio(issue: torch.Tensor, active: torch.Tensor, t: int):
+    """(issue, prio): the open transactions' first-attempt rounds after
+    this round's first attempts, and their int32 priorities ``issue * N +
+    node``, wrapped mod 2^32 as the reference's int32 product wraps."""
+    n = issue.shape[0]
+    iss = torch.where(active & (issue < 0), t, issue)
+    rows = torch.arange(n, dtype=torch.int64, device=issue.device)
+    return iss, _wrap_i32(iss.to(torch.int64) * n + rows)
+
+
+def _txn_open(x: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+    """(N, O): each node's open slot ``clip(cur, 0, T - 1)`` of an (N, T,
+    O) tensor."""
+    n, t_dim = x.shape[:2]
+    curc = cur.clamp(0, max(t_dim - 1, 0)).to(torch.int64)
+    return x[torch.arange(n, device=x.device), curc]
+
+
+def txn_claim_plain(keys: torch.Tensor, cur: torch.Tensor,
+                    issue: torch.Tensor, active: torch.Tensor, *, t: int,
+                    n_keys: int):
+    """The reference's claim (txn.py:264-279) and its attempts sum."""
+    _, prio = _txn_issue_prio(issue, active, t)
+    k_n = _txn_open(keys, cur)
+    claim = torch.where(active[:, None], prio[:, None].expand(k_n.shape),
+                        TXN_INF)
+    best = torch.full((n_keys,), TXN_INF, dtype=torch.int32,
+                      device=keys.device)
+    best.scatter_reduce_(0, k_n.reshape(-1).to(torch.int64),
+                         claim.reshape(-1), "amin")
+    return best, active.sum(dtype=torch.int32).reshape(1)
+
+
+def txn_commit_plain(best: torch.Tensor, keys: torch.Tensor,
+                     write: torch.Tensor, wval: torch.Tensor,
+                     cur: torch.Tensor, issue: torch.Tensor,
+                     active: torch.Tensor, owner: torch.Tensor,
+                     slot: torch.Tensor, vals: torch.Tensor,
+                     vers: torch.Tensor, op_ver: torch.Tensor,
+                     op_val: torch.Tensor, commit_round: torch.Tensor,
+                     issue_round: torch.Tensor, *, t: int):
+    """The reference's winner test, (value, version) view, write requests
+    and slot records (txn.py:280-322), out of place: ``(req, cur, issue,
+    op_ver, op_val, commit_round, issue_round)``."""
+    n, t_dim, o = keys.shape
+    k_dim = best.shape[0]
+    dev = keys.device
+    iss, prio = _txn_issue_prio(issue, active, t)
+    k_n = _txn_open(keys, cur).to(torch.int64)
+    wr_n = _txn_open(write, cur)
+    wv_n = _txn_open(wval, cur)
+    win = active & (best[k_n] == prio[:, None]).all(dim=1)
+    at = (owner[k_n], slot[k_n])
+    rd_val, rd_ver = vals[at], vers[at]
+    w_mask = win[:, None] & wr_n
+    flat = k_n.reshape(-1)
+    req = torch.zeros((3, k_dim), dtype=torch.int32, device=dev)
+    for row, x in enumerate((w_mask.to(torch.int32),
+                             torch.where(w_mask, wv_n, 0),
+                             torch.where(w_mask, rd_ver, 0))):
+        req[row].index_add_(0, flat, x.reshape(-1))
+    ar = torch.arange(n, device=dev)
+    curc = cur.clamp(0, max(t_dim - 1, 0)).to(torch.int64)
+    new_ver = torch.where(wr_n, _wrap_i32(rd_ver.to(torch.int64) + 1), rd_ver)
+    new_val = torch.where(wr_n, wv_n, rd_val)
+    op_ver, op_val = op_ver.clone(), op_val.clone()
+    commit_round, issue_round = commit_round.clone(), issue_round.clone()
+    op_ver[ar[win], curc[win]] = new_ver[win]
+    op_val[ar[win], curc[win]] = new_val[win]
+    commit_round[ar[win], curc[win]] = t
+    first = active & (issue < 0)
+    issue_round[ar[first], curc[first]] = t
+    return (req, cur + win.to(torch.int32), torch.where(win, -1, iss),
+            op_ver, op_val, commit_round, issue_round)
+
+
+def _check_txn_nodes(keys: torch.Tensor, **rows) -> tuple[int, int, int]:
+    """(N, T, O) of the (N, T, O) int32 ``keys``, each (N,) row checked."""
+    if keys.dtype != torch.int32 or keys.dim() != 3 \
+            or not keys.is_contiguous():
+        raise ValueError(f"keys must be a contiguous (N, T, O) int32 "
+                         f"tensor, got {keys.dtype} {tuple(keys.shape)}")
+    n, t_dim, o = keys.shape
+    if n > MAX_NODES or t_dim < 1:
+        raise ValueError(f"the txn kernels take at most {MAX_NODES} nodes "
+                         f"and T >= 1 slots, got {tuple(keys.shape)}")
+    for name, (x, dtype) in rows.items():
+        _check_like(name, x, (n,), dtype)
+    return n, t_dim, o
+
+
+def txn_claim(keys: torch.Tensor, cur: torch.Tensor, issue: torch.Tensor,
+              active: torch.Tensor, *, t: int, n_keys: int):
+    """The wound-or-die claim of one txn round: each ``active`` node
+    ((N,) bool) claims the keys of its open slot ``clip(cur, 0, T - 1)``
+    of ``keys`` ((N, T, O) int32, in [0, ``n_keys``)) at its priority
+    ``issue' * N + node`` (int32, wrapped), ``issue'`` being ``t`` for a
+    first attempt (``issue < 0``) and ``issue`` else.  Returns ``(best,
+    attempts)``: (K,) int32, each key's least claim (:data:`TXN_INF`
+    where none), and (1,) int32, the active nodes."""
+    n, _, o = _check_txn_nodes(keys, cur=(cur, torch.int32),
+                               issue=(issue, torch.int32),
+                               active=(active, torch.bool))
+    if _on_cpu(keys, cur, issue, active):
+        return txn_claim_plain(keys, cur, issue, active, t=t, n_keys=n_keys)
+    best = torch.full((n_keys,), TXN_INF, dtype=torch.int32,
+                      device=keys.device)
+    attempts = torch.zeros(1, dtype=torch.int32, device=keys.device)
+    if n:
+        _launch("txn_claim", _lib("txn_round").gg_txn_claim, keys.device,
+                keys.data_ptr(), cur.data_ptr(), issue.data_ptr(),
+                _bytes(active), best.data_ptr(), attempts.data_ptr(), n,
+                keys.shape[1], o, n_keys, int(t))
+    return best, attempts
+
+
+def txn_commit(best: torch.Tensor, keys: torch.Tensor, write: torch.Tensor,
+               wval: torch.Tensor, cur: torch.Tensor, issue: torch.Tensor,
+               active: torch.Tensor, owner: torch.Tensor, slot: torch.Tensor,
+               vals: torch.Tensor, vers: torch.Tensor, op_ver: torch.Tensor,
+               op_val: torch.Tensor, commit_round: torch.Tensor,
+               issue_round: torch.Tensor, *, t: int) -> torch.Tensor:
+    """The commit of one txn round, after :func:`txn_claim`'s ``best``:
+    a node wins iff it is active and ``best`` of every key of its open
+    slot equals its priority; it reads each key's (value, version) at
+    ``(owner[k], slot[k])`` of the store's (N, cap) ``vals`` / ``vers``.
+    In place: a winner's ``op_ver`` / ``op_val`` ((N, T, O)) at its open
+    slot become the versions and values it installs (``ver + 1`` and
+    ``wval`` for a ``write`` op) or read, its ``commit_round`` ((N, T))
+    there becomes ``t``; a first attempt stamps ``issue_round`` there;
+    ``cur`` += win, ``issue`` = -1 for a winner and ``issue'`` else.
+    Returns the (3, K) int32 write requests, sums over the winners' write
+    ops (count, value, version read), as the reference's scatter-adds."""
+    n, t_dim, o = _check_txn_nodes(keys, cur=(cur, torch.int32),
+                                   issue=(issue, torch.int32),
+                                   active=(active, torch.bool))
+    _check_like("write", write, (n, t_dim, o), torch.bool)
+    for name, x in (("wval", wval), ("op_ver", op_ver), ("op_val", op_val)):
+        _check_like(name, x, (n, t_dim, o), torch.int32)
+    for name, x in (("commit_round", commit_round),
+                    ("issue_round", issue_round)):
+        _check_like(name, x, (n, t_dim), torch.int32)
+    k_dim = best.shape[0]
+    _check_like("best", best, (k_dim,), torch.int32)
+    for name, x in (("owner", owner), ("slot", slot)):
+        _check_like(name, x, (k_dim,), torch.int64)
+    if vals.dtype != torch.int32 or vals.dim() != 2 \
+            or not vals.is_contiguous():
+        raise ValueError("vals must be a contiguous (N, cap) int32 tensor")
+    _check_like("vers", vers, tuple(vals.shape), torch.int32)
+    xs = (best, keys, write, wval, cur, issue, active, owner, slot, vals,
+          vers, op_ver, op_val, commit_round, issue_round)
+    if _on_cpu(*xs):
+        out = txn_commit_plain(*xs, t=t)
+        for dst, src in zip((cur, issue, op_ver, op_val, commit_round,
+                             issue_round), out[1:]):
+            dst.copy_(src)
+        return out[0]
+    req = torch.zeros((3, k_dim), dtype=torch.int32, device=keys.device)
+    if n:
+        _launch("txn_commit", _lib("txn_round").gg_txn_commit, keys.device,
+                best.data_ptr(), keys.data_ptr(), _bytes(write),
+                wval.data_ptr(), cur.data_ptr(), issue.data_ptr(),
+                _bytes(active), owner.data_ptr(), slot.data_ptr(),
+                vals.data_ptr(), vers.data_ptr(), op_ver.data_ptr(),
+                op_val.data_ptr(), commit_round.data_ptr(),
+                issue_round.data_ptr(), req.data_ptr(), n, t_dim, o,
+                k_dim, vals.shape[1], int(t))
+    return req

@@ -15,8 +15,9 @@ write bumps the version.
 - :func:`key_slots` precomputes, on the host, where each key lives.
   Since every key occupies exactly one slot, a batch can touch only
   those K slots: :func:`rows_view_at` (the view) gathers them and
-  :func:`cas_apply_at` (the counter's and Kafka's CAS) reads and
-  writes them alone, O(K) on rows the caller donates; each equals its
+  :func:`cas_apply_at` (the counter's and Kafka's CAS) and
+  :func:`cas_ver_apply_at` (the txn round's version CAS) read and
+  write them alone, O(K) on rows the caller donates; each equals its
   slab form on every layout :func:`make_layout` builds.  On the card the
   slab view of the counter's one key would be N atomic adds into one
   address.
@@ -210,6 +211,21 @@ def cas_apply_at(rows: KVRows, slots: KeySlots, on: torch.Tensor,
     vals, vers = (rows.vals, rows.vers) if donate else \
         (rows.vals.clone(), rows.vers.clone())
     vals[at] = torch.where(hit, to, vals[at])
+    vers[at] = vers[at] + hit.to(torch.int32)
+    return KVRows(vals=vals, vers=vers)
+
+
+def cas_ver_apply_at(rows: KVRows, slots: KeySlots, on: torch.Tensor,
+                     ver: torch.Tensor, val: torch.Tensor, *,
+                     donate: bool = False) -> KVRows:
+    """:func:`cas_ver_apply` over the K occupied slots (the txn round's
+    version CAS), in place on ``rows`` with ``donate`` as
+    :func:`cas_apply_at`."""
+    at = (slots.owner, slots.slot)
+    hit = on & (rows.vers[at] == ver)
+    vals, vers = (rows.vals, rows.vers) if donate else \
+        (rows.vals.clone(), rows.vers.clone())
+    vals[at] = torch.where(hit, val, vals[at])
     vers[at] = vers[at] + hit.to(torch.int32)
     return KVRows(vals=vals, vers=vers)
 

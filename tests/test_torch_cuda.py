@@ -1346,3 +1346,127 @@ def test_cuda_run_observed_goes_through_prov_attribute(cuda_device, mode,
     assert gm == cm
     assert all(torch.equal(x, y) for x, y in zip(gp, cp))
     assert int((gp[0] > 0).sum()) > 0
+
+
+# -- the txn round's kernels (txn_round.cu) -------------------------------
+
+# (nodes, ops a txn, keys, wrap): a single node and key, a ragged warp with
+# colliding wrapped priorities, odd block tails, a power of two
+TXN_CUDA_SHAPES = [(1, 1, 1, False), (31, 2, 5, True), (257, 4, 40, True),
+                   (1000, 3, 977, False), (4097, 8, 3, True),
+                   (2048, 2, 512, False)]
+
+
+def _txn_case(n, o, k, wrap, seed, device):
+    """A txn round's operands: random keys (not distinct), cur in [0, T],
+    first attempts at a quarter of the nodes, issue stamps past the
+    int32 wrap with ``wrap`` (two nodes then planted to share a wrapped
+    priority and their keys at an odd n), random store rows and
+    records."""
+    rng = np.random.default_rng(seed)
+    t_dim = 3
+    keys = rng.integers(0, k, (n, t_dim, o)).astype(np.int32)
+    cur = rng.integers(0, t_dim + 1, n).astype(np.int32)
+    lo = -(-(1 << 31) // n) if wrap and n > 1 else 0
+    issue = rng.integers(lo, (1 << 31) - 1 if wrap and n > 1 else 64, n)
+    issue = np.where(rng.random(n) < 0.25, -1, issue).astype(np.int32)
+    active = rng.random(n) < 0.6
+    if wrap and n % 2 and n > 1:
+        inv = pow(n, -1, 1 << 32)
+        for j in range(64):
+            ia, ib = ((((1 << 31) + j - x) * inv) % (1 << 32)
+                      for x in (0, 1))
+            if ia < 1 << 31 and ib < 1 << 31:
+                issue[0], issue[1] = ia, ib
+                cur[0] = cur[1] = 0
+                keys[1, 0] = keys[0, 0]
+                active[:2] = True
+                break
+    cap = -(-k // n) + 1
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    ints = lambda shape: rng.integers(-(1 << 31), 1 << 31,  # noqa: E731
+                                      shape).astype(np.int32)
+    return dict(keys=put(keys), write=put(rng.random((n, t_dim, o)) < 0.5),
+                wval=put(ints((n, t_dim, o))), cur=put(cur),
+                issue=put(issue), active=put(active),
+                owner=put(rng.integers(0, n, k).astype(np.int64)),
+                slot=put(rng.integers(0, cap, k).astype(np.int64)),
+                vals=put(ints((n, cap))), vers=put(ints((n, cap))),
+                op_ver=put(ints((n, t_dim, o))),
+                op_val=put(ints((n, t_dim, o))),
+                commit_round=put(ints((n, t_dim))),
+                issue_round=put(ints((n, t_dim))),
+                t=int(rng.integers(0, 1 << 20)), n_keys=k)
+
+
+TXN_ARGS = ("keys", "write", "wval", "cur", "issue", "active", "owner",
+            "slot", "vals", "vers", "op_ver", "op_val", "commit_round",
+            "issue_round")
+TXN_INPLACE = ("cur", "issue", "op_ver", "op_val", "commit_round",
+               "issue_round")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TXN_CUDA_SHAPES)
+def test_cuda_txn_kernels_match_plain(cuda_device, shape):
+    c = _txn_case(*shape, sum(shape[:3]), cuda_device)
+    before = dict(kernels.LAUNCHES)
+    claim = (c["keys"], c["cur"], c["issue"], c["active"])
+    best, att = kernels.txn_claim(*claim, t=c["t"], n_keys=c["n_keys"])
+    best_p, att_p = kernels.txn_claim_plain(*claim, t=c["t"],
+                                            n_keys=c["n_keys"])
+    mine = {k: v.clone() if k in TXN_INPLACE else v for k, v in c.items()}
+    req = kernels.txn_commit(best, *(mine[k] for k in TXN_ARGS), t=c["t"])
+    want = kernels.txn_commit_plain(best_p, *(c[k] for k in TXN_ARGS),
+                                    t=c["t"])
+    torch.cuda.synchronize()
+    assert torch.equal(best, best_p) and torch.equal(att, att_p)
+    assert torch.equal(req, want[0])
+    for name, w in zip(TXN_INPLACE, want[1:]):
+        assert torch.equal(mine[name], w), name
+    assert kernels.LAUNCHES["txn_claim"] == before["txn_claim"] + 1
+    assert kernels.LAUNCHES["txn_commit"] == before["txn_commit"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amnesia", (False, True))
+def test_cuda_txn_round_equals_cpu_round(cuda_device, amnesia, monkeypatch):
+    # every CUDA round runs the two kernels, never their plain versions,
+    # makes no host sync, and lands the CPU round's state bit for bit
+    from gossip_glomers_tpu_torch.tpu_sim import txn
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain txn kernel ran on a CUDA round")
+
+    n, k, rounds = 509, 97, 40
+    spec = faults.NemesisSpec(n_nodes=n, seed=4, crash=((3, 7, (1, 200)),),
+                              loss_rate=0.15, loss_until=9)
+    sims = [txn.TxnSim(n, k, txns_per_node=5, ops_per_txn=3, rate=0.6,
+                       until=12, fault_plan=spec.compile(dev),
+                       kv_amnesia=amnesia, workload_seed=2, device=dev)
+            for dev in (cuda_device, "cpu")]
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "txn_claim_plain", refuse)
+        m.setattr(kernels, "txn_commit_plain", refuse)
+        before = kernels.LAUNCHES["txn_commit"]
+        g = sims[0].init_state()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g = sims[0].run_fused(g, rounds)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["txn_commit"] == before + rounds
+    c = sims[1].run(sims[1].init_state(), rounds)
+    assert g.t == c.t and int(g.msgs) == int(c.msgs)
+    for f in ("arrived", "cur", "issue", "issue_round", "commit_round",
+              "op_ver", "op_val"):
+        assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+    assert torch.equal(g.rows.vals.cpu(), c.rows.vals)
+    assert torch.equal(g.rows.vers.cpu(), c.rows.vers)
+    assert txn.history_of(g, sims[0].ops) == txn.history_of(c, sims[1].ops)
+    assert int((c.commit_round >= 0).sum()) > 0

@@ -15,6 +15,7 @@ from gossip_glomers_tpu.tpu_sim import faults as JF
 from gossip_glomers_tpu.tpu_sim import traffic as JT
 from gossip_glomers_tpu_torch.harness import checkers as PC
 from gossip_glomers_tpu_torch.harness import nemesis as PN
+from gossip_glomers_tpu_torch.harness import observe as PO
 from gossip_glomers_tpu_torch.tpu_sim import faults as PF
 from gossip_glomers_tpu_torch.tpu_sim import traffic as PT
 
@@ -212,12 +213,25 @@ def test_runner_refusals_match_reference():
         with pytest.raises(ValueError, match="resync_mode"):
             mod.run_kafka_nemesis(spec, resync_mode="gossip", **extra)
     spec = PF.NemesisSpec(**spec_kw)
-    for kw, item in ((dict(mesh=object()), 10), (dict(dcn_mode="sync"), 10),
-                     (dict(observe_dir="x"), 13)):
+    for kw, item in ((dict(mesh=object()), 10), (dict(dcn_mode="sync"), 10)):
         for run in (PN.run_broadcast_nemesis, PN.run_counter_nemesis,
                     PN.run_kafka_nemesis):
             with pytest.raises(NotImplementedError, match=f"item {item}"):
                 run(spec, device="cpu", **kw)
+    # observe_dir runs: each runner's failed campaign (no recovery
+    # budget) writes its flight bundle there, as the reference's does
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        for run, kind in ((PN.run_broadcast_nemesis, "broadcast"),
+                          (PN.run_counter_nemesis, "counter"),
+                          (PN.run_kafka_nemesis, "kafka")):
+            res = run(spec, device="cpu", observe_dir=out,
+                      max_recovery_rounds=0)
+            assert not res["ok"]
+            bundle = PO.load_bundle(res["flight_bundle"])
+            assert (bundle["kind"], bundle["workload"]) == ("nemesis", kind)
+            assert bundle["nemesis"] == spec.to_meta()
 
 
 def test_runners_run_on_cuda_unless_told(monkeypatch):

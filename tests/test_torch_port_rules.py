@@ -75,6 +75,54 @@ def test_host_only_copies_are_the_ports_own(module, name):
             np.testing.assert_array_equal(g, w)
 
 
+HARNESS_COPIES = ["TimelineBuilder", "check_txn_serializable",
+                  "write_json_atomic", "validate_timeline"]
+
+
+@pytest.mark.parametrize("name", HARNESS_COPIES)
+def test_harness_host_copies_are_the_ports_own(name, tmp_path):
+    # the flight recorder's serializer and the txn checker are the port's
+    # own copies (defined in its modules, not imported), equal to the
+    # reference's on the same inputs
+    from gossip_glomers_tpu.harness import checkers as jc
+    from gossip_glomers_tpu.harness import observe as jo
+    from gossip_glomers_tpu_torch.harness import checkers as pc
+    from gossip_glomers_tpu_torch.harness import observe as po
+
+    port_mod = pc if name == "check_txn_serializable" else po
+    ref_mod = jc if name == "check_txn_serializable" else jo
+    fn = getattr(port_mod, name)
+    assert fn.__module__ == port_mod.__name__
+    if name == "TimelineBuilder":
+        got, want = fn("x"), jo.TimelineBuilder("x")
+        for b in (got, want):
+            b.slice("r", "round 0", 0, 1000)
+            b.flow("v0", "node 0", 500, "node 1", 1500, args={"value": 0})
+            b.counter("telemetry", "msgs", 0, 3)
+        assert got.to_dict() == want.to_dict()
+    elif name == "check_txn_serializable":
+        hist = [{"id": i, "node": i, "slot": 0, "status": "committed",
+                 "issue_round": 0, "commit_round": c,
+                 "ops": [{"kind": k, "key": 0, "ver": v, "val": val}]}
+                for i, (c, k, v, val) in enumerate(
+                    ((1, "w", 1, 5), (2, "r", 1, 5), (3, "w", 1, 6),
+                     (0, "r", 0, 0)))]
+        for final in (None, {0: (6, 1)}, {0: (0, 0)}):
+            assert fn(hist, final=final) == \
+                jc.check_txn_serializable(hist, final=final)
+    elif name == "write_json_atomic":
+        payload = {"b": [1, 2], "a": {"c": None}}
+        p = fn(str(tmp_path / "p" / "x.json"), payload)
+        q = jo.write_json_atomic(str(tmp_path / "q" / "x.json"), payload)
+        assert open(p).read() == open(q).read()
+    else:
+        tb = jo.TimelineBuilder("t")
+        tb.flow("v", "a", 5.0, "a", 1.0)
+        for f in (fn, ref_mod.validate_timeline):
+            with pytest.raises(ValueError, match="causality"):
+                f(tb.to_dict())
+
+
 def test_import_scan_compares_exact_names(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import gossip_glomers_tpu_torch.tpu_sim\n"
@@ -157,6 +205,27 @@ def test_unported_modes_raise():
     state, _ = sim.stage(broadcast.make_inject(8, 4))
     with pytest.raises(ValueError, match="ledger is off"):
         sim.server_msgs(state)
+    # txn-rw-register runs on one device; its meshes (item 10), scenario
+    # batches (item 12) and audit (item 14) raise, as do the frontier's
+    # report check (item 13) and a replay on a mesh (item 10)
+    from gossip_glomers_tpu_torch.harness import observe
+    from gossip_glomers_tpu_torch.harness import txn as htxn
+    from gossip_glomers_tpu_torch.tpu_sim import txn
+
+    tsim = txn.TxnSim(8, 4, device="cpu")
+    for fn, item in (
+            (lambda: txn.TxnSim(8, 4, device="cpu", mesh=object()), 10),
+            (lambda: txn.TxnSim(8, 4, device="cpu", dcn_mode="sync"), 10),
+            (txn.ops_specs, 10), (lambda: tsim._state_spec, 10),
+            (lambda: txn._build_batch_round(tsim), 12),
+            (lambda: txn._batch_converged(tsim.init_state()), 12),
+            (lambda: htxn.run_txn_frontier([0.5], []), 12),
+            (lambda: tsim.audit_run_program, 14), (txn.audit_contracts, 14),
+            (lambda: observe.validate_frontier({}), 13),
+            (lambda: observe.replay_bundle({}, mesh=object()), 10)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            fn()
+    assert tsim.run(tsim.init_state(), 3).t == 3
 
 
 def test_kafka_unported_parts_raise_with_their_items():

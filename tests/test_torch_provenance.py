@@ -764,10 +764,18 @@ def test_spec_record_and_carry_across_packages():
                      (PPV.kafka_specs, 10), (PPV.audit_contracts, 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
-    for fn in (POB.write_flight_bundle, POB.load_bundle, POB.replay_bundle,
-               POB.run_timeline):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn("x")
+    # the flight recorder carries the record: a bundle with these stamps
+    # loads back, and the timeline draws the reference's flows of them
+    bundle = {"schema": POB.BUNDLE_SCHEMA, "kind": "nemesis",
+              "provenance": {f: np.asarray(v).tolist()
+                             for f, v in got.items()}}
+    assert POB.load_bundle(bundle) is bundle
+    assert POB.replay_divergence(bundle, {"provenance": {"arrays": want}}) \
+        is None
+    result = {"workload": "broadcast", "converged_round": 9,
+              "provenance": {"spec": psp.to_meta(), "arrays": got}}
+    assert POB.run_timeline(result) == JOB.run_timeline(
+        dict(result, provenance={"spec": psp.to_meta(), "arrays": want}))
 
 
 def test_partitions_meta_round_trips_like_reference():

@@ -134,7 +134,7 @@ def test_counter_cas_latency_grows_at_saturation():
     assert hi["lat_p50"] > lo["lat_p50"] and hi["lat_p99"] > lo["lat_p99"]
 
 
-def test_serving_unported_and_default_device(monkeypatch):
+def test_serving_unported_and_default_device(monkeypatch, tmp_path):
     spec = PTS(**spec_kw())
     for fn, item in (
             (lambda: PSV.run_serving("counter", spec, mesh=object(),
@@ -142,14 +142,24 @@ def test_serving_unported_and_default_device(monkeypatch):
             (lambda: PSV.make_serving_sim("counter", spec, mesh=object()),
              10),
             (lambda: PSV.run_serving_curve("counter", spec, [0.1],
-                                           mesh=object()), 10),
-            (lambda: PSV.run_serving("counter", spec, observe_dir="x",
-                                     device="cpu"), 13)):
+                                           mesh=object()), 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
-    monkeypatch.setenv("GG_PROFILE_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PSV.run_serving("counter", spec, device="cpu")
+    # the flight bundle and the profiler capture run: a failed run (no
+    # drain budget) writes its bundle, a passing one none, and
+    # GG_PROFILE_DIR leaves the driven phase's Chrome trace
+    bad = PSV.run_serving("counter", spec, observe_dir=str(tmp_path / "b"),
+                          max_recovery_rounds=0, device="cpu")
+    assert not bad["ok"]
+    bundle = JOB.load_bundle(bad["flight_bundle"])
+    assert bundle["kind"] == "serving" and bundle["traffic"] \
+        == spec.to_meta()
+    monkeypatch.setenv("GG_PROFILE_DIR", str(tmp_path / "p"))
+    good = PSV.run_serving("counter", spec, observe_dir=str(tmp_path / "g"),
+                           device="cpu")
+    assert good["ok"] and "flight_bundle" not in good
+    assert not (tmp_path / "g").exists()
+    assert len(list((tmp_path / "p").iterdir())) == 1
     monkeypatch.delenv("GG_PROFILE_DIR")
     with pytest.raises(ValueError, match="unknown serving workload"):
         PSV.make_serving_sim("queue", spec, device="cpu")
