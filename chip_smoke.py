@@ -55,7 +55,11 @@ txn-rw-register and the flight recorder:
    round's ``txn_claim`` and ``txn_commit`` at 1, 31, 65,537 and 131,072
    nodes, 1, 2, 4 and 8 ops a transaction and 1 to 2^18 keys, all, none
    or some nodes active, issue stamps small and past the int32 wrap with
-   planted colliding priorities (:func:`check_txn`) — and each one's
+   planted colliding priorities (:func:`check_txn`); the batched
+   ``fault_coins`` and ``faulted_gather_round`` (:func:`check_batched_faults`:
+   S in {1, 3, 128} scenarios of N in {1, 24, 1,024} rows, W in {1, 2,
+   64}, blocks straddling scenarios, 4-byte-offset views; S = 1 equal to
+   the one-scenario kernels) — and each one's
    median
    time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
@@ -241,6 +245,33 @@ txn-rw-register and the flight recorder:
     faithfully and on the CPU to the same verdict, series and stamps;
     ``run_timeline`` and ``run_manifest`` validate; ``GG_PROFILE_DIR``
     leaves a ``torch.profiler`` trace.
+37. ``scenario_broadcast_fuzz``: fault_sweep.py:644-687's campaign,
+    1,152 broadcast scenarios of a 24-node grid (48 values, sync every
+    4, horizon 8, 32 recovery rounds) as 9 folded batches of 128
+    (``tpu_sim/scenario.py``), delays 1-2 on odd batches: each batch's
+    walls, rounds, launches a round and scenarios a second, the trip
+    run under ``no_host_sync``; two trips' device idle share; batch 0
+    one scenario at a time through ``run_broadcast_nemesis`` (ms a
+    scenario both ways), 8 scenarios held bit for bit (rows, telemetry,
+    received) and the whole batch against the CPU path; the batched
+    kernels checked and timed on its round-5 inputs.
+38. ``scenario_broadcast_256x1024``: 256 scenarios of a 1,024-node grid,
+    2,048 values (W = 64), horizon 16, 96 recovery rounds, delays on:
+    262,144 folded rows; the wall, ms a round, idle share, each batched
+    kernel's device ms and bound on its round-5 inputs, the torch freeze
+    and convergence ops' device ms; 4 scenarios held against their
+    sequential runs on the card.
+39. ``scenario_counter_fuzz``, ``scenario_kafka_fuzz``: fault_sweep.py
+    :699-706's breadth batches (64 scenarios at 16 nodes, horizon 8),
+    each scenario on its own sim (the looped batches): the wall, trips,
+    host syncs and launches a trip, equal to the CPU path.
+40. ``scenario_txn``: 64 txn campaigns at 64 nodes (the runner_kw
+    defaults), every verdict serializable, equal to the CPU path.
+41. ``serving_batch_frontier``: frontier_cartography.py:55-71's grid, 256
+    broadcast serving cells at 8 nodes (16 rates x 8 fault levels x 2
+    topologies, MRR 12, drain 4) as one serving batch: every row equal
+    to the cell's ``run_serving`` on the card on the cartography's parity
+    keys, 32 cells equal to the CPU path.
 
 The Kafka phases run their staged rounds under torch's sync debug mode
 (no host sync) and report rounds, wall ms, ms a round, device busy ms,
@@ -259,7 +290,8 @@ measured), and stderr says what each profile missed.  A kernel's
 (``kernel_ms``): a wrapper may launch helpers beside it (sync_diff_pc's
 zero fill and casts).
 
-Each phase prints one JSON line, after a ``card`` line (the card's name,
+Each phase prints one JSON line (with ``elapsed_s``, the host seconds
+since the smoke started), after a ``card`` line (the card's name,
 power limit, SM clock and the integer rate it gives); the kernels'
 timing adds a ``ring_plan`` line at each main shape (the shift ring
 plan's tile, stages, stage bytes and windows, and its L2-delivery
@@ -280,6 +312,7 @@ with status 2.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -367,6 +400,16 @@ KERNELS = {
                   "txn_claim_kernel"),
     "txn_commit": ("txn_round.cu", JAX_PKG + "txn.py:280",
                    "txn_commit_kernel"),
+    # the scenario batch's forms of the two: the reference vmaps the
+    # one-scenario XLA code over the scenario axis (scenario.py:603)
+    "fault_coins_batched": ("fault_flood.cu", JAX_PKG + "broadcast.py:162",
+                            "fault_coins_kernel"),
+    "faulted_gather_round_batched": ("fault_flood.cu",
+                                     JAX_PKG + "broadcast.py:557",
+                                     "faulted_gather_round_kernel"),
+    # no Pallas kernel: certify_loop's XLA freeze of the carry
+    "fold_freeze": ("fault_flood.cu", JAX_PKG + "scenario.py:327",
+                    "fold_freeze_kernel"),
 }
 # the gather kernels' main shapes are node-major (N, W) = (2^20, 1) and
 # (2^20, 128), degree 8
@@ -377,6 +420,7 @@ PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
                          r"tree_flood_round|col_popcount|col_popcount_nm|"
                          r"shift_tiles|gather_or|sync_diff_pc|"
                          r"gather_flood_round|fault_coins|"
+                         r"fold_freeze|"
                          r"faulted_gather_round|wm_fault_coins|"
                          r"counter_select|counter_apply|kafka_merge|"
                          r"kafka_nem_deliver|kafka_commit_select|"
@@ -393,7 +437,14 @@ L2_BYTES_PER_S = 5.33e12
 L2_BYTES = 50 << 20
 
 
+# the host clock at the smoke's start: each phase line carries its
+# ``elapsed_s`` since then (where the smoke's time limit goes)
+START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - START)
     print(json.dumps(obj), flush=True)
 
 
@@ -477,16 +528,18 @@ def kernel_ms(spans: list[dict], kernel: str) -> float:
     return sum(mine) / len(mine) / 1e3
 
 
-def device_ms(fn, kernel: str, calls: int = 1) -> float | None:
+def device_ms(fn, kernel: str, calls: int = 1,
+              attempts: int = 3) -> float | None:
     """Mean device time (ms) of one launch of the ``__global__`` named
-    ``kernel`` during ``calls`` calls of ``fn`` (None: not measured)."""
+    ``kernel`` during ``calls`` calls of ``fn`` (None: not measured after
+    ``attempts`` profiles)."""
     def staged():
         def run():
             for _ in range(calls):
                 fn()
         return run
 
-    spans = device_spans(staged)
+    spans = device_spans(staged, attempts)
     return None if spans is None else kernel_ms(spans, kernel)
 
 
@@ -993,6 +1046,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
     check_and_fold(kernels, note, device)
     check_prov(kernels, note, device)
     check_txn(kernels, note, device)
+    check_batched_faults(kernels, note, device)
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -1041,7 +1095,7 @@ def config4c_parts(broadcast, n: int):
 
 def _timed(name, kern, plain, bound_ms_by) -> dict:
     b_ms, b_by = bound_ms_by
-    dev_ms = device_ms(kern, KERNELS[name][2], calls=10)
+    dev_ms = device_ms(kern, KERNELS[name][2], calls=10, attempts=6)
     return {"ms": cuda_ms(kern), "device_ms": dev_ms,
             "plain_ms": cuda_ms(plain, inner=3), "bound_ms": b_ms,
             "bound_by": b_by,
@@ -5153,6 +5207,779 @@ def flight_bundles(nemesis, serving, observe, faults, traffic, device,
         raise AssertionError(f"flight_bundles: {rec}")
 
 
+# -- scenario batches ----------------------------------------------------
+
+# benchmarks/fault_sweep.py:644-687's broadcast campaign: 1,152 scenarios
+# of a 24-node grid in batches of 128, 48 values, sync every 4, horizon 8,
+# 32 recovery rounds; per-edge delays 1-2 on every other batch
+# (fuzz_run's delay_axis="alternate"); the fault grids are harness/fuzz.py's
+FUZZ_N, FUZZ_BATCHES, FUZZ_BATCH, FUZZ_NV = 24, 9, 128, 48
+FUZZ_HORIZON, FUZZ_MRR, FUZZ_SEQ_HELD = 8, 32, 8
+LOSS_GRID, DUP_GRID, CRASH_GRID = (0.0, 0.05, 0.1, 0.2), (0.0, 0.05, 0.1), \
+    (0, 1, 2)
+# the wide folded batch: 256 scenarios of a 1,024-node grid, W = 64; 4
+# of its delayed and 2 of its one-hop scenarios held to sequential runs
+WIDE_S, WIDE_N, WIDE_NV, WIDE_HORIZON, WIDE_MRR, WIDE_HELD = \
+    256, 1024, 2048, 16, 96, 4
+WIDE_HELD_ONE_HOP = 2
+# the round whose inputs the batched kernels are checked and timed on
+BATCH_CAPTURE_ROUND = 5
+# fault_sweep.py:699-706: the counter / Kafka breadth batches
+LOOP_S, LOOP_N, LOOP_HORIZON = 64, 16, 8
+KAFKA_FUZZ_KW = {"n_keys": 4, "capacity": 64, "max_sends": 2,
+                 "resync_every": 4, "send_prob": 0.7}
+TXN_FUZZ_S, TXN_FUZZ_N = 64, 64
+# benchmarks/frontier_cartography.py:55-71's grid: 16 rates x 8 fault
+# levels x 2 topologies at 8 nodes, until 6, seed 3; MRR 12, drain 4
+FRONTIER_RATES = tuple(round(0.05 + 0.9 * i / 15, 4) for i in range(16))
+FRONTIER_LEVELS = (None, {"loss_rate": 0.05}, {"loss_rate": 0.15},
+                   {"n_crash_windows": 1},
+                   {"n_crash_windows": 1, "loss_rate": 0.1},
+                   {"n_crash_windows": 2},
+                   {"n_crash_windows": 2, "loss_rate": 0.1},
+                   {"n_crash_windows": 1, "loss_rate": 0.1,
+                    "dup_rate": 0.05})
+FRONTIER_PARITY_KEYS = ("arrived", "issued", "deferred", "completed",
+                        "in_flight", "conserved", "lat_p50", "lat_p99",
+                        "lat_max", "msgs_total", "total_rounds",
+                        "converged_round", "recovery_rounds", "ok")
+FRONTIER_CPU_CELLS = 32
+BATCH_EXPECT = ("fault_coins_batched", "fold_freeze", "col_popcount_nm")
+# kernel_check's batched cases: (S, N) x (W, D)
+BATCH_CHECK_SN = [(s, n) for s in (1, 3, 128) for n in (1, 24, 1024)]
+BATCH_CHECK_WD = ((1, 4), (2, 3), (64, 4))
+
+
+def batched_case(s: int, n: int, w: int, d: int, seed: int, device,
+                 offset: int = 0) -> dict:
+    """A folded batch's kernel operands from ``seed``: an (S N, D) table
+    of scenario-offset indices with -1 pads, up, a live mask, an (S, 5)
+    coin table mixing every loss / dup state, payload, dup rows and
+    receivers; every operand ``offset`` words into its allocation."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(-1, n, (s, n, d)).astype(np.int32)
+    off = (np.arange(s) * n)[:, None, None]
+    fold = np.where(nb >= 0, nb + off, -1).reshape(s * n, d).astype(
+        np.int32)
+    tab = np.stack([rng.integers(0, 2**32, s), rng.integers(0, 2**32, s) // 3,
+                    rng.integers(0, 2**32, s) // 4, np.arange(s) % 2,
+                    (np.arange(s) // 2) % 2], axis=1).astype(np.int64)
+
+    def dev(x, words=1):
+        return at_offset(torch.from_numpy(np.ascontiguousarray(x)).to(device),
+                         offset * words)
+
+    def bits():
+        return dev(rng.integers(-2**31, 2**31, (s * n, w)).astype(np.int32))
+
+    return {"fold": dev(fold), "nb": torch.from_numpy(nb).to(device),
+            "up": dev(rng.random(s * n) >= 0.1, 4),
+            "live": dev((rng.random((s * n, d)) < 0.7) & (fold >= 0), 4),
+            "table": dev(tab), "payload": bits(), "received": bits(),
+            "rec": bits()}
+
+
+def check_batched_faults(kernels, note, device) -> None:
+    """The batched ``fault_coins`` and ``faulted_gather_round`` against
+    their plain forms on the card: every (S, N) of
+    :data:`BATCH_CHECK_SN` (blocks that straddle scenarios at N = 1 and
+    24), W and D of :data:`BATCH_CHECK_WD` with -1 pads, per-scenario
+    mixes of every loss / dup state, with and without a live mask and
+    OUT_OK, with and without dup rows, on 4-byte-offset views; at S = 1
+    each equals the one-scenario kernel; ``fold_freeze`` with one and two
+    pairs under a random active mask."""
+    import numpy as np
+    import torch
+
+    for s, n in BATCH_CHECK_SN:
+        for w, d in BATCH_CHECK_WD:
+            for offset in (0, 1):
+                c = batched_case(s, n, w, d, s * 7919 + n * 31 + w + d,
+                                 device, offset)
+                for masked in (False, True):
+                    kw = dict(t=9, out_ok=masked, table=c["table"], block=n,
+                              live=c["live"] if masked else None)
+                    flags = kernels.fault_coins(c["fold"], c["up"], **kw)
+                    want = kernels.fault_coins_plain(c["fold"], c["up"], **kw)
+                    note("fault_coins_batched", (flags, want))
+                    for dup in (False, True):
+                        args = (c["payload"], c["received"] if dup else None,
+                                c["rec"], c["fold"], want)
+                        note("faulted_gather_round_batched", *zip(
+                            kernels.faulted_gather_round(*args, block=n),
+                            kernels.faulted_gather_round_plain(*args,
+                                                               block=n)))
+                if s == 1:
+                    t = c["table"][0].tolist()
+                    one = kernels.fault_coins(
+                        c["nb"][0], c["up"].clone(), t=9, seed=t[0],
+                        loss_num=t[1], dup_num=t[2], loss=bool(t[3]),
+                        dup=bool(t[4]), out_ok=True)
+                    flags = kernels.fault_coins(
+                        c["fold"], c["up"], t=9, out_ok=True,
+                        table=c["table"], block=n)
+                    note("fault_coins_batched", (one, flags))
+                    a = kernels.faulted_gather_round(
+                        c["payload"], c["received"], c["rec"], c["fold"],
+                        flags)
+                    b = kernels.faulted_gather_round(
+                        c["payload"], c["received"], c["rec"], c["fold"],
+                        flags, block=n)
+                    note("faulted_gather_round_batched", (a[0], b[0]),
+                         (a[1], b[1]), (a[2].reshape(1), b[2]))
+                active = torch.from_numpy(
+                    np.random.default_rng(s + n + w).random(s) < 0.6).to(
+                        device)
+                for pairs in (1, 2):
+                    got = (c["rec"].clone(), c["payload"].clone())
+                    want = (c["rec"].clone(), c["payload"].clone())
+                    two = pairs == 2
+                    kernels.fold_freeze(
+                        got[0], c["received"], active, n,
+                        got[1] if two else None,
+                        c["received"] if two else None)
+                    kernels.fold_freeze_plain(
+                        want[0], c["received"], active, n,
+                        want[1] if two else None,
+                        c["received"] if two else None)
+                    note("fold_freeze", (got[0], want[0]), (got[1], want[1]))
+                del c
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def fuzz_specs(faults, workload: str, count: int, n: int, seed: int,
+               horizon: int) -> list:
+    """harness/fuzz.py ``sample_scenarios``' law for the looped batches
+    (no partitions, no membership): scenario i's crash windows from
+    :data:`CRASH_GRID`, loss from :data:`LOSS_GRID` (and dup from
+    :data:`DUP_GRID`) by its own ``default_rng(seed * 100003 + i)``; the
+    counter's crash windows shifted past its cas drain (fault_sweep.py's
+    convention); txn carries no dup."""
+    import numpy as np
+
+    out = []
+    for i in range(count):
+        cell = seed * 100003 + i
+        rng = np.random.default_rng(cell)
+        n_crash = int(rng.choice(CRASH_GRID))
+        loss = float(rng.choice(LOSS_GRID))
+        if n_crash == 0:
+            spec = faults.NemesisSpec(n_nodes=n, seed=cell, loss_rate=loss,
+                                      loss_until=horizon if loss else None)
+        else:
+            spec = faults.random_spec(n, seed=cell, horizon=horizon,
+                                      n_crash_windows=n_crash,
+                                      loss_rate=loss)
+        if workload == "counter" and spec.crash:
+            meta, shift = spec.to_meta(), n + 2
+            meta["crash"] = [[a + shift, b + shift, ns]
+                             for a, b, ns in meta["crash"]]
+            if spec.loss_rate:
+                meta["loss_until"] += shift
+            spec = faults.NemesisSpec.from_meta(meta)
+        out.append((spec, cell))
+    return out
+
+
+def broadcast_fuzz_batch(scenario, faults, topology, b: int) -> object:
+    """Batch ``b`` of the 1,152-scenario broadcast campaign: scenario i =
+    ``b * 128 + k`` is ``random_spec(24, seed=i, horizon=8)`` with
+    ``i % 3`` crash windows, loss ``LOSS_GRID[i % 4]`` and dup
+    ``DUP_GRID[i % 3]``; odd i add the even/odd partition window [2, 5);
+    odd batches per-edge delays 1-2 (``default_rng(i)``)."""
+    import numpy as np
+
+    nbrs = topology.to_padded_neighbors(topology.grid(FUZZ_N))
+    even_odd = {"starts": [2], "ends": [5],
+                "group": [(np.arange(FUZZ_N) % 2).tolist()]}
+    cells = []
+    for k in range(FUZZ_BATCH):
+        i = b * FUZZ_BATCH + k
+        spec = faults.random_spec(
+            FUZZ_N, seed=i, horizon=FUZZ_HORIZON, n_crash_windows=i % 3,
+            loss_rate=LOSS_GRID[i % 4], dup_rate=DUP_GRID[i % 3])
+        delays = None
+        if b % 2:
+            delays = tuple(map(tuple, np.random.default_rng(i).integers(
+                1, 3, nbrs.shape).tolist()))
+        cells.append(scenario.Scenario(
+            spec=spec, parts=even_odd if i % 2 else None, delays=delays))
+    return scenario.ScenarioBatch(
+        workload="broadcast", scenarios=tuple(cells),
+        runner_kw={"n_values": FUZZ_NV, "topology": "grid",
+                   "sync_every": 4},
+        max_recovery_rounds=FUZZ_MRR)
+
+
+def timed_trip(scenario, kernels, batch, device, tel=None) -> tuple:
+    """(collected result, record): one folded batch staged, its trip run
+    under torch's sync debug mode (``no_host_sync``), collected; the
+    stage / trip / collect walls (the trip's ends at a synchronize), the
+    trip's rounds and port launches a round."""
+    import torch
+
+    t0 = time.perf_counter()
+    staged = scenario.stage_broadcast_batch(batch, telemetry_spec=tel,
+                                            device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    handle = no_host_sync(lambda: scenario.broadcast_trip(staged))
+    enqueue = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    trip = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v > before[k]}
+    port = sum(trip.values())
+    handle["n_real"] = len(batch.scenarios)
+    res = scenario.collect_scenario_batch(handle)
+    t3 = time.perf_counter()
+    rounds = res["rounds"]
+    want = fold_launches(staged["fb"].classes, rounds)
+    got = {k: trip.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"folded trip launched {got}, not {want}: its "
+                             "launches a round must not grow with S")
+    return res, {"stage_s": t1 - t0, "trip_s": t2 - t1,
+                 "trip_launches": trip,
+                 "trip_enqueue_s": enqueue, "collect_s": t3 - t2,
+                 "wall_s": t3 - t0, "rounds": rounds,
+                 "ms_per_round": (t2 - t1) * 1e3 / rounds,
+                 "launches_per_round": port / rounds,
+                 "scenarios_per_s": len(batch.scenarios) / (t3 - t0),
+                 "no_host_sync": True}
+
+
+def fold_launches(classes, rounds: int) -> dict:
+    """The batched launches a folded trip of ``rounds`` rounds makes,
+    whatever S is: a one-hop round (``classes`` None) one
+    ``fault_coins_batched`` and one ``faulted_gather_round_batched``; a
+    delayed round one ``fault_coins_batched``, and per delay class v
+    whose send round t - (v - 1) is >= 0 one more (its send round's
+    liveness) and one ``gather_or``; a ``fold_freeze`` of the state a
+    round (and of the ring slot under delays); no one-scenario coin or
+    round launch."""
+    if classes is None:
+        return {"fault_coins_batched": rounds,
+                "faulted_gather_round_batched": rounds, "gather_or": 0,
+                "fold_freeze": rounds, "fault_coins": 0,
+                "faulted_gather_round": 0}
+    terms = sum(1 for t in range(rounds) for v in classes if t >= v - 1)
+    return {"fault_coins_batched": rounds + terms,
+            "faulted_gather_round_batched": 0, "gather_or": terms,
+            "fold_freeze": 2 * rounds, "fault_coins": 0,
+            "faulted_gather_round": 0}
+
+
+def trip_busy(scenario, batch, device) -> tuple:
+    """(device busy ms, spans) of one staged trip under the profiler."""
+    def make_run():
+        staged = scenario.stage_broadcast_batch(batch, device=device)
+        return lambda: scenario.broadcast_trip(staged)
+
+    return busy_and_spans(make_run)
+
+
+def seq_state(broadcast, topology, batch, k: int, rounds: int, device):
+    """Scenario ``k`` of a broadcast batch stepped alone on a
+    BroadcastSim (the sequential runner's sim) for ``rounds`` rounds: its
+    received set, (N, W) uint32."""
+    import numpy as np
+
+    sc = batch.scenarios[k]
+    kw = batch.runner_kw
+    n = batch.n_nodes
+    sim = broadcast.BroadcastSim(
+        topology.to_padded_neighbors(topology.grid(n)),
+        n_values=kw["n_values"], sync_every=kw["sync_every"],
+        parts=(None if sc.parts is None
+               else broadcast.Partitions.from_meta(sc.parts)),
+        delays=None if sc.delays is None else np.asarray(sc.delays),
+        fault_plan=sc.spec.compile(device=device), srv_ledger=False,
+        device=device)
+    inject = broadcast.make_inject(n, kw["n_values"])
+    state = sim.init_state(inject)
+    for _ in range(rounds):
+        state = sim.step(state)
+    return sim.received_node_major(state)
+
+
+def seq_nemesis(nemesis, batch, k: int, device, tel=None) -> dict:
+    """Scenario ``k`` through the port's ``run_broadcast_nemesis``."""
+    import numpy as np
+
+    sc = batch.scenarios[k]
+    kw = batch.runner_kw
+    return nemesis.run_broadcast_nemesis(
+        sc.spec, n_values=kw["n_values"], topology=kw["topology"],
+        sync_every=kw["sync_every"],
+        max_recovery_rounds=batch.max_recovery_rounds, parts=sc.parts,
+        delays=None if sc.delays is None else np.asarray(sc.delays),
+        telemetry=tel, device=device)
+
+
+def held_to_sequential(modules, batch, res, ks, device, tel=None) -> bool:
+    """Scenarios ``ks`` of a collected batch against their sequential
+    runs on the card: the verdict rows, the telemetry series, and the
+    received set of the scenario's BroadcastSim stepped to its final
+    round."""
+    import numpy as np
+
+    broadcast, nemesis, topology = modules
+    keys = ("converged_round", "recovery_rounds", "msgs_total", "ok",
+            "lost_writes")
+    final = res["final"].received.cpu().numpy().view(np.uint32)
+    ok = True
+    for k in ks:
+        seq = seq_nemesis(nemesis, batch, k, device, tel)
+        row = res["scenarios"][k]
+        ok = ok and all(row[key] == seq[key] for key in keys)
+        if tel is not None:
+            series = {x: v for x, v in seq["telemetry"]["series"].items()
+                      if not x.startswith("_")}
+            ok = ok and all(res["telemetry"][k][x] == v
+                            for x, v in series.items())
+        t_final = (row["converged_round"] if row["converged_round"]
+                   is not None else batch.scenarios[k].spec.clear_round
+                   + batch.max_recovery_rounds)
+        ok = ok and np.array_equal(
+            seq_state(broadcast, topology, batch, k, t_final, device),
+            final[k])
+    return ok
+
+
+def same_batch_rows(a: dict, b: dict) -> bool:
+    return a["scenarios"] == b["scenarios"] and a["ok"] == b["ok"]
+
+
+def batched_kernel_times(scenario, kernels, broadcast, batch, device) -> dict:
+    """The batched kernels on a staged batch's own inputs at round
+    :data:`BATCH_CAPTURE_ROUND` (the trip run that far): checked against
+    their plain forms and timed ({name: record}), ``fold_freeze`` on the
+    round's rows (its plain form the two ``torch.where`` it replaced);
+    with the time of the round's convergence fold (torch ops).  The
+    batch is a one-hop one, whose trip launches both batched kernels
+    every round (a delayed trip launches no ``faulted_gather_round``)."""
+    import torch
+
+    if any(sc.delays is not None for sc in batch.scenarios):
+        raise ValueError("batched kernels are timed on a one-hop batch")
+    staged = scenario.stage_broadcast_batch(batch, device=device)
+    t = BATCH_CAPTURE_ROUND
+    st = scenario.broadcast_trip(dict(staged, rounds=t))["state"]
+    fb = staged["fb"]
+    wipe = fb.rows(fb.plan.amnesia(fb.wflags, t))
+    rec0 = st.received.masked_fill(wipe, 0)
+    payload = st.frontier.masked_fill(wipe, 0)
+    up = fb.up(t)
+    live = fb.edge_live(t)
+    coins = dict(t=t, live=live, table=fb.table[t], block=fb.n)
+    flags = kernels.fault_coins(fb.nbrs, up, **coins)
+    plain = kernels.fault_coins_plain(fb.nbrs, up, **coins)
+    errs = {"fault_coins_batched": max_abs_err(flags, plain)}
+    got = kernels.faulted_gather_round(payload, rec0, rec0, fb.nbrs, flags,
+                                       block=fb.n)
+    want = kernels.faulted_gather_round_plain(payload, rec0, rec0, fb.nbrs,
+                                              flags, block=fb.n)
+    errs["faulted_gather_round_batched"] = max(
+        max_abs_err(a, b) for a, b in zip(got, want))
+    if any(errs.values()):
+        raise AssertionError(f"batched kernels on the batch's inputs: {errs}")
+    rows, w = payload.shape
+    edges = fb.nbrs.numel()
+    n_send = int(((flags & kernels.FLAG_SEND) != 0).sum())
+    n_del = int(((flags & kernels.FLAG_DEL) != 0).sum())
+    n_dup = int(((flags & kernels.FLAG_DUP) != 0).sum())
+    words = rows * w
+    s = fb.s_count
+    out = {
+        # the index table, up, the mask and the table of coins in, a flag
+        # byte an edge out; a loss coin on every sent edge and a dup coin
+        # on every delivered one, and a few operations an edge besides
+        # (as the one-scenario bound counts them)
+        "fault_coins_batched": _timed(
+            "fault_coins_batched",
+            lambda: kernels.fault_coins(fb.nbrs, up, **coins),
+            lambda: kernels.fault_coins_plain(fb.nbrs, up, **coins),
+            bound(4 * edges + rows + edges
+                  + (0 if live is None else edges) + 40 * s,
+                  13 * (n_send + n_del) + 8 * edges)),
+        # payload and rec0 (also the dup rows, read once), the index
+        # table and flags in, new and rec_next and S charges out
+        "faulted_gather_round_batched": _timed(
+            "faulted_gather_round_batched",
+            lambda: kernels.faulted_gather_round(payload, rec0, rec0,
+                                                 fb.nbrs, flags, block=fb.n),
+            lambda: kernels.faulted_gather_round_plain(
+                payload, rec0, rec0, fb.nbrs, flags, block=fb.n),
+            bound(2 * 4 * words + 5 * edges + 2 * 4 * words + 8 * s,
+                  (2 * (n_del + n_dup) + n_dup) * w + 3 * rows * w)),
+    }
+    for name, rec in out.items():
+        rec.update(library_ms=None, max_abs_err=errs[name], round=t,
+                   coins={"send": n_send, "deliver": n_del, "dup": n_dup})
+    # the round's freeze: round 5's state rows into copies, the scenarios
+    # still active at round 5 (every one of these batches' is)
+    active = torch.ones(s, dtype=torch.bool, device=device)
+    dst = (st.received.clone(), st.frontier.clone())
+    want = (st.received.clone(), st.frontier.clone())
+    kernels.fold_freeze(dst[0], got[1], active, fb.n, dst[1], got[0])
+    kernels.fold_freeze_plain(want[0], got[1], active, fb.n, want[1],
+                              got[0])
+    err = max(max_abs_err(a, b) for a, b in zip(dst, want))
+    if err:
+        raise AssertionError(f"fold_freeze on the batch's rows: {err}")
+    moved = 2 * 2 * 4 * words * int(active.sum()) // s + s
+    out["fold_freeze"] = _timed(
+        "fold_freeze",
+        lambda: kernels.fold_freeze(dst[0], got[1], active, fb.n, dst[1],
+                                    got[0]),
+        lambda: kernels.fold_freeze_plain(want[0], got[1], active, fb.n,
+                                          want[1], got[0]),
+        bound(moved, 0))
+    out["fold_freeze"].update(library_ms=None, max_abs_err=err, round=t)
+    ops = {"freeze_plain_ms": out["fold_freeze"]["plain_ms"],
+           "convergence_ms": cuda_ms(lambda: broadcast._batch_converged(
+               fb, st, staged["target"], staged["member"]))}
+    return out, ops
+
+
+def scenario_broadcast_fuzz(modules, device, launches: Launches, card: str,
+                            times: dict) -> None:
+    """The 1,152-scenario broadcast campaign as 9 folded batches of 128
+    (:func:`broadcast_fuzz_batch`): each batch's walls, rounds, launches
+    a round and scenarios a second; the device idle share of a one-hop
+    and a delayed trip; batch 0's 128 scenarios one at a time through
+    ``run_broadcast_nemesis`` on the card (ms a scenario both ways), 8 of
+    them held bit for bit (rows, telemetry, received) and the whole of
+    batch 0 against the CPU path."""
+    broadcast, nemesis, scenario, telemetry, topology, faults, kernels = \
+        modules
+    rec = {"phase": "scenario_broadcast_fuzz", "card": card, "n": FUZZ_N,
+           "n_values": FUZZ_NV, "batches": FUZZ_BATCHES,
+           "batch_size": FUZZ_BATCH, "horizon": FUZZ_HORIZON,
+           "max_recovery_rounds": FUZZ_MRR, "per_batch": []}
+    batches = [broadcast_fuzz_batch(scenario, faults, topology, b)
+               for b in range(FUZZ_BATCHES)]
+    certified = 0
+    launches.start()
+    results = []
+    for b, batch in enumerate(batches):
+        res, t = timed_trip(scenario, kernels, batch, device)
+        results.append(res)
+        certified += sum(1 for r in res["scenarios"] if r["ok"])
+        t.update(batch=b, delays=bool(b % 2), n_ok=sum(
+            1 for r in res["scenarios"] if r["ok"]))
+        rec["per_batch"].append(t)
+    launches.stop(rec, BATCH_EXPECT + ("faulted_gather_round_batched",
+                                       "gather_or"))
+    wall = sum(t["wall_s"] for t in rec["per_batch"])
+    rec.update(n_scenarios=FUZZ_BATCHES * FUZZ_BATCH, n_certified=certified,
+               wall_s=wall, scenarios_per_s=FUZZ_BATCHES * FUZZ_BATCH / wall)
+    for b in (0, 1):
+        busy, spans = trip_busy(scenario, batches[b], device)
+        trip_ms = rec["per_batch"][b]["trip_s"] * 1e3
+        rec[f"batch{b}_device_busy_ms"] = busy
+        rec[f"batch{b}_device_idle_share"] = idle_share(busy, trip_ms)
+        rec[f"batch{b}_device_spans"] = spans
+    t0 = time.perf_counter()
+    seq = [seq_nemesis(nemesis, batches[0], k, device)
+           for k in range(FUZZ_BATCH)]
+    seq_s = time.perf_counter() - t0
+    rec["sequential_ms_per_scenario"] = seq_s * 1e3 / FUZZ_BATCH
+    rec["batch_ms_per_scenario"] = \
+        rec["per_batch"][0]["wall_s"] * 1e3 / FUZZ_BATCH
+    keys = ("converged_round", "recovery_rounds", "msgs_total", "ok",
+            "lost_writes")
+    rec["sequential_rows_equal"] = all(
+        results[0]["scenarios"][k][key] == seq[k][key]
+        for k in range(FUZZ_BATCH) for key in keys)
+    tel = telemetry.TelemetrySpec("broadcast",
+                                  rounds=FUZZ_HORIZON + FUZZ_MRR)
+    held, _ = timed_trip(scenario, kernels, batches[0], device, tel)
+    rec["held_bit_for_bit"] = held_to_sequential(
+        (broadcast, nemesis, topology), batches[0], held,
+        range(FUZZ_SEQ_HELD), device, tel) and same_batch_rows(
+            held, results[0])
+    t0 = time.perf_counter()
+    cpu = scenario.run_scenario_batch(batches[0], device="cpu")
+    rec["cpu_s"] = time.perf_counter() - t0
+    rec["cpu_equal"] = same_batch_rows(cpu, results[0]) and bool(
+        (cpu["final"].received == results[0]["final"].received.cpu()).all())
+    shape = (results[0]["final"].received.shape[2],
+             FUZZ_N * FUZZ_BATCH)
+    kt, ops = batched_kernel_times(scenario, kernels, broadcast, batches[0],
+                                   device)
+    for name, r in kt.items():
+        times.setdefault(name, {})[shape] = r
+    rec["batched_kernels"] = kt
+    rec["torch_ops"] = ops
+    rec["ok"] = bool(rec["sequential_rows_equal"] and rec["held_bit_for_bit"]
+                     and rec["cpu_equal"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"scenario_broadcast_fuzz: {rec}")
+
+
+def wide_batch(scenario, faults, topology):
+    """256 scenarios of a 1,024-node grid, 2,048 values (W = 64), horizon
+    16, 96 recovery rounds, per-edge delays 1-2: scenario i is
+    ``random_spec(1024, seed=i, horizon=16)`` with ``1 + i % 2`` crash
+    windows, loss 0.1 on even i and dup 0.05 on every third, the
+    even/odd partition window [2, 5) on every fourth."""
+    import numpy as np
+
+    nbrs = topology.to_padded_neighbors(topology.grid(WIDE_N))
+    even_odd = {"starts": [2], "ends": [5],
+                "group": [(np.arange(WIDE_N) % 2).tolist()]}
+    cells = []
+    for i in range(WIDE_S):
+        spec = faults.random_spec(
+            WIDE_N, seed=i, horizon=WIDE_HORIZON, n_crash_windows=1 + i % 2,
+            loss_rate=0.1 * (i % 2 == 0), dup_rate=0.05 * (i % 3 == 0))
+        cells.append(scenario.Scenario(
+            spec=spec, parts=even_odd if i % 4 == 0 else None,
+            delays=tuple(map(tuple, np.random.default_rng(i).integers(
+                1, 3, nbrs.shape).tolist()))))
+    return scenario.ScenarioBatch(
+        workload="broadcast", scenarios=tuple(cells),
+        runner_kw={"n_values": WIDE_NV, "topology": "grid",
+                   "sync_every": 4},
+        max_recovery_rounds=WIDE_MRR)
+
+
+def scenario_broadcast_256x1024(modules, device, launches: Launches,
+                                card: str, times: dict) -> None:
+    """:func:`wide_batch` folded into 262,144 rows, delayed and one-hop
+    (the same scenarios without their delays): each trip's wall and ms a
+    round, launches a round and device idle share; each batched kernel's
+    device ms and bound on the one-hop trip's own round-5 inputs; the
+    torch freeze and convergence ops' device ms; 4 delayed and 2 one-hop
+    scenarios held against their sequential runs on the card."""
+    import torch
+
+    broadcast, nemesis, scenario, telemetry, topology, faults, kernels = \
+        modules
+    batch = wide_batch(scenario, faults, topology)
+    one_hop = dataclasses.replace(batch, scenarios=tuple(
+        dataclasses.replace(sc, delays=None) for sc in batch.scenarios))
+    rec = {"phase": "scenario_broadcast_256x1024", "card": card,
+           "scenarios": WIDE_S, "n": WIDE_N, "n_values": WIDE_NV,
+           "rows": WIDE_S * WIDE_N, "horizon": WIDE_HORIZON,
+           "max_recovery_rounds": WIDE_MRR}
+    launches.start()
+    res, t = timed_trip(scenario, kernels, batch, device)
+    res1, t1 = timed_trip(scenario, kernels, one_hop, device)
+    launches.stop(rec, BATCH_EXPECT + ("gather_or",
+                                       "faulted_gather_round_batched"))
+    rec.update(t)
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["n_certified"] = sum(1 for r in res["scenarios"] if r["ok"])
+    busy, spans = trip_busy(scenario, batch, device)
+    rec.update(device_busy_ms=busy, device_spans=spans,
+               device_idle_share=idle_share(busy, t["trip_s"] * 1e3))
+    busy, spans = trip_busy(scenario, one_hop, device)
+    t1.update(n_certified=sum(1 for r in res1["scenarios"] if r["ok"]),
+              device_busy_ms=busy, device_spans=spans,
+              device_idle_share=idle_share(busy, t1["trip_s"] * 1e3))
+    rec["one_hop"] = t1
+    shape = (WIDE_NV // 32, WIDE_S * WIDE_N)
+    kt, ops = batched_kernel_times(scenario, kernels, broadcast, one_hop,
+                                   device)
+    for name, r in kt.items():
+        times.setdefault(name, {})[shape] = r
+    rec["batched_kernels"] = kt
+    rec["torch_ops"] = ops
+    rec["held_bit_for_bit"] = held_to_sequential(
+        (broadcast, nemesis, topology), batch, res,
+        range(WIDE_HELD), device) and held_to_sequential(
+            (broadcast, nemesis, topology), one_hop, res1,
+            range(WIDE_HELD_ONE_HOP), device)
+    rec["ok"] = bool(rec["held_bit_for_bit"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"scenario_broadcast_256x1024: {rec}")
+
+
+def same_states(a, b) -> bool:
+    """Two stacked states equal leaf by leaf (tensors on either device,
+    host arrays)."""
+
+    import numpy as np
+    import torch
+
+    def leaves(x):
+        if dataclasses.is_dataclass(x):
+            return [getattr(x, f.name) for f in dataclasses.fields(x)]
+        return list(x)
+
+    for p, q in zip(leaves(a), leaves(b)):
+        if isinstance(p, torch.Tensor):
+            if not torch.equal(p.cpu(), q.cpu()):
+                return False
+        elif isinstance(p, tuple) or dataclasses.is_dataclass(p):
+            if not same_states(p, q):
+                return False
+        elif not np.array_equal(np.asarray(p), np.asarray(q)):
+            return False
+    return True
+
+
+def looped_phase(name: str, scenario, kernels, batch, device,
+                 launches: Launches, card: str, expect: tuple,
+                 extra: dict) -> dict:
+    """A looped batch on the card and on the CPU: the wall, trips, host
+    syncs and port launches a trip, the certified count, and equality of
+    the rows and final states with the CPU path."""
+    import torch
+
+    rec = {"phase": name, "card": card, "scenarios": len(batch.scenarios),
+           "n": batch.n_nodes, "max_recovery_rounds":
+           batch.max_recovery_rounds, **extra}
+    launches.start()
+    t0 = time.perf_counter()
+    res = scenario.run_scenario_batch(batch, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.stop(rec, expect)
+    port = sum(rec["launches"].values())
+    t0 = time.perf_counter()
+    cpu = scenario.run_scenario_batch(batch, device="cpu")
+    rec.update(wall_s=wall, cpu_s=time.perf_counter() - t0,
+               scenarios_per_s=len(batch.scenarios) / wall,
+               trips=res["trips"], rounds=res["rounds"],
+               syncs=res["syncs"], syncs_per_trip=res["syncs"] / res["trips"],
+               launches_per_trip=port / res["trips"],
+               ms_per_trip=wall * 1e3 / res["trips"],
+               n_certified=sum(1 for r in res["scenarios"] if r["ok"]),
+               cpu_equal=bool(same_batch_rows(res, cpu)
+                              and same_states(res["final"], cpu["final"])))
+    return res, rec
+
+
+def scenario_looped_phases(modules, device, launches: Launches,
+                           card: str) -> None:
+    """fault_sweep.py:699-706's counter and Kafka breadth batches (64
+    scenarios at 16 nodes, horizon 8) and 64 txn campaigns at 64 nodes
+    (the runner_kw defaults), each scenario on its own sim under its own
+    plan, held against the CPU path; every txn verdict serializable."""
+    scenario, faults, kernels = modules
+    for name, wl, seed, kw, mrr, expect in (
+            ("scenario_counter_fuzz", "counter", 2,
+             {"mode": "cas", "poll_every": 2}, 48,
+             ("counter_select", "counter_apply")),
+            ("scenario_kafka_fuzz", "kafka", 3, KAFKA_FUZZ_KW, 32,
+             ("kafka_merge", "kafka_nem_deliver"))):
+        cells = [scenario.Scenario(spec=sp, workload_seed=ws)
+                 for sp, ws in fuzz_specs(faults, wl, LOOP_S, LOOP_N, seed,
+                                          LOOP_HORIZON)]
+        batch = scenario.ScenarioBatch(workload=wl, scenarios=tuple(cells),
+                                       runner_kw=kw, max_recovery_rounds=mrr)
+        _, rec = looped_phase(name, scenario, kernels, batch, device,
+                              launches, card, expect,
+                              {"horizon": LOOP_HORIZON, "runner_kw": kw})
+        rec["ok"] = rec["cpu_equal"]
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"{name}: {rec}")
+    cells = [scenario.Scenario(spec=sp, workload_seed=ws)
+             for sp, ws in fuzz_specs(faults, "txn", TXN_FUZZ_S, TXN_FUZZ_N,
+                                      4, LOOP_HORIZON)]
+    batch = scenario.ScenarioBatch(workload="txn", scenarios=tuple(cells))
+    res, rec = looped_phase("scenario_txn", scenario, kernels, batch, device,
+                            launches, card, ("txn_claim", "txn_commit"),
+                            {"runner_kw": scenario._txn_kw(batch)})
+    rec["all_serializable"] = all(r["serializable"]
+                                  for r in res["scenarios"])
+    rec["n_committed"] = sum(r["n_committed"] for r in res["scenarios"])
+    rec["ok"] = bool(rec["cpu_equal"] and rec["all_serializable"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"scenario_txn: {rec}")
+
+
+def frontier_cells(scenario, faults, traffic) -> list:
+    """frontier_cartography.py's 256-cell grid, built as
+    harness/frontier.py ``frontier_grid`` builds it: cell (rate i, level
+    j, topology k) at index ``(i * 8 + j) * 2 + k``, its nemesis
+    ``random_spec(8, seed=3 * 100003 + index + 1, horizon=6, **level)``
+    (None for the fault-free level), its traffic seeded ``3 * 7919 +
+    index``, coordinates (i, j, k)."""
+    cells = []
+    topos = ("grid", "tree")
+    for ir, rate in enumerate(FRONTIER_RATES):
+        for jf, level in enumerate(FRONTIER_LEVELS):
+            for kt, topo in enumerate(topos):
+                idx = (ir * len(FRONTIER_LEVELS) + jf) * len(topos) + kt
+                spec = None
+                if level is not None:
+                    spec = faults.random_spec(
+                        8, seed=3 * 100003 + idx + 1, horizon=6,
+                        n_crash_windows=int(level.get("n_crash_windows", 0)),
+                        loss_rate=float(level.get("loss_rate", 0.0)),
+                        dup_rate=float(level.get("dup_rate", 0.0)))
+                cells.append(scenario.ServingCell(
+                    traffic=traffic.TrafficSpec(
+                        n_nodes=8, n_clients=8, ops_per_client=2, until=6,
+                        rate=float(rate), seed=3 * 7919 + idx),
+                    spec=spec, topology=topo, coords=(ir, jf, kt)))
+    return cells
+
+
+def serving_batch_frontier(modules, device, launches: Launches,
+                           card: str) -> None:
+    """The 256-cell broadcast frontier (:func:`frontier_cells`) as one
+    serving batch on the card (MRR 12, drain 4, ``n_windows=2``): its
+    wall, trips, syncs and launches a trip; every row equal to the
+    port's ``run_serving`` of its cell on the card on the cartography's
+    parity keys; the first 32 cells equal to the CPU path."""
+    import torch
+
+    scenario, serving, faults, traffic, kernels = modules
+    cells = frontier_cells(scenario, faults, traffic)
+    batch = scenario.ServingBatch(workload="broadcast", cells=tuple(cells),
+                                  max_recovery_rounds=12, drain_every=4)
+    rec = {"phase": "serving_batch_frontier", "card": card,
+           "cells": len(cells), "n": 8, "max_recovery_rounds": 12,
+           "drain_every": 4}
+    launches.start()
+    t0 = time.perf_counter()
+    res = scenario.run_serving_batch(batch, n_windows=2, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.stop(rec, ("fault_coins", "faulted_gather_round", "and_fold"))
+    port = sum(rec["launches"].values())
+    t0 = time.perf_counter()
+    seq = [serving.run_serving(
+        "broadcast", c.traffic, nemesis=c.spec,
+        sim_kw=scenario._serving_sim_kw(batch, c), max_recovery_rounds=12,
+        drain_every=4, device=device) for c in cells]
+    seq_s = time.perf_counter() - t0
+    bad = [(i, k) for i, (s, row) in enumerate(zip(seq, res["cells"]))
+           for k in FRONTIER_PARITY_KEYS if s.get(k) != row.get(k)]
+    sub = scenario.ServingBatch(
+        workload="broadcast", cells=tuple(cells[:FRONTIER_CPU_CELLS]),
+        max_recovery_rounds=12, drain_every=4)
+    cpu = scenario.run_serving_batch(sub, n_windows=2, device="cpu")
+    rec.update(wall_s=wall, cells_per_s=len(cells) / wall,
+               ms_per_cell=wall * 1e3 / len(cells),
+               sequential_ms_per_cell=seq_s * 1e3 / len(cells),
+               trips=res["trips"], rounds=res["rounds"], syncs=res["syncs"],
+               syncs_per_trip=res["syncs"] / res["trips"],
+               launches_per_trip=port / res["trips"],
+               n_ok=sum(1 for r in res["cells"] if r["ok"]),
+               run_serving_equal=not bad, mismatches=bad[:8],
+               cpu_equal=cpu["cells"] == res["cells"][:FRONTIER_CPU_CELLS])
+    rec["ok"] = bool(rec["run_serving_equal"] and rec["cpu_equal"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serving_batch_frontier: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -5165,9 +5992,10 @@ def main() -> int:
     from gossip_glomers_tpu_torch.parallel import topology
     from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter, echo,
                                                   faults, kafka, kernels,
-                                                  kvstore, structured,
-                                                  telemetry, timing, traffic,
-                                                  txn, unique_ids)
+                                                  kvstore, scenario,
+                                                  structured, telemetry,
+                                                  timing, traffic, txn,
+                                                  unique_ids)
 
     device = torch.device("cuda")
     modules = (broadcast, timing)
@@ -5274,6 +6102,14 @@ def main() -> int:
                     launches, smi)
     flight_bundles(nemesis, serving, observe, faults, traffic, device,
                    launches, smi)
+    scen = (broadcast, nemesis, scenario, telemetry, topology, faults,
+            kernels)
+    scenario_broadcast_fuzz(scen, device, launches, smi, times)
+    scenario_broadcast_256x1024(scen, device, launches, smi, times)
+    scenario_looped_phases((scenario, faults, kernels), device, launches,
+                           smi)
+    serving_batch_frontier((scenario, serving, faults, traffic, kernels),
+                           device, launches, smi)
 
     for name, count in launches.total.items():
         if count == 0:

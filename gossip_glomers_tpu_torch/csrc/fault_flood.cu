@@ -38,6 +38,21 @@
 //   (:705), XLA elementwise hashes over the (D, N) rows, some 30 int64
 //   torch operations a coin in the plain version.
 //
+// - the scenario batch's forms of the first two (S scenarios of N rows
+//   folded into one graph of S N rows, row r of scenario r / N):
+//   fault_coins_kernel<true> reads each scenario's seed, thresholds and
+//   active streams from an (S, 5) table and hashes the ids within the
+//   scenario, clipping a source into the scenario's own rows (a -1 pad to
+//   its row 0); faulted_gather_round_kernel<..., kSeg> splits the dup
+//   charge by scenario: each thread's sum goes to its scenario's shared
+//   word, each nonzero word to that scenario's int64 (add_segment_sums).
+//   Replaces: the reference's jax.vmap of the same XLA code over the
+//   scenario axis (gossip_glomers_tpu/tpu_sim/scenario.py:603).  One
+//   launch each a round, whatever S is.
+// - fold_freeze: the batch's freeze, in place: each active scenario's
+//   rows of the state take the round's, a frozen one's stay.  Replaces:
+//   certify_loop's jnp.where over the carry (scenario.py:327-337).
+//
 // The coin is the reference's counter hash: h = mix32(src * 0xC2B2AE35 ^
 // dst * 0x27D4EB2F ^ t * 0x9E3779B9 ^ seed ^ salt), a drop iff h < loss_num
 // (loss salt 0x9E3779B9, dup salt 0x85EBCA6B), in uint32 arithmetic, over
@@ -122,37 +137,61 @@ __device__ __forceinline__ uint32_t edge_hash(uint32_t key, uint32_t src,
 }
 
 struct Coins {
-  const int32_t* nbrs;  // (n, d), the slab
-  const uint8_t* live;  // (n, d), or null: an edge is live iff nbrs >= 0
-  const uint8_t* up;    // (n_src,) node liveness at this round
-  uint8_t* flags;       // (n, d)
-  int64_t edges;        // n * d
-  int32_t d, n_src, row0;
+  const int32_t* nbrs;     // (n, d), the slab
+  const uint8_t* live;     // (n, d), or null: an edge is live iff nbrs >= 0
+  const uint8_t* up;       // (n_src,) node liveness at this round
+  const long long* table;  // kTable: (n_src / block, 5) per-scenario streams
+  uint8_t* flags;          // (n, d)
+  int64_t edges;           // n * d
+  int32_t d, n_src, row0, block;
   uint32_t t, seed, loss_num, dup_num;
   int32_t loss, dup, out_ok;  // streams active this round
 };
 
+// kTable: the scenario batch's coins, S scenarios folded into one graph
+// of S * N rows (block = N), row r of scenario s = r / N.  Each
+// scenario's streams come from its row of the (S, 5) int64 table: seed,
+// loss_num, dup_num and whether loss and dup are active this round.  The
+// hash takes the ids within the scenario (dst - s N, src - s N), and a
+// source index is clipped into the scenario's own rows (a -1 pad to its
+// row 0, which the OUT_OK coin reads), so each scenario draws exactly the
+// coins of its one-scenario call.  Without the table the graph is one
+// scenario of n_src rows, its streams the scalars.
+template <bool kTable>
 __global__ void __launch_bounds__(kThreads) fault_coins_kernel(const Coins c) {
-  const uint32_t key = c.t * 0x9E3779B9u ^ c.seed;
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        e < c.edges; e += static_cast<int64_t>(gridDim.x) * kThreads) {
     const int32_t raw = __ldg(c.nbrs + e);
-    const uint32_t dst =
-        static_cast<uint32_t>(c.row0 + static_cast<int32_t>(e / c.d));
+    const int32_t row = c.row0 + static_cast<int32_t>(e / c.d);
+    int32_t base = 0, block = c.n_src;
+    uint32_t seed = c.seed, loss_num = c.loss_num, dup_num = c.dup_num;
+    bool loss = c.loss != 0, dup = c.dup != 0;
+    if (kTable) {
+      const int32_t s = row / c.block;
+      const long long* tab = c.table + 5 * static_cast<int64_t>(s);
+      base = s * c.block;
+      block = c.block;
+      seed = static_cast<uint32_t>(__ldg(tab));
+      loss_num = static_cast<uint32_t>(__ldg(tab + 1));
+      dup_num = static_cast<uint32_t>(__ldg(tab + 2));
+      loss = __ldg(tab + 3) != 0;
+      dup = __ldg(tab + 4) != 0;
+    }
+    const int32_t local = raw - base;
+    const uint32_t dst = static_cast<uint32_t>(row - base);
     const uint32_t src = static_cast<uint32_t>(
-        raw < 0 ? 0 : (raw >= c.n_src ? c.n_src - 1 : raw));
+        raw < 0 || local < 0 ? 0 : (local >= block ? block - 1 : local));
+    const uint32_t key = c.t * 0x9E3779B9u ^ seed;
     const bool live = c.live != nullptr ? __ldg(c.live + e) != 0 : raw >= 0;
     uint8_t f = 0;
-    if (live && __ldg(c.up + dst) != 0 && __ldg(c.up + src) != 0) {
+    if (live && __ldg(c.up + row) != 0 && __ldg(c.up + base + src) != 0) {
       f = kSend;
-      if (!c.loss || edge_hash(key ^ kSaltLoss, src, dst) >= c.loss_num) {
+      if (!loss || edge_hash(key ^ kSaltLoss, src, dst) >= loss_num) {
         f |= kDel;
-        if (c.dup && edge_hash(key ^ kSaltDup, src, dst) < c.dup_num)
-          f |= kDup;
+        if (dup && edge_hash(key ^ kSaltDup, src, dst) < dup_num) f |= kDup;
       }
     }
-    if (c.out_ok
-        && (!c.loss || edge_hash(key ^ kSaltLoss, dst, src) >= c.loss_num))
+    if (c.out_ok && (!loss || edge_hash(key ^ kSaltLoss, dst, src) >= loss_num))
       f |= kOutOk;
     c.flags[e] = f;
   }
@@ -288,8 +327,10 @@ struct Round {
   const uint8_t* flags;      // (n, d), the slab's
   uint32_t* new_out;         // (n, w)
   uint32_t* rec_out;         // (n, w)
-  uint32_t* dup_pc;          // low word of a zeroed int64
+  uint32_t* dup_pc;          // low word of a zeroed int64 (batched: of
+                             // scenario s's, at word 2 s)
   int32_t n, n_src, d;
+  int32_t block;       // rows a scenario (the batched charge), else 0
   int32_t units;       // units of a row: W words, or W / 4 vectors
   int32_t group_log2;  // lanes per node row: 1 << group_log2 (<= 32)
   bool idx_vec;        // D = 8 index rows 16-byte aligned
@@ -379,10 +420,33 @@ __device__ __forceinline__ void add_block_sum(uint32_t s, uint32_t* out) {
   }
 }
 
+// The batched dup charge: the block's rows span scenarios [s_lo, s_hi]
+// (at most kThreads + 1 of them: a block serves at most kThreads nodes),
+// so each thread adds its node's sum into its scenario's shared word and
+// the block then adds each nonzero word into that scenario's int64, one
+// atomicAdd a scenario a block.  The launch covers every node in one pass
+// (no grid cap), so a thread has at most one node.
+__device__ __forceinline__ void add_segment_sums(uint32_t s, int64_t node,
+                                                 int64_t first, int64_t last,
+                                                 int32_t block,
+                                                 uint32_t* out) {
+  __shared__ uint32_t seg[kThreads + 1];
+  for (int k = threadIdx.x; k <= kThreads; k += kThreads) seg[k] = 0u;
+  __syncthreads();
+  const int64_t s_lo = first / block;
+  if (node >= 0 && s != 0u) atomicAdd(&seg[node / block - s_lo], s);
+  __syncthreads();
+  const int64_t span = last / block - s_lo + 1;
+  for (int64_t k = threadIdx.x; k < span; k += kThreads)
+    if (seg[k] != 0u) atomicAdd(out + 2 * (s_lo + k), seg[k]);
+}
+
 // kOne: W = 1, a thread per node.  The W = 1 instance may hold 42
 // registers a thread (6 blocks an SM), the others 128 (2 blocks): each
-// chunk keeps its payload and its dup rows in flight at once.
-template <bool kVec, bool kOne, int kD>
+// chunk keeps its payload and its dup rows in flight at once.  kSeg: the
+// scenario batch's per-scenario dup charge (add_segment_sums) instead of
+// one sum.
+template <bool kVec, bool kOne, int kD, bool kSeg>
 __global__ void __launch_bounds__(kThreads, kOne ? 6 : 2)
     faulted_gather_round_kernel(const Round a) {
   using U = typename UnitOf<kVec>::T;
@@ -400,10 +464,12 @@ __global__ void __launch_bounds__(kThreads, kOne ? 6 : 2)
   U* new_out = reinterpret_cast<U*>(a.new_out);
   U* rec_out = reinterpret_cast<U*>(a.rec_out);
   uint32_t sum = 0u;
+  int64_t mine_node = -1;
   for (int64_t node = static_cast<int64_t>(blockIdx.x) * per_block
                       + (threadIdx.x >> glog);
        node < a.n; node += static_cast<int64_t>(gridDim.x) * per_block) {
     const int32_t i = static_cast<int32_t>(node);
+    mine_node = node;
     const int64_t row = static_cast<int64_t>(i) * units;
     for (int c = lane_g; c < units; c += group) {
       const U mine = __ldg(rec + row + c);
@@ -431,16 +497,56 @@ __global__ void __launch_bounds__(kThreads, kOne ? 6 : 2)
       rec_out[row + c] = or_unit(mine, fresh);
     }
   }
-  if (dup) add_block_sum(sum, a.dup_pc);  // uniform over the block
+  if (!dup) return;  // uniform over the block
+  if (kSeg) {
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * per_block;
+    const int64_t last =
+        (first + per_block < a.n ? first + per_block : a.n) - 1;
+    add_segment_sums(sum, mine_node, first, last, a.block, a.dup_pc);
+  } else {
+    add_block_sum(sum, a.dup_pc);
+  }
+}
+
+// The scenario batch's freeze, in place: the rows of each active
+// scenario s (rows [s block, (s + 1) block)) of dst0 / dst1 take src0 /
+// src1's, a frozen scenario's rows stay.  A thread a unit (a 16-byte
+// vector where every row is aligned and W % 4 == 0, else a word), a
+// grid-stride loop; the scenario's flag byte is read a unit (it stays in
+// L1).  Only the active rows move: 2 x 2 x their bytes.
+struct Freeze {
+  uint32_t* dst0;
+  const uint32_t* src0;
+  uint32_t* dst1;        // or null: one pair
+  const uint32_t* src1;
+  const uint8_t* active;  // (S,)
+  int64_t units;          // rows * units a row
+  int32_t row_units, block;
+};
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) fold_freeze_kernel(
+    const Freeze f) {
+  using U = typename UnitOf<kVec>::T;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e < f.units; e += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int64_t row = e / f.row_units;
+    if (__ldg(f.active + row / f.block) == 0) continue;
+    reinterpret_cast<U*>(f.dst0)[e] =
+        __ldg(reinterpret_cast<const U*>(f.src0) + e);
+    if (f.dst1 != nullptr)
+      reinterpret_cast<U*>(f.dst1)[e] =
+          __ldg(reinterpret_cast<const U*>(f.src1) + e);
+  }
 }
 
 using Kernel = void (*)(const Round);
 
-template <int kD>
+template <int kD, bool kSeg>
 Kernel pick_d(bool vec, bool one) {
-  if (vec) return faulted_gather_round_kernel<true, false, kD>;
-  if (one) return faulted_gather_round_kernel<false, true, kD>;
-  return faulted_gather_round_kernel<false, false, kD>;
+  if (vec) return faulted_gather_round_kernel<true, false, kD, kSeg>;
+  if (one) return faulted_gather_round_kernel<false, true, kD, kSeg>;
+  return faulted_gather_round_kernel<false, false, kD, kSeg>;
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -465,24 +571,30 @@ int group_log2_of(int64_t units) {
 // payload and received, (n, w) rec and outputs, 4-byte aligned; for the
 // round a dup_pc word that it zeroed on the same stream.
 
+// table null: one scenario, its streams the scalars (block unused);
+// else the scenario batch's coins: nbrs over the folded rows, up (n_src,)
+// folded, table (n_src / block, 5) int64, the scalars unused.
 extern "C" int gg_fault_coins(const void* nbrs, const void* live,
-                              const void* up, void* flags, int64_t n,
-                              int d, int64_t n_src, int64_t row0,
-                              int64_t t, int64_t seed, int64_t loss_num,
-                              int64_t dup_num, int loss, int dup,
-                              int out_ok, void* stream) {
+                              const void* up, const void* table, void* flags,
+                              int64_t n, int d, int64_t n_src, int64_t row0,
+                              int64_t block, int64_t t, int64_t seed,
+                              int64_t loss_num, int64_t dup_num, int loss,
+                              int dup, int out_ok, void* stream) {
   if (n < 1 || d < 1 || n_src < 1 || row0 < 0 || row0 + n > n_src
-      || n_src >= (int64_t{1} << 31))
+      || n_src >= (int64_t{1} << 31)
+      || (table != nullptr && (block < 1 || n_src % block != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Coins c;
   c.nbrs = static_cast<const int32_t*>(nbrs);
   c.live = static_cast<const uint8_t*>(live);
   c.up = static_cast<const uint8_t*>(up);
+  c.table = static_cast<const long long*>(table);
   c.flags = static_cast<uint8_t*>(flags);
   c.edges = n * d;
   c.d = d;
   c.n_src = static_cast<int32_t>(n_src);
   c.row0 = static_cast<int32_t>(row0);
+  c.block = static_cast<int32_t>(table != nullptr ? block : n_src);
   c.t = static_cast<uint32_t>(t);
   c.seed = static_cast<uint32_t>(seed);
   c.loss_num = static_cast<uint32_t>(loss_num);
@@ -492,8 +604,10 @@ extern "C" int gg_fault_coins(const void* nbrs, const void* live,
   c.out_ok = out_ok;
   int64_t blocks = (c.edges + kThreads - 1) / kThreads;
   if (blocks > (int64_t{1} << 30)) blocks = int64_t{1} << 30;
-  fault_coins_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(c);
+  const auto kernel = table != nullptr ? fault_coins_kernel<true>
+                                       : fault_coins_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,15 +642,15 @@ extern "C" int gg_wm_fault_coins(const void* dirs, const void* live,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gg_faulted_gather_round(const void* payload,
-                                       const void* received,
-                                       const void* rec, const void* nbrs,
-                                       const void* flags, void* new_out,
-                                       void* rec_out, void* dup_pc,
-                                       int64_t n, int64_t w, int64_t n_src,
-                                       int d, void* stream) {
+namespace {
+
+int launch_round(const void* payload, const void* received, const void* rec,
+                 const void* nbrs, const void* flags, void* new_out,
+                 void* rec_out, void* dup_pc, int64_t n, int64_t w,
+                 int64_t n_src, int d, int64_t block, void* stream) {
   if (n < 1 || n_src < 1 || d < 1 || w < 1 || n >= (int64_t{1} << 31)
-      || n_src >= (int64_t{1} << 31) || w >= (int64_t{1} << 31))
+      || n_src >= (int64_t{1} << 31) || w >= (int64_t{1} << 31)
+      || block < 0 || block >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   Round a;
   a.payload = static_cast<const uint32_t*>(payload);
@@ -550,6 +664,7 @@ extern "C" int gg_faulted_gather_round(const void* payload,
   a.n = static_cast<int32_t>(n);
   a.n_src = static_cast<int32_t>(n_src);
   a.d = d;
+  a.block = static_cast<int32_t>(block);
   const bool vec = w % 4 == 0 && aligned(payload, 16) && aligned(rec, 16)
                    && aligned(new_out, 16) && aligned(rec_out, 16)
                    && (received == nullptr || aligned(received, 16));
@@ -560,9 +675,72 @@ extern "C" int gg_faulted_gather_round(const void* payload,
   const int per_block = kThreads >> a.group_log2;
   const int64_t blocks = (n + per_block - 1) / per_block;
   const bool one = w == 1;
-  const Kernel k = d == 8 ? pick_d<8>(vec, one) : pick_d<0>(vec, one);
+  const Kernel k =
+      block > 0 ? (d == 8 ? pick_d<8, true>(vec, one)
+                          : pick_d<0, true>(vec, one))
+                : (d == 8 ? pick_d<8, false>(vec, one)
+                          : pick_d<0, false>(vec, one));
   k<<<static_cast<unsigned>(blocks), kThreads, 0,
       static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int gg_faulted_gather_round(const void* payload,
+                                       const void* received,
+                                       const void* rec, const void* nbrs,
+                                       const void* flags, void* new_out,
+                                       void* rec_out, void* dup_pc,
+                                       int64_t n, int64_t w, int64_t n_src,
+                                       int d, void* stream) {
+  return launch_round(payload, received, rec, nbrs, flags, new_out, rec_out,
+                      dup_pc, n, w, n_src, d, 0, stream);
+}
+
+// The scenario batch's round: the same, with dup_pc an (n / block,) int64
+// array, scenario s's charge (its rows [s block, (s + 1) block)) in the low
+// word of element s.  The slab starts at a scenario's first row.
+extern "C" int gg_faulted_gather_round_batched(
+    const void* payload, const void* received, const void* rec,
+    const void* nbrs, const void* flags, void* new_out, void* rec_out,
+    void* dup_pc, int64_t n, int64_t w, int64_t n_src, int d, int64_t block,
+    void* stream) {
+  if (block < 1 || n % block != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_round(payload, received, rec, nbrs, flags, new_out, rec_out,
+                      dup_pc, n, w, n_src, d, block, stream);
+}
+
+// dst0, src0 (and dst1, src1, or null) (rows, w) int32 rows, 4-byte
+// aligned, active (rows / block,) bytes.
+extern "C" int gg_fold_freeze(void* dst0, const void* src0, void* dst1,
+                              const void* src1, const void* active,
+                              int64_t rows, int64_t w, int64_t block,
+                              void* stream) {
+  if (rows < 1 || w < 1 || block < 1 || rows % block != 0
+      || w >= (int64_t{1} << 31) || block >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = w % 4 == 0 && aligned(dst0, 16) && aligned(src0, 16)
+                   && (dst1 == nullptr
+                       || (aligned(dst1, 16) && aligned(src1, 16)));
+  Freeze f;
+  f.dst0 = static_cast<uint32_t*>(dst0);
+  f.src0 = static_cast<const uint32_t*>(src0);
+  f.dst1 = static_cast<uint32_t*>(dst1);
+  f.src1 = static_cast<const uint32_t*>(src1);
+  f.active = static_cast<const uint8_t*>(active);
+  f.row_units = static_cast<int32_t>(vec ? w / 4 : w);
+  f.units = rows * f.row_units;
+  f.block = static_cast<int32_t>(block);
+  int64_t blocks = (f.units + kThreads - 1) / kThreads;
+  if (blocks > (int64_t{1} << 30)) blocks = int64_t{1} << 30;
+  if (vec)
+    fold_freeze_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(f);
+  else
+    fold_freeze_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(f);
   return static_cast<int>(cudaGetLastError());
 }
 

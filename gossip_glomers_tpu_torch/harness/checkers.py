@@ -2,7 +2,9 @@
 gossip_glomers_tpu/harness/checkers.py, kept as the reference has them —
 ``check_recovery``, ``check_op_latency``, ``check_telemetry`` and the
 helper ``series_divergence_round`` (tests/test_torch_serving.py holds
-each equal to the original on seeded inputs), and the causal provenance
+each equal to the original on seeded inputs), the scenario batches'
+``check_recovery_batch`` and the serving cells' ``check_slo``
+(tests/test_torch_scenario.py), and the causal provenance
 certifier ``check_provenance`` with ``provenance_divergence_round``
 (tests/test_torch_nemesis_runner.py and test_torch_provenance.py), and
 the txn-rw-register history's ``check_txn_serializable``
@@ -94,6 +96,71 @@ def check_recovery(*, clear_round: int, converged_round: int | None,
     return ok, details
 
 
+def check_recovery_batch(*, clear_rounds, converged_rounds,
+                         max_recovery_rounds: int, lost_writes,
+                         msgs_at_clear=None, msgs_at_converged=None,
+                         ) -> tuple[bool, dict]:
+    """Batched :func:`check_recovery` over per-SCENARIO row arrays (the
+    scenario batches' verdict layer): every input is an (S,) array —
+    ``converged_rounds`` uses -1 for "never converged within bound"
+    (the sentinel of tpu_sim/scenario.py ``certify_loop``) — except
+    ``lost_writes``, a list of S per-scenario evidence lists.  The rows
+    come off the batch's one transfer; each row's verdict is the scalar
+    :func:`check_recovery` itself, so the batched and sequential
+    certifiers cannot drift.  The details dict carries:
+
+    - ``scenarios``: the :func:`check_recovery` verdict dict per
+      scenario (the scalar checker itself runs per row, so the two
+      can never drift) with ``ok`` folded in;
+    - ``failing``: the indices of every failing scenario — a single
+      planted bad scenario in a batch fails LOUDLY and is named by
+      index (``problems`` strings; tests/test_torch_scenario_batch.py
+      plants one).
+    """
+    import numpy as np
+
+    clear = np.asarray(clear_rounds, np.int64)
+    conv = np.asarray(converged_rounds, np.int64)
+    s = clear.shape[0]
+    if conv.shape[0] != s or len(lost_writes) != s:
+        raise ValueError(
+            f"batch shape mismatch: {s} clear rounds, "
+            f"{conv.shape[0]} converged rounds, "
+            f"{len(lost_writes)} lost-writes lists")
+    mc = (None if msgs_at_clear is None
+          else np.asarray(msgs_at_clear, np.int64))
+    mv = (None if msgs_at_converged is None
+          else np.asarray(msgs_at_converged, np.int64))
+    rows: list[dict] = []
+    problems: list[str] = []
+    failing: list[int] = []
+    for i in range(s):
+        ok_i, det = check_recovery(
+            clear_round=int(clear[i]),
+            converged_round=(int(conv[i]) if conv[i] >= 0 else None),
+            max_recovery_rounds=max_recovery_rounds,
+            lost_writes=list(lost_writes[i]),
+            msgs_at_clear=(None if mc is None else int(mc[i])),
+            msgs_at_converged=(None if mv is None else int(mv[i])))
+        rows.append({"ok": ok_i, **det})
+        if not ok_i:
+            failing.append(i)
+            if len(problems) < 10:
+                why = ("never converged" if conv[i] < 0
+                       else f"lost {len(lost_writes[i])} acked writes"
+                       if lost_writes[i] else
+                       f"recovery took {int(conv[i] - clear[i])} "
+                       f"rounds (> {max_recovery_rounds})")
+                problems.append(f"scenario {i}: {why}")
+    return not failing, {
+        "n_scenarios": s,
+        "n_ok": s - len(failing),
+        "failing": failing,
+        "problems": problems,
+        "scenarios": rows,
+    }
+
+
 def check_op_latency(summary: dict, *, p99_max_rounds: float,
                      max_rounds: int | None = None,
                      min_completed: int = 1) -> tuple[bool, dict]:
@@ -130,6 +197,78 @@ def check_op_latency(summary: dict, *, p99_max_rounds: float,
         "lat_max": summary.get("lat_max"),
         "p99_max_rounds": p99_max_rounds,
         "max_rounds": max_rounds,
+        "problems": problems}
+
+
+def check_slo(row: dict, *, p99_max_rounds: float | None = None,
+              max_rounds: int | None = None,
+              min_completed: int = 1,
+              min_sustained: float | None = None,
+              max_recovery_rounds: int | None = None,
+              require_converged: bool = True,
+              coords=None) -> tuple[bool, dict]:
+    """Falsifiable SLO verdict over ONE serving-frontier grid cell
+    (tpu_sim/scenario.py ``collect_serving_batch`` row, or a
+    sequential ``run_serving`` details dict — same keys, so the two
+    certifiers cannot drift).  A cell fails when
+
+    - its p99 / max per-op latency (rounds) exceeds the bound,
+    - fewer than ``min_completed`` ops completed,
+    - sustained throughput (``sustained_per_round``, completed ops
+      per round over the whole horizon) falls below
+      ``min_sustained``,
+    - it never drained its in-flight ops (``require_converged``) or
+      took more than ``max_recovery_rounds`` rounds past clear, or
+    - the tracker's conservation invariant broke.
+
+    Every problem string names the cell's grid coordinates
+    (``coords`` argument, else the row's own ``coords`` key) so one
+    bad cell in a 256-cell surface is identified without re-running
+    anything."""
+    at = coords if coords is not None else row.get("coords")
+    where = f"cell{tuple(at)!r}" if at else f"cell {row.get('cell')}"
+    completed = int(row.get("completed", 0))
+    problems: list[str] = []
+    if not row.get("conserved", True):
+        problems.append(f"{where}: conservation broke (arrived != "
+                        "issued + deferred)")
+    if completed < min_completed:
+        problems.append(f"{where}: only {completed} ops completed "
+                        f"(< {min_completed})")
+    elif completed > 0:
+        if (p99_max_rounds is not None
+                and row["lat_p99"] > p99_max_rounds):
+            problems.append(
+                f"{where}: p99 latency {row['lat_p99']} rounds > "
+                f"SLO {p99_max_rounds}")
+        if max_rounds is not None and row["lat_max"] > max_rounds:
+            problems.append(
+                f"{where}: max latency {row['lat_max']} rounds > "
+                f"SLO {max_rounds}")
+    if (min_sustained is not None
+            and row.get("sustained_per_round", 0.0) < min_sustained):
+        problems.append(
+            f"{where}: sustained {row.get('sustained_per_round')} "
+            f"ops/round < SLO {min_sustained}")
+    if require_converged and row.get("converged_round") is None:
+        problems.append(
+            f"{where}: never drained ({row.get('in_flight', '?')} "
+            "acked ops still in flight)")
+    rec = row.get("recovery_rounds")
+    if (max_recovery_rounds is not None and rec is not None
+            and rec > max_recovery_rounds):
+        problems.append(
+            f"{where}: recovery took {rec} rounds "
+            f"(> {max_recovery_rounds})")
+    return not problems, {
+        "coords": (list(at) if at is not None else None),
+        "cell": row.get("cell"),
+        "completed": completed,
+        "lat_p50": row.get("lat_p50"),
+        "lat_p99": row.get("lat_p99"),
+        "lat_max": row.get("lat_max"),
+        "sustained_per_round": row.get("sustained_per_round"),
+        "recovery_rounds": rec,
         "problems": problems}
 
 

@@ -12,9 +12,9 @@ writes its flight bundle (:mod:`.observe`), which
 :func:`.observe.replay_bundle` replays from its JSON alone, diffing the
 per-transaction stamps for the first-divergence round.  The stamps ride
 in the state (``issue_round``, ``commit_round``), so every run records
-them.  Runs go on ``device`` (CUDA unless given).  Not ported yet, and
-raising: ``mesh=`` (ROADMAP.md Queue A item 10) and ``run_txn_frontier``
-(the scenario batches, item 12).
+them.  Runs go on ``device`` (CUDA unless given).  ``run_txn_frontier``
+certifies a (rate x nemesis) grid over scenario batches.  Not ported yet,
+and raising: ``mesh=`` (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -124,8 +124,74 @@ def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
     return {"ok": ok, **details}
 
 
-def run_txn_frontier(rates, specs, **kw) -> dict:
-    """The txn serving-frontier grid over scenario batches: ROADMAP.md
-    Queue A item 12."""
-    raise NotImplementedError("harness.txn.run_txn_frontier is not ported "
-                              "to PyTorch yet (ROADMAP.md Queue A item 12)")
+def run_txn_frontier(rates, specs, *, n_keys: int = 8,
+                     txns_per_node: int = 4, ops_per_txn: int = 2,
+                     until: int = 16, max_recovery_rounds: int = 48,
+                     mesh=None, slo: dict | None = None,
+                     device: str | torch.device | None = None) -> dict:
+    """The txn serving-frontier grid (the reference's arguments and
+    result): (offered rate x nemesis) cells, each rate's nemesis column
+    one scenario batch (:func:`..tpu_sim.scenario.run_txn_batch`).  A
+    cell's row carries the recovery verdict and the transaction SLO
+    surface of the recorded stamps: commit-latency percentiles
+    (``commit_round - issue_round + 1`` over committed transactions, in
+    rounds) and committed throughput (transactions a round to
+    convergence).  ``slo``: optional ``{"p99_max_rounds",
+    "max_recovery_rounds"}`` bounds ANDed into each cell's ``slo_ok``.
+    ``mesh=`` raises (ROADMAP.md Queue A item 10)."""
+    import numpy as np
+
+    from ..tpu_sim import scenario as SC
+
+    if mesh is not None:
+        raise NotImplementedError("run_txn_frontier(mesh=...) is not "
+                                  "ported to PyTorch yet (ROADMAP.md "
+                                  "Queue A item 10)")
+    rows = []
+    ok_all = True
+    for rate in rates:
+        batch = SC.ScenarioBatch(
+            workload="txn",
+            scenarios=tuple(SC.Scenario(spec=sp, workload_seed=sp.seed)
+                            for sp in specs),
+            runner_kw=dict(n_keys=n_keys, txns_per_node=txns_per_node,
+                           ops_per_txn=ops_per_txn, rate=float(rate),
+                           until=until),
+            max_recovery_rounds=max_recovery_rounds)
+        res = SC.run_txn_batch(batch, device=device)
+        final = res["final"]
+        for i, row in enumerate(res["scenarios"]):
+            ir = final.issue_round[i].cpu().numpy()
+            cr = final.commit_round[i].cpu().numpy()
+            done = cr >= 0
+            lat = (cr - ir)[done] + 1
+            cell = dict(rate=float(rate), spec=i, ok=bool(row["ok"]),
+                        converged_round=row["converged_round"],
+                        recovery_rounds=row["recovery_rounds"],
+                        n_committed=int(done.sum()),
+                        msgs_total=row["msgs_total"])
+            if lat.size:
+                cell["lat_p50"] = float(np.percentile(lat, 50))
+                cell["lat_p99"] = float(np.percentile(lat, 99))
+                cell["lat_max"] = int(lat.max())
+                conv = row["converged_round"]
+                if conv:
+                    cell["committed_per_round"] = round(
+                        float(done.sum()) / conv, 4)
+            if slo is not None:
+                s_ok = cell["ok"]
+                if "p99_max_rounds" in slo and lat.size:
+                    s_ok = s_ok and (cell["lat_p99"]
+                                     <= slo["p99_max_rounds"])
+                if "max_recovery_rounds" in slo \
+                        and row["recovery_rounds"] is not None:
+                    s_ok = s_ok and (row["recovery_rounds"]
+                                     <= slo["max_recovery_rounds"])
+                cell["slo_ok"] = bool(s_ok)
+                ok_all = ok_all and s_ok
+            else:
+                ok_all = ok_all and cell["ok"]
+            rows.append(cell)
+    return {"ok": bool(ok_all), "workload": "txn",
+            "n_cells": len(rows), "rates": [float(r) for r in rates],
+            "n_specs": len(specs), "slo": slo, "cells": rows}

@@ -48,6 +48,9 @@ telemetry ring and, on the gather path, the causal provenance record
 (:mod:`.provenance`: each delivered bit's arrival round and the neighbour
 that first delivered it, :func:`.kernels.prov_attribute`).
 
+:class:`FoldedBatch` runs S scenarios of one adjacency as one graph of S
+N rows, the scenario batches' folded round (:mod:`.scenario`).
+
 Modes not ported yet raise: meshes (ROADMAP.md Queue A item 10).
 """
 
@@ -1595,3 +1598,211 @@ class BroadcastSim:
                 "rows have no crash liveness decomposition; dup streams "
                 "reject at construction)")
         return int(state.srv_msgs)
+
+
+# -- the scenario batch, folded (tpu_sim/scenario.py) --------------------
+#
+# S broadcast scenarios over one adjacency run as ONE graph of S N node
+# rows: scenario s's rows are [s N, (s + 1) N), its neighbor indices are
+# offset by s N (the -1 pads stay -1), and every fault operand is batched
+# (a faults.BatchPlan, a (S, P) partition schedule, per-scenario delays).
+# A round is then the faulted gather round of the sequential runner over
+# the folded rows: one batched fault_coins and one faulted_gather_round
+# whatever S is (a delayed round: one batched fault_coins, one more a delay
+# class for its send round's liveness, one gather_or a class).  Every
+# scenario's coins hash its own ids and its rows read only its own rows, so
+# each scenario evolves exactly as its one-scenario run.  Scenarios share
+# the round counter: an active scenario is at round t = the trip's
+# iteration, a frozen one keeps its rows (a torch.where over them).
+
+
+@dataclasses.dataclass
+class BatchState:
+    """A folded batch's carry: the bitsets of S scenarios of N rows each,
+    node-major (S N, W) int32, the (S,) int64 uint32 ledgers, the (L, S N,
+    W) payload ring of the delay modes (None for one hop)."""
+
+    received: torch.Tensor
+    frontier: torch.Tensor
+    msgs: torch.Tensor
+    history: torch.Tensor | None = None
+
+
+class FoldedBatch:
+    """The operands of a folded scenario batch on one device and its
+    round.  ``nbrs``: the shared (N, D) table padded with -1; ``plan``: a
+    :class:`.faults.BatchPlan`; ``pstarts`` / ``pends`` (S, P) host arrays
+    and ``group`` (S, P, N) int8 the padded partition schedules; ``delays``
+    (S, N, D) per-edge delays (None: one hop) over the batch's
+    ``delay_set``; ``rounds`` the trip count (the coin table's and the
+    window flags' length)."""
+
+    def __init__(self, nbrs: np.ndarray, *, plan: faults.BatchPlan,
+                 pstarts: np.ndarray, pends: np.ndarray,
+                 group: torch.Tensor, sync_every: int, rounds: int,
+                 delays: np.ndarray | None = None, delay_set: tuple = (),
+                 device=None) -> None:
+        dev = resolve_device(device)
+        s, n = plan.n_scenarios, plan.n_nodes
+        nb = np.asarray(nbrs, np.int64)
+        off = (np.arange(s, dtype=np.int64) * n)[:, None, None]
+        fold = np.where(nb[None] >= 0, nb[None] + off, -1)
+        # each edge's source row clipped into its own scenario (the
+        # sequential clip into [0, N), a pad to the scenario's row 0)
+        src = np.where(nb[None] >= 0, nb[None], 0) + off
+        self.s_count, self.n = s, n
+        self.device = dev
+        self.nbrs = torch.from_numpy(
+            fold.reshape(s * n, -1).astype(np.int32)).to(dev)
+        self.nbr_mask = self.nbrs >= 0
+        self.src = torch.from_numpy(src.reshape(s * n, -1)).to(dev)
+        self.plan = plan.to(dev)
+        self.sync_every = sync_every
+        self.wflags = plan.window_flags(rounds, dev)
+        self.table = plan.coin_table(rounds, dev)
+        self.table_nodup = self.table.clone()
+        self.table_nodup[..., 4] = 0
+        self.pstarts, self.pends = pstarts, pends
+        t = np.arange(-1, rounds)[:, None, None]
+        self.pact_host = (pstarts[None] <= t) & (t < pends[None])
+        self.pflags = torch.from_numpy(self.pact_host).to(dev)
+        self.group = group.to(dev).transpose(0, 1).reshape(
+            group.shape[1], s * n)                 # (P, S N)
+        self.classes, self.ring = None, 0
+        if delays is not None:
+            d = torch.from_numpy(np.asarray(delays, np.int32).reshape(
+                s * n, -1)).to(dev)
+            self.classes = delay_classes(d, delay_set)
+            self.ring = max(self.classes)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """An (S,) or (S, N) per-scenario tensor as (S N, 1) rows."""
+        if x.dim() == 1:
+            x = x[:, None].expand(self.s_count, self.n)
+        return x.reshape(-1, 1)
+
+    def segment_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """(S,) int64: the per-scenario sums of an (S N,) tensor."""
+        return x.to(torch.int64).view(self.s_count, self.n).sum(dim=1)
+
+    def popcounts(self, x: torch.Tensor) -> torch.Tensor:
+        """(S,) int64: each scenario's set bits of a folded bitset."""
+        return self.segment_sum(kernels.col_popcount(x, node_major=True))
+
+    def init_state(self, injs: np.ndarray) -> BatchState:
+        """The batch's round-0 state from the (S, N, W) uint32 injections."""
+        s, n = self.s_count, self.n
+        rec = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(injs, np.uint32).reshape(s * n, -1)).view(
+                np.int32)).to(self.device)
+        hist = (torch.zeros((self.ring,) + tuple(rec.shape),
+                            dtype=torch.int32, device=self.device)
+                if self.classes is not None else None)
+        return BatchState(received=rec, frontier=rec.clone(),
+                          msgs=torch.zeros(s, dtype=torch.int64,
+                                           device=self.device),
+                          history=hist)
+
+    def up(self, t: int) -> torch.Tensor:
+        """(S N,) bool: the rows up at round ``t``."""
+        return self.plan.up(self.wflags, t).reshape(-1)
+
+    def edge_live(self, t: int) -> torch.Tensor | None:
+        """(S N, D) bool delivering edges at round ``t`` under each
+        scenario's partition windows (one pass a window index), or None
+        when no scenario has a window active."""
+        act = self.pact_host[t + 1]
+        if not act.any():
+            return None
+        live = self.nbr_mask
+        for p in range(act.shape[1]):
+            if not act[:, p].any():
+                continue
+            g = self.group[p]
+            same = g[:, None] == g[self.src]
+            live = live & (same | ~self.rows(self.pflags[t + 1][:, p]))
+        return live
+
+    def _live_del_at(self, t: int) -> torch.Tensor:
+        """(S N, D) bool: the edges that deliver a message sent at round
+        ``t`` (the sequential :func:`_live_del_at`): topology, partition
+        windows, both endpoints up and the loss coin kept."""
+        live = self.edge_live(t)
+        flags = kernels.fault_coins(
+            self.nbrs, self.up(t), t=t,
+            live=self.nbr_mask if live is None else live,
+            table=self.table_nodup[t], block=self.n)
+        return (flags & FLAG_DEL) != 0
+
+    def round(self, st: BatchState, t: int,
+              active: torch.Tensor) -> tuple[BatchState, torch.Tensor]:
+        """Round ``t`` of every scenario, frozen where ``active`` ((S,)
+        bool) is False: the state's bitsets and ring slot are updated in
+        place (:func:`.kernels.fold_freeze`, a frozen scenario's rows
+        kept).  Returns ``(state, up)``, ``up`` the (S N,) rows up at
+        ``t`` (the telemetry's liveness)."""
+        wipe = self.rows(self.plan.amnesia(self.wflags, t))
+        rec0 = st.received.masked_fill(wipe, 0)
+        fr0 = st.frontier.masked_fill(wipe, 0)
+        payload = rec0 if _is_sync(t, self.sync_every) else fr0
+        up = self.up(t)
+        dup_rows = rec0 if self.plan.any_dup(t) else None
+        pc = kernels.col_popcount(payload, node_major=True).to(torch.int64)
+        flags = kernels.fault_coins(self.nbrs, up, t=t,
+                                    live=self.edge_live(t),
+                                    table=self.table[t], block=self.n)
+        sent = self.segment_sum(wrap32(
+            pc * (flags & FLAG_SEND).sum(dim=1)))
+        history = st.history
+        if self.classes is None:
+            new, received, dup_pc = kernels.faulted_gather_round(
+                payload, dup_rows, rec0, self.nbrs, flags, block=self.n)
+            sent = sent + dup_pc
+        else:
+            if dup_rows is not None:
+                dup = (flags & kernels.FLAG_DUP) != 0
+                sent = sent + self.segment_sum(
+                    torch.where(dup, pc[self.src], 0).sum(dim=1))
+            kernels.fold_freeze(history[t % self.ring], payload, active,
+                                self.n)
+            inbox = None
+            for v, cls in self.classes.items():
+                slot = send_slot(t, v, self.ring)
+                if slot is None:
+                    continue
+                term = kernels.gather_or(history[slot], self.nbrs,
+                                         self._live_del_at(t - (v - 1))
+                                         & cls)
+                inbox = term if inbox is None else inbox | term
+            if inbox is None:
+                inbox = torch.zeros_like(rec0)
+            new = inbox.masked_fill(~up[:, None], 0) & ~rec0
+            received = rec0 | new
+        kernels.fold_freeze(st.received, received, active, self.n,
+                            st.frontier, new)
+        msgs = wrap32(st.msgs + sent)
+        return BatchState(
+            received=st.received, frontier=st.frontier,
+            msgs=torch.where(active, msgs, st.msgs), history=history), up
+
+    def tel_row(self, t: int, fr0_pc, st: BatchState, up: torch.Tensor,
+                mask) -> torch.Tensor:
+        """(S, 5) int64: round ``t``'s telemetry rows (the sequential
+        :meth:`BroadcastSim._tel_series`), 0 where ``mask`` is False."""
+        live, fr, new, known, ms = mask
+        zero = torch.zeros(self.s_count, dtype=torch.int64,
+                           device=self.device)
+        cols = (self.segment_sum(up) if live else zero,
+                fr0_pc if fr else zero,
+                self.popcounts(st.frontier) if new else zero,
+                self.popcounts(st.received) if known else zero,
+                st.msgs if ms else zero)
+        return torch.stack(cols, dim=1) & MASK32
+
+
+def _batch_converged(fb: FoldedBatch, st: BatchState, target: torch.Tensor,
+                     member: torch.Tensor) -> torch.Tensor:
+    """(S,) bool: each scenario's member rows (``member`` (S N, 1)) hold
+    its target (``target`` (S N, W), the scenario's target on each row)."""
+    ok = (st.received == target) | ~member
+    return ok.view(fb.s_count, -1).all(dim=1)

@@ -41,8 +41,7 @@ value it landed in and the round every cache caught up to it) beside the
 ordinary rounds.
 
 Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); the scenario batch round (item 12); the program audit (item
-14).
+item 10); the program audit (item 14).
 """
 
 from __future__ import annotations
@@ -540,10 +539,23 @@ class CounterSim:
 
 
 def _build_batch_round(sim: CounterSim):
-    """The scenario-axis batch round: ROADMAP.md Queue A item 12."""
-    raise _unported("counter._build_batch_round", 12)
+    """One scenario's round for the scenario batches (:mod:`.scenario`),
+    which run each counter scenario on its own sim under its own plan:
+    ``rnd(state, tel=None, tel_spec=None) -> (state, tel)`` steps once in
+    place (:meth:`CounterSim.run_fused`), recording the telemetry row
+    when given a ring (:meth:`CounterSim.run_observed`)."""
+    def rnd(state: CounterState, tel=None, tel_spec=None):
+        if tel is None:
+            return sim.run_fused(state, 1), None
+        return sim.run_observed(state, tel, tel_spec, 1, donate=True)
+    return rnd
 
 
-def _batch_converged(state: CounterState, member=None):
-    """The scenario batch's convergence predicate: Queue A item 12."""
-    raise _unported("counter._batch_converged", 12)
+def _batch_converged(state: CounterState, member=None) -> torch.Tensor:
+    """() bool on the device: pending drained and every cached read equal
+    to the KV, on the ``member`` rows ((N,) bool) when given; pending is
+    summed over every row."""
+    cached_ok = state.cached == state.kv
+    if member is not None:
+        cached_ok = cached_ok | ~member
+    return (state.pending.sum() == 0) & cached_ok.all()

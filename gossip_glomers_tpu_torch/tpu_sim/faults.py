@@ -333,6 +333,227 @@ def random_spec(n_nodes: int, *, seed: int, horizon: int,
         dup_rate=dup_rate, dup_until=horizon if dup_rate else None)
 
 
+# -- scenario-axis batching ----------------------------------------------
+#
+# A scenario batch runs S specs at once.  Each plan's crash-window axis is
+# padded to a common count with never-active ``[0, 0)`` windows with an
+# all-False down row (evaluation is unchanged: such a window is active at
+# no round) and the leaves are stacked with a leading scenario axis: a
+# :class:`BatchPlan`.  The window bounds and scalars stay host arrays (the
+# round counter is a host int; a batch's drivers read which windows and
+# streams are active at a round without a device read), ``down`` and the
+# membership columns are tensors.
+
+
+def _plan_window_shapes(plan: FaultPlan, where: str = "plan") -> int:
+    """The crash-window count of ``plan``, once its three window leaves
+    agree on it; a disagreement raises naming ``where``."""
+    c = len(plan.starts)
+    if plan.down.dim() != 2:
+        raise ValueError(
+            f"{where}: window leaves must be starts (C,), ends (C,), "
+            f"down (C, N); got starts ({c},), ends ({len(plan.ends)},), "
+            f"down {tuple(plan.down.shape)}")
+    if len(plan.ends) != c or int(plan.down.shape[0]) != c:
+        raise ValueError(
+            f"{where}: window axes disagree — starts has {c} windows, "
+            f"ends {len(plan.ends)}, down {int(plan.down.shape[0])}")
+    return c
+
+
+def pad_plan(plan: FaultPlan, n_windows: int, *,
+             where: str = "plan") -> FaultPlan:
+    """``plan`` with its crash-window axis padded to ``n_windows`` by
+    never-active ``[0, 0)`` windows; ``where`` names the plan in errors."""
+    c = _plan_window_shapes(plan, where)
+    if c > n_windows:
+        raise ValueError(
+            f"{where} has {c} crash windows, cannot pad to {n_windows}")
+    if c == n_windows:
+        return plan
+    pad = n_windows - c
+    return dataclasses.replace(
+        plan, starts=plan.starts + (0,) * pad, ends=plan.ends + (0,) * pad,
+        down=torch.cat([plan.down, torch.zeros(
+            (pad, plan.n_nodes), dtype=torch.bool,
+            device=plan.down.device)]))
+
+
+# the reference plan's leaves and dtypes, in its order
+PLAN_LEAVES = (("starts", np.int32), ("ends", np.int32), ("down", np.bool_),
+               ("loss_num", np.uint32), ("loss_until", np.int32),
+               ("dup_num", np.uint32), ("dup_until", np.int32),
+               ("seed", np.uint32), ("join_round", np.int32),
+               ("leave_round", np.int32))
+
+
+@dataclass(frozen=True)
+class BatchPlan:
+    """S padded :class:`FaultPlan` s stacked along a leading scenario
+    axis: ``starts`` / ``ends`` (S, C) and the scalars (S,) host numpy
+    arrays of the reference's dtypes, ``down`` (S, C, N) bool and
+    ``join_round`` / ``leave_round`` (S, N) int32 tensors."""
+
+    starts: np.ndarray
+    ends: np.ndarray
+    down: torch.Tensor
+    loss_num: np.ndarray
+    loss_until: np.ndarray
+    dup_num: np.ndarray
+    dup_until: np.ndarray
+    seed: np.ndarray
+    join_round: torch.Tensor
+    leave_round: torch.Tensor
+
+    @property
+    def n_scenarios(self) -> int:
+        return int(self.down.shape[0])
+
+    @property
+    def n_windows(self) -> int:
+        return int(self.down.shape[1])
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.down.shape[2])
+
+    def to(self, device: str | torch.device) -> "BatchPlan":
+        return dataclasses.replace(
+            self, down=self.down.to(device),
+            join_round=self.join_round.to(device),
+            leave_round=self.leave_round.to(device))
+
+    def leaves(self) -> dict:
+        """{name: numpy array}: the reference batch plan's leaves, in its
+        dtypes."""
+        out = {}
+        for name, dt in PLAN_LEAVES:
+            v = getattr(self, name)
+            if isinstance(v, torch.Tensor):
+                v = v.cpu().numpy()
+            out[name] = np.asarray(v).astype(dt)
+        return out
+
+    def plan(self, i: int) -> FaultPlan:
+        """Scenario ``i``'s (padded) plan."""
+        return plan_from_numpy(
+            device=self.down.device,
+            **{k: v[i] for k, v in self.leaves().items()})
+
+    def window_flags(self, rounds: int, device) -> torch.Tensor:
+        """(rounds + 1, S, C) bool on ``device``: row k holds which crash
+        windows are active at round k - 1 (row 0: round -1, which no
+        window covers)."""
+        return _window_flags(self.starts, self.ends, rounds, device)
+
+    def up(self, flags: torch.Tensor, t: int) -> torch.Tensor:
+        """(S, N) bool: the rows up at round ``t`` (>= -1), from
+        :meth:`window_flags`' rows: one pass a padded crash window, then
+        membership."""
+        act = flags[t + 1]
+        up = self.member(t)
+        for c in range(self.n_windows):
+            up = up & ~(act[:, c:c + 1] & self.down[:, c])
+        return up
+
+    def member(self, t: int) -> torch.Tensor:
+        """(S, N) bool: the member rows at round ``t``."""
+        return (t >= self.join_round) & (t < self.leave_round)
+
+    def amnesia(self, flags: torch.Tensor, t: int) -> torch.Tensor:
+        """(S, N) bool: the rows crashing or joining at round ``t``."""
+        return (~self.up(flags, t) & self.up(flags, t - 1)) \
+            | (self.join_round == t)
+
+    def coin_table(self, rounds: int, device) -> torch.Tensor:
+        """(rounds, S, 5) int64 on ``device``: row t is
+        :func:`.kernels.fault_coins`' table at round t — seed, loss_num,
+        dup_num, loss active, dup active (each stream below its horizon
+        with a non-zero rate)."""
+        t = np.arange(rounds)[:, None]
+        loss = (t < self.loss_until[None]) & (self.loss_num[None] > 0)
+        dup = (t < self.dup_until[None]) & (self.dup_num[None] > 0)
+        s = self.n_scenarios
+        tab = np.stack([np.broadcast_to(self.seed.astype(np.int64),
+                                        (rounds, s)),
+                        np.broadcast_to(self.loss_num.astype(np.int64),
+                                        (rounds, s)),
+                        np.broadcast_to(self.dup_num.astype(np.int64),
+                                        (rounds, s)),
+                        loss.astype(np.int64), dup.astype(np.int64)],
+                       axis=-1)
+        return torch.from_numpy(np.ascontiguousarray(tab)).to(device)
+
+    def any_dup(self, t: int) -> bool:
+        return bool(((t < self.dup_until) & (self.dup_num > 0)).any())
+
+
+def _window_flags(starts: np.ndarray, ends: np.ndarray, rounds: int,
+                  device) -> torch.Tensor:
+    t = np.arange(-1, rounds)[:, None, None]
+    act = (starts[None] <= t) & (t < ends[None])
+    return torch.from_numpy(np.ascontiguousarray(act)).to(device)
+
+
+def batch_windows(specs, n_windows: int | None = None) -> int:
+    """The padded crash-window count of a batch of ``specs`` (``n_windows``
+    when given, else the widest spec's), after the batch's host checks:
+    at least one spec, one ``n_nodes``, ``n_windows`` no narrower than
+    the widest spec."""
+    if not specs:
+        raise ValueError("batch_plans needs at least one spec")
+    n = specs[0].n_nodes
+    for sp in specs:
+        if sp.n_nodes != n:
+            raise ValueError(
+                f"scenario batch mixes n_nodes {n} and {sp.n_nodes} "
+                "(one compiled shape per batch)")
+    c_max = max(len(sp.crash) for sp in specs)
+    if n_windows is not None:
+        if n_windows < c_max:
+            raise ValueError(
+                f"n_windows={n_windows} < the batch's widest crash-"
+                f"window count {c_max}")
+        c_max = n_windows
+    return c_max
+
+
+def batch_plans(specs, n_windows: int | None = None,
+                device: str | torch.device | None = None) -> BatchPlan:
+    """Compile, pad and stack ``specs`` into one :class:`BatchPlan` on
+    ``device`` (CUDA unless given); ``n_windows`` sets the padded
+    crash-window count (at least the widest spec's)."""
+    specs = list(specs)
+    c_max = batch_windows(specs, n_windows)
+    dev = resolve_device(device)
+    plans = [pad_plan(sp.compile(device="cpu"), c_max, where=f"spec {i}")
+             for i, sp in enumerate(specs)]
+
+    def host(name, dt):
+        return np.array([getattr(p, name) for p in plans], dt)
+
+    def windows(name):
+        return host(name, np.int32).reshape(len(plans), c_max)
+
+    return BatchPlan(
+        starts=windows("starts"), ends=windows("ends"),
+        down=torch.stack([p.down for p in plans]).to(dev),
+        loss_num=host("loss_num", np.uint32),
+        loss_until=host("loss_until", np.int32),
+        dup_num=host("dup_num", np.uint32),
+        dup_until=host("dup_until", np.int32),
+        seed=host("seed", np.uint32),
+        join_round=torch.stack([p.join_round for p in plans]).to(dev),
+        leave_round=torch.stack([p.leave_round for p in plans]).to(dev))
+
+
+def batch_churn(bp: BatchPlan) -> np.ndarray:
+    """(S,) int: each scenario's membership events (:func:`plan_churn`)."""
+    jr = bp.join_round.cpu().numpy()
+    lr = bp.leave_round.cpu().numpy()
+    return ((jr != JOIN_FOUNDING).sum(1) + (lr != LEAVE_NEVER).sum(1))
+
+
 # -- device-side evaluation ---------------------------------------------
 
 

@@ -47,7 +47,7 @@ origin, from the round's own allocator, and its first presence at the
 witness node) beside the staged rounds.
 
 Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); the scenario batch round (item 12); the program audit (item 14).
+item 10); the program audit (item 14).
 """
 
 from __future__ import annotations
@@ -850,13 +850,29 @@ class KafkaSim:
 
 
 def _build_batch_round(sim: KafkaSim):
-    """The scenario-axis batch round: ROADMAP.md Queue A item 12."""
-    raise _unported("kafka._build_batch_round", 12)
+    """One scenario's round for the scenario batches (:mod:`.scenario`),
+    which run each Kafka scenario on its own sim under its own plan:
+    ``rnd(state, send_key, send_val, tel=None, tel_spec=None) -> (state,
+    tel)`` takes one (N, S) send batch, commit-free, in place
+    (:meth:`KafkaSim.run_fused`), recording the telemetry row when given
+    a ring (:meth:`KafkaSim.run_observed`)."""
+    def rnd(state: KafkaState, send_key, send_val, tel=None, tel_spec=None):
+        sk, sv = send_key[None], send_val[None]
+        if tel is None:
+            return sim.run_fused(state, sk, sv), None
+        return sim.run_observed(state, tel, tel_spec, sk, sv, donate=True)
+    return rnd
 
 
-def _batch_converged(state: KafkaState, member=None):
-    """The scenario batch's convergence predicate: Queue A item 12."""
-    raise _unported("kafka._batch_converged", 12)
+def _batch_converged(state: KafkaState, member=None,
+                     first: int = 0) -> torch.Tensor:
+    """() bool on the device: every node's presence identical; with
+    ``member`` ((N,) bool) the member rows equal the first member's, row
+    ``first`` (a host int, so the check makes no host sync)."""
+    if member is None:
+        return (state.present == state.present[:1]).all()
+    ok = state.present == state.present[first][None]
+    return (ok | ~member[:, None, None]).all()
 
 
 def audit_contracts():

@@ -29,8 +29,11 @@ what bounds them on an H100 and what the design does about it):
 - ``fault_flood.cu``, the faulted gather round under a nemesis plan:
   :func:`fault_coins` (one flag byte an edge: sent, delivered,
   duplicated, reply not lost) and :func:`faulted_gather_round` (the
-  gather round over those flags, with the dup ledger charge); and the
-  words-major nemesis's coins, :func:`wm_fault_coins`;
+  gather round over those flags, with the dup ledger charge), each with
+  a scenario-batch form (``table=`` / ``block=``: S scenarios folded
+  into S N rows, per-scenario coins and dup charges), the batch's
+  in-place freeze :func:`fold_freeze`; and the words-major nemesis's
+  coins, :func:`wm_fault_coins`;
 - ``counter_round.cu``, the g-counter's round: :func:`counter_select`
   (the read pass: the CAS winner or the flushed sum, the message count,
   finalized on the card into the round's new ``kv`` and ``msgs``) and
@@ -143,6 +146,8 @@ LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "shift_masked_exchange": 0, "shift_flood_round": 0,
             "gather_or": 0, "sync_diff_pc": 0, "gather_flood_round": 0,
             "fault_coins": 0, "faulted_gather_round": 0,
+            "fault_coins_batched": 0, "faulted_gather_round_batched": 0,
+            "fold_freeze": 0,
             "wm_fault_coins": 0, "tree_ring_exchange": 0,
             "shift_ring_exchange": 0, "counter_select": 0,
             "counter_apply": 0, "kafka_merge": 0, "kafka_nem_deliver": 0,
@@ -573,47 +578,79 @@ def sync_diff_pc_plain(payload: torch.Tensor, recv: torch.Tensor,
 
 
 def fault_coins_plain(nbrs: torch.Tensor, up: torch.Tensor, *, t: int,
-                      seed: int, loss_num: int, dup_num: int, loss: bool,
-                      dup: bool, out_ok: bool,
+                      seed: int = 0, loss_num: int = 0, dup_num: int = 0,
+                      loss: bool = False, dup: bool = False,
+                      out_ok: bool = False,
                       live: torch.Tensor | None = None,
-                      row0: int = 0) -> torch.Tensor:
+                      row0: int = 0, table: torch.Tensor | None = None,
+                      block: int = 0) -> torch.Tensor:
     # faults imports nothing of this module; its hash is the coins' one
     from .faults import _SALT_DUP, _SALT_LOSS, _hash32
 
-    ok, src = _edges(nbrs, live, up.shape[0])
-    dst = torch.arange(row0, row0 + nbrs.shape[0],
-                       device=nbrs.device)[:, None]
-    send = ok & up[dst] & up[src]
-    deliver = send
-    if loss:
-        deliver = send & (_hash32(seed, t, src, dst, _SALT_LOSS) >= loss_num)
+    rows = torch.arange(row0, row0 + nbrs.shape[0],
+                        device=nbrs.device)[:, None]
+    base = 0
+    if table is None:
+        block, loss, dup = up.shape[0], bool(loss), bool(dup)
+    else:
+        base = rows // block * block
+        tab = table[rows[:, 0] // block]
+        seed, loss_num, dup_num = tab[:, 0:1], tab[:, 1:2], tab[:, 2:3]
+        loss, dup = tab[:, 3:4] != 0, tab[:, 4:5] != 0
+    dst = rows - base
+    src = torch.where(nbrs < 0, 0,
+                      (nbrs.to(torch.int64) - base).clamp(0, block - 1))
+    ok = nbrs >= 0 if live is None else live
+    send = ok & up[rows] & up[base + src]
+
+    def kept(a, b):
+        """The loss coin of a -> b did not drop (every edge where the
+        stream is off)."""
+        if loss is False:
+            return torch.ones_like(send)
+        return ~torch.as_tensor(loss) \
+            | (_hash32(seed, t, a, b, _SALT_LOSS) >= loss_num)
+
+    deliver = send & kept(src, dst)
     flags = send.to(torch.uint8) * FLAG_SEND + deliver.to(torch.uint8) \
         * FLAG_DEL
-    if dup:
-        fired = deliver & (_hash32(seed, t, src, dst, _SALT_DUP) < dup_num)
+    if dup is not False:
+        fired = deliver & dup & (_hash32(seed, t, src, dst, _SALT_DUP)
+                                 < dup_num)
         flags += fired.to(torch.uint8) * FLAG_DUP
     if out_ok:
-        reply = (_hash32(seed, t, dst, src, _SALT_LOSS) >= loss_num if loss
-                 else torch.ones_like(send))
-        flags += reply.to(torch.uint8) * FLAG_OUT_OK
+        flags += kept(dst, src).to(torch.uint8) * FLAG_OUT_OK
     return flags
 
 
 def faulted_gather_round_plain(payload: torch.Tensor,
                                received: torch.Tensor | None,
                                rec: torch.Tensor, nbrs: torch.Tensor,
-                               flags: torch.Tensor):
+                               flags: torch.Tensor, block: int = 0):
     inbox = gather_or_plain(payload, nbrs, (flags & FLAG_DEL) != 0)
-    dup_pc = torch.zeros((), dtype=torch.int64, device=payload.device)
+    shape = (nbrs.shape[0] // block,) if block else ()
+    dup_pc = torch.zeros(shape, dtype=torch.int64, device=payload.device)
     if received is not None:
         dup = (flags & FLAG_DUP) != 0
         inbox |= gather_or_plain(received, nbrs, dup)
         pc_src = col_popcount_plain(received, node_major=True)
         src = nbrs.clamp(0, received.shape[0] - 1).to(torch.int64)
-        dup_pc = torch.where(dup, pc_src[src], 0).sum(dtype=torch.int64) \
-            & MASK32
+        per_row = torch.where(dup, pc_src[src], 0).sum(dim=1,
+                                                     dtype=torch.int64)
+        dup_pc = (per_row.view(-1, block).sum(dim=1) if block
+                  else per_row.sum()) & MASK32
     new = inbox & ~rec
     return new, rec | new, dup_pc
+
+
+def fold_freeze_plain(dst: torch.Tensor, src: torch.Tensor,
+                      active: torch.Tensor, block: int,
+                      dst1: torch.Tensor | None = None,
+                      src1: torch.Tensor | None = None) -> None:
+    rows = active[:, None].expand(-1, block).reshape(-1, 1)
+    dst.copy_(torch.where(rows, src, dst))
+    if dst1 is not None:
+        dst1.copy_(torch.where(rows, src1, dst1))
 
 
 def wm_fault_coins_plain(src: torch.Tensor, dst: torch.Tensor,
@@ -871,12 +908,18 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_col_popcount_nm": [ptr, ptr, i64, i64, ptr],
                 "gg_gather_nodes_per_block": [i64, i32]},
             "fault_flood": {
-                "gg_fault_coins": [ptr, ptr, ptr, ptr, i64, i32, i64, i64,
-                                   i64, i64, i64, i64, i32, i32, i32, ptr],
+                "gg_fault_coins": [ptr, ptr, ptr, ptr, ptr, i64, i32, i64,
+                                   i64, i64, i64, i64, i64, i64, i32, i32,
+                                   i32, ptr],
                 "gg_faulted_gather_round": [ptr, ptr, ptr, ptr, ptr, ptr,
                                             ptr, ptr, i64, i64, i64, i32,
                                             ptr],
                 "gg_faulted_nodes_per_block": [i64, i32],
+                "gg_faulted_gather_round_batched": [ptr, ptr, ptr, ptr, ptr,
+                                                    ptr, ptr, ptr, i64, i64,
+                                                    i64, i32, i64, ptr],
+                "gg_fold_freeze": [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                                   ptr],
                 "gg_wm_fault_coins": [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                       i64, i64, i32, i32, i32, ptr]},
             "counter_round": {
@@ -1371,10 +1414,12 @@ def _check_table(nbrs: torch.Tensor, mask: torch.Tensor | None, name: str,
                          "shaped like nbrs")
 
 
-def fault_coins(nbrs: torch.Tensor, up: torch.Tensor, *, t: int, seed: int,
-                loss_num: int, dup_num: int, loss: bool, dup: bool,
-                out_ok: bool, live: torch.Tensor | None = None,
-                row0: int = 0) -> torch.Tensor:
+def fault_coins(nbrs: torch.Tensor, up: torch.Tensor, *, t: int,
+                seed: int = 0, loss_num: int = 0, dup_num: int = 0,
+                loss: bool = False, dup: bool = False, out_ok: bool = False,
+                live: torch.Tensor | None = None, row0: int = 0,
+                table: torch.Tensor | None = None,
+                block: int = 0) -> torch.Tensor:
     """The round's per-edge coins as one (n, D) uint8 flag byte an edge of
     the slab ``nbrs`` (node rows ``row0 ..``): :data:`FLAG_SEND` (live —
     ``live``, else ``nbrs >= 0`` — and both endpoints ``up``),
@@ -1384,7 +1429,17 @@ def fault_coins(nbrs: torch.Tensor, up: torch.Tensor, *, t: int, seed: int,
     drop).  ``loss`` / ``dup``: whether each stream is active this round
     (``t`` below its horizon); the coins are the reference's
     ``edge_drop`` / ``edge_dup`` hashes of ``(seed, t, src, dst)`` over
-    the source index clipped into ``up``'s rows."""
+    the source index clipped into ``up``'s rows.
+
+    The scenario batch's form (``table``, an (S, 5) int64 tensor, and
+    ``block`` = N): S scenarios folded into one graph of S N rows, node
+    row r of scenario ``r // N``, whose row of the table gives its
+    ``seed``, ``loss_num``, ``dup_num`` and whether ``loss`` and ``dup``
+    are active (1 / 0); the scalar arguments are then unused but ``t``
+    and ``out_ok``.  Each scenario's coins hash its own ids (``dst - s
+    N``, ``src - s N``), a source index clipped into its own rows (a -1
+    pad to its row 0), so each scenario's flags are those of its
+    one-scenario call."""
     _check_table(nbrs, live, "live", torch.bool)
     if up.dtype != torch.bool or up.dim() != 1 or not up.is_contiguous():
         raise ValueError("up must be a contiguous (N,) bool tensor")
@@ -1392,24 +1447,36 @@ def fault_coins(nbrs: torch.Tensor, up: torch.Tensor, *, t: int, seed: int,
     if not 0 <= row0 <= up.shape[0] - n:
         raise ValueError(f"rows [{row0}, {row0 + n}) are not node ids of "
                          f"the {up.shape[0]}-row up vector")
+    if table is not None:
+        if block < 1 or up.shape[0] % block \
+                or table.shape != (up.shape[0] // block, 5) \
+                or table.dtype != torch.int64 or not table.is_contiguous():
+            raise ValueError(
+                f"a batched coin call needs block >= 1 dividing the "
+                f"{up.shape[0]} rows and a contiguous (S, 5) int64 table; "
+                f"got block {block}, table {table.dtype} "
+                f"{tuple(table.shape)}")
     args = dict(t=t, seed=seed, loss_num=loss_num, dup_num=dup_num,
-                loss=loss, dup=dup, out_ok=out_ok, live=live, row0=row0)
-    if _on_cpu(*[x for x in (nbrs, up, live) if x is not None]):
+                loss=loss, dup=dup, out_ok=out_ok, live=live, row0=row0,
+                table=table, block=block)
+    if _on_cpu(*[x for x in (nbrs, up, live, table) if x is not None]):
         return fault_coins_plain(nbrs, up, **args)
     flags = torch.empty(n, d, dtype=torch.uint8, device=nbrs.device)
     if n:
-        _launch("fault_coins", _lib("fault_flood").gg_fault_coins,
-                nbrs.device, nbrs.data_ptr(),
-                None if live is None else live.data_ptr(), up.data_ptr(),
-                flags.data_ptr(), n, d, up.shape[0], row0, t & MASK32,
-                seed & MASK32, loss_num & MASK32, dup_num & MASK32,
-                int(loss), int(dup), int(out_ok))
+        _launch("fault_coins" if table is None else "fault_coins_batched",
+                _lib("fault_flood").gg_fault_coins, nbrs.device,
+                nbrs.data_ptr(), None if live is None else live.data_ptr(),
+                up.data_ptr(), None if table is None else table.data_ptr(),
+                flags.data_ptr(), n, d, up.shape[0], row0, block,
+                t & MASK32, seed & MASK32, loss_num & MASK32,
+                dup_num & MASK32, int(loss), int(dup), int(out_ok))
     return flags
 
 
 def faulted_gather_round(payload: torch.Tensor,
                          received: torch.Tensor | None, rec: torch.Tensor,
-                         nbrs: torch.Tensor, flags: torch.Tensor):
+                         nbrs: torch.Tensor, flags: torch.Tensor,
+                         block: int = 0):
     """One faulted gather round over the slab ``nbrs`` / ``rec`` / ``flags``
     (n rows): ``inbox[i] = OR_d (DEL ? payload[nbrs[i, d]] : 0) | (DUP ?
     received[nbrs[i, d]] : 0)``, ``new = inbox & ~rec``, ``rec_next = rec
@@ -1417,7 +1484,9 @@ def faulted_gather_round(payload: torch.Tensor,
     the dup charge ``sum over DUP edges of popc(received[nbrs[i, d]])``
     mod 2^32 as a () int64.  ``received=None``: no dup stream (the DUP
     bits are not read).  Indices are clipped into the payload's rows.
-    Returns ``(new, rec_next, dup_pc)``."""
+    Returns ``(new, rec_next, dup_pc)``.  ``block`` (the scenario batch,
+    S scenarios of ``block`` rows folded): ``dup_pc`` is (S,), each
+    scenario's own charge mod 2^32."""
     _check_bitset("payload", payload)
     _check_bitset("rec", rec)
     _check_table(nbrs, flags, "flags", torch.uint8)
@@ -1432,25 +1501,71 @@ def faulted_gather_round(payload: torch.Tensor,
     if rec.shape != (nbrs.shape[0], payload.shape[1]):
         raise ValueError(f"rec {tuple(rec.shape)} must be (n, W) = "
                          f"({nbrs.shape[0]}, {payload.shape[1]})")
+    if block and (block < 1 or nbrs.shape[0] % block):
+        raise ValueError(f"block {block} does not divide the "
+                         f"{nbrs.shape[0]} rows")
     xs = [payload, rec, nbrs, flags] + ([] if received is None
                                         else [received])
     if _on_cpu(*xs):
         return faulted_gather_round_plain(payload, received, rec, nbrs,
-                                          flags)
+                                          flags, block)
     n, d = nbrs.shape
     w = payload.shape[1]
     new, rec_next = torch.empty_like(rec), torch.empty_like(rec)
     # the kernel adds uint32 words into the low half of a zeroed int64
-    dup_pc = torch.zeros((), dtype=torch.int64, device=payload.device)
+    dup_pc = torch.zeros((n // block,) if block else (), dtype=torch.int64,
+                         device=payload.device)
     if new.numel():
-        _launch("faulted_gather_round",
-                _lib("fault_flood").gg_faulted_gather_round, payload.device,
-                payload.data_ptr(),
-                None if received is None else received.data_ptr(),
-                rec.data_ptr(), nbrs.data_ptr(), flags.data_ptr(),
-                new.data_ptr(), rec_next.data_ptr(), dup_pc.data_ptr(), n, w,
-                payload.shape[0], d)
+        if block:
+            _launch("faulted_gather_round_batched",
+                    _lib("fault_flood").gg_faulted_gather_round_batched,
+                    payload.device, payload.data_ptr(),
+                    None if received is None else received.data_ptr(),
+                    rec.data_ptr(), nbrs.data_ptr(), flags.data_ptr(),
+                    new.data_ptr(), rec_next.data_ptr(), dup_pc.data_ptr(),
+                    n, w, payload.shape[0], d, block)
+        else:
+            _launch("faulted_gather_round",
+                    _lib("fault_flood").gg_faulted_gather_round,
+                    payload.device, payload.data_ptr(),
+                    None if received is None else received.data_ptr(),
+                    rec.data_ptr(), nbrs.data_ptr(), flags.data_ptr(),
+                    new.data_ptr(), rec_next.data_ptr(), dup_pc.data_ptr(),
+                    n, w, payload.shape[0], d)
     return new, rec_next, dup_pc
+
+
+def fold_freeze(dst: torch.Tensor, src: torch.Tensor, active: torch.Tensor,
+                block: int, dst1: torch.Tensor | None = None,
+                src1: torch.Tensor | None = None) -> None:
+    """The scenario batch's freeze, in place: the rows ``[s block, (s + 1)
+    block)`` of ``dst`` (and ``dst1``) take ``src``'s (``src1``'s) where
+    ``active[s]``; a frozen scenario's rows stay.  ``dst`` / ``src``:
+    (rows, W) int32, ``active`` (rows / block,) bool."""
+    pairs = [(dst, src)] + ([] if dst1 is None else [(dst1, src1)])
+    for d, s_ in pairs:
+        _check_bitset("dst", d)
+        _check_bitset("src", s_)
+        if d.shape != dst.shape or s_.shape != dst.shape:
+            raise ValueError(f"freeze pairs must share one shape, got "
+                             f"{tuple(d.shape)} and {tuple(s_.shape)}")
+        if _overlap(d, s_):
+            raise ValueError("a freeze destination aliases its source")
+    if active.dtype != torch.bool or active.dim() != 1 \
+            or not active.is_contiguous() or block < 1 \
+            or active.shape[0] * block != dst.shape[0]:
+        raise ValueError(f"active must be a contiguous (rows / block,) "
+                         f"bool tensor; got {active.dtype} "
+                         f"{tuple(active.shape)} for {dst.shape[0]} rows, "
+                         f"block {block}")
+    if _on_cpu(dst, src, active, *([] if dst1 is None else [dst1, src1])):
+        return fold_freeze_plain(dst, src, active, block, dst1, src1)
+    if dst.numel():
+        _launch("fold_freeze", _lib("fault_flood").gg_fold_freeze,
+                dst.device, dst.data_ptr(), src.data_ptr(),
+                None if dst1 is None else dst1.data_ptr(),
+                None if src1 is None else src1.data_ptr(),
+                active.data_ptr(), dst.shape[0], dst.shape[1], block)
 
 
 def wm_fault_coins(dirs: torch.Tensor, n: int, live: torch.Tensor, *,

@@ -27,8 +27,9 @@ The sims' injection hooks and ``run_traffic`` drivers live with the sims
 tracker.  ``t`` is a host int; the tracker's counters are () int64
 tensors holding uint32 values (masked to 32 bits, so they wrap where the
 reference's do).  Not ported yet, and raising: shard specs and meshes
-(ROADMAP.md Queue A item 10), scenario batches (``pad_tplan``,
-``batch_tplans``) and the resizing intake gate (item 12).
+(ROADMAP.md Queue A item 10) and the resizing intake gate (item 12).
+:func:`batch_tplans` stacks a serving batch's plans (the scenario
+batches, :mod:`.scenario`).
 """
 
 from __future__ import annotations
@@ -202,13 +203,62 @@ class TrafficSpec:
 
 
 def pad_tplan(plan: TrafficPlan, n_burst: int) -> TrafficPlan:
-    """Scenario batches: ROADMAP.md Queue A item 12."""
-    raise _unported("traffic.pad_tplan", 12)
+    """``plan`` with its burst-window axis padded to ``n_burst`` by
+    never-active ``[0, 0)`` windows (evaluation is unchanged)."""
+    b = len(plan.b_starts)
+    if b > n_burst:
+        raise ValueError(
+            f"plan has {b} burst windows, cannot pad to {n_burst}")
+    pad = (0,) * (n_burst - b)
+    return plan._replace(b_starts=plan.b_starts + pad,
+                         b_ends=plan.b_ends + pad, b_num=plan.b_num + pad)
+
+
+# the reference plan's leaf dtypes, in its field order
+TPLAN_DTYPES = (np.int32, np.uint32, np.int32, np.int32, np.int32,
+                np.uint32, np.uint32)
+
+
+def batch_bursts(specs, n_burst: int | None = None) -> int:
+    """The padded burst-window count of a batch of ``specs`` (``n_burst``
+    when given, else the widest spec's), after the batch's checks: at
+    least one spec, one static shape, ``n_burst`` no narrower than the
+    widest spec."""
+    if not specs:
+        raise ValueError("batch_tplans needs at least one spec")
+    key = specs[0].program_key[:4]
+    for sp in specs:
+        if sp.program_key[:4] != key:
+            raise ValueError(
+                "traffic batch mixes static shapes "
+                f"{key} and {sp.program_key[:4]} — n_nodes, "
+                "n_clients, ops_per_client and intake must be "
+                "uniform across a batch (rate/seed/kind/until/burst "
+                "values ride the traced plan)")
+    b_max = max(len(sp.burst) for sp in specs)
+    if n_burst is not None:
+        if n_burst < b_max:
+            raise ValueError(
+                f"n_burst={n_burst} < the batch's widest burst "
+                f"count {b_max}")
+        b_max = n_burst
+    return b_max
 
 
 def batch_tplans(specs, n_burst: int | None = None) -> TrafficPlan:
-    """Scenario batches: ROADMAP.md Queue A item 12."""
-    raise _unported("traffic.batch_tplans", 12)
+    """Compile, pad and stack ``specs`` into one :class:`TrafficPlan` of
+    numpy leaves with a leading scenario axis (the reference's batched
+    plan: scalars (S,), burst windows (S, B)); ``n_burst`` sets the
+    padded window count.  The serving batches drive each cell with its
+    own plan (``specs[i].compile()``); this is the batch's record of
+    them."""
+    specs = list(specs)
+    b_max = batch_bursts(specs, n_burst)
+    plans = [pad_tplan(sp.compile(), b_max) for sp in specs]
+    return TrafficPlan(*(
+        np.array([p[i] for p in plans], dt).reshape(
+            (len(plans), b_max) if i in (3, 4, 5) else (len(plans),))
+        for i, dt in enumerate(TPLAN_DTYPES)))
 
 
 # -- arrival evaluation --------------------------------------------------

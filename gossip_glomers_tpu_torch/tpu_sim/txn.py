@@ -39,9 +39,9 @@ and ``run`` leave the state passed in as it was (``run`` copies it once);
 ``run_fused`` updates it in place.
 
 Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10: ``ops_specs``, ``TxnSim._state_spec``); the scenario batch hooks
-``_build_batch_round`` and ``_batch_converged`` (item 12); the program
-audit (item 14: ``audit_run_program``, ``audit_contracts``).
+item 10: ``ops_specs``, ``TxnSim._state_spec``); the program audit (item
+14: ``audit_run_program``, ``audit_contracts``).  The scenario batches
+(:mod:`.scenario`) step each scenario through ``_build_batch_round``.
 """
 
 from __future__ import annotations
@@ -347,17 +347,24 @@ def state_from_numpy(state, device: str | torch.device) -> TxnState:
                           device=device))
 
 
-# -- not ported yet ------------------------------------------------------
+# -- scenario-batch hooks ------------------------------------------------
 
 
 def _build_batch_round(sim: TxnSim):
-    """The scenario-axis batch round: ROADMAP.md Queue A item 12."""
-    raise _unported("txn._build_batch_round", 12)
+    """One scenario's round for the scenario batches (:mod:`.scenario`),
+    which run each txn scenario on its own sim under its own plan:
+    ``rnd(state)`` steps once in place (:meth:`TxnSim.run_fused`)."""
+    def rnd(state: TxnState) -> TxnState:
+        return sim.run_fused(state, 1)
+    return rnd
 
 
-def _batch_converged(state: TxnState):
-    """The scenario batch's convergence predicate: Queue A item 12."""
-    raise _unported("txn._batch_converged", 12)
+def _batch_converged(state: TxnState) -> torch.Tensor:
+    """() bool on the device: every offered transaction committed."""
+    return (state.cur >= state.arrived).all()
+
+
+# -- not ported yet ------------------------------------------------------
 
 
 def audit_contracts():

@@ -383,8 +383,9 @@ def test_counter_errors_match_reference():
     for name in ("run_traffic", "traffic_state", "telemetry_state",
                  "run_observed", "provenance_state"):
         assert callable(getattr(sim, name))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pc._build_batch_round(sim)
+    # the scenario batches' round hook runs: one round in place
+    st, tel = pc._build_batch_round(sim)(sim.init_state())
+    assert st.t == 1 and tel is None and bool(pc._batch_converged(st))
     for kw in (dict(mode="x"), dict(winner_key="x"), dict(kv_backend="x"),
                dict(kv_amnesia=True), dict(stale_prob=0.1),
                dict(mode="allreduce", kv_backend="device", stale_prob=0.1),

@@ -1470,3 +1470,161 @@ def test_cuda_txn_round_equals_cpu_round(cuda_device, amnesia, monkeypatch):
     assert torch.equal(g.rows.vers.cpu(), c.rows.vers)
     assert txn.history_of(g, sims[0].ops) == txn.history_of(c, sims[1].ops)
     assert int((c.commit_round >= 0).sum()) > 0
+
+
+# -- the scenario batch: the batched fault kernels and the folded round ---
+
+# (S, N) pairs of kernel_check: one scenario, a few, a fuzz batch; rows a
+# scenario 1 (every row its own scenario), 24 (blocks of the W = 1 and
+# W = 2 rounds straddle scenarios) and 1,024
+BATCH_SN = [(s, n) for s in (1, 3, 128) for n in (1, 24, 1024)]
+
+
+def _batch_case(s, n, w, d, seed, device):
+    """A folded (S N, D) table (-1 pads kept), its per-scenario (N, D)
+    tables, an (S N,) up vector, a live mask, a coin table mixing every
+    loss / dup stream state, payload, dup rows and receivers."""
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(-1, n, (s, n, d)).astype(np.int32)
+    off = (np.arange(s) * n)[:, None, None]
+    fold = np.where(nb >= 0, nb + off, -1).reshape(s * n, d).astype(np.int32)
+    tab = np.stack([rng.integers(0, 2**32, s), rng.integers(0, 2**32, s) // 3,
+                    rng.integers(0, 2**32, s) // 4, np.arange(s) % 2,
+                    (np.arange(s) // 2) % 2], axis=1).astype(np.int64)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return dict(fold=dev(fold), nb=dev(nb), up=dev(rng.random(s * n) >= 0.1),
+                live=dev((rng.random((s * n, d)) < 0.7) & (fold >= 0)),
+                table=dev(tab), payload=_bits((s * n, w), seed, device),
+                received=_bits((s * n, w), seed + 1, device),
+                rec=_bits((s * n, w), seed + 2, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n", BATCH_SN)
+@pytest.mark.parametrize("w,d", [(1, 4), (2, 3), (64, 4)])
+def test_cuda_batched_fault_kernels_match_plain(cuda_device, s, n, w, d):
+    c = _batch_case(s, n, w, d, s * 1000 + n + w, cuda_device)
+    before = dict(kernels.LAUNCHES)
+    calls = 0
+    for masked in (False, True):
+        for out_ok in (False, True):
+            kw = dict(t=9, out_ok=out_ok, table=c["table"], block=n,
+                      live=c["live"] if masked else None)
+            flags = kernels.fault_coins(c["fold"], c["up"], **kw)
+            want = kernels.fault_coins_plain(c["fold"], c["up"], **kw)
+            assert torch.equal(flags, want)
+            for dup in (False, True):
+                got = kernels.faulted_gather_round(
+                    c["payload"], c["received"] if dup else None, c["rec"],
+                    c["fold"], flags, block=n)
+                ref = kernels.faulted_gather_round_plain(
+                    c["payload"], c["received"] if dup else None, c["rec"],
+                    c["fold"], flags, block=n)
+                for a, b in zip(got, ref):
+                    assert torch.equal(a, b)
+                calls += 1
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fault_coins_batched"] \
+        == before["fault_coins_batched"] + 4
+    assert kernels.LAUNCHES["faulted_gather_round_batched"] \
+        == before["faulted_gather_round_batched"] + calls
+    if s == 1:
+        # one scenario: the batched forms are the one-scenario kernels
+        t = c["table"][0].tolist()
+        one = kernels.fault_coins(
+            c["nb"][0], c["up"], t=9, seed=t[0], loss_num=t[1],
+            dup_num=t[2], loss=bool(t[3]), dup=bool(t[4]), out_ok=True)
+        flags = kernels.fault_coins(c["fold"], c["up"], t=9, out_ok=True,
+                                    table=c["table"], block=n)
+        assert torch.equal(one, flags)
+        a = kernels.faulted_gather_round(c["payload"], c["received"],
+                                         c["rec"], c["fold"], flags)
+        b = kernels.faulted_gather_round(c["payload"], c["received"],
+                                         c["rec"], c["fold"], flags, block=n)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert int(a[2]) == int(b[2][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n", BATCH_SN)
+@pytest.mark.parametrize("w", (1, 3, 64))
+def test_cuda_fold_freeze_matches_plain(cuda_device, s, n, w):
+    c = _batch_case(s, n, w, 2, s + n + w, cuda_device)
+    active = torch.from_numpy(np.random.default_rng(w).random(s) < 0.5).to(
+        cuda_device)
+    before = kernels.LAUNCHES["fold_freeze"]
+    got = (c["rec"].clone(), c["payload"].clone())
+    want = (c["rec"].clone(), c["payload"].clone())
+    kernels.fold_freeze(got[0], c["received"], active, n, got[1],
+                        c["rec"])
+    kernels.fold_freeze_plain(want[0], c["received"], active, n, want[1],
+                              c["rec"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels.LAUNCHES["fold_freeze"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_folded_batch_matches_sequential_and_cpu(cuda_device):
+    # a small folded broadcast batch (partitions, delays, dup) on the card:
+    # its rows, received sets and telemetry equal the CPU batch's and each
+    # scenario's run_broadcast_nemesis on the card; the trip makes no host
+    # sync and runs the batched kernels, never the one-scenario ones
+    from gossip_glomers_tpu_torch.harness import nemesis
+    from gossip_glomers_tpu_torch.tpu_sim import scenario, telemetry
+
+    n, nv, s = 24, 48, 6
+    nbrs = topology.to_padded_neighbors(topology.grid(n))
+    rng = np.random.default_rng(1)
+    cells = []
+    for i in range(s):
+        spec = faults.random_spec(n, seed=i + 1, horizon=8,
+                                  n_crash_windows=i % 3,
+                                  loss_rate=0.1 * (i % 2),
+                                  dup_rate=0.05 * (i % 3 == 0))
+        parts = ({"starts": [2], "ends": [5],
+                  "group": [(np.arange(n) % 2).tolist()]} if i % 2 else None)
+        cells.append(scenario.Scenario(
+            spec=spec, parts=parts,
+            delays=tuple(map(tuple, rng.integers(1, 3, nbrs.shape).tolist()))))
+    for delayed in (True, False):
+        scs = tuple(cells if delayed else
+                    [scenario.Scenario(spec=c.spec, parts=c.parts)
+                     for c in cells])
+        batch = scenario.ScenarioBatch(
+            workload="broadcast", scenarios=scs,
+            runner_kw={"n_values": nv, "topology": "grid"},
+            max_recovery_rounds=32)
+        tel = telemetry.TelemetrySpec("broadcast", rounds=40)
+        staged = scenario.stage_broadcast_batch(
+            batch, telemetry_spec=tel, device=cuda_device)
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = scenario.broadcast_trip(staged)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        handle["n_real"] = s
+        got = scenario.collect_scenario_batch(handle)
+        assert kernels.LAUNCHES["fault_coins"] == before["fault_coins"]
+        assert kernels.LAUNCHES["fold_freeze"] > before["fold_freeze"]
+        assert kernels.LAUNCHES["fault_coins_batched"] > \
+            before["fault_coins_batched"]
+        want = scenario.run_scenario_batch(batch, telemetry_spec=tel,
+                                           device="cpu")
+        assert got["scenarios"] == want["scenarios"]
+        assert got["telemetry"] == want["telemetry"]
+        assert torch.equal(got["final"].received.cpu(),
+                           want["final"].received)
+        for i, sc in enumerate(scs):
+            seq = nemesis.run_broadcast_nemesis(
+                sc.spec, n_values=nv, max_recovery_rounds=32,
+                parts=sc.parts,
+                delays=None if sc.delays is None else np.asarray(sc.delays),
+                device=cuda_device)
+            for k in ("converged_round", "msgs_total", "lost_writes", "ok"):
+                assert got["scenarios"][i][k] == seq[k], (i, k)

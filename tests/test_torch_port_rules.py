@@ -76,7 +76,8 @@ def test_host_only_copies_are_the_ports_own(module, name):
 
 
 HARNESS_COPIES = ["TimelineBuilder", "check_txn_serializable",
-                  "write_json_atomic", "validate_timeline"]
+                  "write_json_atomic", "validate_timeline",
+                  "check_recovery_batch", "check_slo"]
 
 
 @pytest.mark.parametrize("name", HARNESS_COPIES)
@@ -89,11 +90,30 @@ def test_harness_host_copies_are_the_ports_own(name, tmp_path):
     from gossip_glomers_tpu_torch.harness import checkers as pc
     from gossip_glomers_tpu_torch.harness import observe as po
 
-    port_mod = pc if name == "check_txn_serializable" else po
-    ref_mod = jc if name == "check_txn_serializable" else jo
+    checker = name.startswith("check_")
+    port_mod = pc if checker else po
+    ref_mod = jc if checker else jo
     fn = getattr(port_mod, name)
     assert fn.__module__ == port_mod.__name__
-    if name == "TimelineBuilder":
+    if name == "check_recovery_batch":
+        kw = dict(clear_rounds=np.array([4, 4, 6, 2]),
+                  converged_rounds=np.array([6, -1, 20, 2]),
+                  max_recovery_rounds=8, lost_writes=[[], [], [7], [1, 2]],
+                  msgs_at_clear=np.array([100, 100, 90, 5]),
+                  msgs_at_converged=np.array([120, 100, 140, 5]))
+        assert fn(**kw) == jc.check_recovery_batch(**kw)
+        with pytest.raises(ValueError, match="batch shape mismatch"):
+            fn(**dict(kw, lost_writes=[[]]))
+    elif name == "check_slo":
+        row = {"cell": 2, "coords": [0, 1, 1], "completed": 3,
+               "conserved": False, "lat_p50": 1.0, "lat_p99": 7.0,
+               "lat_max": 9, "sustained_per_round": 0.2,
+               "converged_round": None, "recovery_rounds": 12}
+        for kw in ({}, {"p99_max_rounds": 5, "max_rounds": 8,
+                        "min_sustained": 0.5, "max_recovery_rounds": 4},
+                   {"min_completed": 4, "coords": (3,)}):
+            assert fn(row, **kw) == jc.check_slo(row, **kw)
+    elif name == "TimelineBuilder":
         got, want = fn("x"), jo.TimelineBuilder("x")
         for b in (got, want):
             b.slice("r", "round 0", 0, 1000)
@@ -205,33 +225,50 @@ def test_unported_modes_raise():
     state, _ = sim.stage(broadcast.make_inject(8, 4))
     with pytest.raises(ValueError, match="ledger is off"):
         sim.server_msgs(state)
-    # txn-rw-register runs on one device; its meshes (item 10), scenario
-    # batches (item 12) and audit (item 14) raise, as do the frontier's
-    # report check (item 13) and a replay on a mesh (item 10)
+    # txn-rw-register runs on one device; its meshes (item 10) and audit
+    # (item 14) raise, as do the frontier's report check (item 13) and a
+    # replay on a mesh (item 10); the scenario batches run, and raise on
+    # a mesh (item 10) and for their program audit (item 14)
     from gossip_glomers_tpu_torch.harness import observe
     from gossip_glomers_tpu_torch.harness import txn as htxn
-    from gossip_glomers_tpu_torch.tpu_sim import txn
+    from gossip_glomers_tpu_torch.tpu_sim import scenario, txn
 
     tsim = txn.TxnSim(8, 4, device="cpu")
+    sbatch = scenario.ScenarioBatch(workload="counter", scenarios=(
+        faults.NemesisSpec(n_nodes=4),))
+    cells = (scenario.ServingCell(traffic=scenario.traffic.TrafficSpec(
+        n_nodes=4, n_clients=4, ops_per_client=1, until=2)),)
     for fn, item in (
             (lambda: txn.TxnSim(8, 4, device="cpu", mesh=object()), 10),
             (lambda: txn.TxnSim(8, 4, device="cpu", dcn_mode="sync"), 10),
             (txn.ops_specs, 10), (lambda: tsim._state_spec, 10),
-            (lambda: txn._build_batch_round(tsim), 12),
-            (lambda: txn._batch_converged(tsim.init_state()), 12),
-            (lambda: htxn.run_txn_frontier([0.5], []), 12),
+            (lambda: scenario.run_scenario_batch(sbatch, mesh=object(),
+                                                 device="cpu"), 10),
+            (lambda: scenario.dispatch_serving_batch(
+                scenario.ServingBatch(workload="counter", cells=cells),
+                mesh=object(), device="cpu"), 10),
+            (lambda: htxn.run_txn_frontier([0.5], [], mesh=object(),
+                                           device="cpu"), 10),
+            (scenario.audit_contracts, 14),
+            (lambda: scenario._audit_program("counter", sbatch, None), 14),
             (lambda: tsim.audit_run_program, 14), (txn.audit_contracts, 14),
             (lambda: observe.validate_frontier({}), 13),
             (lambda: observe.replay_bundle({}, mesh=object()), 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
     assert tsim.run(tsim.init_state(), 3).t == 3
+    state = tsim.init_state()
+    assert txn._build_batch_round(tsim)(state).t == 1
+    assert bool(txn._batch_converged(state)) == bool(
+        (state.cur >= state.arrived).all())
+    assert htxn.run_txn_frontier([0.5], [faults.NemesisSpec(n_nodes=4)],
+                                 until=4, device="cpu")["n_cells"] == 1
 
 
 def test_kafka_unported_parts_raise_with_their_items():
-    # meshes and dcn_mode (item 10), the scenario batch (item 12) and the
-    # audit (item 14); the traffic driver, its telemetry ring and the
-    # observed driver with its provenance record are ported
+    # meshes and dcn_mode (item 10) and the audit (item 14); the traffic
+    # driver, its telemetry ring, the observed driver with its provenance
+    # record and the scenario batch hooks are ported
     for kw in ({"mesh": object()}, {"dcn_mode": "sync"}):
         with pytest.raises(NotImplementedError, match="item 10"):
             kafka.KafkaSim(4, 2, 8, device="cpu", **kw)
@@ -245,11 +282,15 @@ def test_kafka_unported_parts_raise_with_their_items():
         assert callable(getattr(sim, name))
     with pytest.raises(AttributeError):
         sim.no_such_method
-    for fn, item in ((lambda: kafka._build_batch_round(sim), 12),
-                     (lambda: kafka._batch_converged(sim.init_state()), 12),
-                     (kafka.audit_contracts, 14)):
+    for fn, item in ((kafka.audit_contracts, 14),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
+    # the scenario batches' hooks run: one commit-free round in place
+    st, _ = kafka._build_batch_round(sim)(
+        sim.init_state(), torch.full((4, sim.max_sends), -1,
+                                     dtype=torch.int32),
+        torch.zeros((4, sim.max_sends), dtype=torch.int32))
+    assert st.t == 1 and bool(kafka._batch_converged(st))
 
 
 def test_kafka_runs_on_cuda_unless_told(monkeypatch):

@@ -196,12 +196,13 @@ def test_unported_parts_raise_with_their_items():
     for fn, item in ((PT.plan_specs, 10),
                      (lambda: PT.state_specs(True), 10),
                      (lambda: PT.init_state(pspec, mesh=object()), 10),
-                     (lambda: PT.pad_tplan(pspec.compile(), 2), 12),
-                     (lambda: PT.batch_tplans([pspec]), 12),
                      (lambda: PT.resizing_defer(None, None), 12),
                      (PTM.state_specs, 10), (PTM.audit_contracts, 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
+    # the scenario batches' plan padding and stacking are ported
+    assert len(PT.pad_tplan(pspec.compile(), 2).b_starts) == 2
+    assert PT.batch_tplans([pspec, pspec]).rate_num.shape == (2,)
 
 
 def test_tracker_runs_on_cuda_unless_told(monkeypatch):

@@ -443,16 +443,18 @@ def test_unported_txn_parts_raise_with_their_items():
             (lambda: PT.TxnSim(4, 4, device="cpu", dcn_mode="sync"), 10),
             (PT.ops_specs, 10), (lambda: sim._state_spec, 10),
             (lambda: sim.audit_run_program, 14),
-            (lambda: PT._build_batch_round(sim), 12),
-            (lambda: PT._batch_converged(sim.init_state()), 12),
             (PT.audit_contracts, 14),
-            (lambda: PH.run_txn_frontier([0.5], []), 12),
+            (lambda: PH.run_txn_frontier([0.5], [], mesh=object(),
+                                         device="cpu"), 10),
             (lambda: PH.run_txn_nemesis(PF.NemesisSpec(n_nodes=4),
                                         mesh=object(), device="cpu"), 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
     with pytest.raises(AttributeError):
         sim.no_such_method
+    # the scenario batches' hooks run
+    st = PT._build_batch_round(sim)(sim.init_state())
+    assert st.t == 1 and PT._batch_converged(st).dtype == torch.bool
 
 
 def test_txn_runs_on_cuda_unless_told(monkeypatch):
