@@ -7,7 +7,9 @@ from ``gossip_glomers_tpu_torch/csrc/`` into ``build/`` (one ``nvcc`` per
 source, all started together) and drives the main path, the broadcast
 flood at 1,048,576 nodes, on every topology the port runs, then the
 g-counter, unique ids, echo, Kafka, serving, the nemesis campaigns,
-txn-rw-register and the flight recorder:
+txn-rw-register, the flight recorder, the scenario batches, checkpoints,
+elastic resizing, the serving frontier and the fuzzer (checkpoints,
+bundles and repros under ``build/chip_smoke/``):
 
 1. ``build``: nvcc build of the kernels, with its seconds.
 2. ``kernel_check``: each kernel against its plain PyTorch version on the
@@ -248,7 +250,8 @@ txn-rw-register and the flight recorder:
 37. ``scenario_broadcast_fuzz``: fault_sweep.py:644-687's campaign,
     1,152 broadcast scenarios of a 24-node grid (48 values, sync every
     4, horizon 8, 32 recovery rounds) as 9 folded batches of 128
-    (``tpu_sim/scenario.py``), delays 1-2 on odd batches: each batch's
+    (``tpu_sim/scenario.py``) drawn by ``harness/fuzz.py``'s
+    ``sample_scenarios`` (seed 1), delays 1-2 on odd batches: each batch's
     walls, rounds, launches a round and scenarios a second, the trip
     run under ``no_host_sync``; two trips' device idle share; batch 0
     one scenario at a time through ``run_broadcast_nemesis`` (ms a
@@ -262,8 +265,9 @@ txn-rw-register and the flight recorder:
     and convergence ops' device ms; 4 scenarios held against their
     sequential runs on the card.
 39. ``scenario_counter_fuzz``, ``scenario_kafka_fuzz``: fault_sweep.py
-    :699-706's breadth batches (64 scenarios at 16 nodes, horizon 8),
-    each scenario on its own sim (the looped batches): the wall, trips,
+    :699-706's breadth batches (64 scenarios at 16 nodes, horizon 8,
+    ``sample_scenarios``), each scenario on its own sim (the looped
+    batches): the wall, trips,
     host syncs and launches a trip, equal to the CPU path.
 40. ``scenario_txn``: 64 txn campaigns at 64 nodes (the runner_kw
     defaults), every verdict serializable, equal to the CPU path.
@@ -272,6 +276,31 @@ txn-rw-register and the flight recorder:
     topologies, MRR 12, drain 4) as one serving batch: every row equal
     to the cell's ``run_serving`` on the card on the cartography's parity
     keys, 32 cells equal to the CPU path.
+42. ``checkpoint_tree_1m``: the main path's 2^20-node tree under
+    ``w1_tree_nemesis``'s plan and ``w1_tree_nemesis_delayed``'s
+    (``dir_delays = (1, 3)``): checkpointed at round 8 inside the crash
+    window, restored on the card with the plan rebuilt from the file's
+    spec, finished equal to the uninterrupted run; the file's arrays in
+    the reference's names and dtypes; save / restore ms, file bytes.
+43. ``resize_broadcast_full``: ``run_resize_campaign`` on ``full``, grow
+    1,024 -> 1,536 and shrink 1,536 -> 1,024 at round 6 with a crash
+    window across the boundary, 65,536 KV keys re-homed: certified, twin
+    bit-exact; the 64 <-> 96 forms equal on the card and the CPU.
+44. ``resize_counter_1m``: the allreduce counter grown 2^20 -> 2^21 and
+    shrunk back, crash windows across each boundary, 2^20 KV keys
+    re-homed: certified, twin bit-exact; the resize path's device
+    functions (the moved-key mask, the register carry, the member census,
+    the state's pad and cut, the resizing intake gate) timed.
+45. ``resize_kafka_4k``: Kafka grown 4,096 -> 6,144 and shrunk back
+    (1,024 keys, S 2, resync every 4): certified, allocations continue.
+46. ``frontier_grid_256``: ``run_frontier`` over the 256-cell grid with
+    signatures, validated, every row equal to ``serving_batch_frontier``'s;
+    two SLO-failing cells' bundles replayed on the card and the CPU.
+47. ``fuzz_campaigns``: fault_sweep.py:684-706's ``fuzz_run`` campaigns
+    (1,152 broadcast with the planted failure and two shrinks, counter,
+    Kafka, counter with the membership axis) and frontier_cartography.py
+    :144-195's shape-bucket and adaptive runs: the planted seed shrinks
+    and its bundle replays on the card and the CPU.
 
 The Kafka phases run their staged rounds under torch's sync debug mode
 (no host sync) and report rounds, wall ms, ms a round, device busy ms,
@@ -5212,11 +5241,10 @@ def flight_bundles(nemesis, serving, observe, faults, traffic, device,
 # benchmarks/fault_sweep.py:644-687's broadcast campaign: 1,152 scenarios
 # of a 24-node grid in batches of 128, 48 values, sync every 4, horizon 8,
 # 32 recovery rounds; per-edge delays 1-2 on every other batch
-# (fuzz_run's delay_axis="alternate"); the fault grids are harness/fuzz.py's
+# (fuzz_run's delay_axis="alternate"), batch b drawn by the port's
+# sample_scenarios with seed FUZZ_SEED * 1000 + b, as fuzz_run draws it
 FUZZ_N, FUZZ_BATCHES, FUZZ_BATCH, FUZZ_NV = 24, 9, 128, 48
-FUZZ_HORIZON, FUZZ_MRR, FUZZ_SEQ_HELD = 8, 32, 8
-LOSS_GRID, DUP_GRID, CRASH_GRID = (0.0, 0.05, 0.1, 0.2), (0.0, 0.05, 0.1), \
-    (0, 1, 2)
+FUZZ_HORIZON, FUZZ_MRR, FUZZ_SEQ_HELD, FUZZ_SEED = 8, 32, 8, 1
 # the wide folded batch: 256 scenarios of a 1,024-node grid, W = 64; 4
 # of its delayed and 2 of its one-hop scenarios held to sequential runs
 WIDE_S, WIDE_N, WIDE_NV, WIDE_HORIZON, WIDE_MRR, WIDE_HELD = \
@@ -5229,8 +5257,9 @@ LOOP_S, LOOP_N, LOOP_HORIZON = 64, 16, 8
 KAFKA_FUZZ_KW = {"n_keys": 4, "capacity": 64, "max_sends": 2,
                  "resync_every": 4, "send_prob": 0.7}
 TXN_FUZZ_S, TXN_FUZZ_N = 64, 64
-# benchmarks/frontier_cartography.py:55-71's grid: 16 rates x 8 fault
-# levels x 2 topologies at 8 nodes, until 6, seed 3; MRR 12, drain 4
+# benchmarks/frontier_cartography.py:55-71's grid (its GRID_KW, through
+# harness/frontier.py's frontier_grid): 16 rates x 8 fault levels x 2
+# topologies at 8 nodes, until 6, seed 3; MRR 12, drain 4
 FRONTIER_RATES = tuple(round(0.05 + 0.9 * i / 15, 4) for i in range(16))
 FRONTIER_LEVELS = (None, {"loss_rate": 0.05}, {"loss_rate": 0.15},
                    {"n_crash_windows": 1},
@@ -5239,6 +5268,9 @@ FRONTIER_LEVELS = (None, {"loss_rate": 0.05}, {"loss_rate": 0.15},
                    {"n_crash_windows": 2, "loss_rate": 0.1},
                    {"n_crash_windows": 1, "loss_rate": 0.1,
                     "dup_rate": 0.05})
+FRONTIER_GRID = dict(n_nodes=8, rates=FRONTIER_RATES,
+                     fault_levels=FRONTIER_LEVELS,
+                     topologies=("grid", "tree"), until=6, seed=3)
 FRONTIER_PARITY_KEYS = ("arrived", "issued", "deferred", "completed",
                         "in_flight", "conserved", "lat_p50", "lat_p99",
                         "lat_max", "msgs_total", "total_rounds",
@@ -5351,63 +5383,15 @@ def check_batched_faults(kernels, note, device) -> None:
         torch.cuda.empty_cache()
 
 
-def fuzz_specs(faults, workload: str, count: int, n: int, seed: int,
-               horizon: int) -> list:
-    """harness/fuzz.py ``sample_scenarios``' law for the looped batches
-    (no partitions, no membership): scenario i's crash windows from
-    :data:`CRASH_GRID`, loss from :data:`LOSS_GRID` (and dup from
-    :data:`DUP_GRID`) by its own ``default_rng(seed * 100003 + i)``; the
-    counter's crash windows shifted past its cas drain (fault_sweep.py's
-    convention); txn carries no dup."""
-    import numpy as np
-
-    out = []
-    for i in range(count):
-        cell = seed * 100003 + i
-        rng = np.random.default_rng(cell)
-        n_crash = int(rng.choice(CRASH_GRID))
-        loss = float(rng.choice(LOSS_GRID))
-        if n_crash == 0:
-            spec = faults.NemesisSpec(n_nodes=n, seed=cell, loss_rate=loss,
-                                      loss_until=horizon if loss else None)
-        else:
-            spec = faults.random_spec(n, seed=cell, horizon=horizon,
-                                      n_crash_windows=n_crash,
-                                      loss_rate=loss)
-        if workload == "counter" and spec.crash:
-            meta, shift = spec.to_meta(), n + 2
-            meta["crash"] = [[a + shift, b + shift, ns]
-                             for a, b, ns in meta["crash"]]
-            if spec.loss_rate:
-                meta["loss_until"] += shift
-            spec = faults.NemesisSpec.from_meta(meta)
-        out.append((spec, cell))
-    return out
-
-
-def broadcast_fuzz_batch(scenario, faults, topology, b: int) -> object:
-    """Batch ``b`` of the 1,152-scenario broadcast campaign: scenario i =
-    ``b * 128 + k`` is ``random_spec(24, seed=i, horizon=8)`` with
-    ``i % 3`` crash windows, loss ``LOSS_GRID[i % 4]`` and dup
-    ``DUP_GRID[i % 3]``; odd i add the even/odd partition window [2, 5);
-    odd batches per-edge delays 1-2 (``default_rng(i)``)."""
-    import numpy as np
-
+def broadcast_fuzz_batch(scenario, fuzz, topology, b: int) -> object:
+    """Batch ``b`` of the 1,152-scenario broadcast campaign, drawn by
+    harness/fuzz.py's ``sample_scenarios`` as ``fuzz_run("broadcast",
+    1152, seed=FUZZ_SEED)`` draws it (seed ``FUZZ_SEED * 1000 + b``, the
+    partition axis on, per-edge delays 1-2 on odd batches)."""
     nbrs = topology.to_padded_neighbors(topology.grid(FUZZ_N))
-    even_odd = {"starts": [2], "ends": [5],
-                "group": [(np.arange(FUZZ_N) % 2).tolist()]}
-    cells = []
-    for k in range(FUZZ_BATCH):
-        i = b * FUZZ_BATCH + k
-        spec = faults.random_spec(
-            FUZZ_N, seed=i, horizon=FUZZ_HORIZON, n_crash_windows=i % 3,
-            loss_rate=LOSS_GRID[i % 4], dup_rate=DUP_GRID[i % 3])
-        delays = None
-        if b % 2:
-            delays = tuple(map(tuple, np.random.default_rng(i).integers(
-                1, 3, nbrs.shape).tolist()))
-        cells.append(scenario.Scenario(
-            spec=spec, parts=even_odd if i % 2 else None, delays=delays))
+    cells = fuzz.sample_scenarios(
+        "broadcast", FUZZ_BATCH, n_nodes=FUZZ_N, seed=FUZZ_SEED * 1000 + b,
+        horizon=FUZZ_HORIZON, nbrs_shape=nbrs.shape, delay_axis=bool(b % 2))
     return scenario.ScenarioBatch(
         workload="broadcast", scenarios=tuple(cells),
         runner_kw={"n_values": FUZZ_NV, "topology": "grid",
@@ -5657,13 +5641,13 @@ def scenario_broadcast_fuzz(modules, device, launches: Launches, card: str,
     ``run_broadcast_nemesis`` on the card (ms a scenario both ways), 8 of
     them held bit for bit (rows, telemetry, received) and the whole of
     batch 0 against the CPU path."""
-    broadcast, nemesis, scenario, telemetry, topology, faults, kernels = \
+    broadcast, nemesis, scenario, telemetry, topology, _, kernels, fuzz = \
         modules
     rec = {"phase": "scenario_broadcast_fuzz", "card": card, "n": FUZZ_N,
            "n_values": FUZZ_NV, "batches": FUZZ_BATCHES,
            "batch_size": FUZZ_BATCH, "horizon": FUZZ_HORIZON,
            "max_recovery_rounds": FUZZ_MRR, "per_batch": []}
-    batches = [broadcast_fuzz_batch(scenario, faults, topology, b)
+    batches = [broadcast_fuzz_batch(scenario, fuzz, topology, b)
                for b in range(FUZZ_BATCHES)]
     certified = 0
     launches.start()
@@ -5762,7 +5746,7 @@ def scenario_broadcast_256x1024(modules, device, launches: Launches,
     scenarios held against their sequential runs on the card."""
     import torch
 
-    broadcast, nemesis, scenario, telemetry, topology, faults, kernels = \
+    broadcast, nemesis, scenario, telemetry, topology, faults, kernels, _ = \
         modules
     batch = wide_batch(scenario, faults, topology)
     one_hop = dataclasses.replace(batch, scenarios=tuple(
@@ -5867,16 +5851,15 @@ def scenario_looped_phases(modules, device, launches: Launches,
     scenarios at 16 nodes, horizon 8) and 64 txn campaigns at 64 nodes
     (the runner_kw defaults), each scenario on its own sim under its own
     plan, held against the CPU path; every txn verdict serializable."""
-    scenario, faults, kernels = modules
+    scenario, fuzz, kernels = modules
     for name, wl, seed, kw, mrr, expect in (
             ("scenario_counter_fuzz", "counter", 2,
              {"mode": "cas", "poll_every": 2}, 48,
              ("counter_select", "counter_apply")),
             ("scenario_kafka_fuzz", "kafka", 3, KAFKA_FUZZ_KW, 32,
              ("kafka_merge", "kafka_nem_deliver"))):
-        cells = [scenario.Scenario(spec=sp, workload_seed=ws)
-                 for sp, ws in fuzz_specs(faults, wl, LOOP_S, LOOP_N, seed,
-                                          LOOP_HORIZON)]
+        cells = fuzz.sample_scenarios(wl, LOOP_S, n_nodes=LOOP_N, seed=seed,
+                                      horizon=LOOP_HORIZON)
         batch = scenario.ScenarioBatch(workload=wl, scenarios=tuple(cells),
                                        runner_kw=kw, max_recovery_rounds=mrr)
         _, rec = looped_phase(name, scenario, kernels, batch, device,
@@ -5886,9 +5869,8 @@ def scenario_looped_phases(modules, device, launches: Launches,
         emit(rec)
         if not rec["ok"]:
             raise AssertionError(f"{name}: {rec}")
-    cells = [scenario.Scenario(spec=sp, workload_seed=ws)
-             for sp, ws in fuzz_specs(faults, "txn", TXN_FUZZ_S, TXN_FUZZ_N,
-                                      4, LOOP_HORIZON)]
+    cells = fuzz.sample_scenarios("txn", TXN_FUZZ_S, n_nodes=TXN_FUZZ_N,
+                                  seed=4, horizon=LOOP_HORIZON)
     batch = scenario.ScenarioBatch(workload="txn", scenarios=tuple(cells))
     res, rec = looped_phase("scenario_txn", scenario, kernels, batch, device,
                             launches, card, ("txn_claim", "txn_commit"),
@@ -5902,45 +5884,17 @@ def scenario_looped_phases(modules, device, launches: Launches,
         raise AssertionError(f"scenario_txn: {rec}")
 
 
-def frontier_cells(scenario, faults, traffic) -> list:
-    """frontier_cartography.py's 256-cell grid, built as
-    harness/frontier.py ``frontier_grid`` builds it: cell (rate i, level
-    j, topology k) at index ``(i * 8 + j) * 2 + k``, its nemesis
-    ``random_spec(8, seed=3 * 100003 + index + 1, horizon=6, **level)``
-    (None for the fault-free level), its traffic seeded ``3 * 7919 +
-    index``, coordinates (i, j, k)."""
-    cells = []
-    topos = ("grid", "tree")
-    for ir, rate in enumerate(FRONTIER_RATES):
-        for jf, level in enumerate(FRONTIER_LEVELS):
-            for kt, topo in enumerate(topos):
-                idx = (ir * len(FRONTIER_LEVELS) + jf) * len(topos) + kt
-                spec = None
-                if level is not None:
-                    spec = faults.random_spec(
-                        8, seed=3 * 100003 + idx + 1, horizon=6,
-                        n_crash_windows=int(level.get("n_crash_windows", 0)),
-                        loss_rate=float(level.get("loss_rate", 0.0)),
-                        dup_rate=float(level.get("dup_rate", 0.0)))
-                cells.append(scenario.ServingCell(
-                    traffic=traffic.TrafficSpec(
-                        n_nodes=8, n_clients=8, ops_per_client=2, until=6,
-                        rate=float(rate), seed=3 * 7919 + idx),
-                    spec=spec, topology=topo, coords=(ir, jf, kt)))
-    return cells
-
-
 def serving_batch_frontier(modules, device, launches: Launches,
-                           card: str) -> None:
-    """The 256-cell broadcast frontier (:func:`frontier_cells`) as one
+                           card: str) -> list:
+    """The 256-cell broadcast frontier (:data:`FRONTIER_GRID`) as one
     serving batch on the card (MRR 12, drain 4, ``n_windows=2``): its
     wall, trips, syncs and launches a trip; every row equal to the
     port's ``run_serving`` of its cell on the card on the cartography's
     parity keys; the first 32 cells equal to the CPU path."""
     import torch
 
-    scenario, serving, faults, traffic, kernels = modules
-    cells = frontier_cells(scenario, faults, traffic)
+    scenario, serving, frontier, kernels = modules
+    cells = frontier.frontier_grid("broadcast", **FRONTIER_GRID)
     batch = scenario.ServingBatch(workload="broadcast", cells=tuple(cells),
                                   max_recovery_rounds=12, drain_every=4)
     rec = {"phase": "serving_batch_frontier", "card": card,
@@ -5978,6 +5932,505 @@ def serving_batch_frontier(modules, device, launches: Launches,
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"serving_batch_frontier: {rec}")
+    return res["cells"]
+
+
+# -- checkpoints, elastic resize, the frontier and the fuzzer -------------
+
+# where the phases below write their checkpoints, bundles and repros: a
+# directory of the checkout that git ignores
+WORK_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke")
+# checkpoint_tree_1m: the round saved, inside the crash window [2, 16)
+CKPT_ROUND = 8
+# resize_broadcast_full: tests/test_membership.py:242-276's specs scaled
+# to 1,024 <-> 1,536 nodes (and 64 <-> 96 for the card / CPU twins)
+RESIZE_BCAST = ((1024, 1536), (64, 96))
+RESIZE_BCAST_KEYS, RESIZE_MRR = 65536, 48
+# resize_counter_1m: 2^20 <-> 2^21 nodes, config3b's deltas
+RESIZE_COUNTER_N = 1 << 20
+# resize_kafka_4k: kafka_nemesis_4k's 4,096 nodes, tests/test_membership
+# .py:311-329's specs
+RESIZE_KAFKA_N = 4096
+RESIZE_KAFKA_KW = {"n_keys": 1024, "capacity": 64, "max_sends": 2,
+                   "resync_every": 4, "send_prob": 0.7}
+# tests/test_frontier.py:199-204's small grid, whose first two cells the
+# SLO run takes
+SLO_GRID = dict(n_nodes=8, rates=(0.3, 0.6),
+                fault_levels=(None, {"n_crash_windows": 1, "loss_rate": 0.1}),
+                until=8, seed=3)
+# the keys of a resize result that the phase lines leave out (the specs
+# and the moved keys run to a million entries)
+RESIZE_BULKY = ("spec", "continuation_spec")
+
+
+def work_dir(name: str) -> str:
+    """A fresh directory under :data:`WORK_ROOT`."""
+    import shutil
+
+    path = os.path.join(WORK_ROOT, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def checkpoint_tree_1m(modules, device, launches: Launches,
+                       card: str) -> None:
+    """The main path's 2^20-node 4-ary tree, words-major, under
+    ``w1_tree_nemesis``'s plan and under ``w1_tree_nemesis_delayed``'s
+    (``dir_delays = (1, 3)``, the delay ring in the file): run to
+    convergence, then again with a checkpoint at round
+    :data:`CKPT_ROUND`, restored on the card in a sim rebuilt from the
+    file's ``fault_spec`` and finished.  ``ok``: received, frontier,
+    msgs and t equal the uninterrupted run, and the file's arrays carry
+    the reference's names and dtypes.  The save and restore ms (host
+    clock, synchronized) and the file's bytes."""
+    import numpy as np
+    import torch
+
+    broadcast, structured, topology, faults, checkpoint = modules
+    n = N_NODES
+    inject = broadcast.make_inject(n, W1_VALUES)
+    nbrs = topology.to_padded_neighbors(topology.tree(n, BRANCHING))
+    spec = tree_nemesis_spec(faults, n)
+    out = work_dir("checkpoint")
+
+    def sim_of(sp, dd):
+        return broadcast.BroadcastSim(
+            nbrs, n_values=W1_VALUES, sync_every=8, srv_ledger=False,
+            fault_plan=sp.compile(device), device=device,
+            exchange=structured.make_exchange("tree", n),
+            nemesis=structured.make_nemesis("tree", n, sp, dir_delays=dd,
+                                            device=device))
+
+    rec = {"phase": "checkpoint_tree_1m", "card": card, "n": n,
+           "n_values": W1_VALUES, "sync_every": 8,
+           "save_round": CKPT_ROUND, "plans": []}
+    launches.start()
+    for name, dd in (("w1_tree_nemesis", None),
+                     ("w1_tree_nemesis_delayed", (1, 3))):
+        sim = sim_of(spec, dd)
+        ref, rounds = sim.run(inject)
+        st = sim.init_state(inject)
+        for _ in range(CKPT_ROUND):
+            st = sim.step(st)
+        path = os.path.join(out, f"{name}.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, st, {"phase": rec["phase"], "plan": name},
+                        fault_spec=spec)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back, meta = checkpoint.restore(path, broadcast.BroadcastState,
+                                        device=device)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        sim2 = sim_of(checkpoint.fault_spec_from_meta(meta), dd)
+        while back.t < rounds:
+            back = sim2.step(back)
+        with np.load(path) as z:
+            arrays = {k: [str(z[k].dtype), list(z[k].shape)]
+                      for k in z.files if k != "__meta__"}
+        words = [1, n]
+        want = {"received": ["uint32", words], "frontier": ["uint32", words],
+                "t": ["int32", []], "msgs": ["uint32", []]}
+        if dd is not None:
+            want["history"] = ["uint32", [st.history.shape[0]] + words]
+        resumed = (back.t == ref.t == rounds and all(
+            torch.equal(getattr(back, f), getattr(ref, f))
+            for f in ("received", "frontier", "msgs")))
+        rec["plans"].append({
+            "plan": name, "dir_delays": None if dd is None else list(dd),
+            "rounds": rounds, "save_ms": save_ms, "restore_ms": restore_ms,
+            "file_bytes": os.path.getsize(path), "arrays": arrays,
+            "arrays_as_reference": arrays == want,
+            "resumed_equal": resumed})
+    launches.stop(rec, ("wm_fault_coins", "tree_ring_exchange",
+                        "col_popcount"))
+    rec["ok"] = all(p["resumed_equal"] and p["arrays_as_reference"]
+                    for p in rec["plans"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"checkpoint_tree_1m: {rec}")
+
+
+def resize_summary(res: dict, wall_s: float) -> dict:
+    """A resize result for a phase line: the verdict's fields without the
+    bulky specs and moved keys, and the wall."""
+    out = {k: v for k, v in res.items() if k not in RESIZE_BULKY}
+    if "rehoming" in out:
+        out["rehoming"] = {k: v for k, v in out["rehoming"].items()
+                           if k != "moved_keys"}
+    out["wall_s"] = wall_s
+    return out
+
+
+def resize_run(membership, wl: str, spec, n_to: int, r: int, device,
+               **kw) -> tuple[dict, float]:
+    """(result, wall s) of one ``run_resize_campaign`` on ``device``."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = membership.run_resize_campaign(
+        wl, spec, n_to, r, checkpoint_dir=work_dir(f"resize_{wl}"),
+        device=device, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def resize_idle(membership, wl: str, spec, n_to: int, r: int, device,
+                wall_s: float, **kw) -> dict:
+    """The device busy ms (profiler) of one more run of a campaign, and
+    its idle share against ``wall_s``, the unprofiled run's wall."""
+    def make_run():
+        return lambda: membership.run_resize_campaign(
+            wl, spec, n_to, r, checkpoint_dir=work_dir(f"resize_{wl}_p"),
+            device=device, **kw)
+
+    busy, spans = busy_and_spans(make_run)
+    return {"device_busy_ms": busy, "device_spans": spans,
+            "device_idle_share": idle_share(busy, wall_s * 1e3)}
+
+
+def resize_broadcast_full(modules, device, launches: Launches,
+                          card: str) -> None:
+    """Broadcast on ``full``, n_values = 2N: grow 1,024 -> 1,536 at round
+    6 under a crash window [4, 9) of nodes (1, 2) that crosses the
+    boundary; shrink 1,536 -> 1,024 at round 6 with rows 1,024-1,535
+    leaving at round 3; ``kv_keys`` 65,536, 48 recovery rounds.  ``ok``:
+    each certified, its twin bit-exact, the re-homing diff and carry ok;
+    the same campaigns at 64 <-> 96 nodes give equal results on the card
+    and the CPU."""
+    membership, faults = modules
+
+    def specs(n, m):
+        return ((faults.NemesisSpec(n_nodes=n, seed=3,
+                                    crash=((4, 9, (1, 2)),)), m),
+                (faults.NemesisSpec(n_nodes=m, seed=5, crash=((4, 9, (1,)),),
+                                    leave=((3, tuple(range(n, m))),)), n))
+
+    kw = dict(kv_keys=RESIZE_BCAST_KEYS, max_recovery_rounds=RESIZE_MRR)
+    rec = {"phase": "resize_broadcast_full", "card": card,
+           "sizes": [list(x) for x in RESIZE_BCAST], "resize_round": 6,
+           **kw, "campaigns": {}}
+    launches.start()
+    for shape, (spec, n_to) in zip(("grow", "shrink"),
+                                   specs(*RESIZE_BCAST[0])):
+        res, wall = resize_run(membership, "broadcast", spec, n_to, 6,
+                               device, **kw)
+        rec["campaigns"][shape] = resize_summary(res, wall)
+    launches.stop(rec, ("fault_coins", "faulted_gather_round"))
+    spec, n_to = specs(*RESIZE_BCAST[0])[0]
+    rec["grow_device"] = resize_idle(membership, "broadcast", spec, n_to, 6,
+                                     device, rec["campaigns"]["grow"]
+                                     ["wall_s"], **kw)
+    twins = {}
+    for shape, (spec, n_to) in zip(("grow", "shrink"),
+                                   specs(*RESIZE_BCAST[1])):
+        gpu, _ = resize_run(membership, "broadcast", spec, n_to, 6, device,
+                            **kw)
+        cpu, _ = resize_run(membership, "broadcast", spec, n_to, 6, "cpu",
+                            **kw)
+        twins[shape] = {"ok": gpu["ok"], "cpu_equal": gpu == cpu}
+    rec["small_card_cpu"] = twins
+    rec["ok"] = all(c["ok"] and c["twin"]["bit_exact"]
+                    and c["rehoming"]["ok"]
+                    for c in rec["campaigns"].values()) and all(
+        t["ok"] and t["cpu_equal"] for t in twins.values())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"resize_broadcast_full: {rec}")
+
+
+def resize_device_functions(membership_ops, kvstore, faults, traffic,
+                            counter, device) -> dict:
+    """CUDA-event ms of the device functions the resize path adds, at
+    resize_counter_1m's sizes: the moved-key mask over 2^20 keys, the
+    carry of 2^20 registers (one gather, one scatter, the index uploads),
+    the member census of a 2^21-row plan, the counter state's pad to
+    2^21 and cut back, and the resizing intake gate's sum over 2^20
+    arrivals."""
+    import numpy as np
+    import torch
+
+    n, k = RESIZE_COUNTER_N, RESIZE_COUNTER_N
+    M = membership_ops
+    lo, ln = kvstore.make_layout(k, n), kvstore.make_layout(k, 2 * n)
+    rows = kvstore.init_rows(lo, device)
+    spec = faults.NemesisSpec(n_nodes=2 * n, seed=5,
+                              leave=((8, tuple(range(n, 2 * n))),))
+    plan = spec.compile(device)
+    ids = torch.arange(2 * n, dtype=torch.int32, device=device)
+    sim = counter.CounterSim(n, mode="allreduce", device=device)
+    st = sim.add(sim.init_state(), np.arange(n, dtype=np.int32) % 10)
+    big = M.resize_state(st, 2 * n)
+    tspec = traffic.TrafficSpec(n_nodes=n, n_clients=n, ops_per_client=1,
+                                until=4)
+    ts = traffic.init_state(tspec, device=device)
+    arr = torch.rand(n, device=device) < 0.5
+    return {
+        "rehomed_mask_ms": cuda_ms(lambda: M.rehomed_mask(k, n, 2 * n,
+                                                          device=device)),
+        "apply_rehoming_ms": cuda_ms(lambda: M.apply_rehoming(rows, lo, ln),
+                                     inner=3),
+        "member_census_ms": cuda_ms(lambda: M.member_census(plan, 9, ids)),
+        "resize_state_pad_ms": cuda_ms(lambda: M.resize_state(st, 2 * n)),
+        "resize_state_cut_ms": cuda_ms(lambda: M.resize_state(big, n)),
+        "resizing_defer_ms": cuda_ms(lambda: traffic.resizing_defer(ts,
+                                                                    arr)),
+        "sizes": {"keys": k, "n_from": n, "n_to": 2 * n,
+                  "cap_from": lo.cap, "cap_to": ln.cap, "arrivals": n}}
+
+
+def resize_counter_1m(modules, device, launches: Launches,
+                      card: str) -> None:
+    """The counter, allreduce, poll every 2, config3b's deltas
+    (``default_rng(0).integers(0, 10, N)``; the default 1..N would wrap
+    the int32 KV at 2^21): grow 2^20 -> 2^21 at round 12 under a crash
+    [10, 15) of nodes (1, 2); shrink 2^21 -> 2^20 at round 18 under a
+    crash [16, 21) of node 1, rows [2^20, 2^21) leaving at round 8;
+    ``kv_keys`` 2^20 (the re-homing at a million keys on the card).
+    ``ok``: each certified with a bit-exact twin and the re-homing ok.
+    Then the resize path's device functions, timed."""
+    import numpy as np
+
+    membership, faults, M, kvstore, traffic, counter = modules
+    n = RESIZE_COUNTER_N
+    kw = dict(mode="allreduce", poll_every=2, kv_keys=n,
+              max_recovery_rounds=RESIZE_MRR)
+    rec = {"phase": "resize_counter_1m", "card": card, "n": n,
+           **kw, "campaigns": {}}
+    launches.start()
+    runs = (("grow", faults.NemesisSpec(n_nodes=n, seed=3,
+                                        crash=((10, 15, (1, 2)),)),
+             2 * n, 12),
+            ("shrink", faults.NemesisSpec(
+                n_nodes=2 * n, seed=5, crash=((16, 21, (1,)),),
+                leave=((8, tuple(range(n, 2 * n))),)), n, 18))
+    for shape, spec, n_to, r in runs:
+        deltas = np.random.default_rng(0).integers(
+            0, 10, spec.n_nodes).astype(np.int32)
+        res, wall = resize_run(membership, "counter", spec, n_to, r, device,
+                               deltas=deltas, **kw)
+        rec["campaigns"][shape] = resize_summary(res, wall)
+    launches.stop(rec, ("counter_select", "counter_apply"))
+    _, spec, n_to, r = runs[0]
+    rec["grow_device"] = resize_idle(
+        membership, "counter", spec, n_to, r, device,
+        rec["campaigns"]["grow"]["wall_s"], deltas=np.random.default_rng(
+            0).integers(0, 10, n).astype(np.int32), **kw)
+    rec["device_functions"] = resize_device_functions(
+        M, kvstore, faults, traffic, counter, device)
+    rec["ok"] = all(c["ok"] and c["twin"]["bit_exact"]
+                    and c["rehoming"]["ok"]
+                    for c in rec["campaigns"].values())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"resize_counter_1m: {rec}")
+
+
+def resize_kafka_4k(modules, device, launches: Launches, card: str) -> None:
+    """Kafka at ``kafka_nemesis_4k``'s 4,096 nodes: 1,024 keys, capacity
+    64, S 2, resync every 4, send 0.7; grow 4,096 -> 6,144 at round 6
+    under a crash [4, 9) of nodes (1, 2); shrink 6,144 -> 4,096 at round
+    6, rows 4,096-6,143 leaving at round 3.  Certified only (no twin);
+    ``ok``: each certified with ``n_allocated >= n_allocated_pre_resize >
+    0``."""
+    membership, faults = modules
+    n, m = RESIZE_KAFKA_N, RESIZE_KAFKA_N * 3 // 2
+    rec = {"phase": "resize_kafka_4k", "card": card, "sizes": [n, m],
+           "resize_round": 6, **RESIZE_KAFKA_KW,
+           "max_recovery_rounds": RESIZE_MRR, "campaigns": {}}
+    launches.start()
+    runs = (("grow", faults.NemesisSpec(n_nodes=n, seed=7,
+                                        crash=((4, 9, (1, 2)),)), m),
+            ("shrink", faults.NemesisSpec(n_nodes=m, seed=9,
+                                          crash=((4, 9, (1,)),),
+                                          leave=((3, tuple(range(n, m))),)),
+             n))
+    kw = dict(max_recovery_rounds=RESIZE_MRR, **RESIZE_KAFKA_KW)
+    for shape, spec, n_to in runs:
+        res, wall = resize_run(membership, "kafka", spec, n_to, 6, device,
+                               **kw)
+        rec["campaigns"][shape] = resize_summary(res, wall)
+    launches.stop(rec, ("kafka_merge", "kafka_nem_deliver",
+                        "kafka_commit_select", "kafka_commit_apply"))
+    _, spec, n_to = runs[0]
+    rec["grow_device"] = resize_idle(membership, "kafka", spec, n_to, 6,
+                                     device, rec["campaigns"]["grow"]
+                                     ["wall_s"], **kw)
+    rec["ok"] = all(c["ok"] and c["n_allocated"]
+                    >= c["n_allocated_pre_resize"] > 0
+                    for c in rec["campaigns"].values())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"resize_kafka_4k: {rec}")
+
+
+def frontier_grid_256(modules, device, launches: Launches, card: str,
+                      batch_rows: list) -> None:
+    """``run_frontier`` over frontier_cartography.py's 256-cell grid (MRR
+    12, drain 4, ``n_windows=2``, signatures on) on the card: the report
+    validated, every cell's row equal to ``serving_batch_frontier``'s row
+    of the same cell; then tests/test_frontier.py:248-271's two cells
+    under ``p99_max_rounds = 1``, whose bundles replay on the card and on
+    the CPU to the same ``check_slo`` failure."""
+    import torch
+
+    frontier, observe, checkers = modules
+    cells = frontier.frontier_grid("broadcast", **FRONTIER_GRID)
+    rec = {"phase": "frontier_grid_256", "card": card, "cells": len(cells),
+           "max_recovery_rounds": 12, "drain_every": 4, "n_windows": 2}
+    launches.start()
+    t0 = time.perf_counter()
+    rep = frontier.run_frontier("broadcast", cells, max_recovery_rounds=12,
+                                drain_every=4, n_windows=2, signatures=True,
+                                device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    slo_cells = frontier.frontier_grid("broadcast", **SLO_GRID)[:2]
+    slo = {"p99_max_rounds": 1}
+    bad = frontier.run_frontier("broadcast", slo_cells, slo=slo,
+                                max_recovery_rounds=16, drain_every=4,
+                                observe_dir=work_dir("frontier"),
+                                pipeline=False, device=device)
+    launches.stop(rec, ("fault_coins", "faulted_gather_round", "and_fold"))
+    observe.validate_frontier(rep)
+    observe.validate_frontier(bad)
+    differ = [i for i, (row, cell) in enumerate(zip(batch_rows,
+                                                    rep["cells"]))
+              if any(cell.get(k) != v for k, v in row.items())]
+    replays = []
+    for b in bad["bundles"]:
+        bundle = observe.load_bundle(b["path"])
+        got = []
+        for dev in (device, "cpu"):
+            r = observe.replay_bundle(b["path"], device=dev)
+            ok, det = checkers.check_slo(
+                r, **bundle["failure"]["slo"],
+                coords=bundle["failure"]["grid_coords"])
+            got.append((ok, det["problems"],
+                        r.get("first_divergence_round")))
+        replays.append({"coords": b["coords"], "card_cpu_equal":
+                        got[0] == got[1], "fails": not got[0][0],
+                        "faithful": got[0][2] is None})
+    rec.update(wall_s=wall, cells_per_s=len(cells) / wall,
+               n_ok=sum(1 for c in rep["cells"] if c["ok"]),
+               n_distinct_signatures=rep["coverage"]["n_distinct"],
+               rows_equal_serving_batch=not differ, differ=differ[:8],
+               slo_failing=bad["failing"], bundles=len(bad["bundles"]),
+               replays=replays)
+    rec["ok"] = bool(not differ and len(rep["cells"]) == len(batch_rows)
+                     and bad["bundles"] and all(
+                         r["card_cpu_equal"] and r["fails"]
+                         and r["faithful"] for r in replays))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"frontier_grid_256: {rec}")
+
+
+def fuzz_summary(res: dict) -> dict:
+    """A ``fuzz_run`` result for a phase line: its counts and rates, each
+    shrink's weights and verdicts (no rows)."""
+    keep = ("n_scenarios", "n_distinct", "n_certified_ok", "n_failing",
+            "n_batches", "dispatch_s", "total_s", "scenarios_per_sec",
+            "scenarios_per_sec_steady", "n_program_shapes",
+            "n_distinct_signatures")
+    out = {k: res[k] for k in keep}
+    out["shrinks"] = [{k: s[k] for k in (
+        "weight_before", "weight_after", "n_candidate_runs",
+        "all_components_load_bearing", "replay_same_failure")}
+        | {"seed": s["original"]["spec"]["seed"]} for s in res["shrinks"]]
+    return out
+
+
+def fuzz_campaigns(modules, device, launches: Launches, card: str) -> None:
+    """benchmarks/fault_sweep.py:684-706 with ``mesh=None`` on the card:
+    1,152 broadcast scenarios (24 nodes, batches of 128, horizon 8, MRR
+    48, seed 1, the planted failure, two shrinks), the counter (64 at 16
+    nodes, MRR 48, seed 2) and Kafka (64 at 16 nodes, MRR 32, seed 3)
+    breadth batches, the counter again with the membership axis, and
+    frontier_cartography.py:144-195's shape-bucket + pipeline run and
+    adaptive run.  ``ok``: the planted seed 424242 shrinks and its
+    repro's bundle replays to the same failure on the card and the CPU;
+    the bucketed verdicts equal the plain ones; the adaptive run finds
+    more distinct signatures than the blind one."""
+    fuzz, observe = modules
+    out = work_dir("fuzz")
+    rec = {"phase": "fuzz_campaigns", "card": card}
+    launches.start()
+    t0 = time.perf_counter()
+    runs = {
+        "broadcast": fuzz.fuzz_run(
+            "broadcast", 1152, n_nodes=24, batch_size=128, horizon=8,
+            max_recovery_rounds=48, seed=1, plant_failure=True,
+            max_shrinks=2, observe_dir=out, device=device),
+        "counter": fuzz.fuzz_run(
+            "counter", 64, n_nodes=16, batch_size=128, horizon=8,
+            max_recovery_rounds=48, seed=2, max_shrinks=1, observe_dir=out,
+            device=device),
+        "kafka": fuzz.fuzz_run(
+            "kafka", 64, n_nodes=16, batch_size=128, horizon=8,
+            max_recovery_rounds=32, seed=3, max_shrinks=1, observe_dir=out,
+            runner_kw=KAFKA_FUZZ_KW, device=device),
+        "counter_membership": fuzz.fuzz_run(
+            "counter", 64, n_nodes=16, batch_size=128, horizon=8,
+            max_recovery_rounds=48, seed=2, membership_axis=True,
+            max_shrinks=1, observe_dir=out, device=device)}
+    bkw = dict(workload="broadcast", n_scenarios=24, n_nodes=12,
+               batch_size=8, horizon=6, max_recovery_rounds=24, seed=7,
+               shrink=False, device=device)
+    base = fuzz.fuzz_run(**bkw)
+    buck = fuzz.fuzz_run(**bkw, shape_buckets=True, pipeline=True)
+    akw = dict(workload="counter", n_scenarios=16, n_nodes=12,
+               batch_size=4, horizon=8, max_recovery_rounds=24, seed=11,
+               shrink=False, device=device)
+    blind = fuzz.fuzz_run(**akw, signatures=True)
+    adapt = fuzz.fuzz_run(**akw, adapt=True, adapt_oversample=8)
+    wall = time.perf_counter() - t0
+    launches.stop(rec, ("fault_coins_batched", "faulted_gather_round_batched",
+                        "fold_freeze", "counter_select", "kafka_merge"))
+    planted = next(s for s in runs["broadcast"]["shrinks"]
+                   if s["original"]["spec"]["seed"] == 424242)
+    sig = {k: (tuple(v) if isinstance(v, list) else v)
+           for k, v in planted["signature"].items()}
+    replays = [observe.replay_bundle(planted["bundle"], device=dev)
+               for dev in (device, "cpu")]
+    rec.update(
+        wall_s=wall, campaigns={k: fuzz_summary(v) for k, v in runs.items()},
+        planted={"weight_before": planted["weight_before"],
+                 "weight_after": planted["weight_after"],
+                 "moves_accepted": planted["moves_accepted"],
+                 "all_components_load_bearing":
+                     planted["all_components_load_bearing"],
+                 "replay_same_failure": planted["replay_same_failure"]},
+        planted_replays=[{"ok": r["ok"], "same_failure":
+                          fuzz.failure_signature(r) == sig,
+                          "first_divergence_round":
+                              r.get("first_divergence_round")}
+                         for r in replays],
+        shape_buckets={"program_shapes": [base["n_program_shapes"],
+                                          buck["n_program_shapes"]],
+                       "verdicts_identical": all(
+                           a["ok"] == b["ok"] and a["spec"] == b["spec"]
+                           for a, b in zip(base["rows"], buck["rows"]))},
+        adaptive={"blind_distinct": blind["n_distinct_signatures"],
+                  "adapt_distinct": adapt["n_distinct_signatures"]})
+    rec["ok"] = bool(
+        planted["weight_after"] < planted["weight_before"]
+        and planted["replay_same_failure"]
+        and all(not r["ok"] and r["same_failure"]
+                and r["first_divergence_round"] is None
+                for r in rec["planted_replays"])
+        and replays[0]["lost_writes"] == replays[1]["lost_writes"]
+        and rec["shape_buckets"]["verdicts_identical"]
+        and buck["n_program_shapes"] <= base["n_program_shapes"]
+        and adapt["n_distinct_signatures"]
+        > blind["n_distinct_signatures"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"fuzz_campaigns: {rec}")
 
 
 def main() -> int:
@@ -5986,16 +6439,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from gossip_glomers_tpu_torch.harness import (checkers, nemesis,
+    from gossip_glomers_tpu_torch.harness import (checkers, frontier, fuzz,
+                                                  membership, nemesis,
                                                   observe, serving)
     from gossip_glomers_tpu_torch.harness import txn as htxn
     from gossip_glomers_tpu_torch.parallel import topology
-    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter, echo,
-                                                  faults, kafka, kernels,
-                                                  kvstore, scenario,
-                                                  structured, telemetry,
-                                                  timing, traffic, txn,
-                                                  unique_ids)
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, checkpoint,
+                                                  counter, echo, faults,
+                                                  kafka, kernels, kvstore,
+                                                  scenario, structured,
+                                                  telemetry, timing, traffic,
+                                                  txn, unique_ids)
+    from gossip_glomers_tpu_torch.tpu_sim import membership as membership_ops
 
     device = torch.device("cuda")
     modules = (broadcast, timing)
@@ -6103,13 +6558,22 @@ def main() -> int:
     flight_bundles(nemesis, serving, observe, faults, traffic, device,
                    launches, smi)
     scen = (broadcast, nemesis, scenario, telemetry, topology, faults,
-            kernels)
+            kernels, fuzz)
     scenario_broadcast_fuzz(scen, device, launches, smi, times)
     scenario_broadcast_256x1024(scen, device, launches, smi, times)
-    scenario_looped_phases((scenario, faults, kernels), device, launches,
+    scenario_looped_phases((scenario, fuzz, kernels), device, launches,
                            smi)
-    serving_batch_frontier((scenario, serving, faults, traffic, kernels),
-                           device, launches, smi)
+    frontier_rows = serving_batch_frontier(
+        (scenario, serving, frontier, kernels), device, launches, smi)
+    checkpoint_tree_1m((broadcast, structured, topology, faults, checkpoint),
+                       device, launches, smi)
+    resize_broadcast_full((membership, faults), device, launches, smi)
+    resize_counter_1m((membership, faults, membership_ops, kvstore, traffic,
+                       counter), device, launches, smi)
+    resize_kafka_4k((membership, faults), device, launches, smi)
+    frontier_grid_256((frontier, observe, checkers), device, launches, smi,
+                      frontier_rows)
+    fuzz_campaigns((fuzz, observe), device, launches, smi)
 
     for name, count in launches.total.items():
         if count == 0:

@@ -272,6 +272,30 @@ def check_slo(row: dict, *, p99_max_rounds: float | None = None,
         "problems": problems}
 
 
+def check_frontier_batch(rows: list, slo: dict) -> tuple[bool, dict]:
+    """Batched :func:`check_slo` over the per-cell rows of one serving
+    frontier (``run_serving_batch``): the scalar checker runs per row,
+    failing cells are named by index and grid coordinates, and the
+    details carry every per-cell verdict for the frontier table."""
+    verdicts: list[dict] = []
+    failing: list[int] = []
+    problems: list[str] = []
+    for i, row in enumerate(rows):
+        ok_i, det = check_slo(row, **slo)
+        verdicts.append({"ok": ok_i, **det})
+        if not ok_i:
+            failing.append(i)
+            if len(problems) < 16:
+                problems.extend(det["problems"][:2])
+    return not failing, {
+        "n_cells": len(rows),
+        "n_ok": len(rows) - len(failing),
+        "failing": failing,
+        "problems": problems,
+        "slo": dict(slo),
+        "cells": verdicts}
+
+
 def series_divergence_round(expected: dict, got: dict) -> int | None:
     """First absolute round at which two recorded telemetry series
     dicts (tpu_sim/telemetry.py ``series_arrays``) disagree on any

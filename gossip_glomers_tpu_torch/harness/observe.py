@@ -30,11 +30,13 @@ record.
   (:func:`..tpu_sim.provenance.arrays_of`), as JSON-able data.
 - :func:`profiled`: an optional ``torch.profiler`` capture that exports a
   Chrome trace (the serving runner's ``GG_PROFILE_DIR``).
+- :func:`validate_frontier`: the frontier report's schema check
+  (:mod:`.frontier`).
 
 Pure host code over numpy; tests/test_torch_observe.py and
 test_torch_provenance.py hold each function equal to the reference's.
-Not ported yet, and raising: ``validate_frontier`` (the frontier report,
-ROADMAP.md Queue A item 13) and ``replay_bundle(mesh=)`` (item 10).
+Not ported yet, and raising: ``replay_bundle(mesh=)`` (ROADMAP.md Queue A
+item 10).
 """
 
 from __future__ import annotations
@@ -478,8 +480,45 @@ def validate_manifest(d: dict) -> None:
 
 
 def validate_frontier(d: dict) -> None:
-    """The frontier report's schema check: ROADMAP.md Queue A item 13."""
-    raise _unported("observe.validate_frontier", 13)
+    """Loud schema check of a frontier report (``harness/frontier.py``
+    ``run_frontier``): every cell row carries its grid coordinates, both
+    verdicts and the SLO surface metrics; the failing list agrees with the
+    per-cell verdicts; the coverage section (when present) accounts for
+    every recorded signature."""
+    if d.get("schema") != FRONTIER_SCHEMA:
+        raise ValueError(
+            f"frontier schema {d.get('schema')!r} != "
+            f"{FRONTIER_SCHEMA!r}")
+    for key in ("workload", "ok", "n_cells", "slo", "slo_ok",
+                "serving_ok", "failing", "cells"):
+        if key not in d:
+            raise ValueError(f"frontier report missing {key!r}")
+    if d["n_cells"] != len(d["cells"]):
+        raise ValueError(
+            f"n_cells {d['n_cells']} != len(cells) "
+            f"{len(d['cells'])}")
+    failing = set()
+    for i, cell in enumerate(d["cells"]):
+        for key in ("coords", "ok", "slo_ok", "lat_p99",
+                    "sustained_per_round", "completed"):
+            if key not in cell:
+                raise ValueError(f"frontier cell {i} missing "
+                                 f"{key!r}")
+        if not (cell["ok"] and cell["slo_ok"]):
+            failing.add(i)
+    if failing != set(d["failing"]):
+        raise ValueError(
+            f"failing list {sorted(d['failing'])} disagrees with "
+            f"per-cell verdicts {sorted(failing)}")
+    if bool(d["ok"]) != (not failing):
+        raise ValueError("top-level ok disagrees with cells")
+    cov = d.get("coverage")
+    if cov is not None:
+        if cov["n_distinct"] != len(cov["signatures"]):
+            raise ValueError("coverage n_distinct != signatures")
+        if cov["n_seen"] != sum(r["count"]
+                                for r in cov["signatures"]):
+            raise ValueError("coverage n_seen != sum of counts")
 
 
 # -- atomic JSON writes --------------------------------------------------

@@ -60,6 +60,10 @@ def line(n: int) -> list[list[int]]:
     return adj
 
 
+def full(n: int) -> list[list[int]]:
+    return [[j for j in range(n) if j != i] for i in range(n)]
+
+
 def circulant(n: int, strides: list[int]) -> np.ndarray:
     """Circulant graph: node i's neighbors are i ± s (mod n) for each
     stride s — an expander with O(log n) diameter for a few random-ish

@@ -26,8 +26,9 @@ The sims' injection hooks and ``run_traffic`` drivers live with the sims
 (broadcast, counter, kafka); this module owns the spec, the coins and the
 tracker.  ``t`` is a host int; the tracker's counters are () int64
 tensors holding uint32 values (masked to 32 bits, so they wrap where the
-reference's do).  Not ported yet, and raising: shard specs and meshes
-(ROADMAP.md Queue A item 10) and the resizing intake gate (item 12).
+reference's do); :func:`resizing_defer` is the resize's intake gate.  Not
+ported yet, and raising: shard specs and meshes (ROADMAP.md Queue A item
+10).
 :func:`batch_tplans` stacks a serving batch's plans (the scenario
 batches, :mod:`.scenario`).
 """
@@ -448,9 +449,23 @@ def done_scan(ts: TrafficState, bit_fn: Callable, t_done: int,
                        completed=(ts.completed + comp) & MASK32)
 
 
-def resizing_defer(ts: TrafficState, arr, reduce_sum=None):
-    """The elastic-resharding intake gate: ROADMAP.md Queue A item 12."""
-    raise _unported("traffic.resizing_defer", 12)
+def resizing_defer(ts: TrafficState, arr,
+                   reduce_sum: Callable | None = None) -> tuple:
+    """The elastic-resharding intake gate: while a checkpoint-restore
+    resize is in flight no op can be issued (the node axis itself changes
+    shape), so every arrival of the round is deferred, counted in
+    ``arrived``, ``deferred`` and the ``deferred_resizing`` sub-class
+    (``arrived == issued + deferred`` still holds), and never dropped.
+    Returns ``(ts', ok)``, ``ok`` the all-False issued mask of
+    :func:`issue`'s shape.  ``reduce_sum`` is the identity off a mesh."""
+    a = torch.as_tensor(arr, device=ts.arrived.device)
+    n = a.to(torch.int64).sum() & MASK32
+    if reduce_sum is not None:
+        n = reduce_sum(n)
+    ts = ts._replace(arrived=(ts.arrived + n) & MASK32,
+                     deferred=(ts.deferred + n) & MASK32,
+                     deferred_resizing=(ts.deferred_resizing + n) & MASK32)
+    return ts, torch.zeros(a.shape, dtype=torch.bool, device=a.device)
 
 
 def tel_series(ts: TrafficState) -> tuple:

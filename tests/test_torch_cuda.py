@@ -1628,3 +1628,131 @@ def test_cuda_folded_batch_matches_sequential_and_cpu(cuda_device):
                 device=cuda_device)
             for k in ("converged_round", "msgs_total", "lost_writes", "ok"):
                 assert got["scenarios"][i][k] == seq[k], (i, k)
+
+
+# -- checkpoints, elastic resize and the fuzzer on the card ---------------
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
+    # a CUDA state's save and restore: every field back on the card, in
+    # the port's dtype, equal to the saved one; the same file on the CPU
+    from gossip_glomers_tpu_torch.tpu_sim import checkpoint
+
+    spec = faults.NemesisSpec(n_nodes=64, seed=3, crash=((2, 6, (1, 9)),),
+                              loss_rate=0.1, loss_until=7)
+    n = 64
+    nbrs = topology.to_padded_neighbors(topology.tree(n))
+    sims = {
+        "tree_wm": broadcast.BroadcastSim(
+            nbrs, n_values=40, sync_every=4, srv_ledger=False,
+            exchange=structured.make_exchange("tree", n),
+            fault_plan=spec.compile(cuda_device), device=cuda_device,
+            nemesis=structured.make_nemesis("tree", n, spec,
+                                            dir_delays=(1, 3),
+                                            device=cuda_device)),
+        "gather_ring": broadcast.BroadcastSim(
+            nbrs, n_values=40, sync_every=4, device=cuda_device,
+            delays=np.full(nbrs.shape, 2, np.int32))}
+    for name, sim in sims.items():
+        st = sim.init_state(broadcast.make_inject(n, 40))
+        for _ in range(4):
+            st = sim.step(st)
+        path = str(tmp_path / f"{name}.npz")
+        checkpoint.save(path, st, {"name": name}, fault_spec=spec)
+        back, meta = checkpoint.restore(path, broadcast.BroadcastState)
+        cpu, _ = checkpoint.restore(path, broadcast.BroadcastState,
+                                    device="cpu")
+        assert meta["name"] == name and back.t == st.t == cpu.t
+        assert checkpoint.fault_spec_from_meta(meta).to_meta() == \
+            spec.to_meta()
+        for f in ("received", "frontier", "msgs", "history"):
+            a, b = getattr(st, f), getattr(back, f)
+            assert b.device.type == "cuda" and b.dtype == a.dtype, f
+            assert torch.equal(a, b), f
+            assert torch.equal(a.cpu(), getattr(cpu, f)), f
+        # resumed on the card, equal to the uninterrupted run
+        for _ in range(6):
+            st, back = sim.step(st), sim.step(back)
+        assert torch.equal(st.received, back.received)
+    sim = counter.CounterSim(n, mode="allreduce", device=cuda_device,
+                             fault_plan=spec.compile(cuda_device))
+    st = sim.run(sim.add(sim.init_state(), np.arange(n, dtype=np.int32)), 3)
+    checkpoint.save(str(tmp_path / "c.npz"), st)
+    back, _ = checkpoint.restore(str(tmp_path / "c.npz"),
+                                 counter.CounterState)
+    for f in ("pending", "cached", "kv", "msgs"):
+        assert torch.equal(getattr(st, f), getattr(back, f)), f
+
+
+RESIZE_CUDA = {
+    "broadcast_grow": ("broadcast", dict(n_nodes=64, seed=3,
+                                         crash=((4, 9, (1, 2)),)), 96, 6,
+                       dict(kv_keys=4096, max_recovery_rounds=48)),
+    "broadcast_shrink": ("broadcast", dict(
+        n_nodes=96, seed=5, crash=((4, 9, (1,)),),
+        leave=((3, tuple(range(64, 96))),)), 64, 6,
+        dict(kv_keys=4096, max_recovery_rounds=48)),
+    "counter_grow": ("counter", dict(n_nodes=1024, seed=3,
+                                     crash=((10, 15, (1, 2)),)), 2048, 12,
+                     dict(mode="allreduce", kv_keys=8192,
+                          max_recovery_rounds=48)),
+    "counter_shrink": ("counter", dict(
+        n_nodes=2048, seed=5, crash=((16, 21, (1,)),),
+        leave=((8, tuple(range(1024, 2048))),)), 1024, 18,
+        dict(mode="allreduce", max_recovery_rounds=48)),
+    "kafka_grow": ("kafka", dict(n_nodes=64, seed=7,
+                                 crash=((4, 9, (1, 2)),)), 96, 6,
+                   dict(n_keys=16, max_recovery_rounds=48)),
+    "kafka_shrink": ("kafka", dict(
+        n_nodes=96, seed=9, crash=((4, 9, (1,)),),
+        leave=((3, tuple(range(64, 96))),)), 64, 6,
+        dict(n_keys=16, max_recovery_rounds=48)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RESIZE_CUDA))
+def test_cuda_resize_campaign_equals_cpu(cuda_device, name):
+    # one grow and one shrink campaign a workload on the card, its result
+    # (no wall-clock field) equal to the port's CPU run
+    from gossip_glomers_tpu_torch.harness import membership
+
+    wl, kw, n_to, r, ckw = RESIZE_CUDA[name]
+    spec = faults.NemesisSpec(**kw)
+    before = dict(kernels.LAUNCHES)
+    got = membership.run_resize_campaign(wl, spec, n_to, r,
+                                         device=cuda_device, **ckw)
+    want = membership.run_resize_campaign(wl, spec, n_to, r, device="cpu",
+                                          **ckw)
+    assert got == want
+    assert got["ok"], got
+    expect = {"broadcast": "faulted_gather_round", "counter":
+              "counter_select", "kafka": "kafka_merge"}[wl]
+    assert kernels.LAUNCHES[expect] > before[expect]
+
+
+@pytest.mark.cuda
+def test_cuda_fuzz_run_equals_cpu(cuda_device, tmp_path):
+    # a 24-scenario fuzz campaign (delays on alternate batches, a planted
+    # failure shrunk) on the card: rows, shrinks and coverage the CPU's
+    from gossip_glomers_tpu_torch.harness import fuzz
+
+    kw = dict(n_scenarios=24, n_nodes=12, batch_size=8, horizon=6,
+              max_recovery_rounds=16, seed=7, plant_failure=True,
+              max_shrinks=1, signatures=True)
+    wall = ("batch_walls_s", "sample_s", "dispatch_s", "total_s",
+            "scenarios_per_sec", "scenarios_per_sec_steady")
+
+    def strip(res):
+        out = {k: v for k, v in res.items() if k not in wall}
+        out["shrinks"] = [{k: v for k, v in s.items() if k != "bundle"}
+                          for s in res["shrinks"]]
+        return out
+
+    got = fuzz.fuzz_run("broadcast", device=cuda_device,
+                        observe_dir=str(tmp_path / "g"), **kw)
+    want = fuzz.fuzz_run("broadcast", device="cpu",
+                         observe_dir=str(tmp_path / "c"), **kw)
+    assert strip(got) == strip(want)
+    assert got["n_failing"] >= 1 and got["shrinks"][0]["replay_same_failure"]

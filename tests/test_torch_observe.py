@@ -298,7 +298,9 @@ def test_replay_bundle_refusals():
         PO.replay_bundle(bundle, device="cpu")
     with pytest.raises(ValueError, match="NemesisSpec"):
         PO.replay_bundle(dict(bundle, kind="nemesis"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # the frontier report's check is ported: it refuses a report that is
+    # not one
+    with pytest.raises(ValueError, match="frontier schema"):
         PO.validate_frontier({})
 
 

@@ -143,6 +143,19 @@ def test_harness_host_copies_are_the_ports_own(name, tmp_path):
                 f(tb.to_dict())
 
 
+@pytest.mark.parametrize("n", [1, 2, 5, 33])
+def test_full_topology_is_the_ports_own(n):
+    # the complete graph the broadcast resize campaigns run on: the
+    # port's own copy (defined in its module), equal to the reference's
+    from gossip_glomers_tpu.parallel import topology as jtop
+    from gossip_glomers_tpu_torch.parallel import topology as ptop
+
+    assert ptop.full.__module__ == ptop.__name__
+    assert ptop.full(n) == jtop.full(n)
+    np.testing.assert_array_equal(to_padded_neighbors(ptop.full(n)),
+                                  jtop.to_padded_neighbors(jtop.full(n)))
+
+
 def test_import_scan_compares_exact_names(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import gossip_glomers_tpu_torch.tpu_sim\n"
@@ -226,12 +239,13 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="ledger is off"):
         sim.server_msgs(state)
     # txn-rw-register runs on one device; its meshes (item 10) and audit
-    # (item 14) raise, as do the frontier's report check (item 13) and a
-    # replay on a mesh (item 10); the scenario batches run, and raise on
-    # a mesh (item 10) and for their program audit (item 14)
-    from gossip_glomers_tpu_torch.harness import observe
+    # (item 14) raise, as does a replay on a mesh (item 10); the scenario
+    # batches run, and raise on a mesh (item 10) and for their program
+    # audit (item 14); so do the frontier, the fuzzer and the membership
+    # layer
+    from gossip_glomers_tpu_torch.harness import frontier, fuzz, observe
     from gossip_glomers_tpu_torch.harness import txn as htxn
-    from gossip_glomers_tpu_torch.tpu_sim import scenario, txn
+    from gossip_glomers_tpu_torch.tpu_sim import membership, scenario, txn
 
     tsim = txn.TxnSim(8, 4, device="cpu")
     sbatch = scenario.ScenarioBatch(workload="counter", scenarios=(
@@ -252,7 +266,11 @@ def test_unported_modes_raise():
             (scenario.audit_contracts, 14),
             (lambda: scenario._audit_program("counter", sbatch, None), 14),
             (lambda: tsim.audit_run_program, 14), (txn.audit_contracts, 14),
-            (lambda: observe.validate_frontier({}), 13),
+            (lambda: frontier.run_frontier("counter", cells, mesh=object(),
+                                           device="cpu"), 10),
+            (lambda: fuzz.fuzz_run("counter", 1, mesh=object(),
+                                   device="cpu"), 10),
+            (membership.audit_contracts, 14),
             (lambda: observe.replay_bundle({}, mesh=object()), 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
@@ -263,6 +281,11 @@ def test_unported_modes_raise():
         (state.cur >= state.arrived).all())
     assert htxn.run_txn_frontier([0.5], [faults.NemesisSpec(n_nodes=4)],
                                  until=4, device="cpu")["n_cells"] == 1
+    # the frontier's report check and the resize intake gate run
+    with pytest.raises(ValueError, match="frontier schema"):
+        observe.validate_frontier({})
+    assert frontier.run_frontier("counter", cells, device="cpu",
+                                 max_recovery_rounds=4)["n_cells"] == 1
 
 
 def test_kafka_unported_parts_raise_with_their_items():

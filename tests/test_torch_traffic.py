@@ -196,10 +196,13 @@ def test_unported_parts_raise_with_their_items():
     for fn, item in ((PT.plan_specs, 10),
                      (lambda: PT.state_specs(True), 10),
                      (lambda: PT.init_state(pspec, mesh=object()), 10),
-                     (lambda: PT.resizing_defer(None, None), 12),
                      (PTM.state_specs, 10), (PTM.audit_contracts, 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
+    # the resizing intake gate is ported: every arrival deferred, counted
+    ts, ok = PT.resizing_defer(PT.init_state(pspec, device="cpu"),
+                               torch.ones(pspec.n_clients, dtype=torch.bool))
+    assert not ok.any() and int(ts.deferred_resizing) == pspec.n_clients
     # the scenario batches' plan padding and stacking are ported
     assert len(PT.pad_tplan(pspec.compile(), 2).b_starts) == 2
     assert PT.batch_tplans([pspec, pspec]).rate_num.shape == (2,)
