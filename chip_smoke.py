@@ -61,7 +61,10 @@ bundles and repros under ``build/chip_smoke/``):
    ``fault_coins`` and ``faulted_gather_round`` (:func:`check_batched_faults`:
    S in {1, 3, 128} scenarios of N in {1, 24, 1,024} rows, W in {1, 2,
    64}, blocks straddling scenarios, 4-byte-offset views; S = 1 equal to
-   the one-scenario kernels) — and each one's
+   the one-scenario kernels); the mesh's ``tree_halo_pack`` and
+   ``tree_halo_round`` (both forms, with and without the back column and
+   a live row: :func:`check_halo_kernels`, B at k, 12k and 255k-257k, W 1
+   and 3, k 2 and 4, and the shard shapes) — and each one's
    median
    time at the main path's shapes (the
    masked exchanges at both, on the tree's 2 rows and the circulant's 8,
@@ -146,6 +149,30 @@ bundles and repros under ``build/chip_smoke/``):
 18. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
     run to convergence with the server ledger on, each held against the
     CPU path (coverage, not timing).
+18a. ``mesh_collectives``, ``mesh_tree_1m``, ``mesh_topologies``: the
+    broadcast simulator on a 1-D mesh of 4 ranks, one process each, all
+    on the one card, a gloo group whose payloads cross ranks through
+    host memory (``transport`` "gloo, host-staged"; one world runs the
+    three phases' rank sides, :func:`mesh_rank_work`).  The collectives
+    and the halo primitives each equal their twin on the stitched input,
+    and a 1-rank NCCL world (in the smoke's own process) runs
+    ``structured_sim("tree", 2^16, 32, mesh=)`` equal to the no-mesh run
+    (NCCL's point-to-point path across ranks needs two cards and is not
+    run).  ``mesh_tree_1m``: the main
+    path at full width, the 2^20-node 4-ary tree, 32 values, 2^18 nodes a
+    rank: the flood twin's fixed trip (``tree_halo_pack`` and
+    ``tree_halo_round``'s fused form a round; wall, ms a round, launches
+    and collective calls a round), ``run_fused`` and the accounted run
+    (server ledger, sync every 16), each equal to the one-process card
+    run, the accounted run also to the CPU twin; the halo kernels' own
+    times at (1, 2^18) and (128, 2^16) come from the kernel check.
+    ``mesh_topologies``: grid, ring, line, circulant and tree k = 2,
+    ``w1_circulant_partitioned``'s window on 2^16 nodes (the masked halo
+    exchange) and the gather path on ``random_regular(2^16, 8)`` (the
+    all-gather widen), each equal to its one-process run.  Not a
+    multi-card figure.  Their launches are the ranks' own counts of the
+    mesh runs (``launches_by_path``'s ``mesh``), never the parent's
+    comparison runs.
 19. ``counter_1m_partitioned``: benchmarks/run_all.py's ``config3b``
     (``_counter_bench`` at 2^20 nodes: allreduce, half the nodes off the
     KV for rounds [0, 8) of 16); ``ok``: the KV and every read equal the
@@ -213,9 +240,10 @@ bundles and repros under ``build/chip_smoke/``):
     off the launch counts, ``and_fold``'s device ms on its state; then
     the runs replayed with the telemetry ring and held against the
     port's CPU path at the same spec (tracker, state and ring; the
-    broadcast at rate 0.1 only, the CPU's W = 768 rounds being the
-    slowest part of the smoke).  ``ok``: every row ``ok`` with no lost
-    write, and the twin equal.
+    broadcast at rate 0.1 only, its CPU twin's W = 768 rounds run in a
+    background process while the later phases run, and its record
+    printed once the twin is held, after the last phase).  ``ok``: every
+    row ``ok`` with no lost write, and the twin equal.
 32. ``serving_overlay_1k``: the three fault overlays of
     serving_curve.py :169-200 (crash of every fifth node over rounds
     [16, 32), loss 0.1 until 36, 1,024 nodes, 256 clients at rate 0.2:
@@ -344,11 +372,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 N_NODES = 1 << 20
 BRANCHING = 4
@@ -439,13 +471,22 @@ KERNELS = {
     # no Pallas kernel: certify_loop's XLA freeze of the carry
     "fold_freeze": ("fault_flood.cu", JAX_PKG + "scenario.py:327",
                     "fold_freeze_kernel"),
+    # the Pallas tree inbox in its sharded form on a mesh (the
+    # reference's structured.py:225-327 around it): the kids' partial a
+    # shard sends, and the inbox from the received slices
+    "tree_halo_pack": ("tree_flood.cu", "benchmarks/pallas_tree_probe.py:74",
+                       "tree_halo_pack_kernel"),
+    "tree_halo_round": ("tree_flood.cu",
+                        "benchmarks/pallas_tree_probe.py:74",
+                        "tree_halo_round_kernel"),
 }
 # the gather kernels' main shapes are node-major (N, W) = (2^20, 1) and
 # (2^20, 128), degree 8
 GATHER_SHAPES = [(1, N_NODES), (W128_VALUES // 32, N_NODES)]
 # the profiler's names of the port's kernels (csrc/*.cu __global__s)
 PORT_KERNEL = re.compile(r"(tree_exchange|tree_masked_exchange|"
-                         r"tree_ring_exchange|"
+                         r"tree_ring_exchange|tree_halo_pack|"
+                         r"tree_halo_round|"
                          r"tree_flood_round|col_popcount|col_popcount_nm|"
                          r"shift_tiles|gather_or|sync_diff_pc|"
                          r"gather_flood_round|fault_coins|"
@@ -1508,13 +1549,33 @@ class Launches:
 
     def split(self, name: str) -> dict:
         """One kernel's launches by path: the 1M-node floods at W = 128
-        and at W = 1 (gather phases included), and the small floods."""
-        out = {"n1m_w128": 0, "n1m_w1": 0, "small_floods": 0}
+        and at W = 1 (gather phases included), the small floods, and the
+        mesh phases' ranks."""
+        out = {"n1m_w128": 0, "n1m_w1": 0, "small_floods": 0, "mesh": 0}
         for phase, counts in self.by_phase.items():
             key = ("small_floods" if phase == "small_floods" else
+                   "mesh" if phase.startswith("mesh_") else
                    "n1m_w128" if phase.startswith("w128_") else "n1m_w1")
             out[key] += counts[name]
         return out
+
+    def add_ranks(self, rec: dict, counts: list, expect) -> None:
+        """A mesh phase's launches: the sum of its ranks' counts (each
+        rank reset them before a run of the path and read them after; the
+        parent's comparison runs are not counted).  Fails if a kernel of
+        the path was never launched."""
+        total = {name: 0 for name in self.total}
+        for c in counts:
+            for name, v in c.items():
+                total[name] += v
+        rec["launches"] = {k: v for k, v in total.items() if v}
+        for name, v in total.items():
+            self.total[name] += v
+        self.by_phase[rec["phase"]] = total
+        missing = [name for name in expect if not total[name]]
+        if missing:
+            raise AssertionError(f"{rec['phase']}: kernels {missing} were "
+                                 "never launched on the ranks")
 
     def stop(self, rec: dict, expect: tuple) -> None:
         import torch
@@ -4439,17 +4500,121 @@ def serving_timed(kernels, serving, sim, kind: str, tspec) -> dict:
             "no_host_sync": sync_free}
 
 
+# the threads of a background CPU twin: it shares the host's cores with
+# the phases that run meanwhile
+TWIN_THREADS = 2
+TWIN_TIMEOUT_S = 900.0
+
+
+def host_copy(x):
+    """``x`` with every tensor in it copied to the host (dataclasses,
+    named tuples, tuples and lists)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: host_copy(getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(host_copy(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(host_copy(v) for v in x)
+    return x
+
+
+def cpu_serving_ends(kind: str, tkw: dict, max_rate: float, sim_kw: dict,
+                     rates_rounds: list) -> list:
+    """The port's CPU path at a serving phase's spec (its sim built at the
+    heaviest rate, as the card's is): each ``(rate, rounds)`` replayed
+    with the ring on (:func:`replay`), the ends as they come out."""
+    import torch
+
+    from gossip_glomers_tpu_torch.harness import serving
+    from gossip_glomers_tpu_torch.tpu_sim import telemetry, traffic
+
+    torch.set_num_threads(TWIN_THREADS)
+    spec0 = traffic.TrafficSpec(**tkw)
+    csim, _ = serving.make_serving_sim(kind, spec0.with_rate(max_rate),
+                                       device="cpu", **dict(sim_kw))
+    out = []
+    for rate, rounds in rates_rounds:
+        tsp = telemetry.TelemetrySpec(kind, rounds=rounds, traffic=True)
+        out.append(replay(csim, kind, serving, telemetry,
+                          spec0.with_rate(rate), rounds, tsp))
+    return out
+
+
+def _twin_body(fn, args, path: str) -> None:
+    try:
+        t0 = time.perf_counter()
+        res = fn(*args)
+        with open(path + ".tmp", "wb") as fh:
+            pickle.dump((time.perf_counter() - t0, res), fh, protocol=5)
+        os.replace(path + ".tmp", path)
+    except BaseException:
+        with open(path + ".err", "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+class BackgroundTwin:
+    """``fn(*args)`` in a spawned process of its own (a CPU twin, which
+    needs no card), its result pickled to a temporary file: the smoke
+    goes on meanwhile.  :meth:`result` joins it (killing it past
+    ``timeout`` seconds from its start) and raises with its traceback if
+    it failed.  The process is a daemon: it ends with the smoke."""
+
+    def __init__(self, fn, args: tuple, timeout: float = TWIN_TIMEOUT_S):
+        import multiprocessing
+
+        self.dir = tempfile.mkdtemp(prefix="gg_twin_")
+        self.path = os.path.join(self.dir, "out.pkl")
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_twin_body, args=(fn, args, self.path), daemon=True)
+        self.proc.start()
+        self.deadline = time.monotonic() + timeout
+        self.seconds = None
+
+    def result(self):
+        try:
+            self.proc.join(max(0.1, self.deadline - time.monotonic()))
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+                raise AssertionError("a background CPU twin was still "
+                                     "running at its timeout (killed)")
+            if os.path.exists(self.path + ".err"):
+                with open(self.path + ".err") as fh:
+                    raise AssertionError("a background CPU twin failed:\n"
+                                         + fh.read()[-3000:])
+            if self.proc.exitcode != 0:
+                raise AssertionError("a background CPU twin exited "
+                                     f"{self.proc.exitcode}")
+            with open(self.path, "rb") as fh:
+                self.seconds, res = pickle.load(fh)
+            return res
+        finally:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
                     twin_rates, modules, device, launches: Launches,
                     card: str, *, nemesis_kw=None, max_recovery_rounds=96,
-                    twin=None) -> dict:
+                    twin=None, background: bool = False) -> dict:
     """One serving phase: ``run_serving`` on the card at each rate (one
     sim, built at the heaviest rate, as ``run_serving_curve`` builds it),
     the driven phase timed and profiled at the first rate (one trip must
     launch the phase's kernels), each of ``twin_rates`` replayed with the
     ring on; then, off the launch counts, ``and_fold`` timed on the final
     state and each replay held against its twin: the port's CPU path at
-    the same spec, or ``twin(device)``'s sim on the card."""
+    the same spec, or ``twin(device)``'s sim on the card.  With
+    ``background`` the CPU twin runs in a process of its own
+    (:class:`BackgroundTwin`, started once the rows' round counts are
+    known) while the smoke goes on: the record comes back with
+    ``twin_match`` None and ``rec["_pending"]``, which
+    :func:`finish_serving_twins` holds against the replays' host copies."""
     import torch
 
     serving, telemetry, traffic, kernels, faults = modules
@@ -4476,6 +4641,11 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
         if "cliff" in row:
             rep["cliff"] = row["cliff"]
         rec["rates"].append(rep)
+    pending = None
+    if background:
+        pending = BackgroundTwin(cpu_serving_ends, (
+            kind, tkw, float(max(rates)), sim_kw,
+            [(float(r), rows[r]["total_rounds"]) for r in twin_rates]))
     rec["timed"] = serving_timed(kernels, serving, sim, kind,
                                  spec0.with_rate(float(rates[0])))
     missing = [k for k in SERVING_EXPECT[kind]
@@ -4506,6 +4676,14 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
             lambda: kernels.and_fold(x, shape[0]), "and_fold_kernel",
             calls=5)
         del x
+    if pending is not None:
+        rec["twin"] = "cpu, in a background process"
+        rec["twin_rates"] = list(twin_rates)
+        rec["twin_match"] = None
+        rec["_pending"] = (pending, [host_copy(ends[r]) for r in twin_rates])
+        del sim, ends
+        torch.cuda.empty_cache()
+        return rec
     if twin is None:
         csim, _ = serving.make_serving_sim(
             kind, spec0.with_rate(float(max(rates))), nemesis=nem,
@@ -4541,12 +4719,19 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
 
 
 def serving_phases(modules, topology, structured, broadcast, device,
-                   launches: Launches, card: str) -> None:
+                   launches: Launches, card: str) -> list:
     """benchmarks/serving_curve.py's points on one card and the main path
-    under load (module docstring, phases 28-32)."""
+    under load (module docstring, phases 31-33).  Returns the records
+    whose CPU twin still runs in the background
+    (:func:`finish_serving_twins` emits them)."""
+    pending = []
     for name, kind, tkw, rates, sim_kw, twin_rates in SERVING_PHASES:
         rec = serve_and_check(name, kind, tkw, rates, sim_kw, twin_rates,
-                              modules, device, launches, card)
+                              modules, device, launches, card,
+                              background=kind == "broadcast")
+        if rec["twin_match"] is None:
+            pending.append(rec)
+            continue
         rec["ok"] = (rec["twin_match"] and all(
             r["ok"] and r["n_lost_writes"] == 0 for r in rec["rates"]))
         emit(rec)
@@ -4593,6 +4778,26 @@ def serving_phases(modules, topology, structured, broadcast, device,
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"serving_tree_1m: {rec}")
+    return pending
+
+
+def finish_serving_twins(kernels, pending: list) -> None:
+    """Hold each pending serving record's replays against its CPU twin
+    from the background process (:func:`same_serving`), then emit it."""
+    for rec in pending:
+        twin, ends = rec.pop("_pending")
+        t0 = time.perf_counter()
+        others = twin.result()
+        rec["twin_wait_s"] = time.perf_counter() - t0
+        rec["twin_s"] = twin.seconds
+        rec["twin_match"] = len(others) == len(ends) and all(
+            same_serving(kernels, end, other)
+            for end, other in zip(ends, others))
+        rec["ok"] = (rec["twin_match"] and all(
+            r["ok"] and r["n_lost_writes"] == 0 for r in rec["rates"]))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"{rec['phase']}: {rec}")
 
 
 # -- txn-rw-register (txn_round.cu) -----------------------------------------
@@ -6433,6 +6638,574 @@ def fuzz_campaigns(modules, device, launches: Launches, card: str) -> None:
         raise AssertionError(f"fuzz_campaigns: {rec}")
 
 
+# -- the mesh: 4 ranks on the one card over host-staged gloo ---------------
+#
+# The card machine has one H100, and NCCL refuses two ranks on one card,
+# so the mesh phases run MESH_RANKS processes on it, a gloo group whose
+# payloads cross ranks through host memory (Mesh.host_staged); a 1-rank
+# NCCL world shows that backend's all-reduce path.  One 4-rank world
+# runs every mesh phase's rank side (mesh_rank_work: a world's start-up
+# is paid once); the parent builds the kernels before it spawns, so the
+# ranks only load them, and it holds each rank result against the
+# one-process run on the card and the CPU twin.
+
+MESH_RANKS = 4
+MESH_SEED = 19
+MESH_TIMEOUT_S = 600.0
+# the halo kernels' shard shapes: the main path's (2^20 nodes over 4
+# ranks, W = 1) and a wide one
+HALO_SHAPES = [(1, N_NODES // MESH_RANKS), (W128_VALUES // 32, 1 << 16)]
+# the kernel checks' (w, B, k): small, the thread-tile edges (256 words a
+# block: B/k + 1 = 256 for the pack, B = 256 for the round) and the shapes
+HALO_CHECKS = ([(w, b, k) for w in (1, 3) for k in (2, 4)
+                for b in (k, 12 * k, 255 * k, 256 * k, 257 * k)]
+               + [(w, b, 4) for w, b in HALO_SHAPES])
+MESH_EXPECT = ("tree_halo_pack", "tree_halo_round", "col_popcount")
+MESH_TOPO = (("grid", 4096, {}), ("ring", 128, {}), ("line", 128, {}),
+             ("circulant", 4096, {"strides": "expander"}),
+             ("tree", 4096, {"branching": 2}))
+MESH_SMALL_NODES = 1 << 16
+
+
+def halo_case(kernels, w: int, b: int, k: int, seed: int, device,
+              live: bool):
+    """Random operands of the halo kernels: a (w, b) block, the parent
+    buffer, the kids' landing buffer, the back column, a received set
+    and (``live``) a packed live row."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                             device=device, generator=gen)
+
+    lv = (kernels.pack_bits(torch.rand(b, device=device, generator=gen)
+                            < 0.6) if live else None)
+    return {"p": rnd((w, b)), "buf": rnd((w, b // k + 1)),
+            "ek": rnd((w, b + 1)), "back": rnd((w,)), "rec": rnd((w, b)),
+            "live": lv}
+
+
+def check_halo_kernels(kernels, device) -> dict:
+    """max |kernel - plain| of tree_halo_pack and tree_halo_round (both
+    forms) over HALO_CHECKS, with and without a live row (0 = bit for
+    bit)."""
+    import torch
+
+    errs = {"tree_halo_pack": 0, "tree_halo_round": 0}
+    for i, (w, b, k) in enumerate(HALO_CHECKS):
+        for live in (False, True):
+            c = halo_case(kernels, w, b, k, 1000 + i, device, live)
+            errs["tree_halo_pack"] = max(
+                errs["tree_halo_pack"],
+                max_abs_err(kernels.tree_halo_pack(c["p"], k, c["live"]),
+                            kernels.tree_halo_pack_plain(c["p"], k,
+                                                         c["live"])))
+            for back in (None, c["back"]):
+                got = kernels.tree_halo_round(c["buf"], c["ek"], back, k,
+                                              c["live"])
+                want = kernels.tree_halo_round_plain(c["buf"], c["ek"],
+                                                     back, k, c["live"])
+                errs["tree_halo_round"] = max(errs["tree_halo_round"],
+                                              max_abs_err(got, want))
+                rec_g, rec_w = c["rec"].clone(), c["rec"].clone()
+                nxt_g, nxt_w = torch.empty_like(rec_g), torch.empty_like(
+                    rec_w)
+                kernels.tree_halo_round(c["buf"], c["ek"], back, k,
+                                        c["live"], received=rec_g,
+                                        frontier_next=nxt_g)
+                kernels.tree_halo_round_plain(c["buf"], c["ek"], back, k,
+                                              c["live"], rec_w, nxt_w)
+                errs["tree_halo_round"] = max(
+                    errs["tree_halo_round"], max_abs_err(rec_g, rec_w),
+                    max_abs_err(nxt_g, nxt_w))
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_halo_kernels(kernels, device) -> dict:
+    """{kernel: {(w, B): timing}} of the halo kernels at HALO_SHAPES (k =
+    4): tree_halo_pack, and tree_halo_round's fused form (the flood
+    twin's; its inbox form beside it).  Bounds: every input read once,
+    every output written once, over HBM's rate."""
+    import torch
+
+    out = {"tree_halo_pack": {}, "tree_halo_round": {}}
+    k = BRANCHING
+    for w, b in HALO_SHAPES:
+        c = halo_case(kernels, w, b, k, 7, device, False)
+        sub = b // k
+        nxt = torch.empty_like(c["rec"])
+        pack_bytes = 4 * w * (b + sub + 1)
+        out["tree_halo_pack"][(w, b)] = _timed(
+            "tree_halo_pack",
+            lambda c=c: kernels.tree_halo_pack(c["p"], k),
+            lambda c=c: kernels.tree_halo_pack_plain(c["p"], k),
+            bound(pack_bytes, 2 * k * w * (sub + 1)))
+        rec = c["rec"]
+        fused_bytes = 4 * w * ((sub + 1) + (b + 1) + 1 + 3 * b)
+        entry = _timed(
+            "tree_halo_round",
+            lambda c=c, rec=rec, nxt=nxt: kernels.tree_halo_round(
+                c["buf"], c["ek"], c["back"], k, received=rec,
+                frontier_next=nxt),
+            lambda c=c, rec=rec, nxt=nxt: kernels.tree_halo_round_plain(
+                c["buf"], c["ek"], c["back"], k, None, rec, nxt),
+            bound(fused_bytes, 8 * w * b))
+        inbox_bytes = 4 * w * ((sub + 1) + (b + 1) + 1 + b)
+        entry.update({
+            "form": "fused flood round",
+            "inbox_ms": cuda_ms(lambda c=c: kernels.tree_halo_round(
+                c["buf"], c["ek"], c["back"], k)),
+            "inbox_bound_ms": bound(inbox_bytes, 4 * w * b)[0]})
+        out["tree_halo_round"][(w, b)] = entry
+    torch.cuda.synchronize()
+    return out
+
+
+def _calls_delta(mesh, before: dict) -> dict:
+    return {kind: mesh.calls[kind] - before.get(kind, 0)
+            for kind in ("ppermute", "all_reduce", "all_gather")}
+
+
+def _mesh_collectives_rank(mesh, seed: int) -> dict:
+    """Every collective and halo primitive on random operands (made from
+    ``seed`` with numpy, the same on every rank); this rank's results."""
+    import numpy as np
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import engine
+
+    k, p = mesh.size, mesh.rank
+    rows, block, w = 256, 1000, 3
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, (k * rows, 4), dtype=np.uint64).astype(
+        np.uint32)
+    y = rng.integers(-1 << 40, 1 << 40, (k * rows, 2)).astype(np.int64)
+    z = rng.integers(0, 1 << 32, (w, k * block), dtype=np.uint64).astype(
+        np.uint32)
+    mine = slice(p * rows, (p + 1) * rows)
+    dev = mesh.device
+
+    def t(a):
+        a = np.ascontiguousarray(a)
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                else a).to(dev)
+
+    def back(x_):
+        a = x_.cpu().numpy()
+        return a.view(np.uint32) if a.dtype == np.int32 else a
+
+    coll = engine.collectives(rows, mesh)
+    xl, yl = t(x[mine]), t(y[mine])
+    out = {}
+    before = dict(mesh.calls)
+    out["reduce_or"] = back(coll.reduce_or(xl))
+    out["reduce_and"] = back(coll.reduce_and(xl))
+    out["exclusive_sum"] = back(coll.exclusive_sum(yl))
+    out["ladder_calls"] = _calls_delta(mesh, before)
+    for name in ("reduce_sum", "reduce_max", "reduce_min"):
+        out[name] = back(getattr(coll, name)(yl))
+    out["widen"] = back(coll.widen(xl))
+    out["row_ids"] = back(coll.row_ids)
+    zl = t(z[:, p * block:(p + 1) * block])
+    for s in (0, 1, -1, block - 1, -(block - 1), block, block + 3,
+              -(block + 3), 2 * block + 1):
+        out[("roll", s)] = back(engine.sharded_roll(zl, s, k * block, k,
+                                                    mesh))
+    for s in (0, 1, -1, block - 1, -(block - 1)):
+        out[("shift", s)] = back(engine.sharded_shift(zl, s, k, mesh))
+    torch.cuda.synchronize()
+    return out
+
+
+def check_mesh_collectives(ranks: list, seed: int) -> list:
+    """Hold the ranks' collectives against their twins on the stitched
+    input (numpy); returns the names checked."""
+    import numpy as np
+
+    k, rows, block, w = len(ranks), 256, 1000, 3
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, (k * rows, 4), dtype=np.uint64).astype(
+        np.uint32)
+    y = rng.integers(-1 << 40, 1 << 40, (k * rows, 2)).astype(np.int64)
+    z = rng.integers(0, 1 << 32, (w, k * block), dtype=np.uint64).astype(
+        np.uint32)
+    xb, yb = x.reshape(k, rows, 4), y.reshape(k, rows, 2)
+    twins = {
+        "reduce_or": [np.bitwise_or.reduce(xb, axis=0)] * k,
+        "reduce_and": [np.bitwise_and.reduce(xb, axis=0)] * k,
+        "exclusive_sum": [yb[:r].sum(axis=0) for r in range(k)],
+        "reduce_sum": [yb.sum(axis=0)] * k,
+        "reduce_max": [yb.max(axis=0)] * k,
+        "reduce_min": [yb.min(axis=0)] * k,
+        "widen": [x] * k,
+        "row_ids": [np.arange(r * rows, (r + 1) * rows) for r in range(k)]}
+    n = k * block
+    for s in (0, 1, -1, block - 1, -(block - 1), block, block + 3,
+              -(block + 3), 2 * block + 1):
+        full = np.roll(z, s, axis=1)
+        twins[("roll", s)] = [full[:, r * block:(r + 1) * block]
+                              for r in range(k)]
+    for s in (0, 1, -1, block - 1, -(block - 1)):
+        idx = np.arange(n) + s
+        full = np.where((idx >= 0) & (idx < n),
+                        z[:, np.clip(idx, 0, n - 1)], 0)
+        twins[("shift", s)] = [full[:, r * block:(r + 1) * block]
+                               for r in range(k)]
+    for name, want in twins.items():
+        for r, rank in enumerate(ranks):
+            got = np.asarray(rank[name])
+            if got.shape != np.shape(want[r]) or \
+                    (got.astype(np.int64) != np.asarray(
+                        want[r]).astype(np.int64)).any():
+                raise AssertionError(f"mesh_collectives: {name} differs "
+                                     f"from its twin on rank {r}")
+    for r, rank in enumerate(ranks):
+        calls = rank["ladder_calls"]
+        if calls["all_gather"] or calls["all_reduce"] or \
+                not calls["ppermute"]:
+            raise AssertionError(f"mesh_collectives: the OR / AND / prefix "
+                                 f"circuits on rank {r} made {calls}")
+    return [str(name) for name in twins]
+
+
+def _tree_run(sim, inject, rounds: int) -> dict:
+    """The flood twin's fixed trip (timed) on a staged state."""
+    import torch
+
+    state0 = sim.init_state(inject)
+    torch.cuda.synchronize()
+    if sim.mesh is not None:
+        sim.mesh.agree(True)            # start the ranks' clocks together
+    t0 = time.perf_counter()
+    state = sim.run_staged_fixed(state0, rounds, donate=True)
+    torch.cuda.synchronize()
+    return {"state": state, "wall_s": time.perf_counter() - t0}
+
+
+def _mesh_tree_rank(mesh) -> dict:
+    """mesh_tree_1m's rank side: the flood twin's fixed trip (warm, then
+    timed, its launches and collective calls counted), the
+    while-converge run_fused, and the accounted run (server ledger, sync
+    waves every 16 rounds)."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import broadcast, kernels, timing
+
+    n, nv = N_NODES, W1_VALUES
+    inject = broadcast.make_inject(n, nv)
+    rounds = timing.discover_rounds("tree", n, nv)
+    sim = timing.structured_sim("tree", n, nv, mesh=mesh)
+    if sim.build_fixed(rounds, donate=True) is None:
+        raise AssertionError("mesh_tree_1m: no flood twin on the mesh")
+    _tree_run(sim, inject, rounds)                       # warm
+    kernels.reset_launches()
+    before = dict(mesh.calls)
+    run = _tree_run(sim, inject, rounds)
+    out = {"rounds": rounds, "wall_s": run["wall_s"],
+           "fixed_launches": dict(kernels.LAUNCHES),
+           "fixed_calls": _calls_delta(mesh, before),
+           "fixed_msgs": int(run["state"].msgs),
+           "fixed_received": sim.received_node_major(run["state"])}
+    del run
+    kernels.reset_launches()
+    before = dict(mesh.calls)
+    t0 = time.perf_counter()
+    state, rounds_f = sim.run_fused(inject)
+    torch.cuda.synchronize()
+    out.update({"fused_rounds": rounds_f,
+                "fused_wall_s": time.perf_counter() - t0,
+                "fused_launches": dict(kernels.LAUNCHES),
+                "fused_calls": _calls_delta(mesh, before),
+                "fused_msgs": int(state.msgs)})
+    del state
+    acct = timing.structured_sim("tree", n, nv, sync_every=16,
+                                 srv_ledger=True, mesh=mesh)
+    kernels.reset_launches()
+    before = dict(mesh.calls)
+    t0 = time.perf_counter()
+    state, rounds_a = acct.run_fused(inject)
+    torch.cuda.synchronize()
+    out.update({"acct_rounds": rounds_a,
+                "acct_wall_s": time.perf_counter() - t0,
+                "acct_launches": dict(kernels.LAUNCHES),
+                "acct_calls": _calls_delta(mesh, before),
+                "acct_msgs": int(state.msgs),
+                "acct_srv": acct.server_msgs(state),
+                "acct_received": acct.received_node_major(state),
+                "halo": acct.sharded_exchange is not None})
+    if mesh.rank:
+        for key in ("fixed_received", "acct_received"):
+            out[key] = None                 # rank 0 brings the sets back
+    return out
+
+
+def _mesh_topo_sims(broadcast, timing, topology, mesh, device):
+    """(name, sim, inject) of mesh_topologies' runs, on ``mesh`` or (None)
+    on one device."""
+    one = device if mesh is None else None
+    cases = []
+    for topo, n, kw in MESH_TOPO:
+        if kw.get("strides") == "expander":
+            kw = {"strides": topology.expander_strides(n, DEGREE, seed=0)}
+        sim = timing.structured_sim(topo, n, W1_VALUES, sync_every=16,
+                                    srv_ledger=True, mesh=mesh,
+                                    device=one, **kw)
+        cases.append((f"{topo}_{n}", sim,
+                      broadcast.make_inject(n, W1_VALUES)))
+    n = MESH_SMALL_NODES
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    parts, _ = config4c_parts(broadcast, n)
+    cases.append((f"circulant_partitioned_{n}", timing.structured_sim(
+        "circulant", n, W1_VALUES, sync_every=16, srv_ledger=True,
+        parts=parts, mesh=mesh, device=one,
+        strides=strides), broadcast.make_inject(n, W1_VALUES)))
+    cases.append((f"random_regular_gather_{n}", broadcast.BroadcastSim(
+        topology.random_regular(n, DEGREE, seed=0), n_values=W1_VALUES,
+        sync_every=4, mesh=mesh, device=one),
+        broadcast.make_inject(n, W1_VALUES)))
+    return cases
+
+
+def _mesh_topo_rank(mesh) -> dict:
+    import torch
+
+    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.tpu_sim import broadcast, kernels, timing
+
+    out = {}
+    for name, sim, inject in _mesh_topo_sims(broadcast, timing, topology,
+                                             mesh, None):
+        kernels.reset_launches()
+        before = dict(mesh.calls)
+        t0 = time.perf_counter()
+        state, rounds = sim.run_fused(inject)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = _calls_delta(mesh, before)
+        halo = (sim.words_major and (
+            sim._faulted.sharded_exchange is not None
+            if sim._faulted is not None
+            else sim.sharded_exchange is not None))
+        out[name] = {"rounds": rounds, "wall_s": wall, "calls": calls,
+                     "launches": {k: v for k, v in kernels.LAUNCHES.items()
+                                  if v},
+                     "msgs": int(state.msgs),
+                     "srv": (None if state.srv_msgs is None
+                             else int(state.srv_msgs)),
+                     "path": ("halo" if halo else "all-gather widen"),
+                     # a collective read: every rank takes part
+                     "received": sim.received_node_major(state)}
+        if mesh.rank:
+            out[name]["received"] = None    # rank 0 brings it back
+    return out
+
+
+def mesh_rank_work(mesh, seed: int) -> dict:
+    """The rank side of every mesh phase, in one world."""
+    return {"transport": mesh.transport, "rank": mesh.rank,
+            "collectives": _mesh_collectives_rank(mesh, seed),
+            "tree_1m": _mesh_tree_rank(mesh),
+            "topologies": _mesh_topo_rank(mesh)}
+
+
+def nccl_rank_work(mesh) -> dict:
+    """The 1-rank NCCL world: structured_sim on a 65,536-node tree on the
+    mesh (its all-reduces through NCCL, its halo ppermutes local)."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import broadcast, timing
+
+    n = MESH_SMALL_NODES
+    inject = broadcast.make_inject(n, W1_VALUES)
+    sim = timing.structured_sim("tree", n, W1_VALUES, sync_every=16,
+                                srv_ledger=True, mesh=mesh)
+    state, rounds = sim.run_fused(inject)
+    torch.cuda.synchronize()
+    return {"backend": mesh.backend, "rounds": rounds,
+            "msgs": int(state.msgs), "srv": sim.server_msgs(state),
+            "received": sim.received_node_major(state),
+            "calls": dict(mesh.calls)}
+
+
+def nccl_one_rank() -> dict:
+    """:func:`nccl_rank_work` in a 1-rank NCCL world of this process (a
+    ``file://`` store in a temporary directory), destroyed after."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from gossip_glomers_tpu_torch.parallel.mesh import Mesh
+
+    work = tempfile.mkdtemp(prefix="gg_nccl_")
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{work}/store", world_size=1,
+            rank=0, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            return nccl_rank_work(Mesh(None, device=torch.device(
+                "cuda", torch.cuda.current_device())))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _per_round(d: dict, rounds: int) -> dict:
+    return {k: v / rounds for k, v in d.items() if v}
+
+
+def mesh_phases(modules, device, launches: Launches, card: str,
+                times: dict) -> None:
+    """mesh_collectives, mesh_tree_1m and mesh_topologies (module
+    docstring).  Their launches are the ranks' own counts of the mesh
+    runs (:meth:`Launches.add_ranks`); the parent's one-process and CPU
+    runs they are held against are not counted."""
+    import torch
+
+    broadcast, timing, topology, dcn_worker = modules
+    t0 = time.perf_counter()
+    ranks = dcn_worker.spawn_world(mesh_rank_work, MESH_RANKS,
+                                   backend="gloo", device=device,
+                                   args=(MESH_SEED,),
+                                   timeout=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    transport = ranks[0]["transport"]
+    if transport != "gloo, host-staged":
+        raise AssertionError(f"mesh transport {transport!r}")
+
+    # -- mesh_collectives -------------------------------------------------
+    checked = check_mesh_collectives([r["collectives"] for r in ranks],
+                                     MESH_SEED)
+    t1 = time.perf_counter()
+    nccl = nccl_one_rank()
+    nccl_s = time.perf_counter() - t1
+    n = MESH_SMALL_NODES
+    one = timing.structured_sim("tree", n, W1_VALUES, sync_every=16,
+                                srv_ledger=True, device=device, mesh=None)
+    st, rounds = one.run_fused(broadcast.make_inject(n, W1_VALUES))
+    if not (nccl["backend"] == "nccl" and nccl["rounds"] == rounds
+            and nccl["msgs"] == int(st.msgs)
+            and nccl["srv"] == one.server_msgs(st)
+            and (nccl["received"] == one.received_node_major(st)).all()):
+        raise AssertionError("mesh_collectives: the 1-rank NCCL run differs "
+                             "from the no-mesh run")
+    emit({"phase": "mesh_collectives", "ranks": MESH_RANKS,
+          "transport": transport, "device": card, "checked": checked,
+          "tolerance": 0, "world_spawn_and_run_s": world_s,
+          "nccl_one_rank": {"n": n, "rounds": rounds,
+                            "msgs": nccl["msgs"], "srv_msgs": nccl["srv"],
+                            "calls": nccl["calls"], "seconds": nccl_s,
+                            "in_process": True,
+                            "equals_no_mesh_run": True},
+          "nccl_point_to_point": "not run: NCCL's cross-rank send and "
+                                 "receive need two cards (this machine "
+                                 "has one)"})
+    del one, st
+
+    # -- mesh_tree_1m -----------------------------------------------------
+    tr = [r["tree_1m"] for r in ranks]
+    rounds = tr[0]["rounds"]
+    n, nv = N_NODES, W1_VALUES
+    inject = broadcast.make_inject(n, nv)
+    one = timing.structured_sim("tree", n, nv, device=device, mesh=None)
+    ref_fixed = one.run_staged_fixed(one.init_state(inject), rounds)
+    acct = timing.structured_sim("tree", n, nv, sync_every=16,
+                                 srv_ledger=True, device=device, mesh=None)
+    ref_a, rounds_a = acct.run_fused(inject)
+    rec = {"phase": "mesh_tree_1m", "n": n, "n_values": nv, "w": 1,
+           "ranks": MESH_RANKS, "block": n // MESH_RANKS,
+           "transport": transport, "device": card,
+           "label": "4 ranks on one card over host-staged gloo; not a "
+                    "multi-card figure"}
+    for r, x in enumerate(tr):
+        if not (x["fused_rounds"] == rounds == ref_fixed.t
+                and x["acct_rounds"] == rounds_a
+                and x["fixed_msgs"] == x["fused_msgs"] == int(
+                    ref_fixed.msgs)
+                and x["acct_msgs"] == int(ref_a.msgs)
+                and x["acct_srv"] == acct.server_msgs(ref_a) and x["halo"]):
+            raise AssertionError(f"mesh_tree_1m: rank {r}'s rounds or "
+                                 "ledgers differ from the one-process run")
+    if not ((tr[0]["fixed_received"]
+             == one.received_node_major(ref_fixed)).all()
+            and (tr[0]["acct_received"]
+                 == acct.received_node_major(ref_a)).all()):
+        raise AssertionError("mesh_tree_1m: received differs from the "
+                             "one-process run on the card")
+    del ref_fixed, ref_a, one, acct
+    torch.cuda.empty_cache()
+    cpu = timing.structured_sim("tree", n, nv, sync_every=16,
+                                srv_ledger=True, device="cpu", mesh=None)
+    cpu_state, cpu_rounds = cpu.run_fused(inject)
+    if not (cpu_rounds == rounds_a and int(cpu_state.msgs)
+            == tr[0]["acct_msgs"] and cpu.server_msgs(cpu_state)
+            == tr[0]["acct_srv"] and (cpu.received_node_major(cpu_state)
+                                      == tr[0]["acct_received"]).all()):
+        raise AssertionError("mesh_tree_1m: the mesh run differs from the "
+                             "CPU twin")
+    launches.add_ranks(rec, [x["fixed_launches"] for x in tr]
+                       + [x["fused_launches"] for x in tr]
+                       + [x["acct_launches"] for x in tr], MESH_EXPECT)
+    walls = [x["wall_s"] for x in tr]
+    rec.update({
+        "rounds": rounds, "accounted_rounds": rounds_a,
+        "msgs": tr[0]["fixed_msgs"], "srv_msgs": tr[0]["acct_srv"],
+        "sync_every_accounted": 16,
+        "wall_ms_by_rank": [w_ * 1e3 for w_ in walls],
+        "wall_ms": max(walls) * 1e3,
+        "ms_per_round": max(walls) * 1e3 / rounds,
+        "launches_per_round_rank0": _per_round(tr[0]["fixed_launches"],
+                                               rounds),
+        "collective_calls_per_round_rank0": _per_round(
+            tr[0]["fixed_calls"], rounds),
+        "run_fused_ms": max(x["fused_wall_s"] for x in tr) * 1e3,
+        "run_fused_calls_per_round_rank0": _per_round(
+            tr[0]["fused_calls"], rounds),
+        "accounted_ms": max(x["acct_wall_s"] for x in tr) * 1e3,
+        "accounted_calls_per_round_rank0": _per_round(
+            tr[0]["acct_calls"], rounds_a),
+        "halo_kernels": {name: {f"{w}x{b}": v for (w, b), v in
+                                times[name].items()}
+                         for name in ("tree_halo_pack", "tree_halo_round")},
+        "equals_one_process_card_run": True, "cpu_match": True})
+    emit(rec)
+    del cpu, cpu_state
+
+    # -- mesh_topologies --------------------------------------------------
+    rec = {"phase": "mesh_topologies", "ranks": MESH_RANKS,
+           "transport": transport, "device": card, "runs": {}}
+    tops = [r["topologies"] for r in ranks]
+    for name, sim, inj in _mesh_topo_sims(broadcast, timing, topology, None,
+                                          device):
+        st, rounds = sim.run_fused(inj)
+        want = {"rounds": rounds, "msgs": int(st.msgs),
+                "srv": None if st.srv_msgs is None else int(st.srv_msgs)}
+        for r, x in enumerate(tops):
+            got = {k: x[name][k] for k in want}
+            if got != want:
+                raise AssertionError(f"mesh_topologies {name}: rank {r} "
+                                     f"{got} vs one process {want}")
+        if not (tops[0][name]["received"]
+                == sim.received_node_major(st)).all():
+            raise AssertionError(f"mesh_topologies {name}: received "
+                                 "differs from the one-process run")
+        x = tops[0][name]
+        rec["runs"][name] = {**want, "path": x["path"],
+                             "wall_ms": x["wall_s"] * 1e3,
+                             "calls_rank0": x["calls"]}
+        del sim, st
+    launches.add_ranks(rec, [r[name]["launches"] for r in tops
+                             for name in r],
+                       ("tree_halo_pack", "tree_halo_round"))
+    rec["equals_one_process_card_run"] = True
+    emit(rec)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -6443,7 +7216,7 @@ def main() -> int:
                                                   membership, nemesis,
                                                   observe, serving)
     from gossip_glomers_tpu_torch.harness import txn as htxn
-    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.parallel import dcn_worker, topology
     from gossip_glomers_tpu_torch.tpu_sim import (broadcast, checkpoint,
                                                   counter, echo, faults,
                                                   kafka, kernels, kvstore,
@@ -6482,7 +7255,9 @@ def main() -> int:
                     for name, lib in libs.items()}})
 
     errs = check_kernels(kernels, structured, topology, device)
+    errs.update(check_halo_kernels(kernels, device))
     times = time_kernels(kernels, structured, topology, device)
+    times.update(time_halo_kernels(kernels, device))
     emit({"phase": "kernel_check", "tolerance": 0, "max_abs_err": errs,
           "shapes": [list(s) for s in CHECK_SHAPES + MAIN_SHAPES],
           "shift_edge_shapes": [list(s) for s in
@@ -6541,6 +7316,8 @@ def main() -> int:
     delay_phases(modules, faults, structured, kernels, topology, device,
                  launches)
     small_floods(modules, device, launches)
+    mesh_phases((broadcast, timing, topology, dcn_worker), device,
+                launches, smi, times)
     counter_phases(counter, faults, kernels, device, launches, smi)
     ids_echo(unique_ids, echo, device, launches, smi)
     kafka_phases(kafka, nemesis, faults, kernels, device, launches, smi)
@@ -6550,8 +7327,9 @@ def main() -> int:
                                     launches, smi)
     kafka_sweep_point_provenance(kafka, nemesis, faults, kernels, device,
                                  launches, smi)
-    serving_phases((serving, telemetry, traffic, kernels, faults), topology,
-                   structured, broadcast, device, launches, smi)
+    serving_pending = serving_phases(
+        (serving, telemetry, traffic, kernels, faults), topology, structured,
+        broadcast, device, launches, smi)
     txn_64k(txn, checkers, kernels, device, launches, smi, times)
     txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
                     launches, smi)
@@ -6574,6 +7352,7 @@ def main() -> int:
     frontier_grid_256((frontier, observe, checkers), device, launches, smi,
                       frontier_rows)
     fuzz_campaigns((fuzz, observe), device, launches, smi)
+    finish_serving_twins(kernels, serving_pending)
 
     for name, count in launches.total.items():
         if count == 0:

@@ -90,6 +90,30 @@
 // inbox word in a register over all entries.  A table of more than 16
 // entries is split by the wrapper, the inboxes ORed.
 
+// tree_halo_pack and tree_halo_round, the halo exchange's shard-local
+// work on a mesh (one rank a shard of B consecutive nodes, k | B).  The
+// reference's sharded tree exchange (structured.py tree_parent_payload
+// :225, tree_sharded_exchange :261, tree_kids_payload :290) is the Pallas
+// kernel's inbox cut at shard edges: a shard's parents sit in one
+// (B/k + 1)-column slice of one other shard, its kids' words come back as
+// partial ORs of B/k + 1 columns from up to k child shards.  The slices
+// travel between ranks (torch.distributed, outside the kernels); what is
+// left on the card is two index-mapping passes.  tree_halo_pack writes the
+// partial a shard sends up: column 0 of the block, then the k:1 OR of
+// columns 1 .. B - 1 (zero-padded to a multiple of k), each column first
+// gated by its bit of a packed liveness row where one is given (the
+// masked halo exchange, :765-773).  tree_halo_round reads the received
+// parent slice `buf` (W, B/k + 1), the kids' landing buffer `ek` (W, B + 1)
+// and the back-folded column (W): inbox[:, c] = buf[:, ceil(c / k)] (gated
+// by the receiver's bit) | ek[:, c + 1], the back column ORed into column
+// B - 1; its fused form is tree_flood_round's update (received in place,
+// the new frontier to another buffer).  A thread a word, the simple first
+// design: each output word is read from at most k + 2 inputs that
+// neighbouring threads share, so the accesses coalesce.  Bound: the bytes
+// (pack reads the block and writes B/k + 1 columns; the round reads buf,
+// ek and received and writes the inbox, or received and the frontier).
+// Their times are in PERF.md.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -373,6 +397,64 @@ __global__ void col_popcount_kernel(const uint32_t* __restrict__ x,
   out[i] = s;
 }
 
+// Bit i of a packed row (live null: every bit set).
+__device__ __forceinline__ uint32_t live_bit(const uint32_t* __restrict__ live,
+                                             int64_t i) {
+  return live == nullptr ? 1u : __ldg(live + (i >> 5)) >> (i & 31) & 1u;
+}
+
+// out (w, sub + 1): column 0 the block's column 0, column j >= 1 the OR
+// of columns k(j-1)+1 .. kj below b, each gated by its live bit.
+__global__ void tree_halo_pack_kernel(const uint32_t* __restrict__ payload,
+                                      const uint32_t* __restrict__ live,
+                                      uint32_t* __restrict__ out, int64_t b,
+                                      int64_t sub, int k) {
+  const int64_t j =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j > sub) return;
+  const uint32_t* row = payload + static_cast<int64_t>(blockIdx.y) * b;
+  uint32_t v = 0u;
+  if (j == 0) {
+    v = __ldg(row) & (0u - live_bit(live, 0));
+  } else {
+    const int64_t c0 = static_cast<int64_t>(k) * (j - 1) + 1;
+    for (int t = 0; t < k; ++t) {
+      const int64_t c = c0 + t;
+      if (c >= b) break;
+      v |= __ldg(row + c) & (0u - live_bit(live, c));
+    }
+  }
+  out[static_cast<int64_t>(blockIdx.y) * (sub + 1) + j] = v;
+}
+
+// The inbox of column c of row blockIdx.y; with `received` the fused
+// flood round (out is then the next frontier).
+__global__ void tree_halo_round_kernel(const uint32_t* __restrict__ buf,
+                                       const uint32_t* __restrict__ ek,
+                                       const uint32_t* __restrict__ back,
+                                       const uint32_t* __restrict__ live,
+                                       uint32_t* __restrict__ out,
+                                       uint32_t* __restrict__ received,
+                                       int64_t b, int64_t sub, int k) {
+  const int64_t c =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (c >= b) return;
+  const int64_t r = blockIdx.y;
+  uint32_t v = __ldg(buf + r * (sub + 1) + (c + k - 1) / k)
+               & (0u - live_bit(live, c));
+  v |= __ldg(ek + r * (b + 1) + c + 1);
+  if (back != nullptr && c == b - 1) v |= __ldg(back + r);
+  const int64_t at = r * b + c;
+  if (received == nullptr) {
+    out[at] = v;
+    return;
+  }
+  const uint32_t rec = received[at];
+  const uint32_t fresh = v & ~rec;
+  received[at] = rec | fresh;
+  out[at] = fresh;
+}
+
 dim3 node_grid(int64_t n, int64_t rows) {
   return dim3(static_cast<unsigned>((n + kThreads - 1) / kThreads),
               static_cast<unsigned>(rows));
@@ -474,5 +556,38 @@ extern "C" int gg_col_popcount(const void* x, void* out, int64_t w,
   col_popcount_kernel<<<node_grid(n, 1), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<int32_t*>(out), w, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// payload (w, b), live (ceil(b / 32)) packed or null, out (w, b / k + 1);
+// k | b, b >= k.
+extern "C" int gg_tree_halo_pack(const void* payload, const void* live,
+                                 void* out, int64_t w, int64_t b, int k,
+                                 void* stream) {
+  if (k < 1 || b < k || b % k != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t sub = b / k;
+  tree_halo_pack_kernel<<<node_grid(sub + 1, w), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(payload),
+      static_cast<const uint32_t*>(live), static_cast<uint32_t*>(out), b, sub,
+      k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// buf (w, b / k + 1), ek (w, b + 1), back (w) or null, live (ceil(b / 32))
+// or null, out (w, b); received (w, b) or null (the fused round).
+extern "C" int gg_tree_halo_round(const void* buf, const void* ek,
+                                  const void* back, const void* live,
+                                  void* out, void* received, int64_t w,
+                                  int64_t b, int k, void* stream) {
+  if (k < 1 || b < k || b % k != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tree_halo_round_kernel<<<node_grid(b, w), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(buf), static_cast<const uint32_t*>(ek),
+      static_cast<const uint32_t*>(back), static_cast<const uint32_t*>(live),
+      static_cast<uint32_t*>(out), static_cast<uint32_t*>(received), b,
+      b / k, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,363 @@
+"""The rank-side worker of a multi-process run, and its spawner.
+
+The port of gossip_glomers_tpu/parallel/dcn_worker.py's spawn contract
+for a flat 1-D mesh.  Each rank is one process of a ``torch.distributed``
+group on one device; :func:`spawn_world` starts them (``torch.
+multiprocessing``, start method ``spawn``, the group initialized through a
+``file://`` store in a temporary directory, so concurrent runs never
+share a port), runs ``fn(mesh, *args)`` on every rank and returns each
+rank's result, or raises with every failed rank's traceback.  A rank that
+hangs fails the call at its ``timeout``: the spawner kills the ranks.
+
+:func:`spawn_local_cluster` runs the task list on every rank and writes
+one JSON report a rank (``report.json.<rank>``); it asserts that every
+rank reports the same replicated numbers (the per-rank timings aside).
+Tasks:
+
+- ``sims``: the broadcast half of the reference's ``sims`` (the 16-node
+  grid through the gather path, ``run`` and ``run_fused``: rounds,
+  ``msgs`` and the state digest); its counter and Kafka halves raise
+  (ROADMAP.md Queue A item 10);
+- ``roundtime``: the words-major 4-ary tree flood's round wall over the
+  halo exchange, at ``GG_DCN_RT_N`` nodes (65,536) and ``GG_DCN_RT_NV``
+  values (32), and the state digest.
+
+``batch``, ``certify``, ``takeover``, ``pipelined`` and ``stale`` need
+the nemesis, the scenario batches or the hosts axis on a mesh and raise
+(item 10).  ``main`` is the env-driven rank body
+(``python -m gossip_glomers_tpu_torch.parallel.dcn_worker`` with the
+``GG_*`` variables of :data:`.mesh.DIST_ENV`, ``GG_DCN_TASKS`` and
+``GG_DCN_OUT``).  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import pickle
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+
+#: report keys that are per-rank measurements, not replicated results
+TIMING_KEYS = ("wall_s", "us_per_round")
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet "
+                               "(ROADMAP.md Queue A item 10)")
+
+
+# -- digests ---------------------------------------------------------------
+
+
+def digest_array(a) -> int:
+    """The reference's position-weighted uint32 checksum of an array: its
+    4-byte words (narrower ones widened through int32) times ``i *
+    2654435761 + 0x9E3779B9`` at flat position i, summed mod 2^32."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_ or a.dtype.itemsize < 4:
+        a = a.astype(np.int32)
+    words = np.ascontiguousarray(a).reshape(-1).view(np.uint32)
+    w = (np.arange(words.size, dtype=np.uint64) * 2654435761
+         + 0x9E3779B9) & 0xFFFFFFFF
+    return int((words.astype(np.uint64) * w & 0xFFFFFFFF).sum()
+               & 0xFFFFFFFF)
+
+
+def state_digest(state, mesh=None, *, node_dim: int = 1) -> dict:
+    """Checksum every field of a sim state into host ints, field-keyed
+    (:func:`digest_array`).  On a mesh a tensor field is this rank's
+    block of the node axis (``node_dim``: 1 words-major, 0 node-major)
+    and is gathered first, so every rank reports the global digest; host
+    ints (``t``) and 0-d ledgers count as int32 / uint32 scalars."""
+    import torch
+
+    out = {}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if value is None:
+            continue
+        if isinstance(value, int):
+            out[f.name] = digest_array(np.int32(value))
+            continue
+        if value.dim() >= 1 and mesh is not None:
+            value = mesh.all_gather(value, dim=node_dim)
+        arr = value.cpu().numpy()
+        if value.dim() == 0 and value.dtype == torch.int64:
+            arr = np.uint32(int(value) & 0xFFFFFFFF)
+        out[f.name] = digest_array(arr)
+    return out
+
+
+# -- tasks -----------------------------------------------------------------
+
+
+def _sims_half(name: str, mesh, device) -> dict:
+    if name != "broadcast":
+        raise _unported(f"the {name} half of the sims task (a "
+                        f"{name} sim on a mesh)")
+    from ..tpu_sim.broadcast import BroadcastSim, make_inject
+    from .topology import grid, to_padded_neighbors
+
+    n, nv = 16, 16
+    nbrs = to_padded_neighbors(grid(n))
+    inject = make_inject(n, nv)
+    out = {}
+    for runner in ("run", "run_fused"):
+        sim = BroadcastSim(nbrs, n_values=nv, mesh=mesh, device=device)
+        state, rounds = getattr(sim, runner)(inject)
+        out[runner] = {"rounds": int(rounds), "msgs": int(state.msgs),
+                       "state": state_digest(state, mesh, node_dim=0)}
+    return out
+
+
+def _task_sims(mesh, device, halves=("broadcast",)) -> dict:
+    """The reference's ``sims`` task, its broadcast half (the counter and
+    Kafka halves raise, item 10)."""
+    return {name: _sims_half(name, mesh, device) for name in halves}
+
+
+def _task_roundtime(mesh, device) -> dict:
+    """The round wall of the words-major tree flood over the halo
+    exchange (ledger off, the closed-form round count): a per-rank time,
+    and the state digest (replicated)."""
+    import torch
+
+    from ..tpu_sim import structured as S
+    from ..tpu_sim.broadcast import BroadcastSim, make_inject
+    from ..tpu_sim.timing import discover_rounds
+    from .topology import to_padded_neighbors, tree
+
+    n = int(os.environ.get("GG_DCN_RT_N") or 65536)
+    nv = int(os.environ.get("GG_DCN_RT_NV") or 32)
+    sim = BroadcastSim(
+        to_padded_neighbors(tree(n)), n_values=nv, sync_every=1 << 20,
+        srv_ledger=False, mesh=mesh, exchange=S.make_exchange("tree", n),
+        sharded_exchange=None if mesh is None
+        else S.make_sharded_exchange("tree", n, mesh.size), device=device)
+    rounds = discover_rounds("tree", n, nv)
+    inject = make_inject(n, nv)
+    sim.run_staged_fixed(sim.init_state(inject), rounds)   # warm
+    state0 = sim.init_state(inject)
+    sync = (torch.cuda.synchronize if sim.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    out = sim.run_staged_fixed(state0, rounds)
+    sync()
+    dt = time.perf_counter() - t0
+    return {"n": n, "nv": nv, "rounds": rounds,
+            "us_per_round": dt / rounds * 1e6,
+            "state": state_digest(out, mesh)}
+
+
+def _refused(name: str):
+    def task(mesh, device):
+        raise _unported(f"the {name} task (it needs the nemesis, the "
+                        "scenario batches or the hosts axis on a mesh)")
+    return task
+
+
+TASKS = {"sims": _task_sims, "roundtime": _task_roundtime,
+         **{name: _refused(name) for name in
+            ("batch", "certify", "takeover", "pipelined", "stale")}}
+
+
+def run_tasks(tasks, mesh, timed: bool | None = None, *,
+              device=None) -> dict:
+    """Each named task's report on this rank; ``timed`` (default: the
+    ``GG_DCN_TIME=1`` env) adds its ``wall_s``.  The tasks run on the
+    mesh's device, or off a mesh on ``device`` (default CUDA, as
+    :func:`..tpu_sim.engine.resolve_device` rules)."""
+    from ..tpu_sim.engine import resolve_device
+
+    if timed is None:
+        timed = bool(os.environ.get("GG_DCN_TIME"))
+    device = mesh.device if mesh is not None else resolve_device(device)
+    out = {}
+    for name in tasks:
+        t0 = time.perf_counter()
+        res = TASKS[name](mesh, device)
+        if timed:
+            res = dict(res, wall_s=time.perf_counter() - t0)
+        out[name] = res
+    return out
+
+
+# -- the spawner -----------------------------------------------------------
+
+
+def _rank_body(rank: int, world: int, store: str, backend: str, device,
+               fn, args, out_dir: str, timeout_s: float) -> None:
+    """One spawned rank: pin the device, join the group, run ``fn(mesh,
+    *args)``, write its pickled result (or its traceback) to
+    ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from .mesh import Mesh
+
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        # before any allocation: each rank's context on its own card
+        torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            res = fn(Mesh(None, device=dev), *args)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(res, fh)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def spawn_world(fn, n_procs: int, *, backend: str, device=None,
+                args: tuple = (), timeout: float = 120.0) -> list:
+    """Run ``fn(mesh, *args)`` on ``n_procs`` spawned ranks of one
+    ``backend`` group, every rank's blocks on ``device`` (default CUDA,
+    as :func:`..tpu_sim.engine.resolve_device` rules), and return their
+    results in rank order.  ``fn`` must be importable by the ranks (a
+    module-level function).  Raises with every failed rank's traceback
+    if a rank fails, or if the world has not finished within ``timeout``
+    seconds (the ranks are killed)."""
+    import torch.multiprocessing as mp
+
+    from ..tpu_sim.engine import resolve_device
+
+    device = resolve_device(device)
+    ctx = mp.get_context("spawn")
+    work = tempfile.mkdtemp(prefix="gg_world_")
+    try:
+        store = os.path.join(work, "store")
+        procs = []
+        for rank in range(n_procs):
+            p = ctx.Process(target=_rank_body, daemon=True,
+                            args=(rank, n_procs, store, backend,
+                                  str(device), fn, args, work, timeout))
+            p.start()
+            procs.append(p)
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.1, deadline - time.monotonic()))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = []
+        for rank, p in enumerate(procs):
+            path = os.path.join(work, f"rank{rank}.err")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    errs.append(f"-- rank {rank} --\n{fh.read()[-3000:]}")
+            elif p.exitcode != 0:
+                errs.append(f"-- rank {rank} exit {p.exitcode} --")
+        if late or errs:
+            head = (f"ranks {late} still running after {timeout} s "
+                    "(killed)\n" if late else "")
+            raise RuntimeError(f"world of {n_procs} ({backend}, {device}) "
+                               f"failed:\n{head}" + "\n".join(errs))
+        out = []
+        for rank in range(n_procs):
+            with open(os.path.join(work, f"rank{rank}.pkl"), "rb") as fh:
+                out.append(pickle.load(fh))
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _strip_timing(x):
+    if isinstance(x, dict):
+        return {k: _strip_timing(v) for k, v in x.items()
+                if k not in TIMING_KEYS}
+    return x
+
+
+def _cluster_rank(mesh, tasks, out_path, timed):
+    report = {"process_id": mesh.rank, "n_processes": mesh.size,
+              "transport": mesh.transport, "mesh_shape": [mesh.size],
+              "tasks": run_tasks(tasks, mesh, timed)}
+    with open(f"{out_path}.{mesh.rank}", "w") as fh:
+        fh.write(json.dumps(report, indent=1, sort_keys=True) + "\n")
+    return report
+
+
+def spawn_local_cluster(tasks: str, out_dir: str, *, n_procs: int = 2,
+                        backend: str = "gloo", device=None,
+                        timeout: float = 600.0,
+                        timed: bool = False) -> list:
+    """Run the comma-separated ``tasks`` on ``n_procs`` spawned ranks
+    (:func:`spawn_world`, on ``device``) and return the per-rank reports,
+    each also written to ``out_dir/<run>/report.json.<rank>``.  Asserts
+    that the ranks' replicated results agree (the per-rank timings,
+    :data:`TIMING_KEYS`, aside)."""
+    names = [t for t in tasks.split(",") if t]
+    for name in names:
+        if name not in TASKS:
+            raise ValueError(f"unknown task {name!r} (one of {sorted(TASKS)})")
+    out = os.path.join(tempfile.mkdtemp(dir=out_dir), "report.json")
+    reports = spawn_world(_cluster_rank, n_procs, backend=backend,
+                          device=device, args=(names, out, timed),
+                          timeout=timeout)
+    first = _strip_timing(reports[0]["tasks"])
+    for rep in reports[1:]:
+        if _strip_timing(rep["tasks"]) != first:
+            raise AssertionError(
+                f"rank {rep['process_id']}'s replicated results differ "
+                "from rank 0's")
+    return reports
+
+
+def main(argv=None) -> int:
+    """The env-driven rank body: join the group (:func:`.mesh.
+    init_distributed`), pick the mesh, run ``GG_DCN_TASKS`` on
+    ``GG_DEVICE`` (default CUDA) and write the report to
+    ``GG_DCN_OUT.<rank>`` (stdout without it)."""
+    import torch.distributed as dist
+
+    from ..tpu_sim.engine import resolve_device
+    from .mesh import init_distributed, pick_mesh
+
+    init_distributed()
+    device = resolve_device(os.environ.get("GG_DEVICE") or None)
+    mesh = pick_mesh(device=device)
+    tasks = [t for t in os.environ.get("GG_DCN_TASKS",
+                                       "sims").split(",") if t]
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    report = {"process_id": rank,
+              "n_processes": (dist.get_world_size()
+                              if dist.is_initialized() else 1),
+              "transport": None if mesh is None else mesh.transport,
+              "mesh_shape": None if mesh is None else [mesh.size],
+              "tasks": run_tasks(tasks, mesh, device=device)}
+    payload = json.dumps(report, indent=1, sort_keys=True) + "\n"
+    out_path = os.environ.get("GG_DCN_OUT")
+    if out_path:
+        with open(f"{out_path}.{rank}", "w") as fh:
+            fh.write(payload)
+    else:
+        sys.stdout.write(payload)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,7 +51,20 @@ that first delivered it, :func:`.kernels.prov_attribute`).
 :class:`FoldedBatch` runs S scenarios of one adjacency as one graph of S
 N rows, the scenario batches' folded round (:mod:`.scenario`).
 
-Modes not ported yet raise: meshes (ROADMAP.md Queue A item 10).
+On a mesh (``BroadcastSim(mesh=)``, a :class:`..parallel.mesh.Mesh`)
+each rank holds its block of the node axis, (W, N/P) words-major or (N/P,
+W) node-major, on ``mesh.device``, and the rounds above run unchanged on
+it with their closures swapped, as the reference's ``shard_map`` bodies
+do: the halo exchanges of :func:`.structured.make_sharded_exchange` (or
+the all-gather fallback ``widen`` and ``local_slice`` for shapes with no
+halo form), the node-major gather over the all-gathered payload, and the
+ledgers' ``reduce_sum`` an all-reduce of each shard's uint32 partial
+(int64, then masked to 32 bits: it wraps where the reference's uint32
+psum wraps).  The round counter and the sync waves stay host ints, and
+every convergence flag is agreed over the mesh before any rank branches
+on it.  A mesh with the delay modes, the nemesis, a fault plan,
+``union_block``, ``dcn_mode`` or the traffic and observed drivers raises
+(ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -70,12 +83,16 @@ from .kernels import FLAG_DEL, FLAG_OUT_OK, FLAG_SEND, MASK32
 
 WORD = 32
 
-_UNPORTED = ("mesh", "dcn_mode", "sharded_exchange", "sharded_sync_diff")
+_UNPORTED = ("dcn_mode",)
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
                                "(ROADMAP.md Queue A item 10)")
+
+
+def _ident(x):
+    return x
 
 
 def num_words(n_values: int) -> int:
@@ -372,20 +389,22 @@ def _sync_diff_pc(payload_full: torch.Tensor, recv_local: torch.Tensor,
 def _srv_ledger(srv_msgs: torch.Tensor, *, t: int, is_sync: bool,
                 pcf: torch.Tensor, req_deg: torch.Tensor,
                 ack_deg: torch.Tensor,
-                diff: Callable[[], torch.Tensor]) -> torch.Tensor:
+                diff: Callable[[], torch.Tensor],
+                reduce_sum: Callable = _ident) -> torch.Tensor:
     """The reference-accounted server ledger after round ``t``: floods
     charge `broadcast` to every requesting neighbor (``req_deg``) minus
     the sender (t == 0 rows are client-injected origins) plus one
     `broadcast_ok` per acknowledged delivery (``ack_deg``), at the
     frontier's popcount ``pcf``; sync rounds add read-per-requesting-
     neighbor + read_ok-per-acknowledging-neighbor + the targeted diff
-    pushes and their acks (``diff()``, evaluated on sync rounds only)."""
+    pushes and their acks (``diff()``, evaluated on sync rounds only).  On
+    a mesh the shard's partial goes through ``reduce_sum``."""
     d2 = req_deg + ack_deg
     coef = d2 if t == 0 else (d2 - 2).clamp(min=0)
-    srv = srv_msgs + _dot32(pcf, coef)
+    inc = _dot32(pcf, coef)
     if is_sync:
-        srv = srv + wrap32(d2.sum()) + 2 * diff()
-    return wrap32(srv)
+        inc = inc + wrap32(d2.sum()) + 2 * diff()
+    return wrap32(srv_msgs + reduce_sum(wrap32(inc)))
 
 
 def _is_sync(t: int, sync_every: int) -> bool:
@@ -401,9 +420,12 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
            plan: faults.FaultPlan | None = None, dup_on: bool = False,
            union_block: int | None = None,
            classes: dict[int, torch.Tensor] | None = None,
-           prov=None):
+           prov=None, widen: Callable = _ident, reduce_sum: Callable = _ident):
     """One node-major (adjacency-gather) round — the reference's
-    ``_round`` on one device.  ``deg`` is
+    ``_round``.  ``widen`` maps the local payload block to the full node
+    axis and ``reduce_sum`` globalizes the ledgers (identity on one
+    device; an all-gather and an all-reduce on a mesh, where ``row_ids``
+    are the local rows' global ids and ``nbrs`` global ids).  ``deg`` is
     the topology degree ``nbr_mask.sum(1)`` (int64; computed when not
     given).  With a ``plan`` the round is :func:`_round_plan`.  On a
     round with no active partition window the edge mask is never built:
@@ -437,13 +459,14 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
     rec0, fr0 = state.received, state.frontier
     # frontier ⊆ received, so the anti-entropy payload is just `received`
     payload = rec0 if is_sync else fr0
+    payload_full = widen(payload)
     live = (_edge_live(t, row_ids, nbrs, nbr_mask, parts)
             if parts.active(t) else None)
     deg_topo = nbr_mask.sum(dim=1) if deg is None else deg
     live_deg = deg_topo if live is None else live.sum(dim=1)
     pc = kernels.col_popcount(payload, node_major=True)
     # one value-message per (value, live edge)
-    sent = _dot32(pc, live_deg)
+    sent = reduce_sum(_dot32(pc, live_deg))
     srv = None
     if state.srv_msgs is not None:
         # partitions only: every topology neighbor is asked, every live
@@ -452,10 +475,12 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
             state.srv_msgs, t=t, is_sync=is_sync,
             pcf=kernels.col_popcount(fr0, node_major=True) if is_sync
             else pc, req_deg=deg_topo, ack_deg=live_deg,
-            diff=lambda: _sync_diff_pc(payload, rec0, nbrs, live))
+            diff=lambda: _sync_diff_pc(payload_full, rec0, nbrs, live),
+            reduce_sum=reduce_sum)
     history = None
     if classes is None:
-        new, received = kernels.gather_flood_round(payload, rec0, nbrs, live)
+        new, received = kernels.gather_flood_round(payload_full, rec0, nbrs,
+                                                   live)
         if prov is not None:
             prov = _stamp(prov, new, payload, nbrs, t, flags=None
                           if live is None else live.to(torch.uint8)
@@ -659,9 +684,17 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
               sync_diff: Callable[[torch.Tensor], torch.Tensor] | None = None,
               live: torch.Tensor | None = None, faulted=None,
               delayed_exchange: Callable | None = None,
+              reduce_sum: Callable = _ident, widen: Callable = _ident,
+              local_slice: Callable = _ident, deg_slice: Callable = _ident,
               ) -> BroadcastState:
     """Words-major round (the reference's ``_round_wm``, plain, partition
-    and delay modes).  ``deg`` is the per-node topology degree (int64).
+    and delay modes).  On a mesh ``reduce_sum`` globalizes the ledgers'
+    shard partials, and the all-gather fallback (a shape with no halo
+    form) widens the payload to the full node axis (``widen``), runs the
+    full-axis exchange and cuts the local block back out
+    (``local_slice``, ``deg_slice`` for the live degree); the halo path
+    leaves those the identity and hands the halo closures.  ``deg`` is
+    the per-node topology degree (int64).
     Under an active partition window ``live`` holds the round's (D,
     ceil(N/32)) packed per-direction liveness (:meth:`BroadcastSim.
     _live_rows`) and ``faulted`` the :class:`.structured.StructuredFaults`
@@ -676,25 +709,26 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
     t = state.t
     is_sync = _is_sync(t, sync_every)
     payload = state.received if is_sync else state.frontier
+    payload_full = widen(payload)
     if live is None:
         live_deg = deg
         deliver, diff = exchange, sync_diff
     else:
-        live_deg = kernels.count_rows(live, deg.shape[0])
+        live_deg = deg_slice(kernels.count_rows(live, payload_full.shape[1]))
         deliver = lambda p: faulted.exchange(p, live)  # noqa: E731
         diff = lambda r: faulted.sync_diff(r, live)  # noqa: E731
     pc = kernels.col_popcount(payload)
-    sent = _dot32(pc, live_deg)
+    sent = reduce_sum(_dot32(pc, live_deg))
     srv = None
     if state.srv_msgs is not None:
         srv = _srv_ledger(
             state.srv_msgs, t=t, is_sync=is_sync,
             pcf=kernels.col_popcount(state.frontier) if is_sync else pc,
             req_deg=deg, ack_deg=live_deg,
-            diff=lambda: diff(state.received))
+            diff=lambda: diff(state.received), reduce_sum=reduce_sum)
     history = None
     if delayed_exchange is None:
-        inbox = deliver(payload)
+        inbox = local_slice(deliver(payload_full))
     else:
         history = _ring_push(state.history, payload, t)
         inbox = delayed_exchange(history, t)
@@ -828,13 +862,14 @@ def _flood_loop(exchange, rounds: int):
 
 
 def _flood_ledger(state: BroadcastState, rec: torch.Tensor,
-                  fr: torch.Tensor, degs, masks,
-                  rounds: int) -> BroadcastState:
+                  fr: torch.Tensor, degs, masks, rounds: int,
+                  reduce_sum: Callable = _ident) -> BroadcastState:
     """Recover the value-message ledger of a pure flood in closed form:
     every (node, value) bit in `received` was in the frontier of
     exactly one executed round — flooded to deg neighbors then —
     except the final frontier (arrived last round, never flooded), so
-    msgs += sum_i deg_i * (pc_i(received) - pc_i(frontier))."""
+    msgs += sum_i deg_i * (pc_i(received) - pc_i(frontier)); on a mesh
+    each shard's partial goes through ``reduce_sum``."""
     dpc = (kernels.col_popcount(rec)
            - kernels.col_popcount(fr)).to(torch.int64)
     sent = torch.zeros((), dtype=torch.int64, device=rec.device)
@@ -842,7 +877,7 @@ def _flood_ledger(state: BroadcastState, rec: torch.Tensor,
         sent = wrap32(sent + d * wrap32(torch.where(m, dpc, 0).sum()))
     return dataclasses.replace(state, received=rec, frontier=fr,
                                t=state.t + rounds,
-                               msgs=wrap32(state.msgs + sent))
+                               msgs=wrap32(state.msgs + reduce_sum(sent)))
 
 
 def _check_delay_modes(words_major: bool, shape: tuple, n_windows: int, *,
@@ -906,9 +941,10 @@ def _check_delay_modes(words_major: bool, shape: tuple, n_windows: int, *,
 
 
 class BroadcastSim:
-    """Round-synchronous broadcast simulator on one device (the
-    reference's single-device ``BroadcastSim``), under partition
-    schedules and fault plans on both layouts.
+    """Round-synchronous broadcast simulator (the reference's
+    ``BroadcastSim``) on one device, under partition schedules and fault
+    plans on both layouts, or on a 1-D mesh (``mesh=``: one rank a block
+    of the node axis; partition schedules there, no fault plan).
 
     - **words-major (W, N)** with a structured ``exchange`` from
       :func:`.structured.make_exchange`: gather-free delivery for the
@@ -934,6 +970,9 @@ class BroadcastSim:
                  delayed=None,
                  edge_delayed=None,
                  device: str | torch.device | None = None,
+                 mesh=None,
+                 sharded_exchange=None,
+                 sharded_sync_diff=None,
                  **unported) -> None:
         """``nbrs``: (N, D) int32 neighbor table padded with -1
         (parallel/topology.py).  ``exchange``: a structured exchange from
@@ -965,8 +1004,21 @@ class BroadcastSim:
         (:func:`.structured.make_edge_delayed` /
         :func:`.structured.make_edge_delayed_faulted`); the nemesis's
         through ``make_nemesis(dir_delays=)``.  ``device``: where the
-        state lives (default CUDA; raises if there is none).  Reference
-        modes not ported yet (``mesh``, ...) raise when given."""
+        state lives (default CUDA; raises if there is none).
+
+        ``mesh``: a :class:`..parallel.mesh.Mesh` — this rank runs its
+        block of the node axis on ``mesh.device`` (N must divide evenly),
+        every rank calling every method in the same order.
+        ``sharded_exchange`` / ``sharded_sync_diff``: the halo closures
+        (:func:`.structured.make_sharded_exchange` /
+        :func:`.structured.make_sharded_sync_diff`, bound here); a
+        words-major sim without one takes the all-gather fallback, with
+        the server ledger off as in the reference.  Reference modes not
+        ported yet (``dcn_mode``, and a mesh with the delay modes, the
+        nemesis, a fault plan or ``union_block``) raise."""
+        from .engine import _check_flat
+        from .structured import Halo
+
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -975,6 +1027,30 @@ class BroadcastSim:
         if exchange is not None and not hasattr(exchange, "flood_round"):
             raise TypeError("exchange must come from "
                             "structured.make_exchange")
+        if sharded_exchange is not None and exchange is None:
+            raise ValueError("sharded_exchange requires exchange")
+        for name, value in (("sharded_exchange", sharded_exchange),
+                            ("sharded_sync_diff", sharded_sync_diff)):
+            if value is not None and not isinstance(value, Halo):
+                raise _unported(f"BroadcastSim({name}=...) other than a "
+                                "structured.Halo")
+        _check_flat(mesh)
+        if mesh is not None:
+            for name, value in (("delays", delays), ("delayed", delayed),
+                                ("edge_delayed", edge_delayed),
+                                ("nemesis", nemesis),
+                                ("fault_plan", fault_plan),
+                                ("union_block", union_block)):
+                if value is not None:
+                    raise _unported(f"BroadcastSim(mesh=, {name}=...)")
+            if nbrs.shape[0] % mesh.size:
+                raise ValueError(f"{nbrs.shape[0]} nodes do not shard "
+                                 f"evenly over {mesh.size} ranks")
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         n = nbrs.shape[0]
         parts = Partitions.none(n) if parts is None else parts
         if parts.group.shape[1:] != (n,):
@@ -1045,6 +1121,7 @@ class BroadcastSim:
                 "rounds; the words-major path is already gather-free "
                 "and the delays ring keeps the materialized shape")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.n_nodes = n
         self.n_values = n_values
         self.n_words = num_words(n_values)
@@ -1053,19 +1130,67 @@ class BroadcastSim:
         self.words_major = words_major
         self.parts = parts.to(self.device)
         self._host_deg = (nbrs >= 0).sum(axis=1).astype(np.int64)
-        self.deg = torch.as_tensor(self._host_deg, device=self.device)
+        # this rank's rows of the node axis: all of them off a mesh
+        block = n if mesh is None else n // mesh.size
+        self._rows = (slice(0, n) if mesh is None
+                      else slice(mesh.rank * block, (mesh.rank + 1) * block))
+        self._psum = (_ident if mesh is None
+                      else lambda x: mesh.all_reduce(x, "sum"))
+        self.deg = torch.as_tensor(self._host_deg[self._rows],
+                                   device=self.device)
+        self.sharded_exchange = (None if sharded_exchange is None
+                                 else sharded_exchange.bind(mesh)
+                                 if mesh is not None else sharded_exchange)
+        self.sharded_sync_diff = (None if sharded_sync_diff is None
+                                  else sharded_sync_diff.bind(mesh)
+                                  if mesh is not None
+                                  else sharded_sync_diff)
+        self._mesh_kw = {}
         if self.words_major:
             f = self._faulted
+            halo = mesh is None or (
+                f.sharded_exchange is not None if f is not None
+                else self.sharded_exchange is not None)
             if f is not None:
+                # the halo path masks the local block: its rows' bits
+                cut = self._rows if mesh is not None and halo \
+                    else slice(None)
                 self._fx_exists = kernels.pack_bits(
-                    torch.from_numpy(f.exists)).to(self.device)
+                    torch.from_numpy(f.exists[..., cut])).to(self.device)
                 self._fx_same = kernels.pack_bits(
-                    torch.from_numpy(f.same)).to(self.device)
+                    torch.from_numpy(f.same[..., cut])).to(self.device)
             bundle = nemesis if nemesis is not None else f
-            if bundle is not None:
+            if mesh is not None:
+                # the reference's gates: the halo closures, else no ledger
+                if f is not None:
+                    self._srv_on = (srv_ledger and halo
+                                    and f.sharded_sync_diff is not None)
+                else:
+                    self._srv_on = (srv_ledger and halo
+                                    and self.sharded_sync_diff is not None)
+                sync_diff = self.sharded_sync_diff
+            elif bundle is not None:
                 self._srv_on = srv_ledger and bundle.sync_diff is not None
             else:
                 self._srv_on = srv_ledger and sync_diff is not None
+            self._wm_exchange = exchange
+            if mesh is not None and halo:
+                if f is not None:
+                    f = self._faulted = dataclasses.replace(
+                        f, exchange=f.sharded_exchange.bind(mesh),
+                        sync_diff=f.sharded_sync_diff.bind(mesh))
+                self._wm_exchange = (
+                    self.sharded_exchange if self.sharded_exchange
+                    is not None else
+                    (lambda p, f=f, ex=self._fx_exists: f.exchange(p, ex)))
+                self._mesh_kw = dict(reduce_sum=self._psum)
+            elif mesh is not None:
+                rows = self._rows
+                self._mesh_kw = dict(
+                    reduce_sum=self._psum,
+                    widen=lambda p: mesh.all_gather(p, dim=1),
+                    local_slice=lambda x: x[:, rows].contiguous(),
+                    deg_slice=lambda x: x[rows])
             if f is not None and sync_diff is None:
                 # outside the windows: the bundle's diff under exists
                 def sync_diff(r, f=f, ex=self._fx_exists):
@@ -1076,10 +1201,16 @@ class BroadcastSim:
         else:
             self.sync_diff = None
             self._srv_on = srv_ledger
-            self.nbrs = torch.as_tensor(np.asarray(nbrs, np.int32),
-                                        device=self.device)
+            self.nbrs = torch.as_tensor(
+                np.ascontiguousarray(np.asarray(nbrs, np.int32)[self._rows]),
+                device=self.device)
             self.nbr_mask = self.nbrs >= 0
-            self.row_ids = torch.arange(n, device=self.device)
+            self.row_ids = torch.arange(self._rows.start, self._rows.stop,
+                                        device=self.device)
+            if mesh is not None:
+                self._mesh_kw = dict(
+                    reduce_sum=self._psum,
+                    widen=lambda p: mesh.all_gather(p, dim=0))
         if nemesis is not None:
             self._nem_arrs = nemesis.arrs.to(self.device)
             self._nem_deg = kernels.count_rows(self._nem_arrs.deg_exists, n)
@@ -1173,7 +1304,10 @@ class BroadcastSim:
     # -- construction ----------------------------------------------------
 
     def init_state(self, inject: np.ndarray) -> BroadcastState:
-        received = _bits_from_numpy(inject, self.words_major).to(
+        """The round-0 state of the (N, W) uint32 injection (this rank's
+        block of it on a mesh)."""
+        local = np.asarray(inject, np.uint32)[self._rows]
+        received = _bits_from_numpy(local, self.words_major).to(
             self.device)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         history = None
@@ -1223,22 +1357,27 @@ class BroadcastSim:
         if self.words_major:
             return _round_wm(state, deg=self.deg,
                              sync_every=self.sync_every,
-                             exchange=self.exchange,
+                             exchange=self._wm_exchange,
                              sync_diff=self.sync_diff if self._srv_on
                              else None,
                              live=self._live_rows(state.t),
                              faulted=self._faulted,
-                             delayed_exchange=self._delayed_ex)
+                             delayed_exchange=self._delayed_ex,
+                             **self._mesh_kw)
         return _round(state, row_ids=self.row_ids, nbrs=self.nbrs,
                       nbr_mask=self.nbr_mask, parts=self.parts,
                       sync_every=self.sync_every, deg=self.deg,
                       plan=self.fault_plan, dup_on=self._fp_dup,
-                      union_block=self._ub, classes=self._classes)
+                      union_block=self._ub, classes=self._classes,
+                      **self._mesh_kw)
 
     def converged(self, state: BroadcastState,
                   target: torch.Tensor) -> bool:
+        """Every node holds ``target``: on a mesh every rank's block,
+        agreed over the mesh (every rank gets the same answer)."""
         t = target[:, None] if self.words_major else target[None, :]
-        return bool((state.received == t).all())
+        ok = bool((state.received == t).all())
+        return ok if self.mesh is None else self.mesh.agree(ok)
 
     def run(self, inject: np.ndarray, *, max_rounds: int = 1 << 16,
             check_every: int = 1) -> tuple[BroadcastState, int]:
@@ -1282,14 +1421,17 @@ class BroadcastSim:
         flood_ok = (self.words_major and not self._srv_on
                     and self._faulted is None and self.fault_plan is None
                     and not self._delay_mode
-                    and 0 < rounds <= self.sync_every)
+                    and 0 < rounds <= self.sync_every
+                    and (self.mesh is None
+                         or self.sharded_exchange is not None))
         if not flood_ok:
             def run(state: BroadcastState) -> BroadcastState:
                 return fori_rounds(self.step, state, rounds)
             return run, None
 
-        degs, masks = _degree_masks(self._host_deg, self.device)
-        flood = _flood_loop(self.exchange, rounds)
+        degs, masks = _degree_masks(self._host_deg[self._rows], self.device)
+        flood = _flood_loop(self.exchange if self.mesh is None
+                            else self.sharded_exchange, rounds)
 
         def loop_fn(rec: torch.Tensor, fr: torch.Tensor):
             if not donate:
@@ -1297,7 +1439,8 @@ class BroadcastSim:
             return flood(rec, fr)
 
         def finish(state0: BroadcastState, loop_out) -> BroadcastState:
-            return _flood_ledger(state0, *loop_out, degs, masks, rounds)
+            return _flood_ledger(state0, *loop_out, degs, masks, rounds,
+                                 self._psum)
 
         def composed(state: BroadcastState) -> BroadcastState:
             return finish(state, loop_fn(state.received, state.frontier))
@@ -1396,9 +1539,9 @@ class BroadcastSim:
 
     def _popcount(self, x: torch.Tensor) -> torch.Tensor:
         """() int64: the set bits of a bitset in the sim's layout
-        (:func:`.kernels.col_popcount`)."""
-        return kernels.col_popcount(
-            x, node_major=not self.words_major).sum(dtype=torch.int64)
+        (:func:`.kernels.col_popcount`), over the whole mesh."""
+        return self._psum(kernels.col_popcount(
+            x, node_major=not self.words_major).sum(dtype=torch.int64))
 
     def _tel_series(self, t: int, fr0_pc, s1: BroadcastState,
                     mask) -> tuple:
@@ -1427,6 +1570,8 @@ class BroadcastSim:
         the ring are consumed (updated in place); else they are copied
         first.  ``tel`` / ``tel_spec``: record the per-round telemetry
         ring too, and return ``(state, ts, tel)``."""
+        if self.mesh is not None:
+            raise _unported("BroadcastSim.run_traffic on a mesh")
         telemetry.tel_key(tel, tel_spec, "broadcast")
         ix = self._traffic_index(tspec)
         tplan = tspec.compile()
@@ -1500,6 +1645,8 @@ class BroadcastSim:
         are updated in place, else copied first (the rounds never change
         the state passed in).  Returns ``(state, tel?, prov?)``, the
         leaves that were passed, in order."""
+        if self.mesh is not None:
+            raise _unported("BroadcastSim.run_observed on a mesh")
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -1533,8 +1680,13 @@ class BroadcastSim:
     # -- readout ---------------------------------------------------------
 
     def received_node_major(self, state: BroadcastState) -> np.ndarray:
-        """(N, W) uint32 received bitset."""
-        return _bits_to_numpy(state.received, self.words_major)
+        """(N, W) uint32 received bitset (on a mesh every rank's block,
+        gathered on every rank)."""
+        rec = state.received
+        if self.mesh is not None:
+            rec = self.mesh.all_gather(rec, dim=1 if self.words_major
+                                       else 0)
+        return _bits_to_numpy(rec, self.words_major)
 
     def inject_mid(self, state: BroadcastState, node: int,
                    value: int) -> BroadcastState:
@@ -1543,6 +1695,8 @@ class BroadcastSim:
         server ledger, where it is on, takes the origin's correction: one
         send and one ack more than the learner the next round charges it
         as.  The gather path only, as in the reference."""
+        if self.mesh is not None:
+            raise _unported("BroadcastSim.inject_mid on a mesh")
         if self.words_major:
             raise ValueError("inject_mid targets the gather path")
         w, b = value // WORD, 1 << (value % WORD)

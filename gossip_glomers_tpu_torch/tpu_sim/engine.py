@@ -3,9 +3,18 @@ combinators (``fori_rounds``, ``while_converge``, ``stepwise_converge``)
 as Python loops — PyTorch runs eagerly, so each round is a few kernel
 launches and the loop itself stays on the host — of its windows-as-data
 fault schedule fold (``windows_fold``), of its destination-slab
-blocking (``scan_blocks``, ``resolve_block``), of its off-mesh
-:class:`Collectives` (``collectives``) and of its analytic footprint
-formula (``operand_bytes``, ``analytic_peak_bytes``)."""
+blocking (``scan_blocks``, ``resolve_block``), of its
+:class:`Collectives` (``collectives``, off a mesh and on a 1-D
+:class:`..parallel.mesh.Mesh`), of its halo primitives
+(:func:`sharded_roll`, :func:`sharded_shift`) and of its analytic
+footprint formula (``operand_bytes``, ``analytic_peak_bytes``).
+
+On a mesh every shard is one process (one rank of the mesh's process
+group) holding its block of the node axis; the halo primitives and the
+OR / AND / prefix circuits are ppermutes of blocks and slices
+(:meth:`..parallel.mesh.Mesh.ppermute`), never an all-gather of the
+operands.  The DCN modes (``dcn=``) and the hierarchical mesh are
+ROADMAP.md Queue A item 10."""
 
 from __future__ import annotations
 
@@ -29,12 +38,23 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 class Collectives(NamedTuple):
-    """The cross-shard surface a sim round consumes, off-mesh: ``row_ids``
-    the (block,) int32 node indices of the local rows, and the identity
-    for every reduction (``reduce_sum`` / ``max`` / ``min`` / ``or`` /
-    ``and``), for ``widen`` and ``local_cols``; ``exclusive_sum`` (the
-    sum over lower shards) gives zeros.  The mesh forms are ROADMAP.md
-    Queue A item 10."""
+    """The cross-shard surface a sim round consumes:
+
+    - ``row_ids``: (block,) int32 global node indices of the local rows;
+    - ``widen(x)``: the local block to the full node axis (identity, or
+      an all-gather along ``gather_axis``);
+    - ``reduce_sum`` / ``max`` / ``min``: a reduction over the shards
+      (identity, or an all-reduce);
+    - ``reduce_or`` / ``reduce_and``: bitwise OR / AND over the shards,
+      as the reference's recursive-doubling (a power-of-two mesh) or
+      ring ppermute circuit of the per-shard partial — every backend runs
+      it (NCCL has no bitwise all-reduce), so the CPU tests check the
+      code that the card runs;
+    - ``exclusive_sum``: the per-element sum over all lower shards
+      (zeros on shard 0 and off-mesh), a Hillis-Steele ppermute scan;
+    - ``local_cols(m)``: this shard's column block of a full (N, N)
+      matrix;
+    - ``axis_name``: ``"nodes"``, or None off-mesh."""
 
     row_ids: torch.Tensor
     widen: Callable[[torch.Tensor], torch.Tensor]
@@ -48,25 +68,165 @@ class Collectives(NamedTuple):
     axis_name: str | None
 
 
-def collectives(block: int, mesh=None, *,
-                device: str | torch.device | None = None) -> Collectives:
-    """The :class:`Collectives` of a round over ``block`` rows on one
-    device (:func:`resolve_device`: CUDA unless the caller passes one).
-    A ``mesh`` raises (ROADMAP.md Queue A item 10)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "collectives over a mesh are not ported to PyTorch yet "
-            "(ROADMAP.md Queue A item 10)")
+#: the reserved DCN axis name of the reference's hierarchical mesh
+HOSTS_AXIS = "hosts"
 
-    def ident(x):
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet "
+                               "(ROADMAP.md Queue A item 10)")
+
+
+def _check_flat(mesh) -> None:
+    """A mesh must be the port's 1-D :class:`..parallel.mesh.Mesh`; any
+    other (a JAX mesh, a hierarchical or words mesh) is not ported."""
+    from ..parallel.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise _unported(f"a mesh of type {type(mesh).__name__} (the port "
+                        "runs parallel.mesh.Mesh, a 1-D nodes axis)")
+
+
+def node_axes(mesh, axis: str = "nodes"):
+    """The axis name the node dimension is sharded over: ``axis`` (a
+    hierarchical mesh raises)."""
+    _check_flat(mesh)
+    return axis
+
+
+def node_shards(mesh, axis: str = "nodes") -> int:
+    """The node-shard count of ``mesh``, 1 off-mesh."""
+    _check_flat(mesh)
+    return 1 if mesh is None else int(mesh.size)
+
+
+def _check_shards(mesh, n_shards: int) -> None:
+    if mesh is None or mesh.size != n_shards:
+        raise ValueError(
+            f"a halo closure built for {n_shards} shards runs on a mesh "
+            f"of that many ranks, got {mesh!r}")
+
+
+def sharded_roll(x_local: torch.Tensor, s: int, n: int, n_shards: int,
+                 mesh) -> torch.Tensor:
+    """Distributed ``torch.roll(x, s, dims=1)`` of a words-major (W, N)
+    array block-sharded over ``mesh``: a rotation by ``s`` touches at most
+    two source shards a destination shard, so it is one or two ppermutes
+    of slices (B columns a shard in all) and a local stitch."""
+    _check_shards(mesh, n_shards)
+    block = x_local.shape[1]
+    if block * n_shards != n:
+        raise ValueError("node axis must shard evenly")
+    s = s % n
+    q, r = divmod(s, block)
+    # out_local[:, c] = global[:, (p*B + c - s) mod N]:
+    #   c in [r, B) -> cols [0, B-r) of block (p - q);
+    #   c in [0, r) -> cols [B-r, B) of block (p - q - 1).
+
+    def send(sl: torch.Tensor, off: int) -> torch.Tensor:
+        if off % n_shards == 0:
+            return sl
+        perm = [((p - off) % n_shards, p) for p in range(n_shards)]
+        return mesh.ppermute(sl, perm)
+
+    if r == 0:
+        return send(x_local, q)
+    head = send(x_local[:, : block - r], q)        # dest cols [r, B)
+    tail = send(x_local[:, block - r:], q + 1)     # dest cols [0, r)
+    return torch.cat([tail, head], dim=1)
+
+
+def sharded_shift(x_local: torch.Tensor, s: int, n_shards: int,
+                  mesh) -> torch.Tensor:
+    """Distributed zero-fill shift of a words-major (W, N) array
+    block-sharded over ``mesh``: out[:, g] = x[:, g + s] for 0 <= g + s <
+    N, else 0.  Only the |s|-column halo moves; the boundary shards take
+    ppermute's zeros as the fill.  Requires |s| < block."""
+    _check_shards(mesh, n_shards)
+    block = x_local.shape[1]
+    a = abs(s)
+    if a >= block:
+        raise ValueError("halo shift needs |s| < block; use sharded_roll")
+    if a == 0:
+        return x_local
+    if s > 0:
+        halo = mesh.ppermute(x_local[:, :a],
+                             [(p + 1, p) for p in range(n_shards - 1)])
+        return torch.cat([x_local[:, a:], halo], dim=1)
+    halo = mesh.ppermute(x_local[:, block - a:],
+                         [(p, p + 1) for p in range(n_shards - 1)])
+    return torch.cat([halo, x_local[:, : block - a]], dim=1)
+
+
+def _or_level(x: torch.Tensor, mesh, k: int) -> torch.Tensor:
+    # OR all-reduce by ppermutes: recursive doubling on a power-of-two
+    # mesh (step d pairs shard p with p XOR d), a ring otherwise
+    if k & (k - 1) == 0:
+        d = 1
+        while d < k:
+            x = x | mesh.ppermute(x, [(p ^ d, p) for p in range(k)])
+            d <<= 1
         return x
+    acc, cur = x, x
+    for _ in range(k - 1):
+        cur = mesh.ppermute(cur, [((p + 1) % k, p) for p in range(k)])
+        acc = acc | cur
+    return acc
+
+
+def _excl_level(x: torch.Tensor, mesh, k: int) -> torch.Tensor:
+    # Hillis-Steele inclusive scan (shards below the stride receive
+    # ppermute's zeros), minus the local term
+    acc, d = x, 1
+    while d < k:
+        acc = acc + mesh.ppermute(acc, [(p, p + d) for p in range(k - d)])
+        d <<= 1
+    return acc - x
+
+
+def collectives(block: int, mesh=None, *,
+                device: str | torch.device | None = None,
+                axis: str = "nodes", gather_axis: int = 0,
+                dcn=None) -> Collectives:
+    """The :class:`Collectives` of a round over ``block`` local rows: off
+    a mesh on one device (:func:`resolve_device`: CUDA unless the caller
+    passes one), on a 1-D mesh over its ranks (the blocks on
+    ``mesh.device``).  ``dcn=`` modes and a hierarchical mesh raise
+    (ROADMAP.md Queue A item 10)."""
+    if dcn is not None:
+        raise _unported("collectives(dcn=...)")
+    if axis != "nodes":
+        raise _unported(f"a mesh axis {axis!r}")
+    if mesh is None:
+        def ident(x):
+            return x
+
+        return Collectives(
+            row_ids=torch.arange(block, dtype=torch.int32,
+                                 device=resolve_device(device)),
+            widen=ident, reduce_sum=ident, reduce_max=ident,
+            reduce_min=ident, reduce_or=ident, reduce_and=ident,
+            exclusive_sum=torch.zeros_like, local_cols=ident,
+            axis_name=None)
+    _check_flat(mesh)
+    k, p = mesh.size, mesh.rank
+    row_ids = p * block + torch.arange(block, dtype=torch.int32,
+                                       device=mesh.device)
+
+    def reduce_or(x):
+        return _or_level(x, mesh, k) if k > 1 else x
 
     return Collectives(
-        row_ids=torch.arange(block, dtype=torch.int32,
-                             device=resolve_device(device)),
-        widen=ident, reduce_sum=ident, reduce_max=ident, reduce_min=ident,
-        reduce_or=ident, reduce_and=ident, exclusive_sum=torch.zeros_like,
-        local_cols=ident, axis_name=None)
+        row_ids=row_ids,
+        widen=lambda x: mesh.all_gather(x, dim=gather_axis),
+        reduce_sum=lambda x: mesh.all_reduce(x, "sum"),
+        reduce_max=lambda x: mesh.all_reduce(x, "max"),
+        reduce_min=lambda x: mesh.all_reduce(x, "min"),
+        reduce_or=reduce_or,
+        reduce_and=lambda x: ~reduce_or(~x),
+        exclusive_sum=lambda x: _excl_level(x, mesh, k),
+        local_cols=lambda m: m[:, p * block:(p + 1) * block],
+        axis_name="nodes")
 
 
 def fori_rounds(round_fn: Callable, state, rounds: int):

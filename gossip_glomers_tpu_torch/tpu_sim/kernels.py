@@ -12,8 +12,11 @@ what bounds them on an H100 and what the design does about it):
   own slot of the payload history ring),
   :func:`tree_flood_round` (one fused pure-flood round, ``new =
   exchange(frontier) & ~received; received |= new; frontier_next =
-  new``) and :func:`col_popcount` (per-node popcount sums ``sum_w
-  popc(x[w, i])``);
+  new``), :func:`col_popcount` (per-node popcount sums ``sum_w
+  popc(x[w, i])``) and the halo exchange's shard-local pair on a mesh:
+  :func:`tree_halo_pack` (the child partial a shard sends its parent
+  shard) and :func:`tree_halo_round` (the inbox from the received
+  parent slice and kids' partials, alone or as the fused flood round);
 - ``shift_flood.cu``, the words-major shift topologies (circulant, ring,
   line, grid): :func:`shift_exchange`, its masked form
   :func:`shift_masked_exchange`, its ring mode
@@ -153,7 +156,7 @@ LAUNCHES = {"tree_exchange": 0, "tree_masked_exchange": 0,
             "counter_apply": 0, "kafka_merge": 0, "kafka_nem_deliver": 0,
             "kafka_commit_select": 0, "kafka_commit_apply": 0,
             "and_fold": 0, "prov_attribute": 0, "txn_claim": 0,
-            "txn_commit": 0}
+            "txn_commit": 0, "tree_halo_pack": 0, "tree_halo_round": 0}
 
 _lib_handles: dict[str, ctypes.CDLL] = {}
 
@@ -444,6 +447,58 @@ def tree_flood_round_plain(received: torch.Tensor, frontier: torch.Tensor,
                            frontier_next: torch.Tensor,
                            branching: int = 4) -> torch.Tensor:
     new = tree_exchange_plain(frontier, branching) & ~received
+    received |= new
+    frontier_next.copy_(new)
+    return frontier_next
+
+
+def _live_cols(x: torch.Tensor, live: torch.Tensor | None) -> torch.Tensor:
+    """``x`` with the columns whose bit of the packed row ``live`` is
+    clear zeroed (``x`` itself for None)."""
+    if live is None:
+        return x
+    return torch.where(unpack_bits(live, x.shape[1])[None, :], x, 0)
+
+
+def tree_halo_pack_plain(payload: torch.Tensor, branching: int = 4,
+                         live: torch.Tensor | None = None) -> torch.Tensor:
+    """The child partial of a (W, B) block (the reference's
+    ``tree_kids_payload``, structured.py:303-309): column 0 passed
+    through, then column j >= 1 the OR of columns k(j-1)+1 .. kj (those
+    below B), the block's columns first masked by the packed row
+    ``live`` where given.  (W, B/k + 1)."""
+    w, b = payload.shape
+    k = branching
+    sub = b // k
+    x = _live_cols(payload, live)
+    body = torch.cat([x[:, 1:], x.new_zeros(w, sub * k - (b - 1))], dim=1)
+    groups = functools.reduce(torch.bitwise_or,
+                              body.view(w, sub, k).unbind(dim=2))
+    return torch.cat([x[:, :1], groups], dim=1)
+
+
+def tree_halo_round_plain(buf: torch.Tensor, ek: torch.Tensor,
+                          back: torch.Tensor | None, branching: int = 4,
+                          live: torch.Tensor | None = None,
+                          received: torch.Tensor | None = None,
+                          frontier_next: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """The halo tree inbox of a (W, B) block (structured.py:249-252 and
+    :322-327): ``inbox[:, c] = buf[:, ceil(c/k)] | ek[:, c+1]``, the
+    parent term masked by the packed row ``live`` where given and the
+    back-folded column ``back`` (W,) ORed into column B - 1.  With
+    ``received`` the fused flood round: ``new = inbox & ~received``,
+    ``received |= new`` in place, ``frontier_next[:] = new``."""
+    w = buf.shape[0]
+    b = ek.shape[1] - 1
+    k = branching
+    idx = (torch.arange(b, device=buf.device) + k - 1) // k
+    inbox = _live_cols(buf[:, idx], live) | ek[:, 1:]
+    if back is not None:
+        inbox[:, b - 1] |= back.reshape(w)
+    if received is None:
+        return inbox
+    new = inbox & ~received
     received |= new
     frontier_next.copy_(new)
     return frontier_next
@@ -889,7 +944,10 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_tree_ring_exchange": [ptr, ptr, ptr, i64, i64, i64, i32,
                                           ptr, i32, ptr],
                 "gg_tree_flood_round": [ptr, ptr, ptr, i64, i64, i32, ptr],
-                "gg_col_popcount": [ptr, ptr, i64, i64, ptr]},
+                "gg_col_popcount": [ptr, ptr, i64, i64, ptr],
+                "gg_tree_halo_pack": [ptr, ptr, ptr, i64, i64, i32, ptr],
+                "gg_tree_halo_round": [ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                                       i64, i32, ptr]},
             "shift_flood": {
                 "gg_shift_exchange": [ptr, ptr, i64, i64, ptr, i32, ptr],
                 "gg_shift_masked_exchange": [ptr, ptr, ptr, i64, i64, ptr,
@@ -1164,6 +1222,99 @@ def tree_flood_round(received: torch.Tensor, frontier: torch.Tensor,
                 received.device, received.data_ptr(), frontier.data_ptr(),
                 frontier_next.data_ptr(), w, n, branching)
     return frontier_next
+
+
+def _check_halo_block(w: int, b: int, branching: int) -> int:
+    """B/k of a halo block: k must divide B (the reference's gate)."""
+    _check_branching(branching)
+    if b < branching or b % branching:
+        raise ValueError(f"a tree halo block needs k | B and B >= k: B = "
+                         f"{b}, k = {branching}")
+    return b // branching
+
+
+def tree_halo_pack(payload: torch.Tensor, branching: int = 4,
+                   live: torch.Tensor | None = None) -> torch.Tensor:
+    """The child partial a (W, B) block sends its parent shard
+    (:func:`tree_halo_pack_plain`): a contiguous (W, B/k + 1) buffer.
+    ``live``: a (ceil(B/32),) packed row masking the block's columns
+    before the fold."""
+    _check_bitset("payload", payload)
+    w, b = payload.shape
+    sub = _check_halo_block(w, b, branching)
+    rows = []
+    if live is not None:
+        _check_packed("live", live, (packed_words(b),))
+        rows = [live]
+    if _on_cpu(payload, *rows):
+        return tree_halo_pack_plain(payload, branching, live)
+    _check_words(w)
+    out = torch.empty((w, sub + 1), dtype=torch.int32,
+                      device=payload.device)
+    if out.numel():
+        _launch("tree_halo_pack", _lib("tree_flood").gg_tree_halo_pack,
+                payload.device, payload.data_ptr(),
+                None if live is None else live.data_ptr(), out.data_ptr(),
+                w, b, branching)
+    return out
+
+
+def tree_halo_round(buf: torch.Tensor, ek: torch.Tensor,
+                    back: torch.Tensor | None, branching: int = 4,
+                    live: torch.Tensor | None = None, *,
+                    received: torch.Tensor | None = None,
+                    frontier_next: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """The halo tree inbox of a (W, B) block from the received parent
+    slice ``buf`` (W, B/k + 1), the kids' landing buffer ``ek`` (W, B +
+    1) and the back-folded column ``back`` (W,) or None
+    (:func:`tree_halo_round_plain`); ``live`` a (ceil(B/32),) packed row
+    gating the parent term.  Returns the inbox; or, given ``received``
+    and ``frontier_next`` ((W, B) each, distinct buffers), runs the
+    fused flood round in place and returns ``frontier_next``."""
+    for name, x in (("buf", buf), ("ek", ek)):
+        _check_bitset(name, x)
+    w, b = ek.shape[0], ek.shape[1] - 1
+    sub = _check_halo_block(w, b, branching)
+    if tuple(buf.shape) != (w, sub + 1):
+        raise ValueError(f"buf must be (W, B/k + 1) = {(w, sub + 1)}, got "
+                         f"{tuple(buf.shape)}")
+    extra = []
+    if back is not None:
+        if back.dtype != torch.int32 or back.numel() != w:
+            raise ValueError(f"back must hold W = {w} int32 words, got "
+                             f"{back.dtype} {tuple(back.shape)}")
+        back = back.reshape(w).contiguous()
+        extra.append(back)
+    if live is not None:
+        _check_packed("live", live, (packed_words(b),))
+        extra.append(live)
+    if (received is None) != (frontier_next is None):
+        raise ValueError("the fused round takes received and "
+                         "frontier_next together")
+    if received is not None:
+        for name, x in (("received", received),
+                        ("frontier_next", frontier_next)):
+            _check_bitset(name, x)
+            if tuple(x.shape) != (w, b):
+                raise ValueError(f"{name} must be (W, B) = {(w, b)}")
+        if _overlap(received, frontier_next):
+            raise ValueError("received must not alias frontier_next")
+        extra += [received, frontier_next]
+    if _on_cpu(buf, ek, *extra):
+        return tree_halo_round_plain(buf, ek, back, branching, live,
+                                     received, frontier_next)
+    _check_words(w)
+    out = (torch.empty((w, b), dtype=torch.int32, device=buf.device)
+           if received is None else frontier_next)
+    if out.numel():
+        _launch("tree_halo_round", _lib("tree_flood").gg_tree_halo_round,
+                buf.device, buf.data_ptr(), ek.data_ptr(),
+                None if back is None else back.data_ptr(),
+                None if live is None else live.data_ptr(), out.data_ptr(),
+                None if received is None else received.data_ptr(), w, b,
+                branching)
+    return out
 
 
 def col_popcount(x: torch.Tensor, node_major: bool = False) -> torch.Tensor:

@@ -30,8 +30,19 @@ partition windows).  Their closures take the round's liveness as packed
 rows (:func:`.kernels.pack_bits`, (D, ceil(N/32)) int32) and run the
 masked kernels (:func:`.kernels.tree_masked_exchange`,
 :func:`.kernels.shift_masked_exchange`) through the exchange objects'
-``masked`` calls.  Single device only: the reference's halo closures
-(``sharded_*``) are None here (ROADMAP.md Queue A item 10).
+``masked`` calls.
+
+On a mesh (:class:`..parallel.mesh.Mesh`, one rank a block of B
+consecutive nodes) the halo exchanges map the local block to the local
+inbox with O(B) ppermutes and no all-gather
+(:func:`make_sharded_exchange`, :func:`make_sharded_sync_diff`, and
+``make_faulted(n_shards=)``'s masked ones): the shift topologies through
+the engine's :func:`.engine.sharded_roll` / :func:`.engine.sharded_shift`
+(torch ops), the tree through the parent-slice and kids'-partial
+multicasts around the kernel pair :func:`.kernels.tree_halo_pack` /
+:func:`.kernels.tree_halo_round`.  Each is a :class:`Halo`, bound to a
+mesh of ``n_shards`` ranks (:meth:`Halo.bind`).  The nemesis and delay
+bundles' halo closures are not ported (ROADMAP.md Queue A item 10).
 
 Maelstrom's per-hop latency on this path: :func:`make_delayed`
 (per-direction delay classes), :func:`make_edge_delayed` (random
@@ -49,6 +60,7 @@ keeps the reshape fold only.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Callable
@@ -58,7 +70,8 @@ import torch
 
 from . import faults, kernels
 from ..parallel.topology import grid_cols
-from .engine import active_windows, resolve_device, send_slot, windows_fold
+from .engine import (active_windows, resolve_device, send_slot,
+                     sharded_roll, sharded_shift, windows_fold)
 from .kernels import MASK32, MASK_LEFT, MASK_RIGHT, WRAP, ShiftDirs
 
 
@@ -303,6 +316,301 @@ def make_exchange(topology: str, n: int, **kw):
     return None
 
 
+# -- halo exchanges on a mesh -------------------------------------------
+
+
+@dataclass(frozen=True)
+class Halo:
+    """A shard-local closure of a halo exchange or sync diff:
+    ``fn(mesh, *args)`` over the local blocks of a mesh of ``n_shards``
+    ranks, called as ``halo(*args)`` once bound (:meth:`bind`; a
+    ``BroadcastSim(mesh=)`` binds its own).  ``flood`` (the tree's) runs
+    the fused pure-flood round; the others compose it from the
+    exchange."""
+
+    fn: Callable
+    n_shards: int
+    mesh: object = None
+    flood: Callable | None = None
+
+    def bind(self, mesh) -> "Halo":
+        from .engine import _check_shards
+
+        _check_shards(mesh, self.n_shards)
+        return self if self.mesh is mesh else dataclasses.replace(
+            self, mesh=mesh)
+
+    def _bound(self):
+        if self.mesh is None:
+            raise ValueError("a halo closure runs on a mesh: bind it "
+                             "first (Halo.bind, or BroadcastSim(mesh=))")
+        return self.mesh
+
+    def __call__(self, *args):
+        return self.fn(self._bound(), *args)
+
+    def flood_round(self, received: torch.Tensor, frontier: torch.Tensor,
+                    frontier_next: torch.Tensor) -> torch.Tensor:
+        """One pure-flood round over the local blocks: ``new = inbox &
+        ~received``, ``received |= new`` in place, ``frontier_next[:] =
+        new``."""
+        if self.flood is not None:
+            return self.flood(self._bound(), received, frontier,
+                              frontier_next)
+        new = self(frontier) & ~received
+        received |= new
+        frontier_next.copy_(new)
+        return frontier_next
+
+
+def _global_cols(mesh, block: int, device) -> torch.Tensor:
+    """(block,) int64 global node ids of the local columns."""
+    return mesh.rank * block + torch.arange(block, device=device)
+
+
+def _check_tree_block(block: int, k: int) -> int:
+    if block % k != 0 or block < k:
+        raise ValueError("tree halo needs k | block")
+    return block // k
+
+
+def _parent_buf(p_local: torch.Tensor, n_shards: int, k: int,
+                mesh) -> torch.Tensor:
+    """(W, B/k + 1): the slice of its parents' payload a shard receives
+    (structured.py:225-252).  Shard d's parents occupy global columns
+    [(dB - 1)//k, (dB - 1)//k + B/k], one slice of shard d//k's block
+    extended by a 1-column left halo; in multicast round m shard q sends
+    destination qk + m its slice, and a shard that no round addresses
+    keeps zeros (buf[:, 0] is zero on the shard owning the root)."""
+    w, block = p_local.shape
+    sub = block // k
+    left = (mesh.ppermute(p_local[:, -1:],
+                          [(p, p + 1) for p in range(n_shards - 1)])
+            if n_shards > 1 else p_local.new_zeros(w, 1))
+    buf = None
+    for m in range(k):
+        sl = (torch.cat([left, p_local[:, :sub]], dim=1) if m == 0
+              else p_local[:, m * sub - 1: m * sub + sub])
+        rv = mesh.ppermute(sl, [(q, q * k + m) for q in range(n_shards)
+                                if q * k + m < n_shards])
+        buf = rv if buf is None else buf | rv
+    return buf
+
+
+def _kids_landing(p_local: torch.Tensor, n_shards: int, k: int, mesh,
+                  live: torch.Tensor | None = None):
+    """(ek (W, B + 1), back (W, 1) or None): the kids' partial ORs a
+    shard receives (structured.py:290-327).  Child shard qk + m sends its
+    partial (:func:`.kernels.tree_halo_pack`, gated by ``live`` at the
+    child columns) to parent shard q, landing at columns [m B/k, m B/k +
+    B/k]; column 0 is a partial for the last parent of the shard to the
+    left, which gets it back as ``back``."""
+    w, block = p_local.shape
+    sub = block // k
+    partial = kernels.tree_halo_pack(p_local, k, live)
+    ek = p_local.new_zeros(w, block + 1)
+    for m in range(k):
+        rv = mesh.ppermute(partial, [(q * k + m, q) for q in range(n_shards)
+                                     if q * k + m < n_shards])
+        ek[:, m * sub: m * sub + sub + 1] |= rv
+    back = (mesh.ppermute(ek[:, :1],
+                          [(p + 1, p) for p in range(n_shards - 1)])
+            if n_shards > 1 else None)
+    return ek, back
+
+
+def tree_parent_payload(p_local: torch.Tensor, n: int, n_shards: int,
+                        branching: int = 4, mesh=None) -> torch.Tensor:
+    """Per-node parent payload of the heap-ordered k-ary tree, local
+    block -> local block: out[:, c] = payload[:, (g-1)//k] at global
+    node g (zeros at the root).  The from-parent half of
+    :func:`tree_sharded_exchange`, and the delivery the tree's sync diff
+    rides."""
+    w, block = p_local.shape
+    k = branching
+    _check_tree_block(block, k)
+    buf = _parent_buf(p_local, n_shards, k, mesh)
+    return torch.cat([buf[:, :1], buf[:, 1:].repeat_interleave(k, dim=1)],
+                     dim=1)[:, :block]
+
+
+def tree_kids_payload(p_local: torch.Tensor, n: int, n_shards: int,
+                      branching: int = 4, mesh=None) -> torch.Tensor:
+    """Per-node OR of the children's payload, local block -> local block:
+    out[:, j] = OR payload[:, kj+1 .. kj+k] (the from-kids half of
+    :func:`tree_sharded_exchange`)."""
+    _check_tree_block(p_local.shape[1], branching)
+    ek, back = _kids_landing(p_local, n_shards, branching, mesh)
+    out = ek[:, 1:].clone()
+    if back is not None:
+        out[:, -1:] |= back
+    return out
+
+
+def tree_sharded_exchange(p_local: torch.Tensor, n: int, n_shards: int,
+                          branching: int = 4, mesh=None,
+                          live: torch.Tensor | None = None) -> torch.Tensor:
+    """The halo exchange of the heap-ordered k-ary tree: local payload
+    block -> local inbox block, bit-exact with :func:`tree_exchange`;
+    2k + 2 ppermutes of B/k + 1 columns or fewer a round (the 1-column
+    halos each way and the k multicasts each way), then
+    :func:`.kernels.tree_halo_round`.  ``live``: the block's packed
+    parent-edge row (the masked exchange: the parent term gated at the
+    receiver, the payload at the child before the fold)."""
+    w, block = p_local.shape
+    k = branching
+    if block * n_shards != n:
+        raise ValueError("node axis must shard evenly")
+    _check_tree_block(block, k)
+    buf = _parent_buf(p_local, n_shards, k, mesh)
+    ek, back = _kids_landing(p_local, n_shards, k, mesh, live)
+    return kernels.tree_halo_round(buf, ek, back, k, live)
+
+
+def _tree_flood(mesh, rec, fr, nxt, *, n: int, n_shards: int, k: int):
+    # the fused pure-flood round over the halo: the kernel's fused form
+    buf = _parent_buf(fr, n_shards, k, mesh)
+    ek, back = _kids_landing(fr, n_shards, k, mesh)
+    return kernels.tree_halo_round(buf, ek, back, k, received=rec,
+                                   frontier_next=nxt)
+
+
+def grid_sharded_exchange(p_local: torch.Tensor, n: int, n_shards: int,
+                          cols: int, mesh=None) -> torch.Tensor:
+    """The halo exchange of the row-major grid: ±cols and ±1 zero-fill
+    shifts, the ±1 pair masked by global column so rows do not wrap."""
+    block = p_local.shape[1]
+    if block * n_shards != n:
+        raise ValueError("node axis must shard evenly")
+    up = sharded_shift(p_local, cols, n_shards, mesh)
+    down = sharded_shift(p_local, -cols, n_shards, mesh)
+    lf = sharded_shift(p_local, 1, n_shards, mesh)
+    rt = sharded_shift(p_local, -1, n_shards, mesh)
+    col = _global_cols(mesh, block, p_local.device) % cols
+    return (up | down | _mask_cols(lf, col < cols - 1)
+            | _mask_cols(rt, col > 0))
+
+
+def line_sharded_exchange(p_local: torch.Tensor, n: int, n_shards: int,
+                          mesh=None) -> torch.Tensor:
+    """The halo exchange of the line: ±1 zero-fill shifts."""
+    if p_local.shape[1] * n_shards != n:
+        raise ValueError("node axis must shard evenly")
+    return (sharded_shift(p_local, 1, n_shards, mesh)
+            | sharded_shift(p_local, -1, n_shards, mesh))
+
+
+def _circ_strides(topology: str, kw: dict) -> list:
+    return [1] if topology == "ring" else list(kw["strides"])
+
+
+def _halo_gate(topology: str, n: int, n_shards: int, **kw) -> bool:
+    """Whether the topology and shape have a halo decomposition (the
+    reference's gates, structured.py:359-415): an even split, k | B for
+    the tree, grid rows narrower than a block, B >= 2 for the line."""
+    if n_shards < 1 or n % n_shards != 0:
+        return False
+    block = n // n_shards
+    if topology in ("ring", "circulant"):
+        return True
+    if topology == "tree":
+        k = kw.get("branching", 4)
+        return block % k == 0 and block >= k
+    if topology == "grid":
+        return (kw.get("cols") or grid_cols(n)) < block
+    if topology == "line":
+        return block >= 2
+    return False
+
+
+def make_sharded_exchange(topology: str, n: int, n_shards: int, mesh=None,
+                          **kw) -> Halo | None:
+    """The halo exchange of a named topology over ``n_shards`` blocks:
+    local payload block -> local inbox block with O(block) ppermutes, no
+    all-gather.  None where the topology or shape has no halo
+    decomposition (the caller then takes the all-gather path): the same
+    shapes as the reference.  ``mesh``: bind it now (else
+    :meth:`Halo.bind`)."""
+    if not _halo_gate(topology, n, n_shards, **kw):
+        return None
+    flood = None
+    if topology in ("ring", "circulant"):
+        strides = _circ_strides(topology, kw)
+
+        def fn(mesh, p):
+            out = None
+            for s in strides:
+                term = (sharded_roll(p, s, n, n_shards, mesh)
+                        | sharded_roll(p, -s, n, n_shards, mesh))
+                out = term if out is None else out | term
+            return out
+    elif topology == "tree":
+        k = kw.get("branching", 4)
+
+        def fn(mesh, p):
+            return tree_sharded_exchange(p, n, n_shards, k, mesh)
+
+        flood = functools.partial(_tree_flood, n=n, n_shards=n_shards, k=k)
+    elif topology == "grid":
+        cols = kw.get("cols") or grid_cols(n)
+
+        def fn(mesh, p):
+            return grid_sharded_exchange(p, n, n_shards, cols, mesh)
+    else:
+        def fn(mesh, p):
+            return line_sharded_exchange(p, n, n_shards, mesh)
+    halo = Halo(fn, n_shards, flood=flood)
+    return halo if mesh is None else halo.bind(mesh)
+
+
+def has_sharded_exchange(topology: str, n: int, n_shards: int | None,
+                         **kw) -> bool:
+    """Whether the topology and shape have a halo decomposition."""
+    return n_shards is not None and _halo_gate(topology, n, n_shards, **kw)
+
+
+def make_sharded_sync_diff(topology: str, n: int, n_shards: int, mesh=None,
+                           **kw) -> Halo | None:
+    """The halo sync diff: local received block -> this shard's () int64
+    partial (a uint32) of the per-edge diff volume (the caller
+    all-reduces it).  The same gates as :func:`make_sharded_exchange`."""
+    if not _halo_gate(topology, n, n_shards, **kw):
+        return None
+    block = n // n_shards
+    if topology in ("ring", "circulant"):
+        strides = _circ_strides(topology, kw)
+
+        def fn(mesh, recv):
+            out = _zero_diff(recv)
+            for s in strides:
+                out = out + _dir_diff(sharded_roll(recv, s, n, n_shards,
+                                                   mesh), recv)
+            return out & MASK32
+    elif topology == "tree":
+        k = kw.get("branching", 4)
+
+        def fn(mesh, recv):
+            parent = tree_parent_payload(recv, n, n_shards, k, mesh)
+            return _dir_diff(parent, recv,
+                             _global_cols(mesh, block, recv.device) != 0)
+    elif topology == "grid":
+        cols = kw.get("cols") or grid_cols(n)
+
+        def fn(mesh, recv):
+            g = _global_cols(mesh, block, recv.device)
+            vert = _dir_diff(sharded_shift(recv, cols, n_shards, mesh),
+                             recv, g < n - cols)
+            horiz = _dir_diff(sharded_shift(recv, 1, n_shards, mesh), recv,
+                              (g < n - 1) & (g % cols < cols - 1))
+            return (vert + horiz) & MASK32
+    else:
+        def fn(mesh, recv):
+            return _dir_diff(sharded_shift(recv, 1, n_shards, mesh), recv,
+                             _global_cols(mesh, block, recv.device) < n - 1)
+    halo = Halo(fn, n_shards)
+    return halo if mesh is None else halo.bind(mesh)
+
+
 # -- faults on the structured path --------------------------------------
 #
 # Direction-row contract (fault_dir_senders, the masked exchanges and
@@ -464,15 +772,92 @@ def line_masked_sync_diff(recv: torch.Tensor,
 def _unported_shards(n_shards: int | None) -> None:
     if n_shards is not None:
         raise NotImplementedError(
-            "the halo (n_shards) closures of the structured fault bundles "
-            "are not ported to PyTorch yet (ROADMAP.md Queue A item 10)")
+            "the halo (n_shards) closures of the structured nemesis and "
+            "delay bundles are not ported to PyTorch yet (ROADMAP.md Queue "
+            "A item 10)")
 
 
-def _masked_diffs(topology: str, n: int, **kw):
-    """The masked per-edge sync-diff closure ``df(recv, live)`` over
-    packed (D, ceil(N/32)) rows of the degree contract, shared by
-    :func:`make_faulted` and :func:`make_nemesis`; None for unstructured
-    topologies."""
+# the masked halo exchanges (structured.py:765-805): the live rows shard
+# with the node axis like the state, (D, ceil(B/32)) packed rows of the
+# local block, so every mask lands on local receiver columns (the tree's
+# kids mask at child positions is local to the child shard) and the
+# masked halo exchange moves what the unmasked one does
+
+
+def _lv(live: torch.Tensor, d: int, block: int) -> torch.Tensor:
+    return kernels.unpack_bits(live[d], block)
+
+
+def _masked_halo_fns(topology: str, n: int, n_shards: int, **kw):
+    """``(sex(mesh, p, live), sdf(mesh, r, live))``: the masked halo
+    exchange and sync diff over the local packed rows."""
+    block = n // n_shards
+    if topology == "tree":
+        k = kw.get("branching", 4)
+
+        def sex(mesh, p, lv):
+            return tree_sharded_exchange(p, n, n_shards, k, mesh,
+                                         live=lv[0].contiguous())
+
+        def sdf(mesh, r, lv):
+            parent = tree_parent_payload(r, n, n_shards, k, mesh)
+            return _dir_diff(parent, r, _lv(lv, 0, block))
+    elif topology == "grid":
+        cols = kw.get("cols") or grid_cols(n)
+
+        def sex(mesh, p, lv):
+            terms = (sharded_shift(p, cols, n_shards, mesh),
+                     sharded_shift(p, -cols, n_shards, mesh),
+                     sharded_shift(p, 1, n_shards, mesh),
+                     sharded_shift(p, -1, n_shards, mesh))
+            return functools.reduce(torch.bitwise_or, (
+                _mask_cols(x, _lv(lv, d, block))
+                for d, x in enumerate(terms)))
+
+        def sdf(mesh, r, lv):
+            up = sharded_shift(r, cols, n_shards, mesh)
+            lf = sharded_shift(r, 1, n_shards, mesh)
+            return (_dir_diff(up, r, _lv(lv, 0, block))
+                    + _dir_diff(lf, r, _lv(lv, 2, block))) & MASK32
+    elif topology in ("ring", "circulant"):
+        strides = _circ_strides(topology, kw)
+
+        def sex(mesh, p, lv):
+            out = torch.zeros_like(p)
+            for i, s in enumerate(strides):
+                out |= (_mask_cols(sharded_roll(p, s, n, n_shards, mesh),
+                                   _lv(lv, 2 * i, block))
+                        | _mask_cols(sharded_roll(p, -s, n, n_shards, mesh),
+                                     _lv(lv, 2 * i + 1, block)))
+            return out
+
+        def sdf(mesh, r, lv):
+            out = _zero_diff(r)
+            for i, s in enumerate(strides):
+                out = out + _dir_diff(sharded_roll(r, s, n, n_shards, mesh),
+                                      r, _lv(lv, 2 * i, block))
+            return out & MASK32
+    else:
+        def sex(mesh, p, lv):
+            return (_mask_cols(sharded_shift(p, 1, n_shards, mesh),
+                               _lv(lv, 0, block))
+                    | _mask_cols(sharded_shift(p, -1, n_shards, mesh),
+                                 _lv(lv, 1, block)))
+
+        def sdf(mesh, r, lv):
+            return _dir_diff(sharded_shift(r, 1, n_shards, mesh), r,
+                             _lv(lv, 0, block))
+    return sex, sdf
+
+
+def _masked_diffs(topology: str, n: int, n_shards: int | None = None,
+                  **kw):
+    """``(df, sdf)``: the masked per-edge sync-diff closure ``df(recv,
+    live)`` over packed (D, ceil(N/32)) rows of the degree contract,
+    shared by :func:`make_faulted` and :func:`make_nemesis`, and its halo
+    form ``sdf`` (a :class:`Halo` over the local rows; None without
+    ``n_shards`` or where the halo gates fail).  (None, None) for
+    unstructured topologies."""
     if topology == "tree":
         k = kw.get("branching", 4)
         diff = functools.partial(tree_masked_sync_diff, branching=k)
@@ -486,8 +871,12 @@ def _masked_diffs(topology: str, n: int, **kw):
     elif topology == "line":
         diff = line_masked_sync_diff
     else:
-        return None
-    return lambda r, lv: diff(r, kernels.unpack_bits(lv, n))
+        return None, None
+    sdf = None
+    if has_sharded_exchange(topology, n, n_shards, **kw):
+        sdf = Halo(_masked_halo_fns(topology, n, n_shards, **kw)[1],
+                   n_shards)
+    return (lambda r, lv: diff(r, kernels.unpack_bits(lv, n))), sdf
 
 
 @dataclass(frozen=True)
@@ -500,7 +889,10 @@ class StructuredFaults:
       sender in one group;
     - ``exchange(payload, live)`` / ``sync_diff(recv, live)``: the masked
       closures, ``live`` the round's (D, ceil(N/32)) packed rows;
-    - ``sharded_exchange`` / ``sharded_sync_diff``: None (item 10)."""
+    - ``sharded_exchange`` / ``sharded_sync_diff``: their halo forms
+      (:class:`Halo`, over the local block's (D, ceil(B/32)) packed
+      rows), None without ``n_shards`` or where the halo gates fail (the
+      caller then takes the all-gather path with the full closures)."""
 
     exists: np.ndarray
     same: np.ndarray
@@ -517,8 +909,8 @@ def make_faulted(topology: str, n: int, groups: np.ndarray,
     partition schedule (``groups``: its (P, N) group ids).  The exchange
     runs the masked kernels: the tree's with row 0 as both of its rows,
     the shift topologies' with every row.  None for unstructured
-    topologies."""
-    _unported_shards(n_shards)
+    topologies.  ``n_shards``: also the halo closures over that many
+    blocks (None where the halo gates fail)."""
     masks = fault_masks(topology, n, groups, **kw)
     if masks is None:
         return None
@@ -529,8 +921,12 @@ def make_faulted(topology: str, n: int, groups: np.ndarray,
             return ex.masked(p, lv[0], lv[0])
     else:
         exchange = ex.masked
-    return StructuredFaults(exists, same, exchange,
-                            _masked_diffs(topology, n, **kw))
+    df, sdf = _masked_diffs(topology, n, n_shards, **kw)
+    sex = None
+    if sdf is not None:
+        sex = Halo(_masked_halo_fns(topology, n, n_shards, **kw)[0],
+                   n_shards)
+    return StructuredFaults(exists, same, exchange, df, sex, sdf)
 
 
 # -- the structured nemesis ---------------------------------------------
@@ -740,7 +1136,7 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
             device))
     ex, spc = _nem_closures(topology, n, **kw)
     return StructuredNemesis(arrs, dd, ring, ex, spc, None, None,
-                             _masked_diffs(topology, n, **kw), None,
+                             _masked_diffs(topology, n, **kw)[0], None,
                              ring_terms(topology, n, **kw) if dd else None)
 
 
@@ -1005,7 +1401,7 @@ def make_delayed_faulted(topology: str, n: int, dir_delays,
         return ex_impl(hist, t, lv_by_delay(live_at, t))
 
     return FaultedDelayed(exists, same, dd, max(dd), exchange,
-                          sync_diff=_masked_diffs(topology, n, **kw))
+                          sync_diff=_masked_diffs(topology, n, **kw)[0])
 
 
 # Per-EDGE random delays.  Delays take values from a small static set, so
@@ -1150,4 +1546,4 @@ def make_edge_delayed_faulted(topology: str, n: int, delay_rows,
         ed.delay_rows, delay_set, ed.ring, ed.classes, ed.exchange,
         exists=exists, same=same, del_same=del_same,
         live_by_delay=live_by_delay,
-        sync_diff=_masked_diffs(topology, n, **kw))
+        sync_diff=_masked_diffs(topology, n, **kw)[0])

@@ -8,6 +8,10 @@ kernel loop, whose ledger is recovered in closed form after the loop);
 for a node-major gather sim, the generic round loop — and time it alone
 with CUDA events.  Staging stays off the clock; each sample re-stages,
 because the flood loop updates ``received`` in place.
+
+On a mesh (:func:`..parallel.mesh.pick_mesh`, one rank a block of the
+node axis) the sim takes the halo exchanges and every rank times its own
+run of the same rounds.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from ..parallel.topology import (circulant, expander_strides, grid,
                                  tree)
 from .broadcast import BroadcastSim, make_inject
 from .kernels import col_popcount
-from .structured import make_exchange, make_faulted, make_sync_diff
+from .structured import (make_exchange, make_faulted,
+                         make_sharded_exchange, make_sharded_sync_diff,
+                         make_sync_diff)
 
 
 def _nbrs_for(topology: str, n: int, **kw) -> np.ndarray:
@@ -41,15 +47,28 @@ def _nbrs_for(topology: str, n: int, **kw) -> np.ndarray:
 def structured_sim(topology: str, n: int, n_values: int, *,
                    sync_every: int = 64, srv_ledger: bool = False,
                    parts=None, device: str | torch.device | None = None,
-                   **kw) -> BroadcastSim:
-    """A words-major structured BroadcastSim on one device, ledger off
-    by default (its sync diff is per-round bookkeeping that timed runs
-    keep out).  ``parts`` (a :class:`.broadcast.Partitions`, windows in
-    rounds) runs its schedule on the structured path through the masked
-    closures of :func:`.structured.make_faulted`."""
+                   mesh="auto", **kw) -> BroadcastSim:
+    """A words-major structured BroadcastSim, ledger off by default (its
+    sync diff is per-round bookkeeping that timed runs keep out), on
+    ``mesh`` with the halo exchanges: by default
+    :func:`..parallel.mesh.pick_mesh` (None, one device, in a world of
+    one process), None for one device.  ``parts`` (a
+    :class:`.broadcast.Partitions`, windows in rounds) runs its schedule
+    on the structured path through the masked closures of
+    :func:`.structured.make_faulted`."""
+    if isinstance(mesh, str) and mesh == "auto":
+        from ..parallel.mesh import pick_mesh
+
+        mesh = pick_mesh(device=device)
+    shards = None if mesh is None else mesh.size
+    sharded = sharded_diff = None
+    if mesh is not None:
+        sharded = make_sharded_exchange(topology, n, shards, **kw)
+        sharded_diff = make_sharded_sync_diff(topology, n, shards, **kw)
     faulted = None
     if parts is not None and parts.n_windows:
-        faulted = make_faulted(topology, n, parts.group.cpu().numpy(), **kw)
+        faulted = make_faulted(topology, n, parts.group.cpu().numpy(),
+                               n_shards=shards, **kw)
     return BroadcastSim(
         _nbrs_for(topology, n, **kw), n_values=n_values,
         sync_every=sync_every, parts=parts,
@@ -57,7 +76,9 @@ def structured_sim(topology: str, n: int, n_values: int, *,
         srv_ledger=srv_ledger,
         sync_diff=make_sync_diff(topology, n, **kw) if srv_ledger
         else None,
-        faulted=faulted, device=device)
+        faulted=faulted, device=device if mesh is None else None,
+        mesh=mesh, sharded_exchange=sharded,
+        sharded_sync_diff=sharded_diff if srv_ledger else None)
 
 
 def discover_rounds(topology: str, n: int, n_values: int, **kw) -> int:
@@ -160,7 +181,7 @@ def flood_msgs64(sim: BroadcastSim, state) -> int:
                          "closed form")
     dpc = (col_popcount(state.received)
            - col_popcount(state.frontier)).to(torch.int64)
-    return int((sim.deg * dpc).sum())
+    return int(sim._psum((sim.deg * dpc).sum()))
 
 
 class TimedRun:
@@ -219,7 +240,8 @@ class TimedRun:
 
 
 def bench_structured(n: int, entries, repeats: int = 3,
-                     device: str | torch.device | None = None) -> dict:
+                     device: str | torch.device | None = None,
+                     mesh="auto") -> dict:
     """Timed structured-flood convergence runs.  ``entries``: (name,
     topology, n_values, kw, n_dirs) tuples.  Returns {name: {wall_s (the
     median sample), samples_s, rounds, ms_per_round, gbytes_per_s_lb,
@@ -227,10 +249,12 @@ def bench_structured(n: int, entries, repeats: int = 3,
     is the reference's logical-traffic lower bound on the achieved
     memory rate in GB/s: what a perfectly fused round must stream (read
     received+frontier, write received+frontier, plus one full-bitset
-    payload read per exchange direction), over the measured time."""
+    payload read per exchange direction), over the measured time.
+    ``mesh``: as :func:`structured_sim`'s (each rank times its own
+    samples)."""
     out: dict = {}
     for name, topo, nv, kw, n_dirs in entries:
-        sim = structured_sim(topo, n, nv, device=device, **kw)
+        sim = structured_sim(topo, n, nv, device=device, mesh=mesh, **kw)
         tr = TimedRun(sim, make_inject(n, nv),
                       discover_rounds(topo, n, nv, **kw))
         tr.prepare()

@@ -1756,3 +1756,81 @@ def test_cuda_fuzz_run_equals_cpu(cuda_device, tmp_path):
                          observe_dir=str(tmp_path / "c"), **kw)
     assert strip(got) == strip(want)
     assert got["n_failing"] >= 1 and got["shrinks"][0]["replay_same_failure"]
+
+
+# -- the mesh's tree halo kernels and the host-staged transport -------------
+
+
+def _halo_operands(w, b, k, seed, device, live):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda shape: torch.randint(  # noqa: E731
+        -(1 << 31), 1 << 31, shape, dtype=torch.int32, device=device,
+        generator=gen)
+    lv = (kernels.pack_bits(torch.rand(b, device=device, generator=gen)
+                            < 0.6) if live else None)
+    return (rnd((w, b)), rnd((w, b // k + 1)), rnd((w, b + 1)), rnd((w,)),
+            rnd((w, b)), lv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", (False, True))
+@pytest.mark.parametrize("k", (2, 4))
+@pytest.mark.parametrize("w", (1, 2, 128))
+def test_cuda_tree_halo_kernels_match_plain(cuda_device, w, k, live):
+    # B at and off the kernels' 256-thread tiles: the pack's B/k + 1
+    # columns and the round's B columns one short of, at and one over a
+    # tile, and a B of two tiles and a bit
+    for b in (k, 255 * k, 256 * k, 257 * k, 256, 512 + k):
+        if b % k:
+            continue
+        p, buf, ek, back, rec, lv = _halo_operands(w, b, k, b + w, cuda_device,
+                                                   live)
+        before = dict(kernels.LAUNCHES)
+        assert torch.equal(kernels.tree_halo_pack(p, k, lv),
+                           kernels.tree_halo_pack_plain(p, k, lv))
+        for bk in (None, back):
+            assert torch.equal(kernels.tree_halo_round(buf, ek, bk, k, lv),
+                               kernels.tree_halo_round_plain(buf, ek, bk, k,
+                                                             lv))
+            rg, rw = rec.clone(), rec.clone()
+            ng, nw = torch.empty_like(rec), torch.empty_like(rec)
+            kernels.tree_halo_round(buf, ek, bk, k, lv, received=rg,
+                                    frontier_next=ng)
+            kernels.tree_halo_round_plain(buf, ek, bk, k, lv, rw, nw)
+            assert torch.equal(rg, rw) and torch.equal(ng, nw)
+        assert kernels.LAUNCHES["tree_halo_pack"] == \
+            before["tree_halo_pack"] + 1
+        assert kernels.LAUNCHES["tree_halo_round"] == \
+            before["tree_halo_round"] + 4
+    torch.cuda.synchronize()
+
+
+def _ppermute_rank(mesh):
+    # every ppermute shape the halo exchanges use, on the card, host-staged
+    x = torch.arange(12, dtype=torch.int32, device=mesh.device).view(
+        3, 4) + 100 * mesh.rank
+    other = 1 - mesh.rank
+    swap = mesh.ppermute(x[:, 1:3], [(0, 1), (1, 0)])     # a strided view
+    one_way = mesh.ppermute(x, [(0, 1)])                  # rank 0 gets 0s
+    self_pair = mesh.ppermute(x, [(0, 0), (1, 1)])
+    flags = mesh.ppermute(x > 105, [(1, 0)])
+    return {"staged": mesh.host_staged, "device": swap.device.type,
+            "swap": swap.cpu(), "want_swap": (x[:, 1:3] - 100 * mesh.rank
+                                              + 100 * other).cpu(),
+            "one_way": one_way.cpu(), "self": self_pair.cpu(),
+            "x": x.cpu(), "flags": flags.cpu()}
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_ppermute_host_staged(cuda_device):
+    from gossip_glomers_tpu_torch.parallel import dcn_worker
+
+    r0, r1 = dcn_worker.spawn_world(_ppermute_rank, 2, backend="gloo",
+                                    device=cuda_device, timeout=120)
+    for r in (r0, r1):
+        assert r["staged"] and r["device"] == "cuda"
+        assert torch.equal(r["swap"], r["want_swap"])
+        assert torch.equal(r["self"], r["x"])
+    assert not r0["one_way"].any() and torch.equal(r1["one_way"], r0["x"])
+    assert torch.equal(r0["flags"], r1["x"] > 105)
+    assert not r1["flags"].any() and r1["flags"].dtype == torch.bool

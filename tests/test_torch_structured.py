@@ -73,16 +73,22 @@ def test_tree_exchange_single_node_is_zero():
 def test_other_topologies_raise_naming_roadmap(topology):
     # every named topology has a structured exchange, and a partition
     # schedule runs on it through the masked closures that
-    # timing.structured_sim builds (structured.make_faulted); what still
-    # raises naming the ROADMAP is the halo form of those closures
+    # timing.structured_sim builds (structured.make_faulted), with their
+    # halo forms on a mesh; what still raises naming the ROADMAP is the
+    # halo form of the delay bundles' closures
     kw = {"strides": [1, 3]} if topology == "circulant" else {}
     group = np.zeros((1, 16), np.int8)
     parts = pbc.Partitions.from_numpy(np.array([1]), np.array([3]), group)
     sim = ptiming.structured_sim(topology, 16, 4, parts=parts, device="cpu",
                                  **kw)
     assert sim.words_major and sim._faulted is not None
+    halo = pst.make_faulted(topology, 16, group, n_shards=2, **kw)
+    assert (halo.sharded_exchange is None) == (
+        pst.make_sharded_exchange(topology, 16, 2, **kw) is None)
+    d = pst.fault_dir_senders(topology, 16, **kw).shape[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pst.make_faulted(topology, 16, group, n_shards=2, **kw)
+        pst.make_edge_delayed(topology, 16, np.ones((d, 16), np.int32),
+                              n_shards=2, **kw)
     assert pst.make_exchange(topology, 16, **kw) is not None
     assert pst.make_sync_diff(topology, 16, **kw) is not None
     assert ptiming.discover_rounds(topology, 16, 4, **kw) \
