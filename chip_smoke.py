@@ -33,7 +33,10 @@ bundles and repros under ``build/chip_smoke/``):
    words-major coins (``wm_fault_coins``, every stream and the ledger
    mode) on every structured topology's id descriptors (the tree at
    branchings 1, 2, 3, 4 and 32 in both contracts, a ragged grid, ring,
-   line, circulant) at every n of those shapes; ``tree_exchange`` also
+   line, circulant) at every n of those shapes and at 4 x 1,027, and
+   in the block form a mesh rank launches (each rank's block of 2 and 4
+   shards, ``col0``, the global ``n_ids``) against the whole row's
+   coins cut to the block; ``tree_exchange`` also
    at n % 4 in {0, 1, 2, 3}, k = 4 and 3, W = 1 and 128, on 4-byte-offset
    views; the ring kernels (``tree_ring_exchange``,
    ``shift_ring_exchange``) on random 3-slot rings and rows, over every
@@ -149,11 +152,25 @@ bundles and repros under ``build/chip_smoke/``):
 18. ``small_floods``: grid (65,536 nodes), ring and line (4,099 nodes)
     run to convergence with the server ledger on, each held against the
     CPU path (coverage, not timing).
-18a. ``mesh_collectives``, ``mesh_tree_1m``, ``mesh_topologies``: the
+19. ``counter_1m_partitioned``: benchmarks/run_all.py's ``config3b``
+    (``_counter_bench`` at 2^20 nodes: allreduce, half the nodes off the
+    KV for rounds [0, 8) of 16); ``ok``: the KV and every read equal the
+    sum of the deltas.
+20. ``counter_16m_cas_wide``: ``config3c`` (2^24 nodes, cas, the wide
+    winner layout, 16 rounds); ``ok``: the KV equals the drained deltas
+    and 16 nodes drained; ``run_fused`` equals ``run``.
+21. ``counter_nemesis_device_kv``: benchmarks/fault_sweep.py's large-N
+    counter plan at 2^17 nodes over the device KV: allreduce with the
+    fault gate in ``union_block`` slabs and ``kv_amnesia``, to
+    convergence, then cas with seq-kv stale reads for 32 rounds; ``ok``:
+    the KV plus what is pending plus the deltas lost in amnesia rows is
+    the acknowledged sum, the store holds the KV, allreduce converges.
+21a. ``mesh_collectives``, ``mesh_tree_1m``, ``mesh_topologies``: the
     broadcast simulator on a 1-D mesh of 4 ranks, one process each, all
     on the one card, a gloo group whose payloads cross ranks through
-    host memory (``transport`` "gloo, host-staged"; one world runs the
-    three phases' rank sides, :func:`mesh_rank_work`).  The collectives
+    host memory (``transport`` "gloo, host-staged"; one world runs every
+    mesh phase's rank side, :func:`mesh_rank_work`, after the counter
+    phases, whose one-process runs the mesh_counter phase reads).  The collectives
     and the halo primitives each equal their twin on the stitched input,
     and a 1-rank NCCL world (in the smoke's own process) runs
     ``structured_sim("tree", 2^16, 32, mesh=)`` equal to the no-mesh run
@@ -173,19 +190,33 @@ bundles and repros under ``build/chip_smoke/``):
     multi-card figure.  Their launches are the ranks' own counts of the
     mesh runs (``launches_by_path``'s ``mesh``), never the parent's
     comparison runs.
-19. ``counter_1m_partitioned``: benchmarks/run_all.py's ``config3b``
-    (``_counter_bench`` at 2^20 nodes: allreduce, half the nodes off the
-    KV for rounds [0, 8) of 16); ``ok``: the KV and every read equal the
-    sum of the deltas.
-20. ``counter_16m_cas_wide``: ``config3c`` (2^24 nodes, cas, the wide
-    winner layout, 16 rounds); ``ok``: the KV equals the drained deltas
-    and 16 nodes drained; ``run_fused`` equals ``run``.
-21. ``counter_nemesis_device_kv``: benchmarks/fault_sweep.py's large-N
-    counter plan at 2^17 nodes over the device KV: allreduce with the
-    fault gate in ``union_block`` slabs and ``kv_amnesia``, to
-    convergence, then cas with seq-kv stale reads for 32 rounds; ``ok``:
-    the KV plus what is pending plus the deltas lost in amnesia rows is
-    the acknowledged sum, the store holds the KV, allreduce converges.
+21b. ``mesh_tree_1m_nemesis``, ``mesh_delays``, ``mesh_gather_nemesis``,
+    ``mesh_counter``: the faulted, delayed and counter paths on the same
+    4-rank world, each configuration one an earlier phase ran in one
+    process on the card and held against that run (rounds, ``msgs``,
+    ``srv_msgs``, the received set; the counter's kv, msgs, pending and
+    cached reads), each run's fixed trip timed (ms a round) with its
+    collective calls and launches a round a rank.
+    ``mesh_tree_1m_nemesis``: ``w1_tree_nemesis``'s plan on the 2^20-node
+    tree over the nemesis bundle's halo closures (``wm_fault_coins`` on
+    each rank's block of columns, ``tree_halo_pack`` /
+    ``tree_halo_round`` under the coin rows), with ``dir_delays`` (1, 3),
+    and ``w1_circulant_nemesis_accounted``'s loss-only plan under config
+    4c's window with the server ledger on; no all-gather a round.
+    ``mesh_delays``: config 4d's delays on the 2^20 circulant through
+    ``make_delayed``, ``make_edge_delayed`` and, under config 4c's window,
+    ``make_edge_delayed_faulted`` (their halo closures), and the gather
+    ring (``delays=``, the node-sharded ring's slots all-gathered) on
+    ``random_regular(2^16, 8, 0)``.  ``mesh_gather_nemesis``:
+    ``w1_random_regular_nemesis``'s plan through the faulted gather round
+    over the all-gathered payload and dup rows, materialized and in slabs
+    of 2^16 rows; beside the reference's census (2 all-gathers, 1
+    all-reduce a round).  ``mesh_counter``: ``counter_1m_partitioned``'s,
+    ``counter_16m_cas_wide``'s and both of
+    ``counter_nemesis_device_kv``'s configurations (the read pass's
+    partial form, then the all-reduces); all-reduces only; each timed
+    warm (its first run's wall kept apart) with rank 0's profile of
+    one more run.  Not a multi-card figure.
 22. ``ids_echo``: ``UniqueIdsSim`` at 2^20 nodes, 32 ids a node, 4
     rounds, every id distinct; ``EchoSim`` at (2^20, 4), ``msgs == 2
     valid``.
@@ -211,8 +242,8 @@ bundles and repros under ``build/chip_smoke/``):
     its CPU path and to the pull campaign.
 28. ``nemesis_tree_1m_provenance``: the main path's 4-ary tree at 2^20
     nodes under fault_sweep.py --structured's plan through
-    ``run_broadcast_nemesis`` on the gather path (D = 5, 32 values, sync
-    every 8), telemetry and provenance on, then off: both verdicts, the
+    ``run_broadcast_nemesis`` on the gather path (D = 5, 16 values, cut
+    from 32 for the time limit, sync every 8), telemetry and provenance on, then off: both verdicts, the
     provenance certificate, the first-delivery edges within the
     ledger, rounds / ``msgs`` / received equal; both walls, and the
     campaign's rounds as two fixed trips (observation off and on);
@@ -251,12 +282,14 @@ bundles and repros under ``build/chip_smoke/``):
     and ``counter_small_1dev``'s cas queueing curve (:132-140); each
     equal to the CPU path, the overlays' verdicts the CPU runner's.
 33. ``serving_tree_1m``: the main path under load, the 2^20-node 4-ary
-    tree words-major, 512 clients x 16 ops (W = 256), rate 0.25, 32
-    driven rounds, held against the card's node-major gather path on
+    tree words-major, 512 clients x 16 ops (W = 256), rate 0.25, 16
+    driven rounds (32 before the time limit's cut), held against the
+    card's node-major gather path on
     ``to_padded_neighbors(tree(n))`` at the same spec.
 34. ``txn_64k``: the JAX package's txn/fused-donated contract
     (gossip_glomers_tpu/tpu_sim/txn.py:535-540: 1,024 nodes, 256 keys, T
-    8, O 2, rate 0.5, until 24) at 65,536 nodes and 16,384 keys, stepped
+    8, O 2, rate 0.5, until 24) at 65,536 nodes and 16,384 keys, its
+    arrivals cut to rounds [0, 6) for the time limit, stepped
     until every offered transaction commits, equal to the port's CPU path
     after every round, certified by ``check_txn_serializable``; the
     rounds as a fixed trip timed (CUDA events, profiler, the plain
@@ -880,6 +913,13 @@ def check_masked(kernels, structured, topology, note, fr, seed: int,
 # the tree's branchings in the coin checks (k + 1 words a warp at k = 3
 # straddle, 32 a word a child in the masked exchange; 4 the main path's)
 COIN_BRANCHINGS = (1, 2, 3, 4, 32)
+# the mesh's shard counts whose blocks the coin check runs: at the main
+# shape's 2^20 nodes, 4 shards give the 2^18-column blocks of the
+# mesh_tree_1m_nemesis ranks
+COIN_BLOCK_SHARDS = (2, 4)
+# a node count whose 2- and 4-shard blocks (2054, 1027 columns) end
+# inside a word, so that block starts fall off the word grid
+COIN_BLOCK_NS = (4 * 1027,)
 
 
 def coin_dir_sets(structured, topology, n: int) -> list:
@@ -901,21 +941,43 @@ def check_coins(kernels, structured, topology, note, n: int, seed: int,
     materialized id rows (``kernels.coin_dir_rows``, the kernel's uint32
     ids also where no edge exists, so that random rows compare): every
     row mode, every stream of :data:`WM_STREAMS` (loss, dup, the ledger
-    mode), the live rows ``offset`` words into their allocation."""
+    mode), the live rows ``offset`` words into their allocation.  Then
+    the block form a mesh rank launches: for 2 and 4 shards that divide
+    n, each rank's block of b = n / shards columns (``col0 = r·b``,
+    ``n_ids = n``, the ids global) against the whole row's plain coins
+    cut to that block."""
     import torch
 
+    def cut(rows, lo, hi):
+        return at_offset(kernels.pack_bits(
+            kernels.unpack_bits(rows, n)[:, lo:hi].contiguous()), offset)
+
+    shards = [p for p in COIN_BLOCK_SHARDS if n % p == 0 and n >= p]
     for name, rows in coin_dir_sets(structured, topology, n):
         dirs = torch.from_numpy(rows).to(device)
         src, dst = kernels.coin_dir_rows(dirs, n)
         for mode in ROW_MODES:
             live = packed_rows(kernels, len(rows), n, mode, seed, device)
             lk = at_offset(live, offset)
+            blocks = [(n // p, r * (n // p), cut(live, r * (n // p),
+                                                 (r + 1) * (n // p)))
+                      for p in shards for r in range(p)]
             for loss, dup, srv in WM_STREAMS:
                 kw = dict(WM_COINS, loss=loss, dup=dup, srv=srv)
                 want = kernels.wm_fault_coins_plain(src, dst, live, **kw)
                 got = kernels.wm_fault_coins(dirs, n, lk, **kw)
                 note("wm_fault_coins", *(
                     (g, x) for g, x in zip(got, want) if x is not None))
+                for b, col0, lb in blocks:
+                    got = kernels.wm_fault_coins(dirs, b, lb, col0=col0,
+                                                 n_ids=n, **kw)
+                    if (got[1] is None) != (want[1] is None):
+                        raise AssertionError(
+                            f"wm_fault_coins' block form at {name}, col0 "
+                            f"{col0} of {n}: out1 is None on one side only")
+                    note("wm_fault_coins", *(
+                        (g, cut(x, col0, col0 + b))
+                        for g, x in zip(got, want) if x is not None))
 
 
 # tree_exchange's vector-path cases: n % 4 in {0, 1, 2, 3} (a row of the
@@ -1043,7 +1105,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
                          w + n + offset, offset)
     # the coins at every n of the shift edges and the shapes, once an n
     for n in sorted({n for _, n in shift_edges(kernels.SHIFT_TILE)
-                     + CHECK_SHAPES + MAIN_SHAPES}):
+                     + CHECK_SHAPES + MAIN_SHAPES} | set(COIN_BLOCK_NS)):
         for offset in (0, 1):
             check_coins(kernels, structured, topology, note, n, n + offset,
                         device, offset)
@@ -1167,7 +1229,7 @@ def _timed(name, kern, plain, bound_ms_by) -> dict:
     b_ms, b_by = bound_ms_by
     dev_ms = device_ms(kern, KERNELS[name][2], calls=10, attempts=6)
     return {"ms": cuda_ms(kern), "device_ms": dev_ms,
-            "plain_ms": cuda_ms(plain, inner=3), "bound_ms": b_ms,
+            "plain_ms": cuda_ms(plain, samples=3, inner=1), "bound_ms": b_ms,
             "bound_by": b_by,
             "bound_share": None if dev_ms is None else b_ms / dev_ms}
 
@@ -1863,6 +1925,7 @@ def nemesis_phases(modules, faults, topology, device,
         raise AssertionError("w1_random_regular_nemesis: GPU run differs "
                              "from the CPU path")
     rec["cpu_match"] = True
+    keep_run("random_regular_nemesis", nem, state)
     emit(rec)
     del nem, tr, state, fixed, cpu
     torch.cuda.empty_cache()
@@ -2063,6 +2126,7 @@ def structured_fault_phases(modules, faults, structured, kernels, topology,
                              "CPU path")
     rec.update({"msgs": int(state.msgs), "gather_rounds": rounds_g,
                 "cpu_match": True})
+    keep_run("tree_nemesis", nem, state)
     emit(rec)
     del nem, state, fixed, gsim, state_g, cpu, cpu_state
     torch.cuda.empty_cache()
@@ -2113,6 +2177,7 @@ def structured_fault_phases(modules, faults, structured, kernels, topology,
         raise AssertionError("w1_circulant_nemesis_accounted: GPU run "
                              "differs from the CPU path")
     rec.update({"gather_rounds": rounds_g, "cpu_match": True})
+    keep_run("circulant_nemesis_accounted", acct, state)
     emit(rec)
     del acct, state, gsim, state_g, cpu, cpu_state
     torch.cuda.empty_cache()
@@ -2220,6 +2285,8 @@ def delay_phases(modules, faults, structured, kernels, topology, device,
     for way, (sim, state) in runs.items():
         check_cpu(lambda dev, way=way: circ_sim(way, dev), sim, state,
                   inject)
+    keep_run("circulant_delayed", *runs["delayed"])
+    keep_run("circulant_edge_delayed", *runs["edge"])
     for way, (sim, state, _) in acct.items():
         check_cpu(lambda dev, way=way: circ_sim(way, dev, srv=True,
                                                   sync_every=16),
@@ -2254,6 +2321,7 @@ def delay_phases(modules, faults, structured, kernels, topology, device,
     check_cpu(lambda dev: part_sim("edge", dev), esim, estate, inject)
     check_cpu(lambda dev: part_sim("gather", dev), gsim, gstate, inject)
     rec["cpu_match"] = True
+    keep_run("circulant_edge_delayed_partitioned", esim, estate)
     emit(rec)
     del esim, gsim, gstate, estate
     torch.cuda.empty_cache()
@@ -2327,6 +2395,7 @@ def delay_phases(modules, faults, structured, kernels, topology, device,
                         "col_popcount", "gather_or", "fault_coins"))
     check_cpu(lambda dev: nem_sim(True, dev), nsim, nstate, inject)
     rec["cpu_match"] = True
+    keep_run("tree_nemesis_delayed", nsim, nstate)
     emit(rec)
     del gsim, gstate, nsim, nstate
     torch.cuda.empty_cache()
@@ -2360,6 +2429,12 @@ def small_floods(modules, device, launches: Launches) -> None:
 # the counter phases' node counts: run_all.py config3b's and config3c's,
 # fault_sweep.py's large-N counter row's, and the ids / echo phase's
 COUNTER_3B_NODES = 1 << 20
+# counter_nemesis_device_kv's two ways (fault_sweep.py's counter plan over
+# the device KV): allreduce with the gate in slabs and kv_amnesia, cas
+# with seq-kv stale reads
+COUNTER_NEMESIS_WAYS = {
+    "allreduce": dict(mode="allreduce", union_block=4096, kv_amnesia=True),
+    "cas": dict(mode="cas", stale_prob=0.1, stale_until=8)}
 COUNTER_3C_NODES = 1 << 24
 COUNTER_NEMESIS_NODES = 1 << 17
 IDS_ECHO_NODES = 1 << 20
@@ -2368,6 +2443,9 @@ IDS_ECHO_NODES = 1 << 20
 COUNTER_NS = (1, 31, (1 << 20) + 3, COUNTER_3C_NODES)
 # the seq-kv stale coin the checks draw: threshold 0.5, round 3, seed 5
 COUNTER_STALE = {"stale_num": 1 << 31, "stale_seed": 5, "t": 3}
+# the partial form's checked block offset: a mesh rank's first row past
+# 2^22 (the wide key's low word and the stale coin take global rows)
+COUNTER_PARTIAL_ROW0 = (1 << 22) + 5
 
 
 def counter_case(n: int, seed: int, device, gate: bool):
@@ -2442,6 +2520,26 @@ def check_counter(kernels, note, device) -> None:
                         kernels.counter_apply(*into, views[2], kv_k, wk,
                                               out=into, **akw)
                         note("counter_apply", *zip(into, want))
+                    # the partial form over a mesh block of global rows
+                    # row0 .. (the read pass) and the update pass there
+                    row0 = COUNTER_PARTIAL_ROW0
+                    pkw = dict(kw, row_bits=max(row_bits, (row0 + n - 1)
+                                                .bit_length()))
+                    if pkw["row_bits"] <= 23 or wide or not cas:
+                        pk = kernels.counter_select(
+                            *views, kv0, msgs, wk, row0=row0, partial=True,
+                            **pkw)
+                        pp = kernels.counter_select_plain(
+                            pending, cached, gates, kv0, msgs, wp,
+                            row0=row0, partial=True, **pkw)
+                        note("counter_select", (pk, pp), (wk, wp))
+                        wk[3] = wp[3] = row0 + (n // 2)
+                        akw = dict(cas=cas, poll=poll, row0=row0,
+                                   **(COUNTER_STALE if cas else {}))
+                        note("counter_apply", *zip(
+                            kernels.counter_apply(*views, kv_k, wk, **akw),
+                            kernels.counter_apply_plain(
+                                pending, cached, gates, kv_p, wp, **akw)))
                     del case, views, got, want, into
             torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2498,6 +2596,25 @@ def time_counter(kernels, device, out) -> None:
             out[name][(1, n)]["bound_rate"] = "L2" if resident else "HBM"
         del pending, cached, gate, kv, kv_p
         torch.cuda.empty_cache()
+    # the read pass's partial form on the mesh's block of config3c's 2^24
+    # nodes over 4 ranks (rank 3's rows): the same bytes and hash as the
+    # full form, its three words written instead of the finish
+    n = COUNTER_3C_NODES // MESH_RANKS
+    pending, cached, _, kv0, msgs = counter_case(n, 5, device, False)
+    kw = dict(cas=True, wide=True, row_bits=24, t=4, seed=0, poll=True,
+              row0=3 * n, partial=True)
+    wk, wp = kernels.counter_work(device), kernels.counter_work(device)
+    rate = L2_BYTES_PER_S if 16 * n <= L2_BYTES else HBM_BYTES_PER_S
+    out["counter_select_partial"] = {(1, n): dict(_timed(
+        "counter_select",
+        lambda: kernels.counter_select(pending, cached, None, kv0, msgs, wk,
+                                       **kw),
+        lambda: kernels.counter_select_plain(pending, cached, None, kv0,
+                                             msgs, wp, **kw),
+        bound(8 * n, 14 * n, rate)), mode="cas-wide partial, row0 3 n",
+        bound_rate="L2" if rate == L2_BYTES_PER_S else "HBM")}
+    del pending, cached
+    torch.cuda.empty_cache()
 
 
 COUNTER_EXPECT = ("counter_select", "counter_apply")
@@ -2587,6 +2704,7 @@ def counter_phases(counter, faults, kernels, device, launches: Launches,
         raise AssertionError(f"counter_1m_partitioned: ok {ok}, or the GPU "
                              "run differs from the CPU path")
     rec["cpu_match"] = True
+    keep_counter("counter_1m_partitioned", sim, st)
     emit(rec)
     del sim, st0, st, cpu
     torch.cuda.empty_cache()
@@ -2623,6 +2741,7 @@ def counter_phases(counter, faults, kernels, device, launches: Launches,
         raise AssertionError(f"counter_16m_cas_wide: ok {ok}, or the GPU "
                              "run differs from run_fused or the CPU path")
     rec["cpu_match"] = True
+    keep_counter("counter_16m_cas_wide", sim, st)
     emit(rec)
     del sim, st0, st, cpu
     torch.cuda.empty_cache()
@@ -2636,10 +2755,7 @@ def counter_phases(counter, faults, kernels, device, launches: Launches,
     deltas = np.random.default_rng(0).integers(0, 10, n).astype(np.int32)
     acked = int(deltas.sum())
     members = torch.from_numpy(spec.host_members(clear)).to(device)
-    ways = {
-        "allreduce": dict(mode="allreduce", union_block=4096,
-                          kv_amnesia=True),
-        "cas": dict(mode="cas", stale_prob=0.1, stale_until=8)}
+    ways = COUNTER_NEMESIS_WAYS
     launches.start()
     rec = {"phase": "counter_nemesis_device_kv", "card": card, "n": n,
            "spec": {"crash": [[s, e, len(ns)] for s, e, ns in spec.crash],
@@ -2682,6 +2798,7 @@ def counter_phases(counter, faults, kernels, device, launches: Launches,
              **counter_timed(sim, kernels, st0, state.t)}
         rec["ways"][way] = r
         finals[way] = (make, state)
+        keep_counter(f"counter_nemesis_device_kv_{way}", sim, state)
         if not ok:
             raise AssertionError(f"counter_nemesis_device_kv {way}: {r}")
         del sim, st0
@@ -3857,13 +3974,20 @@ def time_prov(kernels, case: dict) -> dict:
             "library_ms": None, **work}
 
 
+# the provenance campaign's values: 16, cut from the main path's 32 for
+# the smoke's time limit (depth: the host certificate walks every (node,
+# value) cell, 2^24 of them)
+PROV_VALUES = 16
+
+
 def tree_prov_sim(broadcast, topology, faults, n: int, device):
     """The provenance campaign's sim: the 4-ary tree through the gather
-    path (D = 5) under :func:`tree_nemesis_spec`, 32 values, sync waves
-    every 8 rounds, as harness/nemesis.py builds it."""
+    path (D = 5) under :func:`tree_nemesis_spec`, :data:`PROV_VALUES`
+    values, sync waves every 8 rounds, as harness/nemesis.py builds
+    it."""
     nbrs = topology.to_padded_neighbors(topology.tree(n, branching=BRANCHING))
     return broadcast.BroadcastSim(
-        nbrs, n_values=W1_VALUES, sync_every=8, srv_ledger=False,
+        nbrs, n_values=PROV_VALUES, sync_every=8, srv_ledger=False,
         fault_plan=tree_nemesis_spec(faults, n).compile(device),
         device=device)
 
@@ -3872,7 +3996,7 @@ def nemesis_tree_1m_provenance(modules, device, launches: Launches,
                                card: str, times: dict) -> None:
     """The main path's topology under fault_sweep.py --structured's plan
     (:func:`tree_nemesis_spec`) through the port's
-    ``run_broadcast_nemesis(n_values=32, topology="tree", sync_every=8)``
+    ``run_broadcast_nemesis(n_values=16, topology="tree", sync_every=8)``
     on the gather path at 2^20 nodes, with telemetry and provenance on,
     then with observation off.  ``ok``: both verdicts, the provenance
     certificate, the tree's first-delivery edges within ``msgs_total``,
@@ -3887,11 +4011,12 @@ def nemesis_tree_1m_provenance(modules, device, launches: Launches,
     from gossip_glomers_tpu_torch.tpu_sim import provenance as PV
     n = N_NODES
     rec = {"phase": "nemesis_tree_1m_provenance", "card": card, "n": n,
-           "n_values": W1_VALUES, "degree": BRANCHING + 1, "sync_every": 8,
+           "n_values": PROV_VALUES, "degree": BRANCHING + 1,
+           "sync_every": 8,
            "crash": [2, 16, "range(0, n, 97)"], "loss_rate": 0.1,
            "dup_rate": 0.05, "until": 17}
     spec = tree_nemesis_spec(faults, n)
-    kw = dict(n_values=W1_VALUES, topology="tree", sync_every=8,
+    kw = dict(n_values=PROV_VALUES, topology="tree", sync_every=8,
               device=device)
     launches.start()
     before = dict(kernels.LAUNCHES)
@@ -3907,7 +4032,7 @@ def nemesis_tree_1m_provenance(modules, device, launches: Launches,
     # the campaign's rounds as fixed trips, observation off and on: the
     # device side of provenance's cost and the received sets
     sim = tree_prov_sim(broadcast, topology, faults, n, device)
-    inject = broadcast.make_inject(n, W1_VALUES)
+    inject = broadcast.make_inject(n, PROV_VALUES)
     psp = PV.ProvenanceSpec("broadcast")
     def trip_off():
         state0 = sim.init_state(inject)
@@ -3943,7 +4068,7 @@ def nemesis_tree_1m_provenance(modules, device, launches: Launches,
         trip_idle_share_observed=idle_share(busy_on, ms_on),
         trip_idle_share_plain=idle_share(busy_off, ms_off),
         trip_spans_observed=spans_on, trip_spans_plain=spans_off,
-        stamp_bytes=2 * n * W1_VALUES * 4,
+        stamp_bytes=2 * n * PROV_VALUES * 4,
         off_rounds=off["converged_round"], off_msgs=off["msgs_total"],
         same_received=same_received)
     rec["ok"] = bool(on["ok"] and off["ok"] and rec["provenance_ok"]
@@ -4203,10 +4328,11 @@ CAS_CURVE_TRAFFIC = dict(n_nodes=SERVING_SMALL, n_clients=SERVING_SMALL,
                          ops_per_client=4, until=96, rate=0.001, seed=103)
 CAS_CURVE_RATES = tuple(r / SERVING_SMALL for r in (0.5, 1.0, 2.0))
 # the main path under load: the 2^20-node 4-ary tree, words-major, 512
-# clients x 16 ops (8,192 values, W = 256), the expected arrivals half
-# the op slots
+# clients x 16 ops (8,192 values, W = 256), arrivals over rounds [0, 16)
+# (depth: cut from 32 for the smoke's time limit), the expected arrivals
+# a quarter of the op slots
 SERVING_TREE = dict(n_nodes=SERVING_TREE_NODES, n_clients=512,
-                    ops_per_client=16, until=32, rate=0.25, seed=101)
+                    ops_per_client=16, until=16, rate=0.25, seed=101)
 
 
 def and_fold_shape(kind: str, tkw: dict, rate_max: float,
@@ -4812,15 +4938,20 @@ TXN_ACTIVE = ("all", "none", "random")
 TXN_CHECK_SLOTS = 3
 # txn_64k: the JAX package's own txn/fused-donated contract
 # (gossip_glomers_tpu/tpu_sim/txn.py:535-540: 1,024 nodes, 256 keys, T 8,
-# O 2, rate 0.5, until 24) at 65,536 nodes, the same key ratio
+# O 2, rate 0.5, until 24) at 65,536 nodes, the same key ratio, its
+# arrivals cut to rounds [0, 6) (depth, for the smoke's time limit: the
+# host certificate and the CPU twin scale with the transactions offered)
 TXN_NODES = 1 << 16
 TXN_KEYS = TXN_NODES // 4
-TXN_T, TXN_O, TXN_RATE, TXN_UNTIL = 8, 2, 0.5, 24
+TXN_T, TXN_O, TXN_RATE, TXN_UNTIL = 8, 2, 0.5, 6
 # the txn_64k round whose kernel inputs are captured, checked and timed
 TXN_CAPTURE_ROUND = 4
-# txn_nemesis_64k's recovery budget, from the port's CPU run at this size:
-# the campaign drains its backlog 238 rounds past its clear round (PERF.md)
-TXN_MAX_RECOVERY = 256
+# the rounds past the arrivals' end (txn_64k) or the clear round
+# (txn_nemesis_64k) that the backlog may take to drain, from the runs at
+# this size, whose rounds equal the port's CPU path's: txn_64k drains 99
+# rounds past round 6, txn_nemesis_64k converges 82 past its clear round
+# 16 (PERF.md); the larger with 6% over it
+TXN_MAX_RECOVERY = 106
 TXN_EXPECT = ("txn_claim", "txn_commit")
 
 
@@ -5127,7 +5258,7 @@ def txn_capture(kernels, rnd: int):
 def txn_64k(txn, checkers, kernels, device, launches: Launches, card: str,
             times: dict) -> None:
     """The JAX package's txn/fused-donated contract (txn.py:535-540) at
-    65,536 nodes and 16,384 keys, T 8, O 2, rate 0.5, until 24,
+    65,536 nodes and 16,384 keys, T 8, O 2, rate 0.5, until 6,
     ``workload_seed=0``: stepped to convergence (every offered transaction
     committed, at or past ``until``), equal to the port's CPU path after
     every round; the history certified by ``check_txn_serializable``; the
@@ -5253,7 +5384,7 @@ def txn_campaign_twin(txn, htxn, spec, kv_amnesia: bool, result: dict):
 def txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
                     launches: Launches, card: str) -> None:
     """``run_txn_nemesis`` at 65,536 nodes, 16,384 keys, T 8, O 2 (rate
-    0.5, until 24) under :func:`txn_nemesis_spec`, three ways: the plain
+    0.5, until 6) under :func:`txn_nemesis_spec`, three ways: the plain
     campaign (``ok``, serializable, no lost write); ``kv_amnesia`` with
     the owner of key 0 crashed (must fail, naming lost updates with their
     transaction ids, and write its flight bundle into a temporary
@@ -7003,12 +7134,327 @@ def _mesh_topo_rank(mesh) -> dict:
     return out
 
 
-def mesh_rank_work(mesh, seed: int) -> dict:
-    """The rank side of every mesh phase, in one world."""
+# -- the faulted, delayed and counter paths on the mesh ----------------------
+#
+# Each configuration below is one an earlier phase ran in one process on
+# the card (kept in ONE_PROCESS by that phase); the ranks run it over the
+# halo closures (or the gather path's all-gathers) and the parent holds
+# every rank's rounds, ledgers and rank 0's gathered state against it.
+
+# the one-process card runs the mesh phases are held against, kept by the
+# phases that ran them
+ONE_PROCESS: dict = {}
+# the kernels the new mesh paths launch on the ranks: each must show in
+# the mesh bucket of its launches_by_path
+MESH_PATH_KERNELS = ("wm_fault_coins", "tree_halo_pack", "tree_halo_round",
+                     "fault_coins", "faulted_gather_round", "gather_or",
+                     "counter_select", "counter_apply")
+# the gather ring's graph on the mesh: config 4b's law at 2^16 nodes
+MESH_RING_NODES = 1 << 16
+
+
+def keep_run(name: str, sim, state) -> None:
+    ONE_PROCESS[name] = {"rounds": state.t, "msgs": int(state.msgs),
+                         "srv": (None if state.srv_msgs is None
+                                 else int(state.srv_msgs)),
+                         "received": sim.received_node_major(state)}
+
+
+def keep_counter(name: str, sim, state) -> None:
+    ONE_PROCESS[name] = {
+        "rounds": state.t, "kv": int(state.kv), "msgs": int(state.msgs),
+        "pending": state.pending.cpu().numpy(), "cached": sim.reads(state),
+        "vals": None if state.rows is None else state.rows.vals.cpu()
+        .numpy()}
+
+
+def _mesh_run(mesh, sim, inject, rounds: int) -> dict:
+    """One broadcast configuration on the ranks, for the ``rounds`` its
+    one-process card run took to converge: the fixed trip of ``rounds -
+    1`` rounds timed (its launches and collective calls counted), not
+    converged there, then one more round, converged: so the mesh run
+    converges in exactly ``rounds``.  Its ledgers and the gathered
+    received set (which rank 0 keeps) come back."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import kernels
+
+    state0, target = sim.stage(inject)
+    mesh.agree(True)                    # start the ranks' clocks together
+    kernels.reset_launches()
+    before = dict(mesh.calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sim.run_staged_fixed(state0, rounds - 1, donate=True)
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0, "trip_rounds": rounds - 1,
+           "launches": dict(kernels.LAUNCHES),
+           "calls": _calls_delta(mesh, before)}
+    early = sim.converged(state, target)
+    state = sim.step(state)
+    out.update({"rounds": state.t if sim.converged(state, target) and not
+                early else None, "msgs": int(state.msgs),
+                "srv": (None if state.srv_msgs is None
+                        else int(state.srv_msgs)),
+                "received": sim.received_node_major(state)})
+    if mesh.rank:
+        out["received"] = None          # rank 0 brings the set back
+    return out
+
+
+def _mesh_nemesis_rank(mesh, rounds: dict) -> dict:
+    """mesh_tree_1m_nemesis's rank side: w1_tree_nemesis's plan on the
+    2^20-node tree, then with dir_delays (1, 3), then the loss-only
+    accounted circulant under config 4c's window, each over the bundle's
+    halo closures."""
+    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, faults,
+                                                  structured)
+
+    n, dev, k = N_NODES, str(mesh.device), mesh.size
+    inject = broadcast.make_inject(n, W1_VALUES)
+    spec = tree_nemesis_spec(faults, n)
+    tree_nbrs = topology.to_padded_neighbors(topology.tree(n, BRANCHING))
+    out = {}
+    for name, dd in (("tree_nemesis", None), ("tree_nemesis_delayed",
+                                              (1, 3))):
+        sim = broadcast.BroadcastSim(
+            tree_nbrs, n_values=W1_VALUES, sync_every=8, srv_ledger=False,
+            fault_plan=spec.compile(dev),
+            exchange=structured.make_exchange("tree", n),
+            nemesis=structured.make_nemesis("tree", n, spec, dir_delays=dd,
+                                            n_shards=k, device=dev),
+            mesh=mesh)
+        out[name] = dict(_mesh_run(mesh, sim, inject, rounds[name]),
+                         halo=sim._halo)
+        del sim
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    parts, group = config4c_parts(broadcast, n)
+    spec = loss_only_spec(faults, n)
+    sim = broadcast.BroadcastSim(
+        topology.circulant(n, strides), n_values=W1_VALUES, sync_every=16,
+        parts=parts.to(dev), fault_plan=spec.compile(dev),
+        exchange=structured.make_exchange("circulant", n, strides=strides),
+        nemesis=structured.make_nemesis("circulant", n, spec, groups=group,
+                                        n_shards=k, device=dev,
+                                        strides=strides), mesh=mesh)
+    out["circulant_nemesis_accounted"] = dict(
+        _mesh_run(mesh, sim, inject, rounds["circulant_nemesis_accounted"]),
+        halo=sim._halo)
+    return out
+
+
+def ring_delays(nbrs):
+    """config4d's law over an (N, D) table: ``default_rng(11).choice([1,
+    3], p=[0.7, 0.3])`` an edge (pad slots drawn too, never read)."""
+    import numpy as np
+
+    return np.random.default_rng(11).choice(
+        [1, 3], nbrs.shape, p=[0.7, 0.3]).astype(np.int32)
+
+
+def ring_sim(broadcast, topology, mesh=None, device=None):
+    """mesh_delays' gather ring: config 4d's law on random_regular(2^16,
+    8, 0), the server ledger on, sync waves every 16 rounds."""
+    nbrs = topology.random_regular(MESH_RING_NODES, DEGREE, seed=0)
+    return broadcast.BroadcastSim(
+        nbrs, n_values=W1_VALUES, sync_every=16, delays=ring_delays(nbrs),
+        mesh=mesh, device=device)
+
+
+def _mesh_delays_rank(mesh, rounds: dict) -> dict:
+    """mesh_delays' rank side: config 4d's per-edge delays on the 2^20
+    circulant through make_delayed, make_edge_delayed and, under config
+    4c's window, make_edge_delayed_faulted (their halo closures); the
+    gather ring on the 2^16-node random regular graph."""
+    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.tpu_sim import broadcast, structured
+
+    n, k = N_NODES, mesh.size
+    inject = broadcast.make_inject(n, W1_VALUES)
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    circ, ckw = topology.circulant(n, strides), {"strides": strides}
+    rows, rng = delay_rows(2 * len(strides), n)
+    dd = tuple(int(x) for x in
+               rng.choice([1, 3], size=2 * len(strides), p=[0.7, 0.3]))
+    ex = structured.make_exchange("circulant", n, **ckw)
+    kw = dict(n_values=W1_VALUES, sync_every=1 << 20, srv_ledger=False,
+              exchange=ex, mesh=mesh)
+    out = {}
+    sim = broadcast.BroadcastSim(circ, delayed=structured.make_delayed(
+        "circulant", n, dd, n_shards=k, **ckw), **kw)
+    out["circulant_delayed"] = _mesh_run(mesh, sim, inject,
+                                         rounds["circulant_delayed"])
+    sim = broadcast.BroadcastSim(circ, edge_delayed=structured
+                                 .make_edge_delayed("circulant", n, rows,
+                                                    n_shards=k, **ckw), **kw)
+    out["circulant_edge_delayed"] = _mesh_run(
+        mesh, sim, inject, rounds["circulant_edge_delayed"])
+    parts, group = config4c_parts(broadcast, n)
+    sim = broadcast.BroadcastSim(
+        circ, n_values=W1_VALUES, sync_every=16, parts=parts.to(
+            mesh.device), exchange=ex,
+        edge_delayed=structured.make_edge_delayed_faulted(
+            "circulant", n, rows, group, n_shards=k, **ckw), mesh=mesh)
+    out["circulant_edge_delayed_partitioned"] = _mesh_run(
+        mesh, sim, inject, rounds["circulant_edge_delayed_partitioned"])
+    del sim
+    out["ring"] = _mesh_run(mesh, ring_sim(broadcast, topology, mesh),
+                            broadcast.make_inject(MESH_RING_NODES,
+                                                  W1_VALUES),
+                            rounds["ring"])
+    return out
+
+
+def _mesh_gather_rank(mesh, rounds: dict) -> dict:
+    """mesh_gather_nemesis' rank side: w1_random_regular_nemesis's plan
+    on random_regular(2^20, 8, 0), materialized and in slabs of 2^16
+    rows."""
+    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.tpu_sim import broadcast, faults
+
+    n = N_NODES
+    nbrs = topology.random_regular(n, DEGREE, seed=0)
+    spec = nemesis_spec(faults, n, dup=True)
+    inject = broadcast.make_inject(n, W1_VALUES)
+    out = {}
+    for ub in ("materialized", 1 << 16):
+        sim = broadcast.BroadcastSim(
+            nbrs, n_values=W1_VALUES, sync_every=4, srv_ledger=False,
+            fault_plan=spec.compile(str(mesh.device)), union_block=ub,
+            mesh=mesh)
+        out[str(ub)] = dict(_mesh_run(
+            mesh, sim, inject, rounds["random_regular_nemesis"]),
+            block=sim._ub)
+        del sim
+    return out
+
+
+def _rank0_profile(mesh, run, rounds: int, k: int = 8) -> dict | None:
+    """Rank 0's torch.profiler view of one more ``run()`` of ``rounds``
+    rounds, which every rank makes (its collectives need them all; only
+    rank 0 profiles, so only its process is slowed): the wall, the
+    device's busy time and spans, the ``k`` device span kinds
+    (:func:`top_spans`) and host operations (by self CPU time: [name, ms
+    a round, calls a round]) that took the most, each a round.  None on
+    the other ranks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh.agree(True)
+    torch.cuda.synchronize()
+    if mesh.rank:
+        run()
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [{"name": e.name, "us": e.time_range.end - e.time_range.start}
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {"wall_ms_per_round": wall * 1e3 / rounds,
+            "device_busy_ms_per_round": sum(x["us"] for x in dev)
+            / 1e3 / rounds,
+            "device_spans_per_round": len(dev) / rounds,
+            "top_device": top_spans(dev, rounds, k),
+            "top_host": [[a.key[:90], a.self_cpu_time_total / 1e3 / rounds,
+                          a.count / rounds] for a in host[:k]]}
+
+
+def _counter_run(mesh, sim, state0, rounds: int) -> dict:
+    """One counter configuration on the ranks: ``rounds`` rounds from
+    ``state0`` (``run`` leaves it whole) three times.  The first gives
+    the gathered state and its wall (``cold_wall_s``: it carries each
+    rank process's first launches of the configuration's torch kernels,
+    which cost seconds with four processes on one card); the second is
+    timed with its launches and collective calls counted; rank 0
+    profiles the third (:func:`_rank0_profile`)."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import kernels
+
+    def timed():
+        mesh.agree(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sim.run(state0, rounds)
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    st, cold = timed()
+    kernels.reset_launches()
+    before = dict(mesh.calls)
+    _, wall = timed()
+    out = {"wall_s": wall, "cold_wall_s": cold,
+           "launches": dict(kernels.LAUNCHES),
+           "calls": _calls_delta(mesh, before), "rounds": st.t,
+           "kv": int(st.kv), "msgs": int(st.msgs),
+           "pending": mesh.all_gather(st.pending).cpu().numpy(),
+           "cached": sim.reads(st),
+           "vals": None if st.rows is None else mesh.all_gather(
+               st.rows.vals).cpu().numpy(),
+           "profile": _rank0_profile(mesh, lambda: sim.run(state0, rounds),
+                                     rounds)}
+    if mesh.rank:
+        out.update(pending=None, cached=None, vals=None)
+    return out
+
+
+def _mesh_counter_rank(mesh, rounds: dict) -> dict:
+    """mesh_counter's rank side: counter_1m_partitioned's,
+    counter_16m_cas_wide's and counter_nemesis_device_kv's
+    configurations, each for the rounds its one-process run took."""
+    import numpy as np
+
+    from gossip_glomers_tpu_torch.tpu_sim import counter, faults
+
+    out = {}
+    n = COUNTER_3B_NODES
+    deltas = np.random.default_rng(0).integers(0, 10, n).astype(np.int32)
+    blocked = np.zeros((1, n), bool)
+    blocked[0, : n // 2] = True
+    sim = counter.CounterSim(
+        n, mode="allreduce", poll_every=2, mesh=mesh,
+        kv_sched=counter.KVReach.from_numpy([0], [8], blocked))
+    out["counter_1m_partitioned"] = _counter_run(
+        mesh, sim, sim.add(sim.init_state(), deltas),
+        rounds["counter_1m_partitioned"])
+    n = COUNTER_3C_NODES
+    deltas = np.random.default_rng(0).integers(1, 10, n).astype(np.int32)
+    sim = counter.CounterSim(n, mode="cas", poll_every=4, mesh=mesh)
+    out["counter_16m_cas_wide"] = dict(_counter_run(
+        mesh, sim, sim.add(sim.init_state(), deltas),
+        rounds["counter_16m_cas_wide"]), wide=sim._wide)
+    del sim, deltas
+    n = COUNTER_NEMESIS_NODES
+    spec = counter_nemesis_spec(faults, n)
+    deltas = np.random.default_rng(0).integers(0, 10, n).astype(np.int32)
+    for way, kw in COUNTER_NEMESIS_WAYS.items():
+        sim = counter.CounterSim(n, poll_every=2, kv_backend="device",
+                                 fault_plan=spec.compile(str(mesh.device)),
+                                 mesh=mesh, **kw)
+        name = f"counter_nemesis_device_kv_{way}"
+        out[name] = _counter_run(mesh, sim, sim.add(sim.init_state(),
+                                                    deltas), rounds[name])
+    return out
+
+
+def mesh_rank_work(mesh, seed: int, rounds: dict) -> dict:
+    """The rank side of every mesh phase, in one world; ``rounds``: each
+    kept one-process run's rounds (:data:`ONE_PROCESS`)."""
     return {"transport": mesh.transport, "rank": mesh.rank,
             "collectives": _mesh_collectives_rank(mesh, seed),
             "tree_1m": _mesh_tree_rank(mesh),
-            "topologies": _mesh_topo_rank(mesh)}
+            "topologies": _mesh_topo_rank(mesh),
+            "nemesis": _mesh_nemesis_rank(mesh, rounds),
+            "delays": _mesh_delays_rank(mesh, rounds),
+            "gather": _mesh_gather_rank(mesh, rounds),
+            "counter": _mesh_counter_rank(mesh, rounds)}
 
 
 def nccl_rank_work(mesh) -> dict:
@@ -7068,9 +7514,14 @@ def mesh_phases(modules, device, launches: Launches, card: str,
 
     broadcast, timing, topology, dcn_worker = modules
     t0 = time.perf_counter()
+    one = ring_sim(broadcast, topology, device=device)
+    st, _ = one.run_fused(broadcast.make_inject(MESH_RING_NODES, W1_VALUES))
+    keep_run("ring", one, st)
+    del one, st
+    rounds = {name: run["rounds"] for name, run in ONE_PROCESS.items()}
     ranks = dcn_worker.spawn_world(mesh_rank_work, MESH_RANKS,
                                    backend="gloo", device=device,
-                                   args=(MESH_SEED,),
+                                   args=(MESH_SEED, rounds),
                                    timeout=MESH_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     transport = ranks[0]["transport"]
@@ -7204,6 +7655,140 @@ def mesh_phases(modules, device, launches: Launches, card: str,
     rec["equals_one_process_card_run"] = True
     emit(rec)
     torch.cuda.empty_cache()
+    mesh_fault_phases(ranks, (broadcast, topology), device, launches, card,
+                      transport)
+
+
+MESH_LABEL = ("4 ranks on one card over host-staged gloo; not a multi-card "
+              "figure")
+
+
+def _held(phase: str, name: str, runs: list, want: dict,
+          fields=("rounds", "msgs", "srv")) -> dict:
+    """Every rank's run of ``name`` against the one-process card run
+    ``want``: the fields on every rank, the state arrays on rank 0 (which
+    brings them back), the fixed trip equal to the converged run.
+    Returns rank 0's record of it: rounds, ms a round, collective calls
+    and launches a round a rank."""
+    import numpy as np
+
+    for r, x in enumerate(runs):
+        got = {f: x[f] for f in fields}
+        exp = {f: want[f] for f in fields}
+        if got != exp:
+            raise AssertionError(f"{phase} {name}: rank {r} {got} vs the "
+                                 f"one-process card run {exp}")
+    for f in ("received", "pending", "cached", "vals"):
+        if want.get(f) is not None and not np.array_equal(runs[0][f],
+                                                          want[f]):
+            raise AssertionError(f"{phase} {name}: {f} differs from the "
+                                 "one-process card run")
+    x = runs[0]
+    rounds = max(1, x.get("trip_rounds", x["rounds"]))
+    walls = [y["wall_s"] for y in runs]
+    return {**{f: x[f] for f in fields if f in x},
+            "timed_rounds": rounds, "wall_ms": max(walls) * 1e3,
+            "ms_per_round": max(walls) * 1e3 / rounds,
+            "collective_calls_per_round": _per_round(x["calls"], rounds),
+            "launches_per_round_rank0": _per_round(x["launches"], rounds),
+            "equals_one_process_card_run": True}
+
+
+def mesh_fault_phases(ranks: list, modules, device, launches: Launches,
+                      card: str, transport: str) -> None:
+    """mesh_tree_1m_nemesis, mesh_delays, mesh_gather_nemesis and
+    mesh_counter (module docstring): the ranks' runs of configurations
+    earlier phases ran in one process on the card (ONE_PROCESS; the
+    gather ring's is made by :func:`mesh_phases`), held against those
+    runs."""
+    import torch
+
+    broadcast, topology = modules
+    head = {"ranks": MESH_RANKS, "transport": transport, "device": card,
+            "label": MESH_LABEL}
+
+    def phase(name: str, part: str, runs: dict, expect, extra=None):
+        rec = {"phase": name, **head, "runs": {}}
+        counts = []
+        for key, want in runs.items():
+            per = [r[part][key] for r in ranks]
+            rec["runs"][key] = _held(name, key, per, want, *(
+                () if extra is None else (extra,)))
+            counts += [x["launches"] for x in per]
+        launches.add_ranks(rec, counts, expect)
+        rec["ok"] = True
+        return rec
+
+    # -- mesh_tree_1m_nemesis: the main path's tree under the nemesis ---
+    rec = phase("mesh_tree_1m_nemesis", "nemesis", {
+        k: ONE_PROCESS[k] for k in ("tree_nemesis", "tree_nemesis_delayed",
+                                    "circulant_nemesis_accounted")},
+        ("wm_fault_coins", "tree_halo_pack", "tree_halo_round"))
+    for k, run in rec["runs"].items():
+        run["halo"] = ranks[0]["nemesis"][k]["halo"]
+        if not run["halo"] or run["collective_calls_per_round"].get(
+                "all_gather"):
+            raise AssertionError(f"mesh_tree_1m_nemesis {k}: not the halo "
+                                 "path, or an all-gather a round")
+    rec.update({"n": N_NODES, "n_values": W1_VALUES, "block":
+                N_NODES // MESH_RANKS,
+                "census_reference": {"broadcast/sharded-step-halo-wm-nem":
+                                     {"collective-permute": 25,
+                                      "all-reduce": 1}}})
+    emit(rec)
+
+    # -- mesh_delays ------------------------------------------------------
+    rec = phase("mesh_delays", "delays", {
+        k: ONE_PROCESS[k] for k in ("circulant_delayed",
+                                    "circulant_edge_delayed",
+                                    "circulant_edge_delayed_partitioned",
+                                    "ring")},
+        ("gather_or",))
+    rec.update({"n": N_NODES, "ring_nodes": MESH_RING_NODES,
+                "delay_values": [1, 3]})
+    emit(rec)
+
+    # -- mesh_gather_nemesis ----------------------------------------------
+    want = ONE_PROCESS["random_regular_nemesis"]
+    rec = phase("mesh_gather_nemesis", "gather",
+                {"materialized": want, str(1 << 16): want},
+                ("fault_coins", "faulted_gather_round"))
+    rec.update({"n": N_NODES, "degree": DEGREE,
+                "blocks": {k: ranks[0]["gather"][k]["block"]
+                           for k in rec["runs"]},
+                "census_reference": {"broadcast/sharded-step-gather-nem":
+                                     {"all-gather": 2, "all-reduce": 1}}})
+    for k, run in rec["runs"].items():
+        if run["collective_calls_per_round"].get("ppermute"):
+            raise AssertionError(f"mesh_gather_nemesis {k}: a ppermute")
+    emit(rec)
+
+    # -- mesh_counter -----------------------------------------------------
+    names = [k for k in ONE_PROCESS if k.startswith("counter")]
+    rec = phase("mesh_counter", "counter", {k: ONE_PROCESS[k]
+                                            for k in names},
+                ("counter_select", "counter_apply"),
+                ("rounds", "kv", "msgs"))
+    for k, run in rec["runs"].items():
+        run["rank0_profile"] = ranks[0]["counter"][k]["profile"]
+        run["cold_wall_ms"] = max(r["counter"][k]["cold_wall_s"]
+                                  for r in ranks) * 1e3
+        calls = run["collective_calls_per_round"]
+        if set(calls) - {"all_reduce"}:
+            raise AssertionError(f"mesh_counter {k}: {calls}, not "
+                                 "all-reduces only")
+    if not ranks[0]["counter"]["counter_16m_cas_wide"]["wide"]:
+        raise AssertionError("mesh_counter: 2^24 nodes must take the wide "
+                             "winner key")
+    rec["census_reference"] = {"counter/sharded-step-wide":
+                               {"all-reduce": 5},
+                               "kvstore/sharded-cas-step":
+                               {"all-reduce": 1}}
+    emit(rec)
+    for name in MESH_PATH_KERNELS:
+        if not launches.split(name)["mesh"]:
+            raise AssertionError(f"{name}: no launch in the mesh bucket")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -7316,9 +7901,9 @@ def main() -> int:
     delay_phases(modules, faults, structured, kernels, topology, device,
                  launches)
     small_floods(modules, device, launches)
+    counter_phases(counter, faults, kernels, device, launches, smi)
     mesh_phases((broadcast, timing, topology, dcn_worker), device,
                 launches, smi, times)
-    counter_phases(counter, faults, kernels, device, launches, smi)
     ids_echo(unique_ids, echo, device, launches, smi)
     kafka_phases(kafka, nemesis, faults, kernels, device, launches, smi)
     nemesis_tree_1m_provenance((broadcast, nemesis, faults, topology,
@@ -7376,7 +7961,10 @@ def main() -> int:
             # (1, N), Kafka (N, K)
             entry["also"] = {f"{w}x{n}": v for (w, n), v in shapes.items()
                              if (w, n) != big}
-        if name.startswith("shift_"):
+        if name == "counter_select":
+            entry["partial"] = {f"{w}x{n}": v for (w, n), v in
+                                times["counter_select_partial"].items()}
+        if name.startswith("shift_") or name in MESH_PATH_KERNELS:
             entry["launches_by_path"] = launches.split(name)
         entries.append(entry)
     emit({"kernels": entries})

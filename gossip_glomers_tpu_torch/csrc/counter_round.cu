@@ -23,6 +23,16 @@
 //   polled) mod 2^32) and the winner row (n: none), and resets the
 //   counters for the next round.  It reads pending[winner] before the
 //   update pass zeroes it.
+//   The partial form (a template flag of the same body, for a rank's block
+//   of a mesh): the rows are global rows row0 + i (the hash and the key
+//   take them), and the last block writes the block's partial into three
+//   int64 words instead of finalizing: the least key XOR 2^63 (signed
+//   order, all ones less 2^63 for none), cas: the pending of that key's
+//   row (0 for none) / allreduce: the sum, and 4 want + 2 polled with
+//   polled cas: reach on a poll round (the global winner's poll is taken
+//   off by the finish, after the mesh's minimum).  The caller reduces them
+//   over the ranks (min, then the sums) and finishes kv, msgs and the
+//   winner word.
 //   Replaces: gossip_glomers_tpu/tpu_sim/counter.py _round (:397-476, the
 //   flush and the winner, and :498-499, the poll charge), XLA code: the
 //   reach and fresh masks, the hash, one or two global min reductions and
@@ -31,7 +41,8 @@
 //   (cas) or of every wanting row (allreduce), and sets cached to the new
 //   kv where the row wanted, won or was polled, unless the seq-kv stale
 //   coin keeps a behind, non-winning reader's old value (stale_num > 0:
-//   mix32(i * 0xC2B2AE35 ^ t * 0x9E3779B9 ^ seed ^ salt) < stale_num).
+//   mix32(i * 0xC2B2AE35 ^ t * 0x9E3779B9 ^ seed ^ salt) < stale_num).  On
+//   a rank's block i is the global row row0 + i, as in the winner word.
 //   Replaces: counter.py :483-497 and the pending update of :409 / :474.
 //
 // The hash: x = i * 0x9E3779B9 + (t + seed) * 0x85EBCA6B; x ^= x >> 16;
@@ -84,7 +95,9 @@ struct Select {
   Work* work;
   int32_t* kv_out;
   long long* msgs_out;
+  long long* part;          // the partial form's three words, or null
   int64_t n;
+  uint32_t row0;            // the global row of row 0
   uint32_t round_term;      // (t + seed) * 0x85EBCA6B
   int wide, row_bits, poll;
 };
@@ -98,6 +111,7 @@ struct Apply {
   int32_t* pending_out;     // may be pending (each row its own words)
   int32_t* cached_out;
   int64_t n;
+  uint32_t row0;            // the global row of row 0
   int cas, poll;
   uint32_t stale_num, stale_key;
 };
@@ -138,9 +152,9 @@ __device__ __forceinline__ void select_row(int64_t i, int32_t p, int32_t c,
   a.want += want;
   if (kCas) {
     if (want && c == kv0) {
+      const uint32_t row = s.row0 + static_cast<uint32_t>(i);
       const unsigned long long key =
-          static_cast<unsigned long long>(priority(
-              static_cast<uint32_t>(i), s)) << 32 | static_cast<uint32_t>(i);
+          static_cast<unsigned long long>(priority(row, s)) << 32 | row;
       a.key = key < a.key ? key : a.key;
     }
     a.polled += s.poll && reach;
@@ -150,7 +164,7 @@ __device__ __forceinline__ void select_row(int64_t i, int32_t p, int32_t c,
   }
 }
 
-template <bool kVec, bool kCas>
+template <bool kVec, bool kCas, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
     counter_select_kernel(const Select s) {
   const int32_t kv0 = *s.kv0;
@@ -220,6 +234,17 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t total = atomicExch(&work->total, 0u);
   uint32_t polled = atomicExch(&work->polled, 0u);
   atomicExch(&work->arrived, 0u);
+  if (kPartial) {
+    long long delta = 0;
+    if (kCas && key != kNoKey)
+      delta = s.pending[static_cast<uint32_t>(key) - s.row0];
+    else if (!kCas)
+      delta = static_cast<long long>(total);
+    s.part[0] = static_cast<long long>(key ^ (1ull << 63));
+    s.part[1] = delta;
+    s.part[2] = static_cast<long long>(4ull * want + 2ull * polled);
+    return;
+  }
   uint32_t kv = static_cast<uint32_t>(kv0);
   long long winner = s.n;
   if (kCas) {
@@ -245,11 +270,11 @@ __device__ __forceinline__ void apply_row(int64_t i, int32_t p, int32_t c,
   if (g & kWipe) p = c = 0;
   const bool reach = !(g & kBlocked);
   const bool want = p > 0 && reach;
-  const bool won = s.cas ? i == winner : want;
+  const uint32_t row = s.row0 + static_cast<uint32_t>(i);
+  const bool won = s.cas ? row == winner : want;
   int32_t val = kv;
   if (s.stale_num && !won && c != kv
-      && mix32(static_cast<uint32_t>(i) * 0xC2B2AE35u ^ s.stale_key)
-             < s.stale_num)
+      && mix32(row * 0xC2B2AE35u ^ s.stale_key) < s.stale_num)
     val = c;
   p_out = won ? 0 : p;
   c_out = want || won || (s.poll && reach) ? val : c;
@@ -293,6 +318,23 @@ bool aligned_rows(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
+template <bool kPartial>
+void launch_select(const Select& s, bool vec, bool cas, unsigned blocks,
+                   cudaStream_t st) {
+  if (vec && cas)
+    counter_select_kernel<true, true, kPartial><<<blocks, kThreads, 0, st>>>(
+        s);
+  else if (vec)
+    counter_select_kernel<true, false, kPartial>
+        <<<blocks, kThreads, 0, st>>>(s);
+  else if (cas)
+    counter_select_kernel<false, true, kPartial>
+        <<<blocks, kThreads, 0, st>>>(s);
+  else
+    counter_select_kernel<false, false, kPartial>
+        <<<blocks, kThreads, 0, st>>>(s);
+}
+
 unsigned blocks_for(int64_t units) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
@@ -311,15 +353,18 @@ unsigned blocks_for(int64_t units) {
 // guarantees device pointers to contiguous buffers: (n,) int32 pending,
 // cached and outputs, (n,) bytes gate or null, 0-dim int32 kv0 / kv and
 // int64 msgs / msgs_out, and the four int64 work words in their resting
-// state (kernels.counter_work), which the read pass leaves so.
+// state (kernels.counter_work), which the read pass leaves so.  row0: the
+// global row of row 0 (0 off a mesh), row0 + n < 2^31.  part: null for the
+// full read pass, else three int64 words for the partial form (kv_out,
+// msgs_out and the winner word are then not written).
 
 extern "C" int gg_counter_select(const void* pending, const void* cached,
                                  const void* gate, const void* kv0,
                                  const void* msgs, void* work, void* kv_out,
-                                 void* msgs_out, int64_t n, int64_t ts,
-                                 int cas, int wide, int row_bits, int poll,
-                                 void* stream) {
-  if (n < 0 || n >= (int64_t{1} << 31)
+                                 void* msgs_out, void* part, int64_t n,
+                                 int64_t row0, int64_t ts, int cas, int wide,
+                                 int row_bits, int poll, void* stream) {
+  if (n < 0 || row0 < 0 || n + row0 >= (int64_t{1} << 31)
       || (cas && !wide && (row_bits < 1 || row_bits > 23)))
     return static_cast<int>(cudaErrorInvalidValue);
   Select s;
@@ -331,7 +376,9 @@ extern "C" int gg_counter_select(const void* pending, const void* cached,
   s.work = static_cast<Work*>(work);
   s.kv_out = static_cast<int32_t*>(kv_out);
   s.msgs_out = static_cast<long long*>(msgs_out);
+  s.part = static_cast<long long*>(part);
   s.n = n;
+  s.row0 = static_cast<uint32_t>(row0);
   s.round_term = static_cast<uint32_t>(ts) * 0x85EBCA6Bu;
   s.wide = wide;
   s.row_bits = row_bits;
@@ -341,24 +388,20 @@ extern "C" int gg_counter_select(const void* pending, const void* cached,
                    && (gate == nullptr || aligned_rows(gate, 4));
   const unsigned blocks = blocks_for(vec ? (n + 3) / 4 : n);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec && cas)
-    counter_select_kernel<true, true><<<blocks, kThreads, 0, st>>>(s);
-  else if (vec)
-    counter_select_kernel<true, false><<<blocks, kThreads, 0, st>>>(s);
-  else if (cas)
-    counter_select_kernel<false, true><<<blocks, kThreads, 0, st>>>(s);
+  if (part != nullptr)
+    launch_select<true>(s, vec, cas != 0, blocks, st);
   else
-    counter_select_kernel<false, false><<<blocks, kThreads, 0, st>>>(s);
+    launch_select<false>(s, vec, cas != 0, blocks, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gg_counter_apply(const void* pending, const void* cached,
                                 const void* gate, const void* kv,
                                 const void* work, void* pending_out,
-                                void* cached_out, int64_t n, int cas,
-                                int poll, int64_t stale_num,
+                                void* cached_out, int64_t n, int64_t row0,
+                                int cas, int poll, int64_t stale_num,
                                 int64_t stale_key, void* stream) {
-  if (n < 0 || n >= (int64_t{1} << 31))
+  if (n < 0 || row0 < 0 || n + row0 >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   Apply s;
@@ -370,6 +413,7 @@ extern "C" int gg_counter_apply(const void* pending, const void* cached,
   s.pending_out = static_cast<int32_t*>(pending_out);
   s.cached_out = static_cast<int32_t*>(cached_out);
   s.n = n;
+  s.row0 = static_cast<uint32_t>(row0);
   s.cas = cas;
   s.poll = poll;
   s.stale_num = static_cast<uint32_t>(stale_num);

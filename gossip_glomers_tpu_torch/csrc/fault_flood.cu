@@ -34,7 +34,9 @@
 //   the loss coin of src -> dst did not drop, out1 = out0 and the dup coin
 //   fired.  Ledger mode (srv): out0 = live and the loss coin of dst -> src
 //   (the reply) did not drop, out1 = out0 and the coin of src -> dst did
-//   not either.  Replaces: faults.py wm_live_del (:690) and wm_srv_rows
+//   not either.  On a rank's block of a mesh the columns are the global
+//   nodes col0 + i, whose ids the forms take.  Replaces: faults.py
+//   wm_live_del (:690) and wm_srv_rows
 //   (:705), XLA elementwise hashes over the (D, N) rows, some 30 int64
 //   torch operations a coin in the plain version.
 //
@@ -247,6 +249,8 @@ struct WmCoins {
   uint32_t* out0;         // (d, nw) packed
   uint32_t* out1;         // (d, nw) packed, or null (delivery mode, no dup)
   uint32_t nw, n, t, seed, loss_num, dup_num;
+  uint32_t col0, n_ids;    // column i is node col0 + i of n_ids (a rank's
+                           // block on a mesh; 0 and n off a mesh)
   int32_t loss, dup, srv;  // streams active this round; ledger mode
 };
 
@@ -280,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) wm_fault_coins_kernel(
     bits[q] = word0 + q < c.nw ? __ldg(live + word0 + q) : 0u;
   // decoded after every load is issued: its branches would hold back
   // the loads behind them
-  const IdForm fs = id_form(d0, d1, c.n), fr = id_form(d2, d3, c.n);
+  const IdForm fs = id_form(d0, d1, c.n_ids), fr = id_form(d2, d3, c.n_ids);
   const uint32_t key = c.t * 0x9E3779B9u ^ c.seed;
   const uint32_t key_loss = key ^ kSaltLoss, key_dup = key ^ kSaltDup;
   uint32_t w0[kWords], w1[kWords];
@@ -289,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) wm_fault_coins_kernel(
     const uint32_t i = (word0 + q) * 32 + lane;  // >= n past the row
     // bitwise & and |: a short-circuit would branch on the slot
     const bool lv = (i < c.n) & ((bits[q] >> lane) & 1u);
-    const uint32_t s = node_id(fs, i), r = node_id(fr, i);
+    const uint32_t s = node_id(fs, c.col0 + i), r = node_id(fr, c.col0 + i);
     const uint32_t x = s * 0xC2B2AE35u ^ r * 0x27D4EB2Fu;
     const bool fwd = !c.loss | (mix32(x ^ key_loss) >= c.loss_num);
     bool b0, b1;
@@ -612,13 +616,16 @@ extern "C" int gg_fault_coins(const void* nbrs, const void* live,
 }
 
 // dirs: (d, 4) int64 descriptor rows (kernels.coin_dirs); live, out0 and
-// out1 (null: not written) (d, ceil(n / 32)) int32 packed rows.
+// out1 (null: not written) (d, ceil(n / 32)) int32 packed rows of the n
+// columns col0 .. col0 + n - 1 of a graph of n_ids nodes.
 extern "C" int gg_wm_fault_coins(const void* dirs, const void* live,
                                  void* out0, void* out1, int64_t d,
-                                 int64_t n, int64_t t, int64_t seed,
-                                 int64_t loss_num, int64_t dup_num, int loss,
-                                 int dup, int srv, void* stream) {
-  if (n < 1 || n >= (int64_t{1} << 31) || d < 1 || d > 65535)
+                                 int64_t n, int64_t col0, int64_t n_ids,
+                                 int64_t t, int64_t seed, int64_t loss_num,
+                                 int64_t dup_num, int loss, int dup, int srv,
+                                 void* stream) {
+  if (n < 1 || col0 < 0 || n_ids >= (int64_t{1} << 31) || col0 + n > n_ids
+      || d < 1 || d > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   WmCoins c;
   c.dirs = static_cast<const long long*>(dirs);
@@ -627,6 +634,8 @@ extern "C" int gg_wm_fault_coins(const void* dirs, const void* live,
   c.out1 = static_cast<uint32_t*>(out1);
   c.nw = static_cast<uint32_t>((n + 31) / 32);
   c.n = static_cast<uint32_t>(n);
+  c.col0 = static_cast<uint32_t>(col0);
+  c.n_ids = static_cast<uint32_t>(n_ids);
   c.t = static_cast<uint32_t>(t);
   c.seed = static_cast<uint32_t>(seed);
   c.loss_num = static_cast<uint32_t>(loss_num);

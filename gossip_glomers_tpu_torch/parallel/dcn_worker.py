@@ -14,17 +14,18 @@ one JSON report a rank (``report.json.<rank>``); it asserts that every
 rank reports the same replicated numbers (the per-rank timings aside).
 Tasks:
 
-- ``sims``: the broadcast half of the reference's ``sims`` (the 16-node
-  grid through the gather path, ``run`` and ``run_fused``: rounds,
-  ``msgs`` and the state digest); its counter and Kafka halves raise
-  (ROADMAP.md Queue A item 10);
+- ``sims``: the broadcast and counter halves of the reference's ``sims``
+  (the 16-node grid through the gather path, ``run`` and ``run_fused``:
+  rounds, ``msgs`` and the state digest; the 8-node cas counter, ``run``,
+  ``run_fused`` and a seed replay of 12 rounds: ``msgs`` and the state
+  digest); its Kafka half raises (ROADMAP.md Queue A item 10);
 - ``roundtime``: the words-major 4-ary tree flood's round wall over the
   halo exchange, at ``GG_DCN_RT_N`` nodes (65,536) and ``GG_DCN_RT_NV``
   values (32), and the state digest.
 
 ``batch``, ``certify``, ``takeover``, ``pipelined`` and ``stale`` need
-the nemesis, the scenario batches or the hosts axis on a mesh and raise
-(item 10).  ``main`` is the env-driven rank body
+the scenario batches, the nemesis runners' ``mesh=`` or the hosts axis
+and raise (item 10).  ``main`` is the env-driven rank body
 (``python -m gossip_glomers_tpu_torch.parallel.dcn_worker`` with the
 ``GG_*`` variables of :data:`.mesh.DIST_ENV`, ``GG_DCN_TASKS`` and
 ``GG_DCN_OUT``).  Nothing here imports JAX.
@@ -71,34 +72,56 @@ def digest_array(a) -> int:
 
 
 def state_digest(state, mesh=None, *, node_dim: int = 1) -> dict:
-    """Checksum every field of a sim state into host ints, field-keyed
-    (:func:`digest_array`).  On a mesh a tensor field is this rank's
-    block of the node axis (``node_dim``: 1 words-major, 0 node-major)
-    and is gathered first, so every rank reports the global digest; host
-    ints (``t``) and 0-d ledgers count as int32 / uint32 scalars."""
+    """Checksum every field of a sim state (a dataclass or a NamedTuple)
+    into host ints, field-keyed (:func:`digest_array`).  On a mesh a
+    tensor field is this rank's block of the node axis (``node_dim``: 1
+    words-major, 0 node-major) and is gathered first, so every rank
+    reports the global digest; host ints (``t``) and 0-d ledgers count as
+    int32 / uint32 scalars."""
     import torch
 
     out = {}
-    for f in dataclasses.fields(state):
-        value = getattr(state, f.name)
+    names = (state._fields if hasattr(state, "_fields")
+             else [f.name for f in dataclasses.fields(state)])
+    for name in names:
+        value = getattr(state, name)
         if value is None:
             continue
         if isinstance(value, int):
-            out[f.name] = digest_array(np.int32(value))
+            out[name] = digest_array(np.int32(value))
             continue
         if value.dim() >= 1 and mesh is not None:
             value = mesh.all_gather(value, dim=node_dim)
         arr = value.cpu().numpy()
         if value.dim() == 0 and value.dtype == torch.int64:
             arr = np.uint32(int(value) & 0xFFFFFFFF)
-        out[f.name] = digest_array(arr)
+        out[name] = digest_array(arr)
     return out
 
 
 # -- tasks -----------------------------------------------------------------
 
 
+def _counter_half(mesh, device) -> dict:
+    from ..tpu_sim.counter import CounterSim
+
+    nc = 8
+    deltas = np.arange(1, nc + 1, dtype=np.int32)
+    out = {}
+    for runner in ("run", "run_fused", "replay"):
+        sim = CounterSim(nc, mode="cas", seed=7, mesh=mesh, device=device)
+        state = getattr(sim, "run" if runner == "replay" else runner)(
+            sim.add(sim.init_state(), deltas), 12)
+        out[runner] = {"msgs": int(state.msgs),
+                       "state": state_digest(state, mesh, node_dim=0)}
+    if out["run"] != out["replay"]:
+        raise AssertionError("counter seed replay diverged in-process")
+    return out
+
+
 def _sims_half(name: str, mesh, device) -> dict:
+    if name == "counter":
+        return _counter_half(mesh, device)
     if name != "broadcast":
         raise _unported(f"the {name} half of the sims task (a "
                         f"{name} sim on a mesh)")
@@ -117,9 +140,9 @@ def _sims_half(name: str, mesh, device) -> dict:
     return out
 
 
-def _task_sims(mesh, device, halves=("broadcast",)) -> dict:
-    """The reference's ``sims`` task, its broadcast half (the counter and
-    Kafka halves raise, item 10)."""
+def _task_sims(mesh, device, halves=("broadcast", "counter")) -> dict:
+    """The reference's ``sims`` task, its broadcast and counter halves
+    (the Kafka half raises, item 10)."""
     return {name: _sims_half(name, mesh, device) for name in halves}
 
 
@@ -159,8 +182,9 @@ def _task_roundtime(mesh, device) -> dict:
 
 def _refused(name: str):
     def task(mesh, device):
-        raise _unported(f"the {name} task (it needs the nemesis, the "
-                        "scenario batches or the hosts axis on a mesh)")
+        raise _unported(f"the {name} task (it needs the scenario "
+                        "batches, the nemesis runners' mesh= or the hosts "
+                        "axis)")
     return task
 
 

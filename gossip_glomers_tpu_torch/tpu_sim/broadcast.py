@@ -60,10 +60,18 @@ the all-gather fallback ``widen`` and ``local_slice`` for shapes with no
 halo form), the node-major gather over the all-gathered payload, and the
 ledgers' ``reduce_sum`` an all-reduce of each shard's uint32 partial
 (int64, then masked to 32 bits: it wraps where the reference's uint32
-psum wraps).  The round counter and the sync waves stay host ints, and
-every convergence flag is agreed over the mesh before any rank branches
-on it.  A mesh with the delay modes, the nemesis, a fault plan,
-``union_block``, ``dcn_mode`` or the traffic and observed drivers raises
+psum wraps).  Every fault and delay mode runs there too: the partition,
+nemesis and delay bundles built with ``n_shards=`` hand their halo
+closures, which mask a rank's block with its own packed rows (the
+nemesis's mask operand cut by :meth:`.faults.WMNemesisArrays.shard`, its
+coins hashing global ids) and deliver from the rank's block of the ring;
+the gather path's fault plan hashes the rows' global ids over every
+node's liveness, all-gathers the payload and the dup rows, and streams
+``union_block`` slabs of the rank's rows; its ``delays`` ring stays
+node-sharded, each round all-gathering the slots it reads.  The round
+counter and the sync waves stay host ints, and every convergence flag is
+agreed over the mesh before any rank branches on it.  ``dcn_mode``, and
+the traffic and observed drivers and ``inject_mid`` on a mesh, raise
 (ROADMAP.md Queue A item 10).
 """
 
@@ -93,6 +101,40 @@ def _unported(what: str) -> NotImplementedError:
 
 def _ident(x):
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A rank's view of the node axis, which the round functions take in
+    one piece; :data:`ONE_DEVICE`, the identity, off a mesh.
+
+    - ``reduce_sum`` globalizes a ledger's shard partial (an all-reduce);
+    - ``widen`` maps a local block to the whole node axis (an all-gather:
+      the gather path and the words-major all-gather fallback; the halo
+      path's closures exchange the halo instead and leave it the
+      identity);
+    - ``rows``: the block's slice of the node axis where a full-axis
+      result must be cut back to it (the all-gather fallback), else None;
+    - ``row0``, the block's first global node, and ``all_ids``, every
+      node's id: the gather path's fault coins hash global ids over
+      every node's liveness."""
+
+    reduce_sum: Callable = _ident
+    widen: Callable = _ident
+    rows: slice | None = None
+    row0: int = 0
+    all_ids: torch.Tensor | None = None
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """A full-axis (W, N) result's words of this block."""
+        return x if self.rows is None else x[:, self.rows].contiguous()
+
+    def cols(self, x: torch.Tensor) -> torch.Tensor:
+        """A full-axis (..., N) column row's columns of this block."""
+        return x if self.rows is None else x[..., self.rows]
+
+
+ONE_DEVICE = Shard()
 
 
 def num_words(n_values: int) -> int:
@@ -308,49 +350,68 @@ def _gather_or(payload: torch.Tensor, nbrs: torch.Tensor,
     return kernels.gather_or(payload, nbrs, live)
 
 
+def _up_all(plan: faults.FaultPlan, t: int, row_ids: torch.Tensor,
+            all_ids: torch.Tensor | None) -> torch.Tensor:
+    """(N,) bool: every node's liveness at round ``t``, which the coins'
+    ``up`` operand covers (``all_ids``: every node id on a mesh, whose
+    ``row_ids`` are a block; None off a mesh, where they are all)."""
+    return faults.node_up(plan, t, row_ids if all_ids is None else all_ids)
+
+
 def _live_del_at(t: int, row_ids: torch.Tensor, nbrs: torch.Tensor,
                  nbr_mask: torch.Tensor, parts: Partitions,
-                 plan: faults.FaultPlan | None) -> torch.Tensor:
-    """(N, D) bool: the edges that deliver a message sent at round ``t``:
-    topology and partition windows, and under a ``plan`` both endpoints
-    up and the loss coin kept (:func:`.kernels.fault_coins`' DEL flag;
-    ``_live_split``'s ``live_del``)."""
+                 plan: faults.FaultPlan | None, *,
+                 shard: Shard = ONE_DEVICE) -> torch.Tensor:
+    """(rows, D) bool: the edges that deliver a message sent at round
+    ``t``: topology and partition windows, and under a ``plan`` both
+    endpoints up and the loss coin kept (:func:`.kernels.fault_coins`' DEL
+    flag; ``_live_split``'s ``live_del``).  ``row_ids``: the rows' global
+    ids (on a mesh a block of them from ``shard.row0``)."""
     live = _edge_live(t, row_ids, nbrs, nbr_mask, parts)
     if plan is None:
         return live
-    flags = kernels.fault_coins(nbrs, faults.node_up(plan, t, row_ids),
-                                live=live, **_coins(plan, t, False, False))
+    flags = kernels.fault_coins(nbrs, _up_all(plan, t, row_ids,
+                                              shard.all_ids),
+                                live=live, row0=shard.row0,
+                                **_coins(plan, t, False, False))
     return (flags & FLAG_DEL) != 0
 
 
 def _delay_terms(t: int, ring: int, classes: dict[int, torch.Tensor],
                  nbrs: torch.Tensor, nbr_mask: torch.Tensor,
                  parts: Partitions, row_ids: torch.Tensor,
-                 plan: faults.FaultPlan | None) -> list:
-    """[(ring slot, (N, D) delivering edges)] of round ``t``'s delay
-    classes: edge (i, d) of delay v (``classes[v]``, the (N, D) mask
-    ``delays == v``) delivers the payload of send round ``t - (v - 1)``
-    from its slot, if it was live at that round (:func:`_live_del_at`);
-    a class whose send round is below 0 has no term."""
+                 plan: faults.FaultPlan | None, *,
+                 shard: Shard = ONE_DEVICE) -> list:
+    """[(ring slot, (rows, D) delivering edges)] of round ``t``'s delay
+    classes: edge (i, d) of delay v (``classes[v]``, the mask ``delays ==
+    v``) delivers the payload of send round ``t - (v - 1)`` from its
+    slot, if it was live at that round (:func:`_live_del_at`); a class
+    whose send round is below 0 has no term."""
     out = []
     for v, cls in classes.items():
         slot = send_slot(t, v, ring)
         if slot is not None:
             out.append((slot, _live_del_at(t - (v - 1), row_ids, nbrs,
-                                           nbr_mask, parts, plan) & cls))
+                                           nbr_mask, parts, plan,
+                                           shard=shard) & cls))
     return out
 
 
 def _gather_or_delayed(history: torch.Tensor, terms: list,
-                       nbrs: torch.Tensor) -> torch.Tensor:
+                       nbrs: torch.Tensor,
+                       widen: Callable = _ident) -> torch.Tensor:
     """The latency ring's delivery (the reference's
     ``_gather_or_delayed``): one :func:`.kernels.gather_or` a delay
-    class over its :func:`_delay_terms` edges."""
+    class over its :func:`_delay_terms` edges, from the class's slot
+    (all-gathered from the ranks' blocks of the ring by ``widen`` on a
+    mesh)."""
     out = None
     for slot, live in terms:
-        term = _gather_or(history[slot], nbrs, live)
+        term = _gather_or(widen(history[slot]), nbrs, live)
         out = term if out is None else out | term
-    return torch.zeros_like(history[0]) if out is None else out
+    return torch.zeros((nbrs.shape[0],) + tuple(history.shape[2:]),
+                       dtype=history.dtype, device=history.device) \
+        if out is None else out
 
 
 def _slot_table(terms: list, shape, up: torch.Tensor | None,
@@ -420,12 +481,12 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
            plan: faults.FaultPlan | None = None, dup_on: bool = False,
            union_block: int | None = None,
            classes: dict[int, torch.Tensor] | None = None,
-           prov=None, widen: Callable = _ident, reduce_sum: Callable = _ident):
+           prov=None, shard: Shard = ONE_DEVICE):
     """One node-major (adjacency-gather) round — the reference's
-    ``_round``.  ``widen`` maps the local payload block to the full node
-    axis and ``reduce_sum`` globalizes the ledgers (identity on one
-    device; an all-gather and an all-reduce on a mesh, where ``row_ids``
-    are the local rows' global ids and ``nbrs`` global ids).  ``deg`` is
+    ``_round``.  On a mesh (``shard``) ``widen`` all-gathers the payload
+    blocks and ``reduce_sum`` globalizes the ledgers, ``row_ids`` are the
+    local rows' global ids from ``shard.row0`` and ``nbrs`` global ids.
+    ``deg`` is
     the topology degree ``nbr_mask.sum(1)`` (int64; computed when not
     given).  With a ``plan`` the round is :func:`_round_plan`.  On a
     round with no active partition window the edge mask is never built:
@@ -453,20 +514,23 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
                            nbr_mask=nbr_mask, parts=parts,
                            sync_every=sync_every, deg=deg, plan=plan,
                            dup_on=dup_on, union_block=union_block,
-                           classes=classes, prov=prov)
+                           classes=classes, prov=prov, shard=shard)
     t = state.t
     is_sync = _is_sync(t, sync_every)
     rec0, fr0 = state.received, state.frontier
     # frontier ⊆ received, so the anti-entropy payload is just `received`
     payload = rec0 if is_sync else fr0
-    payload_full = widen(payload)
+    # the ring delivers from its own slots: the whole payload is needed
+    # then only by a sync wave's server-ledger diff
+    payload_full = (shard.widen(payload) if classes is None or (
+        is_sync and state.srv_msgs is not None) else None)
     live = (_edge_live(t, row_ids, nbrs, nbr_mask, parts)
             if parts.active(t) else None)
     deg_topo = nbr_mask.sum(dim=1) if deg is None else deg
     live_deg = deg_topo if live is None else live.sum(dim=1)
     pc = kernels.col_popcount(payload, node_major=True)
     # one value-message per (value, live edge)
-    sent = reduce_sum(_dot32(pc, live_deg))
+    sent = shard.reduce_sum(_dot32(pc, live_deg))
     srv = None
     if state.srv_msgs is not None:
         # partitions only: every topology neighbor is asked, every live
@@ -476,7 +540,7 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
             pcf=kernels.col_popcount(fr0, node_major=True) if is_sync
             else pc, req_deg=deg_topo, ack_deg=live_deg,
             diff=lambda: _sync_diff_pc(payload_full, rec0, nbrs, live),
-            reduce_sum=reduce_sum)
+            reduce_sum=shard.reduce_sum)
     history = None
     if classes is None:
         new, received = kernels.gather_flood_round(payload_full, rec0, nbrs,
@@ -489,7 +553,7 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
         history = _ring_push(state.history, payload, t)
         terms = _delay_terms(t, history.shape[0], classes, nbrs, nbr_mask,
                              parts, row_ids, None)
-        new = _gather_or_delayed(history, terms, nbrs) & ~rec0
+        new = _gather_or_delayed(history, terms, nbrs, shard.widen) & ~rec0
         received = rec0 | new
         if prov is not None:
             prov = _stamp(prov, new, history, nbrs, t, slots=_slot_table(
@@ -516,7 +580,8 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
                 parts: Partitions, sync_every: int,
                 deg: torch.Tensor | None, plan: faults.FaultPlan,
                 dup_on: bool, union_block: int | None,
-                classes: dict[int, torch.Tensor] | None = None, prov=None):
+                classes: dict[int, torch.Tensor] | None = None, prov=None,
+                shard: Shard = ONE_DEVICE):
     """The faulted gather round (the reference's ``_round`` with a
     ``plan``).  First the amnesia rows' ``received`` / ``frontier`` are
     wiped; then :func:`.kernels.fault_coins` gives each edge its flags
@@ -548,7 +613,14 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     ``prov``: :func:`_round`'s provenance stamps, over the flag bytes
     (one hop: DEL edges deliver the payload, DUP edges the wiped
     ``received`` rows) or the ring slots of the live edges, a receiver
-    down now getting nothing; the round then runs materialized."""
+    down now getting nothing; the round then runs materialized.
+
+    On a mesh (``shard``) the coins hash the rows' global ids (from
+    ``shard.row0``), their liveness operand covers every node
+    (``shard.all_ids``), the payload
+    is all-gathered and, on a round with an active dup stream, so is the
+    wiped ``received`` set (the dup rows): two all-gathers and the
+    ledgers' all-reduce a round."""
     t = state.t
     wipe = faults.amnesia(plan, t, row_ids)[:, None]
     rec0 = state.received.masked_fill(wipe, 0)
@@ -556,10 +628,18 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     is_sync = _is_sync(t, sync_every)
     # frontier ⊆ received, so the anti-entropy payload is just `received`
     payload = rec0 if is_sync else fr0
-    up = faults.node_up(plan, t, row_ids)
     srv_on = state.srv_msgs is not None
     coins = _coins(plan, t, dup_on, out_ok=srv_on)
-    dup_rows = rec0 if coins["dup"] else None
+    # under delays the ring delivers from its own slots: the whole payload
+    # is needed then only for the dup charge at its source and the
+    # server ledger's sync diff
+    payload_full = (shard.widen(payload) if classes is None or coins["dup"]
+                    or srv_on else None)
+    row0 = shard.row0
+    up_all = _up_all(plan, t, row_ids, shard.all_ids)
+    up = up_all[row0:row0 + nbrs.shape[0]]
+    dup_rows = (shard.widen(rec0) if coins["dup"] and classes is None
+                else None)
     pc = kernels.col_popcount(payload, node_major=True)
     windows = bool(parts.active(t))
 
@@ -568,13 +648,15 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
         nb = nbrs[lo:hi]
         live = (_edge_live(t, row_ids[lo:hi], nb, nbr_mask[lo:hi], parts)
                 if windows else None)
-        flags = kernels.fault_coins(nb, up, live=live, row0=lo, **coins)
+        flags = kernels.fault_coins(nb, up_all, live=live, row0=row0 + lo,
+                                    **coins)
         new, rec, dup_pc = kernels.faulted_gather_round(
-            payload, dup_rows, rec0[lo:hi], nb, flags)
+            payload_full, dup_rows, rec0[lo:hi], nb, flags)
         sent = _dot32(pc[lo:hi], (flags & FLAG_SEND).sum(dim=1)) + dup_pc
         return flags, new, rec, sent
 
-    if union_block is not None and not srv_on and prov is None:
+    if union_block is not None and not srv_on and prov is None \
+            and classes is None:
         def slab(carry, lo):
             news, recs, sent = carry
             _, new, rec, s = deliver(lo, lo + union_block)
@@ -582,9 +664,12 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
 
         news, recs, sent = scan_blocks(slab, ([], [], 0), nbrs.shape[0],
                                        union_block)
+        sent = torch.as_tensor(sent, dtype=torch.int64, device=pc.device)
         return BroadcastState(received=torch.cat(recs),
                               frontier=torch.cat(news), t=t + 1,
-                              msgs=wrap32(state.msgs + sent), srv_msgs=None)
+                              msgs=wrap32(state.msgs
+                                          + shard.reduce_sum(sent)),
+                              srv_msgs=None)
     history = None
     if classes is None:
         flags, new, received, sent = deliver(0, nbrs.shape[0])
@@ -594,17 +679,22 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     else:
         live = _edge_live(t, row_ids, nbrs, nbr_mask, parts) if windows \
             else None
-        flags = kernels.fault_coins(nbrs, up, live=live, **coins)
+        flags = kernels.fault_coins(nbrs, up_all, live=live, row0=row0,
+                                    **coins)
         sent = _dot32(pc, (flags & FLAG_SEND).sum(dim=1))
-        if dup_rows is not None:
-            src = nbrs.clamp(0, nbrs.shape[0] - 1).to(torch.int64)
+        if coins["dup"]:
+            # a dup edge re-delivers its in-flight payload: charged at
+            # the payload's popcount at its source
+            pc_src = (pc if payload_full is payload else
+                      kernels.col_popcount(payload_full, node_major=True))
+            src = nbrs.clamp(0, payload_full.shape[0] - 1).to(torch.int64)
             dup = (flags & kernels.FLAG_DUP) != 0
-            sent = wrap32(sent + torch.where(dup, pc[src], 0).sum(
+            sent = wrap32(sent + torch.where(dup, pc_src[src], 0).sum(
                 dtype=torch.int64))
         history = _ring_push(state.history, payload, t)
         terms = _delay_terms(t, history.shape[0], classes, nbrs, nbr_mask,
-                             parts, row_ids, plan)
-        inbox = _gather_or_delayed(history, terms, nbrs)
+                             parts, row_ids, plan, shard=shard)
+        inbox = _gather_or_delayed(history, terms, nbrs, shard.widen)
         new = inbox.masked_fill(~up[:, None], 0) & ~rec0
         received = rec0 | new
         if prov is not None:
@@ -622,11 +712,13 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
             pcf=kernels.col_popcount(fr0, node_major=True) if is_sync
             else pc, req_deg=torch.where(up, deg_topo, 0),
             ack_deg=((flags & ack) == ack).sum(dim=1),
-            diff=lambda: _sync_diff_pc(payload, rec0, nbrs,
-                                       (flags & both) == both))
+            diff=lambda: _sync_diff_pc(payload_full, rec0, nbrs,
+                                       (flags & both) == both),
+            reduce_sum=shard.reduce_sum)
     out = BroadcastState(received=received, frontier=new, t=t + 1,
-                         msgs=wrap32(state.msgs + sent), srv_msgs=srv,
-                         history=history)
+                         msgs=wrap32(state.msgs
+                                     + shard.reduce_sum(wrap32(sent))),
+                         srv_msgs=srv, history=history)
     return out if prov is None else (out, prov)
 
 
@@ -684,16 +776,15 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
               sync_diff: Callable[[torch.Tensor], torch.Tensor] | None = None,
               live: torch.Tensor | None = None, faulted=None,
               delayed_exchange: Callable | None = None,
-              reduce_sum: Callable = _ident, widen: Callable = _ident,
-              local_slice: Callable = _ident, deg_slice: Callable = _ident,
-              ) -> BroadcastState:
+              shard: Shard = ONE_DEVICE) -> BroadcastState:
     """Words-major round (the reference's ``_round_wm``, plain, partition
-    and delay modes).  On a mesh ``reduce_sum`` globalizes the ledgers'
-    shard partials, and the all-gather fallback (a shape with no halo
-    form) widens the payload to the full node axis (``widen``), runs the
-    full-axis exchange and cuts the local block back out
-    (``local_slice``, ``deg_slice`` for the live degree); the halo path
-    leaves those the identity and hands the halo closures.  ``deg`` is
+    and delay modes).  On a mesh ``shard.reduce_sum`` globalizes the
+    ledgers' shard partials, and the all-gather fallback (a shape with no
+    halo form) widens the payload to the full node axis
+    (``shard.widen``), runs the full-axis exchange and cuts the local
+    block back out (``shard.local``, ``shard.cols`` for the live degree);
+    the halo path leaves those the identity and hands the halo
+    closures.  ``deg`` is
     the per-node topology degree (int64).
     Under an active partition window ``live`` holds the round's (D,
     ceil(N/32)) packed per-direction liveness (:meth:`BroadcastSim.
@@ -709,26 +800,27 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
     t = state.t
     is_sync = _is_sync(t, sync_every)
     payload = state.received if is_sync else state.frontier
-    payload_full = widen(payload)
+    payload_full = shard.widen(payload)
     if live is None:
         live_deg = deg
         deliver, diff = exchange, sync_diff
     else:
-        live_deg = deg_slice(kernels.count_rows(live, payload_full.shape[1]))
+        live_deg = shard.cols(kernels.count_rows(live,
+                                                 payload_full.shape[1]))
         deliver = lambda p: faulted.exchange(p, live)  # noqa: E731
         diff = lambda r: faulted.sync_diff(r, live)  # noqa: E731
     pc = kernels.col_popcount(payload)
-    sent = reduce_sum(_dot32(pc, live_deg))
+    sent = shard.reduce_sum(_dot32(pc, live_deg))
     srv = None
     if state.srv_msgs is not None:
         srv = _srv_ledger(
             state.srv_msgs, t=t, is_sync=is_sync,
             pcf=kernels.col_popcount(state.frontier) if is_sync else pc,
             req_deg=deg, ack_deg=live_deg,
-            diff=lambda: diff(state.received), reduce_sum=reduce_sum)
+            diff=lambda: diff(state.received), reduce_sum=shard.reduce_sum)
     history = None
     if delayed_exchange is None:
-        inbox = local_slice(deliver(payload_full))
+        inbox = shard.local(deliver(payload_full))
     else:
         history = _ring_push(state.history, payload, t)
         inbox = delayed_exchange(history, t)
@@ -739,19 +831,24 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
 
 
 def _dup_charge(src_pc: Callable, dup: torch.Tensor,
-                counts: torch.Tensor) -> torch.Tensor:
+                counts: torch.Tensor,
+                cols: Callable = _ident) -> torch.Tensor:
     """() int64 holding a uint32: the popcount at the source of every dup
     edge.  ``counts`` is the (1, N) per-node popcount; ``src_pc`` moves
     it to each direction's contract positions (a repeat, shift or roll:
-    no gather), where the packed ``dup`` rows select it."""
+    no gather), where the packed ``dup`` rows select it; ``cols`` keeps a
+    rank's columns of a full-axis charge (the all-gather
+    fallback)."""
     rows = kernels.unpack_bits(dup, counts.shape[1])
     at = torch.cat([src_pc(d, counts) for d in range(rows.shape[0])])
-    return wrap32(torch.where(rows, at, 0).sum(dtype=torch.int64))
+    return wrap32(cols(torch.where(rows, at, 0)).sum(
+        dtype=torch.int64))
 
 
 def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
                   parts: Partitions, sync_every: int, dup_on: bool,
-                  deg_topo: torch.Tensor) -> BroadcastState:
+                  deg_topo: torch.Tensor,
+                  shard: Shard = ONE_DEVICE) -> BroadcastState:
     """Words-major round under the full nemesis (the reference's
     ``_round_wm_nem``): a compiled plan (crash /
     restart amnesia, per-direction loss, duplicate delivery) composed
@@ -777,11 +874,21 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
     let through (one :func:`.faults.wm_live_del` a distinct delay); a
     column down now receives nothing, and a dup edge re-delivers its
     in-flight payload: charged at the payload's popcount at its source,
-    nothing new delivered.  The server ledger is off there."""
+    nothing new delivered.  The server ledger is off there.
+
+    On a mesh ``shard.reduce_sum`` globalizes the ledgers.  The halo path
+    hands the bundle's halo closures (``nem`` with its ``sharded_*``
+    bound) and a rank's block of the mask operand
+    (:meth:`.faults.WMNemesisArrays.shard`), so every mask lands on local
+    columns; the all-gather fallback keeps the full operand and closures,
+    widens the payload (``shard.widen``), cuts the local block back out
+    of the inbox (``shard.local``) and of every full-axis column row
+    (``shard.cols``)."""
     t = state.t
     rec0, fr0 = state.received, state.frontier
     wipe = faults.wm_wipe_cols(plan, t, arrs.down_cols)
     if wipe is not None:
+        wipe = shard.cols(wipe)
         rec0 = rec0.masked_fill(wipe[None, :], 0)
         fr0 = fr0.masked_fill(wipe[None, :], 0)
     is_sync = _is_sync(t, sync_every)
@@ -789,8 +896,8 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
     n = deg_topo.shape[0]
     ps, pe = parts.starts, parts.ends
     deg_live = faults.wm_live_rows(plan, t, arrs, ps, pe, deg=True)
-    live_deg = (deg_topo if deg_live is arrs.deg_exists
-                else kernels.count_rows(deg_live, n))
+    live_deg = shard.cols(deg_topo if deg_live is arrs.deg_exists
+                          else kernels.count_rows(deg_live, n))
     pc = kernels.col_popcount(payload)
     sent = _dot32(pc, live_deg)
     srv = None
@@ -803,15 +910,17 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
             req_deg=deg_topo,
             ack_deg=live_deg if ack is deg_live else kernels.count_rows(
                 ack, n),
-            diff=lambda: nem.sync_diff(rec0, both))
+            diff=lambda: nem.sync_diff(rec0, both),
+            reduce_sum=shard.reduce_sum)
     history = None
     if nem.dir_delays is None:
         live_del, dup = faults.wm_live_del(plan, t, arrs, ps, pe, dup_on)
-        inbox = nem.exchange(payload, live_del)
+        inbox = shard.local(nem.exchange(shard.widen(payload), live_del))
         if dup is not None:
-            inbox = inbox | nem.exchange(rec0, dup)
-            counts = kernels.col_popcount(rec0)[None, :]
-            sent = sent + _dup_charge(nem.src_pc, dup, counts)
+            rec_full = shard.widen(rec0)
+            inbox = inbox | shard.local(nem.exchange(rec_full, dup))
+            counts = kernels.col_popcount(rec_full)[None, :]
+            sent = sent + _dup_charge(nem.src_pc, dup, counts, shard.cols)
     else:
         dd = nem.dir_delays
         history = _ring_push(state.history, payload, t)
@@ -821,22 +930,28 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
         coins = {v: faults.wm_live_del(plan, t - (v - 1), arrs, ps, pe,
                                        False)[0]
                  for v in sorted(set(dd)) if t - (v - 1) >= 0}
-        inbox = nem.ring_exchange(history, [
+        ring_full = history if shard.widen is _ident else torch.stack(
+            [shard.widen(h) for h in history])
+        inbox = shard.local(nem.ring_exchange(ring_full, [
             (d, send_slot(t, v, ring), coins[v][d])
-            for d, v in enumerate(dd) if v in coins])
+            for d, v in enumerate(dd) if v in coins]))
         if active_windows(plan.starts, plan.ends, t):
             # a message in flight to a node that crashed before delivery
             # dies with the process
-            up = faults.wm_up_cols(plan, t, arrs.down_cols)
+            up = shard.cols(faults.wm_up_cols(plan, t, arrs.down_cols))
             inbox = inbox.masked_fill(~up[None, :], 0)
         if dup_on:
             _, dup = faults.wm_live_del(plan, t, arrs, ps, pe, True)
             if dup is not None:
-                sent = sent + _dup_charge(nem.src_pc, dup, pc[None, :])
+                counts = (pc if shard.widen is _ident else
+                          kernels.col_popcount(shard.widen(payload)))[None, :]
+                sent = sent + _dup_charge(nem.src_pc, dup, counts,
+                                          shard.cols)
     new = inbox & ~rec0
     return BroadcastState(received=rec0 | new, frontier=new, t=t + 1,
-                          msgs=wrap32(state.msgs + sent), srv_msgs=srv,
-                          history=history)
+                          msgs=wrap32(state.msgs
+                                      + shard.reduce_sum(wrap32(sent))),
+                          srv_msgs=srv, history=history)
 
 
 def _degree_masks(np_deg: np.ndarray, device: torch.device):
@@ -942,9 +1057,9 @@ def _check_delay_modes(words_major: bool, shape: tuple, n_windows: int, *,
 
 class BroadcastSim:
     """Round-synchronous broadcast simulator (the reference's
-    ``BroadcastSim``) on one device, under partition schedules and fault
-    plans on both layouts, or on a 1-D mesh (``mesh=``: one rank a block
-    of the node axis; partition schedules there, no fault plan).
+    ``BroadcastSim``) on one device, under partition schedules, fault
+    plans and per-hop delays on both layouts, or on a 1-D mesh (``mesh=``:
+    one rank a block of the node axis, every mode).
 
     - **words-major (W, N)** with a structured ``exchange`` from
       :func:`.structured.make_exchange`: gather-free delivery for the
@@ -1013,9 +1128,13 @@ class BroadcastSim:
         (:func:`.structured.make_sharded_exchange` /
         :func:`.structured.make_sharded_sync_diff`, bound here); a
         words-major sim without one takes the all-gather fallback, with
-        the server ledger off as in the reference.  Reference modes not
-        ported yet (``dcn_mode``, and a mesh with the delay modes, the
-        nemesis, a fault plan or ``union_block``) raise."""
+        the server ledger off as in the reference.  Every mode above runs
+        on a mesh: the fault, delay and nemesis bundles built with
+        ``n_shards=`` carry their own halo closures (the delay bundles
+        refuse a mesh without them, as the reference does; the nemesis
+        falls back to the all-gather), and the gather path's plan,
+        ``delays`` and ``union_block`` run over the all-gathered payload.
+        ``dcn_mode`` raises (ROADMAP.md Queue A item 10)."""
         from .engine import _check_flat
         from .structured import Halo
 
@@ -1036,13 +1155,6 @@ class BroadcastSim:
                                 "structured.Halo")
         _check_flat(mesh)
         if mesh is not None:
-            for name, value in (("delays", delays), ("delayed", delayed),
-                                ("edge_delayed", edge_delayed),
-                                ("nemesis", nemesis),
-                                ("fault_plan", fault_plan),
-                                ("union_block", union_block)):
-                if value is not None:
-                    raise _unported(f"BroadcastSim(mesh=, {name}=...)")
             if nbrs.shape[0] % mesh.size:
                 raise ValueError(f"{nbrs.shape[0]} nodes do not shard "
                                  f"evenly over {mesh.size} ranks")
@@ -1145,12 +1257,25 @@ class BroadcastSim:
                                   else sharded_sync_diff.bind(mesh)
                                   if mesh is not None
                                   else sharded_sync_diff)
-        self._mesh_kw = {}
+        self._shard = ONE_DEVICE
+        self._row0 = self._rows.start
         if self.words_major:
             f = self._faulted
-            halo = mesh is None or (
-                f.sharded_exchange is not None if f is not None
-                else self.sharded_exchange is not None)
+            delay_bundle = delayed if delayed is not None else edge_delayed
+            halo = mesh is None
+            if mesh is not None:
+                # the bundle that delivers decides: its halo closure, or
+                # the all-gather fallback (which the delay modes refuse)
+                lead = next((b for b in (nemesis, delay_bundle, f)
+                             if b is not None), None)
+                halo = (lead.sharded_exchange if lead is not None
+                        else self.sharded_exchange) is not None
+                if delay_bundle is not None and not halo:
+                    what = "delayed" if delayed is not None \
+                        else "edge-delayed"
+                    raise ValueError(
+                        f"{what} structured delivery on a mesh needs the "
+                        "halo closure (no all_gather fallback)")
             if f is not None:
                 # the halo path masks the local block: its rows' bits
                 cut = self._rows if mesh is not None and halo \
@@ -1162,12 +1287,9 @@ class BroadcastSim:
             bundle = nemesis if nemesis is not None else f
             if mesh is not None:
                 # the reference's gates: the halo closures, else no ledger
-                if f is not None:
-                    self._srv_on = (srv_ledger and halo
-                                    and f.sharded_sync_diff is not None)
-                else:
-                    self._srv_on = (srv_ledger and halo
-                                    and self.sharded_sync_diff is not None)
+                self._srv_on = srv_ledger and halo and (
+                    bundle.sharded_sync_diff if bundle is not None
+                    else self.sharded_sync_diff) is not None
                 sync_diff = self.sharded_sync_diff
             elif bundle is not None:
                 self._srv_on = srv_ledger and bundle.sync_diff is not None
@@ -1179,18 +1301,20 @@ class BroadcastSim:
                     f = self._faulted = dataclasses.replace(
                         f, exchange=f.sharded_exchange.bind(mesh),
                         sync_diff=f.sharded_sync_diff.bind(mesh))
+                # outside the windows: the sim's halo exchange, or the
+                # bundle's masked one under the exists rows (the delay
+                # and nemesis rounds deliver through their own closures)
                 self._wm_exchange = (
-                    self.sharded_exchange if self.sharded_exchange
-                    is not None else
+                    self.sharded_exchange if f is None
+                    or self.sharded_exchange is not None else
                     (lambda p, f=f, ex=self._fx_exists: f.exchange(p, ex)))
-                self._mesh_kw = dict(reduce_sum=self._psum)
+                self._shard = Shard(reduce_sum=self._psum)
             elif mesh is not None:
-                rows = self._rows
-                self._mesh_kw = dict(
+                self._shard = Shard(
                     reduce_sum=self._psum,
                     widen=lambda p: mesh.all_gather(p, dim=1),
-                    local_slice=lambda x: x[:, rows].contiguous(),
-                    deg_slice=lambda x: x[rows])
+                    rows=self._rows)
+            self._halo = halo
             if f is not None and sync_diff is None:
                 # outside the windows: the bundle's diff under exists
                 def sync_diff(r, f=f, ex=self._fx_exists):
@@ -1208,12 +1332,16 @@ class BroadcastSim:
             self.row_ids = torch.arange(self._rows.start, self._rows.stop,
                                         device=self.device)
             if mesh is not None:
-                self._mesh_kw = dict(
+                # under a plan the coins' liveness operand covers every
+                # node
+                self._shard = Shard(
                     reduce_sum=self._psum,
-                    widen=lambda p: mesh.all_gather(p, dim=0))
+                    widen=lambda p: mesh.all_gather(p, dim=0),
+                    row0=self._row0,
+                    all_ids=None if fault_plan is None else torch.arange(
+                        n, device=self.device))
         if nemesis is not None:
-            self._nem_arrs = nemesis.arrs.to(self.device)
-            self._nem_deg = kernels.count_rows(self._nem_arrs.deg_exists, n)
+            self._setup_nemesis(nemesis)
         self._setup_delays(delays, delayed, edge_delayed, nemesis)
         self._fp_dup = fault_plan is not None and fault_plan.dup_num > 0
         self._ub = None
@@ -1248,8 +1376,9 @@ class BroadcastSim:
                 self._srv_on = False
             else:
                 # per destination row: D edges x (liveness + loss/dup
-                # coins + gather temps), about 16 bytes per edge slot
-                self._ub = resolve_block(n, union_block,
+                # coins + gather temps), about 16 bytes per edge slot; a
+                # rank's slabs cut its own rows
+                self._ub = resolve_block(block, union_block,
                                          per_row_bytes=nbrs.shape[1] * 16)
             if self._ub is not None and self._srv_on:
                 if union_block is not None:
@@ -1264,36 +1393,76 @@ class BroadcastSim:
         self._fixed = {}
         self._traffic = {}
 
+    def _setup_nemesis(self, nem) -> None:
+        """The nemesis round's operand and closures on this sim: the whole
+        mask operand off a mesh and on the all-gather fallback (with the
+        widen / slice closures), a rank's block of it with the bundle's
+        halo closures bound on the halo path."""
+        mesh, rows = self.mesh, self._rows
+        arrs = nem.arrs
+        self._nem_shard = ONE_DEVICE
+        if mesh is not None and self._halo:
+            arrs = arrs.shard(mesh.rank, mesh.size)
+            nem = dataclasses.replace(
+                nem, exchange=nem.sharded_exchange.bind(mesh),
+                src_pc=nem.sharded_src_pc.bind(mesh),
+                sync_diff=nem.sharded_sync_diff.bind(mesh),
+                ring_exchange=None if nem.sharded_ring_exchange is None
+                else nem.sharded_ring_exchange.bind(mesh))
+            self._nem_shard = Shard(reduce_sum=self._psum)
+        elif mesh is not None:
+            self._nem_shard = Shard(
+                reduce_sum=self._psum,
+                widen=lambda p: mesh.all_gather(p, dim=1), rows=rows)
+        self._nem = nem
+        self._nem_arrs = arrs.to(self.device)
+        self._nem_deg = kernels.count_rows(self._nem_arrs.deg_exists,
+                                           self._nem_arrs.n_nodes)
+
     def _setup_delays(self, delays, delayed, edge_delayed, nemesis) -> None:
         """The delay mode's ring length, its device operands and its
         delivery closure ``self._delayed_ex(history, t)`` (None for the
-        gather path's delays and the nemesis, which their rounds take)."""
+        gather path's delays and the nemesis, which their rounds take).
+        On a mesh the closure is the bundle's halo twin over the rank's
+        block of the ring, its class rows and window masks cut to the
+        block's columns."""
         self._classes = None
         self._delayed_ex = None
         self.ring = 1
+        mesh = self.mesh
+        cols = self._rows if mesh is not None else slice(None)
         if delays is not None:
-            self._classes = delay_classes(torch.as_tensor(
-                np.asarray(delays, np.int32), device=self.device))
+            # every rank takes the classes of the whole table, so that the
+            # ranks' rounds make the same collectives
+            d = np.asarray(delays, np.int32)
+            self._classes = delay_classes(
+                torch.as_tensor(np.ascontiguousarray(d[self._rows]),
+                                device=self.device),
+                tuple(int(v) for v in np.unique(d)))
             self.ring = max(self._classes)
         elif delayed is not None:
             self.ring = delayed.ring
+            ex = (delayed.exchange if mesh is None
+                  else delayed.sharded_exchange.bind(mesh))
             if hasattr(delayed, "same"):
-                self._delayed_ex = lambda h, t: delayed.exchange(
-                    h, t, self._live_at)
+                self._delayed_ex = lambda h, t: ex(h, t, self._live_at)
             else:
-                self._delayed_ex = delayed.exchange
+                self._delayed_ex = ex
         elif edge_delayed is not None:
             ed = edge_delayed
             self.ring = ed.ring
-            rows = ed.class_rows(self.device)
+            rows = ed.class_rows(self.device, cols)
+            ex = (ed.exchange if mesh is None
+                  else ed.sharded_exchange.bind(mesh))
             if hasattr(ed, "del_same"):
-                dsame = kernels.pack_bits(torch.from_numpy(ed.del_same)).to(
-                    self.device)
+                dsame = kernels.pack_bits(torch.from_numpy(
+                    np.ascontiguousarray(ed.del_same[..., cols]))).to(
+                        self.device)
                 ps, pe = self.parts.starts, self.parts.ends
-                self._delayed_ex = lambda h, t: ed.exchange(
+                self._delayed_ex = lambda h, t: ex(
                     h, t, rows, ed.live_by_delay(dsame, ps, pe, t))
             else:
-                self._delayed_ex = lambda h, t: ed.exchange(h, t, rows)
+                self._delayed_ex = lambda h, t: ex(h, t, rows)
         elif nemesis is not None and nemesis.dir_delays is not None:
             self.ring = nemesis.ring
         self._delay_mode = (delays is not None or delayed is not None
@@ -1353,7 +1522,8 @@ class BroadcastSim:
             return _round_wm_nem(state, nem=self._nem, arrs=self._nem_arrs,
                                  plan=self.fault_plan, parts=self.parts,
                                  sync_every=self.sync_every,
-                                 dup_on=self._fp_dup, deg_topo=self._nem_deg)
+                                 dup_on=self._fp_dup, deg_topo=self._nem_deg,
+                                 shard=self._nem_shard)
         if self.words_major:
             return _round_wm(state, deg=self.deg,
                              sync_every=self.sync_every,
@@ -1363,13 +1533,13 @@ class BroadcastSim:
                              live=self._live_rows(state.t),
                              faulted=self._faulted,
                              delayed_exchange=self._delayed_ex,
-                             **self._mesh_kw)
+                             shard=self._shard)
         return _round(state, row_ids=self.row_ids, nbrs=self.nbrs,
                       nbr_mask=self.nbr_mask, parts=self.parts,
                       sync_every=self.sync_every, deg=self.deg,
                       plan=self.fault_plan, dup_on=self._fp_dup,
                       union_block=self._ub, classes=self._classes,
-                      **self._mesh_kw)
+                      shard=self._shard)
 
     def converged(self, state: BroadcastState,
                   target: torch.Tensor) -> bool:

@@ -40,8 +40,20 @@ provenance stamps (:mod:`.provenance`: each node's flush round, the KV
 value it landed in and the round every cache caught up to it) beside the
 ordinary rounds.
 
-Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); the program audit (item 14).
+On a mesh (``CounterSim(mesh=)``, a :class:`..parallel.mesh.Mesh`) each
+rank holds its block of the node rows (and of the device KV's rows), the
+rows keep their global ids (the winner's hash, the coins), and a round is
+the same two kernels over the block, the read pass in its partial form,
+with all-reduces between them: the least winner key (one minimum: the
+64-bit key orders the wide layout's priority, then row, as the
+reference's two pmins do), then one sum of the winner's pending (or of
+the flushes) and the message charge, and, with the device KV, one sum of
+the key's view (:func:`.kvstore.rows_view_block`).  No all-gather, no
+ppermute.
+
+Not ported yet, and raising: ``dcn_mode``, and the traffic and observed
+drivers on a mesh (ROADMAP.md Queue A item 10); the program audit (item
+14).
 """
 
 from __future__ import annotations
@@ -55,7 +67,7 @@ import torch
 from . import faults, kernels, kvstore, provenance, telemetry, traffic
 from .engine import (active_windows, collectives, fori_rounds,
                      resolve_block, resolve_device, scan_blocks)
-from .kernels import GATE_BLOCKED, GATE_WIPE
+from .kernels import _NO_KEY, GATE_BLOCKED, GATE_WIPE, MASK32
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
 # A item
@@ -145,10 +157,22 @@ class CounterSim:
         the :mod:`.kvstore` rows, with ``kv_amnesia`` and the
         ``stale_*`` coins (cas mode; a dup stream is refused).
         ``device``: where the state lives (default CUDA; raises if there
-        is none).  ``mesh`` and ``dcn_mode`` raise (ROADMAP.md Queue A
-        item 10)."""
+        is none).  ``mesh``: a :class:`..parallel.mesh.Mesh`, this rank
+        running its block of the rows on ``mesh.device`` (N must divide
+        evenly; every rank calls every method in the same order).
+        ``dcn_mode`` raises (ROADMAP.md Queue A item 10)."""
         if mesh is not None:
-            raise _unported("CounterSim(mesh=...)", 10)
+            from .engine import _check_flat
+
+            _check_flat(mesh)
+            if n_nodes % mesh.size:
+                raise ValueError(f"{n_nodes} nodes do not shard evenly "
+                                 f"over {mesh.size} ranks")
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         if dcn_mode is not None:
             raise _unported("CounterSim(dcn_mode=...)", 10)
         if mode not in ("cas", "allreduce"):
@@ -167,7 +191,11 @@ class CounterSim:
         if kv_backend == "device":
             kvstore.reject_dup_stream(fault_plan, "CounterSim")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.n_nodes = n_nodes
+        # this rank's rows: all of them off a mesh
+        self._block = n_nodes if mesh is None else n_nodes // mesh.size
+        self._row0 = 0 if mesh is None else mesh.rank * self._block
         self.mode = mode
         self.poll_every = poll_every
         self.seed = seed
@@ -178,6 +206,9 @@ class CounterSim:
             # one seq-kv key, routed by the store's stateless hash
             self._kv_layout = kvstore.make_layout(1, n_nodes, seed=seed)
             self._slots = kvstore.key_slots(self._kv_layout, self.device)
+            # a rank's share of the store: the keys its rows own
+            self._block_slots = kvstore.block_slots(
+                self._kv_layout, self._row0, self._block, self.device)
             self._key_at = (int(self._kv_layout.owner[0]),
                             int(self._kv_layout.slot[0]))
         self._stale_num = (kvstore.stale_num_of(stale_prob)
@@ -200,8 +231,9 @@ class CounterSim:
             raise ValueError(f"KVReach blocked "
                              f"{tuple(self.kv_sched.blocked.shape)} is not "
                              f"(P, {n_nodes})")
-        # each window's gate bytes, made once
-        self._win_gates = [w.to(torch.uint8) * GATE_BLOCKED
+        # each window's gate bytes over this rank's rows, made once
+        cut = slice(self._row0, self._row0 + self._block)
+        self._win_gates = [w[cut].to(torch.uint8) * GATE_BLOCKED
                            for w in self.kv_sched.blocked]
         if fault_plan is not None and fault_plan.n_nodes != n_nodes:
             raise ValueError(
@@ -209,15 +241,16 @@ class CounterSim:
                 f"{n_nodes}")
         self.fault_plan = (None if fault_plan is None
                            else fault_plan.to(self.device))
-        # two coin/mask evaluations per node row
-        self._ub = resolve_block(max(1, n_nodes), union_block,
+        # two coin/mask evaluations per node row (a rank's rows)
+        self._ub = resolve_block(max(1, self._block), union_block,
                                  per_row_bytes=8)
         # the plan's coins and masks take the node ids
         self._row_ids = (None if fault_plan is None else
-                         collectives(n_nodes, device=self.device).row_ids)
+                         collectives(self._block, mesh,
+                                     device=self.device).row_ids)
         self._work = kernels.counter_work(self.device)
-        self._rows = torch.arange(n_nodes, dtype=torch.int32,
-                                  device=self.device)
+        self._rows = torch.arange(self._row0, self._row0 + self._block,
+                                  dtype=torch.int32, device=self.device)
         self._traffic = {}
 
     def __getattr__(self, name: str):
@@ -226,11 +259,14 @@ class CounterSim:
         raise AttributeError(name)
 
     def init_state(self) -> CounterState:
-        def z(shape=(self.n_nodes,)):
+        """The round-0 state (this rank's block of the rows on a mesh)."""
+        def z(shape=(self._block,)):
             return torch.zeros(shape, dtype=torch.int32, device=self.device)
 
-        rows = (kvstore.init_rows(self._kv_layout, self.device)
-                if self._device_kv else None)
+        rows = None
+        if self._device_kv:
+            rows = kvstore.init_rows(self._kv_layout, self.device,
+                                     rows=self._block)
         return CounterState(pending=z(), cached=z(), kv=z(()), t=0,
                             msgs=torch.zeros((), dtype=torch.int64,
                                              device=self.device),
@@ -240,8 +276,10 @@ class CounterSim:
 
     def add(self, state: CounterState, deltas) -> CounterState:
         """Buffer acked deltas: ``deltas`` is (N,) per-node int32 (the
-        batched ``add`` handler — the ack precedes durability)."""
-        d = torch.as_tensor(np.asarray(deltas, np.int32)).to(self.device)
+        batched ``add`` handler — the ack precedes durability); a rank
+        adds its block of them."""
+        d = np.asarray(deltas, np.int32)[self._row0:self._row0 + self._block]
+        d = torch.as_tensor(np.ascontiguousarray(d)).to(self.device)
         return state._replace(pending=state.pending + d)
 
     # -- round -----------------------------------------------------------
@@ -273,8 +311,8 @@ class CounterSim:
                 return carry
 
             ok = scan_blocks(gate_blk, torch.zeros(
-                self.n_nodes, dtype=torch.bool, device=self.device),
-                self.n_nodes, ub)
+                self._block, dtype=torch.bool, device=self.device),
+                self._block, ub)
         else:
             ok = faults.node_up(plan, t, row_ids) \
                 & ~faults.kv_drop(plan, t, row_ids)
@@ -292,35 +330,84 @@ class CounterSim:
         t = state.t
         gate, wipe = self._gate(t)
         rows = state.rows
+        mesh = self.mesh
         if self._device_kv:
             if wipe is not None and self.kv_amnesia:
                 # the KV rows are node state: a restarting owner loses
                 # its register through the same amnesia coin
                 rows = kvstore.wipe_rows(rows, wipe)
-            # the authoritative value is read from the store
-            kv0 = rows.vals[self._key_at]
+            # the authoritative value is read from the store: on a mesh
+            # the owner rank's slot, through one all-reduce
+            kv0 = (rows.vals[self._key_at] if mesh is None else
+                   kvstore.rows_view_block(rows, self._block_slots, 1,
+                                           self._psum)[0, 0])
         else:
             kv0 = state.kv
         cas = self.mode == "cas"
         poll = self.poll_every > 0 and t % self.poll_every == 0
-        kv, msgs = kernels.counter_select(
-            state.pending, state.cached, gate, kv0, state.msgs, self._work,
-            cas=cas, wide=self._wide, row_bits=self._row_bits, t=t,
-            seed=self.seed, poll=poll)
+        kw = dict(cas=cas, wide=self._wide, row_bits=self._row_bits, t=t,
+                  seed=self.seed, poll=poll)
+        if mesh is None:
+            kv, msgs = kernels.counter_select(
+                state.pending, state.cached, gate, kv0, state.msgs,
+                self._work, **kw)
+        else:
+            part = kernels.counter_select(
+                state.pending, state.cached, gate, kv0, state.msgs,
+                self._work, row0=self._row0, partial=True, **kw)
+            kv, msgs = self._finish(part, kv0, state.msgs, cas, poll)
         stale_num = self._stale_num if t < self._stale_until else 0
         pending, cached = kernels.counter_apply(
             state.pending, state.cached, gate, kv, self._work, cas=cas,
             poll=poll, stale_num=stale_num, stale_seed=self._stale_seed,
-            t=t, out=out)
+            t=t, out=out, row0=self._row0)
         if self._device_kv:
             # commit the round's one linearization step: a CAS from the
-            # value read, so the store and ``kv`` never diverge
-            rows = kvstore.cas_apply_at(rows, self._slots,
-                                        (kv != kv0).reshape(1),
-                                        kv0.reshape(1), kv.reshape(1),
+            # value read, so the store and ``kv`` never diverge (on a
+            # mesh in the owner rank's rows)
+            slots, keys = ((self._slots, None) if mesh is None
+                           else self._block_slots)
+            on, frm, to = ((kv != kv0).reshape(1), kv0.reshape(1),
+                           kv.reshape(1))
+            if keys is not None:
+                on, frm, to = on[keys], frm[keys], to[keys]
+            rows = kvstore.cas_apply_at(rows, slots, on, frm, to,
                                         donate=out is not None)
         return CounterState(pending=pending, cached=cached, kv=kv, t=t + 1,
                             msgs=msgs, rows=rows)
+
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(x, "sum")
+
+    def _finish(self, part: torch.Tensor, kv0: torch.Tensor,
+                msgs: torch.Tensor, cas: bool, poll: bool):
+        """The round's ``(kv, msgs)`` and winner word from the ranks'
+        partials (:func:`.kernels.counter_select`'s partial form), on the
+        card without a host sync: cas takes the least key over the ranks
+        (its row the winner, lowest row first among equal priorities
+        across ranks), then sums the owner's pending of it and the message
+        charges, less the winner's poll; allreduce sums the flushes and
+        the charges."""
+        mesh = self.mesh
+        if cas:
+            best = mesh.all_reduce(part[:1], "min")
+            mine = part[:1] == best
+            sums = mesh.all_reduce(
+                torch.cat([torch.where(mine, part[1:2], 0), part[2:]]),
+                "sum")
+            has = best[0] != _NO_KEY
+            kv = torch.where(has, kernels._wrap_i32(kv0.to(torch.int64)
+                                                    + sums[0]), kv0)
+            msgs = (msgs + sums[1] - torch.where(has, 2 if poll else 0, 0)
+                    ) & MASK32
+            self._work[3] = torch.where(has, best[0] & MASK32,
+                                        self.n_nodes)
+        else:
+            sums = mesh.all_reduce(part[1:], "sum")
+            kv = kernels._wrap_i32(kv0.to(torch.int64) + sums[0])
+            msgs = (msgs + sums[1]) & MASK32
+            self._work[3] = self.n_nodes
+        return kv, msgs
 
     def step(self, state: CounterState) -> CounterState:
         return self._round(state)
@@ -472,6 +559,8 @@ class CounterSim:
         the rounds update the state's ``pending``, ``cached`` and KV rows
         in place (:meth:`run_fused`) and the ring too; else the state and
         ring are left as they were.  Returns ``(state, tel?, prov?)``."""
+        if self.mesh is not None:
+            raise _unported("CounterSim.run_observed on a mesh", 10)
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -516,6 +605,8 @@ class CounterSim:
         with ``donate`` the tracker and the ring are updated in place,
         else copied first.  ``tel`` / ``tel_spec``: record the telemetry
         ring too, and return ``(state, ts, tel)``."""
+        if self.mesh is not None:
+            raise _unported("CounterSim.run_traffic on a mesh", 10)
         telemetry.tel_key(tel, tel_spec, "counter")
         ix = self._traffic_index(tspec)
         tplan = tspec.compile()
@@ -531,8 +622,11 @@ class CounterSim:
     # -- reads -----------------------------------------------------------
 
     def reads(self, state: CounterState) -> np.ndarray:
-        """(N,) int32 — each node's ``read`` reply (its cached value)."""
-        return state.cached.cpu().numpy()
+        """(N,) int32 — each node's ``read`` reply (its cached value); on
+        a mesh every rank's block, gathered (a collective)."""
+        cached = state.cached if self.mesh is None \
+            else self.mesh.all_gather(state.cached)
+        return cached.cpu().numpy()
 
     def kv_value(self, state: CounterState) -> int:
         return int(state.kv)

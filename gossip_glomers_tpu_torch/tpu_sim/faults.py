@@ -716,7 +716,11 @@ class WMNemesisArrays:
     drive the ledgers.  Masks are packed rows, ids int32 (the
     reference's leaves); the coins take the ids' closed forms instead
     (``coin_dirs`` / ``deg_coin_dirs``, structured.coin_dirs), right
-    wherever ``exists`` holds."""
+    wherever ``exists`` holds.
+
+    On a mesh every column-indexed leaf is cut to a rank's block of the
+    node axis (:meth:`shard`, the reference's ``wm_specs(True)``): column
+    i is then node ``col0 + i`` of ``n_ids``, which the coins take."""
 
     exists: torch.Tensor         # (D, NW) packed: delivery edges
     same: torch.Tensor           # (P, D, NW) packed: partition same-group
@@ -731,14 +735,50 @@ class WMNemesisArrays:
     deg_dst: torch.Tensor        # (Dg, N) int32
     deg_coin_dirs: torch.Tensor  # (Dg, 4) int64
     down_cols: torch.Tensor      # (C, N) bool: amnesia / receiver-up
+    n_ids: int                   # the graph's nodes, whose ids the coins hash
+    col0: int = 0                # the global node of column 0
 
     @property
     def n_nodes(self) -> int:
+        """The columns: every node, or a rank's block."""
         return int(self.src.shape[1])
 
     def to(self, device: str | torch.device) -> "WMNemesisArrays":
-        return WMNemesisArrays(**{f.name: getattr(self, f.name).to(device)
-                                  for f in dataclasses.fields(self)})
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def shard(self, rank: int, n_shards: int) -> "WMNemesisArrays":
+        """Rank ``rank``'s block of ``n_shards``: every column-indexed
+        leaf cut to the columns ``[rank B, (rank + 1) B)``, the packed
+        rows repacked over the block ((..., ceil(B/32)), the layout the
+        masked halo exchanges take); the plan-wide leaves (the coin
+        descriptors) stay whole."""
+        n = self.n_nodes
+        if self.col0 or n != self.n_ids or n % n_shards:
+            raise ValueError(f"{n} columns do not shard over {n_shards} "
+                             "ranks (or are a block already)")
+        b = n // n_shards
+        cols = slice(rank * b, (rank + 1) * b)
+
+        def packed(x: torch.Tensor) -> torch.Tensor:
+            rows = kernels.unpack_bits(x.cpu(), n)[..., cols]
+            return kernels.pack_bits(rows.contiguous()).to(x.device)
+
+        def plain(x: torch.Tensor) -> torch.Tensor:
+            return x[..., cols].contiguous()
+
+        return WMNemesisArrays(
+            exists=packed(self.exists), same=packed(self.same),
+            down_pair=packed(self.down_pair), src=plain(self.src),
+            dst=plain(self.dst), coin_dirs=self.coin_dirs,
+            deg_exists=packed(self.deg_exists),
+            deg_same=packed(self.deg_same),
+            deg_down_pair=packed(self.deg_down_pair),
+            deg_src=plain(self.deg_src), deg_dst=plain(self.deg_dst),
+            deg_coin_dirs=self.deg_coin_dirs,
+            down_cols=plain(self.down_cols), col0=rank * b, n_ids=n)
 
 
 def crash_down_rows(spec: NemesisSpec, ids) -> np.ndarray:
@@ -811,7 +851,8 @@ def wm_live_del(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
     return kernels.wm_fault_coins(arrs.coin_dirs, arrs.n_nodes, live, t=t,
                                   seed=plan.seed, loss_num=plan.loss_num,
                                   dup_num=plan.dup_num, loss=loss, dup=dup,
-                                  srv=False)
+                                  srv=False, col0=arrs.col0,
+                                  n_ids=arrs.n_ids)
 
 
 def wm_srv_rows(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
@@ -828,7 +869,7 @@ def wm_srv_rows(plan: FaultPlan, t: int, arrs: WMNemesisArrays, pstarts,
     ack, both = kernels.wm_fault_coins(
         arrs.deg_coin_dirs, arrs.n_nodes, live, t=t, seed=plan.seed,
         loss_num=plan.loss_num, dup_num=plan.dup_num, loss=True, dup=False,
-        srv=True)
+        srv=True, col0=arrs.col0, n_ids=arrs.n_ids)
     return live, ack, both
 
 

@@ -750,13 +750,15 @@ def _gated(pending: torch.Tensor, cached: torch.Tensor,
 
 
 def counter_priority(n: int, t: int, seed: int, *, wide: bool,
-                     row_bits: int, device=None) -> torch.Tensor:
-    """(n,) int64: the CAS winner's hashed priority of each row at round
-    ``t``: ``min(x, 2^32 - 2)`` in the wide layout, the top ``31 -
-    row_bits`` bits of x capped at all-ones less one in the packed one."""
+                     row_bits: int, device=None,
+                     row0: int = 0) -> torch.Tensor:
+    """(n,) int64: the CAS winner's hashed priority of each row (the
+    global rows ``row0 .. row0 + n - 1``) at round ``t``: ``min(x, 2^32 -
+    2)`` in the wide layout, the top ``31 - row_bits`` bits of x capped at
+    all-ones less one in the packed one."""
     from .faults import _mul32
 
-    rows = torch.arange(n, dtype=torch.int64, device=device)
+    rows = row0 + torch.arange(n, dtype=torch.int64, device=device)
     x = (_mul32(rows, _K_ROW)
          + ((((t + seed) & MASK32) * _K_ROUND) & MASK32)) & MASK32
     x = x ^ (x >> 16)
@@ -778,13 +780,18 @@ def counter_select_plain(pending: torch.Tensor, cached: torch.Tensor,
                          gate: torch.Tensor | None, kv0: torch.Tensor,
                          msgs: torch.Tensor, work: torch.Tensor, *,
                          cas: bool, wide: bool, row_bits: int, t: int,
-                         seed: int, poll: bool):
+                         seed: int, poll: bool, row0: int = 0,
+                         partial: bool = False):
     n = pending.shape[0]
     p, c, reach = _gated(pending, cached, gate)
     if reach is None:
         reach = torch.ones_like(p, dtype=torch.bool)
     want = (p > 0) & reach
     polled = reach if poll else torch.zeros_like(reach)
+    if partial:
+        return _counter_partial_plain(p, c, want, polled, kv0, cas=cas,
+                                      wide=wide, row_bits=row_bits, t=t,
+                                      seed=seed, row0=row0)
     if cas:
         # the winner: the least (priority, row) among the fresh-read
         # contenders, as one 64-bit key (priority high, row low) moved
@@ -811,11 +818,41 @@ def counter_select_plain(pending: torch.Tensor, cached: torch.Tensor,
     return kv, (msgs + inc) & MASK32
 
 
+def _counter_partial_plain(p: torch.Tensor, c: torch.Tensor,
+                           want: torch.Tensor, polled: torch.Tensor,
+                           kv0: torch.Tensor, *, cas: bool, wide: bool,
+                           row_bits: int, t: int, seed: int,
+                           row0: int) -> torch.Tensor:
+    """The read pass's partial form over the global rows ``row0 ..``:
+    (3,) int64 ``[least key (int64 order, _NO_KEY none), its row's
+    pending (cas, 0 for none) or the wanting rows' uint32 sum
+    (allreduce), 4 want + 2 polled]``, polled in cas mode every reaching
+    row of a poll round."""
+    n = p.shape[0]
+    dev = p.device
+    if cas:
+        rows = row0 + torch.arange(n, dtype=torch.int64, device=dev)
+        pri = counter_priority(n, t, seed, wide=wide, row_bits=row_bits,
+                               device=dev, row0=row0)
+        key = torch.where(want & (c == kv0), (pri - (1 << 31)) * (1 << 32)
+                          + rows, _NO_KEY)
+        best = key.min() if n else torch.tensor(_NO_KEY, device=dev)
+        at = ((best & MASK32) - row0).clamp(0, max(n - 1, 0))
+        delta = torch.where(best != _NO_KEY, p[at].to(torch.int64), 0) \
+            if n else torch.zeros((), dtype=torch.int64, device=dev)
+        inc = 4 * want.sum() + 2 * polled.sum()
+    else:
+        best = torch.tensor(_NO_KEY, device=dev)
+        delta = torch.where(want, p, 0).to(torch.int64).sum() & MASK32
+        inc = 4 * want.sum() + 2 * (polled & ~want).sum()
+    return torch.stack([best, delta, inc.to(torch.int64)])
+
+
 def counter_apply_plain(pending: torch.Tensor, cached: torch.Tensor,
                         gate: torch.Tensor | None, kv: torch.Tensor,
                         work: torch.Tensor, *, cas: bool, poll: bool,
                         stale_num: int = 0, stale_seed: int = 0,
-                        t: int = 0, out=None):
+                        t: int = 0, out=None, row0: int = 0):
     from .kvstore import stale_coin
 
     n = pending.shape[0]
@@ -823,7 +860,7 @@ def counter_apply_plain(pending: torch.Tensor, cached: torch.Tensor,
     if reach is None:
         reach = torch.ones_like(p, dtype=torch.bool)
     want = (p > 0) & reach
-    rows = torch.arange(n, device=p.device)
+    rows = row0 + torch.arange(n, device=p.device)
     won = rows == work[3] if cas else want
     refreshed = kv.expand(n)
     if stale_num:
@@ -847,27 +884,32 @@ def coin_id(form: int, a: int = 0, j: int = 0) -> tuple[int, int]:
     return form, a | j << 32
 
 
-def coin_dir_rows(dirs: torch.Tensor,
-                  n: int) -> tuple[torch.Tensor, torch.Tensor]:
+def coin_dir_rows(dirs: torch.Tensor, n: int, *, col0: int = 0,
+                  n_ids: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The (D, n) int32 sender and receiver id rows of (D, 4) int64
     descriptor rows ``(src form, arg, dst form, arg)`` (:func:`coin_id`),
     in the kernel's uint32 arithmetic (so also at positions where no
-    edge exists, where the ids are no node's).  Raises on a form or
+    edge exists, where the ids are no node's).  Column i is node ``col0 +
+    i`` of a graph of ``n_ids`` nodes (default ``n``: a rank's block of a
+    mesh passes its offset and the global count).  Raises on a form or
     argument the kernel does not take."""
-    i = torch.arange(n, dtype=torch.int64, device=dirs.device)
+    n_ids = n if n_ids is None else n_ids
+    i = col0 + torch.arange(n, dtype=torch.int64, device=dirs.device)
 
     def ids(form: int, arg: int) -> torch.Tensor:
         a, j = arg & MASK32, arg >> 32
         if form == COIN_IDENT and arg == 0:
             v = i
-        elif form == COIN_SHIFT and a < n and j == 0:
-            v = torch.where(i + a >= n, i + a - n, i + a)
+        elif form == COIN_SHIFT and a < n_ids and j == 0:
+            v = torch.where(i + a >= n_ids, i + a - n_ids, i + a)
         elif form == COIN_PARENT and a >= 1 and j == 0:
             v = ((i - 1) & MASK32) // a
         elif form == COIN_CHILD and a >= 1 and 0 <= j < MASK32:
             v = (a * i + 1 + j) & MASK32
         else:
-            raise ValueError(f"no coin id form ({form}, {arg}) at n = {n}")
+            raise ValueError(f"no coin id form ({form}, {arg}) at n = "
+                             f"{n_ids}")
         return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
     rows = dirs.tolist()
@@ -979,12 +1021,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_fold_freeze": [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                                    ptr],
                 "gg_wm_fault_coins": [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
-                                      i64, i64, i32, i32, i32, ptr]},
+                                      i64, i64, i64, i64, i32, i32, i32,
+                                      ptr]},
             "counter_round": {
                 "gg_counter_select": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                      i64, i64, i32, i32, i32, i32, ptr],
+                                      ptr, i64, i64, i64, i32, i32, i32, i32,
+                                      ptr],
                 "gg_counter_apply": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
-                                     i32, i32, i64, i64, ptr]},
+                                     i64, i32, i32, i64, i64, ptr]},
             "kafka_round": {
                 "gg_kafka_merge": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                    ptr, ptr, i64, i64, i64, i32, ptr],
@@ -1721,7 +1765,8 @@ def fold_freeze(dst: torch.Tensor, src: torch.Tensor, active: torch.Tensor,
 
 def wm_fault_coins(dirs: torch.Tensor, n: int, live: torch.Tensor, *,
                    t: int, seed: int, loss_num: int, dup_num: int,
-                   loss: bool, dup: bool, srv: bool):
+                   loss: bool, dup: bool, srv: bool, col0: int = 0,
+                   n_ids: int | None = None):
     """The words-major nemesis's coins over direction rows: ``dirs`` the
     (D, 4) int64 descriptors of each row's sender and receiver ids
     (:func:`coin_id`, built by structured.coin_dirs), ``live`` the (D,
@@ -1741,7 +1786,13 @@ def wm_fault_coins(dirs: torch.Tensor, n: int, live: torch.Tensor, *,
     The coins are the reference's ``edge_drop`` / ``edge_dup`` hashes of
     ``(seed, t, src, dst)``; the plain version takes the id rows of
     :func:`coin_dir_rows`.  On the card the kernel computes the ids in
-    registers."""
+    registers.  ``n`` is the rows' column count; on a rank's block of a
+    mesh column i is node ``col0 + i`` of ``n_ids`` (default ``n``), and
+    the ids, hence the coins, are the global ones."""
+    n_ids = n if n_ids is None else n_ids
+    if col0 < 0 or col0 + n > n_ids:
+        raise ValueError(f"columns {col0} .. {col0 + n} lie outside the "
+                         f"{n_ids} nodes")
     if dirs.dtype != torch.int64 or dirs.dim() != 2 or dirs.shape[1] != 4 \
             or not dirs.is_contiguous():
         raise ValueError(f"dirs must be contiguous (D, 4) int64 descriptor "
@@ -1751,20 +1802,22 @@ def wm_fault_coins(dirs: torch.Tensor, n: int, live: torch.Tensor, *,
     args = dict(t=t, seed=seed, loss_num=loss_num, dup_num=dup_num,
                 loss=loss, dup=dup, srv=srv)
     if _on_cpu(dirs, live):
-        return wm_fault_coins_plain(*coin_dir_rows(dirs, n), live, **args)
+        return wm_fault_coins_plain(
+            *coin_dir_rows(dirs, n, col0=col0, n_ids=n_ids), live, **args)
     if d > MAX_WORDS:
         raise ValueError(f"{d} direction rows exceed the kernel's "
                          f"{MAX_WORDS}")
-    if not 1 <= n <= MAX_NODES:
-        raise ValueError(f"n = {n} nodes: the kernel takes 1 .. "
-                         f"{MAX_NODES}")
+    if not 1 <= n <= n_ids <= MAX_NODES:
+        raise ValueError(f"n = {n} columns of {n_ids} nodes: the kernel "
+                         f"takes 1 .. {MAX_NODES}")
     out0 = torch.empty_like(live)
     out1 = torch.empty_like(live) if srv or dup else None
     if live.numel():
         _launch("wm_fault_coins", _lib("fault_flood").gg_wm_fault_coins,
                 live.device, dirs.data_ptr(), live.data_ptr(),
                 out0.data_ptr(), None if out1 is None else out1.data_ptr(),
-                d, n, t & MASK32, seed & MASK32, loss_num & MASK32,
+                d, n, col0, n_ids, t & MASK32, seed & MASK32,
+                loss_num & MASK32,
                 dup_num & MASK32, int(loss), int(dup), int(srv))
     return out0, out1
 
@@ -1810,7 +1863,7 @@ def counter_select(pending: torch.Tensor, cached: torch.Tensor,
                    gate: torch.Tensor | None, kv0: torch.Tensor,
                    msgs: torch.Tensor, work: torch.Tensor, *, cas: bool,
                    wide: bool, row_bits: int, t: int, seed: int,
-                   poll: bool):
+                   poll: bool, row0: int = 0, partial: bool = False):
     """The counter round's read pass (counter.py's ``_round`` up to the
     new ``kv`` and the message ledger).  Per row, after the ``gate`` byte
     (:data:`GATE_WIPE` rows read 0, :data:`GATE_BLOCKED` rows do not
@@ -1829,33 +1882,55 @@ def counter_select(pending: torch.Tensor, cached: torch.Tensor,
     int64) are device scalars, never read on the host; returns new ones
     ``(kv, msgs)`` and leaves the winner row (N: none) in word 3 of
     ``work`` (:func:`counter_work`) for :func:`counter_apply`.  On the
-    card the last block to finish finalizes them: no host sync."""
+    card the last block to finish finalizes them: no host sync.
+
+    ``partial`` (a rank's block of a mesh, its rows the global rows
+    ``row0 ..``, which the hash and the key take): instead of finalizing,
+    returns the block's (3,) int64 partial ``[least key in int64 order
+    (int64 max: none), cas: that row's pending (0: none) / allreduce: the
+    wanting rows' uint32 sum, 4 want + 2 polled]``, polled in cas mode
+    every reaching row of a poll round; ``msgs`` and ``work`` word 3 are
+    then not written.  The caller reduces the partials over the ranks
+    and finishes the round (counter.py)."""
     kw = dict(cas=cas, wide=wide, row_bits=row_bits, t=t, seed=seed,
-              poll=poll)
+              poll=poll, row0=row0, partial=partial)
     if cas and not wide and not 1 <= row_bits <= 23:
         raise ValueError(f"packed winner keys take 1..23 row bits, got "
                          f"{row_bits}")
+    if row0 < 0 or (row0 and not partial):
+        raise ValueError(f"row0 = {row0}: the full read pass takes the "
+                         "rows from 0, a block of a mesh the partial form")
+    if row0 + pending.shape[0] >= 1 << 31:
+        raise ValueError(f"rows {row0} + {pending.shape[0]}: the counter "
+                         "round takes < 2^31")
     if _check_counter(pending, cached, gate, work,
                       {"kv0": (kv0, torch.int32),
                        "msgs": (msgs, torch.int64)}):
         return counter_select_plain(pending, cached, gate, kv0, msgs, work,
                                     **kw)
-    kv = torch.empty((), dtype=torch.int32, device=pending.device)
-    msgs_out = torch.empty((), dtype=torch.int64, device=pending.device)
+    dev = pending.device
+    part = torch.empty(3, dtype=torch.int64, device=dev) if partial \
+        else None
+    kv = None if partial else torch.empty((), dtype=torch.int32, device=dev)
+    msgs_out = None if partial else torch.empty((), dtype=torch.int64,
+                                                device=dev)
     _launch("counter_select", _lib("counter_round").gg_counter_select,
-            pending.device, pending.data_ptr(), cached.data_ptr(),
+            dev, pending.data_ptr(), cached.data_ptr(),
             None if gate is None else gate.data_ptr(), kv0.data_ptr(),
-            msgs.data_ptr(), work.data_ptr(), kv.data_ptr(),
-            msgs_out.data_ptr(), pending.shape[0], (t + seed) & MASK32,
-            int(cas), int(wide), row_bits, int(poll))
-    return kv, msgs_out
+            msgs.data_ptr(), work.data_ptr(),
+            None if kv is None else kv.data_ptr(),
+            None if msgs_out is None else msgs_out.data_ptr(),
+            None if part is None else part.data_ptr(), pending.shape[0],
+            row0, (t + seed) & MASK32, int(cas), int(wide), row_bits,
+            int(poll))
+    return part if partial else (kv, msgs_out)
 
 
 def counter_apply(pending: torch.Tensor, cached: torch.Tensor,
                   gate: torch.Tensor | None, kv: torch.Tensor,
                   work: torch.Tensor, *, cas: bool, poll: bool,
                   stale_num: int = 0, stale_seed: int = 0, t: int = 0,
-                  out=None):
+                  out=None, row0: int = 0):
     """The counter round's update pass, after :func:`counter_select` on
     the same operands: drain the winner row (cas, word 3 of ``work``) or
     every wanting row (allreduce), and set ``cached`` to the new ``kv``
@@ -1864,9 +1939,14 @@ def counter_apply(pending: torch.Tensor, cached: torch.Tensor,
     is behind and whose :func:`.kvstore.stale_coin` of ``(stale_seed,
     t)`` is below it keeps its value.  Returns ``(pending, cached)``, new
     tensors, or ``out``'s pair written in place (which may be the inputs
-    themselves: each row reads and writes only its own words)."""
+    themselves: each row reads and writes only its own words).  ``row0``:
+    the global row of row 0 (a rank's block of a mesh), which the winner
+    word and the stale coin name."""
     kw = dict(cas=cas, poll=poll, stale_num=stale_num,
-              stale_seed=stale_seed, t=t)
+              stale_seed=stale_seed, t=t, row0=row0)
+    if row0 < 0 or row0 + pending.shape[0] >= 1 << 31:
+        raise ValueError(f"rows {row0} + {pending.shape[0]}: the counter "
+                         "round takes < 2^31")
     on_cpu = _check_counter(pending, cached, gate, work,
                             {"kv": (kv, torch.int32)})
     if out is not None:
@@ -1886,7 +1966,7 @@ def counter_apply(pending: torch.Tensor, cached: torch.Tensor,
             pending.device, pending.data_ptr(), cached.data_ptr(),
             None if gate is None else gate.data_ptr(), kv.data_ptr(),
             work.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            pending.shape[0], int(cas), int(poll), stale_num & MASK32,
+            pending.shape[0], row0, int(cas), int(poll), stale_num & MASK32,
             stale_key(stale_seed, t))
     return out
 

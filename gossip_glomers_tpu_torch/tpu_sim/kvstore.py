@@ -1,5 +1,5 @@
 """The device-resident ``lin-kv`` / ``seq-kv`` service on PyTorch: the
-port of gossip_glomers_tpu/tpu_sim/kvstore.py, off-mesh.
+port of gossip_glomers_tpu/tpu_sim/kvstore.py.
 
 Key ``k`` lives in exactly one row slot of an ``(N, cap)`` slab at
 ``[owner(k), slot(k)]``: the owner by a stateless hash (:func:`owner_of`,
@@ -28,11 +28,18 @@ write bumps the version.
 - :func:`reject_dup_stream`: a duplicated KV request stream would
   double-commit against the rows, so the device backend refuses one.
 
+On a mesh the rows are node-sharded like every sim state
+(:func:`init_rows` of a rank's ``rows``, the reference's ``rows_spec``):
+:func:`block_slots` lists the keys a rank's block owns, the view
+(:func:`rows_view_block`) is each rank's stacked partial through one
+all-reduce, and a CAS (:func:`cas_apply_at` over the block's slots)
+touches only the owner's rows.
+
 Every update returns new tensors, and the rows of the state passed in
 stay as they were, unless the caller donates them
-(``cas_apply_at(..., donate=True)``).  The shard specs (``rows_spec``) and the program contracts
+(``cas_apply_at(..., donate=True)``).  The program contracts
 (``audit_contracts``) have no PyTorch meaning yet: ROADMAP.md Queue A
-items 10 and 14.
+item 14.
 """
 
 from __future__ import annotations
@@ -117,12 +124,13 @@ def make_layout(n_keys: int, n_nodes: int, *, seed: int = 0,
                     n_keys=n_keys, n_nodes=n_nodes, cap=cap, seed=seed)
 
 
-def init_rows(layout: KVLayout,
-              device: str | torch.device = "cpu") -> KVRows:
-    """All-zero rows, ``vals`` and ``vers`` distinct buffers."""
+def init_rows(layout: KVLayout, device: str | torch.device = "cpu", *,
+              rows: int | None = None) -> KVRows:
+    """All-zero rows, ``vals`` and ``vers`` distinct buffers: every
+    node's, or ``rows`` of them (a rank's block of a mesh)."""
     def z():
-        return torch.zeros((layout.n_nodes, layout.cap), dtype=torch.int32,
-                           device=device)
+        return torch.zeros((layout.n_nodes if rows is None else rows,
+                            layout.cap), dtype=torch.int32, device=device)
 
     return KVRows(vals=z(), vers=z())
 
@@ -133,6 +141,34 @@ def key_slots(layout: KVLayout,
     return KeySlots(
         owner=torch.from_numpy(layout.owner.astype(np.int64)).to(device),
         slot=torch.from_numpy(layout.slot.astype(np.int64)).to(device))
+
+
+def block_slots(layout: KVLayout, row0: int, block: int,
+                device: str | torch.device = "cpu"
+                ) -> tuple[KeySlots, torch.Tensor]:
+    """The keys that the rows ``[row0, row0 + block)`` own (a rank's
+    block of a mesh): ``(slots, keys)``, their (owner - row0, slot) in the
+    block's rows and their (K_b,) int64 key ids, in key order."""
+    own = np.flatnonzero((layout.owner >= row0)
+                         & (layout.owner < row0 + block))
+    return (KeySlots(
+        owner=torch.from_numpy((layout.owner[own] - row0).astype(
+            np.int64)).to(device),
+        slot=torch.from_numpy(layout.slot[own].astype(np.int64)).to(device)),
+        torch.from_numpy(own.astype(np.int64)).to(device))
+
+
+def rows_view_block(rows: KVRows, block: tuple[KeySlots, torch.Tensor],
+                    n_keys: int, reduce_sum) -> torch.Tensor:
+    """:func:`rows_view` of a rank's block of the rows on a mesh: (2, K)
+    int32, each key's (value, version) from its owner, zeros from the
+    other ranks' blocks, through one ``reduce_sum`` of the stacked
+    partial."""
+    slots, keys = block
+    part = torch.zeros((2, n_keys), dtype=torch.int32,
+                       device=rows.vals.device)
+    part[:, keys] = rows_view_at(rows, slots)
+    return reduce_sum(part)
 
 
 # -- slab forms (the reference's) ------------------------------------------

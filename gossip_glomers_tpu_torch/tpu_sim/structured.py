@@ -42,7 +42,12 @@ the engine's :func:`.engine.sharded_roll` / :func:`.engine.sharded_shift`
 multicasts around the kernel pair :func:`.kernels.tree_halo_pack` /
 :func:`.kernels.tree_halo_round`.  Each is a :class:`Halo`, bound to a
 mesh of ``n_shards`` ranks (:meth:`Halo.bind`).  The nemesis and delay
-bundles' halo closures are not ported (ROADMAP.md Queue A item 10).
+bundles built with ``n_shards=`` carry theirs too (``make_nemesis``'s
+``sharded_exchange`` / ``sharded_src_pc`` / ``sharded_ring_exchange``,
+the delay bundles' ``sharded_exchange``): each direction's halo term
+masked at its local receivers, the tree's kids masked before the fold
+(:func:`tree_halo_terms`), the dup ledger's counts moved by the same
+shifts, rolls and parent repeats.
 
 Maelstrom's per-hop latency on this path: :func:`make_delayed`
 (per-direction delay classes), :func:`make_edge_delayed` (random
@@ -457,14 +462,29 @@ def tree_sharded_exchange(p_local: torch.Tensor, n: int, n_shards: int,
     :func:`.kernels.tree_halo_round`.  ``live``: the block's packed
     parent-edge row (the masked exchange: the parent term gated at the
     receiver, the payload at the child before the fold)."""
-    w, block = p_local.shape
+    return tree_halo_terms(p_local, p_local, n, n_shards, branching, mesh,
+                           live, live)
+
+
+def tree_halo_terms(p_parent: torch.Tensor, p_kids: torch.Tensor, n: int,
+                    n_shards: int, branching: int = 4, mesh=None,
+                    live_parent: torch.Tensor | None = None,
+                    live_kids: torch.Tensor | None = None) -> torch.Tensor:
+    """The halo tree inbox of two local blocks: the from-parent term of
+    ``p_parent`` gated at its receivers by the packed row
+    ``live_parent``, OR the kids' fold of ``p_kids`` gated at the
+    children, before the fold, by ``live_kids`` (None: ungated).  The
+    nemesis's two delivery rows, or two ring slots under delays: the
+    parent slice is cut from one block, :func:`.kernels.tree_halo_pack`
+    packs the other, and :func:`.kernels.tree_halo_round` merges them."""
+    w, block = p_parent.shape
     k = branching
-    if block * n_shards != n:
+    if block * n_shards != n or p_kids.shape != p_parent.shape:
         raise ValueError("node axis must shard evenly")
     _check_tree_block(block, k)
-    buf = _parent_buf(p_local, n_shards, k, mesh)
-    ek, back = _kids_landing(p_local, n_shards, k, mesh, live)
-    return kernels.tree_halo_round(buf, ek, back, k, live)
+    buf = _parent_buf(p_parent, n_shards, k, mesh)
+    ek, back = _kids_landing(p_kids, n_shards, k, mesh, live_kids)
+    return kernels.tree_halo_round(buf, ek, back, k, live_parent)
 
 
 def _tree_flood(mesh, rec, fr, nxt, *, n: int, n_shards: int, k: int):
@@ -769,14 +789,6 @@ def line_masked_sync_diff(recv: torch.Tensor,
     return _dir_diff(_shift(recv, 1), recv, live[0])
 
 
-def _unported_shards(n_shards: int | None) -> None:
-    if n_shards is not None:
-        raise NotImplementedError(
-            "the halo (n_shards) closures of the structured nemesis and "
-            "delay bundles are not ported to PyTorch yet (ROADMAP.md Queue "
-            "A item 10)")
-
-
 # the masked halo exchanges (structured.py:765-805): the live rows shard
 # with the node axis like the state, (D, ceil(B/32)) packed rows of the
 # local block, so every mask lands on local receiver columns (the tree's
@@ -788,9 +800,48 @@ def _lv(live: torch.Tensor, d: int, block: int) -> torch.Tensor:
     return kernels.unpack_bits(live[d], block)
 
 
-def _masked_halo_fns(topology: str, n: int, n_shards: int, **kw):
+def _halo_dir(topology: str, n: int, n_shards: int, wrap_masks: bool = True,
+              **kw):
+    """``term(mesh, d, x)``: direction d's structured term of the local
+    block ``x`` (any integer dtype) over the halo, for the shift
+    topologies (the fault direction rows' order).  ``wrap_masks``: the
+    grid's left and right terms zeroed at the row ends, as the nemesis
+    and delay closures do; the partition bundle's masked closures leave
+    that to their exists rows, as the reference's do."""
+    block = n // n_shards
+    if topology in ("ring", "circulant"):
+        strides = _circ_strides(topology, kw)
+
+        def term(mesh, d, x):
+            i, back = divmod(d, 2)
+            return sharded_roll(x, -strides[i] if back else strides[i], n,
+                                n_shards, mesh)
+    elif topology == "grid":
+        cols = kw.get("cols") or grid_cols(n)
+        offs = (cols, -cols, 1, -1)
+
+        def term(mesh, d, x):
+            out = sharded_shift(x, offs[d], n_shards, mesh)
+            if d < 2 or not wrap_masks:
+                return out
+            col = _global_cols(mesh, block, x.device) % cols
+            return _mask_cols(out, col < cols - 1 if d == 2 else col > 0)
+    else:
+        def term(mesh, d, x):
+            return sharded_shift(x, 1 if d == 0 else -1, n_shards, mesh)
+    return term
+
+
+def _masked_halo_fns(topology: str, n: int, n_shards: int,
+                     wrap_masks: bool = False, **kw):
     """``(sex(mesh, p, live), sdf(mesh, r, live))``: the masked halo
-    exchange and sync diff over the local packed rows."""
+    exchange and sync diff over the local packed rows, each direction's
+    halo term (:func:`_halo_dir`, ``wrap_masks`` its) masked at its local
+    receivers; the tree's row 0 masks both of its terms
+    (:func:`tree_sharded_exchange`).
+    The diff counts each undirected edge once: the tree's parent rows,
+    the even (+s) rows of a circulant, the grid's up and left rows, the
+    line's forward row."""
     block = n // n_shards
     if topology == "tree":
         k = kw.get("branching", 4)
@@ -802,51 +853,26 @@ def _masked_halo_fns(topology: str, n: int, n_shards: int, **kw):
         def sdf(mesh, r, lv):
             parent = tree_parent_payload(r, n, n_shards, k, mesh)
             return _dir_diff(parent, r, _lv(lv, 0, block))
-    elif topology == "grid":
-        cols = kw.get("cols") or grid_cols(n)
 
-        def sex(mesh, p, lv):
-            terms = (sharded_shift(p, cols, n_shards, mesh),
-                     sharded_shift(p, -cols, n_shards, mesh),
-                     sharded_shift(p, 1, n_shards, mesh),
-                     sharded_shift(p, -1, n_shards, mesh))
-            return functools.reduce(torch.bitwise_or, (
-                _mask_cols(x, _lv(lv, d, block))
-                for d, x in enumerate(terms)))
-
-        def sdf(mesh, r, lv):
-            up = sharded_shift(r, cols, n_shards, mesh)
-            lf = sharded_shift(r, 1, n_shards, mesh)
-            return (_dir_diff(up, r, _lv(lv, 0, block))
-                    + _dir_diff(lf, r, _lv(lv, 2, block))) & MASK32
-    elif topology in ("ring", "circulant"):
-        strides = _circ_strides(topology, kw)
-
-        def sex(mesh, p, lv):
-            out = torch.zeros_like(p)
-            for i, s in enumerate(strides):
-                out |= (_mask_cols(sharded_roll(p, s, n, n_shards, mesh),
-                                   _lv(lv, 2 * i, block))
-                        | _mask_cols(sharded_roll(p, -s, n, n_shards, mesh),
-                                     _lv(lv, 2 * i + 1, block)))
-            return out
-
-        def sdf(mesh, r, lv):
-            out = _zero_diff(r)
-            for i, s in enumerate(strides):
-                out = out + _dir_diff(sharded_roll(r, s, n, n_shards, mesh),
-                                      r, _lv(lv, 2 * i, block))
-            return out & MASK32
+        return sex, sdf
+    term = _halo_dir(topology, n, n_shards, wrap_masks, **kw)
+    if topology in ("ring", "circulant"):
+        diff_rows = range(0, 2 * len(_circ_strides(topology, kw)), 2)
     else:
-        def sex(mesh, p, lv):
-            return (_mask_cols(sharded_shift(p, 1, n_shards, mesh),
-                               _lv(lv, 0, block))
-                    | _mask_cols(sharded_shift(p, -1, n_shards, mesh),
-                                 _lv(lv, 1, block)))
+        diff_rows = (0, 2) if topology == "grid" else (0,)
 
-        def sdf(mesh, r, lv):
-            return _dir_diff(sharded_shift(r, 1, n_shards, mesh), r,
-                             _lv(lv, 0, block))
+    def sex(mesh, p, lv):
+        out = torch.zeros_like(p)
+        for d in range(lv.shape[0]):
+            out |= _mask_cols(term(mesh, d, p), _lv(lv, d, block))
+        return out
+
+    def sdf(mesh, r, lv):
+        out = _zero_diff(r)
+        for d in diff_rows:
+            out = out + _dir_diff(term(mesh, d, r), r, _lv(lv, d, block))
+        return out & MASK32
+
     return sex, sdf
 
 
@@ -1033,6 +1059,77 @@ def _nem_closures(topology: str, n: int, **kw):
     return ex.masked, lambda d, pc: kernels.shift_term_plain(pc, ex.dirs, d)
 
 
+# -- the nemesis and delay bundles' halo closures ------------------------
+#
+# Their halo twins run over the local blocks of a mesh (structured.py:
+# 1738-1893 and the sharded branches of :1038-1660 in the reference): the
+# masks are the block's own packed rows ((D, ceil(B/32))), the ring the
+# state's (L, W, B) block, and each direction's term is the halo
+# primitive of the unmasked exchange, masked at its local receiver
+# columns, except the tree's child->parent terms, which the pack masks at
+# the children before the fold (tree_halo_terms).  The count relocation
+# of the dup ledger moves (1, B) int64 counts by the same primitives: a
+# pure shift, roll or parent repeat, never an OR of two counts.
+
+
+def _halo_nem(topology: str, n: int, n_shards: int, **kw):
+    """The halo twins of :func:`_nem_closures`: ``(sex(mesh, p, lv),
+    sspc(mesh, d, pc))`` over the block's packed delivery rows and its
+    (1, B) counts."""
+    if topology == "tree":
+        k = kw.get("branching", 4)
+
+        def sex(mesh, p, lv):
+            return tree_halo_terms(p, p, n, n_shards, k, mesh,
+                                   lv[0].contiguous(), lv[1].contiguous())
+
+        def sspc(mesh, d, pc):
+            return tree_parent_payload(pc, n, n_shards, k, mesh) if d == 0 \
+                else pc
+
+        return sex, sspc
+    return (_masked_halo_fns(topology, n, n_shards, True, **kw)[0],
+            _halo_dir(topology, n, n_shards, **kw))
+
+
+def _halo_ring(topology: str, n: int, n_shards: int, **kw):
+    """The halo twin of :func:`ring_terms`: ``run(mesh, hist, terms)``
+    over the block's (L, W, B) ring, each ``(d, slot, row)`` term's
+    packed row (or None) the block's.  The tree takes its parent and kids
+    terms a pair a :func:`tree_halo_terms` call (the parent slice cut
+    from the parent term's slot, the pack fed from the kids term's)."""
+    block = n // n_shards
+    if topology == "tree":
+        k = kw.get("branching", 4)
+
+        def run(mesh, hist, terms):
+            par = [(slot, row) for d, slot, row in terms if d == 0]
+            kid = [(slot, row) for d, slot, row in terms if d != 0]
+            zero = torch.zeros_like(hist[0])
+            out = zero
+            for j in range(max(len(par), len(kid))):
+                ps, pr = par[j] if j < len(par) else (None, None)
+                ks, kr = kid[j] if j < len(kid) else (None, None)
+                out = out | tree_halo_terms(
+                    zero if ps is None else hist[ps],
+                    zero if ks is None else hist[ks], n, n_shards, k, mesh,
+                    pr, kr)
+            return out
+
+        return run
+    term = _halo_dir(topology, n, n_shards, **kw)
+
+    def run(mesh, hist, terms):
+        out = torch.zeros_like(hist[0])
+        for d, slot, row in terms:
+            x = term(mesh, d, hist[slot])
+            out |= x if row is None else _mask_cols(
+                x, kernels.unpack_bits(row, block))
+        return out
+
+    return run
+
+
 @dataclass(frozen=True)
 class StructuredNemesis:
     """What a words-major BroadcastSim needs to run a compiled
@@ -1047,10 +1144,13 @@ class StructuredNemesis:
       count-relocation closures (:func:`_nem_closures`);
     - ``sync_diff(recv, rows)``: the masked per-edge diff over the degree
       contract's packed rows, the loss-only server ledger's sync term;
-    - ``sharded_*``: None (item 10);
     - ``ring_exchange(hist, terms)``: with ``dir_delays``, the delivery
       from the payload ring (:func:`ring_terms`: one ring kernel over
-      each direction's slot and coin row)."""
+      each direction's slot and coin row);
+    - ``sharded_*``: the halo twins (:class:`Halo`, over a rank's block:
+      its packed rows, counts and ring), None without ``n_shards`` or
+      where the halo gates fail (the all-gather fallback then runs the
+      full closures)."""
 
     arrs: "faults.WMNemesisArrays"
     dir_delays: tuple | None
@@ -1062,6 +1162,7 @@ class StructuredNemesis:
     sync_diff: Callable | None
     sharded_sync_diff: Callable | None
     ring_exchange: Callable | None = None
+    sharded_ring_exchange: Callable | None = None
 
 
 def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
@@ -1077,8 +1178,8 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
     with optional per-direction ``dir_delays`` (one a delivery-contract
     row: the tree's (down, up)).  Pass it to ``BroadcastSim(nemesis=...,
     fault_plan=spec.compile())``.  None for unstructured topologies.
-    ``n_shards`` is not ported and raises NotImplementedError."""
-    _unported_shards(n_shards)
+    ``n_shards``: also the halo closures over that many blocks (None
+    where the halo gates fail)."""
     if spec.n_nodes != n:
         raise ValueError(f"spec is for {spec.n_nodes} nodes, "
                          f"topology has {n}")
@@ -1133,11 +1234,18 @@ def make_nemesis(topology: str, n: int, spec: "faults.NemesisSpec",
         deg_coin_dirs=torch.from_numpy(
             coin_dirs(topology, n, degree=True, **kw)).to(device),
         down_cols=torch.from_numpy(faults.crash_down_rows(spec, idx)).to(
-            device))
+            device), n_ids=n)
     ex, spc = _nem_closures(topology, n, **kw)
-    return StructuredNemesis(arrs, dd, ring, ex, spc, None, None,
-                             _masked_diffs(topology, n, **kw)[0], None,
-                             ring_terms(topology, n, **kw) if dd else None)
+    df, sdf = _masked_diffs(topology, n, n_shards, **kw)
+    sex = sspc = sring = None
+    if sdf is not None:
+        hex_, hpc = _halo_nem(topology, n, n_shards, **kw)
+        sex, sspc = Halo(hex_, n_shards), Halo(hpc, n_shards)
+        if dd:
+            sring = Halo(_halo_ring(topology, n, n_shards, **kw), n_shards)
+    return StructuredNemesis(arrs, dd, ring, ex, spc, sex, sspc, df, sdf,
+                             ring_terms(topology, n, **kw) if dd else None,
+                             sring)
 
 
 # -- per-hop latency on the structured path -----------------------------
@@ -1307,7 +1415,9 @@ class StructuredDelays:
     """Delayed structured delivery (from :func:`make_delayed`):
     ``dir_delays`` per direction class (rounds >= 1), ``ring`` = the
     largest, ``exchange(history, t)`` the (W, N) inbox from the (L, W, N)
-    ring; ``sharded_exchange`` None (ROADMAP.md Queue A item 10)."""
+    ring; ``sharded_exchange(history, t)`` its halo twin over a rank's
+    (L, W, B) ring (:class:`Halo`), None without ``n_shards`` or where
+    the halo gates fail."""
 
     dir_delays: tuple
     ring: int
@@ -1317,12 +1427,13 @@ class StructuredDelays:
 
 def _delayed_impl(topology: str, n: int, dir_delays, n_shards=None, **kw):
     """The per-direction-class delivery shared by :func:`make_delayed`
-    and :func:`make_delayed_faulted`: ``(dd, ex)``, ``ex(hist, t, lv)``
-    with ``lv`` None (no partitions) or a {delay: (D, ceil(N/32)) packed
-    liveness} dict evaluated at each delay's send round (the fault
+    and :func:`make_delayed_faulted`: ``(dd, ex, sex)``, ``ex(hist, t,
+    lv)`` with ``lv`` None (no partitions) or a {delay: (D, ceil(N/32))
+    packed liveness} dict evaluated at each delay's send round (the fault
     contract's rows: the tree's row 0 gates both of its classes, at
-    receivers and before the fold).  None for unstructured topologies."""
-    _unported_shards(n_shards)
+    receivers and before the fold); ``sex(mesh, hist, t, lv)`` its halo
+    twin over a block's ring and rows (None without ``n_shards`` or where
+    the halo gates fail).  None for unstructured topologies."""
     run = ring_terms(topology, n, **kw)
     if run is None:
         return None
@@ -1330,16 +1441,26 @@ def _delayed_impl(topology: str, n: int, dir_delays, n_shards=None, **kw):
     ring = max(dd)
     mask_row = (lambda d: 0) if topology == "tree" else (lambda d: d)
 
-    def ex(hist, t, lv):
-        terms = []
+    def terms(t, lv):
+        out = []
         for d, v in enumerate(dd):
             slot = send_slot(t, v, ring)
             if slot is not None:
-                terms.append((d, slot, None if lv is None
-                              else lv[v][mask_row(d)]))
-        return run(hist, terms)
+                out.append((d, slot, None if lv is None
+                            else lv[v][mask_row(d)]))
+        return out
 
-    return dd, ex
+    def ex(hist, t, lv):
+        return run(hist, terms(t, lv))
+
+    sex = None
+    if has_sharded_exchange(topology, n, n_shards, **kw):
+        hrun = _halo_ring(topology, n, n_shards, **kw)
+
+        def sex(mesh, hist, t, lv):
+            return hrun(mesh, hist, terms(t, lv))
+
+    return dd, ex, sex
 
 
 def make_delayed(topology: str, n: int, dir_delays,
@@ -1353,8 +1474,11 @@ def make_delayed(topology: str, n: int, dir_delays,
     impl = _delayed_impl(topology, n, dir_delays, n_shards, **kw)
     if impl is None:
         return None
-    dd, ex = impl
-    return StructuredDelays(dd, max(dd), lambda h, t: ex(h, t, None))
+    dd, ex, sex = impl
+    return StructuredDelays(
+        dd, max(dd), lambda h, t: ex(h, t, None),
+        None if sex is None else Halo(
+            lambda mesh, h, t: sex(mesh, h, t, None), n_shards))
 
 
 @dataclass(frozen=True)
@@ -1366,7 +1490,10 @@ class FaultedDelayed:
     (D, ceil(N/32))`` packed rows (exists AND same-group under the
     windows active at t') and evaluates it once a distinct delay;
     ``exists`` / ``same`` follow :class:`StructuredFaults`, and
-    ``sync_diff(recv, live)`` is the ledger's masked diff."""
+    ``sync_diff(recv, live)`` is the ledger's masked diff;
+    ``sharded_exchange`` / ``sharded_sync_diff`` their halo twins over a
+    rank's block (``live_at`` then gives the block's rows), None without
+    ``n_shards`` or where the halo gates fail."""
 
     exists: np.ndarray
     same: np.ndarray
@@ -1390,7 +1517,7 @@ def make_delayed_faulted(topology: str, n: int, dir_delays,
     if masks is None or impl is None:
         return None
     exists, same = masks
-    dd, ex_impl = impl
+    dd, ex_impl, sex_impl = impl
 
     def lv_by_delay(live_at, t):
         # one liveness a distinct delay, at its send round
@@ -1400,8 +1527,13 @@ def make_delayed_faulted(topology: str, n: int, dir_delays,
     def exchange(hist, t, live_at):
         return ex_impl(hist, t, lv_by_delay(live_at, t))
 
-    return FaultedDelayed(exists, same, dd, max(dd), exchange,
-                          sync_diff=_masked_diffs(topology, n, **kw)[0])
+    df, sdf = _masked_diffs(topology, n, n_shards, **kw)
+    sex = None
+    if sex_impl is not None:
+        sex = Halo(lambda mesh, hist, t, live_at: sex_impl(
+            mesh, hist, t, lv_by_delay(live_at, t)), n_shards)
+    return FaultedDelayed(exists, same, dd, max(dd), exchange, sex, df,
+                          sdf)
 
 
 # Per-EDGE random delays.  Delays take values from a small static set, so
@@ -1438,7 +1570,10 @@ class EdgeDelays:
     skip: constant rows cost exactly :func:`make_delayed`), and
     ``exchange(history, t, class_rows, wl=None)`` over
     :meth:`class_rows`' packed masks and an optional {delay: packed
-    window liveness | None} dict; ``sharded_exchange`` None (item 10)."""
+    window liveness | None} dict; ``sharded_exchange`` its halo twin
+    (:class:`Halo`) over a rank's ring and class rows (:meth:`class_rows`
+    of its columns), None without ``n_shards`` or where the halo gates
+    fail."""
 
     delay_rows: np.ndarray
     delay_set: tuple
@@ -1447,11 +1582,13 @@ class EdgeDelays:
     exchange: Callable
     sharded_exchange: Callable | None = None
 
-    def class_rows(self, device) -> torch.Tensor:
+    def class_rows(self, device, cols: slice = slice(None)) -> torch.Tensor:
         """(len(classes), ceil(N/32)) packed ``delay_rows[d] == v`` of each
-        (d, v) of :attr:`classes`, on ``device``."""
-        return kernels.pack_bits(torch.from_numpy(np.stack(
-            [self.delay_rows[d] == v for d, v in self.classes]))).to(device)
+        (d, v) of :attr:`classes`, on ``device``; ``cols``: a rank's
+        block of the columns (then packed over the block)."""
+        return kernels.pack_bits(torch.from_numpy(np.ascontiguousarray(
+            np.stack([self.delay_rows[d][cols] == v
+                      for d, v in self.classes])))).to(device)
 
 
 def make_edge_delayed(topology: str, n: int, delay_rows,
@@ -1461,8 +1598,8 @@ def make_edge_delayed(topology: str, n: int, delay_rows,
     small static value set: ``delay_rows`` (D, N) ints >= 1, D = 2 for
     the tree, else the fault direction rows' count.  None for
     unstructured topologies.  Aliased direction classes (circulant 2s ≡ 0
-    mod n) both deliver (:func:`gather_delays_from_rows` raises there)."""
-    _unported_shards(n_shards)
+    mod n) both deliver (:func:`gather_delays_from_rows` raises there).
+    ``n_shards``: also the halo closure over that many blocks."""
     run = ring_terms(topology, n, **kw)
     if run is None:
         return None
@@ -1479,15 +1616,26 @@ def make_edge_delayed(topology: str, n: int, delay_rows,
     classes = tuple((d, v) for v in delay_set for d in range(dr.shape[0])
                     if (dr[d] == v).any())
 
-    def exchange(hist, t, class_rows, wl=None):
-        terms = []
+    def terms(t, class_rows, wl):
+        out = []
         for j, (d, v) in enumerate(classes):
             slot = send_slot(t, v, ring)
             if slot is not None:
-                terms.append((d, slot, _ed_mask(class_rows[j], wl, d, v)))
-        return run(hist, terms)
+                out.append((d, slot, _ed_mask(class_rows[j], wl, d, v)))
+        return out
 
-    return EdgeDelays(dr, delay_set, ring, classes, exchange)
+    def exchange(hist, t, class_rows, wl=None):
+        return run(hist, terms(t, class_rows, wl))
+
+    sex = None
+    if has_sharded_exchange(topology, n, n_shards, **kw):
+        hrun = _halo_ring(topology, n, n_shards, **kw)
+
+        def halo_ex(mesh, hist, t, class_rows, wl=None):
+            return hrun(mesh, hist, terms(t, class_rows, wl))
+
+        sex = Halo(halo_ex, n_shards)
+    return EdgeDelays(dr, delay_set, ring, classes, exchange, sex)
 
 
 @dataclass(frozen=True)
@@ -1542,8 +1690,8 @@ def make_edge_delayed_faulted(topology: str, n: int, delay_rows,
                                       torch.full_like(dsame[0], -1))
         return out
 
+    df, sdf = _masked_diffs(topology, n, n_shards, **kw)
     return FaultedEdgeDelays(
         ed.delay_rows, delay_set, ed.ring, ed.classes, ed.exchange,
-        exists=exists, same=same, del_same=del_same,
-        live_by_delay=live_by_delay,
-        sync_diff=_masked_diffs(topology, n, **kw)[0])
+        ed.sharded_exchange, exists=exists, same=same, del_same=del_same,
+        live_by_delay=live_by_delay, sync_diff=df, sharded_sync_diff=sdf)

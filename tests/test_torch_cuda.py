@@ -802,6 +802,81 @@ def test_cuda_counter_kernels_match_plain(cuda_device, n, cas, wide, gate,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("n,cas,wide", COUNTER_CASES)
+def test_cuda_counter_partial_form_matches_plain(cuda_device, n, cas, wide,
+                                                 offset):
+    # the read pass's partial form over a block of global rows row0 ..
+    # (a rank's block of a mesh) and the update pass at that offset,
+    # against their plain twins
+    row_bits = max(1, (n - 1).bit_length())
+    pending, cached, gates, kv0, msgs = _counter_case(
+        n, 3 * n + offset, cuda_device, True)
+    views = [_at_offset(x, offset) for x in (pending, cached, gates)]
+    row0 = 3 * n
+    kw = dict(cas=cas, wide=wide, row_bits=max(row_bits, (4 * n - 1)
+                                                .bit_length()),
+              t=5, seed=n, poll=bool(offset))
+    if cas and not wide and kw["row_bits"] > 23:
+        pytest.skip("packed keys take up to 23 row bits")
+    wk, wp = kernels.counter_work(cuda_device), \
+        kernels.counter_work(cuda_device)
+    before = dict(kernels.LAUNCHES)
+    part = kernels.counter_select(*views, kv0, msgs, wk, row0=row0,
+                                  partial=True, **kw)
+    want = kernels.counter_select_plain(pending, cached, gates, kv0, msgs,
+                                        wp, row0=row0, partial=True, **kw)
+    assert torch.equal(part, want), (part.tolist(), want.tolist())
+    assert torch.equal(wk, wp)      # the work words back at rest
+    winner = int(part[0]) & 0xFFFFFFFF if int(part[0]) != (1 << 63) - 1 \
+        else 4 * n
+    wk[3] = wp[3] = winner
+    akw = dict(cas=cas, poll=kw["poll"], stale_num=1 << 31, stale_seed=5,
+               t=3, row0=row0)
+    kv = kv0 + 1
+    got = kernels.counter_apply(*views, kv, wk, **akw)
+    exp = kernels.counter_apply_plain(pending, cached, gates, kv, wp, **akw)
+    assert all(torch.equal(a, b) for a, b in zip(got, exp))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["counter_select"] == \
+        before["counter_select"] + 1
+    assert kernels.LAUNCHES["counter_apply"] == before["counter_apply"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", (2, 4))
+def test_cuda_wm_fault_coins_on_blocks_match_plain(cuda_device, shards):
+    # the coins of a rank's block of columns (col0, the global count) on
+    # every topology's descriptors equal the whole row's, cut
+    n = 4096
+    modes = _shift_modes(n) + [("tree", {"branching": k})
+                               for k in MASKED_BRANCHINGS]
+    b = n // shards
+    for topo, kw in modes:
+        for deg in ((False, True) if topo == "tree" else (False,)):
+            rows = structured.coin_dirs(topo, n, degree=deg, **kw) \
+                if topo == "tree" else structured.coin_dirs(topo, n, **kw)
+            dirs = torch.from_numpy(rows).to(cuda_device)
+            live = _packed(len(rows), n, "random", n + 5, cuda_device)
+            lv = kernels.unpack_bits(live, n)
+            for loss, dup, srv in WM_STREAMS:
+                ckw = dict(FAULT_COINS, loss=loss, dup=dup, srv=srv)
+                full = kernels.wm_fault_coins(dirs, n, live, **ckw)
+                for r in range(shards):
+                    blk = kernels.pack_bits(lv[:, r * b:(r + 1) * b]
+                                            .contiguous())
+                    got = kernels.wm_fault_coins(dirs, b, blk, col0=r * b,
+                                                 n_ids=n, **ckw)
+                    for g, f in zip(got, full):
+                        assert (g is None) == (f is None)
+                        if f is not None:
+                            cut = kernels.pack_bits(kernels.unpack_bits(
+                                f, n)[:, r * b:(r + 1) * b].contiguous())
+                            assert torch.equal(g, cut), (topo, r, loss,
+                                                         dup, srv)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["cas-packed", "cas-wide", "allreduce-plan",
                                   "device-kv-stale"])
 def test_cuda_counter_sim_matches_cpu_sim(cuda_device, case):

@@ -144,9 +144,10 @@ def test_dir_delays_errors_and_ledger():
                          device="cpu")
     with pytest.raises(ValueError, match="rounds >= 1"):
         pst.make_nemesis("tree", n, spec, dir_delays=(0, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pst.make_nemesis("tree", n, spec, dir_delays=(1, 2), n_shards=4,
-                         device="cpu")
+    halo = pst.make_nemesis("tree", n, spec, dir_delays=(1, 2), n_shards=4,
+                            device="cpu")
+    assert (halo.sharded_ring_exchange is not None) \
+        == pst.has_sharded_exchange("tree", n, 4)
     nem = pst.make_nemesis("tree", n, spec, dir_delays=(1, 3), device="cpu")
     assert nem.dir_delays == (1, 3) and nem.ring == 3
     nbrs = _nbrs("tree", n, {})

@@ -294,11 +294,13 @@ def test_delay_bundle_errors():
     with pytest.raises(ValueError, match="rounds >= 1"):
         pst.make_edge_delayed("line", n, np.zeros((2, n), np.int32))
     assert pst.make_delayed("random", n, (1,)) is None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pst.make_delayed("grid", n, (1, 1, 1, 1), n_shards=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pst.make_edge_delayed("line", n, np.ones((2, n), np.int32),
-                              n_shards=4)
+    # n_shards: the halo closures where the halo gates pass
+    assert (pst.make_delayed("grid", n, (1, 1, 1, 1), n_shards=4)
+            .sharded_exchange is not None) \
+        == pst.has_sharded_exchange("grid", n, 4)
+    assert (pst.make_edge_delayed("line", n, np.ones((2, n), np.int32),
+                                  n_shards=4).sharded_exchange is not None) \
+        == pst.has_sharded_exchange("line", n, 4)
     with pytest.raises(ValueError, match="needs a structured exchange"):
         pbc.BroadcastSim(nbrs, n_values=nv, delayed=delayed, device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):

@@ -302,14 +302,13 @@ def test_faulted_guards():
                            faulted=pst.make_faulted("tree", n, group))
     assert sim._faulted is None and sim.build_fixed(2) is not None
     # n_shards adds the halo closures, as in the reference (16 nodes on
-    # 2 shards: a halo form); the delay bundles' halo forms still raise
+    # 2 shards: a halo form), to the delay bundles too
     halo = pst.make_faulted("tree", n, group, n_shards=2)
     want = jst.make_faulted("tree", n, group, n_shards=2)
     assert (halo.sharded_exchange is None) == (want.sharded_exchange is None)
     assert halo.sharded_exchange is not None
     assert pst.make_faulted("tree", n, group, n_shards=5).sharded_exchange \
         is None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pst.make_edge_delayed("tree", n, np.ones((2, n), np.int32),
-                              n_shards=2)
+    assert pst.make_edge_delayed("tree", n, np.ones((2, n), np.int32),
+                                 n_shards=2).sharded_exchange is not None
     assert pst.make_faulted("random", n, group) is None

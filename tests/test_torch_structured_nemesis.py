@@ -328,6 +328,9 @@ def test_nemesis_error_paths():
                                **dev)
     assert delayed.dir_delays == (1, 2, 1, 1) and delayed.ring == 2
     assert delayed.ring_exchange is not None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pst.make_nemesis("grid", n, pspec, n_shards=2, **dev)
+    # n_shards: the halo closures where the halo gates pass
+    halo = pst.make_nemesis("grid", n, pspec, n_shards=2, **dev)
+    assert (halo.sharded_exchange is not None) \
+        == (halo.sharded_src_pc is not None) \
+        == pst.has_sharded_exchange("grid", n, 2)
     assert pst.make_nemesis("random", n, pspec, **dev) is None

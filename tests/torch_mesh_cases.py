@@ -171,22 +171,6 @@ def refusal_cases(mesh) -> dict:
     spec = faults.NemesisSpec(n_nodes=n, seed=1, crash=((1, 3, (1,)),))
     plan = spec.compile(device=str(mesh.device))
     kw = dict(n_values=4, mesh=mesh)
-    probe("delays", lambda: broadcast.BroadcastSim(
-        nbrs, delays=np.full(nbrs.shape, 2, np.int32), **kw))
-    probe("delayed", lambda: broadcast.BroadcastSim(
-        nbrs, exchange=ex, delayed=structured.make_delayed(
-            "tree", n, (1, 2)), **kw))
-    probe("edge_delayed", lambda: broadcast.BroadcastSim(
-        nbrs, exchange=ex, edge_delayed=structured.make_edge_delayed(
-            "tree", n, np.full((2, n), 2, np.int32)), **kw))
-    probe("nemesis", lambda: broadcast.BroadcastSim(
-        nbrs, exchange=ex, fault_plan=plan, srv_ledger=False,
-        nemesis=structured.make_nemesis("tree", n, spec,
-                                        device=str(mesh.device)), **kw))
-    probe("fault_plan", lambda: broadcast.BroadcastSim(
-        nbrs, fault_plan=plan, srv_ledger=False, **kw))
-    probe("union_block", lambda: broadcast.BroadcastSim(
-        nbrs, union_block=4, **kw))
     probe("dcn_mode", lambda: broadcast.BroadcastSim(
         nbrs, dcn_mode="sync", **kw))
     sim = broadcast.BroadcastSim(nbrs, srv_ledger=False, **kw)
@@ -195,10 +179,22 @@ def refusal_cases(mesh) -> dict:
     probe("inject_mid", lambda: sim.inject_mid(None, 0, 0))
     probe("collectives_dcn", lambda: engine.collectives(4, mesh,
                                                         dcn="sync"))
-    probe("make_nemesis_shards", lambda: structured.make_nemesis(
-        "tree", n, spec, n_shards=mesh.size, device=str(mesh.device)))
-    probe("make_delayed_shards", lambda: structured.make_delayed(
-        "tree", n, (1, 2), n_shards=mesh.size))
+    from gossip_glomers_tpu_torch.tpu_sim import (counter, echo, kafka,
+                                                  scenario, txn, unique_ids)
+
+    csim = counter.CounterSim(n, mesh=mesh)
+    probe("counter_run_traffic", lambda: csim.run_traffic(None, None, None,
+                                                          1))
+    probe("counter_run_observed", lambda: csim.run_observed(None, None,
+                                                            None, 1))
+    probe("counter_dcn_mode", lambda: counter.CounterSim(
+        n, mesh=mesh, dcn_mode="sync"))
+    probe("kafka", lambda: kafka.KafkaSim(n, 2, 8, mesh=mesh))
+    probe("txn", lambda: txn.TxnSim(n, 4, mesh=mesh))
+    probe("unique_ids", lambda: unique_ids.UniqueIdsSim(n, mesh=mesh))
+    probe("echo", lambda: echo.EchoSim(n, mesh=mesh))
+    probe("scenario_batch", lambda: scenario.run_scenario_batch(
+        None, mesh=mesh))
     return out
 
 
