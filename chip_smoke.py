@@ -217,6 +217,26 @@ bundles and repros under ``build/chip_smoke/``):
     partial form, then the all-reduces); all-reduces only; each timed
     warm (its first run's wall kept apart) with rank 0's profile of
     one more run.  Not a multi-card figure.
+21c. ``mesh_kafka``: Kafka, ids and echo on the same 4-rank world, each
+    configuration first run in one process on the card (its state's
+    digests by rank block and whole, :data:`KAFKA_ONE`), then twice from
+    a fresh state on the ranks (the first cold; the second timed: ms a
+    round, collective calls a round by kind, each rank's launches), every
+    rank's digests of its block equal to the one-process run's:
+    ``kafka_node_sweep``'s 131,072-node union row (K 8,192, C 64, 2 + 2
+    rounds; no all-gather), ``kafka_nemesis_4k``'s campaign (12 staged
+    rounds with commits, resync every 4, then the one-process run's quiet
+    rounds to convergence) pulled in slabs of 512 (the ring; no
+    all-gather), pulled materialized (one metadata all-gather a round),
+    pushed in slabs, and pulled over the device KV with ``kv_amnesia``,
+    and ``kafka_faulted_1k``'s 4,096-node point through the matmul oracle
+    (one all-gather a round; its one-process run equal to the CPU twin);
+    ``ids_echo``'s ids and echo at 2^20 (no collective); and a 1-rank
+    NCCL world's slab campaign (all-reduces only) equal to the no-mesh
+    run.  The kernel check holds the four Kafka kernels' block forms
+    against their plain versions and, combined over 2 and 4 blocks, the
+    whole problem's, and times them at this phase's shapes.  Not a
+    multi-card figure.
 22. ``ids_echo``: ``UniqueIdsSim`` at 2^20 nodes, 32 ids a node, 4
     rounds, every id distinct; ``EchoSim`` at (2^20, 4), ``msgs == 2
     valid``.
@@ -1175,6 +1195,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
         torch.cuda.empty_cache()
     check_counter(kernels, note, device)
     check_kafka(kernels, note, device)
+    check_kafka_blocks(kernels, note, device)
     check_and_fold(kernels, note, device)
     check_prov(kernels, note, device)
     check_txn(kernels, note, device)
@@ -1437,6 +1458,7 @@ def time_kernels(kernels, structured, topology, device) -> dict:
     time_ring_kernels(kernels, structured, out, gen, strides, device)
     time_counter(kernels, device, out)
     time_kafka(kernels, device, out)
+    time_kafka_blocks(kernels, device, out)
     time_and_fold(kernels, device, out)
     return out
 
@@ -3204,6 +3226,258 @@ def time_kafka(kernels, device, out) -> None:
             bytes=moved, bound_rate=rate(moved)[1])
         del deliver, widx, bit
         torch.cuda.empty_cache()
+
+
+# the block forms' checked problems (n, k, c, s), each split into 2 and 4
+# blocks of rows as the mesh's ranks hold them: odd widths, then the
+# mesh_kafka phase's 4,096-node shapes
+KAFKA_BLOCK_SHAPES = ((8, 3, 33, 2), (64, 7, 128, 1), (4096, 256, 64, 1),
+                      (4096, 1024, 128, 1))
+
+
+def check_kafka_blocks(kernels, note, device) -> None:
+    """The Kafka kernels' block forms (a mesh rank's rows) against their
+    plain versions on the same block, and the blocks combined as the mesh
+    combines them against the whole problem's plain result, at 2 and 4
+    blocks of each of :data:`KAFKA_BLOCK_SHAPES`: ``kafka_merge`` over
+    each block (the pull union the OR of the blocks'); ``kafka_nem_
+    deliver`` with ``row0`` over all origins (the materialized union) and
+    over each visiting origin block in the ring's order, ``origin0`` and
+    ``accumulate`` (block 0 in two slabs); ``kafka_commit_select`` with
+    ``row0`` and ``n_total`` (the minimum CAS row, the maximum writer
+    row, the summed counts); ``kafka_commit_apply``'s partial form (the
+    requests summed, then ``commit_finish``)."""
+    import torch
+
+    for n, k, c, s in KAFKA_BLOCK_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(7 * n + k + c)
+        wc = (c + 31) // 32
+        present = kafka_words((n, k), c, gen, device)
+        lc = kafka_ints(0, c + 1, (n, k), gen, device)
+        carry = kafka_words((n, k), c, gen, device, sparse=5)
+        wipe, live = (kafka_rows(n, p, gen, device) for p in (0.2, 0.6))
+        pull = dict(resync=kernels.RESYNC_PULL)
+        pw, lw = present.clone(), lc.clone()
+        uw = kernels.kafka_merge_plain(pw, lw, wipe=wipe, carry=carry,
+                                       live=live, **pull)[0]
+        widx, bit = kafka_sends(n, k, c, s, gen, device)
+        up = kafka_rows(n, 0.8, gen, device)
+        nkw = dict(s_dim=s, t=5, seed=n, loss_num=int(0.3 * 2**32))
+        whole = torch.empty((n, k, wc), dtype=torch.int32, device=device)
+        kernels.kafka_nem_deliver_plain(whole, widx, bit, up, lo=0, hi=n,
+                                        **nkw)
+        req, sent = kafka_requests(n, k, c, gen, device)
+        take, want_ok, reach, tally = (kafka_rows(n, p, gen, device)
+                                       for p in (0.7, 0.8, 0.8, 0.5))
+        skw = dict(take=take, union=uw, req=req, want_ok=want_ok,
+                   reach=reach, kv_sent=sent, tally=tally)
+        akw = dict(kv_retries=10, tally_mult=2)
+        msgs = torch.tensor((1 << 32) - 7, dtype=torch.int64, device=device)
+        ps, ls = pw.clone(), lw.clone()
+        cw, wl, cnt = kernels.kafka_commit_select_plain(ps, ls, **skw)
+        kvw, mw = kernels.kafka_commit_apply_plain(
+            ls, req, cw, wl, sent, reach, want_ok, cnt, msgs, **akw)
+        for shards in (2, 4):
+            b = n // shards
+            pk_all, lk_all = present.clone(), lc.clone()
+            union = None
+            for r in range(shards):
+                sl = slice(r * b, (r + 1) * b)
+                u = kernels.kafka_merge(pk_all[sl], lk_all[sl],
+                                        wipe=wipe[sl], carry=carry[sl],
+                                        live=live[sl], **pull)[0]
+                pp, lp = present[sl].clone(), lc[sl].clone()
+                up_ = kernels.kafka_merge_plain(pp, lp, wipe=wipe[sl],
+                                                carry=carry[sl],
+                                                live=live[sl], **pull)[0]
+                note("kafka_merge", (pk_all[sl], pp), (lk_all[sl], lp),
+                     (u, up_))
+                union = u if union is None else union | u
+            note("kafka_merge", (pk_all, pw), (lk_all, lw), (union, uw))
+            for r in range(shards):
+                sl = slice(r * b, (r + 1) * b)
+                got, want = (torch.full((b, k, wc), -1, dtype=torch.int32,
+                                        device=device) for _ in "gw")
+                kernels.kafka_nem_deliver(got, widx, bit, up[sl], lo=0,
+                                          hi=b, row0=r * b, **nkw)
+                kernels.kafka_nem_deliver_plain(want, widx, bit, up[sl],
+                                                lo=0, hi=b, row0=r * b,
+                                                **nkw)
+                note("kafka_nem_deliver", (got, want), (got, whole[sl]))
+                got.fill_(-1)
+                want.fill_(-1)
+                slabs = ((0, b // 2), (b // 2, b)) if r == 0 else ((0, b),)
+                for step in range(shards):
+                    o = (r - step) % shards
+                    ms = slice(o * b * s, (o + 1) * b * s)
+                    for lo, hi in slabs:
+                        kw = dict(lo=lo, hi=hi, row0=r * b, origin0=o * b,
+                                  accumulate=step > 0, **nkw)
+                        kernels.kafka_nem_deliver(got, widx[ms], bit[ms],
+                                                  up[sl], **kw)
+                        kernels.kafka_nem_deliver_plain(
+                            want, widx[ms], bit[ms], up[sl], **kw)
+                note("kafka_nem_deliver", (got, want), (got, whole[sl]))
+            sel, parts = [], []
+            for r in range(shards):
+                sl = slice(r * b, (r + 1) * b)
+                bkw = {name: (x[sl] if name in ("take", "req", "want_ok",
+                                                "reach", "tally") else x)
+                       for name, x in skw.items()}
+                pk, lk = pw[sl].clone(), lw[sl].clone()
+                got = kernels.kafka_commit_select(pk, lk, row0=r * b,
+                                                  n_total=n, **bkw)
+                pp, lp = pw[sl].clone(), lw[sl].clone()
+                want = kernels.kafka_commit_select_plain(
+                    pp, lp, row0=r * b, n_total=n, **bkw)
+                note("kafka_commit_select", (pk, pp), (lk, lp),
+                     *zip(got, want))
+                sel.append((pk, lk, lp, got))
+            bcw = torch.stack([x[3][0] for x in sel]).amin(0)
+            bwl = torch.stack([x[3][1] for x in sel]).amax(0)
+            bcnt = sum(x[3][2] for x in sel)
+            note("kafka_commit_select", (bcw, cw), (bwl, wl), (bcnt, cnt),
+                 (torch.cat([x[0] for x in sel]), ps))
+            for r, (_, lk, lp, _) in enumerate(sel):
+                sl = slice(r * b, (r + 1) * b)
+                args = (req[sl], bcw, bwl, sent, reach[sl], want_ok[sl],
+                        None, None)
+                pkw = dict(row0=r * b, n_total=n, partial=True, **akw)
+                got = kernels.kafka_commit_apply(lk, *args, **pkw)
+                want = kernels.kafka_commit_apply_plain(lp, *args, **pkw)
+                note("kafka_commit_apply", (lk, lp), (got, want))
+                parts.append(got.long())
+            kv, m = kernels.commit_finish(sum(parts), bcw, bwl, sent, bcnt,
+                                          msgs, n_total=n, **akw)
+            note("kafka_commit_apply", (kv, kvw), (m, mw),
+                 (torch.cat([x[1] for x in sel]), ls))
+            del pk_all, lk_all, sel, parts
+        del present, lc, carry, pw, lw, whole, ps, ls
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+# the block forms' timed shapes, mesh_kafka's on 4 ranks: the union row
+# over a rank's 32,768 of 131,072 nodes (K 8,192, C 64); the 4,096-node
+# nemesis campaign's rank block of 1,024 rows (K 1,024, C 128, S 1)
+KAFKA_BLOCK_TIMED = ((131072, 8192, 64), (4096, 1024, 128))
+
+
+def time_kafka_blocks(kernels, device, out) -> None:
+    """The block forms at mesh_kafka's shapes on 4 ranks (rank 3's rows),
+    keyed (rows, keys) under ``out["<kernel>_block"]``, with their plain
+    versions, bounds counted from this run's data as :func:`time_kafka`
+    counts the whole forms': ``kafka_merge`` with the union row over the
+    rank's rows of the 131,072-node union, and with the carry and the pull
+    resync over the 4,096-node campaign's; ``kafka_nem_deliver`` over
+    the rank's 1,024 rows against all 4,096 origins (materialized) and
+    against one visiting block of 1,024, accumulating (a ring step);
+    ``kafka_commit_select`` with ``row0`` and ``n_total`` (the take and
+    the commits), ``kafka_commit_apply``'s partial form."""
+    import torch
+
+    def rate(total):
+        return (L2_BYTES_PER_S, "L2") if total <= L2_BYTES \
+            else (HBM_BYTES_PER_S, "HBM")
+
+    blk = {name: out.setdefault(f"{name}_block", {}) for name in (
+        "kafka_merge", "kafka_nem_deliver", "kafka_commit_select",
+        "kafka_commit_apply")}
+    gen = torch.Generator(device=device).manual_seed(21)
+    n, k, c = KAFKA_BLOCK_TIMED[0]
+    b, wc = n // MESH_RANKS, (c + 31) // 32
+    present = kafka_words((b, k), c, gen, device)
+    lc = kafka_ints(0, c + 1, (b, k), gen, device)
+    row = kafka_words((k,), c, gen, device, sparse=4)
+    kernels.kafka_merge(present, lc, row=row)
+    pp, lp = present.clone(), lc.clone()
+    touched = int((row != 0).any(-1).sum())
+    moved = touched * b * (8 * wc + 4) + 4 * k * wc
+    bps, where = rate(4 * b * k * (wc + 1))
+    blk["kafka_merge"][(b, k)] = dict(_timed(
+        "kafka_merge", lambda: kernels.kafka_merge(present, lc, row=row),
+        lambda: kernels.kafka_merge_plain(pp, lp, row=row),
+        bound(moved, 0, bps)), mode="row, a rank of 131,072 nodes",
+        capacity=c, touched=touched, bytes=moved, bound_rate=where)
+    del present, lc, pp, lp
+    torch.cuda.empty_cache()
+    n, k, c = KAFKA_BLOCK_TIMED[1]
+    b, wc, r0 = n // MESH_RANKS, (c + 31) // 32, 3 * (n // MESH_RANKS)
+    present = kafka_words((b, k), c, gen, device)
+    lc = kafka_ints(0, c + 1, (b, k), gen, device)
+    carry = kafka_words((b, k), c, gen, device, sparse=6)
+    live = kafka_rows(b, 0.8, gen, device)
+    kw = dict(carry=carry, resync=kernels.RESYNC_PULL, live=live)
+    kernels.kafka_merge(present, lc, **kw)
+    pp, lp = present.clone(), lc.clone()
+    got = (carry != 0).any(-1)
+    touched = int(got.sum())
+    reads = int((got | live[:, None]).sum())
+    moved = (4 * b * k * wc + 4 * wc * (reads + touched) + 4 * touched
+             + 4 * k * wc + b)
+    bps, where = rate(4 * b * k * (2 * wc + 1))
+    blk["kafka_merge"][(b, k)] = dict(_timed(
+        "kafka_merge", lambda: kernels.kafka_merge(present, lc, **kw),
+        lambda: kernels.kafka_merge_plain(pp, lp, **kw),
+        bound(moved, 0, bps)), mode="carry-pull, a rank of 4,096 nodes",
+        capacity=c, touched=touched, bytes=moved, bound_rate=where)
+    widx, bit = kafka_sends(n, k, c, 1, gen, device)
+    up_all = kafka_rows(n, 0.99, gen, device)
+    up = up_all[r0:r0 + b]
+    nkw = dict(s_dim=1, t=1, seed=2, loss_num=int(0.1 * 2**32), row0=r0)
+    deliver = torch.empty((b, k, wc), dtype=torch.int32, device=device)
+    for way, (o0, m) in {"materialized": (0, n), "ring step": (0, b)}.items():
+        wi, bi = widx[o0:o0 + m], bit[o0:o0 + m]
+        acc = way == "ring step"
+        dkw = dict(nkw, origin0=o0, accumulate=acc, lo=0, hi=b)
+        n_up, sent = int(up.sum()), int((bi != 0).sum())
+        mine = (bi != 0)[max(0, r0 - o0):max(0, r0 - o0 + b)]
+        own = int((mine & ~up[:mine.numel()]).sum()) if r0 >= o0 \
+            and r0 < o0 + m else 0
+        moved = 4 * b * k * wc * (2 if acc else 1) + 8 * m + b
+        ops = OPS_NEM_SEND * (n_up * sent + own)
+        kern = (lambda dkw=dkw, wi=wi, bi=bi: kernels.kafka_nem_deliver(
+            deliver, wi, bi, up, **dkw))
+        plain = (lambda dkw=dkw, wi=wi, bi=bi:
+                 kernels.kafka_nem_deliver_plain(deliver, wi, bi, up, **dkw))
+        blk["kafka_nem_deliver"][(b, m)] = dict(_timed(
+            "kafka_nem_deliver", kern, plain,
+            bound(moved, ops, rate(moved)[0])), mode=way, capacity=c,
+            coins=n_up * sent + own, ops=ops, bytes=moved,
+            bound_rate=rate(moved)[1], row0=r0, origins=m)
+    union = kernels.kafka_merge_plain(present.clone(), lc.clone(),
+                                      resync=kernels.RESYNC_PULL,
+                                      live=live)[0]
+    req, sent = kafka_requests(b, k, c, gen, device)
+    reach = kafka_rows(b, 0.9, gen, device)
+    skw = dict(take=live, union=union, req=req, want_ok=live, reach=reach,
+               kv_sent=sent, tally=live, row0=r0, n_total=n)
+    sel = kernels.kafka_commit_select(present, lc, **skw)
+    sel = kernels.kafka_commit_select(present, lc, **skw)
+    ukeys = (union != 0).any(-1)
+    moved = (8 * b * k + 4 * wc * int(live.sum()) * int(ukeys.sum())
+             + 4 * k * (wc + 3) + 4 * b)
+    bps, where = rate(4 * b * k * (wc + 2))
+    blk["kafka_commit_select"][(b, k)] = dict(_timed(
+        "kafka_commit_select",
+        lambda: kernels.kafka_commit_select(present, lc, **skw),
+        lambda: kernels.kafka_commit_select_plain(pp, lp, **skw),
+        bound(moved, 0, bps)), mode="take and commits, row0 3,072 of 4,096",
+        capacity=c, bytes=moved, bound_rate=where)
+    args = (req, *sel[:2], sent, reach, live, None, None)
+    akw = dict(kv_retries=10, tally_mult=2, row0=r0, n_total=n, partial=True)
+    kernels.kafka_commit_apply(lc, *args, **akw)
+    dancing = int(((req >= 1) & live[:, None] & reach[:, None]).sum())
+    moved = 4 * b * k + 4 * dancing + 16 * k + 2 * b
+    bps, where = rate(8 * b * k)
+    blk["kafka_commit_apply"][(b, k)] = dict(_timed(
+        "kafka_commit_apply",
+        lambda: kernels.kafka_commit_apply(lc, *args, **akw),
+        lambda: kernels.kafka_commit_apply_plain(lp, *args, **akw),
+        bound(moved, 0, bps)), mode="partial, row0 3,072 of 4,096",
+        capacity=c, dancing=dancing, bytes=moved, bound_rate=where)
+    del present, lc, pp, lp, carry, deliver
+    torch.cuda.empty_cache()
 
 
 def same_kafka(a, b, rows: bool = True) -> bool:
@@ -7148,7 +7422,9 @@ ONE_PROCESS: dict = {}
 # the mesh bucket of its launches_by_path
 MESH_PATH_KERNELS = ("wm_fault_coins", "tree_halo_pack", "tree_halo_round",
                      "fault_coins", "faulted_gather_round", "gather_or",
-                     "counter_select", "counter_apply")
+                     "counter_select", "counter_apply", "kafka_merge",
+                     "kafka_nem_deliver", "kafka_commit_select",
+                     "kafka_commit_apply")
 # the gather ring's graph on the mesh: config 4b's law at 2^16 nodes
 MESH_RING_NODES = 1 << 16
 
@@ -7444,6 +7720,368 @@ def _mesh_counter_rank(mesh, rounds: dict) -> dict:
     return out
 
 
+# -- mesh_kafka: Kafka, ids and echo on the ranks ---------------------------
+
+# kafka_node_sweep's 131,072-node row (K = N / 16, capacity 64, one
+# round-robin send a node, 2 + 2 rounds); kafka_nemesis_4k's campaign
+# (KAFKA_NEMESIS, 12 staged rounds with commits, resync every 4, then the
+# one-process run's quiet rounds to convergence, at most 48) four ways;
+# kafka_faulted_1k's 4,096-node point (KAFKA_FAULTED[1]) as the matmul
+# oracle
+MESH_KAFKA_UNION = (131072, 8192, 64)
+MESH_KAFKA_STAGED = 12
+MESH_KAFKA_MAX_QUIET = 48
+MESH_KAFKA_WAYS = {
+    "pull_blocked": dict(union_block=512),
+    "pull_materialized": dict(union_block="materialized"),
+    "push_blocked": dict(resync_mode="push", union_block=512),
+    "pull_device_kv": dict(kv_backend="device", kv_amnesia=True)}
+MESH_KAFKA_RUNS = ("union",) + tuple(MESH_KAFKA_WAYS) + ("matmul_oracle",)
+# the runs whose round widens only the sends' packed metadata, or (the
+# matmul oracle) gathers the own words: exactly one all-gather a round;
+# every other run makes none
+MESH_KAFKA_GATHERS = ("pull_materialized", "pull_device_kv",
+                      "matmul_oracle")
+MESH_KAFKA_EXPECT = ("kafka_merge", "kafka_nem_deliver",
+                     "kafka_commit_select", "kafka_commit_apply")
+# each configuration's one-process card run: its digests by rank block
+# and whole, its rounds and quiet rounds (mesh_kafka_one_process)
+KAFKA_ONE: dict = {}
+# dcn_worker's digest weights: word i of a field weighs i * MUL + ADD
+DIGEST_MUL, DIGEST_ADD = 2654435761, 0x9E3779B9
+MASK32 = 0xFFFFFFFF
+
+
+def mul32(a, b):
+    """a * b mod 2^32 for int64 tensors (or ints) in [0, 2^32), by 16-bit
+    halves of b, so no product leaves int64."""
+    return ((a * (b & 0xFFFF)) + (((a * (b >> 16)) & 0xFFFF) << 16)) \
+        & MASK32
+
+
+def card_digest(x, offset: int) -> int:
+    """:func:`dcn_worker.digest_array` of the 4-byte words of ``x`` as
+    words ``offset ..`` of a larger array, on the card in chunks: the
+    position-weighted sum mod 2^32, so a field's digest is the sum of
+    its blocks' (a rank's block at its rows' global offset)."""
+    import torch
+
+    words = x.reshape(-1)
+    total, step = 0, 1 << 26
+    for lo in range(0, words.numel(), step):
+        w = words[lo:lo + step].to(torch.int64) & MASK32
+        i = torch.arange(offset + lo, offset + lo + w.numel(),
+                         dtype=torch.int64, device=w.device) & MASK32
+        total += int(mul32(w, (mul32(i, DIGEST_MUL) + DIGEST_ADD)
+                           & MASK32).sum())
+    return total & MASK32
+
+
+def kafka_digests(st, row0: int, rows: int | None = None) -> dict:
+    """A Kafka state's digests: the replicated ``log_vals`` and ``kv_val``
+    whole; the node-axis fields (and the device KV's rows) over the rows
+    ``[row0, row0 + rows)`` of a whole state, or (``rows`` None) over the
+    state's own rows taken as the block from global row ``row0``."""
+    def d(x):
+        if rows is not None:
+            x = x[row0:row0 + rows]
+        return card_digest(x, row0 * (x[0].numel() if x.shape[0] else 0))
+
+    out = {"log_vals": card_digest(st.log_vals, 0),
+           "kv_val": card_digest(st.kv_val, 0), "present": d(st.present),
+           "local_committed": d(st.local_committed),
+           "origin_bits": d(st.origin_bits), "t": st.t,
+           "msgs": int(st.msgs)}
+    if st.rows is not None:
+        out.update(rows_vals=d(st.rows.vals), rows_vers=d(st.rows.vers))
+    return out
+
+
+def mesh_kafka_sim(name: str, device, mesh=None):
+    """mesh_kafka's configuration ``name``: its sim (on the mesh, or in one
+    process on ``device``) and its staged operands, the full (R, N, S) /
+    (R, N, K) numpy batches every rank cuts its block from."""
+    import numpy as np
+
+    from gossip_glomers_tpu_torch.harness import nemesis
+    from gossip_glomers_tpu_torch.tpu_sim import faults, kafka
+
+    place = dict(mesh=mesh) if mesh is not None else dict(device=device)
+    dev = str(device if mesh is None else mesh.device)
+    if name == "union":
+        n, k, c = MESH_KAFKA_UNION
+        sks = np.tile((np.arange(n, dtype=np.int32) % k)[None, :, None],
+                      (2, 1, 1))
+        svs = np.random.default_rng(n).integers(0, 1 << 20, (2, n, 1)) \
+            .astype(np.int32)
+        return kafka.KafkaSim(n, k, c, max_sends=1, **place), (sks, svs,
+                                                                None)
+    if name == "matmul_oracle":
+        n, k, c, s, _, _, _, seed = KAFKA_FAULTED[1]
+        spec = faults.NemesisSpec(
+            n_nodes=n, seed=seed, crash=((1, 3, tuple(range(0, n, 97))),),
+            loss_rate=0.1, loss_until=3)
+        rng = np.random.default_rng(seed)
+        sks = rng.integers(0, k, (2, n, s)).astype(np.int32)
+        svs = rng.integers(0, 1 << 20, (2, n, s)).astype(np.int32)
+        return kafka.KafkaSim(n, k, c, max_sends=s, repl_fast=False,
+                              fault_plan=spec.compile(dev), **place), \
+            (sks, svs, None)
+    n, k, c, s = KAFKA_NEMESIS
+    spec = faults.random_spec(n, seed=2, horizon=12, n_crash_windows=1,
+                              loss_rate=0.1)
+    ops = nemesis.stage_kafka_ops(spec, MESH_KAFKA_STAGED, n_keys=k,
+                                  max_sends=s)
+    return kafka.KafkaSim(n, k, c, max_sends=s, resync_every=4,
+                          fault_plan=spec.compile(dev), **place,
+                          **MESH_KAFKA_WAYS[name]), ops
+
+
+def mesh_kafka_trip(name: str, sim, ops, quiet: int):
+    """The configuration's run from a fresh state: the union's two
+    ``run_fused`` calls of 2 rounds, the oracle's one; a campaign's staged
+    rounds with commits, then ``quiet`` rounds with no op."""
+    import numpy as np
+
+    sks, svs, crs = ops
+    st = sim.run_fused(sim.init_state(), sks, svs, crs)
+    if name == "union":
+        st = sim.run_fused(st, sks, svs)
+    if quiet:
+        empty = np.full((quiet,) + sks.shape[1:], -1, np.int32)
+        st = sim.run_fused(st, empty, np.zeros_like(empty))
+    return st
+
+
+def mesh_kafka_one_process(device) -> None:
+    """Each mesh_kafka configuration (and the ids / echo runs) in one
+    process on the card: a campaign's quiet rounds counted one at a time
+    until every node's presence agrees (at most 48); the digests by rank
+    block and whole kept in :data:`KAFKA_ONE`."""
+    import numpy as np
+    import torch
+
+    for name in MESH_KAFKA_RUNS:
+        sim, ops = mesh_kafka_sim(name, device)
+        st = mesh_kafka_trip(name, sim, ops, 0)
+        quiet = 0
+        if name in MESH_KAFKA_WAYS:
+            one = np.full((1,) + ops[0].shape[1:], -1, np.int32)
+            while not bool((st.present == st.present[:1]).all()):
+                if quiet == MESH_KAFKA_MAX_QUIET:
+                    raise AssertionError(f"mesh_kafka {name}: no "
+                                         "convergence in 48 quiet rounds")
+                st = sim.run_fused(st, one, np.zeros_like(one))
+                quiet += 1
+        b = sim.n_nodes // MESH_RANKS
+        KAFKA_ONE[name] = {
+            "rounds": st.t, "quiet": quiet, "msgs": int(st.msgs),
+            "whole": kafka_digests(st, 0),
+            "blocks": [kafka_digests(st, r * b, b)
+                       for r in range(MESH_RANKS)]}
+        del sim, st
+        torch.cuda.empty_cache()
+    KAFKA_ONE["ids_echo"] = ids_echo_digests(None, device)
+
+
+def ids_echo_digests(mesh, device) -> dict:
+    """ids_echo's runs (``UniqueIdsSim(2^20, max_per_round=32)`` 4 rounds,
+    then ``EchoSim(2^20)`` with 4 slots 3 rounds, ``default_rng(0)``) as
+    digests: on a mesh this rank's block, in one process each rank's
+    block; with the rounds, the ledger and the collectives made."""
+    import numpy as np
+
+    from gossip_glomers_tpu_torch.tpu_sim import echo, unique_ids
+
+    n, g, slots = IDS_ECHO_NODES, 32, 4
+    place = dict(mesh=mesh) if mesh is not None else dict(device=device)
+    p = MESH_RANKS if mesh is None else 1
+    b = n // MESH_RANKS
+    r0 = 0 if mesh is None else mesh.rank * b
+
+    def blocks(x, width):
+        if mesh is not None:
+            return [card_digest(x, r0 * width)]
+        return [card_digest(x[r * b:(r + 1) * b], r * b * width)
+                for r in range(p)]
+
+    before = {} if mesh is None else dict(mesh.calls)
+    rng = np.random.default_rng(0)
+    sim = unique_ids.UniqueIdsSim(n, max_per_round=g, **place)
+    st = sim.init_state()
+    ids = []
+    for _ in range(4):
+        st, got = sim.step(st, rng.integers(0, g + 1, n).astype(np.int32))
+        ids.append(blocks(got, g * 3))
+    esim = echo.EchoSim(n, **place)
+    es, reps = esim.init_state(), []
+    for _ in range(3):
+        payload = rng.integers(-2**31, 2**31, (n, slots)).astype(np.int32)
+        valid = rng.random((n, slots)) < 0.5
+        es, rep = esim.step(es, payload, valid)
+        reps.append(blocks(rep, slots))
+    return {"ids": ids, "minted": blocks(st.minted, 1), "t": st.t,
+            "echo": reps, "echo_t": es.t, "echo_msgs": int(es.msgs),
+            "calls": {} if mesh is None else _calls_delta(mesh, before)}
+
+
+def _mesh_kafka_rank(mesh, rounds: dict) -> dict:
+    """mesh_kafka's rank side: each configuration's trip twice from a
+    fresh state (the first cold; the second timed, its launches and
+    collective calls counted), the state's digests over this rank's
+    block; then ids and echo."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import kernels
+
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    out = {}
+    for name in MESH_KAFKA_RUNS:
+        sim, ops = mesh_kafka_sim(name, mesh.device, mesh)
+        quiet = rounds[f"kafka_quiet_{name}"]
+
+        def trip():
+            mesh.agree(True)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            before = dict(mesh.calls)
+            t0 = time.perf_counter()
+            st = mesh_kafka_trip(name, sim, ops, quiet)
+            torch.cuda.synchronize()
+            return (st, time.perf_counter() - t0, _calls_delta(mesh, before),
+                    dict(kernels.LAUNCHES))
+
+        _, cold, _, _ = trip()
+        st, wall, calls, launched = trip()
+        out[name] = {"wall_s": wall, "cold_wall_s": cold, "calls": calls,
+                     "launches": launched, "rounds": st.t,
+                     "path": sim._repl_mode(None), "ub": sim._ub,
+                     "digest": kafka_digests(st, mesh.rank * sim._block)}
+        del sim, st
+        torch.cuda.empty_cache()
+    out["ids_echo"] = ids_echo_digests(mesh, mesh.device)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def nccl_kafka(mesh) -> dict:
+    """The 1-rank NCCL world's Kafka run: the pull campaign in slabs of 512
+    (its collectives all-reduces only), digested whole."""
+    import torch
+
+    name = "pull_blocked"
+    sim, ops = mesh_kafka_sim(name, mesh.device, mesh)
+    before = dict(mesh.calls)
+    st = mesh_kafka_trip(name, sim, ops, KAFKA_ONE[name]["quiet"])
+    torch.cuda.synchronize()
+    return {"rounds": st.t, "calls": _calls_delta(mesh, before),
+            "digest": kafka_digests(st, 0)}
+
+
+def mesh_kafka_phase(ranks: list, launches: Launches, head: dict,
+                     nccl: dict, world_s: float) -> None:
+    """mesh_kafka (module docstring): every rank's digests of every run
+    against its block of the one-process card run's state
+    (:data:`KAFKA_ONE`), the census (no all-gather but the materialized
+    union's metadata widen and the oracle's own words, one a round), the
+    matmul oracle's one-process run against its CPU twin, and the 1-rank
+    NCCL run against the one-process run whole."""
+    import torch
+
+    rec = {"phase": "mesh_kafka", **head, "runs": {}}
+    counts = []
+    for name in MESH_KAFKA_RUNS:
+        one = KAFKA_ONE[name]
+        per = [r["kafka"][name] for r in ranks]
+        for r, x in enumerate(per):
+            if x["digest"] != one["blocks"][r]:
+                raise AssertionError(
+                    f"mesh_kafka {name}: rank {r}'s state {x['digest']} vs "
+                    f"its block of the one-process card run "
+                    f"{one['blocks'][r]}")
+        x = per[0]
+        rounds = x["rounds"]
+        gathers = x["calls"]["all_gather"]
+        want = rounds if name in MESH_KAFKA_GATHERS else 0
+        if gathers != want or any(y["calls"] != x["calls"] for y in per):
+            raise AssertionError(f"mesh_kafka {name}: {gathers} all-gathers "
+                                 f"in {rounds} rounds (want {want}), or the "
+                                 "ranks' calls differ")
+        walls = [y["wall_s"] for y in per]
+        rec["runs"][name] = {
+            "rounds": rounds, "quiet_rounds": one["quiet"],
+            "msgs": x["digest"]["msgs"], "path": x["path"],
+            "union_block": x["ub"] if x["path"] == "union_nem" else None,
+            "wall_ms": max(walls) * 1e3,
+            "ms_per_round": max(walls) * 1e3 / rounds,
+            "cold_wall_ms": max(y["cold_wall_s"] for y in per) * 1e3,
+            "collective_calls_per_round": _per_round(x["calls"], rounds),
+            "launches_per_round_by_rank": [_per_round(y["launches"], rounds)
+                                           for y in per],
+            "equals_one_process_card_run": True}
+        counts += [y["launches"] for y in per]
+    launches.add_ranks(rec, counts, MESH_KAFKA_EXPECT)
+    # ids and echo: every rank's block of every round
+    one = KAFKA_ONE["ids_echo"]
+    for r, rk in enumerate(ranks):
+        x = rk["kafka"]["ids_echo"]
+        if not (x["ids"] == [[d[r]] for d in one["ids"]]
+                and x["minted"] == [one["minted"][r]]
+                and x["echo"] == [[d[r]] for d in one["echo"]]
+                and (x["t"], x["echo_t"], x["echo_msgs"])
+                == (one["t"], one["echo_t"], one["echo_msgs"])
+                and not any(x["calls"].values())):
+            raise AssertionError(f"mesh_kafka ids_echo: rank {r} differs "
+                                 "from the one-process card run, or made "
+                                 "a collective")
+    rec["ids_echo"] = {"n": IDS_ECHO_NODES, "max_per_round": 32,
+                       "rounds": one["t"], "echo_rounds": one["echo_t"],
+                       "echo_msgs": one["echo_msgs"], "collectives": 0,
+                       "equals_one_process_card_run": True}
+    # the matmul oracle's CPU twin
+    t0 = time.perf_counter()
+    sim, ops = mesh_kafka_sim("matmul_oracle", "cpu")
+    st = mesh_kafka_trip("matmul_oracle", sim, ops, 0)
+    b = sim.n_nodes // MESH_RANKS
+    if [kafka_digests(st, r * b, b) for r in range(MESH_RANKS)] \
+            != KAFKA_ONE["matmul_oracle"]["blocks"]:
+        raise AssertionError("mesh_kafka: the matmul oracle's one-process "
+                             "card run differs from its CPU twin")
+    rec["cpu_twin"] = {"matmul_oracle": True,
+                       "seconds": time.perf_counter() - t0,
+                       "campaign_ways": "kafka_nemesis_4k holds the pull "
+                                        "and push campaigns and the device "
+                                        "KV's against the CPU"}
+    del sim, st
+    if nccl["digest"] != KAFKA_ONE["pull_blocked"]["whole"] or set(
+            k for k, v in nccl["calls"].items() if v) != {"all_reduce"}:
+        raise AssertionError(f"mesh_kafka: the 1-rank NCCL run {nccl} "
+                             "differs from the no-mesh run, or made a "
+                             "collective other than an all-reduce")
+    rec["nccl_one_rank"] = {"run": "pull_blocked", "rounds": nccl["rounds"],
+                            "calls": nccl["calls"],
+                            "equals_no_mesh_run": True}
+    rec.update(
+        n=MESH_KAFKA_UNION[0], campaign_nodes=KAFKA_NEMESIS[0],
+        rank_seconds=max(r["kafka"]["seconds"] for r in ranks),
+        world_seconds=world_s, one_process_seconds=KAFKA_ONE["seconds"],
+        census_reference={
+            "kafka/sharded-step-union": {"all-reduce": 13,
+                                         "collective-permute": 6},
+            "kafka/sharded-step-union-nem-blocked": {
+                "all-reduce": 14, "collective-permute": 27},
+            "kafka/sharded-step-union-nem-materialized": {
+                "all-gather": 3, "all-reduce": 14,
+                "collective-permute": 6},
+            "kafka/sharded-step-matmul-oracle": {
+                "all-gather": 1, "all-reduce": 13,
+                "collective-permute": 3}},
+        ok=True)
+    emit(rec)
+    torch.cuda.empty_cache()
+
+
 def mesh_rank_work(mesh, seed: int, rounds: dict) -> dict:
     """The rank side of every mesh phase, in one world; ``rounds``: each
     kept one-process run's rounds (:data:`ONE_PROCESS`)."""
@@ -7454,7 +8092,8 @@ def mesh_rank_work(mesh, seed: int, rounds: dict) -> dict:
             "nemesis": _mesh_nemesis_rank(mesh, rounds),
             "delays": _mesh_delays_rank(mesh, rounds),
             "gather": _mesh_gather_rank(mesh, rounds),
-            "counter": _mesh_counter_rank(mesh, rounds)}
+            "counter": _mesh_counter_rank(mesh, rounds),
+            "kafka": _mesh_kafka_rank(mesh, rounds)}
 
 
 def nccl_rank_work(mesh) -> dict:
@@ -7470,10 +8109,13 @@ def nccl_rank_work(mesh) -> dict:
                                 srv_ledger=True, mesh=mesh)
     state, rounds = sim.run_fused(inject)
     torch.cuda.synchronize()
-    return {"backend": mesh.backend, "rounds": rounds,
-            "msgs": int(state.msgs), "srv": sim.server_msgs(state),
-            "received": sim.received_node_major(state),
-            "calls": dict(mesh.calls)}
+    out = {"backend": mesh.backend, "rounds": rounds,
+           "msgs": int(state.msgs), "srv": sim.server_msgs(state),
+           "received": sim.received_node_major(state),
+           "calls": dict(mesh.calls)}
+    del sim, state
+    out["kafka"] = nccl_kafka(mesh)
+    return out
 
 
 def nccl_one_rank() -> dict:
@@ -7518,7 +8160,12 @@ def mesh_phases(modules, device, launches: Launches, card: str,
     st, _ = one.run_fused(broadcast.make_inject(MESH_RING_NODES, W1_VALUES))
     keep_run("ring", one, st)
     del one, st
+    t1 = time.perf_counter()
+    mesh_kafka_one_process(device)
+    KAFKA_ONE["seconds"] = time.perf_counter() - t1
     rounds = {name: run["rounds"] for name, run in ONE_PROCESS.items()}
+    rounds.update({f"kafka_quiet_{name}": KAFKA_ONE[name]["quiet"]
+                   for name in MESH_KAFKA_RUNS})
     ranks = dcn_worker.spawn_world(mesh_rank_work, MESH_RANKS,
                                    backend="gloo", device=device,
                                    args=(MESH_SEED, rounds),
@@ -7657,6 +8304,13 @@ def mesh_phases(modules, device, launches: Launches, card: str,
     torch.cuda.empty_cache()
     mesh_fault_phases(ranks, (broadcast, topology), device, launches, card,
                       transport)
+    mesh_kafka_phase(ranks, launches, {"ranks": MESH_RANKS,
+                                       "transport": transport,
+                                       "device": card, "label": MESH_LABEL},
+                     nccl["kafka"], world_s)
+    for name in MESH_PATH_KERNELS:
+        if not launches.split(name)["mesh"]:
+            raise AssertionError(f"{name}: no launch in the mesh bucket")
 
 
 MESH_LABEL = ("4 ranks on one card over host-staged gloo; not a multi-card "
@@ -7785,9 +8439,6 @@ def mesh_fault_phases(ranks: list, modules, device, launches: Launches,
                                "kvstore/sharded-cas-step":
                                {"all-reduce": 1}}
     emit(rec)
-    for name in MESH_PATH_KERNELS:
-        if not launches.split(name)["mesh"]:
-            raise AssertionError(f"{name}: no launch in the mesh bucket")
     torch.cuda.empty_cache()
 
 
@@ -7964,6 +8615,9 @@ def main() -> int:
         if name == "counter_select":
             entry["partial"] = {f"{w}x{n}": v for (w, n), v in
                                 times["counter_select_partial"].items()}
+        if f"{name}_block" in times:
+            entry["block"] = {f"{w}x{n}": v for (w, n), v in
+                              times[f"{name}_block"].items()}
         if name.startswith("shift_") or name in MESH_PATH_KERNELS:
             entry["launches_by_path"] = launches.split(name)
         entries.append(entry)

@@ -48,6 +48,18 @@
 //   + kv_retries blocked + 2 write legs + tally_mult tally, mod 2^32
 //   (:793-818).
 //
+// Block forms (a mesh rank's N rows of the sim's, in place of the whole
+// axis): kafka_nem_deliver's rows are global rows row0 + dst and its
+// sends come from any M origins origin0 + m / S (all N of the sim, or one
+// rank's block visiting on the ring), ORed into the rows when accumulating;
+// kafka_commit_select's CAS and writer rows are global (row0 + node) and
+// its sentinel, set by the caller, is the sim's N + 1, so the blocks'
+// results reduce by a minimum and a maximum; kafka_commit_apply learns by
+// global row and, in its partial form, writes the winner's and the last
+// writer's requests where those rows lie in the block (0 elsewhere) for
+// the caller to sum over the blocks.  kafka_merge needs none: its wipe
+// rows are the caller's, its resync union the block's partial.
+//
 // The fault-free round's merge (the union row alone, Wc of 1, 2 or 4) is
 // kafka_merge_kernel's row mode: the key's delivery words and their top
 // stay in registers, and each thread has the loads of four nodes in
@@ -341,12 +353,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct Nem {
-  uint32_t* deliver;       // (n, k, wc)
-  const int32_t* widx;     // (n s,): key * wc + word, -1 for none
-  const uint32_t* bit;     // (n s,): 0 for none
-  const uint8_t* up;       // (n,)
-  int64_t n, kw, s, lo;
+  uint32_t* deliver;       // (n, k, wc): the destination rows
+  const int32_t* widx;     // (m s,): key * wc + word, -1 for none
+  const uint32_t* bit;     // (m s,): 0 for none
+  const uint8_t* up;       // (n,), by destination row
+  int64_t m, kw, s, lo;
+  int64_t row0, origin0;   // global ids of row 0 and of origin 0
   uint32_t key, loss_num;
+  bool accumulate;         // OR into the rows instead of overwriting
 };
 
 // A block's fill of kw words: zeros (src null) or a copy of src.
@@ -369,21 +383,30 @@ template <bool kStaged>
 __global__ void __launch_bounds__(kNemThreads)
     kafka_nem_deliver_kernel(const Nem a) {
   extern __shared__ uint4 staged_s[];
-  const int64_t dst = a.lo + blockIdx.x;
-  uint32_t* out = a.deliver + dst * a.kw;
+  const int64_t local = a.lo + blockIdx.x;
+  const int64_t dst = a.row0 + local;           // the global row id
+  uint32_t* out = a.deliver + local * a.kw;
   uint32_t* row = kStaged ? reinterpret_cast<uint32_t*>(staged_s) : out;
   const bool out_vec = aligned_dev(out, 16) && a.kw % 4 == 0;
-  fill_row(row, nullptr, a.kw, kStaged ? a.kw % 4 == 0 : out_vec);
+  // the row starts empty, or (accumulating) from what it holds: staged,
+  // a copy of it; in global memory, as it is
+  if (kStaged || !a.accumulate)
+    fill_row(row, a.accumulate ? out : nullptr, a.kw,
+             kStaged ? a.kw % 4 == 0 && (!a.accumulate || out_vec)
+                     : out_vec);
   __syncthreads();
-  const bool up = a.up[dst];
-  // a down row receives nothing but keeps its own appends
-  const int64_t m0 = up ? 0 : dst * a.s;
-  const int64_t m1 = up ? a.n * a.s : m0 + a.s;
+  const bool up = a.up[local];
+  // a down row receives nothing but keeps its own appends, where its
+  // own sends are among the m origins
+  const int64_t own = dst - a.origin0;
+  const bool own_in = own >= 0 && own < a.m;
+  const int64_t m0 = up ? 0 : own_in ? own * a.s : 0;
+  const int64_t m1 = up ? a.m * a.s : own_in ? m0 + a.s : 0;
   const uint32_t dst_term = static_cast<uint32_t>(dst) * 0x27D4EB2Fu ^ a.key;
   for (int64_t m = m0 + threadIdx.x; m < m1; m += blockDim.x) {
     const uint32_t b = a.bit[m];
     if (!b) continue;
-    const int64_t origin = m / a.s;
+    const int64_t origin = a.origin0 + m / a.s;
     if (origin != dst
         && mix32(static_cast<uint32_t>(origin) * 0xC2B2AE35u ^ dst_term)
                < a.loss_num)
@@ -406,10 +429,11 @@ struct Select {
   const uint8_t* reach;    // (n,), with req
   const int32_t* kv_sent;  // (k,), with req
   const uint8_t* tally;    // (n,) or null
-  int32_t* cas_win;        // (k,), n + 1 at rest
+  int32_t* cas_win;        // (k,), the sim's N + 1 at rest
   int32_t* wrt_last;       // (k,), -1 at rest
   unsigned long long* counts;  // kCounts, zeroed
   int64_t n, k;
+  int64_t row0;            // the global id of row 0 (a mesh rank's block)
   int wc;
   Tile tile;
 };
@@ -459,11 +483,11 @@ __global__ void __launch_bounds__(kThreads)
           if (sent > 0) {
             if (r > sent) {
               ++cnt[2];
-              cas = min(cas, static_cast<int32_t>(node));
+              cas = min(cas, static_cast<int32_t>(s.row0 + node));
             }
           } else {
             ++cnt[2];
-            wrt = max(wrt, static_cast<int32_t>(node));
+            wrt = max(wrt, static_cast<int32_t>(s.row0 + node));
           }
         } else {
           ++cnt[1];
@@ -508,10 +532,12 @@ struct Apply {
   const uint8_t* reach;
   const uint8_t* want_ok;  // or null
   const unsigned long long* counts;
-  const long long* msgs;
-  int32_t* kv_out;
-  long long* msgs_out;
+  const long long* msgs;    // null in the partial form
+  int32_t* kv_out;          // (k,), or (2, k) in the partial form
+  long long* msgs_out;      // null in the partial form
   int64_t n, k;
+  int64_t row0, nt;         // the global id of row 0; the sim's N
+  bool partial;
   unsigned long long kv_retries, tally_mult;
   Tile tile;
 };
@@ -519,7 +545,7 @@ struct Apply {
 __global__ void __launch_bounds__(kThreads)
     kafka_commit_apply_kernel(const Apply a) {
   const TileIdx ti = tile_idx(a.tile, a.n);
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+  if (a.msgs && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
     const unsigned long long* c = a.counts;
     *a.msgs_out = static_cast<long long>(
         (static_cast<unsigned long long>(*a.msgs) + 2ull * c[0]
@@ -531,9 +557,19 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t win = a.cas_win[ti.key];
   if (blockIdx.y == 0 && ti.ty == 0) {
     const int32_t last = a.wrt_last[ti.key];
-    a.kv_out[ti.key] = win < a.n ? a.req[win * a.k + ti.key]
-                       : last >= 0 ? a.req[last * a.k + ti.key]
-                                   : sent;
+    const int64_t wl = win - a.row0, ll = last - a.row0;
+    if (a.partial) {
+      // the winner's and the last writer's requests where they lie in
+      // this block, 0 elsewhere: the mesh sums them over the blocks
+      a.kv_out[ti.key] =
+          win < a.nt && wl >= 0 && wl < a.n ? a.req[wl * a.k + ti.key] : 0;
+      a.kv_out[a.k + ti.key] =
+          last >= 0 && ll >= 0 && ll < a.n ? a.req[ll * a.k + ti.key] : 0;
+    } else {
+      a.kv_out[ti.key] = win < a.nt ? a.req[wl * a.k + ti.key]
+                         : last >= 0 ? a.req[ll * a.k + ti.key]
+                                     : sent;
+    }
   }
   for (int64_t node = ti.n0 + ti.ty; node < ti.n1; node += ti.lanes) {
     const int64_t nk = node * a.k + ti.key;
@@ -542,8 +578,8 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     const int32_t hwm = a.lc[nk];
     if (hwm > 0 && hwm >= r) continue;
-    const int32_t learn = sent > 0 ? (r > sent ? (node == win ? r : 0) : sent)
-                                   : r;
+    const int32_t learn =
+        sent > 0 ? (r > sent ? (a.row0 + node == win ? r : 0) : sent) : r;
     if (learn > hwm) a.lc[nk] = learn;
   }
 }
@@ -676,11 +712,15 @@ static cudaError_t nem_smem_limit() {
 extern "C" int gg_kafka_nem_deliver(void* deliver, const void* widx,
                                     const void* bit, const void* up,
                                     int64_t n, int64_t k, int64_t wc,
-                                    int64_t s, int64_t lo, int64_t hi,
+                                    int64_t s, int64_t m, int64_t lo,
+                                    int64_t hi, int64_t row0,
+                                    int64_t origin0, int accumulate,
                                     int64_t key, int64_t loss_num,
                                     void* stream) {
-  if (bad_shape(n, k, wc) || s < 1 || n * s >= (int64_t{1} << 31)
-      || lo < 0 || hi > n || lo > hi)
+  if (bad_shape(n, k, wc) || s < 1 || m < 0
+      || m * s >= (int64_t{1} << 31) || lo < 0 || hi > n || lo > hi
+      || row0 < 0 || origin0 < 0 || row0 + n >= (int64_t{1} << 31)
+      || origin0 + m >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (hi == lo) return static_cast<int>(cudaGetLastError());
   Nem a;
@@ -688,10 +728,13 @@ extern "C" int gg_kafka_nem_deliver(void* deliver, const void* widx,
   a.widx = static_cast<const int32_t*>(widx);
   a.bit = static_cast<const uint32_t*>(bit);
   a.up = static_cast<const uint8_t*>(up);
-  a.n = n;
+  a.m = m;
   a.kw = k * wc;
   a.s = s;
   a.lo = lo;
+  a.row0 = row0;
+  a.origin0 = origin0;
+  a.accumulate = accumulate != 0;
   a.key = static_cast<uint32_t>(key);
   a.loss_num = static_cast<uint32_t>(loss_num);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -712,9 +755,11 @@ extern "C" int gg_kafka_commit_select(
     void* present, void* lc, const void* take, const void* uni,
     const void* req, const void* want_ok, const void* reach,
     const void* kv_sent, const void* tally, void* cas_win, void* wrt_last,
-    void* counts, int64_t n, int64_t k, int64_t wc, void* stream) {
+    void* counts, int64_t n, int64_t k, int64_t wc, int64_t row0,
+    void* stream) {
   if (bad_shape(n, k, wc) || (take && !uni)
-      || (req && (!reach || !kv_sent)))
+      || (req && (!reach || !kv_sent)) || row0 < 0
+      || row0 + n >= (int64_t{1} << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Select s;
   s.present = static_cast<uint32_t*>(present);
@@ -731,6 +776,7 @@ extern "C" int gg_kafka_commit_select(
   s.counts = static_cast<unsigned long long*>(counts);
   s.n = n;
   s.k = k;
+  s.row0 = row0;
   s.wc = static_cast<int>(wc);
   dim3 grid;
   s.tile = make_tile(n, k, &grid);
@@ -750,9 +796,11 @@ extern "C" int gg_kafka_commit_apply(
     void* lc, const void* req, const void* cas_win, const void* wrt_last,
     const void* kv_sent, const void* reach, const void* want_ok,
     const void* counts, const void* msgs, void* kv_out, void* msgs_out,
-    int64_t n, int64_t k, int64_t kv_retries, int64_t tally_mult,
-    void* stream) {
-  if (bad_shape(n, k, 1) || kv_retries < 0 || tally_mult < 0)
+    int64_t n, int64_t k, int64_t row0, int64_t nt, int partial,
+    int64_t kv_retries, int64_t tally_mult, void* stream) {
+  if (bad_shape(n, k, 1) || kv_retries < 0 || tally_mult < 0 || row0 < 0
+      || row0 + n > nt || nt >= (int64_t{1} << 31) - 1
+      || (!partial && (!msgs || !msgs_out)))
     return static_cast<int>(cudaErrorInvalidValue);
   Apply a;
   a.lc = static_cast<int32_t*>(lc);
@@ -768,6 +816,9 @@ extern "C" int gg_kafka_commit_apply(
   a.msgs_out = static_cast<long long*>(msgs_out);
   a.n = n;
   a.k = k;
+  a.row0 = row0;
+  a.nt = nt;
+  a.partial = partial != 0;
   a.kv_retries = static_cast<unsigned long long>(kv_retries);
   a.tally_mult = static_cast<unsigned long long>(tally_mult);
   dim3 grid;

@@ -14,11 +14,12 @@ one JSON report a rank (``report.json.<rank>``); it asserts that every
 rank reports the same replicated numbers (the per-rank timings aside).
 Tasks:
 
-- ``sims``: the broadcast and counter halves of the reference's ``sims``
-  (the 16-node grid through the gather path, ``run`` and ``run_fused``:
-  rounds, ``msgs`` and the state digest; the 8-node cas counter, ``run``,
-  ``run_fused`` and a seed replay of 12 rounds: ``msgs`` and the state
-  digest); its Kafka half raises (ROADMAP.md Queue A item 10);
+- ``sims``: the reference's ``sims`` (the 16-node grid through the
+  gather path, ``run`` and ``run_fused``: rounds, ``msgs`` and the state
+  digest; the 8-node cas counter, ``run``, ``run_fused`` and a seed
+  replay of 12 rounds: ``msgs`` and the state digest; the 8-node Kafka
+  log, 6 steps of ``default_rng(0)`` sends: ``msgs`` and the state
+  digest);
 - ``roundtime``: the words-major 4-ary tree flood's round wall over the
   halo exchange, at ``GG_DCN_RT_N`` nodes (65,536) and ``GG_DCN_RT_NV``
   values (32), and the state digest.
@@ -71,13 +72,15 @@ def digest_array(a) -> int:
                & 0xFFFFFFFF)
 
 
-def state_digest(state, mesh=None, *, node_dim: int = 1) -> dict:
+def state_digest(state, mesh=None, *, node_dim: int = 1,
+                 replicated: tuple = ()) -> dict:
     """Checksum every field of a sim state (a dataclass or a NamedTuple)
     into host ints, field-keyed (:func:`digest_array`).  On a mesh a
     tensor field is this rank's block of the node axis (``node_dim``: 1
     words-major, 0 node-major) and is gathered first, so every rank
-    reports the global digest; host ints (``t``) and 0-d ledgers count as
-    int32 / uint32 scalars."""
+    reports the global digest, unless it is empty or named in
+    ``replicated`` (every rank holds all of it); host ints (``t``) and 0-d
+    ledgers count as int32 / uint32 scalars."""
     import torch
 
     out = {}
@@ -90,7 +93,8 @@ def state_digest(state, mesh=None, *, node_dim: int = 1) -> dict:
         if isinstance(value, int):
             out[name] = digest_array(np.int32(value))
             continue
-        if value.dim() >= 1 and mesh is not None:
+        if value.dim() >= 1 and mesh is not None and value.numel() \
+                and name not in replicated:
             value = mesh.all_gather(value, dim=node_dim)
         arr = value.cpu().numpy()
         if value.dim() == 0 and value.dtype == torch.int64:
@@ -119,12 +123,31 @@ def _counter_half(mesh, device) -> dict:
     return out
 
 
+def _kafka_half(mesh, device) -> dict:
+    from ..tpu_sim.kafka import KafkaSim
+
+    nc = 8
+    rng = np.random.default_rng(0)
+    sim = KafkaSim(nc, 4, capacity=32, mesh=mesh, device=device)
+    state = sim.init_state()
+    for _ in range(6):
+        send_key = rng.integers(-1, 4, size=(nc, sim.max_sends)).astype(
+            np.int32)
+        send_val = rng.integers(0, 100, size=(nc, sim.max_sends)).astype(
+            np.int32)
+        state = sim.step(state, send_key, send_val)
+    return {"msgs": int(state.msgs),
+            "state": state_digest(state, mesh, node_dim=0,
+                                  replicated=("log_vals", "kv_val"))}
+
+
 def _sims_half(name: str, mesh, device) -> dict:
     if name == "counter":
         return _counter_half(mesh, device)
+    if name == "kafka":
+        return _kafka_half(mesh, device)
     if name != "broadcast":
-        raise _unported(f"the {name} half of the sims task (a "
-                        f"{name} sim on a mesh)")
+        raise ValueError(f"no {name} half in the sims task")
     from ..tpu_sim.broadcast import BroadcastSim, make_inject
     from .topology import grid, to_padded_neighbors
 
@@ -140,9 +163,10 @@ def _sims_half(name: str, mesh, device) -> dict:
     return out
 
 
-def _task_sims(mesh, device, halves=("broadcast", "counter")) -> dict:
-    """The reference's ``sims`` task, its broadcast and counter halves
-    (the Kafka half raises, item 10)."""
+def _task_sims(mesh, device, halves=("broadcast", "counter", "kafka")
+               ) -> dict:
+    """The reference's ``sims`` task: its broadcast, counter and Kafka
+    halves, or those named in ``halves``."""
     return {name: _sims_half(name, mesh, device) for name in halves}
 
 

@@ -46,8 +46,34 @@ provenance stamps (:mod:`.provenance`: each slot's allocation round and
 origin, from the round's own allocator, and its first presence at the
 witness node) beside the staged rounds.
 
-Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10); the program audit (item 14).
+On a mesh (``KafkaSim(mesh=)``, a :class:`..parallel.mesh.Mesh`) each
+rank holds its block of ``present``, ``local_committed``,
+``origin_bits`` and the device KV's rows; ``log_vals`` and ``kv_val`` are
+replicated, the row ids global.  The drivers take the full (N, S) and
+(N, K) operands and each rank cuts its block.  A round allocates its
+block's sends at their global rank (the local rank plus the
+:func:`.engine.collectives` ``exclusive_sum`` of the lower ranks'
+per-key counts), sums the written cells, the per-key counts and the send
+ledger in one all-reduce, and replicates by mode: ``union`` ORs the
+ranks' partial rows by ``reduce_or`` (no all-gather); materialized
+``union_nem`` widens only the sends' packed (2, N S) metadata (one
+all-gather) and runs :func:`.kernels.kafka_nem_deliver` over the rank's
+rows against all N origins; blocked ``union_nem`` (an integer
+``union_block``) passes the metadata block round a ring of ppermutes,
+each step ORing the visiting origins' bits into the rank's slabs (no
+all-gather); ``matmul`` gathers the ranks' own words (one all-gather)
+and multiplies its columns of the link mask.  The resync union is the
+merge's partial then ``reduce_or``; the commit winners are the
+all-reduced minimum CAS row and maximum writer row, the new cells the
+sum of the apply pass's partials (the block forms of the commit
+kernels).  ``step``, ``run_rounds``, ``run_fused`` and the reads
+(``present_bool``, ``poll``, ``poll_batch``, ``list_committed``,
+``lin_kv``, ``alloc_offsets``) are collective calls: every rank makes
+them, in the same order, and gets the same answer.
+
+Not ported yet, and raising: the traffic and observed drivers, the batch
+round and ``dcn_mode`` on a mesh (ROADMAP.md Queue A item 10); the
+program audit (item 14).
 """
 
 from __future__ import annotations
@@ -59,8 +85,9 @@ import torch
 
 from . import faults, kernels, kvstore, provenance, telemetry, traffic
 from .counter import KVReach, _reach, _unported
-from .engine import (analytic_peak_bytes, fori_rounds, operand_bytes,
-                     resolve_block, resolve_device, scan_blocks)
+from .engine import (_check_flat, analytic_peak_bytes, collectives,
+                     fori_rounds, operand_bytes, resolve_block,
+                     resolve_device, scan_blocks)
 from .faults import MASK32
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
@@ -97,12 +124,14 @@ def _rank_within_key(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return rank
 
 
-def _alloc(kv_val, send_key, reach, up_rows, k_dim: int, cap: int):
+def _alloc(kv_val, send_key, reach, up_rows, k_dim: int, cap: int,
+           exclusive_sum=None):
     """The round's offset allocator, linearized in (node, slot) order.
     Returns ``(tried, valid, keys_c, rank, slot, ok)`` over the flattened
-    (N S,) batch: ``tried`` a real op at an up node, ``valid`` tried and
-    the KV reachable, ``ok`` valid and the slot within capacity (the
-    acked sends)."""
+    (rows S,) batch: ``tried`` a real op at an up node, ``valid`` tried
+    and the KV reachable, ``ok`` valid and the slot within capacity (the
+    acked sends).  On a mesh ``exclusive_sum`` (the collectives') adds
+    the lower ranks' per-key counts of valid sends to each rank."""
     current = torch.where(kv_val > 0, kv_val, 1)
     s_dim = send_key.shape[1]
     loc_key = send_key.reshape(-1)
@@ -113,7 +142,12 @@ def _alloc(kv_val, send_key, reach, up_rows, k_dim: int, cap: int):
     # a KV-blocked send never allocates
     valid = tried & reach.repeat_interleave(s_dim)
     keys_c = loc_key.clamp(0, k_dim - 1)
-    rank = _rank_within_key(keys_c, valid)   # off-mesh: no lower shards
+    rank = _rank_within_key(keys_c, valid)
+    if exclusive_sum is not None:
+        cnt = torch.zeros(k_dim, dtype=torch.int32,
+                          device=keys_c.device).index_add_(
+            0, keys_c.to(torch.int64), valid.to(torch.int32))
+        rank = rank + exclusive_sum(cnt)[keys_c.to(torch.int64)]
     slot = current[keys_c.to(torch.int64)] + rank - 1
     return tried, valid, keys_c, rank, slot, valid & (slot < cap)
 
@@ -176,10 +210,21 @@ class KafkaSim:
         same result at any size); ``kv_backend="device"`` the cells in
         the :mod:`.kvstore` rows, with ``kv_amnesia`` (a dup stream is
         refused).  ``device``: where the state lives (default CUDA;
-        raises if there is none).  ``mesh`` and ``dcn_mode`` raise
+        raises if there is none).  ``mesh``: a
+        :class:`..parallel.mesh.Mesh`, this rank running its block of the
+        rows on ``mesh.device`` (N must divide evenly; every rank calls
+        every method in the same order).  ``dcn_mode`` raises
         (ROADMAP.md Queue A item 10)."""
         if mesh is not None:
-            raise _unported("KafkaSim(mesh=...)", 10)
+            _check_flat(mesh)
+            if n_nodes % mesh.size:
+                raise ValueError(f"{n_nodes} nodes do not shard evenly "
+                                 f"over {mesh.size} ranks")
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         if dcn_mode is not None:
             raise _unported("KafkaSim(dcn_mode=...)", 10)
         if kv_backend not in ("host", "device"):
@@ -195,18 +240,26 @@ class KafkaSim:
                 f"FaultPlan is for {fault_plan.n_nodes} nodes, sim has "
                 f"{n_nodes}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # this rank's rows: all of them off a mesh
+        self._block = n_nodes if mesh is None else n_nodes // mesh.size
+        self._row0 = 0 if mesh is None else mesh.rank * self._block
+        self._coll = (None if mesh is None
+                      else collectives(self._block, mesh))
         self.kv_backend = kv_backend
         self.kv_amnesia = bool(kv_amnesia)
         self._device_kv = kv_backend == "device"
         if self._device_kv:
             self._kv_layout = kvstore.make_layout(n_keys, n_nodes)
             self._slots = kvstore.key_slots(self._kv_layout, self.device)
+            # a rank's share of the store: the keys its rows own
+            self._block_slots = kvstore.block_slots(
+                self._kv_layout, self._row0, self._block, self.device)
         self.n_nodes = n_nodes
         self.n_keys = n_keys
         self.capacity = capacity
         self.n_pwords = (capacity + 31) // 32   # presence words a key
         self.max_sends = max_sends
-        self.mesh = None
         self.kv_retries = kv_retries
         self.kv_sched = (KVReach.none(n_nodes, self.device) if kv_sched is None
                          else kv_sched.to(self.device))
@@ -229,13 +282,19 @@ class KafkaSim:
         self._fp_on = self._fp_active and (
             fault_plan.loss_num > 0 or bool(fault_plan.down.any()))
         # each destination row of the faulted union hashes N S coins; only
-        # the plain version holds them as a tensor, so on the card "auto"
-        # is one launch over all rows (an integer keeps its slabs)
-        coin_bytes = 0 if self.device.type == "cuda" else 4
-        self._ub = resolve_block(n_nodes, union_block,
+        # the plain version holds them as a tensor, so off a mesh on the
+        # card "auto" is one launch over all rows (an integer keeps its
+        # slabs); on a mesh the slab resolves as the reference's, over
+        # the rank's rows at N S coins a row
+        coin_bytes = (0 if self.device.type == "cuda" and mesh is None
+                      else 4)
+        self._ub = resolve_block(self._block, union_block,
                                  per_row_bytes=n_nodes * max_sends
                                  * coin_bytes)
-        self._row_ids = torch.arange(n_nodes, dtype=torch.int32,
+        # the global ids of this rank's rows, and of every row
+        self._row_ids = torch.arange(self._row0, self._row0 + self._block,
+                                     dtype=torch.int32, device=self.device)
+        self._all_ids = torch.arange(n_nodes, dtype=torch.int32,
                                      device=self.device)
         self._traffic = {}
 
@@ -245,7 +304,8 @@ class KafkaSim:
         raise AttributeError(name)
 
     def init_state(self) -> KafkaState:
-        n, k, c, wc = self.n_nodes, self.n_keys, self.capacity, self.n_pwords
+        """The round-0 state (this rank's block of the rows on a mesh)."""
+        n, k, c, wc = self._block, self.n_keys, self.capacity, self.n_pwords
         dev = self.device
 
         def z(*shape):
@@ -256,7 +316,7 @@ class KafkaSim:
             present=z(n, k, wc), kv_val=z(k), local_committed=z(n, k),
             origin_bits=z(n, k, wc if self._push else 0), t=0,
             msgs=torch.zeros((), dtype=torch.int64, device=dev),
-            rows=(kvstore.init_rows(self._kv_layout, dev)
+            rows=(kvstore.init_rows(self._kv_layout, dev, rows=n)
                   if self._device_kv else None))
 
     # -- round -----------------------------------------------------------
@@ -285,14 +345,18 @@ class KafkaSim:
                repl_ok, repl_mode: str, alloc=None) -> KafkaState:
         """One round on ``state``, whose ``present``, ``local_committed``
         and ``origin_bits`` it updates in place: allocate, append and
-        replicate the (N, S) sends, then run the (N, K) commits (None:
-        none).  ``repl_ok``: the (N, N) bool link mask of the matmul path
-        on the sim's device.  ``alloc``: this round's :func:`_alloc` of
-        the sends, already evaluated by the caller on the same operands
-        (the traffic driver's; never with the device KV, whose cells the
-        round reads from its rows)."""
+        replicate the (rows, S) sends, then run the (rows, K) commits
+        (None: none).  ``repl_ok``: the (N, N) bool link mask of the
+        matmul path on the sim's device.  ``alloc``: this round's
+        :func:`_alloc` of the sends, already evaluated by the caller on
+        the same operands (the traffic driver's; never with the device
+        KV, whose cells the round reads from its rows).  On a mesh the
+        rows are this rank's block and the round's collectives are the
+        module docstring's."""
         n, k_dim, cap, wc = (self.n_nodes, self.n_keys, self.capacity,
                              self.n_pwords)
+        rows = self._block
+        mesh = self.mesh
         s_dim = send_key.shape[1]
         t = state.t
         row_ids = self._row_ids
@@ -303,30 +367,49 @@ class KafkaSim:
                                state.origin_bits)
         kv_val, rows_kv = state.kv_val, state.rows
         if self._device_kv:
-            # the cells are read from the store's rows
+            # the cells are read from the store's rows (on a mesh each
+            # key from its owner rank, through one all-reduce)
             if plan is not None and self.kv_amnesia:
                 rows_kv = kvstore.rows_wipe(rows_kv, plan, t, row_ids)
-            kv_val = kvstore.rows_view_at(rows_kv, self._slots)[0]
+            kv_val = (kvstore.rows_view_at(rows_kv, self._slots)[0]
+                      if mesh is None else
+                      kvstore.rows_view_block(rows_kv, self._block_slots,
+                                              k_dim,
+                                              self._coll.reduce_sum)[0])
 
         # -- allocation and append
         current = torch.where(kv_val > 0, kv_val, 1)
         tried, valid, keys_c, rank, slot, ok = (
-            _alloc(kv_val, send_key, reach, up, k_dim, cap) if alloc is None
-            else alloc)
+            _alloc(kv_val, send_key, reach, up, k_dim, cap,
+                   None if mesh is None else self._coll.exclusive_sum)
+            if alloc is None else alloc)
         keys64 = keys_c.to(torch.int64)
-        log_vals = _append(state.log_vals, ok, keys64, slot,
-                           send_val.reshape(-1))
-        counts = torch.zeros(k_dim, dtype=torch.int32,
-                             device=self.device).index_add_(
-            0, keys64, ok.to(torch.int32))
+        # the ledger of the sends: a send of rank r retries its CAS r
+        # times (4 messages an attempt, at most kv_retries attempts), a
+        # KV-blocked send costs its one lost read, and every acked send
+        # N - 1 replicate messages
+        attempts = torch.clamp(rank.to(torch.int64) + 1, max=self.kv_retries)
+        ledger = torch.stack([torch.where(valid, 4 * attempts, 0).sum(),
+                              (tried & ~valid).sum(), ok.sum()])
+        if mesh is None:
+            log_vals = _append(state.log_vals, ok, keys64, slot,
+                               send_val.reshape(-1))
+            counts = torch.zeros(k_dim, dtype=torch.int32,
+                                 device=self.device).index_add_(
+                0, keys64, ok.to(torch.int32))
+        else:
+            log_vals, counts, ledger = self._append_mesh(
+                state.log_vals, ok, keys64, slot, send_val.reshape(-1),
+                ledger)
         kv_sent = torch.where(counts > 0, current + counts, kv_val)
+        msgs = state.msgs + ledger[0] + ledger[1] + ledger[2] * (n - 1)
 
         # -- each acked send's presence word and bit
         widx, bit = _send_bits(ok, keys64, slot, wc)
         kw = k_dim * wc
         own = None
         if repl_mode == "matmul" or self._push:
-            node = torch.arange(n, device=self.device).repeat_interleave(
+            node = torch.arange(rows, device=self.device).repeat_interleave(
                 s_dim)
             at = torch.where(ok, node * kw + widx, 0)
         if self._push:
@@ -335,29 +418,16 @@ class KafkaSim:
             flat = origin.view(-1)
             flat.index_add_(0, at, torch.where(ok, bit & ~flat[at], 0))
         if repl_mode == "matmul":
-            own = _scatter_bits(at, ok, bit, n * kw).view(n, k_dim, wc)
+            own = _scatter_bits(at, ok, bit, rows * kw).view(rows, k_dim, wc)
 
         # -- replication and the merge
         merge = dict(wipe=wipe)
         if repl_mode == "union":
-            merge["row"] = _scatter_bits(widx, ok, bit, kw).view(k_dim, wc)
+            row = _scatter_bits(widx, ok, bit, kw).view(k_dim, wc)
+            merge["row"] = row if mesh is None else self._coll.reduce_or(row)
         elif repl_mode == "union_nem":
-            deliver = torch.empty_like(present)
-            widx32 = widx.to(torch.int32)
-            loss_num = plan.loss_num if t < plan.loss_until else 0
-
-            def slab(carry, lo, hi):
-                kernels.kafka_nem_deliver(
-                    carry, widx32, bit, up, s_dim=s_dim, lo=lo, hi=hi, t=t,
-                    seed=plan.seed, loss_num=loss_num)
-                return carry
-
-            if self._ub is None:
-                slab(deliver, 0, n)
-            else:
-                scan_blocks(lambda c, lo: slab(c, lo, lo + self._ub),
-                            deliver, n, self._ub)
-            merge["carry"] = deliver
+            merge["carry"] = self._nem_deliver(present, widx.to(torch.int32),
+                                               bit, up, s_dim, plan, t)
         else:
             merge.update(carry=self._matmul_deliver(own, repl_ok, plan, t),
                          own=own)
@@ -367,14 +437,9 @@ class KafkaSim:
                                  else kernels.RESYNC_PULL),
                          live=up, origin=origin if self._push else None)
         union, any_origin = kernels.kafka_merge(present, lc, **merge)
-
-        # -- the ledger of the sends: a send of rank r retries its CAS r
-        #    times (4 messages an attempt, at most kv_retries attempts), a
-        #    KV-blocked send costs its one lost read, and every acked send
-        #    N - 1 replicate messages
-        attempts = torch.clamp(rank.to(torch.int64) + 1, max=self.kv_retries)
-        msgs = (state.msgs + torch.where(valid, 4 * attempts, 0).sum()
-                + (tried & ~valid).sum() + ok.sum() * (n - 1))
+        if rs and mesh is not None:
+            # the merge's union is the rank's partial
+            union = self._coll.reduce_or(union)
 
         # -- the resync's take and the commits
         kv_new = kv_sent
@@ -388,39 +453,137 @@ class KafkaSim:
             cas_win, wrt_last, tot = kernels.kafka_commit_select(
                 present, lc, take=up if rs else None, union=union,
                 req=commit_req, want_ok=up, reach=reach, kv_sent=kv_sent,
-                tally=tally)
-            if commit_req is not None:
+                tally=tally, row0=self._row0, n_total=n)
+            akw = dict(kv_retries=self.kv_retries, tally_mult=mult)
+            if commit_req is None:
+                if mesh is not None:
+                    tot = self._coll.reduce_sum(tot)
+                msgs = msgs + mult * tot[3]
+            elif mesh is None:
                 kv_new, msgs = kernels.kafka_commit_apply(
                     lc, commit_req, cas_win, wrt_last, kv_sent, reach, up,
-                    tot, msgs, kv_retries=self.kv_retries, tally_mult=mult)
+                    tot, msgs, **akw)
             else:
-                msgs = msgs + mult * tot[3]
+                # the winners over the ranks: the least CAS row and the
+                # greatest writer row in one minimum
+                win = self._coll.reduce_min(torch.stack([cas_win,
+                                                         -wrt_last]))
+                cas_win, wrt_last = win[0], -win[1]
+                part = kernels.kafka_commit_apply(
+                    lc, commit_req, cas_win, wrt_last, kv_sent, reach, up,
+                    None, None, row0=self._row0, n_total=n, partial=True,
+                    **akw)
+                g = self._coll.reduce_sum(torch.cat(
+                    [part.reshape(-1).to(torch.int64), tot]))
+                kv_new, msgs = kernels.commit_finish(
+                    g[:2 * k_dim].view(2, k_dim), cas_win, wrt_last, kv_sent,
+                    g[2 * k_dim:], msgs, n_total=n, **akw)
         msgs = msgs & MASK32
         if self._device_kv:
             # the round's net cell updates as one CAS a key from the view
-            rows_kv = kvstore.cas_apply_at(rows_kv, self._slots,
-                                           kv_new != kv_val, kv_val, kv_new,
+            # (on a mesh into the owner rank's rows)
+            on, frm, to = kv_new != kv_val, kv_val, kv_new
+            slots = self._slots
+            if mesh is not None:
+                slots, keys = self._block_slots
+                on, frm, to = on[keys], frm[keys], to[keys]
+            rows_kv = kvstore.cas_apply_at(rows_kv, slots, on, frm, to,
                                            donate=True)
         return KafkaState(log_vals, present, kv_new, lc, origin, t + 1, msgs,
                           rows=rows_kv)
 
+    def _append_mesh(self, log_vals, ok, keys64, slot, vals, ledger):
+        """The append on a mesh: each rank's acked sends packed into their
+        (key, slot) cells as ``1 << 32 | value`` (offsets are unique, so
+        one rank writes a cell), beside the per-key counts of acked sends
+        and the send ledger, summed over the ranks in one all-reduce.
+        Returns the replicated ``log_vals``, the counts and the global
+        ledger."""
+        k_dim, cap = log_vals.shape
+        kc = k_dim * cap
+        packed = torch.zeros(kc + 1 + k_dim + 3, dtype=torch.int64,
+                             device=log_vals.device)
+        cell = torch.where(ok, keys64 * cap + slot, kc)
+        packed[cell] = torch.where(ok, (vals.to(torch.int64) & MASK32)
+                                   | (1 << 32), 0)
+        packed[kc + 1:kc + 1 + k_dim].index_add_(0, keys64,
+                                                 ok.to(torch.int64))
+        packed[kc + 1 + k_dim:] = ledger
+        g = self._coll.reduce_sum(packed)
+        cells = g[:kc]
+        log_vals = torch.where((cells >> 32) > 0,
+                               kernels._wrap_i32(cells & MASK32),
+                               log_vals.reshape(-1)).view(k_dim, cap)
+        return (log_vals, g[kc + 1:kc + 1 + k_dim].to(torch.int32),
+                g[kc + 1 + k_dim:])
+
+    def _nem_deliver(self, present, widx32, bit, up, s_dim: int, plan,
+                     t: int) -> torch.Tensor:
+        """The faulted origin union's delivery (rows, K, Wc): every row's
+        surviving bits of the round's sends, over all rows at once or in
+        ``union_block`` slabs.  On a mesh the materialized form widens the
+        sends' packed metadata to all N origins (one all-gather); the
+        blocked form passes each rank's metadata block round the ring
+        (a ppermute a step), ORing each visiting block's bits in."""
+        rows = self._block
+        loss_num = plan.loss_num if t < plan.loss_until else 0
+        kw = dict(s_dim=s_dim, t=t, seed=plan.seed, loss_num=loss_num,
+                  row0=self._row0)
+        deliver = torch.empty_like(present)
+        ub = self._ub
+
+        def sweep(meta, origin0: int, acc: bool):
+            def slab(carry, lo):
+                kernels.kafka_nem_deliver(
+                    carry, meta[0], meta[1], up, lo=lo,
+                    hi=lo + (rows if ub is None else ub), origin0=origin0,
+                    accumulate=acc, **kw)
+                return carry
+
+            scan_blocks(slab, deliver, rows, rows if ub is None else ub)
+
+        mesh = self.mesh
+        if mesh is None:
+            sweep((widx32, bit), 0, False)
+            return deliver
+        meta = torch.stack([widx32, bit])
+        if ub is None:
+            g = mesh.all_gather(meta, dim=1)
+            sweep((g[0].contiguous(), g[1].contiguous()), 0, False)
+            return deliver
+        k, p = mesh.size, mesh.rank
+        for step in range(k):
+            # after ``step`` rotations the block came from rank p - step
+            sweep((meta[0].contiguous(), meta[1].contiguous()),
+                  (p - step) % k * rows, step > 0)
+            if step + 1 < k:
+                meta = mesh.ppermute(meta, [(q, (q + 1) % k)
+                                            for q in range(k)])
+        return deliver
+
     def _matmul_deliver(self, own, repl_ok, plan, t: int) -> torch.Tensor:
-        """The link-mask delivery: the masked OR over origins of their new
-        words as a matrix product of byte planes (disjoint bits keep every
-        byte sum <= 255, exact in float16 on the card, float32 on the
-        CPU), composed with the plan's liveness and loss coins."""
-        n, k_dim, wc = own.shape
-        ok = repl_ok
+        """The link-mask delivery of this rank's rows: the masked OR over
+        origins of their new words as a matrix product of byte planes
+        (disjoint bits keep every byte sum <= 255, exact in float16 on the
+        card, float32 on the CPU), composed with the plan's liveness and
+        loss coins.  On a mesh the origins' words are the ranks' own
+        words gathered (one all-gather), the mask the rank's columns."""
+        n, k_dim, wc = self.n_nodes, self.n_keys, self.n_pwords
+        rows, r0 = self._block, self._row0
+        if self.mesh is not None:
+            own = self._coll.widen(own)
+        ok = repl_ok[:, r0:r0 + rows]
         if plan is not None:
-            ids = self._row_ids
+            ids = self._all_ids
             up_all = faults.node_up(plan, t, ids)
-            ok = (ok & up_all[:, None] & up_all[None, :]
-                  & ~faults.edge_drop(plan, t, ids[:, None], ids[None, :]))
+            ok = (ok & up_all[:, None] & up_all[None, r0:r0 + rows]
+                  & ~faults.edge_drop(plan, t, ids[:, None],
+                                      self._row_ids[None, :]))
         dtype = torch.float32 if self.device.type == "cpu" else torch.float16
         shifts = torch.arange(0, 32, 8, device=self.device)
         planes = (own.to(torch.int64)[..., None] >> shifts) & 0xFF
         prod = ok.t().to(dtype) @ planes.reshape(n, -1).to(dtype)
-        db = prod.round().to(torch.int64).view(n, k_dim, wc, 4)
+        db = prod.round().to(torch.int64).view(rows, k_dim, wc, 4)
         return kernels._wrap_i32((db << shifts).sum(-1))
 
     def _repl_mode(self, repl_ok) -> str:
@@ -439,11 +602,12 @@ class KafkaSim:
         """The reference's analytic footprint of one faulted ``union_nem``
         round (:func:`.engine.analytic_peak_bytes`): the state, the plan's
         leaves, and the coin slab (``block`` x N S hashes; the whole
-        (N, N S) tensor for ``block=None``) plus the (N, K, Wc) delivery
-        carry.  ``block="resolved"`` takes this sim's slab.  This models
-        the reference's round and the CPU's plain version; the card's
-        kernel hashes its coins in registers and holds no coin slab."""
-        rows = self.n_nodes
+        (rows, N S) tensor for ``block=None``) plus the (rows, K, Wc)
+        delivery carry, rows a rank's on a mesh.  ``block="resolved"``
+        takes this sim's slab.  This models the reference's round and the
+        CPU's plain version; the card's kernel hashes its coins in
+        registers and holds no coin slab."""
+        rows = self._block
         if block == "resolved":
             block = self._ub
         eff = rows if block is None else int(block)
@@ -464,12 +628,24 @@ class KafkaSim:
 
     # -- drivers ---------------------------------------------------------
 
-    def _ints(self, x) -> torch.Tensor:
+    def _ints(self, x, node_axis: int | None = None) -> torch.Tensor:
         """int32 on the sim's device, from numpy or a tensor (a batch
-        staged on the device stays there)."""
+        staged on the device stays there); on a mesh, with ``node_axis``,
+        this rank's block of that axis of the full operand."""
+        if self.mesh is not None and node_axis is not None:
+            if x.shape[node_axis] != self.n_nodes:
+                raise ValueError(
+                    f"on a mesh the operands carry all {self.n_nodes} "
+                    f"rows on axis {node_axis}, got {tuple(x.shape)}")
+            if not isinstance(x, torch.Tensor):
+                x = np.take(np.asarray(x), np.arange(
+                    self._row0, self._row0 + self._block), axis=node_axis)
+            else:
+                x = x.narrow(node_axis, self._row0, self._block)
         if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=torch.int32)
-        return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
+            return x.to(device=self.device, dtype=torch.int32).contiguous()
+        return torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                               device=self.device)
 
     def _copy(self, state: KafkaState) -> KafkaState:
         rows = state.rows
@@ -501,10 +677,10 @@ class KafkaSim:
             send_key = np.full((n, s), -1, np.int32)
             send_val = np.zeros((n, s), np.int32)
         mode, repl_ok = self._staged(repl_ok)
-        return self._round(self._copy(state), self._ints(send_key),
-                           self._ints(send_val),
+        return self._round(self._copy(state), self._ints(send_key, 0),
+                           self._ints(send_val, 0),
                            None if commit_req is None
-                           else self._ints(commit_req), repl_ok, mode)
+                           else self._ints(commit_req, 0), repl_ok, mode)
 
     def run_rounds(self, state: KafkaState, send_key, send_val,
                    commit_req=None, repl_ok=None) -> KafkaState:
@@ -520,8 +696,8 @@ class KafkaSim:
         the committed cache, the origin bits and the KV rows of the state
         passed in, which must not be used again."""
         mode, repl_ok = self._staged(repl_ok)
-        sks, svs = self._ints(send_key), self._ints(send_val)
-        crs = None if commit_req is None else self._ints(commit_req)
+        sks, svs = self._ints(send_key, 1), self._ints(send_val, 1)
+        crs = None if commit_req is None else self._ints(commit_req, 1)
         r = iter(range(sks.shape[0]))
 
         def body(st):
@@ -538,6 +714,8 @@ class KafkaSim:
         """The traffic driver's per-spec index tensors
         (:func:`.traffic.client_index` and the op slots), cached by the
         spec's static key."""
+        if self.mesh is not None:
+            raise _unported("KafkaSim.run_traffic on a mesh", 10)
         key = tspec.program_key
         if key not in self._traffic:
             ix = traffic.client_index(tspec, self.n_nodes, self.device)
@@ -687,6 +865,8 @@ class KafkaSim:
         the traffic driver does; the device KV's round reads its own).
         With ``donate`` the state and the ring are updated in place, else
         copied first.  Returns ``(state, tel?, prov?)``."""
+        if self.mesh is not None:
+            raise _unported("KafkaSim.run_observed on a mesh", 10)
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -770,7 +950,8 @@ class KafkaSim:
                       send_key: np.ndarray) -> np.ndarray:
         """(N, S) int32 — the offsets this round's sends were acked with,
         or -1: the round's allocator on the device, gated by the host's
-        reach at ``state_before.t``."""
+        reach at ``state_before.t``.  On a mesh every rank ranks the whole
+        batch against the replicated cells: no collective."""
         t = state_before.t
         reach = np.ones(self.n_nodes, bool)
         blocked = self.kv_sched.blocked.cpu().numpy()
@@ -800,15 +981,8 @@ class KafkaSim:
 
         def pb(present, log_vals, nodes, keys, from_off):
             nodes, keys = nodes.to(torch.int64), keys.to(torch.int64)
-            words = present[nodes, keys]                       # (Q, Wc)
-            offs = torch.arange(1, cap + 1, dtype=torch.int32,
-                                device=present.device)
-            slots = (offs - 1).to(torch.int64)
-            pres = ((words[:, slots // 32] >> (slots % 32).to(torch.int32))
-                    & 1) > 0
-            sel = pres & (offs[None, :] >= from_off[:, None])
-            return (torch.where(sel, offs[None, :], -1),
-                    torch.where(sel, log_vals[keys], 0))
+            return _poll_words(present[nodes, keys], log_vals, keys,
+                               from_off, cap)
 
         return pb
 
@@ -816,10 +990,24 @@ class KafkaSim:
                    from_offsets) -> tuple[np.ndarray, np.ndarray]:
         """The LOCAL-log poll of Q (node, key, from_offset) queries:
         padded ``(offsets, msgs)`` (Q, capacity) arrays, offset -1 an
-        empty slot, offset-ascending by layout."""
-        offs, vals = self.poll_batch_program()(
-            state.present, state.log_vals, self._ints(nodes),
-            self._ints(keys), self._ints(from_offsets))
+        empty slot, offset-ascending by layout.  On a mesh each rank
+        contributes the words of the queried nodes in its block, summed
+        in one all-reduce."""
+        nodes, keys = self._ints(nodes), self._ints(keys)
+        from_off = self._ints(from_offsets)
+        if self.mesh is None:
+            offs, vals = self.poll_batch_program()(
+                state.present, state.log_vals, nodes, keys, from_off)
+        else:
+            loc = nodes.to(torch.int64) - self._row0
+            inb = (loc >= 0) & (loc < self._block)
+            k64 = keys.to(torch.int64)
+            words = torch.where(
+                inb[:, None],
+                state.present[loc.clamp(0, self._block - 1), k64], 0)
+            offs, vals = _poll_words(self._coll.reduce_sum(words),
+                                     state.log_vals, k64, from_off,
+                                     self.capacity)
         return offs.cpu().numpy(), vals.cpu().numpy()
 
     def poll(self, state: KafkaState, node: int, key: int,
@@ -831,22 +1019,46 @@ class KafkaSim:
                                                  vals[0][sel])]
 
     def present_bool(self, state: KafkaState) -> np.ndarray:
-        """(N, K, C) bool — the presence bits unpacked on the host."""
-        words = state.present.cpu().numpy().view(np.uint32)
+        """(N, K, C) bool — the presence bits unpacked on the host (on a
+        mesh every rank's block, gathered)."""
+        present = state.present if self.mesh is None \
+            else self._coll.widen(state.present)
+        words = present.cpu().numpy().view(np.uint32)
         c = np.arange(self.capacity)
         return ((words[..., c // 32] >> (c % 32)) & 1).astype(bool)
 
     def list_committed(self, state: KafkaState, node: int) -> dict[int, int]:
-        """Per-key committed offsets from the node's LOCAL cache."""
-        lc = state.local_committed[node].cpu().numpy()
+        """Per-key committed offsets from the node's LOCAL cache (on a
+        mesh the owner rank's row, through one all-reduce)."""
+        if self.mesh is None:
+            lc = state.local_committed[node]
+        else:
+            loc = node - self._row0
+            row = (state.local_committed[loc] if 0 <= loc < self._block
+                   else torch.zeros(self.n_keys, dtype=torch.int32,
+                                    device=self.device))
+            lc = self._coll.reduce_sum(row)
+        lc = lc.cpu().numpy()
         (nz,) = np.nonzero(lc > 0)
         return {int(k): int(lc[k]) for k in nz}
 
     def lin_kv(self, state: KafkaState) -> dict[int, int]:
         """The shared lin-kv cells (key -> value): after sends, the
-        allocator's next offset."""
+        allocator's next offset (replicated on a mesh)."""
         c = state.kv_val.cpu().numpy()
         return {k: int(c[k]) for k in range(self.n_keys) if c[k] > 0}
+
+
+def _poll_words(words, log_vals, keys, from_off, cap: int):
+    """The poll's answers from the queried (node, key) presence words
+    (Q, Wc): each slot's offset where it is present and at least the
+    query's from-offset (else -1), and its value (else 0)."""
+    offs = torch.arange(1, cap + 1, dtype=torch.int32, device=words.device)
+    slots = (offs - 1).to(torch.int64)
+    pres = ((words[:, slots // 32] >> (slots % 32).to(torch.int32)) & 1) > 0
+    sel = pres & (offs[None, :] >= from_off[:, None])
+    return (torch.where(sel, offs[None, :], -1),
+            torch.where(sel, log_vals[keys], 0))
 
 
 def _build_batch_round(sim: KafkaSim):
@@ -856,6 +1068,9 @@ def _build_batch_round(sim: KafkaSim):
     tel)`` takes one (N, S) send batch, commit-free, in place
     (:meth:`KafkaSim.run_fused`), recording the telemetry row when given
     a ring (:meth:`KafkaSim.run_observed`)."""
+    if sim.mesh is not None:
+        raise _unported("the Kafka batch round on a mesh", 10)
+
     def rnd(state: KafkaState, send_key, send_val, tel=None, tel_spec=None):
         sk, sv = send_key[None], send_val[None]
         if tel is None:

@@ -1033,13 +1033,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 "gg_kafka_merge": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                    ptr, ptr, i64, i64, i64, i32, ptr],
                 "gg_kafka_nem_deliver": [ptr, ptr, ptr, ptr, i64, i64, i64,
-                                         i64, i64, i64, i64, i64, ptr],
+                                         i64, i64, i64, i64, i64, i64, i32,
+                                         i64, i64, ptr],
                 "gg_kafka_commit_select": [ptr, ptr, ptr, ptr, ptr, ptr,
                                            ptr, ptr, ptr, ptr, ptr, ptr,
-                                           i64, i64, i64, ptr],
+                                           i64, i64, i64, i64, ptr],
                 "gg_kafka_commit_apply": [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                           ptr, ptr, ptr, ptr, i64, i64, i64,
-                                          i64, ptr]},
+                                          i64, i32, i64, i64, ptr]},
             "traffic_fold": {
                 "gg_and_fold_rows": [ptr, ptr, i64, i64, ptr],
                 "gg_and_fold_cols": [ptr, ptr, i64, i64, ptr]},
@@ -2037,17 +2038,19 @@ def kafka_merge_plain(present: torch.Tensor, lc: torch.Tensor, *,
 def kafka_nem_deliver_plain(deliver: torch.Tensor, widx: torch.Tensor,
                             bit: torch.Tensor, up: torch.Tensor, *,
                             s_dim: int, lo: int, hi: int, t: int, seed: int,
-                            loss_num: int) -> None:
+                            loss_num: int, row0: int = 0, origin0: int = 0,
+                            accumulate: bool = False) -> None:
     from .faults import _SALT_LOSS, _hash32
 
     n, k, wc = deliver.shape
     kw = k * wc
-    dst = torch.arange(lo, hi, device=deliver.device)
-    origin = torch.arange(widx.shape[0], device=deliver.device) // s_dim
-    # the slab's whole (rows, N S) coin tensor: a destination that is up
+    dst = row0 + torch.arange(lo, hi, device=deliver.device)
+    origin = origin0 + torch.arange(widx.shape[0],
+                                    device=deliver.device) // s_dim
+    # the slab's whole (rows, M S) coin tensor: a destination that is up
     # keeps what the loss coin of origin -> dst lets through, and every
     # node its own appends
-    recv = up[dst][:, None] | (origin[None, :] == dst[:, None])
+    recv = up[lo:hi][:, None] | (origin[None, :] == dst[:, None])
     if loss_num:
         recv &= (_hash32(seed, t, origin[None, :], dst[:, None], _SALT_LOSS)
                  >= loss_num) | (origin[None, :] == dst[:, None])
@@ -2056,7 +2059,10 @@ def kafka_nem_deliver_plain(deliver: torch.Tensor, widx: torch.Tensor,
                        device=deliver.device)
     slab.scatter_add_(1, idx.expand(hi - lo, -1).contiguous(),
                       torch.where(recv, bit[None, :], 0))
-    deliver[lo:hi] = slab[:, :kw].view(hi - lo, k, wc)
+    if accumulate:
+        deliver[lo:hi] |= slab[:, :kw].view(hi - lo, k, wc)
+    else:
+        deliver[lo:hi] = slab[:, :kw].view(hi - lo, k, wc)
 
 
 def _commit_masks(lc, req, want_ok, reach, kv_sent):
@@ -2076,8 +2082,10 @@ def _commit_masks(lc, req, want_ok, reach, kv_sent):
 
 def kafka_commit_select_plain(present: torch.Tensor, lc: torch.Tensor, *,
                               take=None, union=None, req=None, want_ok=None,
-                              reach=None, kv_sent=None, tally=None):
+                              reach=None, kv_sent=None, tally=None,
+                              row0: int = 0, n_total: int | None = None):
     n, k = lc.shape
+    nt = n if n_total is None else n_total
     dev = lc.device
     if take is not None:
         sync_new = torch.where(take[:, None, None], union[None] & ~present, 0)
@@ -2086,13 +2094,13 @@ def kafka_commit_select_plain(present: torch.Tensor, lc: torch.Tensor, *,
     counts = torch.zeros(KAFKA_COUNTS, dtype=torch.int64, device=dev)
     if tally is not None:
         counts[3] = tally.sum()
-    cas_win = torch.full((k,), n + 1, dtype=torch.int32, device=dev)
+    cas_win = torch.full((k,), nt + 1, dtype=torch.int32, device=dev)
     wrt_last = torch.full((k,), -1, dtype=torch.int32, device=dev)
     if req is not None:
         active, blocked, _, need_cas, writers = _commit_masks(
             lc, req, want_ok, reach, kv_sent)
-        rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-        cas_win = torch.where(need_cas, rows, n + 1).amin(0).to(torch.int32)
+        rows = row0 + torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+        cas_win = torch.where(need_cas, rows, nt + 1).amin(0).to(torch.int32)
         wrt_last = torch.where(writers, rows, -1).amax(0).to(torch.int32)
         counts[0] = active.sum()
         counts[1] = blocked.sum()
@@ -2103,27 +2111,54 @@ def kafka_commit_select_plain(present: torch.Tensor, lc: torch.Tensor, *,
 def kafka_commit_apply_plain(lc: torch.Tensor, req: torch.Tensor,
                              cas_win: torch.Tensor, wrt_last: torch.Tensor,
                              kv_sent: torch.Tensor, reach: torch.Tensor,
-                             want_ok, counts: torch.Tensor,
-                             msgs: torch.Tensor, *, kv_retries: int,
-                             tally_mult: int):
+                             want_ok, counts: torch.Tensor | None,
+                             msgs: torch.Tensor | None, *, kv_retries: int,
+                             tally_mult: int, row0: int = 0,
+                             n_total: int | None = None,
+                             partial: bool = False):
     n = lc.shape[0]
+    nt = n if n_total is None else n_total
     _, _, read_only, need_cas, writers = _commit_masks(lc, req, want_ok,
                                                        reach, kv_sent)
-    rows = torch.arange(n, dtype=torch.int32, device=lc.device)[:, None]
+    rows = row0 + torch.arange(n, dtype=torch.int32,
+                               device=lc.device)[:, None]
     learn = torch.where(need_cas & (rows == cas_win[None, :]), req,
                         torch.where(read_only, kv_sent[None, :],
                                     torch.where(writers, req, 0)))
     torch.maximum(lc, learn, out=lc)
 
     def req_at(r):
-        return req.gather(0, r.clamp(0, n - 1).to(torch.int64)[None])[0]
+        # the request of global row r where it lies in this block, else 0
+        loc = r.to(torch.int64) - row0
+        inb = (loc >= 0) & (loc < n)
+        got = req.gather(0, loc.clamp(0, n - 1)[None])[0]
+        return torch.where(inb, got, 0)
 
-    kv_val = torch.where(cas_win <= n - 1, req_at(cas_win),
-                         torch.where(wrt_last >= 0, req_at(wrt_last),
-                                     kv_sent))
+    if partial:
+        return torch.stack([torch.where(cas_win <= nt - 1, req_at(cas_win),
+                                        0),
+                            torch.where(wrt_last >= 0, req_at(wrt_last),
+                                        0)])
+    return commit_finish(torch.stack([req_at(cas_win), req_at(wrt_last)]),
+                         cas_win, wrt_last, kv_sent, counts, msgs,
+                         kv_retries=kv_retries, tally_mult=tally_mult,
+                         n_total=nt)
+
+
+def commit_finish(part: torch.Tensor, cas_win: torch.Tensor,
+                  wrt_last: torch.Tensor, kv_sent: torch.Tensor,
+                  counts: torch.Tensor, msgs: torch.Tensor, *,
+                  kv_retries: int, tally_mult: int, n_total: int):
+    """The new cells and ledger from :func:`kafka_commit_apply`'s partial
+    form summed over the blocks (``part`` (2, K): the CAS winner's and the
+    last writer's requests) and the blocks' summed ``counts``: the
+    winner's request where a CAS won, else the last writer's, else
+    ``kv_sent``; ``msgs`` plus the counts' charges, mod 2^32."""
+    kv_val = torch.where(cas_win <= n_total - 1, part[0],
+                         torch.where(wrt_last >= 0, part[1], kv_sent))
     inc = (2 * counts[0] + kv_retries * counts[1] + 2 * counts[2]
            + tally_mult * counts[3])
-    return kv_val, (msgs + inc) & MASK32
+    return kv_val.to(torch.int32), (msgs + inc) & MASK32
 
 
 def _check_kafka(present: torch.Tensor, lc: torch.Tensor) -> tuple:
@@ -2216,36 +2251,51 @@ def kafka_merge(present: torch.Tensor, lc: torch.Tensor, *,
 
 def kafka_nem_deliver(deliver: torch.Tensor, widx: torch.Tensor,
                       bit: torch.Tensor, up: torch.Tensor, *, s_dim: int,
-                      lo: int, hi: int, t: int, seed: int,
-                      loss_num: int) -> None:
+                      lo: int, hi: int, t: int, seed: int, loss_num: int,
+                      row0: int = 0, origin0: int = 0,
+                      accumulate: bool = False) -> None:
     """The faulted origin union of the destination rows [lo, hi), written
-    into those rows of ``deliver`` (N, K, Wc) int32: over the round's N S
-    sends (send m from origin m // ``s_dim``; ``widx`` (N S,) int32 its
+    into those rows of ``deliver`` (N, K, Wc) int32: over M S sends (send
+    m from origin ``origin0 + m // s_dim``; ``widx`` (M S,) int32 its
     word ``key * Wc + word``, -1 for none; ``bit`` its word's bit, 0 for
-    none), row ``dst`` gets the bits of the sends with ``(up[dst] and
-    not drop(t, origin, dst)) or origin == dst``.  ``drop`` is the
-    reference's ``edge_drop`` coin, the hash of ``(seed, t, origin, dst)``
-    below ``loss_num`` (0 when the loss stream is off at ``t``).  No coin
-    tensor: on the card each block hashes one row's sends in
-    registers."""
+    none), row ``dst`` (global id ``row0 + dst``) gets the bits of the
+    sends with ``(up[dst] and not drop(t, origin, row0 + dst)) or origin
+    == row0 + dst``.  ``drop`` is the reference's ``edge_drop`` coin, the
+    hash of ``(seed, t, origin, dst)`` below ``loss_num`` (0 when the
+    loss stream is off at ``t``).  ``accumulate``: OR the bits into the
+    rows instead of overwriting them.
+
+    Off a mesh the M origins are the N rows (``row0 = origin0 = 0``).
+    The block form, on a mesh rank's N rows: ``row0`` the block's first
+    global row, the origins all N of the sim (the materialized union) or
+    one visiting rank's block at ``origin0`` (the ring, each step
+    accumulating).  No coin tensor: on the card each block hashes one
+    row's sends in registers."""
     if deliver.dtype != torch.int32 or deliver.dim() != 3 \
             or not deliver.is_contiguous():
         raise ValueError("deliver must be a contiguous (N, K, Wc) int32 "
                          "tensor")
     n, k, wc = deliver.shape
-    if s_dim < 1 or widx.shape != (n * s_dim,):
-        raise ValueError(f"widx must hold N S = {n} x {s_dim} sends")
-    _check_like("widx", widx, (n * s_dim,), torch.int32)
-    _check_like("bit", bit, (n * s_dim,), torch.int32)
+    if s_dim < 1 or widx.dim() != 1 or widx.shape[0] % s_dim:
+        raise ValueError(f"widx must hold M x {s_dim} sends, got "
+                         f"{tuple(widx.shape)}")
+    m = widx.shape[0] // s_dim
+    _check_like("widx", widx, (m * s_dim,), torch.int32)
+    _check_like("bit", bit, (m * s_dim,), torch.int32)
     _check_like("up", up, (n,), torch.bool)
     if not 0 <= lo <= hi <= n:
         raise ValueError(f"rows [{lo}, {hi}) outside [0, {n}]")
+    if row0 < 0 or origin0 < 0 or row0 + n > MAX_NODES \
+            or origin0 + m > MAX_NODES:
+        raise ValueError(f"row0 {row0} + N {n} and origin0 {origin0} + M "
+                         f"{m}: global ids are below 2^31")
     if _on_cpu(deliver, widx, bit, up):
-        return kafka_nem_deliver_plain(deliver, widx, bit, up, s_dim=s_dim,
-                                       lo=lo, hi=hi, t=t, seed=seed,
-                                       loss_num=loss_num)
-    if not (1 <= n <= MAX_NODES and n * s_dim <= MAX_NODES):
-        raise ValueError(f"N = {n} and N S = {n * s_dim} sends: the kernel "
+        return kafka_nem_deliver_plain(
+            deliver, widx, bit, up, s_dim=s_dim, lo=lo, hi=hi, t=t,
+            seed=seed, loss_num=loss_num, row0=row0, origin0=origin0,
+            accumulate=accumulate)
+    if not (1 <= n <= MAX_NODES and m * s_dim <= MAX_NODES):
+        raise ValueError(f"N = {n} and M S = {m * s_dim} sends: the kernel "
                          f"takes below 2^31")
     from .faults import _K_T, _SALT_LOSS
 
@@ -2253,8 +2303,8 @@ def kafka_nem_deliver(deliver: torch.Tensor, widx: torch.Tensor,
         key = ((t & MASK32) * _K_T & MASK32) ^ (seed & MASK32) ^ _SALT_LOSS
         _launch("kafka_nem_deliver", _lib("kafka_round").gg_kafka_nem_deliver,
                 deliver.device, deliver.data_ptr(), widx.data_ptr(),
-                bit.data_ptr(), _bytes(up), n, k, wc, s_dim, lo, hi, key,
-                loss_num & MASK32)
+                bit.data_ptr(), _bytes(up), n, k, wc, s_dim, m, lo, hi,
+                row0, origin0, int(accumulate), key, loss_num & MASK32)
 
 
 def kafka_commit_select(present: torch.Tensor, lc: torch.Tensor, *,
@@ -2264,7 +2314,8 @@ def kafka_commit_select(present: torch.Tensor, lc: torch.Tensor, *,
                         want_ok: torch.Tensor | None = None,
                         reach: torch.Tensor | None = None,
                         kv_sent: torch.Tensor | None = None,
-                        tally: torch.Tensor | None = None):
+                        tally: torch.Tensor | None = None, row0: int = 0,
+                        n_total: int | None = None):
     """The Kafka round's commit read pass, after :func:`kafka_merge`, in
     place on ``present`` and ``lc``:
 
@@ -2284,8 +2335,18 @@ def kafka_commit_select(present: torch.Tensor, lc: torch.Tensor, *,
     (N + 1: none) and the highest writer row (-1: none), (K,) int32, and
     four int64 counts (:data:`KAFKA_COUNTS`: active dances, blocked
     dances, write legs, ``tally`` rows).  On the card each block reduces
-    its keys over its node rows first and adds one atomic a key."""
+    its keys over its node rows first and adds one atomic a key.
+
+    The block form, on a mesh rank's N rows: ``row0`` the global id of
+    row 0 and ``n_total`` the sim's N, so the rows are global ids and
+    the sentinel is ``n_total + 1``; the mesh takes the minimum of the
+    blocks' ``cas_win``, the maximum of their ``wrt_last`` and the sum
+    of their counts."""
     n, k, wc = _check_kafka(present, lc)
+    nt = n if n_total is None else n_total
+    if row0 < 0 or row0 + n > nt or nt >= MAX_NODES:
+        raise ValueError(f"rows [{row0}, {row0 + n}) of {nt}: the block "
+                         f"lies inside the sim's N < 2^31 - 1")
     for name, x in (("take", take), ("want_ok", want_ok), ("reach", reach),
                     ("tally", tally)):
         _check_like(name, x, (n,), torch.bool)
@@ -2303,25 +2364,28 @@ def kafka_commit_select(present: torch.Tensor, lc: torch.Tensor, *,
         return kafka_commit_select_plain(present, lc, take=take, union=union,
                                          req=req, want_ok=want_ok,
                                          reach=reach, kv_sent=kv_sent,
-                                         tally=tally)
+                                         tally=tally, row0=row0,
+                                         n_total=nt)
     dev = present.device
-    cas_win = torch.full((k,), n + 1, dtype=torch.int32, device=dev)
+    cas_win = torch.full((k,), nt + 1, dtype=torch.int32, device=dev)
     wrt_last = torch.full((k,), -1, dtype=torch.int32, device=dev)
     counts = torch.zeros(KAFKA_COUNTS, dtype=torch.int64, device=dev)
     _launch("kafka_commit_select", _lib("kafka_round").gg_kafka_commit_select,
             dev, present.data_ptr(), lc.data_ptr(), _bytes(take),
             _ptr(union), _ptr(req), _bytes(want_ok), _bytes(reach),
             _ptr(kv_sent), _bytes(tally), cas_win.data_ptr(),
-            wrt_last.data_ptr(), counts.data_ptr(), n, k, wc)
+            wrt_last.data_ptr(), counts.data_ptr(), n, k, wc, row0)
     return cas_win, wrt_last, counts
 
 
 def kafka_commit_apply(lc: torch.Tensor, req: torch.Tensor,
                        cas_win: torch.Tensor, wrt_last: torch.Tensor,
                        kv_sent: torch.Tensor, reach: torch.Tensor,
-                       want_ok: torch.Tensor | None, counts: torch.Tensor,
-                       msgs: torch.Tensor, *, kv_retries: int,
-                       tally_mult: int):
+                       want_ok: torch.Tensor | None,
+                       counts: torch.Tensor | None,
+                       msgs: torch.Tensor | None, *, kv_retries: int,
+                       tally_mult: int, row0: int = 0,
+                       n_total: int | None = None, partial: bool = False):
     """The Kafka round's commit write pass, after
     :func:`kafka_commit_select` on the same operands: ``lc = max(lc,
     learn)`` in place, where a node learns its request if it won its
@@ -2329,8 +2393,20 @@ def kafka_commit_apply(lc: torch.Tensor, req: torch.Tensor,
     the new cells (K,) int32 — the CAS winner's request, else the last
     writer's, else ``kv_sent`` — and ``(msgs + 2 active + kv_retries
     blocked + 2 write legs + tally_mult tally) mod 2^32`` as a 0-dim
-    int64 (``msgs`` 0-dim int64, never read on the host)."""
+    int64 (``msgs`` 0-dim int64, never read on the host).
+
+    The block form, on a mesh rank's N rows (``row0`` the global id of
+    row 0, ``n_total`` the sim's N; ``cas_win`` / ``wrt_last`` the
+    mesh's, in global ids): with ``partial`` it returns (2, K) int32, the
+    CAS winner's and the last writer's requests where those rows lie in
+    the block and 0 elsewhere (``counts`` and ``msgs`` unused), which the
+    mesh sums over the blocks and :func:`commit_finish` turns into the
+    cells and the ledger."""
     n, k = lc.shape
+    nt = n if n_total is None else n_total
+    if row0 < 0 or row0 + n > nt or nt >= MAX_NODES:
+        raise ValueError(f"rows [{row0}, {row0 + n}) of {nt}: the block "
+                         f"lies inside the sim's N < 2^31 - 1")
     _check_like("lc", lc, (n, k), torch.int32)
     _check_like("req", req, (n, k), torch.int32)
     for name, x in (("cas_win", cas_win), ("wrt_last", wrt_last),
@@ -2338,26 +2414,37 @@ def kafka_commit_apply(lc: torch.Tensor, req: torch.Tensor,
         _check_like(name, x, (k,), torch.int32)
     _check_like("reach", reach, (n,), torch.bool)
     _check_like("want_ok", want_ok, (n,), torch.bool)
-    _check_like("counts", counts, (KAFKA_COUNTS,), torch.int64)
-    if msgs.dtype != torch.int64 or msgs.dim() != 0:
-        raise ValueError("msgs must be a 0-dim int64 tensor")
+    if not partial:
+        _check_like("counts", counts, (KAFKA_COUNTS,), torch.int64)
+        if msgs is None or msgs.dtype != torch.int64 or msgs.dim() != 0:
+            raise ValueError("msgs must be a 0-dim int64 tensor")
     if not (1 <= n <= MAX_NODES and k >= 1):
         raise ValueError(f"(N, K) = {(n, k)}: the kernel takes 1 <= N < "
                          f"2^31 and K >= 1")
-    xs = [x for x in (lc, req, cas_win, wrt_last, kv_sent, reach, want_ok,
-                      counts, msgs) if x is not None]
-    kw = dict(kv_retries=kv_retries, tally_mult=tally_mult)
+    xs = [x for x in (lc, req, cas_win, wrt_last, kv_sent, reach, want_ok)
+          + ((counts, msgs) if not partial else ()) if x is not None]
+    kw = dict(kv_retries=kv_retries, tally_mult=tally_mult, row0=row0,
+              n_total=nt, partial=partial)
     if _on_cpu(*xs):
         return kafka_commit_apply_plain(lc, req, cas_win, wrt_last, kv_sent,
                                         reach, want_ok, counts, msgs, **kw)
+    if partial:
+        out = torch.empty((2, k), dtype=torch.int32, device=lc.device)
+        _launch("kafka_commit_apply",
+                _lib("kafka_round").gg_kafka_commit_apply, lc.device,
+                lc.data_ptr(), req.data_ptr(), cas_win.data_ptr(),
+                wrt_last.data_ptr(), kv_sent.data_ptr(), _bytes(reach),
+                _bytes(want_ok), None, None, out.data_ptr(), None, n, k,
+                row0, nt, 1, kv_retries, tally_mult)
+        return out
     kv_val = torch.empty_like(kv_sent)
     msgs_out = torch.empty_like(msgs)
     _launch("kafka_commit_apply", _lib("kafka_round").gg_kafka_commit_apply,
             lc.device, lc.data_ptr(), req.data_ptr(), cas_win.data_ptr(),
             wrt_last.data_ptr(), kv_sent.data_ptr(), _bytes(reach),
             _bytes(want_ok), counts.data_ptr(), msgs.data_ptr(),
-            kv_val.data_ptr(), msgs_out.data_ptr(), n, k, kv_retries,
-            tally_mult)
+            kv_val.data_ptr(), msgs_out.data_ptr(), n, k, row0, nt, 0,
+            kv_retries, tally_mult)
     return kv_val, msgs_out
 
 

@@ -1,12 +1,14 @@
 """Globally unique ID generation (Gossip Glomers challenge 2) on PyTorch:
-the port of gossip_glomers_tpu/tpu_sim/unique_ids.py, off-mesh.
+the port of gossip_glomers_tpu/tpu_sim/unique_ids.py.
 
 The reference node derives uniqueness from UUIDv1 = (timestamp, node id,
 clock sequence), with no coordination.  Here an ID is the packed triple
 ``(round t, node index, per-round sequence number)``, unique by
 construction across the cluster with zero messages.  One round mints up
-to G ids at every node in one pass of torch ops (no kernel).  A ``mesh``
-raises (ROADMAP.md Queue A item 10).
+to G ids at every node in one pass of torch ops (no kernel).  On a mesh
+(``UniqueIdsSim(mesh=)``, a :class:`..parallel.mesh.Mesh`) each rank
+mints for its block of the nodes under their global ids, from the full
+(N,) counts it is given, and makes no collective.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .engine import collectives, resolve_device
+from .engine import _check_flat, collectives, resolve_device
 
 
 class UniqueIdsState(NamedTuple):
@@ -27,26 +29,34 @@ class UniqueIdsState(NamedTuple):
 class UniqueIdsSim:
     """Batched ID mint.  ``step(state, counts)`` mints ``counts[n]`` ids
     at node n and returns (new_state, ids), ids (N, G, 3) int32 [t, node,
-    seq] with -1 padding beyond counts."""
+    seq] with -1 padding beyond counts (on a mesh the rank's block of
+    both)."""
 
     def __init__(self, n_nodes: int, *, max_per_round: int = 4, mesh=None,
                  device: str | torch.device | None = None) -> None:
         if mesh is not None:
-            raise NotImplementedError(
-                "UniqueIdsSim(mesh=...) is not ported to PyTorch yet "
-                "(ROADMAP.md Queue A item 10)")
+            _check_flat(mesh)
+            if n_nodes % mesh.size:
+                raise ValueError(f"{n_nodes} nodes do not shard evenly "
+                                 f"over {mesh.size} ranks")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.n_nodes = n_nodes
         self.max_per_round = max_per_round
-        self._row_ids = collectives(n_nodes, device=self.device).row_ids
+        self._block = n_nodes if mesh is None else n_nodes // mesh.size
+        self._row0 = 0 if mesh is None else mesh.rank * self._block
+        self._row_ids = collectives(self._block, mesh,
+                                    device=self.device).row_ids
 
     def init_state(self) -> UniqueIdsState:
         return UniqueIdsState(t=0, minted=torch.zeros(
-            (self.n_nodes,), dtype=torch.int32, device=self.device))
+            (self._block,), dtype=torch.int32, device=self.device))
 
     def step(self, state: UniqueIdsState, counts
              ) -> tuple[UniqueIdsState, torch.Tensor]:
-        c = torch.as_tensor(np.asarray(counts, np.int32)).to(self.device)
+        c = np.asarray(counts, np.int32)[self._row0:self._row0 + self._block]
+        c = torch.as_tensor(np.ascontiguousarray(c)).to(self.device)
         seq = torch.arange(self.max_per_round, dtype=torch.int32,
                            device=self.device)[None, :]          # (1, G)
         mint = seq < c[:, None]                                 # (N, G)

@@ -1081,6 +1081,91 @@ def test_cuda_kafka_nem_deliver_matches_plain(cuda_device, n, k, c, s):
             assert torch.equal(got, want), (loss_num, step)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", (2, 4))
+@pytest.mark.parametrize("n,k,c,s", [(8, 3, 33, 2), (200, 300, 128, 4),
+                                     (4, 16_000, 128, 3)])
+def test_cuda_kafka_block_forms_match_plain(cuda_device, n, k, c, s,
+                                            shards):
+    # a mesh rank's block forms against their plain versions, and the
+    # blocks combined as the mesh combines them against the whole
+    # problem: the faulted union over every origin (row0) and over the
+    # ring's visiting blocks (origin0, accumulate; staged and global-
+    # atomics rows), the select pass (row0, n_total: min / max / sum) and
+    # the apply pass's partial form (summed, then commit_finish)
+    case = kafka_case(n, k, c, s, 3 * n + k + shards, cuda_device)
+    wc, b = (c + 31) // 32, n // shards
+    kw = dict(s_dim=s, t=5, seed=11, loss_num=int(0.4 * 2**32))
+    whole = torch.empty((n, k, wc), dtype=torch.int32, device=cuda_device)
+    kernels.kafka_nem_deliver(whole, case["widx"], case["bit"], case["up"],
+                              lo=0, hi=n, **kw)
+    for r in range(shards):
+        rows = slice(r * b, (r + 1) * b)
+        got = torch.full((b, k, wc), -1, dtype=torch.int32,
+                         device=cuda_device)
+        want = got.clone()
+        for i in range(shards):
+            o = (r - i) % shards
+            ms = slice(o * b * s, (o + 1) * b * s)
+            rkw = dict(lo=0, hi=b, row0=r * b, origin0=o * b,
+                       accumulate=i > 0, **kw)
+            kernels.kafka_nem_deliver(got, case["widx"][ms],
+                                      case["bit"][ms], case["up"][rows],
+                                      **rkw)
+            kernels.kafka_nem_deliver_plain(want, case["widx"][ms],
+                                            case["bit"][ms],
+                                            case["up"][rows], **rkw)
+        assert torch.equal(got, want) and torch.equal(got, whole[rows]), r
+        kernels.kafka_nem_deliver(got, case["widx"], case["bit"],
+                                  case["up"][rows], lo=0, hi=b, row0=r * b,
+                                  **kw)
+        assert torch.equal(got, whole[rows]), r
+    skw = {name: case[name] for name in ("take", "req", "want_ok", "reach",
+                                         "kv_sent", "tally")}
+    union = case["row"]
+    akw = dict(kv_retries=10, tally_mult=2)
+    pw, lw = case["present"].clone(), case["lc"].clone()
+    cw, wl, cnt = kernels.kafka_commit_select(pw, lw, union=union, **skw)
+    msgs = torch.tensor((1 << 32) - 7, dtype=torch.int64, device=cuda_device)
+    kv, m = kernels.kafka_commit_apply(
+        lw, case["req"], cw, wl, case["kv_sent"], case["reach"],
+        case["want_ok"], cnt, msgs, **akw)
+    sel = []
+    for r in range(shards):
+        rows = slice(r * b, (r + 1) * b)
+        bkw = {name: (x if name == "kv_sent" else x[rows])
+               for name, x in skw.items()}
+        pk, lk = case["present"][rows].clone(), case["lc"][rows].clone()
+        pp, lp = pk.clone(), lk.clone()
+        got = kernels.kafka_commit_select(pk, lk, union=union, row0=r * b,
+                                          n_total=n, **bkw)
+        want = kernels.kafka_commit_select_plain(pp, lp, union=union,
+                                                 row0=r * b, n_total=n,
+                                                 **bkw)
+        assert torch.equal(pk, pp) and torch.equal(lk, lp)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        sel.append((lk, lp, got))
+    bcw = torch.stack([x[2][0] for x in sel]).amin(0)
+    bwl = torch.stack([x[2][1] for x in sel]).amax(0)
+    bcnt = sum(x[2][2] for x in sel)
+    assert torch.equal(bcw, cw) and torch.equal(bwl, wl)
+    assert torch.equal(bcnt, cnt)
+    parts = []
+    for r, (lk, lp, _) in enumerate(sel):
+        rows = slice(r * b, (r + 1) * b)
+        args = (case["req"][rows], bcw, bwl, case["kv_sent"],
+                case["reach"][rows], case["want_ok"][rows], None, None)
+        pkw = dict(row0=r * b, n_total=n, partial=True, **akw)
+        got = kernels.kafka_commit_apply(lk, *args, **pkw)
+        want = kernels.kafka_commit_apply_plain(lp, *args, **pkw)
+        assert torch.equal(got, want) and torch.equal(lk, lp)
+        parts.append(got.long())
+    bkv, bm = kernels.commit_finish(sum(parts), bcw, bwl, case["kv_sent"],
+                                    bcnt, msgs, n_total=n, **akw)
+    assert torch.equal(bkv, kv) and torch.equal(bm, m)
+    assert torch.equal(torch.cat([x[0] for x in sel]), lw)
+
+
 KAFKA_SIM_CASES = {
     "union-commits": dict(),
     "nem-pull": dict(plan=True),

@@ -388,7 +388,7 @@ def test_unported_mesh_combinations_raise_item_10(world4):
                lambda: engine.collectives(4, device="cpu", dcn="sync"),
                lambda: engine.node_shards(object()),
                lambda: dcn_worker.TASKS["certify"](None, "cpu"),
-               lambda: dcn_worker._task_sims(None, "cpu", ("kafka",))):
+               lambda: dcn_worker.TASKS["batch"](None, "cpu")):
         with pytest.raises(NotImplementedError, match="item 10"):
             fn()
 

@@ -6,7 +6,8 @@ every rank's replicated report agrees (the spawner asserts it), and the
 broadcast half of ``sims`` (the reference's 16-node grid through the
 gather path, ``run`` and ``run_fused``) equals the JAX package's sharded
 BroadcastSim on its 4-device test mesh, digests included
-(``state_digest`` against the reference's).  ``main`` is driven as two
+(``state_digest`` against the reference's), and all three halves
+(broadcast, counter, Kafka) equal the reference's ``sims`` task there.  ``main`` is driven as two
 OS processes through the ``GG_*`` env contract."""
 
 import json
@@ -73,6 +74,15 @@ def test_sims_broadcast_half_equals_reference(cluster):
         want = {"rounds": int(rounds), "msgs": int(state.msgs),
                 "state": jdw.state_digest(state)}
         assert mine[runner] == want, runner
+
+
+def test_sims_three_halves_equal_reference(cluster):
+    # the broadcast, counter and Kafka halves on 4 ranks against the
+    # reference's sims task on its 4-device mesh, digests included
+    want = jdw._task_sims(jpick_mesh(max_axis=4))
+    mine = cluster[0]["tasks"]["sims"]
+    assert set(mine) == {"broadcast", "counter", "kafka"}
+    assert mine == want
 
 
 def test_digest_matches_reference_digest():

@@ -179,8 +179,7 @@ def refusal_cases(mesh) -> dict:
     probe("inject_mid", lambda: sim.inject_mid(None, 0, 0))
     probe("collectives_dcn", lambda: engine.collectives(4, mesh,
                                                         dcn="sync"))
-    from gossip_glomers_tpu_torch.tpu_sim import (counter, echo, kafka,
-                                                  scenario, txn, unique_ids)
+    from gossip_glomers_tpu_torch.tpu_sim import counter, kafka, scenario, txn
 
     csim = counter.CounterSim(n, mesh=mesh)
     probe("counter_run_traffic", lambda: csim.run_traffic(None, None, None,
@@ -189,10 +188,15 @@ def refusal_cases(mesh) -> dict:
                                                             None, 1))
     probe("counter_dcn_mode", lambda: counter.CounterSim(
         n, mesh=mesh, dcn_mode="sync"))
-    probe("kafka", lambda: kafka.KafkaSim(n, 2, 8, mesh=mesh))
+    ksim = kafka.KafkaSim(n, 2, 8, mesh=mesh)
+    probe("kafka_run_traffic", lambda: ksim.run_traffic(None, None, None,
+                                                        1))
+    probe("kafka_run_observed", lambda: ksim.run_observed(None, None, None,
+                                                          None, None))
+    probe("kafka_batch_round", lambda: kafka._build_batch_round(ksim))
+    probe("kafka_dcn_mode", lambda: kafka.KafkaSim(n, 2, 8, mesh=mesh,
+                                                   dcn_mode="sync"))
     probe("txn", lambda: txn.TxnSim(n, 4, mesh=mesh))
-    probe("unique_ids", lambda: unique_ids.UniqueIdsSim(n, mesh=mesh))
-    probe("echo", lambda: echo.EchoSim(n, mesh=mesh))
     probe("scenario_batch", lambda: scenario.run_scenario_batch(
         None, mesh=mesh))
     return out
