@@ -237,6 +237,27 @@ bundles and repros under ``build/chip_smoke/``):
     against their plain versions and, combined over 2 and 4 blocks, the
     whole problem's, and times them at this phase's shapes.  Not a
     multi-card figure.
+21d. ``mesh_txn_serving``: txn and open-loop serving on the same 4-rank
+    world (its line comes after ``txn_nemesis_64k``, whose one-process
+    card runs it is held against): ``txn_64k`` at full width
+    (``TxnSim(mesh=)``, the ops staged once in the parent and shipped to
+    the ranks in the world's spawn arguments), stepped to convergence and
+    then as a timed fixed trip, every rank's digests of its block equal
+    to ``txn_64k``'s one-process card state, all-reduces only (three a
+    round); ``run_txn_nemesis(mesh=)`` at 4,096 nodes and 1,024 keys
+    under :func:`counter_nemesis_spec`'s plan at that size (certified),
+    and with ``kv_amnesia`` and the owner of key 0 crashed over [3, 6)
+    (failing, naming lost updates), both result dicts equal to the
+    one-process card runs'; ``run_serving(mesh=)`` at
+    ``serving_counter_64k``'s rate 0.3, ``serving_kafka_64k``'s 0.3 and
+    ``serving_broadcast_64k``'s 0.1 with telemetry on, each row's
+    completions, ledger, latencies, lost writes and telemetry series
+    equal to the serving phases' one-process card rows and replays, no
+    all-gather; and a 1-rank NCCL world's ``txn_64k`` trip (all-reduces
+    only) equal to the no-mesh run.  The kernel check holds the txn
+    kernels' block forms against their plain versions and, combined over
+    2 and 4 blocks, the whole problem's; ``txn_64k`` times them on a
+    rank's block of its captured round.  Not a multi-card figure.
 22. ``ids_echo``: ``UniqueIdsSim`` at 2^20 nodes, 32 ids a node, 4
     rounds, every id distinct; ``EchoSim`` at (2^20, 4), ``msgs == 2
     valid``.
@@ -302,9 +323,9 @@ bundles and repros under ``build/chip_smoke/``):
     and ``counter_small_1dev``'s cas queueing curve (:132-140); each
     equal to the CPU path, the overlays' verdicts the CPU runner's.
 33. ``serving_tree_1m``: the main path under load, the 2^20-node 4-ary
-    tree words-major, 512 clients x 16 ops (W = 256), rate 0.25, 16
-    driven rounds (32 before the time limit's cut), held against the
-    card's node-major gather path on
+    tree words-major, 512 clients x 16 ops (W = 256), rate 0.25, 8
+    driven rounds (32, then 16, before the time limit's cuts), held
+    against the card's node-major gather path on
     ``to_padded_neighbors(tree(n))`` at the same spec.
 34. ``txn_64k``: the JAX package's txn/fused-donated contract
     (gossip_glomers_tpu/tpu_sim/txn.py:535-540: 1,024 nodes, 256 keys, T
@@ -1199,6 +1220,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
     check_and_fold(kernels, note, device)
     check_prov(kernels, note, device)
     check_txn(kernels, note, device)
+    check_txn_blocks(kernels, note, device)
     check_batched_faults(kernels, note, device)
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
@@ -4602,11 +4624,11 @@ CAS_CURVE_TRAFFIC = dict(n_nodes=SERVING_SMALL, n_clients=SERVING_SMALL,
                          ops_per_client=4, until=96, rate=0.001, seed=103)
 CAS_CURVE_RATES = tuple(r / SERVING_SMALL for r in (0.5, 1.0, 2.0))
 # the main path under load: the 2^20-node 4-ary tree, words-major, 512
-# clients x 16 ops (8,192 values, W = 256), arrivals over rounds [0, 16)
-# (depth: cut from 32 for the smoke's time limit), the expected arrivals
-# a quarter of the op slots
+# clients x 16 ops (8,192 values, W = 256), arrivals over rounds [0, 8)
+# (depth: cut from 32, then 16, for the smoke's time limit), the expected
+# arrivals an eighth of the op slots
 SERVING_TREE = dict(n_nodes=SERVING_TREE_NODES, n_clients=512,
-                    ops_per_client=16, until=16, rate=0.25, seed=101)
+                    ops_per_client=16, until=8, rate=0.25, seed=101)
 
 
 def and_fold_shape(kind: str, tkw: dict, rate_max: float,
@@ -5064,6 +5086,10 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
         if any(got[k] != rows[r][k] for k in got):
             raise AssertionError(f"{name}: the replay of rate {r} ends "
                                  f"elsewhere than its serving run: {got}")
+        # what mesh_txn_serving's ranks are held against
+        SERVING_ONE[(name, r)] = {
+            "fields": serving_fields(rows[r]),
+            "series": telemetry.series_arrays(ends[r][2], tsp)}
     launches.stop(rec, SERVING_EXPECT[kind])
     # the fold timed on the final state, and the twins, off the counts
     if kind != "counter":
@@ -5465,6 +5491,188 @@ def time_txn(kernels, case: dict, t_dim: int) -> dict:
     return out
 
 
+# the block forms' checked cases (a mesh rank's rows): nodes (odd counts
+# whose wrapped priorities collide, split into uneven blocks; a power of
+# two), ops a transaction, keys
+TXN_BLOCK_CASES = ((31, 2, 5), (4097, 2, 1024), (65_537, 4, 4099),
+                   (131_072, 1, 1 << 14))
+
+
+def txn_block_bounds(n: int, shards: int) -> list:
+    """The first row of each of ``shards`` blocks of ``n`` rows, and n."""
+    return [round(i * n / shards) for i in range(shards + 1)]
+
+
+def txn_view(case: dict):
+    """The (2, K) (value, version) view of every key, as the mesh's one
+    all-reduce of the owners' rows makes it."""
+    import torch
+
+    at = (case["owner"], case["slot"])
+    return torch.stack([case["vals"][at], case["vers"][at]]).contiguous()
+
+
+def check_txn_blocks(kernels, note, device) -> None:
+    """The txn kernels' block forms (a mesh rank's rows: ``row0``,
+    ``n_total``, the commit's ``view``) against their plain versions on
+    each block, and the blocks combined as the mesh combines them (the
+    minimum of the ``best`` partials, the sum of the attempts and of the
+    write requests, each block's records in row order) against the whole
+    problem's plain result, at 2 and 4 blocks of each of
+    :data:`TXN_BLOCK_CASES`, wrapped priorities and colliding pairs
+    planted."""
+    import torch
+
+    planted = 0
+    for i, (n, o, k) in enumerate(TXN_BLOCK_CASES):
+        c = txn_case(n, o, k, "all" if i % 2 else "random", 300 + i, device,
+                     True)
+        planted += c["pairs"]
+        t = c["t"]
+        whole = txn_pairs_plain(c)
+        best_w, att_w = kernels.txn_claim_plain(
+            c["keys"], c["cur"], c["issue"], c["active"], t=t, n_keys=k)
+        view = txn_view(c)
+        for shards in (2, 4):
+            b = txn_block_bounds(n, shards)
+            blocks = [slice(b[p], b[p + 1]) for p in range(shards)]
+            bests, atts = [], []
+            for p, sl in enumerate(blocks):
+                args = (c["keys"][sl], c["cur"][sl], c["issue"][sl],
+                        c["active"][sl])
+                kw = dict(t=t, n_keys=k, row0=b[p], n_total=n)
+                kb, ka = kernels.txn_claim(*args, **kw)
+                pb, pa = kernels.txn_claim_plain(*args, **kw)
+                note("txn_claim", (kb, pb), (ka, pa))
+                bests.append(kb)
+                atts.append(ka)
+            best = torch.stack(bests).min(0).values
+            note("txn_claim", (best, best_w), (sum(atts), att_w))
+            reqs, recs = [], {f: [] for f in TXN_INPLACE}
+            for p, sl in enumerate(blocks):
+                mine = {f: c[f][sl].clone() for f in TXN_INPLACE}
+                kw = dict(t=t, view=view, row0=b[p], n_total=n)
+                req = kernels.txn_commit(
+                    best, c["keys"][sl], c["write"][sl], c["wval"][sl],
+                    mine["cur"], mine["issue"], c["active"][sl], None, None,
+                    None, None, mine["op_ver"], mine["op_val"],
+                    mine["commit_round"], mine["issue_round"], **kw)
+                want = kernels.txn_commit_plain(
+                    best, c["keys"][sl], c["write"][sl], c["wval"][sl],
+                    c["cur"][sl], c["issue"][sl], c["active"][sl], None,
+                    None, None, None, c["op_ver"][sl], c["op_val"][sl],
+                    c["commit_round"][sl], c["issue_round"][sl], **kw)
+                note("txn_commit", (req, want[0]),
+                     *((mine[f], w) for f, w in zip(TXN_INPLACE, want[1:])))
+                reqs.append(req)
+                for f in TXN_INPLACE:
+                    recs[f].append(mine[f])
+            note("txn_commit", (sum(reqs), whole[0]),
+                 *((torch.cat(recs[f]), w)
+                   for f, w in zip(TXN_INPLACE, whole[1:])))
+        del c, whole, view
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    if planted == 0:
+        raise AssertionError("check_txn_blocks planted no colliding "
+                             "priorities")
+
+
+def time_txn_blocks(kernels, case: dict, t_dim: int, times: dict) -> None:
+    """The block forms on rank 3's rows of a captured whole round (4
+    ranks, mesh_txn_serving's shapes), keyed (O, rows) under
+    ``times["<kernel>_block"]``: the claim with ``row0`` / ``n_total``
+    (beside ``scatter_reduce_(amin)`` over the block's claims), the
+    commit with the view, on the whole round's minimum; bounds counted
+    from this block's data as :func:`txn_work` counts the whole forms'
+    (the view's value and version a read op in place of the owner, slot,
+    value and version)."""
+    import torch
+
+    n, _, o = case["keys"].shape
+    k = case["n_keys"]
+    b = n // MESH_RANKS
+    lo = (MESH_RANKS - 1) * b
+    sl = slice(lo, lo + b)
+    blk = {f: (v[sl] if isinstance(v, torch.Tensor) and v.shape[:1] == (n,)
+               and f not in ("owner", "slot") else v)
+           for f, v in case.items()}
+    t = case["t"]
+    best, _ = kernels.txn_claim(case["keys"], case["cur"], case["issue"],
+                                case["active"], t=t, n_keys=k)
+    view = txn_view(case)
+    claim_args = (blk["keys"], blk["cur"], blk["issue"], blk["active"])
+    ckw = dict(t=t, n_keys=k, row0=lo, n_total=n)
+    _, prio = kernels._txn_issue_prio(blk["issue"], blk["active"], t, lo, n)
+    k_n = kernels._txn_open(blk["keys"], blk["cur"]).reshape(-1).long()
+    src = torch.where(blk["active"][:, None], prio[:, None].expand(b, o),
+                      kernels.TXN_INF).reshape(-1).contiguous()
+    lib_best = torch.empty_like(best)
+
+    def library():
+        lib_best.fill_(kernels.TXN_INF)
+        lib_best.scatter_reduce_(0, k_n, src, "amin")
+
+    library()
+    if not torch.equal(lib_best, kernels.txn_claim(*claim_args, **ckw)[0]):
+        raise AssertionError("scatter_reduce_ amin disagrees with the "
+                             "txn_claim block")
+    mkw = dict(t=t, view=view, row0=lo, n_total=n)
+    plain_out = kernels.txn_commit_plain(
+        best, blk["keys"], blk["write"], blk["wval"], blk["cur"],
+        blk["issue"], blk["active"], None, None, None, None, blk["op_ver"],
+        blk["op_val"], blk["commit_round"], blk["issue_round"], **mkw)
+    act = blk["active"]
+    n_act = int(act.sum())
+    win = (plain_out[1] - blk["cur"]) > 0
+    n_win = int(win.sum())
+    n_first = int((act & (blk["issue"] < 0)).sum())
+    wr = torch.gather(blk["write"], 1, blk["cur"].clamp(0, t_dim - 1)
+                      .long()[:, None, None].expand(b, 1, o))[:, 0]
+    n_wops = int((wr & win[:, None]).sum())
+    saved = {f: blk[f].clone() for f in TXN_INPLACE}
+    live = {f: blk[f].clone() for f in TXN_INPLACE}
+
+    def restore():
+        for f in TXN_INPLACE:
+            live[f].copy_(saved[f])
+
+    def commit():
+        restore()
+        kernels.txn_commit(
+            best, blk["keys"], blk["write"], blk["wval"], live["cur"],
+            live["issue"], act, None, None, None, None, live["op_ver"],
+            live["op_val"], live["commit_round"], live["issue_round"], **mkw)
+
+    def commit_plain():
+        kernels.txn_commit_plain(
+            best, blk["keys"], blk["write"], blk["wval"], blk["cur"],
+            blk["issue"], act, None, None, None, None, blk["op_ver"],
+            blk["op_val"], blk["commit_round"], blk["issue_round"], **mkw)
+
+    work = {"rows": b, "row0": lo, "active": n_act, "winners": n_win,
+            "first": n_first, "write_ops": n_wops}
+    for name, kern, plain, moved, sectors, ms_less, lib in (
+            ("txn_claim", lambda: kernels.txn_claim(*claim_args, **ckw),
+             lambda: kernels.txn_claim_plain(*claim_args, **ckw),
+             9 * b + 4 * o * n_act + 4 * k + 4, o * n_act, None, library),
+            ("txn_commit", commit, commit_plain,
+             17 * b + 8 * o * n_act + 13 * o * n_win + 8 * o * n_win
+             + 4 * n_win + 4 * n_first + 12 * k,
+             o * n_act + 2 * o * n_win + 3 * n_wops, restore, None)):
+        b_ms, b_by, sector_ms = txn_bound(moved, sectors)
+        dev = device_ms(kern, KERNELS[name][2], calls=10)
+        ms = cuda_ms(kern) - (cuda_ms(ms_less) if ms_less else 0.0)
+        times.setdefault(f"{name}_block", {})[(o, b)] = {
+            "ms": ms, "device_ms": dev, "plain_ms": cuda_ms(plain, inner=3),
+            "bound_ms": b_ms, "bound_by": b_by, "sector_ms": sector_ms,
+            "bound_share": None if dev is None else b_ms / dev,
+            "library_ms": None if lib is None else cuda_ms(lib),
+            "mode": ("claim, row0 of rank 3 of 4" if name == "txn_claim"
+                     else "commit over the view, row0 of rank 3 of 4"),
+            "bytes": moved, "sectors": sectors, **work}
+
+
 def same_txn(a, b) -> bool:
     """Two txn states agree: t, msgs, the node counters, the records and
     the KV rows."""
@@ -5491,8 +5699,8 @@ class _PlainTxn:
     def claim(self, *args, **kw):
         return self.kernels.txn_claim_plain(*args, **kw)
 
-    def commit(self, best, *xs, t):
-        out = self.kernels.txn_commit_plain(best, *xs, t=t)
+    def commit(self, best, *xs, t, **blk):
+        out = self.kernels.txn_commit_plain(best, *xs, t=t, **blk)
         for dst, src in zip((xs[3], xs[4], xs[10], xs[11], xs[12], xs[13]),
                             out[1:]):
             dst.copy_(src)
@@ -5514,17 +5722,18 @@ def txn_capture(kernels, rnd: int):
     kept = {}
     real_claim, real_commit = kernels.txn_claim, kernels.txn_commit
 
-    def claim(keys, cur, issue, active, *, t, n_keys):
+    def claim(keys, cur, issue, active, *, t, n_keys, **blk):
         if t == rnd:
             kept.update(keys=keys, cur=cur.clone(), issue=issue.clone(),
                         active=active.clone(), t=t, n_keys=n_keys)
-        return real_claim(keys, cur, issue, active, t=t, n_keys=n_keys)
+        return real_claim(keys, cur, issue, active, t=t, n_keys=n_keys,
+                          **blk)
 
-    def commit(best, *xs, t):
+    def commit(best, *xs, t, **blk):
         if t == rnd:
             for k, x in zip(TXN_COMMIT_ARGS, xs):
                 kept.setdefault(k, x.clone())
-        return real_commit(best, *xs, t=t)
+        return real_commit(best, *xs, t=t, **blk)
 
     return claim, commit, kept
 
@@ -5560,6 +5769,11 @@ def txn_64k(txn, checkers, kernels, device, launches: Launches, card: str,
         same = same and same_txn(g, c)
     rounds = g.t
     launches.stop(rec, TXN_EXPECT)
+    # the state mesh_txn_serving's ranks are held against
+    b = TXN_NODES // MESH_RANKS
+    TXN_ONE.update(rounds=rounds, whole=txn_digests(g, 0),
+                   blocks=[txn_digests(g, r * b, b)
+                           for r in range(MESH_RANKS)])
     hist = txn.history_of(g, sim.ops)
     ok_ser, det = checkers.check_txn_serializable(
         hist, final=txn.final_registers(g, sim.layout))
@@ -5591,6 +5805,7 @@ def txn_64k(txn, checkers, kernels, device, launches: Launches, card: str,
         kernels.txn_claim, kernels.txn_commit = real
     err = max(max_abs_err(a, b) for _, a, b in txn_pairs(kernels, kept))
     timed = time_txn(kernels, kept, TXN_T)
+    time_txn_blocks(kernels, kept, TXN_T, times)
     for name in TXN_EXPECT:
         timed[name]["max_abs_err"] = err
         times[name][(TXN_O, TXN_NODES)] = timed[name]
@@ -8082,9 +8297,312 @@ def mesh_kafka_phase(ranks: list, launches: Launches, head: dict,
     torch.cuda.empty_cache()
 
 
-def mesh_rank_work(mesh, seed: int, rounds: dict) -> dict:
+# -- mesh_txn_serving: txn and open-loop serving on the ranks ----------------
+
+# run_txn_nemesis on the mesh: txn_64k's workload at 4,096 nodes (the key
+# ratio kept) under txn_nemesis_64k's plan law at this size
+MESH_TXN_NEM = (4096, 1024)
+# run_serving on the mesh: the serving phases' configurations at one rate
+MESH_SERVING = (("serving_counter_64k", 0.3), ("serving_kafka_64k", 0.3),
+                ("serving_broadcast_64k", 0.1))
+MESH_TXN_EXPECT = ("txn_claim", "txn_commit", "counter_select",
+                   "counter_apply", "kafka_merge", "and_fold",
+                   "tree_halo_pack", "tree_halo_round")
+# the kernels this phase adds to the mesh bucket of launches_by_path
+MESH_TXN_KERNELS = ("txn_claim", "txn_commit", "and_fold")
+# txn_64k's one-process card state (digests by rank block and whole, its
+# rounds) and the serving phases' one-process rows and replayed series,
+# which mesh_txn_serving is held against; the ranks' and the NCCL world's
+# results, kept until those runs exist
+TXN_ONE: dict = {}
+SERVING_ONE: dict = {}
+MESH_TXN: dict = {}
+
+
+def txn_kw() -> dict:
+    return dict(txns_per_node=TXN_T, ops_per_txn=TXN_O, rate=TXN_RATE,
+                until=TXN_UNTIL, workload_seed=0)
+
+
+def txn_digests(st, row0: int, rows: int | None = None) -> dict:
+    """A txn state's digests: every node-axis field (and the store's rows)
+    over the rows ``[row0, row0 + rows)`` of a whole state, or (``rows``
+    None) over the state's own rows taken as the block from global row
+    ``row0``; ``t`` and ``msgs``."""
+    def d(x):
+        if rows is not None:
+            x = x[row0:row0 + rows]
+        return card_digest(x, row0 * (x[0].numel() if x.shape[0] else 0))
+
+    out = {f: d(getattr(st, f)) for f in (
+        "arrived", "cur", "issue", "issue_round", "commit_round", "op_ver",
+        "op_val")}
+    out.update(rows_vals=d(st.rows.vals), rows_vers=d(st.rows.vers),
+               t=st.t, msgs=int(st.msgs))
+    return out
+
+
+def txn_trip(sim, mesh=None) -> tuple:
+    """txn_64k's rounds on ``sim``: stepped until every offered
+    transaction commits (at or past the arrivals' end; the flag agreed
+    over the mesh), at most :data:`TXN_MAX_RECOVERY` past it."""
+    st = sim.init_state()
+
+    def done(s) -> bool:
+        ok = bool((s.cur >= s.arrived).all())
+        return ok if mesh is None else mesh.agree(ok)
+
+    while not (st.t >= TXN_UNTIL and done(st)) \
+            and st.t < TXN_UNTIL + TXN_MAX_RECOVERY:
+        st = sim.run_fused(st, 1)
+    return st, st.t
+
+
+def serving_config(name: str):
+    """A serving phase's (kind, traffic kwargs, rates, sim kwargs at the
+    widths its sim was built with)."""
+    from gossip_glomers_tpu_torch.harness import serving
+    from gossip_glomers_tpu_torch.tpu_sim import traffic
+
+    for nm, kind, tkw, rates, sim_kw, _ in SERVING_PHASES:
+        if nm == name:
+            spec = traffic.TrafficSpec(**tkw).with_rate(float(max(rates)))
+            kw = dict(sim_kw, **serving.serving_widths(kind, spec, sim_kw))
+            return kind, tkw, rates, kw
+    raise KeyError(name)
+
+
+def serving_fields(row: dict) -> dict:
+    """The fields of a serving row that a mesh run must equal."""
+    out = {k: row[k] for k in (
+        "ok", "completed", "msgs_total", "lat_p50", "lat_p99", "lat_max",
+        "n_lost_writes", "total_rounds", "in_flight", "arrived", "issued",
+        "deferred")}
+    return out
+
+
+def _mesh_txn_serving_rank(mesh, txn_ops) -> dict:
+    """mesh_txn_serving's rank side: txn_64k stepped to convergence, then
+    its fixed trip timed (launches and collective calls counted); the two
+    txn campaigns; the three serving runs with telemetry on (launches and
+    calls counted around each run)."""
+    import torch
+
+    from gossip_glomers_tpu_torch.harness import serving
+    from gossip_glomers_tpu_torch.harness import txn as htxn
+    from gossip_glomers_tpu_torch.tpu_sim import (faults, kernels, kvstore,
+                                                  traffic, txn)
+
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    out = {}
+    sim = txn.TxnSim(TXN_NODES, TXN_KEYS, mesh=mesh, ops=txn_ops, **txn_kw())
+    t0 = time.perf_counter()
+    st, rounds = txn_trip(sim, mesh)
+    step_s = time.perf_counter() - t0
+    stepped = txn_digests(st, mesh.rank * sim._block)
+    del st
+    mesh.agree(True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    before = dict(mesh.calls)
+    t0 = time.perf_counter()
+    st = sim.run_fused(sim.init_state(), rounds)
+    torch.cuda.synchronize()
+    out["txn_64k"] = {"rounds": rounds, "wall_s": time.perf_counter() - t0,
+                      "step_s": step_s, "calls": _calls_delta(mesh, before),
+                      "launches": dict(kernels.LAUNCHES),
+                      "stepped": stepped,
+                      "digest": txn_digests(st, mesh.rank * sim._block)}
+    del sim, st
+    torch.cuda.empty_cache()
+    n, k = MESH_TXN_NEM
+    kw = dict(n_keys=k, txns_per_node=TXN_T, ops_per_txn=TXN_O,
+              rate=TXN_RATE, until=TXN_UNTIL,
+              max_recovery_rounds=TXN_MAX_RECOVERY)
+    for name, amnesia in (("nemesis", False), ("nemesis_amnesia", True)):
+        spec = txn_nemesis_spec(faults, kvstore, n, amnesia)
+        kernels.reset_launches()
+        before = dict(mesh.calls)
+        t0 = time.perf_counter()
+        res = htxn.run_txn_nemesis(spec, kv_amnesia=amnesia, mesh=mesh,
+                                   **kw)
+        out[name] = {"result": res, "wall_s": time.perf_counter() - t0,
+                     "calls": _calls_delta(mesh, before),
+                     "launches": dict(kernels.LAUNCHES)}
+    for name, rate in MESH_SERVING:
+        kind, tkw, _, sim_kw = serving_config(name)
+        tspec = traffic.TrafficSpec(**tkw).with_rate(rate)
+        mesh.agree(True)
+        kernels.reset_launches()
+        before = dict(mesh.calls)
+        row = serving.run_serving(kind, tspec, mesh=mesh, sim_kw=sim_kw,
+                                  telemetry=True)
+        out[name] = {"fields": serving_fields(row), "mesh": row["mesh"],
+                     "series": row["telemetry"]["series"],
+                     "telemetry_ok": not row["telemetry"]["check"][
+                         "problems"],
+                     "wall_s": row["total_s"], "driven_s": row["driven_s"],
+                     "calls": _calls_delta(mesh, before),
+                     "launches": dict(kernels.LAUNCHES)}
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def nccl_txn(mesh, txn_ops) -> dict:
+    """The 1-rank NCCL world's txn_64k run to convergence (all-reduces
+    only), digested whole."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import txn
+
+    sim = txn.TxnSim(TXN_NODES, TXN_KEYS, mesh=mesh, ops=txn_ops, **txn_kw())
+    before = dict(mesh.calls)
+    st, rounds = txn_trip(sim, mesh)
+    torch.cuda.synchronize()
+    out = {"rounds": rounds, "calls": _calls_delta(mesh, before),
+           "digest": txn_digests(st, 0)}
+    del sim, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_txn_serving_phase(htxn, faults, kvstore, launches: Launches,
+                           device, card: str) -> None:
+    """mesh_txn_serving (module docstring): the ranks' runs, kept by
+    :func:`mesh_phases`, against ``txn_64k``'s one-process card state
+    (:data:`TXN_ONE`), the txn campaigns' one-process card runs (made
+    here), the serving phases' rows and replayed series
+    (:data:`SERVING_ONE`), and the 1-rank NCCL run against the no-mesh
+    run."""
+    import torch
+
+    ranks, head = MESH_TXN["ranks"], MESH_TXN["head"]
+    rec = {"phase": "mesh_txn_serving", **head, "runs": {}}
+    counts = []
+    # txn_64k: every rank's block, stepped and as the timed trip
+    per = [r["txn_64k"] for r in ranks]
+    for r, x in enumerate(per):
+        want = TXN_ONE["blocks"][r]
+        if not (x["rounds"] == TXN_ONE["rounds"] and x["stepped"] == want
+                and x["digest"] == want):
+            raise AssertionError(f"mesh_txn_serving txn_64k: rank {r}'s "
+                                 f"state {x['digest']} vs its block of the "
+                                 f"one-process card run {want}")
+        if set(k for k, v in x["calls"].items() if v) != {"all_reduce"} \
+                or x["calls"]["all_reduce"] != 3 * x["rounds"]:
+            raise AssertionError(f"mesh_txn_serving txn_64k: rank {r}'s "
+                                 f"calls {x['calls']}, not three "
+                                 "all-reduces a round")
+    x = per[0]
+    walls = [y["wall_s"] for y in per]
+    rec["runs"]["txn_64k"] = {
+        "n": TXN_NODES, "keys": TXN_KEYS, "rounds": x["rounds"],
+        "msgs": x["digest"]["msgs"], "wall_ms": max(walls) * 1e3,
+        "ms_per_round": max(walls) * 1e3 / x["rounds"],
+        "stepped_s": max(y["step_s"] for y in per),
+        "collective_calls_per_round": _per_round(x["calls"], x["rounds"]),
+        "launches_per_round_by_rank": [_per_round(y["launches"], x["rounds"])
+                                       for y in per],
+        "ops_staged": "once in the parent, shipped in the spawn arguments",
+        "equals_one_process_card_run": True}
+    counts += [y["launches"] for y in per]
+    # the txn campaigns against their one-process card runs
+    n, k = MESH_TXN_NEM
+    kw = dict(n_keys=k, txns_per_node=TXN_T, ops_per_txn=TXN_O,
+              rate=TXN_RATE, until=TXN_UNTIL,
+              max_recovery_rounds=TXN_MAX_RECOVERY)
+    t0 = time.perf_counter()
+    for name, amnesia in (("nemesis", False), ("nemesis_amnesia", True)):
+        spec = txn_nemesis_spec(faults, kvstore, n, amnesia)
+        want = htxn.run_txn_nemesis(spec, kv_amnesia=amnesia, device=device,
+                                    **kw)
+        per = [r[name] for r in ranks]
+        for r, y in enumerate(per):
+            if y["result"] != want:
+                diff = [key for key in want
+                        if y["result"].get(key) != want[key]]
+                raise AssertionError(f"mesh_txn_serving {name}: rank {r}'s "
+                                     f"result differs in {diff}")
+        res = per[0]["result"]
+        lost = [q for q in res["serializability"]["problems"]
+                if q["kind"] in ("lost-update", "lost-acked-commit")]
+        if amnesia == res["ok"] or (amnesia and not (
+                lost and all(q["txns"] for q in lost))) or (
+                not amnesia and res["n_lost_writes"]):
+            raise AssertionError(f"mesh_txn_serving {name}: ok "
+                                 f"{res['ok']}, lost {lost[:2]}")
+        rounds = res["converged_round"] or res["clear_round"]
+        walls = [y["wall_s"] for y in per]
+        rec["runs"][name] = {
+            "n": n, "keys": k, "ok": res["ok"],
+            "clear_round": res["clear_round"],
+            "converged_round": res["converged_round"],
+            "n_committed": res["n_committed"],
+            "msgs_total": res["msgs_total"],
+            "by_kind": res["serializability"]["by_kind"],
+            "lost_named": lost[:2], "wall_ms": max(walls) * 1e3,
+            "collective_calls_per_round": _per_round(per[0]["calls"],
+                                                     rounds),
+            "launches_by_rank": [{k: v for k, v in y["launches"].items()
+                                  if v} for y in per],
+            "collectives_note": "the all-gathers are the certificate's "
+                                "collective reads of the history",
+            "equals_one_process_card_run": True}
+        counts += [y["launches"] for y in per]
+    rec["txn_one_process_s"] = time.perf_counter() - t0
+    # the serving runs against the serving phases' rows and replays
+    for name, rate in MESH_SERVING:
+        one = SERVING_ONE[(name, rate)]
+        per = [r[name] for r in ranks]
+        for r, y in enumerate(per):
+            if y["fields"] != one["fields"] or y["series"] != one["series"]:
+                diff = [key for key in one["fields"]
+                        if y["fields"][key] != one["fields"][key]]
+                raise AssertionError(
+                    f"mesh_txn_serving {name}: rank {r} differs from the "
+                    f"one-process card row in {diff} or its telemetry")
+            if y["calls"].get("all_gather") or y["mesh"] != MESH_RANKS:
+                raise AssertionError(f"mesh_txn_serving {name}: rank {r}'s "
+                                     f"calls {y['calls']}")
+        y = per[0]
+        rounds = y["fields"]["total_rounds"]
+        walls = [z["wall_s"] for z in per]
+        rec["runs"][name] = {
+            "rate": rate, **y["fields"], "telemetry_ok": y["telemetry_ok"],
+            "wall_ms": max(walls) * 1e3,
+            "ms_per_round": max(walls) * 1e3 / rounds,
+            "driven_ms": max(z["driven_s"] for z in per) * 1e3,
+            "collective_calls_per_round": _per_round(y["calls"], rounds),
+            "launches_per_round_by_rank": [_per_round(z["launches"], rounds)
+                                           for z in per],
+            "no_all_gather": True, "equals_one_process_card_run": True}
+        counts += [z["launches"] for z in per]
+    launches.add_ranks(rec, counts, MESH_TXN_EXPECT)
+    for name in MESH_TXN_KERNELS:
+        if not launches.split(name)["mesh"]:
+            raise AssertionError(f"{name}: no launch in the mesh bucket")
+    nccl = MESH_TXN["nccl"]
+    if nccl["digest"] != TXN_ONE["whole"] or set(
+            k for k, v in nccl["calls"].items() if v) != {"all_reduce"}:
+        raise AssertionError(f"mesh_txn_serving: the 1-rank NCCL run "
+                             f"{nccl} differs from the no-mesh run, or made "
+                             "a collective other than an all-reduce")
+    rec["nccl_one_rank"] = {"run": "txn_64k", "rounds": nccl["rounds"],
+                            "calls": nccl["calls"],
+                            "equals_no_mesh_run": True}
+    rec.update(rank_seconds=max(r["seconds"] for r in ranks),
+               census_reference={"txn/sharded-step": {"all-reduce": None}},
+               ok=True)
+    emit(rec)
+    torch.cuda.empty_cache()
+
+
+def mesh_rank_work(mesh, seed: int, rounds: dict, txn_ops) -> dict:
     """The rank side of every mesh phase, in one world; ``rounds``: each
-    kept one-process run's rounds (:data:`ONE_PROCESS`)."""
+    kept one-process run's rounds (:data:`ONE_PROCESS`); ``txn_ops``:
+    txn_64k's staged ops, whole."""
     return {"transport": mesh.transport, "rank": mesh.rank,
             "collectives": _mesh_collectives_rank(mesh, seed),
             "tree_1m": _mesh_tree_rank(mesh),
@@ -8093,10 +8611,11 @@ def mesh_rank_work(mesh, seed: int, rounds: dict) -> dict:
             "delays": _mesh_delays_rank(mesh, rounds),
             "gather": _mesh_gather_rank(mesh, rounds),
             "counter": _mesh_counter_rank(mesh, rounds),
-            "kafka": _mesh_kafka_rank(mesh, rounds)}
+            "kafka": _mesh_kafka_rank(mesh, rounds),
+            "txn_serving": _mesh_txn_serving_rank(mesh, txn_ops)}
 
 
-def nccl_rank_work(mesh) -> dict:
+def nccl_rank_work(mesh, txn_ops) -> dict:
     """The 1-rank NCCL world: structured_sim on a 65,536-node tree on the
     mesh (its all-reduces through NCCL, its halo ppermutes local)."""
     import torch
@@ -8115,10 +8634,11 @@ def nccl_rank_work(mesh) -> dict:
            "calls": dict(mesh.calls)}
     del sim, state
     out["kafka"] = nccl_kafka(mesh)
+    out["txn"] = nccl_txn(mesh, txn_ops)
     return out
 
 
-def nccl_one_rank() -> dict:
+def nccl_one_rank(txn_ops) -> dict:
     """:func:`nccl_rank_work` in a 1-rank NCCL world of this process (a
     ``file://`` store in a temporary directory), destroyed after."""
     import datetime
@@ -8135,7 +8655,7 @@ def nccl_one_rank() -> dict:
             rank=0, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
         try:
             return nccl_rank_work(Mesh(None, device=torch.device(
-                "cuda", torch.cuda.current_device())))
+                "cuda", torch.cuda.current_device())), txn_ops)
         finally:
             dist.destroy_process_group()
     finally:
@@ -8166,9 +8686,16 @@ def mesh_phases(modules, device, launches: Launches, card: str,
     rounds = {name: run["rounds"] for name, run in ONE_PROCESS.items()}
     rounds.update({f"kafka_quiet_{name}": KAFKA_ONE[name]["quiet"]
                    for name in MESH_KAFKA_RUNS})
+    # txn_64k's ops, staged once here (the host loop, cached for txn_64k)
+    # and shipped to the ranks in the spawn arguments
+    from gossip_glomers_tpu_torch.tpu_sim import txn
+
+    t1 = time.perf_counter()
+    txn_ops = txn._staged(TXN_NODES, TXN_T, TXN_O, TXN_KEYS, 0)
+    MESH_TXN["stage_s"] = time.perf_counter() - t1
     ranks = dcn_worker.spawn_world(mesh_rank_work, MESH_RANKS,
                                    backend="gloo", device=device,
-                                   args=(MESH_SEED, rounds),
+                                   args=(MESH_SEED, rounds, txn_ops),
                                    timeout=MESH_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     transport = ranks[0]["transport"]
@@ -8179,7 +8706,7 @@ def mesh_phases(modules, device, launches: Launches, card: str,
     checked = check_mesh_collectives([r["collectives"] for r in ranks],
                                      MESH_SEED)
     t1 = time.perf_counter()
-    nccl = nccl_one_rank()
+    nccl = nccl_one_rank(txn_ops)
     nccl_s = time.perf_counter() - t1
     n = MESH_SMALL_NODES
     one = timing.structured_sim("tree", n, W1_VALUES, sync_every=16,
@@ -8308,6 +8835,14 @@ def mesh_phases(modules, device, launches: Launches, card: str,
                                        "transport": transport,
                                        "device": card, "label": MESH_LABEL},
                      nccl["kafka"], world_s)
+    # mesh_txn_serving is held against runs of later phases: keep the
+    # ranks' results
+    MESH_TXN.update(ranks=[r["txn_serving"] for r in ranks],
+                    nccl=nccl["txn"],
+                    head={"ranks": MESH_RANKS, "transport": transport,
+                          "device": card, "label": MESH_LABEL,
+                          "world_seconds": world_s,
+                          "stage_s": MESH_TXN["stage_s"]})
     for name in MESH_PATH_KERNELS:
         if not launches.split(name)["mesh"]:
             raise AssertionError(f"{name}: no launch in the mesh bucket")
@@ -8569,6 +9104,7 @@ def main() -> int:
     txn_64k(txn, checkers, kernels, device, launches, smi, times)
     txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
                     launches, smi)
+    mesh_txn_serving_phase(htxn, faults, kvstore, launches, device, smi)
     flight_bundles(nemesis, serving, observe, faults, traffic, device,
                    launches, smi)
     scen = (broadcast, nemesis, scenario, telemetry, topology, faults,
@@ -8618,7 +9154,8 @@ def main() -> int:
         if f"{name}_block" in times:
             entry["block"] = {f"{w}x{n}": v for (w, n), v in
                               times[f"{name}_block"].items()}
-        if name.startswith("shift_") or name in MESH_PATH_KERNELS:
+        if name.startswith("shift_") or name in MESH_PATH_KERNELS \
+                or name in MESH_TXN_KERNELS:
             entry["launches_by_path"] = launches.split(name)
         entries.append(entry)
     emit({"kernels": entries})

@@ -42,6 +42,20 @@
 // Keys must lie in [0, K): the kernels skip a key outside it (no claim, no
 // win, no request), where the plain version's indexing raises.
 //
+// Block forms (a mesh rank's block of the node axis): both kernels take
+// row0, the global id of local row 0, and n_total, the sim's N, so that a
+// local node i claims at iss * n_total + row0 + i, the priority the whole
+// problem gives it (the local row count as the multiplier would give every
+// rank the same priorities, and the minimum across ranks would pick the
+// wrong winners).  best and attempts are then the rank's partials, which
+// the caller reduces by a minimum and a sum.  txn_commit reads the best
+// that minimum made, and in its view mode reads each key's (value,
+// version) from view, the (2, K) all-reduced view of every rank's store
+// rows (a key's owner may sit on another rank, so the local rows do not
+// hold it); its req is the rank's partial, summed across ranks, as the
+// single-device kernel's atomicAdd sums two winners that share a wrapped
+// priority.  cur, issue, the records and the stamps are the rank's own.
+//
 // Bound on the card.  Both passes are bytes-bound and touch most of their
 // bytes at random: per active node and key, the claim is one 4-byte atomic
 // into a random 32-byte sector of best (in the L2: best is 64 KB at 16,384
@@ -64,17 +78,18 @@ namespace {
 constexpr int kThreads = 256;
 
 struct Node {
-  int64_t i;      // node
+  int64_t i;      // local row
   int64_t c;      // open slot, clamped into [0, T)
   int32_t iss;    // issue' (t for a first attempt)
-  int32_t prio;   // iss * n + i mod 2^32, as int32
+  int32_t prio;   // iss * n_total + row0 + i mod 2^32, as int32
   bool active;
   bool first;     // active and issue < 0
 };
 
 __device__ __forceinline__ Node node_of(int64_t i, const int32_t* cur,
                                         const int32_t* issue,
-                                        const uint8_t* active, int64_t n,
+                                        const uint8_t* active,
+                                        int64_t n_total, int64_t row0,
                                         int64_t t_dim, int64_t t) {
   Node nd;
   nd.i = i;
@@ -85,8 +100,9 @@ __device__ __forceinline__ Node node_of(int64_t i, const int32_t* cur,
   const int32_t old = issue[i];
   nd.first = nd.active && old < 0;
   nd.iss = nd.first ? static_cast<int32_t>(t) : old;
-  const uint32_t p = static_cast<uint32_t>(nd.iss) * static_cast<uint32_t>(n)
-                     + static_cast<uint32_t>(i);
+  const uint32_t p =
+      static_cast<uint32_t>(nd.iss) * static_cast<uint32_t>(n_total)
+      + static_cast<uint32_t>(row0 + i);
   nd.prio = static_cast<int32_t>(p);
   return nd;
 }
@@ -98,12 +114,12 @@ txn_claim_kernel(const int32_t* __restrict__ keys,
                  const uint8_t* __restrict__ active,
                  int32_t* __restrict__ best, int32_t* __restrict__ attempts,
                  int64_t n, int64_t t_dim, int64_t o, int64_t k_dim,
-                 int64_t t) {
+                 int64_t t, int64_t row0, int64_t n_total) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads
                     + threadIdx.x;
   bool act = false;
   if (i < n) {
-    const Node nd = node_of(i, cur, issue, active, n, t_dim, t);
+    const Node nd = node_of(i, cur, issue, active, n_total, row0, t_dim, t);
     act = nd.active;
     if (act) {
       const int32_t* kp = keys + (nd.i * t_dim + nd.c) * o;
@@ -130,15 +146,17 @@ txn_commit_kernel(const int32_t* __restrict__ best,
                   const int64_t* __restrict__ slot,
                   const int32_t* __restrict__ vals,
                   const int32_t* __restrict__ vers,
+                  const int32_t* __restrict__ view,
                   int32_t* __restrict__ op_ver, int32_t* __restrict__ op_val,
                   int32_t* __restrict__ commit_round,
                   int32_t* __restrict__ issue_round,
                   int32_t* __restrict__ req, int64_t n, int64_t t_dim,
-                  int64_t o, int64_t k_dim, int64_t cap, int64_t t) {
+                  int64_t o, int64_t k_dim, int64_t cap, int64_t t,
+                  int64_t row0, int64_t n_total) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads
                     + threadIdx.x;
   if (i >= n) return;
-  const Node nd = node_of(i, cur, issue, active, n, t_dim, t);
+  const Node nd = node_of(i, cur, issue, active, n_total, row0, t_dim, t);
   const int64_t base = (nd.i * t_dim + nd.c) * o;
   bool win = nd.active;
   for (int64_t j = 0; win && j < o; ++j) {
@@ -148,8 +166,15 @@ txn_commit_kernel(const int32_t* __restrict__ best,
   if (win) {
     for (int64_t j = 0; j < o; ++j) {
       const int32_t k = keys[base + j];
-      const int64_t at = owner[k] * cap + slot[k];
-      const int32_t rd_val = vals[at], rd_ver = vers[at];
+      int32_t rd_val, rd_ver;
+      if (view) {
+        rd_val = view[k];
+        rd_ver = view[k_dim + k];
+      } else {
+        const int64_t at = owner[k] * cap + slot[k];
+        rd_val = vals[at];
+        rd_ver = vers[at];
+      }
       if (write[base + j]) {
         const int32_t wv = wval[base + j];
         atomicAdd(req + k, 1);
@@ -172,22 +197,25 @@ txn_commit_kernel(const int32_t* __restrict__ best,
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-bool bad_shape(int64_t n, int64_t t_dim, int64_t o, int64_t k_dim) {
+bool bad_shape(int64_t n, int64_t t_dim, int64_t o, int64_t k_dim,
+               int64_t row0, int64_t n_total) {
   return n < 0 || n > 0x7fffffff || t_dim < 1 || o < 0 || k_dim < 0
-         || ceil_div(n, kThreads) > 0x7fffffff;
+         || ceil_div(n, kThreads) > 0x7fffffff || row0 < 0
+         || row0 + n > n_total || n_total > 0x7fffffff;
 }
 
 }  // namespace
 
 // best[k] = min over the active nodes i claiming k of their priority
 // (best filled with INT32_MAX by the caller); attempts[0] += the active
-// nodes (zeroed by the caller).
+// nodes (zeroed by the caller).  The rows are global rows row0 .. row0 + n
+// of n_total (0 and n for the whole problem).
 extern "C" int gg_txn_claim(const void* keys, const void* cur,
                             const void* issue, const void* active, void* best,
                             void* attempts, int64_t n, int64_t t_dim,
-                            int64_t o, int64_t k_dim, int64_t t,
-                            void* stream) {
-  if (bad_shape(n, t_dim, o, k_dim))
+                            int64_t o, int64_t k_dim, int64_t t, int64_t row0,
+                            int64_t n_total, void* stream) {
+  if (bad_shape(n, t_dim, o, k_dim, row0, n_total))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   txn_claim_kernel<<<static_cast<unsigned>(ceil_div(n, kThreads)), kThreads,
@@ -195,22 +223,25 @@ extern "C" int gg_txn_claim(const void* keys, const void* cur,
       static_cast<const int32_t*>(keys), static_cast<const int32_t*>(cur),
       static_cast<const int32_t*>(issue), static_cast<const uint8_t*>(active),
       static_cast<int32_t*>(best), static_cast<int32_t*>(attempts), n, t_dim,
-      o, k_dim, t);
+      o, k_dim, t, row0, n_total);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The winners' reads, records and (3, K) write requests (req zeroed by the
-// caller), and cur / issue, in place.
+// caller), and cur / issue, in place.  view: null to read the store's rows
+// at (owner, slot), else the (2, K) view (values row 0, versions row 1).
 extern "C" int gg_txn_commit(const void* best, const void* keys,
                              const void* write, const void* wval, void* cur,
                              void* issue, const void* active,
                              const void* owner, const void* slot,
-                             const void* vals, const void* vers, void* op_ver,
-                             void* op_val, void* commit_round,
-                             void* issue_round, void* req, int64_t n,
-                             int64_t t_dim, int64_t o, int64_t k_dim,
-                             int64_t cap, int64_t t, void* stream) {
-  if (bad_shape(n, t_dim, o, k_dim) || cap < 0)
+                             const void* vals, const void* vers,
+                             const void* view, void* op_ver, void* op_val,
+                             void* commit_round, void* issue_round, void* req,
+                             int64_t n, int64_t t_dim, int64_t o,
+                             int64_t k_dim, int64_t cap, int64_t t,
+                             int64_t row0, int64_t n_total, void* stream) {
+  if (bad_shape(n, t_dim, o, k_dim, row0, n_total) || cap < 0
+      || (!view && (!owner || !slot || !vals || !vers)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   txn_commit_kernel<<<static_cast<unsigned>(ceil_div(n, kThreads)), kThreads,
@@ -221,9 +252,9 @@ extern "C" int gg_txn_commit(const void* best, const void* keys,
       static_cast<const uint8_t*>(active),
       static_cast<const int64_t*>(owner), static_cast<const int64_t*>(slot),
       static_cast<const int32_t*>(vals), static_cast<const int32_t*>(vers),
-      static_cast<int32_t*>(op_ver), static_cast<int32_t*>(op_val),
-      static_cast<int32_t*>(commit_round),
+      static_cast<const int32_t*>(view), static_cast<int32_t*>(op_ver),
+      static_cast<int32_t*>(op_val), static_cast<int32_t*>(commit_round),
       static_cast<int32_t*>(issue_round), static_cast<int32_t*>(req), n,
-      t_dim, o, k_dim, cap, t);
+      t_dim, o, k_dim, cap, t, row0, n_total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,9 +26,16 @@ The result is the reference's dict, field for field
 (tests/test_torch_nemesis_runner.py).  ``traffic=`` hands the campaign
 to :func:`.serving.run_serving`.  ``observe_dir``: where a failed
 campaign writes its flight bundle (:func:`.observe.write_flight_bundle`,
-the reference's ``runner_kw``, so that either package replays it).  Not
-ported yet, and raising: ``mesh=`` and ``dcn_mode=`` (ROADMAP.md Queue A
-item 10).
+the reference's ``runner_kw``, so that either package replays it).
+
+``mesh=`` (a :class:`..parallel.mesh.Mesh`, every rank calling) runs a
+campaign on the mesh's sims with provenance off: the traffic and
+telemetry drivers on the mesh, the fixed-trip and stepped rounds of the
+sims' mesh paths, the convergence predicates agreed over the ranks (one
+all-reduce a round), the lost-write reads collective, a failed
+campaign's bundle written by rank 0, and every rank returning the whole
+result.  Not ported yet, and raising: ``mesh=`` with provenance on, and
+``dcn_mode=`` (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -61,11 +68,43 @@ def _unported(what: str, item: int) -> NotImplementedError:
                                f"(ROADMAP.md Queue A item {item})")
 
 
-def _check_unported(name: str, mesh, dcn_mode) -> None:
-    if mesh is not None:
-        raise _unported(f"{name}(mesh=...)", 10)
+def _check_unported(name: str, mesh, dcn_mode, provenance=None,
+                    workload: str | None = None):
+    """The runner's device (the mesh's on a mesh), after its refusals:
+    ``dcn_mode``, and provenance on a mesh (ROADMAP.md Queue A item
+    10)."""
+    from ..tpu_sim.engine import _check_flat
+
     if dcn_mode is not None:
         raise _unported(f"{name}(dcn_mode=...)", 10)
+    _check_flat(mesh)
+    if mesh is not None and workload is not None \
+            and observe.provenance_setup(provenance, workload) is not None:
+        raise _unported(f"{name}(mesh=..., provenance=...)", 10)
+
+
+def _place(mesh, device) -> tuple:
+    """(device, the sims' placement keywords): the mesh's, or
+    ``device``'s."""
+    if mesh is not None:
+        return mesh.device, dict(mesh=mesh)
+    dev = resolve_device(device)
+    return dev, dict(device=dev)
+
+
+def _block(sim, x: np.ndarray) -> np.ndarray:
+    """This rank's block of a per-node host array (all of it off a
+    mesh)."""
+    if sim.mesh is None:
+        return x
+    b = sim.n_nodes // sim.mesh.size
+    return x[sim.mesh.rank * b:(sim.mesh.rank + 1) * b]
+
+
+def _agree(sim, flag) -> bool:
+    """A convergence flag (a rank's, on a mesh) agreed over the mesh."""
+    ok = bool(flag)
+    return ok if sim.mesh is None else sim.mesh.agree(ok)
 
 
 def _neighbors(topology: str, n: int) -> np.ndarray:
@@ -115,7 +154,8 @@ def _finish_provenance(ok: bool, details: dict, prov, prov_spec,
 
 def _finish_observed(ok: bool, details: dict, tel, tel_spec, *,
                      msgs_total: int, observe_dir, workload: str,
-                     spec: NemesisSpec, runner_kw: dict) -> bool:
+                     spec: NemesisSpec, runner_kw: dict,
+                     mesh=None) -> bool:
     """Put the recorded telemetry series in ``details['telemetry']``,
     cross-checked against the run's ledger
     (:func:`.checkers.check_telemetry`: a broken recorder fails the
@@ -133,8 +173,8 @@ def _finish_observed(ok: bool, details: dict, tel, tel_spec, *,
     if not ok and observe_dir is not None:
         prov_entry = details.get("provenance") or {}
         prov_arrays = prov_entry.get("arrays")
-        details["flight_bundle"] = observe.write_flight_bundle(
-            observe_dir, kind="nemesis", workload=workload,
+        details["flight_bundle"] = observe.write_bundle_on_mesh(
+            mesh, observe_dir, kind="nemesis", workload=workload,
             nemesis=spec.to_meta(), runner_kw=runner_kw,
             telemetry_spec=tel_meta, telemetry_series=series,
             provenance_spec=prov_entry.get("spec"),
@@ -178,9 +218,12 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
     switch; True / False; a spec): run on the observed driver, record
     the ring and / or the arrival and parent stamps (gather path only),
     certify them, and put them in the result.  ``observe_dir``: where a
-    failed campaign writes its flight bundle."""
-    _check_unported("run_broadcast_nemesis", mesh, dcn_mode)
-    dev = resolve_device(device)
+    failed campaign writes its flight bundle.  ``mesh``: run on the mesh
+    (module docstring), provenance off."""
+    _check_unported("run_broadcast_nemesis", mesh, dcn_mode,
+                    None if traffic is not None else provenance,
+                    "broadcast")
+    dev, place = _place(mesh, device)
     n = spec.n_nodes
     nv = n_values if n_values is not None else 2 * n
     if isinstance(parts, dict):
@@ -214,7 +257,8 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         return serving.run_serving(
             "broadcast", traffic, nemesis=spec,
             max_recovery_rounds=max_recovery_rounds, sim_kw=sim_kw,
-            telemetry=telemetry, observe_dir=observe_dir, device=dev)
+            telemetry=telemetry, observe_dir=observe_dir, mesh=mesh,
+            device=dev)
     if structured == "auto":
         # membership events ride the gather path (the words-major masks
         # have no join / leave columns)
@@ -226,6 +270,7 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         kw = dict(exchange=S.make_exchange(topology, n),
                   nemesis=S.make_nemesis(
                       topology, n, spec, groups=groups, device=dev,
+                      n_shards=None if mesh is None else mesh.size,
                       dir_delays=(None if dir_delays is None
                                   else tuple(dir_delays))))
     elif dir_delays is not None:
@@ -236,7 +281,7 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
     sim = BroadcastSim(nbrs, n_values=nv, sync_every=sync_every,
                        parts=parts, delays=delays,
                        fault_plan=spec.compile(device=dev),
-                       srv_ledger=False, device=dev, **kw)
+                       srv_ledger=False, **place, **kw)
     inject = make_inject(n, nv)
     if spec.has_membership:
         # a value is acked where it is injected: pre-join rows stage
@@ -271,11 +316,11 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         lay = (lambda x: x[:, None]) if sim.words_major else \
             (lambda x: x[None, :])
         tgt = lay(target)
-        outside = torch.from_numpy(~members_c).to(dev)
+        outside = torch.from_numpy(_block(sim, ~members_c).copy()).to(dev)
         outside = outside[None, :] if sim.words_major else outside[:, None]
 
         def conv_b(s) -> bool:
-            return bool(((s.received == tgt) | outside).all())
+            return _agree(sim, ((s.received == tgt) | outside).all())
     else:
         def conv_b(s) -> bool:
             return sim.converged(s, target)
@@ -321,7 +366,7 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
     ok = _finish_observed(ok, details, tel, tel_spec,
                           msgs_total=int(state.msgs),
                           observe_dir=observe_dir, workload="broadcast",
-                          spec=spec, runner_kw=runner_kw)
+                          spec=spec, runner_kw=runner_kw, mesh=mesh)
     return {"ok": ok, **details}
 
 
@@ -346,9 +391,11 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     shortfall ``acked_sum - kv - pending``, the deltas that died in
     amnesia rows before they flushed.  ``traffic``: the open-loop
     campaign (``deltas`` ignored).  ``provenance``: the per-node flush,
-    KV and visibility stamps (see :func:`run_broadcast_nemesis`)."""
-    _check_unported("run_counter_nemesis", mesh, dcn_mode)
-    dev = resolve_device(device)
+    KV and visibility stamps (see :func:`run_broadcast_nemesis`).
+    ``mesh``: run on the mesh (module docstring), provenance off."""
+    _check_unported("run_counter_nemesis", mesh, dcn_mode,
+                    None if traffic is not None else provenance, "counter")
+    dev, place = _place(mesh, device)
     if traffic is not None:
         from . import serving
         _no_traffic_provenance(provenance)
@@ -357,7 +404,8 @@ def run_counter_nemesis(spec: NemesisSpec, *,
             max_recovery_rounds=max_recovery_rounds,
             sim_kw=dict(mode=mode, poll_every=poll_every,
                         union_block=union_block),
-            telemetry=telemetry, observe_dir=observe_dir, device=dev)
+            telemetry=telemetry, observe_dir=observe_dir, mesh=mesh,
+            device=dev)
     n = spec.n_nodes
     if deltas is None:
         deltas = np.arange(1, n + 1, dtype=np.int32)
@@ -369,7 +417,7 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     acked_sum = int(np.sum(deltas))
     sim = CounterSim(n, mode=mode, poll_every=poll_every,
                      fault_plan=spec.compile(device=dev),
-                     union_block=union_block, device=dev)
+                     union_block=union_block, **place)
     state = sim.add(sim.init_state(), deltas)
     clear = spec.clear_round
     members_c = spec.host_members(clear)
@@ -389,11 +437,20 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     msgs_at_clear = int(state.msgs)
     # only member rows must re-poll to the KV value; pending stays summed
     # over all rows (a non-member's residue is a real undrained delta)
-    outside = torch.from_numpy(~members_c).to(dev)
+    outside = torch.from_numpy(_block(sim, ~members_c).copy()).to(dev)
+
+    def pending_sum(s) -> torch.Tensor:
+        p = s.pending.sum(dtype=torch.int64)
+        return p if mesh is None else mesh.all_reduce(p, "sum")
 
     def converged(s) -> bool:
-        return bool((s.pending.sum() == 0)
-                    & ((s.cached == s.kv) | outside).all())
+        stale = (~((s.cached == s.kv) | outside)).sum(dtype=torch.int64)
+        if mesh is not None:
+            # one all-reduce: the pending total and the stale caches
+            p, stale = mesh.all_reduce(torch.stack([
+                s.pending.sum(dtype=torch.int64), stale]), "sum")
+            return bool((p == 0) & (stale == 0))
+        return bool((s.pending.sum() == 0) & (stale == 0))
 
     converged_round = clear if converged(state) else None
     while converged_round is None \
@@ -407,7 +464,9 @@ def run_counter_nemesis(spec: NemesisSpec, *,
         if converged(state):
             converged_round = state.t
     kv = sim.kv_value(state)
-    shortfall = acked_sum - kv - int(state.pending.sum(dtype=torch.int32))
+    shortfall = acked_sum - kv - (int(pending_sum(state)) if mesh is not None
+                                  else int(state.pending.sum(
+                                      dtype=torch.int32)))
     lost = [{"lost_sum": shortfall}] if shortfall != 0 else []
     ok, details = check_recovery(
         clear_round=clear, converged_round=converged_round,
@@ -428,7 +487,7 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     ok = _finish_observed(ok, details, tel, tel_spec,
                           msgs_total=int(state.msgs),
                           observe_dir=observe_dir, workload="counter",
-                          spec=spec, runner_kw=runner_kw)
+                          spec=spec, runner_kw=runner_kw, mesh=mesh)
     return {"ok": ok, **details}
 
 
@@ -498,15 +557,24 @@ def kafka_campaign(sim: KafkaSim, spec: NemesisSpec, staged: tuple,
                                  donate=True, prov=prov,
                                  prov_spec=prov_spec), tel, prov)
     msgs_at_clear = int(state.msgs)
-    ref = int(np.argmax(members_c))
-    outside = torch.from_numpy(~members_c).to(sim.device)[:, None, None]
+    ref = int(np.argmax(members_c)) if spec.has_membership else 0
+    outside = torch.from_numpy(_block(sim, ~members_c).copy()).to(
+        sim.device)[:, None, None]
 
     def converged(st) -> bool:
         pres = st.present
+        if sim.mesh is None:
+            row = pres[ref:ref + 1]
+        else:
+            # the reference row from the rank that holds it (one sum)
+            loc = ref - sim._row0
+            row = sim._coll.reduce_sum(
+                pres[loc:loc + 1] if 0 <= loc < sim._block
+                else torch.zeros_like(pres[:1]))
         if not spec.has_membership:
-            return bool((pres == pres[:1]).all())
+            return _agree(sim, (pres == row).all())
         # member rows against the first member (row 0 may have left)
-        return bool(((pres == pres[ref:ref + 1]) | outside).all())
+        return _agree(sim, ((pres == row) | outside).all())
 
     # a quiescent round: an empty one-round send batch, commit-free
     quiet = np.full((1, n, s_dim), -1, np.int32)
@@ -532,14 +600,17 @@ def kafka_lost_writes(sim: KafkaSim, state, members: np.ndarray) -> list:
     """The campaign's lost acknowledged writes: allocated (key, offset)
     slots present at no member node (offset = slot + 1), then every
     committed-offset cache above its shared cell, read on the device."""
-    pres_any = or_rows(state.present[torch.from_numpy(members).to(
-        sim.device)])
+    present, lc = state.present, state.local_committed
+    if sim.mesh is not None:
+        # a host read: the whole presence and caches, gathered
+        present, lc = sim._coll.widen(present), sim._coll.widen(lc)
+    pres_any = or_rows(present[torch.from_numpy(members).to(sim.device)])
     held = unpack_bits(pres_any, sim.capacity)
     missing = (state.log_vals >= 0) & ~held
     lost = [(int(k), int(c) + 1)
             for k, c in torch.nonzero(missing).cpu().tolist()]
     kv = state.kv_val
-    over = state.local_committed > torch.where(kv > 0, kv, 0)[None, :]
+    over = lc > torch.where(kv > 0, kv, 0)[None, :]
     lost += [{"committed_over_cell": (int(i), int(k))}
              for i, k in torch.nonzero(over).cpu().tolist()]
     return lost
@@ -568,9 +639,11 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
     ``union_block``, ``commits`` and ``send_prob`` as in the reference;
     ``traffic``: the open-loop campaign.  ``provenance``: the per-(key,
     slot) allocation, origin and witness-presence stamps (the witness
-    from the ``ProvenanceSpec``)."""
-    _check_unported("run_kafka_nemesis", mesh, dcn_mode)
-    dev = resolve_device(device)
+    from the ``ProvenanceSpec``).  ``mesh``: run on the mesh (module
+    docstring), provenance off."""
+    _check_unported("run_kafka_nemesis", mesh, dcn_mode,
+                    None if traffic is not None else provenance, "kafka")
+    dev, place = _place(mesh, device)
     if traffic is not None:
         from . import serving
         _no_traffic_provenance(provenance)
@@ -580,7 +653,8 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
             sim_kw=dict(n_keys=n_keys, capacity=capacity,
                         max_sends=max_sends, resync_every=resync_every,
                         resync_mode=resync_mode, union_block=union_block),
-            telemetry=telemetry, observe_dir=observe_dir, device=dev)
+            telemetry=telemetry, observe_dir=observe_dir, mesh=mesh,
+            device=dev)
     n = spec.n_nodes
     clear = max(spec.clear_round, rounds or 0)
     members_c = spec.host_members(clear)
@@ -593,7 +667,7 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
     sim = KafkaSim(n, n_keys, capacity=capacity, max_sends=max_sends,
                    fault_plan=spec.compile(device=dev),
                    resync_every=resync_every, resync_mode=resync_mode,
-                   repl_fast=repl_fast, union_block=union_block, device=dev)
+                   repl_fast=repl_fast, union_block=union_block, **place)
     tel_spec = observe.telemetry_setup(telemetry, "kafka",
                                        clear + max_recovery_rounds)
     tel = sim.telemetry_state(tel_spec) if tel_spec is not None else None
@@ -625,5 +699,5 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
     ok = _finish_observed(ok, details, tel, tel_spec,
                           msgs_total=int(state.msgs),
                           observe_dir=observe_dir, workload="kafka",
-                          spec=spec, runner_kw=runner_kw)
+                          spec=spec, runner_kw=runner_kw, mesh=mesh)
     return {"ok": ok, **details}

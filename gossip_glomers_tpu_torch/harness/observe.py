@@ -559,14 +559,17 @@ def write_flight_bundle(out_dir: str, *, kind: str, workload: str,
                         telemetry_series: dict | None = None,
                         provenance_spec: dict | None = None,
                         provenance: dict | None = None,
-                        failure: dict | None = None) -> str:
+                        failure: dict | None = None,
+                        path: str | None = None) -> str:
     """Write the one-file repro bundle for a failed run (module
     docstring).  ``kind``: ``"nemesis"`` (a ``run_*_nemesis``
     campaign) or ``"serving"`` (a ``run_serving`` open-loop run).
     ``provenance_spec``/``provenance``: the ProvenanceSpec
     meta and recorded stamp arrays (as nested lists) — the replay
     re-records and diffs them for the first-divergence round.
-    Everything needed to replay rides inside; the write is atomic."""
+    Everything needed to replay rides inside; the write is atomic.
+    ``path``: where to write (:func:`flight_bundle_path`'s choice when
+    None)."""
     if kind not in ("nemesis", "serving"):
         raise ValueError(f"unknown bundle kind {kind!r}")
     bundle = {
@@ -584,6 +587,18 @@ def write_flight_bundle(out_dir: str, *, kind: str, workload: str,
         "provenance": provenance,
         "failure": failure or {},
     }
+    if path is None:
+        path = flight_bundle_path(out_dir, kind=kind, workload=workload,
+                                  nemesis=nemesis, traffic=traffic)
+    return write_json_atomic(path, bundle)
+
+
+def flight_bundle_path(out_dir: str, *, kind: str, workload: str,
+                       nemesis: dict | None = None,
+                       traffic: dict | None = None) -> str:
+    """The file :func:`write_flight_bundle` writes a bundle of these
+    seeds into: the first free name of the stem (a mesh's ranks agree on
+    it before their rank 0 writes)."""
     seed_bits = []
     if nemesis:
         seed_bits.append(f"n{nemesis.get('seed', 0)}")
@@ -599,7 +614,24 @@ def write_flight_bundle(out_dir: str, *, kind: str, workload: str,
     while os.path.exists(path):
         path = os.path.join(out_dir, f"{stem}_{i}.json")
         i += 1
-    return write_json_atomic(path, bundle)
+    return path
+
+
+def write_bundle_on_mesh(mesh, out_dir: str, **kw) -> str:
+    """:func:`write_flight_bundle` from every rank of ``mesh`` (None: this
+    process alone): the ranks agree on the path, rank 0 writes it, and
+    every rank returns it once it is written (collective calls)."""
+    if mesh is None:
+        return write_flight_bundle(out_dir, **kw)
+    path = flight_bundle_path(out_dir, kind=kw["kind"],
+                              workload=kw["workload"],
+                              nemesis=kw.get("nemesis"),
+                              traffic=kw.get("traffic"))
+    mesh.agree(True)
+    if mesh.rank == 0:
+        write_flight_bundle(out_dir, path=path, **kw)
+    mesh.agree(True)
+    return path
 
 
 def load_bundle(path_or_dict) -> dict:

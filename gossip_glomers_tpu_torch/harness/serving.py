@@ -19,7 +19,15 @@ Runs go on ``device`` (CUDA unless given).  A failed run writes its
 flight bundle into ``observe_dir`` (:func:`.observe.write_flight_bundle`);
 with ``GG_PROFILE_DIR`` set, the driven phase runs under
 :func:`.observe.profiled` and leaves a ``torch.profiler`` Chrome trace
-there.  Not ported yet, and raising: meshes (ROADMAP.md Queue A item 10).
+there.
+
+``mesh=`` (a :class:`..parallel.mesh.Mesh`, every rank calling) builds
+the sim on the mesh (the structured bundles with their halo closures,
+``n_shards`` the rank count; a structured topology's own halo exchange)
+and runs the same certified run on its device: the drain test, the
+tracker's report and the series are collective reads that every rank
+gets whole, a failed run's bundle is written by rank 0, and the result's
+``mesh`` is the rank count.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from ..tpu_sim import telemetry as TM
 from ..tpu_sim import traffic
 from ..tpu_sim.broadcast import BroadcastSim
 from ..tpu_sim.counter import CounterSim
-from ..tpu_sim.engine import resolve_device
+from ..tpu_sim.engine import _check_flat, resolve_device
 from ..tpu_sim.faults import NemesisSpec
 from ..tpu_sim.kafka import KafkaSim
 from . import observe
@@ -44,11 +52,6 @@ from .checkers import check_op_latency, check_recovery, check_telemetry
 from .observe import telemetry_setup
 
 _TOPOLOGIES = {"grid": grid, "tree": tree}
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP.md Queue A item {item})")
 
 
 def serving_widths(kind: str, tspec: "traffic.TrafficSpec",
@@ -78,10 +81,14 @@ def make_serving_sim(kind: str, tspec: "traffic.TrafficSpec", *,
     ``n_values``, ``dir_delays`` / ``edge_delay_rows`` (structured delay
     modes), ``delays`` (gather per-edge delays); counter — ``mode``,
     ``poll_every``, ``union_block``; kafka — ``n_keys``, ``capacity``,
-    ``max_sends``, ``resync_every``, ``resync_mode``, ``union_block``."""
-    if mesh is not None:
-        raise _unported("make_serving_sim(mesh=...)", 10)
-    dev = resolve_device(device)
+    ``max_sends``, ``resync_every``, ``resync_mode``, ``union_block``.
+    ``mesh``: build it on the mesh (its device is the sim's; the
+    structured bundles get ``n_shards``, the structured exchange its halo
+    form)."""
+    _check_flat(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    n_sh = None if mesh is None else mesh.size
+    place = dict(device=dev) if mesh is None else dict(mesh=mesh)
     n = tspec.n_nodes
     if nemesis is not None and nemesis.n_nodes != n:
         raise ValueError(
@@ -106,7 +113,7 @@ def make_serving_sim(kind: str, tspec: "traffic.TrafficSpec", *,
                 "structured modes: pass structured=True (per-edge "
                 "gather delays ride run_broadcast_nemesis(delays=))")
         kw = dict(sync_every=sync_every, srv_ledger=False,
-                  fault_plan=plan, device=dev, **sim_kw)
+                  fault_plan=plan, **place, **sim_kw)
         if structured:
             kw["exchange"] = S.make_exchange(topology, n)
             if edge_delay_rows is not None:
@@ -117,15 +124,20 @@ def make_serving_sim(kind: str, tspec: "traffic.TrafficSpec", *,
                         "compose via make_edge_delayed_faulted); "
                         "use dir_delays= for a faulted delayed run")
                 kw["edge_delayed"] = S.make_edge_delayed(
-                    topology, n, np.asarray(edge_delay_rows, np.int32))
+                    topology, n, np.asarray(edge_delay_rows, np.int32),
+                    n_shards=n_sh)
             elif nemesis is not None:
                 kw["nemesis"] = S.make_nemesis(
-                    topology, n, nemesis, device=dev,
+                    topology, n, nemesis, device=dev, n_shards=n_sh,
                     dir_delays=(None if dir_delays is None
                                 else tuple(dir_delays)))
             elif dir_delays is not None:
                 kw["delayed"] = S.make_delayed(topology, n,
-                                               tuple(dir_delays))
+                                               tuple(dir_delays),
+                                               n_shards=n_sh)
+            elif n_sh is not None:
+                kw["sharded_exchange"] = S.make_sharded_exchange(
+                    topology, n, n_sh)
         try:
             build = _TOPOLOGIES[topology]
         except KeyError:
@@ -137,14 +149,14 @@ def make_serving_sim(kind: str, tspec: "traffic.TrafficSpec", *,
     elif kind == "counter":
         sim = CounterSim(n, mode=sim_kw.pop("mode", "cas"),
                          poll_every=sim_kw.pop("poll_every", 2),
-                         fault_plan=plan, device=dev, **sim_kw)
+                         fault_plan=plan, **place, **sim_kw)
     elif kind == "kafka":
         sim = KafkaSim(n, sim_kw.pop("n_keys"),
                        capacity=sim_kw.pop("capacity"),
                        max_sends=sim_kw.pop("max_sends", 4),
                        fault_plan=plan,
                        resync_every=sim_kw.pop("resync_every", 4),
-                       device=dev, **sim_kw)
+                       **place, **sim_kw)
     else:
         raise ValueError(f"unknown serving workload {kind!r}")
     return sim, _fresh_state(kind, sim)
@@ -157,8 +169,10 @@ def _fresh_state(kind: str, sim):
     return sim.init_state()
 
 
-def _issued(ts) -> int:
-    return int(ts.issued_k.sum(dtype=torch.int64))
+def _issued(ts, mesh=None) -> int:
+    """The ops issued (over every rank of a ``mesh``: a collective)."""
+    n = ts.issued_k.sum(dtype=torch.int64)
+    return int(n if mesh is None else mesh.all_reduce(n, "sum"))
 
 
 def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
@@ -181,9 +195,11 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
     phase and cross-checks it (``check_telemetry``); ``latency_bound``
     (``check_op_latency`` kwargs) ANDs a latency bound into the verdict.
     ``device``: where a sim built here runs (CUDA unless given).
-    ``observe_dir``: where a failed run writes its flight bundle."""
-    if mesh is not None:
-        raise _unported("run_serving(mesh=...)", 10)
+    ``observe_dir``: where a failed run writes its flight bundle.
+    ``mesh``: run on the mesh (module docstring; ``sim``, when given,
+    must be on it)."""
+    if sim is not None:
+        mesh = sim.mesh
     if nemesis is not None and nemesis.has_membership:
         raise ValueError(
             "serving runs do not support membership events yet: the "
@@ -194,7 +210,8 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
             "scenario batch path instead")
     if sim is None:
         sim, state = make_serving_sim(kind, tspec, nemesis=nemesis,
-                                      device=device, **(sim_kw or {}))
+                                      mesh=mesh, device=device,
+                                      **(sim_kw or {}))
     else:
         state = _fresh_state(kind, sim)
     ts = sim.traffic_state(tspec)
@@ -229,19 +246,21 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
         state, ts, tel = drive(state, ts, tel, clear - tspec.until)
     msgs_at_clear = int(state.msgs)
     drained = 0
-    while (int(ts.completed) < _issued(ts)
+    while (int(ts.completed) < _issued(ts, mesh)
            and drained < max_recovery_rounds):
         step = min(drain_every, max_recovery_rounds - drained)
         state, ts, tel = drive(state, ts, tel, step)
         drained += step
     sync()
     total_s = time.perf_counter() - t0
-    summ = traffic.latency_summary(ts)
-    done_r = ts.done_round.cpu().numpy()
+    summ = traffic.latency_summary(ts, mesh)
     if summ["issued"] == 0:
         converged_round = clear
     elif summ["in_flight"] == 0:
-        converged_round = max(clear, int(done_r.max()))
+        last = ts.done_round.max().to(torch.int64)
+        if mesh is not None:
+            last = mesh.all_reduce(last, "max")
+        converged_round = max(clear, int(last))
     else:
         converged_round = None
     lost = ([{"open_ops": summ["in_flight"]}]
@@ -259,7 +278,8 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
                                     **lat_details}
     total_rounds = clear + drained
     details.update(
-        workload=kind, n_nodes=tspec.n_nodes, mesh=None,
+        workload=kind, n_nodes=tspec.n_nodes,
+        mesh=None if mesh is None else mesh.size,
         traffic=tspec.to_meta(), **summ,
         offered_per_round=traffic.offered_per_round(tspec),
         sustained_per_round=summ["completed"] / max(1, total_rounds),
@@ -270,7 +290,7 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
     if nemesis is not None:
         details["spec"] = nemesis.to_meta()
     if series or nemesis is not None:
-        sr = traffic.per_round_series(ts, total_rounds)
+        sr = traffic.per_round_series(ts, total_rounds, mesh)
         if series:
             details.update(sr)
         if nemesis is not None and nemesis.crash:
@@ -301,8 +321,8 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
                    ("recovery_rounds", "n_lost_writes", "lost_writes",
                     "conserved", "latency_bound")
                    if k in details}
-        details["flight_bundle"] = observe.write_flight_bundle(
-            observe_dir, kind="serving", workload=kind,
+        details["flight_bundle"] = observe.write_bundle_on_mesh(
+            mesh, observe_dir, kind="serving", workload=kind,
             nemesis=(nemesis.to_meta() if nemesis is not None
                      else None),
             traffic=tspec.to_meta(), sim_kw=sim_kw or {},
@@ -322,11 +342,9 @@ def run_serving_curve(kind: str, tspec: "traffic.TrafficSpec",
     """Latency-vs-offered-load table: one :func:`run_serving` row per
     per-client ``rate`` in ``loads`` (same seed and shape).  Builds the
     sim once (capacity defaults sized at the heaviest load) and reuses
-    it."""
-    if mesh is not None:
-        raise _unported("run_serving_curve(mesh=...)", 10)
+    it (on ``mesh``, when given: every rank calls)."""
     sim, _ = make_serving_sim(kind, tspec.with_rate(float(max(loads))),
-                              nemesis=nemesis, device=device,
+                              nemesis=nemesis, mesh=mesh, device=device,
                               **dict(sim_kw or {}))
     return [run_serving(kind, tspec.with_rate(float(r)),
                         nemesis=nemesis, sim_kw=sim_kw, sim=sim, **kw)

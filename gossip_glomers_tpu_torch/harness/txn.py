@@ -13,8 +13,16 @@ writes its flight bundle (:mod:`.observe`), which
 per-transaction stamps for the first-divergence round.  The stamps ride
 in the state (``issue_round``, ``commit_round``), so every run records
 them.  Runs go on ``device`` (CUDA unless given).  ``run_txn_frontier``
-certifies a (rate x nemesis) grid over scenario batches.  Not ported yet,
-and raising: ``mesh=`` (ROADMAP.md Queue A item 10).
+certifies a (rate x nemesis) grid over scenario batches.
+
+``run_txn_nemesis(mesh=)`` runs the campaign on a
+:class:`..parallel.mesh.Mesh` (``TxnSim(mesh=)``; every rank calls it):
+the convergence test is agreed over the ranks (one all-reduce), the
+certificate reads the whole history and registers (collective reads), a
+failed campaign's bundle is written by rank 0 with the whole state's
+stamps, and every rank returns the whole result.  Not ported yet, and
+raising: ``run_txn_frontier(mesh=)``, which rides the scenario batches
+(ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -27,13 +35,12 @@ from ..tpu_sim.faults import NemesisSpec
 from .checkers import check_recovery, check_txn_serializable
 
 
-def txn_provenance_arrays(state: "TX.TxnState") -> dict:
+def txn_provenance_arrays(state: "TX.TxnState", mesh=None) -> dict:
     """The per-transaction causal record as plain int lists: the flight
-    bundle's stamp payload, both fields round-valued."""
-    return {
-        "issue_round": state.issue_round.cpu().numpy().tolist(),
-        "commit_round": state.commit_round.cpu().numpy().tolist(),
-    }
+    bundle's stamp payload, both fields round-valued (on a ``mesh`` the
+    whole state's, gathered: a collective call)."""
+    ir, cr = TX._whole(mesh, state.issue_round, state.commit_round)
+    return {"issue_round": ir.tolist(), "commit_round": cr.tolist()}
 
 
 def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
@@ -53,13 +60,17 @@ def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
     with the final registers as its anchor; ``kv_amnesia=True`` must fail
     it with named lost updates.  ``telemetry`` must be falsy: this
     workload records per-transaction stamps, not a telemetry series.
-    ``observe_dir``: where a failed campaign writes its flight bundle."""
+    ``observe_dir``: where a failed campaign writes its flight bundle.
+    ``mesh``: run on a :class:`..parallel.mesh.Mesh` (module docstring;
+    its device is the run's)."""
+    from ..tpu_sim.engine import _check_flat
     from . import observe
 
     if telemetry:
         raise ValueError("txn workload records per-transaction "
                          "stamps, not telemetry series")
-    dev = resolve_device(device)
+    _check_flat(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     n = spec.n_nodes
     sim = TX.TxnSim(
         n, n_keys, txns_per_node=txns_per_node,
@@ -75,7 +86,8 @@ def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
     msgs_at_clear = int(state.msgs)
 
     def converged(s) -> bool:
-        return bool((s.cur >= s.arrived).all())
+        ok = bool((s.cur >= s.arrived).all())
+        return ok if mesh is None else mesh.agree(ok)
 
     converged_round = clear if converged(state) else None
     while converged_round is None \
@@ -84,8 +96,8 @@ def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
         if converged(state):
             converged_round = state.t
 
-    history = TX.history_of(state, sim.ops)
-    final = TX.final_registers(state, sim.layout)
+    history = TX.history_of(state, sim.ops, mesh)
+    final = TX.final_registers(state, sim.layout, mesh)
     ok_ser, ser_det = check_txn_serializable(history, final=final)
     lost = [p for p in ser_det["problems"]
             if p["kind"] in ("lost-update", "lost-acked-commit")]
@@ -95,7 +107,7 @@ def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
         max_recovery_rounds=max_recovery_rounds, lost_writes=lost,
         msgs_at_clear=msgs_at_clear, msgs_at_converged=int(state.msgs))
     ok = ok and ok_ser
-    prov = txn_provenance_arrays(state)
+    prov = txn_provenance_arrays(state, mesh)
     details.update(
         workload="txn", n_nodes=n, n_keys=n_keys,
         n_txns=len(history),
@@ -113,8 +125,8 @@ def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
                      max_recovery_rounds=max_recovery_rounds,
                      kv_amnesia=kv_amnesia)
     if not ok and observe_dir is not None:
-        bundle_path = observe.write_flight_bundle(
-            observe_dir, kind="nemesis", workload="txn",
+        bundle_path = observe.write_bundle_on_mesh(
+            mesh, observe_dir, kind="nemesis", workload="txn",
             nemesis=spec.to_meta(), runner_kw=runner_kw,
             provenance=prov,
             failure={"converged_round": converged_round,

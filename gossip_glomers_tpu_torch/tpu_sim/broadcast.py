@@ -70,9 +70,16 @@ node's liveness, all-gathers the payload and the dup rows, and streams
 ``union_block`` slabs of the rank's rows; its ``delays`` ring stays
 node-sharded, each round all-gathering the slots it reads.  The round
 counter and the sync waves stay host ints, and every convergence flag is
-agreed over the mesh before any rank branches on it.  ``dcn_mode``, and
-the traffic and observed drivers and ``inject_mid`` on a mesh, raise
-(ROADMAP.md Queue A item 10).
+agreed over the mesh before any rank branches on it.  The traffic driver
+and the observed driver's telemetry ring run on a mesh in both layouts
+and every mode above: a rank sets its own clients' value bits at their
+home nodes (which lie in its block), an op is visible once
+:func:`.kernels.and_fold` over the rank's block, then the engine's
+``reduce_and`` over the ranks, holds its bit (no all-gather), and a
+round's telemetry row (the popcounts and the tracker's issued count) is
+finished by one packed all-reduce.  ``dcn_mode``, the observed driver's
+provenance record and ``inject_mid`` on a mesh raise (ROADMAP.md Queue
+A item 10).
 """
 
 from __future__ import annotations
@@ -1640,6 +1647,10 @@ class BroadcastSim:
     # -- open-loop traffic -----------------------------------------------
 
     def _traffic_validate(self, tspec) -> None:
+        if self.mesh is not None and tspec.n_clients % self.mesh.size:
+            raise ValueError(
+                f"n_clients={tspec.n_clients} must shard evenly over the "
+                "node axis")
         if self._srv_on:
             raise ValueError(
                 "traffic drivers keep no server ledger (open-loop "
@@ -1658,8 +1669,9 @@ class BroadcastSim:
         position), cached by the spec's static key."""
         key = tspec.program_key
         if key not in self._traffic:
-            ix = traffic.client_index(tspec, self.n_nodes, self.device)
             self._traffic_validate(tspec)
+            ix = traffic.client_index(tspec, self.n_nodes, self.device,
+                                      self.mesh)
             v = (ix["ids"][:, None] * tspec.ops_per_client
                  + torch.arange(tspec.ops_per_client,
                                 device=self.device)[None, :])
@@ -1678,17 +1690,19 @@ class BroadcastSim:
         t, node = state.t, ix["node"]
         arr = traffic.arrive(tplan, t, ix["ids"])
         plan = self.fault_plan
-        accept = (faults.node_up(plan, t, node) if plan is not None
+        accept = (faults.node_up(plan, t, ix["node_ids"]) if plan is not None
                   else torch.ones_like(arr))
         if tspec.intake is not None:
             accept = accept & (
                 traffic.intake_rank(arr, tspec.clients_per_node)
                 < tspec.intake)
-        ts, ok, kslot = traffic.issue(ts, arr, accept, t)
+        ts, ok, kslot = traffic.issue(ts, arr, accept, t, self._sum())
         v = ix["ids"] * tspec.ops_per_client + kslot
         w = torch.where(ok, v // WORD, 0)
         bit = kernels._wrap_i32(torch.where(ok, 1 << (v % WORD), 0))
-        at = (w * self.n_nodes + node if self.words_major
+        # the home rows lie in this rank's block of the node axis
+        rows = self._rows.stop - self._rows.start
+        at = (w * rows + node if self.words_major
               else node * self.n_words + w)
         state.received.view(-1).index_add_(0, at, bit)
         state.frontier.view(-1).index_add_(0, at, bit)
@@ -1699,19 +1713,42 @@ class BroadcastSim:
         the all-nodes words (:func:`.kernels.and_fold`)."""
         all_words = kernels.and_fold(s2.received,
                                      node_major=not self.words_major)
+        if self.mesh is not None:
+            # the rank's fold, then the AND over the ranks (a ppermute
+            # circuit: no all-gather)
+            all_words = self._coll().reduce_and(all_words)
 
         def bit_fn(lo, block):
             sl = slice(lo, lo + block)
             return ((all_words[ix["v_word"][sl]] >> ix["v_shift"][sl])
                     & 1) > 0
 
-        return traffic.done_scan(ts, bit_fn, s2.t, ix["block"])
+        return traffic.done_scan(ts, bit_fn, s2.t, ix["block"], self._sum())
+
+    def _sum(self):
+        """The mesh's all-reduce sum (None off a mesh)."""
+        return None if self.mesh is None else self._psum
+
+    def _coll(self):
+        """The engine's collectives over this rank's block (a mesh), made
+        once."""
+        if "_collectives" not in self.__dict__:
+            from .engine import collectives
+
+            self._collectives = collectives(
+                self._rows.stop - self._rows.start, self.mesh)
+        return self._collectives
+
+    def _popcount_part(self, x: torch.Tensor) -> torch.Tensor:
+        """() int64: the set bits of this rank's block of a bitset in the
+        sim's layout (:func:`.kernels.col_popcount`)."""
+        return kernels.col_popcount(
+            x, node_major=not self.words_major).sum(dtype=torch.int64)
 
     def _popcount(self, x: torch.Tensor) -> torch.Tensor:
-        """() int64: the set bits of a bitset in the sim's layout
-        (:func:`.kernels.col_popcount`), over the whole mesh."""
-        return self._psum(kernels.col_popcount(
-            x, node_major=not self.words_major).sum(dtype=torch.int64))
+        """() int64: the set bits of a bitset in the sim's layout, over the
+        whole mesh."""
+        return self._psum(self._popcount_part(x))
 
     def _tel_series(self, t: int, fr0_pc, s1: BroadcastState,
                     mask) -> tuple:
@@ -1719,15 +1756,23 @@ class BroadcastSim:
         ['broadcast']``): liveness, the popcount of the frontier that
         went out (``fr0_pc``, taken before the round), of the new
         frontier and of ``received``, the value-message total; only the
-        columns ``mask`` keeps."""
+        columns ``mask`` keeps.  The popcounts are a rank's partials
+        (:meth:`_record` sums them)."""
         live, _fr0, new, known, _msgs = mask
         return (telemetry.live_count(self.fault_plan, t, self.n_nodes)
                 if live else None, fr0_pc,
-                self._popcount(s1.frontier) if new else None,
-                self._popcount(s1.received) if known else None, s1.msgs)
+                self._popcount_part(s1.frontier) if new else None,
+                self._popcount_part(s1.received) if known else None, s1.msgs)
+
+    def _record(self, tel, t: int, vals, mask, extra=()):
+        """:func:`.telemetry.record` of a row, its partial columns (the
+        popcounts, and ``extra``'s) summed over a mesh in one call."""
+        partial = (False, True, True, True, False) + tuple(extra)
+        return telemetry.record(tel, t, vals, mask, partial, self._sum())
 
     def traffic_state(self, tspec) -> "traffic.TrafficState":
-        return traffic.init_state(tspec, device=self.device)
+        """An empty tracker (a rank's block of the clients on a mesh)."""
+        return traffic.init_state(tspec, self.mesh, device=self.device)
 
     def run_traffic(self, state: BroadcastState, ts, tspec,
                     n_rounds: int, *, donate: bool = False,
@@ -1740,8 +1785,6 @@ class BroadcastSim:
         the ring are consumed (updated in place); else they are copied
         first.  ``tel`` / ``tel_spec``: record the per-round telemetry
         ring too, and return ``(state, ts, tel)``."""
-        if self.mesh is not None:
-            raise _unported("BroadcastSim.run_traffic on a mesh")
         telemetry.tel_key(tel, tel_spec, "broadcast")
         ix = self._traffic_index(tspec)
         tplan = tspec.compile()
@@ -1756,14 +1799,15 @@ class BroadcastSim:
             t = state.t
             state, ts = self._traffic_inject(state, ts, tspec, tplan, ix)
             # the frontier this round floods, arrivals included
-            fr0_pc = (self._popcount(state.frontier)
+            fr0_pc = (self._popcount_part(state.frontier)
                       if tel is not None and mask[1] else None)
             state = self.step(state)
             ts = self._traffic_done(state, ts, tspec, ix)
             if tel is not None:
                 vals = (self._tel_series(t, fr0_pc, state, mask[:5])
                         + traffic.tel_series(ts))
-                tel = telemetry.record(tel, t, vals, mask)
+                tel = self._record(tel, t, vals, mask,
+                                   traffic.TRAFFIC_PARTIAL)
         return (state, ts) if tel is None else (state, ts, tel)
 
     # -- observed runs: the telemetry ring and the provenance record -------
@@ -1815,8 +1859,8 @@ class BroadcastSim:
         are updated in place, else copied first (the rounds never change
         the state passed in).  Returns ``(state, tel?, prov?)``, the
         leaves that were passed, in order."""
-        if self.mesh is not None:
-            raise _unported("BroadcastSim.run_observed on a mesh")
+        if self.mesh is not None and prov is not None:
+            raise _unported("BroadcastSim.run_observed(prov=...) on a mesh")
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -1830,7 +1874,7 @@ class BroadcastSim:
         mask = None if tel is None else tspec.static_mask
         for _ in range(n_rounds):
             t = state.t
-            fr0_pc = (self._popcount(state.frontier)
+            fr0_pc = (self._popcount_part(state.frontier)
                       if tel is not None and mask[1] else None)
             if prov is None:
                 state = self.step(state)
@@ -1842,7 +1886,7 @@ class BroadcastSim:
                     plan=self.fault_plan, dup_on=self._fp_dup,
                     union_block=None, classes=self._classes, prov=prov)
             if tel is not None:
-                tel = telemetry.record(
+                tel = self._record(
                     tel, t, self._tel_series(t, fr0_pc, state, mask), mask)
         return ((state,) + (() if tel is None else (tel,))
                 + (() if prov is None else (prov,)))

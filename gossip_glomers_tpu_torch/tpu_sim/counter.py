@@ -49,11 +49,16 @@ with all-reduces between them: the least winner key (one minimum: the
 reference's two pmins do), then one sum of the winner's pending (or of
 the flushes) and the message charge, and, with the device KV, one sum of
 the key's view (:func:`.kvstore.rows_view_block`).  No all-gather, no
-ppermute.
+ppermute.  The traffic driver and the observed driver's telemetry ring
+run there too: a rank injects its own clients' adds (their home nodes
+lie in its block), the tracker's counters and the least cached read
+(the completion test) are all-reduced, an op's ``op_aux`` is the
+replicated KV value its flush landed in, and the ring's partial columns
+(liveness, pending, the flush attempts and acks) are finished by one
+packed all-reduce a round.
 
-Not ported yet, and raising: ``dcn_mode``, and the traffic and observed
-drivers on a mesh (ROADMAP.md Queue A item 10); the program audit (item
-14).
+Not ported yet, and raising: ``dcn_mode``, and the provenance record on
+a mesh (ROADMAP.md Queue A item 10); the program audit (item 14).
 """
 
 from __future__ import annotations
@@ -433,10 +438,15 @@ class CounterSim:
         spec's static key."""
         key = tspec.program_key
         if key not in self._traffic:
-            ix = traffic.client_index(tspec, self.n_nodes, self.device)
+            ix = traffic.client_index(tspec, self.n_nodes, self.device,
+                                      self.mesh)
             ix["rows"] = self._rows
             self._traffic[key] = ix
         return self._traffic[key]
+
+    def _sum(self):
+        """The mesh's all-reduce sum (None off a mesh)."""
+        return None if self.mesh is None else self._psum
 
     def _traffic_round(self, state: CounterState, ts, tspec, tplan,
                        ix: dict, tel=None, tel_mask=None):
@@ -458,14 +468,14 @@ class CounterSim:
         arr = traffic.arrive(tplan, t, ix["ids"])
         rows = ix["rows"]
         up_t = faults.node_up(plan, t, rows) if plan is not None else None
-        accept = (faults.node_up(plan, t, node) if plan is not None
+        accept = (faults.node_up(plan, t, ix["node_ids"]) if plan is not None
                   else torch.ones_like(arr))
         if tspec.intake is not None:
             accept = accept & (
                 traffic.intake_rank(arr, tspec.clients_per_node)
                 < tspec.intake)
-        ts, ok, _k = traffic.issue(ts, arr, accept, t)
-        add = torch.zeros(self.n_nodes, dtype=torch.int32,
+        ts, ok, _k = traffic.issue(ts, arr, accept, t, self._sum())
+        add = torch.zeros(self._block, dtype=torch.int32,
                           device=self.device).index_add_(
             0, node, ok.to(torch.int32))
         state = state._replace(pending=state.pending + add)
@@ -484,17 +494,29 @@ class CounterSim:
                           s2.kv, op_aux)
         ts = ts._replace(op_aux=aux)
         min_cached = s2.cached.min()
+        if self.mesh is not None:
+            min_cached = self.mesh.all_reduce(min_cached.reshape(1),
+                                              "min")[0]
 
         def bit_fn(lo, block):
             a = aux[lo:lo + block]
             return (a >= 0) & (min_cached >= a)
 
-        ts = traffic.done_scan(ts, bit_fn, s2.t, ix["block"])
+        ts = traffic.done_scan(ts, bit_fn, s2.t, ix["block"], self._sum())
         if tel is None:
             return s2, ts, None
         vals = (self._tel_series(gate, s2, tel_mask)
                 + traffic.tel_series(ts))
-        return s2, ts, telemetry.record(tel, t, vals, tel_mask)
+        return s2, ts, self._record(tel, t, vals, tel_mask, gate,
+                                    traffic.TRAFFIC_PARTIAL)
+
+    def _record(self, tel, t: int, vals, mask, gate, extra=()):
+        """:func:`.telemetry.record` of a row, its partial columns (the
+        counts over a rank's rows: liveness under a plan, pending, the
+        flush attempts, acks and conflicts) summed over a mesh."""
+        partial = (gate[0] is not None, True, True, True, True, False,
+                   False) + tuple(extra)
+        return telemetry.record(tel, t, vals, mask, partial, self._sum())
 
     def _flush_gate(self, s0: CounterState) -> tuple:
         """``(live, want)`` of the round about to run on ``s0``,
@@ -559,8 +581,9 @@ class CounterSim:
         the rounds update the state's ``pending``, ``cached`` and KV rows
         in place (:meth:`run_fused`) and the ring too; else the state and
         ring are left as they were.  Returns ``(state, tel?, prov?)``."""
-        if self.mesh is not None:
-            raise _unported("CounterSim.run_observed on a mesh", 10)
+        if self.mesh is not None and prov is not None:
+            raise _unported("CounterSim.run_observed(prov=...) on a mesh",
+                            10)
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -585,16 +608,17 @@ class CounterSim:
             t = state.t
             state = self._round(state, out=out)
             if tel is not None:
-                tel = telemetry.record(tel, t,
-                                       self._tel_series(gate, state, mask),
-                                       mask)
+                tel = self._record(tel, t, self._tel_series(gate, state,
+                                                            mask),
+                                   mask, gate)
             if prov is not None:
                 prov = self._prov_record(gate, state, prov)
         return ((state,) + (() if tel is None else (tel,))
                 + (() if prov is None else (prov,)))
 
     def traffic_state(self, tspec) -> "traffic.TrafficState":
-        return traffic.init_state(tspec, device=self.device)
+        """An empty tracker (a rank's block of the clients on a mesh)."""
+        return traffic.init_state(tspec, self.mesh, device=self.device)
 
     def run_traffic(self, state: CounterState, ts, tspec, n_rounds: int, *,
                     donate: bool = False, tel=None, tel_spec=None):
@@ -605,8 +629,6 @@ class CounterSim:
         with ``donate`` the tracker and the ring are updated in place,
         else copied first.  ``tel`` / ``tel_spec``: record the telemetry
         ring too, and return ``(state, ts, tel)``."""
-        if self.mesh is not None:
-            raise _unported("CounterSim.run_traffic on a mesh", 10)
         telemetry.tel_key(tel, tel_spec, "counter")
         ix = self._traffic_index(tspec)
         tplan = tspec.compile()

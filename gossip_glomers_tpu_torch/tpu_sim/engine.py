@@ -22,6 +22,7 @@ import dataclasses
 import os
 from typing import Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 
@@ -227,6 +228,25 @@ def collectives(block: int, mesh=None, *,
         exclusive_sum=lambda x: _excl_level(x, mesh, k),
         local_cols=lambda m: m[:, p * block:(p + 1) * block],
         axis_name="nodes")
+
+
+def local_block(x, spec, mesh, *, dtype: torch.dtype | None = None,
+                device: str | torch.device | None = None) -> torch.Tensor:
+    """A rank's part of a whole cluster's leaf ``x`` (numpy or a tensor)
+    by its shard spec (the reference's ``PartitionSpec`` entries as a
+    tuple): the rank's block of the first axis where the spec names the
+    ``nodes`` axis there, else the whole leaf; the whole leaf off a mesh.
+    A contiguous tensor of ``dtype`` on ``device``."""
+    if mesh is not None and spec and spec[0] == "nodes":
+        n = x.shape[0]
+        if n % mesh.size:
+            raise ValueError(f"node axis {n} does not shard evenly over "
+                             f"{mesh.size} ranks")
+        b = n // mesh.size
+        x = x[mesh.rank * b:(mesh.rank + 1) * b]
+    t = (x if isinstance(x, torch.Tensor)
+         else torch.from_numpy(np.array(x, copy=True)))
+    return t.to(device=device, dtype=dtype).contiguous()
 
 
 def fori_rounds(round_fn: Callable, state, rounds: int):

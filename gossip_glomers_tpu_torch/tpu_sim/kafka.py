@@ -69,11 +69,19 @@ sum of the apply pass's partials (the block forms of the commit
 kernels).  ``step``, ``run_rounds``, ``run_fused`` and the reads
 (``present_bool``, ``poll``, ``poll_batch``, ``list_committed``,
 ``lin_kv``, ``alloc_offsets``) are collective calls: every rank makes
-them, in the same order, and gets the same answer.
+them, in the same order, and gets the same answer.  The traffic driver
+and the observed driver's telemetry ring run there too: a rank stages its
+own clients' sends (their home nodes lie in its block), evaluates the
+round's allocation once (its ``exclusive_sum`` included) and hands it to
+the round; an op is visible once :func:`.kernels.and_fold` over the
+rank's presence rows, then ``reduce_and`` over the ranks, holds its bit;
+the ring's partial columns (the witness row 0's popcount, which rank 0
+holds and the others add 0 to, and the full presence popcount) and the
+tracker's issued count are finished by one packed all-reduce a round.
 
-Not ported yet, and raising: the traffic and observed drivers, the batch
-round and ``dcn_mode`` on a mesh (ROADMAP.md Queue A item 10); the
-program audit (item 14).
+Not ported yet, and raising: the provenance record, the batch round and
+``dcn_mode`` on a mesh (ROADMAP.md Queue A item 10); the program audit
+(item 14).
 """
 
 from __future__ import annotations
@@ -714,11 +722,10 @@ class KafkaSim:
         """The traffic driver's per-spec index tensors
         (:func:`.traffic.client_index` and the op slots), cached by the
         spec's static key."""
-        if self.mesh is not None:
-            raise _unported("KafkaSim.run_traffic on a mesh", 10)
         key = tspec.program_key
         if key not in self._traffic:
-            ix = traffic.client_index(tspec, self.n_nodes, self.device)
+            ix = traffic.client_index(tspec, self.n_nodes, self.device,
+                                      self.mesh)
             if self._repl_mode(None) == "matmul":
                 raise ValueError(
                     "traffic drivers ride the origin-union replication "
@@ -752,10 +759,12 @@ class KafkaSim:
         failing (KV unreachable, or the key full).  An op completes when
         its (key, slot) bit is present at every node."""
         t, node, ids = state.t, ix["node"], ix["ids"]
-        n, s_dim = self.n_nodes, self.max_sends
+        n, s_dim = self._block, self.max_sends
+        mesh = self.mesh
+        red = None if mesh is None else self._coll.reduce_sum
         plan = self.fault_plan if self._fp_active else None
         arr = traffic.arrive(tplan, t, ids)
-        up_cl = (faults.node_up(plan, t, node) if plan is not None
+        up_cl = (faults.node_up(plan, t, ix["node_ids"]) if plan is not None
                  else torch.ones_like(arr))
         cap_in = s_dim if tspec.intake is None else min(tspec.intake, s_dim)
         rank = traffic.intake_rank(arr, tspec.clients_per_node)
@@ -773,16 +782,19 @@ class KafkaSim:
         send_val = send_val[:-1].view(n, s_dim)
         # the round's allocator, on the operands the round gives it
         alloc = _alloc(state.kv_val, send_key, *self._alloc_inputs(t),
-                       self.n_keys, self.capacity)
+                       self.n_keys, self.capacity,
+                       None if mesh is None else self._coll.exclusive_sum)
         slot, ok_flat = alloc[4], alloc[5]
         fi = torch.where(cand, node * s_dim + rank, 0)
-        ts, ok, kslot = traffic.issue(ts, arr, cand & ok_flat[fi], t)
+        ts, ok, kslot = traffic.issue(ts, arr, cand & ok_flat[fi], t, red)
         ts = traffic.record_aux(ts, ok, kslot, slot[fi])
         s2 = self._round(state, send_key, send_val, None, None, repl_mode,
                          alloc=None if self._device_kv else alloc)
         k_dim, wc = self.n_keys, self.n_pwords
         all_pres = kernels.and_fold(s2.present.view(n, k_dim * wc),
                                     node_major=True)
+        if mesh is not None:
+            all_pres = self._coll.reduce_and(all_pres)
         aux = ts.op_aux
 
         def bit_fn(lo, block):
@@ -791,12 +803,21 @@ class KafkaSim:
             word = all_pres[op_keys[lo:lo + block] * wc + sl // 32]
             return (a >= 0) & (((word >> (sl % 32).to(torch.int32)) & 1) > 0)
 
-        ts = traffic.done_scan(ts, bit_fn, s2.t, ix["block"])
+        ts = traffic.done_scan(ts, bit_fn, s2.t, ix["block"], red)
         if tel is None:
             return s2, ts, None
         vals = (self._tel_series(state.t, s2, tel_mask)
                 + traffic.tel_series(ts))
-        return s2, ts, telemetry.record(tel, t, vals, tel_mask)
+        return s2, ts, self._record(tel, t, vals, tel_mask,
+                                    traffic.TRAFFIC_PARTIAL)
+
+    def _record(self, tel, t: int, vals, mask, extra=()):
+        """:func:`.telemetry.record` of a row, its partial columns (the
+        presence popcounts) summed over a mesh."""
+        partial = (False, False, True, True, False) + tuple(extra)
+        return telemetry.record(tel, t, vals, mask, partial,
+                                None if self.mesh is None
+                                else self._coll.reduce_sum)
 
     def _tel_series(self, t: int, s1: KafkaState, mask) -> tuple:
         """One round's telemetry row (``telemetry.SIM_SERIES['kafka']``):
@@ -808,11 +829,15 @@ class KafkaSim:
         def pc(x):
             return kernels.popcount(x).sum(dtype=torch.int64)
 
+        # the witness row 0 lies in rank 0's block (the others add 0)
+        witness = (pc(s1.present[0]) if self._row0 == 0
+                   else torch.zeros((), dtype=torch.int64,
+                                    device=self.device))
         return (telemetry.live_count(plan, t, self.n_nodes) if mask[0]
                 else None,
                 (s1.log_vals >= 0).sum(dtype=torch.int64) if mask[1]
                 else None,
-                pc(s1.present[0]) if mask[2] else None,
+                witness if mask[2] else None,
                 pc(s1.present) if mask[3] else None, s1.msgs)
 
     def telemetry_state(self, tel_spec) -> "telemetry.TelemetryState":
@@ -865,8 +890,8 @@ class KafkaSim:
         the traffic driver does; the device KV's round reads its own).
         With ``donate`` the state and the ring are updated in place, else
         copied first.  Returns ``(state, tel?, prov?)``."""
-        if self.mesh is not None:
-            raise _unported("KafkaSim.run_observed on a mesh", 10)
+        if self.mesh is not None and prov is not None:
+            raise _unported("KafkaSim.run_observed(prov=...) on a mesh", 10)
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -891,8 +916,8 @@ class KafkaSim:
             raise ValueError(
                 "observed drivers ride the origin-union replication "
                 "paths; repl_fast=False pins the matmul oracle")
-        sks, svs = self._ints(send_key), self._ints(send_val)
-        crs = None if commit_req is None else self._ints(commit_req)
+        sks, svs = self._ints(send_key, 1), self._ints(send_val, 1)
+        crs = None if commit_req is None else self._ints(commit_req, 1)
         if not donate:
             state = self._copy(state)
             tel = None if tel is None else tel.clone()
@@ -900,14 +925,16 @@ class KafkaSim:
         for i in range(sks.shape[0]):
             t = state.t
             alloc = _alloc(state.kv_val, sks[i], *self._alloc_inputs(t),
-                           self.n_keys, self.capacity)
+                           self.n_keys, self.capacity,
+                           None if self.mesh is None
+                           else self._coll.exclusive_sum)
             state = self._round(state, sks[i], svs[i],
                                 None if crs is None else crs[i], None,
                                 repl_mode,
                                 alloc=None if self._device_kv else alloc)
             if tel is not None:
-                tel = telemetry.record(tel, t,
-                                       self._tel_series(t, state, mask), mask)
+                tel = self._record(tel, t, self._tel_series(t, state, mask),
+                                   mask)
             if prov is not None:
                 prov = self._prov_record(alloc, state, prov,
                                          prov_spec.witness)
@@ -915,7 +942,8 @@ class KafkaSim:
                 + (() if prov is None else (prov,)))
 
     def traffic_state(self, tspec) -> "traffic.TrafficState":
-        return traffic.init_state(tspec, device=self.device)
+        """An empty tracker (a rank's block of the clients on a mesh)."""
+        return traffic.init_state(tspec, self.mesh, device=self.device)
 
     def run_traffic(self, state: KafkaState, ts, tspec, n_rounds: int, *,
                     donate: bool = False, tel=None, tel_spec=None):

@@ -1050,10 +1050,10 @@ def _lib(name: str) -> ctypes.CDLL:
                                       ptr]},
             "txn_round": {
                 "gg_txn_claim": [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                                 i64, i64, ptr],
+                                 i64, i64, i64, i64, ptr],
                 "gg_txn_commit": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                  ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
-                                  i64, i64, i64, i64, ptr]},
+                                  ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                                  i64, i64, i64, i64, i64, i64, i64, ptr]},
         }[name]
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)
@@ -2602,14 +2602,19 @@ def prov_attribute(new: torch.Tensor, src: torch.Tensor, nbrs: torch.Tensor,
 TXN_INF = (1 << 31) - 1
 
 
-def _txn_issue_prio(issue: torch.Tensor, active: torch.Tensor, t: int):
+def _txn_issue_prio(issue: torch.Tensor, active: torch.Tensor, t: int,
+                    row0: int = 0, n_total: int | None = None):
     """(issue, prio): the open transactions' first-attempt rounds after
-    this round's first attempts, and their int32 priorities ``issue * N +
-    node``, wrapped mod 2^32 as the reference's int32 product wraps."""
+    this round's first attempts, and their int32 priorities ``issue *
+    n_total + row0 + i`` for local row i (``n_total`` the sim's N, default
+    the rows given), wrapped mod 2^32 as the reference's int32 product
+    wraps."""
     n = issue.shape[0]
+    nt = n if n_total is None else n_total
     iss = torch.where(active & (issue < 0), t, issue)
-    rows = torch.arange(n, dtype=torch.int64, device=issue.device)
-    return iss, _wrap_i32(iss.to(torch.int64) * n + rows)
+    rows = torch.arange(row0, row0 + n, dtype=torch.int64,
+                        device=issue.device)
+    return iss, _wrap_i32(iss.to(torch.int64) * nt + rows)
 
 
 def _txn_open(x: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
@@ -2622,9 +2627,11 @@ def _txn_open(x: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
 
 def txn_claim_plain(keys: torch.Tensor, cur: torch.Tensor,
                     issue: torch.Tensor, active: torch.Tensor, *, t: int,
-                    n_keys: int):
-    """The reference's claim (txn.py:264-279) and its attempts sum."""
-    _, prio = _txn_issue_prio(issue, active, t)
+                    n_keys: int, row0: int = 0, n_total: int | None = None):
+    """The reference's claim (txn.py:264-279) and its attempts sum; over a
+    block of rows from global row ``row0`` of ``n_total`` these are the
+    block's partials (a minimum and a sum finish them)."""
+    _, prio = _txn_issue_prio(issue, active, t, row0, n_total)
     k_n = _txn_open(keys, cur)
     claim = torch.where(active[:, None], prio[:, None].expand(k_n.shape),
                         TXN_INF)
@@ -2642,20 +2649,28 @@ def txn_commit_plain(best: torch.Tensor, keys: torch.Tensor,
                      slot: torch.Tensor, vals: torch.Tensor,
                      vers: torch.Tensor, op_ver: torch.Tensor,
                      op_val: torch.Tensor, commit_round: torch.Tensor,
-                     issue_round: torch.Tensor, *, t: int):
+                     issue_round: torch.Tensor, *, t: int,
+                     view: torch.Tensor | None = None, row0: int = 0,
+                     n_total: int | None = None):
     """The reference's winner test, (value, version) view, write requests
     and slot records (txn.py:280-322), out of place: ``(req, cur, issue,
-    op_ver, op_val, commit_round, issue_round)``."""
+    op_ver, op_val, commit_round, issue_round)``.  ``view``: the (2, K)
+    (value, version) view to read instead of ``vals[owner, slot]``;
+    ``row0`` / ``n_total``: a block of rows (``req`` is then its
+    partial)."""
     n, t_dim, o = keys.shape
     k_dim = best.shape[0]
     dev = keys.device
-    iss, prio = _txn_issue_prio(issue, active, t)
+    iss, prio = _txn_issue_prio(issue, active, t, row0, n_total)
     k_n = _txn_open(keys, cur).to(torch.int64)
     wr_n = _txn_open(write, cur)
     wv_n = _txn_open(wval, cur)
     win = active & (best[k_n] == prio[:, None]).all(dim=1)
-    at = (owner[k_n], slot[k_n])
-    rd_val, rd_ver = vals[at], vers[at]
+    if view is None:
+        at = (owner[k_n], slot[k_n])
+        rd_val, rd_ver = vals[at], vers[at]
+    else:
+        rd_val, rd_ver = view[0][k_n], view[1][k_n]
     w_mask = win[:, None] & wr_n
     flat = k_n.reshape(-1)
     req = torch.zeros((3, k_dim), dtype=torch.int32, device=dev)
@@ -2693,20 +2708,37 @@ def _check_txn_nodes(keys: torch.Tensor, **rows) -> tuple[int, int, int]:
     return n, t_dim, o
 
 
+def _txn_block(n: int, row0: int, n_total: int | None) -> int:
+    """The sim's N of a block of ``n`` rows from global row ``row0``
+    (``n_total`` None: the rows are the whole problem), checked."""
+    nt = n if n_total is None else int(n_total)
+    if row0 < 0 or row0 + n > nt or nt > MAX_NODES:
+        raise ValueError(f"rows [{row0}, {row0 + n}) do not lie in a "
+                         f"problem of {nt} nodes (at most {MAX_NODES})")
+    return nt
+
+
 def txn_claim(keys: torch.Tensor, cur: torch.Tensor, issue: torch.Tensor,
-              active: torch.Tensor, *, t: int, n_keys: int):
+              active: torch.Tensor, *, t: int, n_keys: int, row0: int = 0,
+              n_total: int | None = None):
     """The wound-or-die claim of one txn round: each ``active`` node
     ((N,) bool) claims the keys of its open slot ``clip(cur, 0, T - 1)``
     of ``keys`` ((N, T, O) int32, in [0, ``n_keys``)) at its priority
     ``issue' * N + node`` (int32, wrapped), ``issue'`` being ``t`` for a
     first attempt (``issue < 0``) and ``issue`` else.  Returns ``(best,
     attempts)``: (K,) int32, each key's least claim (:data:`TXN_INF`
-    where none), and (1,) int32, the active nodes."""
+    where none), and (1,) int32, the active nodes.  Block form (a mesh
+    rank's rows): the rows are global rows ``row0 ..`` of a problem of
+    ``n_total`` nodes, so the priority is ``issue' * n_total + row0 +
+    i``, and both results are the block's partials, for a minimum and a
+    sum across the blocks."""
     n, _, o = _check_txn_nodes(keys, cur=(cur, torch.int32),
                                issue=(issue, torch.int32),
                                active=(active, torch.bool))
+    nt = _txn_block(n, row0, n_total)
     if _on_cpu(keys, cur, issue, active):
-        return txn_claim_plain(keys, cur, issue, active, t=t, n_keys=n_keys)
+        return txn_claim_plain(keys, cur, issue, active, t=t, n_keys=n_keys,
+                               row0=row0, n_total=nt)
     best = torch.full((n_keys,), TXN_INF, dtype=torch.int32,
                       device=keys.device)
     attempts = torch.zeros(1, dtype=torch.int32, device=keys.device)
@@ -2714,16 +2746,19 @@ def txn_claim(keys: torch.Tensor, cur: torch.Tensor, issue: torch.Tensor,
         _launch("txn_claim", _lib("txn_round").gg_txn_claim, keys.device,
                 keys.data_ptr(), cur.data_ptr(), issue.data_ptr(),
                 _bytes(active), best.data_ptr(), attempts.data_ptr(), n,
-                keys.shape[1], o, n_keys, int(t))
+                keys.shape[1], o, n_keys, int(t), int(row0), nt)
     return best, attempts
 
 
 def txn_commit(best: torch.Tensor, keys: torch.Tensor, write: torch.Tensor,
                wval: torch.Tensor, cur: torch.Tensor, issue: torch.Tensor,
-               active: torch.Tensor, owner: torch.Tensor, slot: torch.Tensor,
-               vals: torch.Tensor, vers: torch.Tensor, op_ver: torch.Tensor,
+               active: torch.Tensor, owner: torch.Tensor | None,
+               slot: torch.Tensor | None, vals: torch.Tensor | None,
+               vers: torch.Tensor | None, op_ver: torch.Tensor,
                op_val: torch.Tensor, commit_round: torch.Tensor,
-               issue_round: torch.Tensor, *, t: int) -> torch.Tensor:
+               issue_round: torch.Tensor, *, t: int,
+               view: torch.Tensor | None = None, row0: int = 0,
+               n_total: int | None = None) -> torch.Tensor:
     """The commit of one txn round, after :func:`txn_claim`'s ``best``:
     a node wins iff it is active and ``best`` of every key of its open
     slot equals its priority; it reads each key's (value, version) at
@@ -2734,10 +2769,16 @@ def txn_commit(best: torch.Tensor, keys: torch.Tensor, write: torch.Tensor,
     there becomes ``t``; a first attempt stamps ``issue_round`` there;
     ``cur`` += win, ``issue`` = -1 for a winner and ``issue'`` else.
     Returns the (3, K) int32 write requests, sums over the winners' write
-    ops (count, value, version read), as the reference's scatter-adds."""
+    ops (count, value, version read), as the reference's scatter-adds.
+    Block form (a mesh rank's rows): ``row0`` / ``n_total`` as in
+    :func:`txn_claim`, ``best`` the minimum over the blocks, ``view`` the
+    (2, K) int32 (value, version) view of every rank's store rows (read in
+    place of the rows, which may then be None), and the requests the
+    block's partial, summed across the blocks."""
     n, t_dim, o = _check_txn_nodes(keys, cur=(cur, torch.int32),
                                    issue=(issue, torch.int32),
                                    active=(active, torch.bool))
+    nt = _txn_block(n, row0, n_total)
     _check_like("write", write, (n, t_dim, o), torch.bool)
     for name, x in (("wval", wval), ("op_ver", op_ver), ("op_val", op_val)):
         _check_like(name, x, (n, t_dim, o), torch.int32)
@@ -2746,28 +2787,40 @@ def txn_commit(best: torch.Tensor, keys: torch.Tensor, write: torch.Tensor,
         _check_like(name, x, (n, t_dim), torch.int32)
     k_dim = best.shape[0]
     _check_like("best", best, (k_dim,), torch.int32)
-    for name, x in (("owner", owner), ("slot", slot)):
-        _check_like(name, x, (k_dim,), torch.int64)
-    if vals.dtype != torch.int32 or vals.dim() != 2 \
-            or not vals.is_contiguous():
-        raise ValueError("vals must be a contiguous (N, cap) int32 tensor")
-    _check_like("vers", vers, tuple(vals.shape), torch.int32)
-    xs = (best, keys, write, wval, cur, issue, active, owner, slot, vals,
-          vers, op_ver, op_val, commit_round, issue_round)
+    if view is not None:
+        _check_like("view", view, (2, k_dim), torch.int32)
+        xs = (best, keys, write, wval, cur, issue, active, view, op_ver,
+              op_val, commit_round, issue_round)
+    else:
+        for name, x in (("owner", owner), ("slot", slot)):
+            _check_like(name, x, (k_dim,), torch.int64)
+        if vals.dtype != torch.int32 or vals.dim() != 2 \
+                or not vals.is_contiguous():
+            raise ValueError("vals must be a contiguous (N, cap) int32 "
+                             "tensor")
+        _check_like("vers", vers, tuple(vals.shape), torch.int32)
+        xs = (best, keys, write, wval, cur, issue, active, owner, slot,
+              vals, vers, op_ver, op_val, commit_round, issue_round)
     if _on_cpu(*xs):
-        out = txn_commit_plain(*xs, t=t)
+        out = txn_commit_plain(best, keys, write, wval, cur, issue, active,
+                               owner, slot, vals, vers, op_ver, op_val,
+                               commit_round, issue_round, t=t, view=view,
+                               row0=row0, n_total=nt)
         for dst, src in zip((cur, issue, op_ver, op_val, commit_round,
                              issue_round), out[1:]):
             dst.copy_(src)
         return out[0]
     req = torch.zeros((3, k_dim), dtype=torch.int32, device=keys.device)
+    if view is not None:
+        # the kernel reads the view alone
+        owner = slot = vals = vers = None
     if n:
         _launch("txn_commit", _lib("txn_round").gg_txn_commit, keys.device,
                 best.data_ptr(), keys.data_ptr(), _bytes(write),
                 wval.data_ptr(), cur.data_ptr(), issue.data_ptr(),
-                _bytes(active), owner.data_ptr(), slot.data_ptr(),
-                vals.data_ptr(), vers.data_ptr(), op_ver.data_ptr(),
-                op_val.data_ptr(), commit_round.data_ptr(),
-                issue_round.data_ptr(), req.data_ptr(), n, t_dim, o,
-                k_dim, vals.shape[1], int(t))
+                _bytes(active), _ptr(owner), _ptr(slot), _ptr(vals),
+                _ptr(vers), _ptr(view), op_ver.data_ptr(), op_val.data_ptr(),
+                commit_round.data_ptr(), issue_round.data_ptr(),
+                req.data_ptr(), n, t_dim, o, k_dim,
+                0 if vals is None else vals.shape[1], int(t), int(row0), nt)
     return req

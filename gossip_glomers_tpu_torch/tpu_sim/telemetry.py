@@ -17,6 +17,14 @@ the traffic drivers carry next to the sim state.
   running totals, so one row cross-checks the final ledgers
   (:func:`..harness.checkers.check_telemetry`).
 
+On a mesh the ring is whole and equal on every rank
+(:func:`state_specs`).  A round's row is built from the ranks' partials
+(popcounts, pending sums, tracker counts: the columns the sim marks
+``partial``) through one packed ``reduce_sum`` (:func:`record`), the
+other columns being whole already (the ledger, the KV value, the
+tracker's global counters); :func:`live_count` hashes the global id
+range on every rank, with no collective.  No all-gather.
+
 Env knobs, parsed loudly: ``GG_TELEMETRY`` (0 / 1) and
 ``GG_TELEMETRY_SERIES`` (a comma-separated subset).  The program audit's
 contracts (:func:`audit_contracts`) are ROADMAP.md Queue A item 14.
@@ -133,11 +141,10 @@ class TelemetryState(NamedTuple):
         return TelemetryState(self.ring.clone(), self.wrote)
 
 
-def state_specs():
-    """The reference's shard specs of the ring: ROADMAP.md Queue A item
-    10."""
-    raise NotImplementedError("telemetry.state_specs is not ported to "
-                              "PyTorch yet (ROADMAP.md Queue A item 10)")
+def state_specs() -> TelemetryState:
+    """The reference's shard specs of the ring: whole on every rank
+    (``(None, None)``; the round count ``()``)."""
+    return TelemetryState((None, None), ())
 
 
 def init_state(spec: TelemetrySpec,
@@ -148,11 +155,25 @@ def init_state(spec: TelemetrySpec,
                          device=resolve_device(device)), wrote=0)
 
 
-def record(tel: TelemetryState, t: int, vals, mask) -> TelemetryState:
+def record(tel: TelemetryState, t: int, vals, mask, partial=None,
+           reduce_sum=None) -> TelemetryState:
     """Write round ``t``'s row at ``t % R``, in place: ``vals`` in the
     spec's canonical column order (tensors or ints; None where ``mask``,
-    the spec's :attr:`TelemetrySpec.static_mask`, is False)."""
+    the spec's :attr:`TelemetrySpec.static_mask`, is False).  On a mesh,
+    ``partial`` (a bool a column) marks the values that are a rank's
+    partials: the kept ones are summed over the ranks in one packed
+    ``reduce_sum``."""
     ring = tel.ring
+    if reduce_sum is not None and partial is not None:
+        cols = [i for i, (keep, part) in enumerate(zip(mask, partial))
+                if keep and part]
+        if cols:
+            g = reduce_sum(torch.stack([
+                torch.as_tensor(vals[i], device=ring.device).to(
+                    torch.int64).reshape(()) for i in cols]))
+            vals = list(vals)
+            for j, i in enumerate(cols):
+                vals[i] = g[j]
 
     def cell(v, keep: bool) -> torch.Tensor:
         if keep and isinstance(v, torch.Tensor):

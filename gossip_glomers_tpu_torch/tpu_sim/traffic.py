@@ -26,11 +26,25 @@ The sims' injection hooks and ``run_traffic`` drivers live with the sims
 (broadcast, counter, kafka); this module owns the spec, the coins and the
 tracker.  ``t`` is a host int; the tracker's counters are () int64
 tensors holding uint32 values (masked to 32 bits, so they wrap where the
-reference's do); :func:`resizing_defer` is the resize's intake gate.  Not
-ported yet, and raising: shard specs and meshes (ROADMAP.md Queue A item
-10).
+reference's do); :func:`resizing_defer` is the resize's intake gate.
 :func:`batch_tplans` stacks a serving batch's plans (the scenario
 batches, :mod:`.scenario`).
+
+On a mesh (:func:`init_state` with ``mesh=``, :func:`state_specs`) a rank
+holds its block of the client axis: ``issued_k``, ``issue_round``,
+``done_round`` and ``op_aux`` are cut to the rank's clients, which the
+static client -> home-node map puts on the rank's own nodes
+(:func:`client_index` with ``mesh=``: the clients' global ids and their
+local home rows), and the counters stay whole and equal on every rank.
+:func:`issue` and :func:`done_scan` make their counts global with one
+``reduce_sum`` each (the sims pass the mesh's all-reduce);
+:func:`tel_series`' issued count is a rank's partial, which the
+telemetry row's one packed all-reduce finishes
+(:data:`TRAFFIC_PARTIAL`).  :func:`latency_summary` and
+:func:`per_round_series` of a sharded tracker, given the mesh, are
+collective calls (all-reduces of counts and latency histograms) that
+give every rank the whole answer.  The plan stays whole
+(:func:`plan_specs`).
 """
 
 from __future__ import annotations
@@ -43,7 +57,7 @@ import numpy as np
 import torch
 
 from . import faults
-from .engine import _env_int, resolve_device, windows_fold
+from .engine import _check_flat, _env_int, resolve_device, windows_fold
 from .faults import MASK32
 
 # distinct stream salts off the shared (seed, t, id) counter family
@@ -53,11 +67,6 @@ _SALT_PHASE = 0xCC9E2D51
 # (seed, client, slot), recomputable at completion time)
 SALT_KEY = 0xA2C2A35D
 _K_ID, _K_PHASE, _K_T = 0xC2B2AE35, 0x27D4EB2F, 0x9E3779B9
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP.md Queue A item {item})")
 
 
 class TrafficPlan(NamedTuple):
@@ -75,10 +84,11 @@ class TrafficPlan(NamedTuple):
     seed: int                   # uint32: the replay key
 
 
-def plan_specs():
-    """The reference's shard specs of a plan: ROADMAP.md Queue A item
-    10."""
-    raise _unported("traffic.plan_specs", 10)
+def plan_specs() -> TrafficPlan:
+    """The reference's shard specs of a plan: every leaf whole on every
+    rank (``()``, ``(None,)`` the burst windows; the coins hash global
+    client ids)."""
+    return TrafficPlan((), (), (), (None,), (None,), (None,), ())
 
 
 _KINDS = ("poisson", "constant")
@@ -312,18 +322,36 @@ def local_node_cols(spec: TrafficSpec, n_loc: int,
     return lc * spec.node_stride
 
 
-def client_index(spec: TrafficSpec, n_nodes: int, device) -> dict:
-    """A traffic driver's per-spec index tensors: the client ids (int64), their
-    home nodes (:func:`local_node_cols`) and the tracker's slab
-    (:func:`traffic_block`).  Raises ValueError when ``spec`` is for
-    another node count than the sim's ``n_nodes``."""
+def client_index(spec: TrafficSpec, n_nodes: int, device,
+                 mesh=None) -> dict:
+    """A traffic driver's per-spec index tensors: the client ids (int64,
+    global), their home rows (``node``, :func:`local_node_cols`: local to
+    a rank's block on a ``mesh``) and home nodes' global ids
+    (``node_ids``), and the tracker's slab (:func:`traffic_block` of the
+    local client axis).  Raises ValueError when ``spec`` is for another
+    node count than the sim's ``n_nodes``, or its clients do not shard
+    evenly over the mesh."""
     if spec.n_nodes != n_nodes:
         raise ValueError(f"TrafficSpec is for {spec.n_nodes} nodes, sim "
                          f"has {n_nodes}")
-    return dict(ids=torch.arange(spec.n_clients, dtype=torch.int64,
+    c, p, k = spec.n_clients, 0, 1
+    if mesh is not None:
+        _check_shards(spec, mesh)
+        p, k = mesh.rank, mesh.size
+    bc = c // k
+    node = local_node_cols(spec, bc, device)
+    return dict(ids=torch.arange(p * bc, (p + 1) * bc, dtype=torch.int64,
                                  device=device),
-                node=local_node_cols(spec, spec.n_clients, device),
-                block=traffic_block(spec.n_clients))
+                node=node, node_ids=node + p * (n_nodes // k),
+                block=traffic_block(bc))
+
+
+def _check_shards(spec: TrafficSpec, mesh) -> None:
+    _check_flat(mesh)
+    if spec.n_clients % mesh.size:
+        raise ValueError(
+            f"n_clients={spec.n_clients} must shard evenly over the "
+            f"{mesh.size}-way node axis")
 
 
 def intake_rank(arr: torch.Tensor, cpn: int) -> torch.Tensor:
@@ -358,20 +386,33 @@ class TrafficState(NamedTuple):
         return TrafficState(*(x.clone() for x in self))
 
 
-def state_specs(sharded: bool, axes="nodes"):
-    """The reference's shard specs of a tracker: ROADMAP.md Queue A item
-    10."""
-    raise _unported("traffic.state_specs", 10)
+#: the telemetry columns of :func:`tel_series` that are a rank's partial
+#: on a mesh (``issued``); the others are whole on every rank
+TRAFFIC_PARTIAL = (False, True, False, False)
+
+
+def state_specs(sharded: bool, axes="nodes") -> TrafficState:
+    """The reference's shard specs of a tracker, one per leaf: the
+    client-axis leaves cut along the node axis (``(axes, ...)``) when
+    ``sharded``, whole (``(None, ...)``) else; the counters whole
+    (``()``)."""
+    a = axes if sharded else None
+    r1, r2 = (a,), (a, None)
+    return TrafficState(r1, r2, r2, r2, (), (), (), ())
 
 
 def init_state(spec: TrafficSpec, mesh=None,
                device: str | torch.device | None = None) -> TrafficState:
-    """An empty tracker on ``device`` (CUDA unless given); a ``mesh``
-    raises (ROADMAP.md Queue A item 10)."""
-    if mesh is not None:
-        raise _unported("traffic.init_state(mesh=...)", 10)
-    dev = resolve_device(device)
+    """An empty tracker on ``device`` (CUDA unless given); on a ``mesh``
+    this rank's block of the client axis (:func:`state_specs`) on the
+    mesh's device, ``n_clients`` dividing evenly (the reference's
+    refusal)."""
     c, k = spec.n_clients, spec.ops_per_client
+    if mesh is not None:
+        _check_shards(spec, mesh)
+        c //= mesh.size
+        device = mesh.device
+    dev = resolve_device(device)
 
     def full(shape, v):
         return torch.full(shape, v, dtype=torch.int32, device=dev)
@@ -403,21 +444,26 @@ def _set_slots(x: torch.Tensor, ok: torch.Tensor, kslot: torch.Tensor,
 
 
 def issue(ts: TrafficState, arr: torch.Tensor, accept: torch.Tensor,
-          t: int) -> tuple:
+          t: int, reduce_sum: Callable | None = None) -> tuple:
     """Classify this round's arrivals and record the issued ops: an
     arrival is issued iff ``accept`` holds and the client has a free op
     slot; every other one is deferred (counted, never dropped).  Returns
     ``(ts', ok, kslot)``: ``ok`` the issued mask, ``kslot`` the slot each
-    issued arrival took (the counter before the bump)."""
+    issued arrival took (the counter before the bump).  ``reduce_sum``
+    (a mesh's all-reduce; None off a mesh) makes the two counts global
+    in one call."""
     k = ts.issued_k
     n_k = ts.issue_round.shape[1]
     ok = arr & accept & (k < n_k)
     defer = arr & ~ok
+    n_arr, n_def = _count(arr), _count(defer)
+    if reduce_sum is not None:
+        n_arr, n_def = reduce_sum(torch.stack([n_arr, n_def]))
     ts = ts._replace(
         issued_k=k + ok.to(torch.int32),
         issue_round=_set_slots(ts.issue_round, ok, k, t),
-        arrived=(ts.arrived + _count(arr)) & MASK32,
-        deferred=(ts.deferred + _count(defer)) & MASK32)
+        arrived=(ts.arrived + n_arr) & MASK32,
+        deferred=(ts.deferred + n_def) & MASK32)
     return ts, ok, k
 
 
@@ -429,12 +475,14 @@ def record_aux(ts: TrafficState, ok: torch.Tensor, kslot: torch.Tensor,
 
 
 def done_scan(ts: TrafficState, bit_fn: Callable, t_done: int,
-              block: int | None = None) -> TrafficState:
+              block: int | None = None,
+              reduce_sum: Callable | None = None) -> TrafficState:
     """Mark the ops that became globally visible this round:
     ``bit_fn(lo, block) -> (block, K) bool`` is the workload's visibility
-    predicate for the client slab ``[lo, lo + block)`` (``block``: the
-    ``GG_TRAFFIC_BLOCK`` slab, :func:`traffic_block`; any size gives the
-    same result)."""
+    predicate for the (local) client slab ``[lo, lo + block)``
+    (``block``: the ``GG_TRAFFIC_BLOCK`` slab, :func:`traffic_block`; any
+    size gives the same result).  ``reduce_sum`` (a mesh's all-reduce)
+    makes the completion count global."""
     rows = ts.issue_round.shape[0]
     block = rows if block is None else block
     dr = ts.done_round.clone()
@@ -445,6 +493,8 @@ def done_scan(ts: TrafficState, bit_fn: Callable, t_done: int,
               & bit_fn(lo, block))
         comp = comp + _count(dn)
         dsl.masked_fill_(dn, t_done)
+    if reduce_sum is not None:
+        comp = reduce_sum(comp)
     return ts._replace(done_round=dr,
                        completed=(ts.completed + comp) & MASK32)
 
@@ -471,7 +521,8 @@ def resizing_defer(ts: TrafficState, arr,
 def tel_series(ts: TrafficState) -> tuple:
     """The tracker's telemetry columns (``telemetry.TRAFFIC_SERIES``
     order): the running totals ``(arrived, issued, completed,
-    deferred)`` after this round."""
+    deferred)`` after this round; ``issued`` counts a rank's own clients
+    on a mesh (:data:`TRAFFIC_PARTIAL`)."""
     return (ts.arrived, _count(ts.issue_round >= 0), ts.completed,
             ts.deferred)
 
@@ -546,16 +597,43 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def latency_summary(ts: TrafficState) -> dict:
+def _global_counts(ts: TrafficState, mesh, xs, extra=()) -> tuple:
+    """``(counts, extra)``: each of the non-negative int arrays ``xs``'
+    bincount and the ints ``extra``, summed over the whole mesh when
+    given (a max and a sum all-reduce), as numpy and ints."""
+    if mesh is None:
+        return [np.bincount(x).astype(np.int64) for x in xs], list(extra)
+    dev = ts.issue_round.device
+    top = torch.tensor([int(x.max()) + 1 if x.size else 0 for x in xs],
+                       dtype=torch.int64, device=dev)
+    top = mesh.all_reduce(top, "max").cpu().numpy()
+    cat = np.concatenate([np.bincount(x, minlength=int(m)) for x, m in
+                          zip(xs, top)] + [np.asarray(extra, np.int64)])
+    tot = mesh.all_reduce(torch.from_numpy(cat.astype(np.int64)).to(dev),
+                          "sum").cpu().numpy()
+    out, lo = [], 0
+    for m in top:
+        out.append(tot[lo:lo + int(m)])
+        lo += int(m)
+    return out, [int(v) for v in tot[lo:]]
+
+
+def latency_summary(ts: TrafficState, mesh=None) -> dict:
     """Host-side run report: op counts, the conservation verdict
     (``arrived == issued + deferred``, completed <= issued) and latency
-    percentiles in rounds (p50 / p99 / max over completed ops)."""
+    percentiles in rounds (p50 / p99 / max over completed ops).
+    ``mesh``: a sharded tracker's mesh (a collective call: every rank
+    gets the whole report)."""
     issue_r = _np(ts.issue_round)
     done_r = _np(ts.done_round)
-    issued = int((issue_r >= 0).sum())
     comp_mask = done_r >= 0
-    completed = int(comp_mask.sum())
     lat = (done_r[comp_mask] - issue_r[comp_mask]).astype(np.int64)
+    issued = int((issue_r >= 0).sum())
+    if mesh is not None:
+        # the whole tracker's latencies as a histogram, and its issued
+        (hist,), (issued,) = _global_counts(ts, mesh, [lat], [issued])
+        lat = np.repeat(np.arange(hist.size, dtype=np.int64), hist)
+    completed = int(lat.size)
     arrived, deferred = int(ts.arrived), int(ts.deferred)
     return {
         "arrived": arrived, "issued": issued, "deferred": deferred,
@@ -572,14 +650,18 @@ def latency_summary(ts: TrafficState) -> dict:
     }
 
 
-def per_round_series(ts: TrafficState, n_rounds: int) -> dict:
+def per_round_series(ts: TrafficState, n_rounds: int, mesh=None) -> dict:
     """Per-round issue and completion counts (completions a round
-    collapse inside a fault window and recover after it clears)."""
+    collapse inside a fault window and recover after it clears).
+    ``mesh``: a sharded tracker's mesh (a collective call)."""
     issue_r = _np(ts.issue_round)
     done_r = _np(ts.done_round)
-    return {
-        "issued_by_round": np.bincount(
-            issue_r[issue_r >= 0], minlength=n_rounds).tolist(),
-        "completed_by_round": np.bincount(
-            done_r[done_r >= 0], minlength=n_rounds).tolist(),
-    }
+    (iss, done), _ = _global_counts(
+        ts, mesh, [issue_r[issue_r >= 0], done_r[done_r >= 0]])
+
+    def pad(x):
+        return np.concatenate([x, np.zeros(max(0, n_rounds - x.size),
+                                           np.int64)]).astype(np.int64)
+
+    return {"issued_by_round": pad(iss).tolist(),
+            "completed_by_round": pad(done).tolist()}

@@ -38,10 +38,28 @@ the version CAS over the K keys: no host sync.  ``t`` is a host int and
 and ``run`` leave the state passed in as it was (``run`` copies it once);
 ``run_fused`` updates it in place.
 
-Not ported yet, and raising: meshes and ``dcn_mode`` (ROADMAP.md Queue A
-item 10: ``ops_specs``, ``TxnSim._state_spec``); the program audit (item
-14: ``audit_run_program``, ``audit_contracts``).  The scenario batches
-(:mod:`.scenario`) step each scenario through ``_build_batch_round``.
+On a mesh (``TxnSim(mesh=)``, a :class:`..parallel.mesh.Mesh`) each
+rank holds its block of every node-axis leaf (:func:`ops_specs`,
+:meth:`TxnSim._state_spec`: the KV rows, ``arrived``, ``cur``, ``issue``,
+the stamps, the records and the staged ops), and ``t`` and ``msgs`` stay
+whole and equal on every rank.  A round runs the kernels in their block
+forms over the rank's rows with global ids: the claim's priorities
+``issue * N + node`` over the sim's N, its ``best`` then one
+``reduce_min``; the (value, version) view of every key from its owner's
+rows (:func:`.kvstore.rows_view_block`, one ``reduce_sum``), which the
+commit reads in place of the local rows; the (3, K) write requests and
+the attempts packed into one ``reduce_sum``; the version CAS on the owner
+ranks' rows (:func:`.kvstore.block_slots`).  All-reduces only: no
+all-gather, no ppermute (the reference's ``txn/sharded-step`` contract).
+``step``, ``run`` and ``run_fused`` take the whole cluster's operands
+(the staged ops, made once and cut by each rank); :func:`history_of` and
+:func:`final_registers` of a mesh state, given the mesh, are collective
+calls that give every rank the whole answer.
+
+Not ported yet, and raising: ``dcn_mode`` (ROADMAP.md Queue A item 10);
+the program audit (item 14: ``audit_run_program``, ``audit_contracts``).
+The scenario batches (:mod:`.scenario`) step each scenario through
+``_build_batch_round``.
 """
 
 from __future__ import annotations
@@ -53,12 +71,17 @@ import numpy as np
 import torch
 
 from . import faults, kernels, kvstore, traffic
-from .engine import fori_rounds, resolve_device
+from .engine import (_check_flat, collectives, fori_rounds, local_block,
+                     resolve_device)
 from .faults import MASK32
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
 # A item
-_UNPORTED_METHODS = {"audit_run_program": 14, "_state_spec": 10}
+_UNPORTED_METHODS = {"audit_run_program": 14}
+
+#: a leaf cut along the node axis (its first), as the reference's
+#: ``P(axes, ...)``; ``()`` keeps a leaf whole on every rank, as ``P()``
+NODE = "nodes"
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -90,10 +113,12 @@ class TxnState(NamedTuple):
     msgs: torch.Tensor            # () int64, a uint32 ledger
 
 
-def ops_specs(axes="nodes"):
-    """The reference's shard specs of the ops: ROADMAP.md Queue A item
-    10."""
-    raise _unported("txn.ops_specs", 10)
+def ops_specs(axes="nodes") -> TxnOps:
+    """The reference's shard specs of the ops, one per leaf: every leaf
+    is cut along its node axis to a rank's block (``(axes, None,
+    None)``); :func:`..engine.local_block` reads them."""
+    node3 = (axes, None, None)
+    return TxnOps(node3, node3, node3)
 
 
 @functools.lru_cache(maxsize=4)
@@ -145,14 +170,21 @@ class TxnSim:
                  mesh=None, seed: int = 0, workload_seed: int = 0,
                  fault_plan: "faults.FaultPlan | None" = None,
                  kv_amnesia: bool = False, dcn_mode: "str | None" = None,
+                 ops: "TxnOps | None" = None,
                  device: str | torch.device | None = None) -> None:
         """The reference's arguments: ``tspec`` the arrival driver, one
         client per node with ``ops_per_client == txns_per_node`` (None: a
         Poisson spec from ``rate`` / ``until`` / ``workload_seed``, which
         also seeds :func:`stage_txn_ops`); ``seed`` the KV layout's.
         ``device``: where the state lives (default CUDA; raises if there
-        is none).  ``mesh`` and ``dcn_mode`` raise (ROADMAP.md Queue A
-        item 10)."""
+        is none).  ``mesh``: a :class:`..parallel.mesh.Mesh`, this rank
+        running its block of the nodes on ``mesh.device`` (N must divide
+        evenly; every rank calls every method in the same order).
+        ``ops``: the whole cluster's staged ops (:func:`stage_txn_ops`'
+        arrays, numpy or tensors, for these arguments) to use in place of
+        staging them here, so that the ranks of a mesh need not each run
+        the host loop; a rank cuts its block.  ``dcn_mode`` raises
+        (ROADMAP.md Queue A item 10)."""
         kvstore.reject_dup_stream(fault_plan, "TxnSim")
         if fault_plan is not None and fault_plan.n_nodes != n_nodes:
             raise ValueError(
@@ -173,10 +205,24 @@ class TxnSim:
                 f"tspec.ops_per_client={tspec.ops_per_client} must "
                 f"equal txns_per_node={txns_per_node}")
         if mesh is not None:
-            raise _unported("TxnSim(mesh=...)", 10)
+            _check_flat(mesh)
+            if n_nodes % mesh.size:
+                raise ValueError(f"{n_nodes} nodes do not shard evenly "
+                                 f"over {mesh.size} ranks")
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         if dcn_mode is not None:
             raise _unported("TxnSim(dcn_mode=...)", 10)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # this rank's rows: all of them off a mesh
+        self._block = n_nodes if mesh is None else n_nodes // mesh.size
+        self._row0 = 0 if mesh is None else mesh.rank * self._block
+        self._coll = (None if mesh is None
+                      else collectives(self._block, mesh))
         self.n_nodes = n_nodes
         self.n_keys = n_keys
         self.txns_per_node = txns_per_node
@@ -190,29 +236,59 @@ class TxnSim:
         self.kv_amnesia = bool(kv_amnesia)
         self.layout = kvstore.make_layout(n_keys, n_nodes, seed=seed)
         self._slots = kvstore.key_slots(self.layout, self.device)
-        self.ops = stage_txn_ops(n_nodes, txns_per_node, ops_per_txn,
-                                 n_keys, workload_seed, self.device)
-        self._row_ids = torch.arange(n_nodes, dtype=torch.int32,
-                                     device=self.device)
+        # a rank's share of the store: the keys its rows own
+        self._block_slots = kvstore.block_slots(
+            self.layout, self._row0, self._block, self.device)
+        if ops is None:
+            ops = _staged(n_nodes, txns_per_node, ops_per_txn, n_keys,
+                          workload_seed)
+        shape = (n_nodes, txns_per_node, ops_per_txn)
+        if any(tuple(x.shape) != shape for x in ops):
+            raise ValueError(f"ops must be the whole cluster's {shape} "
+                             "arrays")
+        self.ops = TxnOps(*(
+            local_block(x, spec, mesh, dtype=dt, device=self.device)
+            for x, spec, dt in zip(ops, ops_specs(),
+                                   (torch.int32, torch.bool, torch.int32))))
+        self._row_ids = torch.arange(self._row0, self._row0 + self._block,
+                                     dtype=torch.int32, device=self.device)
 
     def __getattr__(self, name: str):
         if name in _UNPORTED_METHODS:
             raise _unported(f"TxnSim.{name}", _UNPORTED_METHODS[name])
         raise AttributeError(name)
 
-    def init_state(self) -> TxnState:
-        n, t_dim, o = self.n_nodes, self.txns_per_node, self.ops_per_txn
+    def _state_spec(self) -> TxnState:
+        """The reference's shard specs of the state, one per leaf: the
+        KV rows and every (N, ...) leaf cut along the node axis to a
+        rank's block, ``t`` and ``msgs`` whole (``()``)."""
+        node, node2, node3 = (NODE,), (NODE, None), (NODE, None, None)
+        return TxnState(
+            rows=kvstore.KVRows(node2, node2), arrived=node, cur=node,
+            issue=node, issue_round=node2, commit_round=node2, op_ver=node3,
+            op_val=node3, t=(), msgs=())
 
-        def full(shape, v):
+    def init_state(self) -> TxnState:
+        """The round-0 state (this rank's block of the node-axis leaves on
+        a mesh, by :meth:`_state_spec`)."""
+        n, t_dim, o = self.n_nodes, self.txns_per_node, self.ops_per_txn
+        spec = self._state_spec()
+
+        def full(shape, v, sp):
+            if sp and sp[0] == NODE:
+                shape = (self._block,) + shape[1:]
             return torch.full(shape, v, dtype=torch.int32,
                               device=self.device)
 
         return TxnState(
-            rows=kvstore.init_rows(self.layout, self.device),
-            arrived=full((n,), 0), cur=full((n,), 0), issue=full((n,), -1),
-            issue_round=full((n, t_dim), -1),
-            commit_round=full((n, t_dim), -1),
-            op_ver=full((n, t_dim, o), -1), op_val=full((n, t_dim, o), -1),
+            rows=kvstore.init_rows(self.layout, self.device,
+                                   rows=self._block),
+            arrived=full((n,), 0, spec.arrived),
+            cur=full((n,), 0, spec.cur), issue=full((n,), -1, spec.issue),
+            issue_round=full((n, t_dim), -1, spec.issue_round),
+            commit_round=full((n, t_dim), -1, spec.commit_round),
+            op_ver=full((n, t_dim, o), -1, spec.op_ver),
+            op_val=full((n, t_dim, o), -1, spec.op_val),
             t=0, msgs=torch.zeros((), dtype=torch.int64,
                                   device=self.device))
 
@@ -223,7 +299,8 @@ class TxnSim:
         KV rows (a restarting owner's wipe makes new rows): the amnesia
         wipe, liveness, the arrivals, the claim, the commit and the
         version CAS of the winners' write requests, the charge-at-send
-        ledger."""
+        ledger.  On a mesh the module docstring's three all-reduces join
+        the ranks' blocks."""
         t = state.t
         ids = self._row_ids
         rows = state.rows
@@ -238,15 +315,34 @@ class TxnSim:
             active = active & faults.node_up(plan, t, ids) \
                 & ~faults.kv_drop(plan, t, ids)
         ops = self.ops
+        k_dim = self.n_keys
+        blk = dict(row0=self._row0, n_total=self.n_nodes)
         best, attempts = kernels.txn_claim(ops.keys, state.cur, state.issue,
-                                           active, t=t, n_keys=self.n_keys)
-        req = kernels.txn_commit(
-            best, ops.keys, ops.write, ops.wval, state.cur, state.issue,
-            active, self._slots.owner, self._slots.slot, rows.vals,
-            rows.vers, state.op_ver, state.op_val, state.commit_round,
-            state.issue_round, t=t)
-        rows = kvstore.cas_ver_apply_at(rows, self._slots, req[0] > 0,
-                                        req[2], req[1], donate=True)
+                                           active, t=t, n_keys=k_dim, **blk)
+        records = (state.op_ver, state.op_val, state.commit_round,
+                   state.issue_round)
+        if self.mesh is None:
+            req = kernels.txn_commit(
+                best, ops.keys, ops.write, ops.wval, state.cur, state.issue,
+                active, self._slots.owner, self._slots.slot, rows.vals,
+                rows.vers, *records, t=t)
+            slots, on, ver, val = (self._slots, req[0] > 0, req[2], req[1])
+        else:
+            coll = self._coll
+            best = coll.reduce_min(best)
+            view = kvstore.rows_view_block(rows, self._block_slots, k_dim,
+                                           coll.reduce_sum)
+            part = kernels.txn_commit(
+                best, ops.keys, ops.write, ops.wval, state.cur, state.issue,
+                active, None, None, None, None, *records, t=t, view=view,
+                **blk)
+            g = coll.reduce_sum(torch.cat([part.reshape(-1), attempts]))
+            req, attempts = g[:3 * k_dim].view(3, k_dim), g[3 * k_dim:]
+            # the requests land on the keys this rank's rows own
+            slots, keys = self._block_slots
+            on, ver, val = (req[0] > 0)[keys], req[2][keys], req[1][keys]
+        rows = kvstore.cas_ver_apply_at(rows, slots, on, ver, val,
+                                        donate=True)
         msgs = (state.msgs + attempts[0].to(torch.int64)
                 * (4 * self.ops_per_txn)) & MASK32
         return state._replace(rows=rows, arrived=arrived, t=t + 1,
@@ -283,17 +379,24 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def history_of(state: TxnState, ops: TxnOps) -> list[dict]:
+def _whole(mesh, *xs) -> list[np.ndarray]:
+    """The leaves as numpy: on a mesh every rank's block, gathered (a
+    collective)."""
+    if mesh is not None:
+        xs = [mesh.all_gather(x) for x in xs]
+    return [_np(x) for x in xs]
+
+
+def history_of(state: TxnState, ops: TxnOps, mesh=None) -> list[dict]:
     """The recorded transaction history (the reference's): one entry per
     started transaction slot (txn id ``node * T + slot``), its status,
     its issue and commit rounds and, committed, its per-op (kind, key,
-    version, value) records."""
-    cr = _np(state.commit_round)
-    ir = _np(state.issue_round)
-    ver = _np(state.op_ver)
-    val = _np(state.op_val)
-    keys = _np(ops.keys)
-    write = _np(ops.write)
+    version, value) records.  ``mesh``: the mesh of a sharded state and
+    its sim's ops, whose blocks every rank gathers (a collective call:
+    every rank gets the whole history)."""
+    cr, ir, ver, val, keys, write = _whole(
+        mesh, state.commit_round, state.issue_round, state.op_ver,
+        state.op_val, ops.keys, ops.write)
     n, t_dim = cr.shape
     hist = []
     for i in range(n):
@@ -319,10 +422,11 @@ def history_of(state: TxnState, ops: TxnOps) -> list[dict]:
     return hist
 
 
-def final_registers(state: TxnState, layout: kvstore.KVLayout) -> dict:
-    """``{key: (value, version)}``: the store's final registers."""
-    vals = _np(state.rows.vals)
-    vers = _np(state.rows.vers)
+def final_registers(state: TxnState, layout: kvstore.KVLayout,
+                    mesh=None) -> dict:
+    """``{key: (value, version)}``: the store's final registers (on a
+    ``mesh`` every rank's rows, gathered: a collective call)."""
+    vals, vers = _whole(mesh, state.rows.vals, state.rows.vers)
     out = {}
     for key in range(layout.n_keys):
         i, c = int(layout.owner[key]), int(layout.slot[key])
@@ -360,7 +464,8 @@ def _build_batch_round(sim: TxnSim):
 
 
 def _batch_converged(state: TxnState) -> torch.Tensor:
-    """() bool on the device: every offered transaction committed."""
+    """() bool on the device: every offered transaction committed (a
+    rank's block of them on a mesh)."""
     return (state.cur >= state.arrived).all()
 
 

@@ -1592,6 +1592,60 @@ def test_cuda_txn_kernels_match_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shards", (2, 4))
+@pytest.mark.parametrize("shape", TXN_CUDA_SHAPES[1:])
+def test_cuda_txn_block_forms_match_plain(cuda_device, shape, shards):
+    # a mesh rank's rows (row0, n_total, the commit reading the (2, K)
+    # view): each block against its plain version, and the blocks combined
+    # as the mesh combines them (the minimum of best, the sums of attempts
+    # and requests) against the whole problem's plain result
+    c = _txn_case(*shape, sum(shape[:3]) + shards, cuda_device)
+    n, k, t = c["keys"].shape[0], c["n_keys"], c["t"]
+    bounds = [round(i * n / shards) for i in range(shards + 1)]
+    blocks = [slice(bounds[p], bounds[p + 1]) for p in range(shards)]
+    best_w, att_w = kernels.txn_claim_plain(
+        c["keys"], c["cur"], c["issue"], c["active"], t=t, n_keys=k)
+    whole = kernels.txn_commit_plain(best_w, *(c[a] for a in TXN_ARGS), t=t)
+    at = (c["owner"], c["slot"])
+    view = torch.stack([c["vals"][at], c["vers"][at]]).contiguous()
+    bests, atts = [], []
+    for p, sl in enumerate(blocks):
+        claim = (c["keys"][sl], c["cur"][sl], c["issue"][sl],
+                 c["active"][sl])
+        kw = dict(t=t, n_keys=k, row0=bounds[p], n_total=n)
+        kb, ka = kernels.txn_claim(*claim, **kw)
+        pb, pa = kernels.txn_claim_plain(*claim, **kw)
+        assert torch.equal(kb, pb) and torch.equal(ka, pa)
+        bests.append(kb)
+        atts.append(ka)
+    best = torch.stack(bests).min(0).values
+    assert torch.equal(best, best_w) and torch.equal(sum(atts), att_w)
+    req, recs = 0, {f: [] for f in TXN_INPLACE}
+    for p, sl in enumerate(blocks):
+        mine = {f: c[f][sl].clone() for f in TXN_INPLACE}
+        kw = dict(t=t, view=view, row0=bounds[p], n_total=n)
+        rq = kernels.txn_commit(
+            best, c["keys"][sl], c["write"][sl], c["wval"][sl], mine["cur"],
+            mine["issue"], c["active"][sl], None, None, None, None,
+            mine["op_ver"], mine["op_val"], mine["commit_round"],
+            mine["issue_round"], **kw)
+        want = kernels.txn_commit_plain(
+            best, c["keys"][sl], c["write"][sl], c["wval"][sl],
+            c["cur"][sl], c["issue"][sl], c["active"][sl], None, None, None,
+            None, c["op_ver"][sl], c["op_val"][sl], c["commit_round"][sl],
+            c["issue_round"][sl], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(rq, want[0])
+        for f, w in zip(TXN_INPLACE, want[1:]):
+            assert torch.equal(mine[f], w), f
+            recs[f].append(mine[f])
+        req = req + rq
+    assert torch.equal(req, whole[0])
+    for f, w in zip(TXN_INPLACE, whole[1:]):
+        assert torch.equal(torch.cat(recs[f]), w), f
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("amnesia", (False, True))
 def test_cuda_txn_round_equals_cpu_round(cuda_device, amnesia, monkeypatch):
     # every CUDA round runs the two kernels, never their plain versions,

@@ -238,8 +238,9 @@ def test_unported_modes_raise():
     state, _ = sim.stage(broadcast.make_inject(8, 4))
     with pytest.raises(ValueError, match="ledger is off"):
         sim.server_msgs(state)
-    # txn-rw-register runs on one device; its meshes (item 10) and audit
-    # (item 14) raise, as does a replay on a mesh (item 10); the scenario
+    # txn-rw-register runs on one device and on the port's 1-D Mesh; any
+    # other mesh object and dcn_mode (item 10) and its audit (item 14)
+    # raise, as does a replay on a mesh (item 10); the scenario
     # batches run, and raise on a mesh (item 10) and for their program
     # audit (item 14); so do the frontier, the fuzzer and the membership
     # layer
@@ -255,7 +256,6 @@ def test_unported_modes_raise():
     for fn, item in (
             (lambda: txn.TxnSim(8, 4, device="cpu", mesh=object()), 10),
             (lambda: txn.TxnSim(8, 4, device="cpu", dcn_mode="sync"), 10),
-            (txn.ops_specs, 10), (lambda: tsim._state_spec, 10),
             (lambda: scenario.run_scenario_batch(sbatch, mesh=object(),
                                                  device="cpu"), 10),
             (lambda: scenario.dispatch_serving_batch(
@@ -275,6 +275,9 @@ def test_unported_modes_raise():
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
     assert tsim.run(tsim.init_state(), 3).t == 3
+    # the shard specs are ported: every node-axis leaf cut to a block
+    assert txn.ops_specs().keys == ("nodes", None, None)
+    assert tsim._state_spec().cur == ("nodes",)
     state = tsim.init_state()
     assert txn._build_batch_round(tsim)(state).t == 1
     assert bool(txn._batch_converged(state)) == bool(

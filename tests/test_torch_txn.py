@@ -441,7 +441,6 @@ def test_unported_txn_parts_raise_with_their_items():
     for fn, item in (
             (lambda: PT.TxnSim(4, 4, device="cpu", mesh=object()), 10),
             (lambda: PT.TxnSim(4, 4, device="cpu", dcn_mode="sync"), 10),
-            (PT.ops_specs, 10), (lambda: sim._state_spec, 10),
             (lambda: sim.audit_run_program, 14),
             (PT.audit_contracts, 14),
             (lambda: PH.run_txn_frontier([0.5], [], mesh=object(),
@@ -452,6 +451,14 @@ def test_unported_txn_parts_raise_with_their_items():
             fn()
     with pytest.raises(AttributeError):
         sim.no_such_method
+    # the shard specs are ported (TxnSim(mesh=) runs on the port's Mesh,
+    # tests/test_torch_mesh_txn.py; any other mesh object is refused
+    # above): the reference's entries, leaf for leaf, and the sharded
+    # sim's statement
+    assert tuple(PT.ops_specs()) == tuple(JT.ops_specs())
+    spec = sim._state_spec()
+    assert spec.rows.vals == spec.arrived + (None,) == ("nodes", None)
+    assert spec.op_ver == ("nodes", None, None) and spec.t == spec.msgs == ()
     # the scenario batches' hooks run
     st = PT._build_batch_round(sim)(sim.init_state())
     assert st.t == 1 and PT._batch_converged(st).dtype == torch.bool

@@ -152,8 +152,16 @@ def tree_halo_parts(mesh, seed: int, n: int, k: int, w: int) -> dict:
                 pl, n, mesh.size, k, mesh))}
 
 
+#: the mesh combinations that run (since the traffic, telemetry and txn
+#: slice); every other probe of :func:`refusal_cases` raises item 10
+MESH_RUNS = ("run_traffic", "run_observed", "counter_run_traffic",
+             "counter_run_observed", "kafka_run_traffic",
+             "kafka_run_observed", "txn")
+
+
 def refusal_cases(mesh) -> dict:
-    """Which mesh combinations raise NotImplementedError naming item 10."""
+    """Which mesh combinations raise NotImplementedError naming item 10,
+    and which run (:data:`MESH_RUNS`: ``"ran"``)."""
     n = 4 * mesh.size
     nbrs = to_padded_neighbors(tree(n))
     ex = structured.make_exchange("tree", n)
@@ -173,26 +181,59 @@ def refusal_cases(mesh) -> dict:
     kw = dict(n_values=4, mesh=mesh)
     probe("dcn_mode", lambda: broadcast.BroadcastSim(
         nbrs, dcn_mode="sync", **kw))
+    from gossip_glomers_tpu_torch.tpu_sim import (provenance, telemetry,
+                                                  traffic)
+
+    # one client a rank, one op each: the traffic and observed drivers
+    # run; the observed driver's provenance record raises
+    tspec = traffic.TrafficSpec(n_nodes=n, n_clients=mesh.size,
+                                ops_per_client=1, until=2)
+    inj = np.zeros((n, 1), np.uint32)
+
+    def tel(sim_, workload, traffic_=False):
+        spec = telemetry.TelemetrySpec(workload, rounds=2, traffic=traffic_)
+        return sim_.telemetry_state(spec), spec
+
+    def traffic_tel(sim_, workload):
+        ring, spec = tel(sim_, workload, True)
+        return dict(tel=ring, tel_spec=spec)
+
     sim = broadcast.BroadcastSim(nbrs, srv_ledger=False, **kw)
-    probe("run_traffic", lambda: sim.run_traffic(None, None, None, 1))
-    probe("run_observed", lambda: sim.run_observed(None, None, None, 1))
+    probe("run_traffic", lambda: sim.run_traffic(
+        sim.init_state(inj), sim.traffic_state(tspec), tspec, 1,
+        **traffic_tel(sim, "broadcast")))
+    probe("run_observed", lambda: sim.run_observed(
+        sim.init_state(inj), *tel(sim, "broadcast"), 1))
+    probe("run_observed_prov", lambda: sim.run_observed(
+        sim.init_state(inj), None, None, 1,
+        prov=provenance.init_broadcast(n, 4, inj, device=mesh.device),
+        prov_spec=provenance.ProvenanceSpec("broadcast")))
     probe("inject_mid", lambda: sim.inject_mid(None, 0, 0))
     probe("collectives_dcn", lambda: engine.collectives(4, mesh,
                                                         dcn="sync"))
     from gossip_glomers_tpu_torch.tpu_sim import counter, kafka, scenario, txn
 
     csim = counter.CounterSim(n, mesh=mesh)
-    probe("counter_run_traffic", lambda: csim.run_traffic(None, None, None,
-                                                          1))
-    probe("counter_run_observed", lambda: csim.run_observed(None, None,
-                                                            None, 1))
+    probe("counter_run_traffic", lambda: csim.run_traffic(
+        csim.init_state(), csim.traffic_state(tspec), tspec, 1))
+    probe("counter_run_observed", lambda: csim.run_observed(
+        csim.init_state(), *tel(csim, "counter"), 1))
+    probe("counter_run_observed_prov", lambda: csim.run_observed(
+        csim.init_state(), None, None, 1,
+        prov=provenance.init_counter(n, device=mesh.device),
+        prov_spec=provenance.ProvenanceSpec("counter")))
     probe("counter_dcn_mode", lambda: counter.CounterSim(
         n, mesh=mesh, dcn_mode="sync"))
     ksim = kafka.KafkaSim(n, 2, 8, mesh=mesh)
-    probe("kafka_run_traffic", lambda: ksim.run_traffic(None, None, None,
-                                                        1))
-    probe("kafka_run_observed", lambda: ksim.run_observed(None, None, None,
-                                                          None, None))
+    sends = np.full((1, n, ksim.max_sends), -1, np.int32)
+    probe("kafka_run_traffic", lambda: ksim.run_traffic(
+        ksim.init_state(), ksim.traffic_state(tspec), tspec, 1))
+    probe("kafka_run_observed", lambda: ksim.run_observed(
+        ksim.init_state(), *tel(ksim, "kafka"), sends, sends))
+    probe("kafka_run_observed_prov", lambda: ksim.run_observed(
+        ksim.init_state(), None, None, sends, sends,
+        prov=provenance.init_kafka(2, 8, device=mesh.device),
+        prov_spec=provenance.ProvenanceSpec("kafka")))
     probe("kafka_batch_round", lambda: kafka._build_batch_round(ksim))
     probe("kafka_dcn_mode", lambda: kafka.KafkaSim(n, 2, 8, mesh=mesh,
                                                    dcn_mode="sync"))
