@@ -130,7 +130,9 @@ bundles and repros under ``build/chip_smoke/``):
 13. ``w1_circulant_nemesis_accounted``: a loss-only plan (loss 0.1 until
     13, seed 0) composed with ``config4c``'s window on the structured
     circulant, sync waves every 16 rounds, server ledger on; held against
-    the CPU path and the card's gather path, ``srv_msgs`` included.
+    the CPU path and the card's gather path, ``srv_msgs`` included (the
+    CPU path runs in a background process, :class:`BackgroundTwin`, and
+    the line comes at the end, :func:`finish_pending`).
 14. ``w1_circulant_delayed``: benchmarks/run_all.py's ``config4d``
     itself: the circulant expander, 32 values, per-edge delays of 1 or 3
     rounds (``default_rng(11)``, p = 0.7 / 0.3), three ways — the gather
@@ -280,7 +282,8 @@ bundles and repros under ``build/chip_smoke/``):
     ``harness.nemesis.run_kafka_nemesis`` with provenance on, each
     result equal to the CPU runner's; pull over the device KV through
     the runner's ``kafka_campaign`` and ``kafka_lost_writes``, equal to
-    its CPU path and to the pull campaign.
+    its CPU path and to the pull campaign (the three CPU runs in a
+    background process; the line comes at the end).
 28. ``nemesis_tree_1m_provenance``: the main path's 4-ary tree at 2^20
     nodes under fault_sweep.py --structured's plan through
     ``run_broadcast_nemesis`` on the gather path (D = 5, 16 values, cut
@@ -342,7 +345,8 @@ bundles and repros under ``build/chip_smoke/``):
     naming lost updates and writes its flight bundle, which
     ``observe.replay_bundle`` replays on the card to the same verdict with
     ``first_divergence_round`` None; both campaigns equal their rounds on
-    the CPU path.
+    the CPU path (run in a background process; the line comes at the
+    end).
 36. ``flight_bundles``: a failing small campaign of each runner
     (broadcast gather with provenance and structured, counter, Kafka,
     serving) writes its bundle on the card; each replays on the card
@@ -403,6 +407,30 @@ bundles and repros under ``build/chip_smoke/``):
     Kafka, counter with the membership axis) and frontier_cartography.py
     :144-195's shape-bucket and adaptive runs: the planted seed shrinks
     and its bundle replays on the card and the CPU.
+48. ``mesh_provenance_batches``: provenance and the batches on the same
+    4-rank world (its line comes after ``fuzz_campaigns``; the earlier
+    phases keep the one-process card runs it is held against,
+    :data:`MESH_PROV_ONE`): ``nemesis_tree_1m_provenance``'s campaign on
+    2^20 nodes (result and stamp digests equal; rank 0 certifies the
+    gathered record and shares the verdict), its rounds as plain and
+    stamped fixed trips (each rank's received block equal, the record
+    adding no collective, ``prov_attribute`` once a round a rank);
+    ``nemesis_counter_128k_provenance``'s campaign (and a trip: one
+    all-reduce more a round); ``kafka_sweep_point_provenance``'s point
+    (each rank's block and the record equal, at most two all-reduces
+    more); ``scenario_broadcast_256x1024``'s one-hop batch, 64 scenarios
+    a rank (rows equal, the folded launches a round as one process makes
+    at 256 scenarios, no collective in the trip, one gather at collect);
+    the three looped batches, ``frontier_grid_256``'s ``run_frontier``
+    (64 cells a rank), ``fuzz_campaigns``' first broadcast batch with its
+    planted shrink on the mesh (its bundle written once into a shared
+    directory), ``replay_bundle(mesh=)`` of a bundle a one-process card
+    campaign wrote before the world, and ``run_txn_frontier(mesh=)``,
+    each equal to its one-process card run.  The kernel check holds
+    ``prov_attribute`` on a rank's rows (fewer rows than sources) against
+    its plain version and, over 2 and 4 blocks combined, the whole
+    problem; ``nemesis_tree_1m_provenance`` times it on a rank's rows of
+    its captured round.  Not a multi-card figure.
 
 The Kafka phases run their staged rounds under torch's sync debug mode
 (no host sync) and report rounds, wall ms, ms a round, device busy ms,
@@ -1219,6 +1247,7 @@ def check_kernels(kernels, structured, topology, device) -> dict:
     check_kafka_blocks(kernels, note, device)
     check_and_fold(kernels, note, device)
     check_prov(kernels, note, device)
+    check_prov_blocks(kernels, note, device)
     check_txn(kernels, note, device)
     check_txn_blocks(kernels, note, device)
     check_batched_faults(kernels, note, device)
@@ -2190,6 +2219,7 @@ def structured_fault_phases(modules, faults, structured, kernels, topology,
                                       fault_plan=spec.compile(dev),
                                       device=dev, **kw)
 
+    twin = BackgroundTwin(cpu_circulant_accounted, ())
     launches.start()
     acct = loss_sim(device, True)
     torch.cuda.synchronize()
@@ -2214,17 +2244,46 @@ def structured_fault_phases(modules, faults, structured, kernels, topology,
     if not (rounds_g == rounds and same_run(acct, state, gsim, state_g)):
         raise AssertionError("w1_circulant_nemesis_accounted: the "
                              "structured and gather runs differ")
-    cpu = loss_sim("cpu", True)
-    cpu_state, cpu_rounds = cpu.run_fused(inject)
-    if not (cpu_rounds == rounds and same_run(acct, state, cpu,
-                                              cpu_state)):
-        raise AssertionError("w1_circulant_nemesis_accounted: GPU run "
-                             "differs from the CPU path")
-    rec.update({"gather_rounds": rounds_g, "cpu_match": True})
+    rec["gather_rounds"] = rounds_g
     keep_run("circulant_nemesis_accounted", acct, state)
-    emit(rec)
-    del acct, state, gsim, state_g, cpu, cpu_state
+    card = (rounds, acct.received_node_major(state), int(state.msgs),
+            acct.server_msgs(state))
+
+    def hold(rec, cpu):
+        # the port's plain CPU path at the same size, bit for bit
+        rec["cpu_match"] = (cpu[0] == card[0] and bool(
+            (cpu[1] == card[1]).all()) and cpu[2:] == card[2:])
+        rec["ok"] = rec["cpu_match"]
+
+    PENDING.append((rec, twin, hold))
+    del acct, state, gsim, state_g
     torch.cuda.empty_cache()
+
+
+def cpu_circulant_accounted() -> tuple:
+    """w1_circulant_nemesis_accounted's CPU twin (a background process):
+    the structured run on the port's CPU path, its ``(rounds, received,
+    msgs, srv_msgs)``."""
+    import torch
+
+    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, faults,
+                                                  structured)
+
+    torch.set_num_threads(SMALL_TWIN_THREADS)
+    n = N_NODES
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    parts, group = config4c_parts(broadcast, n)
+    spec = loss_only_spec(faults, n)
+    sim = broadcast.BroadcastSim(
+        topology.circulant(n, strides), n_values=W1_VALUES, sync_every=16,
+        parts=parts, fault_plan=spec.compile("cpu"), device="cpu",
+        exchange=structured.make_exchange("circulant", n, strides=strides),
+        nemesis=structured.make_nemesis("circulant", n, spec, groups=group,
+                                        device="cpu", strides=strides))
+    state, rounds = sim.run_fused(broadcast.make_inject(n, W1_VALUES))
+    return (rounds, sim.received_node_major(state), int(state.msgs),
+            sim.server_msgs(state))
 
 
 def delayed_way(sim, timing, kernels, inject, want_rounds=None) -> tuple:
@@ -3879,16 +3938,18 @@ def kafka_nemesis_4k(kafka, nemesis, faults, kernels, device,
     ``kv_backend``), equal to its CPU path and to the pull runner's
     campaign, its staged rounds with no host sync.  ``ok``: every verdict
     (converged, no lost write, no committed cache above its cell, the
-    provenance certificate) and every twin."""
+    provenance certificate) and every twin.  The three CPU twins run in a
+    background process (:class:`BackgroundTwin`) while the smoke goes on;
+    the record waits in :data:`PENDING` and :func:`finish_pending` holds
+    it against them."""
     import torch
     from gossip_glomers_tpu_torch.harness.checkers import check_recovery
 
     n, k, cap, s = KAFKA_NEMESIS
-    spec = faults.random_spec(n, seed=2, horizon=12, n_crash_windows=1,
-                              loss_rate=0.1)
+    spec = kafka_nemesis_spec(faults)
     clear = max(spec.clear_round, 12)
-    kw = dict(n_keys=k, capacity=cap, max_sends=s, rounds=12,
-              provenance=True)
+    kw = kafka_nemesis_kw()
+    twin = BackgroundTwin(cpu_kafka_nemesis, ())
     rec = {"phase": "kafka_nemesis_4k", "card": card, "n": n, "keys": k,
            "capacity": cap, "sends": s, "clear_round": clear,
            "spec": {"crash": [[a, b, len(ns)] for a, b, ns in spec.crash],
@@ -3961,20 +4022,59 @@ def kafka_nemesis_4k(kafka, nemesis, faults, kernels, device,
             pull["n_allocated"], pull["n_lost_writes"])}
     launches.stop(rec, ("kafka_merge", "kafka_nem_deliver",
                         "kafka_commit_select", "kafka_commit_apply"))
-    for way, res in results.items():
-        cpu = nemesis.run_kafka_nemesis(spec, resync_mode=way, device="cpu",
-                                        **kw)
-        rec["ways"][way]["cpu_match"] = same_result(res, cpu)
-    cst = campaign(make("cpu"), (sks, svs, crs))[0]
-    rec["ways"]["pull_device_kv"]["cpu_match"] = same_kafka(st, cst)
-    rec["ok"] = all(r["ok"] and r["cpu_match"]
-                    for r in rec["ways"].values()) \
-        and rec["ways"]["pull_device_kv"]["host_kv_match"]
-    emit(rec)
-    if not rec["ok"]:
-        raise AssertionError(f"kafka_nemesis_4k: {rec}")
-    del sim, st, cst, results
+    card_st = host_copy(st)
+
+    def hold(rec, twin_out):
+        cpu, cst = twin_out
+        for way, res in results.items():
+            rec["ways"][way]["cpu_match"] = same_result(res, cpu[way])
+        rec["ways"]["pull_device_kv"]["cpu_match"] = same_kafka(card_st,
+                                                                cst)
+        rec["ok"] = all(r["ok"] and r["cpu_match"]
+                        for r in rec["ways"].values()) \
+            and rec["ways"]["pull_device_kv"]["host_kv_match"]
+
+    PENDING.append((rec, twin, hold))
+    del sim, st
     torch.cuda.empty_cache()
+
+
+def kafka_nemesis_spec(faults):
+    """fault_sweep.py:336-341's plan at :data:`KAFKA_NEMESIS`'s nodes."""
+    return faults.random_spec(KAFKA_NEMESIS[0], seed=2, horizon=12,
+                              n_crash_windows=1, loss_rate=0.1)
+
+
+def kafka_nemesis_kw() -> dict:
+    n, k, cap, s = KAFKA_NEMESIS
+    return dict(n_keys=k, capacity=cap, max_sends=s, rounds=12,
+                provenance=True)
+
+
+def cpu_kafka_nemesis() -> tuple:
+    """kafka_nemesis_4k's CPU twins: the pull and push runners' results
+    and the device-KV campaign's final state, on the port's CPU path."""
+    import torch
+
+    from gossip_glomers_tpu_torch.harness import nemesis
+    from gossip_glomers_tpu_torch.tpu_sim import faults, kafka
+
+    torch.set_num_threads(SMALL_TWIN_THREADS)
+    n, k, cap, s = KAFKA_NEMESIS
+    spec = kafka_nemesis_spec(faults)
+    clear = max(spec.clear_round, 12)
+    kw = kafka_nemesis_kw()
+    results = {way: nemesis.run_kafka_nemesis(spec, resync_mode=way,
+                                              device="cpu", **kw)
+               for way in ("pull", "push")}
+    sim = kafka.KafkaSim(n, k, cap, max_sends=s, device="cpu",
+                         fault_plan=spec.compile("cpu"), resync_every=4,
+                         kv_backend="device")
+    staged = nemesis.stage_kafka_ops(spec, clear, n_keys=k, max_sends=s)
+    st = nemesis.kafka_campaign(sim, spec, staged, clear)[0]
+    return results, st
+
+
 
 
 def same_result(a: dict, b: dict) -> bool:
@@ -4171,6 +4271,64 @@ def check_prov(kernels, note, device) -> None:
         torch.cuda.empty_cache()
 
 
+# a rank's rows of a mesh round: (nodes, words, values, directions) cut
+# into 2 and 4 row blocks, each stamped against the whole source rows
+# (what a mesh round all-gathers), in flag mode and in slot mode over a
+# stack of widened ring slots
+PROV_BLOCK_SHAPES = ((4096, 2, 45, 5), (1 << 16, 1, 32, 8))
+PROV_BLOCK_MODES = ("plan_dup", "partitions", "delays_plan")
+PROV_BLOCK_SHARDS = (2, 4)
+
+
+def prov_block_case(case: dict, shards: int, r: int) -> dict:
+    """Rank ``r``'s part of a :func:`prov_case` over ``shards`` row blocks:
+    its rows of the new bits, table, stamps and edge bytes; the source
+    rows (and dup rows) whole, the table's ids global."""
+    b = case["new"].shape[0] // shards
+    rows = slice(r * b, (r + 1) * b)
+
+    def cut(x):
+        return x[rows].contiguous()
+
+    return dict(case, new=cut(case["new"]), nbrs=cut(case["nbrs"]),
+                arrival=cut(case["arrival"]), parent=cut(case["parent"]),
+                edges={k: v if k == "dup" else cut(v)
+                       for k, v in case["edges"].items()})
+
+
+def prov_block_pairs(kernels, case: dict, shards: int) -> list:
+    """``[(kernel, plain)]`` of every rank's block of ``case``
+    (:func:`prov_block_case`), then of the blocks' stamps combined
+    against the kernel on the whole problem."""
+    import torch
+
+    out, arrs, pars = [], [], []
+    for r in range(shards):
+        pairs = prov_pairs(kernels, prov_block_case(case, shards, r))
+        out += pairs
+        arrs.append(pairs[0][0])
+        pars.append(pairs[1][0])
+    whole = prov_pairs(kernels, case)
+    return out + [(torch.cat(arrs), whole[0][0]),
+                  (torch.cat(pars), whole[1][0])]
+
+
+def check_prov_blocks(kernels, note, device) -> None:
+    """``prov_attribute`` on a rank's rows (fewer rows than sources)
+    against its plain version, and 2 and 4 blocks combined against the
+    whole problem, in :data:`PROV_BLOCK_MODES`."""
+    import torch
+
+    for i, (n, w, nv, d) in enumerate(PROV_BLOCK_SHAPES):
+        for mode in PROV_BLOCK_MODES:
+            case = prov_case(kernels, mode, n, w, nv, d, 53 * i + len(mode),
+                             device)
+            for shards in PROV_BLOCK_SHARDS:
+                note("prov_attribute", *prov_block_pairs(kernels, case,
+                                                         shards))
+        torch.cuda.empty_cache()
+
+
 def prov_capture(kernels, rounds):
     """``(wrapped, kept)``: a stand-in for :func:`kernels.prov_attribute`
     that keeps copies of its arguments at the ``rounds`` it stamps (the
@@ -4276,16 +4434,17 @@ def time_prov(kernels, case: dict) -> dict:
 PROV_VALUES = 16
 
 
-def tree_prov_sim(broadcast, topology, faults, n: int, device):
+def tree_prov_sim(broadcast, topology, faults, n: int, device, mesh=None):
     """The provenance campaign's sim: the 4-ary tree through the gather
     path (D = 5) under :func:`tree_nemesis_spec`, :data:`PROV_VALUES`
-    values, sync waves every 8 rounds, as harness/nemesis.py builds
-    it."""
+    values, sync waves every 8 rounds, as harness/nemesis.py builds it
+    (on ``mesh`` a rank's rows of it)."""
     nbrs = topology.to_padded_neighbors(topology.tree(n, branching=BRANCHING))
+    place = dict(device=device) if mesh is None else dict(mesh=mesh)
     return broadcast.BroadcastSim(
         nbrs, n_values=PROV_VALUES, sync_every=8, srv_ledger=False,
-        fault_plan=tree_nemesis_spec(faults, n).compile(device),
-        device=device)
+        fault_plan=tree_nemesis_spec(faults, n).compile(
+            device if mesh is None else mesh.device), **place)
 
 
 def nemesis_tree_1m_provenance(modules, device, launches: Launches,
@@ -4344,6 +4503,10 @@ def nemesis_tree_1m_provenance(modules, device, launches: Launches,
     plain, ms_off = event_ms(trip_off())
     obs, ms_on = event_ms(trip_on())
     same_received = bool(torch.equal(plain.received, obs.received))
+    # what mesh_provenance_batches's ranks are held against
+    MESH_PROV_ONE["tree"] = {"result": prov_result(on), "rounds": rounds,
+                             "blocks": row_blocks(plain.received,
+                                                  MESH_RANKS)}
     del plain, obs
     busy_off, spans_off = busy_and_spans(trip_off)
     busy_on, spans_on = busy_and_spans(trip_on)
@@ -4397,6 +4560,22 @@ def nemesis_tree_1m_provenance(modules, device, launches: Launches,
     times["prov_attribute"][(1, n)] = dict(
         rec["kernel"][f"round_{PROV_CAPTURE_ROUNDS[0]}"])
     times["prov_attribute"][(1, n)]["also"] = rec["kernel"]
+    # and over a rank's rows of that round (a mesh of MESH_RANKS: its
+    # rows' stamps against the whole all-gathered payload), the rank
+    # whose rows the round's new bits land in most
+    whole = kept[PROV_CAPTURE_ROUNDS[0]]
+    rows = n // MESH_RANKS
+    r = max(range(MESH_RANKS), key=lambda q: int(kernels.popcount(
+        whole["new"][q * rows:(q + 1) * rows]).sum()))
+    case = prov_block_case(whole, MESH_RANKS, r)
+    blk = time_prov(kernels, case)
+    blk["max_abs_err"] = max(max_abs_err(x, y)
+                             for x, y in prov_pairs(kernels, case))
+    blk.update(rows=rows, sources=n, rank=r)
+    times["prov_attribute_block"] = {(1, n // MESH_RANKS): blk}
+    rec["kernel"]["rank_rows"] = blk
+    if blk["max_abs_err"]:
+        rec["ok"] = False
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"nemesis_tree_1m_provenance: {rec}")
@@ -4451,6 +4630,7 @@ def nemesis_counter_128k_provenance(nemesis, faults, kernels, device,
                      and (off["converged_round"], off["kv"],
                           off["msgs_total"])
                      == (on["converged_round"], on["kv"], on["msgs_total"]))
+    MESH_PROV_ONE["counter"] = prov_result(on)
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"nemesis_counter_128k_provenance: {rec}")
@@ -4512,6 +4692,10 @@ def kafka_sweep_point_provenance(kafka, nemesis, faults, kernels, device,
                problems=det["problems"][:3])
     rec["ok"] = (rec["same_state"] and det["n_allocated"] > 0
                  and rec["n_alloc_stamps"] == allocated_slots(obs))
+    b = n // MESH_RANKS
+    MESH_PROV_ONE["kafka"] = {
+        "blocks": [kafka_digests(obs, r * b, b) for r in range(MESH_RANKS)],
+        "prov": array_digest(PV.arrays_of(prov))}
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"kafka_sweep_point_provenance: {rec}")
@@ -4830,11 +5014,32 @@ def serving_row(row: dict) -> dict:
             "msgs_total": row["msgs_total"]}
 
 
-def replay(sim, kind: str, serving, telemetry, tspec, rounds: int, tsp):
+def device_clone(x):
+    """``x`` with every tensor in it cloned where it lies (dataclasses,
+    named tuples, tuples and lists)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: device_clone(getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(device_clone(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(device_clone(v) for v in x)
+    return x
+
+
+def replay(sim, kind: str, serving, telemetry, tspec, rounds: int, tsp,
+           fresh=None):
     """``rounds`` rounds of ``tspec`` from a fresh state in one
     ``run_traffic`` call with the ring on: the state a serving run of
-    that many rounds ends in (its drive calls are the same rounds)."""
-    st = serving._fresh_state(kind, sim)
+    that many rounds ends in (its drive calls are the same rounds).
+    ``fresh``: the sim's fresh state, staged once (cloned here)."""
+    st = (serving._fresh_state(kind, sim) if fresh is None
+          else device_clone(fresh))
     return sim.run_traffic(st, sim.traffic_state(tspec), tspec, rounds,
                            donate=True, tel=telemetry.init_state(
                                tsp, device=sim.device), tel_spec=tsp)
@@ -4882,15 +5087,17 @@ def top_spans(spans: list, rounds: int, k: int = 6) -> list:
             sorted(by.items(), key=lambda kv: -kv[1][0])[:k]]
 
 
-def serving_timed(kernels, serving, sim, kind: str, tspec) -> dict:
+def serving_timed(kernels, serving, sim, kind: str, tspec, fresh) -> dict:
     """The driven phase (``until`` rounds from a fresh state, no ring) on
     the card: CUDA-event wall (median of 2 after a warm-up), device busy
     time and spans under the profiler with the span kinds that took the
     most of it (:func:`top_spans`), port launches of one trip
     (:data:`TRIP_LAUNCHES`; ``trip_launches`` by kernel), and whether it
-    runs with no host sync."""
+    runs with no host sync.  ``fresh``: the sim's fresh state, staged
+    once and cloned on the card for each trip (a 2^20-node, W = 256
+    state is 1 GiB a bitset, seconds to stage from the host)."""
     def stage():
-        st = serving._fresh_state(kind, sim)
+        st = device_clone(fresh)
         ts = sim.traffic_state(tspec)
         return lambda: sim.run_traffic(st, ts, tspec, tspec.until,
                                        donate=True)
@@ -4923,8 +5130,11 @@ def serving_timed(kernels, serving, sim, kind: str, tspec) -> dict:
 
 
 # the threads of a background CPU twin: it shares the host's cores with
-# the phases that run meanwhile
+# the phases that run meanwhile (the serving twin's; the shorter twins of
+# the circulant, Kafka and txn phases take one, to crowd those phases
+# less: they finish long before their lines are due)
 TWIN_THREADS = 2
+SMALL_TWIN_THREADS = 1
 TWIN_TIMEOUT_S = 900.0
 
 
@@ -5021,6 +5231,27 @@ class BackgroundTwin:
             shutil.rmtree(self.dir, ignore_errors=True)
 
 
+# records whose CPU twin still runs in the background: (record, twin,
+# hold), ``hold(record, the twin's result)`` filling in the verdict
+PENDING: list = []
+
+
+def finish_pending() -> None:
+    """Hold each pending record against its background CPU twin, then
+    emit it (the records' phases ran earlier: their lines come last)."""
+    for rec, twin, hold in PENDING:
+        t0 = time.perf_counter()
+        out = twin.result()
+        rec.update(twin="cpu, in a background process",
+                   twin_wait_s=time.perf_counter() - t0,
+                   twin_s=twin.seconds)
+        hold(rec, out)
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"{rec['phase']}: {rec}")
+    PENDING.clear()
+
+
 def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
                     twin_rates, modules, device, launches: Launches,
                     card: str, *, nemesis_kw=None, max_recovery_rounds=96,
@@ -5068,8 +5299,9 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
         pending = BackgroundTwin(cpu_serving_ends, (
             kind, tkw, float(max(rates)), sim_kw,
             [(float(r), rows[r]["total_rounds"]) for r in twin_rates]))
+    fresh = serving._fresh_state(kind, sim)
     rec["timed"] = serving_timed(kernels, serving, sim, kind,
-                                 spec0.with_rate(float(rates[0])))
+                                 spec0.with_rate(float(rates[0])), fresh)
     missing = [k for k in SERVING_EXPECT[kind]
                if k not in rec["timed"]["trip_launches"]]
     if missing:
@@ -5081,7 +5313,7 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
         tsp = telemetry.TelemetrySpec(kind, rounds=rows[r]["total_rounds"],
                                       traffic=True)
         ends[r] = replay(sim, kind, serving, telemetry, tspec,
-                         rows[r]["total_rounds"], tsp)
+                         rows[r]["total_rounds"], tsp, fresh)
         got = traffic.latency_summary(ends[r][1])
         if any(got[k] != rows[r][k] for k in got):
             raise AssertionError(f"{name}: the replay of rate {r} ends "
@@ -5107,7 +5339,7 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
         rec["twin_rates"] = list(twin_rates)
         rec["twin_match"] = None
         rec["_pending"] = (pending, [host_copy(ends[r]) for r in twin_rates])
-        del sim, ends
+        del sim, ends, fresh
         torch.cuda.empty_cache()
         return rec
     if twin is None:
@@ -5139,7 +5371,7 @@ def serve_and_check(name: str, kind: str, tkw: dict, rates, sim_kw: dict,
             [cr["ok"], cr["n_lost_writes"]]
             == [rows[r]["ok"], rows[r]["n_lost_writes"]]
             for cr, r in zip(cpu_rows, twin_rates))
-    del sim, csim, ends
+    del sim, csim, ends, fresh
     torch.cuda.empty_cache()
     return rec
 
@@ -5843,13 +6075,12 @@ def txn_nemesis_spec(faults, kvstore, n: int, amnesia: bool):
     return faults.NemesisSpec.from_meta(meta)
 
 
-def txn_campaign_twin(txn, htxn, spec, kv_amnesia: bool, result: dict):
+def txn_campaign_twin(txn, htxn, spec, kv_amnesia: bool) -> tuple:
     """``run_txn_nemesis``'s rounds on the port's CPU path (the faulted
-    phase to the clear round, then a round at a time to convergence),
-    held against the card's ``result``: the converged round, the ledger,
-    the final registers and the per-transaction stamps (the result's
-    record of the whole state but the per-op records, which the verdict
-    certifies)."""
+    phase to the clear round, then a round at a time to convergence): the
+    converged round, the ledger, the final registers and the
+    per-transaction stamps (the result's record of the whole state but
+    the per-op records, which the verdict certifies)."""
     sim = txn.TxnSim(spec.n_nodes, TXN_KEYS, txns_per_node=TXN_T,
                      ops_per_txn=TXN_O, rate=TXN_RATE, until=TXN_UNTIL,
                      fault_plan=spec.compile(device="cpu"),
@@ -5863,11 +6094,31 @@ def txn_campaign_twin(txn, htxn, spec, kv_amnesia: bool, result: dict):
             conv = st.t
     final = {str(k): list(v)
              for k, v in txn.final_registers(st, sim.layout).items()}
+    return conv, int(st.msgs), final, htxn.txn_provenance_arrays(st)
+
+
+def cpu_txn_campaigns() -> list:
+    """txn_nemesis_64k's CPU twins (a background process): the plain and
+    the ``kv_amnesia`` campaign's :func:`txn_campaign_twin`."""
+    import torch
+
+    from gossip_glomers_tpu_torch.harness import txn as htxn
+    from gossip_glomers_tpu_torch.tpu_sim import faults, kvstore, txn
+
+    torch.set_num_threads(SMALL_TWIN_THREADS)
+    return [txn_campaign_twin(txn, htxn, txn_nemesis_spec(
+        faults, kvstore, TXN_NODES, amnesia), amnesia)
+        for amnesia in (False, True)]
+
+
+def same_txn_campaign(twin: tuple, result: dict) -> bool:
+    """A CPU twin's campaign (:func:`txn_campaign_twin`) equals the card's
+    ``run_txn_nemesis`` result."""
+    conv, msgs, final, prov = twin
     return (conv == result["converged_round"]
-            and int(st.msgs) == result["msgs_total"]
+            and msgs == result["msgs_total"]
             and final == result["final_registers"]
-            and htxn.txn_provenance_arrays(st)
-            == result["provenance"]["arrays"])
+            and prov == result["provenance"]["arrays"])
 
 
 def txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
@@ -5879,10 +6130,11 @@ def txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
     transaction ids, and write its flight bundle into a temporary
     directory); and that bundle replayed on the card (the same
     ``by_kind``, ``first_divergence_round`` None).  The first two each
-    equal their rounds on the port's CPU path
-    (:func:`txn_campaign_twin`)."""
+    equal their rounds on the port's CPU path (:func:`cpu_txn_campaigns`,
+    in a background process; the line comes at the end)."""
     import tempfile
 
+    twin = BackgroundTwin(cpu_txn_campaigns, ())
     kw = dict(n_keys=TXN_KEYS, txns_per_node=TXN_T, ops_per_txn=TXN_O,
               rate=TXN_RATE, until=TXN_UNTIL,
               max_recovery_rounds=TXN_MAX_RECOVERY)
@@ -5916,19 +6168,24 @@ def txn_nemesis_64k(txn, htxn, observe, faults, kvstore, kernels, device,
             bundle_bytes=os.path.getsize(bad["flight_bundle"]),
             wall_ms_amnesia=wall_bad, wall_ms_replay=wall_replay,
             replay_by_kind=replay["serializability"]["by_kind"],
-            replay_first_divergence_round=replay["first_divergence_round"],
-            same_as_cpu=(txn_campaign_twin(txn, htxn, spec, False, good)
-                         and txn_campaign_twin(txn, htxn, bad_spec, True,
-                                               bad)))
-    rec["ok"] = bool(
+            replay_first_divergence_round=replay["first_divergence_round"])
+    card_ok = bool(
         good["ok"] and good["serializable"] and good["n_lost_writes"] == 0
         and not bad["ok"] and lost and all(p["txns"] for p in lost)
         and rec["replay_by_kind"] == rec["amnesia_by_kind"]
-        and not replay["ok"] and replay["first_divergence_round"] is None
-        and rec["same_as_cpu"])
-    emit(rec)
-    if not rec["ok"]:
+        and not replay["ok"] and replay["first_divergence_round"] is None)
+    if not card_ok:
         raise AssertionError(f"txn_nemesis_64k: {rec}")
+    results = [{k: r[k] for k in ("converged_round", "msgs_total",
+                                  "final_registers", "provenance")}
+               for r in (good, bad)]
+
+    def hold(rec, cpu):
+        rec["same_as_cpu"] = all(same_txn_campaign(c, r)
+                                 for c, r in zip(cpu, results))
+        rec["ok"] = rec["same_as_cpu"]
+
+    PENDING.append((rec, twin, hold))
 
 
 # flight_bundles: small failing campaigns, one a runner (a recovery budget
@@ -6583,6 +6840,9 @@ def scenario_broadcast_256x1024(modules, device, launches: Launches,
     launches.start()
     res, t = timed_trip(scenario, kernels, batch, device)
     res1, t1 = timed_trip(scenario, kernels, one_hop, device)
+    MESH_PROV_ONE["wide"] = {"rows": res1["scenarios"],
+                             "rounds": res1["rounds"],
+                             "launches_per_round": t1["launches_per_round"]}
     launches.stop(rec, BATCH_EXPECT + ("gather_or",
                                        "faulted_gather_round_batched"))
     rec.update(t)
@@ -6687,9 +6947,10 @@ def scenario_looped_phases(modules, device, launches: Launches,
                                       horizon=LOOP_HORIZON)
         batch = scenario.ScenarioBatch(workload=wl, scenarios=tuple(cells),
                                        runner_kw=kw, max_recovery_rounds=mrr)
-        _, rec = looped_phase(name, scenario, kernels, batch, device,
-                              launches, card, expect,
-                              {"horizon": LOOP_HORIZON, "runner_kw": kw})
+        res, rec = looped_phase(name, scenario, kernels, batch, device,
+                                launches, card, expect,
+                                {"horizon": LOOP_HORIZON, "runner_kw": kw})
+        MESH_PROV_ONE[name] = res["scenarios"]
         rec["ok"] = rec["cpu_equal"]
         emit(rec)
         if not rec["ok"]:
@@ -6700,6 +6961,7 @@ def scenario_looped_phases(modules, device, launches: Launches,
     res, rec = looped_phase("scenario_txn", scenario, kernels, batch, device,
                             launches, card, ("txn_claim", "txn_commit"),
                             {"runner_kw": scenario._txn_kw(batch)})
+    MESH_PROV_ONE["scenario_txn"] = res["scenarios"]
     rec["all_serializable"] = all(r["serializable"]
                                   for r in res["scenarios"])
     rec["n_committed"] = sum(r["n_committed"] for r in res["scenarios"])
@@ -7123,6 +7385,7 @@ def frontier_grid_256(modules, device, launches: Launches, card: str,
     launches.stop(rec, ("fault_coins", "faulted_gather_round", "and_fold"))
     observe.validate_frontier(rep)
     observe.validate_frontier(bad)
+    MESH_PROV_ONE["frontier"] = strip_frontier(rep)
     differ = [i for i, (row, cell) in enumerate(zip(batch_rows,
                                                     rep["cells"]))
               if any(cell.get(k) != v for k, v in row.items())]
@@ -7218,6 +7481,9 @@ def fuzz_campaigns(modules, device, launches: Launches, card: str) -> None:
                         "fold_freeze", "counter_select", "kafka_merge"))
     planted = next(s for s in runs["broadcast"]["shrinks"]
                    if s["original"]["spec"]["seed"] == 424242)
+    MESH_PROV_ONE["fuzz"] = {
+        "rows": [r for r in runs["broadcast"]["rows"] if r["batch"] == 0],
+        "planted": {k: v for k, v in planted.items() if k != "bundle"}}
     sig = {k: (tuple(v) if isinstance(v, list) else v)
            for k, v in planted["signature"].items()}
     replays = [observe.replay_bundle(planted["bundle"], device=dev)
@@ -8599,10 +8865,546 @@ def mesh_txn_serving_phase(htxn, faults, kvstore, launches: Launches,
     torch.cuda.empty_cache()
 
 
-def mesh_rank_work(mesh, seed: int, rounds: dict, txn_ops) -> dict:
+# -- provenance and scenario batches on the mesh ---------------------------
+#
+# mesh_provenance_batches: its ranks run in the mesh world
+# (_mesh_prov_batches_rank); the parent holds them, after fuzz_campaigns,
+# against the one-process card runs the earlier phases keep here
+# (MESH_PROV_ONE), and against one-process card runs it makes itself (the
+# replayed bundle's, the txn frontier's).
+MESH_PROV_ONE: dict = {}
+MESH_PROV: dict = {}
+# the tree campaign's census trips: the campaign's rounds, plain and with
+# the record, on the mesh sim
+MESH_PROV_EXPECT = ("prov_attribute", "fault_coins", "faulted_gather_round",
+                    "fault_coins_batched", "faulted_gather_round_batched",
+                    "fold_freeze", "counter_select", "counter_apply",
+                    "kafka_merge", "kafka_nem_deliver", "txn_claim",
+                    "txn_commit", "and_fold")
+# the counter census trip's rounds
+MESH_PROV_COUNTER_ROUNDS = 12
+# the replayed bundle: a one-process card campaign under the tree plan at
+# 4,096 nodes, provenance and telemetry on, no recovery budget (it fails)
+MESH_REPLAY_NODES = 4096
+# the mesh fuzz campaign: fuzz_campaigns' broadcast run cut to its first
+# batch (the planted seed is its scenario 0), one shrink
+MESH_FUZZ_S = 128
+# the txn frontier: 8 crash + loss specs at 64 nodes, two rates
+MESH_TXN_FRONTIER = dict(n_keys=16, txns_per_node=4, until=8,
+                         max_recovery_rounds=64)
+MESH_TXN_FRONTIER_RATES = (0.3, 0.7)
+
+
+def txn_frontier_specs(faults) -> list:
+    return [faults.random_spec(64, seed=s, horizon=8, n_crash_windows=1,
+                               loss_rate=0.1) for s in range(8)]
+
+
+def array_digest(arrays: dict) -> dict:
+    """{field: sha256 of its int32 bytes}: a record whole, small."""
+    import hashlib
+
+    import numpy as np
+
+    return {k: hashlib.sha256(np.ascontiguousarray(
+        np.asarray(v, np.int32)).tobytes()).hexdigest()
+        for k, v in sorted(arrays.items())}
+
+
+def prov_result(res: dict) -> dict:
+    """A nemesis runner's result with its provenance arrays replaced by
+    their digests (the rest as it is)."""
+    out = dict(res)
+    if "provenance" in out:
+        entry = dict(out["provenance"])
+        entry["arrays"] = array_digest(entry["arrays"])
+        out["provenance"] = entry
+    return out
+
+
+def row_blocks(x, shards: int) -> list:
+    """:func:`card_digest` of each of ``shards`` row blocks of a
+    node-major tensor, at its global offset."""
+    b = x.shape[0] // shards
+    width = x[0].numel()
+    return [card_digest(x[r * b:(r + 1) * b], r * b * width)
+            for r in range(shards)]
+
+
+def _counted(mesh, fn):
+    """``(result, seconds, collective calls, launches)`` of ``fn()`` on a
+    rank, its clock started with the others'."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import kernels
+
+    mesh.agree(True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    before = dict(mesh.calls)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, _calls_delta(mesh, before),
+            dict(kernels.LAUNCHES))
+
+
+def _mesh_prov_batches_rank(mesh, args: dict) -> dict:
+    """mesh_provenance_batches's rank side (module docstring): the three
+    provenance runs and their census trips, the one-hop wide batch, the
+    looped batches, the frontier, the fuzz campaign, the replay and the
+    txn frontier on the mesh."""
+    import numpy as np
+    import torch
+
+    from gossip_glomers_tpu_torch.harness import frontier, fuzz, nemesis
+    from gossip_glomers_tpu_torch.harness import observe
+    from gossip_glomers_tpu_torch.harness import txn as htxn
+    from gossip_glomers_tpu_torch.parallel import topology
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, counter,
+                                                  faults, kafka)
+    from gossip_glomers_tpu_torch.tpu_sim import provenance as PV
+    from gossip_glomers_tpu_torch.tpu_sim import scenario
+
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    out = {}
+    # the main path's tree under the provenance campaign's plan, each
+    # host certificate this rank runs timed (rank 0 alone certifies)
+    n = N_NODES
+    spec = tree_nemesis_spec(faults, n)
+    certify_s = []
+    real_check = nemesis.check_provenance
+
+    def timed_check(*a, **kw):
+        t0 = time.perf_counter()
+        verdict = real_check(*a, **kw)
+        certify_s.append(time.perf_counter() - t0)
+        return verdict
+
+    nemesis.check_provenance = timed_check
+    try:
+        res, wall, calls, launched = _counted(
+            mesh, lambda: nemesis.run_broadcast_nemesis(
+                spec, n_values=PROV_VALUES, topology="tree", sync_every=8,
+                telemetry=True, provenance=True, mesh=mesh))
+    finally:
+        nemesis.check_provenance = real_check
+    out["tree"] = {"result": prov_result(res), "wall_s": wall,
+                   "calls": calls, "launches": launched,
+                   "certify_s": certify_s}
+    rounds = res["converged_round"]
+    del res
+    sim = tree_prov_sim(broadcast, topology, faults, n, None, mesh=mesh)
+    inject = broadcast.make_inject(n, PROV_VALUES)
+    psp = PV.ProvenanceSpec("broadcast")
+    st, wall, calls, launched = _counted(
+        mesh, lambda: sim.run_staged_fixed(sim.init_state(inject), rounds,
+                                           donate=True))
+    plain = {"wall_s": wall, "calls": calls, "launches": launched,
+             "received": card_digest(st.received,
+                                     mesh.rank * st.received.numel())}
+    del st
+    (st, prov), wall, calls, launched = _counted(
+        mesh, lambda: sim.run_observed(
+            sim.init_state(inject), None, None, rounds, donate=True,
+            prov=sim.provenance_state(psp, inject), prov_spec=psp))
+    out["tree_trips"] = {
+        "rounds": rounds, "plain": plain,
+        "observed": {"wall_s": wall, "calls": calls, "launches": launched,
+                     "received": card_digest(
+                         st.received, mesh.rank * st.received.numel())}}
+    del sim, st, prov
+    torch.cuda.empty_cache()
+    # the counter campaign and its census trips
+    cn = COUNTER_NEMESIS_NODES
+    cspec = counter_nemesis_spec(faults, cn)
+    deltas = np.random.default_rng(0).integers(0, 10, cn).astype(np.int32)
+    res, wall, calls, launched = _counted(
+        mesh, lambda: nemesis.run_counter_nemesis(
+            cspec, mode="allreduce", deltas=deltas,
+            union_block=COUNTER_PROV_BLOCK, telemetry=True, provenance=True,
+            mesh=mesh))
+    out["counter"] = {"result": prov_result(res), "wall_s": wall,
+                      "calls": calls, "launches": launched}
+    csim = counter.CounterSim(cn, mode="allreduce",
+                              fault_plan=cspec.compile(mesh.device),
+                              union_block=COUNTER_PROV_BLOCK, mesh=mesh)
+    cpsp = PV.ProvenanceSpec("counter")
+    r = MESH_PROV_COUNTER_ROUNDS
+    _, _, c_plain, _ = _counted(mesh, lambda: csim.run_fused(
+        csim.add(csim.init_state(), deltas), r))
+    _, _, c_obs, _ = _counted(mesh, lambda: csim.run_observed(
+        csim.add(csim.init_state(), deltas), None, None, r, donate=True,
+        prov=csim.provenance_state(cpsp), prov_spec=cpsp))
+    out["counter_trips"] = {"rounds": r, "plain": c_plain, "observed": c_obs}
+    del csim
+    # the Kafka sweep point
+    kn, k, cap, sends, block, kr = KAFKA_PROV_POINT
+    kspec = faults.NemesisSpec(n_nodes=kn, seed=5,
+                               crash=((0, kr, tuple(range(0, kn, 97))),),
+                               loss_rate=0.1, loss_until=kr)
+    sks, svs, _ = nemesis.stage_kafka_ops(kspec, kr, n_keys=k,
+                                          max_sends=sends, workload_seed=0,
+                                          commits=False)
+    ksim = kafka.KafkaSim(kn, k, cap, max_sends=sends,
+                          fault_plan=kspec.compile(mesh.device),
+                          resync_every=4, union_block=block, mesh=mesh)
+    kpsp = PV.ProvenanceSpec("kafka")
+    kst, k_wall_plain, k_plain, _ = _counted(
+        mesh, lambda: ksim.run_rounds(ksim.init_state(), sks, svs))
+    plain_digest = kafka_digests(kst, ksim._row0)
+    del kst
+    (kst, kprov), k_wall, k_obs, k_launched = _counted(
+        mesh, lambda: ksim.run_observed(
+            ksim.init_state(), None, None, sks, svs,
+            prov=ksim.provenance_state(kpsp), prov_spec=kpsp))
+    out["kafka"] = {"rounds": kr, "plain": plain_digest,
+                    "observed": kafka_digests(kst, ksim._row0),
+                    "prov": array_digest(PV.arrays_of(kprov)),
+                    "wall_s_plain": k_wall_plain, "wall_s": k_wall,
+                    "calls_plain": k_plain, "calls": k_obs,
+                    "launches": k_launched}
+    del ksim, kst, kprov
+    torch.cuda.empty_cache()
+    # the wide one-hop batch: 256 scenarios, 64 a rank
+    batch = wide_batch(scenario, faults, topology)
+    one_hop = dataclasses.replace(batch, scenarios=tuple(
+        dataclasses.replace(sc, delays=None) for sc in batch.scenarios))
+    handle, trip_s, trip_calls, trip = _counted(
+        mesh, lambda: scenario.dispatch_scenario_batch(one_hop, mesh=mesh))
+    rows, collect_s, collect_calls, _ = _counted(
+        mesh, lambda: scenario.collect_scenario_batch(handle)["scenarios"])
+    out["wide"] = {"rows": rows, "rounds": handle["rounds"],
+                   "local_scenarios": handle["s_count"],
+                   "trip_s": trip_s, "collect_s": collect_s,
+                   "trip_calls": trip_calls, "collect_calls": collect_calls,
+                   "launches": trip}
+    del handle, batch, one_hop
+    torch.cuda.empty_cache()
+    # the looped batches
+    for name, wl, seed, kw, mrr in (
+            ("scenario_counter_fuzz", "counter", 2,
+             {"mode": "cas", "poll_every": 2}, 48),
+            ("scenario_kafka_fuzz", "kafka", 3, KAFKA_FUZZ_KW, 32),
+            ("scenario_txn", "txn", 4, None, None)):
+        if wl == "txn":
+            cells = fuzz.sample_scenarios("txn", TXN_FUZZ_S,
+                                          n_nodes=TXN_FUZZ_N, seed=seed,
+                                          horizon=LOOP_HORIZON)
+            lb = scenario.ScenarioBatch(workload="txn",
+                                        scenarios=tuple(cells))
+        else:
+            cells = fuzz.sample_scenarios(wl, LOOP_S, n_nodes=LOOP_N,
+                                          seed=seed, horizon=LOOP_HORIZON)
+            lb = scenario.ScenarioBatch(workload=wl, scenarios=tuple(cells),
+                                        runner_kw=kw,
+                                        max_recovery_rounds=mrr)
+        res, wall, calls, launched = _counted(
+            mesh, lambda: scenario.run_scenario_batch(lb, mesh=mesh))
+        out[name] = {"rows": res["scenarios"], "wall_s": wall,
+                     "calls": calls, "launches": launched,
+                     "trips": res["trips"]}
+    # the 256-cell frontier, 64 cells a rank
+    cells = frontier.frontier_grid("broadcast", **FRONTIER_GRID)
+    rep, wall, calls, launched = _counted(
+        mesh, lambda: frontier.run_frontier(
+            "broadcast", cells, max_recovery_rounds=12, drain_every=4,
+            n_windows=2, signatures=True, mesh=mesh))
+    out["frontier"] = {"report": strip_frontier(rep), "wall_s": wall,
+                       "calls": calls, "launches": launched}
+    # fuzz_campaigns' first broadcast batch, the planted seed shrunk on
+    # the mesh (its candidate runs, bundle and replay collective)
+    res, wall, calls, launched = _counted(
+        mesh, lambda: fuzz.fuzz_run(
+            "broadcast", MESH_FUZZ_S, n_nodes=24, batch_size=128, horizon=8,
+            max_recovery_rounds=48, seed=1, plant_failure=True,
+            max_shrinks=1, observe_dir=args["fuzz_dir"], mesh=mesh))
+    out["fuzz"] = {"rows": res["rows"],
+                   "planted": {k: v for k, v in res["shrinks"][0].items()
+                               if k != "bundle"},
+                   "bundle": os.path.basename(res["shrinks"][0]["bundle"]),
+                   "wall_s": wall, "calls": calls, "launches": launched}
+    # a one-process card run's bundle, replayed on the mesh
+    res, wall, calls, launched = _counted(
+        mesh, lambda: observe.replay_bundle(args["bundle"], mesh=mesh))
+    out["replay"] = {"result": prov_result(res), "wall_s": wall,
+                     "calls": calls, "launches": launched}
+    # the txn frontier: 8 specs a rate, 2 a rank
+    res, wall, calls, launched = _counted(
+        mesh, lambda: htxn.run_txn_frontier(
+            MESH_TXN_FRONTIER_RATES, txn_frontier_specs(faults), mesh=mesh,
+            **MESH_TXN_FRONTIER))
+    out["txn_frontier"] = {"result": res, "wall_s": wall, "calls": calls,
+                           "launches": launched}
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def mesh_prov_setup(device) -> dict:
+    """Before the world: the bundle its ranks replay, written by a
+    one-process card campaign (:data:`MESH_REPLAY_NODES` nodes under the
+    tree plan, provenance and telemetry on, no recovery budget), whose
+    result is kept; the fuzz campaign's directory, which every rank sees
+    (one file system: the ranks agree on each bundle's name, rank 0
+    writes it)."""
+    from gossip_glomers_tpu_torch.harness import nemesis
+    from gossip_glomers_tpu_torch.tpu_sim import faults
+
+    t0 = time.perf_counter()
+    res = nemesis.run_broadcast_nemesis(
+        tree_nemesis_spec(faults, MESH_REPLAY_NODES), n_values=PROV_VALUES,
+        topology="tree", sync_every=8, telemetry=True, provenance=True,
+        max_recovery_rounds=0, observe_dir=work_dir("mesh_replay"),
+        device=device)
+    path = res.pop("flight_bundle")
+    MESH_PROV_ONE["replay_source"] = prov_result(res)
+    MESH_PROV["setup_s"] = time.perf_counter() - t0
+    return {"bundle": path, "fuzz_dir": work_dir("mesh_fuzz")}
+
+
+def mesh_provenance_batches_phase(modules, launches: Launches, device,
+                                  card: str) -> None:
+    """mesh_provenance_batches (module docstring): the ranks' runs, kept
+    by :func:`mesh_phases`, against the one-process card runs the earlier
+    phases kept (:data:`MESH_PROV_ONE`) and those made here (the replay
+    of the same bundle, the txn frontier); the census of each."""
+    import torch
+
+    htxn, observe, faults = modules
+    ranks, head = MESH_PROV["ranks"], MESH_PROV["head"]
+    rec = {"phase": "mesh_provenance_batches", **head,
+           "setup_s": MESH_PROV["setup_s"], "runs": {}}
+    one = MESH_PROV_ONE
+    counts = []
+
+    def held(name: str, got: list, want, what: str = "result") -> None:
+        for r, x in enumerate(got):
+            if x != want:
+                diff = ([k for k in want if x.get(k) != want.get(k)]
+                        if isinstance(want, dict) else "rows")
+                raise AssertionError(f"mesh_provenance_batches {name}: "
+                                     f"rank {r}'s {what} differs from the "
+                                     f"one-process card run in {diff}")
+
+    def calls_only(calls: dict, kinds) -> bool:
+        return all(not v or k in kinds for k, v in calls.items())
+
+    def nonzero(calls: dict) -> dict:
+        return {k: v for k, v in calls.items() if v}
+
+    # the tree campaign: result, stamps' digests, received blocks, census
+    per = [r["tree"] for r in ranks]
+    held("tree", [x["result"] for x in per], one["tree"]["result"])
+    trips = [r["tree_trips"] for r in ranks]
+    rounds = one["tree"]["rounds"]
+    for r, x in enumerate(trips):
+        want = one["tree"]["blocks"][r]
+        if not (x["rounds"] == rounds and x["plain"]["received"] == want
+                and x["observed"]["received"] == want):
+            raise AssertionError(f"mesh_provenance_batches tree: rank {r}'s "
+                                 "received block differs")
+        if x["observed"]["calls"] != x["plain"]["calls"]:
+            raise AssertionError(
+                f"mesh_provenance_batches tree: rank {r}'s record added "
+                f"collectives: {x['observed']['calls']} vs "
+                f"{x['plain']['calls']}")
+        if x["observed"]["launches"].get("prov_attribute") != rounds:
+            raise AssertionError(f"mesh_provenance_batches tree: rank {r} "
+                                 "did not stamp with the kernel each round")
+    if [len(x["certify_s"]) for x in per] != [1] + [0] * (MESH_RANKS - 1):
+        raise AssertionError("mesh_provenance_batches tree: the host "
+                             "certificate ran other than once, on rank 0")
+    res = per[0]["result"]
+    walls = [x["wall_s"] for x in per]
+    rec["runs"]["tree_1m"] = {
+        "n": N_NODES, "n_values": PROV_VALUES, "rounds": rounds,
+        "msgs_total": res["msgs_total"], "ok": res["ok"],
+        "provenance_problems": res["provenance"]["check"]["problems"][:3],
+        "stamp_digests": res["provenance"]["arrays"],
+        "wall_ms_by_rank": [w * 1e3 for w in walls],
+        "certified_by": "rank 0, verdict shared",
+        "certify_s_by_rank": [x["certify_s"] for x in per],
+        "trip_ms_plain": max(x["plain"]["wall_s"] for x in trips) * 1e3,
+        "trip_ms_observed": max(x["observed"]["wall_s"]
+                                for x in trips) * 1e3,
+        "collective_calls_per_round": _per_round(
+            trips[0]["observed"]["calls"], rounds),
+        "collective_calls_per_round_plain": _per_round(
+            trips[0]["plain"]["calls"], rounds),
+        "launches_per_round_rank0": _per_round(
+            trips[0]["observed"]["launches"], rounds),
+        "campaign_calls_rank0": per[0]["calls"],
+        "equals_one_process_card_run": True}
+    counts += [x["launches"] for x in per]
+    counts += [x["observed"]["launches"] for x in trips]
+    # the counter campaign: one all-reduce more a round
+    per = [r["counter"] for r in ranks]
+    held("counter", [x["result"] for x in per], one["counter"])
+    for r, x in enumerate(r["counter_trips"] for r in ranks):
+        extra = {k: x["observed"].get(k, 0) - x["plain"].get(k, 0)
+                 for k in set(x["observed"]) | set(x["plain"])}
+        if {k: v for k, v in extra.items() if v} != {
+                "all_reduce": x["rounds"]}:
+            raise AssertionError(f"mesh_provenance_batches counter: rank "
+                                 f"{r}'s record added {extra}, not one "
+                                 "all-reduce a round")
+    res = per[0]["result"]
+    rec["runs"]["counter_128k"] = {
+        "n": COUNTER_NEMESIS_NODES, "ok": res["ok"],
+        "converged_round": res["converged_round"], "kv": res["kv"],
+        "msgs_total": res["msgs_total"],
+        "wall_ms_by_rank": [x["wall_s"] * 1e3 for x in per],
+        "record_extra_calls_per_round": {"all_reduce": 1},
+        "equals_one_process_card_run": True}
+    counts += [x["launches"] for x in per]
+    # the Kafka point: each rank's block, the whole record, <= 2 more
+    per = [r["kafka"] for r in ranks]
+    for r, x in enumerate(per):
+        want = one["kafka"]["blocks"][r]
+        if not (x["plain"] == want and x["observed"] == want
+                and x["prov"] == one["kafka"]["prov"]):
+            raise AssertionError(f"mesh_provenance_batches kafka: rank {r} "
+                                 "differs from its block of the "
+                                 "one-process card run")
+        extra = {k: x["calls"].get(k, 0) - x["calls_plain"].get(k, 0)
+                 for k in set(x["calls"]) | set(x["calls_plain"])}
+        if not (calls_only(extra, ("all_reduce",))
+                and 0 < extra.get("all_reduce", 0) <= 2 * x["rounds"]):
+            raise AssertionError(f"mesh_provenance_batches kafka: rank {r}'s "
+                                 f"record added {extra}")
+    rec["runs"]["kafka_point"] = {
+        "point": list(KAFKA_PROV_POINT), "msgs": per[0]["observed"]["msgs"],
+        "wall_ms_plain": max(x["wall_s_plain"] for x in per) * 1e3,
+        "wall_ms_observed": max(x["wall_s"] for x in per) * 1e3,
+        "record_extra_calls": {k: per[0]["calls"].get(k, 0)
+                               - per[0]["calls_plain"].get(k, 0)
+                               for k in per[0]["calls"]},
+        "equals_one_process_card_run": True}
+    counts += [x["launches"] for x in per]
+    # the wide one-hop batch: rows, launches a round, no collective in
+    # the trip and one gather at collect
+    per = [r["wide"] for r in ranks]
+    held("wide", [x["rows"] for x in per], one["wide"]["rows"], "rows")
+    for r, x in enumerate(per):
+        want = fold_launches(None, x["rounds"])
+        got = {k: x["launches"].get(k, 0) for k in want}
+        if got != want or x["rounds"] != one["wide"]["rounds"]:
+            raise AssertionError(f"mesh_provenance_batches wide: rank {r} "
+                                 f"launched {got}, not {want}")
+        if any(x["trip_calls"].values()) or nonzero(x["collect_calls"]) \
+                != {"all_gather": 1}:
+            raise AssertionError(f"mesh_provenance_batches wide: rank {r}'s "
+                                 f"census {x['trip_calls']} / "
+                                 f"{x['collect_calls']}")
+    x = per[0]
+    rec["runs"]["scenario_broadcast_256x1024"] = {
+        "scenarios": WIDE_S, "scenarios_a_rank": x["local_scenarios"],
+        "rows_a_rank": x["local_scenarios"] * WIDE_N, "rounds": x["rounds"],
+        "trip_ms": max(y["trip_s"] for y in per) * 1e3,
+        "collect_ms": max(y["collect_s"] for y in per) * 1e3,
+        "launches_per_round_rank0": _per_round(x["launches"], x["rounds"]),
+        "launches_per_round_one_process":
+            one["wide"]["launches_per_round"],
+        "trip_calls": x["trip_calls"], "collect_calls": x["collect_calls"],
+        "equals_one_process_card_run": True}
+    counts += [y["launches"] for y in per]
+    # the looped batches
+    for name in ("scenario_counter_fuzz", "scenario_kafka_fuzz",
+                 "scenario_txn"):
+        per = [r[name] for r in ranks]
+        held(name, [x["rows"] for x in per], one[name], "rows")
+        for r, x in enumerate(per):
+            if nonzero(x["calls"]) != {"all_gather": 1}:
+                raise AssertionError(f"mesh_provenance_batches {name}: rank "
+                                     f"{r}'s calls {x['calls']}")
+        rec["runs"][name] = {
+            "scenarios": len(per[0]["rows"]),
+            "wall_ms_by_rank": [x["wall_s"] * 1e3 for x in per],
+            "trips": per[0]["trips"], "calls": per[0]["calls"],
+            "equals_one_process_card_run": True}
+        counts += [x["launches"] for x in per]
+    # the frontier
+    per = [r["frontier"] for r in ranks]
+    held("frontier", [x["report"] for x in per], one["frontier"])
+    rec["runs"]["frontier_256"] = {
+        "cells": per[0]["report"]["n_cells"], "cells_a_rank":
+            per[0]["report"]["n_cells"] // MESH_RANKS,
+        "wall_ms_by_rank": [x["wall_s"] * 1e3 for x in per],
+        "calls": per[0]["calls"], "equals_one_process_card_run": True}
+    counts += [x["launches"] for x in per]
+    # the fuzz campaign: fuzz_campaigns' first batch and planted shrink
+    per = [r["fuzz"] for r in ranks]
+    held("fuzz", [x["rows"] for x in per], one["fuzz"]["rows"], "rows")
+    held("fuzz", [x["planted"] for x in per], one["fuzz"]["planted"],
+         "shrink")
+    written = sorted(os.listdir(MESH_PROV["fuzz_dir"]))
+    planted = per[0]["planted"]
+    rec["runs"]["fuzz"] = {
+        "scenarios": MESH_FUZZ_S, "n_failing": sum(
+            1 for row in per[0]["rows"] if not row["ok"]),
+        "weight_before": planted["weight_before"],
+        "weight_after": planted["weight_after"],
+        "n_candidate_runs": planted["n_candidate_runs"],
+        "replay_same_failure": planted["replay_same_failure"],
+        "bundles_written": written,
+        "wall_ms_by_rank": [x["wall_s"] * 1e3 for x in per],
+        "equals_one_process_card_run": True}
+    if not (planted["replay_same_failure"] and per[0]["bundle"] in written
+            and len(written) == 1):
+        raise AssertionError(f"mesh_provenance_batches fuzz: {written}")
+    counts += [x["launches"] for x in per]
+    # the replay: the mesh's against the card's of the same bundle
+    want = prov_result(observe.replay_bundle(MESH_PROV["bundle"],
+                                             device=device))
+    per = [r["replay"] for r in ranks]
+    held("replay", [x["result"] for x in per], want)
+    res = per[0]["result"]
+    src = one["replay_source"]
+    if not (res.get("first_divergence_round") is None and not res["ok"]
+            and res["lost_writes"] == src["lost_writes"]
+            and res["provenance"]["arrays"] == src["provenance"]["arrays"]):
+        raise AssertionError("mesh_provenance_batches replay: not the "
+                             "bundle's failure, or not faithful")
+    rec["runs"]["replay"] = {
+        "n": MESH_REPLAY_NODES, "first_divergence_round": None,
+        "lost_writes": len(res["lost_writes"]),
+        "wall_ms_by_rank": [x["wall_s"] * 1e3 for x in per],
+        "equals_one_process_card_replay": True}
+    counts += [x["launches"] for x in per]
+    # the txn frontier against its one-process card run
+    want = htxn.run_txn_frontier(MESH_TXN_FRONTIER_RATES,
+                                 txn_frontier_specs(faults), device=device,
+                                 **MESH_TXN_FRONTIER)
+    per = [r["txn_frontier"] for r in ranks]
+    held("txn_frontier", [x["result"] for x in per], want)
+    rec["runs"]["txn_frontier"] = {
+        "cells": want["n_cells"], "ok": want["ok"],
+        "wall_ms_by_rank": [x["wall_s"] * 1e3 for x in per],
+        "calls": per[0]["calls"], "equals_one_process_card_run": True}
+    counts += [x["launches"] for x in per]
+    launches.add_ranks(rec, counts, MESH_PROV_EXPECT)
+    rec.update(rank_seconds=max(r["seconds"] for r in ranks), ok=True)
+    emit(rec)
+    torch.cuda.empty_cache()
+
+
+def strip_frontier(rep: dict) -> dict:
+    """A frontier report without its wall clocks and bundle paths."""
+    out = {k: v for k, v in rep.items()
+           if k not in ("dispatch_s", "batch_walls_s", "cells_per_sec",
+                        "total_s")}
+    out["bundles"] = [{k: v for k, v in b.items() if k != "path"}
+                      for b in rep.get("bundles", ())]
+    return out
+
+
+def mesh_rank_work(mesh, seed: int, rounds: dict, txn_ops,
+                   prov_args: dict) -> dict:
     """The rank side of every mesh phase, in one world; ``rounds``: each
     kept one-process run's rounds (:data:`ONE_PROCESS`); ``txn_ops``:
-    txn_64k's staged ops, whole."""
+    txn_64k's staged ops, whole; ``prov_args``: the bundle to replay and
+    the fuzz campaign's directory (:func:`_mesh_prov_batches_rank`)."""
     return {"transport": mesh.transport, "rank": mesh.rank,
             "collectives": _mesh_collectives_rank(mesh, seed),
             "tree_1m": _mesh_tree_rank(mesh),
@@ -8612,7 +9414,8 @@ def mesh_rank_work(mesh, seed: int, rounds: dict, txn_ops) -> dict:
             "gather": _mesh_gather_rank(mesh, rounds),
             "counter": _mesh_counter_rank(mesh, rounds),
             "kafka": _mesh_kafka_rank(mesh, rounds),
-            "txn_serving": _mesh_txn_serving_rank(mesh, txn_ops)}
+            "txn_serving": _mesh_txn_serving_rank(mesh, txn_ops),
+            "prov_batches": _mesh_prov_batches_rank(mesh, prov_args)}
 
 
 def nccl_rank_work(mesh, txn_ops) -> dict:
@@ -8693,9 +9496,11 @@ def mesh_phases(modules, device, launches: Launches, card: str,
     t1 = time.perf_counter()
     txn_ops = txn._staged(TXN_NODES, TXN_T, TXN_O, TXN_KEYS, 0)
     MESH_TXN["stage_s"] = time.perf_counter() - t1
+    prov_args = mesh_prov_setup(device)
     ranks = dcn_worker.spawn_world(mesh_rank_work, MESH_RANKS,
                                    backend="gloo", device=device,
-                                   args=(MESH_SEED, rounds, txn_ops),
+                                   args=(MESH_SEED, rounds, txn_ops,
+                                         prov_args),
                                    timeout=MESH_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     transport = ranks[0]["transport"]
@@ -8835,8 +9640,12 @@ def mesh_phases(modules, device, launches: Launches, card: str,
                                        "transport": transport,
                                        "device": card, "label": MESH_LABEL},
                      nccl["kafka"], world_s)
-    # mesh_txn_serving is held against runs of later phases: keep the
-    # ranks' results
+    # mesh_txn_serving and mesh_provenance_batches are held against runs
+    # of later phases: keep the ranks' results
+    MESH_PROV.update(ranks=[r["prov_batches"] for r in ranks],
+                     head={"ranks": MESH_RANKS, "transport": transport,
+                           "device": card, "label": MESH_LABEL,
+                           "world_seconds": world_s}, **prov_args)
     MESH_TXN.update(ranks=[r["txn_serving"] for r in ranks],
                     nccl=nccl["txn"],
                     head={"ranks": MESH_RANKS, "transport": transport,
@@ -9124,6 +9933,9 @@ def main() -> int:
     frontier_grid_256((frontier, observe, checkers), device, launches, smi,
                       frontier_rows)
     fuzz_campaigns((fuzz, observe), device, launches, smi)
+    mesh_provenance_batches_phase((htxn, observe, faults), launches, device,
+                                  smi)
+    finish_pending()
     finish_serving_twins(kernels, serving_pending)
 
     for name, count in launches.total.items():

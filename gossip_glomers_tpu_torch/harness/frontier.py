@@ -19,7 +19,10 @@ signal (:func:`.fuzz.fuzz_run` ``adapt=True``).
 :func:`frontier_timeline` renders it as Perfetto tracks
 (:class:`.observe.TimelineBuilder`); ``observe.validate_frontier`` checks
 the report.  Pure host code; the runs go to ``device`` (CUDA unless
-given).  ``mesh=`` raises (ROADMAP.md Queue A item 10).
+given), or with ``mesh=`` to a :class:`..parallel.mesh.Mesh` (every rank
+calling), each rank running its block of every batch's cells
+(:func:`..tpu_sim.scenario.dispatch_serving_batch`) and returning the
+whole report, a failing cell's bundle written by rank 0.
 """
 
 from __future__ import annotations
@@ -236,17 +239,18 @@ def _cell_bundle(out_dir: str, workload: str, cell, row: dict,
                  verdict: dict, runner_kw: dict,
                  max_recovery_rounds: int, drain_every: int,
                  telemetry_series=None,
-                 telemetry_spec=None) -> str:
+                 telemetry_spec=None, mesh=None) -> str:
     """One failing grid cell's flight bundle: the full TrafficSpec +
     NemesisSpec + grid coordinates + the SLO verdict, replayable by
-    ``observe.replay_bundle`` (kind="serving") to the same failure."""
+    ``observe.replay_bundle`` (kind="serving") to the same failure (on a
+    ``mesh`` written once, by rank 0)."""
     from . import observe
 
     sim_kw = dict(runner_kw)
     if workload == "broadcast":
         sim_kw["topology"] = cell.topology
-    return observe.write_flight_bundle(
-        out_dir, kind="serving", workload=workload,
+    return observe.write_bundle_on_mesh(
+        mesh, out_dir, kind="serving", workload=workload,
         nemesis=(None if cell.spec is None else cell.spec.to_meta()),
         traffic=cell.traffic.to_meta(),
         sim_kw=sim_kw,
@@ -290,14 +294,12 @@ def run_frontier(workload: str, cells, *, mesh=None,
     12, "min_completed": 1}``); None certifies only the serving
     invariants the batch itself carries (drain + conservation).
     Returns the frontier report (``observe.validate_frontier``).  The
-    batches run on ``device`` (CUDA unless given); ``mesh`` raises
-    (ROADMAP.md Queue A item 10)."""
+    batches run on ``device`` (CUDA unless given), or on ``mesh`` (module
+    docstring: every rank calls and gets the same report)."""
+    from ..tpu_sim.engine import _check_flat
     from .checkers import check_frontier_batch
 
-    if mesh is not None:
-        raise NotImplementedError("run_frontier(mesh=...) is not ported to "
-                                  "PyTorch yet (ROADMAP.md Queue A item "
-                                  "10)")
+    _check_flat(mesh)
     cells = list(cells)
     if not cells:
         raise ValueError("run_frontier needs at least one cell")
@@ -317,7 +319,8 @@ def run_frontier(workload: str, cells, *, mesh=None,
 
     def dispatch(b):
         return SC.dispatch_serving_batch(
-            batches[b], telemetry_spec=(True if signatures else None),
+            batches[b], mesh=mesh,
+            telemetry_spec=(True if signatures else None),
             signatures=signatures, n_windows=n_windows,
             n_burst=n_burst, device=device)
 
@@ -392,7 +395,7 @@ def run_frontier(workload: str, cells, *, mesh=None,
                 observe_dir, workload, flat_cells[i], rows[i],
                 verdict, kw, max_recovery_rounds, drain_every,
                 telemetry_series=tel_rows[i],
-                telemetry_spec=tel_specs[i])
+                telemetry_spec=tel_specs[i], mesh=mesh)
             bundles.append({"cell": i,
                             "coords": list(flat_cells[i].coords),
                             "path": path})

@@ -23,7 +23,11 @@ repro for every failure.
 Everything is a pure function of the fuzzer seed.  ``shape_buckets``
 compiles nothing in PyTorch: it pads the batches exactly as the reference
 does and ``n_program_shapes`` counts the same distinct batch shapes.
-``mesh=`` raises (ROADMAP.md Queue A item 10).
+``mesh=`` (a :class:`..parallel.mesh.Mesh`, every rank calling) places
+each batch over the ranks (:func:`..tpu_sim.scenario.
+dispatch_scenario_batch`) and runs the repro, the shrinker's candidate
+runs and the replay on the mesh's sims (the runners' ``mesh=``), so
+every rank returns the same campaign and rank 0 writes the bundles.
 """
 
 from __future__ import annotations
@@ -312,12 +316,14 @@ def scenario_weight(sc: SC.Scenario) -> int:
 
 def run_sequential(workload: str, sc: SC.Scenario, runner_kw: dict,
                    max_recovery_rounds: int, *, telemetry=None,
-                   observe_dir=None, device=None) -> dict:
+                   observe_dir=None, device=None, mesh=None) -> dict:
     """One scenario through the ordinary ``run_*_nemesis`` runner on
-    ``device``: the repro and shrink path (the batches equal it)."""
+    ``device`` (or ``mesh``, every rank calling): the repro and shrink
+    path (the batches equal it)."""
     from . import nemesis as NM
 
     kw = dict(runner_kw)
+    place = dict(device=device) if mesh is None else dict(mesh=mesh)
     if workload == "broadcast":
         return NM.run_broadcast_nemesis(
             sc.spec, n_values=kw.get("n_values"),
@@ -327,13 +333,13 @@ def run_sequential(workload: str, sc: SC.Scenario, runner_kw: dict,
             delays=(None if sc.delays is None
                     else np.asarray(sc.delays, np.int32)),
             max_recovery_rounds=max_recovery_rounds,
-            telemetry=telemetry, observe_dir=observe_dir, device=device)
+            telemetry=telemetry, observe_dir=observe_dir, **place)
     if workload == "counter":
         return NM.run_counter_nemesis(
             sc.spec, mode=kw.get("mode", "cas"),
             poll_every=int(kw.get("poll_every", 2)),
             max_recovery_rounds=max_recovery_rounds,
-            telemetry=telemetry, observe_dir=observe_dir, device=device)
+            telemetry=telemetry, observe_dir=observe_dir, **place)
     if workload == "txn":
         from . import txn as TXH
         return TXH.run_txn_nemesis(
@@ -345,7 +351,7 @@ def run_sequential(workload: str, sc: SC.Scenario, runner_kw: dict,
             kv_amnesia=bool(kw.get("kv_amnesia", False)),
             workload_seed=sc.workload_seed,
             max_recovery_rounds=max_recovery_rounds,
-            telemetry=telemetry, observe_dir=observe_dir, device=device)
+            telemetry=telemetry, observe_dir=observe_dir, **place)
     return NM.run_kafka_nemesis(
         sc.spec, n_keys=int(kw.get("n_keys", 4)),
         capacity=int(kw.get("capacity", 64)),
@@ -355,7 +361,7 @@ def run_sequential(workload: str, sc: SC.Scenario, runner_kw: dict,
         send_prob=float(kw.get("send_prob", 0.7)),
         rounds=kw.get("rounds"),
         max_recovery_rounds=max_recovery_rounds,
-        telemetry=telemetry, observe_dir=observe_dir, device=device)
+        telemetry=telemetry, observe_dir=observe_dir, **place)
 
 
 # -- the auto-shrinker ---------------------------------------------------
@@ -468,12 +474,13 @@ def _components(sc: SC.Scenario):
 def shrink_scenario(workload: str, sc: SC.Scenario, runner_kw: dict,
                     max_recovery_rounds: int, *, observe_dir,
                     tel_rounds: int, max_iters: int = 200,
-                    device=None) -> dict:
+                    device=None, mesh=None) -> dict:
     """Greedy auto-shrink of one failing scenario (module docstring).
     Returns the shrink record: original/shrunk cells + weights, the
     accepted move trail, the shrunk cell's flight bundle path, the
     per-component minimality certificate, and the final
-    replay-from-JSON verdict."""
+    replay-from-JSON verdict.  ``mesh``: every run (candidates, bundle,
+    replay) on the mesh's sims, every rank calling."""
     from . import observe
     from .checkers import series_divergence_round
 
@@ -483,7 +490,7 @@ def shrink_scenario(workload: str, sc: SC.Scenario, runner_kw: dict,
     tel_spec = (None if workload == "txn"
                 else TM.TelemetrySpec(workload, rounds=tel_rounds))
     base = run_sequential(workload, sc, runner_kw,
-                          max_recovery_rounds, device=device)
+                          max_recovery_rounds, device=device, mesh=mesh)
     sig0 = failure_signature(base)
     if sig0 is None:
         raise ValueError(
@@ -502,7 +509,8 @@ def shrink_scenario(workload: str, sc: SC.Scenario, runner_kw: dict,
             if iters > max_iters:
                 break
             res = run_sequential(workload, cand, runner_kw,
-                                 max_recovery_rounds, device=device)
+                                 max_recovery_rounds, device=device,
+                                 mesh=mesh)
             if failure_signature(res) == sig0:
                 cur = cand
                 trail.append(desc)
@@ -513,7 +521,8 @@ def shrink_scenario(workload: str, sc: SC.Scenario, runner_kw: dict,
     shrunk_res = run_sequential(workload, cur, runner_kw,
                                 max_recovery_rounds,
                                 telemetry=tel_spec,
-                                observe_dir=observe_dir, device=device)
+                                observe_dir=observe_dir, device=device,
+                                mesh=mesh)
     if failure_signature(shrunk_res) != sig0:
         raise AssertionError(
             "shrunk scenario changed its failure under telemetry — "
@@ -528,7 +537,7 @@ def shrink_scenario(workload: str, sc: SC.Scenario, runner_kw: dict,
     for desc, cand in _components(cur):
         res = run_sequential(workload, cand, runner_kw,
                              max_recovery_rounds, telemetry=tel_spec,
-                             device=device)
+                             device=device, mesh=mesh)
         changed = failure_signature(res) != sig0
         div = None
         series = (res.get("telemetry") or {}).get("series")
@@ -545,7 +554,7 @@ def shrink_scenario(workload: str, sc: SC.Scenario, runner_kw: dict,
     # the repro contract: the shrunk bundle replays to the SAME
     # failure from its JSON alone, with a faithful (divergence-free)
     # record
-    replay = observe.replay_bundle(bundle_path, device=device)
+    replay = observe.replay_bundle(bundle_path, device=device, mesh=mesh)
     replay_ok = (not replay["ok"]
                  and failure_signature(replay) == sig0
                  and replay.get("first_divergence_round") is None)
@@ -620,12 +629,11 @@ def fuzz_run(workload: str = "broadcast", n_scenarios: int = 256, *,
       cells still producing unseen behaviors.  ``coverage`` seeds
       the map (cross-campaign steering).
 
-    The batches and repros run on ``device`` (CUDA unless given);
-    ``mesh`` raises (ROADMAP.md Queue A item 10)."""
-    if mesh is not None:
-        raise NotImplementedError("fuzz_run(mesh=...) is not ported to "
-                                  "PyTorch yet (ROADMAP.md Queue A item "
-                                  "10)")
+    The batches and repros run on ``device`` (CUDA unless given), or on
+    ``mesh`` (module docstring)."""
+    from ..tpu_sim.engine import _check_flat
+
+    _check_flat(mesh)
     if workload not in ("broadcast", "counter", "kafka", "txn"):
         raise ValueError(f"unknown fuzz workload {workload!r}")
     if workload == "txn" and (signatures or adapt):
@@ -737,7 +745,7 @@ def fuzz_run(workload: str = "broadcast", n_scenarios: int = 256, *,
 
     def _dispatch(batch):
         return SC.dispatch_scenario_batch(
-            batch, telemetry_spec=_tel_spec(batch),
+            batch, mesh=mesh, telemetry_spec=_tel_spec(batch),
             signatures=signatures, n_windows=n_windows,
             min_rounds=min_rounds, pad_to=pad_to, device=device)
 
@@ -820,7 +828,7 @@ def fuzz_run(workload: str = "broadcast", n_scenarios: int = 256, *,
         for b, batch in enumerate(batches):
             tb = time.perf_counter()
             res = SC.run_scenario_batch(
-                batch, telemetry_spec=_tel_spec(batch),
+                batch, mesh=mesh, telemetry_spec=_tel_spec(batch),
                 signatures=signatures, n_windows=n_windows,
                 min_rounds=min_rounds, pad_to=pad_to, device=device)
             batch_walls.append(round(time.perf_counter() - tb, 3))
@@ -841,7 +849,7 @@ def fuzz_run(workload: str = "broadcast", n_scenarios: int = 256, *,
             shrinks.append(shrink_scenario(
                 workload, sc, kw, max_recovery_rounds,
                 observe_dir=observe_dir or "artifacts/fuzz",
-                tel_rounds=tel_rounds, device=device))
+                tel_rounds=tel_rounds, device=device, mesh=mesh))
     total_s = time.perf_counter() - t0
     n_ok = sum(1 for r in rows if r["ok"])
     # steady-state throughput over batches whose shape already ran (the

@@ -29,13 +29,14 @@ campaign writes its flight bundle (:func:`.observe.write_flight_bundle`,
 the reference's ``runner_kw``, so that either package replays it).
 
 ``mesh=`` (a :class:`..parallel.mesh.Mesh`, every rank calling) runs a
-campaign on the mesh's sims with provenance off: the traffic and
-telemetry drivers on the mesh, the fixed-trip and stepped rounds of the
-sims' mesh paths, the convergence predicates agreed over the ranks (one
-all-reduce a round), the lost-write reads collective, a failed
-campaign's bundle written by rank 0, and every rank returning the whole
-result.  Not ported yet, and raising: ``mesh=`` with provenance on, and
-``dcn_mode=`` (ROADMAP.md Queue A item 10).
+campaign on the mesh's sims: the traffic, telemetry and provenance
+drivers on the mesh, the fixed-trip and stepped rounds of the sims' mesh
+paths, the convergence predicates agreed over the ranks (one all-reduce
+a round), the lost-write reads collective, the provenance record
+gathered once and certified on the host by rank 0, which shares its
+verdict, a failed campaign's bundle written by rank 0, and every rank
+returning the whole result.  Not ported yet, and raising: ``dcn_mode=``
+(ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -68,19 +69,14 @@ def _unported(what: str, item: int) -> NotImplementedError:
                                f"(ROADMAP.md Queue A item {item})")
 
 
-def _check_unported(name: str, mesh, dcn_mode, provenance=None,
-                    workload: str | None = None):
-    """The runner's device (the mesh's on a mesh), after its refusals:
-    ``dcn_mode``, and provenance on a mesh (ROADMAP.md Queue A item
-    10)."""
+def _check_unported(name: str, mesh, dcn_mode) -> None:
+    """The runner's refusals: ``dcn_mode`` (ROADMAP.md Queue A item 10),
+    and any mesh but the port's 1-D one."""
     from ..tpu_sim.engine import _check_flat
 
     if dcn_mode is not None:
         raise _unported(f"{name}(dcn_mode=...)", 10)
     _check_flat(mesh)
-    if mesh is not None and workload is not None \
-            and observe.provenance_setup(provenance, workload) is not None:
-        raise _unported(f"{name}(mesh=..., provenance=...)", 10)
 
 
 def _place(mesh, device) -> tuple:
@@ -136,18 +132,35 @@ def _unpack_obs(out, tel, prov):
 
 def _finish_provenance(ok: bool, details: dict, prov, prov_spec,
                        spec: NemesisSpec, *, workload: str,
-                       check_kw: dict) -> bool:
+                       check_kw: dict, mesh=None) -> bool:
     """Certify the recorded stamps against the fault model itself
     (:func:`.checkers.check_provenance`), put the arrays and the verdict
     (and the broadcast dissemination tree) in ``details['provenance']``
-    and AND the verdict in."""
+    and AND the verdict in.  On a ``mesh`` the node-split records
+    (broadcast, counter) are gathered once; rank 0 certifies them on the
+    host and shares its verdict, so every rank returns the same
+    details (collective calls)."""
     if prov is None:
         return ok
+    if mesh is not None and workload != "kafka":
+        prov = type(prov)(*(mesh.all_gather(x) for x in prov))
     arrs = PV.arrays_of(prov)
-    ok_p, p_det = check_provenance(workload, arrs, spec=spec, **check_kw)
+
+    def certify():
+        ok_p, p_det = check_provenance(workload, arrs, spec=spec,
+                                       **check_kw)
+        tree = (observe.dissemination_tree(arrs)
+                if workload == "broadcast" else None)
+        return ok_p, p_det, tree
+
+    if mesh is None:
+        ok_p, p_det, tree = certify()
+    else:
+        ok_p, p_det, tree = mesh.broadcast_object(
+            certify() if mesh.rank == 0 else None)
     entry = {"spec": prov_spec.to_meta(), "check": p_det, "arrays": arrs}
-    if workload == "broadcast":
-        entry["tree"] = observe.dissemination_tree(arrs)
+    if tree is not None:
+        entry["tree"] = tree
     details["provenance"] = entry
     return ok and ok_p
 
@@ -219,10 +232,8 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
     the ring and / or the arrival and parent stamps (gather path only),
     certify them, and put them in the result.  ``observe_dir``: where a
     failed campaign writes its flight bundle.  ``mesh``: run on the mesh
-    (module docstring), provenance off."""
-    _check_unported("run_broadcast_nemesis", mesh, dcn_mode,
-                    None if traffic is not None else provenance,
-                    "broadcast")
+    (module docstring)."""
+    _check_unported("run_broadcast_nemesis", mesh, dcn_mode)
     dev, place = _place(mesh, device)
     n = spec.n_nodes
     nv = n_values if n_values is not None else 2 * n
@@ -355,7 +366,8 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         ok, details, prov, prov_spec, spec, workload="broadcast",
         check_kw=dict(nbrs=nbrs, received=host_unpack_bits(rec, nv),
                       msgs_total=int(state.msgs),
-                      parts=None if parts is None else parts.to_meta()))
+                      parts=None if parts is None else parts.to_meta()),
+        mesh=mesh)
     runner_kw = dict(n_values=n_values, topology=topology,
                      sync_every=sync_every, structured=bool(structured),
                      max_recovery_rounds=max_recovery_rounds,
@@ -392,9 +404,8 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     amnesia rows before they flushed.  ``traffic``: the open-loop
     campaign (``deltas`` ignored).  ``provenance``: the per-node flush,
     KV and visibility stamps (see :func:`run_broadcast_nemesis`).
-    ``mesh``: run on the mesh (module docstring), provenance off."""
-    _check_unported("run_counter_nemesis", mesh, dcn_mode,
-                    None if traffic is not None else provenance, "counter")
+    ``mesh``: run on the mesh (module docstring)."""
+    _check_unported("run_counter_nemesis", mesh, dcn_mode)
     dev, place = _place(mesh, device)
     if traffic is not None:
         from . import serving
@@ -477,7 +488,7 @@ def run_counter_nemesis(spec: NemesisSpec, *,
                    spec=spec.to_meta())
     ok = _finish_provenance(ok, details, prov, prov_spec, spec,
                             workload="counter",
-                            check_kw=dict(final_kv=kv))
+                            check_kw=dict(final_kv=kv), mesh=mesh)
     deltas_kw = (None if np.array_equal(
         deltas, np.arange(1, n + 1, dtype=np.int32))
         else [int(d) for d in np.asarray(deltas)])
@@ -640,9 +651,8 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
     ``traffic``: the open-loop campaign.  ``provenance``: the per-(key,
     slot) allocation, origin and witness-presence stamps (the witness
     from the ``ProvenanceSpec``).  ``mesh``: run on the mesh (module
-    docstring), provenance off."""
-    _check_unported("run_kafka_nemesis", mesh, dcn_mode,
-                    None if traffic is not None else provenance, "kafka")
+    docstring)."""
+    _check_unported("run_kafka_nemesis", mesh, dcn_mode)
     dev, place = _place(mesh, device)
     if traffic is not None:
         from . import serving
@@ -689,7 +699,8 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
         check_kw=dict(n_nodes=n, resync_every=resync_every,
                       resync_mode=resync_mode,
                       witness=(prov_spec.witness
-                               if prov_spec is not None else 0)))
+                               if prov_spec is not None else 0)),
+        mesh=mesh)
     runner_kw = dict(n_keys=n_keys, capacity=capacity, max_sends=max_sends,
                      resync_every=resync_every, resync_mode=resync_mode,
                      workload_seed=workload_seed,

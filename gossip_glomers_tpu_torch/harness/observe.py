@@ -35,8 +35,9 @@ record.
 
 Pure host code over numpy; tests/test_torch_observe.py and
 test_torch_provenance.py hold each function equal to the reference's.
-Not ported yet, and raising: ``replay_bundle(mesh=)`` (ROADMAP.md Queue A
-item 10).
+``replay_bundle(mesh=)`` replays on a :class:`..parallel.mesh.Mesh`
+(every rank calling); a bundle whose ``runner_kw`` names a ``dcn_mode``
+raises there (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -62,11 +63,6 @@ TIMELINE_SCHEMA = "gg-timeline/1"
 BUNDLE_SCHEMA = "gg-flight-bundle/1"
 TREE_SCHEMA = "gg-dissemination-tree/1"
 FRONTIER_SCHEMA = "gg-frontier/1"
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP.md Queue A item {item})")
 
 
 # -- runner-side telemetry resolution ------------------------------------
@@ -683,16 +679,20 @@ def replay_bundle(path_or_dict, *, telemetry=False, mesh=None,
     telemetry series or provenance stamps, the replay re-records them
     (the bundle's own spec) and reports
     ``result['first_divergence_round']`` (:func:`replay_divergence`: None
-    for a faithful replay).  ``mesh`` raises (ROADMAP.md Queue A item
-    10), as does a bundle whose ``runner_kw`` names a ``dcn_mode``."""
+    for a faithful replay).  ``mesh``: replay on a
+    :class:`..parallel.mesh.Mesh` (every rank calling; its device is the
+    run's), which gives the one-process result.  A bundle whose
+    ``runner_kw`` names a ``dcn_mode`` raises (ROADMAP.md Queue A item
+    10)."""
+    from ..tpu_sim.engine import _check_flat
     from ..tpu_sim.faults import NemesisSpec
     from ..tpu_sim.traffic import TrafficSpec
     from . import nemesis as NM
     from . import serving as SV
     from . import txn as TXH
 
-    if mesh is not None:
-        raise _unported("observe.replay_bundle(mesh=...)", 10)
+    _check_flat(mesh)
+    place = dict(device=device) if mesh is None else dict(mesh=mesh)
     bundle = load_bundle(path_or_dict)
     spec = (NemesisSpec.from_meta(bundle["nemesis"])
             if bundle.get("nemesis") else None)
@@ -709,7 +709,7 @@ def replay_bundle(path_or_dict, *, telemetry=False, mesh=None,
         result = SV.run_serving(
             bundle["workload"], TrafficSpec.from_meta(bundle["traffic"]),
             nemesis=spec, sim_kw=bundle.get("sim_kw") or {},
-            telemetry=telemetry, device=device, **kw)
+            telemetry=telemetry, **place, **kw)
     else:
         runners = {"broadcast": NM.run_broadcast_nemesis,
                    "counter": NM.run_counter_nemesis,
@@ -724,7 +724,7 @@ def replay_bundle(path_or_dict, *, telemetry=False, mesh=None,
             kw["provenance"] = PV.ProvenanceSpec.from_meta(
                 bundle["provenance_spec"])
         result = runners[bundle["workload"]](spec, telemetry=telemetry,
-                                             device=device, **kw)
+                                             **place, **kw)
     if has_record:
         result["first_divergence_round"] = replay_divergence(bundle,
                                                              result)

@@ -20,9 +20,11 @@ certifies a (rate x nemesis) grid over scenario batches.
 the convergence test is agreed over the ranks (one all-reduce), the
 certificate reads the whole history and registers (collective reads), a
 failed campaign's bundle is written by rank 0 with the whole state's
-stamps, and every rank returns the whole result.  Not ported yet, and
-raising: ``run_txn_frontier(mesh=)``, which rides the scenario batches
-(ROADMAP.md Queue A item 10).
+stamps, and every rank returns the whole result.
+``run_txn_frontier(mesh=)`` hands the mesh to its scenario batches, as
+the reference does (:func:`..tpu_sim.scenario.run_txn_batch`: each rank
+runs its block of a rate's nemesis column when the column divides over
+the ranks, else every rank runs it whole).
 """
 
 from __future__ import annotations
@@ -150,15 +152,13 @@ def run_txn_frontier(rates, specs, *, n_keys: int = 8,
     rounds) and committed throughput (transactions a round to
     convergence).  ``slo``: optional ``{"p99_max_rounds",
     "max_recovery_rounds"}`` bounds ANDed into each cell's ``slo_ok``.
-    ``mesh=`` raises (ROADMAP.md Queue A item 10)."""
+    ``mesh``: the batches' (every rank calls and gets the same grid)."""
     import numpy as np
 
     from ..tpu_sim import scenario as SC
+    from ..tpu_sim.engine import _check_flat
 
-    if mesh is not None:
-        raise NotImplementedError("run_txn_frontier(mesh=...) is not "
-                                  "ported to PyTorch yet (ROADMAP.md "
-                                  "Queue A item 10)")
+    _check_flat(mesh)
     rows = []
     ok_all = True
     for rate in rates:
@@ -170,7 +170,7 @@ def run_txn_frontier(rates, specs, *, n_keys: int = 8,
                            ops_per_txn=ops_per_txn, rate=float(rate),
                            until=until),
             max_recovery_rounds=max_recovery_rounds)
-        res = SC.run_txn_batch(batch, device=device)
+        res = SC.run_txn_batch(batch, mesh=mesh, device=device)
         final = res["final"]
         for i, row in enumerate(res["scenarios"]):
             ir = final.issue_round[i].cpu().numpy()

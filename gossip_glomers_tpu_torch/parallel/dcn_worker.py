@@ -24,9 +24,9 @@ Tasks:
   halo exchange, at ``GG_DCN_RT_N`` nodes (65,536) and ``GG_DCN_RT_NV``
   values (32), and the state digest.
 
-``batch``, ``certify``, ``takeover``, ``pipelined`` and ``stale`` need
-the scenario batches, the nemesis runners' ``mesh=`` or the hosts axis
-and raise (item 10).  ``main`` is the env-driven rank body
+``batch``, ``certify``, ``takeover``, ``pipelined`` and ``stale`` come
+with the hosts axis and ``dcn_mode`` and raise (item 10).  ``main`` is
+the env-driven rank body
 (``python -m gossip_glomers_tpu_torch.parallel.dcn_worker`` with the
 ``GG_*`` variables of :data:`.mesh.DIST_ENV`, ``GG_DCN_TASKS`` and
 ``GG_DCN_OUT``).  Nothing here imports JAX.
@@ -206,9 +206,8 @@ def _task_roundtime(mesh, device) -> dict:
 
 def _refused(name: str):
     def task(mesh, device):
-        raise _unported(f"the {name} task (it needs the scenario "
-                        "batches, the nemesis runners' mesh= or the hosts "
-                        "axis)")
+        raise _unported(f"the {name} task (the hosts axis's task set, "
+                        "with dcn_mode)")
     return task
 
 

@@ -223,6 +223,24 @@ class Mesh:
         dist.all_gather(parts, wire, group=self.group)
         return self._back(torch.cat(parts, dim=dim), x)
 
+    def all_gather_object(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order (one call,
+        counted as an ``all_gather``): the host results of the ranks'
+        scenario blocks, gathered once when a batch is collected."""
+        self.calls["all_gather"] += 1
+        out = [None] * self.size
+        _dist().all_gather_object(out, obj, group=self.group)
+        return out
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s picklable ``obj`` on every rank (counted as a
+        ``broadcast``): a host verdict computed once and shared."""
+        self.calls["broadcast"] += 1
+        box = [obj if self.rank == src else None]
+        _dist().broadcast_object_list(box, src=self._global[src],
+                                      group=self.group)
+        return box[0]
+
     def agree(self, flag: bool) -> bool:
         """True when ``flag`` is True on every rank: the host branches
         of a sharded run (convergence) are taken on this, so every rank

@@ -77,9 +77,12 @@ home nodes (which lie in its block), an op is visible once
 :func:`.kernels.and_fold` over the rank's block, then the engine's
 ``reduce_and`` over the ranks, holds its bit (no all-gather), and a
 round's telemetry row (the popcounts and the tracker's issued count) is
-finished by one packed all-reduce.  ``dcn_mode``, the observed driver's
-provenance record and ``inject_mid`` on a mesh raise (ROADMAP.md Queue
-A item 10).
+finished by one packed all-reduce.  The observed driver's provenance
+record rides the gather path on a mesh too, each rank stamping its own
+rows: :func:`.kernels.prov_attribute` reads the round's own all-gathered
+payload (and dup rows), or the ring slots the round has already widened,
+stacked, so the record adds no collective to a round.  ``dcn_mode`` and
+``inject_mid`` on a mesh raise (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -404,20 +407,27 @@ def _delay_terms(t: int, ring: int, classes: dict[int, torch.Tensor],
     return out
 
 
-def _gather_or_delayed(history: torch.Tensor, terms: list,
-                       nbrs: torch.Tensor,
-                       widen: Callable = _ident) -> torch.Tensor:
+def _delay_sources(history: torch.Tensor, terms: list,
+                   widen: Callable = _ident) -> list:
+    """The payloads the delay ``terms`` deliver from: each class's ring
+    slot, all-gathered from the ranks' blocks of the ring by ``widen`` on
+    a mesh (one all-gather a class)."""
+    return [widen(history[slot]) for slot, _ in terms]
+
+
+def _gather_or_delayed(srcs: list, terms: list, nbrs: torch.Tensor,
+                       like: torch.Tensor) -> torch.Tensor:
     """The latency ring's delivery (the reference's
     ``_gather_or_delayed``): one :func:`.kernels.gather_or` a delay
     class over its :func:`_delay_terms` edges, from the class's slot
-    (all-gathered from the ranks' blocks of the ring by ``widen`` on a
-    mesh)."""
+    payload (``srcs``, :func:`_delay_sources`); zeros shaped like a row
+    block of ``like`` (the ring) when no class delivers."""
     out = None
-    for slot, live in terms:
-        term = _gather_or(widen(history[slot]), nbrs, live)
+    for src, (_slot, live) in zip(srcs, terms):
+        term = _gather_or(src, nbrs, live)
         out = term if out is None else out | term
-    return torch.zeros((nbrs.shape[0],) + tuple(history.shape[2:]),
-                       dtype=history.dtype, device=history.device) \
+    return torch.zeros((nbrs.shape[0],) + tuple(like.shape[2:]),
+                       dtype=like.dtype, device=like.device) \
         if out is None else out
 
 
@@ -439,10 +449,30 @@ def _stamp(prov, new: torch.Tensor, src: torch.Tensor, nbrs: torch.Tensor,
            t: int, **edges):
     """Round ``t``'s provenance stamps, in place on ``prov``
     (:func:`.kernels.prov_attribute`, the reference's
-    ``_prov_attribute``)."""
+    ``_prov_attribute``).  On a mesh ``new``, ``nbrs`` (global ids) and
+    the record are the rank's rows, ``src`` the whole node axis."""
     kernels.prov_attribute(new, src, nbrs, prov.arrival, prov.parent,
                            t_next=t + 1, **edges)
     return prov
+
+
+def _stamp_ring(prov, new: torch.Tensor, history: torch.Tensor,
+                srcs: list, terms: list, nbrs: torch.Tensor, t: int,
+                up: torch.Tensor | None, shard: Shard):
+    """Round ``t``'s stamps under the delay ring: off a mesh the kernel
+    reads the ring itself, its slot table naming ring slots; on a mesh,
+    where a rank holds its block of the ring, it reads the slots this
+    round has already widened (``srcs``), stacked, the table renumbered
+    into the stack, so the record adds no collective to the round (a
+    round no class delivers in has nothing new to stamp)."""
+    if shard.widen is _ident:
+        return _stamp(prov, new, history, nbrs, t, slots=_slot_table(
+            terms, nbrs.shape, up, nbrs.device))
+    if not terms:
+        return prov
+    return _stamp(prov, new, torch.stack(srcs), nbrs, t, slots=_slot_table(
+        [(k, live) for k, (_slot, live) in enumerate(terms)], nbrs.shape,
+        up, nbrs.device))
 
 
 def _sync_diff_pc(payload_full: torch.Tensor, recv_local: torch.Tensor,
@@ -553,18 +583,19 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
         new, received = kernels.gather_flood_round(payload_full, rec0, nbrs,
                                                    live)
         if prov is not None:
-            prov = _stamp(prov, new, payload, nbrs, t, flags=None
+            prov = _stamp(prov, new, payload_full, nbrs, t, flags=None
                           if live is None else live.to(torch.uint8)
                           * kernels.FLAG_DEL)
     else:
         history = _ring_push(state.history, payload, t)
         terms = _delay_terms(t, history.shape[0], classes, nbrs, nbr_mask,
                              parts, row_ids, None)
-        new = _gather_or_delayed(history, terms, nbrs, shard.widen) & ~rec0
+        srcs = _delay_sources(history, terms, shard.widen)
+        new = _gather_or_delayed(srcs, terms, nbrs, history) & ~rec0
         received = rec0 | new
         if prov is not None:
-            prov = _stamp(prov, new, history, nbrs, t, slots=_slot_table(
-                terms, nbrs.shape, None, nbrs.device))
+            prov = _stamp_ring(prov, new, history, srcs, terms, nbrs, t,
+                               None, shard)
     out = BroadcastState(received=received, frontier=new, t=t + 1,
                          msgs=wrap32(state.msgs + sent), srv_msgs=srv,
                          history=history)
@@ -627,7 +658,8 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     (``shard.all_ids``), the payload
     is all-gathered and, on a round with an active dup stream, so is the
     wiped ``received`` set (the dup rows): two all-gathers and the
-    ledgers' all-reduce a round."""
+    ledgers' all-reduce a round.  The stamps read those same gathered
+    rows (:func:`_stamp`, :func:`_stamp_ring`)."""
     t = state.t
     wipe = faults.amnesia(plan, t, row_ids)[:, None]
     rec0 = state.received.masked_fill(wipe, 0)
@@ -681,7 +713,7 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
     if classes is None:
         flags, new, received, sent = deliver(0, nbrs.shape[0])
         if prov is not None:
-            prov = _stamp(prov, new, payload, nbrs, t, flags=flags,
+            prov = _stamp(prov, new, payload_full, nbrs, t, flags=flags,
                           dup=dup_rows)
     else:
         live = _edge_live(t, row_ids, nbrs, nbr_mask, parts) if windows \
@@ -701,12 +733,13 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
         history = _ring_push(state.history, payload, t)
         terms = _delay_terms(t, history.shape[0], classes, nbrs, nbr_mask,
                              parts, row_ids, plan, shard=shard)
-        inbox = _gather_or_delayed(history, terms, nbrs, shard.widen)
+        srcs = _delay_sources(history, terms, shard.widen)
+        inbox = _gather_or_delayed(srcs, terms, nbrs, history)
         new = inbox.masked_fill(~up[:, None], 0) & ~rec0
         received = rec0 | new
         if prov is not None:
-            prov = _stamp(prov, new, history, nbrs, t, slots=_slot_table(
-                terms, nbrs.shape, up, nbrs.device))
+            prov = _stamp_ring(prov, new, history, srcs, terms, nbrs, t, up,
+                               shard)
     srv = None
     if srv_on:
         # a down row asks nothing; a reply exists where the request was
@@ -1817,10 +1850,12 @@ class BroadcastSim:
 
     def provenance_state(self, pspec, inject) -> "provenance.BroadcastProv":
         """A fresh (N, V) provenance record on the sim's device, the origin
-        cells stamped from the round-0 ``inject`` bitset."""
+        cells stamped from the round-0 ``inject`` bitset (on a mesh this
+        rank's rows of it, :func:`.provenance.broadcast_specs`)."""
+        rows = self._rows
         return provenance.init_broadcast(
-            self.n_nodes, self.n_values, np.asarray(inject, np.uint32),
-            device=self.device)
+            rows.stop - rows.start, self.n_values,
+            np.asarray(inject, np.uint32)[rows], device=self.device)
 
     def _observed_check(self, tspec, pspec) -> None:
         """The reference's refusals of the observed driver: telemetry
@@ -1842,6 +1877,11 @@ class BroadcastSim:
                 "structured words-major exchanges fold their direction "
                 "terms internally — see tpu_sim/provenance.py); drop "
                 "exchange= for a provenance-on run")
+        if pspec is not None and self.mesh is not None \
+                and "words" in self.mesh.axis_names:
+            raise ValueError(
+                "broadcast provenance runs on 1-D node meshes (the "
+                "(N, V) stamps shard with the node axis only)")
         if self.words_major and self._delay_mode:
             raise ValueError(
                 "observed drivers run the gather (1-hop and per-edge "
@@ -1858,9 +1898,8 @@ class BroadcastSim:
         drivers' bit for bit.  With ``donate`` the ring and the record
         are updated in place, else copied first (the rounds never change
         the state passed in).  Returns ``(state, tel?, prov?)``, the
-        leaves that were passed, in order."""
-        if self.mesh is not None and prov is not None:
-            raise _unported("BroadcastSim.run_observed(prov=...) on a mesh")
+        leaves that were passed, in order.  On a mesh the record is the
+        rank's rows (:meth:`provenance_state`)."""
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -1884,7 +1923,8 @@ class BroadcastSim:
                     nbr_mask=self.nbr_mask, parts=self.parts,
                     sync_every=self.sync_every, deg=self.deg,
                     plan=self.fault_plan, dup_on=self._fp_dup,
-                    union_block=None, classes=self._classes, prov=prov)
+                    union_block=None, classes=self._classes, prov=prov,
+                    shard=self._shard)
             if tel is not None:
                 tel = self._record(
                     tel, t, self._tel_series(t, fr0_pc, state, mask), mask)

@@ -57,8 +57,9 @@ replicated KV value its flush landed in, and the ring's partial columns
 (liveness, pending, the flush attempts and acks) are finished by one
 packed all-reduce a round.
 
-Not ported yet, and raising: ``dcn_mode``, and the provenance record on
-a mesh (ROADMAP.md Queue A item 10); the program audit (item 14).
+The provenance record runs on a mesh too, each rank stamping its rows
+(:meth:`CounterSim.run_observed`).  Not ported yet, and raising:
+``dcn_mode`` (ROADMAP.md Queue A item 10); the program audit (item 14).
 """
 
 from __future__ import annotations
@@ -553,7 +554,9 @@ class CounterSim:
     # -- observed runs: the telemetry ring and the provenance record -------
 
     def provenance_state(self, pspec) -> "provenance.CounterProv":
-        return provenance.init_counter(self.n_nodes, device=self.device)
+        """A fresh (N,) record (on a mesh this rank's rows,
+        :func:`.provenance.counter_specs`)."""
+        return provenance.init_counter(self._block, device=self.device)
 
     def _prov_record(self, gate: tuple, s2: CounterState, prov):
         """One round's provenance stamps (the reference's), first
@@ -561,13 +564,18 @@ class CounterSim:
         positive pending first drained through a reachable flush (an
         amnesia wipe is no flush: the wiping node is down), the round
         after and the KV value it landed in; ``visible_round`` once every
-        cache has caught up to that value (``min(cached) >= flush_kv``)."""
+        cache has caught up to that value (``min(cached) >= flush_kv``:
+        on a mesh the least cache over every rank, one all-reduce; the
+        flush gates are the rank's own rows)."""
         flushed = gate[1] & (s2.pending == 0)
         newf = flushed & (prov.flush_round < 0)
         fr = torch.where(newf, s2.t, prov.flush_round)
         fk = torch.where(newf, s2.kv, prov.flush_kv)
-        vr = provenance.stamp(prov.visible_round,
-                              (fr >= 0) & (s2.cached.min() >= fk), s2.t)
+        low = s2.cached.min()
+        if self.mesh is not None:
+            low = self.mesh.all_reduce(low.reshape(1), "min")[0]
+        vr = provenance.stamp(prov.visible_round, (fr >= 0) & (low >= fk),
+                              s2.t)
         return provenance.CounterProv(flush_round=fr, flush_kv=fk,
                                       visible_round=vr)
 
@@ -580,10 +588,9 @@ class CounterSim:
         the state equals the plain drivers' bit for bit.  With ``donate``
         the rounds update the state's ``pending``, ``cached`` and KV rows
         in place (:meth:`run_fused`) and the ring too; else the state and
-        ring are left as they were.  Returns ``(state, tel?, prov?)``."""
-        if self.mesh is not None and prov is not None:
-            raise _unported("CounterSim.run_observed(prov=...) on a mesh",
-                            10)
+        ring are left as they were.  Returns ``(state, tel?, prov?)``.
+        On a mesh the record is the rank's rows and a round makes one
+        all-reduce more (:meth:`_prov_record`)."""
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "

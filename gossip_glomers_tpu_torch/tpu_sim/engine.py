@@ -6,8 +6,9 @@ fault schedule fold (``windows_fold``), of its destination-slab
 blocking (``scan_blocks``, ``resolve_block``), of its
 :class:`Collectives` (``collectives``, off a mesh and on a 1-D
 :class:`..parallel.mesh.Mesh`), of its halo primitives
-(:func:`sharded_roll`, :func:`sharded_shift`) and of its analytic
-footprint formula (``operand_bytes``, ``analytic_peak_bytes``).
+(:func:`sharded_roll`, :func:`sharded_shift`), of its scenario
+placement (:func:`scenario_placement`) and of its analytic footprint
+formula (``operand_bytes``, ``analytic_peak_bytes``).
 
 On a mesh every shard is one process (one rank of the mesh's process
 group) holding its block of the node axis; the halo primitives and the
@@ -99,6 +100,25 @@ def node_shards(mesh, axis: str = "nodes") -> int:
     """The node-shard count of ``mesh``, 1 off-mesh."""
     _check_flat(mesh)
     return 1 if mesh is None else int(mesh.size)
+
+
+def scenario_placement(n_scenarios: int, mesh=None,
+                       axis: str = "nodes") -> str:
+    """Where the scenario axis of a batch lives (:mod:`.scenario`):
+
+    - ``"scenario"``: on a mesh where S is a multiple of the rank count
+      and at least that count; each rank runs its contiguous block of
+      S / R whole scenarios, with identity collectives (a scenario's
+      node axis is never sharded), and the ranks' results are gathered
+      once when the batch is collected;
+    - ``"single"``: otherwise; every rank runs the whole batch, as the
+      reference runs it undivided (a caller that wants scenario
+      placement pads S up, ``scenario.pad_batch``)."""
+    if mesh is None:
+        return "single"
+    k = node_shards(mesh, axis)
+    return ("scenario" if n_scenarios >= k and n_scenarios % k == 0
+            else "single")
 
 
 def _check_shards(mesh, n_shards: int) -> None:

@@ -78,10 +78,12 @@ rank's presence rows, then ``reduce_and`` over the ranks, holds its bit;
 the ring's partial columns (the witness row 0's popcount, which rank 0
 holds and the others add 0 to, and the full presence popcount) and the
 tracker's issued count are finished by one packed all-reduce a round.
+The provenance record is whole on every rank: a round's allocation
+stamps are the ranks' disjoint partials, summed with the witness row
+(which one rank holds) in one packed all-reduce.
 
-Not ported yet, and raising: the provenance record, the batch round and
-``dcn_mode`` on a mesh (ROADMAP.md Queue A item 10); the program audit
-(item 14).
+Not ported yet, and raising: ``dcn_mode`` on a mesh (ROADMAP.md Queue A
+item 10); the program audit (item 14).
 """
 
 from __future__ import annotations
@@ -855,28 +857,41 @@ class KafkaSim:
         occurrence only: each acked send's (key, slot) gets the round
         after and its origin node, from the round's own :func:`_alloc`
         evaluation ``alloc``; each slot newly present at the ``witness``
-        node after the round gets the round after."""
+        node (a global row) after the round gets the round after.  On a
+        mesh ``alloc`` covers the rank's rows (global row ids): the
+        ranks' stamps are disjoint partials (offsets are unique per key)
+        and the witness row lies in one rank's block, so one packed
+        all-reduce sums both into identical copies."""
         _tried, _valid, keys_c, _rank, slot, ok = alloc
         k_dim, cap = self.n_keys, self.capacity
         kc = k_dim * cap
         # offsets are unique per key: the acked sends write distinct
         # cells, the others a dump cell past the end
         cell = torch.where(ok, keys_c.to(torch.int64) * cap + slot, kc)
-        origin = self._row_ids.repeat_interleave(
-            ok.shape[0] // self.n_nodes)
+        origin = self._row_ids.repeat_interleave(ok.shape[0] // self._block)
         t1 = s2.t
         ar = torch.zeros(kc + 1, dtype=torch.int32, device=self.device)
         ar[cell] = torch.where(ok, t1, 0).to(torch.int32)
         og = torch.zeros(kc + 1, dtype=torch.int32, device=self.device)
         og[cell] = torch.where(ok, origin + 1, 0).to(torch.int32)
         ar, og = ar[:kc].view(k_dim, cap), og[:kc].view(k_dim, cap)
+        loc = witness - self._row0
+        if self.mesh is None:
+            wrow = s2.present[witness]
+        else:
+            mine = 0 <= loc < self._block
+            wrow = (s2.present[loc] if mine
+                    else torch.zeros_like(s2.present[0]))
+            g = self._coll.reduce_sum(torch.cat(
+                [ar.reshape(-1), og.reshape(-1), wrow.reshape(-1)]))
+            ar, og = g[:kc].view(k_dim, cap), g[kc:2 * kc].view(k_dim, cap)
+            wrow = g[2 * kc:].view(wrow.shape)
         new_alloc = (ar > 0) & (prov.alloc_round < 0)
         return provenance.KafkaProv(
             alloc_round=torch.where(new_alloc, ar, prov.alloc_round),
             origin=torch.where(new_alloc, og - 1, prov.origin),
             first_present=provenance.stamp(
-                prov.first_present,
-                kernels.unpack_bits(s2.present[witness], cap), t1))
+                prov.first_present, kernels.unpack_bits(wrow, cap), t1))
 
     def run_observed(self, state: KafkaState, tel, tspec, send_key,
                      send_val, commit_req=None, *, donate: bool = False,
@@ -889,9 +904,9 @@ class KafkaSim:
         allocator is evaluated once a round and handed to the round (as
         the traffic driver does; the device KV's round reads its own).
         With ``donate`` the state and the ring are updated in place, else
-        copied first.  Returns ``(state, tel?, prov?)``."""
-        if self.mesh is not None and prov is not None:
-            raise _unported("KafkaSim.run_observed(prov=...) on a mesh", 10)
+        copied first.  Returns ``(state, tel?, prov?)``.  On a mesh the
+        record is whole on every rank and a round makes one all-reduce
+        more (:meth:`_prov_record`)."""
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -1095,10 +1110,9 @@ def _build_batch_round(sim: KafkaSim):
     ``rnd(state, send_key, send_val, tel=None, tel_spec=None) -> (state,
     tel)`` takes one (N, S) send batch, commit-free, in place
     (:meth:`KafkaSim.run_fused`), recording the telemetry row when given
-    a ring (:meth:`KafkaSim.run_observed`)."""
-    if sim.mesh is not None:
-        raise _unported("the Kafka batch round on a mesh", 10)
-
+    a ring (:meth:`KafkaSim.run_observed`).  The batches build their
+    sims without a mesh (a rank runs whole scenarios); a mesh sim's round
+    is its own collective one."""
     def rnd(state: KafkaState, send_key, send_val, tel=None, tel_spec=None):
         sk, sv = send_key[None], send_val[None]
         if tel is None:

@@ -32,9 +32,14 @@ way the telemetry ring (:mod:`.telemetry`) rides it.
 arrays (the state counterpart of carrying weights across): between the
 JAX package and the port, and into the checkers.
 
+On a mesh (:class:`..parallel.mesh.Mesh`) the broadcast and counter
+records are split by node, each rank holding its rows, and Kafka's is
+whole on every rank (:func:`broadcast_specs`, :func:`counter_specs`,
+:func:`kafka_specs`); the recorders add no all-gather to a round.
+
 Env knob: ``GG_PROVENANCE`` (0 / 1, default off, parsed loudly).  Not
-ported yet, and raising: the shard specs (ROADMAP.md Queue A item 10)
-and the program audit's contracts (item 14).
+ported yet, and raising: the program audit's contracts (ROADMAP.md Queue
+A item 14).
 """
 
 from __future__ import annotations
@@ -136,17 +141,22 @@ def init_kafka(n_keys: int, capacity: int,
                                   device=dev) for _ in range(3)))
 
 
-def broadcast_specs(axes="nodes"):
-    """The reference's shard specs of the record: Queue A item 10."""
-    raise _unported("provenance.broadcast_specs", 10)
+def broadcast_specs(axes="nodes") -> BroadcastProv:
+    """The reference's shard specs of the record, one per leaf: the (N,
+    V) stamps cut along the node axis with the gather state (``(axes,
+    None)``), so a rank holds its rows."""
+    return BroadcastProv((axes, None), (axes, None))
 
 
-def counter_specs(axes="nodes"):
-    raise _unported("provenance.counter_specs", 10)
+def counter_specs(axes="nodes") -> CounterProv:
+    """The (N,) stamps cut along the node axis (``(axes,)``)."""
+    return CounterProv((axes,), (axes,), (axes,))
 
 
-def kafka_specs():
-    raise _unported("provenance.kafka_specs", 10)
+def kafka_specs() -> KafkaProv:
+    """The (K, C) stamps whole on every rank (``(None, None)``): the
+    ranks' disjoint partials are summed into identical copies."""
+    return KafkaProv((None, None), (None, None), (None, None))
 
 
 def stamp(cur: torch.Tensor, mask: torch.Tensor, val) -> torch.Tensor:

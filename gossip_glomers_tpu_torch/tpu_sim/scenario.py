@@ -40,9 +40,18 @@ failing scenario is named by its index); with ``signatures`` each
 scenario's (5,) behavioral signature is read from its telemetry ring when
 the batch is collected (:func:`signature_eval`).
 
-Not ported, and raising: ``mesh=`` (a scenario-sharded mesh, ROADMAP.md
-Queue A item 10) in every dispatcher, and the program audit
-(:func:`audit_contracts`, ``_audit_program``: item 14).
+On a mesh (``mesh=``, a :class:`..parallel.mesh.Mesh`, every rank
+calling) the batch is padded to a multiple of the rank count
+(``pad_to_mesh``) and placed by :func:`.engine.scenario_placement`: each
+rank runs its contiguous block of S / R whole scenarios (or serving
+cells) through the one-process machinery above on its own device, with
+no collective inside the trip, and the collect step gathers the ranks'
+rows, stacked final states, telemetry series and signatures once, so
+every rank returns the whole batch.  A scenario's node axis is never
+sharded.
+
+Not ported, and raising: the program audit (:func:`audit_contracts`,
+``_audit_program``: ROADMAP.md Queue A item 14).
 """
 
 from __future__ import annotations
@@ -61,7 +70,8 @@ from . import counter as CT
 from . import faults, telemetry, traffic
 from . import kafka as KF
 from . import txn as TX
-from .engine import _env_int, host_unpack_bits, resolve_device
+from .engine import (_check_flat, _env_int, host_unpack_bits,
+                     node_shards, resolve_device, scenario_placement)
 
 _TOPOLOGIES = {"grid": grid, "tree": tree}
 
@@ -69,11 +79,6 @@ _TOPOLOGIES = {"grid": grid, "tree": tree}
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
                                f"(ROADMAP.md Queue A item {item})")
-
-
-def _no_mesh(where: str, mesh) -> None:
-    if mesh is not None:
-        raise _unported(f"{where}(mesh=...)", 10)
 
 
 def _stale_k(setting) -> tuple[int, str]:
@@ -494,10 +499,11 @@ def _tel_result(res: dict, rings: list, wrote: list, spec) -> None:
 # -- broadcast: the folded batch -----------------------------------------
 
 
-def _dispatch_broadcast_batch(batch: ScenarioBatch, *, mesh=None,
+def _dispatch_broadcast_batch(batch: ScenarioBatch, *,
                               telemetry_spec=None, signatures: bool = False,
                               n_windows: int | None = None,
-                              min_rounds: int = 0, device=None) -> dict:
+                              min_rounds: int = 0, delay_set=None,
+                              device=None) -> dict:
     """Stage the S broadcast campaigns as one :class:`.broadcast.
     FoldedBatch` (:func:`stage_broadcast_batch`) and enqueue every round
     of the trip (:func:`broadcast_trip`): convergence, the first
@@ -505,50 +511,68 @@ def _dispatch_broadcast_batch(batch: ScenarioBatch, *, mesh=None,
     telemetry rows stay on the device, so the trip makes no host sync
     and :func:`_collect_broadcast_batch` makes the one transfer.
     ``n_windows`` pads every plan to that many crash windows and
-    ``min_rounds`` floors the trip: both leave the rows unchanged."""
+    ``min_rounds`` floors the trip: both leave the rows unchanged;
+    ``delay_set`` (:func:`_batch_delays`) is a whole batch's, for a
+    rank's block of it."""
     return broadcast_trip(stage_broadcast_batch(
-        batch, mesh=mesh, telemetry_spec=telemetry_spec,
-        signatures=signatures, n_windows=n_windows, min_rounds=min_rounds,
+        batch, telemetry_spec=telemetry_spec, signatures=signatures,
+        n_windows=n_windows, min_rounds=min_rounds, delay_set=delay_set,
         device=device))
 
 
-def stage_broadcast_batch(batch: ScenarioBatch, *, mesh=None,
-                          telemetry_spec=None, signatures: bool = False,
+def _batch_nbrs(batch: ScenarioBatch) -> np.ndarray:
+    return to_padded_neighbors(_TOPOLOGIES[batch.runner_kw.get(
+        "topology", "grid")](batch.n_nodes))
+
+
+def _batch_delays(batch: ScenarioBatch, nbrs_np: np.ndarray,
+                  delay_set=None) -> tuple:
+    """(the (S, N, D) per-edge delays or None, their distinct values): a
+    scenario without delays runs all-1 delays in a batch where any has
+    them.  ``delay_set``: a whole batch's values, which a rank's block of
+    it takes so that every block runs the delay ring the whole batch
+    runs (one ring length, one mode)."""
+    scs = batch.scenarios
+    if delay_set is None and all(sc.delays is None for sc in scs):
+        return None, ()
+    dmats = []
+    for sc in scs:
+        d = (np.asarray(sc.delays, np.int32) if sc.delays is not None
+             else np.ones(nbrs_np.shape, np.int32))
+        if d.shape != nbrs_np.shape:
+            raise ValueError(
+                f"scenario delays shape {d.shape} != adjacency "
+                f"{nbrs_np.shape}")
+        dmats.append(np.where(nbrs_np >= 0, d, 1))
+    delays = np.stack(dmats)
+    if delay_set is None:
+        delay_set = tuple(int(v) for v in np.unique(delays))
+    return delays, tuple(delay_set)
+
+
+def stage_broadcast_batch(batch: ScenarioBatch, *, telemetry_spec=None,
+                          signatures: bool = False,
                           n_windows: int | None = None, min_rounds: int = 0,
-                          device=None) -> dict:
+                          delay_set=None, device=None) -> dict:
     """The folded batch's operands and round-0 carry on ``device`` (the
     host-to-device copies of a dispatch): a dict :func:`broadcast_trip`
     runs."""
-    _no_mesh("dispatch_scenario_batch", mesh)
     dev = resolve_device(device)
     kw = batch.runner_kw
     n = batch.n_nodes
     nv = int(kw.get("n_values") or 2 * n)
     topology = kw.get("topology", "grid")
     sync_every = int(kw.get("sync_every", 4))
-    nbrs_np = to_padded_neighbors(_TOPOLOGIES[topology](n))
+    nbrs_np = _batch_nbrs(batch)
     scs = batch.scenarios
     s_count = len(scs)
     has_mem = any(sc.spec.has_membership for sc in scs)
-    delays, delay_set = None, ()
-    if any(sc.delays is not None for sc in scs):
-        dmats = []
-        for sc in scs:
-            d = (np.asarray(sc.delays, np.int32) if sc.delays is not None
-                 else np.ones(nbrs_np.shape, np.int32))
-            if d.shape != nbrs_np.shape:
-                raise ValueError(
-                    f"scenario delays shape {d.shape} != adjacency "
-                    f"{nbrs_np.shape}")
-            dmats.append(np.where(nbrs_np >= 0, d, 1))
-        delays = np.stack(dmats)
-        delay_set = tuple(int(v) for v in np.unique(delays))
+    delays, delay_set = _batch_delays(batch, nbrs_np, delay_set)
     plans = faults.batch_plans([sc.spec for sc in scs], n_windows,
                                device=dev)
     parts_b = batch_partitions([sc.parts for sc in scs], n, device=dev)
-    clears_np = np.array([sc.spec.clear_round for sc in scs], np.int64)
-    r_total = max(int(clears_np.max()) + batch.max_recovery_rounds,
-                  int(min_rounds))
+    clears_np = np.array(_trip_clears(batch), np.int64)
+    r_total = _r_total(clears_np, batch, min_rounds)
     # values are acked where they are injected: a pre-join row stages
     # nothing, so its round-robin values are never offered
     founding = np.stack([sc.spec.host_members(0) for sc in scs])
@@ -669,10 +693,7 @@ def _collect_broadcast_batch(handle: dict) -> dict:
     return res
 
 
-def run_broadcast_batch(batch: ScenarioBatch, *, mesh=None,
-                        telemetry_spec=None, signatures: bool = False,
-                        n_windows: int | None = None,
-                        min_rounds: int = 0, device=None) -> dict:
+def run_broadcast_batch(batch: ScenarioBatch, **kw) -> dict:
     """S broadcast campaigns as one folded batch: values injected
     round-robin at round 0, convergence = every member row holds every
     value, lost acked writes = values absent from every member row.  The
@@ -680,11 +701,9 @@ def run_broadcast_batch(batch: ScenarioBatch, *, mesh=None,
     windows (``parts``) x per-edge delays (``delays``, the history-ring
     gather path).  Returns the verdict dict (:func:`_verdict_rows`), with
     ``telemetry_spec`` the per-scenario series and with ``signatures``
-    the (S, 5) signature matrix."""
-    return _collect_broadcast_batch(_dispatch_broadcast_batch(
-        batch, mesh=mesh, telemetry_spec=telemetry_spec,
-        signatures=signatures, n_windows=n_windows, min_rounds=min_rounds,
-        device=device))
+    the (S, 5) signature matrix.  ``kw``: :func:`_dispatch`'s (``mesh``
+    places the batch, unpadded)."""
+    return _collect(_dispatch(batch, **kw))
 
 
 # -- counter, Kafka and txn: the looped batches --------------------------
@@ -695,19 +714,30 @@ def _r_total(clears, batch, min_rounds) -> int:
                int(min_rounds))
 
 
+def _trip_clears(batch: ScenarioBatch) -> list:
+    """Each scenario's clear round, past which its convergence is tested:
+    the spec's, and for Kafka the staged rounds', for txn the arrival
+    horizon's too (the sequential runners' clears)."""
+    floor = 0
+    if batch.workload == "kafka":
+        floor = int(batch.runner_kw.get("rounds") or 0)
+    elif batch.workload == "txn":
+        floor = _txn_kw(batch)["until"]
+    return [max(sc.spec.clear_round, floor) for sc in batch.scenarios]
+
+
 def _tel_rings(loop: dict):
     """(rings, wrote) of a looped batch's telemetry."""
     return ([t.ring.cpu().numpy() for t in loop["tels"]],
             [int(t.wrote) for t in loop["tels"]])
 
 
-def _dispatch_counter_batch(batch: ScenarioBatch, *, mesh=None,
+def _dispatch_counter_batch(batch: ScenarioBatch, *,
                             telemetry_spec=None, signatures: bool = False,
                             n_windows: int | None = None,
                             min_rounds: int = 0, device=None) -> dict:
     """Run S g-counter campaigns, each on its own :class:`.counter.
     CounterSim` under its own plan (:func:`certify_loop`)."""
-    _no_mesh("dispatch_scenario_batch", mesh)
     dev = resolve_device(device)
     kw = batch.runner_kw
     n = batch.n_nodes
@@ -722,7 +752,7 @@ def _dispatch_counter_batch(batch: ScenarioBatch, *, mesh=None,
     founding = np.stack([sc.spec.host_members(0) for sc in scs])
     deltas_s = np.where(founding, deltas[None], 0).astype(np.int32)
     ackeds = deltas_s.sum(axis=1)
-    clears = [sc.spec.clear_round for sc in scs]
+    clears = _trip_clears(batch)
     r_total = _r_total(clears, batch, min_rounds)
     if signatures:
         _sig_setup(telemetry_spec, r_total, extra_series=("pending_total",))
@@ -791,17 +821,16 @@ def run_counter_batch(batch: ScenarioBatch, **kw) -> dict:
     sequential runner's ``arange(1, n + 1)``), convergence = pending
     drained and every cached read equal to the KV, lost acked writes =
     the ``acked_sum - kv - pending`` shortfall."""
-    return _collect_counter_batch(_dispatch_counter_batch(batch, **kw))
+    return _collect(_dispatch(batch, **kw))
 
 
-def _dispatch_kafka_batch(batch: ScenarioBatch, *, mesh=None,
+def _dispatch_kafka_batch(batch: ScenarioBatch, *,
                           telemetry_spec=None, signatures: bool = False,
                           n_windows: int | None = None,
                           min_rounds: int = 0, device=None) -> dict:
     """Run S replicated-log campaigns, each on its own :class:`.kafka.
     KafkaSim` under its own plan, over the staged sends of
     :func:`stage_kafka_batch` (:func:`certify_loop`)."""
-    _no_mesh("dispatch_scenario_batch", mesh)
     dev = resolve_device(device)
     kw = batch.runner_kw
     n = batch.n_nodes
@@ -814,8 +843,7 @@ def _dispatch_kafka_batch(batch: ScenarioBatch, *, mesh=None,
     has_mem = any(sc.spec.has_membership for sc in scs)
     plans = faults.batch_plans([sc.spec for sc in scs], n_windows,
                                device=dev)
-    clears = [max(sc.spec.clear_round, int(kw.get("rounds") or 0))
-              for sc in scs]
+    clears = _trip_clears(batch)
     r_total = _r_total(clears, batch, min_rounds)
     # a leaving node drains for a resync period before it goes
     quiesce = (resync_every + 2) if has_mem else 0
@@ -901,7 +929,7 @@ def run_kafka_batch(batch: ScenarioBatch, **kw) -> dict:
     faulted replication, convergence = every node's presence identical,
     lost acked writes = allocated slots present at no node (and any
     committed cache above its cell)."""
-    return _collect_kafka_batch(_dispatch_kafka_batch(batch, **kw))
+    return _collect(_dispatch(batch, **kw))
 
 
 def _txn_kw(batch: ScenarioBatch) -> dict:
@@ -914,13 +942,10 @@ def _txn_kw(batch: ScenarioBatch) -> dict:
                 kv_amnesia=bool(kw.get("kv_amnesia", False)))
 
 
-def _dispatch_txn_batch(batch: ScenarioBatch, *, mesh=None,
-                        telemetry_spec=None, signatures: bool = False,
-                        n_windows: int | None = None,
-                        min_rounds: int = 0, device=None) -> dict:
-    """Run S txn-rw-register campaigns, each on its own :class:`.txn.
-    TxnSim` (its own seeded transactions and arrivals, its own plan);
-    serializability is certified when the batch is collected."""
+def _txn_checks(batch: ScenarioBatch, telemetry_spec,
+                signatures: bool) -> None:
+    """The txn batch's refusals (the reference's), over the whole batch
+    (so a refused scenario is named by its index in it)."""
     if telemetry_spec is not None or signatures:
         raise ValueError(
             "the txn workload's observability record is the "
@@ -940,7 +965,16 @@ def _dispatch_txn_batch(batch: ScenarioBatch, *, mesh=None,
                 "per-transaction stamp ledger assume a fixed client "
                 "roster — run membership churn on the "
                 "broadcast/counter/kafka workloads instead")
-    _no_mesh("dispatch_scenario_batch", mesh)
+
+
+def _dispatch_txn_batch(batch: ScenarioBatch, *,
+                        telemetry_spec=None, signatures: bool = False,
+                        n_windows: int | None = None,
+                        min_rounds: int = 0, device=None) -> dict:
+    """Run S txn-rw-register campaigns, each on its own :class:`.txn.
+    TxnSim` (its own seeded transactions and arrivals, its own plan);
+    serializability is certified when the batch is collected."""
+    _txn_checks(batch, telemetry_spec, signatures)
     dev = resolve_device(device)
     n = batch.n_nodes
     tkw = _txn_kw(batch)
@@ -949,7 +983,7 @@ def _dispatch_txn_batch(batch: ScenarioBatch, *, mesh=None,
                                device=dev)
     # convergence is meaningful only past both horizons (the sequential
     # runner's clear)
-    clears = [max(sc.spec.clear_round, tkw["until"]) for sc in scs]
+    clears = _trip_clears(batch)
     r_total = _r_total(clears, batch, min_rounds)
     sims, states, steps = [], [], []
     for i, sc in enumerate(scs):
@@ -1010,7 +1044,7 @@ def run_txn_batch(batch: ScenarioBatch, **kw) -> dict:
     arrivals, wound-or-die commits on the device KV, convergence = every
     offered transaction committed, certification = bounded recovery AND a
     serializable recorded history with no lost acked commit."""
-    return _collect_txn_batch(_dispatch_txn_batch(batch, **kw))
+    return _collect(_dispatch(batch, **kw))
 
 
 _DISPATCHERS = {"broadcast": _dispatch_broadcast_batch,
@@ -1023,32 +1057,178 @@ _COLLECTORS = {"broadcast": _collect_broadcast_batch,
                "txn": _collect_txn_batch}
 
 
+def _block_of(items: tuple, mesh) -> tuple:
+    """This rank's contiguous block of a placed batch's scenarios or
+    cells."""
+    b = len(items) // mesh.size
+    return items[mesh.rank * b:(mesh.rank + 1) * b]
+
+
+def _dispatch(batch: ScenarioBatch, *, mesh=None, telemetry_spec=None,
+              signatures: bool = False, n_windows: int | None = None,
+              min_rounds: int = 0, device=None) -> dict:
+    """Run one batch through its workload's dispatcher on ``device``, or
+    on a ``mesh`` (its device) by :func:`.engine.scenario_placement`:
+    under ``"scenario"`` placement this rank runs its block of the
+    scenarios, with the whole batch's crash-window count, trip length
+    and delay ring (so that every block runs the program the whole batch
+    runs, and the rows are the one-process batch's); under ``"single"``
+    every rank runs the whole batch.  No collective either way."""
+    wl = batch.workload
+    _check_flat(mesh)
+    extra = {}
+    placed = scenario_placement(len(batch.scenarios), mesh) == "scenario"
+    if mesh is not None:
+        device = mesh.device
+    if placed:
+        if wl == "txn":
+            _txn_checks(batch, telemetry_spec, signatures)
+        n_windows = faults.batch_windows([sc.spec for sc in batch.scenarios],
+                                         n_windows)
+        min_rounds = _r_total(_trip_clears(batch), batch, min_rounds)
+        if wl == "broadcast":
+            extra["delay_set"] = (_batch_delays(batch, _batch_nbrs(batch))[1]
+                                  or None)
+        batch = dataclasses.replace(
+            batch, scenarios=_block_of(batch.scenarios, mesh))
+    handle = _DISPATCHERS[wl](
+        batch, telemetry_spec=telemetry_spec, signatures=signatures,
+        n_windows=n_windows, min_rounds=min_rounds, device=device, **extra)
+    handle["placed"] = mesh if placed else None
+    return handle
+
+
+def _collect(handle: dict) -> dict:
+    """Certify a :func:`_dispatch` handle; a scenario-placed batch's
+    ranks' results gathered into the whole batch's (one gather)."""
+    res = _COLLECTORS[handle["batch"].workload](handle)
+    mesh = handle.get("placed")
+    if mesh is not None:
+        res = _gather_blocks(res, mesh, "scenarios", "scenario",
+                             "n_scenarios")
+    return res
+
+
+def _host(tree):
+    """A result's tensors copied to the host (what crosses ranks)."""
+    return _tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                     else x, tree)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves (tensors, arrays) of a state tree (named
+    tuples, dataclasses, tuples, lists and dicts; other leaves kept)."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: _tree_map(fn, getattr(tree, f.name))
+                             for f in dataclasses.fields(tree)})
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, x) for x in tree)
+    return tree
+
+
+def _tree_cat(trees: list, device, dims: dict | None = None):
+    """Stacked state trees (:func:`stack_pytrees`) of the ranks' blocks,
+    concatenated along their scenario axis (axis 0, or ``dims[field]``)
+    into one, its tensors on ``device``."""
+    first = trees[0]
+    dims = dims or {}
+
+    def cat(xs, dim=0):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(list(xs), dim=dim).to(device)
+        if isinstance(xs[0], np.ndarray):
+            return np.concatenate(xs, axis=dim)
+        if isinstance(xs[0], tuple) or dataclasses.is_dataclass(xs[0]):
+            return _tree_cat(list(xs), device)
+        return xs[0]
+
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
+            f.name: cat([getattr(t, f.name) for t in trees],
+                        dims.get(f.name, 0))
+            for f in dataclasses.fields(first)})
+    if hasattr(first, "_fields"):
+        return type(first)(*(cat([getattr(t, f) for t in trees],
+                                 dims.get(f, 0)) for f in first._fields))
+    return tuple(cat([t[j] for t in trees]) for j in range(len(first)))
+
+
+def _gather_blocks(res: dict, mesh, rows_key: str, idx_key: str,
+                   n_key: str) -> dict:
+    """The whole batch's result from every rank's result over its block
+    (one gather): the rows in rank order, each renumbered to its index
+    in the batch, the failing indices and verdict recomputed from them,
+    the telemetry series, the signatures and the stacked final states
+    (and trackers) concatenated; the trip counters are the largest any
+    rank's host made.  Every rank returns the same."""
+    parts = mesh.all_gather_object(_host(res))
+    out = dict(parts[0])
+    rows = []
+    for part in parts:
+        off = len(rows)
+        rows += [dict(r, **{idx_key: off + r[idx_key]})
+                 for r in part[rows_key]]
+    out[rows_key] = rows
+    out[n_key] = len(rows)
+    out["failing"] = [i for i, r in enumerate(rows) if not r["ok"]]
+    out["ok"] = not out["failing"]
+    if "telemetry" in out:
+        out["telemetry"] = [x for part in parts for x in part["telemetry"]]
+    if "signatures" in out:
+        out["signatures"] = np.concatenate([part["signatures"]
+                                            for part in parts])
+    for key in ("syncs", "trips"):
+        if key in out:
+            out[key] = max(part[key] for part in parts)
+    for key in ("final", "trackers"):
+        if key in out:
+            dims = ({"history": 1} if isinstance(out[key], B.BatchState)
+                    else None)
+            out[key] = _tree_cat([part[key] for part in parts],
+                                 mesh.device, dims)
+    return out
+
+
 def dispatch_scenario_batch(batch: ScenarioBatch, *, mesh=None,
                             telemetry_spec=None, signatures: bool = False,
                             n_windows: int | None = None,
                             min_rounds: int = 0, pad_to: int | None = None,
-                            device=None) -> dict:
+                            pad_to_mesh: bool = True, device=None) -> dict:
     """Pad and run one :class:`ScenarioBatch` on ``device`` (CUDA unless
     given) and return its handle for :func:`collect_scenario_batch`.  The
     broadcast batch only enqueues its rounds here (no host sync); the
     looped workloads run their trip.  ``pad_to`` rounds the scenario
-    count up to a multiple (the fillers are dropped when collected)."""
+    count up to a multiple (the fillers are dropped when collected).
+    ``mesh``: every rank calls; the batch is first padded to a multiple
+    of the rank count (``pad_to_mesh``) and each rank runs its block of
+    it (:func:`_dispatch`)."""
     _refuse_stale_dcn("a scenario batch")
-    _no_mesh("dispatch_scenario_batch", mesh)
     n_real = len(batch.scenarios)
-    if pad_to and int(pad_to) > 1:
-        batch, n_real = pad_batch(batch, int(pad_to))
-    handle = _DISPATCHERS[batch.workload](
-        batch, telemetry_spec=telemetry_spec, signatures=signatures,
-        n_windows=n_windows, min_rounds=min_rounds, device=device)
+    mult = node_shards(mesh) if mesh is not None and pad_to_mesh else 1
+    if pad_to:
+        mult = max(mult, int(pad_to))
+    if mult > 1:
+        batch, n_real = pad_batch(batch, mult)
+    handle = _dispatch(batch, mesh=mesh, telemetry_spec=telemetry_spec,
+                       signatures=signatures, n_windows=n_windows,
+                       min_rounds=min_rounds, device=device)
     handle["n_real"] = n_real
     return handle
 
 
 def collect_scenario_batch(handle: dict) -> dict:
-    """Certify a dispatched scenario batch, dropping padding fillers from
-    the rows, telemetry and signatures."""
-    res = _COLLECTORS[handle["batch"].workload](handle)
+    """Certify a dispatched scenario batch (on a mesh gathering the
+    ranks' blocks, a collective call), dropping padding fillers from the
+    rows, telemetry and signatures."""
+    res = _collect(handle)
     n_real = handle["n_real"]
     if n_real < res["n_scenarios"]:
         res["scenarios"] = res["scenarios"][:n_real]
@@ -1065,16 +1245,18 @@ def collect_scenario_batch(handle: dict) -> dict:
 def run_scenario_batch(batch: ScenarioBatch, *, mesh=None,
                        telemetry_spec=None, signatures: bool = False,
                        n_windows: int | None = None, min_rounds: int = 0,
-                       pad_to: int | None = None, device=None) -> dict:
+                       pad_to: int | None = None, pad_to_mesh: bool = True,
+                       device=None) -> dict:
     """Run and certify one :class:`ScenarioBatch` — the fuzzer's unit of
     work.  ``signatures`` adds the (S, 5) signature matrix;
     ``n_windows`` / ``min_rounds`` / ``pad_to`` are the reference's
     shape-bucket knobs (pad crash windows, floor the trip, round the
-    scenario count up), which leave every row unchanged."""
+    scenario count up), which leave every row unchanged; ``mesh`` /
+    ``pad_to_mesh``: :func:`dispatch_scenario_batch`'s."""
     return collect_scenario_batch(dispatch_scenario_batch(
         batch, mesh=mesh, telemetry_spec=telemetry_spec,
         signatures=signatures, n_windows=n_windows, min_rounds=min_rounds,
-        pad_to=pad_to, device=device))
+        pad_to=pad_to, pad_to_mesh=pad_to_mesh, device=device))
 
 
 # -- serving batches -----------------------------------------------------
@@ -1288,7 +1470,7 @@ def dispatch_serving_batch(batch: ServingBatch, *, mesh=None,
                            telemetry_spec=None, signatures: bool = False,
                            n_windows: int | None = None,
                            n_burst: int | None = None, min_rounds: int = 0,
-                           device=None) -> dict:
+                           pad_to_mesh: bool = True, device=None) -> dict:
     """Run a (load x fault x topology) serving grid on ``device``, each
     cell on its own sim under its own plan and traffic
     (:func:`serving_loop`); finish with :func:`collect_serving_batch`.
@@ -1297,13 +1479,22 @@ def dispatch_serving_batch(batch: ServingBatch, *, mesh=None,
     checked as the reference checks them (no narrower than the widest
     cell's plan) and change nothing else: no plan is padded for a looped
     batch.  ``min_rounds`` raises the trip's length, which the loop
-    leaves once every cell has frozen."""
+    leaves once every cell has frozen.  ``mesh``: every rank calls; the
+    grid is padded to a multiple of the rank count (``pad_to_mesh``, the
+    last cell repeated) and under scenario placement each rank runs its
+    block of the cells, the whole grid's horizon and ring shape kept
+    (:func:`.engine.scenario_placement`)."""
     from ..harness.serving import make_serving_sim
 
     _refuse_stale_dcn("a serving batch", batch.runner_kw)
-    _no_mesh("dispatch_serving_batch", mesh)
-    dev = resolve_device(device)
+    _check_flat(mesh)
     n_real = len(batch.cells)
+    if mesh is not None:
+        device = mesh.device
+        if pad_to_mesh:
+            batch, n_real = pad_serving_batch(batch, node_shards(mesh))
+    placed = scenario_placement(len(batch.cells), mesh) == "scenario"
+    dev = resolve_device(device)
     if batch.workload == "kafka" and "capacity" not in batch.runner_kw:
         raise ValueError(
             "kafka serving batches need an explicit "
@@ -1323,6 +1514,13 @@ def dispatch_serving_batch(batch: ServingBatch, *, mesh=None,
             f"r_total={r_total} (the per-cell freeze round indexes "
             "the unwrapped ring)")
     sig_fn = _serving_sig(telemetry_spec, r_total) if signatures else None
+    n_whole = n_real
+    if placed:
+        b = len(batch.cells) // mesh.size
+        clears = clears[mesh.rank * b:(mesh.rank + 1) * b]
+        batch = dataclasses.replace(batch,
+                                    cells=_block_of(batch.cells, mesh))
+        n_real = len(batch.cells)
     sims, states, trackers, steps = [], [], [], []
     for c in batch.cells:
         sim, st = make_serving_sim(batch.workload, c.traffic, nemesis=c.spec,
@@ -1344,7 +1542,8 @@ def dispatch_serving_batch(batch: ServingBatch, *, mesh=None,
                         batch.max_recovery_rounds, r_total, tels)
     return {"loop": loop, "batch": batch, "n_real": n_real,
             "telemetry_spec": telemetry_spec, "sig_fn": sig_fn,
-            "r_total": r_total}
+            "r_total": r_total, "placed": mesh if placed else None,
+            "n_whole": n_whole}
 
 
 def collect_serving_batch(handle: dict) -> dict:
@@ -1352,7 +1551,30 @@ def collect_serving_batch(handle: dict) -> dict:
     sequential converged-round rule, the sequential ``check_recovery``
     verdict (open in-flight ops are lost acked writes) and conservation
     ANDed in.  Wall-clock fields are absent (one run serves the whole
-    grid)."""
+    grid).  A scenario-placed grid's ranks' cells are gathered into the
+    whole grid's (one gather, a collective call), fillers dropped."""
+    res = _collect_serving_cells(handle)
+    mesh = handle.get("placed")
+    if mesh is None:
+        return res
+    res = _gather_blocks(res, mesh, "cells", "cell", "n_cells")
+    n = handle["n_whole"]
+    if n < res["n_cells"]:
+        res["cells"] = res["cells"][:n]
+        res["failing"] = [i for i in res["failing"] if i < n]
+        res["ok"] = not res["failing"]
+        res["n_cells"] = n
+        for key in ("final", "trackers"):
+            res[key] = _tree_map(lambda x: x[:n], res[key])
+        if "telemetry" in res:
+            res["telemetry"] = res["telemetry"][:n]
+        if "signatures" in res:
+            res["signatures"] = res["signatures"][:n]
+    return res
+
+
+def _collect_serving_cells(handle: dict) -> dict:
+    """:func:`collect_serving_batch` over the cells this process ran."""
     from ..harness.checkers import check_recovery
 
     loop, batch = handle["loop"], handle["batch"]

@@ -1452,6 +1452,39 @@ def test_cuda_prov_attribute_matches_plain(cuda_device, mode, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shards", (2, 4))
+@pytest.mark.parametrize("shape", [(4096, 2, 45, 5), (36, 3, 70, 7)])
+@pytest.mark.parametrize("mode", ("plan_dup", "partitions", "delays_plan"))
+def test_cuda_prov_attribute_on_a_ranks_rows(cuda_device, mode, shape,
+                                             shards):
+    # a mesh round: each rank stamps its rows against the whole source
+    # rows (in slot mode a stack of the widened ring slots), one launch a
+    # block; every block equals its plain version and the blocks
+    # combined equal the kernel on the whole problem
+    smoke = _chip_smoke()
+    n, w, nv, d = shape
+    case = smoke.prov_case(kernels, mode, n, w, nv, d, 7 * n + shards,
+                           cuda_device)
+    blk = smoke.prov_block_case(case, shards, shards - 1)
+    assert blk["new"].shape[0] * shards == case["src"].shape[-2]
+    before = kernels.LAUNCHES["prov_attribute"]
+    pairs = smoke.prov_block_pairs(kernels, case, shards)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["prov_attribute"] == before + shards + 1
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    # the same block on CPU tensors (the plain version) stamps the same
+    cpu = {k: v.cpu() for k, v in blk.items() if isinstance(v, torch.Tensor)}
+    arr, par = cpu["arrival"].clone(), cpu["parent"].clone()
+    kernels.prov_attribute(cpu["new"], cpu["src"], cpu["nbrs"], arr, par,
+                           t_next=blk["t_next"],
+                           **{k: v.cpu() for k, v in blk["edges"].items()})
+    b = n // shards
+    assert torch.equal(pairs[-2][0].cpu()[n - b:], arr)
+    assert torch.equal(pairs[-1][0].cpu()[n - b:], par)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ("plan_dup", "delays_plan", "partitions"))
 def test_cuda_run_observed_goes_through_prov_attribute(cuda_device, mode,
                                                        monkeypatch):

@@ -5,8 +5,9 @@ runner's report, coverage determinism across batch shapes, pipelining
 and ``GG_TRAFFIC_BLOCK``, the failing cell's bundle replayed in both
 packages, the serving shrinker, the table and timeline artifacts, the
 coverage map) with ``validate_frontier`` on every report.  The mesh
-case becomes a check that ``mesh=`` raises Queue A item 10, the
-contracts case one that the audit raises item 14.
+case runs in tests/test_torch_mesh_batches.py; here any mesh but the
+port's own raises Queue A item 10, and the contracts case checks that
+the audit raises item 14.
 
 ``run_frontier``'s wall-clock fields (``WALL``) and the bundle paths are
 removed before a report is compared."""

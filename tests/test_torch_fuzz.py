@@ -6,7 +6,8 @@ replayed in both packages, the delayed repro (:491), ``fuzz_run``
 (rows, verdicts, shrunk scenarios, coverage) with shape buckets,
 pipelining, signatures, adaptive steering and the membership axis
 (tests/test_frontier.py:296-336, tests/test_membership.py:424-471),
-and the refusals; ``mesh=`` raises Queue A item 10.
+and the refusals (any ``mesh=`` but the port's own raises Queue A item
+10; the mesh runs are tests/test_torch_mesh_batches.py's).
 
 ``fuzz_run``'s wall-clock fields (``WALL``) and the shrink records'
 bundle paths are removed before a result is compared."""

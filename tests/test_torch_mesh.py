@@ -381,7 +381,8 @@ def test_unported_mesh_combinations_raise_item_10(world4):
         refused = {k: v for k, v in r["refusals"].items()
                    if k not in C.MESH_RUNS}
         assert set(refused.values()) == {"item 10"}, r["refusals"]
-        # the traffic and observed drivers (telemetry) and txn now run
+        # the traffic and observed drivers (telemetry and provenance),
+        # txn and the scenario batches now run
         assert {r["refusals"][k] for k in C.MESH_RUNS} == {"ran"}
     for fn in (lambda: pmesh.pick_mesh_2d(),
                lambda: pmesh.force_virtual_devices(8),

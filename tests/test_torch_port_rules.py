@@ -238,12 +238,10 @@ def test_unported_modes_raise():
     state, _ = sim.stage(broadcast.make_inject(8, 4))
     with pytest.raises(ValueError, match="ledger is off"):
         sim.server_msgs(state)
-    # txn-rw-register runs on one device and on the port's 1-D Mesh; any
-    # other mesh object and dcn_mode (item 10) and its audit (item 14)
-    # raise, as does a replay on a mesh (item 10); the scenario
-    # batches run, and raise on a mesh (item 10) and for their program
-    # audit (item 14); so do the frontier, the fuzzer and the membership
-    # layer
+    # txn-rw-register, the scenario batches, the frontier, the fuzzer
+    # and the replay run on one device and on the port's 1-D Mesh; any
+    # other mesh object (item 10), dcn_mode (item 10) and the program
+    # audits (item 14) raise, as does the membership layer's audit
     from gossip_glomers_tpu_torch.harness import frontier, fuzz, observe
     from gossip_glomers_tpu_torch.harness import txn as htxn
     from gossip_glomers_tpu_torch.tpu_sim import membership, scenario, txn

@@ -760,10 +760,18 @@ def test_spec_record_and_carry_across_packages():
     mask = np.array([True, True, False, True])
     assert same(JPV.stamp(jnp.asarray(cur), jnp.asarray(mask), 9),
                 PPV.stamp(torch.from_numpy(cur), torch.from_numpy(mask), 9))
-    for fn, item in ((PPV.broadcast_specs, 10), (PPV.counter_specs, 10),
-                     (PPV.kafka_specs, 10), (PPV.audit_contracts, 14)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            fn()
+    # the shard specs are the reference's, leaf for leaf: the broadcast
+    # and counter stamps split by node, Kafka's whole on every rank
+    for port_specs, ref_specs in ((PPV.broadcast_specs(),
+                                   JPV.broadcast_specs()),
+                                  (PPV.counter_specs(),
+                                   JPV.counter_specs()),
+                                  (PPV.kafka_specs(), JPV.kafka_specs())):
+        assert type(port_specs)._fields == type(ref_specs)._fields
+        assert [tuple(x) for x in port_specs] == \
+            [tuple(x) for x in ref_specs]
+    with pytest.raises(NotImplementedError, match="item 14"):
+        PPV.audit_contracts()
     # the flight recorder carries the record: a bundle with these stamps
     # loads back, and the timeline draws the reference's flows of them
     bundle = {"schema": POB.BUNDLE_SCHEMA, "kind": "nemesis",

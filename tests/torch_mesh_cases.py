@@ -153,10 +153,13 @@ def tree_halo_parts(mesh, seed: int, n: int, k: int, w: int) -> dict:
 
 
 #: the mesh combinations that run (since the traffic, telemetry and txn
-#: slice); every other probe of :func:`refusal_cases` raises item 10
+#: slice, and the provenance and scenario-batch slice); every other probe
+#: of :func:`refusal_cases` raises item 10
 MESH_RUNS = ("run_traffic", "run_observed", "counter_run_traffic",
              "counter_run_observed", "kafka_run_traffic",
-             "kafka_run_observed", "txn")
+             "kafka_run_observed", "txn", "run_observed_prov",
+             "counter_run_observed_prov", "kafka_run_observed_prov",
+             "kafka_batch_round", "scenario_batch")
 
 
 def refusal_cases(mesh) -> dict:
@@ -185,7 +188,7 @@ def refusal_cases(mesh) -> dict:
                                                   traffic)
 
     # one client a rank, one op each: the traffic and observed drivers
-    # run; the observed driver's provenance record raises
+    # run, the observed driver's provenance record too
     tspec = traffic.TrafficSpec(n_nodes=n, n_clients=mesh.size,
                                 ops_per_client=1, until=2)
     inj = np.zeros((n, 1), np.uint32)
@@ -206,7 +209,8 @@ def refusal_cases(mesh) -> dict:
         sim.init_state(inj), *tel(sim, "broadcast"), 1))
     probe("run_observed_prov", lambda: sim.run_observed(
         sim.init_state(inj), None, None, 1,
-        prov=provenance.init_broadcast(n, 4, inj, device=mesh.device),
+        prov=sim.provenance_state(provenance.ProvenanceSpec("broadcast"),
+                                  inj),
         prov_spec=provenance.ProvenanceSpec("broadcast")))
     probe("inject_mid", lambda: sim.inject_mid(None, 0, 0))
     probe("collectives_dcn", lambda: engine.collectives(4, mesh,
@@ -220,7 +224,7 @@ def refusal_cases(mesh) -> dict:
         csim.init_state(), *tel(csim, "counter"), 1))
     probe("counter_run_observed_prov", lambda: csim.run_observed(
         csim.init_state(), None, None, 1,
-        prov=provenance.init_counter(n, device=mesh.device),
+        prov=csim.provenance_state(provenance.ProvenanceSpec("counter")),
         prov_spec=provenance.ProvenanceSpec("counter")))
     probe("counter_dcn_mode", lambda: counter.CounterSim(
         n, mesh=mesh, dcn_mode="sync"))
@@ -239,7 +243,8 @@ def refusal_cases(mesh) -> dict:
                                                    dcn_mode="sync"))
     probe("txn", lambda: txn.TxnSim(n, 4, mesh=mesh))
     probe("scenario_batch", lambda: scenario.run_scenario_batch(
-        None, mesh=mesh))
+        scenario.ScenarioBatch(workload="counter", scenarios=(
+            faults.NemesisSpec(n_nodes=n),)), mesh=mesh))
     return out
 
 

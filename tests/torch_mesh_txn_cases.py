@@ -19,6 +19,7 @@ from gossip_glomers_tpu_torch.harness import txn as HT
 from gossip_glomers_tpu_torch.parallel.topology import (to_padded_neighbors,
                                                          tree)
 from gossip_glomers_tpu_torch.tpu_sim import faults, kvstore
+from gossip_glomers_tpu_torch.tpu_sim import provenance as PV
 from gossip_glomers_tpu_torch.tpu_sim import structured as S
 from gossip_glomers_tpu_torch.tpu_sim import telemetry as TM
 from gossip_glomers_tpu_torch.tpu_sim import traffic as T
@@ -366,33 +367,47 @@ def traffic_cases(mesh) -> dict:
 
 
 def refusal_cases(mesh) -> dict:
-    """What still raises on a mesh, as (class name, message)."""
+    """What still raises on a mesh, as (class name, message), and what
+    runs there since the provenance and scenario-batch slice, as ("ran",
+    its result)."""
     out = {}
 
     def catch(name, fn):
         try:
-            fn()
-            out[name] = None
+            out[name] = ("ran", fn())
         except Exception as e:        # the class and text are the result
             out[name] = (type(e).__name__, str(e))
+
+    def whole(prov):
+        if mesh is not None:
+            prov = type(prov)(*(mesh.all_gather(x) for x in prov))
+        return PV.arrays_of(prov)
 
     spec = faults.NemesisSpec(**RUNNER_SPEC)
     nbrs = to_padded_neighbors(tree(16, branching=4))
     on = _on(mesh)
     place = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
     sim = BroadcastSim(nbrs, n_values=16, srv_ledger=False, **on)
-    from gossip_glomers_tpu_torch.tpu_sim import provenance as PV
     psp = PV.ProvenanceSpec("broadcast")
     inj = make_inject(16, 16)
-    catch("broadcast_prov", lambda: sim.run_observed(
-        sim.init_state(inj), None, None, 2,
-        prov=PV.init_broadcast(16, 16, inj, device=_dev(mesh)),
-        prov_spec=psp))
+
+    def broadcast_prov():
+        st, prov = sim.run_observed(sim.init_state(inj), None, None, 2,
+                                    prov=sim.provenance_state(psp, inj),
+                                    prov_spec=psp)
+        return {"state": bstate(sim, st), "prov": whole(prov)}
+
+    catch("broadcast_prov", broadcast_prov)
     csim = CounterSim(16, **on)
-    catch("counter_prov", lambda: csim.run_observed(
-        csim.init_state(), None, None, 2,
-        prov=PV.init_counter(16, device=_dev(mesh)),
-        prov_spec=PV.ProvenanceSpec("counter")))
+
+    def counter_prov():
+        cpsp = PV.ProvenanceSpec("counter")
+        st, prov = csim.run_observed(
+            csim.add(csim.init_state(), np.arange(1, 17)), None, None, 4,
+            prov=csim.provenance_state(cpsp), prov_spec=cpsp)
+        return {"state": cstate(mesh, st), "prov": whole(prov)}
+
+    catch("counter_prov", counter_prov)
     for name in ("broadcast", "counter", "kafka"):
         catch(f"{name}_runner_prov", lambda name=name: getattr(
             H, f"run_{name}_nemesis")(spec, provenance=True, **place))
