@@ -9399,6 +9399,384 @@ def strip_frontier(rep: dict) -> dict:
     return out
 
 
+# -- mesh_2d: the words axis and the hosts axis on the ranks -----------------
+
+# the words axis's many-values regime (the reference's
+# timing.words_axis_regime): the 4-ary tree at 2^20 nodes, 4,096 values
+# (W = 128) on 2 nodes x 2 words, a rank holding (64, 2^19) int32
+MESH2D_WORDS = (N_NODES, W128_VALUES)
+# the circulant's halo path and the node-major gather path on the words
+# mesh: their halos at 2^20 would move whole blocks a round through the
+# host-staged transport, so 2^16 nodes
+MESH2D_SMALL = 1 << 16
+MESH2D_TASKS = ("batch", "certify", "takeover", "pipelined", "stale")
+MESH2D_EXPECT = ("tree_halo_pack", "tree_halo_round", "col_popcount",
+                 "gather_flood_round", "col_popcount_nm", "counter_select",
+                 "counter_apply", "kafka_nem_deliver")
+# the reference's certified staleness spec (tests/test_dcn_pr20.py)
+MESH2D_STALE = dict(n_nodes=16, seed=3, crash=((1, 4, (2, 11)),),
+                    loss_rate=0.2, loss_until=5)
+
+
+def words_block_digest(sim, rec) -> int:
+    """The digest of a rank's block of a words-major (W, N) bitset as
+    its part of the whole array's (:func:`card_digest`: each of its word
+    rows at that row's global offset); the whole array's off a mesh."""
+    n, w0, n0 = sim.n_nodes, sim._wcols.start, sim._rows.start
+    total = 0
+    for i in range(rec.shape[0]):
+        total += card_digest(rec[i], (w0 + i) * n + n0)
+    return total & MASK32
+
+
+def mesh2d_small_sims(broadcast, timing, topology, mesh, device=None):
+    """(name, sim, inject) of the 2^16-node words-mesh runs: the
+    circulant's halo path (server ledger on) and the gather path over a
+    random 8-regular graph, W = 128."""
+    n, nv = MESH2D_SMALL, W128_VALUES
+    strides = topology.expander_strides(n, DEGREE, seed=0)
+    place = dict(mesh=mesh) if mesh is not None else dict(device=device)
+    inject = broadcast.make_inject(n, nv)
+    yield ("circulant", timing.structured_sim(
+        "circulant", n, nv, sync_every=16, srv_ledger=True,
+        strides=strides, mesh=mesh, device=device), inject)
+    yield ("gather", broadcast.BroadcastSim(
+        topology.random_regular(n, DEGREE, seed=0), n_values=nv,
+        sync_every=16, **place), inject)
+
+
+def _words_rank(mesh, flat) -> dict:
+    """The words axis on the ranks: the many-values tree on the 2 x 2
+    words mesh and on the flat 4-rank mesh (its while-converge run, timed,
+    launches and collectives counted; this rank's digest of its block),
+    and the 2^16-node circulant and gather runs on the words mesh."""
+    import torch
+
+    from gossip_glomers_tpu_torch.tpu_sim import (broadcast, kernels,
+                                                  timing)
+    from gossip_glomers_tpu_torch.parallel import topology
+
+    n, nv = MESH2D_WORDS
+    inject = broadcast.make_inject(n, nv)
+    out = {}
+    for name, m in (("words", mesh), ("flat", flat)):
+        sim = timing.structured_sim("tree", n, nv, mesh=m)
+        m.agree(True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        before = dict(m.calls_by_axis)
+        t0 = time.perf_counter()
+        state, rounds = sim.run_fused(inject)
+        torch.cuda.synchronize()
+        out[name] = {
+            "wall_s": time.perf_counter() - t0, "rounds": rounds,
+            "msgs": int(state.msgs), "launches": dict(kernels.LAUNCHES),
+            "calls": {f"{k}@{a}": v - before.get((k, a), 0)
+                      for (k, a), v in m.calls_by_axis.items()
+                      if v > before.get((k, a), 0)},
+            "block": list(state.received.shape),
+            "digest": words_block_digest(sim, state.received),
+            "halo": sim.sharded_exchange is not None}
+        del sim, state
+        torch.cuda.empty_cache()
+    for name, sim, inj in mesh2d_small_sims(broadcast, timing, topology,
+                                            mesh):
+        mesh.agree(True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, rounds = sim.run_fused(inj)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = sim.received_node_major(state)    # a collective: every rank
+        out[name] = {"wall_s": wall, "rounds": rounds,
+                     "msgs": int(state.msgs),
+                     "srv": (None if state.srv_msgs is None
+                             else int(state.srv_msgs)),
+                     "launches": dict(kernels.LAUNCHES),
+                     "received": rec if mesh.rank == 0 else None}
+        del sim, state, rec
+    return out
+
+
+def _hosts_rank(mesh, hosts, rounds: dict) -> dict:
+    """The hosts axis on the ranks (``hosts``: ``pick_mesh_2d(hosts=2)``
+    of the world): mesh_tree_1m's runs sync and pipelined; mesh_kafka's
+    4,096-node pull campaign pipelined (this rank's digests); the stale
+    counter campaign sync and ``stale:4`` (and sync on the flat mesh);
+    the worker's hosts task set on the hosts mesh and (but ``stale``) on
+    the flat one."""
+    import torch
+
+    from gossip_glomers_tpu_torch.harness import checkers, nemesis
+    from gossip_glomers_tpu_torch.parallel import dcn_worker
+    from gossip_glomers_tpu_torch.tpu_sim import faults, kernels
+
+    out = {"shape": hosts.shape}
+    old = os.environ.get("GG_DCN_PIPELINE")
+    try:
+        for mode in ("sync", "pipelined"):
+            os.environ["GG_DCN_PIPELINE"] = "1" if mode == "pipelined" \
+                else "0"
+            before = dict(hosts.calls_by_axis)
+            out[f"tree_1m_{mode}"] = _mesh_tree_rank(hosts)
+            out[f"tree_1m_{mode}"]["axes"] = {
+                f"{k}@{a}": v - before.get((k, a), 0)
+                for (k, a), v in hosts.calls_by_axis.items()
+                if v > before.get((k, a), 0)}
+        os.environ["GG_DCN_PIPELINE"] = "1"
+        sim, ops = mesh_kafka_sim("pull_blocked", hosts.device, hosts)
+        hosts.agree(True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st = mesh_kafka_trip("pull_blocked", sim, ops,
+                             rounds["kafka_quiet_pull_blocked"])
+        torch.cuda.synchronize()
+        out["kafka_pipelined"] = {
+            "wall_s": time.perf_counter() - t0,
+            "launches": dict(kernels.LAUNCHES),
+            "dcn_mode": sim._dcn.label(),
+            "digest": kafka_digests(st, hosts.rank * sim._block)}
+        del sim, st
+        torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            os.environ.pop("GG_DCN_PIPELINE", None)
+        else:
+            os.environ["GG_DCN_PIPELINE"] = old
+    spec = faults.NemesisSpec(**MESH2D_STALE)
+    stale = {}
+    kernels.reset_launches()
+    for label, m, dcn in (("sync", hosts, "sync"),
+                          ("stale", hosts, "stale:4"),
+                          ("flat_sync", mesh, "sync")):
+        t0 = time.perf_counter()
+        res = nemesis.run_counter_nemesis(spec, mode="allreduce", mesh=m,
+                                          max_recovery_rounds=32,
+                                          dcn_mode=dcn)
+        stale[label] = {k: res[k] for k in (
+            "ok", "converged_round", "n_lost_writes", "kv", "acked_sum",
+            "msgs_total")}
+        stale[label]["wall_s"] = time.perf_counter() - t0
+    stale["launches"] = dict(kernels.LAUNCHES)
+    ok, details = checkers.check_staleness_bound(
+        stale_k=4, sync_converged_round=stale["sync"]["converged_round"],
+        stale_converged_round=stale["stale"]["converged_round"],
+        lost_writes=[] if not stale["stale"]["n_lost_writes"] else [
+            {"n": stale["stale"]["n_lost_writes"]}],
+        recovery=(stale["stale"]["ok"], {}))
+    stale["bound"] = {"ok": ok, **{k: details[k] for k in (
+        "delay_rounds", "bound_round")}}
+    planted, d1 = checkers.check_staleness_bound(
+        stale_k=1, sync_converged_round=stale["sync"]["converged_round"],
+        stale_converged_round=stale["stale"]["converged_round"],
+        lost_writes=[])
+    stale["planted_k1"] = {"ok": planted,
+                           "violating_round": d1.get("violating_round")}
+    out["stale"] = stale
+    t0 = time.perf_counter()
+    out["tasks"] = {"hosts": dcn_worker.run_tasks(MESH2D_TASKS, hosts,
+                                                  timed=True),
+                    "flat": dcn_worker.run_tasks(MESH2D_TASKS[:4], mesh,
+                                                 timed=True)}
+    out["tasks_s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_2d_rank(mesh, rounds: dict) -> dict:
+    """mesh_2d's rank side (every rank makes the words mesh's and the
+    hosts mesh's groups, in the same order)."""
+    from gossip_glomers_tpu_torch.parallel.mesh import (make_mesh,
+                                                        pick_mesh_2d)
+
+    t0 = time.perf_counter()
+    words = make_mesh((2, 2), ("nodes", "words"), device=mesh.device)
+    hosts = pick_mesh_2d(hosts=2, device=mesh.device)
+    out = {"words_shape": words.shape, "coords": words.coords,
+           "words": _words_rank(words, mesh),
+           "hosts": _hosts_rank(mesh, hosts, rounds)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_2d_phase(ranks: list, modules, launches: Launches, device,
+                  head: dict, tree_flat: list) -> None:
+    """mesh_2d (module docstring): every run of the ranks held against
+    its one-process card run (the many-values tree, the 2^16-node words
+    runs, the stale counter's sync twin and the worker's tasks here; the
+    Kafka campaign's :data:`KAFKA_ONE`) and against the flat 4-rank run
+    (``tree_flat``: mesh_tree_1m's ranks)."""
+    import torch
+
+    broadcast, timing, topology, dcn_worker = modules
+    rec = {"phase": "mesh_2d", **head,
+           "words_mesh": ranks[0]["mesh_2d"]["words_shape"],
+           "hosts_mesh": ranks[0]["mesh_2d"]["hosts"]["shape"]}
+    w = [r["mesh_2d"]["words"] for r in ranks]
+    h = [r["mesh_2d"]["hosts"] for r in ranks]
+    counts = []
+    # -- the words axis at full width -------------------------------------
+    n, nv = MESH2D_WORDS
+    one = timing.structured_sim("tree", n, nv, device=device, mesh=None)
+    t0 = time.perf_counter()
+    st, rounds = one.run_fused(broadcast.make_inject(n, nv))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    whole = card_digest(st.received, 0)
+    want = {"rounds": rounds, "msgs": int(st.msgs)}
+    del one, st
+    torch.cuda.empty_cache()
+    runs = {}
+    for name in ("words", "flat"):
+        got = [x[name] for x in w]
+        digest = sum(x["digest"] for x in got) & MASK32
+        if digest != whole or any(
+                {"rounds": x["rounds"], "msgs": x["msgs"]} != want
+                for x in got) or not all(x["halo"] for x in got):
+            raise AssertionError(f"mesh_2d words tree ({name} mesh): "
+                                 f"{digest} / {got[0]['rounds']} rounds vs "
+                                 f"the one-process card run {whole} / "
+                                 f"{want}, or no halo path")
+        counts += [x["launches"] for x in got]
+        walls = [x["wall_s"] for x in got]
+        runs[f"tree_{name}"] = {
+            **want, "block": got[0]["block"], "wall_ms": max(walls) * 1e3,
+            "ms_per_round": max(walls) * 1e3 / rounds,
+            "collective_calls_rank0": got[0]["calls"],
+            "launches_per_round_rank0": _per_round(got[0]["launches"],
+                                                   rounds),
+            "equals_one_process_card_run": True}
+    runs["tree_words"]["one_process_ms"] = one_s * 1e3
+    runs["tree_words"]["equals_flat_mesh_run"] = True
+    for name, sim, inj in mesh2d_small_sims(broadcast, timing, topology,
+                                            None, device):
+        st, rounds = sim.run_fused(inj)
+        want = {"rounds": rounds, "msgs": int(st.msgs),
+                "srv": None if st.srv_msgs is None else int(st.srv_msgs)}
+        for r, x in enumerate(w):
+            if {k: x[name][k] for k in want} != want:
+                raise AssertionError(f"mesh_2d words {name}: rank {r} "
+                                     f"differs from the one-process run")
+        if not (w[0][name]["received"]
+                == sim.received_node_major(st)).all():
+            raise AssertionError(f"mesh_2d words {name}: received differs "
+                                 "from the one-process card run")
+        counts += [x[name]["launches"] for x in w]
+        runs[name] = {**want, "n": MESH2D_SMALL, "n_values": W128_VALUES,
+                      "wall_ms": max(x[name]["wall_s"] for x in w) * 1e3,
+                      "equals_one_process_card_run": True}
+        del sim, st
+    # -- the hosts axis ---------------------------------------------------
+    keys = ("rounds", "fused_rounds", "acct_rounds", "fixed_msgs",
+            "fused_msgs", "acct_msgs", "acct_srv")
+    for mode in ("sync", "pipelined"):
+        got = [x[f"tree_1m_{mode}"] for x in h]
+        for r, (x, y) in enumerate(zip(got, tree_flat)):
+            if {k: x[k] for k in keys} != {k: y[k] for k in keys}:
+                raise AssertionError(f"mesh_2d tree_1m {mode}: rank {r} "
+                                     "differs from the flat mesh's run")
+        for key in ("fixed_received", "acct_received"):
+            if not (got[0][key] == tree_flat[0][key]).all():
+                raise AssertionError(f"mesh_2d tree_1m {mode}: {key} "
+                                     "differs from the flat mesh's run")
+        # only the pipelined mode splits the hosts level out of the sums
+        split = [x["axes"].get("all_reduce@hosts", 0) for x in got]
+        if (mode == "pipelined") != all(s > 0 for s in split) or \
+                (mode == "sync" and any(split)):
+            raise AssertionError(f"mesh_2d tree_1m {mode}: all_reduce@hosts "
+                                 f"calls by rank {split} do not show the "
+                                 f"{mode} mode")
+        counts += [x[k] for x in got for k in ("fixed_launches",
+                                               "fused_launches",
+                                               "acct_launches")]
+        runs[f"tree_1m_hosts_{mode}"] = {
+            "rounds": got[0]["rounds"], "msgs": got[0]["fixed_msgs"],
+            "wall_ms": max(x["wall_s"] for x in got) * 1e3,
+            "accounted_ms": max(x["acct_wall_s"] for x in got) * 1e3,
+            "collective_calls_by_axis_rank0": got[0]["axes"],
+            "equals_flat_mesh_run": True,
+            "equals_one_process_card_run": True}
+    one = KAFKA_ONE["pull_blocked"]
+    for r, x in enumerate(h):
+        if x["kafka_pipelined"]["digest"] != one["blocks"][r] or \
+                x["kafka_pipelined"]["digest"] != ranks[r]["kafka"][
+                    "pull_blocked"]["digest"] or \
+                x["kafka_pipelined"]["dcn_mode"] != "pipelined":
+            raise AssertionError(f"mesh_2d kafka pipelined: rank {r} "
+                                 "differs from the one-process card run "
+                                 "or the flat mesh's")
+    counts += [x["kafka_pipelined"]["launches"] for x in h]
+    runs["kafka_4k_pipelined"] = {
+        "rounds": h[0]["kafka_pipelined"]["digest"]["t"],
+        "msgs": h[0]["kafka_pipelined"]["digest"]["msgs"],
+        "wall_ms": max(x["kafka_pipelined"]["wall_s"] for x in h) * 1e3,
+        "equals_one_process_card_run": True, "equals_flat_mesh_run": True}
+    from gossip_glomers_tpu_torch.harness import nemesis
+    from gossip_glomers_tpu_torch.tpu_sim import faults
+
+    sync_one = nemesis.run_counter_nemesis(
+        faults.NemesisSpec(**MESH2D_STALE), mode="allreduce",
+        max_recovery_rounds=32, device=device)
+    stale = h[0]["stale"]
+    fields = ("ok", "converged_round", "n_lost_writes", "kv", "acked_sum",
+              "msgs_total")
+    for r, x in enumerate(h):
+        s = x["stale"]
+        if any({k: s[label][k] for k in fields}
+               != {k: stale[label][k] for k in fields}
+               for label in ("sync", "stale", "flat_sync")):
+            raise AssertionError(f"mesh_2d stale counter: rank {r} differs")
+    if not ({k: stale["sync"][k] for k in fields}
+            == {k: stale["flat_sync"][k] for k in fields}
+            == {k: sync_one[k] for k in fields}):
+        raise AssertionError("mesh_2d stale counter: the sync twin differs "
+                             "from the flat mesh's or the one-process run")
+    delay = stale["bound"]["delay_rounds"]
+    if not (stale["stale"]["ok"] and stale["stale"]["n_lost_writes"] == 0
+            and stale["stale"]["kv"] == stale["stale"]["acked_sum"]
+            and stale["bound"]["ok"] and 1 <= delay <= 4
+            and not stale["planted_k1"]["ok"]
+            and stale["planted_k1"]["violating_round"]
+            == stale["stale"]["converged_round"]):
+        raise AssertionError(f"mesh_2d stale counter: {stale}")
+    counts += [x["stale"]["launches"] for x in h]
+    runs["stale_counter"] = {
+        "spec": "tests/test_dcn_pr20.py STALE_SPEC", "k": 4,
+        "sync_round": stale["sync"]["converged_round"],
+        "stale_round": stale["stale"]["converged_round"],
+        "delay_rounds": delay, "bound_round": stale["bound"]["bound_round"],
+        "kv": stale["stale"]["kv"], "acked_sum": stale["stale"]["acked_sum"],
+        "planted_k1_fails_at": stale["planted_k1"]["violating_round"],
+        "sync_equals_one_process_card_run": True}
+    t0 = time.perf_counter()
+    tasks_one = dcn_worker.run_tasks(MESH2D_TASKS[:4], None, timed=False,
+                                     device=device)
+    tasks_one_s = time.perf_counter() - t0
+    strip = dcn_worker._strip_timing
+    for r, x in enumerate(h):
+        got = strip(x["tasks"]["hosts"])
+        flat = strip(x["tasks"]["flat"])
+        if any(got[t] != tasks_one[t] or flat[t] != tasks_one[t]
+               for t in MESH2D_TASKS[:4]) or got["stale"] != strip(
+                h[0]["tasks"]["hosts"])["stale"] or not got["stale"]["ok"]:
+            raise AssertionError(f"mesh_2d worker tasks: rank {r} differs "
+                                 "from the one-process card run or the "
+                                 "flat mesh's")
+    runs["worker_tasks"] = {
+        "tasks": list(MESH2D_TASKS), "stale": strip(
+            h[0]["tasks"]["hosts"]["stale"]),
+        "wall_ms_by_task_rank0": {
+            t: v["wall_s"] * 1e3
+            for t, v in h[0]["tasks"]["hosts"].items()},
+        "one_process_s": tasks_one_s,
+        "equals_one_process_card_run": True, "equals_flat_mesh_run": True}
+    launches.add_ranks(rec, counts, MESH2D_EXPECT)
+    rec.update(runs=runs,
+               rank_seconds=max(r["mesh_2d"]["seconds"] for r in ranks),
+               ok=True)
+    emit(rec)
+    torch.cuda.empty_cache()
+
+
 def mesh_rank_work(mesh, seed: int, rounds: dict, txn_ops,
                    prov_args: dict) -> dict:
     """The rank side of every mesh phase, in one world; ``rounds``: each
@@ -9415,7 +9793,8 @@ def mesh_rank_work(mesh, seed: int, rounds: dict, txn_ops,
             "counter": _mesh_counter_rank(mesh, rounds),
             "kafka": _mesh_kafka_rank(mesh, rounds),
             "txn_serving": _mesh_txn_serving_rank(mesh, txn_ops),
-            "prov_batches": _mesh_prov_batches_rank(mesh, prov_args)}
+            "prov_batches": _mesh_prov_batches_rank(mesh, prov_args),
+            "mesh_2d": _mesh_2d_rank(mesh, rounds)}
 
 
 def nccl_rank_work(mesh, txn_ops) -> dict:
@@ -9640,6 +10019,10 @@ def mesh_phases(modules, device, launches: Launches, card: str,
                                        "transport": transport,
                                        "device": card, "label": MESH_LABEL},
                      nccl["kafka"], world_s)
+    mesh_2d_phase(ranks, modules, launches, device,
+                  {"ranks": MESH_RANKS, "transport": transport,
+                   "device": card, "label": MESH_LABEL,
+                   "world_seconds": world_s}, tr)
     # mesh_txn_serving and mesh_provenance_batches are held against runs
     # of later phases: keep the ranks' results
     MESH_PROV.update(ranks=[r["prov_batches"] for r in ranks],

@@ -8,7 +8,8 @@ each equal to the original on seeded inputs), the scenario batches'
 certifier ``check_provenance`` with ``provenance_divergence_round``
 (tests/test_torch_nemesis_runner.py and test_torch_provenance.py), and
 the txn-rw-register history's ``check_txn_serializable``
-(tests/test_torch_txn.py).  It reads the fault model through the port's
+(tests/test_torch_txn.py), and the bounded-staleness certificate
+``check_staleness_bound`` (tests/test_torch_dcn_mode.py).  It reads the fault model through the port's
 :mod:`..tpu_sim.faults` host twins (``host_node_up``,
 ``host_edge_drop``, ``host_kv_ok``).  The other workload checkers
 (``check_kafka`` and the rest) wait for the port's runners that need
@@ -93,6 +94,74 @@ def check_recovery(*, clear_round: int, converged_round: int | None,
                 details[key] = latency[key]
     if divergence is not None:
         details["first_divergence_round"] = divergence
+    return ok, details
+
+
+def check_staleness_bound(*, stale_k: int,
+                          sync_converged_round: int | None,
+                          stale_converged_round: int | None,
+                          lost_writes: list,
+                          recovery: tuple | None = None,
+                          ) -> tuple[bool, dict]:
+    """Bounded-staleness certification: a ``stale:k`` run's
+    cross-host partials may lag at most ``k`` rounds behind the
+    synchronous twin, so the whole run must
+
+    - converge no more than ``k`` rounds after the k=0 (sync) twin
+      did (``sync_converged_round`` / ``stale_converged_round`` are
+      the absolute rounds convergence was first observed; None =
+      never — a stale run that never converges while the sync twin
+      did is an unbounded-staleness violation, not a tie), and
+    - lose NO acknowledged writes (``lost_writes``: the workload's
+      evidence list, same shape :func:`check_recovery` takes — a
+      flushed delta riding the staleness carry is still durable, so
+      ANY shortfall falsifies the deferred-delivery model).
+
+    The check is falsifiable by construction: a run whose partials
+    actually lag ``k + 1`` rounds converges past the bound, and the
+    details name the violating round — ``bound_round`` is
+    ``sync_converged_round + stale_k`` and ``violating_round`` is the
+    stale run's converged round whenever it lands beyond the bound
+    (or -1 for "never converged").
+
+    ``recovery``: an optional composed :func:`check_recovery` verdict
+    ``(ok, details)`` for the SAME stale run (crash+loss nemesis on
+    top of staleness) — its failure fails this check too and its
+    details nest under ``details['recovery']``.
+    """
+    if stale_k < 0:
+        raise ValueError(f"stale_k must be >= 0, got {stale_k}")
+    details: dict = {
+        "stale_k": stale_k,
+        "sync_converged_round": sync_converged_round,
+        "stale_converged_round": stale_converged_round,
+        "n_lost_writes": len(lost_writes),
+        "lost_writes": list(lost_writes)[:10],
+    }
+    if sync_converged_round is None:
+        # no sync baseline: nothing to bound against — only the
+        # lost-writes half of the contract is decidable
+        ok = not lost_writes
+        details["bound_round"] = None
+        details["delay_rounds"] = None
+    else:
+        bound = sync_converged_round + stale_k
+        details["bound_round"] = bound
+        if stale_converged_round is None:
+            ok = False
+            details["delay_rounds"] = None
+            details["violating_round"] = -1
+        else:
+            delay = stale_converged_round - sync_converged_round
+            details["delay_rounds"] = delay
+            ok = delay <= stale_k and not lost_writes
+            if stale_converged_round > bound:
+                details["violating_round"] = stale_converged_round
+    if recovery is not None:
+        rec_ok, rec_details = recovery
+        ok = ok and bool(rec_ok)
+        details["recovery"] = rec_details
+        details["recovery_ok"] = bool(rec_ok)
     return ok, details
 
 

@@ -296,10 +296,10 @@ def run_frontier(workload: str, cells, *, mesh=None,
     Returns the frontier report (``observe.validate_frontier``).  The
     batches run on ``device`` (CUDA unless given), or on ``mesh`` (module
     docstring: every rank calls and gets the same report)."""
-    from ..tpu_sim.engine import _check_flat
+    from ..tpu_sim.engine import check_mesh
     from .checkers import check_frontier_batch
 
-    _check_flat(mesh)
+    check_mesh(mesh)
     cells = list(cells)
     if not cells:
         raise ValueError("run_frontier needs at least one cell")

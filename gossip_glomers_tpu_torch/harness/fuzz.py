@@ -631,9 +631,9 @@ def fuzz_run(workload: str = "broadcast", n_scenarios: int = 256, *,
 
     The batches and repros run on ``device`` (CUDA unless given), or on
     ``mesh`` (module docstring)."""
-    from ..tpu_sim.engine import _check_flat
+    from ..tpu_sim.engine import check_mesh
 
-    _check_flat(mesh)
+    check_mesh(mesh)
     if workload not in ("broadcast", "counter", "kafka", "txn"):
         raise ValueError(f"unknown fuzz workload {workload!r}")
     if workload == "txn" and (signatures or adapt):

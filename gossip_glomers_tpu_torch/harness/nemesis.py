@@ -35,8 +35,12 @@ paths, the convergence predicates agreed over the ranks (one all-reduce
 a round), the lost-write reads collective, the provenance record
 gathered once and certified on the host by rank 0, which shares its
 verdict, a failed campaign's bundle written by rank 0, and every rank
-returning the whole result.  Not ported yet, and raising: ``dcn_mode=``
-(ROADMAP.md Queue A item 10).
+returning the whole result.  ``dcn_mode=`` (the hosts level's
+schedule on a hierarchical mesh, :func:`..tpu_sim.engine.resolve_dcn_mode`)
+goes to the sims and, when given, into ``runner_kw``, so that a flight
+bundle replays the mode; a counter campaign under ``stale:k`` converges
+only once its staleness outbox has delivered every delta
+(:meth:`..tpu_sim.counter.CounterSim.dcn_backlog`).
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ from ..tpu_sim import structured as S
 from ..tpu_sim import telemetry as TM
 from ..tpu_sim.broadcast import BroadcastSim, Partitions, make_inject
 from ..tpu_sim.counter import CounterSim
-from ..tpu_sim.engine import host_unpack_bits, resolve_device
+from ..tpu_sim.engine import (check_mesh, host_unpack_bits, node_index,
+                               node_shards, resolve_device)
 from ..tpu_sim.faults import NemesisSpec
 from ..tpu_sim.kafka import KafkaSim
 from ..tpu_sim.kernels import or_rows, unpack_bits
@@ -64,28 +69,21 @@ _TOPOLOGIES = {"grid": grid, "tree": tree}
 _NEM_GATHER_MIN_W = 8
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP.md Queue A item {item})")
-
-
-def _check_unported(name: str, mesh, dcn_mode) -> None:
-    """The runner's refusals: ``dcn_mode`` (ROADMAP.md Queue A item 10),
-    and any mesh but the port's 1-D one."""
-    from ..tpu_sim.engine import _check_flat
-
-    if dcn_mode is not None:
-        raise _unported(f"{name}(dcn_mode=...)", 10)
-    _check_flat(mesh)
-
-
-def _place(mesh, device) -> tuple:
+def _place(mesh, device, dcn_mode=None) -> tuple:
     """(device, the sims' placement keywords): the mesh's, or
-    ``device``'s."""
+    ``device``'s; with ``dcn_mode`` when one is given."""
+    check_mesh(mesh)
+    extra = {} if dcn_mode is None else dict(dcn_mode=dcn_mode)
     if mesh is not None:
-        return mesh.device, dict(mesh=mesh)
+        return mesh.device, dict(mesh=mesh, **extra)
     dev = resolve_device(device)
-    return dev, dict(device=dev)
+    return dev, dict(device=dev, **extra)
+
+
+def _with_mode(kw: dict, dcn_mode) -> dict:
+    """``kw`` with ``dcn_mode`` recorded when it is set (older bundles
+    stay as they were, and a replay reruns the campaign in the mode)."""
+    return kw if dcn_mode is None else dict(kw, dcn_mode=dcn_mode)
 
 
 def _block(sim, x: np.ndarray) -> np.ndarray:
@@ -93,8 +91,8 @@ def _block(sim, x: np.ndarray) -> np.ndarray:
     mesh)."""
     if sim.mesh is None:
         return x
-    b = sim.n_nodes // sim.mesh.size
-    return x[sim.mesh.rank * b:(sim.mesh.rank + 1) * b]
+    b = sim.n_nodes // node_shards(sim.mesh)
+    return x[node_index(sim.mesh) * b:(node_index(sim.mesh) + 1) * b]
 
 
 def _agree(sim, flag) -> bool:
@@ -233,8 +231,7 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
     certify them, and put them in the result.  ``observe_dir``: where a
     failed campaign writes its flight bundle.  ``mesh``: run on the mesh
     (module docstring)."""
-    _check_unported("run_broadcast_nemesis", mesh, dcn_mode)
-    dev, place = _place(mesh, device)
+    dev, place = _place(mesh, device, dcn_mode)
     n = spec.n_nodes
     nv = n_values if n_values is not None else 2 * n
     if isinstance(parts, dict):
@@ -257,8 +254,8 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         if structured == "auto":
             structured = _auto_structured(
                 (traffic.n_clients * traffic.ops_per_client + 31) // 32, dev)
-        sim_kw = dict(topology=topology, sync_every=sync_every,
-                      structured=bool(structured))
+        sim_kw = _with_mode(dict(topology=topology, sync_every=sync_every,
+                                 structured=bool(structured)), dcn_mode)
         if delays is not None:
             sim_kw["delays"] = delays.tolist()
         if dir_delays is not None:
@@ -281,7 +278,7 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
         kw = dict(exchange=S.make_exchange(topology, n),
                   nemesis=S.make_nemesis(
                       topology, n, spec, groups=groups, device=dev,
-                      n_shards=None if mesh is None else mesh.size,
+                      n_shards=None if mesh is None else node_shards(mesh),
                       dir_delays=(None if dir_delays is None
                                   else tuple(dir_delays))))
     elif dir_delays is not None:
@@ -375,6 +372,7 @@ def run_broadcast_nemesis(spec: NemesisSpec, *, n_values: int | None = None,
                      delays=None if delays is None else delays.tolist(),
                      dir_delays=(None if dir_delays is None
                                  else list(dir_delays)))
+    runner_kw = _with_mode(runner_kw, dcn_mode)
     ok = _finish_observed(ok, details, tel, tel_spec,
                           msgs_total=int(state.msgs),
                           observe_dir=observe_dir, workload="broadcast",
@@ -405,16 +403,15 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     campaign (``deltas`` ignored).  ``provenance``: the per-node flush,
     KV and visibility stamps (see :func:`run_broadcast_nemesis`).
     ``mesh``: run on the mesh (module docstring)."""
-    _check_unported("run_counter_nemesis", mesh, dcn_mode)
-    dev, place = _place(mesh, device)
+    dev, place = _place(mesh, device, dcn_mode)
     if traffic is not None:
         from . import serving
         _no_traffic_provenance(provenance)
         return serving.run_serving(
             "counter", traffic, nemesis=spec,
             max_recovery_rounds=max_recovery_rounds,
-            sim_kw=dict(mode=mode, poll_every=poll_every,
-                        union_block=union_block),
+            sim_kw=_with_mode(dict(mode=mode, poll_every=poll_every,
+                                   union_block=union_block), dcn_mode),
             telemetry=telemetry, observe_dir=observe_dir, mesh=mesh,
             device=dev)
     n = spec.n_nodes
@@ -451,15 +448,19 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     outside = torch.from_numpy(_block(sim, ~members_c).copy()).to(dev)
 
     def pending_sum(s) -> torch.Tensor:
-        p = s.pending.sum(dtype=torch.int64)
-        return p if mesh is None else mesh.all_reduce(p, "sum")
+        # the undelivered deltas: pending, and under a stale mode the
+        # staleness outbox's (in flight, not lost)
+        p = s.pending.sum(dtype=torch.int64) + sim.dcn_backlog()
+        return p if mesh is None else mesh.all_reduce(p, "sum",
+                                                      mesh.axis_names)
 
     def converged(s) -> bool:
         stale = (~((s.cached == s.kv) | outside)).sum(dtype=torch.int64)
         if mesh is not None:
-            # one all-reduce: the pending total and the stale caches
+            # one all-reduce: the undelivered total and the stale caches
             p, stale = mesh.all_reduce(torch.stack([
-                s.pending.sum(dtype=torch.int64), stale]), "sum")
+                s.pending.sum(dtype=torch.int64) + sim.dcn_backlog(),
+                stale]), "sum", mesh.axis_names)
             return bool((p == 0) & (stale == 0))
         return bool((s.pending.sum() == 0) & (stale == 0))
 
@@ -492,9 +493,10 @@ def run_counter_nemesis(spec: NemesisSpec, *,
     deltas_kw = (None if np.array_equal(
         deltas, np.arange(1, n + 1, dtype=np.int32))
         else [int(d) for d in np.asarray(deltas)])
-    runner_kw = dict(deltas=deltas_kw, mode=mode, poll_every=poll_every,
-                     max_recovery_rounds=max_recovery_rounds,
-                     union_block=union_block)
+    runner_kw = _with_mode(dict(
+        deltas=deltas_kw, mode=mode, poll_every=poll_every,
+        max_recovery_rounds=max_recovery_rounds, union_block=union_block),
+        dcn_mode)
     ok = _finish_observed(ok, details, tel, tel_spec,
                           msgs_total=int(state.msgs),
                           observe_dir=observe_dir, workload="counter",
@@ -652,17 +654,17 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
     slot) allocation, origin and witness-presence stamps (the witness
     from the ``ProvenanceSpec``).  ``mesh``: run on the mesh (module
     docstring)."""
-    _check_unported("run_kafka_nemesis", mesh, dcn_mode)
-    dev, place = _place(mesh, device)
+    dev, place = _place(mesh, device, dcn_mode)
     if traffic is not None:
         from . import serving
         _no_traffic_provenance(provenance)
         return serving.run_serving(
             "kafka", traffic, nemesis=spec,
             max_recovery_rounds=max_recovery_rounds,
-            sim_kw=dict(n_keys=n_keys, capacity=capacity,
-                        max_sends=max_sends, resync_every=resync_every,
-                        resync_mode=resync_mode, union_block=union_block),
+            sim_kw=_with_mode(dict(
+                n_keys=n_keys, capacity=capacity, max_sends=max_sends,
+                resync_every=resync_every, resync_mode=resync_mode,
+                union_block=union_block), dcn_mode),
             telemetry=telemetry, observe_dir=observe_dir, mesh=mesh,
             device=dev)
     n = spec.n_nodes
@@ -707,6 +709,7 @@ def run_kafka_nemesis(spec: NemesisSpec, *, n_keys: int = 4,
                      max_recovery_rounds=max_recovery_rounds, rounds=rounds,
                      repl_fast=repl_fast, union_block=union_block,
                      commits=commits, send_prob=send_prob)
+    runner_kw = _with_mode(runner_kw, dcn_mode)
     ok = _finish_observed(ok, details, tel, tel_spec,
                           msgs_total=int(state.msgs),
                           observe_dir=observe_dir, workload="kafka",

@@ -37,7 +37,8 @@ Pure host code over numpy; tests/test_torch_observe.py and
 test_torch_provenance.py hold each function equal to the reference's.
 ``replay_bundle(mesh=)`` replays on a :class:`..parallel.mesh.Mesh`
 (every rank calling); a bundle whose ``runner_kw`` names a ``dcn_mode``
-raises there (ROADMAP.md Queue A item 10).
+replays that mode on the mesh it is given (a ``stale:k`` one needs a
+hierarchical mesh, ``pick_mesh_2d``).
 """
 
 from __future__ import annotations
@@ -682,16 +683,18 @@ def replay_bundle(path_or_dict, *, telemetry=False, mesh=None,
     for a faithful replay).  ``mesh``: replay on a
     :class:`..parallel.mesh.Mesh` (every rank calling; its device is the
     run's), which gives the one-process result.  A bundle whose
-    ``runner_kw`` names a ``dcn_mode`` raises (ROADMAP.md Queue A item
-    10)."""
-    from ..tpu_sim.engine import _check_flat
+    ``runner_kw`` names a ``dcn_mode`` replays the mode on ``mesh``:
+    bounded staleness exists only across a hosts level, so a
+    ``stale:k`` bundle needs a hierarchical mesh (``pick_mesh_2d``) and
+    the sims refuse it anywhere else."""
+    from ..tpu_sim.engine import check_mesh
     from ..tpu_sim.faults import NemesisSpec
     from ..tpu_sim.traffic import TrafficSpec
     from . import nemesis as NM
     from . import serving as SV
     from . import txn as TXH
 
-    _check_flat(mesh)
+    check_mesh(mesh)
     place = dict(device=device) if mesh is None else dict(mesh=mesh)
     bundle = load_bundle(path_or_dict)
     spec = (NemesisSpec.from_meta(bundle["nemesis"])

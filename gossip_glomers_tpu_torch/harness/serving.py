@@ -44,7 +44,7 @@ from ..tpu_sim import telemetry as TM
 from ..tpu_sim import traffic
 from ..tpu_sim.broadcast import BroadcastSim
 from ..tpu_sim.counter import CounterSim
-from ..tpu_sim.engine import _check_flat, resolve_device
+from ..tpu_sim.engine import check_mesh, node_shards, resolve_device
 from ..tpu_sim.faults import NemesisSpec
 from ..tpu_sim.kafka import KafkaSim
 from . import observe
@@ -85,9 +85,9 @@ def make_serving_sim(kind: str, tspec: "traffic.TrafficSpec", *,
     ``mesh``: build it on the mesh (its device is the sim's; the
     structured bundles get ``n_shards``, the structured exchange its halo
     form)."""
-    _check_flat(mesh)
+    check_mesh(mesh)
     dev = mesh.device if mesh is not None else resolve_device(device)
-    n_sh = None if mesh is None else mesh.size
+    n_sh = None if mesh is None else node_shards(mesh)
     place = dict(device=dev) if mesh is None else dict(mesh=mesh)
     n = tspec.n_nodes
     if nemesis is not None and nemesis.n_nodes != n:
@@ -279,7 +279,7 @@ def run_serving(kind: str, tspec: "traffic.TrafficSpec", *,
     total_rounds = clear + drained
     details.update(
         workload=kind, n_nodes=tspec.n_nodes,
-        mesh=None if mesh is None else mesh.size,
+        mesh=None if mesh is None else node_shards(mesh),
         traffic=tspec.to_meta(), **summ,
         offered_per_round=traffic.offered_per_round(tspec),
         sustained_per_round=summ["completed"] / max(1, total_rounds),

@@ -65,13 +65,13 @@ def run_txn_nemesis(spec: NemesisSpec, *, n_keys: int = 8,
     ``observe_dir``: where a failed campaign writes its flight bundle.
     ``mesh``: run on a :class:`..parallel.mesh.Mesh` (module docstring;
     its device is the run's)."""
-    from ..tpu_sim.engine import _check_flat
+    from ..tpu_sim.engine import check_mesh
     from . import observe
 
     if telemetry:
         raise ValueError("txn workload records per-transaction "
                          "stamps, not telemetry series")
-    _check_flat(mesh)
+    check_mesh(mesh)
     dev = mesh.device if mesh is not None else resolve_device(device)
     n = spec.n_nodes
     sim = TX.TxnSim(
@@ -156,9 +156,9 @@ def run_txn_frontier(rates, specs, *, n_keys: int = 8,
     import numpy as np
 
     from ..tpu_sim import scenario as SC
-    from ..tpu_sim.engine import _check_flat
+    from ..tpu_sim.engine import check_mesh
 
-    _check_flat(mesh)
+    check_mesh(mesh)
     rows = []
     ok_all = True
     for rate in rates:

@@ -1,18 +1,19 @@
 """The rank-side worker of a multi-process run, and its spawner.
 
-The port of gossip_glomers_tpu/parallel/dcn_worker.py's spawn contract
-for a flat 1-D mesh.  Each rank is one process of a ``torch.distributed``
-group on one device; :func:`spawn_world` starts them (``torch.
-multiprocessing``, start method ``spawn``, the group initialized through a
-``file://`` store in a temporary directory, so concurrent runs never
-share a port), runs ``fn(mesh, *args)`` on every rank and returns each
+The port of gossip_glomers_tpu/parallel/dcn_worker.py.  Each rank is one
+process of a ``torch.distributed`` group on one device; :func:`spawn_world`
+starts them (``torch.multiprocessing``, start method ``spawn``, the
+group initialized through a ``file://`` store in a temporary directory,
+so concurrent runs never share a port), runs ``fn(mesh, *args)`` on
+every rank (``mesh`` the flat mesh of the whole world) and returns each
 rank's result, or raises with every failed rank's traceback.  A rank that
 hangs fails the call at its ``timeout``: the spawner kills the ranks.
 
-:func:`spawn_local_cluster` runs the task list on every rank and writes
-one JSON report a rank (``report.json.<rank>``); it asserts that every
-rank reports the same replicated numbers (the per-rank timings aside).
-Tasks:
+:func:`spawn_local_cluster` runs the task list on every rank, on the flat
+mesh or on ``pick_mesh_2d(hosts=)``, and writes one JSON report a rank
+(``report.json.<rank>``); it asserts that every rank reports the same
+replicated numbers (the per-rank timings aside).  Tasks, each on a 1-D
+or a hierarchical mesh (or off a mesh):
 
 - ``sims``: the reference's ``sims`` (the 16-node grid through the
   gather path, ``run`` and ``run_fused``: rounds, ``msgs`` and the state
@@ -20,16 +21,25 @@ Tasks:
   replay of 12 rounds: ``msgs`` and the state digest; the 8-node Kafka
   log, 6 steps of ``default_rng(0)`` sends: ``msgs`` and the state
   digest);
+- ``batch``: a 64-scenario counter campaign, its verdict rows;
+- ``certify``: a certified crash and loss broadcast campaign on the
+  structured path;
+- ``takeover``: a host's rows (the upper half of the nodes) crashed for
+  a window, the flood converging after the restart;
+- ``pipelined``: the ``sims`` body under ``GG_DCN_PIPELINE=1``;
+- ``stale``: the counter allreduce campaign synchronous and at
+  ``stale:4``, certified by ``check_staleness_bound`` (a hierarchical
+  mesh);
 - ``roundtime``: the words-major 4-ary tree flood's round wall over the
   halo exchange, at ``GG_DCN_RT_N`` nodes (65,536) and ``GG_DCN_RT_NV``
   values (32), and the state digest.
 
-``batch``, ``certify``, ``takeover``, ``pipelined`` and ``stale`` come
-with the hosts axis and ``dcn_mode`` and raise (item 10).  ``main`` is
-the env-driven rank body
+``main`` is the env-driven rank body
 (``python -m gossip_glomers_tpu_torch.parallel.dcn_worker`` with the
 ``GG_*`` variables of :data:`.mesh.DIST_ENV`, ``GG_DCN_TASKS`` and
-``GG_DCN_OUT``).  Nothing here imports JAX.
+``GG_DCN_OUT``), on ``pick_mesh_2d()`` (the ranks grouped by machine)
+when the world spans several machines, else on the flat mesh.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -48,11 +58,6 @@ import numpy as np
 
 #: report keys that are per-rank measurements, not replicated results
 TIMING_KEYS = ("wall_s", "us_per_round")
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               "(ROADMAP.md Queue A item 10)")
 
 
 # -- digests ---------------------------------------------------------------
@@ -178,6 +183,7 @@ def _task_roundtime(mesh, device) -> dict:
 
     from ..tpu_sim import structured as S
     from ..tpu_sim.broadcast import BroadcastSim, make_inject
+    from ..tpu_sim.engine import node_shards
     from ..tpu_sim.timing import discover_rounds
     from .topology import to_padded_neighbors, tree
 
@@ -187,7 +193,8 @@ def _task_roundtime(mesh, device) -> dict:
         to_padded_neighbors(tree(n)), n_values=nv, sync_every=1 << 20,
         srv_ledger=False, mesh=mesh, exchange=S.make_exchange("tree", n),
         sharded_exchange=None if mesh is None
-        else S.make_sharded_exchange("tree", n, mesh.size), device=device)
+        else S.make_sharded_exchange("tree", n, node_shards(mesh)),
+        device=device)
     rounds = discover_rounds("tree", n, nv)
     inject = make_inject(n, nv)
     sim.run_staged_fixed(sim.init_state(inject), rounds)   # warm
@@ -204,16 +211,129 @@ def _task_roundtime(mesh, device) -> dict:
             "state": state_digest(out, mesh)}
 
 
-def _refused(name: str):
-    def task(mesh, device):
-        raise _unported(f"the {name} task (the hosts axis's task set, "
-                        "with dcn_mode)")
-    return task
+def _task_batch(mesh, device) -> dict:
+    """The 64-scenario counter campaign (cas, poll every 2 rounds): each
+    scenario's crashes moved past the cas drain, so every verdict row
+    certifies; the rows' verdicts, rounds, messages and KV values."""
+    from ..tpu_sim import scenario as SC
+    from ..tpu_sim.faults import NemesisSpec, random_spec
+
+    n, s_count = 16, 64
+    specs = []
+    for s in range(s_count):
+        sp = random_spec(n, seed=s, horizon=8,
+                         n_crash_windows=1 + (s % 2), loss_rate=0.1)
+        meta = sp.to_meta()
+        meta["crash"] = [[a + n + 2, b + n + 2, ns]
+                         for a, b, ns in meta["crash"]]
+        meta["loss_until"] += n + 2
+        specs.append(NemesisSpec.from_meta(meta))
+    batch = SC.ScenarioBatch(
+        workload="counter",
+        scenarios=tuple(SC.Scenario(spec=sp) for sp in specs),
+        runner_kw={"mode": "cas", "poll_every": 2},
+        max_recovery_rounds=32)
+    res = SC.run_scenario_batch(batch, mesh=mesh, device=device)
+    rows = [{k: row[k] for k in
+             ("scenario", "ok", "converged_round", "msgs_total", "kv")}
+            for row in res["scenarios"]]
+    return {"ok": bool(res["ok"]), "n_scenarios": res["n_scenarios"],
+            "failing": list(res["failing"]), "scenarios": rows}
 
 
-TASKS = {"sims": _task_sims, "roundtime": _task_roundtime,
-         **{name: _refused(name) for name in
-            ("batch", "certify", "takeover", "pipelined", "stale")}}
+def _task_certify(mesh, device) -> dict:
+    """A certified 16-node tree campaign on the structured path under a
+    crash and loss."""
+    from ..harness.nemesis import run_broadcast_nemesis
+    from ..tpu_sim.faults import NemesisSpec
+
+    spec = NemesisSpec(n_nodes=16, seed=5, crash=((2, 4, (3, 9)),),
+                       loss_rate=0.15, loss_until=5)
+    res = run_broadcast_nemesis(spec, topology="tree", n_values=16,
+                                structured=True, mesh=mesh, device=device)
+    return {"ok": bool(res["ok"]),
+            "converged_round": int(res["converged_round"]),
+            "msgs_total": int(res["msgs_total"])}
+
+
+def _task_takeover(mesh, device) -> dict:
+    """Host loss: every row of the second host (the upper half of the
+    nodes under the hosts-major layout) crashes for a window; the flood
+    stalls on the survivors and converges after the restart.  Every
+    value starts on node 0, so the wipe loses nothing."""
+    from ..tpu_sim.broadcast import BroadcastSim
+    from ..tpu_sim.faults import NemesisSpec
+    from .topology import grid, to_padded_neighbors
+
+    n, nv = 16, 16
+    lost_host = tuple(range(n // 2, n))
+    spec = NemesisSpec(n_nodes=n, seed=3, crash=((1, 6, lost_host),))
+    dev = mesh.device if mesh is not None else device
+    sim = BroadcastSim(to_padded_neighbors(grid(n)), n_values=nv,
+                       mesh=mesh, fault_plan=spec.compile(device=dev),
+                       device=None if mesh is not None else device)
+    inject = np.zeros((n, 1), np.uint32)
+    inject[0, 0] = np.uint32((1 << nv) - 1)
+    state, rounds = sim.run(inject)
+    reads = sim.read(state)
+    converged = all(r == list(range(nv)) for r in reads)
+    return {"rounds": int(rounds), "msgs": int(state.msgs),
+            "lost_rows": list(lost_host), "converged": converged,
+            "state": state_digest(state, mesh, node_dim=0)}
+
+
+def _task_pipelined(mesh, device) -> dict:
+    """The ``sims`` task with the hosts level pipelined
+    (``GG_DCN_PIPELINE=1`` while it runs): bit-exact, so its digests are
+    the synchronous run's and the flat mesh's."""
+    old = os.environ.get("GG_DCN_PIPELINE")
+    os.environ["GG_DCN_PIPELINE"] = "1"
+    try:
+        return _task_sims(mesh, device)
+    finally:
+        if old is None:
+            os.environ.pop("GG_DCN_PIPELINE", None)
+        else:
+            os.environ["GG_DCN_PIPELINE"] = old
+
+
+def _task_stale(mesh, device) -> dict:
+    """The counter allreduce crash and loss campaign synchronous and at
+    ``stale:4`` (a hierarchical mesh), certified by
+    :func:`..harness.checkers.check_staleness_bound` against the
+    synchronous twin; every number replicated."""
+    from ..harness.checkers import check_staleness_bound
+    from ..harness.nemesis import run_counter_nemesis
+    from ..tpu_sim.faults import NemesisSpec
+
+    spec = NemesisSpec(n_nodes=16, seed=3, crash=((1, 4, (2, 11)),),
+                       loss_rate=0.2, loss_until=5)
+    runs = {}
+    for label, dcn in (("sync", "sync"), ("stale", "stale:4")):
+        runs[label] = run_counter_nemesis(
+            spec, mode="allreduce", mesh=mesh, max_recovery_rounds=32,
+            dcn_mode=dcn, device=device)
+    ok, details = check_staleness_bound(
+        stale_k=4,
+        sync_converged_round=runs["sync"]["converged_round"],
+        stale_converged_round=runs["stale"]["converged_round"],
+        lost_writes=runs["stale"]["lost_writes"],
+        recovery=(runs["stale"]["ok"],
+                  {"converged_round": runs["stale"]["converged_round"],
+                   "kv": int(runs["stale"]["kv"])}))
+    return {"ok": bool(ok),
+            "sync_round": runs["sync"]["converged_round"],
+            "stale_round": runs["stale"]["converged_round"],
+            "delay_rounds": details["delay_rounds"],
+            "bound_round": details["bound_round"],
+            "kv": int(runs["stale"]["kv"]),
+            "acked_sum": int(runs["stale"]["acked_sum"])}
+
+
+TASKS = {"sims": _task_sims, "batch": _task_batch,
+         "certify": _task_certify, "takeover": _task_takeover,
+         "roundtime": _task_roundtime, "pipelined": _task_pipelined,
+         "stale": _task_stale}
 
 
 def run_tasks(tasks, mesh, timed: bool | None = None, *,
@@ -337,9 +457,14 @@ def _strip_timing(x):
     return x
 
 
-def _cluster_rank(mesh, tasks, out_path, timed):
+def _cluster_rank(world, tasks, out_path, timed, hosts=None):
+    from .mesh import pick_mesh_2d
+
+    mesh = world if hosts is None else pick_mesh_2d(hosts=hosts,
+                                                    device=world.device)
     report = {"process_id": mesh.rank, "n_processes": mesh.size,
-              "transport": mesh.transport, "mesh_shape": [mesh.size],
+              "transport": mesh.transport,
+              "mesh_shape": list(mesh.shape.values()),
               "tasks": run_tasks(tasks, mesh, timed)}
     with open(f"{out_path}.{mesh.rank}", "w") as fh:
         fh.write(json.dumps(report, indent=1, sort_keys=True) + "\n")
@@ -349,19 +474,22 @@ def _cluster_rank(mesh, tasks, out_path, timed):
 def spawn_local_cluster(tasks: str, out_dir: str, *, n_procs: int = 2,
                         backend: str = "gloo", device=None,
                         timeout: float = 600.0,
-                        timed: bool = False) -> list:
+                        timed: bool = False,
+                        hosts: int | None = None) -> list:
     """Run the comma-separated ``tasks`` on ``n_procs`` spawned ranks
     (:func:`spawn_world`, on ``device``) and return the per-rank reports,
     each also written to ``out_dir/<run>/report.json.<rank>``.  Asserts
     that the ranks' replicated results agree (the per-rank timings,
-    :data:`TIMING_KEYS`, aside)."""
+    :data:`TIMING_KEYS`, aside).  ``hosts``: run on
+    ``pick_mesh_2d(hosts=hosts)`` (the ranks folded into that many
+    hosts) instead of the flat mesh of every rank."""
     names = [t for t in tasks.split(",") if t]
     for name in names:
         if name not in TASKS:
             raise ValueError(f"unknown task {name!r} (one of {sorted(TASKS)})")
     out = os.path.join(tempfile.mkdtemp(dir=out_dir), "report.json")
     reports = spawn_world(_cluster_rank, n_procs, backend=backend,
-                          device=device, args=(names, out, timed),
+                          device=device, args=(names, out, timed, hosts),
                           timeout=timeout)
     first = _strip_timing(reports[0]["tasks"])
     for rep in reports[1:]:
@@ -380,11 +508,14 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from ..tpu_sim.engine import resolve_device
-    from .mesh import init_distributed, pick_mesh
+    from .mesh import host_names, init_distributed, pick_mesh, pick_mesh_2d
 
     init_distributed()
     device = resolve_device(os.environ.get("GG_DEVICE") or None)
-    mesh = pick_mesh(device=device)
+    # a world over several machines: the hosts axis, a host a machine;
+    # on one machine the flat mesh
+    machines = len(set(host_names())) if dist.is_initialized() else 1
+    mesh = (pick_mesh_2d if machines > 1 else pick_mesh)(device=device)
     tasks = [t for t in os.environ.get("GG_DCN_TASKS",
                                        "sims").split(",") if t]
     rank = dist.get_rank() if dist.is_initialized() else 0
@@ -392,7 +523,8 @@ def main(argv=None) -> int:
               "n_processes": (dist.get_world_size()
                               if dist.is_initialized() else 1),
               "transport": None if mesh is None else mesh.transport,
-              "mesh_shape": None if mesh is None else [mesh.size],
+              "mesh_shape": (None if mesh is None
+                             else list(mesh.shape.values())),
               "tasks": run_tasks(tasks, mesh, device=device)}
     payload = json.dumps(report, indent=1, sort_keys=True) + "\n"
     out_path = os.environ.get("GG_DCN_OUT")

@@ -81,8 +81,21 @@ finished by one packed all-reduce.  The observed driver's provenance
 record rides the gather path on a mesh too, each rank stamping its own
 rows: :func:`.kernels.prov_attribute` reads the round's own all-gathered
 payload (and dup rows), or the ring slots the round has already widened,
-stacked, so the record adds no collective to a round.  ``dcn_mode`` and
-``inject_mid`` on a mesh raise (ROADMAP.md Queue A item 10).
+stacked, so the record adds no collective to a round.
+
+On a mesh with a ``words`` axis (``("nodes", "words")``, or the 1-D
+words mesh) a rank holds (W/Pw, N/Pn) words-major or (N/Pn, W/Pw)
+node-major: the halo exchanges, the all-gather fallback and the gather
+path's all-gather run along ``nodes`` only, every kernel runs on the
+rank's block as it is, the ledgers' popcount partials are summed over
+both axes, the sync waves' per-node base is charged by word shard 0
+alone (:attr:`Shard.base_once`), and the convergence target is the
+rank's words of it, agreed over every rank.  Provenance and the traffic
+drivers refuse a words mesh, as the reference's do.  On a hierarchical
+``("hosts", "nodes")`` mesh the node blocks are the flat mesh's, and
+``dcn_mode`` schedules the ledgers' sums over the hosts level
+(:func:`.engine.dcn_psum`: ``sync`` or ``pipelined``; ``stale:k``
+refuses).
 """
 
 from __future__ import annotations
@@ -94,20 +107,13 @@ import numpy as np
 import torch
 
 from . import faults, kernels, provenance, telemetry, traffic
-from .engine import (active_windows, fori_rounds, resolve_block,
+from .engine import (active_windows, fori_rounds, node_index, node_shards,
+                     resolve_block, word_index, word_shards,
                      resolve_device, scan_blocks, send_slot,
                      stepwise_converge, while_converge, windows_fold)
 from .kernels import FLAG_DEL, FLAG_OUT_OK, FLAG_SEND, MASK32
 
 WORD = 32
-
-_UNPORTED = ("dcn_mode",)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               "(ROADMAP.md Queue A item 10)")
-
 
 def _ident(x):
     return x
@@ -127,13 +133,18 @@ class Shard:
       result must be cut back to it (the all-gather fallback), else None;
     - ``row0``, the block's first global node, and ``all_ids``, every
       node's id: the gather path's fault coins hash global ids over
-      every node's liveness."""
+      every node's liveness;
+    - ``base_once``: whether this rank charges the sync waves' per-node
+      base (reads and read_oks): on a ``words`` mesh every word shard
+      holds the same nodes, so only word shard 0 does, while the
+      popcount partials sum over the word shards."""
 
     reduce_sum: Callable = _ident
     widen: Callable = _ident
     rows: slice | None = None
     row0: int = 0
     all_ids: torch.Tensor | None = None
+    base_once: bool = True
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """A full-axis (W, N) result's words of this block."""
@@ -488,7 +499,8 @@ def _srv_ledger(srv_msgs: torch.Tensor, *, t: int, is_sync: bool,
                 pcf: torch.Tensor, req_deg: torch.Tensor,
                 ack_deg: torch.Tensor,
                 diff: Callable[[], torch.Tensor],
-                reduce_sum: Callable = _ident) -> torch.Tensor:
+                reduce_sum: Callable = _ident,
+                base_once: bool = True) -> torch.Tensor:
     """The reference-accounted server ledger after round ``t``: floods
     charge `broadcast` to every requesting neighbor (``req_deg``) minus
     the sender (t == 0 rows are client-injected origins) plus one
@@ -496,12 +508,16 @@ def _srv_ledger(srv_msgs: torch.Tensor, *, t: int, is_sync: bool,
     frontier's popcount ``pcf``; sync rounds add read-per-requesting-
     neighbor + read_ok-per-acknowledging-neighbor + the targeted diff
     pushes and their acks (``diff()``, evaluated on sync rounds only).  On
-    a mesh the shard's partial goes through ``reduce_sum``."""
+    a mesh the shard's partial goes through ``reduce_sum``; without
+    ``base_once`` (a word shard other than the first) the per-node read
+    base is not charged again."""
     d2 = req_deg + ack_deg
     coef = d2 if t == 0 else (d2 - 2).clamp(min=0)
     inc = _dot32(pcf, coef)
     if is_sync:
-        inc = inc + wrap32(d2.sum()) + 2 * diff()
+        inc = inc + 2 * diff()
+        if base_once:
+            inc = inc + wrap32(d2.sum())
     return wrap32(srv_msgs + reduce_sum(wrap32(inc)))
 
 
@@ -577,7 +593,7 @@ def _round(state: BroadcastState, *, row_ids: torch.Tensor,
             pcf=kernels.col_popcount(fr0, node_major=True) if is_sync
             else pc, req_deg=deg_topo, ack_deg=live_deg,
             diff=lambda: _sync_diff_pc(payload_full, rec0, nbrs, live),
-            reduce_sum=shard.reduce_sum)
+            reduce_sum=shard.reduce_sum, base_once=shard.base_once)
     history = None
     if classes is None:
         new, received = kernels.gather_flood_round(payload_full, rec0, nbrs,
@@ -754,7 +770,7 @@ def _round_plan(state: BroadcastState, *, row_ids: torch.Tensor,
             ack_deg=((flags & ack) == ack).sum(dim=1),
             diff=lambda: _sync_diff_pc(payload_full, rec0, nbrs,
                                        (flags & both) == both),
-            reduce_sum=shard.reduce_sum)
+            reduce_sum=shard.reduce_sum, base_once=shard.base_once)
     out = BroadcastState(received=received, frontier=new, t=t + 1,
                          msgs=wrap32(state.msgs
                                      + shard.reduce_sum(wrap32(sent))),
@@ -857,7 +873,8 @@ def _round_wm(state: BroadcastState, *, deg: torch.Tensor, sync_every: int,
             state.srv_msgs, t=t, is_sync=is_sync,
             pcf=kernels.col_popcount(state.frontier) if is_sync else pc,
             req_deg=deg, ack_deg=live_deg,
-            diff=lambda: diff(state.received), reduce_sum=shard.reduce_sum)
+            diff=lambda: diff(state.received), reduce_sum=shard.reduce_sum,
+            base_once=shard.base_once)
     history = None
     if delayed_exchange is None:
         inbox = shard.local(deliver(payload_full))
@@ -951,7 +968,7 @@ def _round_wm_nem(state: BroadcastState, *, nem, arrs, plan: faults.FaultPlan,
             ack_deg=live_deg if ack is deg_live else kernels.count_rows(
                 ack, n),
             diff=lambda: nem.sync_diff(rec0, both),
-            reduce_sum=shard.reduce_sum)
+            reduce_sum=shard.reduce_sum, base_once=shard.base_once)
     history = None
     if nem.dir_delays is None:
         live_del, dup = faults.wm_live_del(plan, t, arrs, ps, pe, dup_on)
@@ -1128,7 +1145,7 @@ class BroadcastSim:
                  mesh=None,
                  sharded_exchange=None,
                  sharded_sync_diff=None,
-                 **unported) -> None:
+                 dcn_mode=None) -> None:
         """``nbrs``: (N, D) int32 neighbor table padded with -1
         (parallel/topology.py).  ``exchange``: a structured exchange from
         :func:`.structured.make_exchange` (it carries the fused flood
@@ -1162,7 +1179,10 @@ class BroadcastSim:
         state lives (default CUDA; raises if there is none).
 
         ``mesh``: a :class:`..parallel.mesh.Mesh` — this rank runs its
-        block of the node axis on ``mesh.device`` (N must divide evenly),
+        block of the node axis on ``mesh.device`` (N must divide evenly
+        over the node shards: a 1-D mesh's ranks, a hierarchical mesh's
+        hosts x nodes), and on a mesh with a ``words`` axis its block of
+        the bitset's words too (the words must divide evenly over it),
         every rank calling every method in the same order.
         ``sharded_exchange`` / ``sharded_sync_diff``: the halo closures
         (:func:`.structured.make_sharded_exchange` /
@@ -1174,15 +1194,14 @@ class BroadcastSim:
         refuse a mesh without them, as the reference does; the nemesis
         falls back to the all-gather), and the gather path's plan,
         ``delays`` and ``union_block`` run over the all-gathered payload.
-        ``dcn_mode`` raises (ROADMAP.md Queue A item 10)."""
-        from .engine import _check_flat
+        ``dcn_mode``: the hosts level's schedule on a hierarchical mesh
+        (:func:`.engine.resolve_dcn_mode`; None defers to the env):
+        ``sync`` or ``pipelined`` (the ledgers' sums split into two
+        half-blocks, bit-exact); a ``stale:k`` mode refuses, as the
+        reference's does."""
+        from .engine import check_mesh, dcn_psum, resolve_dcn_mode
         from .structured import Halo
 
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value is not None:
-                raise _unported(f"BroadcastSim({name}=...)")
         if exchange is not None and not hasattr(exchange, "flood_round"):
             raise TypeError("exchange must come from "
                             "structured.make_exchange")
@@ -1191,13 +1210,27 @@ class BroadcastSim:
         for name, value in (("sharded_exchange", sharded_exchange),
                             ("sharded_sync_diff", sharded_sync_diff)):
             if value is not None and not isinstance(value, Halo):
-                raise _unported(f"BroadcastSim({name}=...) other than a "
-                                "structured.Halo")
-        _check_flat(mesh)
+                raise TypeError(f"BroadcastSim({name}=...) takes a "
+                                "structured.Halo (make_sharded_exchange "
+                                "/ make_sharded_sync_diff)")
+        check_mesh(mesh)
+        self._dcn = resolve_dcn_mode(dcn_mode)
+        if self._dcn.stale_k:
+            raise ValueError(
+                f"dcn_mode={self._dcn.label()!r}: broadcast has no "
+                "certified staleness semantics — its delivery plane is "
+                "the halo/widen exchange and the srv ledger calibrates "
+                "against synchronous round accounting; run sync or "
+                "pipelined")
+        n_wsh = word_shards(mesh)
         if mesh is not None:
-            if nbrs.shape[0] % mesh.size:
+            if nbrs.shape[0] % node_shards(mesh):
                 raise ValueError(f"{nbrs.shape[0]} nodes do not shard "
-                                 f"evenly over {mesh.size} ranks")
+                                 f"evenly over {node_shards(mesh)} ranks")
+            if num_words(n_values) % n_wsh:
+                raise ValueError(
+                    f"{num_words(n_values)} words of {n_values} values do "
+                    f"not shard evenly over {n_wsh} word shards")
             if device is not None and \
                     torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh's "
@@ -1282,12 +1315,17 @@ class BroadcastSim:
         self.words_major = words_major
         self.parts = parts.to(self.device)
         self._host_deg = (nbrs >= 0).sum(axis=1).astype(np.int64)
-        # this rank's rows of the node axis: all of them off a mesh
-        block = n if mesh is None else n // mesh.size
-        self._rows = (slice(0, n) if mesh is None
-                      else slice(mesh.rank * block, (mesh.rank + 1) * block))
-        self._psum = (_ident if mesh is None
-                      else lambda x: mesh.all_reduce(x, "sum"))
+        # this rank's rows of the node axis (all of them off a mesh) and
+        # its words of the bitset (all of them without a words axis)
+        block = n // node_shards(mesh)
+        self._rows = slice(node_index(mesh) * block,
+                           (node_index(mesh) + 1) * block)
+        wb = self.n_words // n_wsh
+        self._wcols = slice(word_index(mesh) * wb,
+                            (word_index(mesh) + 1) * wb)
+        self._base_once = word_index(mesh) == 0
+        # the all-axes sum of the ledgers and popcounts (mode-aware)
+        self._psum = dcn_psum(mesh, self._dcn)
         self.deg = torch.as_tensor(self._host_deg[self._rows],
                                    device=self.device)
         self.sharded_exchange = (None if sharded_exchange is None
@@ -1348,12 +1386,13 @@ class BroadcastSim:
                     self.sharded_exchange if f is None
                     or self.sharded_exchange is not None else
                     (lambda p, f=f, ex=self._fx_exists: f.exchange(p, ex)))
-                self._shard = Shard(reduce_sum=self._psum)
+                self._shard = Shard(reduce_sum=self._psum,
+                                    base_once=self._base_once)
             elif mesh is not None:
                 self._shard = Shard(
                     reduce_sum=self._psum,
                     widen=lambda p: mesh.all_gather(p, dim=1),
-                    rows=self._rows)
+                    rows=self._rows, base_once=self._base_once)
             self._halo = halo
             if f is not None and sync_diff is None:
                 # outside the windows: the bundle's diff under exists
@@ -1377,7 +1416,7 @@ class BroadcastSim:
                 self._shard = Shard(
                     reduce_sum=self._psum,
                     widen=lambda p: mesh.all_gather(p, dim=0),
-                    row0=self._row0,
+                    row0=self._row0, base_once=self._base_once,
                     all_ids=None if fault_plan is None else torch.arange(
                         n, device=self.device))
         if nemesis is not None:
@@ -1442,18 +1481,20 @@ class BroadcastSim:
         arrs = nem.arrs
         self._nem_shard = ONE_DEVICE
         if mesh is not None and self._halo:
-            arrs = arrs.shard(mesh.rank, mesh.size)
+            arrs = arrs.shard(node_index(mesh), node_shards(mesh))
             nem = dataclasses.replace(
                 nem, exchange=nem.sharded_exchange.bind(mesh),
                 src_pc=nem.sharded_src_pc.bind(mesh),
                 sync_diff=nem.sharded_sync_diff.bind(mesh),
                 ring_exchange=None if nem.sharded_ring_exchange is None
                 else nem.sharded_ring_exchange.bind(mesh))
-            self._nem_shard = Shard(reduce_sum=self._psum)
+            self._nem_shard = Shard(reduce_sum=self._psum,
+                                    base_once=self._base_once)
         elif mesh is not None:
             self._nem_shard = Shard(
                 reduce_sum=self._psum,
-                widen=lambda p: mesh.all_gather(p, dim=1), rows=rows)
+                widen=lambda p: mesh.all_gather(p, dim=1), rows=rows,
+                base_once=self._base_once)
         self._nem = nem
         self._nem_arrs = arrs.to(self.device)
         self._nem_deg = kernels.count_rows(self._nem_arrs.deg_exists,
@@ -1514,8 +1555,9 @@ class BroadcastSim:
 
     def init_state(self, inject: np.ndarray) -> BroadcastState:
         """The round-0 state of the (N, W) uint32 injection (this rank's
-        block of it on a mesh)."""
-        local = np.asarray(inject, np.uint32)[self._rows]
+        block of it on a mesh: its rows, and its words on a words
+        mesh)."""
+        local = np.asarray(inject, np.uint32)[self._rows, self._wcols]
         received = _bits_from_numpy(local, self.words_major).to(
             self.device)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -1530,9 +1572,11 @@ class BroadcastSim:
 
     def target_bits(self, inject: np.ndarray) -> torch.Tensor:
         """(W,) int32 — union of all injected values: the convergence
-        target every node must reach."""
+        target every node must reach (this rank's words of it on a words
+        mesh)."""
         union = np.bitwise_or.reduce(np.asarray(inject, np.uint32), axis=0)
-        return torch.from_numpy(union.view(np.int32)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(
+            union[self._wcols]).view(np.int32)).to(self.device)
 
     def stage(self, inject: np.ndarray
               ) -> tuple[BroadcastState, torch.Tensor]:
@@ -1680,7 +1724,12 @@ class BroadcastSim:
     # -- open-loop traffic -----------------------------------------------
 
     def _traffic_validate(self, tspec) -> None:
-        if self.mesh is not None and tspec.n_clients % self.mesh.size:
+        if self._wcols != slice(0, self.n_words):
+            raise ValueError(
+                "the traffic drivers run on node meshes: a client's value "
+                "bits live in one word shard, so a 'words' mesh refuses "
+                "them, as the reference's does")
+        if self.mesh is not None and tspec.n_clients % node_shards(self.mesh):
             raise ValueError(
                 f"n_clients={tspec.n_clients} must shard evenly over the "
                 "node axis")
@@ -1935,11 +1984,14 @@ class BroadcastSim:
 
     def received_node_major(self, state: BroadcastState) -> np.ndarray:
         """(N, W) uint32 received bitset (on a mesh every rank's block,
-        gathered on every rank)."""
+        gathered on every rank: along the node axis, then the words)."""
         rec = state.received
         if self.mesh is not None:
             rec = self.mesh.all_gather(rec, dim=1 if self.words_major
                                        else 0)
+            if self._wcols != slice(0, self.n_words):
+                rec = self.mesh.all_gather(
+                    rec, dim=0 if self.words_major else 1, axis="words")
         return _bits_to_numpy(rec, self.words_major)
 
     def inject_mid(self, state: BroadcastState, node: int,
@@ -1948,16 +2000,18 @@ class BroadcastSim:
         and frontier), so the next round floods it, out of place.  The
         server ledger, where it is on, takes the origin's correction: one
         send and one ack more than the learner the next round charges it
-        as.  The gather path only, as in the reference."""
-        if self.mesh is not None:
-            raise _unported("BroadcastSim.inject_mid on a mesh")
+        as.  The gather path only, as in the reference.  On a mesh the
+        rank whose block holds the node (and the value's word) sets it;
+        every rank takes the ledger's correction."""
         if self.words_major:
             raise ValueError("inject_mid targets the gather path")
         w, b = value // WORD, 1 << (value % WORD)
         bit = b - (1 << 32) if b >= 1 << 31 else b
         received, frontier = state.received.clone(), state.frontier.clone()
-        received[node, w] |= bit
-        frontier[node, w] |= bit
+        rows, cols = self._rows, self._wcols
+        if rows.start <= node < rows.stop and cols.start <= w < cols.stop:
+            received[node - rows.start, w - cols.start] |= bit
+            frontier[node - rows.start, w - cols.start] |= bit
         srv = (None if state.srv_msgs is None
                else (state.srv_msgs + 2) & MASK32)
         return dataclasses.replace(state, received=received,

@@ -58,8 +58,16 @@ replicated KV value its flush landed in, and the ring's partial columns
 packed all-reduce a round.
 
 The provenance record runs on a mesh too, each rank stamping its rows
-(:meth:`CounterSim.run_observed`).  Not ported yet, and raising:
-``dcn_mode`` (ROADMAP.md Queue A item 10); the program audit (item 14).
+(:meth:`CounterSim.run_observed`).
+
+On a hierarchical ``("hosts", "nodes")`` mesh the node blocks are the
+flat mesh's and the round's minimum and sums run the engine's two-level
+circuits (:func:`.engine.collectives`), ``dcn_mode`` scheduling their
+hosts level: ``pipelined`` (bit-exact), or for the allreduce host-KV
+data plane ``stale:k``, whose flush and charge sums wait in an outbox
+and cross the hosts every k-th round (:class:`.engine.DcnRound`).  A
+``words`` mesh refuses.  Not ported yet, and raising: the program audit
+(ROADMAP.md Queue A item 14).
 """
 
 from __future__ import annotations
@@ -71,8 +79,10 @@ import numpy as np
 import torch
 
 from . import faults, kernels, kvstore, provenance, telemetry, traffic
-from .engine import (active_windows, collectives, fori_rounds,
-                     resolve_block, resolve_device, scan_blocks)
+from .engine import (HOSTS_AXIS, DcnMode, DcnRound, active_windows,
+                     collectives, fori_rounds, node_index, node_shards,
+                     resolve_block, resolve_dcn_mode, resolve_device,
+                     scan_blocks)
 from .kernels import _NO_KEY, GATE_BLOCKED, GATE_WIPE, MASK32
 
 # the reference's methods that this port leaves out, by ROADMAP.md Queue
@@ -165,24 +175,47 @@ class CounterSim:
         ``device``: where the state lives (default CUDA; raises if there
         is none).  ``mesh``: a :class:`..parallel.mesh.Mesh`, this rank
         running its block of the rows on ``mesh.device`` (N must divide
-        evenly; every rank calls every method in the same order).
-        ``dcn_mode`` raises (ROADMAP.md Queue A item 10)."""
+        evenly over its node shards; every rank calls every method in the
+        same order).  ``dcn_mode``: the hosts level's schedule on a
+        hierarchical mesh (:func:`.engine.resolve_dcn_mode`; None defers
+        to the env): ``pipelined`` is bit-exact on every driver; a
+        ``stale:k`` mode is certified for the allreduce host-KV data plane
+        alone (its whole exchange is ``reduce_sum``, carried in the sim's
+        staleness outbox between rounds and reset by :meth:`init_state`),
+        and the cas winner fold, the device KV and the observed and
+        traffic drivers refuse it."""
         if mesh is not None:
-            from .engine import _check_flat
+            from .engine import check_mesh, refuse_words
 
-            _check_flat(mesh)
-            if n_nodes % mesh.size:
+            check_mesh(mesh)
+            refuse_words(mesh, "CounterSim")
+            if n_nodes % node_shards(mesh):
                 raise ValueError(f"{n_nodes} nodes do not shard evenly "
-                                 f"over {mesh.size} ranks")
+                                 f"over {node_shards(mesh)} ranks")
             if device is not None and \
                     torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
             device = mesh.device
-        if dcn_mode is not None:
-            raise _unported("CounterSim(dcn_mode=...)", 10)
         if mode not in ("cas", "allreduce"):
             raise ValueError(f"unknown mode {mode!r}")
+        self._dcn = resolve_dcn_mode(dcn_mode)
+        if self._dcn.stale_k:
+            if mode != "allreduce":
+                raise ValueError(
+                    f"dcn_mode {self._dcn.label()!r} needs "
+                    "mode='allreduce': the cas winner's reduce_min "
+                    "fold has no certified staleness semantics")
+            if kv_backend != "host":
+                raise ValueError(
+                    f"dcn_mode {self._dcn.label()!r} needs "
+                    "kv_backend='host': device-KV reads have no "
+                    "certified staleness semantics")
+            if mesh is None or HOSTS_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"dcn_mode {self._dcn.label()!r} needs a "
+                    "hierarchical (hosts x nodes) mesh: a flat mesh "
+                    "has no DCN level to lag")
         if winner_key not in ("auto", "packed", "wide"):
             raise ValueError(f"unknown winner_key {winner_key!r}")
         if kv_backend not in ("host", "device"):
@@ -200,8 +233,8 @@ class CounterSim:
         self.mesh = mesh
         self.n_nodes = n_nodes
         # this rank's rows: all of them off a mesh
-        self._block = n_nodes if mesh is None else n_nodes // mesh.size
-        self._row0 = 0 if mesh is None else mesh.rank * self._block
+        self._block = n_nodes if mesh is None else n_nodes // node_shards(mesh)
+        self._row0 = 0 if mesh is None else node_index(mesh) * self._block
         self.mode = mode
         self.poll_every = poll_every
         self.seed = seed
@@ -255,6 +288,12 @@ class CounterSim:
                          collectives(self._block, mesh,
                                      device=self.device).row_ids)
         self._work = kernels.counter_work(self.device)
+        # the round's reductions: the hosts level pipelined or not; a
+        # stale mode's carry (its round age and outbox slots) is run
+        # state, reset with the state (:meth:`init_state`)
+        self._coll = collectives(self._block, mesh, device=self.device,
+                                 dcn=DcnMode(pipeline=self._dcn.pipeline))
+        self._dcn_carry = (0, None)
         self._rows = torch.arange(self._row0, self._row0 + self._block,
                                   dtype=torch.int32, device=self.device)
         self._traffic = {}
@@ -273,6 +312,7 @@ class CounterSim:
         if self._device_kv:
             rows = kvstore.init_rows(self._kv_layout, self.device,
                                      rows=self._block)
+        self._dcn_carry = (0, None)
         return CounterState(pending=z(), cached=z(), kv=z(()), t=0,
                             msgs=torch.zeros((), dtype=torch.int64,
                                              device=self.device),
@@ -383,7 +423,19 @@ class CounterSim:
                             msgs=msgs, rows=rows)
 
     def _psum(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mesh.all_reduce(x, "sum")
+        return self._coll.reduce_sum(x)
+
+    def _stale_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``reduce_sum`` through this round's staleness outbox
+        (:class:`.engine.DcnRound`): a lag round serves zeros and keeps
+        the operand in the outbox, a refresh round delivers the whole
+        backlog."""
+        age, slots = self._dcn_carry
+        ctx = DcnRound(self._dcn, age=age, carry=slots)
+        out = collectives(self._block, self.mesh, device=self.device,
+                          dcn=ctx).reduce_sum(x)
+        self._dcn_carry = (age + 1, ctx.carry_out())
+        return out
 
     def _finish(self, part: torch.Tensor, kv0: torch.Tensor,
                 msgs: torch.Tensor, cas: bool, poll: bool):
@@ -394,13 +446,12 @@ class CounterSim:
         across ranks), then sums the owner's pending of it and the message
         charges, less the winner's poll; allreduce sums the flushes and
         the charges."""
-        mesh = self.mesh
+        coll = self._coll
         if cas:
-            best = mesh.all_reduce(part[:1], "min")
+            best = coll.reduce_min(part[:1])
             mine = part[:1] == best
-            sums = mesh.all_reduce(
-                torch.cat([torch.where(mine, part[1:2], 0), part[2:]]),
-                "sum")
+            sums = coll.reduce_sum(
+                torch.cat([torch.where(mine, part[1:2], 0), part[2:]]))
             has = best[0] != _NO_KEY
             kv = torch.where(has, kernels._wrap_i32(kv0.to(torch.int64)
                                                     + sums[0]), kv0)
@@ -409,7 +460,8 @@ class CounterSim:
             self._work[3] = torch.where(has, best[0] & MASK32,
                                         self.n_nodes)
         else:
-            sums = mesh.all_reduce(part[1:], "sum")
+            sums = (self._stale_sum(part[1:]) if self._dcn.stale_k
+                    else coll.reduce_sum(part[1:]))
             kv = kernels._wrap_i32(kv0.to(torch.int64) + sums[0])
             msgs = (msgs + sums[1]) & MASK32
             self._work[3] = self.n_nodes
@@ -496,8 +548,7 @@ class CounterSim:
         ts = ts._replace(op_aux=aux)
         min_cached = s2.cached.min()
         if self.mesh is not None:
-            min_cached = self.mesh.all_reduce(min_cached.reshape(1),
-                                              "min")[0]
+            min_cached = self._coll.reduce_min(min_cached.reshape(1))[0]
 
         def bit_fn(lo, block):
             a = aux[lo:lo + block]
@@ -573,7 +624,7 @@ class CounterSim:
         fk = torch.where(newf, s2.kv, prov.flush_kv)
         low = s2.cached.min()
         if self.mesh is not None:
-            low = self.mesh.all_reduce(low.reshape(1), "min")[0]
+            low = self._coll.reduce_min(low.reshape(1))[0]
         vr = provenance.stamp(prov.visible_round, (fr >= 0) & (low >= fk),
                               s2.t)
         return provenance.CounterProv(flush_round=fr, flush_kv=fk,
@@ -591,6 +642,12 @@ class CounterSim:
         ring are left as they were.  Returns ``(state, tel?, prov?)``.
         On a mesh the record is the rank's rows and a round makes one
         all-reduce more (:meth:`_prov_record`)."""
+        if self._dcn.stale_k:
+            raise ValueError(
+                f"dcn_mode {self._dcn.label()!r}: the observed "
+                "drivers do not thread the DCN staleness carry — "
+                "telemetry/provenance calibration under staleness is "
+                "undecided; run sync or pipelined")
         if (tel is None) != (tspec is None):
             raise ValueError(
                 "pass tel and tel_spec together (build the ring with "
@@ -636,6 +693,12 @@ class CounterSim:
         with ``donate`` the tracker and the ring are updated in place,
         else copied first.  ``tel`` / ``tel_spec``: record the telemetry
         ring too, and return ``(state, ts, tel)``."""
+        if self._dcn.stale_k:
+            raise ValueError(
+                f"dcn_mode {self._dcn.label()!r}: the open-loop "
+                "traffic driver does not thread the DCN staleness "
+                "carry — per-op latency tracking under staleness is "
+                "undecided; run sync or pipelined")
         telemetry.tel_key(tel, tel_spec, "counter")
         ix = self._traffic_index(tspec)
         tplan = tspec.compile()
@@ -659,6 +722,16 @@ class CounterSim:
 
     def kv_value(self, state: CounterState) -> int:
         return int(state.kv)
+
+    def dcn_backlog(self) -> torch.Tensor:
+        """() int64: the deltas this rank's staleness outbox holds, flushed
+        from ``pending`` but not yet delivered to the KV (a ``stale:k``
+        mode's lag rounds; 0 in the other modes).  In flight, not lost:
+        a campaign is quiescent once every rank's backlog is 0."""
+        slots = self._dcn_carry[1]
+        if not slots:
+            return torch.zeros((), dtype=torch.int64, device=self.device)
+        return slots[0][0].to(torch.int64)
 
 
 def _build_batch_round(sim: CounterSim):

@@ -17,7 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .engine import _check_flat, resolve_device
+from .engine import (check_mesh, node_index, node_shards, refuse_words,
+                     resolve_device)
 from .kernels import MASK32
 
 
@@ -30,16 +31,17 @@ class EchoSim:
     def __init__(self, n_nodes: int, *, mesh=None,
                  device: str | torch.device | None = None) -> None:
         if mesh is not None:
-            _check_flat(mesh)
-            if n_nodes % mesh.size:
+            check_mesh(mesh)
+            refuse_words(mesh, "EchoSim")
+            if n_nodes % node_shards(mesh):
                 raise ValueError(f"{n_nodes} nodes do not shard evenly "
-                                 f"over {mesh.size} ranks")
+                                 f"over {node_shards(mesh)} ranks")
             device = mesh.device
         self.device = resolve_device(device)
         self.mesh = mesh
         self.n_nodes = n_nodes
-        block = n_nodes if mesh is None else n_nodes // mesh.size
-        row0 = 0 if mesh is None else mesh.rank * block
+        block = n_nodes if mesh is None else n_nodes // node_shards(mesh)
+        row0 = 0 if mesh is None else node_index(mesh) * block
         self._rows = slice(row0, row0 + block)
 
     def init_state(self) -> EchoState:

@@ -82,8 +82,13 @@ The provenance record is whole on every rank: a round's allocation
 stamps are the ranks' disjoint partials, summed with the witness row
 (which one rank holds) in one packed all-reduce.
 
-Not ported yet, and raising: ``dcn_mode`` on a mesh (ROADMAP.md Queue A
-item 10); the program audit (item 14).
+On a hierarchical ``("hosts", "nodes")`` mesh the node blocks are the
+flat mesh's and every reduction, OR, AND and offset scan above runs the
+engine's two-level circuits, ``dcn_mode`` scheduling their hosts level:
+``sync`` or ``pipelined`` (bit-exact); ``stale:k`` refuses (offset
+allocation and the lin-kv commits need the current round).  A ``words``
+mesh refuses.  Not ported yet, and raising: the program audit (ROADMAP.md
+Queue A item 14).
 """
 
 from __future__ import annotations
@@ -95,7 +100,9 @@ import torch
 
 from . import faults, kernels, kvstore, provenance, telemetry, traffic
 from .counter import KVReach, _reach, _unported
-from .engine import (_check_flat, analytic_peak_bytes, collectives,
+from .engine import (analytic_peak_bytes, check_mesh, collectives,
+                     refuse_words, resolve_dcn_mode,
+                     node_index, node_shards,
                      fori_rounds, operand_bytes, resolve_block,
                      resolve_device, scan_blocks)
 from .faults import MASK32
@@ -223,20 +230,29 @@ class KafkaSim:
         raises if there is none).  ``mesh``: a
         :class:`..parallel.mesh.Mesh`, this rank running its block of the
         rows on ``mesh.device`` (N must divide evenly; every rank calls
-        every method in the same order).  ``dcn_mode`` raises
-        (ROADMAP.md Queue A item 10)."""
+        every method in the same order).  ``dcn_mode``: the hosts level's
+        schedule on a hierarchical mesh (:func:`.engine.resolve_dcn_mode`;
+        None defers to the env); ``stale:k`` refuses."""
         if mesh is not None:
-            _check_flat(mesh)
-            if n_nodes % mesh.size:
+            check_mesh(mesh)
+            refuse_words(mesh, "KafkaSim")
+            if n_nodes % node_shards(mesh):
                 raise ValueError(f"{n_nodes} nodes do not shard evenly "
-                                 f"over {mesh.size} ranks")
+                                 f"over {node_shards(mesh)} ranks")
             if device is not None and \
                     torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
             device = mesh.device
-        if dcn_mode is not None:
-            raise _unported("KafkaSim(dcn_mode=...)", 10)
+        self._dcn = resolve_dcn_mode(dcn_mode)
+        if self._dcn.stale_k:
+            raise ValueError(
+                f"dcn_mode={self._dcn.label()!r}: kafka has no "
+                "certified staleness semantics — offset allocation is "
+                "an exclusive prefix sum over the composed axes (a "
+                "k-round-stale base double-allocates offsets) and the "
+                "lin-kv commit dance needs the current cell; run sync "
+                "or pipelined")
         if kv_backend not in ("host", "device"):
             raise ValueError(f"unknown kv_backend {kv_backend!r}")
         if kv_amnesia and kv_backend != "device":
@@ -252,10 +268,10 @@ class KafkaSim:
         self.device = resolve_device(device)
         self.mesh = mesh
         # this rank's rows: all of them off a mesh
-        self._block = n_nodes if mesh is None else n_nodes // mesh.size
-        self._row0 = 0 if mesh is None else mesh.rank * self._block
+        self._block = n_nodes if mesh is None else n_nodes // node_shards(mesh)
+        self._row0 = 0 if mesh is None else node_index(mesh) * self._block
         self._coll = (None if mesh is None
-                      else collectives(self._block, mesh))
+                      else collectives(self._block, mesh, dcn=self._dcn))
         self.kv_backend = kv_backend
         self.kv_amnesia = bool(kv_amnesia)
         self._device_kv = kv_backend == "device"
@@ -561,7 +577,7 @@ class KafkaSim:
             g = mesh.all_gather(meta, dim=1)
             sweep((g[0].contiguous(), g[1].contiguous()), 0, False)
             return deliver
-        k, p = mesh.size, mesh.rank
+        k, p = node_shards(mesh), node_index(mesh)
         for step in range(k):
             # after ``step`` rotations the block came from rank p - step
             sweep((meta[0].contiguous(), meta[1].contiguous()),

@@ -57,7 +57,6 @@ Not ported, and raising: the program audit (:func:`audit_contracts`,
 from __future__ import annotations
 
 import dataclasses
-import os
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -70,8 +69,9 @@ from . import counter as CT
 from . import faults, telemetry, traffic
 from . import kafka as KF
 from . import txn as TX
-from .engine import (_check_flat, _env_int, host_unpack_bits,
-                     node_shards, resolve_device, scenario_placement)
+from .engine import (check_mesh, host_unpack_bits, node_index,
+                     node_shards, refuse_words, resolve_dcn_mode,
+                     resolve_device, scenario_placement)
 
 _TOPOLOGIES = {"grid": grid, "tree": tree}
 
@@ -81,49 +81,14 @@ def _unported(what: str, item: int) -> NotImplementedError:
                                f"(ROADMAP.md Queue A item {item})")
 
 
-def _stale_k(setting) -> tuple[int, str]:
-    """(k, label) of a ``dcn_mode`` setting (the reference's grammar
-    ``"sync" | "pipelined" | "stale:<k>" | "pipelined+stale:<k>"``), or of
-    the ``GG_DCN_PIPELINE`` / ``GG_DCN_STALE_K`` env knobs when None."""
-    if setting is None:
-        pipe = _env_int("GG_DCN_PIPELINE",
-                        os.environ.get("GG_DCN_PIPELINE", "0"))
-        if pipe not in (0, 1):
-            raise ValueError(f"GG_DCN_PIPELINE={pipe} must be 0 or 1")
-        k = _env_int("GG_DCN_STALE_K",
-                     os.environ.get("GG_DCN_STALE_K", "0"))
-        if k < 0:
-            raise ValueError(f"GG_DCN_STALE_K={k} must be >= 0")
-    elif isinstance(setting, str):
-        pipe, k = 0, 0
-        for part in setting.split("+"):
-            if part == "pipelined":
-                pipe = 1
-            elif part.startswith("stale:"):
-                k = _env_int(f"dcn_mode {setting!r}", part[6:])
-                if k < 0:
-                    raise ValueError(
-                        f"dcn_mode {setting!r}: stale k must be >= 0")
-            elif part != "sync":
-                raise ValueError(
-                    f"dcn_mode {setting!r}: unknown part {part!r} "
-                    "(expected 'sync', 'pipelined', 'stale:<k>', or "
-                    "'pipelined+stale:<k>')")
-    else:
-        raise ValueError("dcn_mode must be None or a mode string — got "
-                         f"{type(setting).__name__}")
-    parts = (["pipelined"] if pipe else []) + ([f"stale:{k}"] if k else [])
-    return k, "+".join(parts) or "sync"
-
-
 def _refuse_stale_dcn(where: str, runner_kw: dict | None = None) -> None:
     """The batches run every scenario's node axis locally: a
     bounded-staleness ``dcn_mode`` (in ``runner_kw`` or the env) has no
     carry to ride and refuses loudly, as in the reference."""
-    k, label = _stale_k((runner_kw or {}).get("dcn_mode"))
-    if k:
+    mode = resolve_dcn_mode((runner_kw or {}).get("dcn_mode"))
+    if mode.stale_k:
         raise ValueError(
-            f"dcn_mode={label!r}: {where} runs every "
+            f"dcn_mode={mode.label()!r}: {where} runs every "
             "scenario's node axis locally under scenario sharding — "
             "there is no DCN level inside a cell and no staleness "
             "carry threaded through the batch program, so bounded "
@@ -1060,8 +1025,8 @@ _COLLECTORS = {"broadcast": _collect_broadcast_batch,
 def _block_of(items: tuple, mesh) -> tuple:
     """This rank's contiguous block of a placed batch's scenarios or
     cells."""
-    b = len(items) // mesh.size
-    return items[mesh.rank * b:(mesh.rank + 1) * b]
+    b = len(items) // node_shards(mesh)
+    return items[node_index(mesh) * b:(node_index(mesh) + 1) * b]
 
 
 def _dispatch(batch: ScenarioBatch, *, mesh=None, telemetry_spec=None,
@@ -1075,7 +1040,8 @@ def _dispatch(batch: ScenarioBatch, *, mesh=None, telemetry_spec=None,
     runs, and the rows are the one-process batch's); under ``"single"``
     every rank runs the whole batch.  No collective either way."""
     wl = batch.workload
-    _check_flat(mesh)
+    check_mesh(mesh)
+    refuse_words(mesh, "a scenario or serving batch")
     extra = {}
     placed = scenario_placement(len(batch.scenarios), mesh) == "scenario"
     if mesh is not None:
@@ -1487,7 +1453,8 @@ def dispatch_serving_batch(batch: ServingBatch, *, mesh=None,
     from ..harness.serving import make_serving_sim
 
     _refuse_stale_dcn("a serving batch", batch.runner_kw)
-    _check_flat(mesh)
+    check_mesh(mesh)
+    refuse_words(mesh, "a scenario or serving batch")
     n_real = len(batch.cells)
     if mesh is not None:
         device = mesh.device
@@ -1516,8 +1483,8 @@ def dispatch_serving_batch(batch: ServingBatch, *, mesh=None,
     sig_fn = _serving_sig(telemetry_spec, r_total) if signatures else None
     n_whole = n_real
     if placed:
-        b = len(batch.cells) // mesh.size
-        clears = clears[mesh.rank * b:(mesh.rank + 1) * b]
+        b = len(batch.cells) // node_shards(mesh)
+        clears = clears[node_index(mesh) * b:(node_index(mesh) + 1) * b]
         batch = dataclasses.replace(batch,
                                     cells=_block_of(batch.cells, mesh))
         n_real = len(batch.cells)

@@ -75,7 +75,7 @@ import torch
 
 from . import faults, kernels
 from ..parallel.topology import grid_cols
-from .engine import (active_windows, resolve_device, send_slot,
+from .engine import (active_windows, node_index, resolve_device, send_slot,
                      sharded_roll, sharded_shift, windows_fold)
 from .kernels import MASK32, MASK_LEFT, MASK_RIGHT, WRAP, ShiftDirs
 
@@ -370,7 +370,7 @@ class Halo:
 
 def _global_cols(mesh, block: int, device) -> torch.Tensor:
     """(block,) int64 global node ids of the local columns."""
-    return mesh.rank * block + torch.arange(block, device=device)
+    return node_index(mesh) * block + torch.arange(block, device=device)
 
 
 def _check_tree_block(block: int, k: int) -> int:

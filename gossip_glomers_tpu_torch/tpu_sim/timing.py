@@ -23,6 +23,7 @@ from ..parallel.topology import (circulant, expander_strides, grid,
                                  grid_cols, line, ring, to_padded_neighbors,
                                  tree)
 from .broadcast import BroadcastSim, make_inject
+from .engine import node_shards
 from .kernels import col_popcount
 from .structured import (make_exchange, make_faulted,
                          make_sharded_exchange, make_sharded_sync_diff,
@@ -60,7 +61,7 @@ def structured_sim(topology: str, n: int, n_values: int, *,
         from ..parallel.mesh import pick_mesh
 
         mesh = pick_mesh(device=device)
-    shards = None if mesh is None else mesh.size
+    shards = None if mesh is None else node_shards(mesh)
     sharded = sharded_diff = None
     if mesh is not None:
         sharded = make_sharded_exchange(topology, n, shards, **kw)

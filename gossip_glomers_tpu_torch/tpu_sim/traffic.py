@@ -57,7 +57,9 @@ import numpy as np
 import torch
 
 from . import faults
-from .engine import _check_flat, _env_int, resolve_device, windows_fold
+from .engine import (_env_int, check_mesh, node_index, node_shards,
+                     refuse_words,
+                     resolve_device, windows_fold)
 from .faults import MASK32
 
 # distinct stream salts off the shared (seed, t, id) counter family
@@ -337,7 +339,7 @@ def client_index(spec: TrafficSpec, n_nodes: int, device,
     c, p, k = spec.n_clients, 0, 1
     if mesh is not None:
         _check_shards(spec, mesh)
-        p, k = mesh.rank, mesh.size
+        p, k = node_index(mesh), node_shards(mesh)
     bc = c // k
     node = local_node_cols(spec, bc, device)
     return dict(ids=torch.arange(p * bc, (p + 1) * bc, dtype=torch.int64,
@@ -347,11 +349,12 @@ def client_index(spec: TrafficSpec, n_nodes: int, device,
 
 
 def _check_shards(spec: TrafficSpec, mesh) -> None:
-    _check_flat(mesh)
-    if spec.n_clients % mesh.size:
+    check_mesh(mesh)
+    refuse_words(mesh, "the traffic tracker")
+    if spec.n_clients % node_shards(mesh):
         raise ValueError(
             f"n_clients={spec.n_clients} must shard evenly over the "
-            f"{mesh.size}-way node axis")
+            f"{node_shards(mesh)}-way node axis")
 
 
 def intake_rank(arr: torch.Tensor, cpn: int) -> torch.Tensor:
@@ -410,7 +413,7 @@ def init_state(spec: TrafficSpec, mesh=None,
     c, k = spec.n_clients, spec.ops_per_client
     if mesh is not None:
         _check_shards(spec, mesh)
-        c //= mesh.size
+        c //= node_shards(mesh)
         device = mesh.device
     dev = resolve_device(device)
 

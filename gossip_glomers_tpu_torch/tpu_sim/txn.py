@@ -56,8 +56,12 @@ all-gather, no ppermute (the reference's ``txn/sharded-step`` contract).
 :func:`final_registers` of a mesh state, given the mesh, are collective
 calls that give every rank the whole answer.
 
-Not ported yet, and raising: ``dcn_mode`` (ROADMAP.md Queue A item 10);
-the program audit (item 14: ``audit_run_program``, ``audit_contracts``).
+On a hierarchical ``("hosts", "nodes")`` mesh the node blocks are the
+flat mesh's and the reductions run the engine's two-level circuits,
+``dcn_mode`` scheduling their hosts level (``sync`` or ``pipelined``;
+``stale:k`` refuses: wound-or-die needs the current round's claims).  A
+``words`` mesh refuses.  Not ported yet, and raising: the program audit
+(ROADMAP.md Queue A item 14: ``audit_run_program``, ``audit_contracts``).
 The scenario batches (:mod:`.scenario`) step each scenario through
 ``_build_batch_round``.
 """
@@ -71,7 +75,9 @@ import numpy as np
 import torch
 
 from . import faults, kernels, kvstore, traffic
-from .engine import (_check_flat, collectives, fori_rounds, local_block,
+from .engine import (check_mesh, collectives, fori_rounds, local_block,
+                     refuse_words, resolve_dcn_mode,
+                     node_index, node_shards,
                      resolve_device)
 from .faults import MASK32
 
@@ -183,8 +189,10 @@ class TxnSim:
         ``ops``: the whole cluster's staged ops (:func:`stage_txn_ops`'
         arrays, numpy or tensors, for these arguments) to use in place of
         staging them here, so that the ranks of a mesh need not each run
-        the host loop; a rank cuts its block.  ``dcn_mode`` raises
-        (ROADMAP.md Queue A item 10)."""
+        the host loop; a rank cuts its block.  ``dcn_mode``: the hosts
+        level's schedule on a hierarchical mesh
+        (:func:`.engine.resolve_dcn_mode`; None defers to the env);
+        ``stale:k`` refuses."""
         kvstore.reject_dup_stream(fault_plan, "TxnSim")
         if fault_plan is not None and fault_plan.n_nodes != n_nodes:
             raise ValueError(
@@ -205,24 +213,31 @@ class TxnSim:
                 f"tspec.ops_per_client={tspec.ops_per_client} must "
                 f"equal txns_per_node={txns_per_node}")
         if mesh is not None:
-            _check_flat(mesh)
-            if n_nodes % mesh.size:
+            check_mesh(mesh)
+            refuse_words(mesh, "TxnSim")
+            if n_nodes % node_shards(mesh):
                 raise ValueError(f"{n_nodes} nodes do not shard evenly "
-                                 f"over {mesh.size} ranks")
+                                 f"over {node_shards(mesh)} ranks")
             if device is not None and \
                     torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
             device = mesh.device
-        if dcn_mode is not None:
-            raise _unported("TxnSim(dcn_mode=...)", 10)
+        self._dcn = resolve_dcn_mode(dcn_mode)
+        if self._dcn.stale_k:
+            raise ValueError(
+                f"dcn_mode={self._dcn.label()!r}: txn has no "
+                "certified staleness semantics — the wound-or-die "
+                "version-CAS fold (reduce_min over claimant stamps) "
+                "must see the current round's claims or wounded "
+                "transactions commit; run sync or pipelined")
         self.device = resolve_device(device)
         self.mesh = mesh
         # this rank's rows: all of them off a mesh
-        self._block = n_nodes if mesh is None else n_nodes // mesh.size
-        self._row0 = 0 if mesh is None else mesh.rank * self._block
+        self._block = n_nodes if mesh is None else n_nodes // node_shards(mesh)
+        self._row0 = 0 if mesh is None else node_index(mesh) * self._block
         self._coll = (None if mesh is None
-                      else collectives(self._block, mesh))
+                      else collectives(self._block, mesh, dcn=self._dcn))
         self.n_nodes = n_nodes
         self.n_keys = n_keys
         self.txns_per_node = txns_per_node

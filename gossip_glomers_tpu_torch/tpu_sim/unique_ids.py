@@ -18,7 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .engine import _check_flat, collectives, resolve_device
+from .engine import (check_mesh, collectives, node_index, node_shards,
+                     refuse_words,
+                     resolve_device)
 
 
 class UniqueIdsState(NamedTuple):
@@ -35,17 +37,18 @@ class UniqueIdsSim:
     def __init__(self, n_nodes: int, *, max_per_round: int = 4, mesh=None,
                  device: str | torch.device | None = None) -> None:
         if mesh is not None:
-            _check_flat(mesh)
-            if n_nodes % mesh.size:
+            check_mesh(mesh)
+            refuse_words(mesh, "UniqueIdsSim")
+            if n_nodes % node_shards(mesh):
                 raise ValueError(f"{n_nodes} nodes do not shard evenly "
-                                 f"over {mesh.size} ranks")
+                                 f"over {node_shards(mesh)} ranks")
             device = mesh.device
         self.device = resolve_device(device)
         self.mesh = mesh
         self.n_nodes = n_nodes
         self.max_per_round = max_per_round
-        self._block = n_nodes if mesh is None else n_nodes // mesh.size
-        self._row0 = 0 if mesh is None else mesh.rank * self._block
+        self._block = n_nodes if mesh is None else n_nodes // node_shards(mesh)
+        self._row0 = 0 if mesh is None else node_index(mesh) * self._block
         self._row_ids = collectives(self._block, mesh,
                                     device=self.device).row_ids
 

@@ -368,10 +368,22 @@ def test_round_kernel_checks():
 
 
 def test_counter_errors_match_reference():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a mesh is the port's parallel.mesh.Mesh
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         pc.CounterSim(8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pc.CounterSim(8, dcn_mode="pipelined", device="cpu")
+    # dcn_mode runs: off a mesh the hosts level is absent, so every mode
+    # but a stale one equals the reference's run in it, round by round
+    for mode, dcn in (("cas", "pipelined"), ("allreduce", "sync")):
+        jsim, psim = _sims(8, mode=mode, seed=7, dcn_mode=dcn)
+        _drive(jsim, psim, np.arange(1, 9, dtype=np.int32), 10)
+    # a stale mode needs a hierarchical mesh, as in the reference
+    for kw in (dict(mesh=None), dict(mesh=None, mode="allreduce")):
+        with pytest.raises(ValueError) as got:
+            pc.CounterSim(8, dcn_mode="stale:2", device="cpu", **kw)
+        with pytest.raises(ValueError) as want:
+            jc.CounterSim(8, dcn_mode="stale:2", **kw)
+        assert ("hierarchical" in str(got.value)) == (
+            "hierarchical" in str(want.value))
     sim = pc.CounterSim(8, device="cpu")
     for name, item in (("audit_run_program", 14),
                        ("audit_traffic_program", 14),

@@ -2081,3 +2081,46 @@ def test_cuda_mesh_ppermute_host_staged(cuda_device):
     assert not r0["one_way"].any() and torch.equal(r1["one_way"], r0["x"])
     assert torch.equal(r0["flags"], r1["x"] > 105)
     assert not r1["flags"].any() and r1["flags"].dtype == torch.bool
+
+
+def _two_axis_rank(mesh):
+    # the words mesh (2 x 2) and the hosts mesh (pick_mesh_2d(hosts=2)) of
+    # a 4-rank world on one card, host-staged
+    import torch_mesh_2d_cases as W
+    import torch_mesh_hosts_cases as H
+    from gossip_glomers_tpu_torch.parallel.mesh import make_mesh, pick_mesh_2d
+
+    words = make_mesh((2, 2), ("nodes", "words"), device=mesh.device)
+    hosts = pick_mesh_2d(hosts=2, device=mesh.device)
+    return {"staged": words.host_staged and hosts.host_staged,
+            "words": {name: W.run_word_case(name, words, words.device)
+                      for name in ("wm_tree_halo", "gather_plan",
+                                   "wm_tree_nemesis")},
+            "hosts_pipe": H.sims_digests(hosts, "pipelined"),
+            "flat": H.sims_digests(mesh, "sync")}
+
+
+@pytest.mark.cuda
+def test_cuda_two_axis_meshes_host_staged(cuda_device):
+    # every words-mesh case equals its one-process card run; every sim on
+    # the hosts mesh, pipelined, equals the flat mesh's run
+    import torch_mesh_2d_cases as W
+
+    from gossip_glomers_tpu_torch.parallel import dcn_worker
+
+    ranks = dcn_worker.spawn_world(_two_axis_rank, 4, backend="gloo",
+                                   device=cuda_device, timeout=300)
+    for r in ranks:
+        assert r["staged"]
+        assert repr(r["hosts_pipe"]) == repr(r["flat"])
+    for name, got in ranks[0]["words"].items():
+        want = W.run_word_case(name, None, cuda_device)
+        for drv in want:
+            if isinstance(want[drv], dict):
+                np.testing.assert_array_equal(got[drv]["received"],
+                                              want[drv]["received"])
+                assert {k: v for k, v in got[drv].items() if k != "received"
+                        } == {k: v for k, v in want[drv].items()
+                              if k != "received"}, (name, drv)
+            else:
+                assert got[drv] == want[drv], (name, drv)

@@ -320,5 +320,5 @@ def test_delay_mode_errors():
         pbc.flood_step(state, nbrs=nb, nbr_mask=nb >= 0,
                        parts=pbc.Partitions.none(n), sync_every=4,
                        delays=torch.from_numpy(delays), prov=object())
-    with pytest.raises(NotImplementedError, match="Queue A"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         pbc.BroadcastSim(nbrs, n_values=nv, device="cpu", mesh=object())

@@ -6,8 +6,8 @@ and ``GG_TRAFFIC_BLOCK``, the failing cell's bundle replayed in both
 packages, the serving shrinker, the table and timeline artifacts, the
 coverage map) with ``validate_frontier`` on every report.  The mesh
 case runs in tests/test_torch_mesh_batches.py; here any mesh but the
-port's own raises Queue A item 10, and the contracts case checks that
-the audit raises item 14.
+port's own is refused, and the contracts case checks that the audit
+raises item 14.
 
 ``run_frontier``'s wall-clock fields (``WALL``) and the bundle paths are
 removed before a report is compared."""
@@ -310,7 +310,7 @@ def test_coverage_map_matches_reference():
 
 def test_frontier_refusals():
     _, p = both_grids()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         PFR.run_frontier("broadcast", p, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="at least one cell"):
         PFR.run_frontier("broadcast", [], device="cpu")

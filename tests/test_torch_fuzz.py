@@ -247,7 +247,7 @@ def test_fuzz_adapt_matches_reference_and_is_guarded():
         PFZ.fuzz_run("txn", 4, signatures=True, device="cpu")
     with pytest.raises(ValueError, match="unknown fuzz workload"):
         PFZ.fuzz_run("echo", 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         PFZ.fuzz_run(**FUZZ_KW, mesh=object(), device="cpu")
 
 

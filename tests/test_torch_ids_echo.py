@@ -62,7 +62,7 @@ def test_echo_ledger_wraps_at_2_32():
 
 def test_mesh_and_device_rules():
     for cls in (pids.UniqueIdsSim, pecho.EchoSim):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             cls(8, mesh=object(), device="cpu")
 
 

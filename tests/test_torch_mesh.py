@@ -377,25 +377,32 @@ def test_tree_halo_wrappers_check_shapes():
 
 
 def test_unported_mesh_combinations_raise_item_10(world4):
+    # every mesh combination runs now: the traffic and observed drivers
+    # (telemetry and provenance), txn, the scenario batches, and since
+    # the two-axis slice dcn_mode in every sim, the engine's collectives
+    # in a mode and inject_mid on a mesh
     for r in world4:
-        refused = {k: v for k, v in r["refusals"].items()
-                   if k not in C.MESH_RUNS}
-        assert set(refused.values()) == {"item 10"}, r["refusals"]
-        # the traffic and observed drivers (telemetry and provenance),
-        # txn and the scenario batches now run
+        assert set(r["refusals"]) == set(C.MESH_RUNS)
         assert {r["refusals"][k] for k in C.MESH_RUNS} == {"ran"}
-    for fn in (lambda: pmesh.pick_mesh_2d(),
-               lambda: pmesh.force_virtual_devices(8),
-               lambda: pmesh.pick_mesh(axis_name="words"),
-               lambda: pmesh.init_distributed(num_processes=2,
-                                              local_devices=4),
-               lambda: engine.collectives(4, mesh=object()),
-               lambda: engine.collectives(4, device="cpu", dcn="sync"),
-               lambda: engine.node_shards(object()),
-               lambda: dcn_worker.TASKS["certify"](None, "cpu"),
-               lambda: dcn_worker.TASKS["batch"](None, "cpu")):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    # the reference's 2-D meshes and its words axis are built, and are
+    # None outside a process group as the reference's are on one device;
+    # a bare stale mode and a non-Mesh refuse as the reference's do, and
+    # the worker's hosts task set runs off a mesh
+    assert pmesh.pick_mesh_2d() is None
+    assert pmesh.pick_mesh(axis_name="words") is None
+    for fn, err in ((lambda: pmesh.force_virtual_devices(8), ValueError),
+                    (lambda: pmesh.init_distributed(num_processes=2,
+                                                    local_devices=4),
+                     ValueError),
+                    (lambda: engine.collectives(4, mesh=object()),
+                     TypeError),
+                    (lambda: engine.node_shards(object()), TypeError)):
+        with pytest.raises(err):
             fn()
+    ident = engine.collectives(4, device="cpu", dcn="sync")
+    assert ident.axis_name is None
+    assert dcn_worker.TASKS["certify"](None, "cpu")["ok"]
+    assert dcn_worker.TASKS["takeover"](None, "cpu")["converged"]
 
 
 def test_pick_mesh_and_init_are_no_ops_in_a_world_of_one():

@@ -334,9 +334,12 @@ def test_replay_bundle_on_mesh(world, one, bundles):
         assert not got[name]["ok"], name
         _result(got[name], o[name], ("one process", name))
         _result(got[name], want, ("jax", name), skip=("flight_bundle",))
-    # a bundle naming a dcn_mode still raises, naming item 10
-    assert got["dcn_mode"] is not None and "item 10" in got["dcn_mode"]
-    assert got["dcn_mode"] == o["dcn_mode"]
+    # a bundle naming a dcn_mode replays in it: the synchronous mode is
+    # the bundle's own campaign, on the mesh as on one process
+    first = sorted(bundles)[0]
+    assert got["dcn_mode"]["first_divergence_round"] is None
+    _result(got["dcn_mode"], o["dcn_mode"], "dcn_mode one process")
+    _result(got["dcn_mode"], got[first], "dcn_mode bundle")
 
 
 # -- the kernel's plain version on a rank's rows -----------------------------

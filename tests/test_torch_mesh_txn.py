@@ -487,10 +487,13 @@ def test_nemesis_runner_campaign_on_mesh(world, one, p, workload):
     _result(got, want, "jax")
 
 
-#: the probes that raised item 10 on a mesh until provenance and the
-#: scenario batches ran there: each now equals its one-process call
+#: the probes that raised item 10 on a mesh until provenance, the
+#: scenario batches and dcn_mode ran there: each now equals its
+#: one-process call
 MESH_RUNS = ("broadcast_prov", "counter_prov", "broadcast_runner_prov",
-             "counter_runner_prov", "kafka_runner_prov", "txn_frontier")
+             "counter_runner_prov", "kafka_runner_prov", "txn_frontier",
+             "broadcast_runner_dcn", "counter_runner_dcn",
+             "kafka_runner_dcn", "txn_dcn")
 
 
 def test_mesh_refusals_name_item_10(world):
@@ -500,14 +503,10 @@ def test_mesh_refusals_name_item_10(world):
         "broadcast_prov", "counter_prov", "broadcast_runner_prov",
         "broadcast_runner_dcn", "counter_runner_prov", "counter_runner_dcn",
         "kafka_runner_prov", "kafka_runner_dcn", "txn_dcn", "txn_frontier"}
+    assert set(refused) == set(MESH_RUNS)
     for name, got in refused.items():
-        if name in MESH_RUNS:
-            assert got[0] == "ran" and one[name][0] == "ran", (name, got)
-            _result(got[1], one[name][1], ("one process", name))
-        else:
-            cls, msg = got
-            assert cls == "NotImplementedError" and "item 10" in msg, (
-                name, got)
+        assert got[0] == "ran" and one[name][0] == "ran", (name, got)
+        _result(got[1], one[name][1], ("one process", name))
 
 
 # -- the txn kernels' block forms ---------------------------------------------

@@ -213,11 +213,25 @@ def test_runner_refusals_match_reference():
         with pytest.raises(ValueError, match="resync_mode"):
             mod.run_kafka_nemesis(spec, resync_mode="gossip", **extra)
     spec = PF.NemesisSpec(**spec_kw)
-    for kw, item in ((dict(mesh=object()), 10), (dict(dcn_mode="sync"), 10)):
-        for run in (PN.run_broadcast_nemesis, PN.run_counter_nemesis,
-                    PN.run_kafka_nemesis):
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                run(spec, device="cpu", **kw)
+    for run in (PN.run_broadcast_nemesis, PN.run_counter_nemesis,
+                PN.run_kafka_nemesis):
+        # a mesh is the port's parallel.mesh.Mesh
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            run(spec, device="cpu", mesh=object())
+    # dcn_mode runs and is recorded: off a mesh the synchronous mode is
+    # the run without it, and the reference's run in that mode
+    jspec = JF.NemesisSpec(**spec_kw)
+    for prun, jrun, kw in (
+            (PN.run_broadcast_nemesis, JN.run_broadcast_nemesis,
+             dict(n_values=16)),
+            (PN.run_counter_nemesis, JN.run_counter_nemesis, {}),
+            (PN.run_kafka_nemesis, JN.run_kafka_nemesis, {})):
+        got = prun(spec, device="cpu", dcn_mode="sync", **kw)
+        plain = prun(spec, device="cpu", **kw)
+        want = jrun(jspec, dcn_mode="sync", **kw)
+        for key in ("ok", "converged_round", "msgs_total",
+                    "n_lost_writes"):
+            assert got[key] == plain[key] == want[key], (prun, key)
     # observe_dir runs: each runner's failed campaign (no recovery
     # budget) writes its flight bundle there, as the reference's does
     import tempfile

@@ -290,7 +290,7 @@ def test_bundle_replays_in_the_other_package(name, writer, tmp_path):
 
 
 def test_replay_bundle_refusals():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         PO.replay_bundle({"schema": PO.BUNDLE_SCHEMA}, mesh=object())
     bundle = {"schema": PO.BUNDLE_SCHEMA, "kind": "serving",
               "workload": "counter"}

@@ -208,11 +208,27 @@ def test_unported_modes_raise():
                    "tree", 8, spec, device="cpu")}):
         assert broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
                                       device="cpu", **kw).words_major
-    for mode in ("mesh", "dcn_mode", "sharded_exchange",
-                 "sharded_sync_diff"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is the port's Mesh and a halo closure a structured.Halo;
+    # dcn_mode is a mode (the hosts level's schedule on a hierarchical
+    # mesh): off a mesh the synchronous and pipelined modes are the plain
+    # run, a stale one refuses, as the reference's does
+    for mode in ("mesh", "sharded_exchange", "sharded_sync_diff"):
+        with pytest.raises(TypeError):
             broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
                                    device="cpu", **{mode: object()})
+    with pytest.raises(ValueError, match="dcn_mode must be"):
+        broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
+                               dcn_mode=object())
+    with pytest.raises(ValueError, match="broadcast has no"):
+        broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex, device="cpu",
+                               dcn_mode="stale:2")
+    runs = [broadcast.BroadcastSim(nbrs, n_values=4, exchange=ex,
+                                   device="cpu", dcn_mode=m).run(
+        broadcast.make_inject(8, 4)) for m in (None, "sync", "pipelined")]
+    for state, rounds in runs[1:]:
+        assert rounds == runs[0][1]
+        assert int(state.msgs) == int(runs[0][0].msgs)
+        assert torch.equal(state.received, runs[0][0].received)
     # the delay modes run: per-edge delays on the gather path, the delay
     # bundles on the structured path
     assert broadcast.BroadcastSim(
@@ -239,9 +255,9 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="ledger is off"):
         sim.server_msgs(state)
     # txn-rw-register, the scenario batches, the frontier, the fuzzer
-    # and the replay run on one device and on the port's 1-D Mesh; any
-    # other mesh object (item 10), dcn_mode (item 10) and the program
-    # audits (item 14) raise, as does the membership layer's audit
+    # and the replay run on one device and on the port's Mesh; any other
+    # mesh object is refused, dcn_mode runs, and the program audits (item
+    # 14) raise, as does the membership layer's audit
     from gossip_glomers_tpu_torch.harness import frontier, fuzz, observe
     from gossip_glomers_tpu_torch.harness import txn as htxn
     from gossip_glomers_tpu_torch.tpu_sim import membership, scenario, txn
@@ -251,28 +267,34 @@ def test_unported_modes_raise():
         faults.NemesisSpec(n_nodes=4),))
     cells = (scenario.ServingCell(traffic=scenario.traffic.TrafficSpec(
         n_nodes=4, n_clients=4, ops_per_client=1, until=2)),)
-    for fn, item in (
-            (lambda: txn.TxnSim(8, 4, device="cpu", mesh=object()), 10),
-            (lambda: txn.TxnSim(8, 4, device="cpu", dcn_mode="sync"), 10),
-            (lambda: scenario.run_scenario_batch(sbatch, mesh=object(),
-                                                 device="cpu"), 10),
-            (lambda: scenario.dispatch_serving_batch(
+    for fn in (
+            lambda: txn.TxnSim(8, 4, device="cpu", mesh=object()),
+            lambda: scenario.run_scenario_batch(sbatch, mesh=object(),
+                                                device="cpu"),
+            lambda: scenario.dispatch_serving_batch(
                 scenario.ServingBatch(workload="counter", cells=cells),
-                mesh=object(), device="cpu"), 10),
-            (lambda: htxn.run_txn_frontier([0.5], [], mesh=object(),
-                                           device="cpu"), 10),
+                mesh=object(), device="cpu"),
+            lambda: htxn.run_txn_frontier([0.5], [], mesh=object(),
+                                          device="cpu"),
+            lambda: frontier.run_frontier("counter", cells, mesh=object(),
+                                          device="cpu"),
+            lambda: fuzz.fuzz_run("counter", 1, mesh=object(),
+                                  device="cpu"),
+            lambda: observe.replay_bundle({}, mesh=object())):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            fn()
+    for fn, item in (
             (scenario.audit_contracts, 14),
             (lambda: scenario._audit_program("counter", sbatch, None), 14),
             (lambda: tsim.audit_run_program, 14), (txn.audit_contracts, 14),
-            (lambda: frontier.run_frontier("counter", cells, mesh=object(),
-                                           device="cpu"), 10),
-            (lambda: fuzz.fuzz_run("counter", 1, mesh=object(),
-                                   device="cpu"), 10),
-            (membership.audit_contracts, 14),
-            (lambda: observe.replay_bundle({}, mesh=object()), 10)):
+            (membership.audit_contracts, 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
     assert tsim.run(tsim.init_state(), 3).t == 3
+    for dcn in ("sync", "pipelined"):
+        dsim = txn.TxnSim(8, 4, device="cpu", dcn_mode=dcn)
+        assert torch.equal(dsim.run(dsim.init_state(), 3).commit_round,
+                           tsim.run(tsim.init_state(), 3).commit_round)
     # the shard specs are ported: every node-axis leaf cut to a block
     assert txn.ops_specs().keys == ("nodes", None, None)
     assert tsim._state_spec().cur == ("nodes",)
@@ -290,12 +312,26 @@ def test_unported_modes_raise():
 
 
 def test_kafka_unported_parts_raise_with_their_items():
-    # meshes and dcn_mode (item 10) and the audit (item 14); the traffic
-    # driver, its telemetry ring, the observed driver with its provenance
-    # record and the scenario batch hooks are ported
-    for kw in ({"mesh": object()}, {"dcn_mode": "sync"}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            kafka.KafkaSim(4, 2, 8, device="cpu", **kw)
+    # the audit (item 14) raises; a mesh is the port's Mesh, dcn_mode
+    # runs (off a mesh the sync and pipelined modes are the plain run; a
+    # stale one refuses, as the reference's does); the traffic driver,
+    # its telemetry ring, the observed driver with its provenance record
+    # and the scenario batch hooks are ported
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        kafka.KafkaSim(4, 2, 8, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="kafka has no"):
+        kafka.KafkaSim(4, 2, 8, device="cpu", dcn_mode="stale:2")
+    sks = np.random.default_rng(0).integers(-1, 2, (3, 4, 4)).astype(
+        np.int32)
+    finals = []
+    for dcn in (None, "sync", "pipelined"):
+        ksim = kafka.KafkaSim(4, 2, 8, device="cpu", dcn_mode=dcn)
+        st = ksim.init_state()
+        for r in range(3):
+            st = ksim.step(st, sks[r], sks[r] + 7)
+        finals.append((int(st.msgs), st.log_vals.clone()))
+    for msgs, log in finals[1:]:
+        assert msgs == finals[0][0] and torch.equal(log, finals[0][1])
     sim = kafka.KafkaSim(4, 2, 8, device="cpu")
     for name, item in (("audit_observed_program", 14),
                        ("audit_traffic_program", 14)):

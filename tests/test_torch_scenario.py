@@ -394,7 +394,7 @@ def test_stale_dcn_and_mesh_refusals(monkeypatch):
     batch = SC.ScenarioBatch(
         workload="counter",
         scenarios=(SC.Scenario(spec=PF.NemesisSpec(n_nodes=4)),))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         SC.run_scenario_batch(batch, mesh=object(), device="cpu")
     monkeypatch.setenv("GG_DCN_STALE_K", "2")
     with pytest.raises(ValueError, match="bounded"):

@@ -233,7 +233,7 @@ def test_txn_batch_refusals_match_reference():
         SC.run_scenario_batch(pb, device="cpu",
                               telemetry_spec=PTM.TelemetrySpec(
                                   "broadcast", rounds=8))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         SC.run_scenario_batch(pb, device="cpu", mesh=object())
 
 

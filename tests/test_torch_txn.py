@@ -438,17 +438,30 @@ def test_sim_refusals_match_reference():
 
 def test_unported_txn_parts_raise_with_their_items():
     sim = PT.TxnSim(4, 4, device="cpu")
-    for fn, item in (
-            (lambda: PT.TxnSim(4, 4, device="cpu", mesh=object()), 10),
-            (lambda: PT.TxnSim(4, 4, device="cpu", dcn_mode="sync"), 10),
-            (lambda: sim.audit_run_program, 14),
-            (PT.audit_contracts, 14),
-            (lambda: PH.run_txn_frontier([0.5], [], mesh=object(),
-                                         device="cpu"), 10),
-            (lambda: PH.run_txn_nemesis(PF.NemesisSpec(n_nodes=4),
-                                        mesh=object(), device="cpu"), 10)):
+    for fn, item in ((lambda: sim.audit_run_program, 14),
+                     (PT.audit_contracts, 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn()
+    # a mesh is the port's parallel.mesh.Mesh
+    for fn in (lambda: PT.TxnSim(4, 4, device="cpu", mesh=object()),
+               lambda: PH.run_txn_frontier([0.5], [], mesh=object(),
+                                           device="cpu"),
+               lambda: PH.run_txn_nemesis(PF.NemesisSpec(n_nodes=4),
+                                          mesh=object(), device="cpu")):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            fn()
+    # dcn_mode runs (off a mesh the sync and pipelined modes are the
+    # plain run, as in the reference); a stale one refuses as the
+    # reference's does
+    for dcn in ("sync", "pipelined"):
+        jsim, psim = _sims(4, 4, dcn_mode=dcn)
+        js, ps = jsim.run(jsim.init_state(), 6), psim.run(
+            psim.init_state(), 6)
+        assert int(ps.msgs) == int(js.msgs) and int(ps.t) == int(js.t)
+        np.testing.assert_array_equal(ps.commit_round.numpy(),
+                                      np.asarray(js.commit_round))
+    with pytest.raises(ValueError, match="txn has no"):
+        PT.TxnSim(4, 4, device="cpu", dcn_mode="stale:2")
     with pytest.raises(AttributeError):
         sim.no_such_method
     # the shard specs are ported (TxnSim(mesh=) runs on the port's Mesh,

@@ -152,19 +152,23 @@ def tree_halo_parts(mesh, seed: int, n: int, k: int, w: int) -> dict:
                 pl, n, mesh.size, k, mesh))}
 
 
-#: the mesh combinations that run (since the traffic, telemetry and txn
-#: slice, and the provenance and scenario-batch slice); every other probe
-#: of :func:`refusal_cases` raises item 10
+#: the mesh combinations that run: since the traffic, telemetry and txn
+#: slice, and the provenance and scenario-batch slice, and since the
+#: two-axis slice ``dcn_mode`` in every sim, the engine's collectives
+#: with a mode, and ``inject_mid`` on a mesh (every probe of
+#: :func:`refusal_cases`)
 MESH_RUNS = ("run_traffic", "run_observed", "counter_run_traffic",
              "counter_run_observed", "kafka_run_traffic",
              "kafka_run_observed", "txn", "run_observed_prov",
              "counter_run_observed_prov", "kafka_run_observed_prov",
-             "kafka_batch_round", "scenario_batch")
+             "kafka_batch_round", "scenario_batch", "dcn_mode",
+             "inject_mid", "collectives_dcn", "counter_dcn_mode",
+             "kafka_dcn_mode")
 
 
 def refusal_cases(mesh) -> dict:
-    """Which mesh combinations raise NotImplementedError naming item 10,
-    and which run (:data:`MESH_RUNS`: ``"ran"``)."""
+    """Which mesh combinations raise NotImplementedError (naming their
+    ROADMAP.md item), and which run (:data:`MESH_RUNS`: ``"ran"``)."""
     n = 4 * mesh.size
     nbrs = to_padded_neighbors(tree(n))
     ex = structured.make_exchange("tree", n)
@@ -175,7 +179,7 @@ def refusal_cases(mesh) -> dict:
             fn()
             out[name] = "ran"
         except NotImplementedError as e:
-            out[name] = "item 10" if "item 10" in str(e) else str(e)
+            out[name] = str(e)
 
     from gossip_glomers_tpu_torch.tpu_sim import faults
 
@@ -212,9 +216,9 @@ def refusal_cases(mesh) -> dict:
         prov=sim.provenance_state(provenance.ProvenanceSpec("broadcast"),
                                   inj),
         prov_spec=provenance.ProvenanceSpec("broadcast")))
-    probe("inject_mid", lambda: sim.inject_mid(None, 0, 0))
-    probe("collectives_dcn", lambda: engine.collectives(4, mesh,
-                                                        dcn="sync"))
+    probe("inject_mid", lambda: sim.inject_mid(sim.init_state(inj), 0, 0))
+    probe("collectives_dcn", lambda: engine.collectives(
+        4, mesh, dcn=engine.resolve_dcn_mode("pipelined")))
     from gossip_glomers_tpu_torch.tpu_sim import counter, kafka, scenario, txn
 
     csim = counter.CounterSim(n, mesh=mesh)

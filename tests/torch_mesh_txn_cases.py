@@ -367,9 +367,10 @@ def traffic_cases(mesh) -> dict:
 
 
 def refusal_cases(mesh) -> dict:
-    """What still raises on a mesh, as (class name, message), and what
-    runs there since the provenance and scenario-batch slice, as ("ran",
-    its result)."""
+    """What raises on a mesh, as (class name, message), and what runs
+    there (since the provenance and scenario-batch slice, and the
+    ``dcn_mode`` probes since the two-axis slice), as ("ran", its
+    result)."""
     out = {}
 
     def catch(name, fn):
@@ -413,7 +414,11 @@ def refusal_cases(mesh) -> dict:
             H, f"run_{name}_nemesis")(spec, provenance=True, **place))
         catch(f"{name}_runner_dcn", lambda name=name: getattr(
             H, f"run_{name}_nemesis")(spec, dcn_mode="sync", **place))
-    catch("txn_dcn", lambda: TX.TxnSim(16, 8, dcn_mode="sync", **on))
+    def txn_dcn():
+        tsim = TX.TxnSim(16, 8, dcn_mode="sync", **on)
+        return tstate(mesh, tsim.run(tsim.init_state(), 4))
+
+    catch("txn_dcn", txn_dcn)
     catch("txn_frontier", lambda: HT.run_txn_frontier(
         [0.5], [spec], **place))
     return out

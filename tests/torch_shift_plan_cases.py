@@ -1,6 +1,11 @@
-"""The shift kernels' staging plan (``kernels.shift_windows`` and the
-launch plan ``kernels._shift_plan``, also its masked form with liveness
-slices), held on the CPU.
+"""The shift kernels' staging plan, held on the CPU: the shared cases of
+the ``tests/test_torch_shift_plan_*.py`` files.
+
+Each ``test_torch_shift_plan_*.py`` file parametrizes some of the case
+functions here (a case function is the body of one test, its name the
+test's without ``test_``), so that no one file holds the whole suite's
+slowest cases.  They hold ``kernels.shift_windows`` and the launch plan
+``kernels._shift_plan``, also its masked form with liveness slices.
 
 shift_flood.cu cuts a row into tiles and stages, per tile, one shared-
 memory window for each run of nearby direction offsets.  Here, for every
@@ -99,10 +104,7 @@ def _plan(dirs, n, fused, max_tile, live=False):
             groups, rows)
 
 
-@pytest.mark.parametrize("max_tile", TILES)
-@pytest.mark.parametrize("n", NS)
-@pytest.mark.parametrize("mode", MODES)
-def test_windows_cover_every_direction(mode, n, max_tile):
+def windows_cover_every_direction(mode, n, max_tile):
     dirs = pst.shift_dirs(mode, n, **_mode(mode, n))
     tile = _plan(dirs, n, True, max_tile)[0]
     assert 1 <= tile <= min(max_tile, n)
@@ -272,10 +274,7 @@ def _jax_exchange(mode, x, n, kw):
     return jst.grid_exchange(xj, kw["cols"])
 
 
-@pytest.mark.parametrize("max_tile", TILES)
-@pytest.mark.parametrize("n", NS)
-@pytest.mark.parametrize("mode", MODES)
-def test_staged_emulation_matches_plain_and_reference(mode, n, max_tile):
+def staged_emulation_matches_plain_and_reference(mode, n, max_tile):
     kw = _mode(mode, n)
     dirs = pst.shift_dirs(mode, n, **kw)
     w = 2 if n < 1 << 20 else 1
@@ -297,10 +296,7 @@ def test_staged_emulation_matches_plain_and_reference(mode, n, max_tile):
     assert torch.equal(got_rec, want_rec)
 
 
-@pytest.mark.parametrize("max_tile", LIVE_TILES)
-@pytest.mark.parametrize("n", NS)
-@pytest.mark.parametrize("mode", MODES)
-def test_masked_plan_places_the_liveness_slices(mode, n, max_tile):
+def masked_plan_places_the_liveness_slices(mode, n, max_tile):
     dirs = pst.shift_dirs(mode, n, **_mode(mode, n))
     tile, stages, stage_words, rec_at, _, wins, ds, ends, *_ = _plan(
         dirs, n, False, max_tile, live=True)
@@ -343,10 +339,7 @@ def _jax_masked_exchange(mode, x, rows, dirs, kw):
     return jst.circulant_masked_exchange(xj, jnp.asarray(rows), strides)
 
 
-@pytest.mark.parametrize("max_tile", LIVE_TILES)
-@pytest.mark.parametrize("n", NS)
-@pytest.mark.parametrize("mode", MODES)
-def test_masked_emulation_matches_plain_and_reference(mode, n, max_tile):
+def masked_emulation_matches_plain_and_reference(mode, n, max_tile):
     kw = _mode(mode, n)
     dirs = pst.shift_dirs(mode, n, **kw)
     w = 2 if n < 1 << 20 else 1
@@ -388,10 +381,7 @@ def _ring_dirs(dirs, terms, ring):
         tuple(pst.send_slot(RING_T, v, ring) for _, v in terms))
 
 
-@pytest.mark.parametrize("max_tile", TILES)
-@pytest.mark.parametrize("n", NS)
-@pytest.mark.parametrize("mode", MODES)
-def test_ring_emulation_matches_plain_and_reference(mode, n, max_tile):
+def ring_emulation_matches_plain_and_reference(mode, n, max_tile):
     # per-edge classes (make_edge_delayed: a row a (direction, delay),
     # gated by its packed class row) and per-direction classes
     # (make_delayed: ungated) reading 1, 2 and 3 ring slots; the ring at
@@ -430,8 +420,7 @@ def test_ring_emulation_matches_plain_and_reference(mode, n, max_tile):
         assert torch.equal(got, want), ("no rows", values)
 
 
-@pytest.mark.parametrize("n", (65539, 1 << 20))
-def test_ring_emulation_past_a_group(n):
+def ring_emulation_past_a_group(n):
     # a slot of more than MAX_DIRS rows (the circulant's 8 directions
     # three times over, 20 of them in one slot: one window, split into
     # groups of 16 and 4) and 24 rows over 3 slots, one launch each; ring
@@ -454,7 +443,7 @@ def test_ring_emulation_past_a_group(n):
             assert torch.equal(got, want), lv is None
 
 
-def test_ring_plans_of_the_delay_phases_keep_the_tile():
+def ring_plans_of_the_delay_phases_keep_the_tile():
     # w1_circulant_delayed's tables at 2^20 nodes and round 5: the
     # edge-delayed 8 directions x classes {1, 3} (16 rows, 2 slots) with
     # their class rows, and 3 classes (24 rows); the per-direction table
